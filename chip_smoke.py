@@ -4,25 +4,33 @@
 
 Phases, one JSON line each:
 
-1. card   — the card's name and power limit (nvidia-smi);
-2. build  — every CUDA kernel of the port, built with nvcc from csrc/;
-3. kernel — each kernel against its plain PyTorch version on the card,
-            at the shapes the main path gives it (Cora: 3072 padded
-            nodes, its real edges and 3072 self loops, F = 16 and 7) and
-            at a
-            synthetic graph of PubMed's shapes (F = 16 and 128), in both
-            CSR directions, with fp32 x (tolerance 1e-5) and bf16 x
-            (1e-2), relative to the largest reference magnitude; with
-            the kernel's, the plain version's and one library call's
-            times (CUDA graphs of 50 calls timed with CUDA events) and
-            the bound;
-4. slice  — the main path as a user runs it: Planetoid Cora ->
-            from_data -> train_gcn(epochs=200, device="cuda"), with the
-            kernel's launch count read over exactly that run, accuracy
-            gates, and the trained model's logits on the card against
-            the plain path on the CPU.
-5. trace  — torch.profiler over 20 more epochs of the same step: device
-            time per kernel name, device busy and idle share.
+1. card      — the card's name and power limit (nvidia-smi);
+2. build     — every CUDA kernel of the port, built with nvcc from csrc/
+               (one nvcc per source, all started together);
+3. kernel    — each kernel against its plain PyTorch version on the
+               card, at the shapes the main paths give it, relative to
+               the largest reference magnitude, with the kernel's, the
+               plain version's and (where one exists) one library call's
+               times (CUDA graphs of 50 calls timed with CUDA events)
+               and the bound:
+               - spmm_csr at Cora (3072 padded nodes, its real edges and
+                 3072 self loops, F = 16 and 7) and at a synthetic graph
+                 of PubMed's shapes (F = 16 and 128), both CSR
+                 directions, fp32 x (1e-5) and bf16 x (1e-2);
+               - the packed-GAT forward (raw num‖den) and backward
+                 (dd, ds, dh) at Cora with conv1's (H, C) = (8, 8) and
+                 conv2's (1, 7), and at PubMed's shapes with (8, 8),
+                 attention dropout 0 and 0.6, fp32 (1e-5);
+4. slice     — the GCN path as a user runs it: Planetoid Cora ->
+               from_data -> train_gcn(epochs=200, device="cuda"), with
+               the kernel's launch count read over exactly that run,
+               accuracy gates, and the trained model's logits on the
+               card against the plain path on the CPU;
+5. slice_gat — the GAT path the same way: train_gat(epochs=200), the
+               packed-GAT launch counts read over exactly that run;
+6. trace     — torch.profiler over 20 more epochs of the GCN step:
+               device time per kernel name, device busy and idle share;
+7. trace_gat — the same for the GAT step.
 
 Then a "kernels" JSON line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
@@ -47,6 +55,8 @@ EPOCHS = 200
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TOL = {"fp32": 1e-5, "bf16": 1e-2}
+#: Attention-dropout seed of the packed-GAT kernel cases.
+GAT_SEED = 123457
 
 
 def emit(obj):
@@ -83,9 +93,32 @@ def spmm_bound(csr, f, x_bytes):
     nbytes = (csr.num_edges * 8 + (csr.num_rows + 1) * 4
               + csr.num_cols * f * x_bytes + csr.num_rows * f * 4)
     flops = 2 * csr.num_edges * f
+    return _bound(nbytes, flops)
+
+
+def _bound(nbytes, flops):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def gat_bound(op, H, C, backward):
+    """Least time for one packed-GAT call: the edge set once (row_ptr and
+    col of one CSR), the node inputs once (d, s, h, m, seed; g for the
+    backward), the outputs once (num‖den; dd, ds, dh), fp32. Flops per
+    (edge, head): forward 2C (weighted sum) + 8 (logit, leaky, shift,
+    exp, denominator, dropout scale), backward 4C (the dot <gnum, h> and
+    dh) + 12 (the same logit terms and dz)."""
+    n, E, HC = op.n, op.E, H * C
+    nbytes = ((n + 1) * 4 + E * 4
+              + (2 * n * H + n * HC + H + 1) * 4
+              + n * (HC + H) * 4)                   # out, or g
+    if backward:
+        nbytes += (2 * n * H + n * HC) * 4          # dd, ds, dh
+        flops = E * H * (4 * C + 12)
+    else:
+        flops = E * H * (2 * C + 8)
+    return _bound(nbytes, flops)
 
 
 def phase_card():
@@ -174,9 +207,66 @@ def check_case(graph_name, csr, val, direction, f, dtype_name, gen):
     return case
 
 
+def _max_rel_err(got, want):
+    """(largest absolute error, largest error relative to the largest
+    reference magnitude) over matching tensors."""
+    abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    rel_err = max(float((a - b).abs().max())
+                  / max(float(b.abs().max()), 1e-30)
+                  for a, b in zip(got, want))
+    return abs_err, rel_err
+
+
+def check_gat_case(graph_name, op, H, C, rate, gen):
+    """The packed-GAT forward and backward kernels against their plain
+    versions on random node inputs at one (H, C) and dropout rate: one
+    line per kernel."""
+    from pytorch_geometric_tpu_torch.ops import packed_gat as pg
+
+    n = op.n
+    d, s = (torch.randn(n, H, generator=gen, device=DEVICE)
+            for _ in range(2))
+    h = torch.randn(n, H * C, generator=gen, device=DEVICE)
+    g = torch.randn(n, H * C + H, generator=gen, device=DEVICE)
+    m = s.amax(0)
+    seed = torch.tensor([GAT_SEED], dtype=torch.int32, device=DEVICE)
+    fwd_args = (op.fwd, d, s, h, m, seed, rate)
+    # the kernel also walks the sender-major CSR; the plain version needs
+    # only the receiver-major one
+    bwd_args = (op.fwd, op.bwd, op.bwd_eid, d, s, h, m, seed, g, rate)
+    bwd_plain_args = (op.fwd, d, s, h, m, seed, g, rate)
+    rows = op.fwd.row_ptr[1:] - op.fwd.row_ptr[:-1]
+    cases = []
+    for name, kernel, plain, args, plain_args, backward in (
+            ("packed_gat_fwd", pg.packed_gat_fwd, pg.packed_gat_fwd_plain,
+             fwd_args, fwd_args, False),
+            ("packed_gat_bwd", pg.packed_gat_bwd, pg.packed_gat_bwd_plain,
+             bwd_args, bwd_plain_args, True)):
+        got, want = kernel(*args), plain(*plain_args)
+        torch.cuda.synchronize()
+        got, want = ((got,), (want,)) if not backward else (got, want)
+        abs_err, rel_err = _max_rel_err(got, want)
+        bound_ms, bound_by = gat_bound(op, H, C, backward)
+        case = {"phase": "kernel", "kernel": name, "graph": graph_name,
+                "H": H, "C": C, "rate": rate, "rows": n, "edges": op.E,
+                "longest_row": int(rows.max()),
+                "launches_per_call": 2 if backward else 1,
+                "max_abs_err": abs_err, "rel_err": rel_err,
+                "tol": TOL["fp32"], "ok": rel_err <= TOL["fp32"],
+                "kernel_ms": device_ms(lambda: kernel(*args)),
+                "plain_ms": device_ms(lambda: plain(*plain_args)),
+                # no single PyTorch call computes a GAT layer
+                "library_ms": None,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+        emit(case)
+        cases.append(case)
+    return cases
+
+
 def phase_kernel():
     from pytorch_geometric_tpu_torch.data import from_data
     from pytorch_geometric_tpu_torch.datasets import synthetic_citation_graph
+    from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
     from pytorch_geometric_tpu_torch.transforms import NormalizeFeatures
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -191,6 +281,12 @@ def phase_kernel():
                 for dtype_name in ("fp32", "bf16"):
                     cases.append(check_case(graph_name, csr, val, direction,
                                             f, dtype_name, gen))
+    for graph_name, graph, heads in (("cora", cora, ((8, 8), (1, 7))),
+                                     ("pubmed", pubmed, ((8, 8),))):
+        op = gat_flash_op(graph)
+        for H, C in heads:
+            for rate in (0.0, 0.6):
+                cases += check_gat_case(graph_name, op, H, C, rate, gen)
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} kernel case(s) disagree with the "
@@ -250,21 +346,91 @@ def phase_slice():
     return result
 
 
-def phase_trace(epochs=20):
-    """Where an epoch's time goes: ``torch.profiler`` over ``epochs``
-    epochs of the same training step (after warm-up), device busy time
-    per kernel name against the host's wall clock. Launches here come
-    after the slice's count was read."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def phase_slice_gat():
+    """examples/gat.py's run on the card: train_gat on Cora, every
+    attention layer, forward and backward, through the packed-GAT
+    kernels. Per epoch 2 forward launches (conv1, conv2) and 4 backward
+    launches (2 per layer: receiver- and sender-major CSR); the final
+    evaluation adds 2 forward launches."""
+    import numpy as np
 
+    from pytorch_geometric_tpu_torch.models.citation import (
+        gat_flash_op, train_gat)
+    from pytorch_geometric_tpu_torch.ops import packed_gat as pg
+
+    ds, graph = _cora_graph(DEVICE)
+    pg.packed_gat_fwd.launches = pg.packed_gat_bwd.launches = 0
+    model, metrics = train_gat(graph, num_classes=ds.num_classes,
+                               epochs=EPOCHS, seed=SEED, device=DEVICE)
+    launches = {"packed_gat_fwd": pg.packed_gat_fwd.launches,
+                "packed_gat_bwd": pg.packed_gat_bwd.launches}
+    expected = {"packed_gat_fwd": 2 * EPOCHS + 2,
+                "packed_gat_bwd": 4 * EPOCHS}
+    loss = metrics["curve"]["loss"]
+    # The trained model on the card (kernels) against the plain path on
+    # the CPU, same weights, dropout off.
+    with torch.no_grad():
+        logits = {}
+        for dev in (DEVICE, "cpu"):
+            m = model.to(dev)
+            g = graph.to(dev)
+            logits[dev] = m(g, g.x, flash_op=gat_flash_op(g))
+    ref = logits["cpu"]
+    parity = float((logits[DEVICE].cpu() - ref).abs().max()
+                   / ref.abs().max())
+    result = {"phase": "slice_gat", "dataset": "cora",
+              "synthetic": ds.is_synthetic, "nodes": graph.num_nodes,
+              "edges": graph.num_edges, "epochs": EPOCHS,
+              "seconds": metrics["seconds"],
+              "ms_per_epoch": metrics["seconds"] / EPOCHS * 1e3,
+              "final_loss": float(loss[-1]),
+              "train_acc": metrics["train_acc"],
+              "val_acc": metrics["val_acc"], "test_acc": metrics["test_acc"],
+              "launches": launches, "expected_launches": expected,
+              "logits_shape": list(ref.shape),
+              "logits_cuda_vs_cpu_rel_err": parity}
+    emit(result)
+    if not np.isfinite(loss).all():
+        raise AssertionError("non-finite training loss")
+    if not (metrics["val_acc"] > 0.6 and metrics["test_acc"] > 0.6):
+        raise AssertionError(f"accuracy gate: val {metrics['val_acc']}, "
+                             f"test {metrics['test_acc']} (need > 0.6)")
+    if launches != expected:
+        raise AssertionError(f"packed-GAT launches on the main path "
+                             f"{launches}, expected {expected}")
+    if not (torch.isfinite(logits[DEVICE]).all() and parity <= 1e-4):
+        raise AssertionError(f"trained logits: card vs CPU rel err {parity}")
+    return result
+
+
+def _gcn_step(ds, graph):
     from pytorch_geometric_tpu_torch.models.citation import (
         GCN, create_gcn_train_step)
 
-    ds, graph = _cora_graph(DEVICE)
     model = GCN(graph.num_node_features, 16, ds.num_classes,
                 generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
-    step, _ = create_gcn_train_step(model, graph)
+    return create_gcn_train_step(model, graph)[0]
+
+
+def _gat_step(ds, graph):
+    from pytorch_geometric_tpu_torch.models.citation import (
+        GAT, create_gat_train_step)
+
+    model = GAT(graph.num_node_features, ds.num_classes,
+                generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
+    return create_gat_train_step(model, graph)[0]
+
+
+def phase_trace(make_step=_gcn_step, phase="trace", epochs=20):
+    """Where an epoch's time goes: ``torch.profiler`` over ``epochs``
+    epochs of the same training step (after warm-up), device busy time
+    per kernel name against the host's wall clock. Launches here come
+    after the slices' counts were read."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ds, graph = _cora_graph(DEVICE)
+    step = make_step(ds, graph)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     for _ in range(5):
         step(gen)
@@ -287,7 +453,7 @@ def phase_trace(epochs=20):
     kernels = [(us, name, n) for name, (us, n) in per_name.items()]
     kernels.sort(reverse=True)
     busy_us = sum(k[0] for k in kernels)
-    result = {"phase": "trace", "epochs": epochs,
+    result = {"phase": phase, "epochs": epochs,
               "wall_ms_per_epoch": wall_us / epochs / 1e3,
               "device_busy_ms_per_epoch": busy_us / epochs / 1e3,
               "device_idle_share": (1 - busy_us / wall_us) if kernels
@@ -298,6 +464,44 @@ def phase_trace(epochs=20):
                       for us, n, c in kernels[:10]]}
     emit(result)
     return result
+
+
+#: Each kernel's source, the Pallas kernel it replaces, and the case of
+#: the kernel phase that stands for its main path: the largest call of
+#: that path (GCN's F = 16 forward SpMM; GAT's conv1, 8 heads x 8, with
+#: attention dropout).
+KERNELS = {
+    "spmm_csr": ("pytorch_geometric_tpu_torch/csrc/spmm_csr.cu",
+                 "pytorch_geometric_tpu/ops/spmm.py:56",
+                 dict(direction="fwd", F=16, x="fp32")),
+    "packed_gat_fwd": ("pytorch_geometric_tpu_torch/csrc/packed_gat.cu",
+                       "pytorch_geometric_tpu/ops/packed_gat.py:81",
+                       dict(H=8, C=8, rate=0.6)),
+    "packed_gat_bwd": ("pytorch_geometric_tpu_torch/csrc/packed_gat.cu",
+                       "pytorch_geometric_tpu/ops/packed_gat.py:156",
+                       dict(H=8, C=8, rate=0.6)),
+}
+
+
+def kernels_line(results):
+    """Per kernel: its launches on its main path's run, its largest error
+    over the Cora cases, and the times and bound of its main-path case."""
+    launches = {"spmm_csr": results["slice"]["spmm_csr_launches"],
+                **results["slice_gat"]["launches"]}
+    line = []
+    for name, (source, replaces, keys) in KERNELS.items():
+        mine = [c for c in results["kernel"]
+                if c["kernel"] == name and c["graph"] == "cora"]
+        case = next(c for c in mine
+                    if all(c[k] == v for k, v in keys.items()))
+        line.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": max(c["max_abs_err"] for c in mine),
+                     "ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
+                     "bound_ms": case["bound_ms"],
+                     "bound_by": case["bound_by"],
+                     "library_ms": case["library_ms"]})
+    return line
 
 
 def main():
@@ -319,7 +523,9 @@ def main():
     results = {}
     for name, fn in (("card", phase_card), ("build", phase_build),
                      ("kernel", phase_kernel), ("slice", phase_slice),
-                     ("trace", phase_trace)):
+                     ("slice_gat", phase_slice_gat), ("trace", phase_trace),
+                     ("trace_gat",
+                      lambda: phase_trace(_gat_step, "trace_gat"))):
         if failed and name != "card":
             emit({"phase": name, "skipped": f"after {failed[0]} failed"})
             continue
@@ -334,23 +540,10 @@ def main():
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
 
-    main_case = next(c for c in results["kernel"]
-                     if c["graph"] == "cora" and c["direction"] == "fwd"
-                     and c["F"] == 16 and c["x"] == "fp32")
-    main_err = max(c["max_abs_err"] for c in results["kernel"]
-                   if c["graph"] == "cora")
+    line = kernels_line(results)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(results["card"], flush=True)
-    emit({"kernels": [{
-        "name": "spmm_csr", "route": "cuda",
-        "source": "pytorch_geometric_tpu_torch/csrc/spmm_csr.cu",
-        "replaces": "pytorch_geometric_tpu/ops/spmm.py:56",
-        "launches": results["slice"]["spmm_csr_launches"],
-        "max_abs_err": main_err,
-        "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"]}]})
+    emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,10 +1,15 @@
 """Carry parameters from the JAX package to the port.
 
-The JAX GCN keeps its parameters as a nested dict,
-``params["params"]["conv1"]["weight"]`` (in, out) and ``["bias"]``
-(out,); the port's ``GCN`` state dict names the same arrays
-``conv1.weight`` and ``conv1.bias``, in the same layouts. Only numpy is
-needed: ``np.asarray`` reads a JAX array without importing JAX here.
+The JAX models keep their parameters as a nested dict,
+``params["params"]["conv1"]["weight"]``; the port's modules name the same
+arrays ``conv1.weight``, in the same layouts:
+
+- GCN: ``convK.weight`` (in, out) and ``convK.bias`` (out,);
+- GAT (examples/gat.py): ``convK.weight`` (in, H*C), ``convK.att_src``
+  and ``convK.att_dst`` (1, H, C), ``convK.bias`` (H*C,) or (C,).
+
+Only numpy is needed: ``np.asarray`` reads a JAX array without importing
+JAX here.
 """
 
 from typing import Dict, Mapping
@@ -13,9 +18,10 @@ import numpy as np
 import torch
 
 
-def gcn_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """State dict for the port's ``GCN`` from the JAX GCN's params (the
-    dict ``model.init`` returns, or its ``["params"]`` entry)."""
+def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict for the port's model from the JAX model's params (the
+    dict ``model.init`` returns, or its ``["params"]`` entry): nested
+    names joined with dots, arrays copied as float32."""
     params = tree["params"] if "params" in tree else tree
     out = {}
 
@@ -29,3 +35,4 @@ def gcn_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(params, "")
     return out
+

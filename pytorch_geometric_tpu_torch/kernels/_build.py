@@ -32,9 +32,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: ctypes signature of each library's entry point: (restype, argtypes).
 #: Every pointer and the stream are c_void_p, every int c_int.
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_U, _F = ctypes.c_uint, ctypes.c_float
 SIGNATURES = {
     "spmm_csr": {
         "spmm_csr": (_I, [_P] * 5 + [_I] * 3 + [_P]),
+    },
+    "packed_gat": {
+        "packed_gat_fwd": (_I, [_P] * 8 + [_I] * 3 + [_U, _F, _F, _P]),
+        "packed_gat_bwd": (_I, [_P] * 11 + [_I] * 3
+                           + [_U, _F, _F, _I, _P]),
     },
 }
 

@@ -1,19 +1,26 @@
 """Citation-network models: the reference's canonical workload.
 
-Counterpart of ``pytorch_geometric_tpu/models/citation.py``: a 2-layer
-GCN (hidden 16, dropout 0.5, Adam lr 0.01, weight decay 5e-4 on the first
-layer only), trained full-batch on Cora for 200 epochs (reference
-examples/gcn.py:15-40).
+Counterpart of ``pytorch_geometric_tpu/models/citation.py`` and
+``examples/gat.py``, trained full-batch on Cora for 200 epochs:
 
-The JAX package runs the 200 epochs as one ``lax.scan`` program; here the
+- a 2-layer GCN (hidden 16, dropout 0.5, Adam lr 0.01, weight decay 5e-4
+  on the first layer only; reference examples/gcn.py:15-40). Every
+  aggregation, forward and backward, goes through ``SpmmOperator.bind``
+  over the self-looped ``gcn_norm`` edge set without its padding edges
+  (:func:`gcn_spmm_operator`, the counterpart of the JAX ``pallas=True``
+  configuration): on a CUDA graph the hand-written CSR kernel, 4
+  launches per epoch (2 forward, 2 backward).
+- a 2-layer GAT (8 heads x 8 channels, then 1 head x classes; dropout
+  0.6 on the inputs and the attention; AdamW lr 5e-3, weight decay 5e-4;
+  reference examples/gat.py). Every attention layer goes through one
+  ``PackedFlashGat`` (:func:`gat_flash_op`), the default backend of the
+  JAX example: on a CUDA graph 1 forward launch and 2 backward launches
+  per layer, so 2 + 4 per epoch.
+
+The JAX package runs the epochs as one ``lax.scan`` program; here the
 loop runs eagerly, one ``epoch_step`` per epoch, and nothing is copied to
-the host until the run ends. Every aggregation, forward and backward,
-goes through ``SpmmOperator.bind`` over the self-looped ``gcn_norm``
-edge set without its padding edges (:func:`gcn_spmm_operator`, the
-counterpart of the JAX ``pallas=True`` configuration): on
-a CUDA graph that is the hand-written CSR kernel, 4 launches per epoch
-(2 forward, 2 backward); on a CPU graph the kernel's wrapper computes
-the same function in plain PyTorch.
+the host until the run ends. On a CPU graph each kernel's wrapper
+computes the same function in plain PyTorch.
 """
 
 import time
@@ -24,7 +31,10 @@ from torch import nn
 
 from pytorch_geometric_tpu_torch.data.graph import Graph
 from pytorch_geometric_tpu_torch.device import resolve_device
+from pytorch_geometric_tpu_torch.nn.conv.gat_conv import (
+    GATConv, gat_edge_set)
 from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import GCNConv, gcn_norm
+from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
 from pytorch_geometric_tpu_torch.ops.spmm import SpmmOperator
 
 
@@ -136,12 +146,8 @@ def create_gcn_train_step(model: GCN, graph: Graph, weight_decay=5e-4,
     @torch.no_grad()
     def eval_fn():
         model.eval()
-        logits = model(graph, graph.x, aggregate_fn=aggregate_fn)
-        return {
-            "train_acc": masked_accuracy(logits, graph.y, graph.train_mask),
-            "val_acc": masked_accuracy(logits, graph.y, graph.val_mask),
-            "test_acc": masked_accuracy(logits, graph.y, graph.test_mask),
-        }
+        return _accuracies(model(graph, graph.x, aggregate_fn=aggregate_fn),
+                           graph)
 
     return epoch_step, eval_fn
 
@@ -162,10 +168,122 @@ def train_gcn(graph: Graph, num_classes: int, hidden: int = 16,
                 generator=init_gen).to(dev)
     drop_gen = torch.Generator(device=dev).manual_seed(seed)
     epoch_step, eval_fn = create_gcn_train_step(model, graph, lr=lr)
+    return model, _run(epoch_step, eval_fn, epochs, drop_gen, dev)
 
+
+# ---------------------------------------------------------------------------
+# GAT (examples/gat.py)
+# ---------------------------------------------------------------------------
+
+class GAT(nn.Module):
+    """2-layer GAT: ``heads`` x ``hidden`` concatenated, ELU, then one
+    head of ``num_classes`` channels; dropout on both layers' inputs and
+    on the attention."""
+
+    def __init__(self, in_channels: int, num_classes: int, hidden: int = 8,
+                 heads: int = 8, dropout_rate: float = 0.6,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.conv1 = GATConv(in_channels, hidden, heads=heads,
+                             dropout=dropout_rate, generator=generator)
+        self.conv2 = GATConv(hidden * heads, num_classes, heads=1,
+                             concat=False, dropout=dropout_rate,
+                             generator=generator)
+
+    def forward(self, graph: Graph, x, *, train: bool = False, flash_op=None,
+                generator: Optional[torch.Generator] = None):
+        x = dropout(x, self.dropout_rate, train, generator)
+        x = self.conv1(graph, x, train=train, flash_op=flash_op,
+                       generator=generator)
+        x = torch.nn.functional.elu(x)
+        x = dropout(x, self.dropout_rate, train, generator)
+        return self.conv2(graph, x, train=train, flash_op=flash_op,
+                          generator=generator)
+
+
+def gat_flash_op(graph: Graph) -> PackedFlashGat:
+    """The fused attention operator of the graph (``make_flash_op``'s
+    default backend in examples/gat.py), on the graph's device: one for
+    both layers. The JAX example first reorders the nodes (RCM) to fill
+    the TPU's window buckets; a CSR kernel has no use for that, and a
+    node permutation changes no result, so the port leaves it out."""
+    senders, receivers = gat_edge_set(graph)
+    return PackedFlashGat(senders, receivers, graph.num_nodes,
+                          device=graph.device)
+
+
+def create_gat_train_step(model: GAT, graph: Graph, lr: float = 5e-3,
+                          weight_decay: float = 5e-4):
+    """Build ``(epoch_step, eval_fn)`` closures over a static graph, as
+    ``create_gcn_train_step``. Every attention layer runs through
+    :func:`gat_flash_op` (the kernels on a CUDA graph). The loss is the
+    masked cross-entropy of the full logits, as in examples/gat.py.
+
+    ``torch.optim.AdamW`` makes the same update as ``optax.adamw``:
+    decoupled weight decay ``lr * wd * p`` on every parameter, and eps
+    added outside the square root of the bias-corrected second moment.
+    """
+    flash_op = gat_flash_op(graph)
+    opt = torch.optim.AdamW(model.parameters(), lr=lr,
+                            weight_decay=weight_decay)
+
+    def epoch_step(generator: Optional[torch.Generator] = None):
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        logits = model(graph, graph.x, train=True, flash_op=flash_op,
+                       generator=generator)
+        loss = masked_softmax_xent(logits, graph.y, graph.train_mask)
+        loss.backward()
+        opt.step()
+        return {"loss": loss.detach(),
+                "train_acc": masked_accuracy(logits.detach(), graph.y,
+                                             graph.train_mask)}
+
+    @torch.no_grad()
+    def eval_fn():
+        model.eval()
+        return _accuracies(model(graph, graph.x, flash_op=flash_op), graph)
+
+    return epoch_step, eval_fn
+
+
+def train_gat(graph: Graph, num_classes: int, hidden: int = 8,
+              heads: int = 8, epochs: int = 200, seed: int = 0,
+              lr: float = 5e-3, weight_decay: float = 5e-4,
+              device="cuda") -> Tuple[GAT, Dict[str, Any]]:
+    """Full GAT training run on ``device`` through the fused operator,
+    as examples/gat.py ``run``: ``epochs`` AdamW steps, then one
+    evaluation. Returns the model and the metrics of :func:`train_gcn`.
+    On a CUDA graph the forward kernel launches 2 times per epoch and 2
+    for the evaluation, the backward kernel 4 times per epoch."""
+    dev = resolve_device(device)
+    graph = graph.to(dev)
+    init_gen = torch.Generator().manual_seed(seed)
+    model = GAT(graph.num_node_features, num_classes, hidden=hidden,
+                heads=heads, generator=init_gen).to(dev)
+    drop_gen = torch.Generator(device=dev).manual_seed(seed)
+    epoch_step, eval_fn = create_gat_train_step(
+        model, graph, lr=lr, weight_decay=weight_decay)
+    return model, _run(epoch_step, eval_fn, epochs, drop_gen, dev)
+
+
+# ---------------------------------------------------------------------------
+
+def _accuracies(logits, graph: Graph):
+    return {f"{split}_acc": masked_accuracy(logits, graph.y,
+                                            getattr(graph, f"{split}_mask"))
+            for split in ("train", "val", "test")}
+
+
+def _run(epoch_step, eval_fn, epochs: int, generator: torch.Generator,
+         dev: torch.device) -> Dict[str, Any]:
+    """``epochs`` steps and one evaluation, timed on the host clock up to
+    a device synchronisation; the curve is copied to the host at the
+    end."""
     _synchronize(dev)
     t0 = time.perf_counter()
-    curve = [epoch_step(drop_gen) for _ in range(epochs)]
+    curve = [epoch_step(generator) for _ in range(epochs)]
     final = eval_fn()
     _synchronize(dev)
     seconds = time.perf_counter() - t0
@@ -174,7 +292,7 @@ def train_gcn(graph: Graph, num_classes: int, hidden: int = 16,
     metrics["curve"] = {k: torch.stack([c[k] for c in curve]).cpu().numpy()
                         for k in ("loss", "train_acc")} if curve else {}
     metrics["seconds"] = seconds
-    return model, metrics
+    return metrics
 
 
 def _synchronize(dev: torch.device):

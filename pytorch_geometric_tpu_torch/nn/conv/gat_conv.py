@@ -1,0 +1,150 @@
+"""GAT convolution (Veličković et al.).
+
+Counterpart of ``pytorch_geometric_tpu/nn/conv/gat_conv.py`` (reference:
+``torch_geometric.nn.GATConv`` of PyG 1.4.x). Semantics: h = x W per
+head; per-edge logits e_ij = LeakyReLU(a_src . h_j + a_dst . h_i); alpha
+= softmax over each receiver's incoming edges; out_i = sum_j alpha_ij
+h_j; heads concatenated or averaged; bias added after.
+
+Aggregation paths, as in the JAX module:
+
+- the sparse segment-softmax path (``flash_op=None``), with PyG's
+  remove-then-add self loops: a pre-existing self edge is masked out
+  and each node gets one appended loop. It is the fp32 reference.
+- the fused path (``flash_op=PackedFlashGat(...)``, ``ops/packed_gat.py``):
+  one kernel forward, two backward; the attention-dropout seed is drawn
+  on the device from the caller's generator. ``raw_out=True`` returns
+  its undivided num‖den (the bias is still created, not added).
+
+The dense ``adj``, closure and shard paths of the JAX module are not
+ported yet. ``weight`` is (in, H*C) and ``att_src`` / ``att_dst`` are
+(1, H, C), as in the JAX module.
+"""
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from pytorch_geometric_tpu_torch.data.graph import Graph
+from pytorch_geometric_tpu_torch.nn.inits import glorot, zeros
+from pytorch_geometric_tpu_torch.ops.segment import (
+    segment_max, segment_softmax, segment_sum)
+
+
+def gat_edge_set(graph: Graph) -> Tuple[np.ndarray, np.ndarray]:
+    """``(senders, receivers)`` of the fused path, on the host: the
+    unique real (receiver, sender) pairs plus one self loop for every
+    node, padding nodes included, in row-major (receiver, sender) order.
+
+    Counterpart of ``np.nonzero(gat_dense_adj(graph))`` without the
+    (N, N) matrix. Padding edges are left out and duplicate edges
+    collapse to one, as in the JAX fused path (the sparse path sums
+    them). The position of an edge in this order is its edge id, from
+    which the fused kernels hash attention dropout."""
+    n = graph.num_nodes
+    mask = graph.real_edge_mask().cpu().numpy()
+    loop = np.arange(n, dtype=np.int64)
+    s = np.concatenate([graph.senders.cpu().numpy()[mask], loop])
+    r = np.concatenate([graph.receivers.cpu().numpy()[mask], loop])
+    key = np.unique(r * n + s)
+    return key % n, key // n
+
+
+class GATConv(nn.Module):
+    """``heads`` attention heads of ``out_channels`` each, concatenated
+    (``concat``) or averaged; see the module docstring for the paths."""
+
+    def __init__(self, in_channels: int, out_channels: int, heads: int = 1,
+                 concat: bool = True, negative_slope: float = 0.2,
+                 dropout: float = 0.0, use_bias: bool = True,
+                 add_self_loops: bool = True, raw_out: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        H, C = heads, out_channels
+        self.in_channels, self.out_channels, self.heads = in_channels, C, H
+        self.concat = concat
+        self.negative_slope = negative_slope
+        self.dropout = dropout
+        self.add_self_loops = add_self_loops
+        self.raw_out = raw_out
+        self.weight = nn.Parameter(glorot((in_channels, H * C), generator))
+        self.att_src = nn.Parameter(glorot((1, H, C), generator))
+        self.att_dst = nn.Parameter(glorot((1, H, C), generator))
+        self.bias = nn.Parameter(zeros((H * C,) if concat else (C,))) \
+            if use_bias else None
+
+    def forward(self, graph: Graph, x, *, train: bool = False, flash_op=None,
+                generator: Optional[torch.Generator] = None):
+        H, C = self.heads, self.out_channels
+        if self.raw_out and flash_op is None:
+            # the raw num‖den only exists on the fused path; the others
+            # return finalized output, which the caller would divide again
+            raise ValueError("GATConv(raw_out=True) requires the fused "
+                             "flash_op path")
+        N = graph.num_nodes
+        h2 = x @ self.weight                                     # (N, HC)
+        h = h2.reshape(N, H, C)
+        alpha_src = (h * self.att_src).sum(-1)                   # (N, H)
+        alpha_dst = (h * self.att_dst).sum(-1)
+        if flash_op is not None:
+            return self._flash_call(flash_op, h2, alpha_src, alpha_dst,
+                                    train, generator)
+
+        senders, receivers = graph.senders.long(), graph.receivers.long()
+        if self.add_self_loops:
+            loop = torch.arange(N, device=senders.device)
+            senders = torch.cat([senders, loop])
+            receivers = torch.cat([receivers, loop])
+        logits = alpha_src[senders] + alpha_dst[receivers]   # (E', H)
+        logits = torch.nn.functional.leaky_relu(logits, self.negative_slope)
+        if self.add_self_loops:
+            # PyG removes self loops, then adds one per node: pre-existing
+            # self edges get no softmax slot of their own
+            dup = senders == receivers
+            dup[graph.num_edges:] = False
+            logits = torch.where(dup[:, None], -1e9, logits)
+        E2 = senders.shape[0]
+        if self.dropout > 0 and train:
+            # dropout acts on the normalised alpha (PyG semantics)
+            alpha = segment_softmax(logits, receivers, N)
+            keep = torch.rand(alpha.shape, generator=generator,
+                              device=alpha.device) < 1.0 - self.dropout
+            alpha = torch.where(keep, alpha / (1.0 - self.dropout), 0.0)
+            out = segment_sum(h[senders] * alpha[..., None], receivers,
+                              N).reshape(N, H * C)
+        else:
+            # one segment sum carries the weighted messages and the
+            # softmax denominator
+            seg_max = segment_max(logits.detach(), receivers, N)
+            expv = torch.exp(logits - seg_max[receivers])        # (E', H)
+            weighted = h[senders] * expv[..., None]
+            fused = torch.cat([weighted.reshape(E2, H * C), expv], dim=1)
+            summed = segment_sum(fused, receivers, N)            # (N, HC+H)
+            denom = summed[:, H * C:].clamp_min(1e-16)
+            out = (summed[:, :H * C].reshape(N, H, C)
+                   / denom[..., None]).reshape(N, H * C)
+        return self._finalize(out)
+
+    def _flash_call(self, flash_op, h2, alpha_src, alpha_dst, train,
+                    generator):
+        if self.dropout > 0 and train:
+            # drawn on the device: nothing waits on the card for it
+            seed = torch.randint(0, 1 << 20, (1,), generator=generator,
+                                 device=h2.device, dtype=torch.int32)
+            rate = self.dropout
+        else:
+            seed, rate = 0, 0.0
+        out = flash_op(alpha_dst, alpha_src, h2, seed, rate=rate,
+                       raw_out=self.raw_out)
+        return out if self.raw_out else self._finalize(out)
+
+    def _finalize(self, out):
+        """Head concat or mean, then bias, on the flat (N, H*C) block
+        (``_finalize`` and ``_finalize2d`` of the JAX module)."""
+        if not self.concat:
+            out = out.reshape(out.shape[0], self.heads, -1).mean(dim=1)
+        if self.bias is not None:
+            out = out + self.bias
+        return out

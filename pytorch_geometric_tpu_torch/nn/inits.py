@@ -5,7 +5,7 @@
 Each takes an explicit ``torch.Generator``: the port draws no numbers
 from torch's global generator. The draws differ from ``jax.random``'s
 for the same seed, so tests carry weights across with
-``convert.gcn_params_from_jax``.
+``convert.params_from_jax``.
 """
 
 import math

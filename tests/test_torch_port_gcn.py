@@ -1,7 +1,7 @@
 """Port parity, GCN slice: ``gcn_norm``, ``GCNConv`` on each aggregation
 path, the ``GCN`` logits and one-step gradients, and Adam steps of
 ``create_gcn_train_step`` against the JAX package, with the JAX weights
-carried over by ``gcn_params_from_jax`` and dropout off (flax and torch
+carried over by ``params_from_jax`` and dropout off (flax and torch
 draw different masks). Tolerances: fp32 1e-5 relative to the largest
 reference magnitude; five Adam steps 1e-4 against the JAX default
 (segment) path and 1e-2 against its ``pallas=True`` path, whose hybrid
@@ -22,7 +22,7 @@ from pytorch_geometric_tpu.nn.conv.gcn_conv import gcn_norm as j_gcn_norm
 from pytorch_geometric_tpu.nn.conv.gcn_conv import (
     gcn_norm_dense as j_gcn_norm_dense)
 from pytorch_geometric_tpu.ops.spmm import SpmmOperator as JSpmmOperator
-from pytorch_geometric_tpu_torch.convert import gcn_params_from_jax
+from pytorch_geometric_tpu_torch.convert import params_from_jax
 from pytorch_geometric_tpu_torch.data import Data, from_data
 from pytorch_geometric_tpu_torch.datasets import synthetic_citation_graph
 from pytorch_geometric_tpu_torch.models import citation as tcit
@@ -67,7 +67,7 @@ def _jax_gcn(jg, dropout_rate=0.0):
 
 def _port_gcn(params, dropout_rate=0.0):
     model = tcit.GCN(F_IN, HIDDEN, CLASSES, dropout_rate=dropout_rate)
-    model.load_state_dict(gcn_params_from_jax(params))
+    model.load_state_dict(params_from_jax(params))
     return model
 
 
@@ -101,7 +101,7 @@ def test_gcn_conv_paths_match_jax(path):
     jconv = JGCNConv(HIDDEN)
     params = jconv.init(jax.random.PRNGKey(1), jg, jg.x)
     conv = GCNConv(F_IN, HIDDEN)
-    conv.load_state_dict(gcn_params_from_jax(params))
+    conv.load_state_dict(params_from_jax(params))
     assert conv.weight.shape == (F_IN, HIDDEN)     # (in, out) as in JAX
     jn, n = j_gcn_norm(jg), gcn_norm(g)
     if path == "sparse":
@@ -165,7 +165,7 @@ def test_gcn_logits_and_one_step_grads_match_jax():
     loss.backward()
     _close(logits, jlogits, 1e-5)
     _close(loss, jl, 1e-5)
-    want = gcn_params_from_jax(jgrads)
+    want = params_from_jax(jgrads)
     for name, p in model.named_parameters():
         _close(p.grad, want[name], 1e-5)
 
@@ -203,7 +203,7 @@ def test_five_adam_steps_match_jax(jax_path, tol):
         carry, jm = jstep(carry, None)
         m = step()
         _close(m["loss"], jm["loss"], tol)
-    want = gcn_params_from_jax(carry[0])
+    want = params_from_jax(carry[0])
     for name, p in model.state_dict().items():
         _close(p, want[name], tol)
     got_eval, want_eval = evaluate(), jeval(carry[0])
@@ -243,7 +243,7 @@ def test_gcn_output_respects_padding():
 def test_gcn_params_from_jax_layout():
     _, jg = _graphs(8)
     _, params = _jax_gcn(jg)
-    sd = gcn_params_from_jax(params)
+    sd = params_from_jax(params)
     assert sorted(sd) == ["conv1.bias", "conv1.weight", "conv2.bias",
                           "conv2.weight"]
     assert sd["conv1.weight"].shape == (F_IN, HIDDEN)

@@ -16,8 +16,10 @@ import torch
 
 from pytorch_geometric_tpu_torch.data import Data, from_data
 from pytorch_geometric_tpu_torch.kernels import _build
-from pytorch_geometric_tpu_torch.models.citation import train_gcn
+from pytorch_geometric_tpu_torch.models.citation import train_gat, train_gcn
+from pytorch_geometric_tpu_torch.nn.conv import gat_edge_set
 from pytorch_geometric_tpu_torch.ops.csr import build_csr
+from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
 from pytorch_geometric_tpu_torch.ops.spmm import (
     SpmmOperator, spmm_csr, spmm_csr_plain)
 
@@ -52,8 +54,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                          env=env, capture_output=True, text=True,
                          timeout=120, check=True)
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "pytorch_geometric_tpu_torch.models.citation" in report["modules"]
-    assert "pytorch_geometric_tpu_torch.kernels._build" in report["modules"]
+    for name in ("models.citation", "kernels._build", "ops.packed_gat",
+                 "nn.conv.gat_conv"):
+        assert f"pytorch_geometric_tpu_torch.{name}" in report["modules"]
     assert report["bad"] == []
 
 
@@ -67,6 +70,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         train_gcn(graph, num_classes=2, epochs=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         SpmmOperator(graph.senders, graph.receivers, graph.num_nodes)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_gat(graph, num_classes=2, epochs=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PackedFlashGat(*gat_edge_set(graph), graph.num_nodes)
 
 
 def test_cpu_wrapper_computes_plain_and_counts_no_launch():
@@ -98,10 +105,13 @@ def test_wrapper_refuses_other_devices_and_bad_inputs():
 
 
 def test_kernel_build_is_described_not_run_at_import():
-    assert (_build.SOURCE_DIR / "spmm_csr.cu").is_file()
+    assert sorted(_build.SIGNATURES) == ["packed_gat", "spmm_csr"]
+    for name in _build.SIGNATURES:
+        assert (_build.SOURCE_DIR / f"{name}.cu").is_file()
+        path = _build.library_path(name)
+        assert path.parent == _build.BUILD_DIR and path.name.endswith(".so")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    path = _build.library_path("spmm_csr")
-    assert path.parent == _build.BUILD_DIR and path.name.endswith(".so")
+    assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
     ignored = (REPO / ".gitignore").read_text().splitlines()
     assert "/pytorch_geometric_tpu_torch/_build/" in ignored
 

@@ -6,7 +6,8 @@ GPU and the port alone:
 
 Where there is no card they skip (CUDA kernels have no CPU mode); the
 CPU-side behaviour of each wrapper is covered in the other
-``tests/test_torch_port_*.py`` files.
+``tests/test_torch_port_*.py`` files. Kernels: ``spmm_csr`` and the
+packed-GAT forward and backward.
 """
 
 import numpy as np
@@ -83,3 +84,89 @@ def test_spmm_operator_on_card_matches_cpu(cuda_device):
     assert cpu[3] == 0 and card[3] == 4
     for a, b in zip(card[:3], cpu[:3]):
         assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+def _gat_edges(n=512, seed=8):
+    """Unique (receiver, sender) pairs in receiver-major order with one
+    self loop per node, plus a receiver hub (row 3: 500 senders) and a
+    sender hub (node 10: 400 receivers), and rows with no edges but
+    their loop (nodes n-40 and up)."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, n, 4000)
+    r = rng.integers(0, n - 40, 4000)
+    s = np.concatenate([s, np.arange(500), np.full(400, 10), np.arange(n)])
+    r = np.concatenate([r, np.full(500, 3), np.arange(400), np.arange(n)])
+    key = np.unique(r * n + s)
+    return key % n, key // n
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,C", [(1, 7), (8, 8), (2, 33), (4, 64), (1, 256)])
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+def test_packed_gat_kernels_match_plain_on_card(cuda_device, H, C, rate):
+    """Forward (raw num‖den) and backward (dd over the receiver-major
+    CSR, ds|dh over the sender-major one) against their plain versions,
+    fp32 within 1e-5 of the largest reference magnitude, with hub rows on
+    both sides. With dropout on, a sender-side kernel that hashed its own
+    CSR position instead of the edge id would disagree here. Two
+    launches give bitwise equal results (no atomics)."""
+    from pytorch_geometric_tpu_torch.ops import packed_gat as pg
+
+    n = 512
+    op = pg.PackedFlashGat(*_gat_edges(n), n, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(H * 1000 + C)
+    d, s = (torch.randn(n, H, generator=gen, device=cuda_device)
+            for _ in range(2))
+    h = torch.randn(n, H * C, generator=gen, device=cuda_device)
+    g = torch.randn(n, H * C + H, generator=gen, device=cuda_device)
+    m = s.amax(0)
+    seed = torch.tensor([123457], dtype=torch.int32, device=cuda_device)
+    fwd0, bwd0 = pg.packed_gat_fwd.launches, pg.packed_gat_bwd.launches
+    got = pg.packed_gat_fwd(op.fwd, d, s, h, m, seed, rate)
+    want = pg.packed_gat_fwd_plain(op.fwd, d, s, h, m, seed, rate)
+    bwd_args = (op.fwd, op.bwd, op.bwd_eid, d, s, h, m, seed, g, rate)
+    got_b = pg.packed_gat_bwd(*bwd_args)
+    want_b = pg.packed_gat_bwd_plain(op.fwd, d, s, h, m, seed, g, rate)
+    torch.cuda.synchronize()
+    assert (pg.packed_gat_fwd.launches - fwd0,
+            pg.packed_gat_bwd.launches - bwd0) == (1, 2)
+    assert _rel_err(got, want) <= 1e-5
+    for a, b in zip(got_b, want_b):
+        assert _rel_err(a, b) <= 1e-5
+    assert torch.equal(got, pg.packed_gat_fwd(op.fwd, d, s, h, m, seed, rate))
+    for a, b in zip(got_b, pg.packed_gat_bwd(*bwd_args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_packed_flash_gat_on_card_matches_cpu(cuda_device):
+    """``PackedFlashGat`` on the card (forward and backward through the
+    kernels) against the same op on the CPU (plain versions), divided
+    output with dropout, gradients of d, s and h, launches counted."""
+    from pytorch_geometric_tpu_torch.ops import packed_gat as pg
+
+    n, H, C = 512, 4, 8
+    edges = _gat_edges(n, seed=9)
+    rng = np.random.default_rng(9)
+    arrays = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+              for shape in ((n, H), (n, H), (n, H * C), (n, H * C))]
+    results = {}
+    for dev in ("cpu", cuda_device):
+        op = pg.PackedFlashGat(*edges, n, device=dev)
+        d, s, h = (a.to(dev, copy=True).requires_grad_()
+                   for a in arrays[:3])
+        before = (pg.packed_gat_fwd.launches, pg.packed_gat_bwd.launches)
+        out = op(d, s, h, 4321, rate=0.6)
+        (out * arrays[3].to(dev)).sum().backward()
+        after = (pg.packed_gat_fwd.launches, pg.packed_gat_bwd.launches)
+        results[str(dev)] = ([t.detach().cpu() for t in
+                              (out, d.grad, s.grad, h.grad)],
+                             (after[0] - before[0], after[1] - before[1]))
+    cpu, card = results["cpu"], results[str(cuda_device)]
+    assert cpu[1] == (0, 0) and card[1] == (1, 2)
+    for a, b in zip(card[0], cpu[0]):
+        assert _rel_err(a, b) <= 1e-5
