@@ -21,6 +21,13 @@ Phases, one JSON line each:
                  (dd, ds, dh) at Cora with conv1's (H, C) = (8, 8) and
                  conv2's (1, 7), and at PubMed's shapes with (8, 8),
                  attention dropout 0 and 0.6, fp32 (1e-5);
+               - the packed-RGCN forward and backward (dxB, datt) at the
+                 two operators of the MUTAG-RDF slice (synthetic graph at
+                 the published size: 24576 padded nodes, 141864 edges, 46
+                 relations; conv1's (B, C) = (30, 16) in embed mode,
+                 conv2's (30, 2)), and at an odd shape (B, C) = (5, 33)
+                 on a graph with a hub receiver, a hub sender and a
+                 dominant relation, fp32 (1e-5);
 4. slice     — the GCN path as a user runs it: Planetoid Cora ->
                from_data -> train_gcn(epochs=200, device="cuda"), with
                the kernel's launch count read over exactly that run,
@@ -28,9 +35,12 @@ Phases, one JSON line each:
                card against the plain path on the CPU;
 5. slice_gat — the GAT path the same way: train_gat(epochs=200), the
                packed-GAT launch counts read over exactly that run;
-6. trace     — torch.profiler over 20 more epochs of the GCN step:
+6. slice_rgcn — the RGCN path the same way: Entities MUTAG at
+               scale=1.0 -> from_data -> train_rgcn(epochs=50), the
+               packed-RGCN launch counts read over exactly that run;
+7. trace     — torch.profiler over 20 more epochs of the GCN step:
                device time per kernel name, device busy and idle share;
-7. trace_gat — the same for the GAT step.
+8. trace_gat, trace_rgcn — the same for the GAT and the RGCN step.
 
 Then a "kernels" JSON line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
@@ -50,6 +60,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 SEED = 0
 EPOCHS = 200
+#: examples/rgcn.py's default.
+RGCN_EPOCHS = 50
 # H100 SXM data-sheet peaks (used for the bound): HBM bytes/s and fp32
 # (non-tensor-core) flop/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -119,6 +131,23 @@ def gat_bound(op, H, C, backward):
     else:
         flops = E * H * (2 * C + 8)
     return _bound(nbytes, flops)
+
+
+def rgcn_bound(op, B, C, backward):
+    """Least time for one packed-RGCN call: the edge set once (row_ptr,
+    col, relation and weight of one CSR), att and the rows of xB that
+    some edge names once (rows no edge sends from, such as padding rows,
+    need not be read), and the output once (forward) or g and both
+    gradients once (backward; every row of dxB is written), fp32. Flops
+    per edge: 2 B C forward (the contraction over bases), 4 B C backward
+    (dxB and the dots of datt)."""
+    rows, n, E, R = op.num_src_rows, op.num_nodes, op.E, op.R
+    used = int(torch.unique(op.fwd.col).numel())
+    nbytes = ((n + 1) * 4 + E * 12 + used * B * C * 4 + R * B * 4
+              + n * C * 4)                          # out, or g
+    if backward:
+        nbytes += rows * B * C * 4 + R * B * 4      # dxB, datt
+    return _bound(nbytes, E * B * C * (4 if backward else 2))
 
 
 def phase_card():
@@ -263,10 +292,90 @@ def check_gat_case(graph_name, op, H, C, rate, gen):
     return cases
 
 
+def check_rgcn_case(graph_name, op, B, C, gen):
+    """The packed-RGCN forward and backward kernels against their plain
+    versions on random inputs at one (B, C): one line per kernel."""
+    from pytorch_geometric_tpu_torch.ops import packed_rgcn as pr
+
+    xB = torch.randn(op.num_src_rows, B * C, generator=gen, device=DEVICE)
+    att = torch.randn(op.R, B, generator=gen, device=DEVICE)
+    g = torch.randn(op.num_nodes, C, generator=gen, device=DEVICE)
+    fwd_args = (op.fwd, op.fwd_et, op.fwd_w, xB, att)
+    # the kernels also take the relation-major positions; the plain
+    # version needs only the sender-major CSR
+    bwd_args = (op.bwd, op.bwd_et, op.bwd_w, op.bwd_pos, op.rel_ptr, xB,
+                att, g)
+    bwd_plain_args = (op.bwd, op.bwd_et, op.bwd_w, xB, att, g)
+    cases = []
+    for name, kernel, plain, args, plain_args, csr, backward in (
+            ("packed_rgcn_fwd", pr.packed_rgcn_fwd,
+             pr.packed_rgcn_fwd_plain, fwd_args, fwd_args, op.fwd, False),
+            ("packed_rgcn_bwd", pr.packed_rgcn_bwd,
+             pr.packed_rgcn_bwd_plain, bwd_args, bwd_plain_args, op.bwd,
+             True)):
+        got, want = kernel(*args), plain(*plain_args)
+        torch.cuda.synchronize()
+        got, want = ((got,), (want,)) if not backward else (got, want)
+        abs_err, rel_err = _max_rel_err(got, want)
+        bound_ms, bound_by = rgcn_bound(op, B, C, backward)
+        case = {"phase": "kernel", "kernel": name, "graph": graph_name,
+                "B": B, "C": C, "R": op.R, "rows": csr.num_rows,
+                "src_rows": op.num_src_rows, "edges": op.E,
+                "longest_row": int((csr.row_ptr[1:]
+                                    - csr.row_ptr[:-1]).max()),
+                "launches_per_call": 3 if backward else 1,
+                "max_abs_err": abs_err, "rel_err": rel_err,
+                "tol": TOL["fp32"], "ok": rel_err <= TOL["fp32"],
+                "kernel_ms": device_ms(lambda: kernel(*args)),
+                "plain_ms": device_ms(lambda: plain(*plain_args)),
+                # no single PyTorch call computes the basis-decomposed
+                # relational aggregation or its backward
+                "library_ms": None,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+        emit(case)
+        cases.append(case)
+    return cases
+
+
+def _mutag_graph(device):
+    """MUTAG-RDF at its published size: no data file is needed, the
+    dataset synthesises the graph from its fixed seed."""
+    from pytorch_geometric_tpu_torch.data import from_data
+    from pytorch_geometric_tpu_torch.datasets import Entities
+
+    ds = Entities(os.path.join(REPO, "datasets_cache_fullmutag"), "MUTAG",
+                  scale=1.0)
+    return ds, from_data(ds[0], device=device)
+
+
+def _rgcn_hub_op():
+    """A relational operator whose rows are far from uniform: node 3
+    receives 3000 edges, node 10 sends 2500, relation 2 holds nine edges
+    in ten, with duplicate edges and nodes that have none; 4200 source
+    rows (embed mode)."""
+    import numpy as np
+
+    from pytorch_geometric_tpu_torch.ops.packed_rgcn import PackedRgcnSpmm
+
+    n, R, e = 4096, 7, 30000
+    rng = np.random.default_rng(SEED)
+    s = np.concatenate([rng.integers(0, n - 100, e + 3000),
+                        np.full(2500, 10)])
+    r = np.concatenate([rng.integers(0, n - 100, e), np.full(3000, 3),
+                        rng.integers(0, n - 100, 2500)])
+    et = rng.integers(0, R, s.shape[0])
+    et = np.where(rng.random(s.shape[0]) < 0.9, 2, et)
+    s[:100], r[:100], et[:100] = s[100:200], r[100:200], et[100:200]
+    w = (rng.random(s.shape[0]) + 0.1).astype(np.float32)
+    return PackedRgcnSpmm(s, r, et, R, n, w, num_src_rows=4200,
+                          device=DEVICE)
+
+
 def phase_kernel():
     from pytorch_geometric_tpu_torch.data import from_data
     from pytorch_geometric_tpu_torch.datasets import synthetic_citation_graph
     from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
+    from pytorch_geometric_tpu_torch.models.entities import rgcn_fused_ops
     from pytorch_geometric_tpu_torch.transforms import NormalizeFeatures
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -287,6 +396,12 @@ def phase_kernel():
         for H, C in heads:
             for rate in (0.0, 0.6):
                 cases += check_gat_case(graph_name, op, H, C, rate, gen)
+    ds, mutag = _mutag_graph(DEVICE)
+    embed_op, transform_op = rgcn_fused_ops(mutag, ds.num_relations)
+    for graph_name, op, B, C in (("mutag", embed_op, 30, 16),
+                                 ("mutag", transform_op, 30, 2),
+                                 ("hub", _rgcn_hub_op(), 5, 33)):
+        cases += check_rgcn_case(graph_name, op, B, C, gen)
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} kernel case(s) disagree with the "
@@ -403,6 +518,74 @@ def phase_slice_gat():
     return result
 
 
+def phase_slice_rgcn():
+    """examples/rgcn.py's run on the card at MUTAG-RDF's published size,
+    through the fused operators: train_rgcn, every aggregation, forward
+    and backward, through the packed-RGCN kernels. Per epoch 2 forward
+    launches (conv1, conv2) and 6 backward launches (3 per layer: the
+    sender-major walk and the two steps of the datt reduction); the final
+    evaluation adds 2 forward launches. Test accuracy is printed, not
+    gated: the synthetic labels are the parity of a degree, near chance
+    out of sample."""
+    import numpy as np
+
+    from pytorch_geometric_tpu_torch.models.entities import (
+        rgcn_fused_ops, train_rgcn)
+    from pytorch_geometric_tpu_torch.nn.conv import rgcn_norm
+    from pytorch_geometric_tpu_torch.ops import packed_rgcn as pr
+
+    ds, graph = _mutag_graph(DEVICE)
+    R = ds.num_relations
+    torch.cuda.reset_peak_memory_stats()
+    pr.packed_rgcn_fwd.launches = pr.packed_rgcn_bwd.launches = 0
+    model, metrics = train_rgcn(graph, R, ds.num_classes,
+                                epochs=RGCN_EPOCHS, seed=SEED, device=DEVICE)
+    launches = {"packed_rgcn_fwd": pr.packed_rgcn_fwd.launches,
+                "packed_rgcn_bwd": pr.packed_rgcn_bwd.launches}
+    expected = {"packed_rgcn_fwd": 2 * RGCN_EPOCHS + 2,
+                "packed_rgcn_bwd": 6 * RGCN_EPOCHS}
+    peak = torch.cuda.max_memory_allocated()
+    loss = metrics["curve"]["loss"]
+    # The trained model on the card (kernels) against the plain
+    # embedding-gather and transform-first paths on the CPU, same weights.
+    with torch.no_grad():
+        card = model(graph, fused_ops=rgcn_fused_ops(graph, R))
+        g = graph.to("cpu")
+        ref = model.to("cpu")(g, norm=rgcn_norm(g, g.edge_type, R))
+    parity = float((card.cpu() - ref).abs().max() / ref.abs().max())
+    result = {"phase": "slice_rgcn", "dataset": "mutag",
+              "synthetic": ds.is_synthetic, "nodes": graph.num_nodes,
+              "edges": graph.num_edges,
+              "real_nodes": int(graph.node_mask.sum()),
+              "real_edges": int(graph.edge_mask.sum()),
+              "relations": R, "bases": 30,
+              "train_entities": int(graph.extras["train_idx"].shape[1]),
+              "test_entities": int(graph.extras["test_idx"].shape[1]),
+              "epochs": RGCN_EPOCHS, "seconds": metrics["seconds"],
+              "ms_per_epoch": metrics["seconds"] / RGCN_EPOCHS * 1e3,
+              "first_loss": float(loss[0]), "final_loss": float(loss[-1]),
+              "train_acc": metrics["train_acc"],
+              "test_acc": metrics["test_acc"],
+              "launches": launches, "expected_launches": expected,
+              "max_memory_allocated": peak,
+              "logits_shape": list(ref.shape),
+              "logits_cuda_vs_cpu_rel_err": parity}
+    emit(result)
+    if not np.isfinite(loss).all():
+        raise AssertionError("non-finite training loss")
+    if not loss[-1] < 0.5 * loss[0]:
+        raise AssertionError(f"loss did not halve: {loss[0]} -> {loss[-1]}")
+    if not metrics["train_acc"] >= 0.9:
+        raise AssertionError(f"training accuracy {metrics['train_acc']} "
+                             "(need >= 0.9)")
+    if launches != expected:
+        raise AssertionError(f"packed-RGCN launches on the main path "
+                             f"{launches}, expected {expected}")
+    if not (torch.isfinite(card).all() and parity <= 1e-4):
+        raise AssertionError(f"trained logits: card vs CPU rel err {parity}")
+    return result
+
+
 def _gcn_step(ds, graph):
     from pytorch_geometric_tpu_torch.models.citation import (
         GCN, create_gcn_train_step)
@@ -421,7 +604,17 @@ def _gat_step(ds, graph):
     return create_gat_train_step(model, graph)[0]
 
 
-def phase_trace(make_step=_gcn_step, phase="trace", epochs=20):
+def _rgcn_step(ds, graph):
+    from pytorch_geometric_tpu_torch.models.entities import (
+        RGCN, create_rgcn_train_step)
+
+    model = RGCN(graph.num_nodes, ds.num_relations, ds.num_classes,
+                 generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
+    return create_rgcn_train_step(model, graph, ds.num_relations)[0]
+
+
+def phase_trace(make_step=_gcn_step, phase="trace", epochs=20,
+                load=_cora_graph):
     """Where an epoch's time goes: ``torch.profiler`` over ``epochs``
     epochs of the same training step (after warm-up), device busy time
     per kernel name against the host's wall clock. Launches here come
@@ -429,7 +622,7 @@ def phase_trace(make_step=_gcn_step, phase="trace", epochs=20):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    ds, graph = _cora_graph(DEVICE)
+    ds, graph = load(DEVICE)
     step = make_step(ds, graph)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     for _ in range(5):
@@ -453,45 +646,66 @@ def phase_trace(make_step=_gcn_step, phase="trace", epochs=20):
     kernels = [(us, name, n) for name, (us, n) in per_name.items()]
     kernels.sort(reverse=True)
     busy_us = sum(k[0] for k in kernels)
+    groups = {"port_kernels": 0.0, "optimizer_multi_tensor": 0.0,
+              "other": 0.0}
+    for us, name, _ in kernels:
+        if any(k in name for k in ("spmm_csr", "gat_fwd_kernel",
+                                   "gat_bwd_kernel", "rgcn_")):
+            groups["port_kernels"] += us
+        elif "multi_tensor_apply" in name:
+            groups["optimizer_multi_tensor"] += us
+        else:
+            groups["other"] += us
     result = {"phase": phase, "epochs": epochs,
               "wall_ms_per_epoch": wall_us / epochs / 1e3,
               "device_busy_ms_per_epoch": busy_us / epochs / 1e3,
               "device_idle_share": (1 - busy_us / wall_us) if kernels
               else None,
               "device_ops_per_epoch": sum(k[2] for k in kernels) / epochs,
+              "us_per_epoch_by_group": {k: v / epochs
+                                        for k, v in groups.items()},
               "top": [{"name": n[:80], "us_per_epoch": us / epochs,
                        "calls_per_epoch": c / epochs}
-                      for us, n, c in kernels[:10]]}
+                      for us, n, c in kernels[:16]]}
     emit(result)
     return result
 
 
-#: Each kernel's source, the Pallas kernel it replaces, and the case of
-#: the kernel phase that stands for its main path: the largest call of
-#: that path (GCN's F = 16 forward SpMM; GAT's conv1, 8 heads x 8, with
-#: attention dropout).
+#: Each kernel's source, the Pallas kernel it replaces, its main path's
+#: graph, and the case of the kernel phase that stands for that path: its
+#: largest call (GCN's F = 16 forward SpMM; GAT's conv1, 8 heads x 8, with
+#: attention dropout; RGCN's conv1, 30 bases x 16 over the embedding
+#: table).
 KERNELS = {
     "spmm_csr": ("pytorch_geometric_tpu_torch/csrc/spmm_csr.cu",
-                 "pytorch_geometric_tpu/ops/spmm.py:56",
+                 "pytorch_geometric_tpu/ops/spmm.py:56", "cora",
                  dict(direction="fwd", F=16, x="fp32")),
     "packed_gat_fwd": ("pytorch_geometric_tpu_torch/csrc/packed_gat.cu",
-                       "pytorch_geometric_tpu/ops/packed_gat.py:81",
+                       "pytorch_geometric_tpu/ops/packed_gat.py:81", "cora",
                        dict(H=8, C=8, rate=0.6)),
     "packed_gat_bwd": ("pytorch_geometric_tpu_torch/csrc/packed_gat.cu",
-                       "pytorch_geometric_tpu/ops/packed_gat.py:156",
+                       "pytorch_geometric_tpu/ops/packed_gat.py:156", "cora",
                        dict(H=8, C=8, rate=0.6)),
+    "packed_rgcn_fwd": ("pytorch_geometric_tpu_torch/csrc/packed_rgcn.cu",
+                        "pytorch_geometric_tpu/ops/packed_rgcn.py:68",
+                        "mutag", dict(B=30, C=16)),
+    "packed_rgcn_bwd": ("pytorch_geometric_tpu_torch/csrc/packed_rgcn.cu",
+                        "pytorch_geometric_tpu/ops/packed_rgcn.py:131",
+                        "mutag", dict(B=30, C=16)),
 }
 
 
 def kernels_line(results):
     """Per kernel: its launches on its main path's run, its largest error
-    over the Cora cases, and the times and bound of its main-path case."""
+    over the cases on that path's graph, and the times and bound of its
+    main-path case."""
     launches = {"spmm_csr": results["slice"]["spmm_csr_launches"],
-                **results["slice_gat"]["launches"]}
+                **results["slice_gat"]["launches"],
+                **results["slice_rgcn"]["launches"]}
     line = []
-    for name, (source, replaces, keys) in KERNELS.items():
+    for name, (source, replaces, graph, keys) in KERNELS.items():
         mine = [c for c in results["kernel"]
-                if c["kernel"] == name and c["graph"] == "cora"]
+                if c["kernel"] == name and c["graph"] == graph]
         case = next(c for c in mine
                     if all(c[k] == v for k, v in keys.items()))
         line.append({"name": name, "route": "cuda", "source": source,
@@ -523,9 +737,14 @@ def main():
     results = {}
     for name, fn in (("card", phase_card), ("build", phase_build),
                      ("kernel", phase_kernel), ("slice", phase_slice),
-                     ("slice_gat", phase_slice_gat), ("trace", phase_trace),
+                     ("slice_gat", phase_slice_gat),
+                     ("slice_rgcn", phase_slice_rgcn),
+                     ("trace", phase_trace),
                      ("trace_gat",
-                      lambda: phase_trace(_gat_step, "trace_gat"))):
+                      lambda: phase_trace(_gat_step, "trace_gat")),
+                     ("trace_rgcn",
+                      lambda: phase_trace(_rgcn_step, "trace_rgcn",
+                                          load=_mutag_graph))):
         if failed and name != "card":
             emit({"phase": name, "skipped": f"after {failed[0]} failed"})
             continue

@@ -6,7 +6,10 @@ arrays ``conv1.weight``, in the same layouts:
 
 - GCN: ``convK.weight`` (in, out) and ``convK.bias`` (out,);
 - GAT (examples/gat.py): ``convK.weight`` (in, H*C), ``convK.att_src``
-  and ``convK.att_dst`` (1, H, C), ``convK.bias`` (H*C,) or (C,).
+  and ``convK.att_dst`` (1, H, C), ``convK.bias`` (H*C,) or (C,);
+- RGCN (examples/rgcn.py): ``convK.basis`` (B, F_in, C) (B = R without
+  bases), ``convK.att`` (R, B) (only with bases), ``convK.root``
+  (F_in, C), ``convK.bias`` (C,).
 
 Only numpy is needed: ``np.asarray`` reads a JAX array without importing
 JAX here.

@@ -168,7 +168,7 @@ def train_gcn(graph: Graph, num_classes: int, hidden: int = 16,
                 generator=init_gen).to(dev)
     drop_gen = torch.Generator(device=dev).manual_seed(seed)
     epoch_step, eval_fn = create_gcn_train_step(model, graph, lr=lr)
-    return model, _run(epoch_step, eval_fn, epochs, drop_gen, dev)
+    return model, run_epochs(epoch_step, eval_fn, epochs, drop_gen, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +265,7 @@ def train_gat(graph: Graph, num_classes: int, hidden: int = 8,
     drop_gen = torch.Generator(device=dev).manual_seed(seed)
     epoch_step, eval_fn = create_gat_train_step(
         model, graph, lr=lr, weight_decay=weight_decay)
-    return model, _run(epoch_step, eval_fn, epochs, drop_gen, dev)
+    return model, run_epochs(epoch_step, eval_fn, epochs, drop_gen, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -276,11 +276,13 @@ def _accuracies(logits, graph: Graph):
             for split in ("train", "val", "test")}
 
 
-def _run(epoch_step, eval_fn, epochs: int, generator: torch.Generator,
-         dev: torch.device) -> Dict[str, Any]:
-    """``epochs`` steps and one evaluation, timed on the host clock up to
-    a device synchronisation; the curve is copied to the host at the
-    end."""
+def run_epochs(epoch_step, eval_fn, epochs: int,
+               generator: Optional[torch.Generator],
+               dev: torch.device) -> Dict[str, Any]:
+    """``epochs`` calls of ``epoch_step(generator)`` and one evaluation,
+    timed on the host clock up to a device synchronisation; the curve is
+    copied to the host at the end. Shared by every trainer of the port
+    (``models/entities.py`` too)."""
     _synchronize(dev)
     t0 = time.perf_counter()
     curve = [epoch_step(generator) for _ in range(epochs)]

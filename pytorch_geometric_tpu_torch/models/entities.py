@@ -1,0 +1,140 @@
+"""Entity classification on relational graphs: the RGCN of
+examples/rgcn.py, trained full-graph through the fused operator.
+
+The JAX package keeps this loop in ``examples/rgcn.py`` and
+``bench_common.py:bench_rgcn_fullgraph``; the port gives it a module, as
+``models/citation.py`` holds the GAT example's:
+
+- :class:`RGCN`: the example's ``Net``: ``RGCNConv(N, 16, R, num_bases=
+  30)`` on node-id embeddings (``x=None``), ReLU, ``RGCNConv(16, classes,
+  R, num_bases=30)``; parameters ``conv1.basis``, ``conv1.att``,
+  ``conv1.root``, ``conv1.bias``, ``conv2.*``.
+- :func:`rgcn_fused_ops`: one fused aggregation operator per layer
+  (``nn/conv/rgcn_conv.py:rgcn_fused_op``); on a CUDA graph every
+  aggregation runs the hand-written kernels of ``ops/packed_rgcn.py``:
+  per epoch 2 forward launches and 6 backward launches (3 per layer).
+- :func:`train_rgcn`: Adam (lr 0.01) on the mean cross-entropy over the
+  training entities, one eager ``epoch_step`` per epoch.
+
+The JAX bench first reorders the nodes (RCM) to fill the TPU's window
+buckets and keeps Adam's moments in bf16; a CSR kernel has no use for the
+first, a node permutation changes no result, and the second is an
+optimiser variant of its own: the port leaves both out.
+"""
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from pytorch_geometric_tpu_torch.data.graph import Graph
+from pytorch_geometric_tpu_torch.device import resolve_device
+from pytorch_geometric_tpu_torch.models.citation import (
+    run_epochs, softmax_xent_int_labels)
+from pytorch_geometric_tpu_torch.nn.conv.rgcn_conv import (
+    RGCNConv, rgcn_fused_op, rgcn_norm)
+
+
+class RGCN(nn.Module):
+    """2-layer RGCN over node-id embeddings (examples/rgcn.py ``Net``)."""
+
+    def __init__(self, num_nodes: int, num_relations: int, num_classes: int,
+                 hidden: int = 16, num_bases: int = 30,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.conv1 = RGCNConv(num_nodes, hidden, num_relations,
+                              num_bases=num_bases, generator=generator)
+        self.conv2 = RGCNConv(hidden, num_classes, num_relations,
+                              num_bases=num_bases, generator=generator)
+
+    def forward(self, graph: Graph, edge_type=None, norm=None,
+                fused_ops=None):
+        """``fused_ops``: the pair of :func:`rgcn_fused_ops`, or None for
+        the plain paths (which take ``norm``, a precomputed
+        ``rgcn_norm``)."""
+        op1, op2 = fused_ops if fused_ops is not None else (None, None)
+        x = self.conv1(graph, None, edge_type, norm=norm, fused_op=op1)
+        x = torch.relu(x)
+        return self.conv2(graph, x, edge_type, norm=norm, fused_op=op2)
+
+
+def rgcn_fused_ops(graph: Graph, num_relations: int):
+    """The fused operators of :class:`RGCN`'s two layers on the graph's
+    device: ``embed`` mode for conv1 (its source rows are the embedding
+    table's, one per node) and ``transform`` mode for conv2, sharing one
+    ``rgcn_norm``."""
+    et = graph.edge_type
+    norm = rgcn_norm(graph, et, num_relations)
+    return (rgcn_fused_op(graph, et, num_relations, "embed",
+                          in_channels=graph.num_nodes, norm=norm),
+            rgcn_fused_op(graph, et, num_relations, "transform", norm=norm))
+
+
+def _split_indices(graph: Graph, name: str):
+    """Entity indices of one split (``train_idx`` / ``test_idx``) as an
+    int64 tensor: the collation stacks them per graph, and row 0 is the
+    one real graph's."""
+    return graph.extras[name][0].long()
+
+
+def create_rgcn_train_step(model: RGCN, graph: Graph, num_relations: int,
+                           lr: float = 0.01):
+    """Build ``(epoch_step, eval_fn)`` closures over a static graph, as
+    ``models/citation.py:create_gat_train_step``. Every aggregation runs
+    through :func:`rgcn_fused_ops` (the kernels on a CUDA graph). The loss is the mean cross-entropy over the
+    graph's ``train_idx``; labels of -1 (unlabelled entities) are never
+    indexed.
+
+    ``torch.optim.Adam`` and ``optax.adam`` share b1, b2 and eps (added
+    outside the square root).
+    """
+    fused_ops = rgcn_fused_ops(graph, num_relations)
+    train_idx = _split_indices(graph, "train_idx")
+    test_idx = _split_indices(graph, "test_idx")
+    y_train, y_test = graph.y[train_idx].long(), graph.y[test_idx].long()
+    opt = torch.optim.Adam(model.parameters(), lr=lr)
+
+    def epoch_step(generator: Optional[torch.Generator] = None):
+        # no dropout in this model: the generator draws nothing
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        logits = model(graph, fused_ops=fused_ops)[train_idx]
+        loss = softmax_xent_int_labels(logits, y_train).mean()
+        loss.backward()
+        opt.step()
+        return {"loss": loss.detach(),
+                "train_acc": _accuracy(logits.detach(), y_train)}
+
+    @torch.no_grad()
+    def eval_fn():
+        model.eval()
+        logits = model(graph, fused_ops=fused_ops)
+        return {"train_acc": _accuracy(logits[train_idx], y_train),
+                "test_acc": _accuracy(logits[test_idx], y_test)}
+
+    return epoch_step, eval_fn
+
+
+def train_rgcn(graph: Graph, num_relations: int, num_classes: int,
+               epochs: int = 50, seed: int = 0, lr: float = 0.01,
+               device="cuda") -> Tuple[RGCN, Dict[str, Any]]:
+    """Full RGCN training run on ``device``, as examples/rgcn.py ``run``
+    through the fused operators: ``epochs`` Adam steps, then one
+    evaluation. Returns the model and its metrics: final ``train_acc`` /
+    ``test_acc`` (the corpus has no validation split), the per-epoch
+    ``curve`` (numpy arrays of ``loss`` and ``train_acc``) and
+    ``seconds``, as ``train_gat``. The splits are the graph's
+    ``train_idx`` / ``test_idx``. On a CUDA graph the
+    forward kernel launches 2 times per epoch and 2 for the evaluation,
+    the backward kernels 6 times per epoch."""
+    dev = resolve_device(device)
+    graph = graph.to(dev)
+    model = RGCN(graph.num_nodes, num_relations, num_classes,
+                 generator=torch.Generator().manual_seed(seed)).to(dev)
+    epoch_step, eval_fn = create_rgcn_train_step(
+        model, graph, num_relations, lr=lr)
+    return model, run_epochs(epoch_step, eval_fn, epochs, None, dev)
+
+
+def _accuracy(logits, labels):
+    return (logits.argmax(dim=-1) == labels).float().mean()

@@ -11,5 +11,11 @@ from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import (  # noqa: F401
     gcn_norm_dense,
 )
 
-__all__ = ["EdgeNorm", "GATConv", "GCNConv", "gat_edge_set", "gcn_norm",
-           "gcn_norm_dense"]
+from pytorch_geometric_tpu_torch.nn.conv.rgcn_conv import (  # noqa: F401
+    RGCNConv,
+    rgcn_fused_op,
+    rgcn_norm,
+)
+
+__all__ = ["EdgeNorm", "GATConv", "GCNConv", "RGCNConv", "gat_edge_set",
+           "gcn_norm", "gcn_norm_dense", "rgcn_fused_op", "rgcn_norm"]

@@ -1,0 +1,157 @@
+"""Relational GCN (Schlichtkrull et al.).
+
+Counterpart of ``pytorch_geometric_tpu/nn/conv/rgcn_conv.py`` (reference:
+``torch_geometric.nn.RGCNConv`` of PyG 1.4.x, mean aggregation per
+relation): x'_i = W_root x_i + sum_r mean_{j in N_r(i)} W_r x_j, with the
+basis decomposition W_r = sum_b a_rb B_b.
+
+Full-graph aggregation paths, as in the JAX module:
+
+- ``fused_op`` (with ``num_bases > 0``): the basis-contraction operator
+  of :func:`rgcn_fused_op`, ``fused_op(xB2d, att)`` with ``xB2d`` the
+  basis table itself (``x=None``, node-id embeddings) or ``x @ basis``.
+  The operator is ``ops/packed_rgcn.py:PackedRgcnSpmm``: the hand-written
+  kernels on a CUDA graph, their plain versions on a CPU graph;
+- embedding mode (``x=None``): one row of the (R * F_in, C) weight table
+  per edge by the fused id ``relation * F_in + sender``;
+- transform-first (``C < F_in``): project every node per relation, then
+  gather per edge;
+- aggregate-first otherwise: a relation-bucketed segment sum, then one
+  contraction with W.
+
+The closure and ``shard_ctx`` paths of the JAX module are not ported
+yet. Parameters: ``basis`` (B, F_in, C) (B = R when ``num_bases=0``),
+``att`` (R, B) (only with bases), ``root`` (F_in, C), ``bias`` (C,).
+"""
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from pytorch_geometric_tpu_torch.data.graph import Graph
+from pytorch_geometric_tpu_torch.nn.inits import glorot, zeros
+from pytorch_geometric_tpu_torch.ops.csr import host_array
+from pytorch_geometric_tpu_torch.ops.packed_rgcn import PackedRgcnSpmm
+from pytorch_geometric_tpu_torch.ops.segment import segment_sum
+
+
+def rgcn_norm(graph: Graph, edge_type, num_relations: int):
+    """Static per-edge mean-normalisation weights 1/|N_r(i)|, 0 on padding
+    edges. They depend only on the graph: compute once and reuse across
+    layers and epochs."""
+    R = num_relations
+    emask = graph.real_edge_mask().to(torch.float32)
+    fused_rr = graph.receivers.long() * R + edge_type.long()
+    cnt = segment_sum(emask, fused_rr, graph.num_nodes * R)
+    inv = torch.where(cnt > 0, 1.0 / cnt.clamp_min(1.0), 0.0)
+    return inv[fused_rr] * emask
+
+
+class RGCNConv(nn.Module):
+    """``in_channels`` is the embedding table's row count when ``x`` is
+    None (embedding mode); ``num_bases=0`` keeps one full weight per
+    relation."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 num_relations: int, num_bases: int = 0,
+                 root_weight: bool = True, use_bias: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.num_relations, self.num_bases = num_relations, num_bases
+        R, F_in, C = num_relations, in_channels, out_channels
+        B = num_bases if num_bases > 0 else R
+        self.basis = nn.Parameter(glorot((B, F_in, C), generator))
+        self.att = nn.Parameter(glorot((R, B), generator)) \
+            if num_bases > 0 else None
+        self.root = nn.Parameter(glorot((F_in, C), generator)) \
+            if root_weight else None
+        self.bias = nn.Parameter(zeros((C,))) if use_bias else None
+
+    def forward(self, graph: Graph, x=None, edge_type=None, norm=None,
+                fused_op=None):
+        N, C, R = graph.num_nodes, self.out_channels, self.num_relations
+        et = (edge_type if edge_type is not None
+              else graph.edge_type).long()
+        basis, att = self.basis, self.att
+        B, F_in = basis.shape[0], basis.shape[1]
+        if x is not None and x.shape[-1] != F_in:
+            raise ValueError(f"x has {x.shape[-1]} features, the layer "
+                             f"{F_in}")
+        senders, receivers = graph.senders.long(), graph.receivers.long()
+
+        if fused_op is not None and att is not None:
+            if x is None:
+                xB2d = basis.transpose(0, 1).reshape(F_in, B * C)
+            else:
+                xB2d = torch.einsum("nf,bfc->nbc", x, basis).reshape(
+                    N, B * C)
+            out = fused_op(xB2d, att)
+        else:
+            # static per-(receiver, relation) mean normalisation; pass a
+            # precomputed rgcn_norm to hoist it out of the epoch loop
+            w_edge = norm if norm is not None else rgcn_norm(graph, et, R)
+            W = torch.einsum("rb,bfc->rfc", att, basis) \
+                if att is not None else basis               # (R, F_in, C)
+            if x is None:
+                table = W.reshape(R * F_in, C)
+                rows = senders.clamp(0, F_in - 1)
+                msgs = table[et * F_in + rows]
+                out = segment_sum(msgs * w_edge[:, None], receivers, N)
+            elif C < F_in:
+                H = torch.einsum("nf,rfc->nrc", x, W)
+                msgs = H.reshape(N * R, C)[senders * R + et]
+                out = segment_sum(msgs * w_edge[:, None], receivers, N)
+            else:
+                x_j = x[senders] * w_edge[:, None]
+                agg = segment_sum(x_j, receivers * R + et, N * R)
+                out = torch.einsum("nrf,rfc->nc", agg.reshape(N, R, F_in),
+                                   W)
+
+        if self.root is not None:
+            if x is None:
+                idx = torch.arange(N, device=out.device).clamp(0, F_in - 1)
+                out = out + self.root[idx]
+            else:
+                out = out + x @ self.root
+        if self.bias is not None:
+            out = out + self.bias
+        return out
+
+
+def rgcn_fused_op(graph: Graph, edge_type, num_relations: int, mode: str,
+                  in_channels: Optional[int] = None, norm=None):
+    """Build the fused aggregation operator of one ``RGCNConv`` layer, a
+    ``PackedRgcnSpmm`` on the graph's device.
+
+    ``mode="embed"``: the ``x=None`` layer, whose source rows are the
+    ``in_channels`` rows of the basis table; ``mode="transform"``: a
+    dense-``x`` layer, whose source rows are the graph's nodes.
+
+    Mean normalisation is baked into the operator's static weights (pass
+    a precomputed ``rgcn_norm`` to avoid recomputing it), and the
+    collation's padding edges are dropped: their weight is 0, and kept
+    they would all land in the padding node's row.
+    """
+    if mode not in ("embed", "transform"):
+        raise ValueError(f"mode must be 'embed' or 'transform', not {mode!r}")
+    R = num_relations
+    et_t = edge_type if edge_type is not None else graph.edge_type
+    w_t = norm if norm is not None else rgcn_norm(
+        graph, torch.as_tensor(et_t, device=graph.device), R)
+    et = host_array(et_t).astype(np.int64)
+    w = host_array(w_t).astype(np.float32)
+    s = host_array(graph.senders).astype(np.int64)
+    r = host_array(graph.receivers).astype(np.int64)
+    real = host_array(graph.real_edge_mask())
+    if not real.all():
+        s, r, et, w = s[real], r[real], et[real], w[real]
+    N = graph.num_nodes
+    if mode == "embed" and in_channels is None:
+        raise ValueError("mode='embed' needs in_channels, the basis "
+                         "table's row count")
+    src_rows = int(in_channels) if mode == "embed" else N
+    return PackedRgcnSpmm(s, r, et, R, N, weights=w, num_src_rows=src_rows,
+                          device=graph.device)

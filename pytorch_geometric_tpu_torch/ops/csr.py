@@ -40,6 +40,13 @@ class Csr:
             perm=self.perm.to(device))
 
 
+def host_array(a) -> np.ndarray:
+    """``a`` (tensor on any device, array or sequence) as a numpy array."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
 def build_csr(rows, cols, num_rows: int, num_cols: int = None) -> Csr:
     """CSR of the edges ``(cols[e] -> rows[e])`` grouped by ``rows``, on
     the CPU. The receiver-major operator is ``build_csr(receivers,

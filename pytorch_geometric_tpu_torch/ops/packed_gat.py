@@ -34,7 +34,8 @@ import ctypes
 import numpy as np
 import torch
 
-from pytorch_geometric_tpu_torch.ops.csr import Csr, build_csr
+from pytorch_geometric_tpu_torch.ops.csr import (
+    Csr, build_csr, host_array)
 
 _MASK32 = 0xFFFFFFFF
 
@@ -257,8 +258,8 @@ class PackedFlashGat:
         from pytorch_geometric_tpu_torch.device import resolve_device
 
         dev = resolve_device(device)
-        s = _host(senders).astype(np.int64)
-        r = _host(receivers).astype(np.int64)
+        s = host_array(senders).astype(np.int64)
+        r = host_array(receivers).astype(np.int64)
         n = int(num_nodes)
         key = r * n + s
         if s.shape != r.shape or (key.size > 1 and (np.diff(key) <= 0).any()):
@@ -320,9 +321,3 @@ class _PackedGatRaw(torch.autograd.Function):
         dd, ds, dh = packed_gat_bwd(op.fwd, op.bwd, op.bwd_eid, d, s, h, m,
                                     seed, g.contiguous(), ctx.rate, op.slope)
         return dd, ds, dh, None, None, None
-
-
-def _host(a) -> np.ndarray:
-    if isinstance(a, torch.Tensor):
-        a = a.detach().cpu().numpy()
-    return np.asarray(a)

@@ -25,7 +25,8 @@ import ctypes
 import numpy as np
 import torch
 
-from pytorch_geometric_tpu_torch.ops.csr import Csr, build_csr
+from pytorch_geometric_tpu_torch.ops.csr import (
+    Csr, build_csr, host_array)
 from pytorch_geometric_tpu_torch.ops.segment import scatter
 
 
@@ -140,8 +141,8 @@ class SpmmOperator:
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"compute_dtype must be float32 or bfloat16, "
                             f"got {compute_dtype}")
-        s = _host(senders)
-        r = _host(receivers)
+        s = host_array(senders)
+        r = host_array(receivers)
         self.num_nodes = int(num_nodes)
         self.compute_dtype = compute_dtype
         self.fwd = build_csr(r, s, self.num_nodes).to(dev)
@@ -201,9 +202,3 @@ class _SpmmApply(torch.autograd.Function):
             dw = (g[op.receivers] * x[op.senders].float()).sum(-1)
             dw = dw.to(weights.dtype)
         return dw, dx, None
-
-
-def _host(a) -> np.ndarray:
-    if isinstance(a, torch.Tensor):
-        a = a.detach().cpu().numpy()
-    return np.asarray(a)

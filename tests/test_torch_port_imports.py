@@ -17,7 +17,9 @@ import torch
 from pytorch_geometric_tpu_torch.data import Data, from_data
 from pytorch_geometric_tpu_torch.kernels import _build
 from pytorch_geometric_tpu_torch.models.citation import train_gat, train_gcn
+from pytorch_geometric_tpu_torch.models.entities import train_rgcn
 from pytorch_geometric_tpu_torch.nn.conv import gat_edge_set
+from pytorch_geometric_tpu_torch.ops import packed_rgcn
 from pytorch_geometric_tpu_torch.ops.csr import build_csr
 from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
 from pytorch_geometric_tpu_torch.ops.spmm import (
@@ -48,6 +50,16 @@ def _tiny_graph():
                 test_mask=mask)
 
 
+def _tiny_relational_graph():
+    rng = np.random.default_rng(2)
+    n, e = 20, 60
+    return Data(edge_index=np.stack([rng.integers(0, n, e),
+                                     rng.integers(0, n, e)]),
+                edge_type=rng.integers(0, 3, e), y=rng.integers(0, 2, n),
+                train_idx=np.arange(8), test_idx=np.arange(8, 12),
+                num_nodes=n)
+
+
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -55,7 +67,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                          timeout=120, check=True)
     report = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("models.citation", "kernels._build", "ops.packed_gat",
-                 "nn.conv.gat_conv"):
+                 "nn.conv.gat_conv", "datasets.molecules",
+                 "ops.packed_rgcn", "nn.conv.rgcn_conv", "models.entities"):
         assert f"pytorch_geometric_tpu_torch.{name}" in report["modules"]
     assert report["bad"] == []
 
@@ -74,6 +87,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         train_gat(graph, num_classes=2, epochs=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PackedFlashGat(*gat_edge_set(graph), graph.num_nodes)
+    rel = from_data(_tiny_relational_graph(), device="cpu")
+    edges = (rel.senders, rel.receivers, rel.edge_type, 3, rel.num_nodes,
+             np.ones(rel.num_edges, np.float32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_rgcn(rel, 3, 2, epochs=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        packed_rgcn.PackedRgcnSpmm(*edges)
 
 
 def test_cpu_wrapper_computes_plain_and_counts_no_launch():
@@ -88,6 +108,29 @@ def test_cpu_wrapper_computes_plain_and_counts_no_launch():
     graph = from_data(_tiny_graph(), device="cpu")
     train_gcn(graph, num_classes=2, epochs=3, device="cpu")
     assert spmm_csr.launches == 0
+
+
+def test_cpu_rgcn_wrappers_compute_plain_and_count_no_launch():
+    fwd, bwd = packed_rgcn.packed_rgcn_fwd, packed_rgcn.packed_rgcn_bwd
+    fwd.launches = bwd.launches = 0
+    rel = from_data(_tiny_relational_graph(), device="cpu")
+    n = rel.num_nodes
+    op = packed_rgcn.PackedRgcnSpmm(
+        rel.senders, rel.receivers, rel.edge_type, 3, n,
+        np.ones(rel.num_edges, np.float32), device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    xB, att, g = (torch.randn(shape, generator=gen)
+                  for shape in ((n, 8), (3, 4), (n, 2)))
+    out = fwd(op.fwd, op.fwd_et, op.fwd_w, xB, att)
+    assert torch.equal(out, packed_rgcn.packed_rgcn_fwd_plain(
+        op.fwd, op.fwd_et, op.fwd_w, xB, att))
+    got = bwd(op.bwd, op.bwd_et, op.bwd_w, op.bwd_pos, op.rel_ptr, xB, att,
+              g)
+    want = packed_rgcn.packed_rgcn_bwd_plain(op.bwd, op.bwd_et, op.bwd_w,
+                                             xB, att, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    train_rgcn(rel, 3, 2, epochs=2, device="cpu")
+    assert (fwd.launches, bwd.launches) == (0, 0)
 
 
 def test_wrapper_refuses_other_devices_and_bad_inputs():
@@ -105,7 +148,8 @@ def test_wrapper_refuses_other_devices_and_bad_inputs():
 
 
 def test_kernel_build_is_described_not_run_at_import():
-    assert sorted(_build.SIGNATURES) == ["packed_gat", "spmm_csr"]
+    assert sorted(_build.SIGNATURES) == ["packed_gat", "packed_rgcn",
+                                         "spmm_csr"]
     for name in _build.SIGNATURES:
         assert (_build.SOURCE_DIR / f"{name}.cu").is_file()
         path = _build.library_path(name)

@@ -6,8 +6,9 @@ GPU and the port alone:
 
 Where there is no card they skip (CUDA kernels have no CPU mode); the
 CPU-side behaviour of each wrapper is covered in the other
-``tests/test_torch_port_*.py`` files. Kernels: ``spmm_csr`` and the
-packed-GAT forward and backward.
+``tests/test_torch_port_*.py`` files. Kernels: ``spmm_csr``, the
+packed-GAT forward and backward, and the packed-RGCN forward and
+backward.
 """
 
 import numpy as np
@@ -168,5 +169,105 @@ def test_packed_flash_gat_on_card_matches_cpu(cuda_device):
                              (after[0] - before[0], after[1] - before[1]))
     cpu, card = results["cpu"], results[str(cuda_device)]
     assert cpu[1] == (0, 0) and card[1] == (1, 2)
+    for a, b in zip(card[0], cpu[0]):
+        assert _rel_err(a, b) <= 1e-5
+
+
+def _rgcn_edges(case, n=600, R=7, seed=10):
+    """Typed multigraph edges with duplicates and rows without edges
+    (nodes n-50 and up neither send nor receive). ``hub``: node 3
+    receives 2500 edges and node 10 sends 2200; ``dominant``: relation 2
+    holds nine edges in ten."""
+    rng = np.random.default_rng(seed)
+    e = 5000
+    s = rng.integers(0, n - 50, e)
+    r = rng.integers(0, n - 50, e)
+    et = rng.integers(0, R, e)
+    if case == "hub":
+        s = np.concatenate([s, rng.integers(0, n - 50, 2500),
+                            np.full(2200, 10)])
+        r = np.concatenate([r, np.full(2500, 3),
+                            rng.integers(0, n - 50, 2200)])
+        et = np.concatenate([et, rng.integers(0, R, 4700)])
+    elif case == "dominant":
+        et = np.where(rng.random(e) < 0.9, 2, et)
+    s[:40], r[:40], et[:40] = s[40:80], r[40:80], et[40:80]   # duplicates
+    w = rng.random(s.shape[0]).astype(np.float32) + 0.1
+    return s, r, et, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "hub", "dominant"])
+@pytest.mark.parametrize("B,C", [(30, 16), (30, 2), (5, 33), (3, 1),
+                                 (40, 7), (2, 70)])
+def test_packed_rgcn_kernels_match_plain_on_card(cuda_device, case, B, C):
+    """Forward over the receiver-major CSR and backward (dxB over the
+    sender-major CSR, datt through the relation-major reduction) against
+    their plain versions, fp32 within 1e-5 of the largest reference
+    magnitude: the main path's (B, C), odd shapes on both sides of the
+    32-lane width, a hub row of 2500 in-edges and one of 2200 out-edges,
+    a relation that holds most edges, duplicate edges and empty rows, in
+    embed mode (the source rows differ from the nodes). Two launches give
+    bitwise equal results (no atomics); outputs come from torch.empty,
+    so an unwritten row would show."""
+    from pytorch_geometric_tpu_torch.ops import packed_rgcn as pr
+
+    n, R, rows = 600, 7, 640
+    s, r, et, w = _rgcn_edges(case, n, R)
+    op = pr.PackedRgcnSpmm(s, r, et, R, n, w, num_src_rows=rows,
+                           device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(B * 100 + C)
+    xB = torch.randn(rows, B * C, generator=gen, device=cuda_device)
+    att = torch.randn(R, B, generator=gen, device=cuda_device)
+    g = torch.randn(n, C, generator=gen, device=cuda_device)
+    fwd0, bwd0 = pr.packed_rgcn_fwd.launches, pr.packed_rgcn_bwd.launches
+    fwd_args = (op.fwd, op.fwd_et, op.fwd_w, xB, att)
+    bwd_args = (op.bwd, op.bwd_et, op.bwd_w, op.bwd_pos, op.rel_ptr, xB,
+                att, g)
+    got = pr.packed_rgcn_fwd(*fwd_args)
+    want = pr.packed_rgcn_fwd_plain(*fwd_args)
+    got_b = pr.packed_rgcn_bwd(*bwd_args)
+    want_b = pr.packed_rgcn_bwd_plain(op.bwd, op.bwd_et, op.bwd_w, xB, att,
+                                      g)
+    torch.cuda.synchronize()
+    assert (pr.packed_rgcn_fwd.launches - fwd0,
+            pr.packed_rgcn_bwd.launches - bwd0) == (1, 3)
+    assert _rel_err(got, want) <= 1e-5
+    for a, b in zip(got_b, want_b):
+        assert _rel_err(a, b) <= 1e-5
+    assert torch.equal(got, pr.packed_rgcn_fwd(*fwd_args))
+    for a, b in zip(got_b, pr.packed_rgcn_bwd(*bwd_args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_src_rows", [None, 700])
+def test_packed_rgcn_spmm_on_card_matches_cpu(cuda_device, num_src_rows):
+    """``PackedRgcnSpmm`` on the card (forward and backward through the
+    kernels) against the same op on the CPU (plain versions): output and
+    the gradients of xB and att, launches counted."""
+    from pytorch_geometric_tpu_torch.ops import packed_rgcn as pr
+
+    n, R, B, C = 600, 7, 5, 6
+    s, r, et, w = _rgcn_edges("hub", n, R, seed=11)
+    rows = n if num_src_rows is None else num_src_rows
+    rng = np.random.default_rng(11)
+    arrays = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+              for shape in ((rows, B * C), (R, B), (n, C))]
+    results = {}
+    for dev in ("cpu", cuda_device):
+        op = pr.PackedRgcnSpmm(s, r, et, R, n, w, num_src_rows=num_src_rows,
+                               device=dev)
+        xB, att = (a.to(dev, copy=True).requires_grad_()
+                   for a in arrays[:2])
+        before = (pr.packed_rgcn_fwd.launches, pr.packed_rgcn_bwd.launches)
+        out = op(xB, att)
+        (out * arrays[2].to(dev)).sum().backward()
+        after = (pr.packed_rgcn_fwd.launches, pr.packed_rgcn_bwd.launches)
+        results[str(dev)] = ([t.detach().cpu() for t in
+                              (out, xB.grad, att.grad)],
+                             (after[0] - before[0], after[1] - before[1]))
+    cpu, card = results["cpu"], results[str(cuda_device)]
+    assert cpu[1] == (0, 0) and card[1] == (1, 3)
     for a, b in zip(card[0], cpu[0]):
         assert _rel_err(a, b) <= 1e-5
