@@ -28,6 +28,13 @@ Phases, one JSON line each:
                  conv2's (30, 2)), and at an odd shape (B, C) = (5, 33)
                  on a graph with a hub receiver, a hub sender and a
                  dominant relation, fp32 (1e-5);
+               - the dense-mask flash-GAT forward (out, lse) and backward
+                 (dd, ds, dh) at Cora's mask with conv1's (8, 8) and
+                 conv2's (1, 7), at a half-full directed mask of 2048
+                 nodes with empty rows and columns, attention dropout 0
+                 and 0.6, and at the operator's cap, 8192 nodes at
+                 PubMed's degree, dropout 0.6, fp32 (1e-5); two launches
+                 bitwise equal;
 4. slice     — the GCN path as a user runs it: Planetoid Cora ->
                from_data -> train_gcn(epochs=200, device="cuda"), with
                the kernel's launch count read over exactly that run,
@@ -35,12 +42,16 @@ Phases, one JSON line each:
                card against the plain path on the CPU;
 5. slice_gat — the GAT path the same way: train_gat(epochs=200), the
                packed-GAT launch counts read over exactly that run;
+   slice_gat_dense — the same with backend="dense": every attention
+               layer through the dense-mask flash-GAT kernels, and no
+               packed-GAT launch;
 6. slice_rgcn — the RGCN path the same way: Entities MUTAG at
                scale=1.0 -> from_data -> train_rgcn(epochs=50), the
                packed-RGCN launch counts read over exactly that run;
 7. trace     — torch.profiler over 20 more epochs of the GCN step:
                device time per kernel name, device busy and idle share;
-8. trace_gat, trace_rgcn — the same for the GAT and the RGCN step.
+8. trace_gat, trace_gat_dense, trace_rgcn — the same for the GAT step
+               of each backend and the RGCN step.
 
 Then a "kernels" JSON line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
@@ -130,6 +141,26 @@ def gat_bound(op, H, C, backward):
         flops = E * H * (4 * C + 12)
     else:
         flops = E * H * (2 * C + 8)
+    return _bound(nbytes, flops)
+
+
+def flash_gat_bound(n, valid, H, C, backward):
+    """Least time for one dense-mask flash-GAT call on an (n, n) mask
+    with ``valid`` true entries: the mask once at one bit per entry (the
+    least any dense-mask operator reads, whatever layout it keeps), the
+    node inputs once (d, s, h, seed; lse, out and g for the backward),
+    the outputs once (out, lse; dd, ds, dh), fp32. Flops per valid
+    (entry, head) as :func:`gat_bound` counts them: what this mask
+    needs, not the n^2 positions a dense walk would visit."""
+    HC = H * C
+    nbytes = n * n // 8 + (2 * n * H + n * HC + 1) * 4
+    if backward:
+        nbytes += (n * H + 2 * n * HC) * 4          # lse, out, g
+        nbytes += (2 * n * H + n * HC) * 4          # dd, ds, dh
+        flops = valid * H * (4 * C + 12)
+    else:
+        nbytes += (n * HC + n * H) * 4              # out, lse
+        flops = valid * H * (2 * C + 8)
     return _bound(nbytes, flops)
 
 
@@ -292,6 +323,81 @@ def check_gat_case(graph_name, op, H, C, rate, gen):
     return cases
 
 
+def check_flash_case(graph_name, adj, op, H, C, rate, gen, calls=50):
+    """The flash-GAT forward and backward kernels against their plain
+    versions on random node inputs at one (H, C) and dropout rate, over
+    ``op``'s packed mask and the same mask dense (``adj``): one line per
+    kernel. The backward takes the plain forward's out and lse. A second
+    launch must repeat the first bit for bit."""
+    from pytorch_geometric_tpu_torch.ops import flash_gat as fg
+
+    n = op.n
+    valid = int(adj.sum())
+    d, s = (torch.randn(n, H, generator=gen, device=DEVICE)
+            for _ in range(2))
+    h, g = (torch.randn(n, H * C, generator=gen, device=DEVICE)
+            for _ in range(2))
+    seed = torch.tensor([GAT_SEED], dtype=torch.int32, device=DEVICE)
+    out, lse = fg.flash_gat_fwd_plain(adj, d, s, h, seed, rate)
+    cases = []
+    for name, kernel, plain, args, backward in (
+            ("flash_gat_fwd", fg.flash_gat_fwd, fg.flash_gat_fwd_plain,
+             (d, s, h, seed, rate), False),
+            ("flash_gat_bwd", fg.flash_gat_bwd, fg.flash_gat_bwd_plain,
+             (d, s, h, lse, out, g, seed, rate), True)):
+        got, again = kernel(op.mask, *args), kernel(op.mask, *args)
+        want = plain(adj, *args)
+        torch.cuda.synchronize()
+        abs_err, rel_err = _max_rel_err(got, want)
+        repeats = all(torch.equal(a, b) for a, b in zip(got, again))
+        bound_ms, bound_by = flash_gat_bound(n, valid, H, C, backward)
+        case = {"phase": "kernel", "kernel": name, "graph": graph_name,
+                "H": H, "C": C, "rate": rate, "rows": n,
+                "valid_entries": valid, "density": valid / (n * n),
+                "launches_per_call": 2 if backward else 1,
+                "max_abs_err": abs_err, "rel_err": rel_err,
+                "tol": TOL["fp32"], "bitwise_repeat": repeats,
+                "ok": rel_err <= TOL["fp32"] and repeats,
+                "timed_calls": calls,
+                "kernel_ms": device_ms(lambda: kernel(op.mask, *args),
+                                       calls),
+                "plain_ms": device_ms(lambda: plain(adj, *args), calls),
+                # no single PyTorch call computes masked rank-1-logit
+                # attention with this dropout
+                "library_ms": None,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+        emit(case)
+        cases.append(case)
+    return cases
+
+
+def _flash_masks(cora):
+    """(name, dense mask, (H, C) pairs, rates, timed calls) of the
+    flash-GAT cases: Cora's mask; a half-full directed mask of 2048 nodes
+    with three empty rows and three empty columns; the operator's cap,
+    8192 nodes with PubMed's edges per node (undirected pairs made
+    symmetric, plus self loops)."""
+    import numpy as np
+
+    from pytorch_geometric_tpu_torch.nn.conv import gat_dense_adj
+    from pytorch_geometric_tpu_torch.ops.flash_gat import MAX_NODES
+
+    rng = np.random.default_rng(SEED)
+    half = rng.random((2048, 2048)) < 0.5
+    half[[0, 77, 2047], :] = False
+    half[:, [5, 1000, 2046]] = False
+    n = MAX_NODES
+    pairs = rng.integers(0, n, (2, n * 44324 // 19717))
+    cap = np.zeros((n, n), dtype=bool)
+    cap[pairs[0], pairs[1]] = cap[pairs[1], pairs[0]] = True
+    np.fill_diagonal(cap, True)
+    return (("cora", gat_dense_adj(cora), ((8, 8), (1, 7)), (0.0, 0.6), 50),
+            ("half2048", torch.from_numpy(half).to(DEVICE), ((8, 8),),
+             (0.0, 0.6), 50),
+            ("cap8192", torch.from_numpy(cap).to(DEVICE), ((8, 8),),
+             (0.6,), 5))
+
+
 def check_rgcn_case(graph_name, op, B, C, gen):
     """The packed-RGCN forward and backward kernels against their plain
     versions on random inputs at one (B, C): one line per kernel."""
@@ -376,6 +482,7 @@ def phase_kernel():
     from pytorch_geometric_tpu_torch.datasets import synthetic_citation_graph
     from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
     from pytorch_geometric_tpu_torch.models.entities import rgcn_fused_ops
+    from pytorch_geometric_tpu_torch.ops.flash_gat import FlashGatOperator
     from pytorch_geometric_tpu_torch.transforms import NormalizeFeatures
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -396,6 +503,12 @@ def phase_kernel():
         for H, C in heads:
             for rate in (0.0, 0.6):
                 cases += check_gat_case(graph_name, op, H, C, rate, gen)
+    for graph_name, adj, heads, rates, calls in _flash_masks(cora):
+        op = FlashGatOperator(adj, device=DEVICE)
+        for H, C in heads:
+            for rate in rates:
+                cases += check_flash_case(graph_name, adj, op, H, C, rate,
+                                          gen, calls)
     ds, mutag = _mutag_graph(DEVICE)
     embed_op, transform_op = rgcn_fused_ops(mutag, ds.num_relations)
     for graph_name, op, B, C in (("mutag", embed_op, 30, 16),
@@ -461,26 +574,38 @@ def phase_slice():
     return result
 
 
-def phase_slice_gat():
+def phase_slice_gat(backend="packed", phase="slice_gat"):
     """examples/gat.py's run on the card: train_gat on Cora, every
-    attention layer, forward and backward, through the packed-GAT
-    kernels. Per epoch 2 forward launches (conv1, conv2) and 4 backward
-    launches (2 per layer: receiver- and sender-major CSR); the final
-    evaluation adds 2 forward launches."""
+    attention layer, forward and backward, through the kernels of
+    ``backend``: packed-GAT (the edge list) or flash-GAT (``"dense"``,
+    the (N, N) mask). Per epoch 2 forward launches (conv1, conv2) and 4
+    backward launches (2 per layer: the receiver- and the sender-major
+    CSR, or the mask's row and column pass); the final evaluation adds 2
+    forward launches. The other backend's kernels launch no time."""
     import numpy as np
 
     from pytorch_geometric_tpu_torch.models.citation import (
         gat_flash_op, train_gat)
+    from pytorch_geometric_tpu_torch.ops import flash_gat as fg
     from pytorch_geometric_tpu_torch.ops import packed_gat as pg
 
+    wrappers = {"packed_gat_fwd": pg.packed_gat_fwd,
+                "packed_gat_bwd": pg.packed_gat_bwd,
+                "flash_gat_fwd": fg.flash_gat_fwd,
+                "flash_gat_bwd": fg.flash_gat_bwd}
+    mine = "flash_gat" if backend == "dense" else "packed_gat"
     ds, graph = _cora_graph(DEVICE)
-    pg.packed_gat_fwd.launches = pg.packed_gat_bwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
     model, metrics = train_gat(graph, num_classes=ds.num_classes,
-                               epochs=EPOCHS, seed=SEED, device=DEVICE)
-    launches = {"packed_gat_fwd": pg.packed_gat_fwd.launches,
-                "packed_gat_bwd": pg.packed_gat_bwd.launches}
-    expected = {"packed_gat_fwd": 2 * EPOCHS + 2,
-                "packed_gat_bwd": 4 * EPOCHS}
+                               epochs=EPOCHS, seed=SEED, device=DEVICE,
+                               backend=backend)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    expected = {name: 0 for name in wrappers}
+    expected[f"{mine}_fwd"] = 2 * EPOCHS + 2
+    expected[f"{mine}_bwd"] = 4 * EPOCHS
+    peak = torch.cuda.max_memory_allocated()
     loss = metrics["curve"]["loss"]
     # The trained model on the card (kernels) against the plain path on
     # the CPU, same weights, dropout off.
@@ -489,11 +614,11 @@ def phase_slice_gat():
         for dev in (DEVICE, "cpu"):
             m = model.to(dev)
             g = graph.to(dev)
-            logits[dev] = m(g, g.x, flash_op=gat_flash_op(g))
+            logits[dev] = m(g, g.x, flash_op=gat_flash_op(g, backend))
     ref = logits["cpu"]
     parity = float((logits[DEVICE].cpu() - ref).abs().max()
                    / ref.abs().max())
-    result = {"phase": "slice_gat", "dataset": "cora",
+    result = {"phase": phase, "backend": backend, "dataset": "cora",
               "synthetic": ds.is_synthetic, "nodes": graph.num_nodes,
               "edges": graph.num_edges, "epochs": EPOCHS,
               "seconds": metrics["seconds"],
@@ -502,6 +627,7 @@ def phase_slice_gat():
               "train_acc": metrics["train_acc"],
               "val_acc": metrics["val_acc"], "test_acc": metrics["test_acc"],
               "launches": launches, "expected_launches": expected,
+              "max_memory_allocated": peak,
               "logits_shape": list(ref.shape),
               "logits_cuda_vs_cpu_rel_err": parity}
     emit(result)
@@ -511,7 +637,7 @@ def phase_slice_gat():
         raise AssertionError(f"accuracy gate: val {metrics['val_acc']}, "
                              f"test {metrics['test_acc']} (need > 0.6)")
     if launches != expected:
-        raise AssertionError(f"packed-GAT launches on the main path "
+        raise AssertionError(f"GAT kernel launches on the main path "
                              f"{launches}, expected {expected}")
     if not (torch.isfinite(logits[DEVICE]).all() and parity <= 1e-4):
         raise AssertionError(f"trained logits: card vs CPU rel err {parity}")
@@ -595,13 +721,17 @@ def _gcn_step(ds, graph):
     return create_gcn_train_step(model, graph)[0]
 
 
-def _gat_step(ds, graph):
+def _gat_step(ds, graph, backend="packed"):
     from pytorch_geometric_tpu_torch.models.citation import (
         GAT, create_gat_train_step)
 
     model = GAT(graph.num_node_features, ds.num_classes,
                 generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
-    return create_gat_train_step(model, graph)[0]
+    return create_gat_train_step(model, graph, backend=backend)[0]
+
+
+def _gat_dense_step(ds, graph):
+    return _gat_step(ds, graph, backend="dense")
 
 
 def _rgcn_step(ds, graph):
@@ -650,7 +780,8 @@ def phase_trace(make_step=_gcn_step, phase="trace", epochs=20,
               "other": 0.0}
     for us, name, _ in kernels:
         if any(k in name for k in ("spmm_csr", "gat_fwd_kernel",
-                                   "gat_bwd_kernel", "rgcn_")):
+                                   "gat_bwd_kernel", "rgcn_", "flash_fwd_",
+                                   "flash_bwd_")):
             groups["port_kernels"] += us
         elif "multi_tensor_apply" in name:
             groups["optimizer_multi_tensor"] += us
@@ -674,8 +805,8 @@ def phase_trace(make_step=_gcn_step, phase="trace", epochs=20,
 #: Each kernel's source, the Pallas kernel it replaces, its main path's
 #: graph, and the case of the kernel phase that stands for that path: its
 #: largest call (GCN's F = 16 forward SpMM; GAT's conv1, 8 heads x 8, with
-#: attention dropout; RGCN's conv1, 30 bases x 16 over the embedding
-#: table).
+#: attention dropout, for either backend; RGCN's conv1, 30 bases x 16
+#: over the embedding table).
 KERNELS = {
     "spmm_csr": ("pytorch_geometric_tpu_torch/csrc/spmm_csr.cu",
                  "pytorch_geometric_tpu/ops/spmm.py:56", "cora",
@@ -686,6 +817,12 @@ KERNELS = {
     "packed_gat_bwd": ("pytorch_geometric_tpu_torch/csrc/packed_gat.cu",
                        "pytorch_geometric_tpu/ops/packed_gat.py:156", "cora",
                        dict(H=8, C=8, rate=0.6)),
+    "flash_gat_fwd": ("pytorch_geometric_tpu_torch/csrc/flash_gat.cu",
+                      "pytorch_geometric_tpu/ops/flash_gat.py:63", "cora",
+                      dict(H=8, C=8, rate=0.6)),
+    "flash_gat_bwd": ("pytorch_geometric_tpu_torch/csrc/flash_gat.cu",
+                      "pytorch_geometric_tpu/ops/flash_gat.py:88", "cora",
+                      dict(H=8, C=8, rate=0.6)),
     "packed_rgcn_fwd": ("pytorch_geometric_tpu_torch/csrc/packed_rgcn.cu",
                         "pytorch_geometric_tpu/ops/packed_rgcn.py:68",
                         "mutag", dict(B=30, C=16)),
@@ -699,9 +836,14 @@ def kernels_line(results):
     """Per kernel: its launches on its main path's run, its largest error
     over the cases on that path's graph, and the times and bound of its
     main-path case."""
+    def of(phase, prefix):
+        return {k: v for k, v in results[phase]["launches"].items()
+                if k.startswith(prefix)}
+
     launches = {"spmm_csr": results["slice"]["spmm_csr_launches"],
-                **results["slice_gat"]["launches"],
-                **results["slice_rgcn"]["launches"]}
+                **of("slice_gat", "packed_gat"),
+                **of("slice_gat_dense", "flash_gat"),
+                **of("slice_rgcn", "packed_rgcn")}
     line = []
     for name, (source, replaces, graph, keys) in KERNELS.items():
         mine = [c for c in results["kernel"]
@@ -738,10 +880,15 @@ def main():
     for name, fn in (("card", phase_card), ("build", phase_build),
                      ("kernel", phase_kernel), ("slice", phase_slice),
                      ("slice_gat", phase_slice_gat),
+                     ("slice_gat_dense",
+                      lambda: phase_slice_gat("dense", "slice_gat_dense")),
                      ("slice_rgcn", phase_slice_rgcn),
                      ("trace", phase_trace),
                      ("trace_gat",
                       lambda: phase_trace(_gat_step, "trace_gat")),
+                     ("trace_gat_dense",
+                      lambda: phase_trace(_gat_dense_step,
+                                          "trace_gat_dense")),
                      ("trace_rgcn",
                       lambda: phase_trace(_rgcn_step, "trace_rgcn",
                                           load=_mutag_graph))):

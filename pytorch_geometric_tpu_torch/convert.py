@@ -6,7 +6,9 @@ arrays ``conv1.weight``, in the same layouts:
 
 - GCN: ``convK.weight`` (in, out) and ``convK.bias`` (out,);
 - GAT (examples/gat.py): ``convK.weight`` (in, H*C), ``convK.att_src``
-  and ``convK.att_dst`` (1, H, C), ``convK.bias`` (H*C,) or (C,);
+  and ``convK.att_dst`` (1, H, C), ``convK.bias`` (H*C,) or (C,); the
+  same parameters whichever fused operator aggregates (``backend=
+  "packed"`` or ``"dense"``), so the dense operator adds nothing here;
 - RGCN (examples/rgcn.py): ``convK.basis`` (B, F_in, C) (B = R without
   bases), ``convK.att`` (R, B) (only with bases), ``convK.root``
   (F_in, C), ``convK.bias`` (C,).

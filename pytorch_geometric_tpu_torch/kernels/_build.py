@@ -42,6 +42,11 @@ SIGNATURES = {
         "packed_gat_bwd": (_I, [_P] * 11 + [_I] * 3
                            + [_U, _F, _F, _I, _P]),
     },
+    "flash_gat": {
+        "flash_gat_fwd": (_I, [_P] * 7 + [_I] * 4 + [_U, _F, _F, _P]),
+        "flash_gat_bwd_row": (_I, [_P] * 10 + [_I] * 4 + [_U, _F, _F, _P]),
+        "flash_gat_bwd_col": (_I, [_P] * 10 + [_I] * 4 + [_U, _F, _F, _P]),
+    },
     "packed_rgcn": {
         "packed_rgcn_fwd": (_I, [_P] * 7 + [_I] * 3 + [_P]),
         "packed_rgcn_bwd": (_I, [_P] * 13 + [_I] * 5 + [_P]),

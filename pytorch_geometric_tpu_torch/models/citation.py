@@ -13,9 +13,11 @@ Counterpart of ``pytorch_geometric_tpu/models/citation.py`` and
 - a 2-layer GAT (8 heads x 8 channels, then 1 head x classes; dropout
   0.6 on the inputs and the attention; AdamW lr 5e-3, weight decay 5e-4;
   reference examples/gat.py). Every attention layer goes through one
-  ``PackedFlashGat`` (:func:`gat_flash_op`), the default backend of the
-  JAX example: on a CUDA graph 1 forward launch and 2 backward launches
-  per layer, so 2 + 4 per epoch.
+  fused operator (:func:`gat_flash_op`): ``backend="packed"``, the
+  default of the JAX example, is ``PackedFlashGat`` over the edge list;
+  ``backend="dense"`` is ``FlashGatOperator`` over the (N, N) mask, for
+  graphs of at most 8192 padded nodes. Either way, on a CUDA graph, 1
+  forward launch and 2 backward launches per layer, so 2 + 4 per epoch.
 
 The JAX package runs the epochs as one ``lax.scan`` program; here the
 loop runs eagerly, one ``epoch_step`` per epoch, and nothing is copied to
@@ -32,8 +34,10 @@ from torch import nn
 from pytorch_geometric_tpu_torch.data.graph import Graph
 from pytorch_geometric_tpu_torch.device import resolve_device
 from pytorch_geometric_tpu_torch.nn.conv.gat_conv import (
-    GATConv, gat_edge_set)
+    GATConv, gat_dense_adj, gat_edge_set)
 from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import GCNConv, gcn_norm
+from pytorch_geometric_tpu_torch.ops.flash_gat import (
+    MAX_NODES, FlashGatOperator)
 from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
 from pytorch_geometric_tpu_torch.ops.spmm import SpmmOperator
 
@@ -191,40 +195,54 @@ class GAT(nn.Module):
                              concat=False, dropout=dropout_rate,
                              generator=generator)
 
-    def forward(self, graph: Graph, x, *, train: bool = False, flash_op=None,
+    def forward(self, graph: Graph, x, *, train: bool = False, adj=None,
+                flash_op=None,
                 generator: Optional[torch.Generator] = None):
         x = dropout(x, self.dropout_rate, train, generator)
-        x = self.conv1(graph, x, train=train, flash_op=flash_op,
+        x = self.conv1(graph, x, train=train, adj=adj, flash_op=flash_op,
                        generator=generator)
         x = torch.nn.functional.elu(x)
         x = dropout(x, self.dropout_rate, train, generator)
-        return self.conv2(graph, x, train=train, flash_op=flash_op,
+        return self.conv2(graph, x, train=train, adj=adj, flash_op=flash_op,
                           generator=generator)
 
 
-def gat_flash_op(graph: Graph) -> PackedFlashGat:
-    """The fused attention operator of the graph (``make_flash_op``'s
-    default backend in examples/gat.py), on the graph's device: one for
-    both layers. The JAX example first reorders the nodes (RCM) to fill
-    the TPU's window buckets; a CSR kernel has no use for that, and a
-    node permutation changes no result, so the port leaves it out."""
-    senders, receivers = gat_edge_set(graph)
-    return PackedFlashGat(senders, receivers, graph.num_nodes,
-                          device=graph.device)
+def gat_flash_op(graph: Graph, backend: str = "packed"):
+    """The fused attention operator of the graph (``make_flash_op`` in
+    examples/gat.py), on the graph's device: one for both layers.
+    ``"packed"`` builds ``PackedFlashGat`` over the edge list (any N,
+    work that grows with the edges); ``"dense"`` builds
+    ``FlashGatOperator`` over the (N, N) mask, small graphs only. Both
+    launch their kernels on a CUDA graph. The JAX example first reorders
+    the nodes (RCM) to fill the TPU's window buckets; neither operator
+    here has use for that, and a node permutation changes no result, so
+    the port leaves it out."""
+    if backend == "packed":
+        senders, receivers = gat_edge_set(graph)
+        return PackedFlashGat(senders, receivers, graph.num_nodes,
+                              device=graph.device)
+    if backend == "dense":
+        if graph.num_nodes > MAX_NODES:
+            raise ValueError(f"the dense operator takes at most {MAX_NODES} "
+                             f"padded nodes, got {graph.num_nodes}")
+        return FlashGatOperator(gat_dense_adj(graph), device=graph.device)
+    raise ValueError(f"backend must be 'packed' or 'dense', got {backend!r}")
 
 
 def create_gat_train_step(model: GAT, graph: Graph, lr: float = 5e-3,
-                          weight_decay: float = 5e-4):
+                          weight_decay: float = 5e-4,
+                          backend: str = "packed"):
     """Build ``(epoch_step, eval_fn)`` closures over a static graph, as
     ``create_gcn_train_step``. Every attention layer runs through
-    :func:`gat_flash_op` (the kernels on a CUDA graph). The loss is the
-    masked cross-entropy of the full logits, as in examples/gat.py.
+    :func:`gat_flash_op` of ``backend`` (its kernels on a CUDA graph).
+    The loss is the masked cross-entropy of the full logits, as in
+    examples/gat.py.
 
     ``torch.optim.AdamW`` makes the same update as ``optax.adamw``:
     decoupled weight decay ``lr * wd * p`` on every parameter, and eps
     added outside the square root of the bias-corrected second moment.
     """
-    flash_op = gat_flash_op(graph)
+    flash_op = gat_flash_op(graph, backend)
     opt = torch.optim.AdamW(model.parameters(), lr=lr,
                             weight_decay=weight_decay)
 
@@ -251,12 +269,14 @@ def create_gat_train_step(model: GAT, graph: Graph, lr: float = 5e-3,
 def train_gat(graph: Graph, num_classes: int, hidden: int = 8,
               heads: int = 8, epochs: int = 200, seed: int = 0,
               lr: float = 5e-3, weight_decay: float = 5e-4,
-              device="cuda") -> Tuple[GAT, Dict[str, Any]]:
-    """Full GAT training run on ``device`` through the fused operator,
-    as examples/gat.py ``run``: ``epochs`` AdamW steps, then one
-    evaluation. Returns the model and the metrics of :func:`train_gcn`.
-    On a CUDA graph the forward kernel launches 2 times per epoch and 2
-    for the evaluation, the backward kernel 4 times per epoch."""
+              device="cuda",
+              backend: str = "packed") -> Tuple[GAT, Dict[str, Any]]:
+    """Full GAT training run on ``device`` through the fused operator of
+    ``backend`` (:func:`gat_flash_op`), as examples/gat.py ``run``:
+    ``epochs`` AdamW steps, then one evaluation. Returns the model and
+    the metrics of :func:`train_gcn`. On a CUDA graph the operator's
+    forward kernel launches 2 times per epoch and 2 for the evaluation,
+    its backward kernels 4 times per epoch."""
     dev = resolve_device(device)
     graph = graph.to(dev)
     init_gen = torch.Generator().manual_seed(seed)
@@ -264,7 +284,7 @@ def train_gat(graph: Graph, num_classes: int, hidden: int = 8,
                 heads=heads, generator=init_gen).to(dev)
     drop_gen = torch.Generator(device=dev).manual_seed(seed)
     epoch_step, eval_fn = create_gat_train_step(
-        model, graph, lr=lr, weight_decay=weight_decay)
+        model, graph, lr=lr, weight_decay=weight_decay, backend=backend)
     return model, run_epochs(epoch_step, eval_fn, epochs, drop_gen, dev)
 
 

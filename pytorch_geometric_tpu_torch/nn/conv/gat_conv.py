@@ -6,19 +6,26 @@ head; per-edge logits e_ij = LeakyReLU(a_src . h_j + a_dst . h_i); alpha
 = softmax over each receiver's incoming edges; out_i = sum_j alpha_ij
 h_j; heads concatenated or averaged; bias added after.
 
-Aggregation paths, as in the JAX module:
+Aggregation paths, as in the JAX module (``flash_op`` is taken before
+``adj``, as there):
 
-- the sparse segment-softmax path (``flash_op=None``), with PyG's
+- the sparse segment-softmax path (no ``adj``, no ``flash_op``), with PyG's
   remove-then-add self loops: a pre-existing self edge is masked out
   and each node gets one appended loop. It is the fp32 reference.
-- the fused path (``flash_op=PackedFlashGat(...)``, ``ops/packed_gat.py``):
-  one kernel forward, two backward; the attention-dropout seed is drawn
-  on the device from the caller's generator. ``raw_out=True`` returns
-  its undivided num‖den (the bias is still created, not added).
+- the dense path (``adj=gat_dense_adj(graph)``): masked (H, N, N)
+  logits, a row softmax and one batched product, in plain PyTorch and
+  fp32. It is the reference of the dense-mask fused operator, not a path
+  a trainer uses; duplicate edges collapse to one softmax slot.
+- the fused path (``flash_op=``): ``PackedFlashGat`` (``ops/packed_gat.py``,
+  over the edge list) or ``FlashGatOperator`` (``ops/flash_gat.py``, over
+  the dense mask), one kernel forward, two backward; the
+  attention-dropout seed is drawn on the device from the caller's
+  generator. ``raw_out=True`` returns the packed operator's undivided
+  num‖den (the bias is still created, not added).
 
-The dense ``adj``, closure and shard paths of the JAX module are not
-ported yet. ``weight`` is (in, H*C) and ``att_src`` / ``att_dst`` are
-(1, H, C), as in the JAX module.
+The closure and shard paths of the JAX module are not ported yet.
+``weight`` is (in, H*C) and ``att_src`` / ``att_dst`` are (1, H, C), as
+in the JAX module.
 """
 
 from typing import Optional, Tuple
@@ -52,6 +59,21 @@ def gat_edge_set(graph: Graph) -> Tuple[np.ndarray, np.ndarray]:
     return key % n, key // n
 
 
+def gat_dense_adj(graph: Graph, add_self_loops: bool = True) -> torch.Tensor:
+    """Boolean (N, N) mask on the graph's device with ``adj[i, j]`` true
+    iff there is an edge j -> i. Padding edges are left out; the self
+    loops (padding nodes' included) give every row a valid entry, so a
+    masked row softmax never sees an empty row. With self loops it is the
+    scatter of :func:`gat_edge_set`."""
+    n = graph.num_nodes
+    mask = graph.real_edge_mask()
+    adj = torch.zeros((n, n), dtype=torch.bool, device=graph.device)
+    adj[graph.receivers[mask].long(), graph.senders[mask].long()] = True
+    if add_self_loops:
+        adj.fill_diagonal_(True)
+    return adj
+
+
 class GATConv(nn.Module):
     """``heads`` attention heads of ``out_channels`` each, concatenated
     (``concat``) or averaged; see the module docstring for the paths."""
@@ -75,14 +97,15 @@ class GATConv(nn.Module):
         self.bias = nn.Parameter(zeros((H * C,) if concat else (C,))) \
             if use_bias else None
 
-    def forward(self, graph: Graph, x, *, train: bool = False, flash_op=None,
+    def forward(self, graph: Graph, x, *, train: bool = False, adj=None,
+                flash_op=None,
                 generator: Optional[torch.Generator] = None):
         H, C = self.heads, self.out_channels
-        if self.raw_out and flash_op is None:
+        if self.raw_out and (adj is not None or flash_op is None):
             # the raw num‖den only exists on the fused path; the others
             # return finalized output, which the caller would divide again
             raise ValueError("GATConv(raw_out=True) requires the fused "
-                             "flash_op path")
+                             "flash_op path (no adj)")
         N = graph.num_nodes
         h2 = x @ self.weight                                     # (N, HC)
         h = h2.reshape(N, H, C)
@@ -91,6 +114,9 @@ class GATConv(nn.Module):
         if flash_op is not None:
             return self._flash_call(flash_op, h2, alpha_src, alpha_dst,
                                     train, generator)
+        if adj is not None:
+            return self._finalize(self._dense_attention(
+                h, alpha_src, alpha_dst, adj, train, generator))
 
         senders, receivers = graph.senders.long(), graph.receivers.long()
         if self.add_self_loops:
@@ -139,6 +165,24 @@ class GATConv(nn.Module):
         out = flash_op(alpha_dst, alpha_src, h2, seed, rate=rate,
                        raw_out=self.raw_out)
         return out if self.raw_out else self._finalize(out)
+
+    def _dense_attention(self, h, alpha_src, alpha_dst, adj, train,
+                         generator):
+        """Masked (H, N, N) logits, row softmax, dropout of the
+        normalised alpha from ``generator``, one batched product; fp32
+        (the JAX module runs this chain in bf16)."""
+        N, H, C = h.shape
+        logits = alpha_dst.t()[:, :, None] + alpha_src.t()[:, None, :]
+        logits = torch.nn.functional.leaky_relu(logits, self.negative_slope)
+        # -1e9 underflows exp() to an exact 0 beside any valid entry
+        logits = torch.where(adj[None], logits, -1e9)
+        alpha = torch.softmax(logits, dim=-1)
+        if self.dropout > 0 and train:
+            keep = torch.rand(alpha.shape, generator=generator,
+                              device=alpha.device) < 1.0 - self.dropout
+            alpha = torch.where(keep, alpha / (1.0 - self.dropout), 0.0)
+        out = torch.bmm(alpha, h.transpose(0, 1))            # (H, N, C)
+        return out.transpose(0, 1).reshape(N, H * C)
 
     def _finalize(self, out):
         """Head concat or mean, then bias, on the flat (N, H*C) block

@@ -62,6 +62,20 @@ def dropout_scale(rate: float) -> float:
     return 1.0 / (1.0 - rate) if rate > 0 else 1.0
 
 
+def seed_tensor(cache: dict, seed, device):
+    """The dropout seed as the one-element int32 tensor on ``device``
+    that the kernels read: a tensor is converted in place (no wait on the
+    card); an int is copied to the device once per value and kept in
+    ``cache``."""
+    if isinstance(seed, torch.Tensor):
+        return seed.to(device=device, dtype=torch.int32).reshape(1)
+    value = int(seed)
+    if value not in cache:
+        cache[value] = torch.tensor([value], dtype=torch.int32,
+                                    device=device)
+    return cache[value]
+
+
 def _leaky(z, slope):
     return torch.where(z > 0, z, slope * z)
 
@@ -275,21 +289,13 @@ class PackedFlashGat:
         self.bwd_eid = self.bwd.perm.to(torch.int32).contiguous()
         self._seeds = {}
 
-    def _seed(self, seed, device):
-        if isinstance(seed, torch.Tensor):
-            return seed.to(device=device, dtype=torch.int32).reshape(1)
-        value = int(seed)
-        if value not in self._seeds:   # one host-to-device copy per value
-            self._seeds[value] = torch.tensor([value], dtype=torch.int32,
-                                              device=device)
-        return self._seeds[value]
-
     def __call__(self, d, s, h2d, seed, rate: float = 0.0,
                  raw_out: bool = False):
         """``raw_out=True`` returns the undivided ``(N, H*C + H)``
         num‖den, for callers that divide (and add a bias) themselves."""
-        acc = _PackedGatRaw.apply(d, s, h2d, self._seed(seed, d.device),
-                                  self, float(rate))
+        acc = _PackedGatRaw.apply(
+            d, s, h2d, seed_tensor(self._seeds, seed, d.device), self,
+            float(rate))
         if raw_out:
             return acc
         n, H = d.shape

@@ -18,8 +18,8 @@ from pytorch_geometric_tpu_torch.data import Data, from_data
 from pytorch_geometric_tpu_torch.kernels import _build
 from pytorch_geometric_tpu_torch.models.citation import train_gat, train_gcn
 from pytorch_geometric_tpu_torch.models.entities import train_rgcn
-from pytorch_geometric_tpu_torch.nn.conv import gat_edge_set
-from pytorch_geometric_tpu_torch.ops import packed_rgcn
+from pytorch_geometric_tpu_torch.nn.conv import gat_dense_adj, gat_edge_set
+from pytorch_geometric_tpu_torch.ops import flash_gat, packed_rgcn
 from pytorch_geometric_tpu_torch.ops.csr import build_csr
 from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
 from pytorch_geometric_tpu_torch.ops.spmm import (
@@ -68,7 +68,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("models.citation", "kernels._build", "ops.packed_gat",
                  "nn.conv.gat_conv", "datasets.molecules",
-                 "ops.packed_rgcn", "nn.conv.rgcn_conv", "models.entities"):
+                 "ops.packed_rgcn", "nn.conv.rgcn_conv", "models.entities",
+                 "ops.flash_gat"):
         assert f"pytorch_geometric_tpu_torch.{name}" in report["modules"]
     assert report["bad"] == []
 
@@ -87,6 +88,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         train_gat(graph, num_classes=2, epochs=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PackedFlashGat(*gat_edge_set(graph), graph.num_nodes)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_gat(graph, num_classes=2, epochs=1, backend="dense")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        flash_gat.FlashGatOperator(gat_dense_adj(graph))
     rel = from_data(_tiny_relational_graph(), device="cpu")
     edges = (rel.senders, rel.receivers, rel.edge_type, 3, rel.num_nodes,
              np.ones(rel.num_edges, np.float32))
@@ -133,6 +138,27 @@ def test_cpu_rgcn_wrappers_compute_plain_and_count_no_launch():
     assert (fwd.launches, bwd.launches) == (0, 0)
 
 
+def test_cpu_flash_gat_wrappers_compute_plain_and_count_no_launch():
+    fwd, bwd = flash_gat.flash_gat_fwd, flash_gat.flash_gat_bwd
+    fwd.launches = bwd.launches = 0
+    graph = from_data(_tiny_graph(), device="cpu")
+    n = graph.num_nodes
+    adj = gat_dense_adj(graph)
+    mask = flash_gat.BitMask(adj)
+    gen = torch.Generator().manual_seed(0)
+    d, s, h, g = (torch.randn(shape, generator=gen)
+                  for shape in ((n, 2), (n, 2), (n, 6), (n, 6)))
+    seed = torch.tensor([5], dtype=torch.int32)
+    out, lse = fwd(mask, d, s, h, seed, 0.5)
+    want = flash_gat.flash_gat_fwd_plain(adj, d, s, h, seed, 0.5)
+    assert torch.equal(out, want[0]) and torch.equal(lse, want[1])
+    got = bwd(mask, d, s, h, lse, out, g, seed, 0.5)
+    want = flash_gat.flash_gat_bwd_plain(adj, d, s, h, lse, out, g, seed, 0.5)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    train_gat(graph, num_classes=2, epochs=2, device="cpu", backend="dense")
+    assert (fwd.launches, bwd.launches) == (0, 0)
+
+
 def test_wrapper_refuses_other_devices_and_bad_inputs():
     csr = build_csr(np.array([0, 1]), np.array([1, 0]), 2)
     val = torch.ones(2)
@@ -148,8 +174,10 @@ def test_wrapper_refuses_other_devices_and_bad_inputs():
 
 
 def test_kernel_build_is_described_not_run_at_import():
-    assert sorted(_build.SIGNATURES) == ["packed_gat", "packed_rgcn",
-                                         "spmm_csr"]
+    assert sorted(_build.SIGNATURES) == ["flash_gat", "packed_gat",
+                                         "packed_rgcn", "spmm_csr"]
+    assert sorted(_build.SIGNATURES["flash_gat"]) == [
+        "flash_gat_bwd_col", "flash_gat_bwd_row", "flash_gat_fwd"]
     for name in _build.SIGNATURES:
         assert (_build.SOURCE_DIR / f"{name}.cu").is_file()
         path = _build.library_path(name)

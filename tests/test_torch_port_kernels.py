@@ -7,8 +7,8 @@ GPU and the port alone:
 Where there is no card they skip (CUDA kernels have no CPU mode); the
 CPU-side behaviour of each wrapper is covered in the other
 ``tests/test_torch_port_*.py`` files. Kernels: ``spmm_csr``, the
-packed-GAT forward and backward, and the packed-RGCN forward and
-backward.
+packed-GAT forward and backward, the packed-RGCN forward and backward,
+and the dense-mask flash-GAT forward and backward.
 """
 
 import numpy as np
@@ -269,5 +269,98 @@ def test_packed_rgcn_spmm_on_card_matches_cpu(cuda_device, num_src_rows):
                              (after[0] - before[0], after[1] - before[1]))
     cpu, card = results["cpu"], results[str(cuda_device)]
     assert cpu[1] == (0, 0) and card[1] == (1, 3)
+    for a, b in zip(card[0], cpu[0]):
+        assert _rel_err(a, b) <= 1e-5
+
+
+def _flash_adj(case, n, seed=12):
+    """Directed (asymmetric) boolean masks. ``sparse``: about 4 entries a
+    row plus the diagonal; ``half``: every second entry; ``hub``: sparse
+    with one full row and one full column. Each has a few rows and
+    columns without any entry."""
+    rng = np.random.default_rng(seed)
+    adj = rng.random((n, n)) < (0.5 if case == "half" else 4.0 / n)
+    if case != "half":
+        adj |= np.eye(n, dtype=bool)
+    if case == "hub":
+        adj[3, :] = True
+        adj[:, 10] = True
+    adj[[5, n - 1], :] = False          # empty rows
+    adj[:, [7, n - 2]] = False          # empty columns
+    return torch.from_numpy(adj)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,n", [("sparse", 300), ("half", 257),
+                                    ("hub", 1000)])
+@pytest.mark.parametrize("H,C", [(8, 8), (1, 7), (3, 5), (2, 33), (1, 70)])
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+def test_flash_gat_kernels_match_plain_on_card(cuda_device, case, n, H, C,
+                                               rate):
+    """Forward (out, lse) and backward (dd over the mask's rows, ds|dh
+    over its transpose's) against their plain versions, fp32 within 1e-5
+    of the largest reference magnitude: the main path's (H, C), odd
+    widths on both sides of the 8- and 32-channel chunks, node
+    counts that are no multiple of 32, a sparse, a half-full and a hub
+    mask, none symmetric, with empty rows and columns. With dropout on, a
+    column pass that hashed (column, row) instead of (row, column) would
+    disagree here. Two launches give bitwise equal results (no atomics);
+    outputs come from torch.empty, so an unwritten row would show."""
+    from pytorch_geometric_tpu_torch.ops import flash_gat as fg
+
+    adj = _flash_adj(case, n).to(cuda_device)
+    assert not torch.equal(adj, adj.t())
+    mask = fg.BitMask(adj)
+    gen = torch.Generator(device=cuda_device).manual_seed(H * 1000 + C)
+    d, s = (torch.randn(n, H, generator=gen, device=cuda_device)
+            for _ in range(2))
+    h, g = (torch.randn(n, H * C, generator=gen, device=cuda_device)
+            for _ in range(2))
+    seed = torch.tensor([123457], dtype=torch.int32, device=cuda_device)
+    fwd0, bwd0 = fg.flash_gat_fwd.launches, fg.flash_gat_bwd.launches
+    got = fg.flash_gat_fwd(mask, d, s, h, seed, rate)
+    want = fg.flash_gat_fwd_plain(adj, d, s, h, seed, rate)
+    out, lse = want
+    got_b = fg.flash_gat_bwd(mask, d, s, h, lse, out, g, seed, rate)
+    want_b = fg.flash_gat_bwd_plain(adj, d, s, h, lse, out, g, seed, rate)
+    torch.cuda.synchronize()
+    assert (fg.flash_gat_fwd.launches - fwd0,
+            fg.flash_gat_bwd.launches - bwd0) == (1, 2)
+    for a, b in zip(got + got_b, want + want_b):
+        assert _rel_err(a, b) <= 1e-5
+    assert (got[0][[5, n - 1]] == 0).all()
+    for a, b in zip(got, fg.flash_gat_fwd(mask, d, s, h, seed, rate)):
+        assert torch.equal(a, b)
+    for a, b in zip(got_b, fg.flash_gat_bwd(mask, d, s, h, lse, out, g,
+                                            seed, rate)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_gat_operator_on_card_matches_cpu(cuda_device):
+    """``FlashGatOperator`` on the card (forward and backward through the
+    kernels) against the same op on the CPU (plain versions): output with
+    dropout, gradients of d, s and h, launches counted."""
+    from pytorch_geometric_tpu_torch.ops import flash_gat as fg
+
+    n, H, C = 500, 4, 8
+    adj = _flash_adj("hub", n, seed=13)
+    rng = np.random.default_rng(13)
+    arrays = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+              for shape in ((n, H), (n, H), (n, H * C), (n, H * C))]
+    results = {}
+    for dev in ("cpu", cuda_device):
+        op = fg.FlashGatOperator(adj, device=dev)
+        d, s, h = (a.to(dev, copy=True).requires_grad_()
+                   for a in arrays[:3])
+        before = (fg.flash_gat_fwd.launches, fg.flash_gat_bwd.launches)
+        out = op(d, s, h, 4321, rate=0.6)
+        (out * arrays[3].to(dev)).sum().backward()
+        after = (fg.flash_gat_fwd.launches, fg.flash_gat_bwd.launches)
+        results[str(dev)] = ([t.detach().cpu() for t in
+                              (out, d.grad, s.grad, h.grad)],
+                             (after[0] - before[0], after[1] - before[1]))
+    cpu, card = results["cpu"], results[str(cuda_device)]
+    assert cpu[1] == (0, 0) and card[1] == (1, 2)
     for a, b in zip(card[0], cpu[0]):
         assert _rel_err(a, b) <= 1e-5
