@@ -8,7 +8,9 @@ arrays ``conv1.weight``, in the same layouts:
 - GAT (examples/gat.py): ``convK.weight`` (in, H*C), ``convK.att_src``
   and ``convK.att_dst`` (1, H, C), ``convK.bias`` (H*C,) or (C,); the
   same parameters whichever fused operator aggregates (``backend=
-  "packed"`` or ``"dense"``), so the dense operator adds nothing here;
+  "packed"``, ``"dense"`` or ``"bsr"``) and whatever the graph: the
+  PubMed model (500 -> 8 x 8 -> 3) has conv1.weight (500, 64) and
+  conv2.weight (64, 3), so no operator adds a layout here;
 - RGCN (examples/rgcn.py): ``convK.basis`` (B, F_in, C) (B = R without
   bases), ``convK.att`` (R, B) (only with bases), ``convK.root``
   (F_in, C), ``convK.bias`` (C,).

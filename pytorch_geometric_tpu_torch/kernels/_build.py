@@ -7,8 +7,9 @@ into ``_build/lib<name>-<hash>.so`` inside the package (a directory that
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so <name>.cu
 
-The hash covers the source and the flags, so an edited source is never
-served by an old library. The first call to :func:`load_library` builds
+The hash covers the source, every header of ``csrc/`` it includes
+(``#include "..."``, followed through) and the flags, so an edited source
+or header is never served by an old library. The first call to :func:`load_library` builds
 what is missing; :func:`build` starts one nvcc per source, all at once.
 Nothing here runs at import time, so the package imports where there is
 no nvcc and no card.
@@ -17,11 +18,12 @@ no nvcc and no card.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE_DIR = _PKG / "csrc"
@@ -51,7 +53,14 @@ SIGNATURES = {
         "packed_rgcn_fwd": (_I, [_P] * 7 + [_I] * 3 + [_P]),
         "packed_rgcn_bwd": (_I, [_P] * 13 + [_I] * 5 + [_P]),
     },
+    "bsr_gat": {
+        "bsr_gat_fwd": (_I, [_P] * 9 + [_I] * 5 + [_U, _F, _F, _P]),
+        "bsr_gat_bwd_row": (_I, [_P] * 12 + [_I] * 5 + [_U, _F, _F, _P]),
+        "bsr_gat_bwd_col": (_I, [_P] * 12 + [_I] * 5 + [_U, _F, _F, _P]),
+    },
 }
+
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -68,10 +77,26 @@ def nvcc() -> str:
                        "to build the port's CUDA kernels")
 
 
+def source_files(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every file of ``csrc/`` that it includes
+    with ``#include "..."``, directly or through another: what its library
+    is built from."""
+    files, todo = [], [SOURCE_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            todo.append((path.parent / inc.decode()).resolve())
+    return files
+
+
 def library_path(name: str) -> Path:
-    src = (SOURCE_DIR / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{h[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:

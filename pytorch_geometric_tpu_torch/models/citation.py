@@ -1,7 +1,8 @@
 """Citation-network models: the reference's canonical workload.
 
 Counterpart of ``pytorch_geometric_tpu/models/citation.py`` and
-``examples/gat.py``, trained full-batch on Cora for 200 epochs:
+``examples/gat.py``, trained full-batch for 200 epochs (Cora; the GAT on
+PubMed too):
 
 - a 2-layer GCN (hidden 16, dropout 0.5, Adam lr 0.01, weight decay 5e-4
   on the first layer only; reference examples/gcn.py:15-40). Every
@@ -16,8 +17,10 @@ Counterpart of ``pytorch_geometric_tpu/models/citation.py`` and
   fused operator (:func:`gat_flash_op`): ``backend="packed"``, the
   default of the JAX example, is ``PackedFlashGat`` over the edge list;
   ``backend="dense"`` is ``FlashGatOperator`` over the (N, N) mask, for
-  graphs of at most 8192 padded nodes. Either way, on a CUDA graph, 1
-  forward launch and 2 backward launches per layer, so 2 + 4 per epoch.
+  graphs of at most 8192 padded nodes; ``backend="bsr"`` is
+  ``BsrFlashGat`` over the mask's active blocks, for any N. Whichever it
+  is, on a CUDA graph, 1 forward launch and 2 backward launches per
+  layer, so 2 + 4 per epoch.
 
 The JAX package runs the epochs as one ``lax.scan`` program; here the
 loop runs eagerly, one ``epoch_step`` per epoch, and nothing is copied to
@@ -36,6 +39,7 @@ from pytorch_geometric_tpu_torch.device import resolve_device
 from pytorch_geometric_tpu_torch.nn.conv.gat_conv import (
     GATConv, gat_dense_adj, gat_edge_set)
 from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import GCNConv, gcn_norm
+from pytorch_geometric_tpu_torch.ops.bsr_gat import BsrFlashGat
 from pytorch_geometric_tpu_torch.ops.flash_gat import (
     MAX_NODES, FlashGatOperator)
 from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
@@ -212,11 +216,13 @@ def gat_flash_op(graph: Graph, backend: str = "packed"):
     examples/gat.py), on the graph's device: one for both layers.
     ``"packed"`` builds ``PackedFlashGat`` over the edge list (any N,
     work that grows with the edges); ``"dense"`` builds
-    ``FlashGatOperator`` over the (N, N) mask, small graphs only. Both
-    launch their kernels on a CUDA graph. The JAX example first reorders
-    the nodes (RCM) to fill the TPU's window buckets; neither operator
-    here has use for that, and a node permutation changes no result, so
-    the port leaves it out."""
+    ``FlashGatOperator`` over the (N, N) mask, small graphs only;
+    ``"bsr"`` builds ``BsrFlashGat`` over the active blocks of the same
+    mask, from the edge list (any N, no (N, N) matrix). Each launches its
+    kernels on a CUDA graph. A node permutation changes no result; the
+    block-sparse operator alone gains from one: reorder the host ``Data``
+    first (``utils/reorder.py:reorder_graph``, RCM, as examples/gat.py
+    does) and the same entries fall into fewer blocks."""
     if backend == "packed":
         senders, receivers = gat_edge_set(graph)
         return PackedFlashGat(senders, receivers, graph.num_nodes,
@@ -226,7 +232,12 @@ def gat_flash_op(graph: Graph, backend: str = "packed"):
             raise ValueError(f"the dense operator takes at most {MAX_NODES} "
                              f"padded nodes, got {graph.num_nodes}")
         return FlashGatOperator(gat_dense_adj(graph), device=graph.device)
-    raise ValueError(f"backend must be 'packed' or 'dense', got {backend!r}")
+    if backend == "bsr":
+        senders, receivers = gat_edge_set(graph)
+        return BsrFlashGat.from_edges(senders, receivers, graph.num_nodes,
+                                      device=graph.device)
+    raise ValueError(f"backend must be 'packed', 'dense' or 'bsr', got "
+                     f"{backend!r}")
 
 
 def create_gat_train_step(model: GAT, graph: Graph, lr: float = 5e-3,

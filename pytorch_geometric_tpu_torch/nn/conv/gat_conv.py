@@ -17,8 +17,9 @@ Aggregation paths, as in the JAX module (``flash_op`` is taken before
   fp32. It is the reference of the dense-mask fused operator, not a path
   a trainer uses; duplicate edges collapse to one softmax slot.
 - the fused path (``flash_op=``): ``PackedFlashGat`` (``ops/packed_gat.py``,
-  over the edge list) or ``FlashGatOperator`` (``ops/flash_gat.py``, over
-  the dense mask), one kernel forward, two backward; the
+  over the edge list), ``FlashGatOperator`` (``ops/flash_gat.py``, over
+  the dense mask) or ``BsrFlashGat`` (``ops/bsr_gat.py``, over the mask's
+  active blocks), one kernel forward, two backward; the
   attention-dropout seed is drawn on the device from the caller's
   generator. ``raw_out=True`` returns the packed operator's undivided
   num‖den (the bias is still created, not added).

@@ -96,6 +96,10 @@ class BitMask:
         """The (N, N) boolean mask."""
         return unpack_mask(self.bits, self.n)
 
+    def tensors(self):
+        """Every tensor the kernels read."""
+        return [self.bits, self.bits_t]
+
 
 def _head_terms(adj, d, s, seed, hd, rate, slope):
     """One head's (N, N) terms: the pre-activation logit, the activated
@@ -156,11 +160,14 @@ def flash_gat_bwd_plain(adj, d, s, h, lse, out, g, seed, rate: float = 0.0,
     return dd, ds, dh
 
 
-def _check(mask, d, s, h, seed, extra=()):
-    """Shapes, types and devices of a call; ``extra`` holds (name, tensor)
-    of the backward's further float inputs."""
-    if not isinstance(mask, BitMask):
-        raise TypeError(f"mask must be a BitMask, got {type(mask).__name__}")
+def _check(mask, d, s, h, seed, extra=(), mask_type=BitMask):
+    """Shapes, types and devices of a call over a ``mask_type`` (default
+    :class:`BitMask`; ``ops/bsr_gat.py`` checks its block mask here too);
+    ``extra`` holds (name, tensor) of the backward's further float
+    inputs."""
+    if not isinstance(mask, mask_type):
+        raise TypeError(f"mask must be a {mask_type.__name__}, got "
+                        f"{type(mask).__name__}")
     n, H = d.shape if d.ndim == 2 else (None, None)
     if not n or H == 0 or s.shape != (n, H) or h.ndim != 2 \
             or h.shape[0] != n or h.shape[1] == 0 or h.shape[1] % H:
@@ -174,7 +181,8 @@ def _check(mask, d, s, h, seed, extra=()):
     if seed.shape != (1,) or seed.dtype != torch.int32:
         raise TypeError(f"seed must be one int32, got {seed.dtype} "
                         f"{tuple(seed.shape)}")
-    shapes = {"lse": (n, H), "out": (n, H * C), "g": (n, H * C)}
+    shapes = {"lse": (n, H), "D": (n, H), "out": (n, H * C),
+              "g": (n, H * C)}
     for name, t in extra:
         if t.shape != shapes[name]:
             raise ValueError(f"{name} must be {shapes[name]}, got "
@@ -182,15 +190,16 @@ def _check(mask, d, s, h, seed, extra=()):
     floats = [d, s, h] + [t for _, t in extra]
     for t in floats:
         if t.dtype != torch.float32 or not t.is_contiguous():
-            raise TypeError("d, s, h, lse, out and g must be contiguous "
+            raise TypeError("d, s, h, lse, out, D and g must be contiguous "
                             "float32")
-    devices = {t.device for t in floats + [seed, mask.bits, mask.bits_t]}
+    devices = {t.device for t in floats + [seed, *mask.tensors()]}
     if len(devices) != 1:
         raise ValueError(f"all inputs must share one device, got "
                          f"{sorted(map(str, devices))}")
     device = devices.pop()
     if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash GAT runs on cpu or cuda, not {device}")
+        raise ValueError(f"masked GAT attention runs on cpu or cuda, not "
+                         f"{device}")
     return n, H, C, device
 
 

@@ -422,7 +422,7 @@ def test_gat_flash_op_backends():
     assert isinstance(dense, fg.FlashGatOperator)
     assert dense.device == g.device and dense.n == g.num_nodes
     assert torch.equal(dense.mask.dense(), gat_dense_adj(g))
-    for name in ("xla", "none", "bsr", "auto", ""):
+    for name in ("xla", "none", "auto", ""):
         with pytest.raises(ValueError, match="backend"):
             tcit.gat_flash_op(g, name)
     big = Graph(senders=torch.zeros(1, dtype=torch.int32),

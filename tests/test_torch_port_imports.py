@@ -6,6 +6,7 @@ computes on the CPU without counting a launch and refuses other devices;
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -19,7 +20,7 @@ from pytorch_geometric_tpu_torch.kernels import _build
 from pytorch_geometric_tpu_torch.models.citation import train_gat, train_gcn
 from pytorch_geometric_tpu_torch.models.entities import train_rgcn
 from pytorch_geometric_tpu_torch.nn.conv import gat_dense_adj, gat_edge_set
-from pytorch_geometric_tpu_torch.ops import flash_gat, packed_rgcn
+from pytorch_geometric_tpu_torch.ops import bsr_gat, flash_gat, packed_rgcn
 from pytorch_geometric_tpu_torch.ops.csr import build_csr
 from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
 from pytorch_geometric_tpu_torch.ops.spmm import (
@@ -69,7 +70,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     for name in ("models.citation", "kernels._build", "ops.packed_gat",
                  "nn.conv.gat_conv", "datasets.molecules",
                  "ops.packed_rgcn", "nn.conv.rgcn_conv", "models.entities",
-                 "ops.flash_gat"):
+                 "ops.flash_gat", "ops.bsr_gat", "utils.reorder"):
         assert f"pytorch_geometric_tpu_torch.{name}" in report["modules"]
     assert report["bad"] == []
 
@@ -92,6 +93,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         train_gat(graph, num_classes=2, epochs=1, backend="dense")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         flash_gat.FlashGatOperator(gat_dense_adj(graph))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_gat(graph, num_classes=2, epochs=1, backend="bsr")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bsr_gat.BsrFlashGat(gat_dense_adj(graph))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bsr_gat.BsrFlashGat.from_edges(*gat_edge_set(graph), graph.num_nodes)
     rel = from_data(_tiny_relational_graph(), device="cpu")
     edges = (rel.senders, rel.receivers, rel.edge_type, 3, rel.num_nodes,
              np.ones(rel.num_edges, np.float32))
@@ -159,6 +166,29 @@ def test_cpu_flash_gat_wrappers_compute_plain_and_count_no_launch():
     assert (fwd.launches, bwd.launches) == (0, 0)
 
 
+def test_cpu_bsr_gat_wrappers_compute_plain_and_count_no_launch():
+    wrappers = (bsr_gat.bsr_gat_fwd, bsr_gat.bsr_gat_bwd_row,
+                bsr_gat.bsr_gat_bwd_col)
+    for w in wrappers:
+        w.launches = 0
+    graph = from_data(_tiny_graph(), device="cpu")
+    n = graph.num_nodes
+    mask = bsr_gat.BlockMask(*gat_edge_set(graph)[::-1], n)
+    gen = torch.Generator().manual_seed(0)
+    d, s, h, g = (torch.randn(shape, generator=gen)
+                  for shape in ((n, 2), (n, 2), (n, 6), (n, 6)))
+    seed = torch.tensor([5], dtype=torch.int32)
+    out, lse = bsr_gat.bsr_gat_fwd(mask, d, s, h, seed, 0.5)
+    want = bsr_gat.bsr_gat_fwd_plain(mask, d, s, h, seed, 0.5)
+    assert torch.equal(out, want[0]) and torch.equal(lse, want[1])
+    dd, big_d = bsr_gat.bsr_gat_bwd_row(mask, d, s, h, lse, out, g, seed, 0.5)
+    ds, dh = bsr_gat.bsr_gat_bwd_col(mask, d, s, h, lse, big_d, g, seed, 0.5)
+    want = bsr_gat.bsr_gat_bwd_plain(mask, d, s, h, lse, out, g, seed, 0.5)
+    assert all(torch.equal(a, b) for a, b in zip((dd, ds, dh), want))
+    train_gat(graph, num_classes=2, epochs=2, device="cpu", backend="bsr")
+    assert [w.launches for w in wrappers] == [0, 0, 0]
+
+
 def test_wrapper_refuses_other_devices_and_bad_inputs():
     csr = build_csr(np.array([0, 1]), np.array([1, 0]), 2)
     val = torch.ones(2)
@@ -174,18 +204,48 @@ def test_wrapper_refuses_other_devices_and_bad_inputs():
 
 
 def test_kernel_build_is_described_not_run_at_import():
-    assert sorted(_build.SIGNATURES) == ["flash_gat", "packed_gat",
+    assert sorted(_build.SIGNATURES) == ["bsr_gat", "flash_gat", "packed_gat",
                                          "packed_rgcn", "spmm_csr"]
     assert sorted(_build.SIGNATURES["flash_gat"]) == [
         "flash_gat_bwd_col", "flash_gat_bwd_row", "flash_gat_fwd"]
+    assert sorted(_build.SIGNATURES["bsr_gat"]) == [
+        "bsr_gat_bwd_col", "bsr_gat_bwd_row", "bsr_gat_fwd"]
+    header = _build.SOURCE_DIR / "gat_mask.cuh"
     for name in _build.SIGNATURES:
-        assert (_build.SOURCE_DIR / f"{name}.cu").is_file()
+        files = _build.source_files(name)
+        assert files[0] == _build.SOURCE_DIR / f"{name}.cu"
+        assert all(f.is_file() for f in files)
+        assert (header in files) == (name in ("flash_gat", "bsr_gat"))
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR and path.name.endswith(".so")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
     ignored = (REPO / ".gitignore").read_text().splitlines()
     assert "/pytorch_geometric_tpu_torch/_build/" in ignored
+
+
+def test_an_edited_header_changes_the_library_path(tmp_path, monkeypatch):
+    """The library's name hashes every file its source includes, so an
+    edited header is never served by an old library; and the package
+    data ships the header with the sources."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.SOURCE_DIR, csrc)
+    monkeypatch.setattr(_build, "SOURCE_DIR", csrc)
+    names = list(_build.SIGNATURES)
+    before = {name: _build.library_path(name) for name in names}
+    assert before == {name: path for name, path in before.items()
+                      if path.parent == _build.BUILD_DIR}
+    with open(csrc / "gat_mask.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {name: _build.library_path(name) for name in names}
+    changed = sorted(name for name in names if after[name] != before[name])
+    assert changed == ["bsr_gat", "flash_gat"]
+    with open(csrc / "spmm_csr.cu", "a") as f:
+        f.write("// edited\n")
+    assert _build.library_path("spmm_csr") != after["spmm_csr"]
+    assert _build.library_path("bsr_gat") == after["bsr_gat"]
+    pyproject = (REPO / "pyproject.toml").read_text()
+    assert '"csrc/*.cu", "csrc/*.cuh"' in pyproject
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -8,7 +8,8 @@ Where there is no card they skip (CUDA kernels have no CPU mode); the
 CPU-side behaviour of each wrapper is covered in the other
 ``tests/test_torch_port_*.py`` files. Kernels: ``spmm_csr``, the
 packed-GAT forward and backward, the packed-RGCN forward and backward,
-and the dense-mask flash-GAT forward and backward.
+the dense-mask flash-GAT forward and backward, and the block-sparse GAT
+forward, row pass and column pass.
 """
 
 import numpy as np
@@ -362,5 +363,119 @@ def test_flash_gat_operator_on_card_matches_cpu(cuda_device):
                              (after[0] - before[0], after[1] - before[1]))
     cpu, card = results["cpu"], results[str(cuda_device)]
     assert cpu[1] == (0, 0) and card[1] == (1, 2)
+    for a, b in zip(card[0], cpu[0]):
+        assert _rel_err(a, b) <= 1e-5
+
+
+def _bsr_entries(case, n, seed=14):
+    """(rows, cols) of directed masks as entry lists. ``sparse``: about 4
+    entries a row plus the diagonal; ``blocks``: communities of 64 nodes,
+    half full, plus sparse entries; ``hub``: sparse with one full row and
+    one full column. Each has a few rows and columns without any entry."""
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([np.repeat(np.arange(n), 4), np.arange(n)])
+    cols = np.concatenate([rng.integers(0, n, 4 * n), np.arange(n)])
+    if case == "blocks":
+        blk, r, c = np.nonzero(rng.random((n // 64, 64, 64)) < 0.5)
+        rows = np.concatenate([rows, blk * 64 + r])
+        cols = np.concatenate([cols, blk * 64 + c])
+    if case == "hub":
+        rows = np.concatenate([rows, np.full(n, 3), np.arange(n)])
+        cols = np.concatenate([cols, np.arange(n), np.full(n, 10)])
+    keep = ~(np.isin(rows, [5, n - 1]) | np.isin(cols, [7, n - 2]))
+    return rows[keep], cols[keep]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,n,tile", [
+    ("sparse", 300, (1, 32)), ("sparse", 300, (8, 32)),
+    ("blocks", 1000, (1, 32)), ("blocks", 1000, (16, 64)),
+    ("hub", 1003, (1, 32)), ("hub", 1003, (5, 96))])
+@pytest.mark.parametrize("H,C", [(8, 8), (1, 3), (3, 5), (2, 33), (1, 70)])
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+def test_bsr_gat_kernels_match_plain_on_card(cuda_device, case, n, tile, H,
+                                             C, rate):
+    """Forward (out, lse), row pass (dd, D) and column pass (ds, dh)
+    against their plain versions, fp32 within 1e-5 of the largest
+    reference magnitude, and against the dense-mask kernels on the same
+    mask within 1e-6: the main path's (H, C), odd widths on both sides of
+    the 8- and 32-channel chunks, node counts that no tile divides, the
+    default tile and taller and wider ones, a sparse, a block-dense and a
+    hub mask, none symmetric, with empty rows and columns. Two launches
+    give bitwise equal results (no atomics); outputs come from
+    torch.empty, so an unwritten row would show."""
+    from pytorch_geometric_tpu_torch.ops import bsr_gat as bg
+    from pytorch_geometric_tpu_torch.ops import flash_gat as fg
+
+    rows, cols = _bsr_entries(case, n)
+    mask = bg.BlockMask(rows, cols, n, *tile, device=cuda_device)
+    adj = torch.zeros((n, n), dtype=torch.bool, device=cuda_device)
+    adj[torch.from_numpy(rows), torch.from_numpy(cols)] = True
+    assert not torch.equal(adj, adj.t())
+    dense = fg.BitMask(adj)
+    gen = torch.Generator(device=cuda_device).manual_seed(H * 1000 + C)
+    d, s = (torch.randn(n, H, generator=gen, device=cuda_device)
+            for _ in range(2))
+    h, g = (torch.randn(n, H * C, generator=gen, device=cuda_device)
+            for _ in range(2))
+    seed = torch.tensor([123457], dtype=torch.int32, device=cuda_device)
+    wrappers = (bg.bsr_gat_fwd, bg.bsr_gat_bwd_row, bg.bsr_gat_bwd_col)
+    before = [w.launches for w in wrappers]
+    want = bg.bsr_gat_fwd_plain(mask, d, s, h, seed, rate)
+    out, lse = want
+    want_row = bg.bsr_gat_bwd_row_plain(mask, d, s, h, lse, out, g, seed,
+                                        rate)
+    big_d = want_row[1]
+    want_col = bg.bsr_gat_bwd_col_plain(mask, d, s, h, lse, big_d, g, seed,
+                                        rate)
+    calls = ((bg.bsr_gat_fwd, (d, s, h, seed, rate)),
+             (bg.bsr_gat_bwd_row, (d, s, h, lse, out, g, seed, rate)),
+             (bg.bsr_gat_bwd_col, (d, s, h, lse, big_d, g, seed, rate)))
+    got = [fn(mask, *args) for fn, args in calls]
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 1]
+    for a, b in zip(got[0] + got[1] + got[2], want + want_row + want_col):
+        assert _rel_err(a, b) <= 1e-5
+    assert (got[0][0][[5, n - 1]] == 0).all()
+    assert (got[2][0][[7, n - 2]] == 0).all()
+    assert (got[2][1][[7, n - 2]] == 0).all()
+    flash = fg.flash_gat_fwd(dense, d, s, h, seed, rate)
+    dd, ds, dh = fg.flash_gat_bwd(dense, d, s, h, lse, out, g, seed, rate)
+    for a, b in zip(got[0] + (got[1][0],) + got[2], flash + (dd, ds, dh)):
+        assert _rel_err(a, b) <= 1e-6
+    for first, (fn, args) in zip(got, calls):
+        for a, b in zip(first, fn(mask, *args)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(1, 32), (8, 64)])
+def test_bsr_flash_gat_on_card_matches_cpu(cuda_device, tile):
+    """``BsrFlashGat`` on the card (forward and backward through the
+    kernels) against the same op on the CPU (plain versions): output with
+    dropout, gradients of d, s and h, launches counted."""
+    from pytorch_geometric_tpu_torch.ops import bsr_gat as bg
+
+    n, H, C = 1003, 4, 8
+    rows, cols = _bsr_entries("hub", n, seed=15)
+    rng = np.random.default_rng(15)
+    arrays = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+              for shape in ((n, H), (n, H), (n, H * C), (n, H * C))]
+    wrappers = (bg.bsr_gat_fwd, bg.bsr_gat_bwd_row, bg.bsr_gat_bwd_col)
+    results = {}
+    for dev in ("cpu", cuda_device):
+        op = bg.BsrFlashGat.from_edges(cols, rows, n, tile_i=tile[0],
+                                       tile_j=tile[1], device=dev)
+        d, s, h = (a.to(dev, copy=True).requires_grad_()
+                   for a in arrays[:3])
+        before = [w.launches for w in wrappers]
+        out = op(d, s, h, 4321, rate=0.6)
+        (out * arrays[3].to(dev)).sum().backward()
+        results[str(dev)] = ([t.detach().cpu() for t in
+                              (out, d.grad, s.grad, h.grad)],
+                             [w.launches - b
+                              for w, b in zip(wrappers, before)])
+    cpu, card = results["cpu"], results[str(cuda_device)]
+    assert cpu[1] == [0, 0, 0] and card[1] == [1, 1, 1]
     for a, b in zip(card[0], cpu[0]):
         assert _rel_err(a, b) <= 1e-5
