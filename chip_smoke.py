@@ -46,6 +46,17 @@ Phases, one JSON line each:
                  node count is no multiple of the tile, with a hub row
                  and a hub column of ~3000 entries; attention dropout 0
                  and 0.6, fp32 (1e-5); two launches bitwise equal;
+               - the sorted segment sum at the GCN CSRs of Cora and of
+                 PubMed after RCM reordering, both directions, F = 16 and
+                 the class width, fp32 messages (1e-5) and bf16 (1e-2),
+                 with torch.segment_reduce as the library call, and the
+                 whole SortedSpmm call (gather and kernel) against
+                 spmm_csr on the same CSR ("kernel_compare" lines);
+               - the fused two-layer GCN forward (h1_pre, out) and
+                 backward (gA2, dz1) at PubMed after RCM with (H, C) =
+                 (16, 3) and Cora with (16, 7), dropout 0 and 0.5, fp32
+                 (1e-5), against the unfused chain of spmm_csr launches
+                 and torch ops; two launches bitwise equal;
 4. slice     — the GCN path as a user runs it: Planetoid Cora ->
                from_data -> train_gcn(epochs=200, device="cuda"), with
                the kernel's launch count read over exactly that run,
@@ -66,10 +77,20 @@ Phases, one JSON line each:
 6. slice_rgcn — the RGCN path the same way: Entities MUTAG at
                scale=1.0 -> from_data -> train_rgcn(epochs=50), the
                packed-RGCN launch counts read over exactly that run;
+   slice_gcn_sorted, slice_gcn_fused — the GCN of bench_common.py's
+               full-graph rows on PubMed after RCM (N = 24576), 200
+               epochs with train_gcn(backend="sorted") and
+               backend="fused", every aggregation through the segment-sum
+               kernel or the fused kernels;
+   slice_gcn_dense — the GCN on Cora with backend="dense" (bf16 dense
+               adjacency, one matrix product per aggregation, no kernel
+               of the port);
 7. trace     — torch.profiler over 20 more epochs of the GCN step:
                device time per kernel name, device busy and idle share;
-8. trace_gat, trace_gat_dense, trace_gat_bsr, trace_rgcn — the same for
-               the GAT step of each backend and the RGCN step.
+8. trace_gat, trace_gat_dense, trace_gat_bsr, trace_rgcn,
+   trace_gcn_sorted, trace_gcn_fused — the same for the GAT step of each
+               backend, the RGCN step and the PubMed GCN step of the sorted
+               and fused backends.
 
 Then a "kernels" JSON line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
@@ -221,6 +242,32 @@ def rgcn_bound(op, B, C, backward):
     if backward:
         nbytes += rows * B * C * 4 + R * B * 4      # dxB, datt
     return _bound(nbytes, E * B * C * (4 if backward else 2))
+
+
+def segment_sum_bound(num_rows, num_edges, f, msg_bytes):
+    """Least time for one sorted segment sum: the messages once, the row
+    pointers once, the fp32 output once, against the bytes rate; one add
+    per message element against the fp32 rate."""
+    nbytes = (num_edges * f * msg_bytes + (num_rows + 1) * 4
+              + num_rows * f * 4)
+    return _bound(nbytes, num_edges * f)
+
+
+def fused_gcn_bound(n, num_edges, H, C, backward):
+    """Least time for one fused two-layer GCN call (one direction): the
+    CSR once (column and weight per edge, a pointer per row), the input
+    (z1, or g2), W2, b1 and the seed once, h1_pre once in the backward,
+    the two outputs (h1_pre and out; gA2 and dz1) and the scratch (z2; dh1)
+    written once, fp32. Not counted: the CSR's second walk and the scratch
+    read back, which are the design's. Flops: 2 per edge and feature in
+    each aggregation (H and C wide), 2 H C per node in the per-node step."""
+    csr = num_edges * 8 + (n + 1) * 4
+    params = (H * C + H + 1) * 4
+    if backward:
+        nbytes = csr + params + n * (C + H) * 4 + n * (C + 2 * H) * 4
+    else:
+        nbytes = csr + params + n * H * 4 + n * (H + 2 * C) * 4
+    return _bound(nbytes, 2 * num_edges * (H + C) + 2 * n * H * C)
 
 
 def phase_card():
@@ -642,6 +689,182 @@ def phase_kernel_bsr(cora, gen):
     return cases
 
 
+def check_sorted_case(graph_name, csr, direction, f, dtype_name, gen):
+    """The sorted segment-sum kernel against its plain version on random
+    messages over one GCN CSR; ``torch.segment_reduce`` is the library
+    call (bf16 messages go up to fp32 first, as for cuSPARSE). A second
+    launch must repeat the first bit for bit."""
+    from pytorch_geometric_tpu_torch.ops.sorted_spmm import (
+        sorted_segment_sum, sorted_segment_sum_plain)
+
+    dt = torch.bfloat16 if dtype_name == "bf16" else torch.float32
+    msgs = torch.randn(csr.num_edges, f, generator=gen,
+                       device=DEVICE).to(dt)
+    rp = csr.row_ptr
+    got, again = sorted_segment_sum(rp, msgs), sorted_segment_sum(rp, msgs)
+    want = sorted_segment_sum_plain(rp, msgs)
+    torch.cuda.synchronize()
+    abs_err, rel_err = _max_rel_err((got,), (want,))
+    repeats = torch.equal(got, again)
+    offsets, lib_in = rp.long(), msgs.float()
+    lib_err = float((torch.segment_reduce(lib_in, "sum", offsets=offsets)
+                     - want).abs().max())
+    bound_ms, bound_by = segment_sum_bound(csr.num_rows, csr.num_edges, f,
+                                           msgs.element_size())
+    case = {"phase": "kernel", "kernel": "sorted_segment_sum",
+            "graph": graph_name, "direction": direction, "F": f,
+            "msgs": dtype_name, "rows": csr.num_rows,
+            "edges": csr.num_edges,
+            "longest_row": int((rp[1:] - rp[:-1]).max()),
+            "max_abs_err": abs_err, "rel_err": rel_err,
+            "tol": TOL[dtype_name], "bitwise_repeat": repeats,
+            "ok": rel_err <= TOL[dtype_name] and repeats,
+            "library_max_abs_err": lib_err,
+            "kernel_ms": device_ms(lambda: sorted_segment_sum(rp, msgs)),
+            "plain_ms": device_ms(lambda: sorted_segment_sum_plain(rp, msgs)),
+            "library_ms": device_ms(lambda: torch.segment_reduce(
+                lib_in, "sum", offsets=offsets)),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    emit(case)
+    return case
+
+
+def compare_sorted_with_spmm(graph_name, sop, weights, csr, direction, f,
+                             gen):
+    """The whole ``SortedSpmm`` call (gather and weight the messages in
+    CSR order, write them, sum them with the kernel) against
+    ``spmm_csr``, which gathers inside its kernel, on the same CSR, fp32:
+    which is faster, and do they agree (1e-5)."""
+    from pytorch_geometric_tpu_torch.ops.spmm import spmm_csr
+
+    x = torch.randn(csr.num_cols, f, generator=gen, device=DEVICE)
+    val = weights[csr.perm].contiguous()
+    a, b = sop._run(csr, weights, x), spmm_csr(csr, val, x)
+    torch.cuda.synchronize()
+    rel_err = _max_rel_err((a,), (b,))[1]
+    line = {"phase": "kernel_compare", "kernel": "sorted_spmm_call",
+            "graph": graph_name, "direction": direction, "F": f,
+            "edges": csr.num_edges,
+            "messages_bytes": csr.num_edges * f * 4,
+            "sorted_spmm_ms": device_ms(lambda: sop._run(csr, weights, x)),
+            "spmm_csr_ms": device_ms(lambda: spmm_csr(csr, val, x)),
+            "rel_err": rel_err, "ok": rel_err <= TOL["fp32"]}
+    line["sorted_faster"] = line["sorted_spmm_ms"] < line["spmm_csr_ms"]
+    emit(line)
+    return line
+
+
+def _unfused_gcn_fwd(fwd, val, z1, W2, b1, rate):
+    """The forward of ``fused_gcn_fwd`` as the packed backend runs it:
+    two ``spmm_csr`` launches around torch's bias, relu, dropout (random
+    numbers from the default generator, so the chain captures in a CUDA
+    graph) and ``@ W2``."""
+    from pytorch_geometric_tpu_torch.models.citation import dropout
+    from pytorch_geometric_tpu_torch.ops.spmm import spmm_csr
+
+    h1_pre = spmm_csr(fwd, val, z1)
+    h = dropout(torch.relu(h1_pre + b1), rate, True)
+    return h1_pre, spmm_csr(fwd, val, h @ W2)
+
+
+def _unfused_gcn_bwd(bwd, val, g2, W2, b1, h1_pre, keep, rate):
+    """The matching backward: ``spmm_csr`` over the transposed CSR, the
+    products with W2, the saved dropout mask and relu's test, and
+    ``spmm_csr`` again."""
+    from pytorch_geometric_tpu_torch.ops.spmm import spmm_csr
+
+    gA2 = spmm_csr(bwd, val, g2)
+    act = keep & (h1_pre + b1 > 0)
+    dh1 = torch.where(act, (gA2 @ W2.t()) / (1.0 - rate), 0.0)
+    return gA2, spmm_csr(bwd, val, dh1)
+
+
+def check_fused_case(graph_name, fused, H, C, rate, gen):
+    """The fused two-layer GCN forward and backward kernels against their
+    plain versions on random inputs at one (H, C) and dropout rate, over
+    ``fused``'s CSRs: one line per kernel, with the time of the unfused
+    chain that computes the same (no single PyTorch call does). The
+    backward takes the plain forward's h1_pre. A second launch must
+    repeat the first bit for bit."""
+    from pytorch_geometric_tpu_torch.ops import fused_gcn as fg
+
+    n = fused.N
+    z1 = torch.randn(n, H, generator=gen, device=DEVICE)
+    g2 = torch.randn(n, C, generator=gen, device=DEVICE)
+    W2 = torch.randn(H, C, generator=gen, device=DEVICE) * 0.5
+    b1 = torch.randn(H, generator=gen, device=DEVICE) * 0.1
+    seed = torch.tensor([GAT_SEED], dtype=torch.int32, device=DEVICE)
+    fwd, bwd = fused.op.fwd, fused.op.bwd
+    fwd_args = (fwd, fused.val_f, z1, W2, b1, seed, rate)
+    h1_pre, _ = fg.fused_gcn_fwd_plain(*fwd_args)
+    bwd_args = (bwd, fused.val_b, g2, W2, b1, h1_pre, seed, rate)
+    keep = fg.keep_mask(seed, H, n, rate)
+    chains = {
+        "fused_gcn_fwd": lambda: _unfused_gcn_fwd(fwd, fused.val_f, z1, W2,
+                                                  b1, rate),
+        "fused_gcn_bwd": lambda: _unfused_gcn_bwd(bwd, fused.val_b, g2, W2,
+                                                  b1, h1_pre, keep, rate)}
+    cases = []
+    for name, kernel, plain, args, backward in (
+            ("fused_gcn_fwd", fg.fused_gcn_fwd, fg.fused_gcn_fwd_plain,
+             fwd_args, False),
+            ("fused_gcn_bwd", fg.fused_gcn_bwd, fg.fused_gcn_bwd_plain,
+             bwd_args, True)):
+        got, again = kernel(*args), kernel(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        abs_err, rel_err = _max_rel_err(got, want)
+        repeats = all(torch.equal(a, b) for a, b in zip(got, again))
+        bound_ms, bound_by = fused_gcn_bound(n, fwd.num_edges, H, C,
+                                             backward)
+        case = {"phase": "kernel", "kernel": name, "graph": graph_name,
+                "H": H, "C": C, "rate": rate, "rows": n,
+                "edges": fwd.num_edges, "launches_per_call": 1,
+                "max_abs_err": abs_err, "rel_err": rel_err,
+                "tol": TOL["fp32"], "bitwise_repeat": repeats,
+                "ok": rel_err <= TOL["fp32"] and repeats,
+                "kernel_ms": device_ms(lambda: kernel(*args)),
+                "plain_ms": device_ms(lambda: plain(*args)),
+                "unfused_chain_ms": device_ms(chains[name]),
+                # no single PyTorch call computes a two-layer GCN pass
+                "library_ms": None,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+        emit(case)
+        cases.append(case)
+    return cases
+
+
+def phase_kernel_gcn(cora, gen):
+    """The sorted segment-sum and fused GCN cases of the kernel phase, at
+    the GCN edge sets of Cora and of PubMed after RCM reordering (what
+    the slices run)."""
+    from pytorch_geometric_tpu_torch.models.citation import gcn_edge_set
+    from pytorch_geometric_tpu_torch.ops.fused_gcn import FusedGcn2
+    from pytorch_geometric_tpu_torch.ops.sorted_spmm import SortedSpmm
+
+    _, pubmed, _ = _pubmed_graph(DEVICE)
+    cases = []
+    for graph_name, graph, classes in (("cora", cora, 7),
+                                       ("pubmed_rcm", pubmed, 3)):
+        s, r, w = gcn_edge_set(graph)
+        n = graph.num_nodes
+        sop = SortedSpmm(s, r, n, device=DEVICE)
+        for direction, csr in (("fwd", sop.fwd), ("bwd", sop.bwd)):
+            for f in (16, classes):
+                for dtype_name in ("fp32", "bf16"):
+                    cases.append(check_sorted_case(graph_name, csr,
+                                                   direction, f, dtype_name,
+                                                   gen))
+                cases.append(compare_sorted_with_spmm(
+                    graph_name, sop, w, csr, direction, f, gen))
+        fused = FusedGcn2(s, r, n, w, hidden=16, classes=classes,
+                          device=DEVICE)
+        for rate in (0.0, 0.5):
+            cases += check_fused_case(graph_name, fused, 16, classes, rate,
+                                      gen)
+    return cases
+
+
 def check_rgcn_case(graph_name, op, B, C, gen):
     """The packed-RGCN forward and backward kernels against their plain
     versions on random inputs at one (B, C): one line per kernel."""
@@ -760,6 +983,7 @@ def phase_kernel():
                                  ("hub", _rgcn_hub_op(), 5, 33)):
         cases += check_rgcn_case(graph_name, op, B, C, gen)
     cases += phase_kernel_bsr(cora, gen)
+    cases += phase_kernel_gcn(cora, gen)
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} kernel case(s) disagree with the "
@@ -983,13 +1207,122 @@ def phase_slice_rgcn():
     return result
 
 
-def _gcn_step(ds, graph):
+def _gcn_wrappers():
+    from pytorch_geometric_tpu_torch.ops import fused_gcn as fg
+    from pytorch_geometric_tpu_torch.ops.sorted_spmm import sorted_segment_sum
+    from pytorch_geometric_tpu_torch.ops.spmm import spmm_csr
+
+    return {"spmm_csr": spmm_csr, "sorted_segment_sum": sorted_segment_sum,
+            "fused_gcn_fwd": fg.fused_gcn_fwd,
+            "fused_gcn_bwd": fg.fused_gcn_bwd}
+
+
+def phase_slice_gcn(backend, phase):
+    """bench_common.py's full-graph GCN on the card through ``backend``:
+    "sorted" and "fused" on PubMed after RCM (Planetoid -> NormalizeFeatures
+    -> reorder_graph -> from_data, N = 24576), "dense" on Cora. Launches
+    read over exactly the training run: the sorted backend's segment sum 4
+    per epoch and 2 for the evaluation; the fused kernels once each per
+    epoch and ``spmm_csr`` 2 for the evaluation (``bind_external``); the
+    dense backend none. The trained logits on the card against the plain
+    path on the CPU (1e-4; the dense backend 1e-2, bf16 operands), and the
+    sorted backend's against the packed operator's on the card (1e-5)."""
+    import numpy as np
+
+    from pytorch_geometric_tpu_torch.models.citation import (
+        gcn_backend, train_gcn)
+
+    wrappers = _gcn_wrappers()
+    expected = {name: 0 for name in wrappers}
+    if backend == "dense":
+        ds, graph = _cora_graph(DEVICE)
+        rcm_seconds = None
+    else:
+        ds, graph, rcm_seconds = _pubmed_graph(DEVICE)
+    if backend == "sorted":
+        expected["sorted_segment_sum"] = 4 * EPOCHS + 2
+    elif backend == "fused":
+        expected.update(fused_gcn_fwd=EPOCHS, fused_gcn_bwd=EPOCHS,
+                        spmm_csr=2)
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    model, metrics = train_gcn(graph, num_classes=ds.num_classes,
+                               epochs=EPOCHS, seed=SEED, device=DEVICE,
+                               backend=backend)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    loss = metrics["curve"]["loss"]
+    dims = (16, ds.num_classes, model.dropout_rate)
+    # the backend's host set-up, which train_gcn keeps out of its seconds
+    t0 = time.perf_counter()
+    card_agg = gcn_backend(graph, backend, *dims)[0]
+    torch.cuda.synchronize()
+    setup_seconds = time.perf_counter() - t0
+    # The trained model on the card against the plain path on the CPU,
+    # same weights, dropout off.
+    with torch.no_grad():
+        card = model(graph, graph.x, **card_agg)
+        packed = (model(graph, graph.x, **gcn_backend(graph, "packed")[0])
+                  if backend == "sorted" else None)
+        g = graph.to("cpu")
+        ref = model.to("cpu")(g, g.x, **gcn_backend(g, backend, *dims)[0])
+    parity = float((card.cpu() - ref).abs().max() / ref.abs().max())
+    # the dense backend rounds x @ W to bf16 before each product, and the
+    # card and the CPU sum x @ W in other orders: where a value sits on a
+    # bf16 rounding boundary the two round it apart, by 2^-8 of it, so its
+    # gate is the bf16 tolerance
+    tol = TOL["bf16"] if backend == "dense" else 1e-4
+    packed_parity = (None if packed is None else
+                     float((card - packed).abs().max() / packed.abs().max()))
+    result = {"phase": phase, "backend": backend, "dataset": ds.name,
+              "synthetic": ds.is_synthetic, "nodes": graph.num_nodes,
+              "edges": graph.num_edges, "epochs": EPOCHS,
+              "seconds": metrics["seconds"],
+              "ms_per_epoch": metrics["seconds"] / EPOCHS * 1e3,
+              "rcm_seconds": rcm_seconds,
+              "backend_setup_seconds": setup_seconds,
+              "final_loss": float(loss[-1]),
+              "train_acc": metrics["train_acc"],
+              "val_acc": metrics["val_acc"], "test_acc": metrics["test_acc"],
+              "launches": launches, "expected_launches": expected,
+              "max_memory_allocated": peak,
+              "logits_shape": list(ref.shape),
+              "logits_cuda_vs_cpu_rel_err": parity,
+              "logits_cuda_vs_cpu_tol": tol,
+              "logits_vs_packed_rel_err": packed_parity}
+    emit(result)
+    if not np.isfinite(loss).all():
+        raise AssertionError("non-finite training loss")
+    if not (metrics["val_acc"] > 0.6 and metrics["test_acc"] > 0.6):
+        raise AssertionError(f"accuracy gate: val {metrics['val_acc']}, "
+                             f"test {metrics['test_acc']} (need > 0.6)")
+    if launches != expected:
+        raise AssertionError(f"GCN kernel launches on the main path "
+                             f"{launches}, expected {expected}")
+    if not (torch.isfinite(card).all() and parity <= tol):
+        raise AssertionError(f"trained logits: card vs CPU rel err {parity}")
+    if backend == "sorted" and not packed_parity <= 1e-5:
+        raise AssertionError(f"sorted slice: logits vs the packed operator "
+                             f"{packed_parity} (need <= 1e-5)")
+    return result
+
+
+def _gcn_step(ds, graph, backend="packed"):
     from pytorch_geometric_tpu_torch.models.citation import (
         GCN, create_gcn_train_step)
 
     model = GCN(graph.num_node_features, 16, ds.num_classes,
                 generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
-    return create_gcn_train_step(model, graph)[0]
+    return create_gcn_train_step(model, graph, backend=backend)[0]
+
+
+def _gcn_sorted_step(ds, graph):
+    return _gcn_step(ds, graph, backend="sorted")
+
+
+def _gcn_fused_step(ds, graph):
+    return _gcn_step(ds, graph, backend="fused")
 
 
 def _gat_step(ds, graph, backend="packed"):
@@ -1056,7 +1389,8 @@ def phase_trace(make_step=_gcn_step, phase="trace", epochs=20,
     for us, name, _ in kernels:
         if any(k in name for k in ("spmm_csr", "gat_fwd_kernel",
                                    "gat_bwd_kernel", "rgcn_", "flash_fwd_",
-                                   "flash_bwd_", "bsr_fwd_", "bsr_bwd_")):
+                                   "flash_bwd_", "bsr_fwd_", "bsr_bwd_",
+                                   "sorted_segment_sum", "fused_gcn")):
             groups["port_kernels"] += us
         elif "multi_tensor_apply" in name:
             groups["optimizer_multi_tensor"] += us
@@ -1082,7 +1416,8 @@ def phase_trace(make_step=_gcn_step, phase="trace", epochs=20,
 #: largest call (GCN's F = 16 forward SpMM; GAT's conv1, 8 heads x 8, with
 #: attention dropout, for either backend; RGCN's conv1, 30 bases x 16
 #: over the embedding table; the block-sparse kernels' conv1 on PubMed
-#: after RCM).
+#: after RCM; the segment sum's F = 16 forward on PubMed after RCM in
+#: fp32; the fused GCN's (16, 3) with dropout 0.5 there).
 KERNELS = {
     "spmm_csr": ("pytorch_geometric_tpu_torch/csrc/spmm_csr.cu",
                  "pytorch_geometric_tpu/ops/spmm.py:56", "cora",
@@ -1114,13 +1449,24 @@ KERNELS = {
     "bsr_gat_bwd_col": ("pytorch_geometric_tpu_torch/csrc/bsr_gat.cu",
                         "pytorch_geometric_tpu/ops/bsr_gat.py:166",
                         "pubmed_rcm", dict(H=8, C=8, rate=0.6)),
+    "sorted_segment_sum": ("pytorch_geometric_tpu_torch/csrc/sorted_spmm.cu",
+                           "pytorch_geometric_tpu/ops/sorted_spmm.py:120",
+                           "pubmed_rcm",
+                           dict(direction="fwd", F=16, msgs="fp32")),
+    "fused_gcn_fwd": ("pytorch_geometric_tpu_torch/csrc/fused_gcn.cu",
+                      "pytorch_geometric_tpu/ops/fused_gcn.py:57",
+                      "pubmed_rcm", dict(H=16, C=3, rate=0.5)),
+    "fused_gcn_bwd": ("pytorch_geometric_tpu_torch/csrc/fused_gcn.cu",
+                      "pytorch_geometric_tpu/ops/fused_gcn.py:57",
+                      "pubmed_rcm", dict(H=16, C=3, rate=0.5)),
 }
 
 
 def kernels_line(results):
     """Per kernel: its launches on its main path's run, its largest error
     over the cases on that path's graph, and the times and bound of its
-    main-path case."""
+    main-path case (and, for the fused GCN kernels, the unfused chain's
+    time, which stands where no library call exists)."""
     def of(phase, prefix):
         return {k: v for k, v in results[phase]["launches"].items()
                 if k.startswith(prefix)}
@@ -1129,7 +1475,9 @@ def kernels_line(results):
                 **of("slice_gat", "packed_gat"),
                 **of("slice_gat_dense", "flash_gat"),
                 **of("slice_gat_bsr", "bsr_gat"),
-                **of("slice_rgcn", "packed_rgcn")}
+                **of("slice_rgcn", "packed_rgcn"),
+                **of("slice_gcn_sorted", "sorted_segment_sum"),
+                **of("slice_gcn_fused", "fused_gcn")}
     line = []
     for name, (source, replaces, graph, keys) in KERNELS.items():
         mine = [c for c in results["kernel"]
@@ -1143,6 +1491,8 @@ def kernels_line(results):
                      "bound_ms": case["bound_ms"],
                      "bound_by": case["bound_by"],
                      "library_ms": case["library_ms"]})
+        if "unfused_chain_ms" in case:
+            line[-1]["unfused_chain_ms"] = case["unfused_chain_ms"]
     return line
 
 
@@ -1171,6 +1521,12 @@ def main():
                      ("slice_gat_bsr",
                       lambda: phase_slice_gat("bsr", "slice_gat_bsr")),
                      ("slice_rgcn", phase_slice_rgcn),
+                     ("slice_gcn_sorted",
+                      lambda: phase_slice_gcn("sorted", "slice_gcn_sorted")),
+                     ("slice_gcn_fused",
+                      lambda: phase_slice_gcn("fused", "slice_gcn_fused")),
+                     ("slice_gcn_dense",
+                      lambda: phase_slice_gcn("dense", "slice_gcn_dense")),
                      ("trace", phase_trace),
                      ("trace_gat",
                       lambda: phase_trace(_gat_step, "trace_gat")),
@@ -1183,7 +1539,15 @@ def main():
                           load=lambda dev: _pubmed_graph(dev)[:2])),
                      ("trace_rgcn",
                       lambda: phase_trace(_rgcn_step, "trace_rgcn",
-                                          load=_mutag_graph))):
+                                          load=_mutag_graph)),
+                     ("trace_gcn_sorted",
+                      lambda: phase_trace(
+                          _gcn_sorted_step, "trace_gcn_sorted",
+                          load=lambda dev: _pubmed_graph(dev)[:2])),
+                     ("trace_gcn_fused",
+                      lambda: phase_trace(
+                          _gcn_fused_step, "trace_gcn_fused",
+                          load=lambda dev: _pubmed_graph(dev)[:2]))):
         if failed and name != "card":
             emit({"phase": name, "skipped": f"after {failed[0]} failed"})
             continue

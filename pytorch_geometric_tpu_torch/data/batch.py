@@ -15,7 +15,7 @@ Collation happens on the host in numpy; the result is moved to ``device``
 once.
 """
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -44,11 +44,13 @@ def collate(
     num_nodes: Optional[int] = None,
     num_edges: Optional[int] = None,
     num_graphs: Optional[int] = None,
+    follow_keys: Optional[List[str]] = None,
     sort_edges: bool = True,
     device="cuda",
 ) -> Graph:
     """Collate host ``Data`` records into one padded ``Graph`` on
-    ``device``."""
+    ``device``. ``follow_keys`` is accepted and unused, as in the JAX
+    package."""
     dev = resolve_device(device)
     G = len(data_list)
     tot_n = sum(d.num_nodes for d in data_list)

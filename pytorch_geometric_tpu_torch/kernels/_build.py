@@ -58,6 +58,13 @@ SIGNATURES = {
         "bsr_gat_bwd_row": (_I, [_P] * 12 + [_I] * 5 + [_U, _F, _F, _P]),
         "bsr_gat_bwd_col": (_I, [_P] * 12 + [_I] * 5 + [_U, _F, _F, _P]),
     },
+    "sorted_spmm": {
+        "sorted_segment_sum": (_I, [_P] * 3 + [_I] * 3 + [_P]),
+    },
+    "fused_gcn": {
+        "fused_gcn_fwd": (_I, [_P] * 10 + [_I] * 3 + [_U, _F, _I, _P]),
+        "fused_gcn_bwd": (_I, [_P] * 11 + [_I] * 3 + [_U, _F, _I, _P]),
+    },
 }
 
 _INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)

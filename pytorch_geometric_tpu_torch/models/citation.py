@@ -5,12 +5,17 @@ Counterpart of ``pytorch_geometric_tpu/models/citation.py`` and
 PubMed too):
 
 - a 2-layer GCN (hidden 16, dropout 0.5, Adam lr 0.01, weight decay 5e-4
-  on the first layer only; reference examples/gcn.py:15-40). Every
-  aggregation, forward and backward, goes through ``SpmmOperator.bind``
-  over the self-looped ``gcn_norm`` edge set without its padding edges
-  (:func:`gcn_spmm_operator`, the counterpart of the JAX ``pallas=True``
-  configuration): on a CUDA graph the hand-written CSR kernel, 4
-  launches per epoch (2 forward, 2 backward).
+  on the first layer only; reference examples/gcn.py:15-40), with the
+  aggregation backends of ``bench_common.py:435-484``
+  (:func:`gcn_backend`), over the self-looped ``gcn_norm`` edge set
+  without its padding edges (:func:`gcn_edge_set`): ``"packed"``, the
+  default, ``SpmmOperator.bind`` (the CSR SpMM kernel, 4 launches per
+  epoch on a CUDA graph); ``"sorted"``, ``SortedSpmm`` (messages gathered
+  in receiver order, the segment-sum kernel, 4 launches per epoch);
+  ``"fused"``, ``FusedGcn2`` (both aggregations and the elementwise work
+  between them, 1 forward and 1 backward launch per epoch, evaluation
+  through ``SpmmOperator.bind_external``); ``"dense"``, the bf16 dense
+  normalised adjacency, one matrix product per aggregation (N <= 8192).
 - a 2-layer GAT (8 heads x 8 channels, then 1 head x classes; dropout
   0.6 on the inputs and the attention; AdamW lr 5e-3, weight decay 5e-4;
   reference examples/gat.py). Every attention layer goes through one
@@ -28,6 +33,7 @@ the host until the run ends. On a CPU graph each kernel's wrapper
 computes the same function in plain PyTorch.
 """
 
+import functools
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -38,12 +44,19 @@ from pytorch_geometric_tpu_torch.data.graph import Graph
 from pytorch_geometric_tpu_torch.device import resolve_device
 from pytorch_geometric_tpu_torch.nn.conv.gat_conv import (
     GATConv, gat_dense_adj, gat_edge_set)
-from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import GCNConv, gcn_norm
+from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import (
+    GCNConv, gcn_norm, gcn_norm_dense)
 from pytorch_geometric_tpu_torch.ops.bsr_gat import BsrFlashGat
 from pytorch_geometric_tpu_torch.ops.flash_gat import (
     MAX_NODES, FlashGatOperator)
+from pytorch_geometric_tpu_torch.ops.fused_gcn import FusedGcn2
 from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
+from pytorch_geometric_tpu_torch.ops.sorted_spmm import SortedSpmm
 from pytorch_geometric_tpu_torch.ops.spmm import SpmmOperator
+
+#: Largest padded node count of the GCN's dense backend (its (N, N) bf16
+#: adjacency), where ``bench_common.py:436`` picks it.
+GCN_DENSE_MAX_NODES = 8192
 
 
 def dropout(x, rate: float, train: bool,
@@ -103,28 +116,84 @@ def masked_accuracy(logits, labels, mask):
     return ((pred == labels.long()) * m).sum() / m.sum().clamp_min(1.0)
 
 
-def gcn_spmm_operator(graph: Graph) -> Tuple[SpmmOperator, torch.Tensor]:
-    """The ``SpmmOperator`` of the GCN aggregation and its static weights:
-    the self-looped ``gcn_norm`` edge set with the padding edges left out.
+def gcn_edge_set(graph: Graph):
+    """``(senders, receivers, weights)`` of the GCN aggregation: the
+    self-looped ``gcn_norm`` edge set with the padding edges left out.
     They weigh 0, so no sum changes; kept, they would all land in the
-    padding node's CSR row, and the kernel's time follows its longest
-    row. Every self loop stays, padding nodes' included."""
+    padding node's CSR row, and a row-parallel kernel's time follows its
+    longest row. Every self loop stays, padding nodes' included."""
     norm = gcn_norm(graph)
     keep = torch.cat([graph.real_edge_mask(),
                       torch.ones(graph.num_nodes, dtype=torch.bool,
                                  device=graph.device)])
-    op = SpmmOperator(norm.senders[keep], norm.receivers[keep],
-                      graph.num_nodes, device=graph.device)
-    return op, norm.weights[keep]
+    return norm.senders[keep], norm.receivers[keep], norm.weights[keep]
+
+
+def gcn_spmm_operator(graph: Graph) -> Tuple[SpmmOperator, torch.Tensor]:
+    """The ``SpmmOperator`` of :func:`gcn_edge_set` and its static
+    weights."""
+    senders, receivers, weights = gcn_edge_set(graph)
+    return SpmmOperator(senders, receivers, graph.num_nodes,
+                        device=graph.device), weights
+
+
+def gcn_backend(graph: Graph, backend: str = "packed", hidden: int = 16,
+                classes: int = 7, dropout_rate: float = 0.5):
+    """The aggregation of ``backend`` on the graph's device:
+    ``(forward_kwargs, fused)``. ``forward_kwargs`` go to ``GCN.forward``
+    (``aggregate_fn=`` or ``norm_dense=``) for every layer of the packed,
+    sorted and dense training and for every evaluation; ``fused`` is the
+    ``FusedGcn2`` of ``"fused"`` (its training step), else None.
+
+    - ``"packed"``: ``SpmmOperator.bind`` over :func:`gcn_edge_set`;
+    - ``"sorted"``: ``SortedSpmm`` over the same edges, fp32 messages, so
+      its logits equal the packed backend's;
+    - ``"fused"``: ``FusedGcn2`` over the same edges (``hidden`` and
+      ``classes`` at most 16); evaluation through its operator's
+      ``bind_external``, dropout off, as ``bench_common.py:635-656``;
+    - ``"dense"``: ``gcn_norm_dense`` in bf16, as the JAX
+      ``create_gcn_train_step(dense=True)``; at most
+      :data:`GCN_DENSE_MAX_NODES` padded nodes.
+    """
+    if backend == "dense":
+        if graph.num_nodes > GCN_DENSE_MAX_NODES:
+            raise ValueError(f"the dense GCN backend takes at most "
+                             f"{GCN_DENSE_MAX_NODES} padded nodes, got "
+                             f"{graph.num_nodes}")
+        return {"norm_dense": gcn_norm_dense(graph, dtype=torch.bfloat16)}, \
+            None
+    if backend == "packed":
+        op, weights = gcn_spmm_operator(graph)
+        return {"aggregate_fn": op.bind(weights)}, None
+    if backend not in ("sorted", "fused"):
+        raise ValueError(f"backend must be 'packed', 'sorted', 'fused' or "
+                         f"'dense', got {backend!r}")
+    senders, receivers, weights = gcn_edge_set(graph)
+    n = graph.num_nodes
+    if backend == "sorted":
+        sop = SortedSpmm(senders, receivers, n, device=graph.device)
+        return {"aggregate_fn": functools.partial(sop, weights)}, None
+    fused = FusedGcn2(senders, receivers, n, weights, hidden=hidden,
+                      classes=classes, dropout_rate=dropout_rate,
+                      device=graph.device)
+    fn, consts = fused.op.bind_external(weights)
+    return {"aggregate_fn": functools.partial(fn, consts)}, fused
 
 
 def create_gcn_train_step(model: GCN, graph: Graph, weight_decay=5e-4,
-                          lr=0.01):
-    """Build ``(epoch_step, eval_fn)`` closures over a static graph.
+                          lr=0.01, backend: str = "packed"):
+    """Build ``(epoch_step, eval_fn)`` closures over a static graph, with
+    every aggregation through :func:`gcn_backend` of ``backend``.
 
     ``epoch_step(generator)`` takes one Adam step and returns the epoch's
     ``{"loss", "train_acc"}`` as device scalars; ``generator`` draws the
-    dropout masks. ``eval_fn()`` returns train/val/test accuracy.
+    dropout masks (and, on ``"fused"``, the kernel's dropout seed after the
+    input's mask). ``eval_fn()`` returns train/val/test accuracy.
+
+    On ``"fused"`` the logits are
+    ``fused(dropout(x) @ conv1.weight, conv2.weight, conv1.bias, seed)
+    + conv2.bias``, as ``bench_common.py:566-672``: the second dropout is
+    the kernel's hash of (feature, node, seed).
 
     Weight decay is ``weight_decay * sum(p**2)`` over the first layer's
     weight and bias, added to the loss, as in the JAX package (the
@@ -133,16 +202,26 @@ def create_gcn_train_step(model: GCN, graph: Graph, weight_decay=5e-4,
     gradient of every parameter. ``torch.optim.Adam`` and ``optax.adam``
     share b1, b2 and eps (added outside the square root).
     """
-    op, weights = gcn_spmm_operator(graph)
-    aggregate_fn = op.bind(weights)
+    agg, fused = gcn_backend(graph, backend, model.conv1.out_channels,
+                             model.conv2.out_channels, model.dropout_rate)
     opt = torch.optim.Adam(model.parameters(), lr=lr)
     decayed = list(model.conv1.parameters())
+    conv1, conv2 = model.conv1, model.conv2
+
+    def logits_of(generator):
+        if fused is None:
+            return model(graph, graph.x, train=True, generator=generator,
+                         **agg)
+        z1 = dropout(graph.x, model.dropout_rate, True, generator) \
+            @ conv1.weight
+        seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                             device=graph.device, dtype=torch.int32)
+        return fused(z1, conv2.weight, conv1.bias, seed) + conv2.bias
 
     def epoch_step(generator: Optional[torch.Generator] = None):
         model.train()
         opt.zero_grad(set_to_none=True)
-        logits = model(graph, graph.x, train=True, aggregate_fn=aggregate_fn,
-                       generator=generator)
+        logits = logits_of(generator)
         loss = masked_softmax_xent(logits, graph.y, graph.train_mask)
         loss = loss + weight_decay * sum((p ** 2).sum() for p in decayed)
         loss.backward()
@@ -154,28 +233,35 @@ def create_gcn_train_step(model: GCN, graph: Graph, weight_decay=5e-4,
     @torch.no_grad()
     def eval_fn():
         model.eval()
-        return _accuracies(model(graph, graph.x, aggregate_fn=aggregate_fn),
-                           graph)
+        return _accuracies(model(graph, graph.x, **agg), graph)
 
     return epoch_step, eval_fn
 
 
 def train_gcn(graph: Graph, num_classes: int, hidden: int = 16,
               epochs: int = 200, seed: int = 0, lr: float = 0.01,
-              device="cuda") -> Tuple[GCN, Dict[str, Any]]:
-    """Full training run on ``device``: ``epochs`` Adam steps, then one
+              device="cuda",
+              backend: str = "packed") -> Tuple[GCN, Dict[str, Any]]:
+    """Full training run on ``device`` through the aggregation of
+    ``backend`` (:func:`gcn_backend`): ``epochs`` Adam steps, then one
     evaluation. Returns the model and its metrics: final
     ``train_acc`` / ``val_acc`` / ``test_acc``, the per-epoch ``curve``
     (numpy arrays of ``loss`` and ``train_acc``), and ``seconds``, the
     wall time of the epochs and the evaluation (after the operator's host
-    set-up, ending in a device synchronisation)."""
+    set-up, ending in a device synchronisation). On a CUDA graph the
+    packed backend launches ``spmm_csr`` 4 times per epoch and 2 for the
+    evaluation, the sorted backend ``sorted_segment_sum`` likewise; the
+    fused backend launches ``fused_gcn_fwd`` and ``fused_gcn_bwd`` once
+    per epoch and ``spmm_csr`` 2 times for the evaluation; the dense
+    backend launches no kernel of the port."""
     dev = resolve_device(device)
     graph = graph.to(dev)
     init_gen = torch.Generator().manual_seed(seed)
     model = GCN(graph.num_node_features, hidden, num_classes,
                 generator=init_gen).to(dev)
     drop_gen = torch.Generator(device=dev).manual_seed(seed)
-    epoch_step, eval_fn = create_gcn_train_step(model, graph, lr=lr)
+    epoch_step, eval_fn = create_gcn_train_step(model, graph, lr=lr,
+                                                backend=backend)
     return model, run_epochs(epoch_step, eval_fn, epochs, drop_gen, dev)
 
 

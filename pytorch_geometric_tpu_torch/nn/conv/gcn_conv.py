@@ -89,7 +89,10 @@ class GCNConv(nn.Module):
             # static normalised weights baked in)
             out = aggregate_fn(h)
         elif norm_dense is not None:
-            out = (norm_dense @ h.to(norm_dense.dtype)).float()
+            # operands in the adjacency's type, products and sums in fp32,
+            # fp32 out: the JAX preferred_element_type=float32 (a product
+            # of two bf16 values is exact in fp32)
+            out = norm_dense.float() @ h.to(norm_dense.dtype).float()
         elif spmm_op is not None:
             if norm is None:
                 norm = gcn_norm(graph, edge_weight, self.improved, h.dtype)

@@ -5,12 +5,13 @@ torch-scatter): reduce rows of ``data`` into ``num_segments`` buckets by
 ``segment_ids`` along dim 0, with the same empty-segment fills:
 
 - ``segment_sum`` / ``segment_mean``: 0 (mean divides by max(count, 1));
-- ``segment_max`` / ``segment_min``: 0 for floating data (the JAX
-  package maps XLA's -inf / +inf to 0), the integer identity otherwise;
+- ``segment_max`` / ``segment_min``: 0 for floating data, also where a
+  segment holds only -inf (+inf for min), since the JAX package maps
+  every -inf / +inf of the result to 0; the integer identity otherwise;
 - ``segment_softmax``: segments whose entries are all masked give 0.
 
-``indices_are_sorted`` is accepted for signature parity and ignored:
-the torch reductions take any order.
+``indices_are_sorted`` is accepted and passed on for signature parity;
+the torch reductions take any order and ignore it.
 """
 
 import torch
@@ -44,8 +45,13 @@ def _segment_extreme(data, segment_ids, num_segments, reduce):
         info = torch.iinfo(data.dtype)
         out = data.new_full(shape, info.min if reduce == "amax"
                             else info.max)
-    return out.scatter_reduce_(0, _expand(segment_ids, data), data, reduce,
-                               include_self=False)
+    out = out.scatter_reduce_(0, _expand(segment_ids, data), data, reduce,
+                              include_self=False)
+    if data.is_floating_point():
+        # a segment of -inf entries (+inf for min) gives 0, as in JAX
+        out = torch.where(torch.isneginf(out) if reduce == "amax"
+                          else torch.isposinf(out), 0.0, out)
+    return out
 
 
 def segment_max(data, segment_ids, num_segments, indices_are_sorted=False):
@@ -75,7 +81,7 @@ def scatter(src, index, num_segments, reduce="add", indices_are_sorted=False):
     except KeyError:
         raise ValueError(
             f"Unknown reduce '{reduce}'; expected one of {list(_REDUCERS)}")
-    return fn(src, index, num_segments)
+    return fn(src, index, num_segments, indices_are_sorted=indices_are_sorted)
 
 
 def segment_softmax(logits, segment_ids, num_segments,

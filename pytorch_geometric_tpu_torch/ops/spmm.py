@@ -6,8 +6,10 @@ Counterpart of ``pytorch_geometric_tpu/ops/spmm.py``:
 2. ``SpmmOperator`` — bound to a fixed edge structure, built once per
    graph on the host. ``op(weights, x)`` is differentiable in weights and
    x; ``op.bind(weights)`` fixes static weights (GCN's normalised
-   adjacency) and is differentiable in x. Forward and ``dx`` both run
-   :func:`spmm_csr`, over the receiver-major CSR and over its transpose.
+   adjacency) and is differentiable in x; ``op.bind_external(weights)``
+   does the same with the routed weights as an explicit argument.
+   Forward and ``dx`` both run :func:`spmm_csr`, over the
+   receiver-major CSR and over its transpose.
 3. :func:`spmm_csr` — the wrapper of the hand-written CUDA kernel
    ``csrc/spmm_csr.cu``, which replaces the Pallas kernel
    ``ops/spmm.py:_spmm_kernel`` of the JAX package. What bounds it is
@@ -21,6 +23,7 @@ fails: there is no fallback.
 """
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -153,22 +156,46 @@ class SpmmOperator:
     def _run(self, csr: Csr, val, x):
         return spmm_csr(csr, val, x.to(self.compute_dtype))
 
+    def route_weights(self, weights):
+        """Static per-edge ``weights`` (a tensor, array or sequence, in edge
+        order) as fp32 values in the order of each CSR: ``(val_f, val_b)``
+        on the operator's device (the role of the JAX
+        ``pack_weights_host``)."""
+        if isinstance(weights, torch.Tensor):
+            w = weights.detach()
+        else:
+            w = torch.from_numpy(np.asarray(weights, dtype=np.float32))
+        w = w.to(device=self.fwd.perm.device, dtype=torch.float32)
+        return (w[self.fwd.perm].contiguous(),
+                w[self.bwd.perm].contiguous())
+
     def bind(self, weights):
         """Closure with *static* weights routed into both CSR orders once:
         no per-edge gather on the training hot path. Differentiable in x
         only (no gradient w.r.t. the bound weights; use ``__call__`` for
         that)."""
-        w = weights.detach().float()
-        val_f = w[self.fwd.perm].contiguous()
-        val_b = w[self.bwd.perm].contiguous()
+        val_f, val_b = self.route_weights(weights)
 
         def f(x):
             return _BoundSpmm.apply(x, self, val_f, val_b)
 
         return f
 
+    def bind_external(self, weights):
+        """Static-weight SpMM with the routed weights as an explicit
+        argument, as the JAX ``bind_external``: returns ``(fn, consts)``
+        where ``consts`` holds both CSRs' values and ``fn(consts, x)``
+        equals ``bind(weights)(x)``, differentiable in x."""
+        val_f, val_b = self.route_weights(weights)
+        return functools.partial(_static_spmm, self), {"fwd": val_f,
+                                                       "bwd": val_b}
+
     def __call__(self, weights, x):
         return _SpmmApply.apply(weights, x, self)
+
+
+def _static_spmm(op: SpmmOperator, consts, x):
+    return _BoundSpmm.apply(x, op, consts["fwd"], consts["bwd"])
 
 
 class _BoundSpmm(torch.autograd.Function):

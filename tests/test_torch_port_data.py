@@ -191,3 +191,62 @@ def test_segment_softmax_matches_jax():
             mask=None if m is None else jnp.asarray(m))
         np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
                                    atol=1e-7)
+
+
+@pytest.mark.parametrize("reduce", ["max", "min"])
+def test_segment_extremes_of_infinite_segments_match_jax(reduce):
+    """A segment whose entries are all -inf (max) or +inf (min) gives 0,
+    as the JAX functions map every such result to 0; a segment holding
+    the other infinity keeps it, as there."""
+    inf = np.float32(np.inf)
+    data = np.array([[-inf, 1.0], [-inf, -inf], [inf, 2.0], [inf, inf],
+                     [3.0, -inf], [-2.0, 5.0]], np.float32)
+    ids = np.array([0, 0, 1, 1, 2, 2])             # segment 3 empty
+    got = tseg.scatter(torch.from_numpy(data), torch.from_numpy(ids), 4,
+                       reduce=reduce)
+    want = jseg.scatter(jnp.asarray(data), jnp.asarray(ids), 4,
+                        reduce=reduce)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+def test_scatter_passes_indices_are_sorted_on(monkeypatch):
+    """``scatter`` hands ``indices_are_sorted`` to the reduction, as the
+    JAX ``scatter`` does; the result does not depend on it."""
+    seen = []
+    real = tseg._REDUCERS["sum"]
+
+    def spy(*args, indices_are_sorted=False):
+        seen.append(indices_are_sorted)
+        return real(*args, indices_are_sorted=indices_are_sorted)
+
+    monkeypatch.setitem(tseg._REDUCERS, "sum", spy)
+    rng = np.random.default_rng(5)
+    ids = np.sort(rng.integers(0, 7, 30))
+    data = rng.normal(size=(30, 3)).astype(np.float32)
+    for flag in (True, False):
+        got = tseg.scatter(torch.from_numpy(data), torch.from_numpy(ids), 7,
+                           reduce="sum", indices_are_sorted=flag)
+        want = jseg.scatter(jnp.asarray(data), jnp.asarray(ids), 7,
+                            reduce="sum", indices_are_sorted=flag)
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6)
+    assert seen == [True, False]
+
+
+def test_collate_accepts_follow_keys_as_jax():
+    """``collate`` takes ``follow_keys`` where the JAX signature has it
+    (accepted and unused there too): the same graph either way."""
+    from pytorch_geometric_tpu.data.batch import collate as j_collate
+    from pytorch_geometric_tpu_torch.data.batch import collate
+
+    graphs = [_random_data(np.random.default_rng(k), 9, 20) for k in (1, 2)]
+    jgraphs = [_random_data(np.random.default_rng(k), 9, 20, cls=JData)
+               for k in (1, 2)]
+    g = collate(graphs, None, None, None, ["x"], device="cpu")
+    jg = j_collate(jgraphs, None, None, None, ["x"])
+    plain = collate(graphs, device="cpu")
+    for name in ("senders", "receivers", "x", "y", "batch", "node_mask"):
+        np.testing.assert_array_equal(_np(getattr(g, name)),
+                                      np.asarray(getattr(jg, name)))
+        np.testing.assert_array_equal(_np(getattr(g, name)),
+                                      _np(getattr(plain, name)))

@@ -20,7 +20,8 @@ from pytorch_geometric_tpu_torch.kernels import _build
 from pytorch_geometric_tpu_torch.models.citation import train_gat, train_gcn
 from pytorch_geometric_tpu_torch.models.entities import train_rgcn
 from pytorch_geometric_tpu_torch.nn.conv import gat_dense_adj, gat_edge_set
-from pytorch_geometric_tpu_torch.ops import bsr_gat, flash_gat, packed_rgcn
+from pytorch_geometric_tpu_torch.ops import (
+    bsr_gat, flash_gat, fused_gcn, packed_rgcn, sorted_spmm)
 from pytorch_geometric_tpu_torch.ops.csr import build_csr
 from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
 from pytorch_geometric_tpu_torch.ops.spmm import (
@@ -70,7 +71,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     for name in ("models.citation", "kernels._build", "ops.packed_gat",
                  "nn.conv.gat_conv", "datasets.molecules",
                  "ops.packed_rgcn", "nn.conv.rgcn_conv", "models.entities",
-                 "ops.flash_gat", "ops.bsr_gat", "utils.reorder"):
+                 "ops.flash_gat", "ops.bsr_gat", "utils.reorder",
+                 "ops.sorted_spmm", "ops.fused_gcn"):
         assert f"pytorch_geometric_tpu_torch.{name}" in report["modules"]
     assert report["bad"] == []
 
@@ -99,6 +101,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         bsr_gat.BsrFlashGat(gat_dense_adj(graph))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bsr_gat.BsrFlashGat.from_edges(*gat_edge_set(graph), graph.num_nodes)
+    for backend in ("sorted", "fused", "dense"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train_gcn(graph, num_classes=2, epochs=1, backend=backend)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sorted_spmm.SortedSpmm(graph.senders, graph.receivers,
+                               graph.num_nodes)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sorted_spmm.SortedSegmentSum(graph.receivers, graph.num_nodes)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fused_gcn.FusedGcn2(graph.senders, graph.receivers, graph.num_nodes,
+                            np.ones(graph.num_edges, np.float32), hidden=4,
+                            classes=2)
     rel = from_data(_tiny_relational_graph(), device="cpu")
     edges = (rel.senders, rel.receivers, rel.edge_type, 3, rel.num_nodes,
              np.ones(rel.num_edges, np.float32))
@@ -189,6 +203,38 @@ def test_cpu_bsr_gat_wrappers_compute_plain_and_count_no_launch():
     assert [w.launches for w in wrappers] == [0, 0, 0]
 
 
+def test_cpu_gcn_backend_wrappers_compute_plain_and_count_no_launch():
+    wrappers = (sorted_spmm.sorted_segment_sum, fused_gcn.fused_gcn_fwd,
+                fused_gcn.fused_gcn_bwd, spmm_csr)
+    for w in wrappers:
+        w.launches = 0
+    graph = from_data(_tiny_graph(), device="cpu")
+    n = graph.num_nodes
+    op = fused_gcn.FusedGcn2(graph.senders, graph.receivers, n,
+                             np.ones(graph.num_edges, np.float32), hidden=4,
+                             classes=2, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    z1, W2, b1, g2, msgs = (torch.randn(shape, generator=gen)
+                            for shape in ((n, 4), (4, 2), (4,), (n, 2),
+                                          (op.op.fwd.num_edges, 3)))
+    seed = torch.tensor([5], dtype=torch.int32)
+    got = sorted_spmm.sorted_segment_sum(op.op.fwd.row_ptr, msgs)
+    assert torch.equal(got, sorted_spmm.sorted_segment_sum_plain(
+        op.op.fwd.row_ptr, msgs))
+    fwd = (op.op.fwd, op.val_f, z1, W2, b1, seed, 0.5)
+    h1_pre, out = fused_gcn.fused_gcn_fwd(*fwd)
+    want = fused_gcn.fused_gcn_fwd_plain(*fwd)
+    assert torch.equal(h1_pre, want[0]) and torch.equal(out, want[1])
+    bwd = (op.op.bwd, op.val_b, g2, W2, b1, h1_pre, seed, 0.5)
+    got = fused_gcn.fused_gcn_bwd(*bwd)
+    want = fused_gcn.fused_gcn_bwd_plain(*bwd)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for backend in ("sorted", "fused", "dense"):
+        train_gcn(graph, num_classes=2, epochs=2, device="cpu",
+                  backend=backend)
+    assert [w.launches for w in wrappers] == [0, 0, 0, 0]
+
+
 def test_wrapper_refuses_other_devices_and_bad_inputs():
     csr = build_csr(np.array([0, 1]), np.array([1, 0]), 2)
     val = torch.ones(2)
@@ -204,8 +250,12 @@ def test_wrapper_refuses_other_devices_and_bad_inputs():
 
 
 def test_kernel_build_is_described_not_run_at_import():
-    assert sorted(_build.SIGNATURES) == ["bsr_gat", "flash_gat", "packed_gat",
-                                         "packed_rgcn", "spmm_csr"]
+    assert sorted(_build.SIGNATURES) == [
+        "bsr_gat", "flash_gat", "fused_gcn", "packed_gat", "packed_rgcn",
+        "sorted_spmm", "spmm_csr"]
+    assert list(_build.SIGNATURES["sorted_spmm"]) == ["sorted_segment_sum"]
+    assert sorted(_build.SIGNATURES["fused_gcn"]) == [
+        "fused_gcn_bwd", "fused_gcn_fwd"]
     assert sorted(_build.SIGNATURES["flash_gat"]) == [
         "flash_gat_bwd_col", "flash_gat_bwd_row", "flash_gat_fwd"]
     assert sorted(_build.SIGNATURES["bsr_gat"]) == [

@@ -8,8 +8,9 @@ Where there is no card they skip (CUDA kernels have no CPU mode); the
 CPU-side behaviour of each wrapper is covered in the other
 ``tests/test_torch_port_*.py`` files. Kernels: ``spmm_csr``, the
 packed-GAT forward and backward, the packed-RGCN forward and backward,
-the dense-mask flash-GAT forward and backward, and the block-sparse GAT
-forward, row pass and column pass.
+the dense-mask flash-GAT forward and backward, the block-sparse GAT
+forward, row pass and column pass, the sorted segment sum, and the fused
+two-layer GCN forward and backward.
 """
 
 import numpy as np
@@ -477,5 +478,149 @@ def test_bsr_flash_gat_on_card_matches_cpu(cuda_device, tile):
                               for w, b in zip(wrappers, before)])
     cpu, card = results["cpu"], results[str(cuda_device)]
     assert cpu[1] == [0, 0, 0] and card[1] == [1, 1, 1]
+    for a, b in zip(card[0], cpu[0]):
+        assert _rel_err(a, b) <= 1e-5
+
+
+def _gcn_edges(n=600, seed=16, loops=True):
+    """Senders, receivers and weights of a GCN-like edge set: random
+    edges, a receiver hub (row 3: 700 edges) and a sender hub (node 10:
+    500 edges), rows n-40 and up with nothing but their self loop (with
+    ``loops``, a self loop on every node; else those rows are empty)."""
+    rng = np.random.default_rng(seed)
+    loop = np.arange(n) if loops else np.arange(0)
+    s = np.concatenate([rng.integers(0, n, 3000), np.arange(700) % n,
+                        np.full(500, 10), loop])
+    r = np.concatenate([rng.integers(0, n - 40, 3000), np.full(700, 3),
+                        np.arange(500), loop])
+    w = rng.random(s.shape[0]).astype(np.float32) + 0.1
+    return s, r, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [1, 3, 7, 16, 33, 128])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_sorted_segment_sum_kernel_matches_plain_on_card(cuda_device, F,
+                                                         dtype, tol):
+    """The segment-sum kernel against its plain version, on the card:
+    both CSR directions of a graph with empty rows and hub rows, messages
+    at a 16-byte-aligned base (vector loads where F allows) and at an
+    offset of one element (scalar loads). Two launches bitwise equal."""
+    from pytorch_geometric_tpu_torch.ops.sorted_spmm import (
+        sorted_segment_sum, sorted_segment_sum_plain)
+
+    s, r, _ = _gcn_edges(loops=False)
+    n = 600
+    for rows, cols in ((r, s), (s, r)):
+        csr = build_csr(rows, cols, n).to(cuda_device)
+        E = csr.num_edges
+        buf = torch.randn(E * F + 1, device=cuda_device).to(dtype)
+        for msgs in (buf[:E * F].view(E, F), buf[1:].view(E, F)):
+            got = sorted_segment_sum(csr.row_ptr, msgs)
+            want = sorted_segment_sum_plain(csr.row_ptr, msgs)
+            torch.cuda.synchronize()
+            assert _rel_err(got, want) <= tol, (F, dtype)
+            if rows is r:        # rows that receive nothing give 0
+                assert (got[n - 40:] == 0).all()
+            assert torch.equal(got, sorted_segment_sum(csr.row_ptr, msgs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_sorted_spmm_on_card_matches_cpu(cuda_device, compute_dtype):
+    """``SortedSpmm`` (forward and ``dx`` through the kernel, ``dw``
+    plain) and ``SortedSegmentSum`` on the card against the same
+    operators on the CPU; launches counted."""
+    from pytorch_geometric_tpu_torch.ops import sorted_spmm as ss
+
+    s, r, w = _gcn_edges(seed=17)
+    n, F = 600, 16
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.normal(size=(n, F)).astype(np.float32))
+    msgs = torch.from_numpy(rng.normal(size=(s.shape[0], F))
+                            .astype(np.float32))
+    tol = 1e-5 if compute_dtype == torch.float32 else 1e-2
+    results = {}
+    for dev in ("cpu", cuda_device):
+        op = ss.SortedSpmm(s, r, n, compute_dtype=compute_dtype, device=dev)
+        seg = ss.SortedSegmentSum(r, n, compute_dtype=compute_dtype,
+                                  device=dev)
+        wt = torch.from_numpy(w).to(dev).requires_grad_()
+        xt, mt = (a.to(dev, copy=True).requires_grad_() for a in (x, msgs))
+        before = ss.sorted_segment_sum.launches
+        out, agg = op(wt, xt), seg(mt)
+        ((out ** 2).sum() + (agg ** 3).sum()).backward()
+        results[str(dev)] = ([t.detach().cpu() for t in
+                              (out, agg, wt.grad, xt.grad, mt.grad)],
+                             ss.sorted_segment_sum.launches - before)
+    cpu, card = results["cpu"], results[str(cuda_device)]
+    assert cpu[1] == 0 and card[1] == 3
+    for a, b in zip(card[0], cpu[0]):
+        assert _rel_err(a, b) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,C", [(16, 3), (16, 7), (1, 1), (5, 16)])
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+def test_fused_gcn_kernels_match_plain_on_card(cuda_device, H, C, rate):
+    """The fused forward and backward kernels against their plain
+    versions, on the card, over a graph with empty rows and hub rows.
+    Two launches bitwise equal."""
+    from pytorch_geometric_tpu_torch.ops import fused_gcn as fg
+
+    s, r, w = _gcn_edges(seed=18)
+    n = 600
+    op = fg.FusedGcn2(s, r, n, w, hidden=H, classes=C, dropout_rate=rate,
+                      device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(18)
+    z1, g2 = (torch.randn(n, k, generator=gen, device=cuda_device)
+              for k in (H, C))
+    W2 = torch.randn(H, C, generator=gen, device=cuda_device)
+    b1 = torch.randn(H, generator=gen, device=cuda_device)
+    seed = torch.tensor([987654], dtype=torch.int32, device=cuda_device)
+    fwd = (op.op.fwd, op.val_f, z1, W2, b1, seed, rate)
+    h1_pre, _ = fg.fused_gcn_fwd_plain(*fwd)
+    bwd = (op.op.bwd, op.val_b, g2, W2, b1, h1_pre, seed, rate)
+    for kernel, plain, args in ((fg.fused_gcn_fwd, fg.fused_gcn_fwd_plain,
+                                 fwd),
+                                (fg.fused_gcn_bwd, fg.fused_gcn_bwd_plain,
+                                 bwd)):
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert _rel_err(a, b) <= 1e-5, (kernel.__name__, H, C, rate)
+        for a, b in zip(got, kernel(*args)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+def test_fused_gcn2_on_card_matches_cpu(cuda_device, rate):
+    """``FusedGcn2`` on the card (both directions through the kernels)
+    against the same op on the CPU (plain versions): output and the
+    gradients of z1, W2 and b1; launches counted."""
+    from pytorch_geometric_tpu_torch.ops import fused_gcn as fg
+
+    s, r, w = _gcn_edges(seed=19)
+    n, H, C = 600, 16, 3
+    rng = np.random.default_rng(19)
+    arrays = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+              for shape in ((n, H), (H, C), (H,), (n, C))]
+    results = {}
+    for dev in ("cpu", cuda_device):
+        op = fg.FusedGcn2(s, r, n, w, hidden=H, classes=C,
+                          dropout_rate=rate, device=dev)
+        z1, W2, b1 = (a.to(dev, copy=True).requires_grad_()
+                      for a in arrays[:3])
+        before = (fg.fused_gcn_fwd.launches, fg.fused_gcn_bwd.launches)
+        out = op(z1, W2, b1, 24680)
+        (out * arrays[3].to(dev)).sum().backward()
+        results[str(dev)] = ([t.detach().cpu() for t in
+                              (out, z1.grad, W2.grad, b1.grad)],
+                             (fg.fused_gcn_fwd.launches - before[0],
+                              fg.fused_gcn_bwd.launches - before[1]))
+    cpu, card = results["cpu"], results[str(cuda_device)]
+    assert cpu[1] == (0, 0) and card[1] == (1, 1)
     for a, b in zip(card[0], cpu[0]):
         assert _rel_err(a, b) <= 1e-5
