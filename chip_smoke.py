@@ -5,8 +5,11 @@
 Phases, one JSON line each:
 
 1. card      — the card's name and power limit (nvidia-smi);
-2. build     — every CUDA kernel of the port, built with nvcc from csrc/
-               (one nvcc per source, all started together);
+2. build     — every CUDA kernel of the port, built with nvcc from csrc/,
+               and the two probe sources probes/packed_gat_ablate.cu and
+               probes/packed_rgcn_ablate.cu (which include csrc/'s
+               packed_gat.cu and packed_rgcn.cu): one nvcc per source, all
+               started together;
 3. kernel    — each kernel against its plain PyTorch version on the
                card, at the shapes the main paths give it, relative to
                the largest reference magnitude, with the kernel's, the
@@ -57,6 +60,17 @@ Phases, one JSON line each:
                  (16, 3) and Cora with (16, 7), dropout 0 and 0.5, fp32
                  (1e-5), against the unfused chain of spmm_csr launches
                  and torch ops; two launches bitwise equal;
+   probe     — the probes' libraries against the kernels that ship:
+               every term-by-term ablation mode of the packed-GAT backward
+               (RCM-PubMed, (8, 8), dropout 0.6) and of the packed-RGCN
+               backward (MUTAG conv1 and conv2) launched once, finite, and
+               counted; the forward at prefetch depths 1, 2 and 4 (MUTAG
+               conv1, conv2 and the hub operator); ``full``, launched
+               through the probe library's own kernel table, bitwise equal
+               to the library's backward (also at Cora and the hub
+               operator) and within 1e-5 of the plain version, depths 2
+               and 4 bitwise equal to depth 1 and to the library's
+               forward (the probe scripts print the timing tables);
 4. slice     — the GCN path as a user runs it: Planetoid Cora ->
                from_data -> train_gcn(epochs=200, device="cuda"), with
                the kernel's launch count read over exactly that run,
@@ -98,7 +112,6 @@ line; so does a machine without CUDA, or a directory without the port.
 """
 
 import json
-import os
 import subprocess
 import sys
 import time
@@ -106,16 +119,18 @@ import traceback
 
 import torch
 
-REPO = os.path.dirname(os.path.abspath(__file__))
+from pytorch_geometric_tpu_torch.bounds import (
+    bsr_gat_bound, flash_gat_bound, fused_gcn_bound, gat_bound, rgcn_bound,
+    segment_sum_bound, spmm_bound)
+from pytorch_geometric_tpu_torch.datasets.graphs import (
+    cora_graph, mutag_graph, pubmed_graph)
+from pytorch_geometric_tpu_torch.profiling import device_ms
+
 DEVICE = "cuda"
 SEED = 0
 EPOCHS = 200
 #: examples/rgcn.py's default.
 RGCN_EPOCHS = 50
-# H100 SXM data-sheet peaks (used for the bound): HBM bytes/s and fp32
-# (non-tensor-core) flop/s.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
 TOL = {"fp32": 1e-5, "bf16": 1e-2}
 #: Attention-dropout seed of the packed-GAT kernel cases.
 GAT_SEED = 123457
@@ -123,151 +138,6 @@ GAT_SEED = 123457
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
-
-
-def device_ms(fn, calls=50):
-    """Device time of one ``fn()``: ``calls`` calls captured in a CUDA
-    graph, replayed and timed with CUDA events, so host overhead between
-    launches is not counted. The inputs stay in the 50 MB L2 between
-    calls, as they do between the layers of a training step."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / calls
-
-
-def spmm_bound(csr, f, x_bytes):
-    """Least time for one SpMM call on this card: each input read once,
-    the output written once, against the bytes rate; 2 flops per edge
-    and feature against the fp32 rate. The larger wins."""
-    nbytes = (csr.num_edges * 8 + (csr.num_rows + 1) * 4
-              + csr.num_cols * f * x_bytes + csr.num_rows * f * 4)
-    flops = 2 * csr.num_edges * f
-    return _bound(nbytes, flops)
-
-
-def _bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def gat_bound(op, H, C, backward):
-    """Least time for one packed-GAT call: the edge set once (row_ptr and
-    col of one CSR), the node inputs once (d, s, h, m, seed; g for the
-    backward), the outputs once (num‖den; dd, ds, dh), fp32. Flops per
-    (edge, head): forward 2C (weighted sum) + 8 (logit, leaky, shift,
-    exp, denominator, dropout scale), backward 4C (the dot <gnum, h> and
-    dh) + 12 (the same logit terms and dz)."""
-    n, E, HC = op.n, op.E, H * C
-    nbytes = ((n + 1) * 4 + E * 4
-              + (2 * n * H + n * HC + H + 1) * 4
-              + n * (HC + H) * 4)                   # out, or g
-    if backward:
-        nbytes += (2 * n * H + n * HC) * 4          # dd, ds, dh
-        flops = E * H * (4 * C + 12)
-    else:
-        flops = E * H * (2 * C + 8)
-    return _bound(nbytes, flops)
-
-
-def flash_gat_bound(n, valid, H, C, backward):
-    """Least time for one dense-mask flash-GAT call on an (n, n) mask
-    with ``valid`` true entries: the mask once at one bit per entry (the
-    least any dense-mask operator reads, whatever layout it keeps), the
-    node inputs once (d, s, h, seed; lse, out and g for the backward),
-    the outputs once (out, lse; dd, ds, dh), fp32. Flops per valid
-    (entry, head) as :func:`gat_bound` counts them: what this mask
-    needs, not the n^2 positions a dense walk would visit."""
-    HC = H * C
-    nbytes = n * n // 8 + (2 * n * H + n * HC + 1) * 4
-    if backward:
-        nbytes += (n * H + 2 * n * HC) * 4          # lse, out, g
-        nbytes += (2 * n * H + n * HC) * 4          # dd, ds, dh
-        flops = valid * H * (4 * C + 12)
-    else:
-        nbytes += (n * HC + n * H) * 4              # out, lse
-        flops = valid * H * (2 * C + 8)
-    return _bound(nbytes, flops)
-
-
-def bsr_gat_bound(n, valid, H, C, kernel):
-    """Least time for one block-sparse GAT launch (``kernel``: "fwd",
-    "bwd_row" or "bwd_col") on a mask of ``valid`` entries: the entry set
-    once at 4 bytes per entry plus a pointer per row (the count of
-    :func:`gat_bound`, so it follows no tile), the node inputs and the
-    outputs once, fp32. Flops per (entry, head): forward 2C + 8, the row
-    pass 2C + 12 (the dot <g, h> and dz), the column pass 4C + 12 (the
-    dot and dh)."""
-    HC = H * C
-    nbytes = valid * 4 + (n + 1) * 4 + (2 * n * H + n * HC + 1) * 4
-    if kernel == "fwd":
-        nbytes += (n * HC + n * H) * 4                  # out, lse
-        flops = valid * H * (2 * C + 8)
-    elif kernel == "bwd_row":
-        nbytes += (n * H + 2 * n * HC) * 4              # lse, out, g
-        nbytes += 2 * n * H * 4                         # dd, D
-        flops = valid * H * (2 * C + 12)
-    else:
-        nbytes += (2 * n * H + n * HC) * 4              # lse, D, g
-        nbytes += (n * H + n * HC) * 4                  # ds, dh
-        flops = valid * H * (4 * C + 12)
-    return _bound(nbytes, flops)
-
-
-def rgcn_bound(op, B, C, backward):
-    """Least time for one packed-RGCN call: the edge set once (row_ptr,
-    col, relation and weight of one CSR), att and the rows of xB that
-    some edge names once (rows no edge sends from, such as padding rows,
-    need not be read), and the output once (forward) or g and both
-    gradients once (backward; every row of dxB is written), fp32. Flops
-    per edge: 2 B C forward (the contraction over bases), 4 B C backward
-    (dxB and the dots of datt)."""
-    rows, n, E, R = op.num_src_rows, op.num_nodes, op.E, op.R
-    used = int(torch.unique(op.fwd.col).numel())
-    nbytes = ((n + 1) * 4 + E * 12 + used * B * C * 4 + R * B * 4
-              + n * C * 4)                          # out, or g
-    if backward:
-        nbytes += rows * B * C * 4 + R * B * 4      # dxB, datt
-    return _bound(nbytes, E * B * C * (4 if backward else 2))
-
-
-def segment_sum_bound(num_rows, num_edges, f, msg_bytes):
-    """Least time for one sorted segment sum: the messages once, the row
-    pointers once, the fp32 output once, against the bytes rate; one add
-    per message element against the fp32 rate."""
-    nbytes = (num_edges * f * msg_bytes + (num_rows + 1) * 4
-              + num_rows * f * 4)
-    return _bound(nbytes, num_edges * f)
-
-
-def fused_gcn_bound(n, num_edges, H, C, backward):
-    """Least time for one fused two-layer GCN call (one direction): the
-    CSR once (column and weight per edge, a pointer per row), the input
-    (z1, or g2), W2, b1 and the seed once, h1_pre once in the backward,
-    the two outputs (h1_pre and out; gA2 and dz1) and the scratch (z2; dh1)
-    written once, fp32. Not counted: the CSR's second walk and the scratch
-    read back, which are the design's. Flops: 2 per edge and feature in
-    each aggregation (H and C wide), 2 H C per node in the per-node step."""
-    csr = num_edges * 8 + (n + 1) * 4
-    params = (H * C + H + 1) * 4
-    if backward:
-        nbytes = csr + params + n * (C + H) * 4 + n * (C + 2 * H) * 4
-    else:
-        nbytes = csr + params + n * H * 4 + n * (H + 2 * C) * 4
-    return _bound(nbytes, 2 * num_edges * (H + C) + 2 * n * H * C)
 
 
 def phase_card():
@@ -287,46 +157,20 @@ def phase_card():
 def phase_build():
     from pytorch_geometric_tpu_torch.kernels import _build
 
+    from probes import gat_ablate, rgcn_ablate
+
     t0 = time.perf_counter()
-    report = _build.build()
-    for name in report:
+    report = _build.build(sources=[gat_ablate.SOURCE, rgcn_ablate.SOURCE])
+    for name in _build.SIGNATURES:
         _build.load_library(name)
+    gat_ablate.load()
+    rgcn_ablate.load()
     ptxas = {name: [ln.strip() for ln in r["log"].splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, r in report.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": {k: v["seconds"] for k, v in report.items()},
           "ptxas": ptxas})
-
-
-def _cora_graph(device):
-    from pytorch_geometric_tpu_torch.data import from_data
-    from pytorch_geometric_tpu_torch.datasets import Planetoid
-    from pytorch_geometric_tpu_torch.transforms import NormalizeFeatures
-
-    ds = Planetoid(os.path.join(REPO, "datasets_cache"), "Cora",
-                   transform=NormalizeFeatures())
-    return ds, from_data(ds[0], device=device)
-
-
-def _pubmed_graph(device, reorder=True):
-    """examples/gat.py's PubMed graph: Planetoid (the synthetic graph of
-    the corpus's published shapes where the raw files are absent),
-    features normalised, nodes relabelled by RCM, padded to 24576 nodes.
-    Also returns the host seconds the reordering took."""
-    from pytorch_geometric_tpu_torch.data import from_data
-    from pytorch_geometric_tpu_torch.datasets import Planetoid
-    from pytorch_geometric_tpu_torch.transforms import NormalizeFeatures
-    from pytorch_geometric_tpu_torch.utils.reorder import reorder_graph
-
-    ds = Planetoid(os.path.join(REPO, "datasets_cache"), "PubMed",
-                   transform=NormalizeFeatures())
-    data = ds[0]
-    t0 = time.perf_counter()
-    if reorder:
-        data = reorder_graph(data)
-    seconds = time.perf_counter() - t0
-    return ds, from_data(data, device=device), seconds
 
 
 def _csr_pairs(graph):
@@ -668,7 +512,7 @@ def phase_kernel_bsr(cora, gen):
     # PubMed as the slice runs it, and what the reordering did to it
     edges = {}
     for name, reorder in (("pubmed", False), ("pubmed_rcm", True)):
-        _, graph, rcm_seconds = _pubmed_graph(DEVICE, reorder)
+        _, graph, rcm_seconds = pubmed_graph(DEVICE, reorder)
         edges[name] = (*gat_edge_set(graph), graph.num_nodes)
         op = gat_flash_op(graph, "bsr")
         emit({"phase": "kernel", "kernel": "bsr_gat", "graph": name,
@@ -842,7 +686,7 @@ def phase_kernel_gcn(cora, gen):
     from pytorch_geometric_tpu_torch.ops.fused_gcn import FusedGcn2
     from pytorch_geometric_tpu_torch.ops.sorted_spmm import SortedSpmm
 
-    _, pubmed, _ = _pubmed_graph(DEVICE)
+    _, pubmed, _ = pubmed_graph(DEVICE)
     cases = []
     for graph_name, graph, classes in (("cora", cora, 7),
                                        ("pubmed_rcm", pubmed, 3)):
@@ -910,17 +754,6 @@ def check_rgcn_case(graph_name, op, B, C, gen):
     return cases
 
 
-def _mutag_graph(device):
-    """MUTAG-RDF at its published size: no data file is needed, the
-    dataset synthesises the graph from its fixed seed."""
-    from pytorch_geometric_tpu_torch.data import from_data
-    from pytorch_geometric_tpu_torch.datasets import Entities
-
-    ds = Entities(os.path.join(REPO, "datasets_cache_fullmutag"), "MUTAG",
-                  scale=1.0)
-    return ds, from_data(ds[0], device=device)
-
-
 def _rgcn_hub_op():
     """A relational operator whose rows are far from uniform: node 3
     receives 3000 edges, node 10 sends 2500, relation 2 holds nine edges
@@ -953,7 +786,7 @@ def phase_kernel():
     from pytorch_geometric_tpu_torch.transforms import NormalizeFeatures
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    _, cora = _cora_graph(DEVICE)
+    _, cora = cora_graph(DEVICE)
     pubmed = from_data(NormalizeFeatures()(synthetic_citation_graph(
         "pubmed", seed=SEED)), device=DEVICE)
     cases = []
@@ -976,7 +809,7 @@ def phase_kernel():
             for rate in rates:
                 cases += check_flash_case(graph_name, adj, op, H, C, rate,
                                           gen, calls)
-    ds, mutag = _mutag_graph(DEVICE)
+    ds, mutag = mutag_graph(DEVICE)
     embed_op, transform_op = rgcn_fused_ops(mutag, ds.num_relations)
     for graph_name, op, B, C in (("mutag", embed_op, 30, 16),
                                  ("mutag", transform_op, 30, 2),
@@ -991,6 +824,168 @@ def phase_kernel():
     return cases
 
 
+def phase_probe():
+    """The probes' libraries (``probes/packed_gat_ablate.cu``,
+    ``probes/packed_rgcn_ablate.cu``) against the kernels that ship. Their
+    path, counted: every ablation mode of the packed-GAT backward once at
+    RCM-PubMed (8, 8) and ``full`` at Cora (8, 8), dropout 0.6; every mode
+    of the packed-RGCN backward once at MUTAG's conv1 (30, 16) and conv2
+    (30, 2) and ``full`` at the hub operator (5, 33); the forward at
+    prefetch depths 1, 2 and 4 at those three. Every mode, ``full``
+    included, goes through the probe library's own kernel table, and
+    depths 2 and 4 through its own kernel; depth 1 is the library's
+    forward. Then, uncounted: ``full`` bitwise against the library's
+    ``packed_gat_bwd`` / ``packed_rgcn_bwd`` and within 1e-5 of their
+    plain versions, depths 2 and 4 bitwise against depth 1 and the
+    library's ``packed_rgcn_fwd``, depth 2 within 1e-5 of its plain
+    version, every output finite. The timing tables are the probe
+    scripts'; here, on the main graph (RCM-PubMed, MUTAG conv1), one time
+    of each backward's ``full`` and of the forward at each depth (the
+    kernels row takes depth 2, the counterpart of the TPU probe's
+    prefetching kernel)."""
+    from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
+    from pytorch_geometric_tpu_torch.models.entities import rgcn_fused_ops
+    from pytorch_geometric_tpu_torch.ops import packed_gat as pg
+    from pytorch_geometric_tpu_torch.ops import packed_rgcn as pr
+    from probes import gat_ablate as ga
+    from probes import rgcn_ablate as ra
+    from probes import rgcn_pipe_probe as rp
+
+    gat_lib, rgcn_lib = ga.load(), ra.load()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    rate = 0.6
+    gat_cases = []
+    for name, graph in (("cora", cora_graph(DEVICE)[1]),
+                        ("pubmed_rcm", pubmed_graph(DEVICE)[1])):
+        op = gat_flash_op(graph)
+        gat_cases.append((name, op, ga.inputs(op.n, gen)))
+    ds, mutag = mutag_graph(DEVICE)
+    embed_op, transform_op = rgcn_fused_ops(mutag, ds.num_relations)
+    rgcn_cases = [(name, op, ra.inputs(op, B, C, gen))
+                  for name, op, B, C in (("mutag", embed_op, 30, 16),
+                                         ("mutag_conv2", transform_op, 30, 2),
+                                         ("hub", _rgcn_hub_op(), 5, 33))]
+    # the probes' path, counted
+    ga.ablate_walk.launches = ra.ablate_bwd.launches = 0
+    rp.pipe_fwd.launches = 0
+    gat_out = {(name, mode): ga.ablate_bwd(gat_lib, op, *inp, rate, mode)
+               for name, op, inp in gat_cases for mode in ga.MODES
+               if mode == "full" or name == "pubmed_rcm"}
+    rgcn_out = {(name, mode): ra.ablate_bwd(rgcn_lib, op, *inp, mode)
+                for name, op, inp in rgcn_cases for mode in ra.MODES
+                if mode == "full" or name != "hub"}
+    pipe_out = {(name, depth): rp.pipe_fwd(rgcn_lib, op, *inp[:2], depth)
+                for name, op, inp in rgcn_cases for depth in rp.DEPTHS}
+    torch.cuda.synchronize()
+    launches = {"packed_gat_ablate_bwd": ga.ablate_walk.launches,
+                "packed_rgcn_ablate_bwd": ra.ablate_bwd.launches,
+                "packed_rgcn_pipe_fwd": rp.pipe_fwd.launches}
+    nodatt = sum(1 for name, mode in rgcn_out if mode == "nodatt")
+    expected = {"packed_gat_ablate_bwd": 2 * len(gat_out),
+                "packed_rgcn_ablate_bwd": 3 * len(rgcn_out) - 2 * nodatt,
+                "packed_rgcn_pipe_fwd": len(pipe_out)}
+    cases, failed = [], []
+    rows = {}
+    for name, op, (d, s, h, m, seed, g) in gat_cases:
+        got = gat_out[name, "full"]
+        lib = pg.packed_gat_bwd(op.fwd, op.bwd, op.bwd_eid, d, s, h, m, seed,
+                                g, rate, op.slope)
+        plain = pg.packed_gat_bwd_plain(op.fwd, d, s, h, m, seed, g, rate,
+                                        op.slope)
+        torch.cuda.synchronize()
+        case = {"phase": "probe", "kernel": "packed_gat_ablate_bwd",
+                "graph": name, "H": ga.H, "C": ga.C, "rate": rate,
+                "modes": [md for nm, md in gat_out if nm == name],
+                "bitwise_vs_library": all(torch.equal(a, b)
+                                          for a, b in zip(got, lib)),
+                "finite": all(bool(torch.isfinite(t).all())
+                              for (nm, _), out in gat_out.items()
+                              if nm == name for t in out)}
+        case["max_abs_err"], case["rel_err"] = _max_rel_err(got, plain)
+        if name == "pubmed_rcm":
+            outs = [ga.ablate_walk(gat_lib, op, d, s, h, m, seed, g, rate,
+                                   "full", walk) for walk in (0, 1)]
+            case["kernel_ms"] = device_ms(lambda: [
+                ga.ablate_walk(gat_lib, op, d, s, h, m, seed, g, rate, "full",
+                               walk, outs[walk]) for walk in (0, 1)])
+            case["plain_ms"] = device_ms(lambda: pg.packed_gat_bwd_plain(
+                op.fwd, d, s, h, m, seed, g, rate, op.slope))
+            case["bound_ms"], case["bound_by"] = gat_bound(op, ga.H, ga.C,
+                                                           True)
+            rows["packed_gat_ablate_bwd"] = case
+        cases.append(case)
+    for name, op, (xB, att, g) in rgcn_cases:
+        got = rgcn_out[name, "full"]
+        lib = pr.packed_rgcn_bwd(op.bwd, op.bwd_et, op.bwd_w, op.bwd_pos,
+                                 op.rel_ptr, xB, att, g)
+        plain = pr.packed_rgcn_bwd_plain(op.bwd, op.bwd_et, op.bwd_w, xB, att,
+                                         g)
+        fwd_lib = pr.packed_rgcn_fwd(op.fwd, op.fwd_et, op.fwd_w, xB, att)
+        fwd_plain = pr.packed_rgcn_fwd_plain(op.fwd, op.fwd_et, op.fwd_w, xB,
+                                             att)
+        torch.cuda.synchronize()
+        B = att.shape[1]
+        C = xB.shape[1] // B
+        case = {"phase": "probe", "kernel": "packed_rgcn_ablate_bwd",
+                "graph": name, "B": B, "C": C,
+                "modes": [md for nm, md in rgcn_out if nm == name],
+                "bitwise_vs_library": all(torch.equal(a, b)
+                                          for a, b in zip(got, lib)),
+                "finite": all(bool(torch.isfinite(t).all())
+                              for (nm, _), out in rgcn_out.items()
+                              if nm == name for t in out)}
+        case["max_abs_err"], case["rel_err"] = _max_rel_err(got, plain)
+        ahead = [pipe_out[name, dp] for dp in rp.DEPTHS if dp != 1]
+        pipe = {"phase": "probe", "kernel": "packed_rgcn_pipe_fwd",
+                "graph": name, "B": B, "C": C, "depths": list(rp.DEPTHS),
+                "bitwise_vs_library": all(torch.equal(out, fwd_lib)
+                                          for out in ahead),
+                "bitwise_vs_depth1": all(torch.equal(out, pipe_out[name, 1])
+                                         for out in ahead),
+                "finite": all(bool(torch.isfinite(out).all())
+                              for out in ahead)}
+        pipe["max_abs_err"], pipe["rel_err"] = _max_rel_err(
+            (pipe_out[name, 2],), (fwd_plain,))
+        if name == "mutag":
+            scratch = ra.ablate_bwd(rgcn_lib, op, xB, att, g) + (
+                torch.empty(op.E, B, device=DEVICE),
+                torch.empty(op.R, pr.DATT_SPLITS, B, device=DEVICE))
+            case["kernel_ms"] = device_ms(
+                lambda: ra.ablate_bwd(rgcn_lib, op, xB, att, g, "full",
+                                      scratch))
+            case["plain_ms"] = device_ms(lambda: pr.packed_rgcn_bwd_plain(
+                op.bwd, op.bwd_et, op.bwd_w, xB, att, g))
+            case["bound_ms"], case["bound_by"] = rgcn_bound(op, B, C, True)
+            out = torch.empty_like(fwd_lib)
+            for depth in rp.DEPTHS:
+                pipe[f"depth{depth}_ms"] = device_ms(
+                    lambda: rp.pipe_fwd(rgcn_lib, op, xB, att, depth, out))
+            pipe["kernel_ms"] = pipe["depth2_ms"]
+            pipe["plain_ms"] = device_ms(lambda: pr.packed_rgcn_fwd_plain(
+                op.fwd, op.fwd_et, op.fwd_w, xB, att))
+            pipe["bound_ms"], pipe["bound_by"] = rgcn_bound(op, B, C, False)
+            rows["packed_rgcn_ablate_bwd"] = case
+            rows["packed_rgcn_pipe_fwd"] = pipe
+        cases += [case, pipe]
+    for case in cases:
+        case["tol"] = TOL["fp32"]
+        case["ok"] = (case["rel_err"] <= TOL["fp32"] and case["finite"]
+                      and case["bitwise_vs_library"]
+                      and case.get("bitwise_vs_depth1", True))
+        emit(case)
+        if not case["ok"]:
+            failed.append((case["kernel"], case["graph"]))
+    emit({"phase": "probe", "launches": launches,
+          "expected_launches": expected})
+    if failed:
+        raise AssertionError(f"probe cases disagree with the library or "
+                             f"the plain version: {failed}")
+    if launches != expected or not all(launches.values()):
+        raise AssertionError(f"probe launches {launches}, expected "
+                             f"{expected}")
+    return {"launches": launches, "rows": rows}
+
+
 def phase_slice():
     import numpy as np
 
@@ -998,7 +993,7 @@ def phase_slice():
         gcn_spmm_operator, train_gcn)
     from pytorch_geometric_tpu_torch.ops.spmm import spmm_csr
 
-    ds, graph = _cora_graph(DEVICE)
+    ds, graph = cora_graph(DEVICE)
     spmm_csr.launches = 0
     model, metrics = train_gcn(graph, num_classes=ds.num_classes,
                                epochs=EPOCHS, seed=SEED, device=DEVICE)
@@ -1071,12 +1066,12 @@ def phase_slice_gat(backend="packed", phase="slice_gat"):
                 "bsr_gat_bwd_col": bg.bsr_gat_bwd_col}
     expected = {name: 0 for name in wrappers}
     if backend == "bsr":
-        ds, graph, rcm_seconds = _pubmed_graph(DEVICE)
+        ds, graph, rcm_seconds = pubmed_graph(DEVICE)
         expected.update(bsr_gat_fwd=2 * EPOCHS + 2,
                         bsr_gat_bwd_row=2 * EPOCHS,
                         bsr_gat_bwd_col=2 * EPOCHS)
     else:
-        ds, graph = _cora_graph(DEVICE)
+        ds, graph = cora_graph(DEVICE)
         rcm_seconds = None
         mine = "flash_gat" if backend == "dense" else "packed_gat"
         expected[f"{mine}_fwd"] = 2 * EPOCHS + 2
@@ -1155,7 +1150,7 @@ def phase_slice_rgcn():
     from pytorch_geometric_tpu_torch.nn.conv import rgcn_norm
     from pytorch_geometric_tpu_torch.ops import packed_rgcn as pr
 
-    ds, graph = _mutag_graph(DEVICE)
+    ds, graph = mutag_graph(DEVICE)
     R = ds.num_relations
     torch.cuda.reset_peak_memory_stats()
     pr.packed_rgcn_fwd.launches = pr.packed_rgcn_bwd.launches = 0
@@ -1235,10 +1230,10 @@ def phase_slice_gcn(backend, phase):
     wrappers = _gcn_wrappers()
     expected = {name: 0 for name in wrappers}
     if backend == "dense":
-        ds, graph = _cora_graph(DEVICE)
+        ds, graph = cora_graph(DEVICE)
         rcm_seconds = None
     else:
-        ds, graph, rcm_seconds = _pubmed_graph(DEVICE)
+        ds, graph, rcm_seconds = pubmed_graph(DEVICE)
     if backend == "sorted":
         expected["sorted_segment_sum"] = 4 * EPOCHS + 2
     elif backend == "fused":
@@ -1352,7 +1347,7 @@ def _rgcn_step(ds, graph):
 
 
 def phase_trace(make_step=_gcn_step, phase="trace", epochs=20,
-                load=_cora_graph):
+                load=cora_graph):
     """Where an epoch's time goes: ``torch.profiler`` over ``epochs``
     epochs of the same training step (after warm-up), device busy time
     per kernel name against the host's wall clock. Launches here come
@@ -1462,6 +1457,21 @@ KERNELS = {
 }
 
 
+#: The probes' rows: each probe library's entry point, its source, the
+#: Pallas probe it replaces; timed on the main graph (RCM-PubMed (8, 8)
+#: with dropout 0.6; MUTAG conv1) at the backwards' ``full`` mode and the
+#: forward's prefetch depth 2 (depths 1 and 4 beside it), launches counted
+#: in the probe phase. No single PyTorch call computes any of them.
+PROBE_KERNELS = {
+    "packed_gat_ablate_bwd": ("probes/packed_gat_ablate.cu",
+                              "tools/gat_ablate.py:194"),
+    "packed_rgcn_ablate_bwd": ("probes/packed_rgcn_ablate.cu",
+                               "tools/rgcn_ablate.py:116"),
+    "packed_rgcn_pipe_fwd": ("probes/packed_rgcn_ablate.cu",
+                             "tools/rgcn_pipe_probe.py:158"),
+}
+
+
 def kernels_line(results):
     """Per kernel: its launches on its main path's run, its largest error
     over the cases on that path's graph, and the times and bound of its
@@ -1493,6 +1503,19 @@ def kernels_line(results):
                      "library_ms": case["library_ms"]})
         if "unfused_chain_ms" in case:
             line[-1]["unfused_chain_ms"] = case["unfused_chain_ms"]
+    probe = results["probe"]
+    for name, (source, replaces) in PROBE_KERNELS.items():
+        case = probe["rows"][name]
+        line.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces,
+                     "launches": probe["launches"][name],
+                     "max_abs_err": case["max_abs_err"],
+                     "ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
+                     "bound_ms": case["bound_ms"],
+                     "bound_by": case["bound_by"], "library_ms": None})
+        for depth in (1, 4):
+            if f"depth{depth}_ms" in case:
+                line[-1][f"depth{depth}_ms"] = case[f"depth{depth}_ms"]
     return line
 
 
@@ -1501,20 +1524,16 @@ def main():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
-    try:
-        import pytorch_geometric_tpu_torch  # noqa: F401
-    except ImportError as exc:
-        print(f"chip_smoke: the port is not importable here ({exc}); run "
-              "from the root of the repository", file=sys.stderr)
-        return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
     failed = []
     results = {}
+    phase_seconds = {}
     for name, fn in (("card", phase_card), ("build", phase_build),
-                     ("kernel", phase_kernel), ("slice", phase_slice),
+                     ("kernel", phase_kernel), ("probe", phase_probe),
+                     ("slice", phase_slice),
                      ("slice_gat", phase_slice_gat),
                      ("slice_gat_dense",
                       lambda: phase_slice_gat("dense", "slice_gat_dense")),
@@ -1536,21 +1555,22 @@ def main():
                      ("trace_gat_bsr",
                       lambda: phase_trace(
                           _gat_bsr_step, "trace_gat_bsr",
-                          load=lambda dev: _pubmed_graph(dev)[:2])),
+                          load=lambda dev: pubmed_graph(dev)[:2])),
                      ("trace_rgcn",
                       lambda: phase_trace(_rgcn_step, "trace_rgcn",
-                                          load=_mutag_graph)),
+                                          load=mutag_graph)),
                      ("trace_gcn_sorted",
                       lambda: phase_trace(
                           _gcn_sorted_step, "trace_gcn_sorted",
-                          load=lambda dev: _pubmed_graph(dev)[:2])),
+                          load=lambda dev: pubmed_graph(dev)[:2])),
                      ("trace_gcn_fused",
                       lambda: phase_trace(
                           _gcn_fused_step, "trace_gcn_fused",
-                          load=lambda dev: _pubmed_graph(dev)[:2]))):
+                          load=lambda dev: pubmed_graph(dev)[:2]))):
         if failed and name != "card":
             emit({"phase": name, "skipped": f"after {failed[0]} failed"})
             continue
+        t_phase = time.perf_counter()
         try:
             results[name] = fn()
             torch.cuda.synchronize()
@@ -1558,12 +1578,14 @@ def main():
             traceback.print_exc()
             emit({"phase": name, "error": f"{type(exc).__name__}: {exc}"})
             failed.append(name)
+        phase_seconds[name] = time.perf_counter() - t_phase
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
 
     line = kernels_line(results)
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "phase_seconds": phase_seconds})
     print(results["card"], flush=True)
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,9 +2,10 @@
 
     python3 probes/fused_gcn_designs.py
 
-Builds ``probes/fused_gcn_designs.cu`` with the port's nvcc flags into the
-git-ignored ``pytorch_geometric_tpu_torch/_build/`` and prints one JSON
-line each for:
+Builds ``probes/fused_gcn_designs.cu`` with the port's nvcc flags
+(``kernels/_build.py:build_source``, cached by a hash of the source and
+what it includes) into the git-ignored ``pytorch_geometric_tpu_torch/_build/``
+and prints one JSON line each for:
 
 - ``empty``: device µs of a cooperative launch of an empty kernel with 0,
   1 and 2 grid barriers, at 192 and 1056 blocks of 256 threads, and of a
@@ -21,47 +22,40 @@ line each for:
   call, of the weight gather, and of the whole ``SortedSpmm`` call.
 
 Times are CUDA graphs of 50 calls timed with CUDA events
-(``chip_smoke.device_ms``). Exits non-zero without a card.
+(``profiling.device_ms``). Exits non-zero without a card.
 """
 
 import ctypes
-import os
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(REPO))
+if str(REPO) not in sys.path:
+    sys.path.insert(0, str(REPO))
 
-import chip_smoke as cs  # noqa: E402
+from probes.common import emit, require_card, card  # noqa: E402
+from probes.common import stream as _stream  # noqa: E402
+from pytorch_geometric_tpu_torch.profiling import device_ms  # noqa: E402
 
+SOURCE = REPO / "probes" / "fused_gcn_designs.cu"
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+SIGNATURES = {
+    "probe_run": (_I, [_I, _I] + [_P] * 11 + [_I] * 3 + [_U, _F, _I, _I, _P]),
+    "probe_empty": (_I, [_I, _I, _I, _P]),
+    "probe_last_blocks": (_I, []),
+}
 SMS = 132
 BLOCK_CAPS = {"2_per_sm": 2 * SMS, "4_per_sm": 4 * SMS, "8_per_sm": 8 * SMS}
+SEED = 0
+GAT_SEED = 123457
 
 
 def build():
-    from pytorch_geometric_tpu_torch.kernels import _build
+    from pytorch_geometric_tpu_torch.kernels._build import build_source
 
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _build.BUILD_DIR / f"libfused_gcn_designs.{os.getpid()}.so"
-    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-                    str(REPO / "probes" / "fused_gcn_designs.cu")],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(out))
-    lib.probe_run.argtypes = [_I, _I] + [_P] * 11 + [_I] * 3 + [
-        _U, _F, _I, _I, _P]
-    lib.probe_run.restype = _I
-    lib.probe_empty.argtypes = [_I, _I, _I, _P]
-    lib.probe_empty.restype = _I
-    lib.probe_last_blocks.restype = _I
-    return lib
-
-
-def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    return build_source(SOURCE, SIGNATURES)
 
 
 def probe_empty(lib):
@@ -73,8 +67,8 @@ def probe_empty(lib):
                 assert rc == 0, rc
             key = (f"cooperative_{barriers}_barriers" if coop
                    else "plain") + f"_{blocks}_blocks"
-            times[key] = cs.device_ms(call) * 1e3
-    cs.emit({"probe": "empty", "us": times})
+            times[key] = device_ms(call) * 1e3
+    emit({"probe": "empty", "us": times})
 
 
 def _variant(lib, variant, fused, backward, inputs, outs, rate, cap):
@@ -110,7 +104,7 @@ def probe_designs(lib, graph_name, graph, C, gen):
     g2 = torch.randn(n, C, generator=gen, device="cuda")
     W2 = torch.randn(H, C, generator=gen, device="cuda") * 0.5
     b1 = torch.randn(H, generator=gen, device="cuda") * 0.1
-    seed = torch.tensor([cs.GAT_SEED], dtype=torch.int32, device="cuda")
+    seed = torch.tensor([GAT_SEED], dtype=torch.int32, device="cuda")
     for rate in (0.0, 0.5):
         fwd = (fused.op.fwd, fused.val_f, z1, W2, b1, seed, rate)
         want_f = fg.fused_gcn_fwd_plain(*fwd)
@@ -118,8 +112,8 @@ def probe_designs(lib, graph_name, graph, C, gen):
         want_b = fg.fused_gcn_bwd_plain(*bwd)
         kept_f, kept_b = fg.fused_gcn_fwd(*fwd), fg.fused_gcn_bwd(*bwd)
         rows = {"kept": {
-            "fwd_us": cs.device_ms(lambda: fg.fused_gcn_fwd(*fwd)) * 1e3,
-            "bwd_us": cs.device_ms(lambda: fg.fused_gcn_bwd(*bwd)) * 1e3,
+            "fwd_us": device_ms(lambda: fg.fused_gcn_fwd(*fwd)) * 1e3,
+            "bwd_us": device_ms(lambda: fg.fused_gcn_bwd(*bwd)) * 1e3,
             "rel_err": max(_rel(kept_f, want_f), _rel(kept_b, want_b))}}
         runs = [(1, "resident", 0)]
         runs += [(2, name, cap) for name, cap in BLOCK_CAPS.items()]
@@ -136,12 +130,12 @@ def probe_designs(lib, graph_name, graph, C, gen):
                       _rel((bo[0], bo[2]), want_b))
             rows[f"variant{variant}_{grid}"] = {
                 "blocks": lib.probe_last_blocks(),
-                "fwd_us": cs.device_ms(lambda: _variant(
+                "fwd_us": device_ms(lambda: _variant(
                     lib, variant, fused, False, f_in, fo, rate, cap)) * 1e3,
-                "bwd_us": cs.device_ms(lambda: _variant(
+                "bwd_us": device_ms(lambda: _variant(
                     lib, variant, fused, True, b_in, bo, rate, cap)) * 1e3,
                 "rel_err": err}
-        cs.emit({"probe": "designs", "graph": graph_name, "H": H, "C": C,
+        emit({"probe": "designs", "graph": graph_name, "H": H, "C": C,
                  "rate": rate, "rows": n, "edges": fused.op.fwd.num_edges,
                  "designs": rows})
 
@@ -162,23 +156,24 @@ def probe_gathers(graph_name, graph, gen):
              "embedding": lambda: torch.nn.functional.embedding(col64, x),
              "weight_gather": lambda: w[csr.perm],
              "sorted_spmm_call": lambda: sop._run(csr, w, x)}
-    cs.emit({"probe": "gathers", "graph": graph_name, "F": 16,
+    emit({"probe": "gathers", "graph": graph_name, "F": 16,
              "edges": csr.num_edges,
-             "us": {k: cs.device_ms(f) * 1e3 for k, f in calls.items()}})
+             "us": {k: device_ms(f) * 1e3 for k, f in calls.items()}})
 
 
 def main():
-    if not torch.cuda.is_available():
-        print("fused_gcn_designs: needs an NVIDIA GPU", file=sys.stderr)
+    if not require_card("fused_gcn_designs"):
         return 1
+    from pytorch_geometric_tpu_torch.datasets.graphs import (
+        cora_graph, pubmed_graph)
+
     torch.backends.cuda.matmul.allow_tf32 = False
-    cs.DEVICE = "cuda"
-    cs.phase_card()
+    emit({"probe": "card", "card": card()})
     lib = build()
     probe_empty(lib)
-    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
-    _, cora = cs._cora_graph("cuda")
-    _, pubmed, _ = cs._pubmed_graph("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    _, cora = cora_graph("cuda")
+    _, pubmed, _ = pubmed_graph("cuda")
     for graph_name, graph, C in (("cora", cora, 7), ("pubmed_rcm", pubmed, 3)):
         probe_designs(lib, graph_name, graph, C, gen)
         probe_gathers(graph_name, graph, gen)

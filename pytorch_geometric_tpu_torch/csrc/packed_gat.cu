@@ -59,6 +59,14 @@
 // - fp32 throughout; expf (not __expf) and no fast-math flags, so the
 //   kernel holds 1e-5 against the plain PyTorch version.
 //
+// Ablation hooks: the backward kernel takes a bit mask kAblate of terms
+// to remove (namespace gat_ablate) and a run-time flag `sink`. The
+// library instantiates kAblate = 0 only; probes/packed_gat_ablate.cu
+// includes this file and instantiates the others, so a probe times the
+// kernel that ships. A removed load is replaced by a value loaded once per
+// row, and a removed store is kept behind `if (sink)` (sink = 0 at run
+// time), so that nvcc cannot delete the work that feeds it.
+//
 // Plain C interface, bound from Python with ctypes
 // (pytorch_geometric_tpu_torch/ops/packed_gat.py); each launch goes on
 // the caller's stream and the function returns cudaGetLastError().
@@ -72,6 +80,18 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kVec = 4;
+
+// Terms of the backward that an ablation removes, one bit each.
+namespace gat_ablate {
+constexpr unsigned kNoIndex = 1u << 0;    // other = r: no load of col[e]
+constexpr unsigned kNoGatherS = 1u << 1;  // the neighbour's s or d: own
+constexpr unsigned kNoGatherG = 1u << 2;  // gnum, gden: loaded once per row
+constexpr unsigned kNoGatherH = 1u << 3;  // h[send] of the dot: once per row
+constexpr unsigned kNoExp = 1u << 4;      // no expf
+constexpr unsigned kNoDrop = 1u << 5;     // no dropout hash
+constexpr unsigned kNoShuffle = 1u << 6;  // no group_sum butterfly
+constexpr unsigned kNoStore = 1u << 7;    // dh and out_h stored only if sink
+}  // namespace gat_ablate
 
 __device__ __forceinline__ float leaky(float z, float slope) {
   return z > 0.f ? z : slope * z;
@@ -171,8 +191,9 @@ gat_fwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
 //                 position); writes dd (n_rows, H) into out_h.
 //   kSrc = true:  rows are senders (sender-major CSR, edge id = eid[p]);
 //                 writes ds (n_rows, H) into out_h and dh (n_rows, H*C).
-// g is (n_rows, H*C + H): gnum, then gden.
-template <int G, bool kSrc>
+// g is (n_rows, H*C + H): gnum, then gden. kAblate and sink: see the
+// header (0 and 0 in the library).
+template <int G, bool kSrc, unsigned kAblate = 0>
 __global__ void __launch_bounds__(kThreads)
 gat_bwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
                const int* __restrict__ eid, const float* __restrict__ d,
@@ -180,7 +201,12 @@ gat_bwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
                const float* __restrict__ m, const float* __restrict__ g,
                const int* __restrict__ seed_ptr, float* __restrict__ out_h,
                float* __restrict__ dh, int n_rows, int H, int C,
-               uint32_t thresh, float scale, float slope) {
+               uint32_t thresh, float scale, float slope, int sink) {
+  using namespace gat_ablate;
+  constexpr bool kIndex = !(kAblate & kNoIndex);
+  constexpr bool kGatherS = !(kAblate & kNoGatherS);
+  constexpr bool kGatherG = !(kAblate & kNoGatherG);
+  constexpr bool kGatherH = !(kAblate & kNoGatherH);
   const long long grp =
       static_cast<long long>(blockIdx.x) * (kThreads / G) + threadIdx.x / G;
   if (grp >= static_cast<long long>(n_rows) * H) return;
@@ -194,6 +220,7 @@ gat_bwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
   const float mh = __ldg(m + hd);
   // the row's own node term: d of a receiver, s of a sender
   const float own = __ldg((kSrc ? s : d) + static_cast<size_t>(r) * H + hd);
+  const bool stores = !(kAblate & kNoStore) || sink != 0;
   const int e0 = row_ptr[r];
   const int e1 = row_ptr[r + 1];
   for (int c0 = 0; c0 < C; c0 += G * kVec) {
@@ -201,33 +228,60 @@ gat_bwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
 #pragma unroll
     for (int k = 0; k < kVec; ++k) acc[k] = 0.f;
     float dsum = 0.f;
+    // stand-ins for removed gathers: the row's own values, loaded once
+    float g_own[kVec] = {};
+    float gden_own = 0.f, h_own = 0.f;
+    if constexpr (!kGatherG) {
+      const float* gr = g + static_cast<size_t>(r) * ldg + hd * C;
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        const int c = c0 + lane + k * G;
+        g_own[k] = c < C ? __ldg(gr + c) : 0.f;
+      }
+      gden_own = __ldg(g + static_cast<size_t>(r) * ldg + HC + hd);
+    }
+    if constexpr (!kGatherH) {
+      h_own = lane < C ? __ldg(h + static_cast<size_t>(r) * HC + hd * C + lane)
+                       : 0.f;
+    }
     for (int e = e0; e < e1; ++e) {
-      const int other = __ldg(col + e);
+      const int other = kIndex ? __ldg(col + e) : r;
       const int id = kSrc ? __ldg(eid + e) : e;
       const int recv = kSrc ? other : r;
       const int send = kSrc ? r : other;
       const float dr =
-          kSrc ? __ldg(d + static_cast<size_t>(other) * H + hd) : own;
+          kSrc && kGatherS ? __ldg(d + static_cast<size_t>(other) * H + hd)
+                           : own;
       const float sv =
-          kSrc ? own : __ldg(s + static_cast<size_t>(other) * H + hd);
+          kSrc || !kGatherS ? own
+                            : __ldg(s + static_cast<size_t>(other) * H + hd);
       const float zpre = sv + dr;
-      const float ex = expf(leaky(zpre, slope) - leaky(mh + dr, slope));
-      const float ks = keep_scale(seed, id, hd, thresh, scale);
+      const float zl = leaky(zpre, slope) - leaky(mh + dr, slope);
+      const float ex = (kAblate & kNoExp) ? zl : expf(zl);
+      const float ks = (kAblate & kNoDrop)
+                           ? scale
+                           : keep_scale(seed, id, hd, thresh, scale);
       const float* gn = g + static_cast<size_t>(recv) * ldg + hd * C;
       if (kSrc) {
         const float w = ex * ks;
 #pragma unroll
         for (int k = 0; k < kVec; ++k) {
           const int c = c0 + lane + k * G;
-          if (c < C) acc[k] += __ldg(gn + c) * w;
+          if (c < C) acc[k] += (kGatherG ? __ldg(gn + c) : g_own[k]) * w;
         }
       }
       if (c0 == 0) {
         const float* hs = h + static_cast<size_t>(send) * HC + hd * C;
         float part = 0.f;
-        for (int c = lane; c < C; c += G) part += __ldg(gn + c) * __ldg(hs + c);
-        const float dot = group_sum<G>(part, mask);
-        const float gden = __ldg(g + static_cast<size_t>(recv) * ldg + HC + hd);
+        for (int c = lane; c < C; c += G) {
+          part += (kGatherG ? __ldg(gn + c) : g_own[0]) *
+                  (kGatherH ? __ldg(hs + c) : h_own);
+        }
+        const float dot =
+            (kAblate & kNoShuffle) ? part : group_sum<G>(part, mask);
+        const float gden =
+            kGatherG ? __ldg(g + static_cast<size_t>(recv) * ldg + HC + hd)
+                     : gden_own;
         const float dz = ex * (ks * dot + gden);
         dsum += zpre > 0.f ? dz : slope * dz;
       }
@@ -236,10 +290,14 @@ gat_bwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
 #pragma unroll
       for (int k = 0; k < kVec; ++k) {
         const int c = c0 + lane + k * G;
-        if (c < C) dh[static_cast<size_t>(r) * HC + hd * C + c] = acc[k];
+        if (c < C && stores) {
+          dh[static_cast<size_t>(r) * HC + hd * C + c] = acc[k];
+        }
       }
     }
-    if (c0 == 0 && lane == 0) out_h[static_cast<size_t>(r) * H + hd] = dsum;
+    if (c0 == 0 && lane == 0 && stores) {
+      out_h[static_cast<size_t>(r) * H + hd] = dsum;
+    }
     if (!kSrc) break;  // the receiver side has no per-channel output
   }
 }
@@ -308,7 +366,7 @@ extern "C" int packed_gat_bwd(void* row_ptr, void* col, void* eid, void* d,
           static_cast<const float*>(s), static_cast<const float*>(h),
           static_cast<const float*>(m), static_cast<const float*>(g),
           static_cast<const int*>(seed), static_cast<float*>(out_h),
-          static_cast<float*>(dh), n_rows, H, C, thresh, scale, slope);
+          static_cast<float*>(dh), n_rows, H, C, thresh, scale, slope, 0);
     });
   }
   return static_cast<int>(cudaGetLastError());

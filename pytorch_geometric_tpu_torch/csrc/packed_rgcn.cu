@@ -58,6 +58,14 @@
 //   for a graph that has them, with a measurement.
 // - fp32 throughout, no fast-math flags.
 //
+// Ablation hooks: the backward kernel takes a bit mask kAblate of terms
+// to remove (namespace rgcn_ablate) and a run-time flag `sink`. The
+// library instantiates kAblate = 0 only; probes/packed_rgcn_ablate.cu
+// includes this file and instantiates the others, so a probe times the
+// kernel that ships. A removed load is replaced by a value loaded once per
+// row, and a removed store is kept behind `if (sink)` (sink = 0 at run
+// time), so that nvcc cannot delete the work that feeds it.
+//
 // Plain C interface, bound from Python with ctypes
 // (pytorch_geometric_tpu_torch/ops/packed_rgcn.py); each launch goes on
 // the caller's stream and the function returns cudaGetLastError().
@@ -74,6 +82,18 @@ constexpr int kWarps = kThreads / 32;
 // Basis steps of the dxB row that the backward keeps in registers.
 constexpr int kSteps = 8;
 constexpr unsigned kFull = 0xffffffffu;
+
+// Terms of the backward that an ablation removes, one bit each.
+namespace rgcn_ablate {
+constexpr unsigned kNoIndex = 1u << 0;     // col[e]: the row itself
+constexpr unsigned kNoXb = 1u << 1;        // the row's xB slice: att[b]
+constexpr unsigned kNoG = 1u << 2;         // g[col]: the row's own xB
+constexpr unsigned kNoDxbWalk = 1u << 3;   // no first walk (dxB)
+constexpr unsigned kNoDaeWalk = 1u << 4;   // no second walk (dae)
+constexpr unsigned kNoDaeStore = 1u << 5;  // dae stored only if sink
+constexpr unsigned kNoDxbStore = 1u << 6;  // dxB stored only if sink
+constexpr unsigned kNoDatt = 1u << 7;      // no datt reduction launches
+}  // namespace rgcn_ablate
 
 // Forward: warp = receiver row of the receiver-major CSR; col = sender.
 template <int CP>
@@ -115,15 +135,24 @@ rgcn_fwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
 
 // Backward: warp = sender row of the sender-major CSR; col = receiver,
 // pos = the edge's position in relation-major order. Writes dxB
-// (n_rows, B*C) and dae (E, B) in relation-major order.
-template <int CP>
+// (n_rows, B*C) and dae (E, B) in relation-major order. kAblate and sink:
+// see the header (0 and 0 in the library; kNoIndex needs every row with
+// edges to be a row of g, as a sender of a node graph is).
+template <int CP, unsigned kAblate = 0>
 __global__ void __launch_bounds__(kThreads)
 rgcn_bwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
                 const int* __restrict__ et, const float* __restrict__ w,
                 const int* __restrict__ pos, const float* __restrict__ xB,
                 const float* __restrict__ att, const float* __restrict__ g,
                 float* __restrict__ dxB, float* __restrict__ dae, int n_rows,
-                int B, int C) {
+                int B, int C, int sink) {
+  using namespace rgcn_ablate;
+  static_assert(kAblate == 0 || CP <= 16,
+                "ablations are instantiated for C <= 16 only");
+  static_assert(!(kAblate & kNoDatt),
+                "kNoDatt removes the datt launches, not a term of this walk");
+  constexpr bool kIndex = !(kAblate & kNoIndex);
+  constexpr bool kG = !(kAblate & kNoG);
   constexpr int NB = 32 / CP;
   const int row = blockIdx.x * kWarps + threadIdx.x / 32;
   if (row >= n_rows) return;
@@ -137,29 +166,41 @@ rgcn_bwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
   float* drow = dxB + static_cast<size_t>(row) * BC;
   // dxB[row]: lanes tile (basis, channel); kSteps basis steps at a time
   // stay in registers while the row's edges are walked.
-  for (int c0 = 0; c0 < C; c0 += CP) {
-    const int c = c0 + cl;
-    const bool cok = c < C;
-    for (int b0 = 0; b0 < B; b0 += NB * kSteps) {
-      float acc[kSteps];
+  if constexpr (!(kAblate & kNoDxbWalk)) {
+    const bool stores = !(kAblate & kNoDxbStore) || sink != 0;
+    for (int c0 = 0; c0 < C; c0 += CP) {
+      const int c = c0 + cl;
+      const bool cok = c < C;
+      // stand-in for g[col] (kNoG): the row's own xB value
+      float g_own = 0.f;
+      if constexpr (!kG) g_own = cok ? __ldg(xrow + c) : 0.f;
+      for (int b0 = 0; b0 < B; b0 += NB * kSteps) {
+        float acc[kSteps];
 #pragma unroll
-      for (int k = 0; k < kSteps; ++k) acc[k] = 0.f;
-      if (cok) {
-        for (int e = e0; e < e1; ++e) {
-          const float gv =
-              __ldg(w + e) *
-              __ldg(g + static_cast<size_t>(__ldg(col + e)) * C + c);
-          const float* ar = att + static_cast<size_t>(__ldg(et + e)) * B;
+        for (int k = 0; k < kSteps; ++k) acc[k] = 0.f;
+        if (cok) {
+          for (int e = e0; e < e1; ++e) {
+            // one expression, as the library's walk had it: the order of
+            // its loads is the compiled code's
+            const float gv =
+                __ldg(w + e) *
+                (kG ? __ldg(g +
+                            static_cast<size_t>(kIndex ? __ldg(col + e) : row) *
+                                C +
+                            c)
+                    : g_own);
+            const float* ar = att + static_cast<size_t>(__ldg(et + e)) * B;
+#pragma unroll
+            for (int k = 0; k < kSteps; ++k) {
+              const int b = b0 + k * NB + bl;
+              if (b < B) acc[k] += __ldg(ar + b) * gv;
+            }
+          }
 #pragma unroll
           for (int k = 0; k < kSteps; ++k) {
             const int b = b0 + k * NB + bl;
-            if (b < B) acc[k] += __ldg(ar + b) * gv;
+            if (b < B && stores) drow[static_cast<size_t>(b) * C + c] = acc[k];
           }
-        }
-#pragma unroll
-        for (int k = 0; k < kSteps; ++k) {
-          const int b = b0 + k * NB + bl;
-          if (b < B) drow[static_cast<size_t>(b) * C + c] = acc[k];
         }
       }
     }
@@ -168,25 +209,35 @@ rgcn_bwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
   // edge's B values leave in one store; every lane reads the same g
   // element at a time. Narrow C keeps the lane's slice of the row in
   // registers.
-  for (int b = lane; b < B; b += 32) {
-    const float* xb = xrow + static_cast<size_t>(b) * C;
-    float xs[CP <= 16 ? CP : 1];
-    if constexpr (CP <= 16) {
-#pragma unroll
-      for (int c = 0; c < CP; ++c) xs[c] = c < C ? __ldg(xb + c) : 0.f;
-    }
-    for (int e = e0; e < e1; ++e) {
-      const float* gr = g + static_cast<size_t>(__ldg(col + e)) * C;
-      float dot = 0.f;
+  if constexpr (!(kAblate & kNoDaeWalk)) {
+    const bool stores = !(kAblate & kNoDaeStore) || sink != 0;
+    for (int b = lane; b < B; b += 32) {
+      const float* xb = xrow + static_cast<size_t>(b) * C;
+      float xs[CP <= 16 ? CP : 1];
       if constexpr (CP <= 16) {
+        // stand-in for the row's slice (kNoXb): att[0, b] and the channel
+        const float a = (kAblate & kNoXb) ? __ldg(att + b) : 0.f;
 #pragma unroll
         for (int c = 0; c < CP; ++c) {
-          if (c < C) dot += xs[c] * __ldg(gr + c);
+          xs[c] = c < C ? ((kAblate & kNoXb) ? a + c : __ldg(xb + c)) : 0.f;
         }
-      } else {
-        for (int c = 0; c < C; ++c) dot += __ldg(xb + c) * __ldg(gr + c);
       }
-      dae[static_cast<size_t>(__ldg(pos + e)) * B + b] = __ldg(w + e) * dot;
+      for (int e = e0; e < e1; ++e) {
+        const int dst = kIndex ? __ldg(col + e) : row;
+        const float* gr = g + static_cast<size_t>(dst) * C;
+        float dot = 0.f;
+        if constexpr (CP <= 16) {
+#pragma unroll
+          for (int c = 0; c < CP; ++c) {
+            if (c < C) dot += xs[c] * (kG ? __ldg(gr + c) : xs[c]);
+          }
+        } else {
+          for (int c = 0; c < C; ++c) dot += __ldg(xb + c) * __ldg(gr + c);
+        }
+        if (stores) {
+          dae[static_cast<size_t>(__ldg(pos + e)) * B + b] = __ldg(w + e) * dot;
+        }
+      }
     }
   }
 }
@@ -304,7 +355,8 @@ extern "C" int packed_rgcn_bwd(void* row_ptr, void* col, void* et, void* w,
           static_cast<const int*>(et), static_cast<const float*>(w),
           static_cast<const int*>(pos), static_cast<const float*>(xB),
           static_cast<const float*>(att), static_cast<const float*>(g),
-          static_cast<float*>(dxB), static_cast<float*>(dae), n_rows, B, C);
+          static_cast<float*>(dxB), static_cast<float*>(dae), n_rows, B, C,
+          0);
     });
     int rc = static_cast<int>(cudaGetLastError());
     if (rc != 0) return rc;

@@ -1,0 +1,86 @@
+"""The graphs the port is run and measured on, as ``chip_smoke.py`` and
+the kernel probes under ``probes/`` build them. No data file is needed:
+the datasets synthesise the corpora's published shapes where the raw
+files are absent under the repository's ``datasets_cache*`` directories,
+and nothing is written there.
+
+- :func:`cora_graph`: Planetoid Cora, features normalised.
+- :func:`pubmed_data` / :func:`pubmed_graph`: Planetoid PubMed ->
+  ``NormalizeFeatures`` -> ``reorder_graph`` (RCM) -> ``from_data``, the
+  graph of ``examples/gat.py --dataset PubMed --backend bsr`` and of the
+  JAX package's ``tools/gat_sweep.py:build_graph`` (24,576 padded nodes).
+- :func:`mutag_data` / :func:`mutag_graph`: ``Entities("MUTAG")``;
+  ``order="as_trained"`` is the order ``train_rgcn`` trains on (the port
+  does not reorder MUTAG), ``order="rcm"`` relabels ``edge_index``, ``y``,
+  ``train_idx`` and ``test_idx`` by ``rcm_permutation`` as
+  ``tools/rgcn_sweep.py:build_graph`` does.
+"""
+
+import time
+from pathlib import Path
+
+import numpy as np
+
+from pytorch_geometric_tpu_torch.data import from_data
+from pytorch_geometric_tpu_torch.datasets.molecules import Entities
+from pytorch_geometric_tpu_torch.datasets.planetoid import Planetoid
+from pytorch_geometric_tpu_torch.transforms import NormalizeFeatures
+from pytorch_geometric_tpu_torch.utils.reorder import (
+    rcm_permutation, reorder_graph)
+
+_REPO = Path(__file__).resolve().parents[2]
+PLANETOID_ROOT = _REPO / "datasets_cache"
+MUTAG_ROOT = _REPO / "datasets_cache_fullmutag"
+ORDERS = ("rcm", "as_trained")
+
+
+def cora_graph(device="cuda"):
+    """``(dataset, graph on device)`` of Planetoid Cora, features
+    normalised."""
+    ds = Planetoid(str(PLANETOID_ROOT), "Cora",
+                   transform=NormalizeFeatures())
+    return ds, from_data(ds[0], device=device)
+
+
+def pubmed_data(name: str = "PubMed", reorder: bool = True):
+    """``(dataset, host Data, seconds the RCM relabelling took)``:
+    Planetoid ``name``, features normalised, nodes relabelled by RCM."""
+    ds = Planetoid(str(PLANETOID_ROOT), name, transform=NormalizeFeatures())
+    data = ds[0]
+    t0 = time.perf_counter()
+    if reorder:
+        data = reorder_graph(data)
+    return ds, data, time.perf_counter() - t0
+
+
+def pubmed_graph(device="cuda", reorder: bool = True, name: str = "PubMed"):
+    """``(dataset, graph on device, RCM seconds)`` of :func:`pubmed_data`."""
+    ds, data, seconds = pubmed_data(name, reorder)
+    return ds, from_data(data, device=device), seconds
+
+
+def mutag_data(order: str = "as_trained", scale: float = 1.0):
+    """``(dataset, host Data)`` of MUTAG-RDF at ``scale`` in ``order``
+    (one of :data:`ORDERS`)."""
+    if order not in ORDERS:
+        raise ValueError(f"order must be one of {ORDERS}, got {order!r}")
+    ds = Entities(str(MUTAG_ROOT), "MUTAG", scale=scale)
+    data = ds[0]
+    if order == "rcm":
+        ei = np.asarray(data.edge_index)
+        n = data.num_nodes
+        perm = rcm_permutation(ei[0], ei[1], n)
+        inv = np.empty(n, np.int64)
+        inv[perm] = np.arange(n)
+        data.edge_index = inv[ei]
+        data.y = np.asarray(data.y)[perm]
+        data.train_idx = inv[np.asarray(data.train_idx)]
+        data.test_idx = inv[np.asarray(data.test_idx)]
+    return ds, data
+
+
+def mutag_graph(device="cuda", order: str = "as_trained",
+                scale: float = 1.0):
+    """``(dataset, graph on device)`` of :func:`mutag_data`."""
+    ds, data = mutag_data(order, scale)
+    return ds, from_data(data, device=device)

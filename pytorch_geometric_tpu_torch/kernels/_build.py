@@ -7,12 +7,14 @@ into ``_build/lib<name>-<hash>.so`` inside the package (a directory that
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so <name>.cu
 
-The hash covers the source, every header of ``csrc/`` it includes
-(``#include "..."``, followed through) and the flags, so an edited source
-or header is never served by an old library. The first call to :func:`load_library` builds
-what is missing; :func:`build` starts one nvcc per source, all at once.
-Nothing here runs at import time, so the package imports where there is
-no nvcc and no card.
+The hash covers the source, every file it includes (``#include
+"..."``, followed through) and the flags, so an edited source or header
+is never served by an old library. The first call to
+:func:`load_library` builds what is missing; :func:`build` starts one
+nvcc per source, all at once. :func:`build_source` builds and loads a
+source from outside ``csrc/`` (the probes' ``.cu`` files, which include
+production sources) the same way. Nothing here runs at import time, so
+the package imports where there is no nvcc and no card.
 """
 
 import ctypes
@@ -84,11 +86,10 @@ def nvcc() -> str:
                        "to build the port's CUDA kernels")
 
 
-def source_files(name: str) -> List[Path]:
-    """``csrc/<name>.cu`` and every file of ``csrc/`` that it includes
-    with ``#include "..."``, directly or through another: what its library
-    is built from."""
-    files, todo = [], [SOURCE_DIR / f"{name}.cu"]
+def _included(source: Path) -> List[Path]:
+    """``source`` and every file it includes with ``#include "..."``,
+    directly or through another."""
+    files, todo = [], [source]
     while todo:
         path = todo.pop()
         if path in files:
@@ -99,34 +100,48 @@ def source_files(name: str) -> List[Path]:
     return files
 
 
-def library_path(name: str) -> Path:
+def _library_of(source: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in source_files(name):
+    for path in _included(source):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
-    """Compile every named source that has no current library, one nvcc
-    process per source, all started together. Returns, per name, the
+def source_files(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every file of ``csrc/`` that it includes
+    with ``#include "..."``, directly or through another: what its library
+    is built from."""
+    return _included(SOURCE_DIR / f"{name}.cu")
+
+
+def library_path(name: str) -> Path:
+    return _library_of(SOURCE_DIR / f"{name}.cu")
+
+
+def build(names: Optional[Iterable[str]] = None,
+          sources: Iterable[Path] = ()) -> Dict[str, dict]:
+    """Compile every named source of ``csrc/``, and every path of
+    ``sources``, that has no current library, one nvcc process per
+    source, all started together. Returns, per name (a path's stem), the
     seconds it took (0 if it was already built) and nvcc's report (with
     ``-Xptxas -v``: registers and shared memory of each kernel). Raises
     with nvcc's output if any build fails."""
     names = list(SIGNATURES) if names is None else list(names)
+    todo = {name: SOURCE_DIR / f"{name}.cu" for name in names}
+    todo.update((Path(src).stem, Path(src).resolve()) for src in sources)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
-    for name in names:
-        out = library_path(name)
+    for name, src in todo.items():
+        out = _library_of(src)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(SOURCE_DIR / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
-    report = {name: {"seconds": 0.0, "log": ""} for name in names}
+    report = {name: {"seconds": 0.0, "log": ""} for name in todo}
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -141,17 +156,37 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     return report
 
 
+def _load(source: Path, signatures) -> ctypes.CDLL:
+    path = _library_of(source)
+    if not path.exists():
+        build([], [source])
+    lib = ctypes.CDLL(str(path))
+    for fn, (restype, argtypes) in signatures.items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+    return lib
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use, with
     ``restype`` / ``argtypes`` declared for each entry point."""
     lib = _loaded.get(name)
     if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build([name])
-        lib = ctypes.CDLL(str(path))
-        for fn, (restype, argtypes) in SIGNATURES[name].items():
-            getattr(lib, fn).restype = restype
-            getattr(lib, fn).argtypes = argtypes
-        _loaded[name] = lib
+        lib = _loaded[name] = _load(SOURCE_DIR / f"{name}.cu",
+                                    SIGNATURES[name])
+    return lib
+
+
+def build_source(path, signatures) -> ctypes.CDLL:
+    """The loaded library of the CUDA source at ``path`` (anywhere, with
+    :data:`NVCC_FLAGS`), built if it has none for its current contents
+    and those of the files it includes, with ``signatures`` (entry point
+    -> (restype, argtypes), as in :data:`SIGNATURES`) declared. A source
+    edited since it was loaded in this process is built and loaded
+    anew."""
+    source = Path(path).resolve()
+    key = str(_library_of(source))
+    lib = _loaded.get(key)
+    if lib is None:
+        lib = _loaded[key] = _load(source, signatures)
     return lib

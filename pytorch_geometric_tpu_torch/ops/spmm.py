@@ -28,9 +28,28 @@ import functools
 import numpy as np
 import torch
 
+from pytorch_geometric_tpu_torch.debug import is_debug_enabled
 from pytorch_geometric_tpu_torch.ops.csr import (
     Csr, build_csr, host_array)
 from pytorch_geometric_tpu_torch.ops.segment import scatter
+
+
+def _check_edges(senders, receivers, x, num_nodes, weights):
+    """Debug-mode validation of :func:`spmm`'s inputs, on the host before
+    anything is gathered (the JAX package's message passing does the same
+    under its flag). Without it a negative sender gathers from the end of
+    ``x`` and an index past it fails inside the gather."""
+    s, r = host_array(senders), host_array(receivers)
+    if s.shape != r.shape or s.ndim != 1:
+        raise ValueError("senders/receivers shape mismatch: "
+                         f"{s.shape} vs {r.shape}")
+    if s.size and (s.min() < 0 or s.max() >= x.shape[0]):
+        raise ValueError(f"sender indices out of range [0, {x.shape[0]})")
+    if r.size and (r.min() < 0 or r.max() >= num_nodes):
+        raise ValueError(f"receiver indices out of range [0, {num_nodes})")
+    if weights is not None and tuple(weights.shape[:1]) != s.shape:
+        raise ValueError(f"weights has {tuple(weights.shape)[:1]} rows, "
+                         f"expected {s.shape}")
 
 
 def spmm(senders, receivers, x, num_nodes, weights=None, reduce="sum",
@@ -38,7 +57,10 @@ def spmm(senders, receivers, x, num_nodes, weights=None, reduce="sum",
     """out[r] = reduce_{e: receivers[e]==r} weights[e] * x[senders[e]].
 
     Plain path: per-edge gather then segment reduce. ``num_nodes`` is the
-    output row count (padded node count of the graph bucket)."""
+    output row count (padded node count of the graph bucket). Under
+    ``debug.debug()`` the edge indices are validated first."""
+    if is_debug_enabled():
+        _check_edges(senders, receivers, x, num_nodes, weights)
     msg = x[senders.long()]
     if weights is not None:
         msg = msg * weights.reshape(

@@ -72,8 +72,37 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "nn.conv.gat_conv", "datasets.molecules",
                  "ops.packed_rgcn", "nn.conv.rgcn_conv", "models.entities",
                  "ops.flash_gat", "ops.bsr_gat", "utils.reorder",
-                 "ops.sorted_spmm", "ops.fused_gcn"):
+                 "ops.sorted_spmm", "ops.fused_gcn", "profiling", "debug",
+                 "bounds", "datasets.graphs"):
         assert f"pytorch_geometric_tpu_torch.{name}" in report["modules"]
+    assert report["bad"] == []
+
+
+_IMPORT_PROBES = """
+import importlib, json, pathlib, sys
+names = ["probes"] + sorted("probes." + p.stem for p in
+                            pathlib.Path("probes").glob("*.py")
+                            if p.stem != "__init__")
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "flax", "optax", "pytorch_geometric_tpu",
+              "chip_smoke"))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_probes_import_no_jax_and_nothing_of_the_jax_package():
+    """Every module of ``probes/`` imports on the CPU (building and
+    launching nothing) without JAX, the JAX package or ``chip_smoke``."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_PROBES], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120, check=True)
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    for name in ("common", "gat_ablate", "rgcn_ablate", "rgcn_pipe_probe",
+                 "fused_gcn_designs"):
+        assert f"probes.{name}" in report["modules"]
     assert report["bad"] == []
 
 

@@ -9,9 +9,13 @@ CPU-side behaviour of each wrapper is covered in the other
 ``tests/test_torch_port_*.py`` files. Kernels: ``spmm_csr``, the
 packed-GAT forward and backward, the packed-RGCN forward and backward,
 the dense-mask flash-GAT forward and backward, the block-sparse GAT
-forward, row pass and column pass, the sorted segment sum, and the fused
-two-layer GCN forward and backward.
+forward, row pass and column pass, the sorted segment sum, the fused
+two-layer GCN forward and backward, and the probes' libraries
+(``probes/packed_gat_ablate.cu``, ``probes/packed_rgcn_ablate.cu``)
+against the kernels they ablate.
 """
+
+import shutil
 
 import numpy as np
 import pytest
@@ -624,3 +628,192 @@ def test_fused_gcn2_on_card_matches_cpu(cuda_device, rate):
     assert cpu[1] == (0, 0) and card[1] == (1, 1)
     for a, b in zip(card[0], cpu[0]):
         assert _rel_err(a, b) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,C", [(8, 8), (1, 7)])
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+def test_gat_ablate_full_is_the_library_and_every_mode_runs(cuda_device, H,
+                                                            C, rate):
+    """The ablation probe's ``full`` mode gives the library's
+    ``packed_gat_bwd`` bit for bit; every other mode launches once per
+    walk and gives finite outputs, with hub rows on both sides."""
+    from probes import gat_ablate as ga
+    from pytorch_geometric_tpu_torch.ops import packed_gat as pg
+
+    n = 512
+    op = pg.PackedFlashGat(*_gat_edges(n), n, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(H * 1000 + C)
+    d, s = (torch.randn(n, H, generator=gen, device=cuda_device)
+            for _ in range(2))
+    h = torch.randn(n, H * C, generator=gen, device=cuda_device)
+    g = torch.randn(n, H * C + H, generator=gen, device=cuda_device)
+    m = s.amax(0)
+    seed = torch.tensor([123457], dtype=torch.int32, device=cuda_device)
+    lib = ga.load()
+    before = ga.ablate_walk.launches
+    outs = {mode: ga.ablate_bwd(lib, op, d, s, h, m, seed, g, rate, mode)
+            for mode in ga.MODES}
+    want = pg.packed_gat_bwd(op.fwd, op.bwd, op.bwd_eid, d, s, h, m, seed, g,
+                             rate)
+    torch.cuda.synchronize()
+    assert ga.ablate_walk.launches - before == 2 * len(ga.MODES)
+    for a, b in zip(outs["full"], want):
+        assert torch.equal(a, b)
+    for mode, out in outs.items():
+        assert all(bool(torch.isfinite(t).all()) for t in out), mode
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "hub"])
+@pytest.mark.parametrize("B,C", [(30, 16), (30, 2)])
+def test_rgcn_ablate_full_is_the_library_and_every_mode_runs(cuda_device,
+                                                             case, B, C):
+    """The ablation probe's ``full`` mode gives the library's
+    ``packed_rgcn_bwd`` bit for bit; every other mode launches (the walk,
+    and the reduction unless ``nodatt``) and gives finite outputs."""
+    from probes import rgcn_ablate as ra
+    from pytorch_geometric_tpu_torch.ops import packed_rgcn as pr
+
+    n, R, rows = 600, 7, 640
+    s, r, et, w = _rgcn_edges(case, n, R)
+    op = pr.PackedRgcnSpmm(s, r, et, R, n, w, num_src_rows=rows,
+                           device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(B * 100 + C)
+    xB = torch.randn(rows, B * C, generator=gen, device=cuda_device)
+    att = torch.randn(R, B, generator=gen, device=cuda_device)
+    g = torch.randn(n, C, generator=gen, device=cuda_device)
+    lib = ra.load()
+    before = ra.ablate_bwd.launches
+    outs = {mode: ra.ablate_bwd(lib, op, xB, att, g, mode)
+            for mode in ra.MODES}
+    want = pr.packed_rgcn_bwd(op.bwd, op.bwd_et, op.bwd_w, op.bwd_pos,
+                              op.rel_ptr, xB, att, g)
+    torch.cuda.synchronize()
+    assert ra.ablate_bwd.launches - before == 3 * len(ra.MODES) - 2
+    for a, b in zip(outs["full"], want):
+        assert torch.equal(a, b)
+    for mode, out in outs.items():
+        assert all(bool(torch.isfinite(t).all()) for t in out), mode
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "hub", "dominant"])
+@pytest.mark.parametrize("B,C", [(30, 16), (30, 2), (5, 33), (8, 20)])
+def test_rgcn_prefetch_depths_equal_depth_one_on_card(cuda_device, case, B,
+                                                      C):
+    """The forward at prefetch depths 2 and 4 gives depth 1's bits, depth
+    1 is the library's ``packed_rgcn_fwd`` and within 1e-5 of the plain
+    version: hub rows, empty rows, duplicate edges, embed mode."""
+    from probes import rgcn_ablate as ra
+    from probes import rgcn_pipe_probe as rp
+    from pytorch_geometric_tpu_torch.ops import packed_rgcn as pr
+
+    n, R, rows = 600, 7, 640
+    s, r, et, w = _rgcn_edges(case, n, R)
+    op = pr.PackedRgcnSpmm(s, r, et, R, n, w, num_src_rows=rows,
+                           device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(B * 100 + C)
+    xB = torch.randn(rows, B * C, generator=gen, device=cuda_device)
+    att = torch.randn(R, B, generator=gen, device=cuda_device)
+    lib = ra.load()
+    got = {depth: rp.pipe_fwd(lib, op, xB, att, depth)
+           for depth in rp.DEPTHS}
+    want = pr.packed_rgcn_fwd(op.fwd, op.fwd_et, op.fwd_w, xB, att)
+    plain = pr.packed_rgcn_fwd_plain(op.fwd, op.fwd_et, op.fwd_w, xB, att)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want)
+    assert _rel_err(got[1], plain) <= 1e-5
+    for depth in rp.DEPTHS[1:]:
+        assert torch.equal(got[depth], got[1]), depth
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", ["gat", "rgcn_conv1", "rgcn_conv2"])
+def test_occupancy_padding_holds_modes_at_full_and_changes_no_output(
+        cuda_device, probe):
+    """With the padding that ``occupancy_padding`` finds, no mode's walk
+    fits more blocks per SM than ``full`` does unpadded, ``full`` keeps
+    its count, and the padded launch gives the unpadded one's bits."""
+    from probes import gat_ablate as ga
+    from probes import rgcn_ablate as ra
+    from probes.common import occupancy_padding
+    from pytorch_geometric_tpu_torch.ops import packed_gat as pg
+    from pytorch_geometric_tpu_torch.ops import packed_rgcn as pr
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    if probe == "gat":
+        n, H, C = 512, 8, 8
+        op = pg.PackedFlashGat(*_gat_edges(n), n, device=cuda_device)
+        d, s = (torch.randn(n, H, generator=gen, device=cuda_device)
+                for _ in range(2))
+        h = torch.randn(n, H * C, generator=gen, device=cuda_device)
+        g = torch.randn(n, H * C + H, generator=gen, device=cuda_device)
+        seed = torch.tensor([123457], dtype=torch.int32, device=cuda_device)
+        lib = ga.load()
+        for walk in (0, 1):
+            def blocks(mode, smem):
+                return ga.blocks_per_sm(lib, mode, walk, C, smem)
+            smem, target = occupancy_padding(blocks, list(ga.MODES))
+            assert blocks("full", smem) == target
+            assert all(blocks(md, smem) <= target for md in ga.MODES)
+            plain, padded = (ga.ablate_walk(lib, op, d, s, h, s.amax(0),
+                                            seed, g, 0.6, "full", walk,
+                                            smem=pad) for pad in (0, smem))
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(plain, padded))
+        return
+    B, C = (30, 16) if probe == "rgcn_conv1" else (30, 2)
+    n, R = 600, 7
+    s_, r_, et, w = _rgcn_edges("uniform", n, R)
+    op = pr.PackedRgcnSpmm(s_, r_, et, R, n, w, device=cuda_device)
+    xB = torch.randn(n, B * C, generator=gen, device=cuda_device)
+    att = torch.randn(R, B, generator=gen, device=cuda_device)
+    g = torch.randn(n, C, generator=gen, device=cuda_device)
+    lib = ra.load()
+
+    def blocks(mode, smem):
+        return ra.blocks_per_sm(lib, mode, C, smem)
+    smem, target = occupancy_padding(blocks, list(ra.MODES))
+    assert blocks("full", smem) == target
+    assert all(blocks(md, smem) <= target for md in ra.MODES)
+    plain = ra.ablate_bwd(lib, op, xB, att, g)
+    padded = ra.ablate_bwd(lib, op, xB, att, g, "full", smem=smem)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(plain, padded))
+
+
+@pytest.mark.cuda
+def test_build_source_rebuilds_when_an_included_source_changes(
+        cuda_device, tmp_path, monkeypatch):
+    """A probe library is rebuilt, under a new name, when the production
+    source it includes changes, and the new library loads and runs."""
+    from probes import rgcn_ablate as ra
+    from probes import rgcn_pipe_probe as rp
+    from pytorch_geometric_tpu_torch.kernels import _build
+    from pytorch_geometric_tpu_torch.ops import packed_rgcn as pr
+
+    (tmp_path / "probes").mkdir()
+    csrc = tmp_path / "pytorch_geometric_tpu_torch" / "csrc"
+    shutil.copytree(_build.SOURCE_DIR, csrc)
+    probe = tmp_path / "probes" / ra.SOURCE.name
+    shutil.copy(ra.SOURCE, probe)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    first = _build.build_source(probe, ra.SIGNATURES)
+    before = _build._library_of(probe)
+    with open(csrc / "packed_rgcn.cu", "a") as f:
+        f.write("// edited\n")
+    after = _build._library_of(probe)
+    second = _build.build_source(probe, ra.SIGNATURES)
+    assert before != after and before.exists() and after.exists()
+    assert second is not first
+    n, R, B, C = 600, 7, 30, 16
+    s, r, et, w = _rgcn_edges("uniform", n, R)
+    op = pr.PackedRgcnSpmm(s, r, et, R, n, w, device=cuda_device)
+    xB = torch.randn(n, B * C, device=cuda_device)
+    att = torch.randn(R, B, device=cuda_device)
+    for lib in (first, second):
+        out = rp.pipe_fwd(lib, op, xB, att, 2)
+        torch.cuda.synchronize()
+        assert torch.equal(out, pr.packed_rgcn_fwd(op.fwd, op.fwd_et,
+                                                   op.fwd_w, xB, att))

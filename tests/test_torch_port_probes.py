@@ -1,0 +1,242 @@
+"""The kernel probes under ``probes/`` on the CPU, where they cannot run
+(their kernels need the card): their graphs
+(``pytorch_geometric_tpu_torch/datasets/graphs.py``, which
+``chip_smoke.py`` builds too) against the JAX package's (bit for bit),
+their modes against the bits the CUDA sources test, their
+defaults, their build through ``kernels/_build.py:build_source``, and
+their refusal to run without a card. The card tests of the probes are in
+``tests/test_torch_port_kernels.py``."""
+
+import inspect
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from pytorch_geometric_tpu.data import Data as JData
+from pytorch_geometric_tpu.data import from_data as j_from_data
+from pytorch_geometric_tpu.datasets import Entities as JEntities
+from pytorch_geometric_tpu.transforms import (
+    NormalizeFeatures as JNormalizeFeatures)
+from pytorch_geometric_tpu.utils.reorder import (
+    rcm_permutation as j_rcm_permutation)
+from pytorch_geometric_tpu.utils.reorder import reorder_graph as j_reorder
+from pytorch_geometric_tpu_torch.datasets import Entities, Planetoid
+from pytorch_geometric_tpu_torch.datasets import graphs
+from pytorch_geometric_tpu_torch.kernels import _build
+from probes import gat_ablate, rgcn_ablate, rgcn_pipe_probe
+
+REPO = Path(__file__).resolve().parents[1]
+SCRIPTS = ["gat_ablate.py", "rgcn_ablate.py", "rgcn_pipe_probe.py",
+           "fused_gcn_designs.py"]
+
+
+def _jax_mutag_rcm(root, scale):
+    """``tools/rgcn_sweep.py:build_graph``'s relabelling, with the JAX
+    package, at ``root`` and ``scale``."""
+    data = JEntities(str(root), "MUTAG", scale=scale)[0]
+    ei = np.asarray(data.edge_index)
+    n = data.num_nodes
+    perm = j_rcm_permutation(ei[0], ei[1], n)
+    inv = np.empty(n, np.int64)
+    inv[perm] = np.arange(n)
+    data.edge_index = inv[ei]
+    data.y = np.asarray(data.y)[perm]
+    data.train_idx = inv[np.asarray(data.train_idx)]
+    data.test_idx = inv[np.asarray(data.test_idx)]
+    return data
+
+
+def test_rgcn_probe_graph_rcm_matches_the_jax_chain(tmp_path):
+    _, data = graphs.mutag_data("rcm", scale=0.01)
+    _, graph = graphs.mutag_graph("cpu", "rcm", scale=0.01)
+    want = _jax_mutag_rcm(tmp_path, 0.01)
+    for key in ("edge_index", "y", "train_idx", "test_idx"):
+        np.testing.assert_array_equal(np.asarray(data[key]),
+                                      np.asarray(want[key]), err_msg=key)
+    jg = j_from_data(want)
+    np.testing.assert_array_equal(graph.senders.numpy(),
+                                  np.asarray(jg.senders))
+    np.testing.assert_array_equal(graph.receivers.numpy(),
+                                  np.asarray(jg.receivers))
+
+
+def test_rgcn_probe_graph_as_trained_is_the_dataset_order():
+    _, data = graphs.mutag_data("as_trained", scale=0.01)
+    _, graph = graphs.mutag_graph("cpu", "as_trained", scale=0.01)
+    plain = Entities(str(graphs.MUTAG_ROOT), "MUTAG", scale=0.01)[0]
+    for key in ("edge_index", "edge_type", "y", "train_idx", "test_idx"):
+        np.testing.assert_array_equal(data[key], plain[key], err_msg=key)
+    assert graph.senders.device.type == "cpu"
+    with pytest.raises(ValueError, match="order"):
+        graphs.mutag_data("degree", scale=0.01)
+
+
+def test_gat_probe_graph_matches_the_jax_reorder_chain():
+    raw = Planetoid(str(graphs.PLANETOID_ROOT), "Cora")[0]
+    jdata = j_reorder(JNormalizeFeatures()(JData(**dict(raw()))))
+    _, data, seconds = graphs.pubmed_data("Cora")
+    assert seconds >= 0
+    assert sorted(data.keys) == sorted(jdata.keys)
+    for key in data.keys:
+        np.testing.assert_allclose(np.asarray(data[key]),
+                                   np.asarray(jdata[key]), rtol=0, atol=0,
+                                   err_msg=key)
+    _, graph, _ = graphs.pubmed_graph("cpu", name="Cora")
+    jg = j_from_data(jdata)
+    for key in ("senders", "receivers", "x"):
+        np.testing.assert_array_equal(getattr(graph, key).numpy(),
+                                      np.asarray(getattr(jg, key)),
+                                      err_msg=key)
+
+
+def _namespace_bits(source: str, namespace: str):
+    """{constant: bit} of ``constexpr unsigned kX = 1u << n;`` inside
+    ``namespace <namespace> { ... }``."""
+    body = re.search(r"namespace %s \{(.*?)\}" % namespace, source,
+                     re.S).group(1)
+    return {name: 1 << int(shift) for name, shift in re.findall(
+        r"constexpr unsigned (k\w+) = 1u << (\d+);", body)}
+
+
+@pytest.mark.parametrize("probe,csrc,probe_cu,namespace", [
+    (gat_ablate, "packed_gat.cu", "packed_gat_ablate.cu", "gat_ablate"),
+    (rgcn_ablate, "packed_rgcn.cu", "packed_rgcn_ablate.cu", "rgcn_ablate")])
+def test_each_mode_is_a_bit_that_the_source_tests(probe, csrc, probe_cu,
+                                                  namespace):
+    """``full`` is 0; every other mode is one bit of the production
+    source's mask, named alike (``nogather_s`` <-> ``kNoGatherS``), that
+    is tested outside its definition (by the kernel in the production
+    source, or by the probe's launches, as ``kNoDatt`` skips the datt
+    reduction) and that the probe source instantiates."""
+    source = (_build.SOURCE_DIR / csrc).read_text()
+    probe_source = (REPO / "probes" / probe_cu).read_text()
+    bits = _namespace_bits(source, namespace)
+    assert probe.MODES["full"] == 0
+    modes = {m: b for m, b in probe.MODES.items() if m != "full"}
+    assert sorted(modes.values()) == sorted(bits.values())
+    assert len(set(modes.values())) == len(modes)
+    for mode, bit in modes.items():
+        (name,) = [k for k, v in bits.items() if v == bit]
+        assert name[1:].lower() == mode.replace("_", ""), (mode, name)
+        uses = len(re.findall(r"\b%s\b" % name, source)) + len(
+            re.findall(r"(?<!PROBE_MODE\()\b%s\b" % name, probe_source))
+        assert uses >= 2, f"{name} is defined but never tested"
+        assert f"PROBE_MODE({name})" in probe_source
+    assert f'#include "../pytorch_geometric_tpu_torch/csrc/{csrc}"' \
+        in probe_source
+
+
+def test_the_prefetch_depth_defaults_to_one():
+    """Depth 1 is the default and the library's own forward; the deeper
+    walk lives in the probe source, and the library launches the
+    unablated backward only."""
+    params = inspect.signature(rgcn_pipe_probe.pipe_fwd).parameters
+    assert params["depth"].default == 1
+    assert rgcn_pipe_probe.DEPTHS[0] == 1
+    source = (_build.SOURCE_DIR / "packed_rgcn.cu").read_text()
+    probe_source = (REPO / "probes" / "packed_rgcn_ablate.cu").read_text()
+    assert "kDepth" not in source
+    assert "rgcn_fwd_ahead_kernel<CP, kDepth, kSlots>" in probe_source
+    assert re.search(r"if \(depth == 1\) \{\s*return packed_rgcn_fwd\(",
+                     probe_source)
+    assert "rgcn_fwd_kernel<CP><<<" in source
+    assert "rgcn_bwd_kernel<CP><<<" in source
+    with pytest.raises(ValueError, match="depth"):
+        rgcn_pipe_probe.pipe_fwd(None, None, None, None, depth=3)
+
+
+@pytest.mark.parametrize("natural,want", [
+    ({"full": 4, "nogather_g": 8, "noexp": 4}, (45 * 1024, 4)),
+    ({"full": 5, "nodxb_walk": 8, "noindex": 3}, (38 * 1024, 5)),
+    ({"full": 4, "noexp": 4}, (0, 4))])
+def test_occupancy_padding_is_the_least_that_caps_every_mode(natural, want):
+    """Against a model of an SM with 228 KB of shared memory and 1 KB
+    reserved per block: the least padding that caps every mode at
+    ``full``'s blocks, none where no mode exceeds it; a mode with fewer
+    blocks than ``full`` (more registers) keeps its count."""
+    from probes.common import occupancy_padding
+
+    def blocks(mode, smem):
+        return min(natural[mode], 228 * 1024 // (smem + 1024))
+
+    smem, target = occupancy_padding(blocks, list(natural))
+    assert (smem, target) == want
+    assert blocks("full", smem) == target
+    assert all(blocks(m, smem) == min(n, target)
+               for m, n in natural.items())
+    with pytest.raises(RuntimeError, match="no padding"):
+        occupancy_padding(lambda m, sm: 8 if m != "full" else 4,
+                          list(natural))
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_each_probe_exits_nonzero_without_a_card(script):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, str(REPO / "probes" / script)],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert "needs an NVIDIA GPU" in out.stderr
+    assert out.stdout == ""
+
+
+@pytest.mark.parametrize("probe,argv", [
+    (gat_ablate, ["--modes", "full,noonehot"]),
+    (rgcn_ablate, ["--order", "random"]),
+    (rgcn_pipe_probe, ["--depths", "1,3"])])
+def test_probes_refuse_unknown_modes_orders_and_depths(probe, argv, capsys):
+    with pytest.raises(SystemExit) as exc:
+        probe.main(argv)
+    assert exc.value.code == 2
+    assert "unknown" in capsys.readouterr().err
+
+
+def test_build_source_follows_includes_into_csrc(tmp_path, monkeypatch):
+    """A probe's library name hashes the production source it includes:
+    an edit there is never served by an old probe library."""
+    (tmp_path / "probes").mkdir()
+    csrc = tmp_path / "pytorch_geometric_tpu_torch" / "csrc"
+    shutil.copytree(_build.SOURCE_DIR, csrc)
+    for name in ("packed_gat_ablate.cu", "packed_rgcn_ablate.cu"):
+        shutil.copy(REPO / "probes" / name, tmp_path / "probes" / name)
+    monkeypatch.setattr(_build, "SOURCE_DIR", csrc)
+    gat = tmp_path / "probes" / "packed_gat_ablate.cu"
+    rgcn = tmp_path / "probes" / "packed_rgcn_ablate.cu"
+    assert [p.name for p in _build._included(gat)] == [
+        "packed_gat_ablate.cu", "packed_gat.cu"]
+    before = {p: _build._library_of(p) for p in (gat, rgcn)}
+    assert before[gat].name.startswith("libpacked_gat_ablate-")
+    assert before[gat].parent == _build.BUILD_DIR
+    with open(csrc / "packed_gat.cu", "a") as f:
+        f.write("// edited\n")
+    assert _build._library_of(gat) != before[gat]
+    assert _build._library_of(rgcn) == before[rgcn]
+    # the repo's own probe sources name their production sources alike
+    assert _build._library_of(REPO / "probes" / "packed_gat_ablate.cu") \
+        == before[gat]
+
+
+def test_fused_gcn_designs_builds_through_build_source():
+    """The design probe takes its timer from ``profiling.py`` and builds
+    through ``build_source`` (one cached library per source state, no
+    per-process copy); no probe imports ``chip_smoke``."""
+    import ast
+
+    for path in (REPO / "probes").glob("*.py"):
+        tree = ast.parse(path.read_text())
+        names = {a.name for node in ast.walk(tree)
+                 if isinstance(node, (ast.Import, ast.ImportFrom))
+                 for a in node.names}
+        mods = {node.module for node in ast.walk(tree)
+                if isinstance(node, ast.ImportFrom)}
+        assert "chip_smoke" not in names | mods, path.name
+    text = (REPO / "probes" / "fused_gcn_designs.py").read_text()
+    assert "build_source(SOURCE, SIGNATURES)" in text
+    assert "getpid" not in text
