@@ -6,10 +6,10 @@ Phases, one JSON line each:
 
 1. card      — the card's name and power limit (nvidia-smi);
 2. build     — every CUDA kernel of the port, built with nvcc from csrc/,
-               and the two probe sources probes/packed_gat_ablate.cu and
-               probes/packed_rgcn_ablate.cu (which include csrc/'s
-               packed_gat.cu and packed_rgcn.cu): one nvcc per source, all
-               started together;
+               and the three probe sources probes/packed_gat_ablate.cu,
+               probes/packed_rgcn_ablate.cu and probes/bsr_gat_designs.cu
+               (which include csrc/'s packed_gat.cu, packed_rgcn.cu and
+               bsr_gat.cu): one nvcc per source, all started together;
 3. kernel    — each kernel against its plain PyTorch version on the
                card, at the shapes the main paths give it, relative to
                the largest reference magnitude, with the kernel's, the
@@ -70,7 +70,11 @@ Phases, one JSON line each:
                to the library's backward (also at Cora and the hub
                operator) and within 1e-5 of the plain version, depths 2
                and 4 bitwise equal to depth 1 and to the library's
-               forward (the probe scripts print the timing tables);
+               forward; the first design of the block-sparse GAT forward
+               and column pass (probes/bsr_gat_designs.cu) against the
+               library's at RCM-PubMed (8, 8), dropout 0.6, within 1e-6,
+               and both within 1e-5 of the plain versions (the probe
+               scripts print the timing tables);
 4. slice     — the GCN path as a user runs it: Planetoid Cora ->
                from_data -> train_gcn(epochs=200, device="cuda"), with
                the kernel's launch count read over exactly that run,
@@ -123,7 +127,7 @@ from pytorch_geometric_tpu_torch.bounds import (
     bsr_gat_bound, flash_gat_bound, fused_gcn_bound, gat_bound, rgcn_bound,
     segment_sum_bound, spmm_bound)
 from pytorch_geometric_tpu_torch.datasets.graphs import (
-    cora_graph, mutag_graph, pubmed_graph)
+    bsr_synthetic_masks, cora_graph, mutag_graph, pubmed_graph)
 from pytorch_geometric_tpu_torch.profiling import device_ms
 
 DEVICE = "cuda"
@@ -157,14 +161,16 @@ def phase_card():
 def phase_build():
     from pytorch_geometric_tpu_torch.kernels import _build
 
-    from probes import gat_ablate, rgcn_ablate
+    from probes import bsr_gat_designs, gat_ablate, rgcn_ablate
 
     t0 = time.perf_counter()
-    report = _build.build(sources=[gat_ablate.SOURCE, rgcn_ablate.SOURCE])
+    report = _build.build(sources=[gat_ablate.SOURCE, rgcn_ablate.SOURCE,
+                                   bsr_gat_designs.SOURCE])
     for name in _build.SIGNATURES:
         _build.load_library(name)
     gat_ablate.load()
     rgcn_ablate.load()
+    bsr_gat_designs.load()
     ptxas = {name: [ln.strip() for ln in r["log"].splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, r in report.items()}
@@ -465,33 +471,6 @@ def bsr_tile_sweep(graph_name, senders, receivers, n, gen):
     return result
 
 
-def _bsr_synthetic_masks():
-    """(name, senders, receivers, n, (H, C) pairs, timed calls) of two
-    directed block-sparse masks, as entry lists (no (N, N) array):
-
-    - ``blocks16384``, above the dense operator's cap: 128 communities of
-      128 nodes, each half full, plus 16k random entries; rows 100-139
-      and columns 300-349 hold nothing;
-    - ``hub5003``, a node count that no tile divides: about four entries
-      a row and the diagonal, row 3 with ~3000 entries and column 10
-      with ~3000."""
-    import numpy as np
-
-    rng = np.random.default_rng(SEED)
-    n, size = 16384, 128
-    blk, r, c = np.nonzero(rng.random((n // size, size, size)) < 0.5)
-    rows = np.concatenate([blk * size + r, rng.integers(0, n, 16384)])
-    cols = np.concatenate([blk * size + c, rng.integers(0, n, 16384)])
-    keep = ~(((rows >= 100) & (rows < 140)) | ((cols >= 300) & (cols < 350)))
-    m = 5003
-    hub_rows = np.concatenate([np.repeat(np.arange(m), 4), np.arange(m),
-                               np.full(3000, 3), rng.integers(0, m, 3000)])
-    hub_cols = np.concatenate([rng.integers(0, m, 4 * m), np.arange(m),
-                               rng.integers(0, m, 3000), np.full(3000, 10)])
-    return (("blocks16384", cols[keep], rows[keep], n, ((8, 8),), 10),
-            ("hub5003", hub_cols, hub_rows, m, ((8, 8), (3, 5)), 50))
-
-
 def phase_kernel_bsr(cora, gen):
     """The block-sparse GAT cases of the kernel phase, and the tile
     sweep at PubMed."""
@@ -525,7 +504,8 @@ def phase_kernel_bsr(cora, gen):
         for rate in (0.0, 0.6):
             cases += check_bsr_case("pubmed_rcm", op, H, C, rate, gen)
     bsr_tile_sweep("pubmed_rcm", *edges["pubmed_rcm"], gen)
-    for name, senders, receivers, n, heads, calls in _bsr_synthetic_masks():
+    for name, senders, receivers, n, heads, calls in bsr_synthetic_masks(
+            SEED):
         op = BsrFlashGat.from_edges(senders, receivers, n, device=DEVICE)
         for H, C in heads:
             for rate in (0.0, 0.6):
@@ -977,6 +957,9 @@ def phase_probe():
             failed.append((case["kernel"], case["graph"]))
     emit({"phase": "probe", "launches": launches,
           "expected_launches": expected})
+    design = probe_bsr_designs(gen)
+    if not design["ok"]:
+        failed.append((design["kernel"], design["graph"]))
     if failed:
         raise AssertionError(f"probe cases disagree with the library or "
                              f"the plain version: {failed}")
@@ -984,6 +967,27 @@ def phase_probe():
         raise AssertionError(f"probe launches {launches}, expected "
                              f"{expected}")
     return {"launches": launches, "rows": rows}
+
+
+def probe_bsr_designs(gen, rate=0.6):
+    """The first design of the block-sparse GAT forward and column pass
+    (``probes/bsr_gat_designs.cu``) against the library's kernels at
+    RCM-PubMed (8, 8): within 1e-6 of each other and 1e-5 of the plain
+    versions (relative to the largest magnitude). The timing table is the
+    probe script's."""
+    from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
+    from probes import bsr_gat_designs as bd
+
+    mask = gat_flash_op(pubmed_graph(DEVICE)[1], "bsr").mask
+    _, errors = bd.compare(bd.load(), mask, 8, 8, rate, gen)
+    case = {"phase": "probe", "kernel": "bsr_gat_designs",
+            "graph": "pubmed_rcm", "H": 8, "C": 8, "rate": rate,
+            "errors": errors, "tol_designs": 1e-6, "tol": TOL["fp32"],
+            "ok": all(err <= (1e-6 if "_vs_shipped_" in key
+                              else TOL["fp32"])
+                      for key, err in errors.items())}
+    emit(case)
+    return case
 
 
 def phase_slice():

@@ -14,6 +14,8 @@ and nothing is written there.
   does not reorder MUTAG), ``order="rcm"`` relabels ``edge_index``, ``y``,
   ``train_idx`` and ``test_idx`` by ``rcm_permutation`` as
   ``tools/rgcn_sweep.py:build_graph`` does.
+- :func:`bsr_synthetic_masks`: two directed masks, as entry lists, on
+  which the block-sparse GAT kernels meet a block-dense mask and hub rows.
 """
 
 import time
@@ -84,3 +86,29 @@ def mutag_graph(device="cuda", order: str = "as_trained",
     """``(dataset, graph on device)`` of :func:`mutag_data`."""
     ds, data = mutag_data(order, scale)
     return ds, from_data(data, device=device)
+
+
+def bsr_synthetic_masks(seed: int = 0):
+    """(name, senders, receivers, n, (H, C) pairs, timed calls) of two
+    directed block-sparse masks, as entry lists (no (N, N) array), from
+    ``np.random.default_rng(seed)``:
+
+    - ``blocks16384``, above the dense operator's cap: 128 communities of
+      128 nodes, each half full, plus 16k random entries; rows 100-139
+      and columns 300-349 hold nothing;
+    - ``hub5003``, a node count that no tile divides: about four entries
+      a row and the diagonal, and 3000 random entries in row 3 and in
+      column 10 (about 2,240 distinct each)."""
+    rng = np.random.default_rng(seed)
+    n, size = 16384, 128
+    blk, r, c = np.nonzero(rng.random((n // size, size, size)) < 0.5)
+    rows = np.concatenate([blk * size + r, rng.integers(0, n, 16384)])
+    cols = np.concatenate([blk * size + c, rng.integers(0, n, 16384)])
+    keep = ~(((rows >= 100) & (rows < 140)) | ((cols >= 300) & (cols < 350)))
+    m = 5003
+    hub_rows = np.concatenate([np.repeat(np.arange(m), 4), np.arange(m),
+                               np.full(3000, 3), rng.integers(0, m, 3000)])
+    hub_cols = np.concatenate([rng.integers(0, m, 4 * m), np.arange(m),
+                               rng.integers(0, m, 3000), np.full(3000, 10)])
+    return (("blocks16384", cols[keep], rows[keep], n, ((8, 8),), 10),
+            ("hub5003", hub_cols, hub_rows, m, ((8, 8), (3, 5)), 50))

@@ -124,8 +124,9 @@ def build(names: Optional[Iterable[str]] = None,
     ``sources``, that has no current library, one nvcc process per
     source, all started together. Returns, per name (a path's stem), the
     seconds it took (0 if it was already built) and nvcc's report (with
-    ``-Xptxas -v``: registers and shared memory of each kernel). Raises
-    with nvcc's output if any build fails."""
+    ``-Xptxas -v``: registers and shared memory of each kernel; kept
+    beside the library, so a library built earlier reports it too).
+    Raises with nvcc's output if any build fails."""
     names = list(SIGNATURES) if names is None else list(names)
     todo = {name: SOURCE_DIR / f"{name}.cu" for name in names}
     todo.update((Path(src).stem, Path(src).resolve()) for src in sources)
@@ -141,7 +142,11 @@ def build(names: Optional[Iterable[str]] = None,
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
-    report = {name: {"seconds": 0.0, "log": ""} for name in todo}
+    report = {}
+    for name, src in todo.items():
+        log = _library_of(src).with_suffix(".log")
+        report[name] = {"seconds": 0.0,
+                        "log": log.read_text() if log.exists() else ""}
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -150,6 +155,7 @@ def build(names: Optional[Iterable[str]] = None,
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)   # atomic: a reader never sees half a file
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

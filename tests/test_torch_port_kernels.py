@@ -391,6 +391,71 @@ def _bsr_entries(case, n, seed=14):
     return rows[keep], cols[keep]
 
 
+def _bsr_long_line_entries(n, k, seed=17):
+    """``_bsr_entries("sparse", n)`` with row 3 and column 10 holding
+    exactly ``k`` entries each, every other row and column far fewer: the
+    longest row of the mask and of its transpose is ``k`` long."""
+    rows, cols = _bsr_entries("sparse", n, seed)
+    rng = np.random.default_rng(seed)
+    keep = (rows != 3) & (cols != 10)
+    senders = rng.choice(np.setdiff1d(np.arange(n), [7, 10, n - 2]), k,
+                         replace=False)
+    receivers = rng.choice(np.setdiff1d(np.arange(n), [3, 5, n - 1]), k,
+                           replace=False)
+    rows = np.concatenate([rows[keep], np.full(k, 3), receivers])
+    cols = np.concatenate([cols[keep], senders, np.full(k, 10)])
+    return rows, cols
+
+
+def _check_bsr_kernels(device, rows, cols, n, tile, H, C, rate,
+                       empty_rows=(5, -1), empty_cols=(7, -2)):
+    """The three block-sparse kernels on one mask against their plain
+    versions (1e-5 of the largest reference magnitude) and the dense-mask
+    kernels (1e-6), launches counted, zeros in the empty rows and
+    columns, two launches bitwise equal."""
+    from pytorch_geometric_tpu_torch.ops import bsr_gat as bg
+    from pytorch_geometric_tpu_torch.ops import flash_gat as fg
+
+    mask = bg.BlockMask(rows, cols, n, *tile, device=device)
+    adj = torch.zeros((n, n), dtype=torch.bool, device=device)
+    adj[torch.from_numpy(rows), torch.from_numpy(cols)] = True
+    assert not torch.equal(adj, adj.t())
+    dense = fg.BitMask(adj)
+    gen = torch.Generator(device=device).manual_seed(H * 1000 + C)
+    d, s = (torch.randn(n, H, generator=gen, device=device)
+            for _ in range(2))
+    h, g = (torch.randn(n, H * C, generator=gen, device=device)
+            for _ in range(2))
+    seed = torch.tensor([123457], dtype=torch.int32, device=device)
+    wrappers = (bg.bsr_gat_fwd, bg.bsr_gat_bwd_row, bg.bsr_gat_bwd_col)
+    before = [w.launches for w in wrappers]
+    want = bg.bsr_gat_fwd_plain(mask, d, s, h, seed, rate)
+    out, lse = want
+    want_row = bg.bsr_gat_bwd_row_plain(mask, d, s, h, lse, out, g, seed,
+                                        rate)
+    big_d = want_row[1]
+    want_col = bg.bsr_gat_bwd_col_plain(mask, d, s, h, lse, big_d, g, seed,
+                                        rate)
+    calls = ((bg.bsr_gat_fwd, (d, s, h, seed, rate)),
+             (bg.bsr_gat_bwd_row, (d, s, h, lse, out, g, seed, rate)),
+             (bg.bsr_gat_bwd_col, (d, s, h, lse, big_d, g, seed, rate)))
+    got = [fn(mask, *args) for fn, args in calls]
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 1]
+    for a, b in zip(got[0] + got[1] + got[2], want + want_row + want_col):
+        assert _rel_err(a, b) <= 1e-5
+    assert (got[0][0][list(empty_rows)] == 0).all()
+    assert (got[2][0][list(empty_cols)] == 0).all()
+    assert (got[2][1][list(empty_cols)] == 0).all()
+    flash = fg.flash_gat_fwd(dense, d, s, h, seed, rate)
+    dd, ds, dh = fg.flash_gat_bwd(dense, d, s, h, lse, out, g, seed, rate)
+    for a, b in zip(got[0] + (got[1][0],) + got[2], flash + (dd, ds, dh)):
+        assert _rel_err(a, b) <= 1e-6
+    for first, (fn, args) in zip(got, calls):
+        for a, b in zip(first, fn(mask, *args)):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case,n,tile", [
     ("sparse", 300, (1, 32)), ("sparse", 300, (8, 32)),
@@ -409,48 +474,41 @@ def test_bsr_gat_kernels_match_plain_on_card(cuda_device, case, n, tile, H,
     hub mask, none symmetric, with empty rows and columns. Two launches
     give bitwise equal results (no atomics); outputs come from
     torch.empty, so an unwritten row would show."""
-    from pytorch_geometric_tpu_torch.ops import bsr_gat as bg
-    from pytorch_geometric_tpu_torch.ops import flash_gat as fg
-
     rows, cols = _bsr_entries(case, n)
-    mask = bg.BlockMask(rows, cols, n, *tile, device=cuda_device)
-    adj = torch.zeros((n, n), dtype=torch.bool, device=cuda_device)
-    adj[torch.from_numpy(rows), torch.from_numpy(cols)] = True
-    assert not torch.equal(adj, adj.t())
-    dense = fg.BitMask(adj)
-    gen = torch.Generator(device=cuda_device).manual_seed(H * 1000 + C)
-    d, s = (torch.randn(n, H, generator=gen, device=cuda_device)
-            for _ in range(2))
-    h, g = (torch.randn(n, H * C, generator=gen, device=cuda_device)
-            for _ in range(2))
-    seed = torch.tensor([123457], dtype=torch.int32, device=cuda_device)
-    wrappers = (bg.bsr_gat_fwd, bg.bsr_gat_bwd_row, bg.bsr_gat_bwd_col)
-    before = [w.launches for w in wrappers]
-    want = bg.bsr_gat_fwd_plain(mask, d, s, h, seed, rate)
-    out, lse = want
-    want_row = bg.bsr_gat_bwd_row_plain(mask, d, s, h, lse, out, g, seed,
-                                        rate)
-    big_d = want_row[1]
-    want_col = bg.bsr_gat_bwd_col_plain(mask, d, s, h, lse, big_d, g, seed,
-                                        rate)
-    calls = ((bg.bsr_gat_fwd, (d, s, h, seed, rate)),
-             (bg.bsr_gat_bwd_row, (d, s, h, lse, out, g, seed, rate)),
-             (bg.bsr_gat_bwd_col, (d, s, h, lse, big_d, g, seed, rate)))
-    got = [fn(mask, *args) for fn, args in calls]
-    torch.cuda.synchronize()
-    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 1]
-    for a, b in zip(got[0] + got[1] + got[2], want + want_row + want_col):
-        assert _rel_err(a, b) <= 1e-5
-    assert (got[0][0][[5, n - 1]] == 0).all()
-    assert (got[2][0][[7, n - 2]] == 0).all()
-    assert (got[2][1][[7, n - 2]] == 0).all()
-    flash = fg.flash_gat_fwd(dense, d, s, h, seed, rate)
-    dd, ds, dh = fg.flash_gat_bwd(dense, d, s, h, lse, out, g, seed, rate)
-    for a, b in zip(got[0] + (got[1][0],) + got[2], flash + (dd, ds, dh)):
-        assert _rel_err(a, b) <= 1e-6
-    for first, (fn, args) in zip(got, calls):
-        for a, b in zip(first, fn(mask, *args)):
-            assert torch.equal(a, b)
+    _check_bsr_kernels(cuda_device, rows, cols, n, tile, H, C, rate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["chunk", "chunk_plus_one", "ragged_warp"])
+@pytest.mark.parametrize("tile", [(1, 32), (4, 64)])
+@pytest.mark.parametrize("H,C", [(8, 8), (1, 3), (3, 5), (2, 2)])
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+def test_bsr_gat_walk_edges_match_plain_on_card(cuda_device, case, tile, H,
+                                                C, rate):
+    """The edges of the forward's and column pass's walk, with the checks
+    of ``test_bsr_gat_kernels_match_plain_on_card``: a mask whose longest
+    row and column hold exactly one column-list chunk (the length at (H,
+    C) and N that the library exports, ``bsr_gat_chunk``), one whose
+    longest hold a chunk and one entry, and 301 rows, so that the last
+    warp's sub-warps (rows of 8 lanes at (1, 3) and (2, 2)) run past N."""
+    import ctypes
+
+    from pytorch_geometric_tpu_torch.kernels._build import load_library
+
+    n = 301
+    chunk_of = load_library("bsr_gat").bsr_gat_chunk
+    chunk_of.restype, chunk_of.argtypes = ctypes.c_int, [ctypes.c_int] * 3
+    chunk = chunk_of(H, C, n)
+    assert chunk >= 4
+    if case == "ragged_warp":
+        rows, cols = _bsr_entries("sparse", n)
+    else:
+        k = chunk + (case == "chunk_plus_one")
+        rows, cols = _bsr_long_line_entries(n, k)
+        key = np.unique(rows * n + cols)
+        assert np.bincount(key // n).max() == k
+        assert np.bincount(key % n).max() == k
+    _check_bsr_kernels(cuda_device, rows, cols, n, tile, H, C, rate)
 
 
 @pytest.mark.cuda

@@ -29,11 +29,13 @@ from pytorch_geometric_tpu.utils.reorder import reorder_graph as j_reorder
 from pytorch_geometric_tpu_torch.datasets import Entities, Planetoid
 from pytorch_geometric_tpu_torch.datasets import graphs
 from pytorch_geometric_tpu_torch.kernels import _build
-from probes import gat_ablate, rgcn_ablate, rgcn_pipe_probe
+from probes import (bsr_gat_designs, bsr_gat_variants, gat_ablate,
+                    rgcn_ablate, rgcn_pipe_probe)
 
 REPO = Path(__file__).resolve().parents[1]
 SCRIPTS = ["gat_ablate.py", "rgcn_ablate.py", "rgcn_pipe_probe.py",
-           "fused_gcn_designs.py"]
+           "fused_gcn_designs.py", "bsr_gat_designs.py",
+           "bsr_gat_variants.py"]
 
 
 def _jax_mutag_rcm(root, scale):
@@ -190,7 +192,8 @@ def test_each_probe_exits_nonzero_without_a_card(script):
 @pytest.mark.parametrize("probe,argv", [
     (gat_ablate, ["--modes", "full,noonehot"]),
     (rgcn_ablate, ["--order", "random"]),
-    (rgcn_pipe_probe, ["--depths", "1,3"])])
+    (rgcn_pipe_probe, ["--depths", "1,3"]),
+    (bsr_gat_variants, ["--variants", "rows4,rows8"])])
 def test_probes_refuse_unknown_modes_orders_and_depths(probe, argv, capsys):
     with pytest.raises(SystemExit) as exc:
         probe.main(argv)
@@ -240,3 +243,77 @@ def test_fused_gcn_designs_builds_through_build_source():
     text = (REPO / "probes" / "fused_gcn_designs.py").read_text()
     assert "build_source(SOURCE, SIGNATURES)" in text
     assert "getpid" not in text
+
+
+def test_bsr_gat_designs_times_the_library_beside_its_first_design():
+    """The design probe includes the production source (so the shipped
+    design is the library's own code, and the staged variant runs the
+    library's row function) and keeps the first design in its own
+    namespace, launched with the library's signatures; its library name
+    hashes ``csrc/bsr_gat.cu`` and ``gat_mask.cuh``, and its cases cover
+    the graphs and widths the main path and the slow spots use."""
+    source = bsr_gat_designs.SOURCE.read_text()
+    assert '#include "../pytorch_geometric_tpu_torch/csrc/bsr_gat.cu"' \
+        in source
+    assert "namespace first_design {" in source
+    for kernel in ("bsr_fwd_kernel<KC>", "bsr_bwd_col_kernel<KC>"):
+        assert f"first_design::{kernel}" in source
+    assert [p.name for p in _build._included(bsr_gat_designs.SOURCE)] == [
+        "bsr_gat_designs.cu", "bsr_gat.cu", "gat_mask.cuh"]
+    sig = _build.SIGNATURES["bsr_gat"]
+    assert bsr_gat_designs.SIGNATURES["first_bsr_gat_fwd"] \
+        == sig["bsr_gat_fwd"]
+    assert bsr_gat_designs.SIGNATURES["first_bsr_gat_bwd_col"] \
+        == sig["bsr_gat_bwd_col"]
+    assert bsr_gat_designs.SIGNATURES["staged_bsr_gat_fwd"] \
+        == sig["bsr_gat_fwd"]
+    assert "fwd_row<L, V>(src, i, a," in source
+    assert ("pubmed_rcm", 8, 8, 0.6) in bsr_gat_designs.CASES
+    assert {c[0] for c in bsr_gat_designs.CASES} == {
+        "pubmed_rcm", "cora", "hub5003", "blocks16384"}
+
+
+def test_bsr_synthetic_masks_hold_their_hub_lines_and_empty_lines():
+    """The masks the bsr kernel cases and the design probe share: the
+    block-dense one above the dense operator's cap with its empty rows and
+    columns, the hub one with a row and a column of over 2,000 distinct
+    entries."""
+    (dense, s, r, n, heads, _), (hub, hs, hr, m, hub_heads, _) = \
+        graphs.bsr_synthetic_masks(0)
+    assert (dense, n, heads) == ("blocks16384", 16384, ((8, 8),))
+    assert not np.isin(r, np.arange(100, 140)).any()
+    assert not np.isin(s, np.arange(300, 350)).any()
+    assert len(np.unique(r * n + s)) > 1_000_000
+    assert (hub, m) == ("hub5003", 5003) and (3, 5) in hub_heads
+    key = np.unique(hr * m + hs)
+    assert np.bincount(key // m).argmax() == 3
+    assert np.bincount(key % m).argmax() == 10
+    assert min(np.bincount(key // m).max(),
+               np.bincount(key % m).max()) > 2000
+    assert all(np.array_equal(a, b) for a, b in zip(
+        graphs.bsr_synthetic_masks(0)[1][1:3], (hs, hr)))
+
+
+@pytest.mark.parametrize("variant", sorted(bsr_gat_variants.VARIANTS))
+def test_each_bsr_variant_edits_the_source_once(variant):
+    """Every variant of ``probes/bsr_gat_variants.py`` undoes one choice
+    of the current ``csrc/bsr_gat.cu``: its anchors occur exactly once
+    there, and the edit changes the source."""
+    _, edits = bsr_gat_variants.VARIANTS[variant]
+    source = bsr_gat_variants.LIBRARY.read_text()
+    assert bsr_gat_variants.variant_source(edits) != source
+
+
+def test_bsr_phase_clocks_mark_every_phase_of_both_kernels():
+    """The phase clocks' edits apply to the current source: five reads in
+    the forward's row function and five in the fused column pass, and the
+    entry point that copies them out."""
+    source = bsr_gat_variants.variant_source(
+        bsr_gat_variants._PHASES + [bsr_gat_variants._CLOCK_READ],
+        bsr_gat_variants._CLOCK_HEAD)
+    for k in range(5):
+        assert source.count(f"CLOCK(i, {k},") == 1
+        assert source.count(f"CLOCK(j, {k},") == 1
+    assert 'extern "C" int bsr_clock_read(' in source
+    with pytest.raises(ValueError, match="anchor"):
+        bsr_gat_variants.variant_source([("no such text", "")])
