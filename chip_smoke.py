@@ -6,10 +6,11 @@ Phases, one JSON line each:
 
 1. card      — the card's name and power limit (nvidia-smi);
 2. build     — every CUDA kernel of the port, built with nvcc from csrc/,
-               and the three probe sources probes/packed_gat_ablate.cu,
-               probes/packed_rgcn_ablate.cu and probes/bsr_gat_designs.cu
-               (which include csrc/'s packed_gat.cu, packed_rgcn.cu and
-               bsr_gat.cu): one nvcc per source, all started together;
+               and the four probe sources probes/packed_gat_ablate.cu,
+               probes/packed_gat_designs.cu, probes/packed_rgcn_ablate.cu
+               and probes/bsr_gat_designs.cu (which include csrc/'s
+               packed_gat.cu, packed_rgcn.cu and bsr_gat.cu): one nvcc per
+               source, all started together;
 3. kernel    — each kernel against its plain PyTorch version on the
                card, at the shapes the main paths give it, relative to
                the largest reference magnitude, with the kernel's, the
@@ -22,8 +23,12 @@ Phases, one JSON line each:
                  directions, fp32 x (1e-5) and bf16 x (1e-2);
                - the packed-GAT forward (raw num‖den) and backward
                  (dd, ds, dh) at Cora with conv1's (H, C) = (8, 8) and
-                 conv2's (1, 7), and at PubMed's shapes with (8, 8),
-                 attention dropout 0 and 0.6, fp32 (1e-5);
+                 conv2's (1, 7), at PubMed's shapes with (8, 8), and at a
+                 graph with a receiver of 500 senders and a sender of 400
+                 receivers with (8, 8), (1, 7) and (3, 5) (the backward's
+                 three dispatch branches: float4 and one-float lane maps,
+                 and the first design), attention dropout 0 and 0.6, fp32
+                 (1e-5); two launches bitwise equal;
                - the packed-RGCN forward and backward (dxB, datt) at the
                  two operators of the MUTAG-RDF slice (synthetic graph at
                  the published size: 24576 padded nodes, 141864 edges, 46
@@ -72,9 +77,12 @@ Phases, one JSON line each:
                and 4 bitwise equal to depth 1 and to the library's
                forward; the first design of the block-sparse GAT forward
                and column pass (probes/bsr_gat_designs.cu) against the
-               library's at RCM-PubMed (8, 8), dropout 0.6, within 1e-6,
-               and both within 1e-5 of the plain versions (the probe
-               scripts print the timing tables);
+               library's at RCM-PubMed (8, 8), dropout 0.6, within 1e-6
+               (the row pass's D bitwise), and both within 1e-5 of the
+               plain versions; the same for
+               the first design of the bsr row pass and of the packed-GAT
+               backward (probes/packed_gat_designs.cu; Cora (8, 8),
+               dropout 0.6); the probe scripts print the timing tables;
 4. slice     — the GCN path as a user runs it: Planetoid Cora ->
                from_data -> train_gcn(epochs=200, device="cuda"), with
                the kernel's launch count read over exactly that run,
@@ -127,7 +135,8 @@ from pytorch_geometric_tpu_torch.bounds import (
     bsr_gat_bound, flash_gat_bound, fused_gcn_bound, gat_bound, rgcn_bound,
     segment_sum_bound, spmm_bound)
 from pytorch_geometric_tpu_torch.datasets.graphs import (
-    bsr_synthetic_masks, cora_graph, mutag_graph, pubmed_graph)
+    bsr_synthetic_masks, cora_graph, gat_hub_edges, mutag_graph,
+    pubmed_graph)
 from pytorch_geometric_tpu_torch.profiling import device_ms
 
 DEVICE = "cuda"
@@ -161,16 +170,16 @@ def phase_card():
 def phase_build():
     from pytorch_geometric_tpu_torch.kernels import _build
 
-    from probes import bsr_gat_designs, gat_ablate, rgcn_ablate
+    from probes import (bsr_gat_designs, gat_ablate, packed_gat_designs,
+                        rgcn_ablate)
 
+    probes = (gat_ablate, packed_gat_designs, rgcn_ablate, bsr_gat_designs)
     t0 = time.perf_counter()
-    report = _build.build(sources=[gat_ablate.SOURCE, rgcn_ablate.SOURCE,
-                                   bsr_gat_designs.SOURCE])
+    report = _build.build(sources=[probe.SOURCE for probe in probes])
     for name in _build.SIGNATURES:
         _build.load_library(name)
-    gat_ablate.load()
-    rgcn_ablate.load()
-    bsr_gat_designs.load()
+    for probe in probes:
+        probe.load()
     ptxas = {name: [ln.strip() for ln in r["log"].splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, r in report.items()}
@@ -239,7 +248,7 @@ def _max_rel_err(got, want):
 def check_gat_case(graph_name, op, H, C, rate, gen):
     """The packed-GAT forward and backward kernels against their plain
     versions on random node inputs at one (H, C) and dropout rate: one
-    line per kernel."""
+    line per kernel. A second launch must repeat the first bit for bit."""
     from pytorch_geometric_tpu_torch.ops import packed_gat as pg
 
     n = op.n
@@ -261,17 +270,21 @@ def check_gat_case(graph_name, op, H, C, rate, gen):
              fwd_args, fwd_args, False),
             ("packed_gat_bwd", pg.packed_gat_bwd, pg.packed_gat_bwd_plain,
              bwd_args, bwd_plain_args, True)):
-        got, want = kernel(*args), plain(*plain_args)
+        got, again = kernel(*args), kernel(*args)
+        want = plain(*plain_args)
         torch.cuda.synchronize()
-        got, want = ((got,), (want,)) if not backward else (got, want)
+        if not backward:
+            got, again, want = (got,), (again,), (want,)
         abs_err, rel_err = _max_rel_err(got, want)
+        repeats = all(torch.equal(a, b) for a, b in zip(got, again))
         bound_ms, bound_by = gat_bound(op, H, C, backward)
         case = {"phase": "kernel", "kernel": name, "graph": graph_name,
                 "H": H, "C": C, "rate": rate, "rows": n, "edges": op.E,
                 "longest_row": int(rows.max()),
                 "launches_per_call": 2 if backward else 1,
                 "max_abs_err": abs_err, "rel_err": rel_err,
-                "tol": TOL["fp32"], "ok": rel_err <= TOL["fp32"],
+                "tol": TOL["fp32"], "bitwise_repeat": repeats,
+                "ok": rel_err <= TOL["fp32"] and repeats,
                 "kernel_ms": device_ms(lambda: kernel(*args)),
                 "plain_ms": device_ms(lambda: plain(*plain_args)),
                 # no single PyTorch call computes a GAT layer
@@ -763,6 +776,7 @@ def phase_kernel():
     from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
     from pytorch_geometric_tpu_torch.models.entities import rgcn_fused_ops
     from pytorch_geometric_tpu_torch.ops.flash_gat import FlashGatOperator
+    from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
     from pytorch_geometric_tpu_torch.transforms import NormalizeFeatures
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -777,9 +791,11 @@ def phase_kernel():
                 for dtype_name in ("fp32", "bf16"):
                     cases.append(check_case(graph_name, csr, val, direction,
                                             f, dtype_name, gen))
-    for graph_name, graph, heads in (("cora", cora, ((8, 8), (1, 7))),
-                                     ("pubmed", pubmed, ((8, 8),))):
-        op = gat_flash_op(graph)
+    hub = PackedFlashGat(*gat_hub_edges(), 512, device=DEVICE)
+    for graph_name, op, heads in (
+            ("cora", gat_flash_op(cora), ((8, 8), (1, 7))),
+            ("pubmed", gat_flash_op(pubmed), ((8, 8),)),
+            ("hub", hub, ((8, 8), (1, 7), (3, 5)))):
         for H, C in heads:
             for rate in (0.0, 0.6):
                 cases += check_gat_case(graph_name, op, H, C, rate, gen)
@@ -957,9 +973,9 @@ def phase_probe():
             failed.append((case["kernel"], case["graph"]))
     emit({"phase": "probe", "launches": launches,
           "expected_launches": expected})
-    design = probe_bsr_designs(gen)
-    if not design["ok"]:
-        failed.append((design["kernel"], design["graph"]))
+    for design in (probe_bsr_designs(gen), probe_packed_designs(gen)):
+        if not design["ok"]:
+            failed.append((design["kernel"], design["graph"]))
     if failed:
         raise AssertionError(f"probe cases disagree with the library or "
                              f"the plain version: {failed}")
@@ -970,11 +986,12 @@ def phase_probe():
 
 
 def probe_bsr_designs(gen, rate=0.6):
-    """The first design of the block-sparse GAT forward and column pass
-    (``probes/bsr_gat_designs.cu``) against the library's kernels at
-    RCM-PubMed (8, 8): within 1e-6 of each other and 1e-5 of the plain
-    versions (relative to the largest magnitude). The timing table is the
-    probe script's."""
+    """The first design of the block-sparse GAT forward, row pass and
+    column pass (``probes/bsr_gat_designs.cu``) against the library's
+    kernels at RCM-PubMed (8, 8): within 1e-6 of each other, the row
+    pass's D (summed in one order by both) bitwise, and within 1e-5 of the
+    plain versions (relative to the largest magnitude). The timing table
+    is the probe script's."""
     from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
     from probes import bsr_gat_designs as bd
 
@@ -983,7 +1000,28 @@ def probe_bsr_designs(gen, rate=0.6):
     case = {"phase": "probe", "kernel": "bsr_gat_designs",
             "graph": "pubmed_rcm", "H": 8, "C": 8, "rate": rate,
             "errors": errors, "tol_designs": 1e-6, "tol": TOL["fp32"],
-            "ok": all(err <= (1e-6 if "_vs_shipped_" in key
+            "ok": errors["first_vs_shipped_D"] == 0 and all(
+                err <= (1e-6 if "_vs_shipped_" in key else TOL["fp32"])
+                for key, err in errors.items())}
+    emit(case)
+    return case
+
+
+def probe_packed_designs(gen, rate=0.6):
+    """The first design of the packed-GAT backward
+    (``probes/packed_gat_designs.cu``) against the library's at Cora
+    (8, 8), the main path's call: within 1e-6 of each other (the two sum
+    a row's edges in other orders) and 1e-5 of the plain version. The
+    timing table is the probe script's."""
+    from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
+    from probes import packed_gat_designs as pd
+
+    op = gat_flash_op(cora_graph(DEVICE)[1])
+    _, errors = pd.compare(pd.load(), op, 8, 8, rate, gen)
+    case = {"phase": "probe", "kernel": "packed_gat_designs",
+            "graph": "cora", "H": 8, "C": 8, "rate": rate,
+            "errors": errors, "tol_designs": 1e-6, "tol": TOL["fp32"],
+            "ok": all(err <= (1e-6 if key == "first_vs_shipped"
                               else TOL["fp32"])
                       for key, err in errors.items())}
     emit(case)

@@ -1,17 +1,21 @@
-// Design probe of the block-sparse GAT forward and column pass
+// Design probe of the block-sparse GAT forward, row pass and column pass
 // (pytorch_geometric_tpu_torch/csrc/bsr_gat.cu), built and timed by
 // probes/bsr_gat_designs.py. Not part of the port.
 //
-// The production source is included (its forward and column pass: one
-// sub-warp per row over all heads, the row's mask decoded once into a
-// column list in shared memory, whole-row gathers), and beside it, in
-// namespace first_design, the file's first design of the same two
-// kernels, copied as it was: a group of 8 lanes per (row, head) pair that
-// walks its strip's words itself (walk_strip_row), online softmax per
-// lane, scalar gathers of the head's channels. first_bsr_gat_fwd and
-// first_bsr_gat_bwd_col launch it with the library's signatures, so one
-// run times both designs on the same inputs, and nvcc's -Xptxas -v report
-// of this source gives the registers and spills of both.
+// The production source is included (its three kernels: one sub-warp per
+// row over all heads, the row's mask decoded once into a column list in
+// shared memory, whole-row gathers), and beside it the file's first
+// design of the same kernels: a group of 8 lanes per (row, head) pair
+// that walks its strip's words itself (walk_strip_row), online softmax
+// per lane, scalar gathers of the head's channels. The forward and the
+// column pass of that design are copied here as they were, in namespace
+// first_design; its row pass is the library's own
+// bsr_bwd_row_heads_kernel, which the library keeps for one head and for
+// the widths its lane map does not cover. first_bsr_gat_fwd,
+// first_bsr_gat_bwd_row and first_bsr_gat_bwd_col launch the first design
+// at every width with the library's signatures, so one run times both
+// designs on the same inputs, and nvcc's -Xptxas -v report of this source
+// gives the registers and spills of both.
 //
 // staged_bsr_gat_fwd is the library's forward (its fwd_row) on a
 // persistent grid that copies the next tile of rows' mask into shared
@@ -336,6 +340,25 @@ extern "C" int first_bsr_gat_fwd(void* strip_ptr, void* block_col,
           static_cast<float*>(out), static_cast<float*>(lse), n, H, C,
           thresh, scale, slope);
     });
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Row pass of the first design: bsr_gat_bwd_row's arguments. The library
+// keeps it for the widths its redesigned row pass does not take; here it
+// runs at every width.
+extern "C" int first_bsr_gat_bwd_row(void* strip_ptr, void* block_col,
+                                     void* words, void* d, void* s, void* h,
+                                     void* lse, void* out, void* g,
+                                     void* seed, void* dd, void* D, int n,
+                                     int ti, int wj, int H, int C,
+                                     unsigned thresh, float scale,
+                                     float slope, void* stream) {
+  if (n > 0 && H > 0 && C > 0) {
+    return launch_row_heads(strips_of(strip_ptr, block_col, words, ti, wj),
+                            d, s, h, lse, out, g, seed, dd, D, n, H, C,
+                            thresh, scale, slope,
+                            static_cast<cudaStream_t>(stream));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,11 @@
-"""Design probe of the block-sparse GAT forward and column pass, on one
-NVIDIA GPU.
+"""Design probe of the block-sparse GAT forward, row pass and column
+pass, on one NVIDIA GPU.
 
     python3 probes/bsr_gat_designs.py [--calls 50]
 
-Times the two designs of ``bsr_gat_fwd`` and ``bsr_gat_bwd_col``
-(``pytorch_geometric_tpu_torch/csrc/bsr_gat.cu``) on the same inputs in
-one run:
+Times the two designs of ``bsr_gat_fwd``, ``bsr_gat_bwd_row`` and
+``bsr_gat_bwd_col`` (``pytorch_geometric_tpu_torch/csrc/bsr_gat.cu``) on
+the same inputs in one run:
 
 - ``first``: the file's first design, a group of 8 lanes per (row, head)
   pair walking its strip's mask words itself, kept verbatim in
@@ -22,8 +22,8 @@ rows, ~113.2k entries) at (H, C) = (8, 8) and (1, 3), attention dropout 0
 and 0.6; Cora at (8, 8) and (1, 7), dropout 0.6; the hub mask
 ``hub5003`` and the block-dense ``blocks16384``
 (``datasets/graphs.py:bsr_synthetic_masks``) at (8, 8), dropout 0.6; the
-default tile (1, 32). The backward's inputs (``lse``, ``D``) come from
-the plain versions (``ops/bsr_gat.py``).
+default tile (1, 32). The backward's inputs (``lse``, ``out``, ``D``)
+come from the plain versions (``ops/bsr_gat.py``).
 
 Prints one JSON line with the build (nvcc's ``-Xptxas -v`` report: each
 kernel's registers and spills, both designs), then one per case: device
@@ -32,8 +32,9 @@ CUDA-graph timings of ``--calls`` calls, and their spread,
 ``probes/common.py:timings``), the bound (``bounds.py:bsr_gat_bound``),
 the largest error of each design against the plain versions and of the
 first design against the shipped one (relative to the largest
-magnitude), and the card's name and power limit. Exits non-zero without a
-card.
+magnitude; ``first_vs_shipped_D``: the row pass's D alone, which both
+designs sum in one order), and the card's name and power limit. Exits
+non-zero without a card.
 """
 
 import argparse
@@ -54,6 +55,7 @@ SOURCE = REPO / "probes" / "bsr_gat_designs.cu"
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 SIGNATURES = {
     "first_bsr_gat_fwd": (_I, [_P] * 9 + [_I] * 5 + [_U, _F, _F, _P]),
+    "first_bsr_gat_bwd_row": (_I, [_P] * 12 + [_I] * 5 + [_U, _F, _F, _P]),
     "staged_bsr_gat_fwd": (_I, [_P] * 9 + [_I] * 5 + [_U, _F, _F, _P]),
     "first_bsr_gat_bwd_col": (_I, [_P] * 12 + [_I] * 5 + [_U, _F, _F, _P]),
 }
@@ -74,8 +76,12 @@ def load():
     return build_source(SOURCE, SIGNATURES)
 
 
+#: The kernels of a design, by the suffix of their entry points.
+KERNELS = ("fwd", "bwd_row", "bwd_col")
+
+
 def _entry(lib, design, kernel):
-    """The C entry point of ``kernel`` ("fwd" or "bwd_col") of a design:
+    """The C entry point of ``kernel`` (of ``KERNELS``) of a design:
     the probe's first or staged design, or the port's library."""
     from pytorch_geometric_tpu_torch.kernels._build import load_library
 
@@ -106,6 +112,18 @@ def fwd(lib, design, mask, d, s, h, seed, rate, slope=0.2, outs=None):
     return out, lse
 
 
+def bwd_row(lib, design, mask, d, s, h, lse, out, g, seed, rate,
+            slope=0.2, outs=None):
+    """``(dd, D)`` of one design's row pass, into ``outs``."""
+    H = d.shape[1]
+    dd, big_d = outs if outs is not None else (
+        torch.empty_like(d), torch.empty_like(d))
+    _call(_entry(lib, design, "bwd_row"), mask.row, mask,
+          (d, s, h, lse, out, g, seed, dd, big_d), H, h.shape[1] // H, rate,
+          slope)
+    return dd, big_d
+
+
 def bwd_col(lib, design, mask, d, s, h, lse, big_d, g, seed, rate,
             slope=0.2, outs=None):
     """``(ds, dh)`` of one design's column pass, into ``outs``."""
@@ -124,7 +142,7 @@ def _rel(got, want):
 
 
 def compare(lib, mask, H, C, rate, gen):
-    """Both designs' forward and column pass on random inputs at (H, C),
+    """Both designs' three kernels on random inputs at (H, C),
     against the plain versions and each other: ``(inputs, errors)``,
     errors relative to the largest reference magnitude."""
     from pytorch_geometric_tpu_torch.ops import bsr_gat as bg
@@ -135,37 +153,43 @@ def compare(lib, mask, H, C, rate, gen):
     h, g = (torch.randn(n, H * C, generator=gen, device="cuda")
             for _ in range(2))
     seed = torch.tensor([GAT_SEED], dtype=torch.int32, device="cuda")
-    plain_f = bg.bsr_gat_fwd_plain(mask, d, s, h, seed, rate)
-    lse = plain_f[1]
-    _, big_d = bg.bsr_gat_bwd_row_plain(mask, d, s, h, lse, plain_f[0], g,
-                                        seed, rate)
-    plain_c = bg.bsr_gat_bwd_col_plain(mask, d, s, h, lse, big_d, g, seed,
-                                       rate)
+    plain = {"fwd": bg.bsr_gat_fwd_plain(mask, d, s, h, seed, rate)}
+    out, lse = plain["fwd"]
+    plain["bwd_row"] = bg.bsr_gat_bwd_row_plain(mask, d, s, h, lse, out, g,
+                                                seed, rate)
+    big_d = plain["bwd_row"][1]
+    plain["bwd_col"] = bg.bsr_gat_bwd_col_plain(mask, d, s, h, lse, big_d,
+                                                g, seed, rate)
+    inputs = (d, s, h, lse, out, big_d, g, seed)
     got = {(design, kernel): call()
-           for design, kernel, call in _calls(
-               lib, mask, (d, s, h, lse, big_d, g, seed), rate)}
+           for design, kernel, call in _calls(lib, mask, inputs, rate)}
     torch.cuda.synchronize()
     errors = {}
-    for (design, kernel), out in got.items():
-        want = plain_f if kernel == "fwd" else plain_c
-        errors[f"{design}_{kernel}_vs_plain"] = _rel(out, want)
+    for (design, kernel), res in got.items():
+        errors[f"{design}_{kernel}_vs_plain"] = _rel(res, plain[kernel])
         if design != "shipped":
             errors[f"{design}_vs_shipped_{kernel}"] = _rel(
-                out, got["shipped", kernel])
-    return (d, s, h, lse, big_d, g, seed), errors
+                res, got["shipped", kernel])
+    # D alone: both designs sum it in one order
+    errors["first_vs_shipped_D"] = _rel((got["first", "bwd_row"][1],),
+                                        (got["shipped", "bwd_row"][1],))
+    return inputs, errors
 
 
 def _calls(lib, mask, inputs, rate, outs=None):
-    """(design, kernel, call) of every design's forward and column pass
-    (the staged design has a forward only) on ``inputs``; with ``outs``
-    ({(design, kernel): outputs}) each call writes into its outputs."""
-    d, s, h, lse, big_d, g, seed = inputs
+    """(design, kernel, call) of every design's three kernels (the staged
+    design has a forward only) on ``inputs``; with ``outs`` ({(design,
+    kernel): outputs}) each call writes into its outputs."""
+    d, s, h, lse, out, big_d, g, seed = inputs
     outs = outs or {}
     for design in DESIGNS:
         yield design, "fwd", lambda design=design: fwd(
             lib, design, mask, d, s, h, seed, rate,
             outs=outs.get((design, "fwd")))
         if design != "staged":
+            yield design, "bwd_row", lambda design=design: bwd_row(
+                lib, design, mask, d, s, h, lse, out, g, seed, rate,
+                outs=outs.get((design, "bwd_row")))
             yield design, "bwd_col", lambda design=design: bwd_col(
                 lib, design, mask, d, s, h, lse, big_d, g, seed, rate,
                 outs=outs.get((design, "bwd_col")))
@@ -213,7 +237,7 @@ def main(argv=None):
             for design, kernel, call in _calls(lib, mask, inputs, rate,
                                                outs):
                 line[f"{design}_{kernel}"] = timings(call, args.calls)
-            for kernel in ("fwd", "bwd_col"):
+            for kernel in KERNELS:
                 line[f"{kernel}_bound_ms"], line["bound_by"] = bsr_gat_bound(
                     mask.n, mask.num_entries, H, C, kernel)
             emit({**line, "calls": args.calls, "card": smi})

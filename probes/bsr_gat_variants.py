@@ -1,5 +1,5 @@
-"""Variants of the block-sparse GAT forward and column pass, and the
-phases of a row, on one NVIDIA GPU.
+"""Variants of the block-sparse GAT kernels, and the phases of a row, on
+one NVIDIA GPU.
 
     python3 probes/bsr_gat_variants.py [--calls 50] [--variants a,b]
 
@@ -9,10 +9,10 @@ built through ``kernels/_build.py:build_source`` from a copy under the
 git-ignored ``pytorch_geometric_tpu_torch/_build/variants/``; each is
 timed beside the shipped library and the first design
 (``probes/bsr_gat_designs.py``) on the design probe's cases. One JSON line
-per case: warm device µs of each forward and column pass (median of three
-CUDA-graph timings of ``--calls`` calls), each variant's largest error
-against the plain versions, and the card's name and power limit; first,
-one line per variant with nvcc's register report.
+per case: warm device µs of each forward, row pass and column pass
+(median of three CUDA-graph timings of ``--calls`` calls), each variant's
+largest error against the plain versions, and the card's name and power
+limit; first, one line per variant with nvcc's register report.
 
 Then (``phases``) the shipped forward and column pass with ``clock64``
 read at the phases of every row (its start, after the strip pointers,
@@ -35,6 +35,7 @@ REPO = Path(__file__).resolve().parents[1]
 if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
 
+from probes import common  # noqa: E402
 from probes.common import card, emit, require_card, timings  # noqa: E402
 
 LIBRARY = REPO / "pytorch_geometric_tpu_torch" / "csrc" / "bsr_gat.cu"
@@ -61,6 +62,9 @@ VARIANTS = {
         "chunks of 8 (entry, head) pairs a lane, not 16",
         [("constexpr int kPairsPerLane = 16;",
           "constexpr int kPairsPerLane = 8;")]),
+    "row_rows4": (
+        "four sender rows a lane of the row pass in flight, not two",
+        [("constexpr int kRowRows = 2;", "constexpr int kRowRows = 4;")]),
     "lanes_from_8": (
         "at least 8 lanes a row",
         [("int lanes_per_row(int H, int C, int V, int n) {\n  int L = 4;",
@@ -137,14 +141,7 @@ _P = ctypes.c_void_p
 
 def variant_source(edits, head=""):
     """bsr_gat.cu with ``edits`` made; each text must occur once."""
-    text = LIBRARY.read_text()
-    for old, new in edits:
-        if text.count(old) != 1:
-            raise ValueError(f"variant anchor found {text.count(old)} "
-                             f"times: {old[:60]!r}")
-        text = text.replace(old, new)
-    return text.replace('#include "gat_mask.cuh"\n',
-                        '#include "gat_mask.cuh"\n' + head, 1)
+    return common.variant_source(LIBRARY, edits, head)
 
 
 def build_variants(variants):
@@ -153,22 +150,8 @@ def build_variants(variants):
     copy, one nvcc per copy, all started together."""
     from pytorch_geometric_tpu_torch.kernels import _build
 
-    out = _build.BUILD_DIR / "variants"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "gat_mask.cuh").write_text(
-        (_build.SOURCE_DIR / "gat_mask.cuh").read_text())
-    sources = {}
-    for name, (edits, _, head) in variants.items():
-        sources[name] = out / f"bsr_gat_{name}.cu"
-        sources[name].write_text(variant_source(edits, head))
-    report = _build.build([], list(sources.values()))
-    built = {}
-    for name, src in sources.items():
-        sig = dict(_build.SIGNATURES["bsr_gat"], **variants[name][1])
-        built[name] = (_build.build_source(src, sig), [
-            ln.strip() for ln in report[src.stem]["log"].splitlines()
-            if "registers" in ln])
-    return built
+    return common.build_variants(LIBRARY, variants,
+                                 _build.SIGNATURES["bsr_gat"])
 
 
 def probe_variants(built, names, calls, smi):
@@ -186,13 +169,16 @@ def probe_variants(built, names, calls, smi):
             if name != graph:
                 continue
             inputs, _ = bd.compare(first, mask, H, C, rate, gen)
-            d, s, h, lse, big_d, g, seed = inputs
+            d, s, h, lse, out, big_d, g, seed = inputs
             line = {"probe": "bsr_gat_variants", "graph": graph, "H": H,
                     "C": C, "rate": rate, "us": {}, "rel_err": {}}
+            kernel_args = {"fwd": (bd.fwd, (d, s, h, seed)),
+                           "bwd_row": (bd.bwd_row,
+                                       (d, s, h, lse, out, g, seed)),
+                           "bwd_col": (bd.bwd_col,
+                                       (d, s, h, lse, big_d, g, seed))}
             for design in ("first", "shipped"):
-                for kernel, fn in (("fwd", bd.fwd), ("bwd_col", bd.bwd_col)):
-                    args = ((d, s, h, seed) if kernel == "fwd"
-                            else (d, s, h, lse, big_d, g, seed))
+                for kernel, (fn, args) in kernel_args.items():
                     outs = fn(first, design, mask, *args, rate)
                     line["us"][f"{design}_{kernel}"] = timings(
                         lambda: fn(first, design, mask, *args, rate,
@@ -202,13 +188,16 @@ def probe_variants(built, names, calls, smi):
                         ("fwd", lib.bsr_gat_fwd, mask.row,
                          [d, s, h, seed, torch.empty_like(h),
                           torch.empty_like(d)]),
+                        ("bwd_row", lib.bsr_gat_bwd_row, mask.row,
+                         [d, s, h, lse, out, g, seed, torch.empty_like(d),
+                          torch.empty_like(d)]),
                         ("bwd_col", lib.bsr_gat_bwd_col, mask.col,
                          [d, s, h, lse, big_d, g, seed,
                           torch.empty_like(d), torch.empty_like(h)])):
                     def call():
                         bd._call(entry, blocks, mask, args, H, C, rate, 0.2)
                     call()
-                    want = (bd.fwd if kernel == "fwd" else bd.bwd_col)(
+                    want = kernel_args[kernel][0](
                         first, "shipped", mask, *args[:-2], rate)
                     torch.cuda.synchronize()
                     line["rel_err"][f"{vname}_{kernel}"] = bd._rel(

@@ -1,9 +1,11 @@
 """What the probes share: the card's line, JSON output, the stream for
-ctypes launches, warm and flushed device timings, and the padding that
-holds ablation variants at one occupancy."""
+ctypes launches, warm and flushed device timings, the padding that holds
+ablation variants at one occupancy, and the builds of edited copies of a
+production source."""
 
 import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -95,3 +97,43 @@ def occupancy_padding(blocks_per_sm, modes, step: int = 1024,
             raise RuntimeError(f"no padding up to {limit} B holds {modes} "
                                f"at {target} blocks per SM")
     return smem, target
+
+
+def variant_source(library, edits, head: str = "") -> str:
+    """The text of the CUDA source ``library`` with ``edits`` ((text,
+    replacement) pairs) made, each text found exactly once, and ``head``
+    put after its first ``#include "..."`` line."""
+    text = Path(library).read_text()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise ValueError(f"variant anchor found {text.count(old)} "
+                             f"times: {old[:60]!r}")
+        text = text.replace(old, new)
+    first = re.search(r'^#include "[^"]+"\n', text, re.M)
+    return text[:first.end()] + head + text[first.end():]
+
+
+def build_variants(library, variants, signatures):
+    """{name: (loaded library, nvcc's register lines)} of each variant of
+    the CUDA source ``library`` (name -> (edits, extra signatures, head),
+    as :func:`variant_source` takes them), each built through
+    ``kernels/_build.py`` from its own copy under the git-ignored
+    ``_build/variants/`` with the port's headers beside it, one nvcc per
+    copy, all started together; ``signatures`` are the library's entry
+    points."""
+    from pytorch_geometric_tpu_torch.kernels import _build
+
+    out = _build.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    for header in _build.SOURCE_DIR.glob("*.cuh"):
+        (out / header.name).write_text(header.read_text())
+    sources = {}
+    for name, (edits, _, head) in variants.items():
+        sources[name] = out / f"{Path(library).stem}_{name}.cu"
+        sources[name].write_text(variant_source(library, edits, head))
+    report = _build.build([], list(sources.values()))
+    return {name: (_build.build_source(src, dict(signatures,
+                                                 **variants[name][1])),
+                   [ln.strip() for ln in report[src.stem]["log"].splitlines()
+                    if "registers" in ln])
+            for name, src in sources.items()}

@@ -11,18 +11,34 @@ one bit of its ``gat_ablate`` mask set by ``probes/packed_gat_ablate.cu``;
 the tool's mode each stands in for in brackets):
 
 - ``full``: nothing removed, the kernel that ships;
-- ``noindex``: no load of ``col[e]``; the neighbour is the row itself, so
-  every gather hits the row's own lines (``noonehot``);
-- ``nogather_s``: the neighbour's ``s`` or ``d`` is the row's own
-  (``nogather_sh``);
-- ``nogather_g``: ``gnum`` and ``gden`` are the row's own, loaded once
-  (``nogather_dg``, ``noconcat``);
-- ``nogather_h``: ``h[send]`` of the dot is loaded once per row;
+- ``noindex``: no load of ``col[e]`` (nor, walk 1, its use as a row
+  index); the neighbour is the row itself, so every gather hits the row's
+  own lines (``noonehot``);
+- ``nogather_s``: the neighbour's ``s`` (walk 0) or ``d`` (walk 1) is the
+  row's own, loaded once (``nogather_sh``);
+- ``nogather_g``: walk 1's gathers of ``gnum`` and ``gden`` are the row's
+  own, loaded once (``nogather_dg``, ``noconcat``). Walk 0 has no such
+  gather: its ``g`` is its own row's, which the kernel loads once per row
+  anyway, so the bit removes nothing there;
+- ``nogather_h``: walk 0's gather of ``h[send]`` for the dot is the row's
+  own, loaded once. Walk 1's ``h`` is its own row's, loaded once per row
+  anyway: nothing to remove there;
 - ``noexp``: no ``expf`` (``noexp``);
 - ``nodrop``: no dropout hash (``nodrop``);
-- ``noshuffle``: no butterfly of shuffles for the dot (``nosplit``);
+- ``noshuffle``: the dot is one lane's and has no shuffle since the
+  redesign (the first design shuffled it over a group: ``nosplit``); the
+  bit now removes the only shuffles left, those that merge the entry
+  groups' sums of a row;
 - ``nostore``: ``dd``, ``ds`` and ``dh`` stored only behind a run-time
   flag that is 0 (``noscatter``, ``noaccum``, ``nodd``).
+
+The kernel is the redesigned one: a sub-warp per CSR row over all heads,
+each lane one head of a few edges, so each edge's index and each (edge,
+head)'s terms are loaded and formed once, and the neighbour's row is
+gathered whole across the lanes (its first design, a group of lanes per
+(row, head), is timed beside it by ``probes/packed_gat_designs.py``).
+Since that redesign no lane repeats another's scalar work, so ``noexp``
+and ``nodrop`` remove less than they did.
 
 Every mode but ``full`` is wrong on purpose; only its time matters. The
 tool's ``--geom`` has no counterpart: a CSR walk has no window or tile.
@@ -32,10 +48,10 @@ The graph is RCM-PubMed at full width
 (``pytorch_geometric_tpu_torch/datasets/graphs.py``: 24,576 rows, ~113.2k
 edges), (H, C) = (8, 8), attention dropout ``--rate``. Every mode,
 ``full`` included, runs through the probe library's own table of kernel
-instantiations (group width 8: 5 <= C <= 8); before timing, ``full`` is
-checked bitwise against the library's ``packed_gat_bwd``. The kernel has
-two launches (walks) where the TPU kernel had one, and each is timed
-alone: walk 0 over the receiver-major CSR (``dd``), walk 1 over the
+instantiations (the lane maps of the main path's widths); before timing,
+``full`` is checked bitwise against the library's ``packed_gat_bwd``. The
+kernel has two launches (walks) where the TPU kernel had one, and each is
+timed alone: walk 0 over the receiver-major CSR (``dd``), walk 1 over the
 sender-major CSR (``ds``, ``dh``).
 
 Occupancy. A variant that frees registers fits more blocks per SM than
@@ -74,8 +90,8 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 SIGNATURES = {
     "packed_gat_ablate_bwd": (_I, [_P] * 11 + [_I] * 3
                               + [_U, _F, _F, _I, _U, _I, _I, _P]),
-    "packed_gat_ablate_occupancy": (_I, [_U, _I, _I, _I,
-                                         ctypes.POINTER(_I)]),
+    "packed_gat_ablate_occupancy": (_I, [_U] + [_I] * 5
+                                    + [ctypes.POINTER(_I)]),
 }
 #: Mode -> bit of ``gat_ablate`` in ``csrc/packed_gat.cu`` (0: nothing
 #: removed).
@@ -128,18 +144,18 @@ def ablate_walk(lib, op, d, s, h, m, seed, g, rate, mode, walk, out=None,
 ablate_walk.launches = 0
 
 
-def blocks_per_sm(lib, mode, walk, C, smem):
-    """Blocks per SM of ``mode``'s kernel for ``walk`` at ``C`` channels
-    with ``smem`` bytes of dynamic shared memory per block (the occupancy
-    calculator; raises the kernel's limit above 48 KB, so call it before
-    such a launch)."""
+def blocks_per_sm(lib, mode, walk, n, H, C, smem):
+    """Blocks per SM of ``mode``'s kernel for ``walk`` at the lane map of
+    ``n`` rows of ``(H, C)`` with ``smem`` bytes of dynamic shared memory
+    per block (the occupancy calculator; raises the kernel's limit above
+    48 KB, so call it before such a launch)."""
     blocks = ctypes.c_int(0)
-    rc = lib.packed_gat_ablate_occupancy(MODES[mode], walk, C, smem,
+    rc = lib.packed_gat_ablate_occupancy(MODES[mode], walk, n, H, C, smem,
                                          ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(f"packed_gat_ablate_occupancy ({mode}, walk "
-                           f"{walk}, C={C}, smem={smem}) failed: CUDA "
-                           f"error {rc}")
+                           f"{walk}, n={n}, H={H}, C={C}, smem={smem}) "
+                           f"failed: CUDA error {rc}")
     return blocks.value
 
 
@@ -194,7 +210,8 @@ def main(argv=None):
     order = ["full"] + [md for md in modes if md != "full"]
     for walk, (csr_name, csr) in walks.items():
         smem, target = occupancy_padding(
-            lambda md, sm: blocks_per_sm(lib, md, walk, C, sm), order)
+            lambda md, sm: blocks_per_sm(lib, md, walk, op.n, H, C, sm),
+            order)
         bound, bound_by = gat_walk_bound(op, H, C, walk)
         base = {}
         for mode in order:
@@ -209,7 +226,8 @@ def main(argv=None):
                 base.setdefault(key, t)
                 line[key] = {
                     "smem": pad,
-                    "blocks_per_sm": blocks_per_sm(lib, mode, walk, C, pad),
+                    "blocks_per_sm": blocks_per_sm(lib, mode, walk, op.n,
+                                                   H, C, pad),
                     **t,
                     "delta_warm_us": t["warm_us"] - base[key]["warm_us"],
                     "delta_flushed_us": (t["flushed_us"]

@@ -12,30 +12,67 @@
 // One walk per call (src_side 0: the receiver-major CSR, dd; 1: the
 // sender-major CSR, ds and dh), as the library's packed_gat_bwd. Every
 // mode, full (0) included, is launched here, through one table of kernel
-// instantiations, at the group width of the main path's C (5..8 channels,
-// G = 8) only, to keep the build short; any other C or an unknown mode
-// returns cudaErrorInvalidValue. sink = 0 keeps the stores that kNoStore
-// removes behind a run-time test. `smem` bytes of dynamic shared memory
-// per block, which no variant uses, cap the blocks per SM: the probe pads
-// every mode alike so that none holds more blocks than full does
-// (packed_gat_ablate_occupancy gives the count).
+// instantiations, at the lane map the library picks for the call
+// (with_bwd_lanes), for the lane maps of the main path's widths only, to
+// keep the build short: (8, 8) at 16 and 32 lanes a row (float4 loads),
+// one head of 5..8 channels at 8 and 16 lanes (one float at a time). A
+// call at any other lane map, or at a width the library runs on
+// its first design, or an unknown mode returns cudaErrorInvalidValue.
+// sink = 0 keeps the stores that kNoStore removes behind a run-time test.
+// `smem` bytes of dynamic shared memory per block, which no variant uses,
+// cap the blocks per SM: the probe pads every mode alike so that none
+// holds more blocks than full does (packed_gat_ablate_occupancy gives the
+// count).
 
 #include "../pytorch_geometric_tpu_torch/csrc/packed_gat.cu"
 
 namespace {
 
-constexpr int kGroup = 8;
-using BwdWalk = decltype(&gat_bwd_kernel<kGroup, false, 0>);
+// The lane maps (L, V, KC) that the probe instantiates.
+template <int L, int V, int KC>
+constexpr bool kProbed =
+    KC == 8 &&
+    ((V == 4 && (L == 16 || L == 32)) || (V == 1 && (L == 8 || L == 16)));
 
-template <bool kSrc>
-BwdWalk walk_of(unsigned mode) {
+// Blocks per SM of gat_bwd_kernel<L, V, KC, src_side, kMode> launched with
+// `smem` bytes of dynamic shared memory (above 48 KB it also raises the
+// kernel's limit).
+template <int L, int V, int KC, unsigned kMode>
+int occupancy(int src_side, int smem, int* blocks) {
+  const void* kernel =
+      src_side ? reinterpret_cast<const void*>(
+                     gat_bwd_kernel<L, V, KC, true, kMode>)
+               : reinterpret_cast<const void*>(
+                     gat_bwd_kernel<L, V, KC, false, kMode>);
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, kThreads, smem));
+}
+
+// A mode's walk at one lane map: its launch and its occupancy.
+struct ProbeWalk {
+  int (*launch)(const BwdArgs&, int, int, int, cudaStream_t);
+  int (*occupancy)(int, int, int*);
+};
+
+template <int L, int V, int KC, unsigned kMode>
+ProbeWalk probe_walk() {
+  return ProbeWalk{launch_bwd<L, V, KC, kMode>, occupancy<L, V, KC, kMode>};
+}
+
+template <int L, int V, int KC>
+ProbeWalk walk_of(unsigned mode) {
   using namespace gat_ablate;
 #define PROBE_MODE(bit) \
   case bit:             \
-    return gat_bwd_kernel<kGroup, kSrc, bit>;
+    return probe_walk<L, V, KC, bit>();
   switch (mode) {
     case 0:
-      return gat_bwd_kernel<kGroup, kSrc, 0>;
+      return probe_walk<L, V, KC, 0>();
     PROBE_MODE(kNoIndex)
     PROBE_MODE(kNoGatherS)
     PROBE_MODE(kNoGatherG)
@@ -45,15 +82,22 @@ BwdWalk walk_of(unsigned mode) {
     PROBE_MODE(kNoShuffle)
     PROBE_MODE(kNoStore)
     default:
-      return nullptr;
+      return ProbeWalk{nullptr, nullptr};
   }
 #undef PROBE_MODE
 }
 
-// The walk kernel of `mode` on side src_side at channel count C, or null.
-BwdWalk bwd_walk(unsigned mode, int src_side, int C) {
-  if (C <= 4 || C > 8) return nullptr;
-  return src_side ? walk_of<true>(mode) : walk_of<false>(mode);
+// The walk of `mode` at the lane map the library picks for a; null
+// members where the probe has none.
+ProbeWalk bwd_walk(const BwdArgs& a, unsigned mode) {
+  ProbeWalk walk{nullptr, nullptr};
+  with_bwd_lanes(a, [&](auto lanes, auto vec, auto kc) {
+    constexpr int L = decltype(lanes)::value;
+    constexpr int V = decltype(vec)::value;
+    constexpr int KC = decltype(kc)::value;
+    if constexpr (kProbed<L, V, KC>) walk = walk_of<L, V, KC>(mode);
+  });
+  return walk;
 }
 
 }  // namespace
@@ -68,32 +112,32 @@ extern "C" int packed_gat_ablate_bwd(void* row_ptr, void* col, void* eid,
                                      float slope, int src_side,
                                      unsigned mode, int sink, int smem,
                                      void* stream) {
-  const BwdWalk walk = bwd_walk(mode, src_side, C);
-  if (walk == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rows <= 0 || H <= 0) return static_cast<int>(cudaGetLastError());
-  walk<<<blocks_for(n_rows, H, kGroup), kThreads, smem,
-         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(row_ptr), static_cast<const int*>(col),
-      static_cast<const int*>(eid), static_cast<const float*>(d),
-      static_cast<const float*>(s), static_cast<const float*>(h),
-      static_cast<const float*>(m), static_cast<const float*>(g),
-      static_cast<const int*>(seed), static_cast<float*>(out_h),
-      static_cast<float*>(dh), n_rows, H, C, thresh, scale, slope, sink);
-  return static_cast<int>(cudaGetLastError());
+  if (H <= 0 || C <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows <= 0) return static_cast<int>(cudaGetLastError());
+  const BwdArgs a = bwd_args(row_ptr, col, eid, d, s, h, m, g, seed, out_h,
+                             dh, n_rows, H, C, thresh, scale, slope);
+  const ProbeWalk walk = bwd_walk(a, mode);
+  if (walk.launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return walk.launch(a, src_side, sink, smem,
+                     static_cast<cudaStream_t>(stream));
 }
 
-// Blocks per SM of the walk kernel of (mode, src_side, C) launched with
-// `smem` bytes of dynamic shared memory, into *blocks. Call it before
-// launching with that smem: above 48 KB it also raises the kernel's limit.
+// Blocks per SM of the walk kernel of (mode, src_side) at the lane map of
+// n_rows rows of (H, C) (16-byte aligned) launched with `smem` bytes of
+// dynamic shared memory, into *blocks. Call it before launching with that
+// smem: above 48 KB it also raises the kernel's limit.
 extern "C" int packed_gat_ablate_occupancy(unsigned mode, int src_side,
-                                           int C, int smem, int* blocks) {
-  const BwdWalk walk = bwd_walk(mode, src_side, C);
-  if (walk == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        walk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
+                                           int n_rows, int H, int C,
+                                           int smem, int* blocks) {
+  if (n_rows <= 0 || H <= 0 || C <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, walk, kThreads, smem));
+  const BwdArgs a = bwd_args(nullptr, nullptr, nullptr, nullptr, nullptr,
+                             nullptr, nullptr, nullptr, nullptr, nullptr,
+                             nullptr, n_rows, H, C, 0u, 1.f, 0.2f);
+  const ProbeWalk walk = bwd_walk(a, mode);
+  if (walk.occupancy == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return walk.occupancy(src_side, smem, blocks);
 }

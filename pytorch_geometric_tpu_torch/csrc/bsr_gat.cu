@@ -50,8 +50,9 @@
 // each phase on an H100 put one such step at 1,500-4,000 cycles when
 // every row of the launch waits on it at once.
 //
-// Design of the forward and the column pass (bsr_fwd_kernel,
-// bsr_bwd_col_kernel, bsr_bwd_col_pairs_kernel):
+// Design of the three kernels (bsr_fwd_kernel, bsr_bwd_row_kernel,
+// bsr_bwd_col_kernel, and at other widths bsr_bwd_row_heads_kernel and
+// bsr_bwd_col_pairs_kernel):
 // - The L lanes of a sub-warp own one row (the column pass: one column,
 //   a row of the transposed mask) over all H heads, so the mask is read
 //   once per row, not once per head. L is the fewest of 4, 8, 16, 32 that
@@ -78,12 +79,12 @@
 // - The gather reads whole sender rows: le lanes (a power of two) share a
 //   row of H C floats, V = 4 channels a lane as one 16-byte load where C
 //   is a multiple of 4 and the rows are 16-byte aligned, else one float
-//   (Lanes, lanes_of); L / le entries go at once, rows_of(V) of them a
-//   lane with their loads issued together (the first ones beside the
-//   logits' loads), and each lane keeps its channels' sums in registers in
-//   a fixed order. The row's sums then meet in a fixed tree of shuffles
-//   and are stored as one row. A row wider than its lanes is taken in
-//   windows of channels, each a walk.
+//   (row_lanes.cuh: Lanes, lanes_of); L / le entries go at once, rows_of(V)
+//   of them a lane with their loads issued together (the first ones
+//   beside the logits' loads), and each lane keeps its channels' sums in
+//   registers in a fixed order. The row's sums then meet in a fixed tree
+//   of shuffles and are stored as one row. A row wider than its lanes is
+//   taken in windows of channels, each a walk.
 // - Column pass where the channels of each head lie on cv = C / V
 //   neighbouring lanes (a power of two) and one pass covers the row, or
 //   H = 1 (bsr_bwd_col_kernel, the main path's widths): one gathered g[i]
@@ -103,12 +104,29 @@
 //   decode pass, and whole-row gathers by lanes by entry for one-head
 //   rows.
 //
-// Design of the row pass (bsr_bwd_row_kernel, the first design of this
-// file, kept until it is redesigned the same way): a group of 8 lanes owns
-// one (row, head) pair and walks the words of its strip itself
-// (walk_strip_row), keeping its own online-softmax sums, merged by a fixed
-// tree of shuffles. It also writes D (n, H), which the column pass reads:
-// the two launches go on one stream, in that order.
+// - Row pass (bsr_bwd_row_kernel, where H > 1 divides L and C <= 32: the
+//   main path's conv1): lane t of the sub-warp keeps to head t % H and
+//   takes every (L / H)-th entry of a chunk, so each (entry, head) pair is
+//   one lane's. It holds the head's channels of g[i] in registers, forms
+//   D = <g[i], out[i]> and loads d[i], lse[i] and the salt once per row,
+//   and per entry gathers the head's slice of the h[j] row as whole
+//   16-byte loads (kRowRows entries a lane in flight) and s[j], and forms
+//   the dot, exp, hash and dz once, without a shuffle. D is summed in a
+//   group's order and the dot channel after channel, as the dense-mask
+//   kernels sum them (gat_mask.cuh), so that the two agree entry for
+//   entry: spread over the lanes of a head and summed in a tree, dd moved
+//   by up to 9e-7 of its largest magnitude (rows whose terms cancel, as
+//   D = sum alpha ks dot), and the dot passed along those lanes instead
+//   cost 27% (PERF.md). The row pass also writes D (n, H), which the
+//   column pass reads: the two launches go on one stream, in that order.
+// - The row pass keeps its first design (bsr_bwd_row_heads_kernel: a
+//   group of 8 lanes per (row, head) that walks the words of its strip
+//   itself, walk_strip_row) for one head, where a sub-warp design was
+//   slower in one run (RCM-PubMed conv2 (1, 3) 9.2 -> 11.6 us, Cora
+//   (1, 7) 4.3 -> 7.0: with one head nothing is shared, and the decode
+//   into shared memory costs more than it saves), and where the head
+//   count does not divide the lanes or a head is wider than 32 channels,
+//   for which it needs no third kernel.
 //
 // Times on an NVIDIA H100 80GB HBM3 at 700 W, warm device us per call,
 // first design -> this one, both timed in one run by
@@ -119,15 +137,18 @@
 // 4.5 -> 6.6; a block-dense mask of 16,384 rows and 1.06 M entries 145 ->
 // 72 and 127 -> 88; a mask with a hub row and column of ~2,240 entries
 // 204 -> 314 and 145 -> 378 (those rows walk 32 lanes' chunks one after
-// another, where the first design put 8 groups on each); the row pass 39
-// (the first design's walk). The seed is read from device memory. fp32 throughout, expf and logf,
-// no fast-math flags.
+// another, where the first design put 8 groups on each). The row pass,
+// redesigned later and timed the same way: conv1 38.6 -> 15.5 (bound
+// 7.0), Cora (8, 8) 6.9 -> 4.6, the block-dense mask 122 -> 55, the hub
+// mask 167 -> 172. The seed is read from device memory. fp32
+// throughout, expf and logf, no fast-math flags.
 //
 // Plain C interface, bound from Python with ctypes
 // (pytorch_geometric_tpu_torch/ops/bsr_gat.py); each launch goes on the
 // caller's stream and the function returns cudaGetLastError().
 
 #include "gat_mask.cuh"
+#include "row_lanes.cuh"
 
 namespace {
 
@@ -185,53 +206,6 @@ __host__ __device__ constexpr int fwd_floats(int H, int L) {
 __host__ __device__ constexpr int col_pairs_floats(int H, int L) {
   return chunk_of(H, L) * (1 + 2 * H) + H;
 }
-
-// The lanes of one row: a sub-warp of L lanes (4, 8, 16 or 32), aligned
-// in its warp. Every reduction is a fixed tree of shuffles.
-template <int L>
-struct Row {
-  unsigned mask;
-  int lane;
-  __device__ __forceinline__ Row() {
-    lane = threadIdx.x & (L - 1);
-    mask = (0xffffffffu >> (32 - L)) << ((threadIdx.x & 31) & ~(L - 1));
-  }
-  __device__ __forceinline__ void sync() const { __syncwarp(mask); }
-  // v summed over the lanes that agree in lane % from (a power of two)
-  __device__ __forceinline__ float sum_from(float v, int from) const {
-    for (int o = L / 2; o >= from; o >>= 1) {
-      v += __shfl_xor_sync(mask, v, o);
-    }
-    return v;
-  }
-  __device__ __forceinline__ float max_from(float v, int from) const {
-    for (int o = L / 2; o >= from; o >>= 1) {
-      v = fmaxf(v, __shfl_xor_sync(mask, v, o));
-    }
-    return v;
-  }
-  // v summed over the lanes that agree in lane / width (a power of two)
-  __device__ __forceinline__ float sum_below(float v, int width) const {
-    for (int o = 1; o < width; o <<= 1) v += __shfl_xor_sync(mask, v, o);
-    return v;
-  }
-  // inclusive prefix sum over the lanes
-  __device__ __forceinline__ int scan(int v) const {
-#pragma unroll
-    for (int o = 1; o < L; o <<= 1) {
-      const int u = __shfl_up_sync(mask, v, o, L);
-      if (lane >= o) v += u;
-    }
-    return v;
-  }
-  __device__ __forceinline__ int bcast(int v, int src) const {
-    return __shfl_sync(mask, v, src, L);
-  }
-  // bit t: p of lane t
-  __device__ __forceinline__ unsigned ballot(bool p) const {
-    return (__ballot_sync(mask, p) & mask) >> ((threadIdx.x & 31) & ~(L - 1));
-  }
-};
 
 // A row's place in its mask: its words (count, in the blocks of its strip
 // from k0, row li of each), the first word not yet wholly decoded and the
@@ -301,36 +275,13 @@ __device__ __forceinline__ int decode_chunk(const M& m, Cursor& cur,
 }
 
 // The lane map of a launch, chosen on the host from (H, C) (lanes_of):
-// le lanes share one sender row, V channels each, so a pass covers the
-// win = le V channels from c0, and L / le entries go at once. cv > 0: the
-// channels of each head lie on cv neighbouring lanes and one pass covers
-// the row.
+// le lanes share one row of H C channels, V channels each, so a pass
+// covers the win = le V channels from c0, and L / le entries go at once.
+// cv > 0: the channels of each head lie on cv neighbouring lanes and one
+// pass covers the row.
 struct Lanes {
   int le, win, cv;
 };
-
-// A lane's V channels at p: one float, or one float4 (16-byte aligned).
-template <int V>
-__device__ __forceinline__ void load_vec(const float* p, float (&x)[V]) {
-  if constexpr (V == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    x[0] = t.x;
-    x[1] = t.y;
-    x[2] = t.z;
-    x[3] = t.w;
-  } else {
-    x[0] = __ldg(p);
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void store_vec(float* p, const float (&x)[V]) {
-  if constexpr (V == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-  } else {
-    p[0] = x[0];
-  }
-}
 
 // Loads this lane's channels from c of the rows src[cols[e]], e = e0 + b
 // R (b < NB), into x, all before any is used; 0 past ne or where c < 0.
@@ -549,11 +500,98 @@ bsr_fwd_kernel(Strips mask, FwdArgs a) {
   if (i < a.n) fwd_row<L, V>(mask, i, a, smem + sub * fwd_floats(a.H, L));
 }
 
-// The first design's walk, which the row pass keeps. Calls body(c) for
-// every entry (i, c) of row i: the row's words in the blocks of its strip
-// (wj per block), each lane of the group on the words lane, lane +
-// kGroup, ..., of which it loads kBatch, and their blocks' columns,
-// before it looks at any. The lanes run body apart from each
+// Sender rows a lane of the row pass loads before it uses any of them.
+constexpr int kRowRows = 2;
+
+// Backward, row pass where H > 1 divides the row's lanes and C <= KC (the
+// main path's conv1): the L lanes of a sub-warp over row i of the mask,
+// all heads; writes dd and D. Lane t keeps to head t % H and takes the
+// entries t / H, t / H + L / H, ... of each chunk, so each (entry, head)
+// pair is one lane's: it holds the head's channels of g[i] in registers,
+// forms D, loads d[i], lse[i] and the salt once per row, and per entry
+// gathers the head's slice of the h[j] row (whole 16-byte loads) and
+// s[j] and forms the dot, exp, hash and dz once, with no shuffle. D is
+// formed in a group's order and the dot channel after channel, as the
+// dense-mask kernels form them (gat_mask.cuh), so that the two agree
+// entry for entry. Only the column list goes through shared memory; the
+// entry groups' sums meet in a fixed tree.
+template <int L, int V, int KC>
+__global__ void __launch_bounds__(kThreads)
+bsr_bwd_row_kernel(Strips mask, const float* __restrict__ d,
+                   const float* __restrict__ s, const float* __restrict__ h,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ out,
+                   const float* __restrict__ g,
+                   const int* __restrict__ seed_ptr, float* __restrict__ dd,
+                   float* __restrict__ D, int n, int H, int C,
+                   uint32_t thresh, float scale, float slope) {
+  constexpr int NB = kRowRows;
+  extern __shared__ float smem[];
+  const Row<L> row;
+  const int sub = threadIdx.x / L;
+  const int i = blockIdx.x * (blockDim.x / L) + sub;
+  if (i >= n) return;
+  const int HC = H * C;
+  const size_t irow = static_cast<size_t>(i);
+  const int chunk = chunk_of(H, L);
+  int* cols = reinterpret_cast<int*>(smem) + sub * chunk;   // senders j
+  const int hd = row.lane % H;
+  const int r0 = row.lane / H;
+  const int R = L / H;
+  const size_t ih = irow * H + hd;
+  const float* gi = g + irow * HC + hd * C;
+  float greg[KC];
+  load_head<KC, V>(gi, C, greg);
+  const float di = __ldg(d + ih);
+  const float lse_i = __ldg(lse + ih);
+  const uint32_t salt = hash_salt(static_cast<uint32_t>(__ldg(seed_ptr)), hd);
+  const float Di = dot_in_group_order(gi, out + irow * HC + hd * C, C);
+  float dd_acc = 0.f;
+  Cursor cur = cursor_of(mask, i);
+  for (;;) {
+    const int ne = decode_chunk<L>(mask, cur, cols, chunk, row);
+    if (ne == 0) break;
+    // NB entries a lane at once, every load of them issued together
+    for (int e0 = r0; e0 < ne; e0 += R * NB) {
+      float hv[NB][KC], sv[NB];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const int e = e0 + b * R;
+        const size_t j = e < ne ? static_cast<size_t>(cols[e]) : irow;
+        load_head<KC, V>(h + j * HC + hd * C, e < ne ? C : 0, hv[b]);
+        sv[b] = e < ne ? __ldg(s + j * H + hd) : 0.f;
+      }
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const int e = e0 + b * R;
+        if (e >= ne) continue;
+        float dot = 0.f;
+#pragma unroll
+        for (int k = 0; k < KC; ++k) {
+          if (k < C) dot += greg[k] * hv[b][k];
+        }
+        const float zpre = di + sv[b];
+        const float alpha = expf(leaky(zpre, slope) - lse_i);
+        const float ks = keep_scale(salt, i, cols[e], thresh, scale);
+        const float dz = alpha * (ks * dot - Di);
+        dd_acc += zpre > 0.f ? dz : slope * dz;
+      }
+    }
+    if (ne < chunk) break;
+  }
+  // the entry groups' sums meet
+  dd_acc = row.sum_from(dd_acc, H);
+  if (r0 == 0) {
+    dd[ih] = dd_acc;
+    D[ih] = Di;
+  }
+}
+
+// The first design's walk, which the row pass keeps at some widths. Calls
+// body(c) for every entry (i, c) of row i: the row's words in the blocks
+// of its strip (wj per block), each lane of the group on the words lane,
+// lane + kGroup, ..., of which it loads kBatch, and their blocks'
+// columns, before it looks at any. The lanes run body apart from each
 // other: it must not synchronise.
 template <typename Body>
 __device__ __forceinline__ void walk_strip_row(const Strips& m, int i,
@@ -591,11 +629,12 @@ __device__ __forceinline__ void walk_strip_row(const Strips& m, int i,
   }
 }
 
-// Backward, row pass: group (i, hd) over row i of the mask; writes dd and
-// D = <g[i], out[i]> of the head.
+// Backward, row pass, the first design: group (i, hd) over row i of the
+// mask; writes dd and D = <g[i], out[i]> of the head. Kept where
+// bsr_bwd_row_kernel does not apply (one head, or lanes.cv == 0).
 template <int KC>
 __global__ void __launch_bounds__(kThreads)
-bsr_bwd_row_kernel(Strips mask, const float* __restrict__ d,
+bsr_bwd_row_heads_kernel(Strips mask, const float* __restrict__ d,
                    const float* __restrict__ s, const float* __restrict__ h,
                    const float* __restrict__ lse,
                    const float* __restrict__ out,
@@ -916,29 +955,6 @@ int pow2_at_least(int x) {
   return p;
 }
 
-// Channels a lane holds: 4 where C is a multiple of 4 and the rows are
-// 16-byte aligned (one float4 load), else 1.
-int channels_per_lane(int C, bool aligned) {
-  return C % 4 == 0 && aligned ? 4 : 1;
-}
-
-// Threads the current card holds at once (its SMs times the threads of
-// an SM), asked once per device.
-long long wave_threads() {
-  static long long cached[64];
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) dev = 0;
-  if (cached[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxThreadsPerMultiProcessor,
-                           dev);
-    cached[dev] = static_cast<long long>(sms) * per_sm;
-  }
-  return cached[dev];
-}
-
 // Lanes a row of n: the fewest of 4, 8, 16 and 32 that hold the H C
 // channels at V a lane, and at least H where H <= 32 (so that a lane keeps
 // to one head); twice that where the n rows at that width fill less than
@@ -971,30 +987,7 @@ Lanes lanes_of(int H, int C) {
 template <typename Fn>
 void with_lanes(int H, int C, int n, bool aligned, Fn&& f) {
   const int V = channels_per_lane(C, aligned);
-  auto pick = [&](auto lanes) {
-    if (V == 4) {
-      f(lanes, std::integral_constant<int, 4>{});
-    } else {
-      f(lanes, std::integral_constant<int, 1>{});
-    }
-  };
-  switch (lanes_per_row(H, C, V, n)) {
-    case 4:
-      pick(std::integral_constant<int, 4>{});
-      break;
-    case 8:
-      pick(std::integral_constant<int, 8>{});
-      break;
-    case 16:
-      pick(std::integral_constant<int, 16>{});
-      break;
-    default:
-      pick(std::integral_constant<int, 32>{});
-  }
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+  with_row_lanes(lanes_per_row(H, C, V, n), V, f);
 }
 
 // Launches kernel over n rows of L lanes each, kThreads / L rows a block
@@ -1016,6 +1009,24 @@ int launch_rows(Kernel kernel, int n, int floats, cudaStream_t stream,
   }
   const int grid = static_cast<int>((n + rows - 1) / rows);
   kernel<<<grid, static_cast<int>(rows) * L, bytes, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the first design of the row pass (bsr_bwd_row_heads_kernel)
+// over n rows, bsr_gat_bwd_row's arguments; the CUDA error.
+int launch_row_heads(const Strips& mask, void* d, void* s, void* h,
+                     void* lse, void* out, void* g, void* seed, void* dd,
+                     void* D, int n, int H, int C, uint32_t thresh,
+                     float scale, float slope, cudaStream_t stream) {
+  with_channel_chunk(C, [&](auto chunk) {
+    constexpr int KC = decltype(chunk)::value;
+    bsr_bwd_row_heads_kernel<KC><<<blocks_for(n, H), kThreads, 0, stream>>>(
+        mask, static_cast<const float*>(d), static_cast<const float*>(s),
+        static_cast<const float*>(h), static_cast<const float*>(lse),
+        static_cast<const float*>(out), static_cast<const float*>(g),
+        static_cast<const int*>(seed), static_cast<float*>(dd),
+        static_cast<float*>(D), n, H, C, thresh, scale, slope);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1055,17 +1066,30 @@ extern "C" int bsr_gat_bwd_row(void* strip_ptr, void* block_col, void* words,
                                unsigned thresh, float scale, float slope,
                                void* stream) {
   if (n > 0 && H > 0 && C > 0) {
-    with_channel_chunk(C, [&](auto chunk) {
-      constexpr int KC = decltype(chunk)::value;
-      bsr_bwd_row_kernel<KC><<<blocks_for(n, H), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-          strips_of(strip_ptr, block_col, words, ti, wj),
-          static_cast<const float*>(d), static_cast<const float*>(s),
-          static_cast<const float*>(h), static_cast<const float*>(lse),
-          static_cast<const float*>(out), static_cast<const float*>(g),
-          static_cast<const int*>(seed), static_cast<float*>(dd),
-          static_cast<float*>(D), n, H, C, thresh, scale, slope);
+    const Strips mask = strips_of(strip_ptr, block_col, words, ti, wj);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    int rc = -1;
+    const bool aligned = aligned16(h) && aligned16(g) && aligned16(out);
+    with_lanes(H, C, n, aligned, [&](auto lanes, auto vec) {
+      constexpr int L = decltype(lanes)::value;
+      constexpr int V = decltype(vec)::value;
+      // the first design's widths: one head, a head count that does not
+      // divide the lanes, or heads wider than 32 channels
+      if (H == 1 || L % H != 0 || C > 32) return;
+      with_channel_chunk(C, [&](auto chunk) {
+        constexpr int KC = decltype(chunk)::value;
+        rc = launch_rows<L>(
+            bsr_bwd_row_kernel<L, V, KC>, n, chunk_of(H, L), st, mask,
+            static_cast<const float*>(d), static_cast<const float*>(s),
+            static_cast<const float*>(h), static_cast<const float*>(lse),
+            static_cast<const float*>(out), static_cast<const float*>(g),
+            static_cast<const int*>(seed), static_cast<float*>(dd),
+            static_cast<float*>(D), n, H, C, thresh, scale, slope);
+      });
     });
+    return rc >= 0 ? rc : launch_row_heads(mask, d, s, h, lse, out, g, seed,
+                                           dd, D, n, H, C, thresh, scale,
+                                           slope, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

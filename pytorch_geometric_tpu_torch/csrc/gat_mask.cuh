@@ -131,6 +131,24 @@ __device__ __forceinline__ float dot_from_memory(const float* a,
   return dot;
 }
 
+// <a, b> over C channels by one lane, in the order in which a group forms
+// it (lane l sums the channels l, l + kGroup, ..., then Group::sum's
+// tree), so it equals, bit for bit, the D that a group's row pass forms.
+__device__ __forceinline__ float dot_in_group_order(const float* a,
+                                                   const float* b, int C) {
+  static_assert(kGroup == 8, "the tree below is Group::sum's for 8 lanes");
+  float p[kGroup];
+#pragma unroll
+  for (int l = 0; l < kGroup; ++l) p[l] = 0.f;
+  for (int c0 = 0; c0 < C; c0 += kGroup) {
+#pragma unroll
+    for (int l = 0; l < kGroup; ++l) {
+      if (c0 + l < C) p[l] += __ldg(a + c0 + l) * __ldg(b + c0 + l);
+    }
+  }
+  return ((p[0] + p[4]) + (p[2] + p[6])) + ((p[1] + p[5]) + (p[3] + p[7]));
+}
+
 // Writes the group's sums of acc to dst[c0 .. c0 + KC), as far as C goes.
 template <int KC>
 __device__ __forceinline__ void store_sums(float (&acc)[KC], float factor,

@@ -22,42 +22,73 @@
 // the forward and both backward passes regenerate the same dropout bits
 // from the original edge id, whatever the CSR order.
 //
-// What bounds it: bytes. A call reads the CSR (4 B per edge and row, and
-// 4 B per edge of edge ids on the sender side), s and d (4 B * H per
-// node), h (4 B * H * C per node) and, backward, g (4 B * (H*C + H) per
-// node); it writes 4 B * (H*C + H) per node. It does about 2 flops per
-// edge and channel forward (4 backward), far below the card's rate for
-// so few bytes. At Cora's conv1 shapes (3072 rows, about 13.6k edges,
-// H = 8, C = 8) that is about 2 MB, under a microsecond at 3.35 TB/s, so
-// a call there is bound by launch latency. On an H100 at 700 W
-// (chip_smoke.py; PERF.md) the forward takes 7.6 us at Cora and 29 us at
-// PubMed's shapes (bound 4.6 us); the backward, two launches, 25 and
-// 110 us (bound 7 us).
-// The design below is the simple one: every edge's scalars are computed
-// by each lane of its group, and the two backward walks each read the
-// edge's terms again.
+// What bounds it: bytes, in principle. A call reads the CSR (4 B per edge
+// and row, and 4 B per edge of edge ids on the sender side), s and d
+// (4 B * H per node), h (4 B * H * C per node) and, backward, g (4 B *
+// (H*C + H) per node); it writes 4 B * (H*C + H) per node. It does about
+// 2 flops per edge and channel forward (4 backward), far below the card's
+// rate for so few bytes. At Cora's conv1 shapes (3072 rows, about 13.6k
+// edges, H = 8, C = 8) that is about 2 MB, under a microsecond at 3.35
+// TB/s. In practice a row is a chain of dependent loads (row_ptr -> col
+// -> the neighbour's row -> the store), each step an L2 round trip, and
+// the walk is bound by that chain and by the instructions of each edge.
 //
-// Design:
-// - A group of G lanes (G = 4, 8, 16 or 32: with_group_width) owns one
-//   (row, head) pair; lane l keeps the channels l, l + G, ... of a chunk
-//   of G * kVec channels. Heads are independent in GAT, so a group never
-//   talks to another one, and the narrow widths of the main path (C = 8
-//   and 7) keep most lanes busy.
-// - Every lane of a group computes the same per-edge scalars (logit,
-//   exp, keep bit) with the same instructions, so they agree bitwise and
-//   no broadcast is needed. The per-head dot <gnum, h> of the backward is
-//   a butterfly of shuffles within the group, which leaves the same sum
-//   in every lane.
-// - No atomics. Forward and the receiver side of the backward walk the
-//   receiver-major CSR (edge id = CSR position) and write dd; the sender
-//   side walks the sender-major CSR (edge id from its permutation) and
-//   writes ds and dh. Each output element is written once by one lane,
-//   with sums in CSR order: the result is deterministic, and rows with no
-//   edges are written as 0, so outputs may come from torch.empty.
+// Forward and the first design of the backward (gat_fwd_kernel,
+// gat_bwd_heads_kernel): a group of G lanes (G = 4, 8, 16 or 32:
+// with_group_width) owns one (row, head) pair; lane l keeps the channels
+// l, l + G, ... of a chunk of G * kVec channels, and every lane of the
+// group computes the same per-edge scalars (logit, exp, keep bit) with the
+// same instructions, walking the row's edges one after another. The
+// backward's per-head dot <gnum, h> is a butterfly of shuffles within the
+// group. The backward keeps this design only at the widths the design
+// below does not take (see there); probes/packed_gat_designs.py times it
+// beside the new one at every width.
+//
+// Design of the backward (gat_bwd_kernel), after the block-sparse GAT's
+// row pass (bsr_gat.cu):
+// - The L lanes of a sub-warp own one CSR row over all H heads (L from
+//   packed_lanes: the fewest of 4, 8, 16, 32 that hold the row's H C
+//   channels at V a lane, twice that where the launch fills less than
+//   one wave of the card). Lane t keeps to head t % H and takes the
+//   edges t / H, t / H + L / H, ... of the row, kEdgeLoads of them with
+//   every load issued together, so a row of up to L / H * kEdgeLoads
+//   edges (8 at Cora's conv1) is one step of the chain deep, not deg
+//   steps; col[e] (and eid[e] in walk 1) is loaded once per edge for all
+//   heads (the lanes of an entry group read one address), where a group
+//   per (row, head) loaded it H times.
+// - Each (edge, head) pair is one lane's: it gathers the head's slice of
+//   the neighbour's row (walk 0 h[src], walk 1 gnum[dst]) as whole
+//   16-byte loads where C is a multiple of 4 and the rows are aligned
+//   (row_lanes.cuh: load_head), so an entry group's lanes read the row
+//   whole; it forms the dot in its registers, without a shuffle, and the
+//   logit, exp and hash once. In walk 1 the one gathered gnum[dst] row
+//   serves both the dot and dh[src] += gnum ex ks. The row's own terms
+//   are loaded once, before the walk: walk 0 d, the shift, gnum and gden
+//   of the receiver; walk 1 s and h of the sender.
+// - It runs where the heads divide the lanes and a head has at most 32
+//   channels (registers for them: 8 or 32); the other widths ((3, 5),
+//   (2, 33), (4, 64), (1, 256)) keep the first design.
+// - No atomics. Walk 0 walks the receiver-major CSR (edge id = CSR
+//   position) and writes dd; walk 1 walks the sender-major CSR (edge id
+//   from its permutation) and writes ds and dh. The entry groups' sums of
+//   a row meet in a fixed tree of shuffles, so two launches are bitwise
+//   equal; rows with no edges are written as 0, so outputs may come from
+//   torch.empty.
 // - m (the shift's per-head maximum) and the dropout seed are read from
 //   device memory, so the caller never waits on the card for them.
 // - fp32 throughout; expf (not __expf) and no fast-math flags, so the
 //   kernel holds 1e-5 against the plain PyTorch version.
+//
+// Times on an NVIDIA H100 80GB HBM3 at 700 W, warm device us per call
+// (both walks), first design -> this one, both timed in one run by
+// probes/packed_gat_designs.py (PERF.md): Cora conv1 (3072 rows, 13.6k
+// edges, H = C = 8, dropout 0.6) 24.8 -> 7.6 (bound 0.9), conv2 (1, 7)
+// 16.0 -> 8.0; PubMed after RCM (24,576 rows, 113k edges) (8, 8) 108.0
+// -> 23.1, (1, 3) 19.1 -> 15.9; a graph with a receiver of 500 senders
+// and a sender of 400 receivers (8, 8) 446 -> 65, (1, 7) 328 -> 23.
+// clock64 marks (probes/packed_gat_variants.py) put a step of the edge
+// loop at 1,000-3,700 cycles: the col[e] load and then the gathers it
+// feeds, two dependent round trips.
 //
 // Ablation hooks: the backward kernel takes a bit mask kAblate of terms
 // to remove (namespace gat_ablate) and a run-time flag `sink`. The
@@ -76,12 +107,20 @@
 
 #include <type_traits>
 
+#include "row_lanes.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kVec = 4;
+// Edges a lane of gat_bwd_kernel loads before it uses any of them.
+constexpr int kEdgeLoads = 2;
 
-// Terms of the backward that an ablation removes, one bit each.
+// Terms of the backward that an ablation removes, one bit each. Walk 0
+// gathers h and s, walk 1 gnum, gden and d: kNoGatherH removes nothing
+// from walk 1 and kNoGatherG nothing from walk 0, whose own rows are
+// loaded once anyway. The dot is one lane's, without a shuffle, so
+// kNoShuffle removes the shuffles that merge the entry groups' sums.
 namespace gat_ablate {
 constexpr unsigned kNoIndex = 1u << 0;    // other = r: no load of col[e]
 constexpr unsigned kNoGatherS = 1u << 1;  // the neighbour's s or d: own
@@ -89,7 +128,7 @@ constexpr unsigned kNoGatherG = 1u << 2;  // gnum, gden: loaded once per row
 constexpr unsigned kNoGatherH = 1u << 3;  // h[send] of the dot: once per row
 constexpr unsigned kNoExp = 1u << 4;      // no expf
 constexpr unsigned kNoDrop = 1u << 5;     // no dropout hash
-constexpr unsigned kNoShuffle = 1u << 6;  // no group_sum butterfly
+constexpr unsigned kNoShuffle = 1u << 6;  // no shuffles (see the kernel)
 constexpr unsigned kNoStore = 1u << 7;    // dh and out_h stored only if sink
 }  // namespace gat_ablate
 
@@ -186,27 +225,28 @@ gat_fwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
   }
 }
 
-// Backward over one CSR.
+
+// Backward over one CSR, first design (see the head of this file): group
+// (r, hd) over row r.
 //   kSrc = false: rows are receivers (receiver-major CSR, edge id = CSR
 //                 position); writes dd (n_rows, H) into out_h.
 //   kSrc = true:  rows are senders (sender-major CSR, edge id = eid[p]);
 //                 writes ds (n_rows, H) into out_h and dh (n_rows, H*C).
-// g is (n_rows, H*C + H): gnum, then gden. kAblate and sink: see the
-// header (0 and 0 in the library).
-template <int G, bool kSrc, unsigned kAblate = 0>
+// g is (n_rows, H*C + H): gnum, then gden.
+template <int G, bool kSrc>
 __global__ void __launch_bounds__(kThreads)
-gat_bwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
-               const int* __restrict__ eid, const float* __restrict__ d,
-               const float* __restrict__ s, const float* __restrict__ h,
-               const float* __restrict__ m, const float* __restrict__ g,
-               const int* __restrict__ seed_ptr, float* __restrict__ out_h,
-               float* __restrict__ dh, int n_rows, int H, int C,
-               uint32_t thresh, float scale, float slope, int sink) {
-  using namespace gat_ablate;
-  constexpr bool kIndex = !(kAblate & kNoIndex);
-  constexpr bool kGatherS = !(kAblate & kNoGatherS);
-  constexpr bool kGatherG = !(kAblate & kNoGatherG);
-  constexpr bool kGatherH = !(kAblate & kNoGatherH);
+gat_bwd_heads_kernel(const int* __restrict__ row_ptr,
+                     const int* __restrict__ col,
+                     const int* __restrict__ eid,
+                     const float* __restrict__ d,
+                     const float* __restrict__ s,
+                     const float* __restrict__ h,
+                     const float* __restrict__ m,
+                     const float* __restrict__ g,
+                     const int* __restrict__ seed_ptr,
+                     float* __restrict__ out_h, float* __restrict__ dh,
+                     int n_rows, int H, int C, uint32_t thresh, float scale,
+                     float slope) {
   const long long grp =
       static_cast<long long>(blockIdx.x) * (kThreads / G) + threadIdx.x / G;
   if (grp >= static_cast<long long>(n_rows) * H) return;
@@ -220,7 +260,6 @@ gat_bwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
   const float mh = __ldg(m + hd);
   // the row's own node term: d of a receiver, s of a sender
   const float own = __ldg((kSrc ? s : d) + static_cast<size_t>(r) * H + hd);
-  const bool stores = !(kAblate & kNoStore) || sink != 0;
   const int e0 = row_ptr[r];
   const int e1 = row_ptr[r + 1];
   for (int c0 = 0; c0 < C; c0 += G * kVec) {
@@ -228,60 +267,34 @@ gat_bwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
 #pragma unroll
     for (int k = 0; k < kVec; ++k) acc[k] = 0.f;
     float dsum = 0.f;
-    // stand-ins for removed gathers: the row's own values, loaded once
-    float g_own[kVec] = {};
-    float gden_own = 0.f, h_own = 0.f;
-    if constexpr (!kGatherG) {
-      const float* gr = g + static_cast<size_t>(r) * ldg + hd * C;
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) {
-        const int c = c0 + lane + k * G;
-        g_own[k] = c < C ? __ldg(gr + c) : 0.f;
-      }
-      gden_own = __ldg(g + static_cast<size_t>(r) * ldg + HC + hd);
-    }
-    if constexpr (!kGatherH) {
-      h_own = lane < C ? __ldg(h + static_cast<size_t>(r) * HC + hd * C + lane)
-                       : 0.f;
-    }
     for (int e = e0; e < e1; ++e) {
-      const int other = kIndex ? __ldg(col + e) : r;
+      const int other = __ldg(col + e);
       const int id = kSrc ? __ldg(eid + e) : e;
       const int recv = kSrc ? other : r;
       const int send = kSrc ? r : other;
       const float dr =
-          kSrc && kGatherS ? __ldg(d + static_cast<size_t>(other) * H + hd)
-                           : own;
+          kSrc ? __ldg(d + static_cast<size_t>(other) * H + hd) : own;
       const float sv =
-          kSrc || !kGatherS ? own
-                            : __ldg(s + static_cast<size_t>(other) * H + hd);
+          kSrc ? own : __ldg(s + static_cast<size_t>(other) * H + hd);
       const float zpre = sv + dr;
       const float zl = leaky(zpre, slope) - leaky(mh + dr, slope);
-      const float ex = (kAblate & kNoExp) ? zl : expf(zl);
-      const float ks = (kAblate & kNoDrop)
-                           ? scale
-                           : keep_scale(seed, id, hd, thresh, scale);
+      const float ex = expf(zl);
+      const float ks = keep_scale(seed, id, hd, thresh, scale);
       const float* gn = g + static_cast<size_t>(recv) * ldg + hd * C;
       if (kSrc) {
         const float w = ex * ks;
 #pragma unroll
         for (int k = 0; k < kVec; ++k) {
           const int c = c0 + lane + k * G;
-          if (c < C) acc[k] += (kGatherG ? __ldg(gn + c) : g_own[k]) * w;
+          if (c < C) acc[k] += __ldg(gn + c) * w;
         }
       }
       if (c0 == 0) {
         const float* hs = h + static_cast<size_t>(send) * HC + hd * C;
         float part = 0.f;
-        for (int c = lane; c < C; c += G) {
-          part += (kGatherG ? __ldg(gn + c) : g_own[0]) *
-                  (kGatherH ? __ldg(hs + c) : h_own);
-        }
-        const float dot =
-            (kAblate & kNoShuffle) ? part : group_sum<G>(part, mask);
-        const float gden =
-            kGatherG ? __ldg(g + static_cast<size_t>(recv) * ldg + HC + hd)
-                     : gden_own;
+        for (int c = lane; c < C; c += G) part += __ldg(gn + c) * __ldg(hs + c);
+        const float dot = group_sum<G>(part, mask);
+        const float gden = __ldg(g + static_cast<size_t>(recv) * ldg + HC + hd);
         const float dz = ex * (ks * dot + gden);
         dsum += zpre > 0.f ? dz : slope * dz;
       }
@@ -290,15 +303,151 @@ gat_bwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
 #pragma unroll
       for (int k = 0; k < kVec; ++k) {
         const int c = c0 + lane + k * G;
-        if (c < C && stores) {
-          dh[static_cast<size_t>(r) * HC + hd * C + c] = acc[k];
-        }
+        if (c < C) dh[static_cast<size_t>(r) * HC + hd * C + c] = acc[k];
       }
     }
-    if (c0 == 0 && lane == 0 && stores) {
-      out_h[static_cast<size_t>(r) * H + hd] = dsum;
-    }
+    if (c0 == 0 && lane == 0) out_h[static_cast<size_t>(r) * H + hd] = dsum;
     if (!kSrc) break;  // the receiver side has no per-channel output
+  }
+}
+
+// The backward's arguments beside the lane map.
+struct BwdArgs {
+  const int* row_ptr;
+  const int* col;
+  const int* eid;
+  const float* d;
+  const float* s;
+  const float* h;
+  const float* m;
+  const float* g;
+  const int* seed;
+  float* out_h;
+  float* dh;
+  int n_rows, H, C;
+  uint32_t thresh;
+  float scale, slope;
+};
+
+// Backward over one CSR (kSrc as gat_bwd_heads_kernel), where the H heads
+// divide the L lanes of a row and C <= KC (see the head of this file):
+// lane t of the sub-warp over row r keeps to head t % H and takes the
+// edges e0 + t / H, e0 + t / H + L / H, ... of the row, NB of them with
+// their loads issued together, so each (edge, head) pair is one lane's.
+// kAblate and sink: see the head (0 and 0 in the library).
+template <int L, int V, int KC, bool kSrc, unsigned kAblate = 0>
+__global__ void __launch_bounds__(kThreads)
+gat_bwd_kernel(BwdArgs a, int sink) {
+  using namespace gat_ablate;
+  // edges a lane loads at once: kEdgeLoads, one where a head is wide
+  constexpr int NB = KC <= 8 ? kEdgeLoads : 1;
+  constexpr bool kIndex = !(kAblate & kNoIndex);
+  constexpr bool kGatherS = !(kAblate & kNoGatherS);
+  constexpr bool kGatherG = !(kAblate & kNoGatherG);
+  constexpr bool kGatherH = !(kAblate & kNoGatherH);
+  // the gather of the neighbour's row: h[src] in walk 0, gnum[dst] in 1
+  constexpr bool kGatherRow = kSrc ? kGatherG : kGatherH;
+  const Row<L> row;
+  const int r = blockIdx.x * (kThreads / L) + threadIdx.x / L;
+  if (r >= a.n_rows) return;
+  const int H = a.H, C = a.C, HC = H * C;
+  const size_t ldg = static_cast<size_t>(HC + H);
+  const size_t rrow = static_cast<size_t>(r);
+  const float slope = a.slope;
+  const int hd = row.lane % H;
+  const int r0 = row.lane / H;
+  const int R = L / H;
+  const size_t rh = rrow * H + hd;
+  const uint32_t seed = static_cast<uint32_t>(__ldg(a.seed));
+  const float mh = __ldg(a.m + hd);
+  const bool stores = !(kAblate & kNoStore) || sink != 0;
+  // the row's own terms: d (walk 0) or s (walk 1) of the head, walk 0's
+  // shift and gden, and the head's channels of gnum (walk 0) or h (1)
+  const float own = __ldg((kSrc ? a.s : a.d) + rh);
+  const float shift = leaky(mh + own, slope);
+  const float gden_own = kSrc ? 0.f : __ldg(a.g + rrow * ldg + HC + hd);
+  const float* g_row = a.g + rrow * ldg + hd * C;
+  const float* h_row = a.h + rrow * HC + hd * C;
+  float mine[KC], x_own[KC];
+  load_head<KC, V>(kSrc ? h_row : g_row, C, mine);
+  // stand-ins for removed gathers: the row's own values, loaded once
+  load_head<KC, V>(kSrc ? g_row : h_row, kGatherRow ? 0 : C, x_own);
+  const float t_own = kGatherS ? 0.f : __ldg((kSrc ? a.d : a.s) + rh);
+  const float gden_nb_own =
+      kSrc && !kGatherG ? __ldg(a.g + rrow * ldg + HC + hd) : 0.f;
+  const int e0 = __ldg(a.row_ptr + r);
+  const int e1 = __ldg(a.row_ptr + r + 1);
+  float acc[KC], dsum = 0.f;
+#pragma unroll
+  for (int k = 0; k < KC; ++k) acc[k] = 0.f;
+  for (int e = e0 + r0; e < e1; e += R * NB) {
+    // NB edges: the indices, then every gather, issued together
+    int nb[NB], id[NB];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const int eb = e + b * R;
+      const bool ok = eb < e1;
+      nb[b] = ok && kIndex ? __ldg(a.col + eb) : r;
+      id[b] = kSrc ? (ok ? __ldg(a.eid + eb) : 0) : eb;
+    }
+    float x[NB][KC], tv[NB], gv[NB];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const bool ok = e + b * R < e1;
+      const size_t nrow = static_cast<size_t>(nb[b]);
+      if (kGatherRow) {
+        load_head<KC, V>(kSrc ? a.g + nrow * ldg + hd * C
+                              : a.h + nrow * HC + hd * C,
+                         ok ? C : 0, x[b]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < KC; ++k) x[b][k] = x_own[k];
+      }
+      tv[b] = ok ? (kGatherS ? __ldg((kSrc ? a.d : a.s) + nrow * H + hd)
+                             : t_own)
+                 : 0.f;
+      gv[b] = kSrc && ok ? (kGatherG ? __ldg(a.g + nrow * ldg + HC + hd)
+                                     : gden_nb_own)
+                         : 0.f;
+    }
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      if (e + b * R >= e1) continue;
+      float dot = 0.f;
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+        if (k < C) dot += x[b][k] * mine[k];
+      }
+      const float dr = kSrc ? tv[b] : own;
+      const float zpre = (kSrc ? own : tv[b]) + dr;
+      const float zl =
+          leaky(zpre, slope) - (kSrc ? leaky(mh + dr, slope) : shift);
+      const float ex = (kAblate & kNoExp) ? zl : expf(zl);
+      const float ks = (kAblate & kNoDrop)
+                           ? a.scale
+                           : keep_scale(seed, id[b], hd, a.thresh, a.scale);
+      const float dz = ex * (ks * dot + (kSrc ? gv[b] : gden_own));
+      dsum += zpre > 0.f ? dz : slope * dz;
+      if (kSrc) {
+        // one gathered gnum[dst] row: the dot above and dh here
+        const float w = ex * ks;
+#pragma unroll
+        for (int k = 0; k < KC; ++k) acc[k] += w * x[b][k];
+      }
+    }
+  }
+  // the entry groups' sums meet (the only shuffles: the dot is one
+  // lane's, so kNoShuffle removes these instead)
+  if (!(kAblate & kNoShuffle)) {
+    dsum = row.sum_from(dsum, H);
+    if (kSrc) {
+#pragma unroll
+      for (int k = 0; k < KC; ++k) acc[k] = row.sum_from(acc[k], H);
+    }
+  }
+  if (r0 == 0 && stores) {
+    if (kSrc) store_head<KC, V>(a.dh + rrow * HC + hd * C, C, acc);
+    a.out_h[rh] = dsum;
   }
 }
 
@@ -321,6 +470,87 @@ void with_group_width(int C, Fn&& f) {
   } else {
     f(std::integral_constant<int, 32>{});
   }
+}
+
+// Lanes of a row of gat_bwd_kernel: the fewest of 4, 8, 16 and 32 that
+// hold the H C channels at V a lane; twice that where the n_rows rows at
+// that width fill less than one wave of the card, so that twice the edges
+// of a row go at once.
+int packed_lanes(int H, int C, int V, int n_rows) {
+  int L = 4;
+  while (L < 32 && L * V < H * C) L *= 2;
+  if (L < 32 && static_cast<long long>(n_rows) * L < wave_threads()) L *= 2;
+  return L;
+}
+
+// Where gat_bwd_kernel runs the walk of a (the heads divide the lanes of a
+// row, C <= 32), calls f(L, V, KC) as integral constants (V = 4 where C is
+// a multiple of 4 and h, g, dh and the rows of g are 16-byte aligned; KC
+// = 8 or 32 registers for a head's channels) and returns true; else
+// false, and the first design runs it.
+template <typename Fn>
+bool with_bwd_lanes(const BwdArgs& a, Fn&& f) {
+  const bool aligned = aligned16(a.h) && aligned16(a.g) && aligned16(a.dh) &&
+                       (a.H * a.C + a.H) % 4 == 0;
+  const int V = channels_per_lane(a.C, aligned);
+  const int L = packed_lanes(a.H, a.C, V, a.n_rows);
+  if (L % a.H != 0 || a.C > 32) return false;
+  with_row_lanes(L, V, [&](auto lanes, auto vec) {
+    if (a.C <= 8) {
+      f(lanes, vec, std::integral_constant<int, 8>{});
+    } else {
+      f(lanes, vec, std::integral_constant<int, 32>{});
+    }
+  });
+  return true;
+}
+
+// One launch of gat_bwd_kernel<L, V, KC, src_side, kAblate> with `smem`
+// bytes of (unused) dynamic shared memory per block; the CUDA error.
+template <int L, int V, int KC, unsigned kAblate>
+int launch_bwd(const BwdArgs& a, int src_side, int sink, int smem,
+               cudaStream_t stream) {
+  const auto kernel = src_side ? gat_bwd_kernel<L, V, KC, true, kAblate>
+                               : gat_bwd_kernel<L, V, KC, false, kAblate>;
+  const int rows = kThreads / L;
+  kernel<<<(a.n_rows + rows - 1) / rows, kThreads, smem, stream>>>(a, sink);
+  return static_cast<int>(cudaGetLastError());
+}
+
+BwdArgs bwd_args(void* row_ptr, void* col, void* eid, void* d, void* s,
+                 void* h, void* m, void* g, void* seed, void* out_h,
+                 void* dh, int n_rows, int H, int C, unsigned thresh,
+                 float scale, float slope) {
+  return BwdArgs{static_cast<const int*>(row_ptr),
+                 static_cast<const int*>(col),
+                 static_cast<const int*>(eid),
+                 static_cast<const float*>(d),
+                 static_cast<const float*>(s),
+                 static_cast<const float*>(h),
+                 static_cast<const float*>(m),
+                 static_cast<const float*>(g),
+                 static_cast<const int*>(seed),
+                 static_cast<float*>(out_h),
+                 static_cast<float*>(dh),
+                 n_rows,
+                 H,
+                 C,
+                 thresh,
+                 scale,
+                 slope};
+}
+
+// The first design's backward over one CSR: packed_gat_bwd's arguments.
+int launch_bwd_heads(const BwdArgs& a, int src_side, cudaStream_t stream) {
+  with_group_width(a.C, [&](auto width) {
+    constexpr int G = decltype(width)::value;
+    const auto kernel = src_side ? gat_bwd_heads_kernel<G, true>
+                                 : gat_bwd_heads_kernel<G, false>;
+    kernel<<<blocks_for(a.n_rows, a.H, G), kThreads, 0, stream>>>(
+        a.row_ptr, a.col, a.eid, a.d, a.s, a.h, a.m, a.g, a.seed, a.out_h,
+        a.dh, a.n_rows, a.H, a.C, a.thresh, a.scale, a.slope);
+  });
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -348,26 +578,23 @@ extern "C" int packed_gat_fwd(void* row_ptr, void* col, void* d, void* s,
 // Backward over one CSR. src_side = 0: receiver-major CSR, eid unused
 // (may be null), writes dd (n_rows, H) into out_h, dh unused. src_side =
 // 1: sender-major CSR with its edge ids, writes ds (n_rows, H) into out_h
-// and dh (n_rows, H*C).
+// and dh (n_rows, H*C). gat_bwd_kernel where its lane map covers the row
+// in one pass, else the first design.
 extern "C" int packed_gat_bwd(void* row_ptr, void* col, void* eid, void* d,
                               void* s, void* h, void* m, void* g, void* seed,
                               void* out_h, void* dh, int n_rows, int H, int C,
                               unsigned thresh, float scale, float slope,
                               int src_side, void* stream) {
   if (n_rows > 0 && H > 0 && C > 0) {
-    with_group_width(C, [&](auto width) {
-      constexpr int G = decltype(width)::value;
-      auto kernel = src_side ? gat_bwd_kernel<G, true>
-                             : gat_bwd_kernel<G, false>;
-      kernel<<<blocks_for(n_rows, H, G), kThreads, 0,
-               static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int*>(row_ptr), static_cast<const int*>(col),
-          static_cast<const int*>(eid), static_cast<const float*>(d),
-          static_cast<const float*>(s), static_cast<const float*>(h),
-          static_cast<const float*>(m), static_cast<const float*>(g),
-          static_cast<const int*>(seed), static_cast<float*>(out_h),
-          static_cast<float*>(dh), n_rows, H, C, thresh, scale, slope, 0);
+    const BwdArgs a = bwd_args(row_ptr, col, eid, d, s, h, m, g, seed, out_h,
+                               dh, n_rows, H, C, thresh, scale, slope);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    int rc = 0;
+    const bool lanes = with_bwd_lanes(a, [&](auto l, auto v, auto kc) {
+      rc = launch_bwd<decltype(l)::value, decltype(v)::value,
+                      decltype(kc)::value, 0>(a, src_side, 0, 0, st);
     });
+    return lanes ? rc : launch_bwd_heads(a, src_side, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,6 +16,8 @@ and nothing is written there.
   ``tools/rgcn_sweep.py:build_graph`` does.
 - :func:`bsr_synthetic_masks`: two directed masks, as entry lists, on
   which the block-sparse GAT kernels meet a block-dense mask and hub rows.
+- :func:`gat_hub_edges`: a GAT edge set with a receiver hub and a sender
+  hub, on which the packed-GAT kernels meet hub rows on both sides.
 """
 
 import time
@@ -112,3 +114,18 @@ def bsr_synthetic_masks(seed: int = 0):
                                rng.integers(0, m, 3000), np.full(3000, 10)])
     return (("blocks16384", cols[keep], rows[keep], n, ((8, 8),), 10),
             ("hub5003", hub_cols, hub_rows, m, ((8, 8), (3, 5)), 50))
+
+
+def gat_hub_edges(n: int = 512, seed: int = 8):
+    """(senders, receivers) of a packed-GAT edge set of ``n`` nodes, from
+    ``np.random.default_rng(seed)``: unique (receiver, sender) pairs in
+    receiver-major order with one self loop per node, plus a receiver hub
+    (row 3: 500 senders) and a sender hub (node 10: 400 receivers), and
+    rows with no edges but their loop (nodes n-40 and up)."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, n, 4000)
+    r = rng.integers(0, n - 40, 4000)
+    s = np.concatenate([s, np.arange(500), np.full(400, 10), np.arange(n)])
+    r = np.concatenate([r, np.full(500, 3), np.arange(400), np.arange(n)])
+    key = np.unique(r * n + s)
+    return key % n, key // n

@@ -15,6 +15,7 @@ two-layer GCN forward and backward, and the probes' libraries
 against the kernels they ablate.
 """
 
+import functools
 import shutil
 
 import numpy as np
@@ -94,17 +95,13 @@ def test_spmm_operator_on_card_matches_cpu(cuda_device):
 
 
 def _gat_edges(n=512, seed=8):
-    """Unique (receiver, sender) pairs in receiver-major order with one
-    self loop per node, plus a receiver hub (row 3: 500 senders) and a
-    sender hub (node 10: 400 receivers), and rows with no edges but
-    their loop (nodes n-40 and up)."""
-    rng = np.random.default_rng(seed)
-    s = rng.integers(0, n, 4000)
-    r = rng.integers(0, n - 40, 4000)
-    s = np.concatenate([s, np.arange(500), np.full(400, 10), np.arange(n)])
-    r = np.concatenate([r, np.full(500, 3), np.arange(400), np.arange(n)])
-    key = np.unique(r * n + s)
-    return key % n, key // n
+    """``datasets/graphs.py:gat_hub_edges``: unique (receiver, sender)
+    pairs in receiver-major order with one self loop per node, a receiver
+    hub (row 3: 500 senders), a sender hub (node 10: 400 receivers), and
+    rows with no edges but their loop (nodes n-40 and up)."""
+    from pytorch_geometric_tpu_torch.datasets.graphs import gat_hub_edges
+
+    return gat_hub_edges(n, seed)
 
 
 def _rel_err(got, want):
@@ -177,6 +174,157 @@ def test_packed_flash_gat_on_card_matches_cpu(cuda_device):
     assert cpu[1] == (0, 0) and card[1] == (1, 2)
     for a, b in zip(card[0], cpu[0]):
         assert _rel_err(a, b) <= 1e-5
+
+
+#: Widths at which the redesigned bsr row pass and packed-GAT backward
+#: are held: each branch of their dispatch (float4 and one-float loads
+#: with one and eight heads; an odd width and rows wider than a warp's
+#: loads, which take the first designs).
+REDESIGN_WIDTHS = [(8, 8), (1, 3), (1, 7), (3, 5), (2, 33), (4, 64),
+                   (1, 256)]
+#: Graphs of those tests (:func:`_redesign_edges`).
+REDESIGN_GRAPHS = ["cora", "pubmed_rcm", "hub5003", "blocks16384",
+                   "gat_hub"]
+
+
+@functools.lru_cache(maxsize=None)
+def _redesign_edges(name):
+    """``(senders, receivers, n, empty)`` of a graph of the redesign
+    tests, unique (receiver, sender) pairs in receiver-major order: Cora
+    and PubMed after RCM as the GAT trains on them (``gat_edge_set``),
+    the masks ``hub5003`` and ``blocks16384`` (``bsr_synthetic_masks``),
+    and the hub graph of :func:`_gat_edges`. ``empty``: receivers and
+    senders with no edge (``blocks16384``'s rows 100-139 and columns
+    300-349), where every output must be 0."""
+    from pytorch_geometric_tpu_torch.datasets.graphs import (
+        bsr_synthetic_masks, cora_graph, pubmed_graph)
+    from pytorch_geometric_tpu_torch.nn.conv import gat_edge_set
+
+    empty = ([], [])
+    if name in ("cora", "pubmed_rcm"):
+        graph = (cora_graph("cpu") if name == "cora"
+                 else pubmed_graph("cpu")[:2])[1]
+        return (*gat_edge_set(graph), graph.num_nodes, empty)
+    if name == "gat_hub":
+        return (*_gat_edges(), 512, empty)
+    for mask, senders, receivers, n, _, _ in bsr_synthetic_masks(0):
+        if mask == name:
+            key = np.unique(receivers * n + senders)
+            if mask == "blocks16384":
+                empty = (list(range(100, 140)), list(range(300, 350)))
+            return key % n, key // n, n, empty
+    raise ValueError(name)
+
+
+def _redesign_inputs(n, H, C, device, g_width):
+    gen = torch.Generator(device=device).manual_seed(H * 1000 + C)
+    d, s = (torch.randn(n, H, generator=gen, device=device)
+            for _ in range(2))
+    h = torch.randn(n, H * C, generator=gen, device=device)
+    g = torch.randn(n, g_width, generator=gen, device=device)
+    seed = torch.tensor([123457], dtype=torch.int32, device=device)
+    return d, s, h, g, seed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", REDESIGN_GRAPHS)
+@pytest.mark.parametrize("H,C", REDESIGN_WIDTHS)
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+def test_bsr_gat_row_pass_matches_plain_on_card(cuda_device, graph, H, C,
+                                                rate):
+    """The block-sparse row pass (dd, D) against its plain version, fp32
+    within 1e-5 of the largest reference magnitude, at every width its
+    dispatch tells apart, on the main path's graphs, hub rows and rows
+    without entries (dd and D 0 there); one launch a call, two launches
+    bitwise equal, outputs from torch.empty."""
+    from pytorch_geometric_tpu_torch.ops import bsr_gat as bg
+
+    senders, receivers, n, (empty, _) = _redesign_edges(graph)
+    mask = bg.BlockMask(receivers, senders, n, device=cuda_device)
+    d, s, h, g, seed = _redesign_inputs(n, H, C, cuda_device, H * C)
+    out, lse = bg.bsr_gat_fwd_plain(mask, d, s, h, seed, rate)
+    args = (d, s, h, lse, out, g, seed, rate)
+    want = bg.bsr_gat_bwd_row_plain(mask, *args)
+    before = bg.bsr_gat_bwd_row.launches
+    got, again = (bg.bsr_gat_bwd_row(mask, *args) for _ in range(2))
+    torch.cuda.synchronize()
+    assert bg.bsr_gat_bwd_row.launches - before == 2
+    for a, b, c in zip(got, want, again):
+        assert _rel_err(a, b) <= 1e-5
+        assert torch.equal(a, c)
+        assert (a[empty] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", REDESIGN_GRAPHS)
+@pytest.mark.parametrize("H,C", REDESIGN_WIDTHS)
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+def test_packed_gat_backward_matches_plain_on_card(cuda_device, graph, H, C,
+                                                   rate):
+    """The packed-GAT backward (dd over the receiver-major CSR, ds|dh over
+    the sender-major one) against its plain version, fp32 within 1e-5 of
+    the largest reference magnitude, at every width its dispatch tells
+    apart, on the main path's graphs, hub rows on both sides and rows
+    without edges (dd, ds and dh 0 there); two launches a call, two calls
+    bitwise equal, outputs from torch.empty."""
+    from pytorch_geometric_tpu_torch.ops import packed_gat as pg
+
+    senders, receivers, n, (no_in, no_out) = _redesign_edges(graph)
+    op = pg.PackedFlashGat(senders, receivers, n, device=cuda_device)
+    d, s, h, g, seed = _redesign_inputs(n, H, C, cuda_device, H * C + H)
+    m = s.amax(0)
+    want = pg.packed_gat_bwd_plain(op.fwd, d, s, h, m, seed, g, rate)
+    before = pg.packed_gat_bwd.launches
+    got, again = (pg.packed_gat_bwd(op.fwd, op.bwd, op.bwd_eid, d, s, h, m,
+                                    seed, g, rate) for _ in range(2))
+    torch.cuda.synchronize()
+    assert pg.packed_gat_bwd.launches - before == 4
+    for a, b, c in zip(got, want, again):
+        assert _rel_err(a, b) <= 1e-5
+        assert torch.equal(a, c)
+    dd, ds, dh = got
+    assert (dd[no_in] == 0).all()
+    assert (ds[no_out] == 0).all() and (dh[no_out] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,C", [(8, 8), (1, 7), (3, 5)])
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+def test_packed_gat_designs_agree_on_card(cuda_device, H, C, rate):
+    """``probes/packed_gat_designs.py``: the first design of the backward
+    and the library's, on the hub graph, each within 1e-5 of the plain
+    version and within 1e-6 of each other; equal where the library runs
+    the first design itself (3, 5)."""
+    from probes import packed_gat_designs as pd
+    from pytorch_geometric_tpu_torch.ops import packed_gat as pg
+
+    op = pg.PackedFlashGat(*_gat_edges(), 512, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(H * 1000 + C)
+    _, errors = pd.compare(pd.load(), op, H, C, rate, gen)
+    assert errors["first_vs_plain"] <= 1e-5
+    assert errors["shipped_vs_plain"] <= 1e-5
+    assert errors["first_vs_shipped"] <= (0 if (H, C) == (3, 5) else 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,C", [(8, 8), (1, 3), (3, 5)])
+def test_bsr_gat_designs_agree_on_card(cuda_device, H, C):
+    """``probes/bsr_gat_designs.py``: the first design of the three
+    block-sparse kernels and the library's, on a hub mask, each within
+    1e-5 of the plain versions and within 1e-6 of each other, the row
+    pass's D (summed in one order by both) bitwise."""
+    from probes import bsr_gat_designs as bd
+    from pytorch_geometric_tpu_torch.ops import bsr_gat as bg
+
+    rows, cols = _bsr_entries("hub", 1003)
+    mask = bg.BlockMask(rows, cols, 1003, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(H * 1000 + C)
+    _, errors = bd.compare(bd.load(), mask, H, C, 0.6, gen)
+    assert {k.split("_vs_")[0] for k in errors} >= {
+        "first_bwd_row", "shipped_bwd_row"}
+    assert errors["first_vs_shipped_D"] == 0
+    for key, err in errors.items():
+        assert err <= (1e-6 if "_vs_shipped_" in key else 1e-5), key
 
 
 def _rgcn_edges(case, n=600, R=7, seed=10):
@@ -811,7 +959,7 @@ def test_occupancy_padding_holds_modes_at_full_and_changes_no_output(
         lib = ga.load()
         for walk in (0, 1):
             def blocks(mode, smem):
-                return ga.blocks_per_sm(lib, mode, walk, C, smem)
+                return ga.blocks_per_sm(lib, mode, walk, n, H, C, smem)
             smem, target = occupancy_padding(blocks, list(ga.MODES))
             assert blocks("full", smem) == target
             assert all(blocks(md, smem) <= target for md in ga.MODES)

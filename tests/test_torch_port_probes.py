@@ -30,12 +30,14 @@ from pytorch_geometric_tpu_torch.datasets import Entities, Planetoid
 from pytorch_geometric_tpu_torch.datasets import graphs
 from pytorch_geometric_tpu_torch.kernels import _build
 from probes import (bsr_gat_designs, bsr_gat_variants, gat_ablate,
-                    rgcn_ablate, rgcn_pipe_probe)
+                    packed_gat_designs, packed_gat_variants, rgcn_ablate,
+                    rgcn_pipe_probe)
 
 REPO = Path(__file__).resolve().parents[1]
 SCRIPTS = ["gat_ablate.py", "rgcn_ablate.py", "rgcn_pipe_probe.py",
            "fused_gcn_designs.py", "bsr_gat_designs.py",
-           "bsr_gat_variants.py"]
+           "bsr_gat_variants.py", "packed_gat_designs.py",
+           "packed_gat_variants.py"]
 
 
 def _jax_mutag_rcm(root, scale):
@@ -193,7 +195,8 @@ def test_each_probe_exits_nonzero_without_a_card(script):
     (gat_ablate, ["--modes", "full,noonehot"]),
     (rgcn_ablate, ["--order", "random"]),
     (rgcn_pipe_probe, ["--depths", "1,3"]),
-    (bsr_gat_variants, ["--variants", "rows4,rows8"])])
+    (bsr_gat_variants, ["--variants", "rows4,rows8"]),
+    (packed_gat_variants, ["--variants", "edges2,edges3"])])
 def test_probes_refuse_unknown_modes_orders_and_depths(probe, argv, capsys):
     with pytest.raises(SystemExit) as exc:
         probe.main(argv)
@@ -213,7 +216,7 @@ def test_build_source_follows_includes_into_csrc(tmp_path, monkeypatch):
     gat = tmp_path / "probes" / "packed_gat_ablate.cu"
     rgcn = tmp_path / "probes" / "packed_rgcn_ablate.cu"
     assert [p.name for p in _build._included(gat)] == [
-        "packed_gat_ablate.cu", "packed_gat.cu"]
+        "packed_gat_ablate.cu", "packed_gat.cu", "row_lanes.cuh"]
     before = {p: _build._library_of(p) for p in (gat, rgcn)}
     assert before[gat].name.startswith("libpacked_gat_ablate-")
     assert before[gat].parent == _build.BUILD_DIR
@@ -248,29 +251,82 @@ def test_fused_gcn_designs_builds_through_build_source():
 def test_bsr_gat_designs_times_the_library_beside_its_first_design():
     """The design probe includes the production source (so the shipped
     design is the library's own code, and the staged variant runs the
-    library's row function) and keeps the first design in its own
-    namespace, launched with the library's signatures; its library name
-    hashes ``csrc/bsr_gat.cu`` and ``gat_mask.cuh``, and its cases cover
-    the graphs and widths the main path and the slow spots use."""
+    library's row function) and launches the first design of all three
+    kernels with the library's signatures: its forward and column pass
+    copied into its own namespace, its row pass the library's, which
+    keeps it for one head and the widths its lane map does not cover. Its
+    library name hashes ``csrc/bsr_gat.cu`` and the headers it includes,
+    and its cases cover the graphs and widths the main path and the slow
+    spots use."""
     source = bsr_gat_designs.SOURCE.read_text()
     assert '#include "../pytorch_geometric_tpu_torch/csrc/bsr_gat.cu"' \
         in source
     assert "namespace first_design {" in source
     for kernel in ("bsr_fwd_kernel<KC>", "bsr_bwd_col_kernel<KC>"):
         assert f"first_design::{kernel}" in source
+    assert "return launch_row_heads(" in source
+    library = (_build.SOURCE_DIR / "bsr_gat.cu").read_text()
+    assert "bsr_bwd_row_heads_kernel<KC><<<" in library
+    assert "if (H == 1 || L % H != 0 || C > 32) return;" in library
     assert [p.name for p in _build._included(bsr_gat_designs.SOURCE)] == [
-        "bsr_gat_designs.cu", "bsr_gat.cu", "gat_mask.cuh"]
+        "bsr_gat_designs.cu", "bsr_gat.cu", "row_lanes.cuh",
+        "gat_mask.cuh"]
     sig = _build.SIGNATURES["bsr_gat"]
-    assert bsr_gat_designs.SIGNATURES["first_bsr_gat_fwd"] \
-        == sig["bsr_gat_fwd"]
-    assert bsr_gat_designs.SIGNATURES["first_bsr_gat_bwd_col"] \
-        == sig["bsr_gat_bwd_col"]
+    for kernel in bsr_gat_designs.KERNELS:
+        assert bsr_gat_designs.SIGNATURES[f"first_bsr_gat_{kernel}"] \
+            == sig[f"bsr_gat_{kernel}"]
     assert bsr_gat_designs.SIGNATURES["staged_bsr_gat_fwd"] \
         == sig["bsr_gat_fwd"]
     assert "fwd_row<L, V>(src, i, a," in source
     assert ("pubmed_rcm", 8, 8, 0.6) in bsr_gat_designs.CASES
     assert {c[0] for c in bsr_gat_designs.CASES} == {
         "pubmed_rcm", "cora", "hub5003", "blocks16384"}
+
+
+def test_packed_gat_designs_times_the_library_beside_its_first_design():
+    """The packed-GAT design probe builds through ``build_source`` from a
+    source that includes the production one (so both designs are the
+    library's own code), launches the first design with the library's
+    signature, and covers the main path's graphs and widths, the hub
+    graph, and dropout 0 and 0.6."""
+    source = packed_gat_designs.SOURCE.read_text()
+    text = Path(packed_gat_designs.__file__).read_text()
+    assert "build_source(SOURCE, SIGNATURES)" in text
+    assert '#include "../pytorch_geometric_tpu_torch/csrc/packed_gat.cu"' \
+        in source
+    assert "launch_bwd_heads(" in source
+    library = (_build.SOURCE_DIR / "packed_gat.cu").read_text()
+    assert "gat_bwd_heads_kernel<G, true>" in library
+    assert "rc = launch_bwd<decltype(l)::value" in library
+    assert [p.name for p in _build._included(packed_gat_designs.SOURCE)] \
+        == ["packed_gat_designs.cu", "packed_gat.cu", "row_lanes.cuh"]
+    assert packed_gat_designs.SIGNATURES["first_packed_gat_bwd"] \
+        == _build.SIGNATURES["packed_gat"]["packed_gat_bwd"]
+    assert packed_gat_designs.DESIGNS == ("first", "shipped")
+    cases = packed_gat_designs.CASES
+    assert {c[0] for c in cases} == {"cora", "pubmed_rcm", "hub"}
+    assert {c[3] for c in cases} == {0.0, 0.6}
+    assert {("cora", 8, 8, 0.6), ("cora", 1, 7, 0.6),
+            ("pubmed_rcm", 8, 8, 0.6), ("hub", 8, 8, 0.6)} <= set(cases)
+
+
+def test_gat_hub_edges_hold_their_hubs_and_loops():
+    """The packed-GAT hub graph that the card tests, the design probe and
+    ``chip_smoke.py`` share: unique receiver-major pairs, a self loop on
+    every node, row 3 with over 500 senders, node 10 sending to over 400
+    receivers, nodes n-40 and up receiving only their loop; one graph for
+    one seed."""
+    s, r = graphs.gat_hub_edges()
+    n = 512
+    key = r * n + s
+    assert (np.diff(key) > 0).all()
+    assert set(key[s == r] % n) == set(range(n))
+    assert np.bincount(r, minlength=n)[3] >= 500
+    assert np.bincount(s, minlength=n)[10] >= 400
+    assert (np.bincount(r, minlength=n)[n - 40:] == 1).all()
+    assert all(np.array_equal(a, b)
+               for a, b in zip(graphs.gat_hub_edges(), (s, r)))
+    assert not np.array_equal(graphs.gat_hub_edges(seed=9)[0], s)
 
 
 def test_bsr_synthetic_masks_hold_their_hub_lines_and_empty_lines():
@@ -317,3 +373,29 @@ def test_bsr_phase_clocks_mark_every_phase_of_both_kernels():
     assert 'extern "C" int bsr_clock_read(' in source
     with pytest.raises(ValueError, match="anchor"):
         bsr_gat_variants.variant_source([("no such text", "")])
+
+
+@pytest.mark.parametrize("variant", sorted(packed_gat_variants.VARIANTS))
+def test_each_packed_gat_variant_edits_the_source_once(variant):
+    """Every variant of ``probes/packed_gat_variants.py`` undoes one
+    choice of the current ``csrc/packed_gat.cu``: each of its anchors
+    occurs exactly once there, and the edit changes the source."""
+    _, edits = packed_gat_variants.VARIANTS[variant]
+    source = packed_gat_variants.LIBRARY.read_text()
+    for old, _ in edits:
+        assert source.count(old) == 1, old
+    assert packed_gat_variants.variant_source(edits) != source
+
+
+def test_packed_gat_phase_clocks_mark_every_phase_of_the_backward():
+    """The phase clocks' edits apply to the current source: four reads in
+    the sub-warp backward, the steps of its walk, and the entry point that
+    copies them out, after the source's first include."""
+    edits, signatures, head = packed_gat_variants.PHASES
+    source = packed_gat_variants.variant_source(edits, head)
+    for k in range(4):
+        assert source.count(f"CLOCK(r, {k},") == 1
+    assert "gat_clock[r * 5 + 4] =" in source
+    assert source.index('#include "row_lanes.cuh"') \
+        < source.index('extern "C" int gat_clock_read(')
+    assert list(signatures) == ["gat_clock_read"]
