@@ -6,11 +6,12 @@ Phases, one JSON line each:
 
 1. card      — the card's name and power limit (nvidia-smi);
 2. build     — every CUDA kernel of the port, built with nvcc from csrc/,
-               and the four probe sources probes/packed_gat_ablate.cu,
-               probes/packed_gat_designs.cu, probes/packed_rgcn_ablate.cu
-               and probes/bsr_gat_designs.cu (which include csrc/'s
-               packed_gat.cu, packed_rgcn.cu and bsr_gat.cu): one nvcc per
-               source, all started together;
+               and the six probe sources probes/packed_gat_ablate.cu,
+               probes/packed_gat_designs.cu, probes/packed_rgcn_ablate.cu,
+               probes/bsr_gat_designs.cu, probes/flash_gat_designs.cu and
+               probes/packed_rgcn_designs.cu (which include csrc/'s
+               packed_gat.cu, packed_rgcn.cu, bsr_gat.cu and
+               flash_gat.cu): one nvcc per source, all started together;
 3. kernel    — each kernel against its plain PyTorch version on the
                card, at the shapes the main paths give it, relative to
                the largest reference magnitude, with the kernel's, the
@@ -82,7 +83,14 @@ Phases, one JSON line each:
                plain versions; the same for
                the first design of the bsr row pass and of the packed-GAT
                backward (probes/packed_gat_designs.cu; Cora (8, 8),
-               dropout 0.6); the probe scripts print the timing tables;
+               dropout 0.6); the first design of the dense-mask GAT
+               backward (probes/flash_gat_designs.cu) against the
+               library's at Cora (8, 8), dropout 0.6, within 1e-6 (D
+               bitwise) and both within 1e-5 of the plain version; the
+               first design of the packed-RGCN backward
+               (probes/packed_rgcn_designs.cu) bitwise equal to the
+               library's at MUTAG conv1 and within 1e-5 of the plain
+               version; the probe scripts print the timing tables;
 4. slice     — the GCN path as a user runs it: Planetoid Cora ->
                from_data -> train_gcn(epochs=200, device="cuda"), with
                the kernel's launch count read over exactly that run,
@@ -135,8 +143,8 @@ from pytorch_geometric_tpu_torch.bounds import (
     bsr_gat_bound, flash_gat_bound, fused_gcn_bound, gat_bound, rgcn_bound,
     segment_sum_bound, spmm_bound)
 from pytorch_geometric_tpu_torch.datasets.graphs import (
-    bsr_synthetic_masks, cora_graph, gat_hub_edges, mutag_graph,
-    pubmed_graph)
+    bsr_synthetic_masks, cora_graph, flash_synthetic_masks, gat_hub_edges,
+    mutag_graph, pubmed_graph, rgcn_hub_operator)
 from pytorch_geometric_tpu_torch.profiling import device_ms
 
 DEVICE = "cuda"
@@ -170,10 +178,11 @@ def phase_card():
 def phase_build():
     from pytorch_geometric_tpu_torch.kernels import _build
 
-    from probes import (bsr_gat_designs, gat_ablate, packed_gat_designs,
-                        rgcn_ablate)
+    from probes import (bsr_gat_designs, flash_gat_designs, gat_ablate,
+                        packed_gat_designs, packed_rgcn_designs, rgcn_ablate)
 
-    probes = (gat_ablate, packed_gat_designs, rgcn_ablate, bsr_gat_designs)
+    probes = (gat_ablate, packed_gat_designs, rgcn_ablate, bsr_gat_designs,
+              flash_gat_designs, packed_rgcn_designs)
     t0 = time.perf_counter()
     report = _build.build(sources=[probe.SOURCE for probe in probes])
     for name in _build.SIGNATURES:
@@ -345,28 +354,17 @@ def check_flash_case(graph_name, adj, op, H, C, rate, gen, calls=50):
 
 def _flash_masks(cora):
     """(name, dense mask, (H, C) pairs, rates, timed calls) of the
-    flash-GAT cases: Cora's mask; a half-full directed mask of 2048 nodes
-    with three empty rows and three empty columns; the operator's cap,
-    8192 nodes with PubMed's edges per node (undirected pairs made
-    symmetric, plus self loops)."""
-    import numpy as np
-
+    flash-GAT cases: Cora's mask, and the two masks of
+    ``datasets/graphs.py:flash_synthetic_masks`` (half full at 2048 nodes
+    with empty rows and columns; the operator's cap, 8192 nodes at
+    PubMed's degree)."""
     from pytorch_geometric_tpu_torch.nn.conv import gat_dense_adj
-    from pytorch_geometric_tpu_torch.ops.flash_gat import MAX_NODES
 
-    rng = np.random.default_rng(SEED)
-    half = rng.random((2048, 2048)) < 0.5
-    half[[0, 77, 2047], :] = False
-    half[:, [5, 1000, 2046]] = False
-    n = MAX_NODES
-    pairs = rng.integers(0, n, (2, n * 44324 // 19717))
-    cap = np.zeros((n, n), dtype=bool)
-    cap[pairs[0], pairs[1]] = cap[pairs[1], pairs[0]] = True
-    np.fill_diagonal(cap, True)
+    (half_name, half), (cap_name, cap) = flash_synthetic_masks(SEED)
     return (("cora", gat_dense_adj(cora), ((8, 8), (1, 7)), (0.0, 0.6), 50),
-            ("half2048", torch.from_numpy(half).to(DEVICE), ((8, 8),),
+            (half_name, torch.from_numpy(half).to(DEVICE), ((8, 8),),
              (0.0, 0.6), 50),
-            ("cap8192", torch.from_numpy(cap).to(DEVICE), ((8, 8),),
+            (cap_name, torch.from_numpy(cap).to(DEVICE), ((8, 8),),
              (0.6,), 5))
 
 
@@ -747,29 +745,6 @@ def check_rgcn_case(graph_name, op, B, C, gen):
     return cases
 
 
-def _rgcn_hub_op():
-    """A relational operator whose rows are far from uniform: node 3
-    receives 3000 edges, node 10 sends 2500, relation 2 holds nine edges
-    in ten, with duplicate edges and nodes that have none; 4200 source
-    rows (embed mode)."""
-    import numpy as np
-
-    from pytorch_geometric_tpu_torch.ops.packed_rgcn import PackedRgcnSpmm
-
-    n, R, e = 4096, 7, 30000
-    rng = np.random.default_rng(SEED)
-    s = np.concatenate([rng.integers(0, n - 100, e + 3000),
-                        np.full(2500, 10)])
-    r = np.concatenate([rng.integers(0, n - 100, e), np.full(3000, 3),
-                        rng.integers(0, n - 100, 2500)])
-    et = rng.integers(0, R, s.shape[0])
-    et = np.where(rng.random(s.shape[0]) < 0.9, 2, et)
-    s[:100], r[:100], et[:100] = s[100:200], r[100:200], et[100:200]
-    w = (rng.random(s.shape[0]) + 0.1).astype(np.float32)
-    return PackedRgcnSpmm(s, r, et, R, n, w, num_src_rows=4200,
-                          device=DEVICE)
-
-
 def phase_kernel():
     from pytorch_geometric_tpu_torch.data import from_data
     from pytorch_geometric_tpu_torch.datasets import synthetic_citation_graph
@@ -809,7 +784,8 @@ def phase_kernel():
     embed_op, transform_op = rgcn_fused_ops(mutag, ds.num_relations)
     for graph_name, op, B, C in (("mutag", embed_op, 30, 16),
                                  ("mutag", transform_op, 30, 2),
-                                 ("hub", _rgcn_hub_op(), 5, 33)):
+                                 ("hub", rgcn_hub_operator(DEVICE, SEED), 5,
+                                  33)):
         cases += check_rgcn_case(graph_name, op, B, C, gen)
     cases += phase_kernel_bsr(cora, gen)
     cases += phase_kernel_gcn(cora, gen)
@@ -860,7 +836,9 @@ def phase_probe():
     rgcn_cases = [(name, op, ra.inputs(op, B, C, gen))
                   for name, op, B, C in (("mutag", embed_op, 30, 16),
                                          ("mutag_conv2", transform_op, 30, 2),
-                                         ("hub", _rgcn_hub_op(), 5, 33))]
+                                         ("hub",
+                                          rgcn_hub_operator(DEVICE, SEED), 5,
+                                          33))]
     # the probes' path, counted
     ga.ablate_walk.launches = ra.ablate_bwd.launches = 0
     rp.pipe_fwd.launches = 0
@@ -973,7 +951,8 @@ def phase_probe():
             failed.append((case["kernel"], case["graph"]))
     emit({"phase": "probe", "launches": launches,
           "expected_launches": expected})
-    for design in (probe_bsr_designs(gen), probe_packed_designs(gen)):
+    for design in (probe_bsr_designs(gen), probe_packed_designs(gen),
+                   probe_flash_designs(gen), probe_rgcn_designs(gen)):
         if not design["ok"]:
             failed.append((design["kernel"], design["graph"]))
     if failed:
@@ -1024,6 +1003,52 @@ def probe_packed_designs(gen, rate=0.6):
             "ok": all(err <= (1e-6 if key == "first_vs_shipped"
                               else TOL["fp32"])
                       for key, err in errors.items())}
+    emit(case)
+    return case
+
+
+def probe_flash_designs(gen, rate=0.6):
+    """The first design of the dense-mask GAT backward
+    (``probes/flash_gat_designs.cu``) against the library's at Cora
+    (8, 8), the main path's call: within 1e-6 of each other (dd sums a
+    row's entries in another order), D (summed in one order by both)
+    bitwise, and within 1e-5 of the plain version. The timing table is
+    the probe script's."""
+    from pytorch_geometric_tpu_torch.nn.conv import gat_dense_adj
+    from pytorch_geometric_tpu_torch.ops.flash_gat import BitMask
+    from probes import flash_gat_designs as fd
+
+    adj = gat_dense_adj(cora_graph(DEVICE)[1])
+    _, errors = fd.compare(fd.load(), adj, BitMask(adj), 8, 8, rate, gen)
+    case = {"phase": "probe", "kernel": "flash_gat_designs",
+            "graph": "cora", "H": 8, "C": 8, "rate": rate,
+            "errors": errors, "tol_designs": 1e-6, "tol": TOL["fp32"],
+            "ok": errors["first_vs_shipped_D"] == 0 and all(
+                err <= (1e-6 if key == "first_vs_shipped" else TOL["fp32"])
+                for key, err in errors.items())}
+    emit(case)
+    return case
+
+
+def probe_rgcn_designs(gen):
+    """The first design of the packed-RGCN backward
+    (``probes/packed_rgcn_designs.cu``) against the library's at MUTAG
+    conv1 (30, 16), the main path's largest call: bitwise equal (both sum
+    in one order) and within 1e-5 of the plain version. The timing table
+    is the probe script's."""
+    from pytorch_geometric_tpu_torch.models.entities import rgcn_fused_ops
+    from probes import packed_rgcn_designs as rd
+
+    ds, mutag = mutag_graph(DEVICE)
+    op = rgcn_fused_ops(mutag, ds.num_relations)[0]
+    agree = rd.compare(rd.load(), op, *rd.inputs(op, 30, 16, gen))
+    case = {"phase": "probe", "kernel": "packed_rgcn_designs",
+            "graph": "mutag", "B": 30, "C": 16,
+            "rel_err_vs_plain": {k: v[0] for k, v in agree.items()},
+            "bitwise_vs_shipped": {k: v[1] for k, v in agree.items()},
+            "tol": TOL["fp32"],
+            "ok": all(err <= TOL["fp32"] and same
+                      for err, same in agree.values())}
     emit(case)
     return case
 

@@ -11,9 +11,11 @@
 //
 // Backward: the production source is included, and each variant
 // instantiates rgcn_bwd_kernel with one bit of rgcn_ablate set, so the
-// probe times the kernel that ships. Every mode, full (0) included, is
-// launched here, through one table of kernel instantiations, followed by
-// the library's two datt reduction kernels (skipped by kNoDatt). Full is
+// probe times the kernel that ships (its one walk: nodxb_walk and
+// nodae_walk remove the dxB and the dae term of it). Every mode, full (0)
+// included, is launched here, through one table of kernel
+// instantiations, followed by the library's two datt reduction kernels
+// (skipped by kNoDatt). Full is
 // instantiated at every channel width, the other modes at those of the
 // MUTAG path only (C = 2 and 9..16); anything else returns
 // cudaErrorInvalidValue. Variants other than full are wrong on purpose.
@@ -55,16 +57,17 @@ BwdWalk ablated(unsigned mode) {
 #undef PROBE_MODE
 }
 
-// The walk kernel of `mode` at the channel width of C, or null.
+// The walk kernel of `mode` at the backward's channel width of C
+// (with_bwd_width), or null.
 BwdWalk bwd_walk(unsigned mode, int C) {
   BwdWalk walk = nullptr;
   if (C <= 0) return walk;
-  with_channel_width(C, [&](auto width) {
+  with_bwd_width(C, [&](auto width) {
     constexpr int CP = decltype(width)::value;
     if (mode == 0) {
       walk = rgcn_bwd_kernel<CP, 0>;
     } else if constexpr (CP == 2 || CP == 16) {
-      walk = ablated<CP>(mode);
+      if (C <= 16) walk = ablated<CP>(mode);
     }
   });
   return walk;
@@ -245,7 +248,7 @@ extern "C" int packed_rgcn_ablate_bwd(void* row_ptr, void* col, void* et,
         static_cast<const int*>(pos), static_cast<const float*>(xB),
         static_cast<const float*>(att), static_cast<const float*>(g),
         static_cast<float*>(dxB), static_cast<float*>(dae), n_rows, B, C,
-        sink);
+        bwd_vec(C, xB, g, dxB), sink);
     int rc = static_cast<int>(cudaGetLastError());
     if (rc != 0) return rc;
   }

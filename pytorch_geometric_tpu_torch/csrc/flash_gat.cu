@@ -38,14 +38,10 @@
 // bound by bytes, about a microsecond at 3072 nodes, so a call there is
 // bound by latency and by how many lanes have work: the dependent loads
 // of a row's words, then of its senders. A half-full mask is bound by
-// operations. On an H100 at 700 W (chip_smoke.py; PERF.md) the forward
-// takes 14 us and the backward, two launches, 24 us at Cora's conv1
-// shapes (3072 rows, 13.6k valid entries, H = 8, C = 8; bounds 0.9 and
-// 1.4 us), 41 and 76 us at 8192 rows of PubMed's degree (bounds 4.0 and
-// 5.4 us), and 162 and 371 us on a half-full mask of 2048 rows (bounds
-// 6.0 and 11.0 us).
+// operations.
 //
-// Design:
+// Forward (flash_fwd_kernel) and the backward's first design
+// (flash_bwd_row_heads_kernel, flash_bwd_col_heads_kernel):
 // - A group of 8 lanes owns one (row, head) pair (the column pass: one
 //   (column, head) pair), so a warp works on four pairs at once. Lane l of
 //   the group takes the words l, l + 8, ... of the mask row, four at a
@@ -55,35 +51,73 @@
 //   with_channel_chunk). C > 32 takes one walk per chunk of 32 channels,
 //   and forms the dot <g, h> of the backward over all C channels from
 //   memory on each walk.
-// - A call on a sparse mask is a chain of loads that wait for each other
-//   (a row's words, then its senders' s and h), and its time follows the
-//   length of that chain. So a lane loads four words before it looks at
-//   any, the entries of a row are spread over the lanes, and the forward
-//   makes one walk with an online softmax (a lane rescales its sums when
-//   it meets a larger logit) where a first walk for the maximum would
-//   double the chain. The lanes' (max, sum) pairs are merged after the
-//   walk.
-// - The lanes' sums meet in reduce_scatter, a butterfly within the group
-//   in which each step sends half of a lane's values and keeps the other
-//   half: 7 shuffles for 8 values. It is a fixed tree: no atomics, and two
-//   launches give bitwise equal results. Every output element is written,
-//   rows and columns without entries as 0, so outputs may come from
-//   torch.empty.
+// - The forward makes one walk with an online softmax (a lane rescales
+//   its sums when it meets a larger logit) where a first walk for the
+//   maximum would double the chain; the lanes' (max, sum) pairs are
+//   merged after the walk. The lanes' sums meet in reduce_scatter, a
+//   fixed tree (gat_mask.cuh).
+//
+// Backward (flash_bwd_row_kernel, flash_bwd_col_kernel): a warp per mask
+// row over all heads, one lane per (entry, head), the map of the
+// block-sparse row pass (bsr_gat.cu) on the dense mask, in both passes:
+// - The 32 lanes of a warp own one row of the mask (the column pass: one
+//   row of the transposed mask) over all H heads, so a row's words are
+//   read once, not once per head. A launch holds at most 8192 rows, under
+//   one wave of the card at 32 lanes a row, so fewer lanes would only
+//   leave more of the card idle (at one head 16 and 8 lanes were slower:
+//   PERF.md).
+// - decode_chunk: lane l loads the words l, l + 32, ..., kWordsPerLane of
+//   them at once, so a row of up to 256 words (8192 nodes) is one round
+//   trip, where the first design's groups took three rounds of four words
+//   a lane; __popc and a prefix sum over the lanes (skipped for a step of
+//   words that holds no entry) give each set bit its rank, and the
+//   columns of ranks [start, start + chunk) go to a list in shared
+//   memory, in column order. A row with more entries than a chunk (a
+//   half-full mask) is taken chunk after chunk; a lane visits the bits of
+//   a word only where its ranks meet the chunk.
+// - Lane t keeps to head t % H (H dividing 32, C <= 32) and takes every
+//   (32 / H)-th entry of a chunk, so each (entry, head) pair is one
+//   lane's: it forms the pair's exp, hash and dz once, without a shuffle,
+//   and gathers the neighbour's slice of its head as whole 16-byte loads,
+//   rows_in_flight entries at once. Row pass: the head's g[i] in
+//   registers, D = <g[i], out[i]>, d[i], lse[i] and the salt once per row;
+//   per entry h[j] and s[j]. Column pass: the head's h[j] in registers;
+//   per entry the g[i] slice, which serves both the dot <g[i], h[j]> and
+//   dh[j] += beta g[i], and d, lse and D of (i, head). The entry groups'
+//   sums (dd; ds and dh) meet in a fixed tree of shuffles.
+// - D is summed in a group's order and the dot channel after channel, as
+//   the first design sums them (gat_mask.cuh: dot_in_group_order), so D
+//   and each pair's dz are bitwise the first design's; dd, ds and dh sum
+//   the entries in another order (within 1e-6 of the largest magnitude at
+//   Cora, 2e-6 on a half-full mask whose sums run over 1,000 terms).
+// - The first design stays where this map does not apply: a head count
+//   that does not divide 32, or heads wider than 32 channels.
 // - The row pass also writes D (n, H), which the column pass reads: the
-//   two launches go on one stream, in that order.
+//   two launches go on one stream, in that order. Every output element is
+//   written, rows and columns without entries as 0, so outputs may come
+//   from torch.empty. Sums are fixed trees: no atomics, and two launches
+//   give bitwise equal results.
 // - The seed is read from device memory, so the caller never waits on the
 //   card for it. fp32 throughout; expf and logf (not the fast intrinsics)
 //   and no fast-math flags, so the kernels hold 1e-5 against the plain
 //   PyTorch versions.
-// The designs that were measured and dropped are in PERF.md. The hash and
-// the group's reductions live in gat_mask.cuh, shared with the
-// block-sparse kernels of bsr_gat.cu.
+//
+// Times on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py and
+// probes/flash_gat_designs.py, which times both designs of the backward
+// in one run; PERF.md): the forward 14 us at Cora's conv1 shapes (3072
+// rows, 13.6k valid entries, H = C = 8; bound 0.9 us), 41 us at 8192 rows
+// of PubMed's degree (bound 4.0), 162 us on a half-full mask of 2048 rows
+// (bound 6.0). The backward, both passes, first design -> this one: Cora
+// conv1 (dropout 0.6) 22.7 -> 10.2 us (bound 1.4), conv2 (1, 7) 15.8 ->
+// 10.6 (bound 0.5), 8192 rows 72.3 -> 24.4 (bound 5.4), the half-full mask
+// 375 -> 187 (bound 11.0).
 //
 // Plain C interface, bound from Python with ctypes
 // (pytorch_geometric_tpu_torch/ops/flash_gat.py); each launch goes on the
 // caller's stream and the function returns cudaGetLastError().
 
 #include "gat_mask.cuh"
+#include "row_lanes.cuh"
 
 namespace {
 
@@ -171,19 +205,21 @@ flash_fwd_kernel(const uint32_t* __restrict__ bits,
   }
 }
 
-// Backward, row pass: group (i, hd) over row i of the mask; writes dd and
-// D = <g[i], out[i]> of the head.
+// Backward, row pass, the first design: group (i, hd) over row i of the
+// mask; writes dd and D = <g[i], out[i]> of the head.
 template <int KC>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_row_kernel(const uint32_t* __restrict__ bits,
-                     const float* __restrict__ d, const float* __restrict__ s,
-                     const float* __restrict__ h,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ out,
-                     const float* __restrict__ g,
-                     const int* __restrict__ seed_ptr, float* __restrict__ dd,
-                     float* __restrict__ D, int n, int W, int H, int C,
-                     uint32_t thresh, float scale, float slope) {
+flash_bwd_row_heads_kernel(const uint32_t* __restrict__ bits,
+                           const float* __restrict__ d,
+                           const float* __restrict__ s,
+                           const float* __restrict__ h,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ out,
+                           const float* __restrict__ g,
+                           const int* __restrict__ seed_ptr,
+                           float* __restrict__ dd, float* __restrict__ D,
+                           int n, int W, int H, int C, uint32_t thresh,
+                           float scale, float slope) {
   int i, hd;
   if (!group_pair(n, H, &i, &hd)) return;
   const Group grp;
@@ -233,18 +269,21 @@ flash_bwd_row_kernel(const uint32_t* __restrict__ bits,
   }
 }
 
-// Backward, column pass: group (j, hd) over row j of the transposed mask
-// (bit i of that row: adj[i][j]); writes ds and dh.
+// Backward, column pass, the first design: group (j, hd) over row j of the
+// transposed mask (bit i of that row: adj[i][j]); writes ds and dh.
 template <int KC>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_col_kernel(const uint32_t* __restrict__ bits_t,
-                     const float* __restrict__ d, const float* __restrict__ s,
-                     const float* __restrict__ h,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ D, const float* __restrict__ g,
-                     const int* __restrict__ seed_ptr, float* __restrict__ ds,
-                     float* __restrict__ dh, int n, int W, int H, int C,
-                     uint32_t thresh, float scale, float slope) {
+flash_bwd_col_heads_kernel(const uint32_t* __restrict__ bits_t,
+                           const float* __restrict__ d,
+                           const float* __restrict__ s,
+                           const float* __restrict__ h,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ D,
+                           const float* __restrict__ g,
+                           const int* __restrict__ seed_ptr,
+                           float* __restrict__ ds, float* __restrict__ dh,
+                           int n, int W, int H, int C, uint32_t thresh,
+                           float scale, float slope) {
   int j, hd;
   if (!group_pair(n, H, &j, &hd)) return;
   const Group grp;
@@ -300,6 +339,388 @@ flash_bwd_col_kernel(const uint32_t* __restrict__ bits_t,
   }
 }
 
+// Mask words a lane of the sub-warp design loads in one pass of
+// decode_chunk, all at once.
+constexpr int kWordsPerLane = 8;
+// (entry, head) pairs of a column-list chunk, per lane of the row.
+constexpr int kPairsPerLane = 32;
+// Lanes of a row in the library: a whole warp. A launch of at most
+// MAX_NODES = 8192 rows (ops/flash_gat.py) holds 8192 * 32 threads, under
+// one wave of the card, so every narrower sub-warp would leave lanes idle.
+constexpr int kRowLanes = 32;
+
+__host__ __device__ constexpr int chunk_of(int H, int L) {
+  return H < L * kPairsPerLane ? L * kPairsPerLane / H : 1;
+}
+
+// Neighbour rows a lane loads before it uses any of them, at KC channels
+// of a head in registers.
+__host__ __device__ constexpr int rows_in_flight(int KC) {
+  return KC > 8 ? 1 : 2;
+}
+
+// A row's place in its decode: the first word not yet wholly taken, the
+// entries before it, and the rank of the next chunk's first entry.
+struct Cursor {
+  int word, rank, start;
+};
+
+// Writes the columns of the entries of ranks [start, start + chunk) of
+// the mask row `bits` (W words) to cols, in order, and returns how many
+// there are (chunk, or fewer at the row's end). A pass covers
+// kWordsPerLane * L words: lane l loads the words l, l + L, l + 2 L, ...
+// of it at once (each load a coalesced line of the warp), and a prefix sum
+// over the lanes of each step's __popc gives each set bit its rank, in
+// column order; a step without an entry in any lane's word (most of a
+// sparse row) takes no prefix sum. A lane visits the bits of a word only
+// where the word's ranks meet the chunk. A step that crosses the chunk's
+// end is read again by the next chunk.
+template <int L>
+__device__ __forceinline__ int decode_chunk(const uint32_t* __restrict__ bits,
+                                            int W, Cursor& cur, int* cols,
+                                            int chunk, const Row<L>& row) {
+  row.sync();   // the lanes are done with the previous chunk
+  const int end = cur.start + chunk;
+  int total = cur.rank;   // entries in the words read so far
+  bool full = false;
+  while (!full && cur.word < W) {
+    uint32_t wd[kWordsPerLane];
+#pragma unroll
+    for (int k = 0; k < kWordsPerLane; ++k) {
+      const int w = cur.word + k * L + row.lane;
+      wd[k] = w < W ? __ldg(bits + w) : 0u;
+    }
+    // the steps that hold an entry in any lane's word: the others need
+    // no prefix sum
+    unsigned live = 0u;
+#pragma unroll
+    for (int k = 0; k < kWordsPerLane; ++k) {
+      live |= (wd[k] != 0u ? 1u : 0u) << k;
+    }
+    live = __reduce_or_sync(row.mask, live);
+    const int w0 = cur.word;
+#pragma unroll
+    for (int k = 0; k < kWordsPerLane; ++k) {
+      if (w0 + k * L >= W) break;   // the same for every lane
+      if (!((live >> k) & 1u)) {    // no entry: the chunk is not full yet
+        cur.word = w0 + (k + 1) * L;
+        cur.rank = total;
+        continue;
+      }
+      const int pc = __popc(wd[k]);
+      const int after = total + row.scan(pc);   // entries through my word
+      int r = after - pc;
+      if (r < end && after > cur.start) {
+        uint32_t word = wd[k];
+        while (word && r < end) {
+          const int bit = __ffs(word) - 1;
+          word &= word - 1u;
+          if (r >= cur.start) {
+            cols[r - cur.start] = (w0 + k * L + row.lane) * 32 + bit;
+          }
+          ++r;
+        }
+      }
+      total = row.bcast(after, L - 1);
+      if (total <= end) {   // the step is wholly inside the chunks so far
+        cur.word = w0 + (k + 1) * L;
+        cur.rank = total;
+      }
+      if (total >= end) {
+        full = true;
+        break;
+      }
+    }
+  }
+  const int got = min(chunk, total - cur.start);
+  cur.start = end;
+  row.sync();
+  return max(got, 0);
+}
+
+// Backward, row pass of the sub-warp design, where H divides L and
+// C <= KC: the L lanes of a sub-warp over row i of the mask, all heads;
+// writes dd and D. Lane t keeps to head t % H and takes the entries
+// t / H, t / H + L / H, ... of each chunk (see the head of this file).
+// Only the column list goes through shared memory; the entry groups'
+// sums meet in a fixed tree.
+template <int L, int V, int KC>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_row_kernel(const uint32_t* __restrict__ bits,
+                     const float* __restrict__ d,
+                     const float* __restrict__ s, const float* __restrict__ h,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ out,
+                     const float* __restrict__ g,
+                     const int* __restrict__ seed_ptr, float* __restrict__ dd,
+                     float* __restrict__ D, int n, int W, int H, int C,
+                     uint32_t thresh, float scale, float slope) {
+  constexpr int NB = rows_in_flight(KC);
+  extern __shared__ int smem[];
+  const Row<L> row;
+  const int sub = threadIdx.x / L;
+  const int i = blockIdx.x * (blockDim.x / L) + sub;
+  if (i >= n) return;
+  const int HC = H * C;
+  const size_t irow = static_cast<size_t>(i);
+  const int chunk = chunk_of(H, L);
+  int* cols = smem + sub * chunk;   // senders j
+  const int hd = row.lane % H;
+  const int r0 = row.lane / H;
+  const int R = L / H;
+  const size_t ih = irow * H + hd;
+  const float* gi = g + irow * HC + hd * C;
+  float greg[KC];
+  load_head<KC, V>(gi, C, greg);
+  const float di = __ldg(d + ih);
+  const float lse_i = __ldg(lse + ih);
+  const uint32_t salt = hash_salt(static_cast<uint32_t>(__ldg(seed_ptr)), hd);
+  const float Di = dot_in_group_order(gi, out + irow * HC + hd * C, C);
+  float dd_acc = 0.f;
+  Cursor cur{0, 0, 0};
+  const uint32_t* mrow = bits + irow * W;
+  for (;;) {
+    const int ne = decode_chunk<L>(mrow, W, cur, cols, chunk, row);
+    if (ne == 0) break;
+    // NB entries a lane at once, every load of them issued together
+    for (int e0 = r0; e0 < ne; e0 += R * NB) {
+      float hv[NB][KC], sv[NB];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const int e = e0 + b * R;
+        const size_t j = e < ne ? static_cast<size_t>(cols[e]) : irow;
+        load_head<KC, V>(h + j * HC + hd * C, e < ne ? C : 0, hv[b]);
+        sv[b] = e < ne ? __ldg(s + j * H + hd) : 0.f;
+      }
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const int e = e0 + b * R;
+        if (e >= ne) continue;
+        float dot = 0.f;
+#pragma unroll
+        for (int k = 0; k < KC; ++k) {
+          if (k < C) dot += greg[k] * hv[b][k];
+        }
+        const float zpre = di + sv[b];
+        const float alpha = expf(leaky(zpre, slope) - lse_i);
+        const float ks = keep_scale(salt, i, cols[e], thresh, scale);
+        const float dz = alpha * (ks * dot - Di);
+        dd_acc += zpre > 0.f ? dz : slope * dz;
+      }
+    }
+    if (ne < chunk) break;
+  }
+  // the entry groups' sums meet
+  dd_acc = row.sum_from(dd_acc, H);
+  if (r0 == 0) {
+    dd[ih] = dd_acc;
+    D[ih] = Di;
+  }
+}
+
+// Backward, column pass of the sub-warp design, where H divides L and
+// C <= KC: the L lanes of a sub-warp over row j of the transposed mask (an
+// entry i of that row: the mask's entry (i, j)), all heads; writes ds and
+// dh. Lane t keeps to head t % H, holds the head's channels of h[j] in
+// registers and takes the entries t / H, t / H + L / H, ... of each chunk:
+// per entry it gathers the head's slice of the g[i] row (whole 16-byte
+// loads), which serves both the dot <g[i], h[j]> and dh[j] += beta g[i],
+// and d, lse and D of (i, head), and forms alpha, keep, beta and dz once,
+// without a shuffle. Only the column list goes through shared memory; the
+// entry groups' sums meet in a fixed tree.
+template <int L, int V, int KC>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_col_kernel(const uint32_t* __restrict__ bits_t,
+                     const float* __restrict__ d,
+                     const float* __restrict__ s, const float* __restrict__ h,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ D, const float* __restrict__ g,
+                     const int* __restrict__ seed_ptr, float* __restrict__ ds,
+                     float* __restrict__ dh, int n, int W, int H, int C,
+                     uint32_t thresh, float scale, float slope) {
+  constexpr int NB = rows_in_flight(KC);
+  extern __shared__ int smem[];
+  const Row<L> row;
+  const int sub = threadIdx.x / L;
+  const int j = blockIdx.x * (blockDim.x / L) + sub;
+  if (j >= n) return;
+  const int HC = H * C;
+  const size_t jrow = static_cast<size_t>(j);
+  const int chunk = chunk_of(H, L);
+  int* cols = smem + sub * chunk;   // receivers i
+  const int hd = row.lane % H;
+  const int r0 = row.lane / H;
+  const int R = L / H;
+  const size_t jh = jrow * H + hd;
+  float hreg[KC];
+  load_head<KC, V>(h + jrow * HC + hd * C, C, hreg);
+  const float sj = __ldg(s + jh);
+  const uint32_t salt = hash_salt(static_cast<uint32_t>(__ldg(seed_ptr)), hd);
+  float acc[KC], ds_acc = 0.f;
+#pragma unroll
+  for (int k = 0; k < KC; ++k) acc[k] = 0.f;
+  Cursor cur{0, 0, 0};
+  const uint32_t* mrow = bits_t + jrow * W;
+  for (;;) {
+    const int ne = decode_chunk<L>(mrow, W, cur, cols, chunk, row);
+    if (ne == 0) break;
+    // NB entries a lane at once, every load of them issued together
+    for (int e0 = r0; e0 < ne; e0 += R * NB) {
+      float gv[NB][KC], dv[NB], lv[NB], Dv[NB];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const int e = e0 + b * R;
+        const size_t i = e < ne ? static_cast<size_t>(cols[e]) : jrow;
+        load_head<KC, V>(g + i * HC + hd * C, e < ne ? C : 0, gv[b]);
+        const size_t ih = i * H + hd;
+        dv[b] = e < ne ? __ldg(d + ih) : 0.f;
+        lv[b] = e < ne ? __ldg(lse + ih) : 0.f;
+        Dv[b] = e < ne ? __ldg(D + ih) : 0.f;
+      }
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const int e = e0 + b * R;
+        if (e >= ne) continue;
+        float dot = 0.f;
+#pragma unroll
+        for (int k = 0; k < KC; ++k) dot += gv[b][k] * hreg[k];
+        const float zpre = dv[b] + sj;
+        const float alpha = expf(leaky(zpre, slope) - lv[b]);
+        const float ks = keep_scale(salt, cols[e], j, thresh, scale);
+        const float beta = alpha * ks;
+        const float dz = alpha * (ks * dot - Dv[b]);
+        ds_acc += zpre > 0.f ? dz : slope * dz;
+#pragma unroll
+        for (int k = 0; k < KC; ++k) acc[k] += beta * gv[b][k];
+      }
+    }
+    if (ne < chunk) break;
+  }
+  // the entry groups' sums meet
+  ds_acc = row.sum_from(ds_acc, H);
+#pragma unroll
+  for (int k = 0; k < KC; ++k) acc[k] = row.sum_from(acc[k], H);
+  if (r0 == 0) {
+    store_head<KC, V>(dh + jrow * HC + hd * C, C, acc);
+    ds[jh] = ds_acc;
+  }
+}
+
+// Launches kernel over n rows of L lanes each, kThreads / L rows a block,
+// with `ints` ints of dynamic shared memory a row.
+template <int L, typename Kernel, typename... Args>
+int launch_rows(Kernel kernel, int n, int ints, cudaStream_t stream,
+                Args... args) {
+  constexpr int rows = kThreads / L;
+  const size_t bytes = static_cast<size_t>(rows) * ints * sizeof(int);
+  const int grid = (n + rows - 1) / rows;
+  kernel<<<grid, kThreads, bytes, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward's arguments, as flash_gat_bwd_row and flash_gat_bwd_col
+// take them: the row pass's (lse, out) -> (dd, D), the column pass's
+// (lse, D) -> (ds, dh).
+struct BwdArgs {
+  const uint32_t* bits;
+  const float *d, *s, *h, *lse, *in, *g;
+  const int* seed;
+  float *o1, *o2;
+  int n, W, H, C;
+  uint32_t thresh;
+  float scale, slope;
+  cudaStream_t stream;
+};
+
+BwdArgs bwd_args(void* bits, void* d, void* s, void* h, void* lse,
+                 void* in, void* g, void* seed, void* o1, void* o2, int n,
+                 int W, int H, int C, unsigned thresh, float scale,
+                 float slope, void* stream) {
+  return BwdArgs{static_cast<const uint32_t*>(bits),
+                 static_cast<const float*>(d), static_cast<const float*>(s),
+                 static_cast<const float*>(h), static_cast<const float*>(lse),
+                 static_cast<const float*>(in), static_cast<const float*>(g),
+                 static_cast<const int*>(seed), static_cast<float*>(o1),
+                 static_cast<float*>(o2), n, W, H, C, thresh, scale, slope,
+                 static_cast<cudaStream_t>(stream)};
+}
+
+// The first design of the row pass, at any width.
+int launch_row_heads(const BwdArgs& a) {
+  with_channel_chunk(a.C, [&](auto chunk) {
+    constexpr int KC = decltype(chunk)::value;
+    flash_bwd_row_heads_kernel<KC><<<blocks_for(a.n, a.H), kThreads, 0,
+                                     a.stream>>>(
+        a.bits, a.d, a.s, a.h, a.lse, a.in, a.g, a.seed, a.o1, a.o2, a.n, a.W,
+        a.H, a.C, a.thresh, a.scale, a.slope);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The first design of the column pass, at any width.
+int launch_col_heads(const BwdArgs& a) {
+  with_channel_chunk(a.C, [&](auto chunk) {
+    constexpr int KC = decltype(chunk)::value;
+    flash_bwd_col_heads_kernel<KC><<<blocks_for(a.n, a.H), kThreads, 0,
+                                     a.stream>>>(
+        a.bits, a.d, a.s, a.h, a.lse, a.in, a.g, a.seed, a.o1, a.o2, a.n, a.W,
+        a.H, a.C, a.thresh, a.scale, a.slope);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches a pass of the sub-warp design (flash_bwd_row_kernel or
+// flash_bwd_col_kernel, as Pass<L, V, KC>::kernel gives it) at L lanes a
+// row (4, 8, 16 or 32; the library takes kRowLanes), V channels a load
+// where the rows are 16-byte aligned (`aligned`); -1 where its map does
+// not take (H, C): H must divide L and a head hold at most 32 channels.
+template <template <int, int, int> class Pass, int L>
+int launch_lanes(const BwdArgs& a, bool aligned) {
+  if (a.C > 32 || L % a.H != 0) return -1;
+  int rc = -1;
+  const auto launch = [&](auto v) {
+    constexpr int V = decltype(v)::value;
+    with_channel_chunk(a.C, [&](auto chunk) {
+      constexpr int KC = decltype(chunk)::value;
+      rc = launch_rows<L>(Pass<L, V, KC>::kernel, a.n, chunk_of(a.H, L),
+                          a.stream, a.bits, a.d, a.s, a.h, a.lse, a.in, a.g,
+                          a.seed, a.o1, a.o2, a.n, a.W, a.H, a.C, a.thresh,
+                          a.scale, a.slope);
+    });
+  };
+  if (channels_per_lane(a.C, aligned) == 4) {
+    launch(std::integral_constant<int, 4>{});
+  } else {
+    launch(std::integral_constant<int, 1>{});
+  }
+  return rc;
+}
+
+template <int L, int V, int KC>
+struct RowPass {
+  static constexpr auto kernel = flash_bwd_row_kernel<L, V, KC>;
+};
+template <int L, int V, int KC>
+struct ColPass {
+  static constexpr auto kernel = flash_bwd_col_kernel<L, V, KC>;
+};
+
+// The sub-warp design of the row pass at L lanes a row; -1 where its map
+// does not take (H, C).
+template <int L = kRowLanes>
+int launch_row_lanes(const BwdArgs& a) {
+  return launch_lanes<RowPass, L>(
+      a, aligned16(a.h) && aligned16(a.g) && aligned16(a.in));
+}
+
+// The sub-warp design of the column pass at L lanes a row; -1 where its
+// map does not take (H, C).
+template <int L = kRowLanes>
+int launch_col_lanes(const BwdArgs& a) {
+  return launch_lanes<ColPass, L>(
+      a, aligned16(a.h) && aligned16(a.g) && aligned16(a.o2));
+}
+
 }  // namespace
 
 // Forward: out (n, H*C) and lse (n, H) from the bit-packed mask (n, W).
@@ -321,47 +742,35 @@ extern "C" int flash_gat_fwd(void* bits, void* d, void* s, void* h,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Backward, row pass: dd (n, H) and D (n, H) from the mask.
+// Backward, row pass: dd (n, H) and D (n, H) from the mask. The sub-warp
+// design where its map takes (H, C); the first design elsewhere.
 extern "C" int flash_gat_bwd_row(void* bits, void* d, void* s, void* h,
                                  void* lse, void* out, void* g, void* seed,
                                  void* dd, void* D, int n, int W, int H,
                                  int C, unsigned thresh, float scale,
                                  float slope, void* stream) {
   if (n > 0 && H > 0 && C > 0) {
-    with_channel_chunk(C, [&](auto chunk) {
-      constexpr int KC = decltype(chunk)::value;
-      flash_bwd_row_kernel<KC><<<blocks_for(n, H), kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const uint32_t*>(bits), static_cast<const float*>(d),
-          static_cast<const float*>(s), static_cast<const float*>(h),
-          static_cast<const float*>(lse), static_cast<const float*>(out),
-          static_cast<const float*>(g), static_cast<const int*>(seed),
-          static_cast<float*>(dd), static_cast<float*>(D), n, W, H, C, thresh,
-          scale, slope);
-    });
+    const BwdArgs a = bwd_args(bits, d, s, h, lse, out, g, seed, dd, D, n, W,
+                               H, C, thresh, scale, slope, stream);
+    const int rc = launch_row_lanes(a);
+    return rc >= 0 ? rc : launch_row_heads(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // Backward, column pass: ds (n, H) and dh (n, H*C) from the transposed
-// mask and the row pass's D.
+// mask and the row pass's D. The sub-warp design where its map takes
+// (H, C); the first design elsewhere.
 extern "C" int flash_gat_bwd_col(void* bits_t, void* d, void* s, void* h,
                                  void* lse, void* D, void* g, void* seed,
                                  void* ds, void* dh, int n, int W, int H,
                                  int C, unsigned thresh, float scale,
                                  float slope, void* stream) {
   if (n > 0 && H > 0 && C > 0) {
-    with_channel_chunk(C, [&](auto chunk) {
-      constexpr int KC = decltype(chunk)::value;
-      flash_bwd_col_kernel<KC><<<blocks_for(n, H), kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const uint32_t*>(bits_t), static_cast<const float*>(d),
-          static_cast<const float*>(s), static_cast<const float*>(h),
-          static_cast<const float*>(lse), static_cast<const float*>(D),
-          static_cast<const float*>(g), static_cast<const int*>(seed),
-          static_cast<float*>(ds), static_cast<float*>(dh), n, W, H, C,
-          thresh, scale, slope);
-    });
+    const BwdArgs a = bwd_args(bits_t, d, s, h, lse, D, g, seed, ds, dh, n,
+                               W, H, C, thresh, scale, slope, stream);
+    const int rc = launch_col_lanes(a);
+    return rc >= 0 ? rc : launch_col_heads(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,23 +25,46 @@
 // out-edge and misses the L2.
 //
 // Design:
-// - One warp owns one CSR row. Its lanes tile (basis, channel): with CP
+// - One warp owns one CSR row.
+// - Forward (receiver-major CSR): the lanes tile (basis, channel): with CP
 //   the smallest power of two >= min(C, 32), lane l holds channel l % CP
 //   and the bases l / CP, l / CP + 32 / CP, ... So at C = 16 a warp reads
 //   32 neighbouring floats of the row per step (two bases), and at C = 2
 //   sixteen bases per step: narrow C splits the bases over the lanes, not
-//   the channels. C > 32 is walked in chunks of 32 channels.
-// - Forward (receiver-major CSR): each lane sums its share over the row's
-//   edges and bases, a butterfly of shuffles adds the lanes of one
-//   channel, and out[row] is written once.
-// - Backward (sender-major CSR): the xB row that datt needs is the
-//   sender's own, so the warp reads it once per row, not once per edge.
-//   It walks the row's edges twice. First for dxB, with the forward's
-//   lane tiling and kSteps basis steps of the output row in registers:
-//   dxB[row] is written once. Then for dae[e, b] = w * <xB[src, b, :],
-//   g[dst, :]> with one lane per basis: the lane keeps its C values of
-//   the row in registers (C <= 16) and an edge's B values leave in one
-//   store.
+//   the channels. C > 32 is walked in chunks of 32 channels. Each lane
+//   sums its share over the row's edges and bases, a butterfly of
+//   shuffles adds the lanes of one channel, and out[row] is written once.
+// - Backward (sender-major CSR), one walk of the row's edges for both
+//   terms: lane b keeps basis b (bases in passes of 32), with its CP
+//   channels of the row's own xB[row, b, :] (read once per row, not once
+//   per edge) and its dxB[row, b, :] sums in registers (CP the smallest
+//   power of two >= min(C, 16); wider rows go in passes of 16 channels).
+//   The warp loads col, et, w and pos of up to 32 edges at once, one edge
+//   a lane, and hands them on by shuffle, so a row of up to 32 edges costs
+//   one round trip of indices, and stages the batch's g[dst, :] rows in
+//   shared memory, all their loads issued together (16-byte loads where C
+//   allows), so the batch's rows cost one more round trip, not one per
+//   edge; each lane then reads an edge's row from there (a broadcast) and
+//   att[et, b], and each g row serves both terms:
+//   dae[e, b] = w * <xB[row, b, :], g[dst, :]>, stored at the edge's
+//   relation-major position (an edge's B values leave in one store), and
+//   dxB[row, b, :] += att[et, b] * (w * g[dst, :]). The sums keep the
+//   first design's order (edges in CSR order, channels in order, the same
+//   expression for each product), so dxB and dae, and through the datt
+//   kernels datt, are bitwise the first design's
+//   (probes/packed_rgcn_designs.cu, which keeps it: a warp per row that
+//   walked the edges once per 16 bases for dxB and once more for dae,
+//   reloading each edge's indices and g row on every walk). Past 16
+//   channels the dot of dae is formed from memory in the first channel
+//   pass, in channel order.
+// - The walk's time follows how many rows an SM holds at once, each a
+//   chain of dependent loads (row_ptr, the indices and the xB row, the g
+//   rows, the stores): __launch_bounds__ caps its registers so that
+//   min_blocks_of(CP) blocks fit an SM (3 at 16 channels a lane, 80
+//   registers; 4 at 8; 5 below). Loading the g rows into registers a few
+//   edges at a time (143-255 registers uncapped, 1-2 blocks), the xB
+//   slice in shared memory, an L2 prefetch of later rows and the g rows
+//   handed on by shuffle were slower (PERF.md).
 // - datt is a reduction of all E edges into R*B numbers, done without
 //   atomics so that it is deterministic: the backward kernel stores dae
 //   (E, B) at each edge's position in relation-major order; a second
@@ -62,9 +85,21 @@
 // to remove (namespace rgcn_ablate) and a run-time flag `sink`. The
 // library instantiates kAblate = 0 only; probes/packed_rgcn_ablate.cu
 // includes this file and instantiates the others, so a probe times the
-// kernel that ships. A removed load is replaced by a value loaded once per
+// kernel that ships. kNoDxbWalk and kNoDaeWalk remove the dxB and the dae
+// term of the one walk (their names are those of the two walks of the
+// first design). A removed load is replaced by a value loaded once per
 // row, and a removed store is kept behind `if (sink)` (sink = 0 at run
 // time), so that nvcc cannot delete the work that feeds it.
+//
+// Times on an NVIDIA H100 80GB HBM3 at 700 W
+// (probes/packed_rgcn_designs.py, which times both designs in one run;
+// PERF.md), first design -> this one, the call with its two datt
+// launches (7.7 us of it): MUTAG conv1 (B = 30, C = 16, 24,576 rows,
+// 141,864 edges; bound 28.6 us) 107.6 -> 79.3 us, conv2 (C = 2; bound
+// 4.1) 42.8 -> 29.9, a hub operator with a sender row of 2,511 edges at
+// (5, 33) 5.07 -> 3.99 ms. The dae scratch (E, B) fp32, 17 MB at MUTAG,
+// written and read back, is not in the bound: 10.2 us of traffic at
+// 3.35 TB/s.
 //
 // Plain C interface, bound from Python with ctypes
 // (pytorch_geometric_tpu_torch/ops/packed_rgcn.py); each launch goes on
@@ -79,8 +114,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// Basis steps of the dxB row that the backward keeps in registers.
-constexpr int kSteps = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
 // Terms of the backward that an ablation removes, one bit each.
@@ -88,8 +121,8 @@ namespace rgcn_ablate {
 constexpr unsigned kNoIndex = 1u << 0;     // col[e]: the row itself
 constexpr unsigned kNoXb = 1u << 1;        // the row's xB slice: att[b]
 constexpr unsigned kNoG = 1u << 2;         // g[col]: the row's own xB
-constexpr unsigned kNoDxbWalk = 1u << 3;   // no first walk (dxB)
-constexpr unsigned kNoDaeWalk = 1u << 4;   // no second walk (dae)
+constexpr unsigned kNoDxbWalk = 1u << 3;   // no dxB term
+constexpr unsigned kNoDaeWalk = 1u << 4;   // no dae term
 constexpr unsigned kNoDaeStore = 1u << 5;  // dae stored only if sink
 constexpr unsigned kNoDxbStore = 1u << 6;  // dxB stored only if sink
 constexpr unsigned kNoDatt = 1u << 7;      // no datt reduction launches
@@ -133,110 +166,212 @@ rgcn_fwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
   }
 }
 
+// Blocks of the backward walk an SM holds at least, at CP channels a lane:
+// __launch_bounds__ caps the registers to fit them (80, 64 and 48).
+__host__ __device__ constexpr int min_blocks_of(int CP) {
+  return CP >= 16 ? 3 : (CP >= 8 ? 4 : 5);
+}
+
+// The first n (at most CP) floats at p into x, 0 past n: as float4 or
+// float2 loads where vec (p aligned to them and n a multiple of them).
+template <int CP>
+__device__ __forceinline__ void load_chunk(const float* p, int n, bool vec,
+                                           float (&x)[CP]) {
+  if constexpr (CP % 4 == 0) {
+    if (vec) {
+#pragma unroll
+      for (int k = 0; k < CP; k += 4) {
+        float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (k < n) t = __ldg(reinterpret_cast<const float4*>(p + k));
+        x[k] = t.x;
+        x[k + 1] = t.y;
+        x[k + 2] = t.z;
+        x[k + 3] = t.w;
+      }
+      return;
+    }
+  } else if constexpr (CP == 2) {
+    if (vec) {
+      float2 t = make_float2(0.f, 0.f);
+      if (n > 0) t = __ldg(reinterpret_cast<const float2*>(p));
+      x[0] = t.x;
+      x[1] = t.y;
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < CP; ++k) x[k] = k < n ? __ldg(p + k) : 0.f;
+}
+
+// Stores the first n (at most CP) of x at p, as load_chunk reads them.
+template <int CP>
+__device__ __forceinline__ void store_chunk(float* p, int n, bool vec,
+                                            const float (&x)[CP]) {
+  if constexpr (CP % 4 == 0) {
+    if (vec) {
+#pragma unroll
+      for (int k = 0; k < CP; k += 4) {
+        if (k < n) {
+          *reinterpret_cast<float4*>(p + k) =
+              make_float4(x[k], x[k + 1], x[k + 2], x[k + 3]);
+        }
+      }
+      return;
+    }
+  } else if constexpr (CP == 2) {
+    if (vec) {
+      if (n > 0) *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < CP; ++k) {
+    if (k < n) p[k] = x[k];
+  }
+}
+
 // Backward: warp = sender row of the sender-major CSR; col = receiver,
 // pos = the edge's position in relation-major order. Writes dxB
-// (n_rows, B*C) and dae (E, B) in relation-major order. kAblate and sink:
-// see the header (0 and 0 in the library; kNoIndex needs every row with
-// edges to be a row of g, as a sender of a node graph is).
-template <int CP, unsigned kAblate = 0>
-__global__ void __launch_bounds__(kThreads)
+// (n_rows, B*C) and dae (E, B) in relation-major order in one walk of the
+// row's edges (see the head of this file): lane b of a pass keeps basis
+// b0 + b, its CP channels of the row's xB and their dxB sums in
+// registers; the warp loads the col, et, w and pos of up to 32 edges at
+// once, one edge a lane, hands them on by shuffle, and stages the batch's
+// g rows in shared memory with its loads issued together; each g row
+// serves both terms. vec: C a multiple of the vector width and xB, g, dxB
+// aligned to it. kAblate and sink: see the header (0 and 0 in the
+// library; kNoIndex needs every row with edges to be a row of g, as a
+// sender of a node graph is).
+template <int CP, unsigned kAblate = 0, int MB = min_blocks_of(CP)>
+__global__ void __launch_bounds__(kThreads, MB)
 rgcn_bwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
                 const int* __restrict__ et, const float* __restrict__ w,
                 const int* __restrict__ pos, const float* __restrict__ xB,
                 const float* __restrict__ att, const float* __restrict__ g,
                 float* __restrict__ dxB, float* __restrict__ dae, int n_rows,
-                int B, int C, int sink) {
+                int B, int C, bool vec, int sink) {
   using namespace rgcn_ablate;
-  static_assert(kAblate == 0 || CP <= 16,
-                "ablations are instantiated for C <= 16 only");
+  static_assert(CP <= 16, "a lane holds at most 16 channels of a basis");
   static_assert(!(kAblate & kNoDatt),
                 "kNoDatt removes the datt launches, not a term of this walk");
   constexpr bool kIndex = !(kAblate & kNoIndex);
   constexpr bool kG = !(kAblate & kNoG);
-  constexpr int NB = 32 / CP;
-  const int row = blockIdx.x * kWarps + threadIdx.x / 32;
-  if (row >= n_rows) return;
+  constexpr bool kDxb = !(kAblate & kNoDxbWalk);
+  constexpr bool kDae = !(kAblate & kNoDaeWalk);
+  // the warp's batch of g rows, CP channels each
+  __shared__ __align__(16) float g_s[kWarps][32 * CP];
+  const int warp = threadIdx.x / 32;
+  const int row = blockIdx.x * kWarps + warp;
+  if (row >= n_rows) return;  // the whole warp leaves together
   const int lane = threadIdx.x & 31;
-  const int cl = lane % CP;
-  const int bl = lane / CP;
+  float* gw = g_s[warp];
   const size_t BC = static_cast<size_t>(B) * C;
   const int e0 = row_ptr[row];
   const int e1 = row_ptr[row + 1];
   const float* xrow = xB + static_cast<size_t>(row) * BC;
   float* drow = dxB + static_cast<size_t>(row) * BC;
-  // dxB[row]: lanes tile (basis, channel); kSteps basis steps at a time
-  // stay in registers while the row's edges are walked.
-  if constexpr (!(kAblate & kNoDxbWalk)) {
-    const bool stores = !(kAblate & kNoDxbStore) || sink != 0;
+  const bool dxb_stores = !(kAblate & kNoDxbStore) || sink != 0;
+  const bool dae_stores = !(kAblate & kNoDaeStore) || sink != 0;
+  // a staged g row in loads of V floats (vec), else of one
+  constexpr int V = CP % 4 == 0 ? 4 : 1;
+  const int per = vec ? CP / V : CP;
+  const int width = vec ? V : 1;
+  for (int b0 = 0; b0 < B; b0 += 32) {
+    const int b = b0 + lane;
+    const bool bok = b < B;
     for (int c0 = 0; c0 < C; c0 += CP) {
-      const int c = c0 + cl;
-      const bool cok = c < C;
-      // stand-in for g[col] (kNoG): the row's own xB value
-      float g_own = 0.f;
-      if constexpr (!kG) g_own = cok ? __ldg(xrow + c) : 0.f;
-      for (int b0 = 0; b0 < B; b0 += NB * kSteps) {
-        float acc[kSteps];
+      // the dae term is formed once, in the first channel pass: from the
+      // registers where they hold the whole basis row, else from memory
+      const bool dae_pass = kDae && c0 == 0;
+      const int nc = bok ? min(CP, C - c0) : 0;
+      float xs[CP], acc[CP];
+      load_chunk<CP>(xrow + static_cast<size_t>(b) * C + c0, nc, vec, xs);
+      if constexpr ((kAblate & kNoXb) != 0) {
+        // stand-in for the row's slice: att[0, b] and the channel
+        const float a = bok ? __ldg(att + b) : 0.f;
 #pragma unroll
-        for (int k = 0; k < kSteps; ++k) acc[k] = 0.f;
-        if (cok) {
-          for (int e = e0; e < e1; ++e) {
-            // one expression, as the library's walk had it: the order of
-            // its loads is the compiled code's
-            const float gv =
-                __ldg(w + e) *
-                (kG ? __ldg(g +
-                            static_cast<size_t>(kIndex ? __ldg(col + e) : row) *
-                                C +
-                            c)
-                    : g_own);
-            const float* ar = att + static_cast<size_t>(__ldg(et + e)) * B;
+        for (int c = 0; c < CP; ++c) xs[c] = c < nc ? a + c : 0.f;
+      }
 #pragma unroll
-            for (int k = 0; k < kSteps; ++k) {
-              const int b = b0 + k * NB + bl;
-              if (b < B) acc[k] += __ldg(ar + b) * gv;
+      for (int c = 0; c < CP; ++c) acc[c] = 0.f;
+      for (int eb = e0; eb < e1; eb += 32) {
+        // the indices of up to 32 edges, one edge a lane
+        const int me = eb + lane;
+        int my_col = row, my_et = 0, my_pos = 0;
+        float my_w = 0.f;
+        if (me < e1) {
+          if constexpr (kIndex) my_col = __ldg(col + me);
+          my_et = __ldg(et + me);
+          my_w = __ldg(w + me);
+          if (dae_pass) my_pos = __ldg(pos + me);
+        }
+        const int ne = min(32, e1 - eb);
+        if constexpr (kG) {
+          __syncwarp();   // the lanes are done with the previous batch
+          // the batch's g rows (CP channels from c0), every load issued
+          // before any is used
+          for (int q0 = 0; q0 < ne * per; q0 += 32) {
+            const int q = q0 + lane;
+            const int e = min(q / per, ne - 1);
+            const int dst = __shfl_sync(kFull, my_col, e);
+            if (q < ne * per) {
+              const int k = (q % per) * width;
+              const float* src = g + static_cast<size_t>(dst) * C + c0 + k;
+              float* to = gw + e * CP + k;
+              if (V == 4 && vec) {
+                float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+                if (c0 + k < C) {
+                  t = __ldg(reinterpret_cast<const float4*>(src));
+                }
+                *reinterpret_cast<float4*>(to) = t;
+              } else {
+                *to = c0 + k < C ? __ldg(src) : 0.f;
+              }
             }
           }
-#pragma unroll
-          for (int k = 0; k < kSteps; ++k) {
-            const int b = b0 + k * NB + bl;
-            if (b < B && stores) drow[static_cast<size_t>(b) * C + c] = acc[k];
-          }
+          __syncwarp();
         }
-      }
-    }
-  }
-  // dae[e, b] = w * <xB[row, b, :], g[dst, :]>: one lane per basis, so an
-  // edge's B values leave in one store; every lane reads the same g
-  // element at a time. Narrow C keeps the lane's slice of the row in
-  // registers.
-  if constexpr (!(kAblate & kNoDaeWalk)) {
-    const bool stores = !(kAblate & kNoDaeStore) || sink != 0;
-    for (int b = lane; b < B; b += 32) {
-      const float* xb = xrow + static_cast<size_t>(b) * C;
-      float xs[CP <= 16 ? CP : 1];
-      if constexpr (CP <= 16) {
-        // stand-in for the row's slice (kNoXb): att[0, b] and the channel
-        const float a = (kAblate & kNoXb) ? __ldg(att + b) : 0.f;
-#pragma unroll
-        for (int c = 0; c < CP; ++c) {
-          xs[c] = c < C ? ((kAblate & kNoXb) ? a + c : __ldg(xb + c)) : 0.f;
-        }
-      }
-      for (int e = e0; e < e1; ++e) {
-        const int dst = kIndex ? __ldg(col + e) : row;
-        const float* gr = g + static_cast<size_t>(dst) * C;
-        float dot = 0.f;
-        if constexpr (CP <= 16) {
+#pragma unroll 2
+        for (int k = 0; k < ne; ++k) {
+          const int t = __shfl_sync(kFull, my_et, k);
+          const float wk = __shfl_sync(kFull, my_w, k);
+          const int pk = __shfl_sync(kFull, my_pos, k);
+          const int dst = __shfl_sync(kFull, my_col, k);
+          float gq[CP];
 #pragma unroll
           for (int c = 0; c < CP; ++c) {
-            if (c < C) dot += xs[c] * (kG ? __ldg(gr + c) : xs[c]);
+            // stand-in for g[col] (kNoG): the lane's own xB values
+            gq[c] = kG ? gw[k * CP + c] : xs[c];
           }
-        } else {
-          for (int c = 0; c < C; ++c) dot += __ldg(xb + c) * __ldg(gr + c);
+          if constexpr (kDxb) {
+            const float a =
+                bok ? __ldg(att + static_cast<size_t>(t) * B + b) : 0.f;
+            // one expression, as the first design's walk had it
+#pragma unroll
+            for (int c = 0; c < CP; ++c) acc[c] += a * (wk * gq[c]);
+          }
+          if (dae_pass && bok) {
+            float dot = 0.f;
+            if (C <= CP) {
+#pragma unroll
+              for (int c = 0; c < CP; ++c) {
+                if (c < C) dot += xs[c] * gq[c];
+              }
+            } else {
+              const float* xb = xrow + static_cast<size_t>(b) * C;
+              const float* gr = g + static_cast<size_t>(dst) * C;
+              for (int c = 0; c < C; ++c) {
+                dot += __ldg(xb + c) * (kG ? __ldg(gr + c) : xs[c % CP]);
+              }
+            }
+            if (dae_stores) {
+              dae[static_cast<size_t>(pk) * B + b] = wk * dot;
+            }
+          }
         }
-        if (stores) {
-          dae[static_cast<size_t>(__ldg(pos + e)) * B + b] = __ldg(w + e) * dot;
-        }
+      }
+      if (kDxb && dxb_stores && bok) {
+        store_chunk<CP>(drow + static_cast<size_t>(b) * C + c0, nc, vec, acc);
       }
     }
   }
@@ -314,6 +449,34 @@ void with_channel_width(int C, Fn&& f) {
   }
 }
 
+// Calls f(std::integral_constant<int, CP>{}) with the backward's channels
+// a lane holds: the smallest power of two >= min(C, 16).
+template <typename Fn>
+void with_bwd_width(int C, Fn&& f) {
+  if (C <= 1) {
+    f(std::integral_constant<int, 1>{});
+  } else if (C <= 2) {
+    f(std::integral_constant<int, 2>{});
+  } else if (C <= 4) {
+    f(std::integral_constant<int, 4>{});
+  } else if (C <= 8) {
+    f(std::integral_constant<int, 8>{});
+  } else {
+    f(std::integral_constant<int, 16>{});
+  }
+}
+
+// Whether the backward at C channels loads and stores the rows of xB, g
+// and dxB as float4 (its CP a multiple of 4) or float2 (CP = 2): C a
+// multiple of that width and the arrays aligned to it.
+bool bwd_vec(int C, const void* xB, const void* g, const void* dxB) {
+  const int v = C > 2 ? 4 : (C == 2 ? 2 : 1);
+  const uintptr_t mask = static_cast<uintptr_t>(v) * sizeof(float) - 1;
+  return v > 1 && C % v == 0 &&
+         ((reinterpret_cast<uintptr_t>(xB) | reinterpret_cast<uintptr_t>(g) |
+           reinterpret_cast<uintptr_t>(dxB)) & mask) == 0;
+}
+
 }  // namespace
 
 // Forward over the receiver-major CSR (col = sender, et and w in CSR
@@ -348,7 +511,7 @@ extern "C" int packed_rgcn_bwd(void* row_ptr, void* col, void* et, void* w,
   if (B <= 0 || C <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_rows > 0) {
-    with_channel_width(C, [&](auto width) {
+    with_bwd_width(C, [&](auto width) {
       constexpr int CP = decltype(width)::value;
       rgcn_bwd_kernel<CP><<<blocks_for(n_rows), kThreads, 0, st>>>(
           static_cast<const int*>(row_ptr), static_cast<const int*>(col),
@@ -356,7 +519,7 @@ extern "C" int packed_rgcn_bwd(void* row_ptr, void* col, void* et, void* w,
           static_cast<const int*>(pos), static_cast<const float*>(xB),
           static_cast<const float*>(att), static_cast<const float*>(g),
           static_cast<float*>(dxB), static_cast<float*>(dae), n_rows, B, C,
-          0);
+          bwd_vec(C, xB, g, dxB), 0);
     });
     int rc = static_cast<int>(cudaGetLastError());
     if (rc != 0) return rc;

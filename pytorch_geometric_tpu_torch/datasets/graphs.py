@@ -16,8 +16,12 @@ and nothing is written there.
   ``tools/rgcn_sweep.py:build_graph`` does.
 - :func:`bsr_synthetic_masks`: two directed masks, as entry lists, on
   which the block-sparse GAT kernels meet a block-dense mask and hub rows.
+- :func:`flash_synthetic_masks`: two dense directed masks, on which the
+  dense-mask GAT kernels meet a half-full mask and the operator's cap.
 - :func:`gat_hub_edges`: a GAT edge set with a receiver hub and a sender
   hub, on which the packed-GAT kernels meet hub rows on both sides.
+- :func:`rgcn_hub_operator`: a relational operator with hub rows on both
+  sides and a dominant relation, for the packed-RGCN kernels.
 """
 
 import time
@@ -116,6 +120,29 @@ def bsr_synthetic_masks(seed: int = 0):
             ("hub5003", hub_cols, hub_rows, m, ((8, 8), (3, 5)), 50))
 
 
+def flash_synthetic_masks(seed: int = 0):
+    """(name, dense (n, n) boolean numpy mask) of two directed masks for
+    the dense-mask GAT operator, from ``np.random.default_rng(seed)``:
+
+    - ``half2048``: half full, 2048 nodes, rows 0, 77, 2047 and columns 5,
+      1000, 2046 empty;
+    - ``cap8192``: the operator's cap (``ops/flash_gat.py:MAX_NODES``),
+      8192 nodes with PubMed's edges per node (undirected pairs made
+      symmetric) and self loops."""
+    from pytorch_geometric_tpu_torch.ops.flash_gat import MAX_NODES
+
+    rng = np.random.default_rng(seed)
+    half = rng.random((2048, 2048)) < 0.5
+    half[[0, 77, 2047], :] = False
+    half[:, [5, 1000, 2046]] = False
+    n = MAX_NODES
+    pairs = rng.integers(0, n, (2, n * 44324 // 19717))
+    cap = np.zeros((n, n), dtype=bool)
+    cap[pairs[0], pairs[1]] = cap[pairs[1], pairs[0]] = True
+    np.fill_diagonal(cap, True)
+    return (("half2048", half), ("cap8192", cap))
+
+
 def gat_hub_edges(n: int = 512, seed: int = 8):
     """(senders, receivers) of a packed-GAT edge set of ``n`` nodes, from
     ``np.random.default_rng(seed)``: unique (receiver, sender) pairs in
@@ -129,3 +156,25 @@ def gat_hub_edges(n: int = 512, seed: int = 8):
     r = np.concatenate([r, np.full(500, 3), np.arange(400), np.arange(n)])
     key = np.unique(r * n + s)
     return key % n, key // n
+
+
+def rgcn_hub_operator(device="cuda", seed: int = 0):
+    """A ``PackedRgcnSpmm`` whose rows are far from uniform, from
+    ``np.random.default_rng(seed)``: node 3 receives 3000 edges, node 10
+    sends 2500, relation 2 holds nine edges in ten, with duplicate edges
+    and nodes that have none; 4096 nodes, 7 relations, 4200 source rows
+    (embed mode)."""
+    from pytorch_geometric_tpu_torch.ops.packed_rgcn import PackedRgcnSpmm
+
+    n, R, e = 4096, 7, 30000
+    rng = np.random.default_rng(seed)
+    s = np.concatenate([rng.integers(0, n - 100, e + 3000),
+                        np.full(2500, 10)])
+    r = np.concatenate([rng.integers(0, n - 100, e), np.full(3000, 3),
+                        rng.integers(0, n - 100, 2500)])
+    et = rng.integers(0, R, s.shape[0])
+    et = np.where(rng.random(s.shape[0]) < 0.9, 2, et)
+    s[:100], r[:100], et[:100] = s[100:200], r[100:200], et[100:200]
+    w = (rng.random(s.shape[0]) + 0.1).astype(np.float32)
+    return PackedRgcnSpmm(s, r, et, R, n, w, num_src_rows=4200,
+                          device=device)

@@ -1023,3 +1023,145 @@ def test_build_source_rebuilds_when_an_included_source_changes(
         torch.cuda.synchronize()
         assert torch.equal(out, pr.packed_rgcn_fwd(op.fwd, op.fwd_et,
                                                    op.fwd_w, xB, att))
+
+
+@functools.lru_cache(maxsize=None)
+def _redesign_flash_adj(name):
+    """The dense masks of ``probes/flash_gat_designs.py``, on the card:
+    Cora's GAT mask, and the half-full and cap masks of
+    ``datasets/graphs.py:flash_synthetic_masks``."""
+    from pytorch_geometric_tpu_torch.datasets.graphs import (
+        cora_graph, flash_synthetic_masks)
+    from pytorch_geometric_tpu_torch.nn.conv import gat_dense_adj
+
+    if name == "cora":
+        return gat_dense_adj(cora_graph("cuda")[1])
+    return torch.from_numpy(dict(flash_synthetic_masks(0))[name]).to("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph,H,C", [("cora", 8, 8), ("cora", 1, 7),
+                                       ("half2048", 8, 8),
+                                       ("cap8192", 8, 8)])
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+def test_flash_gat_backward_designs_match_plain_on_card(cuda_device, graph,
+                                                        H, C, rate):
+    """The dense-mask backward at the design probe's widths: the library
+    (a warp per mask row), the first design, and the probe's variants
+    (fewer lanes a row at one head; the column pass with the channel
+    map), each within 1e-5 of the plain version; the first design within
+    1e-6 of the library (4e-6 on the half-full mask, whose rows sum about
+    1,000 terms each in another order: both designs lie 1-2e-6 from the
+    plain version there), D bitwise equal; two launches of the library
+    bitwise equal, two launches counted."""
+    from probes import flash_gat_designs as fd
+    from pytorch_geometric_tpu_torch.ops import flash_gat as fg
+
+    adj = _redesign_flash_adj(graph)
+    mask = fg.BitMask(adj)
+    gen = torch.Generator(device=cuda_device).manual_seed(H * 1000 + C)
+    inputs, errors = fd.compare(fd.load(), adj, mask, H, C, rate, gen)
+    assert set(errors) >= {f"{d}_vs_plain" for d in fd.designs(H, C)}
+    designs_tol = 4e-6 if graph == "half2048" else 1e-6
+    for key, err in errors.items():
+        assert err <= (designs_tol if key == "first_vs_shipped"
+                       else 1e-5), key
+    assert errors["first_vs_shipped_D"] == 0
+    d, s, h, lse, out, g, seed = inputs
+    before = fg.flash_gat_bwd.launches
+    got = fg.flash_gat_bwd(mask, d, s, h, lse, out, g, seed, rate)
+    again = fg.flash_gat_bwd(mask, d, s, h, lse, out, g, seed, rate)
+    torch.cuda.synchronize()
+    assert fg.flash_gat_bwd.launches - before == 4
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,C", [(8, 8), (1, 7)])
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+def test_bsr_gat_agrees_with_flash_gat_at_cora_on_card(cuda_device, H, C,
+                                                       rate):
+    """The block-sparse kernels against the dense-mask kernels on Cora's
+    mask, the main path's graph: every output within 1e-6 of the largest
+    magnitude (their dd and dz sum in other orders; D, summed in one
+    order by both, bitwise)."""
+    from pytorch_geometric_tpu_torch.datasets.graphs import cora_graph
+    from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
+    from pytorch_geometric_tpu_torch.ops import bsr_gat as bg
+    from pytorch_geometric_tpu_torch.ops import flash_gat as fg
+
+    adj = _redesign_flash_adj("cora")
+    dense = fg.BitMask(adj)
+    mask = gat_flash_op(cora_graph("cuda")[1], "bsr").mask
+    n = mask.n
+    gen = torch.Generator(device=cuda_device).manual_seed(H * 1000 + C)
+    d, s = (torch.randn(n, H, generator=gen, device=cuda_device)
+            for _ in range(2))
+    h, g = (torch.randn(n, H * C, generator=gen, device=cuda_device)
+            for _ in range(2))
+    seed = torch.tensor([123457], dtype=torch.int32, device=cuda_device)
+    out, lse = fg.flash_gat_fwd(dense, d, s, h, seed, rate)
+    flash = fg.flash_gat_bwd(dense, d, s, h, lse, out, g, seed, rate)
+    dd, big_d = bg.bsr_gat_bwd_row(mask, d, s, h, lse, out, g, seed, rate)
+    ds, dh = bg.bsr_gat_bwd_col(mask, d, s, h, lse, big_d, g, seed, rate)
+    bsr_out = bg.bsr_gat_fwd(mask, d, s, h, seed, rate)
+    torch.cuda.synchronize()
+    for a, b in zip(bsr_out + (dd, ds, dh), (out, lse) + flash):
+        assert _rel_err(a, b) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["conv1", "conv2", "hub"])
+def test_packed_rgcn_backward_designs_agree_on_card(cuda_device, case):
+    """``probes/packed_rgcn_designs.py`` on its cases (MUTAG conv1 (30,
+    16) and conv2 (30, 2), the hub operator (5, 33)): the first design,
+    the library and the probe's variants of its walk each within 1e-5 of
+    the plain version and bitwise equal to the library (every walk sums
+    in one order); two launches of the library bitwise equal, three
+    launches counted."""
+    from probes import packed_rgcn_designs as rd
+    from pytorch_geometric_tpu_torch.ops import packed_rgcn as pr
+
+    op = rd.ops()[case]
+    _, B, C = next(c for c in rd.CASES if c[0] == case)
+    gen = torch.Generator(device=cuda_device).manual_seed(B * 100 + C)
+    xB, att, g = rd.inputs(op, B, C, gen)
+    designs = rd.all_designs()
+    agree = rd.compare(rd.load(), op, xB, att, g, designs)
+    assert set(agree) == set(designs)
+    for design, (err, bitwise) in agree.items():
+        assert err <= 1e-5 and bitwise, design
+    args = (op.bwd, op.bwd_et, op.bwd_w, op.bwd_pos, op.rel_ptr, xB, att, g)
+    before = pr.packed_rgcn_bwd.launches
+    got, again = pr.packed_rgcn_bwd(*args), pr.packed_rgcn_bwd(*args)
+    torch.cuda.synchronize()
+    assert pr.packed_rgcn_bwd.launches - before == 6
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C", [(5, 33), (30, 16), (30, 2)])
+def test_packed_rgcn_backward_walks_the_hub_row_on_card(cuda_device, B, C):
+    """The hub operator's sender row of 2,511 out-edges (80 passes of 32
+    edge indices) at the probe's width and the main path's: the library
+    against the plain version, its dxB row and the dae of its edges
+    (through datt) within 1e-5."""
+    from pytorch_geometric_tpu_torch.datasets.graphs import (
+        rgcn_hub_operator)
+    from pytorch_geometric_tpu_torch.ops import packed_rgcn as pr
+
+    op = rgcn_hub_operator(cuda_device, 0)
+    lengths = op.bwd.row_ptr[1:] - op.bwd.row_ptr[:-1]
+    assert int(lengths[10]) == 2511 == int(lengths.max())
+    gen = torch.Generator(device=cuda_device).manual_seed(B * 100 + C)
+    xB = torch.randn(op.num_src_rows, B * C, generator=gen,
+                     device=cuda_device)
+    att = torch.randn(op.R, B, generator=gen, device=cuda_device)
+    g = torch.randn(op.num_nodes, C, generator=gen, device=cuda_device)
+    got = pr.packed_rgcn_bwd(op.bwd, op.bwd_et, op.bwd_w, op.bwd_pos,
+                             op.rel_ptr, xB, att, g)
+    want = pr.packed_rgcn_bwd_plain(op.bwd, op.bwd_et, op.bwd_w, xB, att, g)
+    torch.cuda.synchronize()
+    assert _rel_err(got[0][10], want[0][10]) <= 1e-5
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= 1e-5

@@ -29,15 +29,16 @@ from pytorch_geometric_tpu.utils.reorder import reorder_graph as j_reorder
 from pytorch_geometric_tpu_torch.datasets import Entities, Planetoid
 from pytorch_geometric_tpu_torch.datasets import graphs
 from pytorch_geometric_tpu_torch.kernels import _build
-from probes import (bsr_gat_designs, bsr_gat_variants, gat_ablate,
-                    packed_gat_designs, packed_gat_variants, rgcn_ablate,
-                    rgcn_pipe_probe)
+from probes import (bsr_gat_designs, bsr_gat_variants, flash_gat_designs,
+                    gat_ablate, packed_gat_designs, packed_gat_variants,
+                    packed_rgcn_designs, rgcn_ablate, rgcn_pipe_probe)
 
 REPO = Path(__file__).resolve().parents[1]
 SCRIPTS = ["gat_ablate.py", "rgcn_ablate.py", "rgcn_pipe_probe.py",
            "fused_gcn_designs.py", "bsr_gat_designs.py",
            "bsr_gat_variants.py", "packed_gat_designs.py",
-           "packed_gat_variants.py"]
+           "packed_gat_variants.py", "flash_gat_designs.py",
+           "packed_rgcn_designs.py"]
 
 
 def _jax_mutag_rcm(root, scale):
@@ -117,7 +118,9 @@ def test_each_mode_is_a_bit_that_the_source_tests(probe, csrc, probe_cu,
     source's mask, named alike (``nogather_s`` <-> ``kNoGatherS``), that
     is tested outside its definition (by the kernel in the production
     source, or by the probe's launches, as ``kNoDatt`` skips the datt
-    reduction) and that the probe source instantiates."""
+    reduction) and that the probe source instantiates. Every bit but
+    ``kNoDatt`` is tested inside the backward kernel that ships (for the
+    RGCN, the one walk ``rgcn_bwd_kernel``)."""
     source = (_build.SOURCE_DIR / csrc).read_text()
     probe_source = (REPO / "probes" / probe_cu).read_text()
     bits = _namespace_bits(source, namespace)
@@ -134,6 +137,13 @@ def test_each_mode_is_a_bit_that_the_source_tests(probe, csrc, probe_cu,
         assert f"PROBE_MODE({name})" in probe_source
     assert f'#include "../pytorch_geometric_tpu_torch/csrc/{csrc}"' \
         in probe_source
+    kernel = "gat_bwd_kernel(" if namespace == "gat_ablate" \
+        else "rgcn_bwd_kernel("
+    start = source.index("\n" + kernel)
+    body = source[start:source.index("\n}\n", start)]
+    for name in bits:
+        if name != "kNoDatt":
+            assert re.search(r"\b%s\b" % name, body), (kernel, name)
 
 
 def test_the_prefetch_depth_defaults_to_one():
@@ -196,7 +206,9 @@ def test_each_probe_exits_nonzero_without_a_card(script):
     (rgcn_ablate, ["--order", "random"]),
     (rgcn_pipe_probe, ["--depths", "1,3"]),
     (bsr_gat_variants, ["--variants", "rows4,rows8"]),
-    (packed_gat_variants, ["--variants", "edges2,edges3"])])
+    (packed_gat_variants, ["--variants", "edges2,edges3"]),
+    (flash_gat_designs, ["--cases", "cora,pubmed"]),
+    (packed_rgcn_designs, ["--cases", "conv1,conv3"])])
 def test_probes_refuse_unknown_modes_orders_and_depths(probe, argv, capsys):
     with pytest.raises(SystemExit) as exc:
         probe.main(argv)
