@@ -30,13 +30,15 @@ Phases, one JSON line each:
                  three dispatch branches: float4 and one-float lane maps,
                  and the first design), attention dropout 0 and 0.6, fp32
                  (1e-5); two launches bitwise equal;
-               - the packed-RGCN forward and backward (dxB, datt) at the
-                 two operators of the MUTAG-RDF slice (synthetic graph at
-                 the published size: 24576 padded nodes, 141864 edges, 46
-                 relations; conv1's (B, C) = (30, 16) in embed mode,
-                 conv2's (30, 2)), and at an odd shape (B, C) = (5, 33)
-                 on a graph with a hub receiver, a hub sender and a
-                 dominant relation, fp32 (1e-5);
+               - the packed-RGCN forward (two launches: the messages,
+                 then the receivers' segment sum) and backward (dxB,
+                 datt) at the two operators of the MUTAG-RDF slice
+                 (synthetic graph at the published size: 24576 padded
+                 nodes, 141864 edges, 46 relations; conv1's (B, C) =
+                 (30, 16) in embed mode, conv2's (30, 2)), and at an odd
+                 shape (B, C) = (5, 33) on a graph with a hub receiver of
+                 3,013 edges, a hub sender and a dominant relation, fp32
+                 (1e-5); two launches bitwise equal;
                - the dense-mask flash-GAT forward (out, lse) and backward
                  (dd, ds, dh) at Cora's mask with conv1's (8, 8) and
                  conv2's (1, 7), at a half-full directed mask of 2048
@@ -70,13 +72,14 @@ Phases, one JSON line each:
                every term-by-term ablation mode of the packed-GAT backward
                (RCM-PubMed, (8, 8), dropout 0.6) and of the packed-RGCN
                backward (MUTAG conv1 and conv2) launched once, finite, and
-               counted; the forward at prefetch depths 1, 2 and 4 (MUTAG
-               conv1, conv2 and the hub operator); ``full``, launched
-               through the probe library's own kernel table, bitwise equal
-               to the library's backward (also at Cora and the hub
-               operator) and within 1e-5 of the plain version, depths 2
-               and 4 bitwise equal to depth 1 and to the library's
-               forward; the first design of the block-sparse GAT forward
+               counted; the forward's first design at prefetch depths 1,
+               2 and 4 (MUTAG conv1, conv2 and the hub operator);
+               ``full``, launched through the probe library's own kernel
+               table, bitwise equal to the library's backward (also at
+               Cora and the hub operator) and within 1e-5 of the plain
+               version, depths 2 and 4 bitwise equal to depth 1, and
+               depth 1 within 1e-5 of the library's forward (another
+               design); the first design of the block-sparse GAT forward
                and column pass (probes/bsr_gat_designs.cu) against the
                library's at RCM-PubMed (8, 8), dropout 0.6, within 1e-6
                (the row pass's D bitwise), and both within 1e-5 of the
@@ -84,13 +87,14 @@ Phases, one JSON line each:
                the first design of the bsr row pass and of the packed-GAT
                backward (probes/packed_gat_designs.cu; Cora (8, 8),
                dropout 0.6); the first design of the dense-mask GAT
-               backward (probes/flash_gat_designs.cu) against the
-               library's at Cora (8, 8), dropout 0.6, within 1e-6 (D
+               forward and backward (probes/flash_gat_designs.cu) against
+               the library's at Cora (8, 8), dropout 0.6, within 1e-6 (D
                bitwise) and both within 1e-5 of the plain version; the
-               first design of the packed-RGCN backward
-               (probes/packed_rgcn_designs.cu) bitwise equal to the
-               library's at MUTAG conv1 and within 1e-5 of the plain
-               version; the probe scripts print the timing tables;
+               first design of the packed-RGCN forward
+               (probes/packed_rgcn_designs.cu) within 1e-5 of the
+               library's at MUTAG conv1 and its backward bitwise equal to
+               the library's, each within 1e-5 of the plain version; the
+               probe scripts print the timing tables;
 4. slice     — the GCN path as a user runs it: Planetoid Cora ->
                from_data -> train_gcn(epochs=200, device="cuda"), with
                the kernel's launch count read over exactly that run,
@@ -708,7 +712,10 @@ def check_rgcn_case(graph_name, op, B, C, gen):
     xB = torch.randn(op.num_src_rows, B * C, generator=gen, device=DEVICE)
     att = torch.randn(op.R, B, generator=gen, device=DEVICE)
     g = torch.randn(op.num_nodes, C, generator=gen, device=DEVICE)
-    fwd_args = (op.fwd, op.fwd_et, op.fwd_w, xB, att)
+    # the forward kernels walk the sender-major CSR and sum over the
+    # receiver-major one; its plain version needs only the latter
+    fwd_args = (op.fwd, op.send, xB, att)
+    fwd_plain_args = (op.fwd, op.fwd_et, op.fwd_w, xB, att)
     # the kernels also take the relation-major positions; the plain
     # version needs only the sender-major CSR
     bwd_args = (op.bwd, op.bwd_et, op.bwd_w, op.bwd_pos, op.rel_ptr, xB,
@@ -717,23 +724,30 @@ def check_rgcn_case(graph_name, op, B, C, gen):
     cases = []
     for name, kernel, plain, args, plain_args, csr, backward in (
             ("packed_rgcn_fwd", pr.packed_rgcn_fwd,
-             pr.packed_rgcn_fwd_plain, fwd_args, fwd_args, op.fwd, False),
+             pr.packed_rgcn_fwd_plain, fwd_args, fwd_plain_args, op.fwd,
+             False),
             ("packed_rgcn_bwd", pr.packed_rgcn_bwd,
              pr.packed_rgcn_bwd_plain, bwd_args, bwd_plain_args, op.bwd,
              True)):
-        got, want = kernel(*args), plain(*plain_args)
+        got, again, want = kernel(*args), kernel(*args), plain(*plain_args)
         torch.cuda.synchronize()
-        got, want = ((got,), (want,)) if not backward else (got, want)
+        if not backward:
+            got, again, want = (got,), (again,), (want,)
         abs_err, rel_err = _max_rel_err(got, want)
+        repeats = all(torch.equal(a, b) for a, b in zip(got, again))
         bound_ms, bound_by = rgcn_bound(op, B, C, backward)
         case = {"phase": "kernel", "kernel": name, "graph": graph_name,
                 "B": B, "C": C, "R": op.R, "rows": csr.num_rows,
                 "src_rows": op.num_src_rows, "edges": op.E,
                 "longest_row": int((csr.row_ptr[1:]
                                     - csr.row_ptr[:-1]).max()),
-                "launches_per_call": 3 if backward else 1,
+                "launches_per_call": 3 if backward else 2,
+                # written and read back, beside the bound: dae (E, B)
+                # backward, the messages (E, C) forward
+                "scratch_bytes": 2 * op.E * (B if backward else C) * 4,
                 "max_abs_err": abs_err, "rel_err": rel_err,
-                "tol": TOL["fp32"], "ok": rel_err <= TOL["fp32"],
+                "tol": TOL["fp32"], "bitwise_repeat": repeats,
+                "ok": rel_err <= TOL["fp32"] and repeats,
                 "kernel_ms": device_ms(lambda: kernel(*args)),
                 "plain_ms": device_ms(lambda: plain(*plain_args)),
                 # no single PyTorch call computes the basis-decomposed
@@ -804,17 +818,18 @@ def phase_probe():
     of the packed-RGCN backward once at MUTAG's conv1 (30, 16) and conv2
     (30, 2) and ``full`` at the hub operator (5, 33); the forward at
     prefetch depths 1, 2 and 4 at those three. Every mode, ``full``
-    included, goes through the probe library's own kernel table, and
-    depths 2 and 4 through its own kernel; depth 1 is the library's
-    forward. Then, uncounted: ``full`` bitwise against the library's
-    ``packed_gat_bwd`` / ``packed_rgcn_bwd`` and within 1e-5 of their
-    plain versions, depths 2 and 4 bitwise against depth 1 and the
-    library's ``packed_rgcn_fwd``, depth 2 within 1e-5 of its plain
-    version, every output finite. The timing tables are the probe
-    scripts'; here, on the main graph (RCM-PubMed, MUTAG conv1), one time
-    of each backward's ``full`` and of the forward at each depth (the
-    kernels row takes depth 2, the counterpart of the TPU probe's
-    prefetching kernel)."""
+    included, goes through the probe library's own kernel table, and depths
+    2 and 4 through its own kernel; depth 1 is the first design of the
+    forward, ``rgcn_fwd_kernel``. Then, uncounted: ``full`` bitwise against
+    the library's ``packed_gat_bwd`` / ``packed_rgcn_bwd`` and within 1e-5
+    of their plain versions, depths 2 and 4 bitwise against depth 1 (the
+    forward's first design), depth 1 within 1e-5 of the library's
+    ``packed_rgcn_fwd`` (another design, which sums in another order),
+    depth 2 within 1e-5 of its plain version, every output finite. The
+    timing tables are the probe scripts'; here, on the main graph
+    (RCM-PubMed, MUTAG conv1), one time of each backward's ``full`` and of
+    the forward at each depth (the kernels row takes depth 2, the
+    counterpart of the TPU probe's prefetching kernel)."""
     from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
     from pytorch_geometric_tpu_torch.models.entities import rgcn_fused_ops
     from pytorch_geometric_tpu_torch.ops import packed_gat as pg
@@ -894,7 +909,7 @@ def phase_probe():
                                  op.rel_ptr, xB, att, g)
         plain = pr.packed_rgcn_bwd_plain(op.bwd, op.bwd_et, op.bwd_w, xB, att,
                                          g)
-        fwd_lib = pr.packed_rgcn_fwd(op.fwd, op.fwd_et, op.fwd_w, xB, att)
+        fwd_lib = pr.packed_rgcn_fwd(op.fwd, op.send, xB, att)
         fwd_plain = pr.packed_rgcn_fwd_plain(op.fwd, op.fwd_et, op.fwd_w, xB,
                                              att)
         torch.cuda.synchronize()
@@ -910,12 +925,14 @@ def phase_probe():
                               if nm == name for t in out)}
         case["max_abs_err"], case["rel_err"] = _max_rel_err(got, plain)
         ahead = [pipe_out[name, dp] for dp in rp.DEPTHS if dp != 1]
+        # depth 1 is the forward's first design: the library's forward is
+        # another design and sums in another order
         pipe = {"phase": "probe", "kernel": "packed_rgcn_pipe_fwd",
                 "graph": name, "B": B, "C": C, "depths": list(rp.DEPTHS),
-                "bitwise_vs_library": all(torch.equal(out, fwd_lib)
-                                          for out in ahead),
                 "bitwise_vs_depth1": all(torch.equal(out, pipe_out[name, 1])
                                          for out in ahead),
+                "rel_err_depth1_vs_library": _max_rel_err(
+                    (pipe_out[name, 1],), (fwd_lib,))[1],
                 "finite": all(bool(torch.isfinite(out).all())
                               for out in ahead)}
         pipe["max_abs_err"], pipe["rel_err"] = _max_rel_err(
@@ -944,8 +961,10 @@ def phase_probe():
     for case in cases:
         case["tol"] = TOL["fp32"]
         case["ok"] = (case["rel_err"] <= TOL["fp32"] and case["finite"]
-                      and case["bitwise_vs_library"]
-                      and case.get("bitwise_vs_depth1", True))
+                      and case.get("bitwise_vs_library", True)
+                      and case.get("bitwise_vs_depth1", True)
+                      and case.get("rel_err_depth1_vs_library", 0.0)
+                      <= TOL["fp32"])
         emit(case)
         if not case["ok"]:
             failed.append((case["kernel"], case["graph"]))
@@ -1008,47 +1027,61 @@ def probe_packed_designs(gen, rate=0.6):
 
 
 def probe_flash_designs(gen, rate=0.6):
-    """The first design of the dense-mask GAT backward
+    """The first design of the dense-mask GAT forward and backward
     (``probes/flash_gat_designs.cu``) against the library's at Cora
-    (8, 8), the main path's call: within 1e-6 of each other (dd sums a
-    row's entries in another order), D (summed in one order by both)
-    bitwise, and within 1e-5 of the plain version. The timing table is
+    (8, 8), the main path's call: within 1e-6 of each other (the forward
+    and dd sum a row's entries in other orders), D (summed in one order
+    by both) bitwise, each within 1e-5 of the plain version, and two
+    launches of the library's forward bitwise equal. The timing table is
     the probe script's."""
     from pytorch_geometric_tpu_torch.nn.conv import gat_dense_adj
     from pytorch_geometric_tpu_torch.ops.flash_gat import BitMask
     from probes import flash_gat_designs as fd
 
     adj = gat_dense_adj(cora_graph(DEVICE)[1])
-    _, errors = fd.compare(fd.load(), adj, BitMask(adj), 8, 8, rate, gen)
+    lib, mask = fd.load(), BitMask(adj)
+    inputs, errors = fd.compare(lib, adj, mask, 8, 8, rate, gen)
+    fwd_errors, fwd_repeat = fd.compare_fwd(lib, adj, mask, inputs, rate)
+    errors.update(fwd_errors)
     case = {"phase": "probe", "kernel": "flash_gat_designs",
             "graph": "cora", "H": 8, "C": 8, "rate": rate,
-            "errors": errors, "tol_designs": 1e-6, "tol": TOL["fp32"],
-            "ok": errors["first_vs_shipped_D"] == 0 and all(
-                err <= (1e-6 if key == "first_vs_shipped" else TOL["fp32"])
+            "errors": errors, "fwd_bitwise_repeat": fwd_repeat,
+            "tol_designs": 1e-6, "tol": TOL["fp32"],
+            "ok": errors["first_vs_shipped_D"] == 0 and fwd_repeat and all(
+                err <= (1e-6 if key.endswith("first_vs_shipped")
+                        else TOL["fp32"])
                 for key, err in errors.items())}
     emit(case)
     return case
 
 
 def probe_rgcn_designs(gen):
-    """The first design of the packed-RGCN backward
+    """The first designs of the packed-RGCN forward and backward
     (``probes/packed_rgcn_designs.cu``) against the library's at MUTAG
-    conv1 (30, 16), the main path's largest call: bitwise equal (both sum
-    in one order) and within 1e-5 of the plain version. The timing table
-    is the probe script's."""
+    conv1 (30, 16), the main path's largest call: the forwards within
+    1e-5 of each other (they sum in other orders) and two launches of the
+    library's bitwise equal; the backwards bitwise equal (both sum in one
+    order); each within 1e-5 of the plain version. The timing table is
+    the probe script's."""
     from pytorch_geometric_tpu_torch.models.entities import rgcn_fused_ops
     from probes import packed_rgcn_designs as rd
 
     ds, mutag = mutag_graph(DEVICE)
     op = rgcn_fused_ops(mutag, ds.num_relations)[0]
-    agree = rd.compare(rd.load(), op, *rd.inputs(op, 30, 16, gen))
+    lib = rd.load()
+    xB, att, g = rd.inputs(op, 30, 16, gen)
+    fwd_errors, fwd_repeat = rd.compare_fwd(lib, op, xB, att)
+    agree = rd.compare(lib, op, xB, att, g)
     case = {"phase": "probe", "kernel": "packed_rgcn_designs",
             "graph": "mutag", "B": 30, "C": 16,
+            "fwd_errors": fwd_errors, "fwd_bitwise_repeat": fwd_repeat,
             "rel_err_vs_plain": {k: v[0] for k, v in agree.items()},
             "bitwise_vs_shipped": {k: v[1] for k, v in agree.items()},
             "tol": TOL["fp32"],
-            "ok": all(err <= TOL["fp32"] and same
-                      for err, same in agree.values())}
+            "ok": fwd_repeat and all(err <= TOL["fp32"]
+                                     for err in fwd_errors.values())
+            and all(err <= TOL["fp32"] and same
+                    for err, same in agree.values())}
     emit(case)
     return case
 
@@ -1204,10 +1237,11 @@ def phase_slice_gat(backend="packed", phase="slice_gat"):
 def phase_slice_rgcn():
     """examples/rgcn.py's run on the card at MUTAG-RDF's published size,
     through the fused operators: train_rgcn, every aggregation, forward
-    and backward, through the packed-RGCN kernels. Per epoch 2 forward
-    launches (conv1, conv2) and 6 backward launches (3 per layer: the
+    and backward, through the packed-RGCN kernels. Per epoch 4 forward
+    launches (2 per layer: the sender-major message walk and the
+    receivers' segment sum) and 6 backward launches (3 per layer: the
     sender-major walk and the two steps of the datt reduction); the final
-    evaluation adds 2 forward launches. Test accuracy is printed, not
+    evaluation adds 4 forward launches. Test accuracy is printed, not
     gated: the synthetic labels are the parity of a degree, near chance
     out of sample."""
     import numpy as np
@@ -1225,7 +1259,7 @@ def phase_slice_rgcn():
                                 epochs=RGCN_EPOCHS, seed=SEED, device=DEVICE)
     launches = {"packed_rgcn_fwd": pr.packed_rgcn_fwd.launches,
                 "packed_rgcn_bwd": pr.packed_rgcn_bwd.launches}
-    expected = {"packed_rgcn_fwd": 2 * RGCN_EPOCHS + 2,
+    expected = {"packed_rgcn_fwd": 2 * (2 * RGCN_EPOCHS + 2),
                 "packed_rgcn_bwd": 6 * RGCN_EPOCHS}
     peak = torch.cuda.max_memory_allocated()
     loss = metrics["curve"]["loss"]

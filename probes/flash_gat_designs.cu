@@ -1,8 +1,16 @@
-// Design probe of the dense-mask GAT backward
+// Design probe of the dense-mask GAT forward and backward
 // (pytorch_geometric_tpu_torch/csrc/flash_gat.cu), built and timed by
 // probes/flash_gat_designs.py. Not part of the port.
 //
-// The production source is included. Its backward has two designs: the
+// The production source is included. Its forward has two designs: the
+// row map (flash_fwd_row_kernel: a warp per mask row over all heads, one
+// lane per (entry, head), the softmax chunk by chunk), which
+// flash_gat_fwd launches where the map takes (H, C), and the first design
+// (flash_fwd_kernel: a group of 8 lanes per (row, head) walking the row's
+// words itself), which the library keeps for the other widths;
+// first_flash_gat_fwd launches the first design at every width.
+//
+// Its backward has two designs: the
 // sub-warp design (flash_bwd_row_kernel, flash_bwd_col_kernel: a warp per
 // mask row over all heads, the row's words read once and decoded into a
 // column list, one lane per (entry, head), whole-row gathers), which
@@ -167,6 +175,20 @@ flash_bwd_col_channels_kernel(const uint32_t* __restrict__ bits_t,
 }
 
 }  // namespace
+
+// The forward's first design (flash_fwd_kernel: a group of 8 lanes per
+// (row, head), an online softmax per lane) at every width, with
+// flash_gat_fwd's signature.
+extern "C" int first_flash_gat_fwd(void* bits, void* d, void* s, void* h,
+                                   void* seed, void* out, void* lse, int n,
+                                   int W, int H, int C, unsigned thresh,
+                                   float scale, float slope, void* stream) {
+  if (n > 0 && H > 0 && C > 0) {
+    return launch_fwd_heads(fwd_args(bits, d, s, h, seed, out, lse, n, W, H,
+                                     C, thresh, scale, slope, stream));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int first_flash_gat_bwd_row(void* bits, void* d, void* s,
                                        void* h, void* lse, void* out,

@@ -1,8 +1,17 @@
-"""Design probe of the dense-mask GAT backward, on one NVIDIA GPU.
+"""Design probe of the dense-mask GAT forward and backward, on one
+NVIDIA GPU.
 
     python3 probes/flash_gat_designs.py [--calls 50]
 
-Times the designs of ``flash_gat_bwd`` (its row pass ``flash_gat_bwd_row``
+Times the two designs of ``flash_gat_fwd``
+(``pytorch_geometric_tpu_torch/csrc/flash_gat.cu``) on the same inputs in
+one run: ``fwd_first``, the source's first design, a group of 8 lanes per
+(row, head) with an online softmax per lane (``flash_fwd_kernel``,
+launched at every width by ``first_flash_gat_fwd``), and
+``fwd_shipped``, the port's library, a warp per mask row over all heads,
+one lane per (entry, head), the softmax chunk by chunk
+(``flash_fwd_row_kernel``, where its map takes (H, C)); and the designs
+of ``flash_gat_bwd`` (its row pass ``flash_gat_bwd_row``
 and column pass ``flash_gat_bwd_col``,
 ``pytorch_geometric_tpu_torch/csrc/flash_gat.cu``) on the same inputs in
 one run, each pass alone and both together, the call the model makes:
@@ -38,8 +47,9 @@ CUDA-graph timings of ``--calls`` calls, and their spread,
 the largest error of each design against the plain version and of the
 first against the shipped one (relative to the largest magnitude;
 ``first_vs_shipped_D``: the row pass's D alone, which both designs sum in
-one order), and the card's name and power limit. Exits non-zero without
-a card.
+one order; ``fwd_*``: the forward's out and lse), whether two launches
+of the shipped forward are bitwise equal, and the card's name and power
+limit. Exits non-zero without a card.
 """
 
 import argparse
@@ -58,9 +68,11 @@ from probes.common import (  # noqa: E402
 
 SOURCE = REPO / "probes" / "flash_gat_designs.cu"
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_FWD = (_I, [_P] * 7 + [_I] * 4 + [_U, _F, _F, _P])
 _PASS = (_I, [_P] * 10 + [_I] * 4 + [_U, _F, _F, _P])
 _LANES = (_I, [_P] * 10 + [_I] * 4 + [_U, _F, _F, _I, _P])
-SIGNATURES = {"first_flash_gat_bwd_row": _PASS,
+SIGNATURES = {"first_flash_gat_fwd": _FWD,
+              "first_flash_gat_bwd_row": _PASS,
               "first_flash_gat_bwd_col": _PASS,
               "lanes_flash_gat_bwd_row": _LANES,
               "lanes_flash_gat_bwd_col": _LANES,
@@ -113,6 +125,48 @@ def _call(fn, bits, tensors, n, W, H, C, rate, slope, what):
     if rc != 0:
         raise RuntimeError(f"flash_gat_designs {what} failed: CUDA error "
                            f"{rc}")
+
+
+#: The forward's designs.
+FWD_DESIGNS = ("first", "shipped")
+
+
+def fwd(lib, design, mask, inputs, rate, slope=0.2, outs=None):
+    """``(out, lse)`` of one forward design (``first`` or ``shipped``),
+    into ``outs`` (made from torch.empty if None)."""
+    from pytorch_geometric_tpu_torch.kernels._build import load_library
+
+    d, s, h, _, _, _, seed = inputs
+    H = d.shape[1]
+    out, lse = outs if outs is not None else (
+        torch.empty_like(h), torch.empty_like(d))
+    if design not in FWD_DESIGNS:
+        raise ValueError(f"unknown forward design {design!r}")
+    fn = (lib.first_flash_gat_fwd if design == "first"
+          else load_library("flash_gat").flash_gat_fwd)
+    _call(fn, mask.bits, (d, s, h, seed, out, lse), mask.n, mask.words, H,
+          h.shape[1] // H, rate, slope, f"{design} forward")
+    return out, lse
+
+
+def compare_fwd(lib, adj, mask, inputs, rate):
+    """Both forward designs against the plain version and the first
+    against the shipped one (out and lse, relative to the largest
+    reference magnitude), and whether two launches of the shipped design
+    are bitwise equal: ``(errors, bitwise_repeat)``."""
+    from pytorch_geometric_tpu_torch.ops import flash_gat as fg
+
+    d, s, h, _, _, _, seed = inputs
+    plain = fg.flash_gat_fwd_plain(adj, d, s, h, seed, rate)
+    got = {design: fwd(lib, design, mask, inputs, rate)
+           for design in FWD_DESIGNS}
+    again = fwd(lib, "shipped", mask, inputs, rate)
+    torch.cuda.synchronize()
+    errors = {f"fwd_{design}_vs_plain": _rel(res, plain)
+              for design, res in got.items()}
+    errors["fwd_first_vs_shipped"] = _rel(got["first"], got["shipped"])
+    return errors, all(torch.equal(a, b)
+                       for a, b in zip(again, got["shipped"]))
 
 
 def bwd_row(lib, design, mask, inputs, rate, slope=0.2, outs=None):
@@ -228,10 +282,20 @@ def main(argv=None):
             if name != graph or name not in names:
                 continue
             inputs, errors = compare(lib, adj, mask, H, C, rate, gen)
+            fwd_errors, fwd_repeat = compare_fwd(lib, adj, mask, inputs,
+                                                 rate)
             valid = int(adj.sum())
             line = {"probe": "flash_gat_designs", "graph": graph,
                     "rows": mask.n, "valid_entries": valid, "H": H, "C": C,
-                    "rate": rate, "errors": errors}
+                    "rate": rate, "errors": {**fwd_errors, **errors},
+                    "fwd_bitwise_repeat": fwd_repeat}
+            for design in FWD_DESIGNS:
+                outs = fwd(lib, design, mask, inputs, rate)
+                line[f"fwd_{design}"] = timings(
+                    lambda: fwd(lib, design, mask, inputs, rate, outs=outs),
+                    args.calls)
+            line["fwd_bound_ms"], line["fwd_bound_by"] = flash_gat_bound(
+                mask.n, valid, H, C, False)
             for design in designs(H, C):
                 dd, big_d = bwd_row(lib, design, mask, inputs, rate)
                 outs = ((dd, big_d),

@@ -24,10 +24,12 @@
 // none holds more blocks than full does (packed_rgcn_ablate_occupancy
 // gives the count).
 //
-// Forward: depth 1 is the library's packed_rgcn_fwd. Depths 2 and 4 run
-// rgcn_fwd_ahead_kernel below, which keeps the library's lane tiling and
-// sum order and issues the loads of later edges first; they must equal
-// depth 1 bit for bit.
+// Forward: depth 1 is the source's first design of the forward,
+// rgcn_fwd_kernel (a warp per receiver row gathering each sender's xB
+// row per edge), which the library's two-launch forward replaced. Depths
+// 2 and 4 run rgcn_fwd_ahead_kernel below, which keeps that walk's lane
+// tiling and sum order and issues the loads of later edges first; they
+// must equal depth 1 bit for bit.
 
 #include "../pytorch_geometric_tpu_torch/csrc/packed_rgcn.cu"
 
@@ -76,8 +78,8 @@ BwdWalk bwd_walk(unsigned mode, int C) {
 // The forward's walk over one row with its loads issued ahead: the col,
 // et and w of the next kDepth edges and the att and xB values of edge
 // e + 1 are requested before edge e's multiply-adds, which keep the
-// order of the library's walk (edge after edge, bases in order), so the
-// sum is the same bit for bit. Lane (cl, bl) holds channel c and the
+// order of the first design's walk (edge after edge, bases in order), so
+// the sum is the same bit for bit. Lane (cl, bl) holds channel c and the
 // bases bl, bl + NB, ... in kSlots registers per array
 // (B <= kSlots * 32 / CP).
 template <int CP, int kDepth, int kSlots>
@@ -139,7 +141,7 @@ __device__ __forceinline__ float rgcn_fwd_walk_ahead(
       rt[kDepth - 1] = ef < e1 ? __ldg(et + ef) : 0;
       rw[kDepth - 1] = ef < e1 ? __ldg(w + ef) : 0.f;
     }
-    // edge e's multiply-adds, as the library's walk does them
+    // edge e's multiply-adds, as the first design's walk does them
 #pragma unroll
     for (int j = 0; j < kSlots; ++j) {
       if (bl + j * NB < B) acc += (cw * ca[j]) * cx[j];
@@ -152,6 +154,22 @@ __device__ __forceinline__ float rgcn_fwd_walk_ahead(
     }
   }
   return acc;
+}
+
+// The first design of the forward over the receiver-major CSR, at any
+// width: depth 1.
+int first_fwd(void* row_ptr, void* col, void* et, void* w, void* xB,
+              void* att, void* out, int n_rows, int B, int C,
+              cudaStream_t st) {
+  with_channel_width(C, [&](auto width) {
+    constexpr int CP = decltype(width)::value;
+    rgcn_fwd_kernel<CP><<<blocks_for(n_rows), kThreads, 0, st>>>(
+        static_cast<const int*>(row_ptr), static_cast<const int*>(col),
+        static_cast<const int*>(et), static_cast<const float*>(w),
+        static_cast<const float*>(xB), static_cast<const float*>(att),
+        static_cast<float*>(out), n_rows, B, C);
+  });
+  return static_cast<int>(cudaGetLastError());
 }
 
 // rgcn_fwd_kernel with its walk replaced by rgcn_fwd_walk_ahead.
@@ -281,20 +299,19 @@ extern "C" int packed_rgcn_ablate_occupancy(unsigned mode, int C, int smem,
       blocks, walk, kThreads, smem));
 }
 
-// packed_rgcn_fwd's arguments, then the prefetch depth (1, 2 or 4), then
-// the stream.
+// The receiver-major CSR (row_ptr, col = sender, et, w), xB, att, out,
+// n_rows, B, C, then the prefetch depth (1, 2 or 4), then the stream.
 extern "C" int packed_rgcn_pipe_fwd(void* row_ptr, void* col, void* et,
                                     void* w, void* xB, void* att, void* out,
                                     int n_rows, int B, int C, int depth,
                                     void* stream) {
-  if (depth == 1) {
-    return packed_rgcn_fwd(row_ptr, col, et, w, xB, att, out, n_rows, B, C,
-                           stream);
-  }
   if (n_rows <= 0 || B <= 0 || C <= 0) {
     return static_cast<int>(cudaGetLastError());
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (depth == 1) {
+    return first_fwd(row_ptr, col, et, w, xB, att, out, n_rows, B, C, st);
+  }
   if (depth == 2) {
     return pipe_fwd_at<2>(row_ptr, col, et, w, xB, att, out, n_rows, B, C,
                           st);

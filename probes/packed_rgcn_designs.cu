@@ -1,6 +1,14 @@
-// Design probe of the packed-RGCN backward
+// Design probe of the packed-RGCN forward and backward
 // (pytorch_geometric_tpu_torch/csrc/packed_rgcn.cu), built and timed by
 // probes/packed_rgcn_designs.py. Not part of the port.
+//
+// Forward: the library's packed_rgcn_fwd walks the sender-major CSR once
+// for each edge's message (each xB row read once) and sums the messages
+// per receiver with the segment sum. first_packed_rgcn_fwd launches the
+// source's first design, rgcn_fwd_kernel (a warp per receiver row that
+// gathers each sender's xB row per edge), at every width, over the
+// receiver-major CSR: row_ptr, col (sender), et, w, xB, att, out, n_rows,
+// B, C, stream.
 //
 // The production source is included: its backward walks a sender row's
 // edges once for both terms, one lane per basis, each edge's indices and
@@ -140,6 +148,25 @@ void blocks_walk(void* row_ptr, void* col, void* et, void* w, void* pos,
 }
 
 }  // namespace
+
+// The forward's first design over the receiver-major CSR.
+extern "C" int first_packed_rgcn_fwd(void* row_ptr, void* col, void* et,
+                                     void* w, void* xB, void* att, void* out,
+                                     int n_rows, int B, int C,
+                                     void* stream) {
+  if (n_rows > 0 && B > 0 && C > 0) {
+    with_channel_width(C, [&](auto width) {
+      constexpr int CP = decltype(width)::value;
+      rgcn_fwd_kernel<CP><<<blocks_for(n_rows), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int*>(row_ptr), static_cast<const int*>(col),
+          static_cast<const int*>(et), static_cast<const float*>(w),
+          static_cast<const float*>(xB), static_cast<const float*>(att),
+          static_cast<float*>(out), n_rows, B, C);
+    });
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // packed_rgcn_bwd with the first design's walk.
 extern "C" int first_packed_rgcn_bwd(void* row_ptr, void* col, void* et,

@@ -1,8 +1,23 @@
-"""Design probe of the packed-RGCN backward, on one NVIDIA GPU.
+"""Design probe of the packed-RGCN forward and backward, on one NVIDIA
+GPU.
 
     python3 probes/packed_rgcn_designs.py [--calls 50] [--cases a,b]
 
-Times the designs of ``packed_rgcn_bwd``
+Times the designs of ``packed_rgcn_fwd``
+(``pytorch_geometric_tpu_torch/csrc/packed_rgcn.cu``) on the same inputs
+in one run:
+
+- ``fwd_first``: the source's first design, ``rgcn_fwd_kernel``, a warp
+  per receiver row of the receiver-major CSR that gathers each sender's
+  ``xB`` row per edge (``first_packed_rgcn_fwd`` in
+  ``probes/packed_rgcn_designs.cu``);
+- ``fwd_shipped``: the port's library, two launches: each edge's message
+  from a walk of the sender-major CSR that reads each ``xB`` row once,
+  into an (E, C) scratch at the edge's receiver-major position, then the
+  receiver-sorted segment sum (``csrc/segment_sum.cuh``), also timed
+  alone over the scratch (``fwd_segment_sum``);
+
+and of ``packed_rgcn_bwd``
 (``pytorch_geometric_tpu_torch/csrc/packed_rgcn.cu``: the walk over the
 sender-major CSR, then the two launches of the ``datt`` reduction) on the
 same inputs in one run:
@@ -31,12 +46,14 @@ kernel's registers and spills, both designs), then one per case: device
 µs of each design with the L2 warm and flushed (median of five CUDA-graph
 timings of ``--calls`` calls, and their spread,
 ``probes/common.py:timings``), the datt reduction alone, which reads the
-``dae`` scratch back, the scratch's bytes (written by the walk and read
-by the reduction) and their time at the card's memory rate, the bound
-(``bounds.py:rgcn_bound``, which does not count the scratch), whether
-the designs agree bit for bit and their largest error against the plain
-version, the row lengths of the sender-major CSR, and the card's name and
-power limit. Exits non-zero without a card.
+``dae`` scratch back, the forward's segment sum alone, which reads the
+message scratch back, each scratch's bytes (written and read back) and
+their time at the card's memory rate, the bounds
+(``bounds.py:rgcn_bound``, which counts neither scratch), the forward
+designs' largest errors against the plain version and against each
+other, whether the backward designs agree bit for bit and their largest
+error against the plain version, the row lengths of both CSRs, and the
+card's name and power limit. Exits non-zero without a card.
 """
 
 import argparse
@@ -56,6 +73,7 @@ from probes.common import (  # noqa: E402
 SOURCE = REPO / "probes" / "packed_rgcn_designs.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
+    "first_packed_rgcn_fwd": (_I, [_P] * 7 + [_I] * 3 + [_P]),
     "first_packed_rgcn_bwd": (_I, [_P] * 13 + [_I] * 5 + [_P]),
     "blocks_packed_rgcn_bwd": (_I, [_P] * 13 + [_I] * 6 + [_P]),
     "packed_rgcn_datt": (_I, [_P] * 4 + [_I] * 3 + [_P]),
@@ -137,6 +155,75 @@ def datt(lib, op, out):
         raise RuntimeError(f"packed_rgcn_datt failed: CUDA error {rc}")
 
 
+def fwd_scratch(op, xB, att):
+    """out and the message scratch of one forward, from torch.empty."""
+    C = xB.shape[1] // att.shape[1]
+    return (torch.empty(op.num_nodes, C, device=xB.device),
+            torch.empty(op.E, C, device=xB.device))
+
+
+def fwd(lib, design, op, xB, att, out=None):
+    """``out`` of one design's forward (``first`` or ``shipped``, the
+    library's C entry point), into ``out`` (a :func:`fwd_scratch` pair,
+    made if None)."""
+    from pytorch_geometric_tpu_torch.kernels._build import load_library
+
+    R, B = att.shape
+    C = xB.shape[1] // B
+    out = fwd_scratch(op, xB, att) if out is None else out
+    if design == "first":
+        csr = op.fwd
+        rc = lib.first_packed_rgcn_fwd(
+            csr.row_ptr.data_ptr(), csr.col.data_ptr(), op.fwd_et.data_ptr(),
+            op.fwd_w.data_ptr(), xB.data_ptr(), att.data_ptr(),
+            out[0].data_ptr(), csr.num_rows, B, C, stream())
+    elif design == "shipped":
+        send = op.send
+        rc = load_library("packed_rgcn").packed_rgcn_fwd(
+            op.fwd.row_ptr.data_ptr(), send.csr.row_ptr.data_ptr(),
+            send.et.data_ptr(), send.w.data_ptr(), send.pos.data_ptr(),
+            xB.data_ptr(), att.data_ptr(), out[1].data_ptr(),
+            out[0].data_ptr(), op.fwd.num_rows, send.csr.num_rows, R, B, C,
+            stream())
+    else:
+        raise ValueError(f"unknown forward design {design!r}")
+    if rc != 0:
+        raise RuntimeError(f"packed_rgcn_designs forward {design} failed: "
+                           f"CUDA error {rc}")
+    return out[0]
+
+
+def segment_sum(op, out):
+    """The forward's second launch alone: the segment sum over the
+    message scratch of ``out`` (a :func:`fwd_scratch` pair that the
+    shipped forward has filled)."""
+    from pytorch_geometric_tpu_torch.kernels._build import load_library
+
+    res, msg = out
+    rc = load_library("sorted_spmm").sorted_segment_sum(
+        op.fwd.row_ptr.data_ptr(), msg.data_ptr(), res.data_ptr(),
+        op.fwd.num_rows, msg.shape[1], 0, stream())
+    if rc != 0:
+        raise RuntimeError(f"sorted_segment_sum failed: CUDA error {rc}")
+
+
+def compare_fwd(lib, op, xB, att):
+    """Each forward design against the plain version and the first
+    against the shipped one, relative to the largest reference magnitude;
+    and whether two launches of the shipped one are bitwise equal:
+    ``(errors, bitwise_repeat)``."""
+    from pytorch_geometric_tpu_torch.ops import packed_rgcn as pr
+
+    plain = pr.packed_rgcn_fwd_plain(op.fwd, op.fwd_et, op.fwd_w, xB, att)
+    got = {design: fwd(lib, design, op, xB, att) for design in DESIGNS}
+    again = fwd(lib, "shipped", op, xB, att)
+    torch.cuda.synchronize()
+    errors = {f"{design}_vs_plain": _rel((res,), (plain,))
+              for design, res in got.items()}
+    errors["first_vs_shipped"] = _rel((got["first"],), (got["shipped"],))
+    return errors, torch.equal(again, got["shipped"])
+
+
 def inputs(op, B, C, gen):
     """Random xB (source rows, B*C), att (R, B) and g (nodes, C)."""
     xB = torch.randn(op.num_src_rows, B * C, generator=gen, device="cuda")
@@ -206,16 +293,34 @@ def main(argv=None):
             continue
         _, B, C = next(c for c in CASES if c[0] == case)
         xB, att, g = inputs(op, B, C, gen)
+        fwd_errors, fwd_repeat = compare_fwd(lib, op, xB, att)
         agree = compare(lib, op, xB, att, g, designs)
         dae_bytes = 2 * op.E * B * 4
+        msg_bytes = 2 * op.E * C * 4
         line = {"probe": "packed_rgcn_designs", "case": case, "B": B,
                 "C": C, "R": op.R, "rows": op.bwd.num_rows, "edges": op.E,
                 "row_lengths": row_lengths(op.bwd.row_ptr),
+                "receiver_row_lengths": row_lengths(op.fwd.row_ptr),
+                "fwd_errors": fwd_errors,
+                "fwd_bitwise_repeat": fwd_repeat,
                 "rel_err_vs_plain": {k: v[0] for k, v in agree.items()},
                 "bitwise_vs_shipped": {k: v[1] for k, v in agree.items()},
+                "msg_scratch_bytes": msg_bytes,
+                "msg_scratch_at_memory_rate_us":
+                    msg_bytes / HBM_BYTES_PER_S * 1e6,
                 "dae_scratch_bytes": dae_bytes,
                 "dae_scratch_at_memory_rate_us":
                     dae_bytes / HBM_BYTES_PER_S * 1e6}
+        for design in DESIGNS:
+            out = fwd_scratch(op, xB, att)
+            fwd(lib, design, op, xB, att, out)
+            line[f"fwd_{design}"] = timings(
+                lambda: fwd(lib, design, op, xB, att, out), args.calls)
+            if design == "shipped":
+                line["fwd_segment_sum"] = timings(
+                    lambda: segment_sum(op, out), args.calls)
+        line["fwd_bound_ms"], line["fwd_bound_by"] = rgcn_bound(op, B, C,
+                                                                False)
         for design in designs:
             out = scratch(op, xB, att)
             bwd(lib, design, op, xB, att, g, out)

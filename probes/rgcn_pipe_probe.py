@@ -11,11 +11,14 @@ scratch while the current tile's products ran (its ``pipe``, in the
 serial chain is the dependent loads of each edge: ``col[e]``, ``et[e]``
 and ``w[e]``, then the edge's ``att`` and ``xB`` values, then the
 multiply-adds. ``--depths`` stands in place of ``--orders``: depth 1 is
-the library's ``packed_rgcn_fwd``; depths 2 and 4 run
-``rgcn_fwd_ahead_kernel`` (``probes/packed_rgcn_ablate.cu``), the
-library's walk with the indices of the next D edges and the ``att`` and
-``xB`` values of edge e + 1 requested before edge e's multiply-adds,
-which keep their order, so every depth gives the same bits.
+the first design of the forward, ``rgcn_fwd_kernel`` of
+``csrc/packed_rgcn.cu`` (a warp per receiver row gathering each sender's
+``xB`` row per edge, which the library's two-launch forward replaced);
+depths 2 and 4 run ``rgcn_fwd_ahead_kernel``
+(``probes/packed_rgcn_ablate.cu``), that walk with the indices of the
+next D edges and the ``att`` and ``xB`` values of edge e + 1 requested
+before edge e's multiply-adds, which keep their order, so every depth
+gives the same bits.
 
 The graph is MUTAG-RDF at full size in each ``--order``
 (``pytorch_geometric_tpu_torch/datasets/graphs.py``), the edges and
@@ -50,9 +53,10 @@ TOL = 1e-5
 
 
 def pipe_fwd(lib, op, xB, att, depth=1, out=None):
-    """``packed_rgcn_fwd`` over ``op``'s receiver-major CSR with loads
-    ``depth`` edges ahead (1: the library's kernel), into ``out`` (made
-    if None). ``lib`` is ``probes/rgcn_ablate.py``'s ``load()``."""
+    """The first design's forward over ``op``'s receiver-major CSR with
+    loads ``depth`` edges ahead (1: ``rgcn_fwd_kernel`` itself), into
+    ``out`` (made if None). ``lib`` is ``probes/rgcn_ablate.py``'s
+    ``load()``."""
     if depth not in DEPTHS:
         raise ValueError(f"depth must be one of {DEPTHS}, got {depth}")
     csr = op.fwd

@@ -40,8 +40,9 @@
 // of a row's words, then of its senders. A half-full mask is bound by
 // operations.
 //
-// Forward (flash_fwd_kernel) and the backward's first design
-// (flash_bwd_row_heads_kernel, flash_bwd_col_heads_kernel):
+// The first design (flash_fwd_kernel, flash_bwd_row_heads_kernel,
+// flash_bwd_col_heads_kernel), which the library keeps for the widths the
+// row map below does not take:
 // - A group of 8 lanes owns one (row, head) pair (the column pass: one
 //   (column, head) pair), so a warp works on four pairs at once. Lane l of
 //   the group takes the words l, l + 8, ... of the mask row, four at a
@@ -57,9 +58,10 @@
 //   merged after the walk. The lanes' sums meet in reduce_scatter, a
 //   fixed tree (gat_mask.cuh).
 //
-// Backward (flash_bwd_row_kernel, flash_bwd_col_kernel): a warp per mask
-// row over all heads, one lane per (entry, head), the map of the
-// block-sparse row pass (bsr_gat.cu) on the dense mask, in both passes:
+// The row map (flash_fwd_row_kernel, flash_bwd_row_kernel,
+// flash_bwd_col_kernel): a warp per mask row over all heads, one lane per
+// (entry, head), the map of the block-sparse row pass (bsr_gat.cu) on the
+// dense mask, in the forward and both backward passes:
 // - The 32 lanes of a warp own one row of the mask (the column pass: one
 //   row of the transposed mask) over all H heads, so a row's words are
 //   read once, not once per head. A launch holds at most 8192 rows, under
@@ -79,12 +81,18 @@
 //   (32 / H)-th entry of a chunk, so each (entry, head) pair is one
 //   lane's: it forms the pair's exp, hash and dz once, without a shuffle,
 //   and gathers the neighbour's slice of its head as whole 16-byte loads,
-//   rows_in_flight entries at once. Row pass: the head's g[i] in
+//   rows_in_flight entries at once. Forward: d[i] and the salt once per
+//   row; a chunk is taken in steps of kFwdPairsPerLane entries a lane,
+//   each step's logits in registers, the head's step maximum a fixed tree
+//   over its lanes, the running l and sums rescaled once per step, then
+//   p, l and keep p h[j] added in the lane's registers; the head's lanes
+//   meet after the last chunk and store out as whole head slices, and
+//   lse. Row pass: the head's g[i] in
 //   registers, D = <g[i], out[i]>, d[i], lse[i] and the salt once per row;
 //   per entry h[j] and s[j]. Column pass: the head's h[j] in registers;
 //   per entry the g[i] slice, which serves both the dot <g[i], h[j]> and
 //   dh[j] += beta g[i], and d, lse and D of (i, head). The entry groups'
-//   sums (dd; ds and dh) meet in a fixed tree of shuffles.
+//   sums (l and out; dd; ds and dh) meet in a fixed tree of shuffles.
 // - D is summed in a group's order and the dot channel after channel, as
 //   the first design sums them (gat_mask.cuh: dot_in_group_order), so D
 //   and each pair's dz are bitwise the first design's; dd, ds and dh sum
@@ -102,15 +110,15 @@
 //   and no fast-math flags, so the kernels hold 1e-5 against the plain
 //   PyTorch versions.
 //
-// Times on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py and
-// probes/flash_gat_designs.py, which times both designs of the backward
-// in one run; PERF.md): the forward 14 us at Cora's conv1 shapes (3072
-// rows, 13.6k valid entries, H = C = 8; bound 0.9 us), 41 us at 8192 rows
-// of PubMed's degree (bound 4.0), 162 us on a half-full mask of 2048 rows
-// (bound 6.0). The backward, both passes, first design -> this one: Cora
-// conv1 (dropout 0.6) 22.7 -> 10.2 us (bound 1.4), conv2 (1, 7) 15.8 ->
-// 10.6 (bound 0.5), 8192 rows 72.3 -> 24.4 (bound 5.4), the half-full mask
-// 375 -> 187 (bound 11.0).
+// Times on an NVIDIA H100 80GB HBM3 at 700 W, first design -> this one,
+// both timed in one run by probes/flash_gat_designs.py (PERF.md): the
+// forward at Cora's conv1 shapes (3072 rows, 13.6k valid entries,
+// H = C = 8, dropout 0.6) 13.2 -> 5.6 us (bound 0.9), conv2 (1, 7) 10.6
+// -> 6.4 (bound 0.4), 8192 rows of PubMed's degree 37.5 -> 13.3 (bound
+// 4.0), a half-full mask of 2048 rows 161.9 -> 89.2 (bound 6.0). The
+// backward, both passes: Cora conv1 22.6 -> 10.1 us (bound 1.4), conv2
+// 16.6 -> 10.5 (bound 0.5), 8192 rows 73.8 -> 23.9 (bound 5.4), the
+// half-full mask 371 -> 186 (bound 11.0).
 //
 // Plain C interface, bound from Python with ctypes
 // (pytorch_geometric_tpu_torch/ops/flash_gat.py); each launch goes on the
@@ -438,6 +446,115 @@ __device__ __forceinline__ int decode_chunk(const uint32_t* __restrict__ bits,
   return max(got, 0);
 }
 
+// Entries a lane of the forward takes in one step of a column-list chunk,
+// each with its logit in a register.
+constexpr int kFwdPairsPerLane = 4;
+
+// Forward of the sub-warp design, where H divides L and C <= KC: the L
+// lanes of a sub-warp over row i of the mask, all heads; writes out and
+// lse. Lane t keeps to head t % H and takes the entries t / H,
+// t / H + L / H, ... of each chunk (see the head of this file), in steps
+// of kFwdPairsPerLane entries a lane. Per step: the lane's logits in
+// registers; the head's step maximum, a fixed tree over its lanes; the
+// running sums rescaled once; then p, l and keep p h[j] summed into the
+// lane's registers, rows_in_flight neighbour slices at a time. The
+// head's lanes meet in a fixed tree after the last chunk. Only the
+// column list goes through shared memory.
+template <int L, int V, int KC>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_row_kernel(const uint32_t* __restrict__ bits,
+                     const float* __restrict__ d, const float* __restrict__ s,
+                     const float* __restrict__ h,
+                     const int* __restrict__ seed_ptr, float* __restrict__ out,
+                     float* __restrict__ lse, int n, int W, int H, int C,
+                     uint32_t thresh, float scale, float slope) {
+  constexpr int NB = rows_in_flight(KC);
+  constexpr int P = kFwdPairsPerLane;
+  extern __shared__ int smem[];
+  const Row<L> row;
+  const int sub = threadIdx.x / L;
+  const int i = blockIdx.x * (blockDim.x / L) + sub;
+  if (i >= n) return;
+  const int HC = H * C;
+  const size_t irow = static_cast<size_t>(i);
+  const int chunk = chunk_of(H, L);
+  int* cols = smem + sub * chunk;   // senders j
+  const int hd = row.lane % H;
+  const int r0 = row.lane / H;
+  const int R = L / H;
+  const size_t ih = irow * H + hd;
+  const float di = __ldg(d + ih);
+  const uint32_t salt = hash_salt(static_cast<uint32_t>(__ldg(seed_ptr)), hd);
+  // the running maximum, and the sums relative to it
+  float m_run = -INFINITY, l_run = 0.f, acc[KC];
+#pragma unroll
+  for (int k = 0; k < KC; ++k) acc[k] = 0.f;
+  Cursor cur{0, 0, 0};
+  const uint32_t* mrow = bits + irow * W;
+  for (;;) {
+    const int ne = decode_chunk<L>(mrow, W, cur, cols, chunk, row);
+    if (ne == 0) break;
+    // steps of R P entries, the same count for every lane
+    for (int e0 = r0; e0 - r0 < ne; e0 += R * P) {
+      float z[P];
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        const int e = e0 + k * R;
+        z[k] = e < ne ? __ldg(s + static_cast<size_t>(cols[e]) * H + hd)
+                      : 0.f;
+      }
+      float zmax = -INFINITY;
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        if (e0 + k * R < ne) {
+          z[k] = leaky(di + z[k], slope);
+          zmax = fmaxf(zmax, z[k]);
+        }
+      }
+      const float m_new = fmaxf(m_run, row.max_from(zmax, H));
+      const float f = expf(m_run - m_new);   // 0 on the first step
+      l_run *= f;
+#pragma unroll
+      for (int k = 0; k < KC; ++k) acc[k] *= f;
+      m_run = m_new;
+#pragma unroll
+      for (int k0 = 0; k0 < P; k0 += NB) {
+        if (e0 + k0 * R >= ne) break;
+        float hv[NB][KC];
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          const int e = e0 + (k0 + b) * R;
+          const size_t j = e < ne ? static_cast<size_t>(cols[e]) : irow;
+          load_head<KC, V>(h + j * HC + hd * C, e < ne ? C : 0, hv[b]);
+        }
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          const int e = e0 + (k0 + b) * R;
+          if (e >= ne) continue;
+          const float p = expf(z[k0 + b] - m_run);
+          l_run += p;
+          const float wgt =
+              keep_scale(salt, i, cols[e], thresh, 1.f) != 0.f ? p : 0.f;
+#pragma unroll
+          for (int k = 0; k < KC; ++k) acc[k] += wgt * hv[b][k];
+        }
+      }
+    }
+    if (ne < chunk) break;
+  }
+  // the head's lanes meet
+  l_run = fmaxf(row.sum_from(l_run, H), 1e-20f);
+#pragma unroll
+  for (int k = 0; k < KC; ++k) acc[k] = row.sum_from(acc[k], H);
+  if (r0 == 0) {
+    const float factor = scale / l_run;
+#pragma unroll
+    for (int k = 0; k < KC; ++k) acc[k] *= factor;
+    store_head<KC, V>(out + irow * HC + hd * C, C, acc);
+    lse[ih] = (m_run > -INFINITY ? m_run : 0.f) + logf(l_run);
+  }
+}
+
 // Backward, row pass of the sub-warp design, where H divides L and
 // C <= KC: the L lanes of a sub-warp over row i of the mask, all heads;
 // writes dd and D. Lane t keeps to head t % H and takes the entries
@@ -721,23 +838,78 @@ int launch_col_lanes(const BwdArgs& a) {
       a, aligned16(a.h) && aligned16(a.g) && aligned16(a.o2));
 }
 
+// The forward's arguments, as flash_gat_fwd takes them.
+struct FwdArgs {
+  const uint32_t* bits;
+  const float *d, *s, *h;
+  const int* seed;
+  float *out, *lse;
+  int n, W, H, C;
+  uint32_t thresh;
+  float scale, slope;
+  cudaStream_t stream;
+};
+
+FwdArgs fwd_args(void* bits, void* d, void* s, void* h, void* seed,
+                 void* out, void* lse, int n, int W, int H, int C,
+                 unsigned thresh, float scale, float slope, void* stream) {
+  return FwdArgs{static_cast<const uint32_t*>(bits),
+                 static_cast<const float*>(d), static_cast<const float*>(s),
+                 static_cast<const float*>(h), static_cast<const int*>(seed),
+                 static_cast<float*>(out), static_cast<float*>(lse), n, W, H,
+                 C, thresh, scale, slope, static_cast<cudaStream_t>(stream)};
+}
+
+// The first design of the forward, at any width.
+int launch_fwd_heads(const FwdArgs& a) {
+  with_channel_chunk(a.C, [&](auto chunk) {
+    constexpr int KC = decltype(chunk)::value;
+    flash_fwd_kernel<KC><<<blocks_for(a.n, a.H), kThreads, 0, a.stream>>>(
+        a.bits, a.d, a.s, a.h, a.seed, a.out, a.lse, a.n, a.W, a.H, a.C,
+        a.thresh, a.scale, a.slope);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward of the sub-warp design at L lanes a row (V channels a load
+// where the rows are 16-byte aligned); -1 where its map does not take
+// (H, C): H must divide L and a head hold at most 32 channels.
+template <int L = kRowLanes>
+int launch_fwd_lanes(const FwdArgs& a) {
+  if (a.C > 32 || L % a.H != 0) return -1;
+  int rc = -1;
+  const auto launch = [&](auto v) {
+    constexpr int V = decltype(v)::value;
+    with_channel_chunk(a.C, [&](auto chunk) {
+      constexpr int KC = decltype(chunk)::value;
+      rc = launch_rows<L>(flash_fwd_row_kernel<L, V, KC>, a.n,
+                          chunk_of(a.H, L), a.stream, a.bits, a.d, a.s,
+                          a.h, a.seed, a.out, a.lse, a.n, a.W, a.H, a.C,
+                          a.thresh, a.scale, a.slope);
+    });
+  };
+  if (channels_per_lane(a.C, aligned16(a.h) && aligned16(a.out)) == 4) {
+    launch(std::integral_constant<int, 4>{});
+  } else {
+    launch(std::integral_constant<int, 1>{});
+  }
+  return rc;
+}
+
 }  // namespace
 
 // Forward: out (n, H*C) and lse (n, H) from the bit-packed mask (n, W).
+// The sub-warp design where its map takes (H, C); the first design
+// elsewhere.
 extern "C" int flash_gat_fwd(void* bits, void* d, void* s, void* h,
                              void* seed, void* out, void* lse, int n, int W,
                              int H, int C, unsigned thresh, float scale,
                              float slope, void* stream) {
   if (n > 0 && H > 0 && C > 0) {
-    with_channel_chunk(C, [&](auto chunk) {
-      constexpr int KC = decltype(chunk)::value;
-      flash_fwd_kernel<KC><<<blocks_for(n, H), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const uint32_t*>(bits), static_cast<const float*>(d),
-          static_cast<const float*>(s), static_cast<const float*>(h),
-          static_cast<const int*>(seed), static_cast<float*>(out),
-          static_cast<float*>(lse), n, W, H, C, thresh, scale, slope);
-    });
+    const FwdArgs a = fwd_args(bits, d, s, h, seed, out, lse, n, W, H, C,
+                               thresh, scale, slope, stream);
+    const int rc = launch_fwd_lanes(a);
+    return rc >= 0 ? rc : launch_fwd_heads(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,25 +20,45 @@
 // row) and att; forward it writes 4 B * C per node, backward it also reads
 // g and writes dxB (as large as xB) and datt. It does 2*B*C flops per edge
 // forward and 4*B*C backward, far below the card's rate for those bytes.
-// The forward gathers a whole xB row (B*C floats) per edge, which is more
-// traffic than the bound counts wherever a source row has more than one
-// out-edge and misses the L2.
+// A forward that gathered a whole xB row (B*C floats) per edge would move
+// more than the bound counts wherever a source row has more than one
+// out-edge and misses the L2 (272 MB of gathers against a 47 MB xB at
+// MUTAG's conv1).
 //
 // Design:
-// - One warp owns one CSR row.
-// - Forward (receiver-major CSR): the lanes tile (basis, channel): with CP
-//   the smallest power of two >= min(C, 32), lane l holds channel l % CP
-//   and the bases l / CP, l / CP + 32 / CP, ... So at C = 16 a warp reads
-//   32 neighbouring floats of the row per step (two bases), and at C = 2
-//   sixteen bases per step: narrow C splits the bases over the lanes, not
-//   the channels. C > 32 is walked in chunks of 32 channels. Each lane
-//   sums its share over the row's edges and bases, a butterfly of
-//   shuffles adds the lanes of one channel, and out[row] is written once.
-// - Backward (sender-major CSR), one walk of the row's edges for both
-//   terms: lane b keeps basis b (bases in passes of 32), with its CP
-//   channels of the row's own xB[row, b, :] (read once per row, not once
-//   per edge) and its dxB[row, b, :] sums in registers (CP the smallest
-//   power of two >= min(C, 16); wider rows go in passes of 16 channels).
+// - Forward, two launches:
+//   1. rgcn_msg_kernel walks the sender-major CSR (the backward's, with
+//      each edge's position in the receiver-major CSR, fwd_pos), so each
+//      xB row is read once. A group of 32 / G lanes owns a row: two lanes
+//      a channel up to 16 channels (G = 16 / CP rows a warp, so at C = 2
+//      eight rows a warp, at C = 16 one), one lane a channel above. The
+//      lanes of a row tile (basis, channel): with CP the smallest power of
+//      two >= min(C, 32), lane l holds channel l % CP of the bases
+//      l / CP, l / CP + LR / CP, ... in registers, 16 of them (all bases
+//      up to 32 at two lanes a channel). The group loads et, w and fwd_pos
+//      of a batch of edges at once, one edge a lane, and hands them on by
+//      shuffle; att (R, B) is staged in shared memory once per block (the
+//      grid holds one wave of blocks and its warps stride the rows). Per
+//      edge a lane sums att[et, b] xB[row, b, c] over its bases in order,
+//      the lanes of one channel meet in a fixed tree of shuffles, and
+//      m_e = w_e * that sum is stored at the edge's receiver-major
+//      position in an (E, C) fp32 scratch (9.1 MB at MUTAG's conv1,
+//      written and read back: 5.4 us at 3.35 TB/s beside the bound).
+//   2. The receiver-sorted segment sum (segment_sum.cuh, the sorted GCN's
+//      kernel) adds each receiver's messages in CSR order.
+//   Both run in a fixed order: no atomics, and two launches agree
+//   bitwise. The first design (rgcn_fwd_kernel: a warp per receiver row
+//   that gathered each sender's xB row per edge, the same lane tiling,
+//   and summed over the row's edges and bases in registers) stays in this
+//   source for the probes (probes/packed_rgcn_designs.cu,
+//   probes/packed_rgcn_ablate.cu); the new design was faster at every
+//   width measured, so the library does not dispatch to it.
+// - Backward (sender-major CSR), a warp per row, one walk of the row's
+//   edges for both terms: lane b keeps basis b (bases in passes of 32),
+//   with its CP channels of the row's own xB[row, b, :] (read once per
+//   row, not once per edge) and its dxB[row, b, :] sums in registers (CP
+//   the smallest power of two >= min(C, 16); wider rows go in passes of
+//   16 channels).
 //   The warp loads col, et, w and pos of up to 32 edges at once, one edge
 //   a lane, and hands them on by shuffle, so a row of up to 32 edges costs
 //   one round trip of indices, and stages the batch's g[dst, :] rows in
@@ -77,8 +97,9 @@
 //   in a fixed order, so two launches agree bitwise, rows without edges
 //   are written as 0 and outputs may come from torch.empty.
 // - A row with thousands of edges (a hub entity) is walked by its one
-//   warp: right, and the tail of the launch. Splitting hub rows is left
-//   for a graph that has them, with a measurement.
+//   warp, and a hub receiver's messages are summed by the segment sum's
+//   one group of lanes: right, and the tail of the launch. Splitting hub
+//   rows is left for a graph that has them, with a measurement.
 // - fp32 throughout, no fast-math flags.
 //
 // Ablation hooks: the backward kernel takes a bit mask kAblate of terms
@@ -92,14 +113,17 @@
 // time), so that nvcc cannot delete the work that feeds it.
 //
 // Times on an NVIDIA H100 80GB HBM3 at 700 W
-// (probes/packed_rgcn_designs.py, which times both designs in one run;
-// PERF.md), first design -> this one, the call with its two datt
-// launches (7.7 us of it): MUTAG conv1 (B = 30, C = 16, 24,576 rows,
-// 141,864 edges; bound 28.6 us) 107.6 -> 79.3 us, conv2 (C = 2; bound
-// 4.1) 42.8 -> 29.9, a hub operator with a sender row of 2,511 edges at
-// (5, 33) 5.07 -> 3.99 ms. The dae scratch (E, B) fp32, 17 MB at MUTAG,
-// written and read back, is not in the bound: 10.2 us of traffic at
-// 3.35 TB/s.
+// (probes/packed_rgcn_designs.py, which times both designs of each
+// direction in one run; PERF.md), first design -> this one. Forward, the
+// call with its segment sum (3.9 us of it at conv1): MUTAG conv1 (B = 30,
+// C = 16, 24,576 rows, 141,864 edges; bound 14.5 us) 79.5 -> 47.0 us,
+// conv2 (C = 2; bound 2.3) 25.5 -> 14.3, a hub operator at (5, 33) with
+// a receiver row of 3,013 edges and a sender row of 2,511 2.88 -> 1.05 ms
+// (the segment sum's hub row 0.22 ms of it). Backward, the call with its
+// two datt launches (7.7 us of it): conv1 (bound 28.6 us) 107.6 -> 79.3
+// us, conv2 (bound 4.1) 42.8 -> 29.9, the hub operator 5.07 -> 3.99 ms.
+// The dae scratch (E, B) fp32, 34 MB at MUTAG, written and read back, is
+// not in the bound: 10.2 us of traffic at 3.35 TB/s.
 //
 // Plain C interface, bound from Python with ctypes
 // (pytorch_geometric_tpu_torch/ops/packed_rgcn.py); each launch goes on
@@ -109,6 +133,9 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "row_lanes.cuh"
+#include "segment_sum.cuh"
 
 namespace {
 
@@ -163,6 +190,123 @@ rgcn_fwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
 #pragma unroll
     for (int o = CP; o < 32; o <<= 1) acc += __shfl_xor_sync(kFull, acc, o);
     if (cok && bl == 0) out[static_cast<size_t>(row) * C + c] = acc;
+  }
+}
+
+// Rows of the sender-major CSR that one warp of the message walk takes
+// at once, at CP channels a lane: 32 / G lanes a row, two lanes a channel
+// up to 16 channels (at C = 2 eight rows a warp), one above.
+__host__ __device__ constexpr int msg_rows_per_warp(int CP) {
+  return CP >= 16 ? 1 : 16 / CP;
+}
+
+// Bases of the row's xB slice a lane of the message walk holds in
+// registers: all of B <= 32 at two lanes a channel, 16 at one (more are
+// read from memory for each edge).
+constexpr int kMsgSlots = 16;
+
+// The most att floats the message walk stages in shared memory (48 KB);
+// a larger table is read from memory.
+constexpr int kAttSmemFloats = 12288;
+
+// Blocks of the message walk an SM holds at least: __launch_bounds__
+// caps its registers to fit them (80; at 64 the walk spilled).
+constexpr int kMsgMinBlocks = 3;
+
+// Forward, launch 1: groups of LR = 32 / G lanes walk the rows of the
+// sender-major CSR (a grid-stride loop, so that att is staged once per
+// block); row = sender, pos = the edge's position in the receiver-major
+// CSR. Writes the message of every edge,
+// msg[pos[e], c] = w_e * sum_b att[et_e, b] xB[row, b, c], (E, C) in
+// receiver-major order. The lanes of a row tile (basis, channel) as
+// rgcn_fwd_kernel's do: lane l holds channel l % CP of the bases l / CP,
+// l / CP + LR / CP, ... of the row's xB slice in registers (the first
+// kMsgSlots of them), loaded once per row, all loads issued together; the
+// group loads et, w and pos of up to LR edges at
+// once, one edge a lane, and hands them on by shuffle; per edge a lane
+// sums its bases in order, the lanes of one channel meet in a fixed tree
+// of shuffles, and the first CP lanes store the message row.
+// kAttShared: att (R, B) is staged in shared memory (R * B <=
+// kAttSmemFloats), else read from memory.
+template <int CP, int G, bool kAttShared>
+__global__ void __launch_bounds__(kThreads, kMsgMinBlocks)
+rgcn_msg_kernel(const int* __restrict__ row_ptr, const int* __restrict__ et,
+                const float* __restrict__ w, const int* __restrict__ pos,
+                const float* __restrict__ xB, const float* __restrict__ att,
+                float* __restrict__ msg, int n_rows, int R, int B, int C) {
+  constexpr int LR = 32 / G;           // lanes of a row
+  constexpr int NB = LR / CP;          // bases per step
+  constexpr int KS = kMsgSlots;        // bases a lane holds
+  static_assert(NB >= 1, "a row's lanes hold at least its CP channels");
+  extern __shared__ float att_s[];
+  if constexpr (kAttShared) {
+    for (int k = threadIdx.x; k < R * B; k += kThreads) {
+      att_s[k] = __ldg(att + k);
+    }
+    __syncthreads();
+  }
+  const Row<LR> grp;
+  const int lane = grp.lane;
+  const int cl = lane % CP;
+  const int bl = lane / CP;
+  const size_t BC = static_cast<size_t>(B) * C;
+  for (int row = blockIdx.x * (kThreads / LR) + threadIdx.x / LR;
+       row < n_rows; row += gridDim.x * (kThreads / LR)) {   // a group a row
+    const int e0 = __ldg(row_ptr + row);
+    const int e1 = __ldg(row_ptr + row + 1);
+    if (e0 == e1) continue;
+    const float* xrow = xB + static_cast<size_t>(row) * BC;
+    for (int c0 = 0; c0 < C; c0 += CP) {
+      const int c = c0 + cl;
+      const bool cok = c < C;
+      float xs[KS];
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        const int b = bl + j * NB;
+        xs[j] = cok && b < B ? __ldg(xrow + static_cast<size_t>(b) * C + c)
+                             : 0.f;
+      }
+      for (int eb = e0; eb < e1; eb += LR) {
+        // the indices of up to LR edges, one edge a lane
+        const int me = eb + lane;
+        int my_et = 0, my_pos = 0;
+        float my_w = 0.f;
+        if (me < e1) {
+          my_et = __ldg(et + me);
+          my_w = __ldg(w + me);
+          my_pos = __ldg(pos + me);
+        }
+        const int ne = min(LR, e1 - eb);
+        // two edges at a time where att is in shared memory; one where
+        // its loads go to memory, which would spill two edges' worth
+#pragma unroll (kAttShared ? 2 : 1)
+        for (int k = 0; k < ne; ++k) {
+          const int t = grp.bcast(my_et, k);
+          const float wk = __shfl_sync(grp.mask, my_w, k, LR);
+          const int pk = grp.bcast(my_pos, k);
+          const int ar = t * B;
+          const auto att_of = [&](int b) {
+            return kAttShared ? att_s[ar + b] : __ldg(att + ar + b);
+          };
+          float part = 0.f;
+#pragma unroll
+          for (int j = 0; j < KS; ++j) {
+            const int b = bl + j * NB;
+            if (b < B) part += att_of(b) * xs[j];
+          }
+          for (int b = bl + KS * NB; b < B; b += NB) {   // past the slots
+            part += att_of(b) * (cok ? __ldg(xrow + static_cast<size_t>(b)
+                                             * C + c)
+                                     : 0.f);
+          }
+          // add the lanes that hold the same channel (other bases)
+          part = grp.sum_from(part, CP);
+          if (cok && bl == 0) {
+            msg[static_cast<size_t>(pk) * C + c] = wk * part;
+          }
+        }
+      }
+    }
   }
 }
 
@@ -430,6 +574,14 @@ rgcn_datt_final_kernel(const float* __restrict__ partial,
 
 int blocks_for(int n_rows) { return (n_rows + kWarps - 1) / kWarps; }
 
+// Blocks of the message walk: a group per row (kWarps * G rows a block)
+// up to as many blocks as the card holds at once.
+int msg_blocks(int n_rows, int G) {
+  const long long wave = wave_threads() / kThreads;
+  const int need = blocks_for((n_rows + G - 1) / G);
+  return need < wave ? need : static_cast<int>(wave);
+}
+
 // Calls f(std::integral_constant<int, CP>{}) with the channel width of C:
 // the smallest power of two >= min(C, 32).
 template <typename Fn>
@@ -479,22 +631,42 @@ bool bwd_vec(int C, const void* xB, const void* g, const void* dxB) {
 
 }  // namespace
 
-// Forward over the receiver-major CSR (col = sender, et and w in CSR
-// order): out (n_rows, C). One launch.
-extern "C" int packed_rgcn_fwd(void* row_ptr, void* col, void* et, void* w,
-                               void* xB, void* att, void* out, int n_rows,
-                               int B, int C, void* stream) {
-  if (n_rows > 0 && B > 0 && C > 0) {
+// Forward: out (n_rows, C) in two launches, each checked. Launch 1
+// (rgcn_msg_kernel) walks the sender-major CSR (send_ptr, n_send rows of
+// xB; send_et, send_w and fwd_pos per edge in its order, fwd_pos the
+// edge's position in the receiver-major CSR) and writes each edge's
+// message into msg (E, C), scratch from the caller; launch 2 sums each
+// receiver's messages in CSR order (segment_sum.cuh) over row_ptr, the
+// receiver-major CSR's row pointers.
+extern "C" int packed_rgcn_fwd(void* row_ptr, void* send_ptr, void* send_et,
+                               void* send_w, void* fwd_pos, void* xB,
+                               void* att, void* msg, void* out, int n_rows,
+                               int n_send, int R, int B, int C,
+                               void* stream) {
+  if (n_rows <= 0 || B <= 0 || C <= 0) {
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_send > 0) {
+    const bool shared = R * B <= kAttSmemFloats;
+    const size_t smem = shared ? sizeof(float) * R * B : 0;
     with_channel_width(C, [&](auto width) {
       constexpr int CP = decltype(width)::value;
-      rgcn_fwd_kernel<CP><<<blocks_for(n_rows), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int*>(row_ptr), static_cast<const int*>(col),
-          static_cast<const int*>(et), static_cast<const float*>(w),
+      constexpr int G = msg_rows_per_warp(CP);
+      const auto kernel = shared ? rgcn_msg_kernel<CP, G, true>
+                                 : rgcn_msg_kernel<CP, G, false>;
+      kernel<<<msg_blocks(n_send, G), kThreads, smem, st>>>(
+          static_cast<const int*>(send_ptr), static_cast<const int*>(send_et),
+          static_cast<const float*>(send_w), static_cast<const int*>(fwd_pos),
           static_cast<const float*>(xB), static_cast<const float*>(att),
-          static_cast<float*>(out), n_rows, B, C);
+          static_cast<float*>(msg), n_send, R, B, C);
     });
+    const int rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
   }
+  segment_sum::dispatch(static_cast<const int*>(row_ptr),
+                        static_cast<const float*>(msg),
+                        static_cast<float*>(out), n_rows, C, st);
   return static_cast<int>(cudaGetLastError());
 }
 

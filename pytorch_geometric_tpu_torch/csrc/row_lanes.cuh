@@ -1,12 +1,14 @@
 // Device and host code shared by the kernels in which a sub-warp of L
 // lanes owns one row of a sparse operator over all its heads: bsr_gat.cu
-// (the block-sparse GAT) and packed_gat.cu (the packed GAT backward). The
-// lanes of a row, their fixed-tree reductions, a lane's V channels as one
-// load, a head's channels as whole loads, and the choice of the lanes and
-// the load width.
+// (the block-sparse GAT), flash_gat.cu (the dense-mask GAT), packed_gat.cu
+// (the packed GAT backward), and packed_rgcn.cu (the forward's message
+// walk, a row's lanes over its bases). The lanes of a row, their
+// fixed-tree reductions, a lane's V channels as one load, a head's
+// channels as whole loads, the choice of the lanes and the load width,
+// and the threads the card holds at once.
 //
 // The port's build hashes this header with every source that includes it
-// (kernels/_build.py), so an edit here rebuilds both libraries.
+// (kernels/_build.py), so an edit here rebuilds each of those libraries.
 
 #pragma once
 

@@ -57,8 +57,23 @@ class Graph:
         return 0 if self.x is None else self.x.shape[-1]
 
     @property
+    def num_edge_features(self) -> int:
+        return 0 if self.edge_attr is None else self.edge_attr.shape[-1]
+
+    @property
+    def edge_index(self) -> torch.Tensor:
+        """(2, E) view for reference-API familiarity."""
+        return torch.stack([self.senders, self.receivers])
+
+    @property
     def device(self) -> torch.device:
         return self.senders.device
+
+    def real_node_mask(self) -> torch.Tensor:
+        if self.node_mask is not None:
+            return self.node_mask
+        return torch.ones(self.num_nodes, dtype=torch.bool,
+                          device=self.device)
 
     def real_edge_mask(self) -> torch.Tensor:
         if self.edge_mask is not None:
@@ -87,3 +102,16 @@ class Graph:
         if key in extras:
             return extras[key]
         raise AttributeError(key)
+
+
+def from_edge_index(edge_index, num_nodes=None, **kwargs) -> Graph:
+    """Build a Graph from a (2, E) edge_index (reference-style); with
+    ``num_nodes`` and no node field, a node mask of all True fixes N."""
+    edge_index = torch.as_tensor(edge_index)
+    g = Graph(senders=edge_index[0].to(torch.int32),
+              receivers=edge_index[1].to(torch.int32), **kwargs)
+    if num_nodes is not None and g.x is None and g.pos is None \
+            and g.node_mask is None and g.batch is None:
+        g = g.replace(node_mask=torch.ones(num_nodes, dtype=torch.bool,
+                                           device=g.device))
+    return g

@@ -52,7 +52,7 @@ SIGNATURES = {
         "flash_gat_bwd_col": (_I, [_P] * 10 + [_I] * 4 + [_U, _F, _F, _P]),
     },
     "packed_rgcn": {
-        "packed_rgcn_fwd": (_I, [_P] * 7 + [_I] * 3 + [_P]),
+        "packed_rgcn_fwd": (_I, [_P] * 9 + [_I] * 5 + [_P]),
         "packed_rgcn_bwd": (_I, [_P] * 13 + [_I] * 5 + [_P]),
     },
     "bsr_gat": {

@@ -12,32 +12,51 @@ and, backward, ``dxB`` scattered to senders and ``datt`` reduced into the
 window) tiles for the TPU's one-hot matrix products; its ``window``,
 ``tile``, ``onehot``, ``out_t`` and ``interpret`` options have no
 counterpart here. The host builds two CSRs of one edge list, each with
-its relation and weight per edge: receiver-major (forward) and
-sender-major (backward), plus each edge's position in relation-major
-order, where ``datt`` is reduced without atomics. Duplicate edges are
-kept: each counts, as in ``rgcn_norm``.
+its relation and weight per edge: receiver-major and sender-major, plus
+each sender-major edge's position in receiver-major order (where the
+forward's messages are summed) and in relation-major order (where
+``datt`` is reduced without atomics). Duplicate edges are kept: each
+counts, as in ``rgcn_norm``.
 
 :func:`packed_rgcn_fwd` and :func:`packed_rgcn_bwd` wrap the hand-written
 CUDA kernels of ``csrc/packed_rgcn.cu``, which replace the Pallas kernels
-``ops/packed_rgcn.py:_fwd_kernel`` and ``_bwd_kernel``. Beside them:
-their plain PyTorch versions and ``.launches``, a count of kernel
-launches. A wrapper takes its plain version only for tensors on the CPU;
-for CUDA tensors it launches its kernel, or raises. Storage and sums are
-fp32 (the JAX kernel rounds ``xB``, ``att`` and ``g`` to bf16).
+``ops/packed_rgcn.py:_fwd_kernel`` and ``_bwd_kernel``. The forward is
+two launches: each edge's message from the sender-major walk, which
+reads each ``xB`` row once, then the receiver-sorted segment sum
+(``csrc/segment_sum.cuh``). Beside the wrappers: their plain PyTorch
+versions (the forward's also as its two phases,
+:func:`packed_rgcn_messages_plain` and ``sorted_segment_sum_plain``) and
+``.launches``, a count of kernel launches. A wrapper takes its plain
+version only for tensors on the CPU; for CUDA tensors it launches its
+kernels, or raises. Storage and sums are fp32 (the JAX kernel rounds
+``xB``, ``att`` and ``g`` to bf16).
 """
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from pytorch_geometric_tpu_torch.ops.csr import (
     Csr, build_csr, host_array)
+from pytorch_geometric_tpu_torch.ops.sorted_spmm import (
+    sorted_segment_sum_plain)
 
 #: Parts that each relation's edge range is cut into for the ``datt``
 #: reduction (one block each), so a relation holding most edges is spread
 #: over this many blocks.
 DATT_SPLITS = 32
+
+
+class SenderCsr(NamedTuple):
+    """The sender-major CSR of an operator's edges as the forward's
+    message walk reads it: ``csr`` (rows = senders, ``col`` = receiver),
+    ``et`` (int32) and ``w`` (float32) per edge in its order, and ``pos``
+    (int32), each edge's position in the receiver-major CSR."""
+    csr: Csr
+    et: torch.Tensor
+    w: torch.Tensor
+    pos: torch.Tensor
 
 
 def _rows_of(csr: Csr):
@@ -61,6 +80,21 @@ def packed_rgcn_fwd_plain(csr: Csr, et, w, xB, att):
     return out.index_add_(0, _rows_of(csr), msg)
 
 
+def packed_rgcn_messages_plain(send: SenderCsr, xB, att):
+    """The forward's first phase in plain PyTorch: each edge's message
+    ``w_e * sum_b att[et_e, b] * xB[sender_e, b, :]``, (E, C), at its
+    receiver-major position ``send.pos``; summed per receiver by
+    ``sorted_segment_sum_plain``, it is ``packed_rgcn_fwd_plain``."""
+    B = att.shape[1]
+    C = xB.shape[1] // B
+    ae = att[send.et.long()]                                 # (E, B)
+    xbe = xB[_rows_of(send.csr)].view(-1, B, C)              # (E, B, C)
+    msg = (ae[:, :, None] * xbe).sum(1) * send.w[:, None]    # (E, C)
+    out = torch.empty_like(msg)
+    out[send.pos.long()] = msg
+    return out
+
+
 def packed_rgcn_bwd_plain(csr: Csr, et, w, xB, att, g):
     """``(dxB, datt)`` from ``g``, the gradient of ``out``, over the
     sender-major ``csr`` (``col`` = receiver; ``et`` and ``w`` in CSR
@@ -80,9 +114,10 @@ def packed_rgcn_bwd_plain(csr: Csr, et, w, xB, att, g):
 
 
 def _check(csr: Csr, et, w, xB, att, src_rows, g=None, ints=()):
-    """Validate one call; returns (R, B, C, device). ``src_rows`` is the
-    row count ``xB`` must have (the CSR's columns forward, its rows
-    backward); ``g`` and ``out`` have the other count."""
+    """Validate one call over ``csr`` (sender-major in both directions);
+    returns (R, B, C, device). ``src_rows`` is the row count ``xB`` must
+    have (the CSR's rows, the senders); ``g`` and ``out`` have the other
+    count."""
     if att.ndim != 2 or xB.ndim != 2 or att.shape[1] == 0 \
             or xB.shape[1] % att.shape[1] or xB.shape[1] == 0:
         raise ValueError(f"att must be (R, B) and xB (rows, B*C), got "
@@ -121,28 +156,57 @@ def _check(csr: Csr, et, w, xB, att, src_rows, g=None, ints=()):
     return R, B, C, device
 
 
-def packed_rgcn_fwd(csr: Csr, et, w, xB, att):
-    """``out`` (num_rows, C): the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors. ``csr`` is receiver-major with ``col`` the
-    sender's row of ``xB`` (num_cols, B*C); ``et`` (int32) and ``w``
-    (float32) are per edge in CSR order; ``att`` is (R, B)."""
-    R, B, C, device = _check(csr, et, w, xB, att, csr.num_cols)
+def _check_send(csr: Csr, send: SenderCsr):
+    """``send`` must be the sender-major CSR of ``csr``'s edges."""
+    if not isinstance(send, SenderCsr):
+        raise TypeError(f"send must be a SenderCsr, got {type(send)}")
+    sc = send.csr
+    if (sc.num_rows, sc.num_cols, sc.num_edges) != (
+            csr.num_cols, csr.num_rows, csr.num_edges):
+        raise ValueError(
+            f"send must be the sender-major CSR of the same edges: a "
+            f"{csr.num_cols} x {csr.num_rows} CSR of {csr.num_edges} edges, "
+            f"got {sc.num_rows} x {sc.num_cols} of {sc.num_edges}")
+    if send.pos.shape != (sc.num_edges,):
+        raise ValueError(f"send.pos must be ({sc.num_edges},), got "
+                         f"{tuple(send.pos.shape)}")
+    if csr.row_ptr.device != sc.row_ptr.device:
+        raise ValueError(f"csr and send must share one device, got "
+                         f"{csr.row_ptr.device} and {sc.row_ptr.device}")
+
+
+def packed_rgcn_fwd(csr: Csr, send: SenderCsr, xB, att):
+    """``out`` (num_rows, C) over the receiver-major ``csr``: on CUDA
+    tensors two launches (each edge's message from the sender-major walk
+    of ``send``, which reads each ``xB`` row once, into an (E, C)
+    scratch; then the receivers' sums over ``csr.row_ptr`` in CSR order);
+    on CPU tensors the same two phases in plain PyTorch. ``xB`` is
+    (num_cols, B*C), ``att`` (R, B); ``send`` holds the sender-major CSR
+    of the same edges with their relation, weight and receiver-major
+    position (``PackedRgcnSpmm.send``)."""
+    _check_send(csr, send)
+    R, B, C, device = _check(send.csr, send.et, send.w, xB, att,
+                             csr.num_cols, ints=(send.pos, csr.row_ptr))
     if device.type == "cpu":
-        return packed_rgcn_fwd_plain(csr, et, w, xB, att)
+        return sorted_segment_sum_plain(
+            csr.row_ptr, packed_rgcn_messages_plain(send, xB, att))
     from pytorch_geometric_tpu_torch.kernels._build import load_library
 
     lib = load_library("packed_rgcn")
+    # scratch: each edge's message, in receiver-major order
+    msg = torch.empty((csr.num_edges, C), dtype=torch.float32, device=device)
     out = torch.empty((csr.num_rows, C), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.packed_rgcn_fwd(
-            csr.row_ptr.data_ptr(), csr.col.data_ptr(), et.data_ptr(),
-            w.data_ptr(), xB.data_ptr(), att.data_ptr(), out.data_ptr(),
-            csr.num_rows, B, C, stream)
+            csr.row_ptr.data_ptr(), send.csr.row_ptr.data_ptr(),
+            send.et.data_ptr(), send.w.data_ptr(), send.pos.data_ptr(),
+            xB.data_ptr(), att.data_ptr(), msg.data_ptr(), out.data_ptr(),
+            csr.num_rows, send.csr.num_rows, R, B, C, stream)
     if rc != 0:
         raise RuntimeError(f"packed_rgcn_fwd kernel launch failed: CUDA "
                            f"error {rc}")
-    packed_rgcn_fwd.launches += 1
+    packed_rgcn_fwd.launches += 2
     return out
 
 
@@ -190,7 +254,7 @@ def packed_rgcn_bwd(csr: Csr, et, w, pos, rel_ptr, xB, att, g):
 
 
 #: Launches of the CUDA kernels; the CPU path never adds to them. The
-#: backward counts each of its three launches.
+#: forward counts each of its two launches, the backward its three.
 packed_rgcn_fwd.launches = 0
 packed_rgcn_bwd.launches = 0
 
@@ -244,10 +308,17 @@ class PackedRgcnSpmm:
         rank[np.argsort(et, kind="stable")] = np.arange(self.E)
         self.bwd_pos = torch.from_numpy(
             rank[bwd.perm.numpy()].astype(np.int32)).to(dev)
+        # receiver-major order: fwd_rank[e] is edge e's CSR position there
+        fwd_rank = np.empty(self.E, np.int64)
+        fwd_rank[fwd.perm.numpy()] = np.arange(self.E)
+        self.fwd_pos = torch.from_numpy(
+            fwd_rank[bwd.perm.numpy()].astype(np.int32)).to(dev)
         rel_ptr = np.zeros(self.R + 1, np.int64)
         np.cumsum(np.bincount(et, minlength=self.R), out=rel_ptr[1:])
         self.rel_ptr = torch.from_numpy(rel_ptr.astype(np.int32)).to(dev)
         self.fwd, self.bwd = fwd.to(dev), bwd.to(dev)
+        self.send = SenderCsr(self.bwd, self.bwd_et, self.bwd_w,
+                              self.fwd_pos)
 
     def __call__(self, xB2d, att):
         return _PackedRgcn.apply(xB2d, att, self)
@@ -260,7 +331,7 @@ class _PackedRgcn(torch.autograd.Function):
         xB2d, att = xB2d.contiguous(), att.contiguous()
         ctx.save_for_backward(xB2d, att)
         ctx.op = op
-        return packed_rgcn_fwd(op.fwd, op.fwd_et, op.fwd_w, xB2d, att)
+        return packed_rgcn_fwd(op.fwd, op.send, xB2d, att)
 
     @staticmethod
     def backward(ctx, g):

@@ -1,9 +1,11 @@
 """Graph utilities."""
 
 from pytorch_geometric_tpu_torch.utils.degree import degree  # noqa: F401
-from pytorch_geometric_tpu_torch.utils.loop import add_self_loops  # noqa: F401
+from pytorch_geometric_tpu_torch.utils.loop import (  # noqa: F401
+    add_self_loops, contains_self_loops, remove_self_loops)
 from pytorch_geometric_tpu_torch.utils.reorder import (  # noqa: F401
     rcm_permutation, reorder_graph, window_density)
 
-__all__ = ["degree", "add_self_loops", "rcm_permutation", "reorder_graph",
+__all__ = ["degree", "add_self_loops", "remove_self_loops",
+           "contains_self_loops", "rcm_permutation", "reorder_graph",
            "window_density"]

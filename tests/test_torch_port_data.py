@@ -250,3 +250,109 @@ def test_collate_accepts_follow_keys_as_jax():
                                       np.asarray(getattr(jg, name)))
         np.testing.assert_array_equal(_np(getattr(g, name)),
                                       _np(getattr(plain, name)))
+
+
+def _edges_with_loops(rng, n=40, e=150):
+    s, r = rng.integers(0, n, e), rng.integers(0, n, e)
+    s[:9] = r[:9]                                        # nine self loops
+    return s.astype(np.int32), r.astype(np.int32)
+
+
+@pytest.mark.parametrize("with_attr", [False, True])
+def test_remove_self_loops_and_masks_match_jax(with_attr):
+    from pytorch_geometric_tpu.utils import loop as jloop
+    from pytorch_geometric_tpu_torch.utils import loop as tloop
+
+    rng = np.random.default_rng(3)
+    s, r = _edges_with_loops(rng)
+    attr = rng.normal(size=(s.shape[0], 4)).astype(np.float32) \
+        if with_attr else None
+    got = tloop.remove_self_loops(
+        torch.from_numpy(s), torch.from_numpy(r),
+        None if attr is None else torch.from_numpy(attr))
+    want = jloop.remove_self_loops(jnp.asarray(s), jnp.asarray(r),
+                                   None if attr is None
+                                   else jnp.asarray(attr))
+    assert (got[2] is None) == (want[2] is None) == (not with_attr)
+    for a, b in zip(got, want):
+        if b is not None:
+            np.testing.assert_array_equal(_np(a), np.asarray(b))
+    assert got[0].shape[0] == s.shape[0] - int((s == r).sum())
+    assert int((s == r).sum()) >= 9
+    np.testing.assert_array_equal(
+        _np(tloop.self_loop_mask(torch.from_numpy(s), torch.from_numpy(r))),
+        np.asarray(jloop.self_loop_mask(jnp.asarray(s), jnp.asarray(r))))
+    for ss, rr in ((s, r), (_np(got[0]), _np(got[1]))):
+        assert tloop.contains_self_loops(torch.from_numpy(ss),
+                                         torch.from_numpy(rr)) \
+            is jloop.contains_self_loops(ss, rr)
+    assert not tloop.contains_self_loops(got[0], got[1])
+
+
+@pytest.mark.parametrize("num_nodes,with_x", [(None, False), (50, False),
+                                              (50, True)])
+def test_from_edge_index_and_graph_views_match_jax(num_nodes, with_x):
+    from pytorch_geometric_tpu.data import from_edge_index as j_from_ei
+    from pytorch_geometric_tpu_torch.data import from_edge_index
+
+    rng = np.random.default_rng(4)
+    ei = np.stack(_edges_with_loops(rng)).astype(np.int64)
+    x = rng.normal(size=(50, 3)).astype(np.float32)
+    ea = rng.normal(size=(ei.shape[1], 2)).astype(np.float32)
+    kw = dict(edge_attr=ea)
+    if with_x:
+        kw["x"] = x
+    g = from_edge_index(torch.from_numpy(ei), num_nodes=num_nodes,
+                        **{k: torch.from_numpy(v) for k, v in kw.items()})
+    jg = j_from_ei(ei, num_nodes=num_nodes,
+                   **{k: jnp.asarray(v) for k, v in kw.items()})
+    assert g.senders.dtype == torch.int32
+    assert (g.num_nodes, g.num_edges, g.num_edge_features) == (
+        jg.num_nodes, jg.num_edges, jg.num_edge_features) == (
+        50 if num_nodes or with_x else int(ei.max()) + 1, ei.shape[1], 2)
+    np.testing.assert_array_equal(_np(g.edge_index), np.asarray(jg.edge_index))
+    np.testing.assert_array_equal(_np(g.real_node_mask()),
+                                  np.asarray(jg.real_node_mask()))
+    assert (g.node_mask is None) == (jg.node_mask is None)
+    assert g.replace(edge_attr=None).num_edge_features == 0
+
+
+@pytest.mark.parametrize("init,shape", [("uniform", (400, 300)),
+                                        ("kaiming_uniform", (300, 400)),
+                                        ("glorot", (300, 400)),
+                                        ("ones", (7, 5))])
+def test_inits_draw_the_reference_distributions(init, shape):
+    """The draws differ (``jax.random`` against a ``torch.Generator``), so
+    each initializer is held to the JAX one's bound and moments over
+    120k draws: both fill [-bound, bound] evenly (largest magnitude within
+    0.1% of the bound, mean within 1%, variance within 2% of bound^2/3);
+    ``ones`` exactly."""
+    import jax
+
+    from pytorch_geometric_tpu.nn import inits as jinits
+    from pytorch_geometric_tpu_torch.nn import inits as tinits
+
+    gen = torch.Generator().manual_seed(0)
+    key = jax.random.PRNGKey(0)
+    if init == "uniform":
+        got = tinits.uniform(shape[0])(shape, gen)
+        want = np.asarray(jinits.uniform(shape[0])(key, shape))
+    else:
+        got = getattr(tinits, init)(shape, gen)
+        want = np.asarray(getattr(jinits, init)(key, shape))
+    got = _np(got)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if init == "ones":
+        np.testing.assert_array_equal(got, want)
+        return
+    bound = float(np.abs(want).max())
+    assert abs(float(np.abs(got).max()) - bound) <= 1e-3 * bound
+    for a in (got, want):
+        assert abs(float(a.mean())) <= 1e-2 * bound
+        assert abs(float(a.var()) - bound ** 2 / 3) <= 2e-2 * bound ** 2 / 3
+    # explicit fans of kaiming_uniform and an empty fan of uniform
+    if init == "kaiming_uniform":
+        g2 = _np(tinits.kaiming_uniform(shape, gen, fan=30, a=0.0))
+        assert float(np.abs(g2).max()) <= np.sqrt(2.0) * np.sqrt(3 / 30)
+    if init == "uniform":
+        assert not _np(tinits.uniform(0)((3,), gen)).any()

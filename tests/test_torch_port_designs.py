@@ -28,7 +28,7 @@ from pytorch_geometric_tpu_torch.datasets import graphs
 from pytorch_geometric_tpu_torch.kernels import _build
 from pytorch_geometric_tpu_torch.ops import flash_gat as fg
 from pytorch_geometric_tpu_torch.ops import packed_rgcn as pr
-from probes import flash_gat_designs, packed_rgcn_designs
+from probes import flash_gat_designs, packed_rgcn_designs, rgcn_ablate
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -106,22 +106,25 @@ def test_packed_rgcn_bwd_wrapper_matches_jax_at_the_design_widths(B, C):
 def test_flash_gat_designs_times_the_library_beside_its_first_design():
     """The dense-mask design probe builds through ``build_source`` from a
     source that includes the production one (so every design is the
-    library's own code), launches the first design and the sub-warp
-    design with the library's signatures, keeps the channel map of the
-    column pass it was measured against, and covers the main path's
-    widths, dropout 0 and 0.6, the half-full mask and the operator's
-    cap."""
+    library's own code), launches the first design of the forward and of
+    the backward and the sub-warp design with the library's signatures,
+    keeps the channel map of the column pass it was measured against, and
+    covers the main path's widths, dropout 0 and 0.6, the half-full mask
+    and the operator's cap."""
     source = flash_gat_designs.SOURCE.read_text()
     text = Path(flash_gat_designs.__file__).read_text()
     assert "build_source(SOURCE, SIGNATURES)" in text
     assert '#include "../pytorch_geometric_tpu_torch/csrc/flash_gat.cu"' \
         in source
-    for call in ("launch_row_heads(", "launch_col_heads(",
+    for call in ("launch_fwd_heads(", "launch_row_heads(",
+                 "launch_col_heads(",
                  "launch_row_lanes<16>(", "launch_col_lanes<8>(",
                  "flash_bwd_col_channels_kernel<L,"):
         assert call in source, call
     library = (_build.SOURCE_DIR / "flash_gat.cu").read_text()
-    assert library.count("template <int L = kRowLanes>") == 2
+    assert library.count("template <int L = kRowLanes>") == 3
+    assert "const int rc = launch_fwd_lanes(a);" in library
+    assert "flash_fwd_row_kernel<L, V, KC>" in library
     assert "const int rc = launch_row_lanes(a);" in library
     assert "const int rc = launch_col_lanes(a);" in library
     assert "constexpr int kRowLanes = 32;" in library
@@ -129,6 +132,9 @@ def test_flash_gat_designs_times_the_library_beside_its_first_design():
     for kernel in ("row", "col"):
         assert flash_gat_designs.SIGNATURES[f"first_flash_gat_bwd_{kernel}"] \
             == sig[f"flash_gat_bwd_{kernel}"]
+    assert flash_gat_designs.SIGNATURES["first_flash_gat_fwd"] \
+        == sig["flash_gat_fwd"]
+    assert flash_gat_designs.FWD_DESIGNS == ("first", "shipped")
     cases = flash_gat_designs.CASES
     assert {c[0] for c in cases} == {"cora", "half2048", "cap8192"}
     assert {("cora", 8, 8, 0.0), ("cora", 8, 8, 0.6), ("cora", 1, 7, 0.0),
@@ -161,10 +167,23 @@ def test_packed_rgcn_designs_times_the_library_beside_its_first_design():
     designs = packed_rgcn_designs.all_designs()
     assert designs[:2] == ("first", "shipped")
     assert {"blocks1", "blocks3", "blocks4", "blocks5"} <= set(designs)
+    # the forward: the first design over the receiver-major CSR, with the
+    # prefetch probe's arguments less the depth
+    assert "rgcn_fwd_kernel<CP><<<" in source
+    pipe = rgcn_ablate.SIGNATURES["packed_rgcn_pipe_fwd"]
+    first = packed_rgcn_designs.SIGNATURES["first_packed_rgcn_fwd"]
+    assert first[1] == pipe[1][:-2] + pipe[1][-1:]
+    op = pr.PackedRgcnSpmm(np.array([0, 1]), np.array([1, 0]),
+                           np.array([0, 1]), 2, 2, np.ones(2, np.float32),
+                           device="cpu")
+    with pytest.raises(ValueError, match="unknown forward design"):
+        packed_rgcn_designs.fwd(None, "ahead", op, torch.ones(2, 6),
+                                torch.ones(2, 3))
 
 
 @pytest.mark.parametrize("header,libraries", [
-    ("row_lanes.cuh", ["flash_gat", "bsr_gat", "packed_gat"]),
+    ("row_lanes.cuh", ["flash_gat", "bsr_gat", "packed_gat",
+                       "packed_rgcn"]),
     ("gat_mask.cuh", ["flash_gat", "bsr_gat"])])
 def test_build_follows_shared_headers_into_every_library(tmp_path,
                                                           monkeypatch,
@@ -223,3 +242,38 @@ def test_rgcn_hub_operator_holds_its_hub_rows():
     assert (op.num_src_rows, op.num_nodes, op.R, op.E) == (4200, 4096, 7,
                                                            35500)
     assert np.bincount(op.fwd_et.numpy()).argmax() == 2
+
+
+def test_segment_sum_header_is_shared_by_both_of_its_libraries(
+        tmp_path, monkeypatch):
+    """The receiver-sorted segment sum lives in ``segment_sum.cuh``, which
+    the sorted GCN's source and the RGCN forward's source both include
+    (one copy of the kernel): an edit to it renames both libraries and
+    the RGCN probes' libraries, and no other."""
+    csrc = tmp_path / "pytorch_geometric_tpu_torch" / "csrc"
+    shutil.copytree(_build.SOURCE_DIR, csrc)
+    (tmp_path / "probes").mkdir()
+    probes = [tmp_path / "probes" / p.name
+              for p in (packed_rgcn_designs.SOURCE, rgcn_ablate.SOURCE,
+                        flash_gat_designs.SOURCE)]
+    for src, dst in zip((packed_rgcn_designs.SOURCE, rgcn_ablate.SOURCE,
+                         flash_gat_designs.SOURCE), probes):
+        shutil.copy(src, dst)
+    monkeypatch.setattr(_build, "SOURCE_DIR", csrc)
+    for name in ("sorted_spmm", "packed_rgcn"):
+        assert csrc / "segment_sum.cuh" in _build.source_files(name)
+    library = (csrc / "sorted_spmm.cu").read_text()
+    assert "sorted_segment_sum_kernel" not in library
+    assert "segment_sum::dispatch(" in library
+    assert "segment_sum::dispatch(" in (csrc / "packed_rgcn.cu").read_text()
+    names = list(_build.SIGNATURES)
+    before = {name: _build.library_path(name) for name in names}
+    probe_before = [_build._library_of(p) for p in probes]
+    with open(csrc / "segment_sum.cuh", "a") as f:
+        f.write("// edited\n")
+    changed = sorted(name for name in names
+                     if _build.library_path(name) != before[name])
+    assert changed == ["packed_rgcn", "sorted_spmm"]
+    after = [_build._library_of(p) for p in probes]
+    assert [a != b for a, b in zip(after, probe_before)] == [True, True,
+                                                             False]

@@ -176,7 +176,7 @@ def test_cpu_rgcn_wrappers_compute_plain_and_count_no_launch():
     gen = torch.Generator().manual_seed(0)
     xB, att, g = (torch.randn(shape, generator=gen)
                   for shape in ((n, 8), (3, 4), (n, 2)))
-    out = fwd(op.fwd, op.fwd_et, op.fwd_w, xB, att)
+    out = fwd(op.fwd, op.send, xB, att)
     assert torch.equal(out, packed_rgcn.packed_rgcn_fwd_plain(
         op.fwd, op.fwd_et, op.fwd_w, xB, att))
     got = bwd(op.bwd, op.bwd_et, op.bwd_w, op.bwd_pos, op.rel_ptr, xB, att,

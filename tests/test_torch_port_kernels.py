@@ -11,8 +11,8 @@ packed-GAT forward and backward, the packed-RGCN forward and backward,
 the dense-mask flash-GAT forward and backward, the block-sparse GAT
 forward, row pass and column pass, the sorted segment sum, the fused
 two-layer GCN forward and backward, and the probes' libraries
-(``probes/packed_gat_ablate.cu``, ``probes/packed_rgcn_ablate.cu``)
-against the kernels they ablate.
+(``probes/packed_gat_ablate.cu``, ``probes/packed_rgcn_ablate.cu`` and
+the design probes) against the kernels they ablate or precede.
 """
 
 import functools
@@ -352,18 +352,21 @@ def _rgcn_edges(case, n=600, R=7, seed=10):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["uniform", "hub", "dominant"])
-@pytest.mark.parametrize("B,C", [(30, 16), (30, 2), (5, 33), (3, 1),
-                                 (40, 7), (2, 70)])
+@pytest.mark.parametrize("B,C", [(30, 16), (30, 2), (5, 33), (8, 20),
+                                 (3, 1), (40, 7), (2, 70)])
 def test_packed_rgcn_kernels_match_plain_on_card(cuda_device, case, B, C):
-    """Forward over the receiver-major CSR and backward (dxB over the
-    sender-major CSR, datt through the relation-major reduction) against
-    their plain versions, fp32 within 1e-5 of the largest reference
-    magnitude: the main path's (B, C), odd shapes on both sides of the
-    32-lane width, a hub row of 2500 in-edges and one of 2200 out-edges,
-    a relation that holds most edges, duplicate edges and empty rows, in
-    embed mode (the source rows differ from the nodes). Two launches give
-    bitwise equal results (no atomics); outputs come from torch.empty,
-    so an unwritten row would show."""
+    """Forward (each edge's message from the sender-major walk, then the
+    receivers' segment sum over the receiver-major CSR) and backward (dxB
+    over the sender-major CSR, datt through the relation-major
+    reduction) against their plain versions, fp32 within 1e-5 of the
+    largest reference magnitude: the main path's (B, C), odd shapes on
+    both sides of the 32-lane width (every channel width of the message
+    walk; 40 bases at 7 channels, past its registers), a hub row of 2500
+    in-edges and one of 2200 out-edges, a relation that holds most
+    edges, duplicate edges and empty rows, in embed mode (the source rows
+    differ from the nodes). Two launches give bitwise equal results (no
+    atomics); outputs come from torch.empty, so an unwritten row would
+    show."""
     from pytorch_geometric_tpu_torch.ops import packed_rgcn as pr
 
     n, R, rows = 600, 7, 640
@@ -375,23 +378,47 @@ def test_packed_rgcn_kernels_match_plain_on_card(cuda_device, case, B, C):
     att = torch.randn(R, B, generator=gen, device=cuda_device)
     g = torch.randn(n, C, generator=gen, device=cuda_device)
     fwd0, bwd0 = pr.packed_rgcn_fwd.launches, pr.packed_rgcn_bwd.launches
-    fwd_args = (op.fwd, op.fwd_et, op.fwd_w, xB, att)
+    fwd_args = (op.fwd, op.send, xB, att)
     bwd_args = (op.bwd, op.bwd_et, op.bwd_w, op.bwd_pos, op.rel_ptr, xB,
                 att, g)
     got = pr.packed_rgcn_fwd(*fwd_args)
-    want = pr.packed_rgcn_fwd_plain(*fwd_args)
+    want = pr.packed_rgcn_fwd_plain(op.fwd, op.fwd_et, op.fwd_w, xB, att)
     got_b = pr.packed_rgcn_bwd(*bwd_args)
     want_b = pr.packed_rgcn_bwd_plain(op.bwd, op.bwd_et, op.bwd_w, xB, att,
                                       g)
     torch.cuda.synchronize()
     assert (pr.packed_rgcn_fwd.launches - fwd0,
-            pr.packed_rgcn_bwd.launches - bwd0) == (1, 3)
+            pr.packed_rgcn_bwd.launches - bwd0) == (2, 3)
     assert _rel_err(got, want) <= 1e-5
     for a, b in zip(got_b, want_b):
         assert _rel_err(a, b) <= 1e-5
     assert torch.equal(got, pr.packed_rgcn_fwd(*fwd_args))
     for a, b in zip(got_b, pr.packed_rgcn_bwd(*bwd_args)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,B,C", [(450, 30, 16), (900, 30, 2)])
+def test_packed_rgcn_forward_reads_a_large_att_from_memory_on_card(
+        cuda_device, R, B, C):
+    """A relation table too large for the message walk's shared memory
+    (R B floats over 48 KB) is read from device memory: the same result
+    as the plain version within 1e-5, two launches bitwise equal."""
+    from pytorch_geometric_tpu_torch.ops import packed_rgcn as pr
+
+    n, rows = 600, 640
+    s, r, et, w = _rgcn_edges("hub", n, R)
+    op = pr.PackedRgcnSpmm(s, r, et, R, n, w, num_src_rows=rows,
+                           device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(R + C)
+    xB = torch.randn(rows, B * C, generator=gen, device=cuda_device)
+    att = torch.randn(R, B, generator=gen, device=cuda_device)
+    assert R * B * 4 > 48 * 1024
+    got = pr.packed_rgcn_fwd(op.fwd, op.send, xB, att)
+    want = pr.packed_rgcn_fwd_plain(op.fwd, op.fwd_et, op.fwd_w, xB, att)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= 1e-5
+    assert torch.equal(got, pr.packed_rgcn_fwd(op.fwd, op.send, xB, att))
 
 
 @pytest.mark.cuda
@@ -422,7 +449,7 @@ def test_packed_rgcn_spmm_on_card_matches_cpu(cuda_device, num_src_rows):
                               (out, xB.grad, att.grad)],
                              (after[0] - before[0], after[1] - before[1]))
     cpu, card = results["cpu"], results[str(cuda_device)]
-    assert cpu[1] == (0, 0) and card[1] == (1, 3)
+    assert cpu[1] == (0, 0) and card[1] == (2, 3)
     for a, b in zip(card[0], cpu[0]):
         assert _rel_err(a, b) <= 1e-5
 
@@ -908,9 +935,13 @@ def test_rgcn_ablate_full_is_the_library_and_every_mode_runs(cuda_device,
 @pytest.mark.parametrize("B,C", [(30, 16), (30, 2), (5, 33), (8, 20)])
 def test_rgcn_prefetch_depths_equal_depth_one_on_card(cuda_device, case, B,
                                                       C):
-    """The forward at prefetch depths 2 and 4 gives depth 1's bits, depth
-    1 is the library's ``packed_rgcn_fwd`` and within 1e-5 of the plain
-    version: hub rows, empty rows, duplicate edges, embed mode."""
+    """The forward's first design at prefetch depths 2 and 4 gives depth
+    1's bits; depth 1 is the first design (the design probe's
+    ``first_packed_rgcn_fwd``, bit for bit), within 1e-5 of the plain
+    version and of the library's ``packed_rgcn_fwd``, which is another
+    design since the sender-major forward and sums in another order:
+    hub rows, empty rows, duplicate edges, embed mode."""
+    from probes import packed_rgcn_designs as rd
     from probes import rgcn_ablate as ra
     from probes import rgcn_pipe_probe as rp
     from pytorch_geometric_tpu_torch.ops import packed_rgcn as pr
@@ -925,11 +956,13 @@ def test_rgcn_prefetch_depths_equal_depth_one_on_card(cuda_device, case, B,
     lib = ra.load()
     got = {depth: rp.pipe_fwd(lib, op, xB, att, depth)
            for depth in rp.DEPTHS}
-    want = pr.packed_rgcn_fwd(op.fwd, op.fwd_et, op.fwd_w, xB, att)
+    first = rd.fwd(rd.load(), "first", op, xB, att)
+    library = pr.packed_rgcn_fwd(op.fwd, op.send, xB, att)
     plain = pr.packed_rgcn_fwd_plain(op.fwd, op.fwd_et, op.fwd_w, xB, att)
     torch.cuda.synchronize()
-    assert torch.equal(got[1], want)
+    assert torch.equal(got[1], first)
     assert _rel_err(got[1], plain) <= 1e-5
+    assert _rel_err(got[1], library) <= 1e-5
     for depth in rp.DEPTHS[1:]:
         assert torch.equal(got[depth], got[1]), depth
 
@@ -1018,11 +1051,12 @@ def test_build_source_rebuilds_when_an_included_source_changes(
     op = pr.PackedRgcnSpmm(s, r, et, R, n, w, device=cuda_device)
     xB = torch.randn(n, B * C, device=cuda_device)
     att = torch.randn(R, B, device=cuda_device)
+    library = pr.packed_rgcn_fwd(op.fwd, op.send, xB, att)
     for lib in (first, second):
         out = rp.pipe_fwd(lib, op, xB, att, 2)
         torch.cuda.synchronize()
-        assert torch.equal(out, pr.packed_rgcn_fwd(op.fwd, op.fwd_et,
-                                                   op.fwd_w, xB, att))
+        assert torch.equal(out, rp.pipe_fwd(lib, op, xB, att, 1))
+        assert _rel_err(out, library) <= 1e-5
 
 
 @functools.lru_cache(maxsize=None)
@@ -1074,6 +1108,46 @@ def test_flash_gat_backward_designs_match_plain_on_card(cuda_device, graph,
     torch.cuda.synchronize()
     assert fg.flash_gat_bwd.launches - before == 4
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph,H,C", [("cora", 8, 8), ("cora", 1, 7),
+                                       ("half2048", 8, 8),
+                                       ("cap8192", 8, 8)])
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+def test_flash_gat_forward_designs_match_plain_on_card(cuda_device, graph,
+                                                       H, C, rate):
+    """The dense-mask forward at the design probe's masks and the main
+    path's widths: the library (a warp per mask row, the softmax chunk by
+    chunk) and the first design (a group of 8 lanes per (row, head)),
+    out and lse each within 1e-5 of the plain version and within 1e-6 of
+    each other (4e-6 on the half-full mask, whose rows sum about 1,000
+    terms each in another order, as the backward's designs do); two
+    launches of the library bitwise equal, one launch counted a call."""
+    from probes import flash_gat_designs as fd
+    from pytorch_geometric_tpu_torch.ops import flash_gat as fg
+
+    adj = _redesign_flash_adj(graph)
+    mask = fg.BitMask(adj)
+    n = mask.n
+    gen = torch.Generator(device=cuda_device).manual_seed(H * 1000 + C)
+    d, s = (torch.randn(n, H, generator=gen, device=cuda_device)
+            for _ in range(2))
+    h = torch.randn(n, H * C, generator=gen, device=cuda_device)
+    seed = torch.tensor([123457], dtype=torch.int32, device=cuda_device)
+    inputs = (d, s, h, None, None, None, seed)
+    errors, repeat = fd.compare_fwd(fd.load(), adj, mask, inputs, rate)
+    assert repeat
+    designs_tol = 4e-6 if graph == "half2048" else 1e-6
+    for key, err in errors.items():
+        assert err <= (designs_tol if key == "fwd_first_vs_shipped"
+                       else 1e-5), key
+    before = fg.flash_gat_fwd.launches
+    got = fg.flash_gat_fwd(mask, d, s, h, seed, rate)
+    torch.cuda.synchronize()
+    assert fg.flash_gat_fwd.launches - before == 1
+    shipped = fd.fwd(fd.load(), "shipped", mask, inputs, rate)
+    assert all(torch.equal(a, b) for a, b in zip(got, shipped))
 
 
 @pytest.mark.cuda
@@ -1137,6 +1211,39 @@ def test_packed_rgcn_backward_designs_agree_on_card(cuda_device, case):
     torch.cuda.synchronize()
     assert pr.packed_rgcn_bwd.launches - before == 6
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["conv1", "conv2", "hub"])
+def test_packed_rgcn_forward_designs_agree_on_card(cuda_device, case):
+    """``probes/packed_rgcn_designs.py``'s forwards on its cases (MUTAG
+    conv1 (30, 16) and conv2 (30, 2), the hub operator (5, 33) with its
+    receiver row of 3,013 edges): the first design (a warp per receiver
+    row) and the library (the sender-major messages, then the segment
+    sum) each within 1e-5 of the plain version and of each other (they
+    sum in other orders); two launches of the library bitwise equal, two
+    launches counted a call, and the library's C entry point called by
+    the probe gives the wrapper's bits."""
+    from probes import packed_rgcn_designs as rd
+    from pytorch_geometric_tpu_torch.ops import packed_rgcn as pr
+
+    op = rd.ops()[case]
+    _, B, C = next(c for c in rd.CASES if c[0] == case)
+    gen = torch.Generator(device=cuda_device).manual_seed(B * 100 + C)
+    xB, att, _ = rd.inputs(op, B, C, gen)
+    lib = rd.load()
+    errors, repeat = rd.compare_fwd(lib, op, xB, att)
+    assert repeat
+    for key, err in errors.items():
+        assert err <= 1e-5, key
+    before = pr.packed_rgcn_fwd.launches
+    got = pr.packed_rgcn_fwd(op.fwd, op.send, xB, att)
+    torch.cuda.synchronize()
+    assert pr.packed_rgcn_fwd.launches - before == 2
+    assert torch.equal(got, rd.fwd(lib, "shipped", op, xB, att))
+    if case == "hub":
+        lengths = op.fwd.row_ptr[1:] - op.fwd.row_ptr[:-1]
+        assert int(lengths.max()) == 3013
 
 
 @pytest.mark.cuda

@@ -147,9 +147,11 @@ def test_each_mode_is_a_bit_that_the_source_tests(probe, csrc, probe_cu,
 
 
 def test_the_prefetch_depth_defaults_to_one():
-    """Depth 1 is the default and the library's own forward; the deeper
-    walk lives in the probe source, and the library launches the
-    unablated backward only."""
+    """Depth 1 is the default and the forward's first design,
+    ``rgcn_fwd_kernel``, which stays in the library's source for the
+    probes; the deeper walk lives in the probe source, and the library
+    launches the sender-major message walk forward and the unablated
+    backward only."""
     params = inspect.signature(rgcn_pipe_probe.pipe_fwd).parameters
     assert params["depth"].default == 1
     assert rgcn_pipe_probe.DEPTHS[0] == 1
@@ -157,9 +159,12 @@ def test_the_prefetch_depth_defaults_to_one():
     probe_source = (REPO / "probes" / "packed_rgcn_ablate.cu").read_text()
     assert "kDepth" not in source
     assert "rgcn_fwd_ahead_kernel<CP, kDepth, kSlots>" in probe_source
-    assert re.search(r"if \(depth == 1\) \{\s*return packed_rgcn_fwd\(",
+    assert re.search(r"if \(depth == 1\) \{\s*return first_fwd\(",
                      probe_source)
-    assert "rgcn_fwd_kernel<CP><<<" in source
+    assert "rgcn_fwd_kernel<CP><<<" in probe_source
+    assert "rgcn_fwd_kernel<CP><<<" not in source
+    assert "\nrgcn_fwd_kernel(" in source
+    assert "rgcn_msg_kernel<CP, G, true>" in source
     assert "rgcn_bwd_kernel<CP><<<" in source
     with pytest.raises(ValueError, match="depth"):
         rgcn_pipe_probe.pipe_fwd(None, None, None, None, depth=3)
@@ -411,3 +416,54 @@ def test_packed_gat_phase_clocks_mark_every_phase_of_the_backward():
     assert source.index('#include "row_lanes.cuh"') \
         < source.index('extern "C" int gat_clock_read(')
     assert list(signatures) == ["gat_clock_read"]
+
+
+_C_TYPES = {"int": "c_int", "unsigned": "c_uint", "float": "c_float"}
+
+
+def _c_entry_points(source: str):
+    """{name: [ctypes name of each parameter]} of the ``extern "C"``
+    functions of a CUDA source: pointers (``void*``, ``int*``) as
+    ``c_void_p`` or a ctypes pointer, the scalars by their type."""
+    found = {}
+    for name, params in re.findall(
+            r'extern "C" int (\w+)\(([^)]*)\)\s*\{', source):
+        kinds = []
+        for param in params.split(","):
+            ctype = param.split()[0] if param.strip() else None
+            kinds.append("pointer" if "*" in param else _C_TYPES[ctype])
+        found[name] = kinds
+    return found
+
+
+def _ctypes_kind(t):
+    import ctypes
+
+    if t is ctypes.c_void_p or (isinstance(t, type)
+                                and issubclass(t, ctypes._Pointer)):
+        return "pointer"
+    return t.__name__
+
+
+@pytest.mark.parametrize("module", [
+    "library", "gat_ablate", "rgcn_ablate", "bsr_gat_designs",
+    "packed_gat_designs", "flash_gat_designs", "packed_rgcn_designs"])
+def test_every_loader_signature_is_its_sources_entry_point(module):
+    """Each ctypes signature that a loader declares (the library's per
+    source, each probe's) names an ``extern "C"`` function of the source
+    it loads, with as many parameters of the same kinds, so a loader
+    never calls a changed entry point with its old arguments (the
+    two-launch ``packed_rgcn_fwd``, the probes' ``first_packed_rgcn_fwd``
+    and ``first_flash_gat_fwd`` among them)."""
+    if module == "library":
+        pairs = [(_build.SOURCE_DIR / f"{name}.cu", sigs)
+                 for name, sigs in _build.SIGNATURES.items()]
+    else:
+        probe = globals()[module]
+        pairs = [(probe.SOURCE, probe.SIGNATURES)]
+    for path, sigs in pairs:
+        entries = _c_entry_points(path.read_text())
+        for fn, (restype, argtypes) in sigs.items():
+            assert fn in entries, (path.name, fn)
+            assert restype.__name__ == "c_int"
+            assert [_ctypes_kind(t) for t in argtypes] == entries[fn], fn

@@ -285,13 +285,91 @@ def test_relation_major_positions_index_the_same_edges():
     assert a == b == sorted(zip(s, r, et))
 
 
+def test_receiver_positions_index_the_same_edges():
+    """``fwd_pos`` sends each sender-major edge to the receiver-major
+    slot of the same (sender, receiver, relation, weight): where the
+    forward's message walk stores each edge's message for the receivers'
+    segment sum."""
+    g, _ = _graphs(8)
+    s, r, et, w = _edge_lists(g)
+    op = pr.PackedRgcnSpmm(s, r, et, R, g.num_nodes, w, num_src_rows=70,
+                           device="cpu")
+    pos = op.fwd_pos.numpy()
+    assert op.send.pos is op.fwd_pos and op.send.csr is op.bwd
+    assert sorted(pos) == list(range(op.E))
+    fwd_rows = pr._rows_of(op.fwd).numpy()
+    bwd_rows = pr._rows_of(op.bwd).numpy()
+    fwd_cols = op.fwd.col.numpy()
+    np.testing.assert_array_equal(fwd_cols[pos], bwd_rows)        # sender
+    np.testing.assert_array_equal(fwd_rows[pos], op.bwd.col.numpy())
+    np.testing.assert_array_equal(op.fwd_et.numpy()[pos], op.bwd_et.numpy())
+    np.testing.assert_array_equal(op.fwd_w.numpy()[pos], op.bwd_w.numpy())
+    # duplicate edges exist, and each takes a slot of its own
+    assert len(set(zip(bwd_rows, op.bwd.col.tolist()))) < op.E
+
+
+def _hub_lists(g):
+    """``_edge_lists`` plus 300 edges into receiver 3, each with weight
+    1/300, so one receiver row is ten times the longest other."""
+    s, r, et, w = _edge_lists(g)
+    rng = np.random.default_rng(21)
+    extra = 300
+    return (np.concatenate([s, rng.integers(0, 70, extra)]),
+            np.concatenate([r, np.full(extra, 3)]),
+            np.concatenate([et, rng.integers(0, R, extra)]),
+            np.concatenate([w, np.full(extra, 1 / extra, np.float32)]))
+
+
+@pytest.mark.parametrize("case,src_rows,B,C", [
+    ("multigraph", None, 3, 4), ("hub", None, 5, 33),
+    ("hub", 70, 30, 2), ("multigraph", 70, 4, 16)])
+def test_cpu_forward_runs_the_two_plain_phases(monkeypatch, case, src_rows,
+                                               B, C):
+    """On CPU tensors ``packed_rgcn_fwd`` runs the card's two phases in
+    plain PyTorch: each edge's message from the sender-major CSR at its
+    receiver-major position (``packed_rgcn_messages_plain``), then the
+    receivers' sums (``sorted_segment_sum_plain``). The result agrees
+    with the one-phase ``packed_rgcn_fwd_plain`` (1e-6) and with the JAX
+    packed forward (2e-2, its bf16 rounding), with a hub receiver, rows
+    without in-edges, and fewer source rows than nodes (embed mode)."""
+    g, _ = _graphs(4)
+    s, r, et, w = _hub_lists(g) if case == "hub" else _edge_lists(g)
+    n = g.num_nodes
+    rows = n if src_rows is None else src_rows
+    xB, att, _ = _op_inputs(5, rows, n, B, C)
+    op = pr.PackedRgcnSpmm(s, r, et, R, n, w, num_src_rows=src_rows,
+                           device="cpu")
+    calls = []
+    for name in ("packed_rgcn_messages_plain", "sorted_segment_sum_plain"):
+        fn = getattr(pr, name)
+        monkeypatch.setattr(pr, name, lambda *a, fn=fn, name=name: (
+            calls.append(name), fn(*a))[1])
+    pr.packed_rgcn_fwd.launches = 0
+    out = pr.packed_rgcn_fwd(op.fwd, op.send, torch.from_numpy(xB),
+                             torch.from_numpy(att))
+    assert calls == ["packed_rgcn_messages_plain",
+                     "sorted_segment_sum_plain"]
+    assert pr.packed_rgcn_fwd.launches == 0
+    want = pr.packed_rgcn_fwd_plain(op.fwd, op.fwd_et, op.fwd_w,
+                                    torch.from_numpy(xB),
+                                    torch.from_numpy(att))
+    _close(out, want.numpy(), 1e-6)
+    assert float(out[n - 5:].abs().max()) == 0.0      # rows without edges
+    lengths = (op.fwd.row_ptr[1:] - op.fwd.row_ptr[:-1]).numpy()
+    assert (int(lengths.argmax()), int(lengths.max()) > 300) == (
+        (3, True) if case == "hub" else (int(lengths.argmax()), False))
+    jop = JPacked(s, r, et, R, n, w, num_src_rows=src_rows, window=64,
+                  tile=128)
+    _close(out, jop(jnp.asarray(xB), jnp.asarray(att)), 2e-2)
+
+
 def test_packed_wrappers_refuse_bad_inputs_and_other_devices():
     g, _ = _graphs(9)
     s, r, et, w = _edge_lists(g)
     n = g.num_nodes
     op = pr.PackedRgcnSpmm(s, r, et, R, n, w, device="cpu")
     xB, att = torch.ones(n, 6), torch.ones(R, 3)
-    args = (op.fwd, op.fwd_et, op.fwd_w)
+    args = (op.fwd, op.send)
     with pytest.raises(ValueError, match="rows"):
         pr.packed_rgcn_fwd(*args, torch.ones(n - 1, 6), att)
     with pytest.raises(ValueError, match="B\\*C"):
@@ -299,11 +377,26 @@ def test_packed_wrappers_refuse_bad_inputs_and_other_devices():
     with pytest.raises(TypeError):
         pr.packed_rgcn_fwd(*args, xB.double(), att)
     with pytest.raises(TypeError):
-        pr.packed_rgcn_fwd(op.fwd, op.fwd_et.long(), op.fwd_w, xB, att)
+        pr.packed_rgcn_fwd(op.fwd, op.send._replace(et=op.bwd_et.long()),
+                           xB, att)
+    with pytest.raises(TypeError):
+        pr.packed_rgcn_fwd(op.fwd, op.send._replace(pos=op.fwd_pos.long()),
+                           xB, att)
+    meta = pr.SenderCsr(op.bwd.to("meta"), op.bwd_et.to("meta"),
+                        op.bwd_w.to("meta"), op.fwd_pos.to("meta"))
     with pytest.raises(ValueError, match="cpu or cuda"):
-        pr.packed_rgcn_fwd(op.fwd.to("meta"), op.fwd_et.to("meta"),
-                           op.fwd_w.to("meta"), xB.to("meta"),
+        pr.packed_rgcn_fwd(op.fwd.to("meta"), meta, xB.to("meta"),
                            att.to("meta"))
+    # the forward needs the sender-major CSR of the same edges
+    with pytest.raises(TypeError, match="SenderCsr"):
+        pr.packed_rgcn_fwd(op.fwd, (op.bwd, op.bwd_et, op.bwd_w), xB, att)
+    fewer = pr.PackedRgcnSpmm(s[1:], r[1:], et[1:], R, n, w[1:],
+                              device="cpu")
+    with pytest.raises(ValueError, match="sender-major CSR of the same"):
+        pr.packed_rgcn_fwd(op.fwd, fewer.send, xB, att)
+    with pytest.raises(ValueError, match="pos must be"):
+        pr.packed_rgcn_fwd(op.fwd, op.send._replace(pos=op.fwd_pos[1:]),
+                           xB, att)
     with pytest.raises(ValueError, match="g must be"):
         pr.packed_rgcn_bwd(op.bwd, op.bwd_et, op.bwd_w, op.bwd_pos,
                            op.rel_ptr, xB, att, torch.ones(n, 3))
@@ -315,7 +408,7 @@ def test_packed_wrappers_refuse_bad_inputs_and_other_devices():
     none = pr.PackedRgcnSpmm(s[:0], r[:0], et[:0], R, 0, w[:0],
                              num_src_rows=n, device="cpu")
     with pytest.raises(ValueError, match="at least one relation"):
-        pr.packed_rgcn_fwd(none.fwd, none.fwd_et, none.fwd_w, xB, att)
+        pr.packed_rgcn_fwd(none.fwd, none.send, xB, att)
 
 
 # ---------------------------------------------------------------------------
