@@ -6,12 +6,14 @@ Phases, one JSON line each:
 
 1. card      — the card's name and power limit (nvidia-smi);
 2. build     — every CUDA kernel of the port, built with nvcc from csrc/,
-               and the six probe sources probes/packed_gat_ablate.cu,
+               and the seven probe sources probes/packed_gat_ablate.cu,
                probes/packed_gat_designs.cu, probes/packed_rgcn_ablate.cu,
-               probes/bsr_gat_designs.cu, probes/flash_gat_designs.cu and
-               probes/packed_rgcn_designs.cu (which include csrc/'s
-               packed_gat.cu, packed_rgcn.cu, bsr_gat.cu and
-               flash_gat.cu): one nvcc per source, all started together;
+               probes/bsr_gat_designs.cu, probes/flash_gat_designs.cu,
+               probes/packed_rgcn_designs.cu and
+               probes/spmm_csr_designs.cu (which include csrc/'s
+               packed_gat.cu, packed_rgcn.cu, bsr_gat.cu, flash_gat.cu
+               and spmm_csr.cu): one nvcc per source, all started
+               together;
 3. kernel    — each kernel against its plain PyTorch version on the
                card, at the shapes the main paths give it, relative to
                the largest reference magnitude, with the kernel's, the
@@ -19,9 +21,11 @@ Phases, one JSON line each:
                times (CUDA graphs of 50 calls timed with CUDA events)
                and the bound:
                - spmm_csr at Cora (3072 padded nodes, its real edges and
-                 3072 self loops, F = 16 and 7) and at a synthetic graph
-                 of PubMed's shapes (F = 16 and 128), both CSR
-                 directions, fp32 x (1e-5) and bf16 x (1e-2);
+                 3072 self loops, F = 16 and 7), at a synthetic graph
+                 of PubMed's shapes (F = 16 and 128) and at a graph with
+                 a receiver of 500 senders and a sender of 400 receivers
+                 (F = 16), both CSR directions, fp32 x (1e-5) and bf16 x
+                 (1e-2); two launches bitwise equal;
                - the packed-GAT forward (raw num‖den) and backward
                  (dd, ds, dh) at Cora with conv1's (H, C) = (8, 8) and
                  conv2's (1, 7), at PubMed's shapes with (8, 8), and at a
@@ -85,8 +89,12 @@ Phases, one JSON line each:
                (the row pass's D bitwise), and both within 1e-5 of the
                plain versions; the same for
                the first design of the bsr row pass and of the packed-GAT
-               backward (probes/packed_gat_designs.cu; Cora (8, 8),
-               dropout 0.6); the first design of the dense-mask GAT
+               forward and backward (probes/packed_gat_designs.cu; Cora
+               (8, 8), dropout 0.6; two launches of the library's forward
+               bitwise equal), and of spmm_csr
+               (probes/spmm_csr_designs.cu; Cora's GCN CSR, F = 16, fp32
+               x and bf16 x: 1e-6 between the designs, 1e-5 and 1e-2 to
+               the plain version); the first design of the dense-mask GAT
                forward and backward (probes/flash_gat_designs.cu) against
                the library's at Cora (8, 8), dropout 0.6, within 1e-6 (D
                bitwise) and both within 1e-5 of the plain version; the
@@ -148,7 +156,7 @@ from pytorch_geometric_tpu_torch.bounds import (
     segment_sum_bound, spmm_bound)
 from pytorch_geometric_tpu_torch.datasets.graphs import (
     bsr_synthetic_masks, cora_graph, flash_synthetic_masks, gat_hub_edges,
-    mutag_graph, pubmed_graph, rgcn_hub_operator)
+    mutag_graph, pubmed_graph, rgcn_hub_operator, spmm_hub_operator)
 from pytorch_geometric_tpu_torch.profiling import device_ms
 
 DEVICE = "cuda"
@@ -183,10 +191,11 @@ def phase_build():
     from pytorch_geometric_tpu_torch.kernels import _build
 
     from probes import (bsr_gat_designs, flash_gat_designs, gat_ablate,
-                        packed_gat_designs, packed_rgcn_designs, rgcn_ablate)
+                        packed_gat_designs, packed_rgcn_designs, rgcn_ablate,
+                        spmm_csr_designs)
 
     probes = (gat_ablate, packed_gat_designs, rgcn_ablate, bsr_gat_designs,
-              flash_gat_designs, packed_rgcn_designs)
+              flash_gat_designs, packed_rgcn_designs, spmm_csr_designs)
     t0 = time.perf_counter()
     report = _build.build(sources=[probe.SOURCE for probe in probes])
     for name in _build.SIGNATURES:
@@ -201,15 +210,18 @@ def phase_build():
           "ptxas": ptxas})
 
 
-def _csr_pairs(graph):
+def _csr_pairs(graph=None):
     """The (CSR, weights in CSR order) pairs that the GCN's bound SpMM
     hands the kernel: forward (receiver-major) and backward (transposed),
-    over the self-looped ``gcn_norm`` edge set without padding edges."""
+    over the self-looped ``gcn_norm`` edge set without padding edges; or,
+    with no graph, over the hub graph (``spmm_hub_operator``: a receiver
+    of 500 senders, a sender of 400 receivers, random weights)."""
     from pytorch_geometric_tpu_torch.models.citation import gcn_spmm_operator
 
-    op, w = gcn_spmm_operator(graph)
-    return {"fwd": (op.fwd, w[op.fwd.perm].contiguous()),
-            "bwd": (op.bwd, w[op.bwd.perm].contiguous())}
+    op, w = (gcn_spmm_operator(graph) if graph is not None
+             else spmm_hub_operator(DEVICE, SEED))
+    val_f, val_b = op.route_weights(w)
+    return {"fwd": (op.fwd, val_f), "bwd": (op.bwd, val_b)}
 
 
 def check_case(graph_name, csr, val, direction, f, dtype_name, gen):
@@ -218,9 +230,10 @@ def check_case(graph_name, csr, val, direction, f, dtype_name, gen):
     dt = torch.bfloat16 if dtype_name == "bf16" else torch.float32
     x = torch.randn(csr.num_cols, f, generator=gen,
                     device=val.device).to(dt)
-    got = spmm_csr(csr, val, x)
+    got, again = spmm_csr(csr, val, x), spmm_csr(csr, val, x)
     want = spmm_csr_plain(csr, val, x)
     torch.cuda.synchronize()
+    repeats = torch.equal(got, again)
     abs_err = float((got - want).abs().max())
     rel_err = abs_err / max(float(want.abs().max()), 1e-30)
     kernel_ms = device_ms(lambda: spmm_csr(csr, val, x))
@@ -239,7 +252,8 @@ def check_case(graph_name, csr, val, direction, f, dtype_name, gen):
             "rows": csr.num_rows, "edges": csr.num_edges,
             "longest_row": int((csr.row_ptr[1:] - csr.row_ptr[:-1]).max()),
             "max_abs_err": abs_err, "rel_err": rel_err,
-            "tol": TOL[dtype_name], "ok": rel_err <= TOL[dtype_name],
+            "tol": TOL[dtype_name], "bitwise_repeat": repeats,
+            "ok": rel_err <= TOL[dtype_name] and repeats,
             "library_max_abs_err": lib_err,
             "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
@@ -773,9 +787,11 @@ def phase_kernel():
     pubmed = from_data(NormalizeFeatures()(synthetic_citation_graph(
         "pubmed", seed=SEED)), device=DEVICE)
     cases = []
-    for graph_name, graph, widths in (("cora", cora, (16, 7)),
-                                      ("pubmed", pubmed, (16, 128))):
-        for direction, (csr, val) in _csr_pairs(graph).items():
+    for graph_name, pairs, widths in (
+            ("cora", _csr_pairs(cora), (16, 7)),
+            ("pubmed", _csr_pairs(pubmed), (16, 128)),
+            ("hub", _csr_pairs(), (16,))):
+        for direction, (csr, val) in pairs.items():
             for f in widths:
                 for dtype_name in ("fp32", "bf16"):
                     cases.append(check_case(graph_name, csr, val, direction,
@@ -971,7 +987,8 @@ def phase_probe():
     emit({"phase": "probe", "launches": launches,
           "expected_launches": expected})
     for design in (probe_bsr_designs(gen), probe_packed_designs(gen),
-                   probe_flash_designs(gen), probe_rgcn_designs(gen)):
+                   probe_flash_designs(gen), probe_rgcn_designs(gen),
+                   *probe_spmm_designs(gen)):
         if not design["ok"]:
             failed.append((design["kernel"], design["graph"]))
     if failed:
@@ -1006,24 +1023,60 @@ def probe_bsr_designs(gen, rate=0.6):
 
 
 def probe_packed_designs(gen, rate=0.6):
-    """The first design of the packed-GAT backward
+    """The first design of the packed-GAT forward and backward
     (``probes/packed_gat_designs.cu``) against the library's at Cora
     (8, 8), the main path's call: within 1e-6 of each other (the two sum
-    a row's edges in other orders) and 1e-5 of the plain version. The
-    timing table is the probe script's."""
+    a row's edges in other orders), 1e-5 of the plain version, and two
+    launches of the library's forward bitwise equal. The timing table is
+    the probe script's."""
     from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
     from probes import packed_gat_designs as pd
 
     op = gat_flash_op(cora_graph(DEVICE)[1])
-    _, errors = pd.compare(pd.load(), op, 8, 8, rate, gen)
+    lib = pd.load()
+    inputs, errors = pd.compare(lib, op, 8, 8, rate, gen)
+    fwd_errors, fwd_repeat = pd.compare_fwd(lib, op, inputs, rate)
+    errors.update(fwd_errors)
     case = {"phase": "probe", "kernel": "packed_gat_designs",
             "graph": "cora", "H": 8, "C": 8, "rate": rate,
-            "errors": errors, "tol_designs": 1e-6, "tol": TOL["fp32"],
-            "ok": all(err <= (1e-6 if key == "first_vs_shipped"
-                              else TOL["fp32"])
-                      for key, err in errors.items())}
+            "errors": errors, "fwd_bitwise_repeat": fwd_repeat,
+            "tol_designs": 1e-6, "tol": TOL["fp32"],
+            "ok": fwd_repeat and all(
+                err <= (1e-6 if key.endswith("first_vs_shipped")
+                        else TOL["fp32"])
+                for key, err in errors.items())}
     emit(case)
     return case
+
+
+def probe_spmm_designs(gen, f=16):
+    """The first design of ``spmm_csr`` (``probes/spmm_csr_designs.cu``)
+    against the library's on Cora's GCN CSR (the main path's forward) at
+    F = 16, fp32 and bf16 x: within 1e-6 of each other (the row map sums
+    a row's edges in another order), each within 1e-5 (fp32 x) or 1e-2
+    (bf16 x) of the plain version, and two launches of the library's
+    bitwise equal. One case a dtype; the timing table is the probe
+    script's."""
+    from probes import spmm_csr_designs as sd
+
+    lib = sd.load()
+    csr, val = _csr_pairs(cora_graph(DEVICE)[1])["fwd"]
+    cases = []
+    for dtype_name in ("fp32", "bf16"):
+        x = torch.randn(csr.num_cols, f, generator=gen,
+                        device=DEVICE).to(sd.DTYPES[dtype_name])
+        errors, repeat = sd.compare(lib, csr, val, x)
+        case = {"phase": "probe", "kernel": "spmm_csr_designs",
+                "graph": "cora", "direction": "fwd", "F": f,
+                "x": dtype_name, "errors": errors, "bitwise_repeat": repeat,
+                "tol_designs": 1e-6, "tol": TOL[dtype_name],
+                "ok": repeat and all(
+                    err <= (1e-6 if key == "first_vs_shipped"
+                            else TOL[dtype_name])
+                    for key, err in errors.items())}
+        emit(case)
+        cases.append(case)
+    return cases
 
 
 def probe_flash_designs(gen, rate=0.6):
@@ -1483,7 +1536,7 @@ def phase_trace(make_step=_gcn_step, phase="trace", epochs=20,
     groups = {"port_kernels": 0.0, "optimizer_multi_tensor": 0.0,
               "other": 0.0}
     for us, name, _ in kernels:
-        if any(k in name for k in ("spmm_csr", "gat_fwd_kernel",
+        if any(k in name for k in ("spmm_csr", "gat_fwd_",
                                    "gat_bwd_kernel", "rgcn_", "flash_fwd_",
                                    "flash_bwd_", "bsr_fwd_", "bsr_bwd_",
                                    "sorted_segment_sum", "fused_gcn")):

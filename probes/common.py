@@ -71,6 +71,26 @@ def timings(fn, calls: int = 50, runs: int = RUNS) -> dict:
     return out
 
 
+def floor_line(probe: str, calls: int = 50, smi: str = "") -> dict:
+    """The launch floor: device µs of a plain launch of an empty kernel of
+    256 threads a block at 192 and 1056 blocks (``probe_empty`` of
+    ``probes/fused_gcn_designs.cu``, no cooperative launch, no barrier),
+    timed as :func:`timings` times a kernel. What no lane map of a kernel
+    can remove from its time."""
+    from probes import fused_gcn_designs
+
+    lib = fused_gcn_designs.build()
+
+    def empty(blocks):
+        rc = lib.probe_empty(0, 0, blocks, stream())
+        if rc != 0:
+            raise RuntimeError(f"empty launch failed: CUDA error {rc}")
+
+    return {"probe": probe, "floor_us": {
+        f"plain_{blocks}_blocks": timings(lambda: empty(blocks), calls)
+        for blocks in (192, 1056)}, "calls": calls, "card": smi}
+
+
 def row_lengths(row_ptr) -> dict:
     """max, p99 and mean edges per row of a CSR."""
     n = (row_ptr[1:] - row_ptr[:-1]).double()

@@ -1,39 +1,46 @@
-"""Design probe of the packed-GAT backward, on one NVIDIA GPU.
+"""Design probe of the packed-GAT forward and backward, on one NVIDIA GPU.
 
     python3 probes/packed_gat_designs.py [--calls 50]
 
-Times the two designs of ``packed_gat_bwd``
+Times the two designs of ``packed_gat_fwd`` and of ``packed_gat_bwd``
 (``pytorch_geometric_tpu_torch/csrc/packed_gat.cu``) on the same inputs in
-one run, each walk alone (walk 0 over the receiver-major CSR writes
-``dd``; walk 1 over the sender-major CSR, with the edge ids, ``ds`` and
-``dh``) and both together, the call the model makes:
+one run: the forward (``fwd_first``, ``fwd_shipped``), and the backward,
+each walk alone (walk 0 over the receiver-major CSR writes ``dd``; walk 1
+over the sender-major CSR, with the edge ids, ``ds`` and ``dh``) and both
+together, the call the model makes:
 
 - ``first``: the source's first design, one group of lanes per (row,
   head) walking the row's edges one after another, every lane of the
-  group forming each edge's terms (``gat_bwd_heads_kernel``, launched at
-  every width by ``probes/packed_gat_designs.cu``);
+  group forming each edge's terms (``gat_fwd_kernel``,
+  ``gat_bwd_heads_kernel``, launched at every width by
+  ``first_packed_gat_fwd`` and ``first_packed_gat_bwd`` of
+  ``probes/packed_gat_designs.cu``);
 - ``shipped``: the port's library, one sub-warp per CSR row over all
   heads, each edge's index and (edge, head) terms loaded and formed once,
-  whole-row gathers (``gat_bwd_kernel``, at the widths where its lane map
-  covers a row in one pass; the first design elsewhere).
+  whole-row gathers (``gat_fwd_rows_kernel``, ``gat_bwd_kernel``, at the
+  widths where the lane map covers a row in one pass; the first design
+  elsewhere).
 
 Cases: Cora (``datasets/graphs.py:cora_graph``: 3072 rows, ~13.6k edges)
 at conv1's (H, C) = (8, 8), attention dropout 0 and 0.6, and conv2's
 (1, 7); PubMed after RCM (``pubmed_graph``: 24,576 rows, ~113.2k edges)
 at (8, 8), dropout 0 and 0.6, and (1, 3); the hub graph
 (``gat_hub_edges``: 512 rows, a receiver of 500 senders, a sender of 400
-receivers) at (8, 8) and (1, 7), dropout 0.6.
+receivers) at (8, 8), (1, 7) and (3, 5), dropout 0.6.
 
 Prints one JSON line with the build (nvcc's ``-Xptxas -v`` report: each
-kernel's registers and spills, both designs), then one per case: device
-µs of each design and walk with the L2 warm and flushed (median of five
-CUDA-graph timings of ``--calls`` calls, and their spread,
-``probes/common.py:timings``), each walk's bound
-(``bounds.py:gat_walk_bound``) and the call's (``gat_bound``), the
-largest error of each design against the plain version and of the first
-against the shipped one (relative to the largest magnitude), the row
-lengths of both CSRs, and the card's name and power limit. Exits non-zero
-without a card.
+kernel's registers and spills, both designs), one with the launch floor
+(``probes/common.py:floor_line``: an empty kernel's plain launch, timed
+the same way), then one per case: device µs of each design's forward and
+of each backward walk and call with the L2 warm and flushed (median of
+five CUDA-graph timings of ``--calls`` calls, and their spread,
+``probes/common.py:timings``), the forward's bound (``bounds.py:gat_bound``),
+each walk's (``gat_walk_bound``) and the backward call's, the largest
+error of each design against the plain version and of the first against
+the shipped one (relative to the largest magnitude; ``fwd_*``: the
+forward's num‖den), whether two launches of the shipped forward are
+bitwise equal, the row lengths of both CSRs, and the card's name and
+power limit. Exits non-zero without a card.
 """
 
 import argparse
@@ -48,11 +55,12 @@ if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
 
 from probes.common import (  # noqa: E402
-    build_line, card, emit, require_card, row_lengths, timings)
+    build_line, card, emit, floor_line, require_card, row_lengths, timings)
 
 SOURCE = REPO / "probes" / "packed_gat_designs.cu"
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 SIGNATURES = {
+    "first_packed_gat_fwd": (_I, [_P] * 8 + [_I] * 3 + [_U, _F, _F, _P]),
     "first_packed_gat_bwd": (_I, [_P] * 11 + [_I] * 3
                              + [_U, _F, _F, _I, _P]),
 }
@@ -60,7 +68,8 @@ DESIGNS = ("first", "shipped")
 #: (graph, H, C, dropout rate) of each case.
 CASES = (("cora", 8, 8, 0.0), ("cora", 8, 8, 0.6), ("cora", 1, 7, 0.6),
          ("pubmed_rcm", 8, 8, 0.0), ("pubmed_rcm", 8, 8, 0.6),
-         ("pubmed_rcm", 1, 3, 0.6), ("hub", 8, 8, 0.6), ("hub", 1, 7, 0.6))
+         ("pubmed_rcm", 1, 3, 0.6), ("hub", 8, 8, 0.6), ("hub", 1, 7, 0.6),
+         ("hub", 3, 5, 0.6))
 SEED = 0
 GAT_SEED = 123457
 
@@ -80,6 +89,61 @@ def entry(lib, design):
     if design == "first":
         return lib.first_packed_gat_bwd
     return load_library("packed_gat").packed_gat_bwd
+
+
+def fwd_entry(lib, design):
+    """The C entry point of a forward design (packed_gat_fwd's
+    signature): the probe's first design, or the port's library."""
+    from pytorch_geometric_tpu_torch.kernels._build import load_library
+
+    if design not in DESIGNS:
+        raise ValueError(f"unknown forward design {design!r}")
+    if design == "first":
+        return lib.first_packed_gat_fwd
+    return load_library("packed_gat").packed_gat_fwd
+
+
+def fwd(fn, op, inputs, rate, out=None):
+    """The raw num‖den of the forward through the C entry point ``fn``
+    (see :func:`fwd_entry`) over the receiver-major CSR, into ``out``
+    (made from torch.empty if None)."""
+    from pytorch_geometric_tpu_torch.ops.packed_gat import _launch_args
+
+    d, s, h, m, seed = inputs[:5]
+    n, H = d.shape
+    C = h.shape[1] // H
+    if out is None:
+        out = torch.empty((n, H * C + H), dtype=torch.float32,
+                          device=d.device)
+    rc = fn(op.fwd.row_ptr.data_ptr(), op.fwd.col.data_ptr(), d.data_ptr(),
+            s.data_ptr(), h.data_ptr(), m.data_ptr(), seed.data_ptr(),
+            out.data_ptr(), n, H, C,
+            *_launch_args(rate, op.slope,
+                          torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"packed_gat_fwd failed: CUDA error {rc}")
+    return out
+
+
+def compare_fwd(lib, op, inputs, rate):
+    """Both forward designs against the plain version and the first
+    against the shipped one (relative to the largest reference
+    magnitude), and whether two launches of the shipped design are
+    bitwise equal: ``(errors, bitwise_repeat)``."""
+    from pytorch_geometric_tpu_torch.ops import packed_gat as pg
+
+    d, s, h, m, seed = inputs[:5]
+    plain = pg.packed_gat_fwd_plain(op.fwd, d, s, h, m, seed, rate,
+                                    op.slope)
+    got = {design: fwd(fwd_entry(lib, design), op, inputs, rate)
+           for design in DESIGNS}
+    again = fwd(fwd_entry(lib, "shipped"), op, inputs, rate)
+    torch.cuda.synchronize()
+    errors = {f"fwd_{design}_vs_plain": _rel((out,), (plain,))
+              for design, out in got.items()}
+    errors["fwd_first_vs_shipped"] = _rel((got["first"],),
+                                          (got["shipped"],))
+    return errors, torch.equal(again, got["shipped"])
 
 
 def bwd_walk(fn, op, inputs, rate, walk, outs=None):
@@ -174,6 +238,7 @@ def main(argv=None):
 
     smi = card()
     emit(build_line("packed_gat_designs", SOURCE, smi))
+    emit(floor_line("packed_gat_designs", args.calls, smi))
     lib = load()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for graph, op in ops().items():
@@ -181,11 +246,20 @@ def main(argv=None):
             if name != graph:
                 continue
             data, errors = compare(lib, op, H, C, rate, gen)
+            fwd_errors, fwd_repeat = compare_fwd(lib, op, data, rate)
             line = {"probe": "packed_gat_designs", "graph": graph,
                     "rows": op.n, "edges": op.E, "H": H, "C": C,
-                    "rate": rate, "errors": errors,
+                    "rate": rate, "errors": {**fwd_errors, **errors},
+                    "fwd_bitwise_repeat": fwd_repeat,
                     "row_lengths": {"receiver": row_lengths(op.fwd.row_ptr),
                                     "sender": row_lengths(op.bwd.row_ptr)}}
+            for design in DESIGNS:
+                fn = fwd_entry(lib, design)
+                out = fwd(fn, op, data, rate)
+                line[f"fwd_{design}"] = timings(
+                    lambda: fwd(fn, op, data, rate, out), args.calls)
+            line["fwd_bound_ms"], line["fwd_bound_by"] = gat_bound(
+                op, H, C, False)
             for design in DESIGNS:
                 fn = entry(lib, design)
                 outs = tuple(bwd_walk(fn, op, data, rate, walk)

@@ -1,19 +1,20 @@
-"""Variants of the packed-GAT backward, and the phases of a row, on one
-NVIDIA GPU.
+"""Variants of the packed-GAT forward and backward, and the phases of a
+backward row, on one NVIDIA GPU.
 
     python3 probes/packed_gat_variants.py [--calls 50] [--variants a,b]
 
 Each variant is ``pytorch_geometric_tpu_torch/csrc/packed_gat.cu`` with
-one choice of its backward's design undone (a text edit of the source, in
-``VARIANTS``), built through ``kernels/_build.py:build_source`` from a
-copy under the git-ignored ``pytorch_geometric_tpu_torch/_build/variants/``
+one choice of its forward's or backward's design undone (a text edit of
+the source, in ``VARIANTS``), built through
+``kernels/_build.py:build_source`` from a copy under the git-ignored
+``pytorch_geometric_tpu_torch/_build/variants/``
 (``probes/common.py:build_variants``); each is timed beside the shipped
 library and the first design (``probes/packed_gat_designs.py``) on the
 design probe's cases at dropout 0.6. One JSON line per case: warm device
-µs of each two-walk call (median of three CUDA-graph timings of
-``--calls`` calls), each variant's largest error against the plain
-version, and the card's name and power limit; first, one line per
-variant with nvcc's register report.
+µs of each forward (``fwd_us``) and two-walk backward call (``us``)
+(median of three CUDA-graph timings of ``--calls`` calls), each one's
+largest error against its plain version, and the card's name and power
+limit; first, one line per variant with nvcc's register report.
 
 Then (``phases``) the shipped backward with ``clock64`` read at the
 phases of every row (its start, after its ``row_ptr`` pair, after the
@@ -50,6 +51,25 @@ VARIANTS = {
         "rows of a launch under one wave keep their lanes",
         [("  if (L < 32 && static_cast<long long>(n_rows) * L < "
           "wave_threads()) L *= 2;\n", "")]),
+    "fwd_serial_sums": (
+        "the forward's den and each of its channels summed in a tree of "
+        "its own, one tree after another, not a level at a time for all",
+        [("  row.sum_groups(acc, C, den, r0, H, R);\n",
+          "#pragma unroll\n"
+          "  for (int k = 0; k <= KC; ++k) {\n"
+          "    float& v = k < KC ? acc[k] : den;\n"
+          "    if (k < C || k == KC) {\n"
+          "      for (int s = 1; s < R; s <<= 1) {\n"
+          "        const float o = __shfl_down_sync(row.mask, v, s * H, L);\n"
+          "        if ((r0 & (2 * s - 1)) == 0 && r0 + s < R) v += o;\n"
+          "      }\n"
+          "    }\n"
+          "  }\n")]),
+    "fwd_doubled_lanes": (
+        "the forward's lanes doubled wherever the launch fills less than "
+        "one wave (the backward's rule), not only where a step of the walk "
+        "takes fewer than 8 edges",
+        [("  if (L < 32 && step < 8 &&\n", "  if (L < 32 && step > 0 &&\n")]),
 }
 #: Rows whose phases are kept (RCM-PubMed's padded count).
 CLOCK_ROWS = 24576
@@ -115,7 +135,21 @@ def probe_variants(built, names, calls, smi):
             plain = pg.packed_gat_bwd_plain(op.fwd, d, s, h, m, seed, g,
                                             rate, op.slope)
             line = {"probe": "packed_gat_variants", "graph": graph, "H": H,
-                    "C": C, "rate": rate, "us": {}, "rel_err": {}}
+                    "C": C, "rate": rate, "us": {}, "rel_err": {},
+                    "fwd_us": {}, "fwd_rel_err": {}}
+            plain_fwd = pg.packed_gat_fwd_plain(op.fwd, d, s, h, m, seed,
+                                                rate, op.slope)
+            fwds = {design: pd.fwd_entry(first, design)
+                    for design in pd.DESIGNS}
+            fwds.update((vname, built[vname][0].packed_gat_fwd)
+                        for vname in names)
+            for key, fn in fwds.items():
+                out = pd.fwd(fn, op, data, rate)
+                torch.cuda.synchronize()
+                line["fwd_rel_err"][key] = pd._rel((out,), (plain_fwd,))
+                line["fwd_us"][key] = timings(
+                    lambda: pd.fwd(fn, op, data, rate, out), calls,
+                    runs=3)["warm_us"]
             fns = {design: pd.entry(first, design)
                    for design in pd.DESIGNS}
             fns.update((vname, built[vname][0].packed_gat_bwd)

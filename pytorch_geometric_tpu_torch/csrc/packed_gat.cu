@@ -33,19 +33,21 @@
 // -> the neighbour's row -> the store), each step an L2 round trip, and
 // the walk is bound by that chain and by the instructions of each edge.
 //
-// Forward and the first design of the backward (gat_fwd_kernel,
+// The first design of the forward and of the backward (gat_fwd_kernel,
 // gat_bwd_heads_kernel): a group of G lanes (G = 4, 8, 16 or 32:
 // with_group_width) owns one (row, head) pair; lane l keeps the channels
 // l, l + G, ... of a chunk of G * kVec channels, and every lane of the
 // group computes the same per-edge scalars (logit, exp, keep bit) with the
-// same instructions, walking the row's edges one after another. The
-// backward's per-head dot <gnum, h> is a butterfly of shuffles within the
-// group. The backward keeps this design only at the widths the design
+// same instructions, walking the row's edges one after another, so a row
+// of deg edges is deg steps of the chain deep and col[e] is loaded H
+// times. The backward's per-head dot <gnum, h> is a butterfly of shuffles
+// within the group. Both keep this design only at the widths the row map
 // below does not take (see there); probes/packed_gat_designs.py times it
-// beside the new one at every width.
+// beside the row map at every width.
 //
-// Design of the backward (gat_bwd_kernel), after the block-sparse GAT's
-// row pass (bsr_gat.cu):
+// The row map of the backward (gat_bwd_kernel), after the block-sparse
+// GAT's row pass (bsr_gat.cu), and of the forward (gat_fwd_rows_kernel,
+// which is the backward's walk 0 with the forward's terms):
 // - The L lanes of a sub-warp own one CSR row over all H heads (L from
 //   packed_lanes: the fewest of 4, 8, 16, 32 that hold the row's H C
 //   channels at V a lane, twice that where the launch fills less than
@@ -65,9 +67,25 @@
 //   serves both the dot and dh[src] += gnum ex ks. The row's own terms
 //   are loaded once, before the walk: walk 0 d, the shift, gnum and gden
 //   of the receiver; walk 1 s and h of the sender.
-// - It runs where the heads divide the lanes and a head has at most 32
-//   channels (registers for them: 8 or 32); the other widths ((3, 5),
-//   (2, 33), (4, 64), (1, 256)) keep the first design.
+// - The forward's lane gathers the head's slice of h[src] whole, loads
+//   s[src], forms the logit, the expf and the keep hash (edge id = CSR
+//   position) once, and adds w h into its num registers and ex into den;
+//   the row's d and shift are loaded once, before the walk. The entry
+//   groups' num and den meet in the fixed tree below; the lanes of entry
+//   group 0 store the row's num (whole 16-byte stores where the out row
+//   of H C + H floats and the pointers allow) and den. Its lanes come
+//   from fwd_lanes: the fewest that hold the channels, doubled only where
+//   a step of the walk at the fewest takes fewer than 8 edges (and the
+//   launch fills less than one wave), since the extra lanes add threads
+//   and a level of the tree to every row.
+// - The backward's map runs where the heads divide the lanes and a head
+//   has at most 32 channels (registers for them: 8 or 32); the other
+//   widths ((3, 5), (2, 33), (4, 64), (1, 256)) keep the first design.
+//   The forward's runs wherever a row's lanes hold its heads and a head
+//   has at most 32 channels: where the heads do not divide the lanes
+//   ((3, 5): 5 entry groups of 3 lanes in 16), the lanes past the last
+//   whole group walk no edge, and the groups' sums meet in a tree of
+//   shuffles down by multiples of H (row_lanes.cuh: Row::sum_groups).
 // - No atomics. Walk 0 walks the receiver-major CSR (edge id = CSR
 //   position) and writes dd; walk 1 walks the sender-major CSR (edge id
 //   from its permutation) and writes ds and dh. The entry groups' sums of
@@ -88,7 +106,11 @@
 // and a sender of 400 receivers (8, 8) 446 -> 65, (1, 7) 328 -> 23.
 // clock64 marks (probes/packed_gat_variants.py) put a step of the edge
 // loop at 1,000-3,700 cycles: the col[e] load and then the gathers it
-// feeds, two dependent round trips.
+// feeds, two dependent round trips. The forward, first design -> row map,
+// in one run of the same probe: Cora conv1 (dropout 0.6) 6.7 -> 3.8
+// (bound 0.6), conv2 (1, 7) 5.9 -> 4.5; RCM-PubMed (8, 8) 29.0 -> 10.5,
+// (1, 3) 6.7 -> 5.6; the hub graph (8, 8) 152 -> 36, (1, 7) 87 -> 20,
+// (3, 5) 131 -> 31.
 //
 // Ablation hooks: the backward kernel takes a bit mask kAblate of terms
 // to remove (namespace gat_ablate) and a run-time flag `sink`. The
@@ -222,6 +244,90 @@ gat_fwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
       if (c < C) o[hd * C + c] = acc[k];
     }
     if (c0 == 0 && lane == 0) o[HC + hd] = den;
+  }
+}
+
+// The forward's arguments beside the lane map.
+struct FwdArgs {
+  const int* row_ptr;
+  const int* col;
+  const float* d;
+  const float* s;
+  const float* h;
+  const float* m;
+  const int* seed;
+  float* out;
+  int n_rows, H, C;
+  uint32_t thresh;
+  float scale, slope;
+};
+
+// Forward over the receiver-major CSR (edge id = CSR position) where a
+// row's L lanes hold at least its H heads and C <= KC (see the head of
+// this file): lane t < R H of the sub-warp over row r (R = L / H) keeps
+// to head t % H and takes the edges e0 + t / H, e0 + t / H + R, ... of
+// the row, NB of them with their loads issued together, so each (edge,
+// head) pair is one lane's and each col[e] is loaded once for all heads.
+template <int L, int V, int KC>
+__global__ void __launch_bounds__(kThreads)
+gat_fwd_rows_kernel(FwdArgs f) {
+  // edges a lane loads at once: kEdgeLoads, one where a head is wide
+  constexpr int NB = KC <= 8 ? kEdgeLoads : 1;
+  const Row<L> row;
+  const int r = blockIdx.x * (kThreads / L) + threadIdx.x / L;
+  const int n_rows = f.n_rows;
+  if (r >= n_rows) return;
+  const int H = f.H, C = f.C, HC = H * C;
+  const size_t rrow = static_cast<size_t>(r);
+  const float slope = f.slope;
+  // R entry groups of H lanes; the L - R H lanes past them (where H does
+  // not divide L) walk no edge and only join the sums
+  const int hd = row.lane % H;
+  const int r0 = row.lane / H;
+  const int R = L / H;
+  const uint32_t seed = static_cast<uint32_t>(__ldg(f.seed));
+  // the row's own terms: d of the head and the shift
+  const float dr = __ldg(f.d + rrow * H + hd);
+  const float shift = leaky(__ldg(f.m + hd) + dr, slope);
+  const int e_begin = __ldg(f.row_ptr + r);
+  const int e_end = __ldg(f.row_ptr + r + 1);
+  float acc[KC], den = 0.f;
+#pragma unroll
+  for (int k = 0; k < KC; ++k) acc[k] = 0.f;
+  for (int e = r0 < R ? e_begin + r0 : e_end; e < e_end; e += R * NB) {
+    // NB edges: the senders, then every gather, issued together
+    int src[NB];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const int eb = e + b * R;
+      src[b] = eb < e_end ? __ldg(f.col + eb) : r;
+    }
+    float x[NB][KC], sv[NB];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const bool ok = e + b * R < e_end;
+      const size_t srow = static_cast<size_t>(src[b]);
+      load_head<KC, V>(f.h + srow * HC + hd * C, ok ? C : 0, x[b]);
+      sv[b] = ok ? __ldg(f.s + srow * H + hd) : 0.f;
+    }
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const int eb = e + b * R;
+      if (eb >= e_end) continue;
+      const float ex = expf(leaky(sv[b] + dr, slope) - shift);
+      den += ex;
+      const float w = ex * keep_scale(seed, eb, hd, f.thresh, f.scale);
+#pragma unroll
+      for (int k = 0; k < KC; ++k) acc[k] += w * x[b][k];
+    }
+  }
+  // the entry groups' sums meet in group 0 in a fixed tree, a level at a
+  // time for the head's C channels and den together
+  row.sum_groups(acc, C, den, r0, H, R);
+  if (r0 == 0) {
+    float* o = f.out + rrow * (HC + H);
+    store_head<KC, V>(o + hd * C, C, acc);
+    o[HC + hd] = den;
   }
 }
 
@@ -472,37 +578,88 @@ void with_group_width(int C, Fn&& f) {
   }
 }
 
-// Lanes of a row of gat_bwd_kernel: the fewest of 4, 8, 16 and 32 that
-// hold the H C channels at V a lane; twice that where the n_rows rows at
-// that width fill less than one wave of the card, so that twice the edges
-// of a row go at once.
-int packed_lanes(int H, int C, int V, int n_rows) {
+// The fewest of 4, 8, 16 and 32 lanes that hold the H C channels at V a
+// lane.
+int fewest_lanes(int H, int C, int V) {
   int L = 4;
   while (L < 32 && L * V < H * C) L *= 2;
+  return L;
+}
+
+// Lanes of a row of gat_bwd_kernel: the fewest that hold the channels;
+// twice that where the n_rows rows at that width fill less than one wave
+// of the card, so that twice the edges of a row go at once.
+int packed_lanes(int H, int C, int V, int n_rows) {
+  int L = fewest_lanes(H, C, V);
   if (L < 32 && static_cast<long long>(n_rows) * L < wave_threads()) L *= 2;
   return L;
 }
 
-// Where gat_bwd_kernel runs the walk of a (the heads divide the lanes of a
-// row, C <= 32), calls f(L, V, KC) as integral constants (V = 4 where C is
-// a multiple of 4 and h, g, dh and the rows of g are 16-byte aligned; KC
-// = 8 or 32 registers for a head's channels) and returns true; else
-// false, and the first design runs it.
+// Lanes of a row of gat_bwd_kernel: packed_lanes's where the heads divide
+// them, else 0 (the first design).
+int bwd_lanes(int H, int C, int V, int n_rows) {
+  const int L = packed_lanes(H, C, V, n_rows);
+  return L % H == 0 ? L : 0;
+}
+
+// Lanes of a row of gat_fwd_rows_kernel: the fewest that hold the
+// channels, and twice that only where a step of the walk at the fewest
+// takes fewer than 8 of a row's edges (L / H entry groups of NB edges
+// each) and the rows fill less than one wave. A step of 8 or more already
+// takes a row of a citation graph (Cora's and PubMed's: means ~4.5, p99
+// ~11 edges) in one or two steps, and twice the lanes would add threads
+// and a level of the tree of sums to every row (Cora (1, 7), RCM-PubMed
+// (1, 3): probes/packed_gat_variants.py, PERF.md). The heads need not
+// divide the lanes; 0 (the first design) where a row has fewer lanes
+// than heads.
+int fwd_lanes(int H, int C, int V, int n_rows) {
+  int L = fewest_lanes(H, C, V);
+  const int step = L / H * (C <= 8 ? kEdgeLoads : 1);
+  if (L < 32 && step < 8 &&
+      static_cast<long long>(n_rows) * L < wave_threads()) {
+    L *= 2;
+  }
+  return L >= H ? L : 0;
+}
+
+// Where the row map takes (H, C) (lanes_of gives the lanes of a row, not
+// 0, and C <= 32), calls f(L, V, KC) as integral constants (V = 4 where C
+// is a multiple of 4 and `aligned`: every node array the lanes load or
+// store as float4 16-byte aligned, with its rows; KC = 8 or 32 registers
+// for a head's channels) and returns true; else false, and the first
+// design runs it.
 template <typename Fn>
-bool with_bwd_lanes(const BwdArgs& a, Fn&& f) {
-  const bool aligned = aligned16(a.h) && aligned16(a.g) && aligned16(a.dh) &&
-                       (a.H * a.C + a.H) % 4 == 0;
-  const int V = channels_per_lane(a.C, aligned);
-  const int L = packed_lanes(a.H, a.C, V, a.n_rows);
-  if (L % a.H != 0 || a.C > 32) return false;
+bool with_row_map(int H, int C, int n_rows, bool aligned,
+                  int (*lanes_of)(int, int, int, int), Fn&& f) {
+  const int V = channels_per_lane(C, aligned);
+  const int L = lanes_of(H, C, V, n_rows);
+  if (L == 0 || C > 32) return false;
   with_row_lanes(L, V, [&](auto lanes, auto vec) {
-    if (a.C <= 8) {
+    if (C <= 8) {
       f(lanes, vec, std::integral_constant<int, 8>{});
     } else {
       f(lanes, vec, std::integral_constant<int, 32>{});
     }
   });
   return true;
+}
+
+// The row map of the backward's walk of a: h, g, dh and the rows of g
+// 16-byte aligned for V = 4.
+template <typename Fn>
+bool with_bwd_lanes(const BwdArgs& a, Fn&& f) {
+  const bool aligned = aligned16(a.h) && aligned16(a.g) && aligned16(a.dh) &&
+                       (a.H * a.C + a.H) % 4 == 0;
+  return with_row_map(a.H, a.C, a.n_rows, aligned, bwd_lanes, f);
+}
+
+// The row map of the forward: h, out and the rows of out (H C + H
+// floats) 16-byte aligned for V = 4.
+template <typename Fn>
+bool with_fwd_lanes(const FwdArgs& f, Fn&& fn) {
+  const bool aligned = aligned16(f.h) && aligned16(f.out) &&
+                       (f.H * f.C + f.H) % 4 == 0;
+  return with_row_map(f.H, f.C, f.n_rows, aligned, fwd_lanes, fn);
 }
 
 // One launch of gat_bwd_kernel<L, V, KC, src_side, kAblate> with `smem`
@@ -553,24 +710,57 @@ int launch_bwd_heads(const BwdArgs& a, int src_side, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+FwdArgs fwd_args(void* row_ptr, void* col, void* d, void* s, void* h,
+                 void* m, void* seed, void* out, int n_rows, int H, int C,
+                 unsigned thresh, float scale, float slope) {
+  return FwdArgs{static_cast<const int*>(row_ptr),
+                 static_cast<const int*>(col),
+                 static_cast<const float*>(d),
+                 static_cast<const float*>(s),
+                 static_cast<const float*>(h),
+                 static_cast<const float*>(m),
+                 static_cast<const int*>(seed),
+                 static_cast<float*>(out),
+                 n_rows,
+                 H,
+                 C,
+                 thresh,
+                 scale,
+                 slope};
+}
+
+// The first design's forward: packed_gat_fwd's arguments.
+int launch_fwd_first(const FwdArgs& f, cudaStream_t stream) {
+  with_group_width(f.C, [&](auto width) {
+    constexpr int G = decltype(width)::value;
+    gat_fwd_kernel<G><<<blocks_for(f.n_rows, f.H, G), kThreads, 0, stream>>>(
+        f.row_ptr, f.col, f.d, f.s, f.h, f.m, f.seed, f.out, f.n_rows, f.H,
+        f.C, f.thresh, f.scale, f.slope);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Forward: out (n_rows, H*C + H) = num | den over the receiver-major CSR.
+// gat_fwd_rows_kernel where its lane map takes (H, C), else the first
+// design.
 extern "C" int packed_gat_fwd(void* row_ptr, void* col, void* d, void* s,
                               void* h, void* m, void* seed, void* out,
                               int n_rows, int H, int C, unsigned thresh,
                               float scale, float slope, void* stream) {
   if (n_rows > 0 && H > 0 && C > 0) {
-    with_group_width(C, [&](auto width) {
-      constexpr int G = decltype(width)::value;
-      gat_fwd_kernel<G><<<blocks_for(n_rows, H, G), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int*>(row_ptr), static_cast<const int*>(col),
-          static_cast<const float*>(d), static_cast<const float*>(s),
-          static_cast<const float*>(h), static_cast<const float*>(m),
-          static_cast<const int*>(seed), static_cast<float*>(out), n_rows, H,
-          C, thresh, scale, slope);
+    const FwdArgs f = fwd_args(row_ptr, col, d, s, h, m, seed, out, n_rows,
+                               H, C, thresh, scale, slope);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const bool lanes = with_fwd_lanes(f, [&](auto l, auto v, auto kc) {
+      constexpr int L = decltype(l)::value;
+      constexpr int rows = kThreads / L;
+      gat_fwd_rows_kernel<L, decltype(v)::value, decltype(kc)::value>
+          <<<(n_rows + rows - 1) / rows, kThreads, 0, st>>>(f);
     });
+    return lanes ? static_cast<int>(cudaGetLastError())
+                 : launch_fwd_first(f, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

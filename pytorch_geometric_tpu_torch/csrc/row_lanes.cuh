@@ -1,8 +1,9 @@
 // Device and host code shared by the kernels in which a sub-warp of L
 // lanes owns one row of a sparse operator over all its heads: bsr_gat.cu
 // (the block-sparse GAT), flash_gat.cu (the dense-mask GAT), packed_gat.cu
-// (the packed GAT backward), and packed_rgcn.cu (the forward's message
-// walk, a row's lanes over its bases). The lanes of a row, their
+// (the packed GAT forward and backward), packed_rgcn.cu (the forward's
+// message walk, a row's lanes over its bases) and spmm_csr.cu (the CSR
+// SpMM, a row's lanes over its channels and edges). The lanes of a row, their
 // fixed-tree reductions, a lane's V channels as one load, a head's
 // channels as whole loads, the choice of the lanes and the load width,
 // and the threads the card holds at once.
@@ -36,6 +37,30 @@ struct Row {
       v += __shfl_xor_sync(mask, v, o);
     }
     return v;
+  }
+  // v[0], ..., v[n - 1] (n <= N) and w, each summed over `groups` groups
+  // of `stride` lanes (this lane in group g = lane / stride) into group
+  // 0: a fixed tree in which group g adds group g + s's values at s = 1,
+  // 2, 4, ..., a level at a time for all the values, so that the shuffles
+  // of a level issue together; the lanes past the last group add
+  // nothing. The stride need not divide L.
+  template <int N>
+  __device__ __forceinline__ void sum_groups(float (&v)[N], int n, float& w,
+                                             int g, int stride,
+                                             int groups) const {
+    for (int s = 1; s < groups; s <<= 1) {
+      const bool adds = (g & (2 * s - 1)) == 0 && g + s < groups;
+      const int down = s * stride;
+      const float ow = __shfl_down_sync(mask, w, down, L);
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        if (k < n) {
+          const float o = __shfl_down_sync(mask, v[k], down, L);
+          if (adds) v[k] += o;
+        }
+      }
+      if (adds) w += ow;
+    }
   }
   __device__ __forceinline__ float max_from(float v, int from) const {
     for (int o = L / 2; o >= from; o >>= 1) {

@@ -20,6 +20,8 @@ and nothing is written there.
   dense-mask GAT kernels meet a half-full mask and the operator's cap.
 - :func:`gat_hub_edges`: a GAT edge set with a receiver hub and a sender
   hub, on which the packed-GAT kernels meet hub rows on both sides.
+- :func:`spmm_hub_operator`: the same edges as an ``SpmmOperator`` with
+  random weights, on which ``spmm_csr`` meets them.
 - :func:`rgcn_hub_operator`: a relational operator with hub rows on both
   sides and a dominant relation, for the packed-RGCN kernels.
 """
@@ -156,6 +158,19 @@ def gat_hub_edges(n: int = 512, seed: int = 8):
     r = np.concatenate([r, np.full(500, 3), np.arange(400), np.arange(n)])
     key = np.unique(r * n + s)
     return key % n, key // n
+
+
+def spmm_hub_operator(device="cuda", seed: int = 0):
+    """``(SpmmOperator, weights)`` over :func:`gat_hub_edges` (512 nodes, a
+    receiver row of 501 edges, a sender row of 402), the weights normal
+    from ``np.random.default_rng(seed)``, in edge order (route them with
+    ``SpmmOperator.route_weights``)."""
+    from pytorch_geometric_tpu_torch.ops.spmm import SpmmOperator
+
+    senders, receivers = gat_hub_edges()
+    weights = np.random.default_rng(seed).normal(size=senders.shape)
+    return (SpmmOperator(senders, receivers, 512, device=device),
+            weights.astype(np.float32))
 
 
 def rgcn_hub_operator(device="cuda", seed: int = 0):

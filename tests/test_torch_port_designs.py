@@ -183,7 +183,7 @@ def test_packed_rgcn_designs_times_the_library_beside_its_first_design():
 
 @pytest.mark.parametrize("header,libraries", [
     ("row_lanes.cuh", ["flash_gat", "bsr_gat", "packed_gat",
-                       "packed_rgcn"]),
+                       "packed_rgcn", "spmm_csr"]),
     ("gat_mask.cuh", ["flash_gat", "bsr_gat"])])
 def test_build_follows_shared_headers_into_every_library(tmp_path,
                                                           monkeypatch,

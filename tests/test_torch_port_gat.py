@@ -250,6 +250,46 @@ def test_plain_backward_is_the_vjp_of_the_plain_forward(rate):
         _close(acc[:, H * C:], full[:, H * C:].numpy(), 1e-6)  # den undropped
 
 
+def _hub_graphs(seed=0, n=200, hub=3):
+    """:func:`_arrays` at ``n`` nodes with every node sending to ``hub``
+    as well: a receiver row of about ``n`` edges beside rows of ~4."""
+    arrays = _arrays(seed, n=n, e=700)
+    ei = np.concatenate([arrays["edge_index"],
+                         np.stack([np.arange(n), np.full(n, hub)])], axis=1)
+    arrays["edge_index"] = np.unique(ei, axis=1)
+    return (from_data(Data(**arrays), device="cpu"),
+            j_from_data(JData(**arrays)))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+@pytest.mark.parametrize("H,C", [(8, 8), (1, 7), (3, 5), (4, 16)])
+def test_packed_gat_fwd_wrapper_matches_jax_at_the_design_widths(H, C, rate):
+    """``packed_gat_fwd`` on the CPU (the plain version that the CUDA
+    forward is held to on the card) against the JAX ``PackedFlashGat``'s
+    raw num‖den (its Pallas kernel in interpret mode), with the same
+    dropout seed, at a width of each branch of the CUDA forward's
+    dispatch: the row map with float4 heads (8, 8) and (4, 16), with one
+    channel a lane (1, 7), and with heads that do not divide the lanes
+    (3, 5). The graph has a receiver of ~200 senders. 2e-2 of the largest
+    magnitude: the JAX op rounds its gathers to bf16."""
+    g, jg = _hub_graphs(11)
+    seed = 5
+    d, s, h, _, _ = _node_inputs(12, g.num_nodes, H, C)
+    jop = JPacked(np.asarray(gat_dense_adj(jg)), window=128, tile=128)
+    want = jop(d, s, h, float(seed), rate=rate, raw_out=True)
+    op = _port_op(g)
+    rows = op.fwd.row_ptr[1:] - op.fwd.row_ptr[:-1]
+    assert int(rows.max()) >= 200
+    ts = [torch.from_numpy(a) for a in (d, s, h)]
+    before = pg.packed_gat_fwd.launches
+    got = pg.packed_gat_fwd(op.fwd, *ts, ts[1].amax(0),
+                            torch.tensor([seed], dtype=torch.int32), rate,
+                            op.slope)
+    assert got.shape == (g.num_nodes, H * C + H)
+    assert pg.packed_gat_fwd.launches == before
+    _close(got, want, 2e-2)
+
+
 def test_cpu_wrappers_compute_plain_and_count_no_launch():
     g, _ = _graphs(9)
     op = _port_op(g)

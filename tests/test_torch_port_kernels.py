@@ -1272,3 +1272,129 @@ def test_packed_rgcn_backward_walks_the_hub_row_on_card(cuda_device, B, C):
     assert _rel_err(got[0][10], want[0][10]) <= 1e-5
     for a, b in zip(got, want):
         assert _rel_err(a, b) <= 1e-5
+
+
+@functools.lru_cache(maxsize=None)
+def _step_edges(n=301, seed=4):
+    """``(senders, receivers, empty rows)`` over ``n`` nodes, unique
+    (receiver, sender) pairs in receiver-major order, whose rows hold
+    every length from 0 to 40 edges (rows 0-40: a row of exactly one step
+    of each lane map, R NB edges of 4, 8, 16 or 32, and one of a step
+    plus one), a hub row of 280 (row 100), 33 at the last row (the last
+    warp's other sub-warps lie past ``n``), 0 to 6 elsewhere, and empty
+    rows (row 0 and some of the short ones)."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, 7, n)
+    lengths[:41] = np.arange(41)
+    lengths[100], lengths[n - 1] = 280, 33
+    receivers = np.repeat(np.arange(n), lengths)
+    senders = np.concatenate([np.sort(rng.choice(n, k, replace=False))
+                              for k in lengths])
+    return senders, receivers, np.flatnonzero(lengths == 0)
+
+
+def _offset(t, offset):
+    """``t`` itself, or a copy of it one element into a larger buffer (so
+    that its rows lose their 16-byte alignment)."""
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("F", [1, 3, 4, 7, 16, 32, 64, 128, 33, 300])
+def test_spmm_csr_designs_agree_on_card(cuda_device, F, dtype, tol, offset):
+    """``probes/spmm_csr_designs.py`` at every width class of the
+    dispatcher (the row map at P = 4, 8, 16 and 32 lanes across the
+    channels, a float4 a lane or, with x one element off its alignment,
+    one channel a lane, at 16 and at 32 lanes a row; the first design at
+    33 and 300 and for bf16 over 64), both CSR directions of a graph with
+    rows of exactly one step and one step plus one of every lane map, a
+    hub row of 280 edges, empty rows and 301 rows: the first design, the
+    library and the row map at 16 and 32 lanes each within ``tol`` of the
+    plain version, the first within 1e-6 of the library, two launches
+    bitwise equal, empty rows 0, one launch counted a call."""
+    from probes import spmm_csr_designs as sd
+
+    senders, receivers, empty = _step_edges()
+    n = 301
+    w = torch.from_numpy(np.random.default_rng(F).normal(
+        size=senders.shape).astype(np.float32)).to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(F)
+    lib = sd.load()
+    for rows, cols in ((receivers, senders), (senders, receivers)):
+        csr = build_csr(rows, cols, n).to(cuda_device)
+        val = w[csr.perm].contiguous()
+        x = _offset(torch.randn(n, F, generator=gen,
+                                device=cuda_device).to(dtype), offset)
+        errors, repeat = sd.compare(lib, csr, val, x)
+        assert repeat
+        assert ("lanes16_vs_plain" in errors) == (F <= 32 or (
+            F % 4 == 0 and F <= 128 and not offset))
+        for key, err in errors.items():
+            assert err <= (1e-6 if key == "first_vs_shipped" else tol), key
+        before = spmm_csr.launches
+        got = spmm_csr(csr, val, x)
+        torch.cuda.synchronize()
+        assert spmm_csr.launches - before == 1
+        assert torch.equal(got, sd.spmm(lib, "shipped", csr, val, x))
+        if rows is receivers:
+            assert (got[torch.from_numpy(empty)] == 0).all()
+        if F == 16 and rows is receivers:
+            lengths = csr.row_ptr[1:] - csr.row_ptr[:-1]
+            assert int(lengths.max()) == 280
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("H,C", [(8, 8), (4, 16), (4, 4), (16, 2), (1, 7),
+                                 (2, 6), (1, 32), (3, 5), (6, 4), (12, 4),
+                                 (2, 33), (4, 64)])
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+def test_packed_gat_forward_designs_agree_on_card(cuda_device, H, C, rate,
+                                                  offset):
+    """``probes/packed_gat_designs.py``'s forwards at every width class of
+    the dispatcher (the row map with float4 heads of 8 and 32 registers,
+    (8, 8), (4, 16) and (4, 4), and with one channel a lane, (16, 2),
+    (1, 7), (2, 6) and (1, 32), and with h one float off its alignment;
+    with heads that do not divide the lanes, idle lanes past the last
+    entry group, (3, 5), (6, 4) and, with float4 heads, (12, 4); the
+    first design at (2, 33) and (4, 64)), on a graph with rows of
+    exactly one step and one step plus one of every lane map, a hub row
+    of 280 edges, empty rows and 301 rows: the first design and the
+    library each within 1e-5 of the plain version and within 1e-6 of each
+    other (bitwise where the library runs the first design), two
+    launches of the library bitwise equal, one launch counted a call,
+    empty rows 0."""
+    from probes import packed_gat_designs as pd
+    from pytorch_geometric_tpu_torch.ops import packed_gat as pg
+
+    senders, receivers, empty = _step_edges()
+    n = 301
+    op = pg.PackedFlashGat(senders, receivers, n, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(H * 1000 + C)
+    d, s = (torch.randn(n, H, generator=gen, device=cuda_device)
+            for _ in range(2))
+    h = _offset(torch.randn(n, H * C, generator=gen, device=cuda_device),
+                offset)
+    seed = torch.tensor([123457], dtype=torch.int32, device=cuda_device)
+    inputs = (d, s, h, s.amax(0), seed)
+    lib = pd.load()
+    errors, repeat = pd.compare_fwd(lib, op, inputs, rate)
+    assert repeat
+    first_design = C > 32
+    for key, err in errors.items():
+        assert err <= ((0.0 if first_design else 1e-6)
+                       if key == "fwd_first_vs_shipped" else 1e-5), key
+    before = pg.packed_gat_fwd.launches
+    got = pg.packed_gat_fwd(op.fwd, *inputs, rate, op.slope)
+    torch.cuda.synchronize()
+    assert pg.packed_gat_fwd.launches - before == 1
+    assert torch.equal(got, pd.fwd(pd.fwd_entry(lib, "shipped"), op, inputs,
+                                   rate))
+    assert (got[torch.from_numpy(empty)] == 0).all()

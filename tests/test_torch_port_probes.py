@@ -31,14 +31,15 @@ from pytorch_geometric_tpu_torch.datasets import graphs
 from pytorch_geometric_tpu_torch.kernels import _build
 from probes import (bsr_gat_designs, bsr_gat_variants, flash_gat_designs,
                     gat_ablate, packed_gat_designs, packed_gat_variants,
-                    packed_rgcn_designs, rgcn_ablate, rgcn_pipe_probe)
+                    packed_rgcn_designs, rgcn_ablate, rgcn_pipe_probe,
+                    spmm_csr_designs)
 
 REPO = Path(__file__).resolve().parents[1]
 SCRIPTS = ["gat_ablate.py", "rgcn_ablate.py", "rgcn_pipe_probe.py",
            "fused_gcn_designs.py", "bsr_gat_designs.py",
            "bsr_gat_variants.py", "packed_gat_designs.py",
            "packed_gat_variants.py", "flash_gat_designs.py",
-           "packed_rgcn_designs.py"]
+           "packed_rgcn_designs.py", "spmm_csr_designs.py"]
 
 
 def _jax_mutag_rcm(root, scale):
@@ -213,7 +214,8 @@ def test_each_probe_exits_nonzero_without_a_card(script):
     (bsr_gat_variants, ["--variants", "rows4,rows8"]),
     (packed_gat_variants, ["--variants", "edges2,edges3"]),
     (flash_gat_designs, ["--cases", "cora,pubmed"]),
-    (packed_rgcn_designs, ["--cases", "conv1,conv3"])])
+    (packed_rgcn_designs, ["--cases", "conv1,conv3"]),
+    (spmm_csr_designs, ["--cases", "cora,citeseer"])])
 def test_probes_refuse_unknown_modes_orders_and_depths(probe, argv, capsys):
     with pytest.raises(SystemExit) as exc:
         probe.main(argv)
@@ -303,28 +305,84 @@ def test_bsr_gat_designs_times_the_library_beside_its_first_design():
 def test_packed_gat_designs_times_the_library_beside_its_first_design():
     """The packed-GAT design probe builds through ``build_source`` from a
     source that includes the production one (so both designs are the
-    library's own code), launches the first design with the library's
-    signature, and covers the main path's graphs and widths, the hub
-    graph, and dropout 0 and 0.6."""
+    library's own code), launches the first design of the forward and of
+    the backward with the library's signatures, and covers the main
+    path's graphs and widths, the hub graph (with (3, 5), where the
+    backward keeps its first design and the forward's row map leaves
+    lanes idle), and dropout 0 and 0.6."""
     source = packed_gat_designs.SOURCE.read_text()
     text = Path(packed_gat_designs.__file__).read_text()
     assert "build_source(SOURCE, SIGNATURES)" in text
     assert '#include "../pytorch_geometric_tpu_torch/csrc/packed_gat.cu"' \
         in source
     assert "launch_bwd_heads(" in source
+    assert "return launch_fwd_first(" in source
     library = (_build.SOURCE_DIR / "packed_gat.cu").read_text()
     assert "gat_bwd_heads_kernel<G, true>" in library
     assert "rc = launch_bwd<decltype(l)::value" in library
+    assert "gat_fwd_kernel<G><<<" in library
+    assert "gat_fwd_rows_kernel<L, decltype(v)::value" in library
     assert [p.name for p in _build._included(packed_gat_designs.SOURCE)] \
         == ["packed_gat_designs.cu", "packed_gat.cu", "row_lanes.cuh"]
-    assert packed_gat_designs.SIGNATURES["first_packed_gat_bwd"] \
-        == _build.SIGNATURES["packed_gat"]["packed_gat_bwd"]
+    for kernel in ("fwd", "bwd"):
+        assert packed_gat_designs.SIGNATURES[f"first_packed_gat_{kernel}"] \
+            == _build.SIGNATURES["packed_gat"][f"packed_gat_{kernel}"]
     assert packed_gat_designs.DESIGNS == ("first", "shipped")
     cases = packed_gat_designs.CASES
     assert {c[0] for c in cases} == {"cora", "pubmed_rcm", "hub"}
     assert {c[3] for c in cases} == {0.0, 0.6}
-    assert {("cora", 8, 8, 0.6), ("cora", 1, 7, 0.6),
-            ("pubmed_rcm", 8, 8, 0.6), ("hub", 8, 8, 0.6)} <= set(cases)
+    assert {("cora", 8, 8, 0.0), ("cora", 8, 8, 0.6), ("cora", 1, 7, 0.6),
+            ("pubmed_rcm", 8, 8, 0.6), ("pubmed_rcm", 1, 3, 0.6),
+            ("hub", 8, 8, 0.6), ("hub", 1, 7, 0.6),
+            ("hub", 3, 5, 0.6)} <= set(cases)
+    with pytest.raises(ValueError, match="unknown forward design"):
+        packed_gat_designs.fwd_entry(None, "lanes8")
+
+
+def test_spmm_csr_designs_times_the_library_beside_its_first_design():
+    """The SpMM design probe builds through ``build_source`` from a source
+    that includes the production one (so both designs are the library's
+    own code, and the lanes variants its own row map), launches the first
+    design with the library's signature and the row map with the lanes
+    before the stream, times the launch floor, and covers Cora and
+    RCM-PubMed at F = 16, the class width and 128 and the hub graph at
+    F = 16; it times the lanes variants only where the row map takes F
+    (at most 32 slots of one channel, or of four where F is a multiple of
+    4 and x aligned)."""
+    import torch
+
+    source = spmm_csr_designs.SOURCE.read_text()
+    text = Path(spmm_csr_designs.__file__).read_text()
+    assert "build_source(SOURCE, SIGNATURES)" in text
+    assert "floor_line(" in text
+    assert '#include "../pytorch_geometric_tpu_torch/csrc/spmm_csr.cu"' \
+        in source
+    assert "dispatch_first(" in source and "dispatch_rows(" in source
+    library = (_build.SOURCE_DIR / "spmm_csr.cu").read_text()
+    assert "spmm_csr_kernel<T, G><<<" in library
+    assert "spmm_csr_rows_kernel<T, kL, P, V>" in library
+    assert [p.name for p in _build._included(spmm_csr_designs.SOURCE)] \
+        == ["spmm_csr_designs.cu", "spmm_csr.cu", "row_lanes.cuh"]
+    sig = _build.SIGNATURES["spmm_csr"]["spmm_csr"]
+    assert spmm_csr_designs.SIGNATURES["first_spmm_csr"] == sig
+    lanes = spmm_csr_designs.SIGNATURES["lanes_spmm_csr"]
+    assert lanes[1] == sig[1][:-1] + [sig[1][-2], sig[1][-1]]
+    assert set(spmm_csr_designs.CASES) == {
+        ("cora", 16), ("cora", 7), ("cora", 128), ("pubmed_rcm", 16),
+        ("pubmed_rcm", 3), ("pubmed_rcm", 128), ("hub", 16)}
+    assert spmm_csr_designs.LANES == (16, 32)
+    x = torch.zeros(8, 129)
+    for f, aligned, takes in ((16, True, True), (128, True, True),
+                              (33, True, False), (32, True, True),
+                              (32, False, True), (36, False, False),
+                              (128, False, False)):
+        xf = x.view(-1)[(0 if aligned else 1):][:8 * f].view(8, f)
+        assert spmm_csr_designs.takes_row_map(f, xf) == takes, (f, aligned)
+        names = spmm_csr_designs.designs(f, xf)
+        assert names[:2] == ("first", "shipped")
+        assert (names[2:] == ("lanes16", "lanes32")) == takes
+    with pytest.raises(ValueError, match="unknown design"):
+        spmm_csr_designs.spmm(None, "rows", None, None, x)
 
 
 def test_gat_hub_edges_hold_their_hubs_and_loops():
@@ -344,6 +402,29 @@ def test_gat_hub_edges_hold_their_hubs_and_loops():
     assert all(np.array_equal(a, b)
                for a, b in zip(graphs.gat_hub_edges(), (s, r)))
     assert not np.array_equal(graphs.gat_hub_edges(seed=9)[0], s)
+
+
+def test_spmm_hub_operator_is_the_gat_hub_graph_with_seeded_weights():
+    """The SpMM hub graph that ``chip_smoke.py``, the design probe and the
+    card tests share: the packed-GAT hub edges as an ``SpmmOperator``
+    (a receiver row of 501 edges, a sender row of 402), fp32 weights in
+    edge order, one set of weights for one seed; routed into both CSR
+    orders, each row's weights are its edges'."""
+    import torch
+
+    op, w = graphs.spmm_hub_operator("cpu", 0)
+    s, r = graphs.gat_hub_edges()
+    assert w.dtype == np.float32 and w.shape == s.shape
+    rows = (op.fwd.row_ptr[1:] - op.fwd.row_ptr[:-1]).numpy()
+    cols = (op.bwd.row_ptr[1:] - op.bwd.row_ptr[:-1]).numpy()
+    assert (rows.max(), rows[3], cols.max(), cols[10]) == (501, 501, 402, 402)
+    np.testing.assert_array_equal(rows, np.bincount(r, minlength=512))
+    val_f, val_b = op.route_weights(w)
+    np.testing.assert_array_equal(val_f.numpy(), w[op.fwd.perm.numpy()])
+    np.testing.assert_array_equal(val_b.numpy(), w[op.bwd.perm.numpy()])
+    np.testing.assert_array_equal(graphs.spmm_hub_operator("cpu", 0)[1], w)
+    assert not np.array_equal(graphs.spmm_hub_operator("cpu", 1)[1], w)
+    assert isinstance(val_f, torch.Tensor)
 
 
 def test_bsr_synthetic_masks_hold_their_hub_lines_and_empty_lines():
@@ -447,7 +528,8 @@ def _ctypes_kind(t):
 
 @pytest.mark.parametrize("module", [
     "library", "gat_ablate", "rgcn_ablate", "bsr_gat_designs",
-    "packed_gat_designs", "flash_gat_designs", "packed_rgcn_designs"])
+    "packed_gat_designs", "flash_gat_designs", "packed_rgcn_designs",
+    "spmm_csr_designs"])
 def test_every_loader_signature_is_its_sources_entry_point(module):
     """Each ctypes signature that a loader declares (the library's per
     source, each probe's) names an ``extern "C"`` function of the source

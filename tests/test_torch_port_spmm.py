@@ -110,6 +110,40 @@ def test_spmm_csr_plain_matches_dense(direction, x_dtype):
     _close(spmm_csr_plain(csr, val, xt), want, 1e-5)
 
 
+@pytest.mark.parametrize("compute", ["fp32", "bf16"])
+@pytest.mark.parametrize("f", [1, 3, 7, 16, 33, 128])
+def test_spmm_csr_wrapper_matches_jax_at_the_design_widths(f, compute):
+    """``spmm_csr`` on the CPU (the plain version that the CUDA kernel is
+    held to on the card) against the JAX ``SpmmOperator``'s Pallas kernel
+    in interpret mode, at a width of each class of the CUDA dispatcher
+    (the row map's four lanes a group at 1 and 3, eight at 7, a float4
+    a lane at 16 and 128; the first design at 33), on a graph with a row
+    of 500 edges and 40 empty rows; fp32 x in 1e-5, bf16 x in 1e-2 (the
+    JAX kernel rounds each message to bf16)."""
+    s, r, w, _, _ = _graph(20 + f)
+    s = np.concatenate([s, np.arange(500) % N]).astype(np.int32)
+    r = np.concatenate([r, np.full(500, 7)]).astype(np.int32)
+    w = np.concatenate(
+        [w, np.random.default_rng(f).normal(size=500)]).astype(np.float32)
+    x = np.random.default_rng(30 + f).normal(size=(N, f)).astype(np.float32)
+    jop = JSpmmOperator(s, r, N, window=64, tile=128,
+                        compute_dtype=(jnp.bfloat16 if compute == "bf16"
+                                       else jnp.float32))
+    want = jop.bind(jnp.asarray(w))(jnp.asarray(x))
+    csr = build_csr(r, s, N)
+    rows = np.diff(csr.row_ptr.numpy())
+    assert rows.max() >= 500 and (rows[-40:] == 0).all()
+    xt = torch.from_numpy(x)
+    if compute == "bf16":
+        xt = xt.to(torch.bfloat16)
+    before = spmm_csr.launches
+    got = spmm_csr(csr, torch.from_numpy(w)[csr.perm], xt)
+    assert spmm_csr.launches == before
+    assert got.dtype == torch.float32 and got.shape == (N, f)
+    assert (got[-40:] == 0).all()
+    _close(got, want, TOL[compute])
+
+
 def test_plain_spmm_matches_jax():
     s, r, w, x, _ = _graph(2)
     got = spmm(torch.from_numpy(s), torch.from_numpy(r),
