@@ -104,12 +104,17 @@ Phases, one JSON line each:
                the library's, each within 1e-5 of the plain version; the
                probe scripts print the timing tables;
 4. slice     — the GCN path as a user runs it: Planetoid Cora ->
-               from_data -> train_gcn(epochs=200, device="cuda"), with
-               the kernel's launch count read over exactly that run,
-               accuracy gates, and the trained model's logits on the
-               card against the plain path on the CPU;
+               from_data -> train_gcn(epochs=200, device="cuda"), the
+               epochs captured in one CUDA graph (the default): the first
+               epoch eager, the second captured, 199 replays, then the
+               evaluation; the kernel's launches stated as captured per
+               epoch x replays + warm-up + evaluation (4 x 199 + 4 + 2 =
+               802), accuracy gates, and the trained model's logits on the
+               card against the plain path on the CPU; then the same run
+               eager (capture=False, its launches counted as before) and
+               both runs' seconds;
 5. slice_gat — the GAT path the same way: train_gat(epochs=200), the
-               packed-GAT launch counts read over exactly that run;
+               packed-GAT launches;
    slice_gat_dense — the same with backend="dense": every attention
                layer through the dense-mask flash-GAT kernels, and no
                packed-GAT launch;
@@ -119,10 +124,11 @@ Phases, one JSON line each:
                backend="bsr"), every attention layer through the
                block-sparse kernels, no packed- or flash-GAT launch, the
                trained logits also against the packed operator's on the
-               card, peak device memory under 1 GB;
+               card, peak device memory (the CUDA graph's pool counted)
+               under 1 GB;
 6. slice_rgcn — the RGCN path the same way: Entities MUTAG at
                scale=1.0 -> from_data -> train_rgcn(epochs=50), the
-               packed-RGCN launch counts read over exactly that run;
+               packed-RGCN launches, peak device memory;
    slice_gcn_sorted, slice_gcn_fused — the GCN of bench_common.py's
                full-graph rows on PubMed after RCM (N = 24576), 200
                epochs with train_gcn(backend="sorted") and
@@ -131,24 +137,32 @@ Phases, one JSON line each:
    slice_gcn_dense — the GCN on Cora with backend="dense" (bf16 dense
                adjacency, one matrix product per aggregation, no kernel
                of the port);
-7. trace     — torch.profiler over 20 more epochs of the GCN step:
-               device time per kernel name, device busy and idle share;
-8. trace_gat, trace_gat_dense, trace_gat_bsr, trace_rgcn,
-   trace_gcn_sorted, trace_gcn_fused — the same for the GAT step of each
-               backend, the RGCN step and the PubMed GCN step of the sorted
-               and fused backends.
+7. capture_check — for each of the eight configurations, five epochs
+               captured and five eager from the same seeds: the logits
+               and every parameter within 1e-6 of the largest magnitude;
+8. trace, trace_gat, trace_gat_dense, trace_gat_bsr, trace_rgcn,
+   trace_gcn_sorted, trace_gcn_fused, trace_gcn_dense — torch.profiler
+               over 20 eager epochs of each configuration's training
+               step: device time per kernel name, device busy and idle
+               share, the port's kernel launches per epoch from the device
+               events;
+9. trace_captured_* — the same over 20 replays of the epoch captured as
+               the trainers capture it, one phase per configuration; the
+               port's launches per epoch must equal the eager count.
 
 Then a "kernels" JSON line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
 line; so does a machine without CUDA, or a directory without the port.
 """
 
+import functools
 import json
 import subprocess
 import sys
 import time
 import traceback
 
+import numpy as np
 import torch
 
 from pytorch_geometric_tpu_torch.bounds import (
@@ -1139,56 +1153,208 @@ def probe_rgcn_designs(gen):
     return case
 
 
-def phase_slice():
-    import numpy as np
+#: The eight configurations of the main path, by the suffix of their
+#: phases: (trainer, backend, graph loader, epochs, device kernel
+#: launches per epoch on the profiler's trace).
+CONFIGS = {
+    "gcn": ("gcn", "packed", "cora", EPOCHS, 4),
+    "gat": ("gat", "packed", "cora", EPOCHS, 6),
+    "gat_dense": ("gat", "dense", "cora", EPOCHS, 6),
+    "gat_bsr": ("gat", "bsr", "pubmed", EPOCHS, 6),
+    "rgcn": ("rgcn", None, "mutag", RGCN_EPOCHS, 10),
+    "gcn_sorted": ("gcn", "sorted", "pubmed", EPOCHS, 4),
+    "gcn_fused": ("gcn", "fused", "pubmed", EPOCHS, 2),
+    "gcn_dense": ("gcn", "dense", "cora", EPOCHS, 0),
+}
 
+
+@functools.cache
+def load(name):
+    """``(dataset, graph on the card, RCM seconds or None)`` of ``"cora"``,
+    ``"pubmed"`` (RCM-reordered) or ``"mutag"`` (the published size),
+    built once per run."""
+    if name == "pubmed":
+        return pubmed_graph(DEVICE)
+    return (*(cora_graph if name == "cora" else mutag_graph)(DEVICE), None)
+
+
+def train(config, epochs=None, capture=None, seed=SEED):
+    """The trainer of ``config`` on its graph, as a user calls it:
+    ``(model, metrics)``; captured by default."""
     from pytorch_geometric_tpu_torch.models.citation import (
-        gcn_spmm_operator, train_gcn)
-    from pytorch_geometric_tpu_torch.ops.spmm import spmm_csr
+        train_gat, train_gcn)
+    from pytorch_geometric_tpu_torch.models.entities import train_rgcn
 
-    ds, graph = cora_graph(DEVICE)
-    spmm_csr.launches = 0
-    model, metrics = train_gcn(graph, num_classes=ds.num_classes,
-                               epochs=EPOCHS, seed=SEED, device=DEVICE)
-    launches = spmm_csr.launches
-    loss = metrics["curve"]["loss"]
-    expected = 4 * EPOCHS + 2     # 2 fwd + 2 bwd per epoch, 2 for eval
-    # The trained model on the card (kernel) against the plain path on the
-    # CPU, same weights, dropout off.
+    kind, backend, graph_name, default_epochs, _ = CONFIGS[config]
+    ds, graph, _ = load(graph_name)
+    epochs = default_epochs if epochs is None else epochs
+    if kind == "rgcn":
+        return train_rgcn(graph, ds.num_relations, ds.num_classes,
+                          epochs=epochs, seed=seed, device=DEVICE,
+                          capture=capture)
+    fn = train_gcn if kind == "gcn" else train_gat
+    return fn(graph, num_classes=ds.num_classes, epochs=epochs, seed=seed,
+              device=DEVICE, backend=backend, capture=capture)
+
+
+def logits_of(config, model, device=DEVICE, backend=None):
+    """The trained model's logits on ``device`` through the operators of
+    the config's backend (or of ``backend``, on the config's graph),
+    dropout off (on the CPU their plain versions)."""
+    from pytorch_geometric_tpu_torch.models.citation import (
+        gat_flash_op, gcn_backend)
+    from pytorch_geometric_tpu_torch.models.entities import rgcn_fused_ops
+
+    kind, own, graph_name, _, _ = CONFIGS[config]
+    backend = backend or own
+    ds, graph, _ = load(graph_name)
+    g = graph.to(device)
+    m = model.to(device)
     with torch.no_grad():
-        logits = {}
-        for dev in (DEVICE, "cpu"):
-            m = model.to(dev)
-            g = graph.to(dev)
-            op, w = gcn_spmm_operator(g)
-            logits[dev] = m(g, g.x, aggregate_fn=op.bind(w))
-    ref = logits["cpu"]
-    parity = float((logits[DEVICE].cpu() - ref).abs().max()
-                   / ref.abs().max())
-    result = {"phase": "slice", "dataset": "cora",
-              "synthetic": ds.is_synthetic, "nodes": graph.num_nodes,
-              "edges": graph.num_edges, "epochs": EPOCHS,
-              "seconds": metrics["seconds"],
-              "ms_per_epoch": metrics["seconds"] / EPOCHS * 1e3,
-              "final_loss": float(loss[-1]),
-              "train_acc": metrics["train_acc"],
-              "val_acc": metrics["val_acc"], "test_acc": metrics["test_acc"],
-              "spmm_csr_launches": launches,
-              "expected_launches": expected,
-              "logits_shape": list(ref.shape),
-              "logits_cuda_vs_cpu_rel_err": parity}
-    emit(result)
-    if not np.isfinite(loss).all():
-        raise AssertionError("non-finite training loss")
+        if kind == "rgcn":
+            return m(g, fused_ops=rgcn_fused_ops(g, ds.num_relations))
+        if kind == "gat":
+            return m(g, g.x, flash_op=gat_flash_op(g, backend))
+        agg = gcn_backend(g, backend, 16, ds.num_classes, m.dropout_rate)[0]
+        return m(g, g.x, **agg)
+
+
+def epoch_step_of(config):
+    """``(epoch_step, generator)`` of a fresh model of ``config``, built
+    as its trainer builds it."""
+    from pytorch_geometric_tpu_torch.models.citation import (
+        GAT, GCN, create_gat_train_step, create_gcn_train_step)
+    from pytorch_geometric_tpu_torch.models.entities import (
+        RGCN, create_rgcn_train_step)
+
+    kind, backend, graph_name, _, _ = CONFIGS[config]
+    ds, graph, _ = load(graph_name)
+    init = torch.Generator().manual_seed(SEED)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    if kind == "rgcn":
+        model = RGCN(graph.num_nodes, ds.num_relations, ds.num_classes,
+                     generator=init).to(DEVICE)
+        return create_rgcn_train_step(model, graph, ds.num_relations)[0], \
+            None
+    if kind == "gat":
+        model = GAT(graph.num_node_features, ds.num_classes,
+                    generator=init).to(DEVICE)
+        return create_gat_train_step(model, graph, backend=backend)[0], gen
+    model = GCN(graph.num_node_features, 16, ds.num_classes,
+                generator=init).to(DEVICE)
+    return create_gcn_train_step(model, graph, backend=backend)[0], gen
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def run_main_path(config, per_epoch, evaluation):
+    """The config's training run as a user runs it (captured, the default)
+    and then the same run eager (``capture=False``), launches read over
+    each. Per counted wrapper, the captured run's device launches are
+    captured epoch × replays + warm-up + evaluation (its Python calls are
+    the warm-up's, the capture's and the evaluation's), and must equal
+    ``epochs × per_epoch + evaluation``, the eager run's count; every other
+    wrapper launches no time. ``(model, report, problems)``."""
+    from pytorch_geometric_tpu_torch.models.capture import (
+        device_launches, launch_counts)
+
+    epochs = CONFIGS[config][3]
+    names = list(launch_counts())
+    expected = {n: epochs * per_epoch.get(n, 0) + evaluation.get(n, 0)
+                for n in names}
+    calls = {n: 2 * per_epoch.get(n, 0) + evaluation.get(n, 0)
+             for n in names}
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    before = launch_counts()
+    model, metrics = train(config)
+    peak = torch.cuda.max_memory_allocated()
+    counted = {n: v - before[n] for n, v in launch_counts().items()}
+    stages = metrics["launches"]
+    ran = {n: device_launches(stages).get(n, 0) for n in names}
+    # the captured run's model (parameters and gradients) stays allocated
+    # through the eager run: each run's own peak is counted from its start
+    torch.cuda.reset_peak_memory_stats()
+    eager_start = torch.cuda.memory_allocated()
+    before = launch_counts()
+    _, eager = train(config, capture=False)
+    eager_peak = torch.cuda.max_memory_allocated()
+    eager_counted = {n: v - before[n] for n, v in launch_counts().items()}
+    statement = {
+        n: f"{stages['captured_epoch'].get(n, 0)} captured per epoch x "
+           f"{stages['replays']} replays + {stages['warm_up'].get(n, 0)} "
+           f"warm-up + {stages['evaluation'].get(n, 0)} evaluation = {v}"
+        for n, v in ran.items() if v}
+    loss = metrics["curve"]["loss"]
+    report = {"epochs": epochs, "seconds": metrics["seconds"],
+              "capture_seconds": metrics["capture_seconds"],
+              "ms_per_epoch": metrics["seconds"] / (epochs - 1) * 1e3,
+              "eager_seconds": eager["seconds"],
+              "eager_ms_per_epoch": eager["seconds"] / epochs * 1e3,
+              "first_loss": float(loss[0]), "final_loss": float(loss[-1]),
+              "eager_final_loss": float(eager["curve"]["loss"][-1]),
+              **{k: v for k, v in metrics.items() if k.endswith("_acc")},
+              **{f"eager_{k}": v for k, v in eager.items()
+                 if k.endswith("_acc")},
+              "launches": ran, "launch_statement": statement,
+              "launch_stages": stages, "expected_launches": expected,
+              "eager_launches": eager_counted,
+              "max_memory_allocated": peak,
+              "run_peak_bytes": peak - start,
+              "eager_run_peak_bytes": eager_peak - eager_start}
+    problems = []
+    if not (np.isfinite(loss).all()
+            and np.isfinite(eager["curve"]["loss"]).all()):
+        problems.append("non-finite training loss")
+    want_stages = {"warm_up": {n: v for n, v in per_epoch.items() if v},
+                   "captured_epoch": {n: v for n, v in per_epoch.items()
+                                      if v},
+                   "replays": epochs - 1,
+                   "evaluation": {n: v for n, v in evaluation.items() if v}}
+    if stages != want_stages:
+        problems.append(f"launches by stage {stages}, expected {want_stages}")
+    if ran != expected or counted != calls:
+        problems.append(f"captured run: device launches {ran} (wrapper calls "
+                        f"{counted}), expected {expected} ({calls})")
+    if eager_counted != expected:
+        problems.append(f"eager run: launches {eager_counted}, expected "
+                        f"{expected}")
+    return model, metrics, report, problems
+
+
+def _accuracy_gate(metrics, problems):
     if not (metrics["val_acc"] > 0.6 and metrics["test_acc"] > 0.6):
-        raise AssertionError(f"accuracy gate: val {metrics['val_acc']}, "
-                             f"test {metrics['test_acc']} (need > 0.6)")
-    if launches != expected:
-        raise AssertionError(f"spmm_csr launched {launches} times on the "
-                             f"main path, expected {expected}")
-    if not (torch.isfinite(logits[DEVICE]).all() and parity <= 1e-4):
-        raise AssertionError(f"trained logits: card vs CPU rel err {parity}")
+        problems.append(f"accuracy gate: val {metrics['val_acc']}, test "
+                        f"{metrics['test_acc']} (need > 0.6)")
+
+
+def _finish(result, problems):
+    emit(result)
+    if problems:
+        raise AssertionError("; ".join(problems))
     return result
+
+
+def phase_slice():
+    """examples/gcn.py's run on the card: Planetoid Cora -> from_data ->
+    train_gcn(epochs=200), captured, then eager; the trained model's
+    logits on the card against the plain path on the CPU."""
+    ds, graph, _ = load("cora")
+    model, metrics, report, problems = run_main_path(
+        "gcn", {"spmm_csr": 4}, {"spmm_csr": 2})
+    card = logits_of("gcn", model)
+    ref = logits_of("gcn", model, "cpu")
+    parity = _rel(card.cpu(), ref)
+    _accuracy_gate(metrics, problems)
+    if not (torch.isfinite(card).all() and parity <= 1e-4):
+        problems.append(f"trained logits: card vs CPU rel err {parity}")
+    return _finish({"phase": "slice", "dataset": "cora",
+                    "synthetic": ds.is_synthetic, "nodes": graph.num_nodes,
+                    "edges": graph.num_edges, **report,
+                    "logits_shape": list(ref.shape),
+                    "logits_cuda_vs_cpu_rel_err": parity}, problems)
 
 
 def phase_slice_gat(backend="packed", phase="slice_gat"):
@@ -1201,90 +1367,49 @@ def phase_slice_gat(backend="packed", phase="slice_gat"):
     CSR, or the mask's row and column pass); the final evaluation adds 2
     forward launches. The other backends' kernels launch no time. The
     bsr run also holds its trained logits to the packed operator's on the
-    card and its peak device memory under 1 GB (nothing of size N^2)."""
-    import numpy as np
+    card and its peak device memory, the CUDA graph's pool counted, under
+    1 GB (nothing of size N^2)."""
+    from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
 
-    from pytorch_geometric_tpu_torch.models.citation import (
-        gat_flash_op, train_gat)
-    from pytorch_geometric_tpu_torch.ops import bsr_gat as bg
-    from pytorch_geometric_tpu_torch.ops import flash_gat as fg
-    from pytorch_geometric_tpu_torch.ops import packed_gat as pg
-
-    wrappers = {"packed_gat_fwd": pg.packed_gat_fwd,
-                "packed_gat_bwd": pg.packed_gat_bwd,
-                "flash_gat_fwd": fg.flash_gat_fwd,
-                "flash_gat_bwd": fg.flash_gat_bwd,
-                "bsr_gat_fwd": bg.bsr_gat_fwd,
-                "bsr_gat_bwd_row": bg.bsr_gat_bwd_row,
-                "bsr_gat_bwd_col": bg.bsr_gat_bwd_col}
-    expected = {name: 0 for name in wrappers}
+    config = "gat" if backend == "packed" else f"gat_{backend}"
     if backend == "bsr":
-        ds, graph, rcm_seconds = pubmed_graph(DEVICE)
-        expected.update(bsr_gat_fwd=2 * EPOCHS + 2,
-                        bsr_gat_bwd_row=2 * EPOCHS,
-                        bsr_gat_bwd_col=2 * EPOCHS)
+        per_epoch = {"bsr_gat_fwd": 2, "bsr_gat_bwd_row": 2,
+                     "bsr_gat_bwd_col": 2}
+        evaluation = {"bsr_gat_fwd": 2}
     else:
-        ds, graph = cora_graph(DEVICE)
-        rcm_seconds = None
         mine = "flash_gat" if backend == "dense" else "packed_gat"
-        expected[f"{mine}_fwd"] = 2 * EPOCHS + 2
-        expected[f"{mine}_bwd"] = 4 * EPOCHS
-    torch.cuda.reset_peak_memory_stats()
-    for w in wrappers.values():
-        w.launches = 0
-    model, metrics = train_gat(graph, num_classes=ds.num_classes,
-                               epochs=EPOCHS, seed=SEED, device=DEVICE,
-                               backend=backend)
-    launches = {name: w.launches for name, w in wrappers.items()}
-    peak = torch.cuda.max_memory_allocated()
-    loss = metrics["curve"]["loss"]
+        per_epoch = {f"{mine}_fwd": 2, f"{mine}_bwd": 4}
+        evaluation = {f"{mine}_fwd": 2}
+    ds, graph, rcm_seconds = load(CONFIGS[config][2])
+    model, metrics, report, problems = run_main_path(config, per_epoch,
+                                                     evaluation)
     # the operator's host set-up, which train_gat keeps out of its seconds
     t0 = time.perf_counter()
-    card_op = gat_flash_op(graph, backend)
+    gat_flash_op(graph, backend)
     torch.cuda.synchronize()
     op_seconds = time.perf_counter() - t0
-    # The trained model on the card (kernels) against the plain path on
-    # the CPU, same weights, dropout off.
-    with torch.no_grad():
-        card = model(graph, graph.x, flash_op=card_op)
-        packed = (model(graph, graph.x, flash_op=gat_flash_op(graph))
-                  if backend == "bsr" else None)
-        g = graph.to("cpu")
-        ref = model.to("cpu")(g, g.x, flash_op=gat_flash_op(g, backend))
-    parity = float((card.cpu() - ref).abs().max() / ref.abs().max())
-    packed_parity = (None if packed is None else
-                     float((card - packed).abs().max() / packed.abs().max()))
-    result = {"phase": phase, "backend": backend, "dataset": ds.name,
-              "synthetic": ds.is_synthetic, "nodes": graph.num_nodes,
-              "edges": graph.num_edges, "epochs": EPOCHS,
-              "seconds": metrics["seconds"],
-              "ms_per_epoch": metrics["seconds"] / EPOCHS * 1e3,
-              "rcm_seconds": rcm_seconds,
-              "operator_setup_seconds": op_seconds,
-              "final_loss": float(loss[-1]),
-              "train_acc": metrics["train_acc"],
-              "val_acc": metrics["val_acc"], "test_acc": metrics["test_acc"],
-              "launches": launches, "expected_launches": expected,
-              "max_memory_allocated": peak,
-              "logits_shape": list(ref.shape),
-              "logits_cuda_vs_cpu_rel_err": parity,
-              "logits_vs_packed_rel_err": packed_parity}
-    emit(result)
-    if not np.isfinite(loss).all():
-        raise AssertionError("non-finite training loss")
-    if not (metrics["val_acc"] > 0.6 and metrics["test_acc"] > 0.6):
-        raise AssertionError(f"accuracy gate: val {metrics['val_acc']}, "
-                             f"test {metrics['test_acc']} (need > 0.6)")
-    if launches != expected:
-        raise AssertionError(f"GAT kernel launches on the main path "
-                             f"{launches}, expected {expected}")
+    card = logits_of(config, model)
+    packed = (logits_of(config, model, backend="packed")
+              if backend == "bsr" else None)
+    ref = logits_of(config, model, "cpu")
+    model.to(DEVICE)
+    parity = _rel(card.cpu(), ref)
+    packed_parity = None if packed is None else _rel(card, packed)
+    _accuracy_gate(metrics, problems)
     if not (torch.isfinite(card).all() and parity <= 1e-4):
-        raise AssertionError(f"trained logits: card vs CPU rel err {parity}")
+        problems.append(f"trained logits: card vs CPU rel err {parity}")
+    peak = report["max_memory_allocated"]
     if backend == "bsr" and not (packed_parity <= 1e-4 and peak < 1e9):
-        raise AssertionError(f"bsr slice: logits vs the packed operator "
-                             f"{packed_parity} (need <= 1e-4), peak device "
-                             f"memory {peak} (need < 1e9)")
-    return result
+        problems.append(f"bsr slice: logits vs the packed operator "
+                        f"{packed_parity} (need <= 1e-4), peak device memory "
+                        f"{peak} with the graph's pool (need < 1e9)")
+    return _finish({"phase": phase, "backend": backend, "dataset": ds.name,
+                    "synthetic": ds.is_synthetic, "nodes": graph.num_nodes,
+                    "edges": graph.num_edges, "rcm_seconds": rcm_seconds,
+                    "operator_setup_seconds": op_seconds, **report,
+                    "logits_shape": list(ref.shape),
+                    "logits_cuda_vs_cpu_rel_err": parity,
+                    "logits_vs_packed_rel_err": packed_parity}, problems)
 
 
 def phase_slice_rgcn():
@@ -1294,240 +1419,197 @@ def phase_slice_rgcn():
     launches (2 per layer: the sender-major message walk and the
     receivers' segment sum) and 6 backward launches (3 per layer: the
     sender-major walk and the two steps of the datt reduction); the final
-    evaluation adds 4 forward launches. Test accuracy is printed, not
-    gated: the synthetic labels are the parity of a degree, near chance
-    out of sample."""
-    import numpy as np
-
-    from pytorch_geometric_tpu_torch.models.entities import (
-        rgcn_fused_ops, train_rgcn)
+    evaluation adds 4 forward launches. The peak device memory of the
+    captured run counts the graph's pool (the per-forward transposed copy
+    of conv1's basis lives there). Test accuracy is printed, not gated:
+    the synthetic labels are the parity of a degree, near chance out of
+    sample."""
+    ds, graph, _ = load("mutag")
+    model, metrics, report, problems = run_main_path(
+        "rgcn", {"packed_rgcn_fwd": 4, "packed_rgcn_bwd": 6},
+        {"packed_rgcn_fwd": 4})
+    # the trained model on the card (kernels) against the plain
+    # embedding-gather and transform-first paths on the CPU, same weights
     from pytorch_geometric_tpu_torch.nn.conv import rgcn_norm
-    from pytorch_geometric_tpu_torch.ops import packed_rgcn as pr
 
-    ds, graph = mutag_graph(DEVICE)
-    R = ds.num_relations
-    torch.cuda.reset_peak_memory_stats()
-    pr.packed_rgcn_fwd.launches = pr.packed_rgcn_bwd.launches = 0
-    model, metrics = train_rgcn(graph, R, ds.num_classes,
-                                epochs=RGCN_EPOCHS, seed=SEED, device=DEVICE)
-    launches = {"packed_rgcn_fwd": pr.packed_rgcn_fwd.launches,
-                "packed_rgcn_bwd": pr.packed_rgcn_bwd.launches}
-    expected = {"packed_rgcn_fwd": 2 * (2 * RGCN_EPOCHS + 2),
-                "packed_rgcn_bwd": 6 * RGCN_EPOCHS}
-    peak = torch.cuda.max_memory_allocated()
-    loss = metrics["curve"]["loss"]
-    # The trained model on the card (kernels) against the plain
-    # embedding-gather and transform-first paths on the CPU, same weights.
+    card = logits_of("rgcn", model)
+    g = graph.to("cpu")
     with torch.no_grad():
-        card = model(graph, fused_ops=rgcn_fused_ops(graph, R))
-        g = graph.to("cpu")
-        ref = model.to("cpu")(g, norm=rgcn_norm(g, g.edge_type, R))
-    parity = float((card.cpu() - ref).abs().max() / ref.abs().max())
-    result = {"phase": "slice_rgcn", "dataset": "mutag",
-              "synthetic": ds.is_synthetic, "nodes": graph.num_nodes,
-              "edges": graph.num_edges,
-              "real_nodes": int(graph.node_mask.sum()),
-              "real_edges": int(graph.edge_mask.sum()),
-              "relations": R, "bases": 30,
-              "train_entities": int(graph.extras["train_idx"].shape[1]),
-              "test_entities": int(graph.extras["test_idx"].shape[1]),
-              "epochs": RGCN_EPOCHS, "seconds": metrics["seconds"],
-              "ms_per_epoch": metrics["seconds"] / RGCN_EPOCHS * 1e3,
-              "first_loss": float(loss[0]), "final_loss": float(loss[-1]),
-              "train_acc": metrics["train_acc"],
-              "test_acc": metrics["test_acc"],
-              "launches": launches, "expected_launches": expected,
-              "max_memory_allocated": peak,
-              "logits_shape": list(ref.shape),
-              "logits_cuda_vs_cpu_rel_err": parity}
-    emit(result)
-    if not np.isfinite(loss).all():
-        raise AssertionError("non-finite training loss")
-    if not loss[-1] < 0.5 * loss[0]:
-        raise AssertionError(f"loss did not halve: {loss[0]} -> {loss[-1]}")
+        ref = model.to("cpu")(g, norm=rgcn_norm(g, g.edge_type,
+                                                 ds.num_relations))
+    model.to(DEVICE)
+    parity = _rel(card.cpu(), ref)
+    loss0, loss1 = report["first_loss"], report["final_loss"]
+    if not loss1 < 0.5 * loss0:
+        problems.append(f"loss did not halve: {loss0} -> {loss1}")
     if not metrics["train_acc"] >= 0.9:
-        raise AssertionError(f"training accuracy {metrics['train_acc']} "
-                             "(need >= 0.9)")
-    if launches != expected:
-        raise AssertionError(f"packed-RGCN launches on the main path "
-                             f"{launches}, expected {expected}")
+        problems.append(f"training accuracy {metrics['train_acc']} "
+                        "(need >= 0.9)")
     if not (torch.isfinite(card).all() and parity <= 1e-4):
-        raise AssertionError(f"trained logits: card vs CPU rel err {parity}")
-    return result
-
-
-def _gcn_wrappers():
-    from pytorch_geometric_tpu_torch.ops import fused_gcn as fg
-    from pytorch_geometric_tpu_torch.ops.sorted_spmm import sorted_segment_sum
-    from pytorch_geometric_tpu_torch.ops.spmm import spmm_csr
-
-    return {"spmm_csr": spmm_csr, "sorted_segment_sum": sorted_segment_sum,
-            "fused_gcn_fwd": fg.fused_gcn_fwd,
-            "fused_gcn_bwd": fg.fused_gcn_bwd}
+        problems.append(f"trained logits: card vs CPU rel err {parity}")
+    return _finish({"phase": "slice_rgcn", "dataset": "mutag",
+                    "synthetic": ds.is_synthetic, "nodes": graph.num_nodes,
+                    "edges": graph.num_edges,
+                    "real_nodes": int(graph.node_mask.sum()),
+                    "real_edges": int(graph.edge_mask.sum()),
+                    "relations": ds.num_relations, "bases": 30,
+                    "train_entities": int(graph.extras["train_idx"].shape[1]),
+                    "test_entities": int(graph.extras["test_idx"].shape[1]),
+                    **report, "logits_shape": list(ref.shape),
+                    "logits_cuda_vs_cpu_rel_err": parity}, problems)
 
 
 def phase_slice_gcn(backend, phase):
     """bench_common.py's full-graph GCN on the card through ``backend``:
     "sorted" and "fused" on PubMed after RCM (Planetoid -> NormalizeFeatures
     -> reorder_graph -> from_data, N = 24576), "dense" on Cora. Launches
-    read over exactly the training run: the sorted backend's segment sum 4
-    per epoch and 2 for the evaluation; the fused kernels once each per
-    epoch and ``spmm_csr`` 2 for the evaluation (``bind_external``); the
-    dense backend none. The trained logits on the card against the plain
-    path on the CPU (1e-4; the dense backend 1e-2, bf16 operands), and the
-    sorted backend's against the packed operator's on the card (1e-5)."""
-    import numpy as np
+    per epoch: the sorted backend's segment sum 4, and 2 for the
+    evaluation; the fused kernels once each, and ``spmm_csr`` 2 for the
+    evaluation (``bind_external``); the dense backend none. The trained
+    logits on the card against the plain path on the CPU (1e-4; the dense
+    backend 1e-2, bf16 operands), and the sorted backend's against the
+    packed operator's on the card (1e-5)."""
+    from pytorch_geometric_tpu_torch.models.citation import gcn_backend
 
-    from pytorch_geometric_tpu_torch.models.citation import (
-        gcn_backend, train_gcn)
-
-    wrappers = _gcn_wrappers()
-    expected = {name: 0 for name in wrappers}
-    if backend == "dense":
-        ds, graph = cora_graph(DEVICE)
-        rcm_seconds = None
-    else:
-        ds, graph, rcm_seconds = pubmed_graph(DEVICE)
+    config = f"gcn_{backend}"
+    per_epoch, evaluation = {}, {}
     if backend == "sorted":
-        expected["sorted_segment_sum"] = 4 * EPOCHS + 2
+        per_epoch, evaluation = ({"sorted_segment_sum": 4},
+                                 {"sorted_segment_sum": 2})
     elif backend == "fused":
-        expected.update(fused_gcn_fwd=EPOCHS, fused_gcn_bwd=EPOCHS,
-                        spmm_csr=2)
-    torch.cuda.reset_peak_memory_stats()
-    for w in wrappers.values():
-        w.launches = 0
-    model, metrics = train_gcn(graph, num_classes=ds.num_classes,
-                               epochs=EPOCHS, seed=SEED, device=DEVICE,
-                               backend=backend)
-    launches = {name: w.launches for name, w in wrappers.items()}
-    peak = torch.cuda.max_memory_allocated()
-    loss = metrics["curve"]["loss"]
-    dims = (16, ds.num_classes, model.dropout_rate)
+        per_epoch, evaluation = ({"fused_gcn_fwd": 1, "fused_gcn_bwd": 1},
+                                 {"spmm_csr": 2})
+    ds, graph, rcm_seconds = load(CONFIGS[config][2])
+    model, metrics, report, problems = run_main_path(config, per_epoch,
+                                                     evaluation)
     # the backend's host set-up, which train_gcn keeps out of its seconds
     t0 = time.perf_counter()
-    card_agg = gcn_backend(graph, backend, *dims)[0]
+    gcn_backend(graph, backend, 16, ds.num_classes, model.dropout_rate)
     torch.cuda.synchronize()
     setup_seconds = time.perf_counter() - t0
-    # The trained model on the card against the plain path on the CPU,
-    # same weights, dropout off.
-    with torch.no_grad():
-        card = model(graph, graph.x, **card_agg)
-        packed = (model(graph, graph.x, **gcn_backend(graph, "packed")[0])
-                  if backend == "sorted" else None)
-        g = graph.to("cpu")
-        ref = model.to("cpu")(g, g.x, **gcn_backend(g, backend, *dims)[0])
-    parity = float((card.cpu() - ref).abs().max() / ref.abs().max())
+    card = logits_of(config, model)
+    packed = (logits_of(config, model, backend="packed")
+              if backend == "sorted" else None)
+    ref = logits_of(config, model, "cpu")
+    model.to(DEVICE)
+    parity = _rel(card.cpu(), ref)
     # the dense backend rounds x @ W to bf16 before each product, and the
     # card and the CPU sum x @ W in other orders: where a value sits on a
     # bf16 rounding boundary the two round it apart, by 2^-8 of it, so its
     # gate is the bf16 tolerance
     tol = TOL["bf16"] if backend == "dense" else 1e-4
-    packed_parity = (None if packed is None else
-                     float((card - packed).abs().max() / packed.abs().max()))
-    result = {"phase": phase, "backend": backend, "dataset": ds.name,
-              "synthetic": ds.is_synthetic, "nodes": graph.num_nodes,
-              "edges": graph.num_edges, "epochs": EPOCHS,
-              "seconds": metrics["seconds"],
-              "ms_per_epoch": metrics["seconds"] / EPOCHS * 1e3,
-              "rcm_seconds": rcm_seconds,
-              "backend_setup_seconds": setup_seconds,
-              "final_loss": float(loss[-1]),
-              "train_acc": metrics["train_acc"],
-              "val_acc": metrics["val_acc"], "test_acc": metrics["test_acc"],
-              "launches": launches, "expected_launches": expected,
-              "max_memory_allocated": peak,
-              "logits_shape": list(ref.shape),
-              "logits_cuda_vs_cpu_rel_err": parity,
-              "logits_cuda_vs_cpu_tol": tol,
-              "logits_vs_packed_rel_err": packed_parity}
-    emit(result)
-    if not np.isfinite(loss).all():
-        raise AssertionError("non-finite training loss")
-    if not (metrics["val_acc"] > 0.6 and metrics["test_acc"] > 0.6):
-        raise AssertionError(f"accuracy gate: val {metrics['val_acc']}, "
-                             f"test {metrics['test_acc']} (need > 0.6)")
-    if launches != expected:
-        raise AssertionError(f"GCN kernel launches on the main path "
-                             f"{launches}, expected {expected}")
+    packed_parity = None if packed is None else _rel(card, packed)
+    _accuracy_gate(metrics, problems)
     if not (torch.isfinite(card).all() and parity <= tol):
-        raise AssertionError(f"trained logits: card vs CPU rel err {parity}")
+        problems.append(f"trained logits: card vs CPU rel err {parity}")
     if backend == "sorted" and not packed_parity <= 1e-5:
-        raise AssertionError(f"sorted slice: logits vs the packed operator "
-                             f"{packed_parity} (need <= 1e-5)")
-    return result
+        problems.append(f"sorted slice: logits vs the packed operator "
+                        f"{packed_parity} (need <= 1e-5)")
+    return _finish({"phase": phase, "backend": backend, "dataset": ds.name,
+                    "synthetic": ds.is_synthetic, "nodes": graph.num_nodes,
+                    "edges": graph.num_edges, "rcm_seconds": rcm_seconds,
+                    "backend_setup_seconds": setup_seconds, **report,
+                    "logits_shape": list(ref.shape),
+                    "logits_cuda_vs_cpu_rel_err": parity,
+                    "logits_cuda_vs_cpu_tol": tol,
+                    "logits_vs_packed_rel_err": packed_parity}, problems)
 
 
-def _gcn_step(ds, graph, backend="packed"):
-    from pytorch_geometric_tpu_torch.models.citation import (
-        GCN, create_gcn_train_step)
-
-    model = GCN(graph.num_node_features, 16, ds.num_classes,
-                generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
-    return create_gcn_train_step(model, graph, backend=backend)[0]
+#: Epochs of the captured-against-eager check.
+CHECK_EPOCHS = 5
 
 
-def _gcn_sorted_step(ds, graph):
-    return _gcn_step(ds, graph, backend="sorted")
+def phase_capture_check():
+    """For each configuration, five epochs captured and five eager from
+    the same seeds: the trained logits and every parameter within 1e-6 of
+    the largest magnitude. One line per configuration."""
+    rows, problems = [], []
+    for config in CONFIGS:
+        model, captured = train(config, CHECK_EPOCHS)
+        eager_model, eager = train(config, CHECK_EPOCHS, capture=False)
+        ref = dict(eager_model.named_parameters())
+        params = max(_rel(p.detach(), ref[n].detach())
+                     for n, p in model.named_parameters())
+        logits = _rel(logits_of(config, model),
+                      logits_of(config, eager_model))
+        curve = float(np.abs(captured["curve"]["loss"]
+                             - eager["curve"]["loss"]).max())
+        row = {"phase": "capture_check", "config": config,
+               "epochs": CHECK_EPOCHS, "logits_rel_err": logits,
+               "params_rel_err": params, "loss_curve_max_abs_err": curve,
+               "tol": 1e-6, "ok": logits <= 1e-6 and params <= 1e-6}
+        emit(row)
+        rows.append(row)
+        if not row["ok"]:
+            problems.append(f"{config}: captured vs eager logits {logits}, "
+                            f"parameters {params} (need <= 1e-6)")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return rows
 
 
-def _gcn_fused_step(ds, graph):
-    return _gcn_step(ds, graph, backend="fused")
+#: Cycles of the spin kernel that opens a trace's active window: about
+#: 50 ms at the H100's 1.98 GHz boost clock.
+SPIN_CYCLES = 100_000_000
+#: Substrings of the port's kernel names on the profiler's device events.
+PORT_KERNEL_NAMES = ("spmm_csr", "gat_fwd_", "gat_bwd_", "rgcn_",
+                     "flash_fwd_", "flash_bwd_", "bsr_fwd_", "bsr_bwd_",
+                     "sorted_segment_sum", "fused_gcn")
 
 
-def _gat_step(ds, graph, backend="packed"):
-    from pytorch_geometric_tpu_torch.models.citation import (
-        GAT, create_gat_train_step)
-
-    model = GAT(graph.num_node_features, ds.num_classes,
-                generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
-    return create_gat_train_step(model, graph, backend=backend)[0]
-
-
-def _gat_dense_step(ds, graph):
-    return _gat_step(ds, graph, backend="dense")
-
-
-def _gat_bsr_step(ds, graph):
-    return _gat_step(ds, graph, backend="bsr")
-
-
-def _rgcn_step(ds, graph):
-    from pytorch_geometric_tpu_torch.models.entities import (
-        RGCN, create_rgcn_train_step)
-
-    model = RGCN(graph.num_nodes, ds.num_relations, ds.num_classes,
-                 generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
-    return create_rgcn_train_step(model, graph, ds.num_relations)[0]
-
-
-def phase_trace(make_step=_gcn_step, phase="trace", epochs=20,
-                load=cora_graph):
+def phase_trace(config="gcn", capture=False, epochs=20):
     """Where an epoch's time goes: ``torch.profiler`` over ``epochs``
-    epochs of the same training step (after warm-up), device busy time
-    per kernel name against the host's wall clock. Launches here come
-    after the slices' counts were read."""
+    epochs of the config's training step after warm-up, eager calls or
+    (``capture``) replays of the epoch captured as the trainers capture
+    it; device busy time per kernel name against the host's wall clock,
+    and the port's kernel launches per epoch counted from the device
+    events, which must equal the config's count (the eager trace's too).
+    Launches here come after the slices' counts were read."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    ds, graph = load(DEVICE)
-    step = make_step(ds, graph)
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    from pytorch_geometric_tpu_torch.models.capture import (
+        capture_epoch, warm_up)
+
+    step, gen = epoch_step_of(config)
+    dev = torch.device(DEVICE)
+    if capture:
+        warm_up(lambda: step(gen), dev)
+        graph = capture_epoch(lambda: step(gen), gen, dev)
+        run = graph.replay
+    else:
+        run = lambda: step(gen)   # noqa: E731
     for _ in range(5):
-        step(gen)
+        run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(epochs):
-            step(gen)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    # The profiler traces the card from its warm-up steps on and records
+    # only the active ones, each window closed by a synchronisation. It
+    # drops the device events that it places before the active window's
+    # start, and it has placed the first 10-90 events of the first epoch
+    # there (a few ms of them): a spin kernel of SPIN_CYCLES opens the
+    # window, and is left out of every count.
+    warm = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=warm, active=epochs,
+                                   repeat=1)) as prof:
+        for i in range(warm + epochs):
+            if i == warm:
+                torch.cuda._sleep(SPIN_CYCLES)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            run()
+            if i in (warm - 1, warm + epochs - 1):
+                torch.cuda.synchronize()
+            if i == warm + epochs - 1:
+                wall_us = (time.perf_counter() - t0) * 1e6
+            prof.step()
     # device-side events only (kernels, memsets, copies), not the host ops
     # or annotations that the profiler also credits with device time
     per_name = {}
     for e in prof.events():
         if (e.device_type == DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)):
+                and not getattr(e, "is_user_annotation", False)
+                and "spin_kernel" not in e.name):
             us, n = per_name.get(e.name, (0.0, 0))
             per_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     kernels = [(us, name, n) for name, (us, n) in per_name.items()]
@@ -1535,28 +1617,37 @@ def phase_trace(make_step=_gcn_step, phase="trace", epochs=20,
     busy_us = sum(k[0] for k in kernels)
     groups = {"port_kernels": 0.0, "optimizer_multi_tensor": 0.0,
               "other": 0.0}
-    for us, name, _ in kernels:
-        if any(k in name for k in ("spmm_csr", "gat_fwd_",
-                                   "gat_bwd_kernel", "rgcn_", "flash_fwd_",
-                                   "flash_bwd_", "bsr_fwd_", "bsr_bwd_",
-                                   "sorted_segment_sum", "fused_gcn")):
+    port_launches = 0
+    for us, name, n in kernels:
+        if any(k in name for k in PORT_KERNEL_NAMES):
             groups["port_kernels"] += us
+            port_launches += n
         elif "multi_tensor_apply" in name:
             groups["optimizer_multi_tensor"] += us
         else:
             groups["other"] += us
-    result = {"phase": phase, "epochs": epochs,
+    want = CONFIGS[config][4]
+    eager_phase = "trace" if config == "gcn" else f"trace_{config}"
+    result = {"phase": f"trace_captured_{config}" if capture
+              else eager_phase, "config": config, "captured": capture,
+              "epochs": epochs,
               "wall_ms_per_epoch": wall_us / epochs / 1e3,
               "device_busy_ms_per_epoch": busy_us / epochs / 1e3,
               "device_idle_share": (1 - busy_us / wall_us) if kernels
               else None,
               "device_ops_per_epoch": sum(k[2] for k in kernels) / epochs,
+              "port_launches_per_epoch": port_launches / epochs,
+              "expected_port_launches_per_epoch": want,
               "us_per_epoch_by_group": {k: v / epochs
                                         for k, v in groups.items()},
               "top": [{"name": n[:80], "us_per_epoch": us / epochs,
                        "calls_per_epoch": c / epochs}
                       for us, n, c in kernels[:16]]}
     emit(result)
+    if port_launches != want * epochs:
+        raise AssertionError(f"{config}: {port_launches / epochs} port "
+                             f"kernel launches per epoch on the trace, "
+                             f"expected {want}")
     return result
 
 
@@ -1635,7 +1726,7 @@ def kernels_line(results):
         return {k: v for k, v in results[phase]["launches"].items()
                 if k.startswith(prefix)}
 
-    launches = {"spmm_csr": results["slice"]["spmm_csr_launches"],
+    launches = {**of("slice", "spmm_csr"),
                 **of("slice_gat", "packed_gat"),
                 **of("slice_gat_dense", "flash_gat"),
                 **of("slice_gat_bsr", "bsr_gat"),
@@ -1685,42 +1776,27 @@ def main():
     failed = []
     results = {}
     phase_seconds = {}
-    for name, fn in (("card", phase_card), ("build", phase_build),
-                     ("kernel", phase_kernel), ("probe", phase_probe),
-                     ("slice", phase_slice),
-                     ("slice_gat", phase_slice_gat),
-                     ("slice_gat_dense",
-                      lambda: phase_slice_gat("dense", "slice_gat_dense")),
-                     ("slice_gat_bsr",
-                      lambda: phase_slice_gat("bsr", "slice_gat_bsr")),
-                     ("slice_rgcn", phase_slice_rgcn),
-                     ("slice_gcn_sorted",
-                      lambda: phase_slice_gcn("sorted", "slice_gcn_sorted")),
-                     ("slice_gcn_fused",
-                      lambda: phase_slice_gcn("fused", "slice_gcn_fused")),
-                     ("slice_gcn_dense",
-                      lambda: phase_slice_gcn("dense", "slice_gcn_dense")),
-                     ("trace", phase_trace),
-                     ("trace_gat",
-                      lambda: phase_trace(_gat_step, "trace_gat")),
-                     ("trace_gat_dense",
-                      lambda: phase_trace(_gat_dense_step,
-                                          "trace_gat_dense")),
-                     ("trace_gat_bsr",
-                      lambda: phase_trace(
-                          _gat_bsr_step, "trace_gat_bsr",
-                          load=lambda dev: pubmed_graph(dev)[:2])),
-                     ("trace_rgcn",
-                      lambda: phase_trace(_rgcn_step, "trace_rgcn",
-                                          load=mutag_graph)),
-                     ("trace_gcn_sorted",
-                      lambda: phase_trace(
-                          _gcn_sorted_step, "trace_gcn_sorted",
-                          load=lambda dev: pubmed_graph(dev)[:2])),
-                     ("trace_gcn_fused",
-                      lambda: phase_trace(
-                          _gcn_fused_step, "trace_gcn_fused",
-                          load=lambda dev: pubmed_graph(dev)[:2]))):
+    phases = [("card", phase_card), ("build", phase_build),
+              ("kernel", phase_kernel), ("probe", phase_probe),
+              ("slice", phase_slice), ("slice_gat", phase_slice_gat),
+              ("slice_gat_dense",
+               lambda: phase_slice_gat("dense", "slice_gat_dense")),
+              ("slice_gat_bsr", lambda: phase_slice_gat("bsr", "slice_gat_bsr")),
+              ("slice_rgcn", phase_slice_rgcn),
+              ("slice_gcn_sorted",
+               lambda: phase_slice_gcn("sorted", "slice_gcn_sorted")),
+              ("slice_gcn_fused",
+               lambda: phase_slice_gcn("fused", "slice_gcn_fused")),
+              ("slice_gcn_dense",
+               lambda: phase_slice_gcn("dense", "slice_gcn_dense")),
+              ("capture_check", phase_capture_check)]
+    for config in CONFIGS:
+        phases.append(("trace" if config == "gcn" else f"trace_{config}",
+                       functools.partial(phase_trace, config)))
+    for config in CONFIGS:
+        phases.append((f"trace_captured_{config}",
+                       functools.partial(phase_trace, config, True)))
+    for name, fn in phases:
         if failed and name != "card":
             emit({"phase": name, "skipped": f"after {failed[0]} failed"})
             continue

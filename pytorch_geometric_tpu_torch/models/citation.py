@@ -27,14 +27,16 @@ PubMed too):
   is, on a CUDA graph, 1 forward launch and 2 backward launches per
   layer, so 2 + 4 per epoch.
 
-The JAX package runs the epochs as one ``lax.scan`` program; here the
-loop runs eagerly, one ``epoch_step`` per epoch, and nothing is copied to
-the host until the run ends. On a CPU graph each kernel's wrapper
-computes the same function in plain PyTorch.
+The JAX package runs the epochs as one ``lax.scan`` program; on a CUDA
+device the port runs them as one captured CUDA graph, replayed once per
+epoch after an eager first epoch (``models/capture.py``, the trainers'
+``capture=`` argument; ``capture=False`` keeps the eager loop). Nothing
+is copied to the host until the run ends. On a CPU graph the epochs run
+eagerly, and each kernel's wrapper computes the same function in plain
+PyTorch.
 """
 
 import functools
-import time
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -42,6 +44,8 @@ from torch import nn
 
 from pytorch_geometric_tpu_torch.data.graph import Graph
 from pytorch_geometric_tpu_torch.device import resolve_device
+from pytorch_geometric_tpu_torch.models.capture import (
+    resolve_capture, run_epochs)
 from pytorch_geometric_tpu_torch.nn.conv.gat_conv import (
     GATConv, gat_dense_adj, gat_edge_set)
 from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import (
@@ -188,7 +192,12 @@ def create_gcn_train_step(model: GCN, graph: Graph, weight_decay=5e-4,
     ``epoch_step(generator)`` takes one Adam step and returns the epoch's
     ``{"loss", "train_acc"}`` as device scalars; ``generator`` draws the
     dropout masks (and, on ``"fused"``, the kernel's dropout seed after the
-    input's mask). ``eval_fn()`` returns train/val/test accuracy.
+    input's mask). ``eval_fn()`` returns train/val/test accuracy. The step
+    waits on nothing and copies nothing from the host, so a CUDA graph can
+    hold it (``models/capture.py``): on a CUDA graph Adam is built with
+    ``capturable=True`` (its step count on the device) whether the run is
+    captured or not, and the gradients are zeroed in place, never set to
+    None, so they stay allocated across replays.
 
     On ``"fused"`` the logits are
     ``fused(dropout(x) @ conv1.weight, conv2.weight, conv1.bias, seed)
@@ -204,7 +213,8 @@ def create_gcn_train_step(model: GCN, graph: Graph, weight_decay=5e-4,
     """
     agg, fused = gcn_backend(graph, backend, model.conv1.out_channels,
                              model.conv2.out_channels, model.dropout_rate)
-    opt = torch.optim.Adam(model.parameters(), lr=lr)
+    opt = torch.optim.Adam(model.parameters(), lr=lr,
+                           capturable=graph.device.type == "cuda")
     decayed = list(model.conv1.parameters())
     conv1, conv2 = model.conv1, model.conv2
 
@@ -220,7 +230,7 @@ def create_gcn_train_step(model: GCN, graph: Graph, weight_decay=5e-4,
 
     def epoch_step(generator: Optional[torch.Generator] = None):
         model.train()
-        opt.zero_grad(set_to_none=True)
+        opt.zero_grad(set_to_none=False)
         logits = logits_of(generator)
         loss = masked_softmax_xent(logits, graph.y, graph.train_mask)
         loss = loss + weight_decay * sum((p ** 2).sum() for p in decayed)
@@ -240,21 +250,27 @@ def create_gcn_train_step(model: GCN, graph: Graph, weight_decay=5e-4,
 
 def train_gcn(graph: Graph, num_classes: int, hidden: int = 16,
               epochs: int = 200, seed: int = 0, lr: float = 0.01,
-              device="cuda",
-              backend: str = "packed") -> Tuple[GCN, Dict[str, Any]]:
+              device="cuda", backend: str = "packed",
+              capture: Optional[bool] = None) -> Tuple[GCN, Dict[str, Any]]:
     """Full training run on ``device`` through the aggregation of
     ``backend`` (:func:`gcn_backend`): ``epochs`` Adam steps, then one
-    evaluation. Returns the model and its metrics: final
-    ``train_acc`` / ``val_acc`` / ``test_acc``, the per-epoch ``curve``
-    (numpy arrays of ``loss`` and ``train_acc``), and ``seconds``, the
-    wall time of the epochs and the evaluation (after the operator's host
-    set-up, ending in a device synchronisation). On a CUDA graph the
+    evaluation, through ``models/capture.py:run_epochs`` (``capture``:
+    None, the default, captures the epochs in a CUDA graph on a CUDA
+    device and runs them eagerly on the CPU; False runs them eagerly on
+    the card too; True on the CPU raises). Returns the model and its
+    metrics: final ``train_acc`` / ``val_acc`` / ``test_acc``, the
+    per-epoch ``curve`` (numpy arrays of ``loss`` and ``train_acc``), and
+    ``seconds``, the wall time of the epochs and the evaluation (after the
+    operator's host set-up, ending in a device synchronisation; a
+    captured run keeps its warm-up epoch and capture apart, in
+    ``capture_seconds``, and adds ``launches``). On a CUDA graph the
     packed backend launches ``spmm_csr`` 4 times per epoch and 2 for the
     evaluation, the sorted backend ``sorted_segment_sum`` likewise; the
     fused backend launches ``fused_gcn_fwd`` and ``fused_gcn_bwd`` once
     per epoch and ``spmm_csr`` 2 times for the evaluation; the dense
     backend launches no kernel of the port."""
     dev = resolve_device(device)
+    capture = resolve_capture(capture, dev)
     graph = graph.to(dev)
     init_gen = torch.Generator().manual_seed(seed)
     model = GCN(graph.num_node_features, hidden, num_classes,
@@ -262,7 +278,8 @@ def train_gcn(graph: Graph, num_classes: int, hidden: int = 16,
     drop_gen = torch.Generator(device=dev).manual_seed(seed)
     epoch_step, eval_fn = create_gcn_train_step(model, graph, lr=lr,
                                                 backend=backend)
-    return model, run_epochs(epoch_step, eval_fn, epochs, drop_gen, dev)
+    return model, run_epochs(epoch_step, eval_fn, epochs, drop_gen, dev,
+                             capture)
 
 
 # ---------------------------------------------------------------------------
@@ -308,8 +325,11 @@ def gat_flash_op(graph: Graph, backend: str = "packed"):
     kernels on a CUDA graph. A node permutation changes no result; the
     block-sparse operator alone gains from one: reorder the host ``Data``
     first (``utils/reorder.py:reorder_graph``, RCM, as examples/gat.py
-    does) and the same entries fall into fewer blocks."""
-    if backend == "packed":
+    does) and the same entries fall into fewer blocks. ``"auto"`` is
+    ``"packed"``, as in ``make_flash_op``; its ``"none"`` (no fused
+    operator: the plain segment-softmax path) is refused, because no
+    trainer of the port runs plain segment ops on a card."""
+    if backend in ("auto", "packed"):
         senders, receivers = gat_edge_set(graph)
         return PackedFlashGat(senders, receivers, graph.num_nodes,
                               device=graph.device)
@@ -322,8 +342,8 @@ def gat_flash_op(graph: Graph, backend: str = "packed"):
         senders, receivers = gat_edge_set(graph)
         return BsrFlashGat.from_edges(senders, receivers, graph.num_nodes,
                                       device=graph.device)
-    raise ValueError(f"backend must be 'packed', 'dense' or 'bsr', got "
-                     f"{backend!r}")
+    raise ValueError(f"backend must be 'auto', 'packed', 'dense' or 'bsr', "
+                     f"got {backend!r}")
 
 
 def create_gat_train_step(model: GAT, graph: Graph, lr: float = 5e-3,
@@ -338,14 +358,18 @@ def create_gat_train_step(model: GAT, graph: Graph, lr: float = 5e-3,
     ``torch.optim.AdamW`` makes the same update as ``optax.adamw``:
     decoupled weight decay ``lr * wd * p`` on every parameter, and eps
     added outside the square root of the bias-corrected second moment.
+    As in :func:`create_gcn_train_step`, on a CUDA graph it is built with
+    ``capturable=True`` and the gradients are zeroed in place; the
+    attention seeds are drawn on the device from ``generator``.
     """
     flash_op = gat_flash_op(graph, backend)
     opt = torch.optim.AdamW(model.parameters(), lr=lr,
-                            weight_decay=weight_decay)
+                            weight_decay=weight_decay,
+                            capturable=graph.device.type == "cuda")
 
     def epoch_step(generator: Optional[torch.Generator] = None):
         model.train()
-        opt.zero_grad(set_to_none=True)
+        opt.zero_grad(set_to_none=False)
         logits = model(graph, graph.x, train=True, flash_op=flash_op,
                        generator=generator)
         loss = masked_softmax_xent(logits, graph.y, graph.train_mask)
@@ -366,15 +390,17 @@ def create_gat_train_step(model: GAT, graph: Graph, lr: float = 5e-3,
 def train_gat(graph: Graph, num_classes: int, hidden: int = 8,
               heads: int = 8, epochs: int = 200, seed: int = 0,
               lr: float = 5e-3, weight_decay: float = 5e-4,
-              device="cuda",
-              backend: str = "packed") -> Tuple[GAT, Dict[str, Any]]:
+              device="cuda", backend: str = "packed",
+              capture: Optional[bool] = None) -> Tuple[GAT, Dict[str, Any]]:
     """Full GAT training run on ``device`` through the fused operator of
     ``backend`` (:func:`gat_flash_op`), as examples/gat.py ``run``:
-    ``epochs`` AdamW steps, then one evaluation. Returns the model and
-    the metrics of :func:`train_gcn`. On a CUDA graph the operator's
-    forward kernel launches 2 times per epoch and 2 for the evaluation,
-    its backward kernels 4 times per epoch."""
+    ``epochs`` AdamW steps, then one evaluation, captured or not as
+    ``capture`` says (:func:`train_gcn`). Returns the model and the
+    metrics of :func:`train_gcn`. On a CUDA graph the operator's forward
+    kernel launches 2 times per epoch and 2 for the evaluation, its
+    backward kernels 4 times per epoch."""
     dev = resolve_device(device)
+    capture = resolve_capture(capture, dev)
     graph = graph.to(dev)
     init_gen = torch.Generator().manual_seed(seed)
     model = GAT(graph.num_node_features, num_classes, hidden=hidden,
@@ -382,7 +408,8 @@ def train_gat(graph: Graph, num_classes: int, hidden: int = 8,
     drop_gen = torch.Generator(device=dev).manual_seed(seed)
     epoch_step, eval_fn = create_gat_train_step(
         model, graph, lr=lr, weight_decay=weight_decay, backend=backend)
-    return model, run_epochs(epoch_step, eval_fn, epochs, drop_gen, dev)
+    return model, run_epochs(epoch_step, eval_fn, epochs, drop_gen, dev,
+                             capture)
 
 
 # ---------------------------------------------------------------------------
@@ -391,29 +418,3 @@ def _accuracies(logits, graph: Graph):
     return {f"{split}_acc": masked_accuracy(logits, graph.y,
                                             getattr(graph, f"{split}_mask"))
             for split in ("train", "val", "test")}
-
-
-def run_epochs(epoch_step, eval_fn, epochs: int,
-               generator: Optional[torch.Generator],
-               dev: torch.device) -> Dict[str, Any]:
-    """``epochs`` calls of ``epoch_step(generator)`` and one evaluation,
-    timed on the host clock up to a device synchronisation; the curve is
-    copied to the host at the end. Shared by every trainer of the port
-    (``models/entities.py`` too)."""
-    _synchronize(dev)
-    t0 = time.perf_counter()
-    curve = [epoch_step(generator) for _ in range(epochs)]
-    final = eval_fn()
-    _synchronize(dev)
-    seconds = time.perf_counter() - t0
-
-    metrics: Dict[str, Any] = {k: float(v) for k, v in final.items()}
-    metrics["curve"] = {k: torch.stack([c[k] for c in curve]).cpu().numpy()
-                        for k in ("loss", "train_acc")} if curve else {}
-    metrics["seconds"] = seconds
-    return metrics
-
-
-def _synchronize(dev: torch.device):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)

@@ -14,7 +14,8 @@ The JAX package keeps this loop in ``examples/rgcn.py`` and
   aggregation runs the hand-written kernels of ``ops/packed_rgcn.py``:
   per epoch 2 forward launches and 6 backward launches (3 per layer).
 - :func:`train_rgcn`: Adam (lr 0.01) on the mean cross-entropy over the
-  training entities, one eager ``epoch_step`` per epoch.
+  training entities, the epochs captured in one CUDA graph on a CUDA
+  device (``models/capture.py``), eager on the CPU.
 
 The JAX bench first reorders the nodes (RCM) to fill the TPU's window
 buckets and keeps Adam's moments in bf16; a CSR kernel has no use for the
@@ -29,8 +30,10 @@ from torch import nn
 
 from pytorch_geometric_tpu_torch.data.graph import Graph
 from pytorch_geometric_tpu_torch.device import resolve_device
+from pytorch_geometric_tpu_torch.models.capture import (
+    resolve_capture, run_epochs)
 from pytorch_geometric_tpu_torch.models.citation import (
-    run_epochs, softmax_xent_int_labels)
+    softmax_xent_int_labels)
 from pytorch_geometric_tpu_torch.nn.conv.rgcn_conv import (
     RGCNConv, rgcn_fused_op, rgcn_norm)
 
@@ -86,18 +89,21 @@ def create_rgcn_train_step(model: RGCN, graph: Graph, num_relations: int,
     indexed.
 
     ``torch.optim.Adam`` and ``optax.adam`` share b1, b2 and eps (added
-    outside the square root).
+    outside the square root). As in ``create_gcn_train_step``, on a CUDA
+    graph Adam is built with ``capturable=True`` and the gradients are
+    zeroed in place, so a CUDA graph can hold the step.
     """
     fused_ops = rgcn_fused_ops(graph, num_relations)
     train_idx = _split_indices(graph, "train_idx")
     test_idx = _split_indices(graph, "test_idx")
     y_train, y_test = graph.y[train_idx].long(), graph.y[test_idx].long()
-    opt = torch.optim.Adam(model.parameters(), lr=lr)
+    opt = torch.optim.Adam(model.parameters(), lr=lr,
+                           capturable=graph.device.type == "cuda")
 
     def epoch_step(generator: Optional[torch.Generator] = None):
         # no dropout in this model: the generator draws nothing
         model.train()
-        opt.zero_grad(set_to_none=True)
+        opt.zero_grad(set_to_none=False)
         logits = model(graph, fused_ops=fused_ops)[train_idx]
         loss = softmax_xent_int_labels(logits, y_train).mean()
         loss.backward()
@@ -117,23 +123,28 @@ def create_rgcn_train_step(model: RGCN, graph: Graph, num_relations: int,
 
 def train_rgcn(graph: Graph, num_relations: int, num_classes: int,
                epochs: int = 50, seed: int = 0, lr: float = 0.01,
-               device="cuda") -> Tuple[RGCN, Dict[str, Any]]:
+               device="cuda", capture: Optional[bool] = None
+               ) -> Tuple[RGCN, Dict[str, Any]]:
     """Full RGCN training run on ``device``, as examples/rgcn.py ``run``
     through the fused operators: ``epochs`` Adam steps, then one
-    evaluation. Returns the model and its metrics: final ``train_acc`` /
-    ``test_acc`` (the corpus has no validation split), the per-epoch
-    ``curve`` (numpy arrays of ``loss`` and ``train_acc``) and
-    ``seconds``, as ``train_gat``. The splits are the graph's
-    ``train_idx`` / ``test_idx``. On a CUDA graph the
-    forward kernel launches 2 times per epoch and 2 for the evaluation,
-    the backward kernels 6 times per epoch."""
+    evaluation, captured or not as ``capture`` says (as ``train_gcn``).
+    Returns the model and its metrics: final ``train_acc`` / ``test_acc``
+    (the corpus has no validation split), the per-epoch ``curve`` (numpy
+    arrays of ``loss`` and ``train_acc``) and ``seconds``, as
+    ``train_gat`` (a captured run adds ``capture_seconds`` and
+    ``launches``). The splits are the graph's ``train_idx`` /
+    ``test_idx``. On a CUDA graph the forward's kernels launch 4 times
+    per epoch and 4 for the evaluation (2 a layer), the backward's 6
+    times per epoch (3 a layer)."""
     dev = resolve_device(device)
+    capture = resolve_capture(capture, dev)
     graph = graph.to(dev)
     model = RGCN(graph.num_nodes, num_relations, num_classes,
                  generator=torch.Generator().manual_seed(seed)).to(dev)
     epoch_step, eval_fn = create_rgcn_train_step(
         model, graph, num_relations, lr=lr)
-    return model, run_epochs(epoch_step, eval_fn, epochs, None, dev)
+    return model, run_epochs(epoch_step, eval_fn, epochs, None, dev,
+                             capture)
 
 
 def _accuracy(logits, labels):

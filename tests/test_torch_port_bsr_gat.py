@@ -440,7 +440,7 @@ def test_gat_flash_op_bsr_backend():
     dense = gat_dense_adj(g)
     assert op.mask.num_entries == int(dense.sum())
     with pytest.raises(ValueError, match="'bsr'"):
-        tcit.gat_flash_op(g, "auto")
+        tcit.gat_flash_op(g, "none")
 
 
 def test_five_adamw_steps_bsr_backend_match_packed_backend():

@@ -1,0 +1,155 @@
+"""The port's example scripts (``pytorch_geometric_tpu_torch/examples/``)
+against the reference's ``examples/gcn.py``, ``gat.py`` and ``rgcn.py``:
+the same flags and defaults (read from both files' syntax trees, nothing
+run), the same printed lines (the JAX script's f-strings, from its tree),
+the same fields returned, and the same graph, built by the JAX package's
+own calls in the same process (the synthetic corpora seed from the
+process's string hash, so only one process gives both the same draw)."""
+
+import ast
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from pytorch_geometric_tpu.data import from_data as j_from_data
+from pytorch_geometric_tpu.datasets import Entities as JEntities
+from pytorch_geometric_tpu.datasets import Planetoid as JPlanetoid
+from pytorch_geometric_tpu.transforms import NormalizeFeatures as JNormalize
+from pytorch_geometric_tpu.utils.reorder import (
+    reorder_graph as j_reorder_graph)
+from pytorch_geometric_tpu_torch.examples import gat, gcn, rgcn
+from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
+from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
+
+REPO = Path(__file__).resolve().parents[1]
+EXAMPLES = {"gcn": gcn, "gat": gat, "rgcn": rgcn}
+
+
+def _tree(path):
+    return ast.parse(Path(path).read_text())
+
+
+def _flags(path):
+    """``{flag: {keyword: value}}`` of every ``add_argument`` call."""
+    flags = {}
+    for node in ast.walk(_tree(path)):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "add_argument"):
+            flags[ast.literal_eval(node.args[0])] = {
+                k.arg: ast.unparse(k.value) for k in node.keywords}
+    return flags
+
+
+def _printed_lines(path):
+    """One regular expression per ``print(f"...")`` of the script's
+    ``run``: its literal text, each formatted value a number."""
+    run = next(n for n in ast.walk(_tree(path))
+               if isinstance(n, ast.FunctionDef) and n.name == "run")
+    patterns = []
+    for node in ast.walk(run):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+                and node.func.id == "print"):
+            parts = [re.escape(v.value) if isinstance(v, ast.Constant)
+                     else r"-?[0-9]+(\.[0-9]+)?"
+                     for v in node.args[0].values]
+            patterns.append(re.compile("".join(parts) + "$"))
+    return patterns
+
+
+def _synthetic_marker(raw):
+    """The JAX datasets' ``SYNTHETIC`` marker in ``raw``: with it they take
+    their synthetic branch without trying a download."""
+    raw.mkdir(parents=True)
+    (raw / "SYNTHETIC").write_text("1")
+
+
+def _jax_planetoid(root, name="Cora"):
+    _synthetic_marker(root / name / "raw")
+    return JPlanetoid(str(root), name, transform=JNormalize())
+
+
+def _np(t):
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+def _same_graph(port, ref, names):
+    assert port.num_nodes == ref.num_nodes
+    assert port.num_edges == ref.num_edges
+    for name in names:
+        a = _np(getattr(port, name))
+        b = np.asarray(getattr(ref, name))
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.parametrize("name", sorted(EXAMPLES))
+def test_example_flags_and_defaults_match_the_jax_script(name):
+    port = _flags(Path(EXAMPLES[name].__file__))
+    assert port == _flags(REPO / "examples" / f"{name}.py")
+    assert port, name
+
+
+@pytest.mark.parametrize("name", sorted(EXAMPLES))
+def test_example_run_prints_the_jax_scripts_lines(name, capsys):
+    kwargs = {"epochs": 2, "device": "cpu"}
+    out = EXAMPLES[name].run(**kwargs)
+    lines = capsys.readouterr().out.splitlines()
+    patterns = _printed_lines(REPO / "examples" / f"{name}.py")
+    assert lines and patterns
+    for line in lines:
+        assert any(p.match(line) for p in patterns), line
+    for p in patterns:
+        assert any(p.match(line) for line in lines), p.pattern
+    if name == "gcn":
+        assert {"train_acc", "val_acc", "test_acc", "curve"} <= set(out)
+        assert out["curve"]["loss"].shape == (2,)
+        assert [ln.split()[1] for ln in lines[:2]] == ["000", "001"]
+    elif name == "gat":
+        assert sorted(out) == ["test", "train", "val"]
+        assert all(0.0 <= v <= 1.0 for v in out.values())
+    else:
+        assert isinstance(out, float) and 0.0 <= out <= 1.0
+
+
+def test_gcn_example_builds_the_jax_scripts_graph(tmp_path):
+    _, port = gcn.load("Cora", root=tmp_path / "port", device="cpu")
+    ds = _jax_planetoid(tmp_path / "jax")
+    _same_graph(port, j_from_data(ds[0]),
+                ("x", "senders", "receivers", "y", "node_mask", "edge_mask",
+                 "train_mask", "val_mask", "test_mask"))
+
+
+@pytest.mark.parametrize("backend", ["auto", "none"])
+def test_gat_example_builds_the_jax_scripts_graph(backend, tmp_path):
+    """RCM relabels the nodes for every fused backend, as examples/gat.py
+    ``run`` does, and not for ``"none"``."""
+    _, port = gat.load("Cora", backend, root=tmp_path / "port",
+                       device="cpu")
+    data = _jax_planetoid(tmp_path / "jax")[0]
+    if backend != "none":
+        data = j_reorder_graph(data)
+    _same_graph(port, j_from_data(data),
+                ("x", "senders", "receivers", "y", "node_mask", "edge_mask",
+                 "train_mask", "val_mask", "test_mask"))
+
+
+def test_rgcn_example_builds_the_jax_scripts_graph(tmp_path):
+    _, port = rgcn.load(root=tmp_path / "port", device="cpu")
+    _synthetic_marker(tmp_path / "jax" / "entities" / "mutag" / "raw")
+    ref = j_from_data(JEntities(str(tmp_path / "jax"), "MUTAG")[0])
+    _same_graph(port, ref, ("senders", "receivers", "y", "node_mask",
+                            "edge_mask", "edge_type"))
+    for k in ("train_idx", "test_idx"):
+        np.testing.assert_array_equal(_np(port.extras[k]),
+                                      np.asarray(ref.extras[k]), err_msg=k)
+
+
+def test_gat_flash_op_auto_is_packed():
+    _, graph = gat.load("Cora", "auto", device="cpu")
+    op = gat_flash_op(graph, "auto")
+    assert isinstance(op, PackedFlashGat) and op.n == graph.num_nodes
+    with pytest.raises(ValueError, match="backend must be"):
+        gat_flash_op(graph, "none")

@@ -418,11 +418,12 @@ def test_gat_flash_op_backends():
     g, _ = _graphs(18)
     assert isinstance(tcit.gat_flash_op(g), pg.PackedFlashGat)
     assert isinstance(tcit.gat_flash_op(g, "packed"), pg.PackedFlashGat)
+    assert isinstance(tcit.gat_flash_op(g, "auto"), pg.PackedFlashGat)
     dense = tcit.gat_flash_op(g, "dense")
     assert isinstance(dense, fg.FlashGatOperator)
     assert dense.device == g.device and dense.n == g.num_nodes
     assert torch.equal(dense.mask.dense(), gat_dense_adj(g))
-    for name in ("xla", "none", "auto", ""):
+    for name in ("xla", "none", ""):
         with pytest.raises(ValueError, match="backend"):
             tcit.gat_flash_op(g, name)
     big = Graph(senders=torch.zeros(1, dtype=torch.int32),
