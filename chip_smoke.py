@@ -72,6 +72,15 @@ Phases, one JSON line each:
                  (16, 3) and Cora with (16, 7), dropout 0 and 0.5, fp32
                  (1e-5), against the unfused chain of spmm_csr launches
                  and torch ops; two launches bitwise equal;
+               - the citation suite's shapes: spmm_csr at F = 1433 on the
+                 Cora GCN CSR (SGC's propagation) and on Spline's two
+                 kernel-index CSRs (its conv1; and 16, both directions),
+                 and at ARMA's F = 48 and 21 on L̂'s CSR, both
+                 directions; the segment sum at AGNN's shapes (1 and 16
+                 channels by receiver, 16 by sender) and at DNA's
+                 shapes (its GCN edge set: the messages by receiver at
+                 F = 128, the last layer's key-value gradient by sender
+                 at 4 x 256); fp32 (1e-5); two launches bitwise equal;
    probe     — the probes' libraries against the kernels that ship:
                every term-by-term ablation mode of the packed-GAT backward
                (RCM-PubMed, (8, 8), dropout 0.6) and of the packed-RGCN
@@ -137,11 +146,27 @@ Phases, one JSON line each:
    slice_gcn_dense — the GCN on Cora with backend="dense" (bf16 dense
                adjacency, one matrix product per aggregation, no kernel
                of the port);
-7. capture_check — for each of the eight configurations, five epochs
+   slice_sgc, slice_agnn, slice_arma, slice_spline, slice_dna — the
+               five models of examples/citation_suite.py on Cora (Spline
+               with TargetIndegree), 200 epochs each, captured and then
+               eager, through train_suite: the launches of
+               SUITE_LAUNCHES (spmm_csr: SGC 2 at set-up, AGNN 802, ARMA
+               1604, Spline 1204; sorted_segment_sum: AGNN 1602, DNA
+               2404), the
+               accuracy gate, and the trained logits on the card against
+               the model's plain path on the CPU (1e-4);
+   zoo       — every conv of the zoo (Part B's and the suite's) on Cora
+               at 1433 -> 16, one forward and one backward through its
+               operators on the card against its plain path on the CPU:
+               output, input gradient and parameter gradients within
+               1e-4, and a kernel launched by each conv that sums
+               feature rows;
+7. capture_check — for each of the thirteen configurations, five epochs
                captured and five eager from the same seeds: the logits
                and every parameter within 1e-6 of the largest magnitude;
 8. trace, trace_gat, trace_gat_dense, trace_gat_bsr, trace_rgcn,
-   trace_gcn_sorted, trace_gcn_fused, trace_gcn_dense — torch.profiler
+   trace_gcn_sorted, trace_gcn_fused, trace_gcn_dense, trace_sgc,
+   trace_agnn, trace_arma, trace_spline, trace_dna — torch.profiler
                over 20 eager epochs of each configuration's training
                step: device time per kernel name, device busy and idle
                share, the port's kernel launches per epoch from the device
@@ -150,7 +175,8 @@ Phases, one JSON line each:
                the trainers capture it, one phase per configuration; the
                port's launches per epoch must equal the eager count.
 
-Then a "kernels" JSON line, and as the last line
+Then a "kernels" JSON line (each kernel's launches summed over the
+slice phases that ran it, and by phase), and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
 line; so does a machine without CUDA, or a directory without the port.
 """
@@ -732,6 +758,59 @@ def phase_kernel_gcn(cora, gen):
     return cases
 
 
+def phase_kernel_suite(gen):
+    """The citation suite's new shapes: ``spmm_csr`` at F = 1433 (SGC's
+    propagation of Cora's features; Spline's conv1) on the Cora GCN CSR
+    and on Spline's two kernel-index CSRs (and at conv2's 16, both
+    directions), and at ARMA's widths (3 stacks x 16 = 48, x 7 = 21) on
+    L̂'s CSR, both directions; the segment sum at AGNN's shapes (its edge
+    set by receiver at 1 and 16 channels, by sender at 16) and DNA's (its
+    GCN edge set: F = 128 by receiver, the last layer's key-value
+    gradient, 4 x 256, by sender); fp32."""
+    from pytorch_geometric_tpu_torch.nn.conv import (
+        agnn_operators, arma_edge_set, dna_operators, spline_edge_sets)
+    from pytorch_geometric_tpu_torch.ops.spmm import SpmmOperator
+
+    _, cora, _ = load("cora")
+    _, spline, _ = load("cora_spline")
+    n = cora.num_node_features
+    cases = []
+    for direction, (csr, val) in _csr_pairs(cora).items():
+        if direction == "fwd":
+            cases.append(check_case("cora", csr, val, direction, n, "fp32",
+                                    gen))
+    for k, (s, r, b) in enumerate(spline_edge_sets(spline, 1, 2)):
+        op = SpmmOperator(s, r, spline.num_nodes, device=DEVICE)
+        val_f, val_b = op.route_weights(b)
+        for direction, csr, val, f in (("fwd", op.fwd, val_f, n),
+                                       ("fwd", op.fwd, val_f, 16),
+                                       ("bwd", op.bwd, val_b, 16)):
+            cases.append(check_case(f"cora_spline_k{k}", csr, val,
+                                    direction, f, "fp32", gen))
+    s, r, w = arma_edge_set(cora)
+    op = SpmmOperator(s, r, cora.num_nodes, device=DEVICE)
+    for direction, csr, val in zip(("fwd", "bwd"), (op.fwd, op.bwd),
+                                   op.route_weights(w)):
+        for f in (48, 21):     # 3 stacks x 16, x 7
+            cases.append(check_case("cora_arma", csr, val, direction, f,
+                                    "fp32", gen))
+    # AGNN's softmax sums (one channel) and its cosine gathers' gradients
+    # (16), by receiver and by sender
+    ops = agnn_operators(cora)
+    for direction, op, f in (("fwd", ops["recv_op"], 1),
+                             ("fwd", ops["recv_op"], 16),
+                             ("bwd", ops["send_op"], 16)):
+        cases.append(check_sorted_case("cora_agnn", op.csr, direction, f,
+                                       "fp32", gen))
+    ops = dna_operators(cora)
+    cases.append(check_sorted_case("cora_dna", ops["segment_op"].csr, "fwd",
+                                   128, "fp32", gen))
+    # the last layer's key-value gradient: a history of 4 x 256 channels
+    cases.append(check_sorted_case("cora_dna", ops["sender_op"].csr, "bwd",
+                                   1024, "fp32", gen))
+    return cases
+
+
 def check_rgcn_case(graph_name, op, B, C, gen):
     """The packed-RGCN forward and backward kernels against their plain
     versions on random inputs at one (B, C): one line per kernel."""
@@ -833,6 +912,7 @@ def phase_kernel():
         cases += check_rgcn_case(graph_name, op, B, C, gen)
     cases += phase_kernel_bsr(cora, gen)
     cases += phase_kernel_gcn(cora, gen)
+    cases += phase_kernel_suite(gen)
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} kernel case(s) disagree with the "
@@ -1153,9 +1233,9 @@ def probe_rgcn_designs(gen):
     return case
 
 
-#: The eight configurations of the main path, by the suffix of their
-#: phases: (trainer, backend, graph loader, epochs, device kernel
-#: launches per epoch on the profiler's trace).
+#: The thirteen configurations of the main path, by the suffix of their
+#: phases: (trainer, backend or suite model, graph loader, epochs, device
+#: kernel launches per epoch on the profiler's trace).
 CONFIGS = {
     "gcn": ("gcn", "packed", "cora", EPOCHS, 4),
     "gat": ("gat", "packed", "cora", EPOCHS, 6),
@@ -1165,22 +1245,57 @@ CONFIGS = {
     "gcn_sorted": ("gcn", "sorted", "pubmed", EPOCHS, 4),
     "gcn_fused": ("gcn", "fused", "pubmed", EPOCHS, 2),
     "gcn_dense": ("gcn", "dense", "cora", EPOCHS, 0),
+    "sgc": ("suite", "sgc", "cora", EPOCHS, 0),
+    "agnn": ("suite", "agnn", "cora", EPOCHS, 12),
+    "arma": ("suite", "arma", "cora", EPOCHS, 8),
+    "spline": ("suite", "spline", "cora_spline", EPOCHS, 6),
+    "dna": ("suite", "dna", "cora", EPOCHS, 12),
+}
+
+#: The citation suite's kernel launches, worked out from its code
+#: (``examples/citation_suite.py:train_suite``): per epoch, for the
+#: evaluation, at set-up. SGC propagates Cora's features twice at set-up
+#: and then trains one matrix product. AGNN's two layers each run one
+#: SpMM forward and one for dx (alpha's gradient is the operator's SDDMM,
+#: no kernel), and one segment sum forward (the softmax's sums) and three
+#: backward (the gradients of the two cosine gathers and of the sums'
+#: gather). ARMA's two convs of two layers run one L̂ product each, forward
+#: and backward. Spline's two convs run two kernel-index SpMMs each
+#: forward, and the second conv two backward (the first one's input is
+#: the features, which take no gradient). DNA's four layers run one
+#: segment sum each forward (its backward is a gather) and two backward
+#: (the gradients of the query gather by receiver and of the key-value
+#: gather by sender).
+SUITE_LAUNCHES = {
+    "sgc": ({}, {}, {"spmm_csr": 2}),
+    "agnn": ({"spmm_csr": 4, "sorted_segment_sum": 8},
+             {"spmm_csr": 2, "sorted_segment_sum": 2}, {}),
+    "arma": ({"spmm_csr": 8}, {"spmm_csr": 4}, {}),
+    "spline": ({"spmm_csr": 6}, {"spmm_csr": 4}, {}),
+    "dna": ({"sorted_segment_sum": 12}, {"sorted_segment_sum": 4}, {}),
 }
 
 
 @functools.cache
 def load(name):
     """``(dataset, graph on the card, RCM seconds or None)`` of ``"cora"``,
-    ``"pubmed"`` (RCM-reordered) or ``"mutag"`` (the published size),
-    built once per run."""
+    ``"cora_spline"`` (Cora with ``TargetIndegree``'s pseudo-coordinates,
+    the suite's Spline graph), ``"pubmed"`` (RCM-reordered) or ``"mutag"``
+    (the published size), built once per run."""
+    from pytorch_geometric_tpu_torch.examples import citation_suite
+
     if name == "pubmed":
         return pubmed_graph(DEVICE)
+    if name == "cora_spline":
+        return (*citation_suite.load("spline", device=DEVICE), None)
     return (*(cora_graph if name == "cora" else mutag_graph)(DEVICE), None)
 
 
 def train(config, epochs=None, capture=None, seed=SEED):
     """The trainer of ``config`` on its graph, as a user calls it:
     ``(model, metrics)``; captured by default."""
+    from pytorch_geometric_tpu_torch.examples.citation_suite import (
+        train_suite)
     from pytorch_geometric_tpu_torch.models.citation import (
         train_gat, train_gcn)
     from pytorch_geometric_tpu_torch.models.entities import train_rgcn
@@ -1188,6 +1303,9 @@ def train(config, epochs=None, capture=None, seed=SEED):
     kind, backend, graph_name, default_epochs, _ = CONFIGS[config]
     ds, graph, _ = load(graph_name)
     epochs = default_epochs if epochs is None else epochs
+    if kind == "suite":
+        return train_suite(backend, graph, ds.num_classes, epochs=epochs,
+                           seed=seed, device=DEVICE, capture=capture)
     if kind == "rgcn":
         return train_rgcn(graph, ds.num_relations, ds.num_classes,
                           epochs=epochs, seed=seed, device=DEVICE,
@@ -1200,7 +1318,8 @@ def train(config, epochs=None, capture=None, seed=SEED):
 def logits_of(config, model, device=DEVICE, backend=None):
     """The trained model's logits on ``device`` through the operators of
     the config's backend (or of ``backend``, on the config's graph),
-    dropout off (on the CPU their plain versions)."""
+    dropout off (on the CPU their plain versions; a suite model on the
+    CPU takes its plain path, without operators)."""
     from pytorch_geometric_tpu_torch.models.citation import (
         gat_flash_op, gcn_backend)
     from pytorch_geometric_tpu_torch.models.entities import rgcn_fused_ops
@@ -1211,6 +1330,9 @@ def logits_of(config, model, device=DEVICE, backend=None):
     g = graph.to(device)
     m = model.to(device)
     with torch.no_grad():
+        if kind == "suite":
+            return m(g, g.x, **(m.operators(g) if g.device.type == "cuda"
+                                else {}))
         if kind == "rgcn":
             return m(g, fused_ops=rgcn_fused_ops(g, ds.num_relations))
         if kind == "gat":
@@ -1227,10 +1349,18 @@ def epoch_step_of(config):
     from pytorch_geometric_tpu_torch.models.entities import (
         RGCN, create_rgcn_train_step)
 
+    from pytorch_geometric_tpu_torch.examples import citation_suite
+
     kind, backend, graph_name, _, _ = CONFIGS[config]
     ds, graph, _ = load(graph_name)
     init = torch.Generator().manual_seed(SEED)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    if kind == "suite":
+        cls, hp = citation_suite.MODELS[backend]
+        model = cls(graph.num_node_features, ds.num_classes,
+                    generator=init).to(DEVICE)
+        return citation_suite.create_train_step(
+            model, graph, hp["lr"], hp["wd"], cls.operators(graph))[0], gen
     if kind == "rgcn":
         model = RGCN(graph.num_nodes, ds.num_relations, ds.num_classes,
                      generator=init).to(DEVICE)
@@ -1249,23 +1379,25 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
-def run_main_path(config, per_epoch, evaluation):
+def run_main_path(config, per_epoch, evaluation, setup=None):
     """The config's training run as a user runs it (captured, the default)
     and then the same run eager (``capture=False``), launches read over
     each. Per counted wrapper, the captured run's device launches are
     captured epoch × replays + warm-up + evaluation (its Python calls are
-    the warm-up's, the capture's and the evaluation's), and must equal
-    ``epochs × per_epoch + evaluation``, the eager run's count; every other
-    wrapper launches no time. ``(model, report, problems)``."""
+    the warm-up's, the capture's and the evaluation's), plus ``setup``
+    (a suite model's operators: SGC's propagation), and must equal
+    ``epochs × per_epoch + evaluation + setup``, the eager run's count;
+    every other wrapper launches no time. ``(model, report, problems)``."""
     from pytorch_geometric_tpu_torch.models.capture import (
         device_launches, launch_counts)
 
+    setup = setup or {}
     epochs = CONFIGS[config][3]
     names = list(launch_counts())
     expected = {n: epochs * per_epoch.get(n, 0) + evaluation.get(n, 0)
-                for n in names}
+                + setup.get(n, 0) for n in names}
     calls = {n: 2 * per_epoch.get(n, 0) + evaluation.get(n, 0)
-             for n in names}
+             + setup.get(n, 0) for n in names}
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated()
     before = launch_counts()
@@ -1273,7 +1405,9 @@ def run_main_path(config, per_epoch, evaluation):
     peak = torch.cuda.max_memory_allocated()
     counted = {n: v - before[n] for n, v in launch_counts().items()}
     stages = metrics["launches"]
-    ran = {n: device_launches(stages).get(n, 0) for n in names}
+    set_up = metrics.get("setup_launches", {})
+    ran = {n: device_launches(stages).get(n, 0) + set_up.get(n, 0)
+           for n in names}
     # the captured run's model (parameters and gradients) stays allocated
     # through the eager run: each run's own peak is counted from its start
     torch.cuda.reset_peak_memory_stats()
@@ -1285,7 +1419,8 @@ def run_main_path(config, per_epoch, evaluation):
     statement = {
         n: f"{stages['captured_epoch'].get(n, 0)} captured per epoch x "
            f"{stages['replays']} replays + {stages['warm_up'].get(n, 0)} "
-           f"warm-up + {stages['evaluation'].get(n, 0)} evaluation = {v}"
+           f"warm-up + {stages['evaluation'].get(n, 0)} evaluation"
+           + (f" + {set_up[n]} set-up" if n in set_up else "") + f" = {v}"
         for n, v in ran.items() if v}
     loss = metrics["curve"]["loss"]
     report = {"epochs": epochs, "seconds": metrics["seconds"],
@@ -1299,7 +1434,8 @@ def run_main_path(config, per_epoch, evaluation):
               **{f"eager_{k}": v for k, v in eager.items()
                  if k.endswith("_acc")},
               "launches": ran, "launch_statement": statement,
-              "launch_stages": stages, "expected_launches": expected,
+              "launch_stages": stages, "setup_launches": set_up,
+              "expected_launches": expected,
               "eager_launches": eager_counted,
               "max_memory_allocated": peak,
               "run_peak_bytes": peak - start,
@@ -1315,6 +1451,9 @@ def run_main_path(config, per_epoch, evaluation):
                    "evaluation": {n: v for n, v in evaluation.items() if v}}
     if stages != want_stages:
         problems.append(f"launches by stage {stages}, expected {want_stages}")
+    if set_up != setup or eager.get("setup_launches", {}) != setup:
+        problems.append(f"set-up launches {set_up} (eager run "
+                        f"{eager.get('setup_launches')}), expected {setup}")
     if ran != expected or counted != calls:
         problems.append(f"captured run: device launches {ran} (wrapper calls "
                         f"{counted}), expected {expected} ({calls})")
@@ -1513,6 +1652,165 @@ def phase_slice_gcn(backend, phase):
                     "logits_cuda_vs_cpu_rel_err": parity,
                     "logits_cuda_vs_cpu_tol": tol,
                     "logits_vs_packed_rel_err": packed_parity}, problems)
+
+
+def phase_slice_suite(name):
+    """examples/citation_suite.py's run of ``name`` on the card:
+    Planetoid Cora (with ``TargetIndegree`` for Spline) -> from_data ->
+    ``train_suite`` (200 epochs, captured, then eager), every feature-row
+    sum through ``spmm_csr`` or ``sorted_segment_sum``, launches as
+    ``SUITE_LAUNCHES`` states them; the accuracy gate, and the trained
+    model's logits on the card (its operators) against its plain path on
+    the CPU (1e-4)."""
+    per_epoch, evaluation, setup = SUITE_LAUNCHES[name]
+    ds, graph, _ = load(CONFIGS[name][2])
+    model, metrics, report, problems = run_main_path(name, per_epoch,
+                                                     evaluation, setup)
+    card = logits_of(name, model)
+    ref = logits_of(name, model, "cpu")
+    model.to(DEVICE)
+    parity = _rel(card.cpu(), ref)
+    _accuracy_gate(metrics, problems)
+    if not (torch.isfinite(card).all() and parity <= 1e-4):
+        problems.append(f"trained logits: card vs CPU rel err {parity}")
+    return _finish({"phase": f"slice_{name}", "model": name,
+                    "dataset": ds.name, "synthetic": ds.is_synthetic,
+                    "nodes": graph.num_nodes, "edges": graph.num_edges,
+                    "setup_seconds": metrics["setup_seconds"], **report,
+                    "logits_shape": list(ref.shape),
+                    "logits_cuda_vs_cpu_rel_err": parity}, problems)
+
+
+def _zoo_cases(f, c, gen):
+    """(name, graph, conv, its operators on a graph, input kind) of the
+    zoo phase: Part B's convs and the suite's, at Cora's width f -> c."""
+    from pytorch_geometric_tpu_torch.models.citation import gcn_spmm_operator
+    from pytorch_geometric_tpu_torch.nn import conv as tc
+    from pytorch_geometric_tpu_torch.nn.layers import Dense
+    from pytorch_geometric_tpu_torch.nn.message_passing import (
+        propagate_operators)
+
+    def mlp(i, o):
+        return torch.nn.Sequential(Dense(i, o, generator=gen),
+                                   torch.nn.ReLU(),
+                                   Dense(o, o, generator=gen))
+
+    def gcn_bound(g):
+        op, w = gcn_spmm_operator(g)
+        return {"aggregate_fn": op.bind(w)}
+
+    def segment_op(g):
+        return {"segment_op": propagate_operators(g)["segment_op"]}
+
+    none = lambda g: {}   # noqa: E731
+    return [
+        ("GraphConv", "cora", tc.GraphConv(f, c, generator=gen),
+         propagate_operators, "x"),
+        ("GINConv", "cora", tc.GINConv(mlp(f, c), eps=0.1, train_eps=True),
+         propagate_operators, "x"),
+        ("SAGEConv", "cora", tc.SAGEConv(f, c, generator=gen),
+         propagate_operators, "x"),
+        ("DenseSAGEConv", "cora", tc.DenseSAGEConv(f, c, generator=gen),
+         none, "dense"),
+        ("ChebConv", "cora", tc.ChebConv(f, c, K=3, generator=gen),
+         lambda g: {"lap_fn": tc.cheb_operator(g)}, "x"),
+        ("NNConv", "cora_spline",
+         tc.NNConv(f, c, Dense(1, f * c, generator=gen), generator=gen),
+         segment_op, "x"),
+        ("EdgeConv", "cora", tc.EdgeConv(Dense(2 * f, c, generator=gen)),
+         none, "x"),
+        ("PointConv", "cora", tc.PointConv(Dense(f + 3, c, generator=gen),
+                                           Dense(c, c, generator=gen)),
+         none, "points"),
+        ("SGConv", "cora", tc.SGConv(f, c, K=2, generator=gen), gcn_bound,
+         "x"),
+        ("AGNNConv", "cora", tc.AGNNConv(), tc.agnn_operators, "x"),
+        ("ARMAConv", "cora", tc.ARMAConv(f, c, num_stacks=3, num_layers=2,
+                                         shared_weights=True, generator=gen),
+         lambda g: {"lap_fn": tc.arma_operator(g)}, "x"),
+        ("SplineConv", "cora_spline",
+         tc.SplineConv(f, c, dim=1, kernel_size=2, generator=gen),
+         lambda g: {"spline_fns": tc.spline_operators(g, 1, 2)}, "x"),
+        ("DNAConv", "cora", tc.DNAConv(128, heads=8, groups=16,
+                                       generator=gen), tc.dna_operators,
+         "history"),
+    ]
+
+
+def _zoo_call(conv, kind, g, x, ops):
+    if kind == "dense":
+        adj = torch.zeros(g.num_nodes, g.num_nodes, device=x.device)
+        keep = g.real_edge_mask()
+        adj[g.receivers[keep].long(), g.senders[keep].long()] = 1.0
+        return conv(x, adj)
+    if kind == "points":
+        pos = torch.from_numpy(np.random.default_rng(SEED).normal(
+            size=(g.num_nodes, 3)).astype(np.float32)).to(x.device)
+        keep = g.real_edge_mask()
+        return conv(x, pos, g.senders[keep], g.receivers[keep], g.num_nodes)
+    return conv(g, x, **ops)
+
+
+def phase_zoo():
+    """Each conv of the zoo on Cora at 1433 -> 16 (AGNN keeps its width;
+    DNA on a two-layer history of 128 channels; PointConv on positions
+    drawn from the seed, over Cora's real edges; NNConv and SplineConv
+    with ``TargetIndegree``'s pseudo-coordinates): one forward and one
+    backward on the card through its operators, against its plain path on
+    the CPU from the same parameters and inputs: the output, the input's
+    gradient and the parameters' within 1e-4 (relative to the largest
+    magnitude; the parameters' to the largest of their gradients). The
+    kernel launches of each case are counted."""
+    import copy
+
+    from pytorch_geometric_tpu_torch.models.capture import launch_counts
+
+    gen = torch.Generator().manual_seed(SEED)
+    _, cora, _ = load("cora")
+    f = cora.num_node_features
+    rows, problems = [], []
+    for name, graph_name, conv, ops_of, kind in _zoo_cases(f, 16, gen):
+        g = load(graph_name)[1]
+        cpu_conv, cpu_g = copy.deepcopy(conv), g.to("cpu")
+        conv = conv.to(DEVICE)
+        x = (torch.randn(g.num_nodes, 2, 128, generator=gen)
+             if kind == "history" else cpu_g.x.clone())
+        results, ct = [], None
+        for dev, m, gg, ops_of_g in ((DEVICE, conv, g, ops_of),
+                                     ("cpu", cpu_conv, cpu_g, None)):
+            xi = x.to(dev, copy=True).requires_grad_(True)
+            ops = ops_of_g(gg) if ops_of_g is not None else {}
+            before = launch_counts()
+            out = _zoo_call(m, kind, gg, xi, ops)
+            if ct is None:
+                ct = torch.randn(out.shape, generator=gen)
+            (out * ct.to(dev)).sum().backward()
+            launched = {k: v - before[k] for k, v in launch_counts().items()
+                        if v != before[k]}
+            results.append((out.detach().cpu(), xi.grad.cpu(),
+                            {n: p.grad.cpu() for n, p in m.named_parameters()},
+                            launched))
+        (out, dx, grads, launched), (ref, ref_dx, ref_grads, _) = results
+        scale = max([float(v.abs().max()) for v in ref_grads.values()] + [0])
+        param_err = max([float((grads[n] - v).abs().max()) / max(scale, 1e-30)
+                         for n, v in ref_grads.items()] + [0.0])
+        row = {"phase": "zoo", "conv": name, "graph": graph_name,
+               "out_shape": list(out.shape), "launches": launched,
+               "out_rel_err": _rel(out, ref), "dx_rel_err": _rel(dx, ref_dx),
+               "param_grad_rel_err": param_err, "tol": 1e-4}
+        # the convs that sum feature rows ran a kernel of the port
+        sums = name not in ("DenseSAGEConv", "EdgeConv", "PointConv")
+        row["ok"] = bool(torch.isfinite(out).all()) and max(
+            row["out_rel_err"], row["dx_rel_err"], param_err) <= 1e-4 \
+            and bool(launched) == sums
+        emit(row)
+        rows.append(row)
+        if not row["ok"]:
+            problems.append(f"{name}: {row}")
+        conv.to("cpu")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return rows
 
 
 #: Epochs of the captured-against-eager check.
@@ -1718,21 +2016,19 @@ PROBE_KERNELS = {
 
 
 def kernels_line(results):
-    """Per kernel: its launches on its main path's run, its largest error
-    over the cases on that path's graph, and the times and bound of its
-    main-path case (and, for the fused GCN kernels, the unfused chain's
-    time, which stands where no library call exists)."""
-    def of(phase, prefix):
-        return {k: v for k, v in results[phase]["launches"].items()
-                if k.startswith(prefix)}
-
-    launches = {**of("slice", "spmm_csr"),
-                **of("slice_gat", "packed_gat"),
-                **of("slice_gat_dense", "flash_gat"),
-                **of("slice_gat_bsr", "bsr_gat"),
-                **of("slice_rgcn", "packed_rgcn"),
-                **of("slice_gcn_sorted", "sorted_segment_sum"),
-                **of("slice_gcn_fused", "fused_gcn")}
+    """Per kernel: its launches on the main paths' runs (``launches``,
+    the sum, and ``launches_by_path``: each slice phase's run, counts set
+    to 0 before it), its largest error over the cases on its first path's
+    graph, and the times and bound of that path's case (and, for the fused
+    GCN kernels, the unfused chain's time, which stands where no library
+    call exists)."""
+    by_path = {}    # kernel -> {main path: its launches in that run}
+    for phase, result in results.items():
+        if phase.startswith("slice"):
+            path = phase[len("slice_"):] or "gcn"
+            for k, v in result["launches"].items():
+                if v:
+                    by_path.setdefault(k, {})[path] = v
     line = []
     for name, (source, replaces, graph, keys) in KERNELS.items():
         mine = [c for c in results["kernel"]
@@ -1740,7 +2036,9 @@ def kernels_line(results):
         case = next(c for c in mine
                     if all(c[k] == v for k, v in keys.items()))
         line.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces,
+                     "launches": sum(by_path[name].values()),
+                     "launches_by_path": by_path[name],
                      "max_abs_err": max(c["max_abs_err"] for c in mine),
                      "ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
                      "bound_ms": case["bound_ms"],
@@ -1788,8 +2086,11 @@ def main():
               ("slice_gcn_fused",
                lambda: phase_slice_gcn("fused", "slice_gcn_fused")),
               ("slice_gcn_dense",
-               lambda: phase_slice_gcn("dense", "slice_gcn_dense")),
-              ("capture_check", phase_capture_check)]
+               lambda: phase_slice_gcn("dense", "slice_gcn_dense"))]
+    for name in SUITE_LAUNCHES:
+        phases.append((f"slice_{name}",
+                       functools.partial(phase_slice_suite, name)))
+    phases += [("zoo", phase_zoo), ("capture_check", phase_capture_check)]
     for config in CONFIGS:
         phases.append(("trace" if config == "gcn" else f"trace_{config}",
                        functools.partial(phase_trace, config)))

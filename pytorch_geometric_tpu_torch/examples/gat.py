@@ -11,9 +11,9 @@ captured CUDA graph.
 ``--backend`` picks the fused attention operator
 (``models/citation.py:gat_flash_op``): ``auto`` is ``packed``, as in the
 JAX script's ``make_flash_op``; ``none``, the JAX script's plain
-segment-softmax path, is refused, because no trainer of the port runs
-plain segment ops on a card. Prints the final loss and accuracies, as the
-JAX script does.
+segment-softmax path, is refused, because no trainer of the port sums
+feature rows with plain segment ops on a card. Prints the final loss and
+accuracies, as the JAX script does.
 """
 
 import argparse

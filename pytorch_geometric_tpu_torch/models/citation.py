@@ -49,7 +49,8 @@ from pytorch_geometric_tpu_torch.models.capture import (
 from pytorch_geometric_tpu_torch.nn.conv.gat_conv import (
     GATConv, gat_dense_adj, gat_edge_set)
 from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import (
-    GCNConv, gcn_norm, gcn_norm_dense)
+    GCNConv, gcn_edge_set, gcn_norm, gcn_norm_dense)
+from pytorch_geometric_tpu_torch.nn.layers import dropout
 from pytorch_geometric_tpu_torch.ops.bsr_gat import BsrFlashGat
 from pytorch_geometric_tpu_torch.ops.flash_gat import (
     MAX_NODES, FlashGatOperator)
@@ -61,18 +62,6 @@ from pytorch_geometric_tpu_torch.ops.spmm import SpmmOperator
 #: Largest padded node count of the GCN's dense backend (its (N, N) bf16
 #: adjacency), where ``bench_common.py:436`` picks it.
 GCN_DENSE_MAX_NODES = 8192
-
-
-def dropout(x, rate: float, train: bool,
-            generator: Optional[torch.Generator] = None):
-    """Inverted dropout, as ``flax.linen.Dropout``: keep with probability
-    1 - rate and scale kept entries by 1 / (1 - rate). The mask comes from
-    ``torch.rand(..., generator=generator)``."""
-    if rate == 0.0 or not train:
-        return x
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, 0.0)
 
 
 class GCN(nn.Module):
@@ -118,19 +107,6 @@ def masked_accuracy(logits, labels, mask):
     pred = logits.argmax(dim=-1)
     m = mask.to(torch.float32)
     return ((pred == labels.long()) * m).sum() / m.sum().clamp_min(1.0)
-
-
-def gcn_edge_set(graph: Graph):
-    """``(senders, receivers, weights)`` of the GCN aggregation: the
-    self-looped ``gcn_norm`` edge set with the padding edges left out.
-    They weigh 0, so no sum changes; kept, they would all land in the
-    padding node's CSR row, and a row-parallel kernel's time follows its
-    longest row. Every self loop stays, padding nodes' included."""
-    norm = gcn_norm(graph)
-    keep = torch.cat([graph.real_edge_mask(),
-                      torch.ones(graph.num_nodes, dtype=torch.bool,
-                                 device=graph.device)])
-    return norm.senders[keep], norm.receivers[keep], norm.weights[keep]
 
 
 def gcn_spmm_operator(graph: Graph) -> Tuple[SpmmOperator, torch.Tensor]:
@@ -328,7 +304,8 @@ def gat_flash_op(graph: Graph, backend: str = "packed"):
     does) and the same entries fall into fewer blocks. ``"auto"`` is
     ``"packed"``, as in ``make_flash_op``; its ``"none"`` (no fused
     operator: the plain segment-softmax path) is refused, because no
-    trainer of the port runs plain segment ops on a card."""
+    trainer of the port sums feature rows with plain segment ops on a
+    card."""
     if backend in ("auto", "packed"):
         senders, receivers = gat_edge_set(graph)
         return PackedFlashGat(senders, receivers, graph.num_nodes,

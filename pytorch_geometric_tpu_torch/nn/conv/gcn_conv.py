@@ -54,6 +54,19 @@ def gcn_norm(graph: Graph, edge_weight=None, improved: bool = False,
     return EdgeNorm(senders=senders, receivers=receivers, weights=norm)
 
 
+def gcn_edge_set(graph: Graph):
+    """``(senders, receivers, weights)`` of the GCN aggregation: the
+    self-looped ``gcn_norm`` edge set with the padding edges left out.
+    They weigh 0, so no sum changes; kept, they would all land in the
+    padding node's CSR row, and a row-parallel kernel's time follows its
+    longest row. Every self loop stays, padding nodes' included."""
+    norm = gcn_norm(graph)
+    keep = torch.cat([graph.real_edge_mask(),
+                      torch.ones(graph.num_nodes, dtype=torch.bool,
+                                 device=graph.device)])
+    return norm.senders[keep], norm.receivers[keep], norm.weights[keep]
+
+
 def gcn_norm_dense(graph: Graph, edge_weight=None, improved: bool = False,
                    dtype=torch.float32):
     """Dense normalised adjacency (N, N), ``adj[receiver, sender]``, for

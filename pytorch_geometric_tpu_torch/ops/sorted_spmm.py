@@ -11,8 +11,11 @@ kernel sums each receiver's run of messages:
    ``_run``) and sums them with :func:`sorted_segment_sum`; ``dx`` is the
    same over the transposed CSR, ``dw_e = <g[recv_e], x[s_e]>`` plain
    PyTorch, as the JAX package leaves the gathers to XLA.
-2. :class:`SortedSegmentSum` — ``op(msgs)`` for messages (E, F) in edge
-   order: ``msgs[perm]``, then the kernel; its VJP is ``g[receivers]``.
+2. :class:`SortedSegmentSum` — ``op(msgs)`` for messages (E, ...) in
+   edge order: ``msgs[perm]``, then the kernel; its VJP is
+   ``g[receivers]``. Its transpose, ``op.gather(x)``, is ``x[receivers]``
+   with the kernel as its VJP: a gather whose backward sums in a fixed
+   order.
 3. :func:`sorted_segment_sum` — the wrapper of the hand-written CUDA
    kernel ``csrc/sorted_spmm.cu``, which replaces the Pallas kernel
    ``ops/sorted_spmm.py:_scatter_kernel``. Beside it:
@@ -172,9 +175,11 @@ class _SortedApply(torch.autograd.Function):
 
 class SortedSegmentSum:
     """``out[r] = sum_{e: recv_e = r} msgs[e]`` of per-edge messages
-    (E, F) handed in edge order, differentiable: the VJP of a segment sum
-    is the cotangent gathered at the receivers. For attention-style convs
-    that build their messages on the device."""
+    (E, ...) handed in edge order, differentiable: the VJP of a segment
+    sum is the cotangent gathered at the receivers. For attention-style
+    convs that build their messages on the device; ``receivers`` may be
+    any segment ids (a conv's senders, for the backward of a gather by
+    senders: :meth:`gather`)."""
 
     def __init__(self, receivers, num_nodes, *, compute_dtype=torch.float32,
                  device="cuda"):
@@ -190,14 +195,38 @@ class SortedSegmentSum:
     def __call__(self, msgs):
         return _SegSumApply.apply(msgs, self)
 
+    def gather(self, x):
+        """``x[receivers]`` in edge order, the transpose of the segment
+        sum, differentiable: its VJP is this operator's segment sum, so
+        the backward runs the kernel, in a fixed order (torch's gather
+        backward scatters with atomics, whose order varies from run to
+        run). ``x`` (N, ...)."""
+        return _GatherApply.apply(x, self)
+
+    def _sum(self, msgs):
+        flat = msgs[self.csr.perm].reshape(msgs.shape[0], -1)
+        out = sorted_segment_sum(self.csr.row_ptr,
+                                 flat.to(self.compute_dtype))
+        return out.reshape((self.num_nodes,) + tuple(msgs.shape[1:]))
+
 
 class _SegSumApply(torch.autograd.Function):
     @staticmethod
     def forward(ctx, msgs, op):
         ctx.op, ctx.dtype = op, msgs.dtype
-        return sorted_segment_sum(op.csr.row_ptr,
-                                  msgs[op.csr.perm].to(op.compute_dtype))
+        return op._sum(msgs)
 
     @staticmethod
     def backward(ctx, g):
         return g[ctx.op.receivers].to(ctx.dtype), None
+
+
+class _GatherApply(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, op):
+        ctx.op, ctx.dtype = op, x.dtype
+        return x.index_select(0, op.receivers)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.op._sum(g).to(ctx.dtype), None

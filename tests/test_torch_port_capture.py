@@ -4,7 +4,8 @@ the port's counterpart of the JAX trainers' one-program ``lax.scan`` run.
 On the CPU: ``capture=True`` raises, ``capture=None`` is the eager run,
 and the run with the device epoch buffer and counter gives the same curve
 and parameters, bit for bit, as a plain loop of ``epoch_step`` calls
-stacked at the end, for every backend of the three trainers.
+stacked at the end, for every backend of the three trainers and every
+model of the citation suite.
 
 On the card (marker ``cuda``; these tests import no JAX, so they also run
 with ``python -m pytest --noconftest tests/test_torch_port_capture.py -m
@@ -20,14 +21,18 @@ import torch
 
 from pytorch_geometric_tpu_torch.data import Data, from_data
 from pytorch_geometric_tpu_torch.datasets import Entities
+from pytorch_geometric_tpu_torch.examples import citation_suite as suite
 from pytorch_geometric_tpu_torch.models import capture as cap
 from pytorch_geometric_tpu_torch.models import citation as tcit
 from pytorch_geometric_tpu_torch.models import entities as tent
+from pytorch_geometric_tpu_torch.transforms import TargetIndegree
 
 CLASSES = 4
-#: (trainer, backend) of every configuration the trainers take.
+#: (trainer, backend or suite model) of every configuration the trainers
+#: take.
 CONFIGS = [("gcn", b) for b in ("packed", "sorted", "fused", "dense")] + [
-    ("gat", b) for b in ("packed", "dense", "bsr")] + [("rgcn", None)]
+    ("gat", b) for b in ("packed", "dense", "bsr")] + [("rgcn", None)] + [
+    ("suite", m) for m in ("sgc", "agnn", "arma", "spline", "dna")]
 
 
 def _citation(seed=0, n=150, e=600, f=24):
@@ -40,14 +45,19 @@ def _citation(seed=0, n=150, e=600, f=24):
                 val_mask=rng.random(n) < 0.3, test_mask=rng.random(n) < 0.3)
 
 
-def _graph(kind, device, tmp_path):
+def _graph(kind, device, tmp_path, backend=None):
     if kind == "rgcn":
         return from_data(Entities(str(tmp_path), "MUTAG", scale=0.01)[0],
                          device=device)
+    if backend == "spline":
+        return from_data(TargetIndegree()(_citation()), device=device)
     return from_data(_citation(), device=device)
 
 
 def _train(kind, backend, graph, epochs, device, capture=None, seed=3):
+    if kind == "suite":
+        return suite.train_suite(backend, graph, CLASSES, epochs=epochs,
+                                 seed=seed, device=device, capture=capture)
     if kind == "gcn":
         return tcit.train_gcn(graph, CLASSES, epochs=epochs, seed=seed,
                               device=device, backend=backend,
@@ -77,6 +87,11 @@ def _loop_of_plain_steps(kind, backend, graph, epochs, seed=3):
                          generator=init).to(dev)
         step, eval_fn = tcit.create_gat_train_step(model, graph,
                                                    backend=backend)
+    elif kind == "suite":
+        cls, hp = suite.MODELS[backend]
+        model = cls(graph.num_node_features, CLASSES, generator=init).to(dev)
+        step, eval_fn = suite.create_train_step(
+            model, graph, hp["lr"], hp["wd"], cls.operators(graph))
     else:
         model = tent.RGCN(graph.num_nodes, 46, 2, generator=init).to(dev)
         step, eval_fn = tent.create_rgcn_train_step(model, graph, 46)
@@ -91,6 +106,8 @@ def _logits(kind, backend, model, graph):
     """The trained model's logits through the run's fused operators,
     dropout off."""
     with torch.no_grad():
+        if kind == "suite":
+            return model(graph, graph.x, **model.operators(graph))
         if kind == "gcn":
             agg = tcit.gcn_backend(graph, backend, 16, CLASSES)[0]
             return model(graph, graph.x, **agg)
@@ -140,11 +157,12 @@ def test_epoch_buffer_run_equals_the_plain_loop_on_the_cpu(kind, backend,
     """``capture=None`` on the CPU runs eagerly, and its device buffer and
     counter give the plain loop's curve, evaluation and parameters bit for
     bit; the metric keys are the eager run's."""
-    graph = _graph(kind, "cpu", tmp_path)
+    graph = _graph(kind, "cpu", tmp_path, backend)
     model, metrics = _train(kind, backend, graph, 4, "cpu")
     ref_model, curve, final = _loop_of_plain_steps(kind, backend, graph, 4)
     accs = sorted(final)
-    assert sorted(metrics) == sorted(["curve", "seconds"] + accs)
+    setup = ["setup_launches", "setup_seconds"] if kind == "suite" else []
+    assert sorted(metrics) == sorted(["curve", "seconds"] + accs + setup)
     for k in ("loss", "train_acc"):
         assert metrics["curve"][k].shape == (4,)
         np.testing.assert_array_equal(metrics["curve"][k], curve[k])
@@ -195,7 +213,15 @@ EAGER_LAUNCHES = {
                       "bsr_gat_bwd_col": 2}, {"bsr_gat_fwd": 2}),
     ("rgcn", None): ({"packed_rgcn_fwd": 4, "packed_rgcn_bwd": 6},
                        {"packed_rgcn_fwd": 4}),
+    ("suite", "sgc"): ({}, {}),
+    ("suite", "agnn"): ({"spmm_csr": 4, "sorted_segment_sum": 8},
+                        {"spmm_csr": 2, "sorted_segment_sum": 2}),
+    ("suite", "arma"): ({"spmm_csr": 8}, {"spmm_csr": 4}),
+    ("suite", "spline"): ({"spmm_csr": 6}, {"spmm_csr": 4}),
+    ("suite", "dna"): ({"sorted_segment_sum": 12}, {"sorted_segment_sum": 4}),
 }
+#: Launches at set-up (a suite model's operators): SGC's propagation.
+SETUP_LAUNCHES = {("suite", "sgc"): {"spmm_csr": 2}}
 
 
 @pytest.mark.cuda
@@ -206,16 +232,18 @@ def test_captured_run_matches_eager_on_card(kind, backend, cuda_device,
     curve, logits and every parameter within 1e-6 of the largest
     magnitude; the eager run counts its launches as before, the captured
     one by stage."""
-    graph = _graph(kind, cuda_device, tmp_path)
+    graph = _graph(kind, cuda_device, tmp_path, backend)
     epochs = 5
     per_epoch, evaluation = EAGER_LAUNCHES[(kind, backend)]
+    setup = SETUP_LAUNCHES.get((kind, backend), {})
     before = cap.launch_counts()
     eager_model, eager = _train(kind, backend, graph, epochs, cuda_device,
                                 capture=False)
     counted = {k: v - before[k] for k, v in cap.launch_counts().items()
                if v != before[k]}
     assert counted == {k: epochs * per_epoch.get(k, 0) + evaluation.get(k, 0)
-                       for k in set(per_epoch) | set(evaluation)}
+                       + setup.get(k, 0)
+                       for k in set(per_epoch) | set(evaluation) | set(setup)}
     assert "launches" not in eager and "capture_seconds" not in eager
     model, captured = _train(kind, backend, graph, epochs, cuda_device)
     assert captured["launches"] == {"warm_up": per_epoch,

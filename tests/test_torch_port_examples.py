@@ -1,5 +1,6 @@
 """The port's example scripts (``pytorch_geometric_tpu_torch/examples/``)
-against the reference's ``examples/gcn.py``, ``gat.py`` and ``rgcn.py``:
+against the reference's ``examples/gcn.py``, ``gat.py``, ``rgcn.py`` and
+``citation_suite.py``:
 the same flags and defaults (read from both files' syntax trees, nothing
 run), the same printed lines (the JAX script's f-strings, from its tree),
 the same fields returned, and the same graph, built by the JAX package's
@@ -18,14 +19,16 @@ from pytorch_geometric_tpu.data import from_data as j_from_data
 from pytorch_geometric_tpu.datasets import Entities as JEntities
 from pytorch_geometric_tpu.datasets import Planetoid as JPlanetoid
 from pytorch_geometric_tpu.transforms import NormalizeFeatures as JNormalize
+from pytorch_geometric_tpu.transforms import TargetIndegree as JTargetIndegree
 from pytorch_geometric_tpu.utils.reorder import (
     reorder_graph as j_reorder_graph)
-from pytorch_geometric_tpu_torch.examples import gat, gcn, rgcn
+from pytorch_geometric_tpu_torch.examples import citation_suite, gat, gcn, rgcn
 from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
 from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
 
 REPO = Path(__file__).resolve().parents[1]
-EXAMPLES = {"gcn": gcn, "gat": gat, "rgcn": rgcn}
+EXAMPLES = {"gcn": gcn, "gat": gat, "rgcn": rgcn,
+            "citation_suite": citation_suite}
 
 
 def _tree(path):
@@ -45,7 +48,8 @@ def _flags(path):
 
 def _printed_lines(path):
     """One regular expression per ``print(f"...")`` of the script's
-    ``run``: its literal text, each formatted value a number."""
+    ``run``: its literal text, each formatted value with a format spec a
+    number, each without one (a name such as the model's) a word."""
     run = next(n for n in ast.walk(_tree(path))
                if isinstance(n, ast.FunctionDef) and n.name == "run")
     patterns = []
@@ -53,7 +57,8 @@ def _printed_lines(path):
         if (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
                 and node.func.id == "print"):
             parts = [re.escape(v.value) if isinstance(v, ast.Constant)
-                     else r"-?[0-9]+(\.[0-9]+)?"
+                     else r"-?[0-9]+(\.[0-9]+)?" if v.format_spec
+                     else r"[A-Za-z0-9_]+"
                      for v in node.args[0].values]
             patterns.append(re.compile("".join(parts) + "$"))
     return patterns
@@ -92,7 +97,7 @@ def test_example_flags_and_defaults_match_the_jax_script(name):
     assert port, name
 
 
-@pytest.mark.parametrize("name", sorted(EXAMPLES))
+@pytest.mark.parametrize("name", ["gat", "gcn", "rgcn"])
 def test_example_run_prints_the_jax_scripts_lines(name, capsys):
     kwargs = {"epochs": 2, "device": "cpu"}
     out = EXAMPLES[name].run(**kwargs)
@@ -153,3 +158,49 @@ def test_gat_flash_op_auto_is_packed():
     assert isinstance(op, PackedFlashGat) and op.n == graph.num_nodes
     with pytest.raises(ValueError, match="backend must be"):
         gat_flash_op(graph, "none")
+
+
+def _model_names(path):
+    """The keys of the script's ``MODELS`` dict, from its tree."""
+    node = next(n for n in _tree(path).body if isinstance(n, ast.Assign)
+                and any(getattr(t, "id", None) == "MODELS"
+                        for t in n.targets))
+    return sorted(ast.literal_eval(k) for k in node.value.keys)
+
+
+def test_citation_suite_models_are_the_jax_scripts():
+    names = _model_names(Path(citation_suite.__file__))
+    assert names == _model_names(REPO / "examples" / "citation_suite.py")
+    assert names == sorted(citation_suite.MODELS) == \
+        ["agnn", "arma", "dna", "sgc", "spline"]
+    assert _flags(Path(citation_suite.__file__))["model"] == {
+        "choices": "sorted(MODELS)"}
+
+
+@pytest.mark.parametrize("model", ["agnn", "arma", "dna", "sgc", "spline"])
+def test_citation_suite_run_prints_the_jax_scripts_line(model, capsys):
+    out = citation_suite.run(model, epochs=2, device="cpu")
+    lines = capsys.readouterr().out.splitlines()
+    (pattern,) = _printed_lines(REPO / "examples" / "citation_suite.py")
+    assert len(lines) == 1 and pattern.match(lines[0]), lines
+    assert lines[0].startswith(f"[{model}/Cora] loss ")
+    assert sorted(out) == ["test", "train", "val"]
+    assert all(0.0 <= v <= 1.0 for v in out.values())
+
+
+@pytest.mark.parametrize("model", ["sgc", "spline"])
+def test_citation_suite_builds_the_jax_scripts_graph(model, tmp_path):
+    """Spline's graph carries ``TargetIndegree``'s pseudo-coordinates,
+    equal in both packages; the others carry no edge attributes."""
+    _, port = citation_suite.load(model, "Cora", root=tmp_path / "port",
+                                  device="cpu")
+    data = _jax_planetoid(tmp_path / "jax")[0]
+    if model == "spline":
+        data = JTargetIndegree()(data)
+    names = ["x", "senders", "receivers", "y", "node_mask", "edge_mask",
+             "train_mask", "val_mask", "test_mask"]
+    if model == "spline":
+        names.append("edge_attr")
+    else:
+        assert port.edge_attr is None
+    _same_graph(port, j_from_data(data), names)

@@ -73,7 +73,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "ops.packed_rgcn", "nn.conv.rgcn_conv", "models.entities",
                  "ops.flash_gat", "ops.bsr_gat", "utils.reorder",
                  "ops.sorted_spmm", "ops.fused_gcn", "profiling", "debug",
-                 "bounds", "datasets.graphs"):
+                 "bounds", "datasets.graphs", "nn.message_passing",
+                 "ops.sddmm", "nn.layers", "nn.conv.sg_conv",
+                 "nn.conv.agnn_conv", "nn.conv.arma_conv",
+                 "nn.conv.spline_conv", "nn.conv.dna_conv",
+                 "nn.conv.graph_conv", "nn.conv.gin_conv",
+                 "nn.conv.sage_conv", "nn.conv.cheb_conv",
+                 "nn.conv.nn_conv", "nn.conv.edge_conv",
+                 "nn.conv.point_conv", "transforms.geometry",
+                 "utils.repeat", "utils.softmax", "utils.undirected",
+                 "examples.citation_suite"):
         assert f"pytorch_geometric_tpu_torch.{name}" in report["modules"]
     assert report["bad"] == []
 
@@ -335,3 +344,13 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                          text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_citation_suite_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from pytorch_geometric_tpu_torch.examples import citation_suite
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    graph = from_data(_tiny_graph(), device="cpu")
+    for name in citation_suite.MODELS:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            citation_suite.train_suite(name, graph, 2, epochs=1)

@@ -1398,3 +1398,114 @@ def test_packed_gat_forward_designs_agree_on_card(cuda_device, H, C, rate,
     assert torch.equal(got, pd.fwd(pd.fwd_entry(lib, "shipped"), op, inputs,
                                    rate))
     assert (got[torch.from_numpy(empty)] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# The message-passing core and the citation suite's shapes
+# ---------------------------------------------------------------------------
+
+def _cora_cuda():
+    """Cora's graph, and Spline's (with ``TargetIndegree``), on the card."""
+    from pytorch_geometric_tpu_torch.examples.citation_suite import load
+
+    return load("sgc")[1], load("spline")[1]
+
+
+def _vs_plain(csr, val, x, tol):
+    got, again = spmm_csr(csr, val, x), spmm_csr(csr, val, x)
+    want = spmm_csr_plain(csr, val, x)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= tol and torch.equal(got, again), err
+
+
+@pytest.mark.cuda
+def test_spmm_csr_at_the_suites_widths_on_card(cuda_device):
+    """``spmm_csr`` at F = 1433 (SGC's propagation of Cora's features,
+    Spline's conv1) on the Cora GCN CSR and on each of Spline's
+    per-kernel-index CSRs, both directions, and at ARMA's 48 and AGNN's
+    16; fp32 1e-5 against the plain version, two launches bitwise
+    equal."""
+    from pytorch_geometric_tpu_torch.models.citation import gcn_spmm_operator
+    from pytorch_geometric_tpu_torch.nn.conv import spline_operators
+
+    graph, spline = _cora_cuda()
+    op, w = gcn_spmm_operator(graph)
+    val_f, val_b = op.route_weights(w)
+    for csr, val in ((op.fwd, val_f), (op.bwd, val_b)):
+        for f in (1433, 48, 16):
+            x = torch.randn(csr.num_cols, f, device=cuda_device)
+            _vs_plain(csr, val, x, 1e-5)
+    fns = spline_operators(spline, dim=1, kernel_size=2)
+    x = torch.randn(spline.num_nodes, 1433, device=cuda_device)
+    xc = x.cpu()
+    for fn, cpu_fn in zip(fns, spline_operators(spline.to("cpu"), dim=1,
+                                                kernel_size=2)):
+        got = fn(x)
+        torch.cuda.synchronize()
+        want = cpu_fn(xc)
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        assert err <= 1e-5, err
+
+
+@pytest.mark.cuda
+def test_sorted_segment_sum_at_dnas_shape_on_card(cuda_device):
+    """The segment sum at DNA's shape: ``dna_operators``' messages on Cora
+    (its GCN edge set), F = 128, fp32 1e-5, two launches bitwise equal;
+    and ``DNAConv`` on the card against the CPU."""
+    from pytorch_geometric_tpu_torch.nn.conv import DNAConv, dna_operators
+    from pytorch_geometric_tpu_torch.ops.sorted_spmm import (
+        sorted_segment_sum, sorted_segment_sum_plain)
+
+    graph, _ = _cora_cuda()
+    ops = dna_operators(graph)
+    rp = ops["segment_op"].csr.row_ptr
+    msgs = torch.randn(ops["norm"].receivers.shape[0], 128,
+                       device=cuda_device)
+    got, again = sorted_segment_sum(rp, msgs), sorted_segment_sum(rp, msgs)
+    want = sorted_segment_sum_plain(rp, msgs)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= 1e-5 and torch.equal(got, again), err
+    conv = DNAConv(128, heads=8, groups=16,
+                   generator=torch.Generator().manual_seed(0))
+    x_all = torch.randn(graph.num_nodes, 2, 128)
+    cpu = graph.to("cpu")
+    with torch.no_grad():
+        want = conv(cpu, x_all, **dna_operators(cpu))
+        got = conv.to(cuda_device)(graph, x_all.to(cuda_device), **ops)
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    assert err <= 1e-4, err
+
+
+@pytest.mark.cuda
+def test_propagate_on_card_needs_its_operator(cuda_device):
+    """On a CUDA tensor ``propagate`` sums through the kernels and raises
+    without an operator, rather than scatter; ``max`` runs (torch's
+    ``scatter_reduce``)."""
+    from pytorch_geometric_tpu_torch.models.capture import launch_counts
+    from pytorch_geometric_tpu_torch.nn.message_passing import (
+        propagate, propagate_operators)
+
+    graph, _ = _cora_cuda()
+    x = torch.randn(graph.num_nodes, 16, device=cuda_device)
+    for aggr in ("add", "sum", "mean"):
+        with pytest.raises(ValueError, match="needs"):
+            propagate(graph, x, aggr=aggr)
+        with pytest.raises(ValueError, match="needs"):
+            propagate(graph, x, lambda xj, xi, ea: xj * xi, aggr=aggr)
+    ops = propagate_operators(graph)
+    before = launch_counts()
+    out = propagate(graph, x, aggr="add", **ops)
+    msg = propagate(graph, x, lambda xj, xi, ea: xj * xi, aggr="mean", **ops)
+    propagate(graph, x, aggr="max")
+    after = launch_counts()
+    assert after["spmm_csr"] - before["spmm_csr"] == 1
+    assert after["sorted_segment_sum"] - before["sorted_segment_sum"] == 1
+    cpu = graph.to("cpu")
+    cops = propagate_operators(cpu)
+    for got, want in ((out, propagate(cpu, x.cpu(), aggr="add", **cops)),
+                      (msg, propagate(cpu, x.cpu(), lambda xj, xi, ea: xj
+                                      * xi, aggr="mean", **cops))):
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        assert err <= 1e-5, err
