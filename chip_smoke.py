@@ -6,14 +6,14 @@ Phases, one JSON line each:
 
 1. card      — the card's name and power limit (nvidia-smi);
 2. build     — every CUDA kernel of the port, built with nvcc from csrc/,
-               and the seven probe sources probes/packed_gat_ablate.cu,
+               and the eight probe sources probes/packed_gat_ablate.cu,
                probes/packed_gat_designs.cu, probes/packed_rgcn_ablate.cu,
                probes/bsr_gat_designs.cu, probes/flash_gat_designs.cu,
-               probes/packed_rgcn_designs.cu and
-               probes/spmm_csr_designs.cu (which include csrc/'s
-               packed_gat.cu, packed_rgcn.cu, bsr_gat.cu, flash_gat.cu
-               and spmm_csr.cu): one nvcc per source, all started
-               together;
+               probes/packed_rgcn_designs.cu, probes/spmm_csr_designs.cu
+               and probes/segment_sum_designs.cu (which include csrc/'s
+               packed_gat.cu, packed_rgcn.cu, bsr_gat.cu, flash_gat.cu,
+               spmm_csr.cu and sorted_spmm.cu): one nvcc per source, all
+               started together;
 3. kernel    — each kernel against its plain PyTorch version on the
                card, at the shapes the main paths give it, relative to
                the largest reference magnitude, with the kernel's, the
@@ -72,15 +72,17 @@ Phases, one JSON line each:
                  (16, 3) and Cora with (16, 7), dropout 0 and 0.5, fp32
                  (1e-5), against the unfused chain of spmm_csr launches
                  and torch ops; two launches bitwise equal;
-               - the citation suite's shapes: spmm_csr at F = 1433 on the
-                 Cora GCN CSR (SGC's propagation) and on Spline's two
-                 kernel-index CSRs (its conv1; and 16, both directions),
-                 and at ARMA's F = 48 and 21 on L̂'s CSR, both
-                 directions; the segment sum at AGNN's shapes (1 and 16
-                 channels by receiver, 16 by sender) and at DNA's
+               - the citation suite's shapes: spmm_csr at F = 1433, 300
+                 and 33 on the Cora GCN CSR (SGC's propagation at 1433;
+                 the other two widths of the chunk map), at 1433 on
+                 Spline's two kernel-index CSRs (its conv1; and 16, both
+                 directions), and at ARMA's F = 48 and 21 on L̂'s CSR,
+                 both directions; the segment sum at AGNN's shapes (1
+                 and 16 channels by receiver, 16 by sender) and at DNA's
                  shapes (its GCN edge set: the messages by receiver at
-                 F = 128, the last layer's key-value gradient by sender
-                 at 4 x 256); fp32 (1e-5); two launches bitwise equal;
+                 F = 128, its layers' key-value gradients by sender at
+                 1 to 4 x 256); fp32 (1e-5); two launches bitwise
+                 equal;
    probe     — the probes' libraries against the kernels that ship:
                every term-by-term ablation mode of the packed-GAT backward
                (RCM-PubMed, (8, 8), dropout 0.6) and of the packed-RGCN
@@ -103,8 +105,15 @@ Phases, one JSON line each:
                bitwise equal), and of spmm_csr
                (probes/spmm_csr_designs.cu; Cora's GCN CSR, F = 16, fp32
                x and bf16 x: 1e-6 between the designs, 1e-5 and 1e-2 to
-               the plain version); the first design of the dense-mask GAT
-               forward and backward (probes/flash_gat_designs.cu) against
+               the plain version; F = 1433, 300 and 33, fp32, and 1433
+               bf16: the chunk map and the library bitwise equal to the
+               first design); the segment sum's first design and chunk
+               map (probes/segment_sum_designs.cu) at DNA's by-sender
+               F = 1024 and 256 (fp32 and bf16) and AGNN's F = 16, and
+               the RGCN hub operator's C = 33: every design bitwise
+               equal to the first, each within 1e-5 (fp32) or 1e-2
+               (bf16) of the plain version; the first design of the
+               dense-mask GAT forward and backward (probes/flash_gat_designs.cu) against
                the library's at Cora (8, 8), dropout 0.6, within 1e-6 (D
                bitwise) and both within 1e-5 of the plain version; the
                first design of the packed-RGCN forward
@@ -232,10 +241,11 @@ def phase_build():
 
     from probes import (bsr_gat_designs, flash_gat_designs, gat_ablate,
                         packed_gat_designs, packed_rgcn_designs, rgcn_ablate,
-                        spmm_csr_designs)
+                        segment_sum_designs, spmm_csr_designs)
 
     probes = (gat_ablate, packed_gat_designs, rgcn_ablate, bsr_gat_designs,
-              flash_gat_designs, packed_rgcn_designs, spmm_csr_designs)
+              flash_gat_designs, packed_rgcn_designs, spmm_csr_designs,
+              segment_sum_designs)
     t0 = time.perf_counter()
     report = _build.build(sources=[probe.SOURCE for probe in probes])
     for name in _build.SIGNATURES:
@@ -760,13 +770,14 @@ def phase_kernel_gcn(cora, gen):
 
 def phase_kernel_suite(gen):
     """The citation suite's new shapes: ``spmm_csr`` at F = 1433 (SGC's
-    propagation of Cora's features; Spline's conv1) on the Cora GCN CSR
-    and on Spline's two kernel-index CSRs (and at conv2's 16, both
-    directions), and at ARMA's widths (3 stacks x 16 = 48, x 7 = 21) on
-    L̂'s CSR, both directions; the segment sum at AGNN's shapes (its edge
-    set by receiver at 1 and 16 channels, by sender at 16) and DNA's (its
-    GCN edge set: F = 128 by receiver, the last layer's key-value
-    gradient, 4 x 256, by sender); fp32."""
+    propagation of Cora's features; Spline's conv1), 300 and 33 (the
+    chunk map's other widths) on the Cora GCN CSR, at 1433 on Spline's
+    two kernel-index CSRs (and at conv2's 16, both directions), and at
+    ARMA's widths (3 stacks x 16 = 48, x 7 = 21) on L̂'s CSR, both
+    directions; the segment sum at AGNN's shapes (its edge set by
+    receiver at 1 and 16 channels, by sender at 16) and DNA's (its GCN
+    edge set: F = 128 by receiver, its four layers' key-value gradients,
+    1 to 4 x 256, by sender); fp32."""
     from pytorch_geometric_tpu_torch.nn.conv import (
         agnn_operators, arma_edge_set, dna_operators, spline_edge_sets)
     from pytorch_geometric_tpu_torch.ops.spmm import SpmmOperator
@@ -775,10 +786,9 @@ def phase_kernel_suite(gen):
     _, spline, _ = load("cora_spline")
     n = cora.num_node_features
     cases = []
-    for direction, (csr, val) in _csr_pairs(cora).items():
-        if direction == "fwd":
-            cases.append(check_case("cora", csr, val, direction, n, "fp32",
-                                    gen))
+    csr, val = _csr_pairs(cora)["fwd"]
+    for f in (n, 300, 33):
+        cases.append(check_case("cora", csr, val, "fwd", f, "fp32", gen))
     for k, (s, r, b) in enumerate(spline_edge_sets(spline, 1, 2)):
         op = SpmmOperator(s, r, spline.num_nodes, device=DEVICE)
         val_f, val_b = op.route_weights(b)
@@ -805,9 +815,10 @@ def phase_kernel_suite(gen):
     ops = dna_operators(cora)
     cases.append(check_sorted_case("cora_dna", ops["segment_op"].csr, "fwd",
                                    128, "fp32", gen))
-    # the last layer's key-value gradient: a history of 4 x 256 channels
-    cases.append(check_sorted_case("cora_dna", ops["sender_op"].csr, "bwd",
-                                   1024, "fp32", gen))
+    # the layers' key-value gradients: a history of 1 to 4 x 256 channels
+    for f in (256, 512, 768, 1024):
+        cases.append(check_sorted_case("cora_dna", ops["sender_op"].csr,
+                                       "bwd", f, "fp32", gen))
     return cases
 
 
@@ -1082,7 +1093,7 @@ def phase_probe():
           "expected_launches": expected})
     for design in (probe_bsr_designs(gen), probe_packed_designs(gen),
                    probe_flash_designs(gen), probe_rgcn_designs(gen),
-                   *probe_spmm_designs(gen)):
+                   *probe_spmm_designs(gen), *probe_segment_designs(gen)):
         if not design["ok"]:
             failed.append((design["kernel"], design["graph"]))
     if failed:
@@ -1143,31 +1154,74 @@ def probe_packed_designs(gen, rate=0.6):
     return case
 
 
-def probe_spmm_designs(gen, f=16):
+def probe_spmm_designs(gen):
     """The first design of ``spmm_csr`` (``probes/spmm_csr_designs.cu``)
-    against the library's on Cora's GCN CSR (the main path's forward) at
-    F = 16, fp32 and bf16 x: within 1e-6 of each other (the row map sums
-    a row's edges in another order), each within 1e-5 (fp32 x) or 1e-2
-    (bf16 x) of the plain version, and two launches of the library's
-    bitwise equal. One case a dtype; the timing table is the probe
+    against the library's on Cora's GCN CSR (the main path's forward): at
+    F = 16, fp32 and bf16 x, within 1e-6 of each other (the row map sums
+    a row's edges in another order); at the chunk map's widths, F = 1433
+    (SGC's, Spline's), 300 and 33 in fp32 and 1433 in bf16, the chunk map
+    at each K and the library bitwise equal to the first design (all sum
+    in CSR order); each design within 1e-5 (fp32 x) or 1e-2 (bf16 x) of
+    the plain version, and two launches of the library's bitwise equal.
+    One case a width and dtype; the timing table is the probe
     script's."""
     from probes import spmm_csr_designs as sd
 
     lib = sd.load()
     csr, val = _csr_pairs(cora_graph(DEVICE)[1])["fwd"]
     cases = []
-    for dtype_name in ("fp32", "bf16"):
+    for f, dtype_name in ((16, "fp32"), (16, "bf16"), (1433, "fp32"),
+                          (300, "fp32"), (33, "fp32"), (1433, "bf16")):
         x = torch.randn(csr.num_cols, f, generator=gen,
                         device=DEVICE).to(sd.DTYPES[dtype_name])
-        errors, repeat = sd.compare(lib, csr, val, x)
+        errors, same, repeat = sd.compare(lib, csr, val, x)
+        # where the row map does not take F, every design keeps CSR order
+        ordered = [d for d in same if d.startswith("chunks")
+                   or (d == "shipped" and not sd.takes_row_map(f, x))]
         case = {"phase": "probe", "kernel": "spmm_csr_designs",
                 "graph": "cora", "direction": "fwd", "F": f,
-                "x": dtype_name, "errors": errors, "bitwise_repeat": repeat,
-                "tol_designs": 1e-6, "tol": TOL[dtype_name],
-                "ok": repeat and all(
+                "x": dtype_name, "errors": errors, "bitwise_vs_first": same,
+                "bitwise_repeat": repeat, "tol_designs": 1e-6,
+                "tol": TOL[dtype_name],
+                "ok": repeat and all(same[d] for d in ordered) and all(
                     err <= (1e-6 if key == "first_vs_shipped"
                             else TOL[dtype_name])
                     for key, err in errors.items())}
+        emit(case)
+        cases.append(case)
+    return cases
+
+
+def probe_segment_designs(gen):
+    """The segment sum's first design and chunk map
+    (``probes/segment_sum_designs.cu``) against the library's at DNA's
+    key-value gradients by sender on Cora (F = 1024 and 256, fp32 and
+    bf16 messages), AGNN's F = 16 and the RGCN hub operator's C = 33
+    (a receiver of 3,013 messages): every design, the library's too,
+    bitwise equal to the first (all sum each element in CSR order in one
+    accumulator), each within 1e-5 (fp32) or 1e-2 (bf16) of the plain
+    version, and two launches of the library's bitwise equal. One case a
+    shape and dtype; the timing table is the probe script's."""
+    from probes import segment_sum_designs as gd
+
+    lib = gd.load()
+    ptrs = gd.row_ptrs(["dna", "agnn", "rgcn_hub"])
+    cases = []
+    for graph, direction, f, dtype_name in (
+            ("dna", "bwd", 1024, "fp32"), ("dna", "bwd", 1024, "bf16"),
+            ("dna", "bwd", 256, "fp32"), ("dna", "bwd", 256, "bf16"),
+            ("agnn", "bwd", 16, "fp32"), ("rgcn_hub", "fwd", 33, "fp32")):
+        rp = ptrs[graph, direction]
+        msgs = torch.randn(int(rp[-1]), f, generator=gen,
+                           device=DEVICE).to(gd.DTYPES[dtype_name])
+        errors, same, repeat = gd.compare(lib, rp, msgs)
+        case = {"phase": "probe", "kernel": "segment_sum_designs",
+                "graph": graph, "direction": direction, "F": f,
+                "msgs": dtype_name, "errors": errors,
+                "bitwise_vs_first": same, "bitwise_repeat": repeat,
+                "tol": TOL[dtype_name],
+                "ok": repeat and all(same.values()) and all(
+                    err <= TOL[dtype_name] for err in errors.values())}
         emit(case)
         cases.append(case)
     return cases
@@ -1852,7 +1906,8 @@ SPIN_CYCLES = 100_000_000
 #: Substrings of the port's kernel names on the profiler's device events.
 PORT_KERNEL_NAMES = ("spmm_csr", "gat_fwd_", "gat_bwd_", "rgcn_",
                      "flash_fwd_", "flash_bwd_", "bsr_fwd_", "bsr_bwd_",
-                     "sorted_segment_sum", "fused_gcn")
+                     "sorted_segment_sum", "segment_sum_chunks",
+                     "fused_gcn")
 
 
 def phase_trace(config="gcn", capture=False, epochs=20):

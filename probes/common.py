@@ -129,24 +129,29 @@ def variant_source(library, edits, head: str = "") -> str:
             raise ValueError(f"variant anchor found {text.count(old)} "
                              f"times: {old[:60]!r}")
         text = text.replace(old, new)
+    if not head:
+        return text
     first = re.search(r'^#include "[^"]+"\n', text, re.M)
     return text[:first.end()] + head + text[first.end():]
 
 
-def build_variants(library, variants, signatures):
+def build_variants(library, variants, signatures, extra_files=None):
     """{name: (loaded library, nvcc's register lines)} of each variant of
     the CUDA source ``library`` (name -> (edits, extra signatures, head),
     as :func:`variant_source` takes them), each built through
     ``kernels/_build.py`` from its own copy under the git-ignored
-    ``_build/variants/`` with the port's headers beside it, one nvcc per
-    copy, all started together; ``signatures`` are the library's entry
-    points."""
+    ``_build/variants/`` with the port's headers beside it (and the files
+    of ``extra_files``, name -> text, such as an edited header that a
+    variant includes instead), one nvcc per copy, all started together;
+    ``signatures`` are the library's entry points."""
     from pytorch_geometric_tpu_torch.kernels import _build
 
     out = _build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
     for header in _build.SOURCE_DIR.glob("*.cuh"):
         (out / header.name).write_text(header.read_text())
+    for name, text in (extra_files or {}).items():
+        (out / name).write_text(text)
     sources = {}
     for name, (edits, _, head) in variants.items():
         sources[name] = out / f"{Path(library).stem}_{name}.cu"

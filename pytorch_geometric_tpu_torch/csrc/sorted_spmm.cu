@@ -15,22 +15,34 @@
 // * sizeof(T)), row_ptr (4 B per row) and write out (4 B * F per row); it
 // does one add per message element, far below the card's rate. At the
 // RCM-reordered PubMed GCN CSR (24576 rows, ~113k edges, F = 16, fp32) that
-// is ~7.7 MB, ~2.3 us at 3.35 TB/s.
+// is ~7.7 MB, ~2.3 us at 3.35 TB/s; at DNA's key-value gradient on Cora
+// (3072 rows, ~13.6k messages of 1024 fp32) 68 MB, 20.4 us.
 //
-// Design:
-// - A group of G lanes owns one row. Each lane reads VEC elements of a
-//   message with one vector load (16 bytes: 4 fp32 or 8 bf16) where the
-//   width and the base allow it, else one element; G is the smallest power
-//   of two >= min(chunks, 32), chunks = ceil(F / VEC). At F = 16 fp32 a
-//   row's group is 4 lanes and one message is one 64-byte read; the rows
-//   of consecutive groups follow each other in memory, so a warp reads one
+// Designs (segment_sum.cuh holds both and says how each meets the bound):
+// - Up to 32 chunks a row (F <= 128 fp32 in 16-byte loads), the first
+//   design: a group of G lanes owns one row; at F = 16 fp32 a row's group
+//   is 4 lanes and one message is one 64-byte read, and a warp reads one
 //   contiguous stretch of messages.
-// - Sums run in CSR order, one accumulator per element, no atomics: every
-//   output row is written by one group, so two launches are bitwise equal.
-//   Rows with no messages are written as 0 (out may come from torch.empty).
+// - Past them, the chunk map: a warp per (row, 32 VEC channels), the
+//   loads of 8 messages issued together. At F = 1024 fp32 on Cora that is
+//   24.6k warps, three waves of the card, where the first design had 3072
+//   warps, each lane walking its row 8 times.
+// - Sums run in CSR order, one accumulator per element, in both designs,
+//   so the chunk map's output is bitwise equal to the first design's; no
+//   atomics, so two launches are bitwise equal. Rows with no messages are
+//   written as 0 (out may come from torch.empty).
 // - msgs is fp32 or bf16; sums and out are fp32.
-// - The kernel lives in segment_sum.cuh, which packed_rgcn.cu includes
+// - The kernels live in segment_sum.cuh, which packed_rgcn.cu includes
 //   too: the RGCN forward sums its per-edge messages with it.
+//
+// Times on an NVIDIA H100 80GB HBM3 at 700 W, warm device us per call,
+// first design -> the library, both timed in one run by
+// probes/segment_sum_designs.py (PERF.md): DNA's key-value gradients by
+// sender on Cora, fp32, F = 1024 39.5 -> 25.6 (bound 20.4;
+// torch.segment_reduce 35.2), 768 30.5 -> 19.8, 512 8.1 -> 8.0, 256 5.0
+// -> 4.4; the RGCN hub operator's receiver of 3,013 messages (C = 33)
+// 221 -> 124; the first design's widths unchanged (RCM-PubMed F = 16 3.6,
+// bound 2.7; DNA F = 128 by receiver 3.2).
 //
 // Plain C interface, bound from Python with ctypes
 // (pytorch_geometric_tpu_torch/ops/sorted_spmm.py); the launch goes on the

@@ -17,16 +17,18 @@
 // about 0.5 MB, about 0.15 us at 3.35 TB/s. In practice a row is a chain
 // of dependent loads (row_ptr -> col -> the neighbour's row -> the store),
 // each step an L2 round trip, and a call takes as long as its longest
-// chain plus the launch.
+// chain plus the launch. At wide rows (F = 1433, SGC's and Spline's
+// propagation of Cora's features) the x rows, 17.6 MB, stay in the 50 MB
+// L2, but every edge gathers a whole row from it (78 MB at Cora's GCN
+// CSR), so the gathers' L2 traffic, not device memory, sets the time.
 //
 // The first design (spmm_csr_kernel): a group of G lanes (G = 4, 8, 16 or
 // 32, the smallest power of two >= min(F, 32)) owns one row and walks its
 // edges one after another; every lane of the group loads the same col[e],
 // then its channels of x[col[e]], so a row of deg edges is deg steps of
 // the chain deep. Each lane keeps kVec accumulators, features lane,
-// lane + G, ...; wider F loops over chunks of G * kVec features. It stays
-// for the widths the row map below does not take (F over 32 channel
-// slots, such as 33 and 300) and for bf16 x over 64 channels, and
+// lane + G, ...; wider F loops over chunks of G * kVec features, walking
+// the row again for each. It stays for bf16 x of 65 to 128 channels, and
 // probes/spmm_csr_designs.py launches it at every width.
 //
 // The row map (spmm_csr_rows_kernel), after the packed-GAT backward's:
@@ -44,10 +46,31 @@
 //   (Cora), else 16 (PubMed: half the warps, each row still one step at
 //   F = 16 and 3); never below P.
 // - It runs where F takes at most 32 slots of V, except bf16 x over 64
-//   channels, which keeps the first design (see dispatch).
+//   channels (see dispatch).
 // - The entry groups' partial sums meet in a fixed tree of shuffles
 //   (row_lanes.cuh: Row<L>::sum_from), so the result is deterministic;
 //   the lanes of entry group 0 store the row.
+//
+// The chunk map (spmm_csr_chunks_kernel), past 32 slots of V:
+// - A warp owns W = 32 V K consecutive channels of one row, and a row is
+//   ceil(F / W) warps side by side: at F = 1433 (V = 1, K = 8) 6 warps a
+//   row, 18.4k on Cora, where the first design had 3072 warps, each
+//   walking its row 12 times. Lane t keeps channels (k 32 + t) V + v, so
+//   each gather of a warp reads 32 V consecutive channels (128 bytes of
+//   fp32 at V = 1) even where F is odd and the rows of x are unaligned.
+// - The row's columns and weights are loaded one an edge a lane, 32 at a
+//   time, and handed round by shuffles; each lane then issues the
+//   gathers of NB edges together (NB V K = 8 channels a lane; one edge
+//   where V K is 8 or more) and adds their products in CSR order. The
+//   warps an SM holds decide more than the loads a lane has in flight:
+//   at Cora's F = 1433 and K = 8, 32 channels a lane in flight took 39.9
+//   us, 16 took 18.3 and 8 took 15.9 (probes/chunk_map_variants.py,
+//   PERF.md).
+// - Each output element is summed over e0..e1 in CSR order in one fp32
+//   accumulator, as in the first design, so the chunk map's output is
+//   bitwise equal to the first design's.
+// - K from the design probe (chunk_k): 1 at V = 4, 2 at V = 1 up to 64
+//   channels, else 8.
 //
 // Times on an NVIDIA H100 80GB HBM3 at 700 W, warm device us per call,
 // first design -> the library, both timed in one run by
@@ -55,10 +78,15 @@
 // edges) F = 16 4.3 -> 2.2 (bound 0.15), F = 7 4.5 -> 2.0; RCM-PubMed's
 // (24,576 rows, 113k edges) F = 16 7.3 -> 4.2, F = 3 5.4 -> 3.8, F = 128
 // 13.2 -> 11.1 (bound 7.8); a receiver row of 501 edges (F = 16) 84.9 ->
-// 14.8. An empty kernel's plain launch takes 1.1-1.5 us the same way.
+// 14.8. The chunk map: Cora F = 1433 55.5 -> 16.0 (bound 10.5, cuSPARSE
+// 62.9), bf16 x 29.4 -> 12.8; a kernel-index CSR of Spline's F = 1433
+// 53.2 -> 13.3 (cuSPARSE 49.8); Cora F = 300 12.7 -> 5.7, F = 33 4.4 ->
+// 4.1. An empty kernel's plain launch takes 1.1-1.5 us the same way.
 //
-// Both designs: no atomics; every output row is written by exactly one
-// group, with sums in a fixed order, so two launches are bitwise equal.
+// Every design: no atomics; every output element is written by exactly
+// one lane, with sums in a fixed order, so two launches are bitwise equal.
+// The launch depends on the shapes and the bases' alignment only and
+// allocates nothing, so it captures in a CUDA graph.
 // Rows with no edges are written as 0, so the caller may allocate out
 // with torch.empty. x is fp32 or bf16; products and sums are fp32; out is
 // fp32. The GCN path builds its CSRs from the real edges and the self
@@ -228,12 +256,27 @@ inline bool aligned_to(const void* p, unsigned bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1u)) == 0;
 }
 
+// V of x and out at F: 4 where F is a multiple of 4, x holds four
+// elements aligned (16 bytes of fp32, 8 of bf16) and out is 16-byte
+// aligned, else 1.
+template <typename T>
+int vec_of(const T* x, const float* out, int F) {
+  return F % 4 == 0 && aligned_to(x, 4 * sizeof(T)) && aligned16(out) ? 4
+                                                                      : 1;
+}
+
 // Lanes of a row of spmm_csr_rows_kernel: 32 where the rows at 32 lanes
 // fill at most one wave of the card, else 16; never fewer than P.
 int rows_lanes(int P, int n_rows) {
   if (P > 16) return 32;
   return static_cast<long long>(n_rows) * 32 <= wave_threads() ? 32 : 16;
 }
+
+// Loads a lane an edge of the chunk map in the library, on the design
+// probe's times (probes/spmm_csr_designs.py, PERF.md): at V = 4 one (a
+// warp owns 128 channels); at V = 1 two up to 64 channels (one chunk a
+// row), else eight (256 channels a warp, two edges in flight).
+inline int chunk_k(int V, int F) { return V == 4 ? 1 : (F <= 64 ? 2 : 8); }
 
 // One launch of the row map at max(L, P) lanes a row.
 template <typename T, int L, int P, int V>
@@ -254,8 +297,7 @@ template <typename T>
 bool dispatch_rows(const int* row_ptr, const int* col, const float* val,
                    const T* x, float* out, int n_rows, int F, int L,
                    cudaStream_t stream) {
-  const bool aligned = aligned_to(x, 4 * sizeof(T)) && aligned16(out);
-  const int V = F % 4 == 0 && aligned ? 4 : 1;
+  const int V = vec_of(x, out, F);
   const int slots = (F + V - 1) / V;
   if (slots > 32) return false;
   int P = 4;
@@ -275,18 +317,141 @@ bool dispatch_rows(const int* row_ptr, const int* col, const float* val,
   return true;
 }
 
-// The library's choice: the row map where it takes F, but not for bf16 x
-// over 64 channels (P = 32 at four a lane), where it lost to the first
-// design at PubMed's shapes (probes/spmm_csr_designs.py, PERF.md); the
-// first design elsewhere.
+// The chunk map (see the head of this file): warp w owns W = 32 V K
+// consecutive channels of row w / n_chunks, from c0 = (w % n_chunks) W;
+// lane t keeps channels c0 + (k 32 + t) V + v, k < K, v < V. The row's
+// columns and weights are loaded one an edge a lane, 32 edges at a time,
+// and handed round by shuffles; a lane issues the gathers of NB edges
+// together, NB V K = 8 channels (one edge where V K is 8 or more).
+template <typename T, int V, int K>
+__global__ void __launch_bounds__(kThreads)
+spmm_csr_chunks_kernel(const int* __restrict__ row_ptr,
+                       const int* __restrict__ col,
+                       const float* __restrict__ val, const T* __restrict__ x,
+                       float* __restrict__ out, int n_rows, int F,
+                       int n_chunks) {
+  constexpr int W = 32 * V * K;  // channels a warp
+  constexpr int NB = V * K < 8 ? 8 / (V * K) : 1;
+  const long long warp =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / 32;
+  const int lane = threadIdx.x & 31;
+  const int r = static_cast<int>(warp / n_chunks);
+  if (r >= n_rows) return;  // the whole warp: r is the warp's
+  const int c0 = static_cast<int>(warp - static_cast<long long>(r) * n_chunks)
+                 * W + lane * V;
+  const int e0 = __ldg(row_ptr + r);
+  const int e1 = __ldg(row_ptr + r + 1);
+  float acc[K][V];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[k][v] = 0.f;
+  }
+  for (int e = e0; e < e1; e += 32) {
+    const int n = e1 - e < 32 ? e1 - e : 32;
+    const int my_col = lane < n ? __ldg(col + e + lane) : 0;
+    const float my_w = lane < n ? __ldg(val + e + lane) : 0.f;
+    for (int b0 = 0; b0 < n; b0 += NB) {
+      // the gathers of up to NB edges, issued together
+      float w[NB];
+      float xv[NB][K][V];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const int src = __shfl_sync(0xffffffffu, my_col, (b0 + b) & 31);
+        w[b] = __shfl_sync(0xffffffffu, my_w, (b0 + b) & 31);
+        const T* xr = x + static_cast<size_t>(src) * F;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int c = c0 + k * 32 * V;
+          if (b0 + b < n && c < F) {
+            load_x_vec<V>(xr + c, xv[b][k]);
+          } else {
+#pragma unroll
+            for (int v = 0; v < V; ++v) xv[b][k][v] = 0.f;
+          }
+        }
+      }
+      // then the products, in CSR order
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        if (b0 + b < n) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+#pragma unroll
+            for (int v = 0; v < V; ++v) acc[k][v] += w[b] * xv[b][k][v];
+          }
+        }
+      }
+    }
+  }
+  float* o = out + static_cast<size_t>(r) * F;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int c = c0 + k * 32 * V;
+    if (c < F) store_vec<V>(o + c, acc[k]);
+  }
+}
+
+// One launch of the chunk map: n_rows ceil(F / W) warps, a row's side by
+// side.
+template <typename T, int V, int K>
+void launch_chunks(const int* row_ptr, const int* col, const float* val,
+                   const T* x, float* out, int n_rows, int F,
+                   cudaStream_t stream) {
+  constexpr int W = 32 * V * K;
+  const int n_chunks = (F + W - 1) / W;
+  const long long threads = static_cast<long long>(n_rows) * n_chunks * 32;
+  spmm_csr_chunks_kernel<T, V, K>
+      <<<static_cast<int>((threads + kThreads - 1) / kThreads), kThreads, 0,
+         stream>>>(row_ptr, col, val, x, out, n_rows, F, n_chunks);
+}
+
+// The chunk map at any width, K loads a lane an edge (1, 2, 4, 8 or 16;
+// at most 16 channels a lane, so K is cut to 16 / V); K = 0: the
+// library's K, chunk_k.
+template <typename T>
+void dispatch_chunks(const int* row_ptr, const int* col, const float* val,
+                     const T* x, float* out, int n_rows, int F, int K,
+                     cudaStream_t stream) {
+  const int V = vec_of(x, out, F);
+  if (K == 0) K = chunk_k(V, F);
+  if (V == 4) {
+    if (K >= 4) {
+      launch_chunks<T, 4, 4>(row_ptr, col, val, x, out, n_rows, F, stream);
+    } else if (K == 2) {
+      launch_chunks<T, 4, 2>(row_ptr, col, val, x, out, n_rows, F, stream);
+    } else {
+      launch_chunks<T, 4, 1>(row_ptr, col, val, x, out, n_rows, F, stream);
+    }
+  } else if (K >= 16) {
+    launch_chunks<T, 1, 16>(row_ptr, col, val, x, out, n_rows, F, stream);
+  } else if (K >= 8) {
+    launch_chunks<T, 1, 8>(row_ptr, col, val, x, out, n_rows, F, stream);
+  } else if (K >= 4) {
+    launch_chunks<T, 1, 4>(row_ptr, col, val, x, out, n_rows, F, stream);
+  } else if (K == 2) {
+    launch_chunks<T, 1, 2>(row_ptr, col, val, x, out, n_rows, F, stream);
+  } else {
+    launch_chunks<T, 1, 1>(row_ptr, col, val, x, out, n_rows, F, stream);
+  }
+}
+
+// The library's choice, on the design probe's times
+// (probes/spmm_csr_designs.py, PERF.md): the row map where it takes F
+// (at most 32 slots of V), the chunk map past it; but the first design
+// for bf16 x of 65 to 128 channels, where the row map and the chunk map
+// lost to it at PubMed's F = 128.
 template <typename T>
 void dispatch(const int* row_ptr, const int* col, const float* val,
               const T* x, float* out, int n_rows, int F,
               cudaStream_t stream) {
-  const bool wide_bf16 = std::is_same<T, __nv_bfloat16>::value && F > 64;
-  if (wide_bf16 ||
-      !dispatch_rows(row_ptr, col, val, x, out, n_rows, F, 0, stream)) {
+  const bool wide_bf16 =
+      std::is_same<T, __nv_bfloat16>::value && F > 64 && F <= 128;
+  if (wide_bf16) {
     dispatch_first(row_ptr, col, val, x, out, n_rows, F, stream);
+  } else if (!dispatch_rows(row_ptr, col, val, x, out, n_rows, F, 0,
+                            stream)) {
+    dispatch_chunks(row_ptr, col, val, x, out, n_rows, F, 0, stream);
   }
 }
 
@@ -302,7 +467,7 @@ void with_x_type(void* x, int x_is_bf16, Fn&& fn) {
 
 }  // namespace
 
-// The row map where it takes F, else the first design.
+// The row map, the chunk map or the first design, by F (see dispatch).
 extern "C" int spmm_csr(void* row_ptr, void* col, void* val, void* x,
                         void* out, int n_rows, int F, int x_is_bf16,
                         void* stream) {

@@ -28,7 +28,8 @@ from pytorch_geometric_tpu_torch.datasets import graphs
 from pytorch_geometric_tpu_torch.kernels import _build
 from pytorch_geometric_tpu_torch.ops import flash_gat as fg
 from pytorch_geometric_tpu_torch.ops import packed_rgcn as pr
-from probes import flash_gat_designs, packed_rgcn_designs, rgcn_ablate
+from probes import (flash_gat_designs, packed_rgcn_designs, rgcn_ablate,
+                    segment_sum_designs)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -248,16 +249,16 @@ def test_segment_sum_header_is_shared_by_both_of_its_libraries(
         tmp_path, monkeypatch):
     """The receiver-sorted segment sum lives in ``segment_sum.cuh``, which
     the sorted GCN's source and the RGCN forward's source both include
-    (one copy of the kernel): an edit to it renames both libraries and
-    the RGCN probes' libraries, and no other."""
+    (one copy of the kernel): an edit to it renames both libraries, the
+    RGCN probes' libraries and the segment sum's design probe's, and no
+    other."""
     csrc = tmp_path / "pytorch_geometric_tpu_torch" / "csrc"
     shutil.copytree(_build.SOURCE_DIR, csrc)
     (tmp_path / "probes").mkdir()
-    probes = [tmp_path / "probes" / p.name
-              for p in (packed_rgcn_designs.SOURCE, rgcn_ablate.SOURCE,
-                        flash_gat_designs.SOURCE)]
-    for src, dst in zip((packed_rgcn_designs.SOURCE, rgcn_ablate.SOURCE,
-                         flash_gat_designs.SOURCE), probes):
+    sources = (packed_rgcn_designs.SOURCE, rgcn_ablate.SOURCE,
+               segment_sum_designs.SOURCE, flash_gat_designs.SOURCE)
+    probes = [tmp_path / "probes" / p.name for p in sources]
+    for src, dst in zip(sources, probes):
         shutil.copy(src, dst)
     monkeypatch.setattr(_build, "SOURCE_DIR", csrc)
     for name in ("sorted_spmm", "packed_rgcn"):
@@ -276,4 +277,4 @@ def test_segment_sum_header_is_shared_by_both_of_its_libraries(
     assert changed == ["packed_rgcn", "sorted_spmm"]
     after = [_build._library_of(p) for p in probes]
     assert [a != b for a, b in zip(after, probe_before)] == [True, True,
-                                                             False]
+                                                             True, False]

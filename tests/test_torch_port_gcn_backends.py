@@ -100,14 +100,19 @@ def test_sorted_spmm_bf16_matches_jax():
         np.testing.assert_allclose(got / sc, ref / sc, atol=2e-2)
 
 
-@pytest.mark.parametrize("case", ["empty_rows", "one_row"])
-def test_sorted_segment_sum_matches_jax(case):
+@pytest.mark.parametrize("case,f", [
+    pytest.param(case, f, id=case if f == 20 else f"{case}-{f}")
+    for f in (20, 257, 1024) for case in ("empty_rows", "one_row")])
+def test_sorted_segment_sum_matches_jax(case, f):
     """Rows that receive nothing give 0; a row that receives every edge
-    sums them all; the VJP gathers the cotangent at the receivers."""
+    sums them all; the VJP gathers the cotangent at the receivers. At 20
+    channels (the card's first design), 257 (odd: the chunk map at one
+    channel a load) and 1024 (the chunk map at a float4 a lane, DNA's
+    widest)."""
     rng = np.random.default_rng(3)
     r = (rng.integers(0, N - 20, E) if case == "empty_rows"
          else np.full(E, 7))
-    msgs = rng.normal(size=(E, 20)).astype(np.float32)
+    msgs = rng.normal(size=(E, f)).astype(np.float32)
     jop = JSortedSegmentSum(r, N, tile=128, rows=128)
     want = jop(jnp.asarray(msgs))
     jg = jax.grad(lambda m: jnp.sum(jop(m) ** 3))(jnp.asarray(msgs))

@@ -1312,13 +1312,15 @@ def test_spmm_csr_designs_agree_on_card(cuda_device, F, dtype, tol, offset):
     """``probes/spmm_csr_designs.py`` at every width class of the
     dispatcher (the row map at P = 4, 8, 16 and 32 lanes across the
     channels, a float4 a lane or, with x one element off its alignment,
-    one channel a lane, at 16 and at 32 lanes a row; the first design at
-    33 and 300 and for bf16 over 64), both CSR directions of a graph with
-    rows of exactly one step and one step plus one of every lane map, a
-    hub row of 280 edges, empty rows and 301 rows: the first design, the
-    library and the row map at 16 and 32 lanes each within ``tol`` of the
-    plain version, the first within 1e-6 of the library, two launches
-    bitwise equal, empty rows 0, one launch counted a call."""
+    one channel a lane, at 16 and at 32 lanes a row; the chunk map at 33
+    and 300; the first design for bf16 of 65 to 128 channels), both CSR
+    directions of a graph with rows of exactly one step and one step plus
+    one of every lane map, a hub row of 280 edges, empty rows and 301
+    rows: the first design, the library, the row map at 16 and 32 lanes
+    and the chunk map at each K each within ``tol`` of the plain version,
+    the first within 1e-6 of the library, the chunk map bitwise equal to
+    the first, two launches bitwise equal, empty rows 0, one launch
+    counted a call."""
     from probes import spmm_csr_designs as sd
 
     senders, receivers, empty = _step_edges()
@@ -1332,12 +1334,14 @@ def test_spmm_csr_designs_agree_on_card(cuda_device, F, dtype, tol, offset):
         val = w[csr.perm].contiguous()
         x = _offset(torch.randn(n, F, generator=gen,
                                 device=cuda_device).to(dtype), offset)
-        errors, repeat = sd.compare(lib, csr, val, x)
+        errors, same, repeat = sd.compare(lib, csr, val, x)
         assert repeat
         assert ("lanes16_vs_plain" in errors) == (F <= 32 or (
             F % 4 == 0 and F <= 128 and not offset))
         for key, err in errors.items():
             assert err <= (1e-6 if key == "first_vs_shipped" else tol), key
+        assert all(ok for design, ok in same.items()
+                   if design.startswith("chunks")), same
         before = spmm_csr.launches
         got = spmm_csr(csr, val, x)
         torch.cuda.synchronize()
@@ -1348,6 +1352,93 @@ def test_spmm_csr_designs_agree_on_card(cuda_device, F, dtype, tol, offset):
         if F == 16 and rows is receivers:
             lengths = csr.row_ptr[1:] - csr.row_ptr[:-1]
             assert int(lengths.max()) == 280
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("F", [33, 300, 1024, 1433])
+def test_spmm_csr_chunk_map_is_the_first_design_on_card(cuda_device, F,
+                                                        dtype, tol, offset):
+    """The chunk map of ``spmm_csr`` (a warp per row and chunk of
+    channels) at every K and the library, past the row map's 32 slots
+    (33 and 1433 at one channel a load, 300 and 1024 at four, or one
+    with x one element off its alignment; bf16 x too), both
+    CSR directions of a graph with a receiver row of 700 edges, a sender
+    of 500 and 40 empty rows: every design bitwise equal to the first
+    (each element summed over its row in CSR order), within ``tol`` of
+    the plain version, two launches bitwise equal, empty rows 0, one
+    launch counted a call."""
+    from probes import spmm_csr_designs as sd
+
+    s, r, w = _gcn_edges(loops=False)
+    n = 600
+    lib = sd.load()
+    gen = torch.Generator(device=cuda_device).manual_seed(F)
+    for rows, cols in ((r, s), (s, r)):
+        csr = build_csr(rows, cols, n).to(cuda_device)
+        val = torch.from_numpy(w).to(cuda_device)[csr.perm].contiguous()
+        x = _offset(torch.randn(n, F, generator=gen,
+                                device=cuda_device).to(dtype), offset)
+        errors, same, repeat = sd.compare(lib, csr, val, x)
+        assert repeat and same and all(same.values()), same
+        assert {f"chunks{k}" for k in sd.CHUNK_K
+                if sd.vec_of(F, x) * k <= 16} <= set(same)
+        assert all(err <= tol for key, err in errors.items()
+                   if key != "first_vs_shipped"), errors
+        assert errors["first_vs_shipped"] == 0
+        before = spmm_csr.launches
+        got = spmm_csr(csr, val, x)
+        torch.cuda.synchronize()
+        assert spmm_csr.launches - before == 1
+        assert torch.equal(got, sd.spmm(lib, "first", csr, val, x))
+        if rows is r:
+            assert (got[n - 40:] == 0).all()
+            assert int((csr.row_ptr[1:] - csr.row_ptr[:-1]).max()) >= 700
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("F", [129, 257, 1024, 1433])
+def test_sorted_segment_sum_chunk_map_is_the_first_design_on_card(
+        cuda_device, F, dtype, tol, offset):
+    """The segment sum's chunk map (a warp per row and chunk of channels)
+    at every K and the library, past the first design's 32 chunks a row
+    (129, 257 and 1433 at one element a load; 1024 at 16 bytes a load,
+    or one element with the messages one element off their alignment),
+    both CSR directions of a graph with a receiver row of 700 messages, a
+    sender of 500 and 40 empty rows: every design bitwise equal to the
+    first (each element summed over its row in CSR order, in one
+    accumulator), within ``tol`` of the plain version, two launches
+    bitwise equal, empty rows 0, one launch counted a call."""
+    from probes import segment_sum_designs as gd
+    from pytorch_geometric_tpu_torch.ops.sorted_spmm import (
+        sorted_segment_sum)
+
+    s, r, _ = _gcn_edges(loops=False)
+    n = 600
+    lib = gd.load()
+    gen = torch.Generator(device=cuda_device).manual_seed(F)
+    for rows, cols in ((r, s), (s, r)):
+        csr = build_csr(rows, cols, n).to(cuda_device)
+        msgs = _offset(torch.randn(csr.num_edges, F, generator=gen,
+                                   device=cuda_device).to(dtype), offset)
+        errors, same, repeat = gd.compare(lib, csr.row_ptr, msgs)
+        assert repeat and all(same.values()), same
+        assert set(same) == set(gd.designs(F, msgs)) - {"first"}
+        assert all(err <= tol for err in errors.values()), errors
+        before = sorted_segment_sum.launches
+        got = sorted_segment_sum(csr.row_ptr, msgs)
+        torch.cuda.synchronize()
+        assert sorted_segment_sum.launches - before == 1
+        assert torch.equal(got, gd.segment_sum(lib, "first", csr.row_ptr,
+                                               msgs))
+        if rows is r:
+            assert (got[n - 40:] == 0).all()
+            assert int((csr.row_ptr[1:] - csr.row_ptr[:-1]).max()) >= 700
 
 
 @pytest.mark.cuda

@@ -32,6 +32,7 @@ from pytorch_geometric_tpu_torch.kernels import _build
 from probes import (bsr_gat_designs, bsr_gat_variants, flash_gat_designs,
                     gat_ablate, packed_gat_designs, packed_gat_variants,
                     packed_rgcn_designs, rgcn_ablate, rgcn_pipe_probe,
+                    chunk_map_variants, segment_sum_designs,
                     spmm_csr_designs)
 
 REPO = Path(__file__).resolve().parents[1]
@@ -39,7 +40,8 @@ SCRIPTS = ["gat_ablate.py", "rgcn_ablate.py", "rgcn_pipe_probe.py",
            "fused_gcn_designs.py", "bsr_gat_designs.py",
            "bsr_gat_variants.py", "packed_gat_designs.py",
            "packed_gat_variants.py", "flash_gat_designs.py",
-           "packed_rgcn_designs.py", "spmm_csr_designs.py"]
+           "packed_rgcn_designs.py", "spmm_csr_designs.py",
+           "segment_sum_designs.py", "chunk_map_variants.py"]
 
 
 def _jax_mutag_rcm(root, scale):
@@ -215,7 +217,9 @@ def test_each_probe_exits_nonzero_without_a_card(script):
     (packed_gat_variants, ["--variants", "edges2,edges3"]),
     (flash_gat_designs, ["--cases", "cora,pubmed"]),
     (packed_rgcn_designs, ["--cases", "conv1,conv3"]),
-    (spmm_csr_designs, ["--cases", "cora,citeseer"])])
+    (spmm_csr_designs, ["--cases", "cora,citeseer"]),
+    (segment_sum_designs, ["--cases", "dna,gcn"]),
+    (chunk_map_variants, ["--variants", "spmm_edges4,spmm_edges9"])])
 def test_probes_refuse_unknown_modes_orders_and_depths(probe, argv, capsys):
     with pytest.raises(SystemExit) as exc:
         probe.main(argv)
@@ -341,48 +345,114 @@ def test_packed_gat_designs_times_the_library_beside_its_first_design():
 
 def test_spmm_csr_designs_times_the_library_beside_its_first_design():
     """The SpMM design probe builds through ``build_source`` from a source
-    that includes the production one (so both designs are the library's
-    own code, and the lanes variants its own row map), launches the first
-    design with the library's signature and the row map with the lanes
-    before the stream, times the launch floor, and covers Cora and
-    RCM-PubMed at F = 16, the class width and 128 and the hub graph at
-    F = 16; it times the lanes variants only where the row map takes F
-    (at most 32 slots of one channel, or of four where F is a multiple of
-    4 and x aligned)."""
+    that includes the production one (so every design is the library's
+    own code, and the lanes and chunks variants its own row map and chunk
+    map), launches the first design with the library's signature and the
+    row map with the lanes, the chunk map with K, before the stream, times
+    the launch floor and cuSPARSE, and covers Cora at F = 16, the class
+    width, 33, 128, 300 and 1433, RCM-PubMed at 16, 3 and 128, the hub
+    graph at 16 and Spline's two kernel-index CSRs at 1433; it times the
+    lanes variants only where the row map takes F (at most 32 slots of
+    one channel, or of four where F is a multiple of 4 and x aligned),
+    and the chunk map from 32 channels at each K that holds at most 16
+    channels a lane."""
     import torch
 
     source = spmm_csr_designs.SOURCE.read_text()
     text = Path(spmm_csr_designs.__file__).read_text()
     assert "build_source(SOURCE, SIGNATURES)" in text
-    assert "floor_line(" in text
+    assert "floor_line(" in text and "torch.sparse.mm(" in text
     assert '#include "../pytorch_geometric_tpu_torch/csrc/spmm_csr.cu"' \
         in source
     assert "dispatch_first(" in source and "dispatch_rows(" in source
+    assert "dispatch_chunks(" in source
     library = (_build.SOURCE_DIR / "spmm_csr.cu").read_text()
     assert "spmm_csr_kernel<T, G><<<" in library
     assert "spmm_csr_rows_kernel<T, kL, P, V>" in library
+    assert "spmm_csr_chunks_kernel<T, V, K>" in library
     assert [p.name for p in _build._included(spmm_csr_designs.SOURCE)] \
         == ["spmm_csr_designs.cu", "spmm_csr.cu", "row_lanes.cuh"]
     sig = _build.SIGNATURES["spmm_csr"]["spmm_csr"]
     assert spmm_csr_designs.SIGNATURES["first_spmm_csr"] == sig
-    lanes = spmm_csr_designs.SIGNATURES["lanes_spmm_csr"]
-    assert lanes[1] == sig[1][:-1] + [sig[1][-2], sig[1][-1]]
+    for entry in ("lanes_spmm_csr", "chunks_spmm_csr"):
+        extra = spmm_csr_designs.SIGNATURES[entry]
+        assert extra[1] == sig[1][:-1] + [sig[1][-2], sig[1][-1]]
     assert set(spmm_csr_designs.CASES) == {
-        ("cora", 16), ("cora", 7), ("cora", 128), ("pubmed_rcm", 16),
-        ("pubmed_rcm", 3), ("pubmed_rcm", 128), ("hub", 16)}
+        ("cora", 16), ("cora", 7), ("cora", 128), ("cora", 33),
+        ("cora", 300), ("cora", 1433), ("pubmed_rcm", 16),
+        ("pubmed_rcm", 3), ("pubmed_rcm", 128), ("hub", 16),
+        ("spline_k0", 1433), ("spline_k1", 1433)}
     assert spmm_csr_designs.LANES == (16, 32)
-    x = torch.zeros(8, 129)
-    for f, aligned, takes in ((16, True, True), (128, True, True),
-                              (33, True, False), (32, True, True),
-                              (32, False, True), (36, False, False),
-                              (128, False, False)):
+    assert spmm_csr_designs.CHUNK_K == (1, 2, 4, 8, 16)
+    x = torch.zeros(8, 1434)
+    for f, aligned, takes, chunks in (
+            (16, True, True, ()), (128, True, True, (1, 2, 4)),
+            (33, True, False, (1, 2, 4, 8, 16)),
+            (32, True, True, (1, 2, 4)),
+            (32, False, True, (1, 2, 4, 8, 16)),
+            (36, False, False, (1, 2, 4, 8, 16)),
+            (128, False, False, (1, 2, 4, 8, 16)),
+            (1433, True, False, (1, 2, 4, 8, 16)),
+            (300, True, False, (1, 2, 4))):
         xf = x.view(-1)[(0 if aligned else 1):][:8 * f].view(8, f)
         assert spmm_csr_designs.takes_row_map(f, xf) == takes, (f, aligned)
         names = spmm_csr_designs.designs(f, xf)
         assert names[:2] == ("first", "shipped")
-        assert (names[2:] == ("lanes16", "lanes32")) == takes
+        lanes = ("lanes16", "lanes32") if takes else ()
+        assert names[2:] == lanes + tuple(f"chunks{k}" for k in chunks), \
+            (f, aligned)
     with pytest.raises(ValueError, match="unknown design"):
         spmm_csr_designs.spmm(None, "rows", None, None, x)
+
+
+def test_segment_sum_designs_times_the_library_beside_its_first_design():
+    """The segment-sum design probe builds through ``build_source`` from a
+    source that includes the sorted GCN's (so both designs are the shared
+    header's own code), launches the first design with the library's
+    signature and the chunk map with K before the stream, times the
+    launch floor and ``torch.segment_reduce``, and covers the sorted GCN's
+    RCM-PubMed CSRs at F = 16 and 3, the RGCN message sums at C = 16, 2
+    and the hub operator's 33, AGNN's F = 1 and 16 and DNA's 128 by
+    receiver and 256 to 1024 by sender; it times the chunk map at each K
+    that holds at most 8 elements a lane."""
+    import torch
+
+    source = segment_sum_designs.SOURCE.read_text()
+    text = Path(segment_sum_designs.__file__).read_text()
+    assert "build_source(SOURCE, SIGNATURES)" in text
+    assert "floor_line(" in text and "torch.segment_reduce(" in text
+    assert '#include "../pytorch_geometric_tpu_torch/csrc/sorted_spmm.cu"' \
+        in source
+    assert "segment_sum::launch_design(" in source
+    header = (_build.SOURCE_DIR / "segment_sum.cuh").read_text()
+    assert "sorted_segment_sum_kernel<T, VEC, G>" in header
+    assert "segment_sum_chunks_kernel<T, VEC, K>" in header
+    assert [p.name for p in _build._included(segment_sum_designs.SOURCE)] \
+        == ["segment_sum_designs.cu", "sorted_spmm.cu", "segment_sum.cuh"]
+    sig = _build.SIGNATURES["sorted_spmm"]["sorted_segment_sum"]
+    assert segment_sum_designs.SIGNATURES["first_segment_sum"] == sig
+    chunks = segment_sum_designs.SIGNATURES["chunks_segment_sum"]
+    assert chunks[1] == sig[1][:-1] + [sig[1][-2], sig[1][-1]]
+    assert set(segment_sum_designs.CASES) == {
+        ("pubmed_rcm", "fwd", 16), ("pubmed_rcm", "bwd", 16),
+        ("pubmed_rcm", "fwd", 3), ("pubmed_rcm", "bwd", 3),
+        ("mutag", "fwd", 16), ("mutag", "fwd", 2), ("rgcn_hub", "fwd", 33),
+        ("agnn", "fwd", 1), ("agnn", "fwd", 16), ("agnn", "bwd", 16),
+        ("dna", "fwd", 128), ("dna", "bwd", 256), ("dna", "bwd", 512),
+        ("dna", "bwd", 768), ("dna", "bwd", 1024)}
+    m = torch.zeros(8 * 1025)
+    for f, dtype, offset, vec, ks in (
+            (1024, torch.float32, 0, 4, (1, 2)),
+            (1024, torch.float32, 1, 1, (1, 2, 4)),
+            (1024, torch.bfloat16, 0, 8, (1,)),
+            (33, torch.float32, 0, 1, (1, 2, 4)),
+            (16, torch.bfloat16, 0, 8, (1,))):
+        msgs = m.to(dtype)[offset:][:8 * f].view(8, f)
+        assert segment_sum_designs.vec_of(f, msgs) == vec, (f, dtype)
+        assert segment_sum_designs.designs(f, msgs) == ("first", "shipped") \
+            + tuple(f"chunks{k}" for k in ks)
+    with pytest.raises(ValueError, match="unknown design"):
+        segment_sum_designs.segment_sum(None, "chunks8", None, m[:8, None])
 
 
 def test_gat_hub_edges_hold_their_hubs_and_loops():
@@ -485,6 +555,34 @@ def test_each_packed_gat_variant_edits_the_source_once(variant):
     assert packed_gat_variants.variant_source(edits) != source
 
 
+@pytest.mark.parametrize("variant", sorted(chunk_map_variants.VARIANTS))
+def test_each_chunk_map_variant_edits_its_kernel_once(variant):
+    """Every variant of ``probes/chunk_map_variants.py`` changes one choice
+    of the current chunk map of ``csrc/spmm_csr.cu`` (``spmm_*``) or of
+    ``csrc/segment_sum.cuh`` (``seg_*``): each of its anchors occurs
+    exactly once in the kernel's source, the edit changes it, and the
+    variant keeps its library's entry point and the design probes'
+    cases."""
+    kernel = chunk_map_variants.kernel_of(variant)
+    library, edited = chunk_map_variants.SOURCES[kernel]
+    _, edits = chunk_map_variants.VARIANTS[variant]
+    source = edited.read_text()
+    chunk_map = source[source.index("// The chunk map (see the head") - 200:]
+    for old, _ in edits:
+        assert source.count(old) == 1 and old in chunk_map, old
+    assert chunk_map_variants.common.variant_source(edited, edits) != source
+    assert f'#include "{edited.name}"' in library.read_text() \
+        or edited == library
+    name = chunk_map_variants.LIBRARIES[kernel]
+    assert chunk_map_variants.SIGNATURES[kernel] == _build.SIGNATURES[name]
+    probe = {"spmm": spmm_csr_designs, "seg": segment_sum_designs}[kernel]
+    for k, graph, direction, f in chunk_map_variants.CASES:
+        if k == "spmm" == kernel:
+            assert (graph, f) in probe.CASES
+        elif k == "seg" == kernel:
+            assert (graph, direction, f) in probe.CASES
+
+
 def test_packed_gat_phase_clocks_mark_every_phase_of_the_backward():
     """The phase clocks' edits apply to the current source: four reads in
     the sub-warp backward, the steps of its walk, and the entry point that
@@ -529,7 +627,7 @@ def _ctypes_kind(t):
 @pytest.mark.parametrize("module", [
     "library", "gat_ablate", "rgcn_ablate", "bsr_gat_designs",
     "packed_gat_designs", "flash_gat_designs", "packed_rgcn_designs",
-    "spmm_csr_designs"])
+    "spmm_csr_designs", "segment_sum_designs"])
 def test_every_loader_signature_is_its_sources_entry_point(module):
     """Each ctypes signature that a loader declares (the library's per
     source, each probe's) names an ``extern "C"`` function of the source

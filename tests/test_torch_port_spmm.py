@@ -111,15 +111,17 @@ def test_spmm_csr_plain_matches_dense(direction, x_dtype):
 
 
 @pytest.mark.parametrize("compute", ["fp32", "bf16"])
-@pytest.mark.parametrize("f", [1, 3, 7, 16, 33, 128])
+@pytest.mark.parametrize("f", [1, 3, 7, 16, 33, 128, 301])
 def test_spmm_csr_wrapper_matches_jax_at_the_design_widths(f, compute):
     """``spmm_csr`` on the CPU (the plain version that the CUDA kernel is
     held to on the card) against the JAX ``SpmmOperator``'s Pallas kernel
     in interpret mode, at a width of each class of the CUDA dispatcher
     (the row map's four lanes a group at 1 and 3, eight at 7, a float4
-    a lane at 16 and 128; the first design at 33), on a graph with a row
-    of 500 edges and 40 empty rows; fp32 x in 1e-5, bf16 x in 1e-2 (the
-    JAX kernel rounds each message to bf16)."""
+    a lane at 16 and 128; the chunk map at 33 and at 301, odd and wide:
+    one channel a load, three chunks of 128 a row; bf16 x over 64
+    channels takes the first design), on a graph with a row of 500 edges
+    and 40 empty rows; fp32 x in 1e-5, bf16 x in 1e-2 (the JAX kernel
+    rounds each message to bf16)."""
     s, r, w, _, _ = _graph(20 + f)
     s = np.concatenate([s, np.arange(500) % N]).astype(np.int32)
     r = np.concatenate([r, np.full(500, 7)]).astype(np.int32)
