@@ -32,8 +32,13 @@ Phases, one JSON line each:
                  graph with a receiver of 500 senders and a sender of 400
                  receivers with (8, 8), (1, 7) and (3, 5) (the backward's
                  three dispatch branches: float4 and one-float lane maps,
-                 and the first design), attention dropout 0 and 0.6, fp32
-                 (1e-5); two launches bitwise equal;
+                 and the first design), and at examples/ppi.py's widths
+                 (4, 256) and (6, 121), which run the first designs, on
+                 one synthetic PPI train graph (3072 padded nodes, ~70k
+                 edges of the sparse path's edge set, repeated edges
+                 kept) and on the val batch of 2 graphs, attention
+                 dropout 0 and 0.6, fp32 (1e-5); two launches bitwise
+                 equal;
                - the packed-RGCN forward (two launches: the messages,
                  then the receivers' segment sum) and backward (dxB,
                  datt) at the two operators of the MUTAG-RDF slice
@@ -164,6 +169,19 @@ Phases, one JSON line each:
                2404), the
                accuracy gate, and the trained logits on the card against
                the model's plain path on the CPU (1e-4);
+   slice_ppi — examples/ppi.py's run (PPI: 20 synthetic train graphs
+               of ~2300 nodes, 50 features, 121 labels; GAT 4 x 256,
+               4 x 256 + skip, 6 x 121 mean + skip; Adam 5e-3) for 10
+               epochs, eager, every attention layer through the
+               PackedFlashGat of its batch, built once on the host and
+               reused: packed-GAT launches asserted as 10 epochs x (20
+               train batches x 3 forward + 1 val batch x 3) = 630 and
+               10 x 20 x 6 = 1200 backward; losses finite, the last
+               epoch's mean below the first's; val micro-F1 beside the
+               all-positive predictor's (not gated); wall and operator
+               build seconds, peak device memory; the logits after three
+               steps from the same parameters and batches, card against
+               the plain path on the CPU (1e-4);
    zoo       — every conv of the zoo (Part B's and the suite's) on Cora
                at 1433 -> 16, one forward and one backward through its
                operators on the card against its plain path on the CPU:
@@ -180,6 +198,8 @@ Phases, one JSON line each:
                step: device time per kernel name, device busy and idle
                share, the port's kernel launches per epoch from the device
                events;
+   trace_ppi — the same over 20 eager training steps of the PPI example
+               cycling over its train batches (9 port launches a step);
 9. trace_captured_* — the same over 20 replays of the epoch captured as
                the trainers capture it, one phase per configuration; the
                port's launches per epoch must equal the eager count.
@@ -191,6 +211,7 @@ line; so does a machine without CUDA, or a directory without the port.
 """
 
 import functools
+import itertools
 import json
 import subprocess
 import sys
@@ -216,6 +237,14 @@ RGCN_EPOCHS = 50
 TOL = {"fp32": 1e-5, "bf16": 1e-2}
 #: Attention-dropout seed of the packed-GAT kernel cases.
 GAT_SEED = 123457
+#: examples/ppi.py: its default epochs, and the (heads, channels) of
+#: conv1 and conv2, then conv3.
+PPI_EPOCHS = 10
+PPI_WIDTHS = ((4, 256), (6, 121))
+#: Packed-GAT launches of one PPI training step (a forward launch per
+#: layer; the backward's two walks per layer) and of one evaluation batch.
+PPI_STEP_LAUNCHES = {"packed_gat_fwd": 3, "packed_gat_bwd": 6}
+PPI_EVAL_LAUNCHES = {"packed_gat_fwd": 3}
 
 
 def emit(obj):
@@ -900,7 +929,9 @@ def phase_kernel():
                 for dtype_name in ("fp32", "bf16"):
                     cases.append(check_case(graph_name, csr, val, direction,
                                             f, dtype_name, gen))
-    hub = PackedFlashGat(*gat_hub_edges(), 512, device=DEVICE)
+    hub_s, hub_r = gat_hub_edges()
+    hub = PackedFlashGat(senders=hub_s, receivers=hub_r, num_nodes=512,
+                         device=DEVICE)
     for graph_name, op, heads in (
             ("cora", gat_flash_op(cora), ((8, 8), (1, 7))),
             ("pubmed", gat_flash_op(pubmed), ((8, 8),)),
@@ -924,10 +955,40 @@ def phase_kernel():
     cases += phase_kernel_bsr(cora, gen)
     cases += phase_kernel_gcn(cora, gen)
     cases += phase_kernel_suite(gen)
+    cases += phase_kernel_ppi(gen)
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} kernel case(s) disagree with the "
                              f"plain version: {bad}")
+    return cases
+
+
+def ppi_kernel_graphs():
+    """``(name, graph)`` of the PPI kernel cases: the first train graph
+    and the val batch, collated at their loaders' budgets."""
+    from pytorch_geometric_tpu_torch.data import DataLoader
+    from pytorch_geometric_tpu_torch.examples import ppi
+
+    train, val = ppi.load(SEED, device=DEVICE)
+    first = DataLoader(train.dataset, batch_size=1, device=DEVICE,
+                       num_nodes=train.num_nodes, num_edges=train.num_edges)
+    return [("ppi_train", next(iter(first))), ("ppi_val", next(iter(val)))]
+
+
+def phase_kernel_ppi(gen):
+    """The packed-GAT kernels at examples/ppi.py's widths, which take the
+    first designs: conv1 and conv2's (H, C) = (4, 256) and conv3's
+    (6, 121), on the operator of the sparse path's edge set
+    (``gat_sparse_edge_set``: repeated edges kept) of one train graph and
+    of the val batch, attention dropout 0 and 0.6."""
+    from pytorch_geometric_tpu_torch.examples.ppi import ppi_flash_op
+
+    cases = []
+    for graph_name, graph in ppi_kernel_graphs():
+        op = ppi_flash_op(graph)
+        for H, C in PPI_WIDTHS:
+            for rate in (0.0, 0.6):
+                cases += check_gat_case(graph_name, op, H, C, rate, gen)
     return cases
 
 
@@ -1735,6 +1796,120 @@ def phase_slice_suite(name):
                     "logits_cuda_vs_cpu_rel_err": parity}, problems)
 
 
+def ppi_steps_logits(device, steps=3):
+    """``(logits, model)``: a fresh ``Net`` of examples/ppi.py (from
+    ``SEED``) after ``steps`` Adam steps over the first ``steps`` batches
+    of the seeded train loader, then its logits on the first of them, all
+    on ``device`` (the CPU runs the kernels' plain versions)."""
+    from pytorch_geometric_tpu_torch.examples import ppi
+
+    train, _ = ppi.load(SEED, device=device)
+    batches = list(itertools.islice(train.indexed(), steps))
+    model = ppi.Net(generator=torch.Generator().manual_seed(SEED)).to(device)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+    ops = ppi.OperatorCache()
+    for idx, graph in batches:
+        ppi.train_step(model, opt, graph, ops(idx, graph))
+    idx, graph = batches[0]
+    with torch.no_grad():
+        return model(graph, graph.x, flash_op=ops(idx, graph)).cpu(), model
+
+
+def phase_slice_ppi():
+    """examples/ppi.py's run on the card at its full widths: PPI (20
+    synthetic train graphs of ~2300 nodes, 2 val graphs) -> DataLoader
+    (batches of 1 shuffled from SEED; the val graphs in one batch) ->
+    ``run`` for 10 epochs, eager, every attention layer through one
+    ``PackedFlashGat`` of its batch, built once on the host and reused.
+    Launches asserted as epochs x (train batches x 3 forward + 6
+    backward, val batches x 3 forward); every loss finite and the last
+    epoch's mean below the first's; val micro-F1 beside the all-positive
+    predictor's (the synthetic labels come from a fresh projection per
+    graph, so F1 is printed, not gated); wall seconds, the operators'
+    host build seconds and the peak of device memory; and the logits
+    after three steps from the same parameters and batches on the card
+    against the plain path on the CPU (1e-4)."""
+    import contextlib
+    import io
+
+    from pytorch_geometric_tpu_torch.examples import ppi
+    from pytorch_geometric_tpu_torch.models.capture import launch_counts
+
+    t0 = time.perf_counter()
+    train, val = ppi.load(SEED, device=DEVICE)
+    load_seconds = time.perf_counter() - t0
+    batches = {"train": len(train), "val": len(val)}
+    expected = {n: PPI_EPOCHS * (batches["train"]
+                                 * PPI_STEP_LAUNCHES.get(n, 0)
+                                 + batches["val"]
+                                 * PPI_EVAL_LAUNCHES.get(n, 0))
+                for n in launch_counts()}
+    statement = {
+        n: f"{PPI_EPOCHS} epochs x ({batches['train']} train batches x "
+           f"{PPI_STEP_LAUNCHES[n]} + {batches['val']} val batch x "
+           f"{PPI_EVAL_LAUNCHES.get(n, 0)}) = {expected[n]}"
+        for n in PPI_STEP_LAUNCHES}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    before = launch_counts()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        out = ppi.run(PPI_EPOCHS, SEED, DEVICE, loaders=(train, val))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: v - before[n] for n, v in launch_counts().items()}
+    ys, masks = [], []
+    for graph in val:
+        ys.append(graph.y.cpu().numpy())
+        masks.append(graph.node_mask.cpu().numpy())
+    y, mask = np.concatenate(ys), np.concatenate(masks)
+    all_positive_f1 = ppi.micro_f1(np.ones_like(y), y, mask)
+    card, card_model = ppi_steps_logits(DEVICE)
+    cpu, cpu_model = ppi_steps_logits("cpu")
+    cpu_params = dict(cpu_model.named_parameters())
+    params_err = max(_rel(p.detach().cpu(), cpu_params[n].detach())
+                     for n, p in card_model.named_parameters())
+    parity = _rel(card, cpu)
+    losses = out["step_losses"]
+    epochs = out["epoch_losses"]
+    problems = []
+    if launches != expected:
+        problems.append(f"launches {launches}, expected {expected}")
+    if not np.isfinite(losses).all():
+        problems.append("non-finite training loss")
+    if not epochs[-1] < epochs[0]:
+        problems.append(f"last epoch's mean loss {epochs[-1]} not below the "
+                        f"first's {epochs[0]}")
+    if not (torch.isfinite(card).all() and parity <= 1e-4):
+        problems.append(f"logits after 3 steps: card vs CPU rel err "
+                        f"{parity}")
+    return _finish({"phase": "slice_ppi", "dataset": "PPI",
+                    "synthetic": train.dataset.is_synthetic,
+                    "epochs": PPI_EPOCHS, "batches": batches,
+                    "train_budget": [train.num_nodes, train.num_edges],
+                    "val_budget": [val.num_nodes, val.num_edges],
+                    "seconds": out["seconds"],
+                    "ms_per_epoch": out["seconds"] / PPI_EPOCHS * 1e3,
+                    "load_seconds": load_seconds,
+                    "operators": out["operators"],
+                    "operator_setup_seconds": out["operator_seconds"],
+                    "epoch_losses": epochs,
+                    "first_loss": float(losses[0, 0]),
+                    "final_loss": float(losses[-1, -1]),
+                    "val_f1": out["f1"], "all_positive_f1": all_positive_f1,
+                    "printed": printed.getvalue().splitlines(),
+                    "launches": {n: v for n, v in launches.items() if v},
+                    "expected_launches": {n: v for n, v in expected.items()
+                                          if v},
+                    "launch_statement": statement,
+                    "max_memory_allocated": peak,
+                    "run_peak_bytes": peak - start,
+                    "logits_shape": list(cpu.shape),
+                    "logits_cuda_vs_cpu_rel_err": parity,
+                    "params_cuda_vs_cpu_rel_err": params_err}, problems)
+
+
 def _zoo_cases(f, c, gen):
     """(name, graph, conv, its operators on a graph, input kind) of the
     zoo phase: Part B's convs and the suite's, at Cora's width f -> c."""
@@ -1910,28 +2085,14 @@ PORT_KERNEL_NAMES = ("spmm_csr", "gat_fwd_", "gat_bwd_", "rgcn_",
                      "fused_gcn")
 
 
-def phase_trace(config="gcn", capture=False, epochs=20):
-    """Where an epoch's time goes: ``torch.profiler`` over ``epochs``
-    epochs of the config's training step after warm-up, eager calls or
-    (``capture``) replays of the epoch captured as the trainers capture
-    it; device busy time per kernel name against the host's wall clock,
-    and the port's kernel launches per epoch counted from the device
-    events, which must equal the config's count (the eager trace's too).
-    Launches here come after the slices' counts were read."""
+def profile_steps(run, steps):
+    """``torch.profiler`` over ``steps`` calls of ``run`` after five
+    untraced and three traced warm-up calls: the device-side events
+    (kernels, memsets, copies) summed by name, as ``[(us, name, calls)]``
+    largest first, and the host's wall-clock µs of the active window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    from pytorch_geometric_tpu_torch.models.capture import (
-        capture_epoch, warm_up)
-
-    step, gen = epoch_step_of(config)
-    dev = torch.device(DEVICE)
-    if capture:
-        warm_up(lambda: step(gen), dev)
-        graph = capture_epoch(lambda: step(gen), gen, dev)
-        run = graph.replay
-    else:
-        run = lambda: step(gen)   # noqa: E731
     for _ in range(5):
         run()
     torch.cuda.synchronize()
@@ -1943,21 +2104,21 @@ def phase_trace(config="gcn", capture=False, epochs=20):
     # window, and is left out of every count.
     warm = 3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=warm, active=epochs,
+                 schedule=schedule(wait=0, warmup=warm, active=steps,
                                    repeat=1)) as prof:
-        for i in range(warm + epochs):
+        for i in range(warm + steps):
             if i == warm:
                 torch.cuda._sleep(SPIN_CYCLES)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
             run()
-            if i in (warm - 1, warm + epochs - 1):
+            if i in (warm - 1, warm + steps - 1):
                 torch.cuda.synchronize()
-            if i == warm + epochs - 1:
+            if i == warm + steps - 1:
                 wall_us = (time.perf_counter() - t0) * 1e6
             prof.step()
-    # device-side events only (kernels, memsets, copies), not the host ops
-    # or annotations that the profiler also credits with device time
+    # device-side events only, not the host ops or annotations that the
+    # profiler also credits with device time
     per_name = {}
     for e in prof.events():
         if (e.device_type == DeviceType.CUDA
@@ -1965,8 +2126,17 @@ def phase_trace(config="gcn", capture=False, epochs=20):
                 and "spin_kernel" not in e.name):
             us, n = per_name.get(e.name, (0.0, 0))
             per_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-    kernels = [(us, name, n) for name, (us, n) in per_name.items()]
-    kernels.sort(reverse=True)
+    kernels = sorted(((us, name, n) for name, (us, n) in per_name.items()),
+                     reverse=True)
+    return kernels, wall_us
+
+
+def trace_summary(kernels, wall_us, steps, unit="epoch"):
+    """Per ``unit`` of a :func:`profile_steps` window: wall and device busy
+    ms, the device's idle share, device ops, the port's kernel launches
+    (counted from the device events) and µs by group (the port's
+    kernels, the optimizer's multi-tensor kernels, the rest), and the
+    top 16 device ops."""
     busy_us = sum(k[0] for k in kernels)
     groups = {"port_kernels": 0.0, "optimizer_multi_tensor": 0.0,
               "other": 0.0}
@@ -1979,28 +2149,82 @@ def phase_trace(config="gcn", capture=False, epochs=20):
             groups["optimizer_multi_tensor"] += us
         else:
             groups["other"] += us
+    return {f"wall_ms_per_{unit}": wall_us / steps / 1e3,
+            f"device_busy_ms_per_{unit}": busy_us / steps / 1e3,
+            "device_idle_share": (1 - busy_us / wall_us) if kernels
+            else None,
+            f"device_ops_per_{unit}": sum(k[2] for k in kernels) / steps,
+            f"port_launches_per_{unit}": port_launches / steps,
+            f"us_per_{unit}_by_group": {k: v / steps
+                                        for k, v in groups.items()},
+            "top": [{"name": n[:80], f"us_per_{unit}": us / steps,
+                     f"calls_per_{unit}": c / steps}
+                    for us, n, c in kernels[:16]]}, port_launches
+
+
+def phase_trace(config="gcn", capture=False, epochs=20):
+    """Where an epoch's time goes: ``torch.profiler`` over ``epochs``
+    epochs of the config's training step after warm-up, eager calls or
+    (``capture``) replays of the epoch captured as the trainers capture
+    it; device busy time per kernel name against the host's wall clock,
+    and the port's kernel launches per epoch counted from the device
+    events, which must equal the config's count (the eager trace's too).
+    Launches here come after the slices' counts were read."""
+    from pytorch_geometric_tpu_torch.models.capture import (
+        capture_epoch, warm_up)
+
+    step, gen = epoch_step_of(config)
+    dev = torch.device(DEVICE)
+    if capture:
+        warm_up(lambda: step(gen), dev)
+        graph = capture_epoch(lambda: step(gen), gen, dev)
+        run = graph.replay
+    else:
+        run = lambda: step(gen)   # noqa: E731
+    kernels, wall_us = profile_steps(run, epochs)
+    summary, port_launches = trace_summary(kernels, wall_us, epochs)
     want = CONFIGS[config][4]
     eager_phase = "trace" if config == "gcn" else f"trace_{config}"
     result = {"phase": f"trace_captured_{config}" if capture
               else eager_phase, "config": config, "captured": capture,
-              "epochs": epochs,
-              "wall_ms_per_epoch": wall_us / epochs / 1e3,
-              "device_busy_ms_per_epoch": busy_us / epochs / 1e3,
-              "device_idle_share": (1 - busy_us / wall_us) if kernels
-              else None,
-              "device_ops_per_epoch": sum(k[2] for k in kernels) / epochs,
-              "port_launches_per_epoch": port_launches / epochs,
-              "expected_port_launches_per_epoch": want,
-              "us_per_epoch_by_group": {k: v / epochs
-                                        for k, v in groups.items()},
-              "top": [{"name": n[:80], "us_per_epoch": us / epochs,
-                       "calls_per_epoch": c / epochs}
-                      for us, n, c in kernels[:16]]}
+              "epochs": epochs, **summary,
+              "expected_port_launches_per_epoch": want}
     emit(result)
     if port_launches != want * epochs:
         raise AssertionError(f"{config}: {port_launches / epochs} port "
                              f"kernel launches per epoch on the trace, "
                              f"expected {want}")
+    return result
+
+
+def phase_trace_ppi(steps=20):
+    """Where a PPI training step's time goes: ``torch.profiler`` over
+    ``steps`` eager steps of examples/ppi.py's ``train_step`` (a fresh
+    ``Net``, Adam) cycling over the 20 train batches, collated and their
+    operators built before the window; 9 port launches a step."""
+    from pytorch_geometric_tpu_torch.examples import ppi
+
+    train, _ = ppi.load(SEED, device=DEVICE)
+    ops = ppi.OperatorCache()
+    batches = [(graph, ops(idx, graph)) for idx, graph in train.indexed()]
+    model = ppi.Net(generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+    cycle = itertools.cycle(batches)
+
+    def run():
+        graph, op = next(cycle)
+        ppi.train_step(model, opt, graph, op)
+
+    kernels, wall_us = profile_steps(run, steps)
+    summary, port_launches = trace_summary(kernels, wall_us, steps, "step")
+    want = sum(PPI_STEP_LAUNCHES.values())
+    result = {"phase": "trace_ppi", "captured": False, "steps": steps,
+              **summary, "expected_port_launches_per_step": want}
+    emit(result)
+    if port_launches != want * steps:
+        raise AssertionError(f"ppi: {port_launches / steps} port kernel "
+                             f"launches per step on the trace, expected "
+                             f"{want}")
     return result
 
 
@@ -2101,6 +2325,13 @@ def kernels_line(results):
                      "library_ms": case["library_ms"]})
         if "unfused_chain_ms" in case:
             line[-1]["unfused_chain_ms"] = case["unfused_chain_ms"]
+        ppi = [c for c in results["kernel"]
+               if c["kernel"] == name and c["graph"].startswith("ppi_")]
+        if ppi:   # examples/ppi.py's widths, on the first designs
+            line[-1]["ppi"] = [
+                {k: c[k] for k in ("graph", "H", "C", "rate", "kernel_ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "max_abs_err")} for c in ppi]
     probe = results["probe"]
     for name, (source, replaces) in PROBE_KERNELS.items():
         case = probe["rows"][name]
@@ -2145,10 +2376,12 @@ def main():
     for name in SUITE_LAUNCHES:
         phases.append((f"slice_{name}",
                        functools.partial(phase_slice_suite, name)))
+    phases.append(("slice_ppi", phase_slice_ppi))
     phases += [("zoo", phase_zoo), ("capture_check", phase_capture_check)]
     for config in CONFIGS:
         phases.append(("trace" if config == "gcn" else f"trace_{config}",
                        functools.partial(phase_trace, config)))
+    phases.append(("trace_ppi", phase_trace_ppi))
     for config in CONFIGS:
         phases.append((f"trace_captured_{config}",
                        functools.partial(phase_trace, config, True)))

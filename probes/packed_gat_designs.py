@@ -223,9 +223,11 @@ def ops():
     from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
     from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
 
+    hub_s, hub_r = gat_hub_edges()
     return {"cora": gat_flash_op(cora_graph("cuda")[1]),
             "pubmed_rcm": gat_flash_op(pubmed_graph("cuda")[1]),
-            "hub": PackedFlashGat(*gat_hub_edges(), 512, device="cuda")}
+            "hub": PackedFlashGat(senders=hub_s, receivers=hub_r,
+                                  num_nodes=512, device="cuda")}
 
 
 def main(argv=None):

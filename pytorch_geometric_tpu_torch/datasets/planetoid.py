@@ -1,13 +1,18 @@
-"""Planetoid citation datasets: Cora / CiteSeer / PubMed.
+"""Planetoid citation datasets (Cora / CiteSeer / PubMed) and CoraFull.
 
 Counterpart of ``pytorch_geometric_tpu/datasets/planetoid.py``
-(reference: ``torch_geometric.datasets.Planetoid``). Resolution order:
+(reference: ``torch_geometric.datasets.Planetoid``; ``CoraFull``,
+ConvexPruning.py:474). Planetoid's resolution order:
 
 1. raw Planetoid files (``ind.<name>.{x,tx,allx,y,ty,ally,graph,
    test.index}``) under ``<root>/<name>/raw/``, parsed exactly as the JAX
    package parses them;
 2. otherwise the deterministic synthetic graph with the corpus's shapes
    (``datasets/synthetic.py``), flagged via ``dataset.is_synthetic``.
+
+CoraFull reads ``<root>/corafull/raw/cora_full.npz`` (the scipy CSR
+arrays of its adjacency and attributes, and its labels; nothing is
+unpickled), or else builds the synthetic graph of CoraFull's shapes.
 
 No download is attempted and nothing is written under ``root``.
 """
@@ -16,6 +21,7 @@ import os.path as osp
 import pickle
 
 import numpy as np
+import scipy.sparse as sp
 
 from pytorch_geometric_tpu_torch.data.data import Data
 from pytorch_geometric_tpu_torch.data.dataset import InMemoryDataset
@@ -110,3 +116,31 @@ def _reorder(mat, test_idx, offset):
     out = mat.copy()
     out[test_idx] = mat[offset: offset + len(test_idx)]
     return out
+
+
+class CoraFull(InMemoryDataset):
+    """CoraFull: 19,793 nodes, 8,710 features, 70 classes."""
+
+    def __init__(self, root, transform=None, pre_transform=None):
+        self.is_synthetic = False
+        super().__init__(osp.join(root, "corafull"), transform,
+                         pre_transform)
+
+    @property
+    def raw_file_names(self):
+        return ["cora_full.npz"]
+
+    def process_full(self):
+        if not osp.exists(self.raw_paths[0]):
+            self.is_synthetic = True
+            return [synthetic_citation_graph("corafull")]
+        with np.load(self.raw_paths[0]) as f:
+            adj = sp.csr_matrix((f["adj_data"], f["adj_indices"],
+                                 f["adj_indptr"]), shape=f["adj_shape"])
+            attr = sp.csr_matrix((f["attr_data"], f["attr_indices"],
+                                  f["attr_indptr"]), shape=f["attr_shape"])
+            x = np.asarray(attr.todense(), dtype=np.float32)
+            y = f["labels"].astype(np.int64)
+        coo = adj.tocoo()
+        ei = np.stack([coo.row, coo.col]).astype(np.int64)
+        return [Data(x=x, edge_index=ei, y=y)]

@@ -11,10 +11,13 @@ Class-correlated features (a planted partition) make the synthetic tasks
 learnable, so convergence behaviour is qualitatively meaningful.
 
 A copy of ``pytorch_geometric_tpu/datasets/synthetic.py`` with the same
-formula. Its seed includes ``hash(name)``, which follows
-``PYTHONHASHSEED``: the graph is the same for both packages within one
-process, but may differ from one process to the next.
+formulas, draw for draw. ``synthetic_citation_graph``'s seed includes
+``hash(name)``, which follows ``PYTHONHASHSEED``: the graph is the same
+for both packages within one process, but may differ from one process
+to the next.
 """
+
+from typing import Optional
 
 import numpy as np
 
@@ -84,3 +87,40 @@ def synthetic_citation_graph(name: str, seed: int = 0,
     return Data(x=x, edge_index=ei, y=labels.astype(np.int64),
                 train_mask=mask(train_idx), val_mask=mask(val_idx),
                 test_mask=mask(test_idx))
+
+
+def synthetic_graph_classification(num_graphs: int, avg_nodes: int,
+                                   num_features: int, num_classes: int,
+                                   seed: int = 0, edge_factor: float = 2.0,
+                                   num_node_labels: Optional[int] = None):
+    """TUDataset-style corpus: variable-size graphs, graph-level labels.
+    Label is made learnable from density + feature statistics."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for g in range(num_graphs):
+        y = int(rng.integers(0, num_classes))
+        n = max(int(rng.normal(avg_nodes, avg_nodes * 0.3)), 4)
+        e = max(int(n * edge_factor * (1.0 + 0.3 * y / num_classes)), 2)
+        src = rng.integers(0, n, size=e)
+        dst = rng.integers(0, n, size=e)
+        keep = src != dst
+        src, dst = src[keep], dst[keep]
+        ei = np.concatenate([np.stack([src, dst]), np.stack([dst, src])],
+                            axis=1)
+        key = ei[0] * n + ei[1]
+        _, first = np.unique(key, return_index=True)
+        ei = ei[:, first]
+        if num_node_labels:
+            # class-dependent label histogram: graph class y shifts the
+            # node-label distribution, so sum-pooling readouts are
+            # discriminative (keeps offline examples learnable)
+            logits = rng.normal(size=num_node_labels) \
+                + 2.0 * np.eye(num_node_labels)[y % num_node_labels]
+            p = np.exp(logits) / np.exp(logits).sum()
+            lab = rng.choice(num_node_labels, size=n, p=p)
+            x = np.eye(num_node_labels, dtype=np.float32)[lab]
+        else:
+            x = rng.normal(y * 0.5, 1.0, size=(n, num_features)) \
+                .astype(np.float32)
+        out.append(Data(x=x, edge_index=ei, y=np.int64(y)))
+    return out

@@ -308,7 +308,8 @@ def gat_flash_op(graph: Graph, backend: str = "packed"):
     card."""
     if backend in ("auto", "packed"):
         senders, receivers = gat_edge_set(graph)
-        return PackedFlashGat(senders, receivers, graph.num_nodes,
+        return PackedFlashGat(senders=senders, receivers=receivers,
+                              num_nodes=graph.num_nodes,
                               device=graph.device)
     if backend == "dense":
         if graph.num_nodes > MAX_NODES:

@@ -23,6 +23,7 @@ from pytorch_geometric_tpu_torch.nn.conv.gat_conv import (  # noqa: F401
     GATConv,
     gat_dense_adj,
     gat_edge_set,
+    gat_sparse_edge_set,
 )
 from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import (  # noqa: F401
     EdgeNorm,
@@ -60,6 +61,7 @@ __all__ = ["AGNNConv", "ARMAConv", "ChebConv", "DNAConv", "DenseSAGEConv",
            "GraphConv", "NNConv", "PointConv", "RGCNConv", "SAGEConv",
            "SGConv", "SplineConv", "agnn_edge_set", "agnn_operators",
            "arma_edge_set", "arma_operator", "cheb_operator", "dna_operators",
-           "gat_dense_adj", "gat_edge_set", "gcn_edge_set", "gcn_norm",
+           "gat_dense_adj", "gat_edge_set", "gat_sparse_edge_set",
+           "gcn_edge_set", "gcn_norm",
            "gcn_norm_dense", "rgcn_fused_op", "rgcn_norm", "sgc_precompute",
            "spline_basis", "spline_edge_sets", "spline_operators"]

@@ -60,6 +60,32 @@ def gat_edge_set(graph: Graph) -> Tuple[np.ndarray, np.ndarray]:
     return key % n, key // n
 
 
+def gat_sparse_edge_set(graph: Graph) -> Tuple[np.ndarray, np.ndarray]:
+    """``(senders, receivers)`` on the host of the sparse path's softmax
+    slots, for a fused operator (``PackedFlashGat``) that computes what
+    the sparse path computes: the real edges that are not self loops,
+    duplicates kept, and one self loop for every node, padding nodes
+    included, with receivers in the collated (receiver-sorted) order and
+    each node's loop after its real edges.
+
+    It differs from :func:`gat_edge_set` on a multigraph. The sparse path
+    (``GATConv`` without ``adj`` or ``flash_op``, as examples/ppi.py runs
+    it) gives each copy of a repeated edge a softmax slot of its own, and
+    masks out pre-existing self loops and the padding edges (self loops
+    of the padding node); ``gat_edge_set`` is the dense mask's entry list,
+    where a repeated edge is one entry. The position of an edge in this
+    list is its edge id for attention dropout."""
+    n = graph.num_nodes
+    s = graph.senders.cpu().numpy().astype(np.int64)
+    r = graph.receivers.cpu().numpy().astype(np.int64)
+    keep = graph.real_edge_mask().cpu().numpy() & (s != r)
+    loop = np.arange(n, dtype=np.int64)
+    s = np.concatenate([s[keep], loop])
+    r = np.concatenate([r[keep], loop])
+    order = np.argsort(r, kind="stable")
+    return s[order], r[order]
+
+
 def gat_dense_adj(graph: Graph, add_self_loops: bool = True) -> torch.Tensor:
     """Boolean (N, N) mask on the graph's device with ``adj[i, j]`` true
     iff there is an edge j -> i. Padding edges are left out; the self

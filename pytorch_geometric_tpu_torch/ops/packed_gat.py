@@ -16,10 +16,17 @@ Counterpart of ``pytorch_geometric_tpu/ops/packed_gat.py``
 The JAX package packs edges into (sender window, receiver window) tiles
 for the TPU's one-hot matrix products. Here the host builds two CSRs of
 one edge list: receiver-major (forward, and ``dd``) and sender-major
-(``ds`` and ``dh``). The edge list must hold unique (receiver, sender)
-pairs in receiver-major order (``nn/conv/gat_conv.py:gat_edge_set``),
-so a receiver-major CSR position is the edge id, and the sender-major
-CSR's ``perm`` gives it back.
+(``ds`` and ``dh``). As in the JAX package, the edge list comes from a
+dense mask (``adj_bool``, taken in ``np.nonzero`` order) or as
+``senders`` / ``receivers``, duplicate pairs included (each is a softmax
+slot of its own, as on the sparse path). Its receivers must not
+decrease (``gat_edge_set`` and ``gat_sparse_edge_set`` of
+``nn/conv/gat_conv.py`` give such lists): the CSR is a stable sort by
+receiver, so a receiver-major CSR position is then the edge's input
+index, which dropout hashes as the JAX operator does, and the
+sender-major CSR's ``perm`` gives it back. A list whose receivers
+decrease is refused; the kernels take no table of edge ids on the
+receiver side.
 
 :func:`packed_gat_fwd` and :func:`packed_gat_bwd` wrap the hand-written
 CUDA kernels of ``csrc/packed_gat.cu``, which replace the Pallas kernels
@@ -259,28 +266,40 @@ class PackedFlashGat:
     ``device``, shared by every layer that uses the op. Same call
     contract as the JAX operator::
 
-        op = PackedFlashGat(*gat_edge_set(graph), graph.num_nodes)
+        op = PackedFlashGat(adj_bool)                # (N, N) mask, or
+        op = PackedFlashGat(senders=s, receivers=r, num_nodes=N)
         out = op(d, s, h2d, seed, rate=0.6)          # (N, H*C) float32
         acc = op(d, s, h2d, seed, raw_out=True)      # (N, H*C + H) num‖den
 
-    ``seed`` is an int or a one-element integer tensor on the device
-    (the training path draws it there, so nothing waits on the card).
+    ``adj_bool[i, j]`` is the edge j -> i. An edge list may repeat a
+    pair; its receivers must not decrease. ``seed`` is an int or a
+    one-element integer tensor on the device (the training path draws it
+    there, so nothing waits on the card).
     """
 
-    def __init__(self, senders, receivers, num_nodes, *,
-                 negative_slope: float = 0.2, device="cuda"):
+    def __init__(self, adj_bool=None, senders=None, receivers=None,
+                 num_nodes=None, *, negative_slope: float = 0.2,
+                 device="cuda"):
         from pytorch_geometric_tpu_torch.device import resolve_device
 
         dev = resolve_device(device)
-        s = host_array(senders).astype(np.int64)
-        r = host_array(receivers).astype(np.int64)
-        n = int(num_nodes)
-        key = r * n + s
-        if s.shape != r.shape or (key.size > 1 and (np.diff(key) <= 0).any()):
-            raise ValueError("edges must be unique (receiver, sender) pairs "
-                             "in receiver-major order (see gat_edge_set): "
+        if adj_bool is not None:
+            adj = host_array(adj_bool)
+            r, s = np.nonzero(adj)     # adj[i, j]: edge j -> i
+            num_nodes = adj.shape[0]
+        elif senders is None or receivers is None or num_nodes is None:
+            raise ValueError("PackedFlashGat takes adj_bool, or senders, "
+                             "receivers and num_nodes")
+        else:
+            s = host_array(senders)
+            r = host_array(receivers)
+        s, r = s.astype(np.int64), r.astype(np.int64)
+        if s.shape != r.shape or (r.size > 1 and (np.diff(r) < 0).any()):
+            raise ValueError("the edge list's receivers must not decrease: "
                              "the receiver-major CSR position is the edge "
-                             "id that dropout hashes")
+                             "id that dropout hashes, and it is the input "
+                             "index only for such lists")
+        n = int(num_nodes)
         self.n, self.E = n, int(s.shape[0])
         self.slope = float(negative_slope)
         self.device = dev

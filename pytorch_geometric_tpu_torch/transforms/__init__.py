@@ -1,5 +1,6 @@
 """Data -> Data transforms."""
 
+from pytorch_geometric_tpu_torch.transforms.compose import Compose  # noqa: F401
 from pytorch_geometric_tpu_torch.transforms.geometry import (  # noqa: F401
     Cartesian,
     Distance,
@@ -9,6 +10,13 @@ from pytorch_geometric_tpu_torch.transforms.geometry import (  # noqa: F401
 from pytorch_geometric_tpu_torch.transforms.normalize_features import (  # noqa: F401
     NormalizeFeatures,
 )
+from pytorch_geometric_tpu_torch.transforms.structure import (  # noqa: F401
+    AddSelfLoops,
+    Constant,
+    OneHotDegree,
+    ToDense,
+)
 
-__all__ = ["Cartesian", "Distance", "NormalizeFeatures", "Polar",
-           "TargetIndegree"]
+__all__ = ["AddSelfLoops", "Cartesian", "Compose", "Constant", "Distance",
+           "NormalizeFeatures", "OneHotDegree", "Polar", "TargetIndegree",
+           "ToDense"]

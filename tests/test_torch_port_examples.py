@@ -5,9 +5,13 @@ the same flags and defaults (read from both files' syntax trees, nothing
 run), the same printed lines (the JAX script's f-strings, from its tree),
 the same fields returned, and the same graph, built by the JAX package's
 own calls in the same process (the synthetic corpora seed from the
-process's string hash, so only one process gives both the same draw)."""
+process's string hash, so only one process gives both the same draw).
+``ppi.py``'s flags and line too, and its loaders' batches against the
+JAX script's (its model is held to the JAX script's in
+``tests/test_torch_port_ppi.py``)."""
 
 import ast
+import itertools
 import re
 from pathlib import Path
 
@@ -17,18 +21,22 @@ import torch
 
 from pytorch_geometric_tpu.data import from_data as j_from_data
 from pytorch_geometric_tpu.datasets import Entities as JEntities
+from pytorch_geometric_tpu.data import DataLoader as JDataLoader
+from pytorch_geometric_tpu.datasets import PPI as JPPI
 from pytorch_geometric_tpu.datasets import Planetoid as JPlanetoid
 from pytorch_geometric_tpu.transforms import NormalizeFeatures as JNormalize
 from pytorch_geometric_tpu.transforms import TargetIndegree as JTargetIndegree
 from pytorch_geometric_tpu.utils.reorder import (
     reorder_graph as j_reorder_graph)
-from pytorch_geometric_tpu_torch.examples import citation_suite, gat, gcn, rgcn
+from pytorch_geometric_tpu_torch.data import Data, InMemoryDataset
+from pytorch_geometric_tpu_torch.examples import (
+    citation_suite, gat, gcn, ppi, rgcn)
 from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
 from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
 
 REPO = Path(__file__).resolve().parents[1]
 EXAMPLES = {"gcn": gcn, "gat": gat, "rgcn": rgcn,
-            "citation_suite": citation_suite}
+            "citation_suite": citation_suite, "ppi": ppi}
 
 
 def _tree(path):
@@ -204,3 +212,59 @@ def test_citation_suite_builds_the_jax_scripts_graph(model, tmp_path):
     else:
         assert port.edge_attr is None
     _same_graph(port, j_from_data(data), names)
+
+
+class _PPILike(InMemoryDataset):
+    """A few PPI-shaped graphs of ~40 nodes (50 features, 121 labels)."""
+
+    def __init__(self, count, seed):
+        self.count, self.seed = count, seed
+        super().__init__(None)
+
+    def process_full(self):
+        rng = np.random.default_rng(self.seed)
+        out = []
+        for _ in range(self.count):
+            n = int(rng.integers(30, 50))
+            ei = np.stack([rng.integers(0, n, 4 * n),
+                           rng.integers(0, n, 4 * n)])
+            out.append(Data(x=rng.normal(size=(n, 50)).astype(np.float32),
+                            edge_index=np.concatenate([ei, ei[::-1]], 1),
+                            y=(rng.random((n, 121)) < 0.4).astype(
+                                np.float32)))
+        return out
+
+
+def test_ppi_example_run_prints_the_jax_scripts_line(capsys):
+    from pytorch_geometric_tpu_torch.data import DataLoader
+
+    train = DataLoader(_PPILike(3, 0), batch_size=1, shuffle=True,
+                       device="cpu")
+    val = DataLoader(_PPILike(2, 1), batch_size=2, device="cpu")
+    out = ppi.run(2, loaders=(train, val), device="cpu")
+    lines = capsys.readouterr().out.splitlines()
+    (pattern,) = _printed_lines(REPO / "examples" / "ppi.py")
+    assert len(lines) == 2 and all(pattern.match(ln) for ln in lines)
+    assert [ln.split(",")[0] for ln in lines] == ["Epoch 01", "Epoch 02"]
+    assert len(out["epoch_losses"]) == 2 and 0.0 <= out["f1"] <= 1.0
+
+
+def test_ppi_example_loads_the_jax_scripts_batches(tmp_path):
+    """The port's loaders over its PPI give the JAX script's batches, in
+    its order, one epoch after the one the scripts draw to shape the
+    model: the same graphs, padded to the same budgets."""
+    train, val = ppi.load(seed=0, root=tmp_path / "port", device="cpu")
+    jtrain = JDataLoader(JPPI(str(tmp_path / "jax"), "train"), batch_size=1,
+                         shuffle=True, seed=0)
+    jval = JDataLoader(JPPI(str(tmp_path / "jax"), "val"), batch_size=2)
+    assert (train.num_nodes, train.num_edges, val.num_nodes,
+            val.num_edges) == (jtrain.num_nodes, jtrain.num_edges,
+                               jval.num_nodes, jval.num_edges) \
+        == (3072, 98304, 6144, 196608)
+    next(iter(train))
+    next(iter(jtrain))
+    got = list(itertools.islice(train, 2)) + list(val)
+    want = list(itertools.islice(jtrain, 2)) + list(jval)
+    for port, ref in zip(got, want, strict=True):
+        _same_graph(port, ref, ("x", "senders", "receivers", "y",
+                                "node_mask", "edge_mask", "batch"))

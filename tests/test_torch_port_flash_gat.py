@@ -218,7 +218,9 @@ def test_flash_gat_operator_matches_packed_operator_without_dropout(H, C):
     n = g.num_nodes
     d, s, h, proj = _node_inputs(3, n, H, C)
     dense = fg.FlashGatOperator(gat_dense_adj(g), device="cpu")
-    packed = pg.PackedFlashGat(*gat_edge_set(g), n, device="cpu")
+    senders, receivers = gat_edge_set(g)
+    packed = pg.PackedFlashGat(senders=senders, receivers=receivers,
+                               num_nodes=n, device="cpu")
     got, grads = _port_vjp(dense, d, s, h, proj, 0, 0.0)
     ts = [torch.from_numpy(a).requires_grad_() for a in (d, s, h)]
     want = packed(*ts, 0, rate=0.0)

@@ -86,7 +86,9 @@ def _node_inputs(seed, n, H, C):
 
 
 def _port_op(g):
-    return pg.PackedFlashGat(*gat_edge_set(g), g.num_nodes, device="cpu")
+    s, r = gat_edge_set(g)
+    return pg.PackedFlashGat(senders=s, receivers=r, num_nodes=g.num_nodes,
+                             device="cpu")
 
 
 def _port_vjp(op, d, s, h, proj, seed, rate, raw_out):
@@ -159,9 +161,18 @@ def test_sender_major_edge_ids_point_at_the_same_edges():
 
 
 def test_packed_flash_gat_refuses_unordered_edges():
-    with pytest.raises(ValueError, match="receiver-major"):
-        pg.PackedFlashGat(np.array([1, 0]), np.array([1, 0]), 2,
+    """Receivers that decrease are refused (the CSR position would not
+    be the input index that dropout hashes); repeated pairs are not."""
+    with pytest.raises(ValueError, match="must not decrease"):
+        pg.PackedFlashGat(senders=np.array([0, 1]),
+                          receivers=np.array([1, 0]), num_nodes=2,
                           device="cpu")
+    op = pg.PackedFlashGat(senders=np.array([1, 1, 0]),
+                           receivers=np.array([0, 0, 1]), num_nodes=2,
+                           device="cpu")
+    assert op.E == 3
+    with pytest.raises(ValueError, match="adj_bool, or senders"):
+        pg.PackedFlashGat(senders=np.array([0]), num_nodes=2, device="cpu")
 
 
 # ---------------------------------------------------------------------------

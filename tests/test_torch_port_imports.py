@@ -36,7 +36,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
-             ("jax", "jaxlib", "flax", "optax", "pytorch_geometric_tpu"))
+             ("jax", "jaxlib", "flax", "optax", "pytorch_geometric_tpu",
+              "networkx"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -63,6 +64,10 @@ def _tiny_relational_graph():
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    """Every module of the port, imported in a fresh process, loads no
+    JAX, nothing of the JAX package and no networkx (which the card's
+    machine does not have: ``utils/networkx_convert.py`` imports it
+    inside its functions)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          env=env, capture_output=True, text=True,
@@ -82,7 +87,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "nn.conv.nn_conv", "nn.conv.edge_conv",
                  "nn.conv.point_conv", "transforms.geometry",
                  "utils.repeat", "utils.softmax", "utils.undirected",
-                 "examples.citation_suite"):
+                 "examples.citation_suite", "data.dataset", "data.loader",
+                 "datasets.ppi", "datasets.tu_dataset", "datasets.synthetic",
+                 "datasets.planetoid", "transforms.compose",
+                 "transforms.structure", "utils.convert",
+                 "utils.normalized_cut", "utils.k_hop_subgraph",
+                 "utils.networkx_convert", "examples.ppi"):
         assert f"pytorch_geometric_tpu_torch.{name}" in report["modules"]
     assert report["bad"] == []
 
@@ -127,8 +137,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         SpmmOperator(graph.senders, graph.receivers, graph.num_nodes)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_gat(graph, num_classes=2, epochs=1)
+    s, r = gat_edge_set(graph)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        PackedFlashGat(*gat_edge_set(graph), graph.num_nodes)
+        PackedFlashGat(senders=s, receivers=r, num_nodes=graph.num_nodes)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_gat(graph, num_classes=2, epochs=1, backend="dense")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -151,6 +162,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         fused_gcn.FusedGcn2(graph.senders, graph.receivers, graph.num_nodes,
                             np.ones(graph.num_edges, np.float32), hidden=4,
                             classes=2)
+    from pytorch_geometric_tpu_torch.examples import ppi
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ppi.run(epochs=1)
     rel = from_data(_tiny_relational_graph(), device="cpu")
     edges = (rel.senders, rel.receivers, rel.edge_type, 3, rel.num_nodes,
              np.ones(rel.num_edges, np.float32))

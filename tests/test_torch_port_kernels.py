@@ -104,6 +104,15 @@ def _gat_edges(n=512, seed=8):
     return gat_hub_edges(n, seed)
 
 
+def _packed_op(edges, n, device):
+    """``PackedFlashGat`` over ``edges`` = (senders, receivers)."""
+    from pytorch_geometric_tpu_torch.ops import packed_gat as pg
+
+    senders, receivers = edges
+    return pg.PackedFlashGat(senders=senders, receivers=receivers,
+                             num_nodes=n, device=device)
+
+
 def _rel_err(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
@@ -121,7 +130,7 @@ def test_packed_gat_kernels_match_plain_on_card(cuda_device, H, C, rate):
     from pytorch_geometric_tpu_torch.ops import packed_gat as pg
 
     n = 512
-    op = pg.PackedFlashGat(*_gat_edges(n), n, device=cuda_device)
+    op = _packed_op(_gat_edges(n), n, cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(H * 1000 + C)
     d, s = (torch.randn(n, H, generator=gen, device=cuda_device)
             for _ in range(2))
@@ -146,6 +155,60 @@ def test_packed_gat_kernels_match_plain_on_card(cuda_device, H, C, rate):
         assert torch.equal(a, b)
 
 
+def _ppi_like_edges(n=1500, seed=16):
+    """examples/ppi.py's edge set on a PPI-like graph: random pairs in
+    both directions (some repeated), self loops dropped, one loop a node
+    after each receiver's edges (``gat_sparse_edge_set``'s order)."""
+    rng = np.random.default_rng(seed)
+    s, r = rng.integers(0, n, 14 * n), rng.integers(0, n, 14 * n)
+    keep = s != r
+    s, r = s[keep], r[keep]
+    s, r = (np.concatenate([s, r, np.arange(n)]),
+            np.concatenate([r, s, np.arange(n)]))
+    order = np.argsort(r, kind="stable")
+    return s[order], r[order]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,C", [(4, 256), (6, 121)])
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+def test_packed_gat_kernels_at_ppi_widths_on_card(cuda_device, H, C, rate):
+    """examples/ppi.py's widths, conv1 and conv2's (4, 256) and conv3's
+    (6, 121), which run the first designs (a head wider than 32
+    channels): forward and backward against their plain versions within
+    1e-5 of the largest reference magnitude, on an edge set with
+    repeated pairs; one launch forward, two backward; two calls bitwise
+    equal."""
+    from pytorch_geometric_tpu_torch.ops import packed_gat as pg
+
+    n = 1500
+    senders, receivers = _ppi_like_edges(n)
+    assert np.unique(receivers * n + senders).size < senders.size
+    op = _packed_op((senders, receivers), n, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(H * 1000 + C)
+    d, s = (torch.randn(n, H, generator=gen, device=cuda_device)
+            for _ in range(2))
+    h = torch.randn(n, H * C, generator=gen, device=cuda_device)
+    g = torch.randn(n, H * C + H, generator=gen, device=cuda_device)
+    m = s.amax(0)
+    seed = torch.tensor([123457], dtype=torch.int32, device=cuda_device)
+    fwd0, bwd0 = pg.packed_gat_fwd.launches, pg.packed_gat_bwd.launches
+    got = pg.packed_gat_fwd(op.fwd, d, s, h, m, seed, rate)
+    bwd_args = (op.fwd, op.bwd, op.bwd_eid, d, s, h, m, seed, g, rate)
+    got_b = pg.packed_gat_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    assert (pg.packed_gat_fwd.launches - fwd0,
+            pg.packed_gat_bwd.launches - bwd0) == (1, 2)
+    assert _rel_err(got, pg.packed_gat_fwd_plain(op.fwd, d, s, h, m, seed,
+                                                 rate)) <= 1e-5
+    want_b = pg.packed_gat_bwd_plain(op.fwd, d, s, h, m, seed, g, rate)
+    for a, b in zip(got_b, want_b):
+        assert _rel_err(a, b) <= 1e-5
+    assert torch.equal(got, pg.packed_gat_fwd(op.fwd, d, s, h, m, seed, rate))
+    for a, b in zip(got_b, pg.packed_gat_bwd(*bwd_args)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_packed_flash_gat_on_card_matches_cpu(cuda_device):
     """``PackedFlashGat`` on the card (forward and backward through the
@@ -160,7 +223,7 @@ def test_packed_flash_gat_on_card_matches_cpu(cuda_device):
               for shape in ((n, H), (n, H), (n, H * C), (n, H * C))]
     results = {}
     for dev in ("cpu", cuda_device):
-        op = pg.PackedFlashGat(*edges, n, device=dev)
+        op = _packed_op(edges, n, dev)
         d, s, h = (a.to(dev, copy=True).requires_grad_()
                    for a in arrays[:3])
         before = (pg.packed_gat_fwd.launches, pg.packed_gat_bwd.launches)
@@ -270,7 +333,7 @@ def test_packed_gat_backward_matches_plain_on_card(cuda_device, graph, H, C,
     from pytorch_geometric_tpu_torch.ops import packed_gat as pg
 
     senders, receivers, n, (no_in, no_out) = _redesign_edges(graph)
-    op = pg.PackedFlashGat(senders, receivers, n, device=cuda_device)
+    op = _packed_op((senders, receivers), n, cuda_device)
     d, s, h, g, seed = _redesign_inputs(n, H, C, cuda_device, H * C + H)
     m = s.amax(0)
     want = pg.packed_gat_bwd_plain(op.fwd, d, s, h, m, seed, g, rate)
@@ -298,7 +361,7 @@ def test_packed_gat_designs_agree_on_card(cuda_device, H, C, rate):
     from probes import packed_gat_designs as pd
     from pytorch_geometric_tpu_torch.ops import packed_gat as pg
 
-    op = pg.PackedFlashGat(*_gat_edges(), 512, device=cuda_device)
+    op = _packed_op(_gat_edges(), 512, cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(H * 1000 + C)
     _, errors = pd.compare(pd.load(), op, H, C, rate, gen)
     assert errors["first_vs_plain"] <= 1e-5
@@ -875,7 +938,7 @@ def test_gat_ablate_full_is_the_library_and_every_mode_runs(cuda_device, H,
     from pytorch_geometric_tpu_torch.ops import packed_gat as pg
 
     n = 512
-    op = pg.PackedFlashGat(*_gat_edges(n), n, device=cuda_device)
+    op = _packed_op(_gat_edges(n), n, cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(H * 1000 + C)
     d, s = (torch.randn(n, H, generator=gen, device=cuda_device)
             for _ in range(2))
@@ -983,7 +1046,7 @@ def test_occupancy_padding_holds_modes_at_full_and_changes_no_output(
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     if probe == "gat":
         n, H, C = 512, 8, 8
-        op = pg.PackedFlashGat(*_gat_edges(n), n, device=cuda_device)
+        op = _packed_op(_gat_edges(n), n, cuda_device)
         d, s = (torch.randn(n, H, generator=gen, device=cuda_device)
                 for _ in range(2))
         h = torch.randn(n, H * C, generator=gen, device=cuda_device)
@@ -1467,7 +1530,7 @@ def test_packed_gat_forward_designs_agree_on_card(cuda_device, H, C, rate,
 
     senders, receivers, empty = _step_edges()
     n = 301
-    op = pg.PackedFlashGat(senders, receivers, n, device=cuda_device)
+    op = _packed_op((senders, receivers), n, cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(H * 1000 + C)
     d, s = (torch.randn(n, H, generator=gen, device=cuda_device)
             for _ in range(2))
