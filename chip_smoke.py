@@ -13,7 +13,13 @@ Phases, one JSON line each:
                and probes/segment_sum_designs.cu (which include csrc/'s
                packed_gat.cu, packed_rgcn.cu, bsr_gat.cu, flash_gat.cu,
                spmm_csr.cu and sorted_spmm.cu): one nvcc per source, all
-               started together;
+               started together; and the port's native host library
+               (cluster/native/graphcore.cpp) with g++ beside them;
+   cluster   — that library on this machine: on a synthetic ModelNet
+               sample and a FAUST mesh at the published vertex count,
+               knn_graph, radius, voxel_grid and coalesce_edges bitwise
+               equal to their plain numpy versions, fps's k distinct
+               points and graclus_cluster's matching of adjacent nodes;
 3. kernel    — each kernel against its plain PyTorch version on the
                card, at the shapes the main paths give it, relative to
                the largest reference magnitude, with the kernel's, the
@@ -88,6 +94,15 @@ Phases, one JSON line each:
                  F = 128, its layers' key-value gradients by sender at
                  1 to 4 x 256); fp32 (1e-5); two launches bitwise
                  equal;
+   kernel_faust — spmm_csr on examples/faust.py's rectangular spline
+               operator of a mesh at the published vertex count (8192
+               padded nodes x K = 125 rows over 8192 columns) and its
+               transpose, F = 1, 32 and 64, fp32 (1e-5, two launches
+               bitwise equal), timed warm and L2-flushed, beside the
+               K = 125 square operators and the cat for the same product,
+               cuSPARSE and the bound; and on the full-scale synthetic
+               Reddit graph (232,965 nodes, ~11.6 M edges) at F = 602 and
+               128, checked on its first 20,000 rows;
    probe     — the probes' libraries against the kernels that ship:
                every term-by-term ablation mode of the packed-GAT backward
                (RCM-PubMed, (8, 8), dropout 0.6) and of the packed-RGCN
@@ -182,6 +197,19 @@ Phases, one JSON line each:
                build seconds, peak device memory; the logits after three
                steps from the same parameters and batches, card against
                the plain path on the CPU (1e-4);
+   slice_faust — examples/faust.py's run (six SplineConv layers, dim 3,
+               kernel size 5, 1 -> 32 -> 64 x 5, Dense 256, a class per
+               vertex; Adam 1e-2) for 3 epochs at FAUST's published
+               template size (6,728 synthetic vertices, 80 train and 20
+               test meshes, batches of 1), eager, each layer's
+               accumulator through one rectangular spline operator of
+               its mesh, built once on the host: spmm_csr launches
+               asserted as 3 x (80 x 11 + 20 x 6) = 3000; losses finite,
+               the last epoch's mean below the first's; test accuracy
+               beside chance (not gated); wall and operator build
+               seconds, peak device memory; the logits after three steps
+               (dropout off), card against the plain path on the CPU at
+               684 vertices (1e-4);
    zoo       — every conv of the zoo (Part B's and the suite's) on Cora
                at 1433 -> 16, one forward and one backward through its
                operators on the card against its plain path on the CPU:
@@ -200,6 +228,8 @@ Phases, one JSON line each:
                events;
    trace_ppi — the same over 20 eager training steps of the PPI example
                cycling over its train batches (9 port launches a step);
+   trace_faust — the same over 20 eager training steps of the FAUST
+               example (11 port launches a step);
 9. trace_captured_* — the same over 20 replays of the epoch captured as
                the trainers capture it, one phase per configuration; the
                port's launches per epoch must equal the eager count.
@@ -245,6 +275,20 @@ PPI_WIDTHS = ((4, 256), (6, 121))
 #: layer; the backward's two walks per layer) and of one evaluation batch.
 PPI_STEP_LAUNCHES = {"packed_gat_fwd": 3, "packed_gat_bwd": 6}
 PPI_EVAL_LAUNCHES = {"packed_gat_fwd": 3}
+#: examples/faust.py: its default epochs, FAUST's published template size
+#: (the synthetic sphere then has 58 x 116 = 6,728 vertices), the spline
+#: operator's widths (conv1's input, conv1's output, the rest), and the
+#: spmm_csr launches of one training step (one forward a layer, one dx a
+#: layer but conv1, whose input takes no gradient) and of one evaluation
+#: batch.
+FAUST_EPOCHS = 3
+FAUST_VERTICES = 6890
+FAUST_WIDTHS = (1, 32, 64)
+FAUST_STEP_LAUNCHES = {"spmm_csr": 11}
+FAUST_EVAL_LAUNCHES = {"spmm_csr": 6}
+#: Receiver rows of the full-scale Reddit graph that the plain version
+#: sums (all of them would gather ~28 GB at F = 602).
+REDDIT_SLICE_ROWS = 20_000
 
 
 def emit(obj):
@@ -275,8 +319,21 @@ def phase_build():
     probes = (gat_ablate, packed_gat_designs, rgcn_ablate, bsr_gat_designs,
               flash_gat_designs, packed_rgcn_designs, spmm_csr_designs,
               segment_sum_designs)
+    import threading
+
+    from pytorch_geometric_tpu_torch.cluster import _native
+
     t0 = time.perf_counter()
+    # g++ builds the native host library while nvcc builds the kernels
+    graphcore = {}
+    thread = threading.Thread(
+        target=lambda: graphcore.update(seconds=_native.build()))
+    thread.start()
     report = _build.build(sources=[probe.SOURCE for probe in probes])
+    thread.join()
+    if "seconds" not in graphcore:
+        _native.build()       # raises with the compiler's output
+    _native.get_lib()
     for name in _build.SIGNATURES:
         _build.load_library(name)
     for probe in probes:
@@ -286,7 +343,116 @@ def phase_build():
              for name, r in report.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": {k: v["seconds"] for k, v in report.items()},
+          "graphcore_seconds": graphcore["seconds"],
+          "graphcore_library": _native.library_path().name,
           "ptxas": ptxas})
+
+
+@functools.cache
+def faust_datasets(num_vertices=FAUST_VERTICES):
+    """examples/faust.py's FAUST (train, test), through its pre-transform,
+    built once per run, and the seconds that took."""
+    from pytorch_geometric_tpu_torch.examples import faust
+
+    t0 = time.perf_counter()
+    train, test = faust.load(SEED, num_vertices, device=DEVICE)
+    return train.dataset, test.dataset, time.perf_counter() - t0
+
+
+def faust_loaders(num_vertices=FAUST_VERTICES):
+    """Fresh loaders over :func:`faust_datasets`, as ``faust.load`` makes
+    them: batches of one mesh, the train loader shuffled from SEED."""
+    from pytorch_geometric_tpu_torch.data import DataLoader
+
+    train, test, _ = faust_datasets(num_vertices)
+    return (DataLoader(train, batch_size=1, shuffle=True, seed=SEED,
+                       device=DEVICE),
+            DataLoader(test, batch_size=1, device=DEVICE))
+
+
+def phase_cluster():
+    """The native host library (``cluster/native/graphcore.cpp``, built
+    with g++ by the build phase) on this machine: on a synthetic ModelNet
+    sample and a FAUST mesh at the published vertex count, ``knn_graph``,
+    ``radius``, ``voxel_grid`` and ``coalesce_edges`` (the mesh's edges
+    twice each, with their Cartesian offsets) bitwise equal to their plain
+    numpy versions; ``fps`` gives k distinct points and
+    ``graclus_cluster`` (over normalised-cut weights) a matching of
+    clusters of one or two adjacent nodes, the invariants of the JAX
+    package's tests/test_cluster.py (both draw from C++'s mt19937_64,
+    their plain versions from numpy's generator). Host ms beside each."""
+    from pytorch_geometric_tpu_torch import cluster
+    from pytorch_geometric_tpu_torch.cluster import _native
+    from pytorch_geometric_tpu_torch.datasets import ModelNet
+    from pytorch_geometric_tpu_torch.datasets.graphs import PLANETOID_ROOT
+    from pytorch_geometric_tpu_torch.transforms import FaceToEdge
+    from pytorch_geometric_tpu_torch.transforms.coarsen_levels import (
+        _normalized_cut_np)
+
+    lib = _native.get_lib()
+    mesh = faust_datasets()[0][1]          # a jittered mesh
+    sample = FaceToEdge()(ModelNet(str(PLANETOID_ROOT), "10",
+                                   samples_per_class=1)[3].clone())
+    rows, problems = [], []
+    for cloud, data, r, size in (("modelnet10", sample, 0.3, 0.25),
+                                 ("faust", mesh, 0.1, 0.1)):
+        pos = data.pos.astype(np.float64)
+        s, t = data.edge_index
+        attr = pos[t] - pos[s]
+        twice = (np.concatenate([s, s]), np.concatenate([t, t]),
+                 np.concatenate([attr, attr]))
+        calls = {"knn_graph": ("knn_graph", (pos, 6), {}),
+                 "radius": ("radius", (pos, pos, r),
+                            {"max_num_neighbors": 16}),
+                 "voxel_grid": ("voxel_grid", (pos, size), {}),
+                 "coalesce_edges": ("coalesce_edges", twice, {})}
+        cases = {}
+        for case, (name, args, kw) in calls.items():
+            t0 = time.perf_counter()
+            got = getattr(cluster, name)(*args, **kw)
+            t1 = time.perf_counter()
+            want = getattr(cluster, name + "_plain")(*args, **kw)
+            t2 = time.perf_counter()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            equal = all(a.dtype == b.dtype and np.array_equal(a, b)
+                        for a, b in zip(got, want))
+            cases[case] = {"bitwise_equal": equal,
+                           "size": int(got[0].shape[0]),
+                           "host_ms": (t1 - t0) * 1e3,
+                           "plain_host_ms": (t2 - t1) * 1e3}
+            if not equal:
+                problems.append(f"{cloud}: {case} differs from its plain "
+                                "version")
+        k = int(np.ceil(0.05 * pos.shape[0]))
+        picked = cluster.fps(pos, ratio=0.05, seed=SEED)
+        fps_ok = picked.size == k == np.unique(picked).size
+        w = _normalized_cut_np(s, t, pos, data.num_nodes)
+        cl = cluster.graclus_cluster(s, t, w, num_nodes=data.num_nodes,
+                                     seed=SEED)
+        ids, sizes = np.unique(cl, return_counts=True)
+        pair = np.flatnonzero(cl != np.arange(cl.size))   # matched, not rep
+        adjacent = set(zip(s.tolist(), t.tolist()))
+        graclus_ok = bool(sizes.max() <= 2 and (cl[ids] == ids).all()
+                          and (cl <= np.arange(cl.size)).all()
+                          and all((int(i), int(cl[i])) in adjacent
+                                  or (int(cl[i]), int(i)) in adjacent
+                                  for i in pair))
+        if not (fps_ok and graclus_ok):
+            problems.append(f"{cloud}: fps ok {fps_ok}, graclus ok "
+                            f"{graclus_ok}")
+        row = {"phase": "cluster", "cloud": cloud,
+               "points": int(pos.shape[0]), "edges": int(s.size),
+               "cases": cases, "fps_points": int(picked.size),
+               "fps_ok": fps_ok, "graclus_clusters": int(ids.size),
+               "graclus_pairs": int(pair.size), "graclus_ok": graclus_ok,
+               "library": _native.library_path().name}
+        emit(row)
+        rows.append(row)
+    assert lib is not None
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return rows
 
 
 def _csr_pairs(graph=None):
@@ -303,7 +469,8 @@ def _csr_pairs(graph=None):
     return {"fwd": (op.fwd, val_f), "bwd": (op.bwd, val_b)}
 
 
-def check_case(graph_name, csr, val, direction, f, dtype_name, gen):
+def check_case(graph_name, csr, val, direction, f, dtype_name, gen,
+               extra=None):
     from pytorch_geometric_tpu_torch.ops.spmm import spmm_csr, spmm_csr_plain
 
     dt = torch.bfloat16 if dtype_name == "bf16" else torch.float32
@@ -336,7 +503,7 @@ def check_case(graph_name, csr, val, direction, f, dtype_name, gen):
             "library_max_abs_err": lib_err,
             "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, **(extra or {})}
     emit(case)
     return case
 
@@ -989,6 +1156,140 @@ def phase_kernel_ppi(gen):
         for H, C in PPI_WIDTHS:
             for rate in (0.0, 0.6):
                 cases += check_gat_case(graph_name, op, H, C, rate, gen)
+    return cases
+
+
+def phase_kernel_faust(gen):
+    """``spmm_csr`` at examples/faust.py's shapes: the rectangular spline
+    operator of a FAUST mesh at the published vertex count (8192 padded
+    nodes x K = 125 rows over 8192 columns, ~262k (edge, corner) entries;
+    most rows empty, the rest 1-4 entries) and its transpose (~39 a row),
+    at F = 1, 32 and 64, fp32 (1e-5, two launches bitwise equal), with
+    the K = 125 square operators of ``spline_operators`` timed beside it
+    for the same product (forward: 125 launches and the ``cat``; ``dx``:
+    125 launches summed), cuSPARSE and the bound."""
+    import operator
+
+    from pytorch_geometric_tpu_torch.examples import faust
+    from pytorch_geometric_tpu_torch.nn.conv import spline_edge_sets
+    from pytorch_geometric_tpu_torch.ops.spmm import SpmmOperator, spmm_csr
+
+    train, _ = faust_loaders()
+    graph = next(iter(train))
+    n, K = graph.num_nodes, faust.KERNEL_SIZE ** faust.DIM
+    geom, consts = faust.faust_spline_op(graph).args
+    squares = []
+    for s, r, b in spline_edge_sets(graph, faust.DIM, faust.KERNEL_SIZE):
+        op = SpmmOperator(s, r, n, device=DEVICE)
+        squares.append((op, *op.route_weights(b)))
+
+    def k_forward(x):
+        return torch.cat([spmm_csr(op.fwd, vf, x) for op, vf, _ in squares],
+                         dim=1)
+
+    def k_dx(g):      # g (N, K F): the cat's gradient, one slice a square
+        f = g.shape[1] // K
+        return functools.reduce(operator.add, (
+            spmm_csr(op.bwd, vb, g[:, k * f:(k + 1) * f])
+            for k, (op, _, vb) in enumerate(squares)))
+
+    cases = []
+    for f in FAUST_WIDTHS:
+        x = torch.randn(n, f, generator=gen, device=DEVICE)
+        g = torch.randn(n * K, f, generator=gen, device=DEVICE)
+        rect_f = spmm_csr(geom.fwd, consts["fwd"], x).reshape(n, K * f)
+        rect_b = spmm_csr(geom.bwd, consts["bwd"], g)
+        g_cat = g.reshape(n, K * f)
+        for direction, csr, val, rect, k_fn, arg in (
+                ("fwd", geom.fwd, consts["fwd"], rect_f, k_forward, x),
+                ("bwd", geom.bwd, consts["bwd"], rect_b, k_dx, g_cat)):
+            k_out = k_fn(arg)
+            # beside the warm timing (the named rows of g, ~28 MB at
+            # F = 32, stay in the 50 MB L2 between calls), each call
+            # from device memory
+            extra = {"phase": "kernel_faust", "K": K,
+                     "kernel_flushed_ms": device_ms(
+                         lambda: spmm_csr(csr, val, arg if direction == "fwd"
+                                          else g), flush_l2=True),
+                     "k_operators_ms": device_ms(lambda: k_fn(arg)),
+                     "k_operators_launches": K,
+                     "k_operators_rel_err": _rel(k_out, rect)}
+            case = check_case("faust", csr, val, direction, f, "fp32", gen,
+                              extra)
+            case["ok"] = case["ok"] and case["k_operators_rel_err"] <= 1e-5
+            cases.append(case)
+    cases += phase_kernel_reddit(gen)
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} FAUST / Reddit case(s) disagree "
+                             f"with the plain version: {bad}")
+    return cases
+
+
+def phase_kernel_reddit(gen):
+    """``spmm_csr`` on the full-scale synthetic Reddit graph
+    (``Reddit(full_scale=True)``: 232,965 nodes, ~11.6 M directed edges,
+    the receiver-major CSR with random weights) at F = 602 (its
+    features) and 128 (reddit_sage's hidden width): the first
+    ``REDDIT_SLICE_ROWS`` rows against the plain version over the same
+    rows (1e-5), two launches bitwise equal, the whole call timed beside
+    cuSPARSE and the bound, and the plain version and the kernel timed on
+    the slice."""
+    from pytorch_geometric_tpu_torch.datasets import Reddit
+    from pytorch_geometric_tpu_torch.datasets.graphs import PLANETOID_ROOT
+    from pytorch_geometric_tpu_torch.ops.csr import Csr, build_csr
+    from pytorch_geometric_tpu_torch.ops.spmm import spmm_csr, spmm_csr_plain
+
+    t0 = time.perf_counter()
+    data = Reddit(str(PLANETOID_ROOT), full_scale=True)[0]
+    load_seconds = time.perf_counter() - t0
+    n = data.num_nodes
+    t0 = time.perf_counter()
+    csr = build_csr(data.edge_index[1], data.edge_index[0], n).to(DEVICE)
+    csr_seconds = time.perf_counter() - t0
+    val = torch.rand(csr.num_edges, generator=gen, device=DEVICE)
+    rows = REDDIT_SLICE_ROWS
+    e_rows = int(csr.row_ptr[rows])
+    sub = Csr(row_ptr=csr.row_ptr[:rows + 1], col=csr.col[:e_rows],
+              perm=csr.perm[:e_rows], num_rows=rows, num_cols=n)
+    sub_val = val[:e_rows]
+    a = torch.sparse_csr_tensor(csr.row_ptr, csr.col, val, (n, n))
+    degree = csr.row_ptr[1:] - csr.row_ptr[:-1]
+    cases = []
+    for f, x in ((data.x.shape[1], torch.from_numpy(data.x).to(DEVICE)),
+                 (128, torch.randn(n, 128, generator=gen, device=DEVICE))):
+        got, again = spmm_csr(csr, val, x), spmm_csr(csr, val, x)
+        want = spmm_csr_plain(sub, sub_val, x)
+        torch.cuda.synchronize()
+        abs_err = float((got[:rows] - want).abs().max())
+        rel_err = abs_err / max(float(want.abs().max()), 1e-30)
+        repeats = torch.equal(got, again)
+        lib_err = float((torch.sparse.mm(a, x)[:rows] - want).abs().max())
+        bound, bound_by = spmm_bound(csr, f, 4)
+        case = {"phase": "kernel_faust", "kernel": "spmm_csr",
+                "graph": "reddit_full", "direction": "fwd", "F": f,
+                "x": "fp32", "rows": n, "edges": csr.num_edges,
+                "longest_row": int(degree.max()),
+                "checked_rows": rows, "checked_edges": e_rows,
+                "max_abs_err": abs_err, "rel_err": rel_err,
+                "tol": TOL["fp32"], "bitwise_repeat": repeats,
+                "ok": rel_err <= TOL["fp32"] and repeats,
+                "library_max_abs_err": lib_err,
+                "kernel_ms": device_ms(lambda: spmm_csr(csr, val, x),
+                                       calls=10),
+                "plain_ms": None,      # would gather ~E x F x 4 bytes
+                "library_ms": device_ms(lambda: torch.sparse.mm(a, x),
+                                        calls=10),
+                "bound_ms": bound, "bound_by": bound_by,
+                "slice_kernel_ms": device_ms(
+                    lambda: spmm_csr(sub, sub_val, x), calls=10),
+                "slice_plain_ms": device_ms(
+                    lambda: spmm_csr_plain(sub, sub_val, x), calls=5),
+                "slice_bound_ms": spmm_bound(sub, f, 4)[0],
+                "load_seconds": load_seconds, "csr_seconds": csr_seconds}
+        emit(case)
+        cases.append(case)
+        del got, again, want
     return cases
 
 
@@ -1910,6 +2211,124 @@ def phase_slice_ppi():
                     "params_cuda_vs_cpu_rel_err": params_err}, problems)
 
 
+def faust_steps_logits(device, steps=3, num_vertices=684):
+    """``(logits, model)``: a fresh ``Net`` of examples/faust.py (from
+    ``SEED``) after ``steps`` Adam steps, dropout off, over the first
+    ``steps`` batches of the seeded train loader at ``num_vertices``, then
+    its logits on the first of them, all on ``device`` (the CPU runs the
+    kernel's plain version)."""
+    from pytorch_geometric_tpu_torch.examples import faust
+    from pytorch_geometric_tpu_torch.examples.ppi import OperatorCache
+
+    train, _ = faust.load(SEED, num_vertices, device=device)
+    batches = list(itertools.islice(train.indexed(), steps))
+    model = faust.Net(train.dataset[0].num_nodes,
+                      generator=torch.Generator().manual_seed(SEED)).to(device)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+    ops = OperatorCache(faust.faust_spline_op)
+    for idx, graph in batches:
+        faust.train_step(model, opt, graph, ops(idx, graph), train=False)
+    idx, graph = batches[0]
+    with torch.no_grad():
+        return model(graph, spline_op=ops(idx, graph)).cpu(), model
+
+
+def phase_slice_faust():
+    """examples/faust.py's run on the card at its full widths (six
+    SplineConv layers, dim 3, kernel size 5, K = 125: 1 -> 32 -> 64 x 5,
+    Dense 256, one class per vertex) at FAUST's published template size:
+    the synthetic meshes of 6,728 vertices (80 train, 20 test) ->
+    ``Compose([FaceToEdge(), Cartesian()])`` -> DataLoader (batches of 1,
+    shuffled from SEED) -> ``run`` for 3 epochs, eager, each layer's
+    (N·K, F) accumulator through one rectangular spline operator of its
+    mesh, built once on the host and reused. Launches asserted as epochs x
+    (train batches x 11 + test batches x 6): one ``spmm_csr`` a layer
+    forward and one ``dx`` a layer but conv1. Every loss finite and the
+    last epoch's mean below the first's; test accuracy beside chance
+    (1 / vertices), not gated; wall seconds, the operators' host build
+    seconds and the peak of device memory; and the logits after three
+    steps (dropout off) on the card against the plain path on the CPU at
+    the example's default 684 vertices (1e-4)."""
+    import contextlib
+    import io
+
+    from pytorch_geometric_tpu_torch.examples import faust
+    from pytorch_geometric_tpu_torch.models.capture import launch_counts
+
+    train, test = faust_loaders()
+    load_seconds = faust_datasets()[2]
+    nv = train.dataset[0].num_nodes
+    batches = {"train": len(train), "test": len(test)}
+    expected = {n: FAUST_EPOCHS * (batches["train"]
+                                   * FAUST_STEP_LAUNCHES.get(n, 0)
+                                   + batches["test"]
+                                   * FAUST_EVAL_LAUNCHES.get(n, 0))
+                for n in launch_counts()}
+    statement = {
+        n: f"{FAUST_EPOCHS} epochs x ({batches['train']} train batches x "
+           f"{FAUST_STEP_LAUNCHES[n]} (6 layers forward + 5 dx; conv1's "
+           f"input takes no gradient) + {batches['test']} test batches x "
+           f"{FAUST_EVAL_LAUNCHES[n]}) = {expected[n]}; one launch a layer "
+           "and direction, against 125 for the K square operators"
+        for n in FAUST_STEP_LAUNCHES}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    before = launch_counts()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        out = faust.run(FAUST_EPOCHS, SEED, FAUST_VERTICES, DEVICE,
+                        loaders=(train, test))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: v - before[n] for n, v in launch_counts().items()}
+    card, card_model = faust_steps_logits(DEVICE)
+    cpu, cpu_model = faust_steps_logits("cpu")
+    cpu_params = dict(cpu_model.named_parameters())
+    params_err = max(_rel(p.detach().cpu(), cpu_params[n].detach())
+                     for n, p in card_model.named_parameters())
+    parity = _rel(card, cpu)
+    losses = out["step_losses"]
+    epochs = out["epoch_losses"]
+    problems = []
+    if launches != expected:
+        problems.append(f"launches {launches}, expected {expected}")
+    if not np.isfinite(losses).all():
+        problems.append("non-finite training loss")
+    if not epochs[-1] < epochs[0]:
+        problems.append(f"last epoch's mean loss {epochs[-1]} not below the "
+                        f"first's {epochs[0]}")
+    if not (torch.isfinite(card).all() and parity <= 1e-4):
+        problems.append(f"logits after 3 steps: card vs CPU rel err "
+                        f"{parity}")
+    return _finish({"phase": "slice_faust", "dataset": "FAUST",
+                    "synthetic": train.dataset.is_synthetic,
+                    "vertices": nv, "padded_nodes": train.num_nodes,
+                    "padded_edges": train.num_edges,
+                    "epochs": FAUST_EPOCHS, "batches": batches,
+                    "seconds": out["seconds"],
+                    "ms_per_epoch": out["seconds"] / FAUST_EPOCHS * 1e3,
+                    "load_seconds": load_seconds,
+                    "operators": out["operators"],
+                    "operator_setup_seconds": out["operator_seconds"],
+                    "epoch_losses": epochs,
+                    "first_loss": float(losses[0, 0]),
+                    "final_loss": float(losses[-1, -1]),
+                    "test_acc": out["acc"], "chance_acc": 1.0 / nv,
+                    # the loss of the uniform prediction over nv classes
+                    "uniform_loss": float(np.log(nv)),
+                    "printed": printed.getvalue().splitlines(),
+                    "launches": {n: v for n, v in launches.items() if v},
+                    "expected_launches": {n: v for n, v in expected.items()
+                                          if v},
+                    "launch_statement": statement,
+                    "max_memory_allocated": peak,
+                    "run_peak_bytes": peak - start,
+                    "logits_shape": list(cpu.shape),
+                    "logits_cuda_vs_cpu_rel_err": parity,
+                    "params_cuda_vs_cpu_rel_err": params_err}, problems)
+
+
 def _zoo_cases(f, c, gen):
     """(name, graph, conv, its operators on a graph, input kind) of the
     zoo phase: Part B's convs and the suite's, at Cora's width f -> c."""
@@ -2228,6 +2647,42 @@ def phase_trace_ppi(steps=20):
     return result
 
 
+def phase_trace_faust(steps=20):
+    """Where a FAUST training step's time goes: ``torch.profiler`` over
+    ``steps`` eager steps of examples/faust.py's ``train_step`` (a fresh
+    ``Net``, Adam 1e-2, dropout on) cycling over the first ``steps`` train
+    batches, collated and their operators built before the window; 11
+    port launches a step."""
+    from pytorch_geometric_tpu_torch.examples import faust
+    from pytorch_geometric_tpu_torch.examples.ppi import OperatorCache
+
+    train, _ = faust_loaders()
+    ops = OperatorCache(faust.faust_spline_op)
+    batches = [(graph, ops(idx, graph)) for idx, graph in
+               itertools.islice(train.indexed(), steps)]
+    model = faust.Net(train.dataset[0].num_nodes,
+                      generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+    drop = torch.Generator(device=DEVICE).manual_seed(SEED)
+    cycle = itertools.cycle(batches)
+
+    def run():
+        graph, op = next(cycle)
+        faust.train_step(model, opt, graph, op, drop)
+
+    kernels, wall_us = profile_steps(run, steps)
+    summary, port_launches = trace_summary(kernels, wall_us, steps, "step")
+    want = sum(FAUST_STEP_LAUNCHES.values())
+    result = {"phase": "trace_faust", "captured": False, "steps": steps,
+              **summary, "expected_port_launches_per_step": want}
+    emit(result)
+    if port_launches != want * steps:
+        raise AssertionError(f"faust: {port_launches / steps} port kernel "
+                             f"launches per step on the trace, expected "
+                             f"{want}")
+    return result
+
+
 #: Each kernel's source, the Pallas kernel it replaces, its main path's
 #: graph, and the case of the kernel phase that stands for that path: its
 #: largest call (GCN's F = 16 forward SpMM; GAT's conv1, 8 heads x 8, with
@@ -2332,6 +2787,19 @@ def kernels_line(results):
                 {k: c[k] for k in ("graph", "H", "C", "rate", "kernel_ms",
                                    "plain_ms", "bound_ms", "bound_by",
                                    "max_abs_err")} for c in ppi]
+        for tag, graph_name, keys in (
+                ("faust", "faust", ("k_operators_ms", "kernel_flushed_ms")),
+                ("reddit", "reddit_full", ("slice_kernel_ms",
+                                           "slice_plain_ms",
+                                           "slice_bound_ms"))):
+            rows = [c for c in results["kernel_faust"]
+                    if c["kernel"] == name and c["graph"] == graph_name]
+            if rows:  # examples/faust.py's operator; full-scale Reddit
+                line[-1][tag] = [
+                    {k: c[k] for k in ("direction", "F", "rows", "edges",
+                                       "kernel_ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by", "max_abs_err")
+                     + keys} for c in rows]
     probe = results["probe"]
     for name, (source, replaces) in PROBE_KERNELS.items():
         case = probe["rows"][name]
@@ -2361,7 +2829,10 @@ def main():
     results = {}
     phase_seconds = {}
     phases = [("card", phase_card), ("build", phase_build),
-              ("kernel", phase_kernel), ("probe", phase_probe),
+              ("cluster", phase_cluster), ("kernel", phase_kernel),
+              ("kernel_faust", lambda: phase_kernel_faust(
+                  torch.Generator(device=DEVICE).manual_seed(SEED))),
+              ("probe", phase_probe),
               ("slice", phase_slice), ("slice_gat", phase_slice_gat),
               ("slice_gat_dense",
                lambda: phase_slice_gat("dense", "slice_gat_dense")),
@@ -2377,11 +2848,13 @@ def main():
         phases.append((f"slice_{name}",
                        functools.partial(phase_slice_suite, name)))
     phases.append(("slice_ppi", phase_slice_ppi))
+    phases.append(("slice_faust", phase_slice_faust))
     phases += [("zoo", phase_zoo), ("capture_check", phase_capture_check)]
     for config in CONFIGS:
         phases.append(("trace" if config == "gcn" else f"trace_{config}",
                        functools.partial(phase_trace, config)))
     phases.append(("trace_ppi", phase_trace_ppi))
+    phases.append(("trace_faust", phase_trace_faust))
     for config in CONFIGS:
         phases.append((f"trace_captured_{config}",
                        functools.partial(phase_trace, config, True)))

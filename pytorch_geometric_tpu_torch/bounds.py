@@ -13,10 +13,13 @@ from pytorch_geometric_tpu_torch.profiling import bound_ms
 
 def spmm_bound(csr, f, x_bytes):
     """One ``spmm_csr`` call: the CSR (column and weight per edge, a
-    pointer per row), x once at ``x_bytes`` per element, the fp32 output
-    once; 2 flops per edge and feature."""
+    pointer per row), the rows of x that some edge names once at
+    ``x_bytes`` per element (a column no edge names need not be read: a
+    rectangular operator's transpose names a fifth of its 1 M columns),
+    the fp32 output once; 2 flops per edge and feature."""
+    used = int(torch.unique(csr.col).numel())
     nbytes = (csr.num_edges * 8 + (csr.num_rows + 1) * 4
-              + csr.num_cols * f * x_bytes + csr.num_rows * f * 4)
+              + used * f * x_bytes + csr.num_rows * f * 4)
     return bound_ms(nbytes, 2 * csr.num_edges * f)
 
 

@@ -13,7 +13,13 @@ arrays ``conv1.weight``, in the same layouts:
   conv2.weight (64, 3), so no operator adds a layout here;
 - RGCN (examples/rgcn.py): ``convK.basis`` (B, F_in, C) (B = R without
   bases), ``convK.att`` (R, B) (only with bases), ``convK.root``
-  (F_in, C), ``convK.bias`` (C,).
+  (F_in, C), ``convK.bias`` (C,);
+- FAUST (examples/faust.py): six ``SplineConv`` layers ``conv1`` ..
+  ``conv6`` with ``weight`` (K, F_in, C) (K = 125), ``root`` (F_in, C)
+  and ``bias`` (C,), whichever operator aggregates (the rectangular
+  ``spline_operator`` or the K square ``spline_operators``), and flax's
+  auto-named ``Dense_0`` / ``Dense_1`` with ``kernel`` (in, out) and
+  ``bias``.
 
 Only numpy is needed: ``np.asarray`` reads a JAX array without importing
 JAX here.

@@ -1,7 +1,15 @@
 """Datasets, each with its deterministic synthetic fallback: citation
-graphs, relational entities, molecules, superpixels, PPI and the TU
-graph-classification corpora."""
+graphs, relational entities, molecules, superpixels, PPI, the TU
+graph-classification corpora, meshes and the large single graphs."""
 
+from pytorch_geometric_tpu_torch.datasets.large_graphs import (  # noqa: F401
+    Amazon,
+    Reddit,
+)
+from pytorch_geometric_tpu_torch.datasets.meshes import (  # noqa: F401
+    FAUST,
+    ModelNet,
+)
 from pytorch_geometric_tpu_torch.datasets.molecules import (  # noqa: F401
     QM9,
     Entities,
@@ -21,6 +29,7 @@ from pytorch_geometric_tpu_torch.datasets.tu_dataset import (  # noqa: F401
     TUDataset,
 )
 
-__all__ = ["CITATION_SHAPES", "CoraFull", "Entities", "MNISTSuperpixels",
-           "PPI", "Planetoid", "QM9", "TUDataset", "synthetic_citation_graph",
+__all__ = ["Amazon", "CITATION_SHAPES", "CoraFull", "Entities", "FAUST",
+           "MNISTSuperpixels", "ModelNet", "PPI", "Planetoid", "QM9",
+           "Reddit", "TUDataset", "synthetic_citation_graph",
            "synthetic_graph_classification"]

@@ -4,37 +4,52 @@
 Counterpart of ``pytorch_geometric_tpu/datasets/molecules.py``
 (reference: examples/qm9_nn_conv.py:52, examples/rgcn.py:11,
 examples/mnist_graclus.py). No download is attempted and nothing is
-written under ``root``.
+written under ``root``. Each reads its raw release where it is under
+``<root>/.../raw/`` (the readers of ``datasets/io.py``), and otherwise
+builds the JAX package's synthetic corpus, draw for draw, flagged via
+``dataset.is_synthetic``.
 
 ``Entities``: one relational graph per corpus, ``edge_index`` (2, E),
 ``edge_type`` (E,), labels ``y`` (N,) with -1 for unlabelled entities,
 ``train_idx`` / ``test_idx`` over the labelled ones. Resolution order:
 
-1. ``<root>/entities/<name>/raw/<name>.npz``: the arrays above, as saved
-   with ``np.savez`` (plain arrays only; nothing is unpickled);
-2. otherwise the deterministic synthetic graph with the corpus's shapes,
-   the JAX package's generator draw for draw, flagged via
-   ``dataset.is_synthetic``: ``int(N * scale)`` entities, six random
-   typed edges per entity, labels from the parity of relation 0's
-   in-degree, an 80/20 split of the labelled entities. ``scale=1.0``
-   gives MUTAG-RDF's published size (23,644 entities, 141,864 edges, 46
-   relations, 2 classes).
+1. ``<name>.tgz``, the RDF release: ``<name>_stripped.nt.gz`` (or
+   ``.nt``) and the ``trainingSet.tsv`` / ``testSet.tsv`` splits; every
+   subject and object an entity, every predicate a relation in both
+   directions (``2 r`` and ``2 r + 1``);
+2. ``<name>.npz``: the arrays above, as saved with ``np.savez`` (plain
+   arrays only; nothing is unpickled);
+3. the synthetic graph with the corpus's shapes: ``int(N * scale)``
+   entities, six random typed edges per entity, labels from the parity
+   of relation 0's in-degree, an 80/20 split of the labelled entities.
+   ``scale=1.0`` gives MUTAG-RDF's published size (23,644 entities,
+   141,864 edges, 46 relations, 2 classes).
 
-``QM9`` and ``MNISTSuperpixels``: the JAX package's synthetic branches,
-draw for draw. Their raw releases are refused with an error rather than
-replaced by synthetic graphs: the readers of the ``.xyz`` archive and of
-the torch-saved ``.pt`` files (``datasets/io.py``) and of the RDF
-``.tgz`` of ``Entities`` come with ROADMAP Queue A 4b, and the JAX
-package's ``qm9.npz`` holds pickled records, which the port does not
-unpickle.
+``QM9``: the GDB-9 release ``dsgdb9nsd.xyz.tar.bz2`` (one ``.xyz``
+record a molecule, bonds guessed from the interatomic distances), or
+the synthetic corpus. The JAX package's ``qm9.npz`` holds pickled
+records, which the port does not unpickle: it is refused with an error.
+
+``MNISTSuperpixels``: PyG's raw ``training.pt`` / ``test.pt`` (a
+torch-saved tuple ``(x, edge_index, edge_slice, pos, y)``, 75 nodes a
+graph, loaded with ``weights_only=True``), or the synthetic corpus.
 """
 
+import gzip
 import os.path as osp
 
 import numpy as np
 
+from pytorch_geometric_tpu_torch.cluster import knn_graph
 from pytorch_geometric_tpu_torch.data.data import Data
 from pytorch_geometric_tpu_torch.data.dataset import InMemoryDataset
+from pytorch_geometric_tpu_torch.datasets.io import (
+    iter_tar_members,
+    load_torch_tuple,
+    parse_entities_rdf,
+    qm9_distance_bonds,
+    read_qm9_xyz,
+)
 
 
 class Entities(InMemoryDataset):
@@ -55,9 +70,13 @@ class Entities(InMemoryDataset):
         super().__init__(osp.join(root, "entities", self.name), transform,
                          pre_transform)
 
+    #: (entity column, label column) of each corpus's split files.
+    TSV_COLS = {"mutag": ("bond", "label_mutagenic"),
+                "aifb": ("person", "label_affiliation")}
+
     @property
     def raw_file_names(self):
-        return [f"{self.name}.npz"]
+        return [f"{self.name}.npz", f"{self.name}.tgz"]
 
     @property
     def num_relations(self):
@@ -69,6 +88,8 @@ class Entities(InMemoryDataset):
 
     def process_full(self):
         n_full, R, C, n_lab = self.SHAPES[self.name]
+        if osp.exists(self.raw_paths[1]):
+            return [self._read_rdf(self.raw_paths[1])]
         if osp.exists(self.raw_paths[0]):
             with np.load(self.raw_paths[0]) as fz:
                 return [Data(**{k: fz[k] for k in fz.files})]
@@ -91,13 +112,23 @@ class Entities(InMemoryDataset):
                      y=y, train_idx=train_idx, test_idx=test_idx,
                      num_nodes_hint=np.zeros(n, dtype=np.int8))]
 
-
-def _refuse_raw(dataset, paths):
-    present = [p for p in paths if osp.exists(p)]
-    if present:
-        raise NotImplementedError(
-            f"{type(dataset).__name__}: the port reads no raw release yet "
-            f"({present}); delete it to use the synthetic corpus")
+    def _read_rdf(self, path):
+        nt = train_tsv = test_tsv = None
+        for name, blob in iter_tar_members(path, ""):
+            if name.endswith(".nt.gz"):
+                nt = gzip.decompress(blob)
+            elif name.endswith(".nt"):
+                nt = blob
+            elif "trainingSet" in name:
+                train_tsv = blob
+            elif "testSet" in name:
+                test_tsv = blob
+        parsed = parse_entities_rdf(nt, train_tsv, test_tsv,
+                                    *self.TSV_COLS[self.name])
+        n = parsed.pop("num_nodes")
+        parsed.pop("num_relations")
+        parsed.pop("num_classes")
+        return Data(num_nodes_hint=np.zeros(n, dtype=np.int8), **parsed)
 
 
 class QM9(InMemoryDataset):
@@ -118,7 +149,19 @@ class QM9(InMemoryDataset):
         return ["qm9.npz", "dsgdb9nsd.xyz.tar.bz2"]
 
     def process_full(self):
-        _refuse_raw(self, self.raw_paths)
+        if osp.exists(self.raw_paths[1]):
+            out = []
+            for _, blob in iter_tar_members(self.raw_paths[1], ".xyz"):
+                x, pos, y = read_qm9_xyz(blob)
+                ei, ea = qm9_distance_bonds(pos)
+                out.append(Data(x=x, edge_index=ei, edge_attr=ea, pos=pos,
+                                y=y))
+            return out
+        if osp.exists(self.raw_paths[0]):
+            raise NotImplementedError(
+                f"QM9: the raw release {self.raw_paths[0]} holds pickled "
+                "records, which the port does not load; use the .xyz "
+                "release, or delete it for the synthetic corpus")
         self.is_synthetic = True
         rng = np.random.default_rng(17)
         out = []
@@ -148,20 +191,6 @@ class QM9(InMemoryDataset):
         return out
 
 
-def _knn_graph(pos, k):
-    """``(senders, receivers)`` of each point's ``k`` nearest other
-    points, receivers ascending and each one's neighbours by distance:
-    ``cluster.knn_graph(pos, k)`` of the JAX package, whose numpy path
-    sorts the k + 1 nearest (the point itself first) the same way."""
-    p = np.asarray(pos, dtype=np.float64)
-    d2 = ((p[:, None, :] - p[None, :, :]) ** 2).sum(-1)
-    near = np.argsort(d2, axis=1, kind="stable")[:, :k + 1]
-    rows = np.repeat(np.arange(p.shape[0]), k + 1)
-    cols = near.reshape(-1)
-    keep = rows != cols
-    return cols[keep], rows[keep]
-
-
 class MNISTSuperpixels(InMemoryDataset):
     """75-node superpixel MNIST graphs (reference ConvexPruning.py:515).
     The synthetic corpus: 75 random superpixels a graph, 8 nearest
@@ -183,7 +212,8 @@ class MNISTSuperpixels(InMemoryDataset):
         return ["training.pt" if self.train else "test.pt"]
 
     def process_full(self):
-        _refuse_raw(self, self.raw_paths)
+        if osp.exists(self.raw_paths[0]):
+            return self._read_pt(self.raw_paths[0])
         self.is_synthetic = True
         rng = np.random.default_rng(5 if self.train else 6)
         out = []
@@ -196,7 +226,23 @@ class MNISTSuperpixels(InMemoryDataset):
                 pos[:, None, :] / 25.0 - centers[y][None], axis=-1)
             x = np.exp(-8.0 * d.min(axis=1))[:, None].astype(np.float32)
             x += rng.normal(0, 0.05, size=x.shape).astype(np.float32)
-            s, r = _knn_graph(pos, k=8)
+            s, r = knn_graph(pos, k=8)
             out.append(Data(x=x, edge_index=np.stack([s, r]), pos=pos,
                             y=np.int64(y)))
+        return out
+
+    @staticmethod
+    def _read_pt(path, n=75):
+        x, edge_index, edge_slice, pos, y = load_torch_tuple(path)
+        m = int(y.shape[0])
+        x = x.reshape(m, n, -1).astype(np.float32)
+        pos = pos.reshape(m, n, 2).astype(np.float32)
+        out = []
+        for i in range(m):
+            lo, hi = int(edge_slice[i]), int(edge_slice[i + 1])
+            ei = edge_index[:, lo:hi].astype(np.int64)
+            if ei.size and ei.min() >= n * i:
+                ei = ei - n * i     # the files' global node ids
+            out.append(Data(x=x[i], edge_index=ei, pos=pos[i],
+                            y=np.int64(y[i])))
         return out

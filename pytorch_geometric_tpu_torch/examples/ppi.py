@@ -77,19 +77,21 @@ def ppi_flash_op(graph: Graph) -> PackedFlashGat:
 
 
 class OperatorCache:
-    """One :func:`ppi_flash_op` per distinct batch of a loader, keyed by
-    the batch's dataset indices; ``seconds`` is the host time spent
+    """One operator per distinct batch of a loader, keyed by the batch's
+    dataset indices: ``build(graph)`` (:func:`ppi_flash_op` by default)
+    on a batch's first sight; ``seconds`` is the host time spent
     building them."""
 
-    def __init__(self):
+    def __init__(self, build=None):
+        self.build = build or ppi_flash_op
         self.ops = {}
         self.seconds = 0.0
 
-    def __call__(self, indices, graph: Graph) -> PackedFlashGat:
+    def __call__(self, indices, graph: Graph):
         key = tuple(int(i) for i in indices)
         if key not in self.ops:
             t0 = time.perf_counter()
-            self.ops[key] = ppi_flash_op(graph)
+            self.ops[key] = self.build(graph)
             self.seconds += time.perf_counter() - t0
         return self.ops[key]
 

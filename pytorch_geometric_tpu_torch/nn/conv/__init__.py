@@ -53,6 +53,7 @@ from pytorch_geometric_tpu_torch.nn.conv.spline_conv import (  # noqa: F401
     SplineConv,
     spline_basis,
     spline_edge_sets,
+    spline_operator,
     spline_operators,
 )
 
@@ -64,4 +65,5 @@ __all__ = ["AGNNConv", "ARMAConv", "ChebConv", "DNAConv", "DenseSAGEConv",
            "gat_dense_adj", "gat_edge_set", "gat_sparse_edge_set",
            "gcn_edge_set", "gcn_norm",
            "gcn_norm_dense", "rgcn_fused_op", "rgcn_norm", "sgc_precompute",
-           "spline_basis", "spline_edge_sets", "spline_operators"]
+           "spline_basis", "spline_edge_sets", "spline_operator",
+           "spline_operators"]

@@ -9,17 +9,23 @@ is ``x_j @ sum_s b_s W[k_s]``; then the root weight and the bias.
 The JAX module sums ``b x_j`` into an (N·K, F_in) accumulator by the
 fused segment id ``receiver·K + kernel index`` and contracts it with
 the (K·F_in, C) weight in one matrix product. That accumulator is a
-weighted SpMM with N·K rows and N columns. The port's ``SpmmOperator``
-is square, so the accumulator is split by kernel index: operator k holds
-the entries (receiver r, sender s, weight b) whose kernel index is k,
-and ``A = cat_k(A_k)`` along the features is the JAX ``(N·K, F_in) ->
-(N, K·F_in)`` reshape. The pseudo-coordinates are data, so the K
-operators and their basis weights are built on the host once
-(:func:`spline_operators`) and bound: K ``spmm_csr`` launches a forward
-on a CUDA tensor. Without them, on the CPU only, the JAX module's fused
-segment sum.
+weighted SpMM with N·K rows and N columns. The pseudo-coordinates are
+data, so the operator is built on the host once per graph and bound:
+
+- :func:`spline_operator`: the one rectangular operator, row
+  ``receiver·K + kernel index``, column ``sender``, value the B-spline
+  weight (``ops/spmm.py:spmm_bi_static``); its (N·K, F_in) output
+  reshapes to (N, K·F_in) as the JAX accumulator does. One
+  ``spmm_csr`` launch a forward, one for ``dx``. Pass it as
+  ``spline_op``.
+- :func:`spline_operators`: the accumulator split by kernel index into K
+  square operators, whose outputs are concatenated along the features:
+  K launches a forward. Pass the list as ``spline_fns``.
+
+Without either, on the CPU only, the JAX module's fused segment sum.
 """
 
+import functools
 import itertools
 import math
 from typing import Optional
@@ -33,7 +39,8 @@ from pytorch_geometric_tpu_torch.nn.inits import uniform
 from pytorch_geometric_tpu_torch.nn.message_passing import require_cpu
 from pytorch_geometric_tpu_torch.ops.csr import host_array
 from pytorch_geometric_tpu_torch.ops.segment import segment_sum
-from pytorch_geometric_tpu_torch.ops.spmm import SpmmOperator
+from pytorch_geometric_tpu_torch.ops.spmm import (
+    SpmmOperator, pack_bipartite_tables, spmm_bi_static)
 from pytorch_geometric_tpu_torch.utils.repeat import repeat
 
 
@@ -97,6 +104,23 @@ def _spline_shape(dim, kernel_size, is_open_spline):
     return ks, math.prod(ks), repeat(1 if is_open_spline else 0, dim)
 
 
+def _spline_entries(graph: Graph, dim: int, kernel_size, is_open_spline,
+                    degree, pseudo):
+    """The accumulator's (edge, corner) entries as host arrays:
+    ``(senders, receivers, kernel indices, basis weights, K)``, without
+    padding edges and entries of weight 0 (they add nothing)."""
+    ks, K, open_ = _spline_shape(dim, kernel_size, is_open_spline)
+    pseudo = graph.edge_attr if pseudo is None else pseudo
+    b, idx = spline_basis(pseudo.float(), ks, open_, degree)
+    b = torch.where(graph.real_edge_mask()[:, None], b, 0.0)
+    S = b.shape[1]
+    b, idx = host_array(b).reshape(-1), host_array(idx).reshape(-1)
+    keep = b != 0
+    s = np.repeat(host_array(graph.senders), S)[keep]
+    r = np.repeat(host_array(graph.receivers), S)[keep]
+    return s, r, idx[keep], b[keep], K
+
+
 def spline_edge_sets(graph: Graph, dim: int, kernel_size,
                      is_open_spline: bool = True, degree: int = 1,
                      pseudo=None):
@@ -105,16 +129,9 @@ def spline_edge_sets(graph: Graph, dim: int, kernel_size,
     corner) pairs whose kernel index is k. ``pseudo`` defaults to
     ``graph.edge_attr``. Padding edges and entries of weight 0 are left
     out (they add nothing)."""
-    ks, K, open_ = _spline_shape(dim, kernel_size, is_open_spline)
-    pseudo = graph.edge_attr if pseudo is None else pseudo
-    b, idx = spline_basis(pseudo.float(), ks, open_, degree)
-    b = torch.where(graph.real_edge_mask()[:, None], b, 0.0)
-    S = b.shape[1]
-    b, idx = host_array(b).reshape(-1), host_array(idx).reshape(-1)
-    s = np.repeat(host_array(graph.senders), S)
-    r = np.repeat(host_array(graph.receivers), S)
-    return [(s[sel], r[sel], b[sel])
-            for sel in ((idx == k) & (b != 0) for k in range(K))]
+    s, r, idx, b, K = _spline_entries(graph, dim, kernel_size,
+                                      is_open_spline, degree, pseudo)
+    return [(s[sel], r[sel], b[sel]) for sel in (idx == k for k in range(K))]
 
 
 def spline_operators(graph: Graph, dim: int, kernel_size,
@@ -126,6 +143,23 @@ def spline_operators(graph: Graph, dim: int, kernel_size,
     return [SpmmOperator(s, r, graph.num_nodes, device=graph.device).bind(b)
             for s, r, b in spline_edge_sets(graph, dim, kernel_size,
                                             is_open_spline, degree, pseudo)]
+
+
+def spline_operator(graph: Graph, dim: int, kernel_size,
+                    is_open_spline: bool = True, degree: int = 1,
+                    pseudo=None, compute_dtype=torch.float32):
+    """The accumulator of a ``SplineConv`` of this configuration on
+    ``graph`` as one bound rectangular SpMM, ``x (N, F) -> (N·K, F)``, on
+    the graph's device: pass it as ``spline_op``. Built on the host in one
+    pass over the fused row id ``receiver·K + kernel index``; within a row
+    the entries keep their (edge, corner) order. Differentiable in x."""
+    s, r, idx, b, K = _spline_entries(graph, dim, kernel_size,
+                                      is_open_spline, degree, pseudo)
+    n = graph.num_nodes
+    geom, consts = pack_bipartite_tables(
+        s, r.astype(np.int64) * K + idx, n, n * K, b,
+        compute_dtype=compute_dtype, device=graph.device)
+    return functools.partial(spmm_bi_static, geom, consts)
 
 
 class SplineConv(nn.Module):
@@ -151,15 +185,19 @@ class SplineConv(nn.Module):
         self.bias = nn.Parameter(uniform(F)((C,), generator)) \
             if use_bias else None
 
-    def forward(self, graph: Graph, x, pseudo=None, spline_fns=None):
+    def forward(self, graph: Graph, x, pseudo=None, spline_fns=None,
+                spline_op=None):
         N, F = graph.num_nodes, x.shape[-1]
         ks, K, open_ = _spline_shape(self.dim, self.kernel_size,
                                      self.is_open_spline)
         em = graph.real_edge_mask()
-        if spline_fns is not None:
+        if spline_op is not None:
+            A = spline_op(x).reshape(N, K * F)
+        elif spline_fns is not None:
             A = torch.cat([fn(x) for fn in spline_fns], dim=1)
         else:
-            require_cpu(x, "SplineConv", "spline_fns (spline_operators)")
+            require_cpu(x, "SplineConv",
+                        "spline_op (spline_operator) or spline_fns")
             pseudo = graph.edge_attr if pseudo is None else pseudo
             b, idx = spline_basis(pseudo, ks, open_, self.degree)
             b = torch.where(em[:, None], b, 0.0)

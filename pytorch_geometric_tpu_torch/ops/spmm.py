@@ -10,7 +10,15 @@ Counterpart of ``pytorch_geometric_tpu/ops/spmm.py``:
    does the same with the routed weights as an explicit argument.
    Forward and ``dx`` both run :func:`spmm_csr`, over the
    receiver-major CSR and over its transpose.
-3. :func:`spmm_csr` — the wrapper of the hand-written CUDA kernel
+3. The static forms, with the routed weights as explicit arguments:
+   :func:`spmm_static` over a :class:`SpmmGeom` (square, what
+   ``SpmmOperator.bind_external`` returns), and :func:`spmm_bi_static`
+   over a :class:`BiSpmmGeom` (rectangular: ``n_src`` input rows,
+   ``n_dst`` output rows; built by :func:`pack_bipartite_tables`). The
+   geometry holds the forward CSR (``n_dst`` x ``n_src``), its transpose
+   and the sizes; the JAX package's windows and tiles have no
+   counterpart. Both are differentiable in x only.
+4. :func:`spmm_csr` — the wrapper of the hand-written CUDA kernel
    ``csrc/spmm_csr.cu``, which replaces the Pallas kernel
    ``ops/spmm.py:_spmm_kernel`` of the JAX package. What bounds it is
    bytes; its source says how its design meets that. Beside it:
@@ -23,7 +31,9 @@ fails: there is no fallback.
 """
 
 import ctypes
+import dataclasses
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -206,18 +216,17 @@ class SpmmOperator:
     def bind_external(self, weights):
         """Static-weight SpMM with the routed weights as an explicit
         argument, as the JAX ``bind_external``: returns ``(fn, consts)``
-        where ``consts`` holds both CSRs' values and ``fn(consts, x)``
-        equals ``bind(weights)(x)``, differentiable in x."""
+        where ``consts`` holds both CSRs' values and ``fn(consts, x)`` is
+        :func:`spmm_static` over this operator's geometry; it equals
+        ``bind(weights)(x)`` and is differentiable in x."""
         val_f, val_b = self.route_weights(weights)
-        return functools.partial(_static_spmm, self), {"fwd": val_f,
-                                                       "bwd": val_b}
+        geom = SpmmGeom.make(self.fwd, self.bwd, self.num_nodes,
+                             _compute_name(self.compute_dtype))
+        return functools.partial(spmm_static, geom), {"fwd": val_f,
+                                                      "bwd": val_b}
 
     def __call__(self, weights, x):
         return _SpmmApply.apply(weights, x, self)
-
-
-def _static_spmm(op: SpmmOperator, consts, x):
-    return _BoundSpmm.apply(x, op, consts["fwd"], consts["bwd"])
 
 
 class _BoundSpmm(torch.autograd.Function):
@@ -228,6 +237,9 @@ class _BoundSpmm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.op.bwd is None:
+            raise RuntimeError("this operator was built for the forward "
+                               "direction only: no gradient in x")
         dx = ctx.op._run(ctx.op.bwd, ctx.val_b, g.float())
         return dx.to(ctx.x_dtype), None, None, None
 
@@ -251,3 +263,110 @@ class _SpmmApply(torch.autograd.Function):
             dw = (g[op.receivers] * x[op.senders].float()).sum(-1)
             dw = dw.to(weights.dtype)
         return dw, dx, None
+
+
+# ---------------------------------------------------------------------------
+# The static forms: explicit-argument and rectangular SpMM
+# ---------------------------------------------------------------------------
+
+_COMPUTE = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _compute_name(dtype) -> str:
+    for name, dt in _COMPUTE.items():
+        if dt == dtype:
+            return name
+    raise TypeError(f"compute_dtype must be float32 or bfloat16, got {dtype}")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BiSpmmGeom:
+    """Static geometry of :func:`spmm_bi_static`: ``fwd``, the CSR of
+    ``n_dst`` rows over ``n_src`` columns; ``bwd``, its transpose (None
+    for a forward-only operator); ``compute``, ``"f32"`` or ``"bf16"``
+    (x handed to the kernel in bf16, products and sums in fp32)."""
+
+    fwd: Csr
+    bwd: Optional[Csr]
+    n_src: int
+    n_dst: int
+    compute: str = "bf16"
+
+    @staticmethod
+    def make(fwd: Csr, bwd: Optional[Csr], n_src_nodes: int,
+             n_dst_nodes: int, compute: str = "bf16") -> "BiSpmmGeom":
+        return BiSpmmGeom(fwd, bwd, int(n_src_nodes), int(n_dst_nodes),
+                          compute)
+
+    def __post_init__(self):
+        if self.compute not in _COMPUTE:
+            raise ValueError(f"compute must be one of {sorted(_COMPUTE)}, "
+                             f"got {self.compute!r}")
+        if (self.fwd.num_rows, self.fwd.num_cols) != (self.n_dst,
+                                                      self.n_src):
+            raise ValueError(f"fwd CSR is {self.fwd.num_rows} x "
+                             f"{self.fwd.num_cols}, expected {self.n_dst} x "
+                             f"{self.n_src}")
+        if self.bwd is not None and (self.bwd.num_rows, self.bwd.num_cols) \
+                != (self.n_src, self.n_dst):
+            raise ValueError("bwd CSR must be the transpose of fwd")
+
+    def _run(self, csr: Csr, val, x):
+        return spmm_csr(csr, val, x.to(_COMPUTE[self.compute]))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SpmmGeom(BiSpmmGeom):
+    """Static geometry of :func:`spmm_static`: a square
+    :class:`BiSpmmGeom` of ``num_nodes`` rows (what
+    ``SpmmOperator.bind_external`` returns)."""
+
+    @property
+    def num_nodes(self) -> int:
+        return self.n_src
+
+    @staticmethod
+    def make(fwd: Csr, bwd: Optional[Csr], num_nodes: int,
+             compute: str = "f32") -> "SpmmGeom":
+        return SpmmGeom(fwd, bwd, int(num_nodes), int(num_nodes), compute)
+
+
+def spmm_static(geom: SpmmGeom, consts, x):
+    """``out = A x`` with static weights: ``consts`` holds each CSR's
+    values (``{"fwd": ..., "bwd": ...}``, from
+    ``SpmmOperator.bind_external``). One ``spmm_csr`` a direction;
+    differentiable in x (the backward runs the transposed CSR)."""
+    return _BoundSpmm.apply(x, geom, consts["fwd"], consts.get("bwd"))
+
+
+def spmm_bi_static(geom: BiSpmmGeom, consts, x):
+    """``out (n_dst, F) = A x (n_src, F)`` with static weights (from
+    :func:`pack_bipartite_tables`); differentiable in x, with ``dx`` in
+    x's dtype."""
+    return _BoundSpmm.apply(x, geom, consts["fwd"], consts.get("bwd"))
+
+
+def pack_bipartite_tables(senders, receivers, n_src, n_dst, weights, *,
+                          compute_dtype=torch.bfloat16,
+                          directions=("fwd", "bwd"), device="cuda"):
+    """``(geom, consts)`` of :func:`spmm_bi_static` for the edges
+    ``senders[e]`` (< ``n_src``) -> ``receivers[e]`` (< ``n_dst``) with
+    static ``weights``, built on the host and moved to ``device``:
+    ``consts["fwd"]`` maps the src rows to the dst rows and
+    ``consts["bwd"]`` the transpose, the weights routed into each CSR's
+    order. ``directions=("fwd",)`` builds the forward only."""
+    from pytorch_geometric_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    s, r = host_array(senders), host_array(receivers)
+    w = torch.from_numpy(np.asarray(host_array(weights), dtype=np.float32))
+    csrs, consts = {}, {}
+    for which, (rows, cols, nr, nc) in (("fwd", (r, s, n_dst, n_src)),
+                                        ("bwd", (s, r, n_src, n_dst))):
+        if which in directions:
+            csr = build_csr(rows, cols, int(nr), int(nc))
+            csrs[which] = csr.to(dev)
+            consts[which] = w[csr.perm].contiguous().to(dev)
+    geom = BiSpmmGeom.make(csrs["fwd"], csrs.get("bwd"), n_src, n_dst,
+                           _compute_name(compute_dtype))
+    return geom, consts

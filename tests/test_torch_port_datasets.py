@@ -213,11 +213,24 @@ def test_mnist_superpixels_synthetic_branch_matches_jax(train, tmp_path):
                                       (MNISTSuperpixels, "training.pt")])
 def test_raw_releases_that_the_port_cannot_read_are_refused(cls, name,
                                                             tmp_path):
+    """QM9's ``qm9.npz`` holds pickled records; a ``.pt`` file that holds
+    anything but tensors is refused by ``torch.load(weights_only=True)``
+    (PyG's tuples of tensors load)."""
+    import fractions
+    import pickle
+
+    import torch
+
     sub = "qm9" if cls is QM9 else "mnist_superpixels/train"
     raw = tmp_path / sub / "raw"
     raw.mkdir(parents=True)
-    (raw / name).write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="raw release"):
+    if cls is QM9:
+        (raw / name).write_bytes(b"")
+        with pytest.raises(NotImplementedError, match="raw release"):
+            cls(str(tmp_path))
+        return
+    torch.save((torch.zeros(75, 1), fractions.Fraction(1, 3)), raw / name)
+    with pytest.raises(pickle.UnpicklingError):
         cls(str(tmp_path))
 
 

@@ -6,9 +6,10 @@ run), the same printed lines (the JAX script's f-strings, from its tree),
 the same fields returned, and the same graph, built by the JAX package's
 own calls in the same process (the synthetic corpora seed from the
 process's string hash, so only one process gives both the same draw).
-``ppi.py``'s flags and line too, and its loaders' batches against the
-JAX script's (its model is held to the JAX script's in
-``tests/test_torch_port_ppi.py``)."""
+``ppi.py``'s and ``faust.py``'s flags and line too, and their loaders'
+batches against the JAX scripts' (their models are held to the JAX
+scripts' in ``tests/test_torch_port_ppi.py`` and
+``tests/test_torch_port_faust.py``)."""
 
 import ast
 import itertools
@@ -20,23 +21,27 @@ import pytest
 import torch
 
 from pytorch_geometric_tpu.data import from_data as j_from_data
+from pytorch_geometric_tpu.datasets import FAUST as JFAUST
 from pytorch_geometric_tpu.datasets import Entities as JEntities
 from pytorch_geometric_tpu.data import DataLoader as JDataLoader
 from pytorch_geometric_tpu.datasets import PPI as JPPI
 from pytorch_geometric_tpu.datasets import Planetoid as JPlanetoid
+from pytorch_geometric_tpu.transforms import Cartesian as JCartesian
+from pytorch_geometric_tpu.transforms import Compose as JCompose
+from pytorch_geometric_tpu.transforms import FaceToEdge as JFaceToEdge
 from pytorch_geometric_tpu.transforms import NormalizeFeatures as JNormalize
 from pytorch_geometric_tpu.transforms import TargetIndegree as JTargetIndegree
 from pytorch_geometric_tpu.utils.reorder import (
     reorder_graph as j_reorder_graph)
 from pytorch_geometric_tpu_torch.data import Data, InMemoryDataset
 from pytorch_geometric_tpu_torch.examples import (
-    citation_suite, gat, gcn, ppi, rgcn)
+    citation_suite, faust, gat, gcn, ppi, rgcn)
 from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
 from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
 
 REPO = Path(__file__).resolve().parents[1]
 EXAMPLES = {"gcn": gcn, "gat": gat, "rgcn": rgcn,
-            "citation_suite": citation_suite, "ppi": ppi}
+            "citation_suite": citation_suite, "ppi": ppi, "faust": faust}
 
 
 def _tree(path):
@@ -268,3 +273,41 @@ def test_ppi_example_loads_the_jax_scripts_batches(tmp_path):
     for port, ref in zip(got, want, strict=True):
         _same_graph(port, ref, ("x", "senders", "receivers", "y",
                                 "node_mask", "edge_mask", "batch"))
+
+
+def test_faust_example_run_prints_the_jax_scripts_line(capsys):
+    train, test = faust.load(seed=0, num_vertices=50, device="cpu")
+    train.dataset, test.dataset = train.dataset[:3], test.dataset[:2]
+    out = faust.run(2, loaders=(train, test), device="cpu")
+    lines = capsys.readouterr().out.splitlines()
+    (pattern,) = _printed_lines(REPO / "examples" / "faust.py")
+    assert len(lines) == 2 and all(pattern.match(ln) for ln in lines)
+    assert [ln.split(",")[0] for ln in lines] == ["Epoch 01", "Epoch 02"]
+    assert len(out["epoch_losses"]) == 2 and 0.0 <= out["acc"] <= 1.0
+
+
+def test_faust_example_loads_the_jax_scripts_batches(tmp_path):
+    """The port's loaders over its FAUST give the JAX script's batches,
+    in its order, one epoch after the one the scripts draw to shape the
+    model: the same meshes, padded to the same budgets, with the same
+    Cartesian pseudo-coordinates."""
+    train, test = faust.load(seed=0, num_vertices=50,
+                             root=tmp_path / "port", device="cpu")
+    pre = JCompose([JFaceToEdge(), JCartesian()])
+    jtrain = JDataLoader(JFAUST(str(tmp_path / "jax"), train=True,
+                                pre_transform=pre, num_vertices=50),
+                         batch_size=1, shuffle=True, seed=0)
+    jtest = JDataLoader(JFAUST(str(tmp_path / "jax"), train=False,
+                               pre_transform=pre, num_vertices=50),
+                        batch_size=1)
+    assert (len(train), len(test)) == (80, 20)
+    assert (train.num_nodes, train.num_edges) == (jtrain.num_nodes,
+                                                  jtrain.num_edges)
+    next(iter(train))
+    next(iter(jtrain))
+    got = list(itertools.islice(train, 3)) + list(itertools.islice(test, 2))
+    want = list(itertools.islice(jtrain, 3)) + list(itertools.islice(jtest,
+                                                                      2))
+    for port, ref in zip(got, want, strict=True):
+        _same_graph(port, ref, ("senders", "receivers", "edge_attr", "y",
+                                "node_mask", "edge_mask"))

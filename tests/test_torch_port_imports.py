@@ -92,7 +92,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "datasets.planetoid", "transforms.compose",
                  "transforms.structure", "utils.convert",
                  "utils.normalized_cut", "utils.k_hop_subgraph",
-                 "utils.networkx_convert", "examples.ppi"):
+                 "utils.networkx_convert", "examples.ppi", "cluster",
+                 "cluster._native", "transforms.points",
+                 "transforms.coarsen_levels", "datasets.io",
+                 "datasets.meshes", "datasets.large_graphs",
+                 "examples.faust"):
         assert f"pytorch_geometric_tpu_torch.{name}" in report["modules"]
     assert report["bad"] == []
 
@@ -166,6 +170,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ppi.run(epochs=1)
+    from pytorch_geometric_tpu_torch.examples import faust
+    from pytorch_geometric_tpu_torch.ops.spmm import pack_bipartite_tables
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        faust.run(epochs=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pack_bipartite_tables([0], [1], 1, 2, [1.0])
     rel = from_data(_tiny_relational_graph(), device="cpu")
     edges = (rel.senders, rel.receivers, rel.edge_type, 3, rel.num_nodes,
              np.ones(rel.num_edges, np.float32))
@@ -369,3 +380,26 @@ def test_citation_suite_defaults_to_cuda_and_raises_without_it(monkeypatch):
     for name in citation_suite.MODELS:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             citation_suite.train_suite(name, graph, 2, epochs=1)
+
+
+def test_a_failed_graphcore_build_raises(tmp_path, monkeypatch):
+    """The native library is built into the build directory, and a build
+    that fails raises: no cluster function falls back to numpy."""
+    from pytorch_geometric_tpu_torch import cluster
+    from pytorch_geometric_tpu_torch.cluster import _native
+
+    assert _native.BUILD_DIR == _build.BUILD_DIR
+    assert "-march=native" not in _native.CXX_FLAGS
+    monkeypatch.setattr(_native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_native, "_lib", None)
+    monkeypatch.setattr(_native, "CXX", str(tmp_path / "no-such-compiler"))
+    with pytest.raises(RuntimeError, match="graphcore build failed"):
+        cluster.fps(np.zeros((4, 3)))
+    bad = tmp_path / "bad.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(_native, "CXX", "g++")
+    monkeypatch.setattr(_native, "SOURCE", bad)
+    with pytest.raises(RuntimeError, match="exited"):
+        cluster.knn_graph(np.zeros((4, 3)), 2)
+    assert list(tmp_path.glob("*.so")) == []
+    assert list(tmp_path.glob("*.tmp")) == []

@@ -6,7 +6,9 @@ GPU and the port alone:
 
 Where there is no card they skip (CUDA kernels have no CPU mode); the
 CPU-side behaviour of each wrapper is covered in the other
-``tests/test_torch_port_*.py`` files. Kernels: ``spmm_csr``, the
+``tests/test_torch_port_*.py`` files. Kernels: ``spmm_csr`` (square and
+rectangular CSRs, FAUST's spline operator, examples/faust.py's ``Net``
+against the CPU), the
 packed-GAT forward and backward, the packed-RGCN forward and backward,
 the dense-mask flash-GAT forward and backward, the block-sparse GAT
 forward, row pass and column pass, the sorted segment sum, the fused
@@ -1663,3 +1665,72 @@ def test_propagate_on_card_needs_its_operator(cuda_device):
                                       * xi, aggr="mean", **cops))):
         err = float((got.cpu() - want).abs().max() / want.abs().max())
         assert err <= 1e-5, err
+
+
+@pytest.mark.cuda
+def test_spmm_csr_on_rectangular_operators_on_card(cuda_device):
+    """``spmm_csr`` on CSRs whose rows and columns differ, both ways
+    round, and on a FAUST mesh's spline operator (N·125 rows over N
+    columns: most rows empty, the rest 1-3 entries; its transpose ~47 a
+    row), forward and transposed, at F = 1, 32 and 64 (examples/faust.py's
+    widths), fp32 1e-5 and bf16 x 1e-2 against the plain version, two
+    launches bitwise equal."""
+    from pytorch_geometric_tpu_torch.examples import faust
+
+    rng = np.random.default_rng(9)
+    for n_src, n_dst in ((N, 3 * N), (3 * N, N)):
+        s = rng.integers(0, n_src, 4000)
+        r = rng.integers(0, n_dst - 30, 4000)
+        w = torch.from_numpy(rng.normal(size=4000).astype(np.float32))
+        for rows, cols, nr, nc in ((r, s, n_dst, n_src),
+                                   (s, r, n_src, n_dst)):
+            csr = build_csr(rows, cols, nr, nc).to(cuda_device)
+            val = w.to(cuda_device)[csr.perm]
+            for f in (1, 32, 64, 300):
+                x = torch.randn(nc, f, device=cuda_device)
+                _vs_plain(csr, val, x, 1e-5)
+                _vs_plain(csr, val, x.bfloat16(), 1e-2)
+    train, _ = faust.load(num_vertices=684, device=cuda_device)
+    geom, consts = faust.faust_spline_op(next(iter(train))).args
+    for csr, val in ((geom.fwd, consts["fwd"]), (geom.bwd, consts["bwd"])):
+        for f in (1, 32, 64):
+            _vs_plain(csr, val, torch.randn(csr.num_cols, f,
+                                            device=cuda_device), 1e-5)
+
+
+@pytest.mark.cuda
+def test_faust_net_on_card_matches_cpu(cuda_device):
+    """examples/faust.py's ``Net`` at 684 vertices: one forward and one
+    backward through the spline operator on the card (6 + 5 ``spmm_csr``
+    launches: conv1's input takes no gradient) against the same model
+    on the CPU: logits and every parameter's gradient 1e-4."""
+    from pytorch_geometric_tpu_torch.examples import faust
+    from pytorch_geometric_tpu_torch.models.capture import launch_counts
+
+    train, _ = faust.load(num_vertices=684, device=cuda_device)
+    graph = next(iter(train))
+    cpu_graph = graph.to("cpu")
+    nv = train.dataset[0].num_nodes
+    net = faust.Net(nv, generator=torch.Generator().manual_seed(0))
+    cpu_net = faust.Net(nv)
+    cpu_net.load_state_dict(net.state_dict())
+    net.to(cuda_device)
+    op = faust.faust_spline_op(graph)
+    before = launch_counts()["spmm_csr"]
+    logits = net(graph, spline_op=op)
+    torch.cuda.synchronize()
+    assert launch_counts()["spmm_csr"] - before == 6
+    faust.nll_loss(logits, graph).backward()
+    torch.cuda.synchronize()
+    assert launch_counts()["spmm_csr"] - before == 11
+    want = cpu_net(cpu_graph, spline_op=faust.faust_spline_op(cpu_graph))
+    faust.nll_loss(want, cpu_graph).backward()
+    want = want.detach()
+    err = float((logits.detach().cpu() - want).abs().max()
+                / want.abs().max())
+    assert err <= 1e-4, err
+    cpu_params = dict(cpu_net.named_parameters())
+    for name, p in net.named_parameters():
+        b = cpu_params[name].grad
+        err = float((p.grad.cpu() - b).abs().max() / b.abs().max())
+        assert err <= 1e-4, (name, err)

@@ -46,13 +46,11 @@ EXEMPT = {
         "SpmmOperator.pack_weights": _TPU_PACKING,
         "SpmmOperator.pack_weights_host": _TPU_PACKING,
         "SpmmOperator.apply_packed": _TPU_PACKING,
-        # the static and bipartite SpMM forms
-        "SpmmGeom": _QUEUE_A.format(6),
-        "BiSpmmGeom": _QUEUE_A.format(6),
-        "spmm_static": _QUEUE_A.format(6),
-        "spmm_bi_static": _QUEUE_A.format(6),
-        "pack_bipartite_tables": _QUEUE_A.format(6),
-        "pad_bi_tables": _QUEUE_A.format(6)},
+        "pad_bi_tables": (
+            "pads TPU tile tables with no-op tiles so that shard_map "
+            "devices share one shape; the port's geometry holds the CSRs, "
+            "whose lengths need no common shape (its one caller, "
+            "parallel/fast.py, is " + _QUEUE_A.format(11) + ")")},
     "data/dataset.py": {"files_exist": _NO_CACHE, "makedirs": _NO_CACHE},
     "nn/conv/gcn_conv.py": {"gcn_closure_norm": _QUEUE_A.format(7)},
     "nn/conv/rgcn_conv.py": {"rgcn_closure_norm": _QUEUE_A.format(7)},
@@ -91,6 +89,9 @@ EXEMPT_PARAMS_AT = {
         name: {"key": "a JAX PRNG key; the port draws from a torch "
                       "generator (generator=)"}
         for name in ("glorot", "kaiming_uniform", "ones", "zeros")},
+    "ops/spmm.py": {"SpmmGeom.make": {
+        p: _TPU_PACKING + " (counts of source and destination windows)"
+        for p in ("nsw_f", "ndw_f", "nsw_b", "ndw_b")}},
     "nn/conv/rgcn_conv.py": {"rgcn_fused_op": {
         "backend": "one fused operator: kernels on a CUDA graph, their "
                    "plain versions on a CPU graph (no switch to plain "
