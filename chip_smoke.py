@@ -94,6 +94,15 @@ Phases, one JSON line each:
                  F = 128, its layers' key-value gradients by sender at
                  1 to 4 x 256); fp32 (1e-5); two launches bitwise
                  equal;
+               - the graph-level examples' shapes: spmm_csr on a MUTAG
+                 batch's operator (examples/mutag_gin.py: 32 graphs
+                 padded to 1024 nodes and 4096 edges, the padding edges
+                 on the padding node's row) at F = 7 and 32, both
+                 directions; the readouts' segment sum over the batch
+                 vector (``pool_operator``: a row a graph, the padding
+                 graph's long) at MUTAG's F = 32, ENZYMES' 129 (the mean
+                 pool's 128 channels and count) and QM9's Set2Set 64 and
+                 1; QM9's NNConv messages by receiver at 64; fp32 (1e-5);
    kernel_faust — spmm_csr on examples/faust.py's rectangular spline
                operator of a mesh at the published vertex count (8192
                padded nodes x K = 125 rows over 8192 columns) and its
@@ -210,6 +219,26 @@ Phases, one JSON line each:
                seconds, peak device memory; the logits after three steps
                (dropout off), card against the plain path on the CPU at
                684 vertices (1e-4);
+   slice_mutag_gin — examples/mutag_gin.py's run (five GINConv over
+               MLPs 7 -> 32 -> 32 with MaskedBatchNorm, a trained eps,
+               global_add_pool, Dense 32 and 2; Adam 0.01, batches of 32,
+               30 epochs over the synthetic MUTAG of 188 graphs), eager,
+               one operator set a batch built on the host (the GIN sums'
+               SpmmOperator, the readout's SortedSegmentSum): launches
+               asserted as 30 x (6 train batches x (9 spmm_csr + 1
+               segment sum) + 1 test batch x (5 + 1)); the loss falling;
+               test accuracy beside the majority class's (not gated);
+               the logits after three steps (SGD), card against the
+               plain path on the CPU (1e-4);
+   slice_topk, slice_diff_pool, slice_qm9, slice_autoencoder,
+   slice_infomax — examples/enzymes_topk_pool.py (20 epochs),
+               enzymes_diff_pool.py (8), qm9_nn_conv.py (5, 1000
+               molecules), autoencoder.py (100, GAE then --variational)
+               and infomax.py (50, hidden 512, the port's logistic-
+               regression probe) at their defaults, eager: launches
+               asserted (GRAPH_EXAMPLES, AUTOENCODER_LAUNCHES,
+               INFOMAX_LAUNCHES; DiffPool none), the loss falling, the
+               output after three steps card against the CPU (1e-4);
    zoo       — every conv of the zoo (Part B's and the suite's) on Cora
                at 1433 -> 16, one forward and one backward through its
                operators on the card against its plain path on the CPU:
@@ -230,6 +259,9 @@ Phases, one JSON line each:
                cycling over its train batches (9 port launches a step);
    trace_faust — the same over 20 eager training steps of the FAUST
                example (11 port launches a step);
+   trace_mutag_gin — the same over 20 eager training steps of the MUTAG
+               example (10 port launches a step), with the host's
+               operator-set build time a batch;
 9. trace_captured_* — the same over 20 replays of the epoch captured as
                the trainers capture it, one phase per configuration; the
                port's launches per epoch must equal the eager count.
@@ -289,6 +321,34 @@ FAUST_EVAL_LAUNCHES = {"spmm_csr": 6}
 #: Receiver rows of the full-scale Reddit graph that the plain version
 #: sums (all of them would gather ~28 GB at F = 602).
 REDDIT_SLICE_ROWS = 20_000
+#: examples/mutag_gin.py: its default epochs, and the launches of one
+#: training step (5 GIN sums forward and 4 ``dx``, conv1's input taking
+#: none; the readout's segment sum, whose backward is a gather) and of one
+#: evaluation batch.
+MUTAG_EPOCHS = 30
+MUTAG_STEP_LAUNCHES = {"spmm_csr": 9, "sorted_segment_sum": 1}
+MUTAG_EVAL_LAUNCHES = {"spmm_csr": 5, "sorted_segment_sum": 1}
+#: The other graph-level examples at their default epochs, and the
+#: launches of a training step and of an evaluation batch (or, for the
+#: full-graph autoencoder and infomax, of an epoch and of their
+#: evaluations): enzymes_topk_pool 3 GraphConv sums and 2 ``dx``, a
+#: mean readout a level; qm9_nn_conv NNConv's three message sums and
+#: Set2Set's two sums a step forward, the two gathers' backward sums;
+#: the GAE's two GCN layers forward and back (the VGAE three), its test
+#: every 20 epochs; infomax's encoder twice forward and back an epoch,
+#: then once more for the embeddings; DiffPool none.
+GRAPH_EXAMPLES = {
+    "topk": ("enzymes_topk_pool", 20,
+             {"spmm_csr": 5, "sorted_segment_sum": 3},
+             {"spmm_csr": 3, "sorted_segment_sum": 3}),
+    "diff_pool": ("enzymes_diff_pool", 8, {}, {}),
+    "qm9": ("qm9_nn_conv", 5, {"sorted_segment_sum": 15},
+            {"sorted_segment_sum": 9}),
+}
+AUTOENCODER_EPOCHS = 100
+AUTOENCODER_LAUNCHES = {False: (4, 2), True: (6, 3)}   # epoch, test
+INFOMAX_EPOCHS = 50
+INFOMAX_LAUNCHES = (4, 2)                              # epoch, embeddings
 
 
 def emit(obj):
@@ -1123,6 +1183,7 @@ def phase_kernel():
     cases += phase_kernel_gcn(cora, gen)
     cases += phase_kernel_suite(gen)
     cases += phase_kernel_ppi(gen)
+    cases += phase_kernel_graph(gen)
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} kernel case(s) disagree with the "
@@ -1156,6 +1217,63 @@ def phase_kernel_ppi(gen):
         for H, C in PPI_WIDTHS:
             for rate in (0.0, 0.6):
                 cases += check_gat_case(graph_name, op, H, C, rate, gen)
+    return cases
+
+
+#: The kernel cases of the graph-level examples (the graphs of their
+#: ``kernels`` line rows).
+GRAPH_LEVEL_CASES = ("mutag_gin", "mutag_gin_pool", "enzymes_pool",
+                     "qm9_nnconv", "qm9_pool")
+
+
+def graph_example_batch(name):
+    """``(indices, graph)``: the first train batch of the example's
+    seeded loader, collated at its budget, on the card."""
+    import importlib
+
+    module = importlib.import_module(
+        f"pytorch_geometric_tpu_torch.examples.{name}")
+    loaders = module.load(SEED, device=DEVICE)
+    return next(iter(loaders[0].indexed()))
+
+
+def phase_kernel_graph(gen):
+    """The kernels at the graph-level examples' shapes, fp32: ``spmm_csr``
+    on a MUTAG batch's operator (examples/mutag_gin.py: 32 graphs of ~18
+    nodes and the padding edges on the padding node's row) at conv1's
+    F = 7 and the hidden 32, both directions; the segment sum of the
+    readouts, ``pool_operator`` over the batch vector (rows = graphs of
+    ~18 nodes, and the padding graph's long row): MUTAG's add pool at
+    F = 32, ENZYMES' mean pool (its 128 channels and the count, 64
+    graphs of ~33 nodes) and QM9's Set2Set at F = 64 and 1 (its softmax
+    sums); and QM9's NNConv messages by receiver (complete graphs) at
+    F = 64."""
+    from pytorch_geometric_tpu_torch.examples import mutag_gin, qm9_nn_conv
+
+    cases = []
+    _, mutag = graph_example_batch("mutag_gin")
+    ops = mutag_gin.mutag_operators(mutag)
+    val_f, val_b = ops["spmm_op"].route_weights(
+        mutag.real_edge_mask().float())
+    for direction, csr, val, widths in (
+            ("fwd", ops["spmm_op"].fwd, val_f, (7, 32)),
+            ("bwd", ops["spmm_op"].bwd, val_b, (32,))):
+        for f in widths:
+            cases.append(check_case("mutag_gin", csr, val, direction, f,
+                                    "fp32", gen))
+    cases.append(check_sorted_case("mutag_gin_pool", ops["pool_op"].csr,
+                                   "fwd", 32, "fp32", gen))
+    _, enzymes = graph_example_batch("enzymes_topk_pool")
+    cases.append(check_sorted_case(
+        "enzymes_pool", mutag_gin.mutag_operators(enzymes)["pool_op"].csr,
+        "fwd", 129, "fp32", gen))
+    _, qm9 = graph_example_batch("qm9_nn_conv")
+    ops = qm9_nn_conv.qm9_operators(qm9)
+    cases.append(check_sorted_case("qm9_nnconv", ops["segment_op"].csr,
+                                   "fwd", 64, "fp32", gen))
+    for f in (64, 1):
+        cases.append(check_sorted_case("qm9_pool", ops["pool_op"].csr,
+                                       "fwd", f, "fp32", gen))
     return cases
 
 
@@ -2329,6 +2447,375 @@ def phase_slice_faust():
                     "params_cuda_vs_cpu_rel_err": params_err}, problems)
 
 
+def _parity(steps_fn):
+    """``steps_fn(device) -> (output, model)`` on the card and on the CPU
+    (the kernels' plain versions): the output's error relative to the
+    CPU's largest magnitude, and the parameters' largest error relative
+    to the CPU model's largest parameter (a parameter whose gradient is
+    rounding only, such as a bias before a batch norm, holds nothing but
+    that rounding, so its own magnitude is no scale for it)."""
+    card, card_model = steps_fn(DEVICE)
+    cpu, cpu_model = steps_fn("cpu")
+    cpu_params = dict(cpu_model.named_parameters())
+    scale = max(float(p.detach().abs().max()) for p in cpu_params.values())
+    params_err = max(float((p.detach().cpu() - cpu_params[n].detach())
+                           .abs().max()) for n, p in
+                     card_model.named_parameters()) / scale
+    return _rel(card.cpu(), cpu), params_err, bool(
+        torch.isfinite(card).all()), list(cpu.shape)
+
+
+def _example_run(run, expected, statement):
+    """``run()`` with its printed lines kept, the launches read over it,
+    the peak of device memory: ``(out, report, problems)``."""
+    import contextlib
+    import io
+
+    from pytorch_geometric_tpu_torch.models.capture import launch_counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    before = launch_counts()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        out = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: v - before[n] for n, v in launch_counts().items()}
+    expected = {n: expected.get(n, 0) for n in launches}
+    problems = []
+    if launches != expected:
+        problems.append(f"launches {launches}, expected {expected}")
+    report = {"printed": printed.getvalue().splitlines(),
+              "launches": {n: v for n, v in launches.items() if v},
+              "expected_launches": {n: v for n, v in expected.items() if v},
+              "launch_statement": statement,
+              "max_memory_allocated": peak, "run_peak_bytes": peak - start,
+              "seconds": out["seconds"]}
+    return out, report, problems
+
+
+def _falling(losses, problems, what="epoch"):
+    losses = np.asarray(losses)
+    if not np.isfinite(losses).all():
+        problems.append("non-finite training loss")
+    elif not losses[-1] < losses[0]:
+        problems.append(f"last {what}'s loss {losses[-1]} not below the "
+                        f"first's {losses[0]}")
+
+
+def mutag_steps_logits(device, steps=3):
+    """``(logits, model)``: a fresh ``Net`` of examples/mutag_gin.py (from
+    ``SEED``) after ``steps`` SGD steps (lr 0.01, the script's; Adam's
+    first steps move the biases before each batch norm, whose gradient is
+    0 up to rounding, by +-lr on the sign of that rounding) over the
+    first batches of the seeded train loader, then its logits (running
+    statistics) on the first of them."""
+    from pytorch_geometric_tpu_torch.examples import mutag_gin
+    from pytorch_geometric_tpu_torch.examples.ppi import OperatorCache
+
+    train, _ = mutag_gin.load(SEED, device=device)
+    batches = list(itertools.islice(train.indexed(), steps))
+    model = mutag_gin.Net(generator=torch.Generator().manual_seed(
+        SEED)).to(device)
+    opt = torch.optim.SGD(model.parameters(), lr=0.01)
+    ops = OperatorCache(mutag_gin.mutag_operators)
+    for idx, graph in batches:
+        mutag_gin.train_step(model, opt, graph, ops(idx, graph))
+    idx, graph = batches[0]
+    with torch.no_grad():
+        return model(graph, **ops(idx, graph)), model
+
+
+def phase_slice_mutag_gin():
+    """examples/mutag_gin.py's run on the card at its full width and
+    defaults: five GINConv over MLPs 7 -> 32 -> 32 with MaskedBatchNorm
+    and a trained eps, global_add_pool, Dense 32 and Dense 2; Adam 0.01,
+    batches of 32, 30 epochs over the synthetic MUTAG (188 graphs of ~18
+    nodes, 7 labels, 2 classes; 169 train, 18 test), eager, one operator
+    set a batch built on the host (``mutag_operators``: the GIN sums'
+    ``SpmmOperator`` and the readout's ``SortedSegmentSum``). Launches
+    asserted as epochs x (train batches x 10 + test batches x 6); every
+    loss finite and the last epoch's mean below the first's; test
+    accuracy beside the majority class's (not gated); wall seconds, the
+    operator sets built and their host seconds; and the logits after
+    three steps, card against the plain path on the CPU (1e-4)."""
+    from pytorch_geometric_tpu_torch.examples import mutag_gin
+
+    train, test = mutag_gin.load(SEED, device=DEVICE)
+    batches = {"train": len(train), "test": len(test)}
+    names = set(MUTAG_STEP_LAUNCHES) | set(MUTAG_EVAL_LAUNCHES)
+    expected = {n: MUTAG_EPOCHS * (batches["train"]
+                                   * MUTAG_STEP_LAUNCHES.get(n, 0)
+                                   + batches["test"]
+                                   * MUTAG_EVAL_LAUNCHES.get(n, 0))
+                for n in names}
+    statement = {
+        n: f"{MUTAG_EPOCHS} epochs x ({batches['train']} train batches x "
+           f"{MUTAG_STEP_LAUNCHES[n]} + {batches['test']} test batch x "
+           f"{MUTAG_EVAL_LAUNCHES[n]}) = {expected[n]}" for n in names}
+    out, report, problems = _example_run(
+        lambda: mutag_gin.run(MUTAG_EPOCHS, 32, SEED, DEVICE,
+                              loaders=(train, test)), expected, statement)
+    _falling(out["epoch_losses"], problems)
+    ys = np.concatenate([g.y[g.graph_mask].cpu().numpy() for g in test])
+    majority = float(max(np.mean(ys == 0), np.mean(ys == 1)))
+    parity, params_err, finite, shape = _parity(mutag_steps_logits)
+    if not (finite and parity <= 1e-4):
+        problems.append(f"logits after 3 steps: card vs CPU rel err "
+                        f"{parity}")
+    steps = MUTAG_EPOCHS * batches["train"]
+    return _finish({"phase": "slice_mutag_gin", "dataset": "MUTAG",
+                    "epochs": MUTAG_EPOCHS, "batches": batches,
+                    "budget": [train.num_nodes, train.num_edges,
+                               train.num_graphs],
+                    **report,
+                    "ms_per_epoch": out["seconds"] / MUTAG_EPOCHS * 1e3,
+                    "ms_per_step_with_its_share_of_evaluation":
+                        out["seconds"] / steps * 1e3,
+                    "operators": out["operators"],
+                    "operator_setup_seconds": out["operator_seconds"],
+                    "epoch_losses": out["epoch_losses"],
+                    "first_loss": float(out["step_losses"][0, 0]),
+                    "final_loss": float(out["step_losses"][-1, -1]),
+                    "test_acc": out["acc"], "majority_acc": majority,
+                    "logits_shape": shape,
+                    "logits_cuda_vs_cpu_rel_err": parity,
+                    "params_cuda_vs_cpu_rel_err": params_err}, problems)
+
+
+def graph_steps_output(name, device, steps=3):
+    """``(output, model)`` of a graph-level example after ``steps`` of its
+    training step from ``SEED`` over the first batches of its seeded
+    loader (dropout off; DiffPool by SGD 0.1, whose L2-normalised convs'
+    biases, like mutag's, have gradients of rounding only), then its
+    output on the first batch."""
+    import importlib
+
+    from pytorch_geometric_tpu_torch.examples.ppi import OperatorCache
+
+    m = importlib.import_module(f"pytorch_geometric_tpu_torch.examples."
+                                f"{GRAPH_EXAMPLES[name][0]}")
+    gen = torch.Generator().manual_seed(SEED)
+    if name == "diff_pool":
+        train, _ = m.load(SEED, device=device)
+        batches = list(itertools.islice(iter(train), steps))
+        model = m.DiffPoolNet(3, 6, generator=gen).to(device)
+        opt = torch.optim.SGD(model.parameters(), lr=0.1)
+        for b in batches:
+            m.train_step(model, opt, b)
+        b = batches[0]
+        with torch.no_grad():
+            return model(b.x, b.adj, b.mask)[0], model
+    if name == "topk":
+        train, _ = m.load(SEED, device=device)
+        model, ops = m.Net(3, 6, generator=gen), OperatorCache(
+            m.mutag_operators)
+        lr, extra = 5e-4, {"train": False}
+    else:
+        train, _, mean, std = m.load(SEED, device=device)
+        model, ops = m.Net(generator=gen), OperatorCache(m.qm9_operators)
+        lr, extra = 1e-3, {"mean": mean, "std": std}
+    model = model.to(device)
+    opt = torch.optim.Adam(model.parameters(), lr=lr)
+    batches = list(itertools.islice(train.indexed(), steps))
+    for idx, graph in batches:
+        m.train_step(model, opt, graph, ops(idx, graph), **extra)
+    idx, graph = batches[0]
+    with torch.no_grad():
+        return model(graph, **ops(idx, graph)), model
+
+
+def phase_slice_graph(name):
+    """A graph-level example's run on the card at its full width and
+    default epochs (enzymes_topk_pool: GraphConv 128 and TopK 0.8 three
+    times, max ‖ mean readouts, 20 epochs over the synthetic ENZYMES;
+    enzymes_diff_pool: DenseSAGEConv blocks and two dense_diff_pool
+    levels over ToDense(126) batches, 8 epochs; qm9_nn_conv: NNConv mean
+    + GRU x 3 + Set2Set(3), dim 64, 5 epochs over 1000 synthetic
+    molecules), eager, one operator set a batch built on the host: the
+    launches asserted (``GRAPH_EXAMPLES``), the loss falling, and the
+    output after three steps, card against the plain path on the CPU
+    (1e-4)."""
+    import importlib
+
+    module_name, epochs, step, evaluation = GRAPH_EXAMPLES[name]
+    m = importlib.import_module(
+        f"pytorch_geometric_tpu_torch.examples.{module_name}")
+    loaders = m.load(SEED, device=DEVICE)
+    train, test = loaders[:2]
+    batches = {"train": len(train), "test": len(test)}
+    names = set(step) | set(evaluation)
+    expected = {n: epochs * (batches["train"] * step.get(n, 0)
+                             + batches["test"] * evaluation.get(n, 0))
+                for n in names}
+    statement = {
+        n: f"{epochs} epochs x ({batches['train']} train batches x "
+           f"{step.get(n, 0)} + {batches['test']} test batches x "
+           f"{evaluation.get(n, 0)}) = {expected[n]}" for n in names} or \
+        "no kernel of the port: dense batched products only"
+    out, report, problems = _example_run(
+        lambda: m.run(epochs, seed=SEED, device=DEVICE, loaders=loaders),
+        expected, statement)
+    _falling(out["epoch_losses"], problems)
+    parity, params_err, finite, shape = _parity(
+        lambda dev: graph_steps_output(name, dev))
+    if not (finite and parity <= 1e-4):
+        problems.append(f"output after 3 steps: card vs CPU rel err "
+                        f"{parity}")
+    metric = {k: out[k] for k in ("acc", "mae") if k in out}
+    return _finish({"phase": f"slice_{name}", "example": module_name,
+                    "epochs": epochs, "batches": batches, **report,
+                    "ms_per_epoch": out["seconds"] / epochs * 1e3,
+                    "operators": out.get("operators", 0),
+                    "operator_setup_seconds": out.get("operator_seconds",
+                                                      0.0),
+                    "epoch_losses": out["epoch_losses"], **metric,
+                    "output_shape": shape,
+                    "output_cuda_vs_cpu_rel_err": parity,
+                    "params_cuda_vs_cpu_rel_err": params_err}, problems)
+
+
+def autoencoder_steps_z(device, variational, steps=3):
+    """``(z, encoder)``: examples/autoencoder.py's encoder (from ``SEED``)
+    after ``steps`` Adam steps, the VGAE's noise drawn on the CPU and
+    handed in, then its embeddings (mu for the VGAE)."""
+    from pytorch_geometric_tpu_torch.examples import autoencoder as ae_ex
+    from pytorch_geometric_tpu_torch.models.citation import (
+        gcn_spmm_operator)
+    from pytorch_geometric_tpu_torch.nn.models import (
+        GAE, VGAE, negative_sampling)
+
+    data, graph = ae_ex.load(SEED, device=device)
+    op, w = gcn_spmm_operator(graph)
+    fn = op.bind(w)
+    enc = ae_ex.Encoder(graph.num_node_features, variational=variational,
+                        generator=torch.Generator().manual_seed(SEED))
+    enc = enc.to(device)
+    ae = VGAE(enc) if variational else GAE(enc)
+    pos = ae_ex.edges(data.train_pos_edge_index, device)
+    neg = tuple(torch.from_numpy(a).to(device) for a in negative_sampling(
+        *data.train_pos_edge_index, data.num_nodes, pos[0].shape[0],
+        seed=SEED + 1))
+    opt = torch.optim.Adam(enc.parameters(), lr=0.01)
+    noise = torch.Generator().manual_seed(SEED)
+    for _ in range(steps):
+        eps = torch.randn((graph.num_nodes, 16), generator=noise)
+        opt.zero_grad()
+        ae_ex.loss_of(ae, enc, graph, pos, neg, fn,
+                      noise=eps.to(device)).backward()
+        opt.step()
+    with torch.no_grad():
+        z = enc(graph, graph.x, fn)
+    return (z[0] if variational else z), enc
+
+
+def phase_slice_autoencoder():
+    """examples/autoencoder.py's run on the card, GAE and then
+    ``--variational`` (GCN 1433 -> 32 -> 16 over Cora's train positives,
+    Adam 0.01, 100 epochs, AUC and AP every 20): launches asserted as
+    epochs x (2 layers forward + 2 back; the VGAE 3 + 3) + 5 tests x 2
+    (3); the loss falling; AUC and AP printed; the embeddings after three
+    steps, card against the plain path on the CPU (1e-4)."""
+    from pytorch_geometric_tpu_torch.examples import autoencoder as ae_ex
+
+    loaded = ae_ex.load(SEED, device=DEVICE)
+    runs, problems = {}, []
+    for variational in (False, True):
+        per_epoch, per_test = AUTOENCODER_LAUNCHES[variational]
+        tests = AUTOENCODER_EPOCHS // 20
+        want = AUTOENCODER_EPOCHS * per_epoch + tests * per_test
+        out, report, more = _example_run(
+            lambda: ae_ex.run(variational, AUTOENCODER_EPOCHS, SEED, DEVICE,
+                              loaded=loaded), {"spmm_csr": want},
+            {"spmm_csr": f"{AUTOENCODER_EPOCHS} epochs x {per_epoch} + "
+                         f"{tests} tests x {per_test} = {want}"})
+        _falling(out["losses"], more)
+        parity, params_err, finite, shape = _parity(
+            lambda dev: autoencoder_steps_z(dev, variational))
+        if not (finite and parity <= 1e-4):
+            more.append(f"embeddings after 3 steps: card vs CPU rel err "
+                        f"{parity}")
+        problems += [f"{'vgae' if variational else 'gae'}: {p}"
+                     for p in more]
+        runs["vgae" if variational else "gae"] = {
+            **report, "auc": out["auc"], "ap": out["ap"],
+            "first_loss": float(out["losses"][0]),
+            "final_loss": float(out["losses"][-1]),
+            "ms_per_epoch": out["seconds"] / AUTOENCODER_EPOCHS * 1e3,
+            "operator_setup_seconds": out["operator_seconds"],
+            "z_cuda_vs_cpu_rel_err": parity,
+            "params_cuda_vs_cpu_rel_err": params_err}
+    launches = {"spmm_csr": sum(r["launches"].get("spmm_csr", 0)
+                                for r in runs.values())}
+    return _finish({"phase": "slice_autoencoder", "epochs":
+                    AUTOENCODER_EPOCHS, "launches": launches, **runs},
+                   problems)
+
+
+def infomax_steps_z(device, steps=3):
+    """``(z, model)``: examples/infomax.py's model (from ``SEED``, hidden
+    512) after ``steps`` Adam steps, each corruption's permutation drawn
+    on the CPU and handed in, then the embeddings."""
+    from pytorch_geometric_tpu_torch.examples import infomax
+    from pytorch_geometric_tpu_torch.models.citation import (
+        gcn_spmm_operator)
+
+    graph = infomax.load(device=device)
+    op, w = gcn_spmm_operator(graph)
+    fn = op.bind(w)
+    perms = torch.Generator().manual_seed(SEED)
+
+    def corruption(g, x, _):
+        perm = torch.randperm(x.shape[0], generator=perms)
+        return g, x[perm.to(x.device)]
+
+    model = infomax.Model(graph.num_node_features, 512, corruption,
+                          generator=torch.Generator().manual_seed(SEED))
+    model = model.to(device)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    for _ in range(steps):
+        opt.zero_grad()
+        model(graph, graph.x, None, fn)[0].backward()
+        opt.step()
+    with torch.no_grad():
+        return model.dgi.encoder(graph, graph.x, fn), model
+
+
+def phase_slice_infomax():
+    """examples/infomax.py's run on the card at its full width (GCN 1433
+    -> 512 with a PReLU, the bilinear discriminator, Adam 1e-3, 50
+    epochs on Cora) and the port's logistic-regression probe: launches
+    asserted as epochs x 4 (the encoder on the graph and on its
+    corruption, forward and back) + 2 (the embeddings); the loss
+    falling; the probe's accuracy printed; the embeddings after three
+    steps, card against the plain path on the CPU (1e-4)."""
+    from pytorch_geometric_tpu_torch.examples import infomax
+
+    graph = infomax.load(device=DEVICE)
+    per_epoch, final = INFOMAX_LAUNCHES
+    want = INFOMAX_EPOCHS * per_epoch + final
+    out, report, problems = _example_run(
+        lambda: infomax.run(INFOMAX_EPOCHS, SEED, 512, DEVICE, graph=graph),
+        {"spmm_csr": want},
+        {"spmm_csr": f"{INFOMAX_EPOCHS} epochs x {per_epoch} + {final} = "
+                     f"{want}"})
+    _falling(out["losses"], problems)
+    parity, params_err, finite, shape = _parity(infomax_steps_z)
+    if not (finite and parity <= 1e-4):
+        problems.append(f"embeddings after 3 steps: card vs CPU rel err "
+                        f"{parity}")
+    return _finish({"phase": "slice_infomax", "epochs": INFOMAX_EPOCHS,
+                    **report, "probe_acc": out["acc"],
+                    "first_loss": float(out["losses"][0]),
+                    "final_loss": float(out["losses"][-1]),
+                    "ms_per_epoch": out["seconds"] / INFOMAX_EPOCHS * 1e3,
+                    "operator_setup_seconds": out["operator_seconds"],
+                    "z_shape": shape, "z_cuda_vs_cpu_rel_err": parity,
+                    "params_cuda_vs_cpu_rel_err": params_err}, problems)
+
+
 def _zoo_cases(f, c, gen):
     """(name, graph, conv, its operators on a graph, input kind) of the
     zoo phase: Part B's convs and the suite's, at Cora's width f -> c."""
@@ -2683,6 +3170,42 @@ def phase_trace_faust(steps=20):
     return result
 
 
+def phase_trace_mutag_gin(steps=20):
+    """Where a MUTAG training step's time goes: ``torch.profiler`` over
+    ``steps`` eager steps of examples/mutag_gin.py's ``train_step`` (a
+    fresh ``Net``, Adam 0.01) cycling over one epoch's train batches,
+    collated and their operator sets built before the window; 10 port
+    launches a step."""
+    from pytorch_geometric_tpu_torch.examples import mutag_gin
+    from pytorch_geometric_tpu_torch.examples.ppi import OperatorCache
+
+    train, _ = mutag_gin.load(SEED, device=DEVICE)
+    ops = OperatorCache(mutag_gin.mutag_operators)
+    batches = [(graph, ops(idx, graph)) for idx, graph in train.indexed()]
+    model = mutag_gin.Net(generator=torch.Generator().manual_seed(
+        SEED)).to(DEVICE)
+    opt = torch.optim.Adam(model.parameters(), lr=0.01)
+    cycle = itertools.cycle(batches)
+
+    def run():
+        graph, op = next(cycle)
+        mutag_gin.train_step(model, opt, graph, op)
+
+    kernels, wall_us = profile_steps(run, steps)
+    summary, port_launches = trace_summary(kernels, wall_us, steps, "step")
+    want = sum(MUTAG_STEP_LAUNCHES.values())
+    result = {"phase": "trace_mutag_gin", "captured": False, "steps": steps,
+              "operator_sets": len(ops.ops),
+              "operator_setup_ms_per_batch": ops.seconds / len(ops.ops) * 1e3,
+              **summary, "expected_port_launches_per_step": want}
+    emit(result)
+    if port_launches != want * steps:
+        raise AssertionError(f"mutag_gin: {port_launches / steps} port "
+                             f"kernel launches per step on the trace, "
+                             f"expected {want}")
+    return result
+
+
 #: Each kernel's source, the Pallas kernel it replaces, its main path's
 #: graph, and the case of the kernel phase that stands for that path: its
 #: largest call (GCN's F = 16 forward SpMM; GAT's conv1, 8 heads x 8, with
@@ -2787,6 +3310,15 @@ def kernels_line(results):
                 {k: c[k] for k in ("graph", "H", "C", "rate", "kernel_ms",
                                    "plain_ms", "bound_ms", "bound_by",
                                    "max_abs_err")} for c in ppi]
+        graph_level = [c for c in results["kernel"] if c["kernel"] == name
+                       and c["graph"] in GRAPH_LEVEL_CASES]
+        if graph_level:   # the graph-level examples' shapes
+            line[-1]["graph_level"] = [
+                {k: c[k] for k in ("graph", "direction", "F", "rows",
+                                   "edges", "longest_row", "kernel_ms",
+                                   "plain_ms", "library_ms", "bound_ms",
+                                   "bound_by", "max_abs_err")}
+                for c in graph_level]
         for tag, graph_name, keys in (
                 ("faust", "faust", ("k_operators_ms", "kernel_flushed_ms")),
                 ("reddit", "reddit_full", ("slice_kernel_ms",
@@ -2849,12 +3381,19 @@ def main():
                        functools.partial(phase_slice_suite, name)))
     phases.append(("slice_ppi", phase_slice_ppi))
     phases.append(("slice_faust", phase_slice_faust))
+    phases.append(("slice_mutag_gin", phase_slice_mutag_gin))
+    for name in GRAPH_EXAMPLES:
+        phases.append((f"slice_{name}",
+                       functools.partial(phase_slice_graph, name)))
+    phases.append(("slice_autoencoder", phase_slice_autoencoder))
+    phases.append(("slice_infomax", phase_slice_infomax))
     phases += [("zoo", phase_zoo), ("capture_check", phase_capture_check)]
     for config in CONFIGS:
         phases.append(("trace" if config == "gcn" else f"trace_{config}",
                        functools.partial(phase_trace, config)))
     phases.append(("trace_ppi", phase_trace_ppi))
     phases.append(("trace_faust", phase_trace_faust))
+    phases.append(("trace_mutag_gin", phase_trace_mutag_gin))
     for config in CONFIGS:
         phases.append((f"trace_captured_{config}",
                        functools.partial(phase_trace, config, True)))

@@ -39,8 +39,12 @@ def segment_mean(data, segment_ids, num_segments, indices_are_sorted=False):
 def _segment_extreme(data, segment_ids, num_segments, reduce):
     shape = (num_segments,) + tuple(data.shape[1:])
     if data.is_floating_point():
-        # include_self=False leaves empty segments at this fill: 0
-        out = data.new_zeros(shape)
+        # include_self=False leaves empty segments at this fill, mapped to
+        # 0 below; an infinite fill never ties with a segment's extreme,
+        # so the backward splits the gradient among the data's ties only,
+        # as JAX does (a fill of 0 counted itself as a tie of a 0 max)
+        out = data.new_full(shape, float("-inf") if reduce == "amax"
+                            else float("inf"))
     else:
         info = torch.iinfo(data.dtype)
         out = data.new_full(shape, info.min if reduce == "amax"
@@ -48,7 +52,8 @@ def _segment_extreme(data, segment_ids, num_segments, reduce):
     out = out.scatter_reduce_(0, _expand(segment_ids, data), data, reduce,
                               include_self=False)
     if data.is_floating_point():
-        # a segment of -inf entries (+inf for min) gives 0, as in JAX
+        # an empty segment, or one of -inf entries (+inf for min), gives
+        # 0, as in JAX
         out = torch.where(torch.isneginf(out) if reduce == "amax"
                           else torch.isposinf(out), 0.0, out)
     return out

@@ -9,7 +9,11 @@ process's string hash, so only one process gives both the same draw).
 ``ppi.py``'s and ``faust.py``'s flags and line too, and their loaders'
 batches against the JAX scripts' (their models are held to the JAX
 scripts' in ``tests/test_torch_port_ppi.py`` and
-``tests/test_torch_port_faust.py``)."""
+``tests/test_torch_port_faust.py``); so are the graph-level examples'
+(mutag_gin, enzymes_topk_pool, enzymes_diff_pool, qm9_nn_conv,
+autoencoder, infomax: their models in
+``tests/test_torch_port_graph_examples.py``), each run at a tiny size on
+the CPU, where no kernel is launched."""
 
 import ast
 import itertools
@@ -33,15 +37,20 @@ from pytorch_geometric_tpu.transforms import NormalizeFeatures as JNormalize
 from pytorch_geometric_tpu.transforms import TargetIndegree as JTargetIndegree
 from pytorch_geometric_tpu.utils.reorder import (
     reorder_graph as j_reorder_graph)
-from pytorch_geometric_tpu_torch.data import Data, InMemoryDataset
+from pytorch_geometric_tpu_torch.data import Data, InMemoryDataset, from_data
 from pytorch_geometric_tpu_torch.examples import (
-    citation_suite, faust, gat, gcn, ppi, rgcn)
+    autoencoder, citation_suite, enzymes_diff_pool, enzymes_topk_pool, faust,
+    gat, gcn, infomax, mutag_gin, ppi, qm9_nn_conv, rgcn)
 from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
 from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
 
 REPO = Path(__file__).resolve().parents[1]
 EXAMPLES = {"gcn": gcn, "gat": gat, "rgcn": rgcn,
-            "citation_suite": citation_suite, "ppi": ppi, "faust": faust}
+            "citation_suite": citation_suite, "ppi": ppi, "faust": faust,
+            "mutag_gin": mutag_gin, "enzymes_topk_pool": enzymes_topk_pool,
+            "enzymes_diff_pool": enzymes_diff_pool,
+            "qm9_nn_conv": qm9_nn_conv, "autoencoder": autoencoder,
+            "infomax": infomax}
 
 
 def _tree(path):
@@ -311,3 +320,135 @@ def test_faust_example_loads_the_jax_scripts_batches(tmp_path):
     for port, ref in zip(got, want, strict=True):
         _same_graph(port, ref, ("senders", "receivers", "edge_attr", "y",
                                 "node_mask", "edge_mask"))
+
+
+# ---------------------------------------------------------------------------
+# the graph-level examples
+# ---------------------------------------------------------------------------
+
+def _assert_lines(capsys, name, count):
+    """Every printed line matches one of the JAX script's, and each of
+    its patterns is printed; ``count`` lines in all."""
+    lines = capsys.readouterr().out.splitlines()
+    patterns = _printed_lines(REPO / "examples" / f"{name}.py")
+    assert len(lines) == count, lines
+    for line in lines:
+        assert any(p.match(line) for p in patterns), line
+    for p in patterns:
+        assert any(p.match(line) for line in lines), p.pattern
+    return lines
+
+
+def _small_loaders(loaders, train=12, test=4):
+    for loader, count in zip(loaders, (train, test)):
+        loader.dataset = loader.dataset[:count]
+    return loaders
+
+
+@pytest.mark.parametrize("name", ["mutag_gin", "enzymes_topk_pool"])
+def test_graph_classification_run_prints_the_jax_scripts_line(name,
+                                                              capsys):
+    module = EXAMPLES[name]
+    loaders = _small_loaders(module.load(batch_size=4, device="cpu"))
+    out = module.run(2, loaders=loaders, device="cpu")
+    lines = _assert_lines(capsys, name, 2)
+    assert [ln.split(",")[0] for ln in lines] == ["Epoch 001", "Epoch 002"]
+    assert len(out["epoch_losses"]) == 2 and 0.0 <= out["acc"] <= 1.0
+    # the shuffled train batches are new each epoch: 3 a epoch, and the
+    # test batch's once
+    assert out["operators"] == 2 * 3 + 1
+
+
+def test_mutag_gin_loads_the_jax_scripts_batches(tmp_path):
+    """The port's loaders over its MUTAG give the JAX script's batches, in
+    its order, after the epoch the scripts draw to shape the model."""
+    from pytorch_geometric_tpu.datasets import TUDataset as JTUDataset
+
+    train, test = mutag_gin.load(root=tmp_path / "port", device="cpu")
+    _synthetic_marker(tmp_path / "jax" / "MUTAG" / "raw")
+    ds = JTUDataset(str(tmp_path / "jax"), "MUTAG").shuffle(seed=0)
+    jtrain = JDataLoader(ds[len(ds) // 10:], batch_size=32, shuffle=True,
+                         seed=0)
+    jtest = JDataLoader(ds[:len(ds) // 10], batch_size=32)
+    assert (len(train), len(test)) == (6, 1)
+    assert (train.num_nodes, train.num_edges) == (jtrain.num_nodes,
+                                                  jtrain.num_edges)
+    next(iter(train))
+    next(iter(jtrain))
+    for port, ref in zip(list(train) + list(test), list(jtrain) + list(jtest),
+                         strict=True):
+        _same_graph(port, ref, ("x", "senders", "receivers", "y",
+                                "node_mask", "edge_mask", "batch",
+                                "graph_mask"))
+
+
+def test_enzymes_diff_pool_run_prints_the_jax_scripts_line(capsys):
+    loaders = _small_loaders(enzymes_diff_pool.load(batch_size=4,
+                                                    device="cpu"), 8, 4)
+    out = enzymes_diff_pool.run(2, loaders=loaders, device="cpu")
+    lines = _assert_lines(capsys, "enzymes_diff_pool", 2)
+    assert [ln.split(",")[0] for ln in lines] == ["Epoch 01", "Epoch 02"]
+    assert np.isfinite(out["step_losses"]).all()
+
+
+def test_qm9_nn_conv_run_prints_the_jax_scripts_line(capsys):
+    train, test, mean, std = qm9_nn_conv.load(batch_size=4, num_samples=10,
+                                              device="cpu")
+    out = qm9_nn_conv.run(2, loaders=(train, test, mean, std),
+                          device="cpu")
+    lines = _assert_lines(capsys, "qm9_nn_conv", 2)
+    assert [ln.split(",")[0] for ln in lines] == ["Epoch 01", "Epoch 02"]
+    assert out["mae"] >= 0.0 and out["operators"] == 2 * 2 + 1
+
+
+def _small_graph_data(seed=0, n=60, f=12, e=150):
+    """A small undirected graph with features, 3 classes and a 30 / 30
+    train / test split."""
+    rng = np.random.default_rng(seed)
+    ei = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)])
+    ei = ei[:, ei[0] != ei[1]]
+    ei = np.unique(np.concatenate([ei, ei[::-1]], 1), axis=1)
+    return Data(x=rng.random((n, f)).astype(np.float32), edge_index=ei,
+                y=rng.integers(0, 3, n), train_mask=np.arange(n) < 30,
+                test_mask=np.arange(n) >= 30)
+
+
+@pytest.mark.parametrize("variational", [False, True])
+def test_autoencoder_run_prints_the_jax_scripts_line(variational, capsys):
+    from pytorch_geometric_tpu_torch.nn.models import split_edges
+
+    data = split_edges(_small_graph_data(), seed=0)
+    out = autoencoder.run(variational, 20, device="cpu",
+                          loaded=(data, from_data(data, device="cpu")))
+    _assert_lines(capsys, "autoencoder", 1)
+    assert 0.0 <= out["auc"] <= 1.0 and 0.0 <= out["ap"] <= 1.0
+    assert out["losses"].shape == (20,)
+
+
+def test_infomax_run_prints_the_jax_scripts_lines(capsys):
+    graph = from_data(_small_graph_data(1), device="cpu")
+    out = infomax.run(10, hidden=16, device="cpu", graph=graph)
+    lines = _assert_lines(capsys, "infomax", 2)
+    assert lines[0].startswith("Epoch 010")
+    assert 0.0 <= out["acc"] <= 1.0
+
+
+def test_autoencoder_and_infomax_load_the_jax_scripts_graphs(tmp_path):
+    """The split edges and the graph of examples/autoencoder.py, and
+    examples/infomax.py's Cora, as the JAX package builds them."""
+    from pytorch_geometric_tpu.datasets import Planetoid as JPlanetoid
+    from pytorch_geometric_tpu.nn.models import split_edges as j_split
+
+    data, port = autoencoder.load(root=tmp_path / "port", device="cpu")
+    jdata = j_split(_jax_planetoid(tmp_path / "jax")[0].clone(), seed=0)
+    for key in ("train_pos_edge_index", "test_pos_edge_index",
+                "test_neg_edge_index", "val_pos_edge_index",
+                "val_neg_edge_index"):
+        np.testing.assert_array_equal(getattr(data, key),
+                                      np.asarray(getattr(jdata, key)))
+    _same_graph(port, j_from_data(jdata), ("x", "senders", "receivers",
+                                           "node_mask", "edge_mask"))
+    ref = j_from_data(JPlanetoid(str(tmp_path / "jax"), "Cora")[0])
+    _same_graph(infomax.load(root=tmp_path / "port", device="cpu"), ref,
+                ("x", "senders", "receivers", "y", "node_mask", "train_mask",
+                 "test_mask"))

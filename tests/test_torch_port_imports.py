@@ -37,7 +37,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "optax", "pytorch_geometric_tpu",
-              "networkx"))
+              "networkx", "sklearn"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -65,9 +65,11 @@ def _tiny_relational_graph():
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     """Every module of the port, imported in a fresh process, loads no
-    JAX, nothing of the JAX package and no networkx (which the card's
-    machine does not have: ``utils/networkx_convert.py`` imports it
-    inside its functions)."""
+    JAX, nothing of the JAX package, no networkx and no sklearn (which
+    the card's machine does not have: ``utils/networkx_convert.py``
+    imports networkx inside its functions; the graph autoencoders and the
+    infomax probe score with the port's own numpy AUC, AP and logistic
+    regression)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          env=env, capture_output=True, text=True,
@@ -96,7 +98,14 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "cluster._native", "transforms.points",
                  "transforms.coarsen_levels", "datasets.io",
                  "datasets.meshes", "datasets.large_graphs",
-                 "examples.faust"):
+                 "examples.faust", "nn.norm", "nn.pool",
+                 "nn.pool.global_pool", "nn.pool.topk_pool",
+                 "nn.pool.set2set", "nn.pool.diff_pool", "nn.pool.coarsen",
+                 "models.graph_pred", "nn.models", "nn.models.autoencoder",
+                 "nn.models.infomax", "examples.mutag_gin",
+                 "examples.enzymes_topk_pool", "examples.enzymes_diff_pool",
+                 "examples.qm9_nn_conv", "examples.autoencoder",
+                 "examples.infomax"):
         assert f"pytorch_geometric_tpu_torch.{name}" in report["modules"]
     assert report["bad"] == []
 
@@ -177,6 +186,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         faust.run(epochs=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pack_bipartite_tables([0], [1], 1, 2, [1.0])
+    from pytorch_geometric_tpu_torch.examples import (
+        autoencoder, enzymes_diff_pool, enzymes_topk_pool, infomax,
+        mutag_gin, qm9_nn_conv)
+
+    for module in (mutag_gin, enzymes_topk_pool, enzymes_diff_pool,
+                   qm9_nn_conv, autoencoder, infomax):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            module.run(epochs=1)
     rel = from_data(_tiny_relational_graph(), device="cpu")
     edges = (rel.senders, rel.receivers, rel.edge_type, 3, rel.num_nodes,
              np.ones(rel.num_edges, np.float32))
