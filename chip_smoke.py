@@ -112,6 +112,21 @@ Phases, one JSON line each:
                cuSPARSE and the bound; and on the full-scale synthetic
                Reddit graph (232,965 nodes, ~11.6 M edges) at F = 602 and
                128, checked on its first 20,000 rows;
+   kernel_mnist — spmm_csr on an mnist_graclus batch's spline operators
+               (64 graphs, N = 6144: conv1's at F = 1, conv2's at F = 32
+               both directions) and the segment sum at its pools' means
+               (F = 3), its readout (F = 65) and mnist_nn_conv's NNConv
+               sums by receiver (F = 32 and 64), padding rows included,
+               fp32 (1e-5), cuSPARSE or torch.segment_reduce beside them;
+   kernel_scale — HybridSpmm on Cora (windows of 512) beside one fp32
+               spmm_csr over the same edges (1e-2 of the fp32 plain
+               version); BlockSpmm on bench_scale.py's community graph at
+               Reddit's published size (114,615,892 edges, generated in
+               the phase) at F = 602 and 128: forward and dx on its
+               first 2000 rows against the fp32 plain sums (1e-2), two
+               calls bitwise equal, beside one fp32 spmm_csr over all
+               edges, cuSPARSE, both bounds, and the batched product with
+               bf16 or fp32 output and with fp32 inputs;
    probe     — the probes' libraries against the kernels that ship:
                every term-by-term ablation mode of the packed-GAT backward
                (RCM-PubMed, (8, 8), dropout 0.6) and of the packed-RGCN
@@ -184,6 +199,10 @@ Phases, one JSON line each:
    slice_gcn_dense — the GCN on Cora with backend="dense" (bf16 dense
                adjacency, one matrix product per aggregation, no kernel
                of the port);
+   slice_gcn_hybrid — the GCN on Cora with backend="hybrid" (the JAX
+               pallas=True: HybridSpmm, two spmm_csr launches an
+               aggregation, 8 an epoch and 4 for the evaluation), logits
+               against the CPU within 1e-2;
    slice_sgc, slice_agnn, slice_arma, slice_spline, slice_dna — the
                five models of examples/citation_suite.py on Cora (Spline
                with TargetIndegree), 200 epochs each, captured and then
@@ -239,17 +258,32 @@ Phases, one JSON line each:
                asserted (GRAPH_EXAMPLES, AUTOENCODER_LAUNCHES,
                INFOMAX_LAUNCHES; DiffPool none), the loss falling, the
                output after three steps card against the CPU (1e-4);
+   slice_mnist_graclus — examples/mnist_graclus.py's run (SplineConv
+               1 -> 32 -> 64, K = 25, two graclus max pools, mean
+               readout; Adam 0.01, batches of 64, 3 epochs over 1500
+               synthetic superpixel graphs), eager, one operator set a
+               batch built on the host (both levels' spline operators,
+               the pools' cluster_operator, level 2's readout): launches
+               asserted as 3 x (24 x (3 spmm_csr + 3 segment sums) + 4 x
+               (2 + 3)); the loss falling; the logits after three steps
+               card against the CPU (1e-4);
+   slice_mnist_voxel_grid, slice_mnist_nn_conv, slice_pointnet2 — the
+               other point and superpixel examples at their defaults (3
+               epochs each): launches asserted (POINT_EXAMPLES; pointnet2
+               none), the loss falling, the logits after three steps card
+               against the CPU (1e-4);
    zoo       — every conv of the zoo (Part B's and the suite's) on Cora
                at 1433 -> 16, one forward and one backward through its
                operators on the card against its plain path on the CPU:
                output, input gradient and parameter gradients within
                1e-4, and a kernel launched by each conv that sums
                feature rows;
-7. capture_check — for each of the thirteen configurations, five epochs
+7. capture_check — for each of the fourteen configurations, five epochs
                captured and five eager from the same seeds: the logits
                and every parameter within 1e-6 of the largest magnitude;
 8. trace, trace_gat, trace_gat_dense, trace_gat_bsr, trace_rgcn,
-   trace_gcn_sorted, trace_gcn_fused, trace_gcn_dense, trace_sgc,
+   trace_gcn_sorted, trace_gcn_fused, trace_gcn_dense, trace_gcn_hybrid,
+   trace_sgc,
    trace_agnn, trace_arma, trace_spline, trace_dna — torch.profiler
                over 20 eager epochs of each configuration's training
                step: device time per kernel name, device busy and idle
@@ -262,6 +296,8 @@ Phases, one JSON line each:
    trace_mutag_gin — the same over 20 eager training steps of the MUTAG
                example (10 port launches a step), with the host's
                operator-set build time a batch;
+   trace_mnist_graclus — the same over 20 eager training steps of the
+               mnist_graclus example (6 port launches a step);
 9. trace_captured_* — the same over 20 replays of the epoch captured as
                the trainers capture it, one phase per configuration; the
                port's launches per epoch must equal the eager count.
@@ -270,8 +306,11 @@ Then a "kernels" JSON line (each kernel's launches summed over the
 slice phases that ran it, and by phase), and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
 line; so does a machine without CUDA, or a directory without the port.
+``--phases a,b`` runs card, build and the named phases only, with no
+kernels line: a quick check of a few phases.
 """
 
+import argparse
 import functools
 import itertools
 import json
@@ -1779,6 +1818,7 @@ CONFIGS = {
     "gcn_sorted": ("gcn", "sorted", "pubmed", EPOCHS, 4),
     "gcn_fused": ("gcn", "fused", "pubmed", EPOCHS, 2),
     "gcn_dense": ("gcn", "dense", "cora", EPOCHS, 0),
+    "gcn_hybrid": ("gcn", "hybrid", "cora", EPOCHS, 8),
     "sgc": ("suite", "sgc", "cora", EPOCHS, 0),
     "agnn": ("suite", "agnn", "cora", EPOCHS, 12),
     "arma": ("suite", "arma", "cora", EPOCHS, 8),
@@ -2135,13 +2175,15 @@ def phase_slice_rgcn():
 def phase_slice_gcn(backend, phase):
     """bench_common.py's full-graph GCN on the card through ``backend``:
     "sorted" and "fused" on PubMed after RCM (Planetoid -> NormalizeFeatures
-    -> reorder_graph -> from_data, N = 24576), "dense" on Cora. Launches
-    per epoch: the sorted backend's segment sum 4, and 2 for the
+    -> reorder_graph -> from_data, N = 24576), "dense" and "hybrid" (the
+    JAX ``pallas=True`` path: ``HybridSpmm``, windows of 512) on Cora.
+    Launches per epoch: the sorted backend's segment sum 4, and 2 for the
     evaluation; the fused kernels once each, and ``spmm_csr`` 2 for the
-    evaluation (``bind_external``); the dense backend none. The trained
-    logits on the card against the plain path on the CPU (1e-4; the dense
-    backend 1e-2, bf16 operands), and the sorted backend's against the
-    packed operator's on the card (1e-5)."""
+    evaluation (``bind_external``); the dense backend none; the hybrid
+    backend ``spmm_csr`` 8, and 4 for the evaluation. The trained logits
+    on the card against the plain path on the CPU (1e-4; the dense and
+    hybrid backends 1e-2, bf16 operands), and the sorted backend's
+    against the packed operator's on the card (1e-5)."""
     from pytorch_geometric_tpu_torch.models.citation import gcn_backend
 
     config = f"gcn_{backend}"
@@ -2152,6 +2194,9 @@ def phase_slice_gcn(backend, phase):
     elif backend == "fused":
         per_epoch, evaluation = ({"fused_gcn_fwd": 1, "fused_gcn_bwd": 1},
                                  {"spmm_csr": 2})
+    elif backend == "hybrid":
+        # the dense and the sparse part: twice the packed backend's
+        per_epoch, evaluation = {"spmm_csr": 8}, {"spmm_csr": 4}
     ds, graph, rcm_seconds = load(CONFIGS[config][2])
     model, metrics, report, problems = run_main_path(config, per_epoch,
                                                      evaluation)
@@ -2166,11 +2211,12 @@ def phase_slice_gcn(backend, phase):
     ref = logits_of(config, model, "cpu")
     model.to(DEVICE)
     parity = _rel(card.cpu(), ref)
-    # the dense backend rounds x @ W to bf16 before each product, and the
-    # card and the CPU sum x @ W in other orders: where a value sits on a
-    # bf16 rounding boundary the two round it apart, by 2^-8 of it, so its
-    # gate is the bf16 tolerance
-    tol = TOL["bf16"] if backend == "dense" else 1e-4
+    # the dense backend rounds x @ W to bf16 before each product (the
+    # hybrid one before its dense part's), and the card and the CPU sum
+    # x @ W in other orders: where a value sits on a bf16 rounding boundary
+    # the two round it apart, by 2^-8 of it, so its gate is the bf16
+    # tolerance
+    tol = TOL["bf16"] if backend in ("dense", "hybrid") else 1e-4
     packed_parity = None if packed is None else _rel(card, packed)
     _accuracy_gate(metrics, problems)
     if not (torch.isfinite(card).all() and parity <= tol):
@@ -3206,6 +3252,455 @@ def phase_trace_mutag_gin(steps=20):
     return result
 
 
+# ---------------------------------------------------------------------------
+# The point and superpixel examples and the scale SpMM operators
+# ---------------------------------------------------------------------------
+
+#: examples/mnist_graclus.py's default epochs, and the launches of one
+#: training step (the two levels' spline operators forward and conv2's
+#: ``dx``, conv1's input taking none; both pools' means of ``pos`` and the
+#: readout, whose backward is a gather) and of one evaluation batch.
+MNIST_EPOCHS = 3
+MNIST_STEP_LAUNCHES = {"spmm_csr": 3, "sorted_segment_sum": 3}
+MNIST_EVAL_LAUNCHES = {"spmm_csr": 2, "sorted_segment_sum": 3}
+#: The other point and superpixel examples at their default epochs, and
+#: the launches of a training step and of an evaluation batch:
+#: mnist_voxel_grid trains mnist_graclus's Net over voxel levels;
+#: mnist_nn_conv sums both levels' NNConv messages, both pools' means and
+#: the readout (5 segment sums forward, none backward); pointnet2's
+#: reductions are all maxima (torch's ``scatter_reduce``).
+POINT_EXAMPLES = {
+    "mnist_voxel_grid": (3, MNIST_STEP_LAUNCHES, MNIST_EVAL_LAUNCHES),
+    "mnist_nn_conv": (3, {"sorted_segment_sum": 5},
+                      {"sorted_segment_sum": 5}),
+    "pointnet2": (3, {}, {}),
+}
+MNIST_CASES = ("mnist_conv1", "mnist_conv2", "mnist_pool1", "mnist_pool2",
+               "mnist_readout", "mnist_nnconv1", "mnist_nnconv2")
+#: The block SpMM's graph: bench_scale.py's community graph at Reddit's
+#: published size (232,965 nodes, 114,615,892 edges, 200 communities,
+#: 90% of the edges inside one), the JAX defaults' windows of 1024 and
+#: dense threshold 1024, at Reddit's 602 features and reddit_sage's 128.
+SCALE_COMMUNITIES = 200
+SCALE_WINDOW = 1024
+SCALE_THRESHOLD = 1024
+SCALE_WIDTHS = (602, 128)
+#: Rows of the scale graph the fp32 plain version sums (~1 M entries).
+SCALE_CHECK_ROWS = 2000
+#: examples/gcn.py's Cora through the JAX ``pallas=True`` windows.
+HYBRID_WINDOW, HYBRID_TILE = 512, 512
+
+
+@functools.cache
+def point_loaders(name, device=DEVICE):
+    """The seeded default loaders of a point or superpixel example on
+    ``device`` (mnist_nn_conv's are mnist_voxel_grid's at its 1000
+    samples), built once per run and device."""
+    import importlib
+
+    if name == "mnist_nn_conv":
+        from pytorch_geometric_tpu_torch.examples import mnist_voxel_grid
+
+        return mnist_voxel_grid.load(SEED, 64, 1000, device=device)
+    m = importlib.import_module(
+        f"pytorch_geometric_tpu_torch.examples.{name}")
+    return m.load(SEED, device=device)
+
+
+def _example_module(name):
+    import importlib
+
+    return importlib.import_module(
+        f"pytorch_geometric_tpu_torch.examples.{name}")
+
+
+def phase_kernel_mnist(gen):
+    """The kernels at the superpixel examples' shapes, fp32, on the first
+    train batch of mnist_graclus's loader (64 graphs of 75 nodes, N =
+    6144, E = 49,152, 1,344 padding nodes): ``spmm_csr`` on conv1's
+    spline operator (N·25 rows) at F = 1 and on conv2's (level 1) at
+    F = 32 forward and ``dx``; the segment sum of pool 1's mean of pos
+    (F = 3: pos and the count; the padding nodes' row N - 1), pool 2's,
+    and the readout (F = 65: 64 channels and the count; level 2's
+    unoccupied rows on the padding graph's row); and on mnist_voxel_grid's
+    first batch, mnist_nn_conv's NNConv sums by receiver (F = 32 at level
+    0, 64 at level 1, the padding node's row of the padding edges)."""
+    from pytorch_geometric_tpu_torch.examples import mnist_graclus as mg
+
+    cases = []
+    graph = next(iter(point_loaders("mnist_graclus")[0]))
+    ops = mg.mnist_operators(graph)
+    for name, op, widths in (("mnist_conv1", ops["conv1"], (("fwd", 1),)),
+                             ("mnist_conv2", ops["conv2"],
+                              (("fwd", 32), ("bwd", 32)))):
+        geom, consts = op.args
+        for direction, f in widths:
+            cases.append(check_case(name, getattr(geom, direction),
+                                    consts[direction], direction, f, "fp32",
+                                    gen))
+    for name, key, f in (("mnist_pool1", "pool1", 3),
+                         ("mnist_pool2", "pool2", 3),
+                         ("mnist_readout", "readout", 65)):
+        cases.append(check_sorted_case(name, ops[key].csr, "fwd", f,
+                                       "fp32", gen))
+    graph = next(iter(point_loaders("mnist_nn_conv")[0]))
+    ops = mg.mnist_operators(graph, segment_ops=True)
+    for name, key, f in (("mnist_nnconv1", "segment1", 32),
+                         ("mnist_nnconv2", "segment2", 64)):
+        cases.append(check_sorted_case(name, ops[key].csr, "fwd", f,
+                                       "fp32", gen))
+    return cases
+
+
+def _event_ms(fn, reps=5):
+    """Median device ms of ``reps`` eager calls of ``fn`` between CUDA
+    events (for calls that run autograd, which a CUDA graph of the
+    timing helper cannot hold); long calls only, where launch gaps are
+    noise."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _device_csr(rows, cols, n):
+    """``ops/csr.py:build_csr`` of ``(cols -> rows)`` on the card (a
+    stable sort there: the same CSR, at 100M edges in a second)."""
+    from pytorch_geometric_tpu_torch.ops.csr import Csr
+
+    rows = torch.from_numpy(rows).to(DEVICE)
+    perm = torch.sort(rows, stable=True).indices
+    counts = torch.bincount(rows, minlength=n)
+    row_ptr = torch.zeros(n + 1, dtype=torch.int64, device=DEVICE)
+    torch.cumsum(counts, 0, out=row_ptr[1:])
+    col = torch.from_numpy(cols).to(DEVICE)[perm].to(torch.int32)
+    return Csr(row_ptr=row_ptr.to(torch.int32), col=col, perm=perm,
+               num_rows=n, num_cols=n)
+
+
+def phase_kernel_scale(gen):
+    """The scale SpMM operators on the card.
+
+    ``HybridSpmm`` on examples/gcn.py's Cora (``gcn_hybrid_operator``,
+    windows of 512, the JAX ``pallas=True`` split; its two ``spmm_csr``
+    launches) at the GCN's F = 16 and 7, against one fp32 ``spmm_csr``
+    over the same edges (``gcn_spmm_operator``), the fp32 plain version
+    (1e-2), cuSPARSE and the bound; two calls bitwise equal.
+
+    ``BlockSpmm`` on bench_scale.py's community graph at Reddit's size
+    (GCN weights; windows and threshold 1024, bf16): the split (dense
+    blocks, their bytes, the dense edge share) and its host and device
+    build times; at F = 602 and 128 the forward and ``dx`` (fp32 out;
+    its first ``SCALE_CHECK_ROWS`` rows against the fp32 plain version
+    over all their edges, 1e-2; two calls bitwise equal), one fp32
+    ``spmm_csr`` over all edges, cuSPARSE, the bounds of both designs,
+    and the batched product alone three ways: bf16 in with fp32 out (the
+    operator's), bf16 out, and fp32 in."""
+    from pytorch_geometric_tpu_torch.bounds import block_spmm_bound
+    from pytorch_geometric_tpu_torch.datasets.graphs import (
+        REDDIT_E, REDDIT_N, gen_clustered)
+    from pytorch_geometric_tpu_torch.models.citation import (
+        gcn_hybrid_operator, gcn_spmm_operator)
+    from pytorch_geometric_tpu_torch.ops.block_spmm import (
+        BlockSpmm, BlockStructure, _windows)
+    from pytorch_geometric_tpu_torch.ops.csr import Csr
+    from pytorch_geometric_tpu_torch.ops.spmm import spmm_csr, spmm_csr_plain
+
+    lines = []
+    _, cora = cora_graph(DEVICE)
+    hop, hw = gcn_hybrid_operator(cora, HYBRID_WINDOW, HYBRID_TILE)
+    hybrid = hop.bind(hw)
+    sop, sw = gcn_spmm_operator(cora)
+    val = sw[sop.fwd.perm].contiguous()
+    a = torch.sparse_csr_tensor(sop.fwd.row_ptr, sop.fwd.col, val,
+                                (sop.fwd.num_rows, sop.fwd.num_cols))
+    for f in (16, 7):
+        x = torch.randn(cora.num_nodes, f, generator=gen, device=DEVICE)
+        got, again = hybrid(x), hybrid(x)
+        want = spmm_csr_plain(sop.fwd, val, x)
+        torch.cuda.synchronize()
+        rel = _rel(got, want)
+        bound, bound_by = spmm_bound(sop.fwd, f, 4)
+        line = {"phase": "kernel_scale", "operator": "HybridSpmm",
+                "graph": "cora", "F": f, "window": HYBRID_WINDOW,
+                "tile": HYBRID_TILE, "dense_frac": hop.dense_frac,
+                "part_edges": [len(p[1]) for p in hop.parts],
+                "launches_per_call": len(hop.parts), "rel_err": rel,
+                "tol": TOL["bf16"], "bitwise_repeat": torch.equal(got, again),
+                "hybrid_ms": device_ms(lambda: hybrid(x)),
+                "single_spmm_csr_ms": device_ms(
+                    lambda: spmm_csr(sop.fwd, val, x)),
+                "plain_ms": device_ms(lambda: spmm_csr_plain(sop.fwd, val,
+                                                             x)),
+                "library_ms": device_ms(lambda: torch.sparse.mm(a, x)),
+                "bound_ms": bound, "bound_by": bound_by}
+        line["ok"] = rel <= TOL["bf16"] and line["bitwise_repeat"]
+        emit(line)
+        lines.append(line)
+
+    n, e = REDDIT_N, REDDIT_E
+    t0 = time.perf_counter()
+    s, r, _ = gen_clustered(n, e, SCALE_COMMUNITIES, seed=SEED)
+    gen_seconds = time.perf_counter() - t0
+    deg = np.bincount(r, minlength=n).astype(np.float64) + 1
+    dis = deg ** -0.5
+    w = (dis[s] * dis[r]).astype(np.float32)
+    del deg, dis
+    t0 = time.perf_counter()
+    st = BlockStructure(s, r, n, window=SCALE_WINDOW,
+                        dense_threshold=SCALE_THRESHOLD, device=DEVICE)
+    torch.cuda.synchronize()
+    structure_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op = BlockSpmm(s, r, n, w, structure=st)
+    torch.cuda.synchronize()
+    bind_seconds = time.perf_counter() - t0
+    fn, consts = op.bind()
+    blocks = consts["blocks"]
+    w_dev = torch.from_numpy(w).to(DEVICE)
+    table_ms = device_ms(lambda: st.dense_blocks(w_dev), calls=3)
+    t0 = time.perf_counter()
+    csr = _device_csr(r, s, n)
+    all_val = w_dev[csr.perm].contiguous()
+    torch.cuda.synchronize()
+    csr_seconds = time.perf_counter() - t0
+    del s, r, w
+    rows = SCALE_CHECK_ROWS
+    e_rows = int(csr.row_ptr[rows])
+    sub = Csr(row_ptr=csr.row_ptr[:rows + 1], col=csr.col[:e_rows],
+              perm=csr.perm[:e_rows], num_rows=rows, num_cols=n)
+    sub_val = all_val[:e_rows]
+    lib = torch.sparse_csr_tensor(csr.row_ptr, csr.col, all_val, (n, n))
+    split = {"dense_blocks": op.num_dense_blocks,
+             "table_bytes": blocks.numel() * blocks.element_size(),
+             "dense_edge_frac": op.dense_edge_frac,
+             "sparse_edges": op.sparse_edges, "edges": e, "nodes": n,
+             "windows": op.num_windows, "generate_seconds": gen_seconds,
+             "structure_seconds": structure_seconds,
+             "bind_seconds": bind_seconds, "table_build_ms": table_ms,
+             "csr_seconds": csr_seconds}
+    for f in SCALE_WIDTHS:
+        x = torch.randn(n, f, generator=gen, device=DEVICE)
+        with torch.no_grad():
+            got, again = fn(consts, x), fn(consts, x)
+        want = spmm_csr_plain(sub, sub_val, x)
+        torch.cuda.synchronize()
+        rel = _rel(got[:rows], want)
+        repeats = torch.equal(got, again)
+        del again
+        xr = x.clone().requires_grad_()
+        g = torch.randn(n, f, generator=gen, device=DEVICE)
+        out = fn(consts, xr)
+        dx = torch.autograd.grad(out, xr, g, retain_graph=True)[0]
+        dx_again = torch.autograd.grad(out, xr, g, retain_graph=True)[0]
+        # dx's first rows against the transposed plain sum: A^T g over
+        # the edges whose sender is among them, from the full CSR
+        col = csr.col.long()
+        pick = col < rows
+        rows_of = torch.repeat_interleave(
+            torch.arange(n, device=DEVICE),
+            (csr.row_ptr[1:] - csr.row_ptr[:-1]).long())
+        dx_want = torch.zeros(rows, f, device=DEVICE).index_add_(
+            0, col[pick], g[rows_of[pick]] * all_val[pick][:, None])
+        dx_rel = _rel(dx[:rows], dx_want)
+        del rows_of, pick, col, dx_want
+        fwd_ms = device_ms(lambda: fn(consts, x), calls=5)
+        dx_ms = _event_ms(lambda: torch.autograd.grad(
+            out, xr, g, retain_graph=True))
+        xs = _windows(x, st).index_select(0, consts["bsw"])
+        products = {
+            "bf16_in_fp32_out_ms": device_ms(lambda: torch.bmm(
+                blocks, xs, out_dtype=torch.float32), calls=5),
+            "bf16_in_bf16_out_ms": device_ms(lambda: torch.bmm(blocks, xs),
+                                             calls=5)}
+        b32, x32 = blocks.float(), xs.float()
+        products["fp32_in_fp32_out_ms"] = device_ms(
+            lambda: torch.bmm(b32, x32), calls=5)
+        del b32, x32, xs
+        bound, bound_by = block_spmm_bound(op, f)
+        sp_bound, sp_bound_by = spmm_bound(csr, f, 4)
+        line = {"phase": "kernel_scale", "operator": "BlockSpmm",
+                "graph": "clustered_reddit", "F": f, **split,
+                "checked_rows": rows, "checked_edges": e_rows,
+                "rel_err": rel, "dx_rel_err": dx_rel, "tol": TOL["bf16"],
+                "bitwise_repeat": repeats,
+                "dx_bitwise_repeat": torch.equal(dx, dx_again),
+                "block_fwd_ms": fwd_ms, "block_dx_ms": dx_ms,
+                "spmm_csr_ms": device_ms(lambda: spmm_csr(csr, all_val, x),
+                                         calls=3),
+                "library_ms": device_ms(lambda: torch.sparse.mm(lib, x),
+                                        calls=3),
+                "plain_ms": None,     # would gather E x F x 4 bytes
+                "slice_plain_ms": device_ms(
+                    lambda: spmm_csr_plain(sub, sub_val, x), calls=3),
+                "block_bound_ms": bound, "block_bound_by": bound_by,
+                "bound_ms": sp_bound, "bound_by": sp_bound_by,
+                "batched_product": products}
+        line["ok"] = (rel <= TOL["bf16"] and dx_rel <= TOL["bf16"]
+                      and repeats and line["dx_bitwise_repeat"])
+        emit(line)
+        lines.append(line)
+        del x, xr, g, out, dx, dx_again, got, want
+    problems = [f"{ln['operator']} F={ln['F']}: rel err {ln['rel_err']}"
+                for ln in lines if not ln["ok"]]
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return lines
+
+
+def point_steps_output(name, device, steps=3):
+    """``(logits, model)`` of a point or superpixel example's ``Net``
+    after ``steps`` Adam steps from ``SEED`` (dropout off) over the first
+    batches of its seeded default loader, then its logits on the first."""
+    from pytorch_geometric_tpu_torch.examples import mnist_graclus as mg
+    from pytorch_geometric_tpu_torch.examples.ppi import OperatorCache
+
+    gen = torch.Generator().manual_seed(SEED)
+    train = point_loaders(name, device)[0]
+    batches = list(itertools.islice(train.indexed(), steps))
+    if name == "pointnet2":
+        m = _example_module(name)
+        model = m.Net(generator=gen).to(device)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        for _, graph in batches:
+            m.train_step(model, opt, graph)
+        with torch.no_grad():
+            return model(batches[0][1]), model
+    if name == "mnist_nn_conv":
+        m = _example_module(name)
+        model, build = m.Net(generator=gen), m.nn_conv_operators
+    else:
+        model, build = mg.Net(generator=gen), mg.mnist_operators
+    model = model.to(device)
+    opt = torch.optim.Adam(model.parameters(), lr=0.01)
+    ops = OperatorCache(build)
+    for idx, graph in batches:
+        mg.train_step(model, opt, graph, ops(idx, graph), train=False)
+    idx, graph = batches[0]
+    with torch.no_grad():
+        return model(graph, ops=ops(idx, graph)), model
+
+
+def phase_slice_mnist_graclus():
+    """examples/mnist_graclus.py's run on the card at its full width and
+    defaults: SplineConv(1 -> 32, dim 2, K = 25), graclus max pool,
+    Cartesian pseudo-coordinates of the pooled positions, SplineConv(32
+    -> 64), a second pool, global mean pool, Dense 128 (ELU, dropout
+    0.5), Dense 10; Adam 0.01, batches of 64, 3 epochs over 1500
+    synthetic superpixel graphs (75 nodes, 8 neighbours; 250 test),
+    eager, one operator set a batch built on the host
+    (``mnist_operators``: both levels' spline operators, both pools'
+    ``cluster_operator`` and level 2's readout). Launches asserted as
+    epochs x (train batches x step + test batches x evaluation); every
+    loss finite and the last epoch's mean below the first's; test
+    accuracy beside chance (not gated); the operator sets built and
+    their host seconds; the logits after three steps, card against the
+    plain path on the CPU (1e-4)."""
+    train, test = point_loaders("mnist_graclus")
+    return _point_slice("mnist_graclus", MNIST_EPOCHS, MNIST_STEP_LAUNCHES,
+                        MNIST_EVAL_LAUNCHES, (train, test))
+
+
+def _point_slice(name, epochs, step, evaluation, loaders):
+    m = _example_module(name)
+    train, test = loaders
+    batches = {"train": len(train), "test": len(test)}
+    names = set(step) | set(evaluation)
+    expected = {k: epochs * (batches["train"] * step.get(k, 0)
+                             + batches["test"] * evaluation.get(k, 0))
+                for k in names}
+    statement = {
+        k: f"{epochs} epochs x ({batches['train']} train batches x "
+           f"{step.get(k, 0)} + {batches['test']} test batches x "
+           f"{evaluation.get(k, 0)}) = {expected[k]}" for k in names} or \
+        "no kernel of the port: maxima by torch's scatter_reduce only"
+    out, report, problems = _example_run(
+        lambda: m.run(epochs, seed=SEED, device=DEVICE, loaders=loaders),
+        expected, statement)
+    _falling(out["epoch_losses"], problems)
+    parity, params_err, finite, shape = _parity(
+        lambda dev: point_steps_output(name, dev))
+    if not (finite and parity <= 1e-4):
+        problems.append(f"logits after 3 steps: card vs CPU rel err "
+                        f"{parity}")
+    steps = epochs * batches["train"]
+    return _finish({"phase": f"slice_{name}", "epochs": epochs,
+                    "batches": batches,
+                    "budget": [train.num_nodes, train.num_edges,
+                               train.num_graphs], **report,
+                    "ms_per_epoch": out["seconds"] / epochs * 1e3,
+                    "ms_per_step_with_its_share_of_evaluation":
+                        out["seconds"] / steps * 1e3,
+                    "operators": out.get("operators", 0),
+                    "operator_setup_seconds": out.get("operator_seconds",
+                                                      0.0),
+                    "epoch_losses": out["epoch_losses"],
+                    "first_loss": float(out["step_losses"][0, 0]),
+                    "final_loss": float(out["step_losses"][-1, -1]),
+                    "test_acc": out["acc"], "chance_acc": 0.1,
+                    "logits_shape": shape,
+                    "logits_cuda_vs_cpu_rel_err": parity,
+                    "params_cuda_vs_cpu_rel_err": params_err}, problems)
+
+
+def phase_slice_point(name):
+    """A point or superpixel example's run on the card at its full width
+    and default epochs (mnist_voxel_grid: mnist_graclus's Net over voxel
+    levels of 5 and 10; mnist_nn_conv: NNConv mean over edge networks of
+    the Cartesian pseudo-coordinates, 1000 samples; pointnet2: two
+    PointConv set-abstraction levels over 128 sampled points of the
+    synthetic ModelNet10, 12 samples a class), eager: launches asserted
+    (``POINT_EXAMPLES``), the loss falling, and the logits after three
+    steps, card against the plain path on the CPU (1e-4)."""
+    epochs, step, evaluation = POINT_EXAMPLES[name]
+    return _point_slice(name, epochs, step, evaluation, point_loaders(name))
+
+
+def phase_trace_mnist_graclus(steps=20):
+    """Where an mnist_graclus training step's time goes: ``torch.profiler``
+    over ``steps`` eager steps of its ``train_step`` (a fresh ``Net``,
+    Adam 0.01, dropout on) cycling over one epoch's train batches,
+    collated and their operator sets built before the window; 6 port
+    launches a step."""
+    from pytorch_geometric_tpu_torch.examples import mnist_graclus as mg
+    from pytorch_geometric_tpu_torch.examples.ppi import OperatorCache
+
+    train, _ = point_loaders("mnist_graclus")
+    ops = OperatorCache(mg.mnist_operators)
+    batches = [(graph, ops(idx, graph)) for idx, graph in train.indexed()]
+    torch.cuda.synchronize()
+    model = mg.Net(generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
+    opt = torch.optim.Adam(model.parameters(), lr=0.01)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    cycle = itertools.cycle(batches)
+
+    def run():
+        graph, op = next(cycle)
+        mg.train_step(model, opt, graph, op, gen)
+
+    kernels, wall_us = profile_steps(run, steps)
+    summary, port_launches = trace_summary(kernels, wall_us, steps, "step")
+    want = sum(MNIST_STEP_LAUNCHES.values())
+    result = {"phase": "trace_mnist_graclus", "captured": False,
+              "steps": steps, "operator_sets": len(ops.ops),
+              "operator_setup_ms_per_batch": ops.seconds / len(ops.ops) * 1e3,
+              **summary, "expected_port_launches_per_step": want}
+    emit(result)
+    if port_launches != want * steps:
+        raise AssertionError(f"mnist_graclus: {port_launches / steps} port "
+                             f"kernel launches per step on the trace, "
+                             f"expected {want}")
+    return result
+
+
 #: Each kernel's source, the Pallas kernel it replaces, its main path's
 #: graph, and the case of the kernel phase that stands for that path: its
 #: largest call (GCN's F = 16 forward SpMM; GAT's conv1, 8 heads x 8, with
@@ -3319,6 +3814,23 @@ def kernels_line(results):
                                    "plain_ms", "library_ms", "bound_ms",
                                    "bound_by", "max_abs_err")}
                 for c in graph_level]
+        mnist = [c for c in results["kernel_mnist"] if c["kernel"] == name]
+        if mnist:   # the superpixel examples' operators
+            line[-1]["mnist"] = [
+                {k: c[k] for k in ("graph", "direction", "F", "rows",
+                                   "edges", "longest_row", "kernel_ms",
+                                   "plain_ms", "library_ms", "bound_ms",
+                                   "bound_by", "max_abs_err")}
+                for c in mnist]
+        if name == "spmm_csr":   # the scale operators it serves
+            line[-1]["scale"] = [
+                {k: ln.get(k) for k in (
+                    "operator", "graph", "F", "dense_frac",
+                    "dense_edge_frac", "dense_blocks", "table_bytes",
+                    "hybrid_ms", "single_spmm_csr_ms", "block_fwd_ms",
+                    "block_dx_ms", "spmm_csr_ms", "plain_ms", "library_ms",
+                    "bound_ms", "block_bound_ms", "rel_err")}
+                for ln in results["kernel_scale"]]
         for tag, graph_name, keys in (
                 ("faust", "faust", ("k_operators_ms", "kernel_flushed_ms")),
                 ("reddit", "reddit_full", ("slice_kernel_ms",
@@ -3348,7 +3860,14 @@ def kernels_line(results):
     return line
 
 
-def main():
+def main(argv=None):
+    p = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                "NVIDIA GPU; with no arguments, every phase")
+    p.add_argument("--phases", default=None,
+                   help="comma-separated phases to run after card and "
+                        "build, for a quick check of some of them (no "
+                        "kernels line)")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
@@ -3364,6 +3883,10 @@ def main():
               ("cluster", phase_cluster), ("kernel", phase_kernel),
               ("kernel_faust", lambda: phase_kernel_faust(
                   torch.Generator(device=DEVICE).manual_seed(SEED))),
+              ("kernel_mnist", lambda: phase_kernel_mnist(
+                  torch.Generator(device=DEVICE).manual_seed(SEED))),
+              ("kernel_scale", lambda: phase_kernel_scale(
+                  torch.Generator(device=DEVICE).manual_seed(SEED))),
               ("probe", phase_probe),
               ("slice", phase_slice), ("slice_gat", phase_slice_gat),
               ("slice_gat_dense",
@@ -3375,7 +3898,9 @@ def main():
               ("slice_gcn_fused",
                lambda: phase_slice_gcn("fused", "slice_gcn_fused")),
               ("slice_gcn_dense",
-               lambda: phase_slice_gcn("dense", "slice_gcn_dense"))]
+               lambda: phase_slice_gcn("dense", "slice_gcn_dense")),
+              ("slice_gcn_hybrid",
+               lambda: phase_slice_gcn("hybrid", "slice_gcn_hybrid"))]
     for name in SUITE_LAUNCHES:
         phases.append((f"slice_{name}",
                        functools.partial(phase_slice_suite, name)))
@@ -3387,6 +3912,10 @@ def main():
                        functools.partial(phase_slice_graph, name)))
     phases.append(("slice_autoencoder", phase_slice_autoencoder))
     phases.append(("slice_infomax", phase_slice_infomax))
+    phases.append(("slice_mnist_graclus", phase_slice_mnist_graclus))
+    for name in POINT_EXAMPLES:
+        phases.append((f"slice_{name}",
+                       functools.partial(phase_slice_point, name)))
     phases += [("zoo", phase_zoo), ("capture_check", phase_capture_check)]
     for config in CONFIGS:
         phases.append(("trace" if config == "gcn" else f"trace_{config}",
@@ -3394,9 +3923,18 @@ def main():
     phases.append(("trace_ppi", phase_trace_ppi))
     phases.append(("trace_faust", phase_trace_faust))
     phases.append(("trace_mutag_gin", phase_trace_mutag_gin))
+    phases.append(("trace_mnist_graclus", phase_trace_mnist_graclus))
     for config in CONFIGS:
         phases.append((f"trace_captured_{config}",
                        functools.partial(phase_trace, config, True)))
+    if args.phases:
+        keep = {"card", "build", *args.phases.split(",")}
+        unknown = keep - {name for name, _ in phases}
+        if unknown:
+            print(f"chip_smoke: unknown phases {sorted(unknown)}",
+                  file=sys.stderr)
+            return 2
+        phases = [(name, fn) for name, fn in phases if name in keep]
     for name, fn in phases:
         if failed and name != "card":
             emit({"phase": name, "skipped": f"after {failed[0]} failed"})
@@ -3414,11 +3952,11 @@ def main():
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
 
-    line = kernels_line(results)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "phase_seconds": phase_seconds})
     print(results["card"], flush=True)
-    emit({"kernels": line})
+    if not args.phases:
+        emit({"kernels": kernels_line(results)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

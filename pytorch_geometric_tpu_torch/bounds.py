@@ -8,7 +8,8 @@ edge names), never for the most it could be."""
 
 import torch
 
-from pytorch_geometric_tpu_torch.profiling import bound_ms
+from pytorch_geometric_tpu_torch.profiling import (
+    BF16_FLOP_PER_S, FP32_FLOP_PER_S, HBM_BYTES_PER_S, bound_ms)
 
 
 def spmm_bound(csr, f, x_bytes):
@@ -138,3 +139,28 @@ def fused_gcn_bound(n, num_edges, H, C, backward):
     else:
         nbytes = csr + params + n * H * 4 + n * (H + 2 * C) * 4
     return bound_ms(nbytes, 2 * num_edges * (H + C) + 2 * n * H * C)
+
+
+def block_spmm_bound(op, f, direction="fwd"):
+    """One ``BlockSpmm`` call (``fn(consts, x)``, or its ``dx``) as the
+    block design does the work: the (B, W, W) table once and its products
+    at the tensor-core rate of its type (2 B W² F), the remainder's CSR as
+    :func:`spmm_bound` counts it (its x rows in the compute type), x (or
+    g) read and the output written once in fp32; the x rows the
+    products read are counted once."""
+    st = op.structure
+    W, B, N = st.window, st.num_dense_blocks, st.num_nodes
+    elem = torch.tensor([], dtype=st.compute_dtype).element_size()
+    t_bytes = (B * W * W * elem + 2 * N * f * 4) / HBM_BYTES_PER_S
+    dense_flops = 2 * B * W * W * f
+    rate = BF16_FLOP_PER_S if st.compute_dtype == torch.bfloat16 \
+        else FP32_FLOP_PER_S
+    t_ops = dense_flops / rate
+    if st.sparse is not None:
+        csr = st.sparse.fwd if direction == "fwd" else st.sparse.bwd
+        used = int(torch.unique(csr.col).numel())
+        t_bytes += (csr.num_edges * 8 + (csr.num_rows + 1) * 4
+                    + used * f * elem) / HBM_BYTES_PER_S
+        t_ops += 2 * csr.num_edges * f / FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")

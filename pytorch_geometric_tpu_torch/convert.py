@@ -35,6 +35,16 @@ arrays ``conv1.weight``, in the same layouts:
   and ``names`` renames the modules that flax auto-names where the
   port's model keeps them elsewhere (examples/mutag_gin.py's ``MLP_k``
   is the port's ``conv{k+1}.mlp``).
+- the point and superpixel examples: examples/mnist_graclus.py's
+  ``Net`` (also mnist_voxel_grid's) is ``conv1`` / ``conv2``
+  (``SplineConv``, K = 25) and flax's ``Dense_0`` / ``Dense_1``;
+  mnist_nn_conv's ``EdgeNN_k`` modules, which flax names in the ``Net``'s
+  scope, are the port's ``conv{k+1}.edge_nn`` (``FLAX_NAMES``), and
+  inside each the output layer is ``Dense_0`` and the input layer
+  ``Dense_1`` (flax numbers the outer call first); pointnet2's ``_mlp``
+  layers are flax's ``Dense_0`` .. ``Dense_5`` of the ``Net`` itself,
+  the head ``Dense_6`` / ``Dense_7``, and the port's ``Net`` keeps those
+  names.
 
 Only numpy is needed: ``np.asarray`` reads a JAX array without importing
 JAX here.

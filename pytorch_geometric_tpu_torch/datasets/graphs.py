@@ -24,6 +24,9 @@ and nothing is written there.
   random weights, on which ``spmm_csr`` meets them.
 - :func:`rgcn_hub_operator`: a relational operator with hub rows on both
   sides and a dominant relation, for the packed-RGCN kernels.
+- :func:`gen_clustered`: the community-structured, locality-ordered
+  graph of the JAX package's scale benchmark (``bench_scale.py:51-66``),
+  on which the block SpMM's dense blocks meet Reddit's size.
 """
 
 import time
@@ -193,3 +196,33 @@ def rgcn_hub_operator(device="cuda", seed: int = 0):
     w = (rng.random(s.shape[0]) + 0.1).astype(np.float32)
     return PackedRgcnSpmm(s, r, et, R, n, w, num_src_rows=4200,
                           device=device)
+
+
+#: Reddit's published size (the GraphSAGE release: 232,965 nodes,
+#: 114,615,892 directed edges, 602 features, 41 classes), the scale
+#: benchmark's graph (``bench_scale.py:45-48``).
+REDDIT_N, REDDIT_E, REDDIT_F, REDDIT_C = 232_965, 114_615_892, 602, 41
+
+
+def gen_clustered(n, e, communities, seed=0):
+    """Community-structured synthetic graph, locality-ordered: each node
+    in one of ``communities`` (uniform), the nodes numbered community by
+    community; ``e`` edges from uniform senders, 90% of them to a uniform
+    receiver of the sender's community, the rest to any node. Returns
+    ``(senders, receivers, community of each node in the new order)``,
+    the JAX package's generator (``bench_scale.py:51-66``) draw for
+    draw."""
+    rng = np.random.default_rng(seed)
+    comm = rng.integers(0, communities, n)
+    pos_of = np.empty(n, dtype=np.int64)
+    pos_of[np.argsort(comm, kind="stable")] = np.arange(n)
+    starts = np.searchsorted(np.sort(comm), np.arange(communities))
+    counts = np.bincount(comm, minlength=communities)
+    src = rng.integers(0, n, e)
+    intra = rng.random(e) < 0.9
+    c = comm[src]
+    dst = np.where(intra,
+                   starts[c] + (rng.random(e) * counts[c]).astype(
+                       np.int64),
+                   rng.integers(0, n, e))
+    return pos_of[src], dst, comm[np.argsort(pos_of, kind="stable")]

@@ -15,7 +15,10 @@ PubMed too):
   ``"fused"``, ``FusedGcn2`` (both aggregations and the elementwise work
   between them, 1 forward and 1 backward launch per epoch, evaluation
   through ``SpmmOperator.bind_external``); ``"dense"``, the bf16 dense
-  normalised adjacency, one matrix product per aggregation (N <= 8192).
+  normalised adjacency, one matrix product per aggregation (N <= 8192);
+  ``"hybrid"``, ``HybridSpmm`` (the JAX ``pallas=True`` path: the edges
+  of dense (window, window) buckets from bf16 x, the rest in fp32, 8
+  launches per epoch).
 - a 2-layer GAT (8 heads x 8 channels, then 1 head x classes; dropout
   0.6 on the inputs and the attention; AdamW lr 5e-3, weight decay 5e-4;
   reference examples/gat.py). Every attention layer goes through one
@@ -55,6 +58,7 @@ from pytorch_geometric_tpu_torch.ops.bsr_gat import BsrFlashGat
 from pytorch_geometric_tpu_torch.ops.flash_gat import (
     MAX_NODES, FlashGatOperator)
 from pytorch_geometric_tpu_torch.ops.fused_gcn import FusedGcn2
+from pytorch_geometric_tpu_torch.ops.hybrid_spmm import HybridSpmm
 from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
 from pytorch_geometric_tpu_torch.ops.sorted_spmm import SortedSpmm
 from pytorch_geometric_tpu_torch.ops.spmm import SpmmOperator
@@ -117,8 +121,23 @@ def gcn_spmm_operator(graph: Graph) -> Tuple[SpmmOperator, torch.Tensor]:
                         device=graph.device), weights
 
 
+def gcn_hybrid_operator(graph: Graph, window: int = 512, tile: int = 512):
+    """The ``HybridSpmm`` of the JAX ``pallas=True`` trainer and its
+    static weights: over ``gcn_norm``'s whole edge set, so that the
+    window split (and ``dense_frac``) is the JAX one; the padding edges
+    weigh 0 and are left out of its operators (``edge_mask``)."""
+    norm = gcn_norm(graph)
+    keep = torch.cat([graph.real_edge_mask(),
+                      torch.ones(graph.num_nodes, dtype=torch.bool,
+                                 device=graph.device)])
+    return HybridSpmm(norm.senders, norm.receivers, graph.num_nodes,
+                      window=window, tile=tile, device=graph.device,
+                      edge_mask=keep), norm.weights
+
+
 def gcn_backend(graph: Graph, backend: str = "packed", hidden: int = 16,
-                classes: int = 7, dropout_rate: float = 0.5):
+                classes: int = 7, dropout_rate: float = 0.5,
+                window: int = 512, tile: int = 512):
     """The aggregation of ``backend`` on the graph's device:
     ``(forward_kwargs, fused)``. ``forward_kwargs`` go to ``GCN.forward``
     (``aggregate_fn=`` or ``norm_dense=``) for every layer of the packed,
@@ -133,7 +152,10 @@ def gcn_backend(graph: Graph, backend: str = "packed", hidden: int = 16,
       ``bind_external``, dropout off, as ``bench_common.py:635-656``;
     - ``"dense"``: ``gcn_norm_dense`` in bf16, as the JAX
       ``create_gcn_train_step(dense=True)``; at most
-      :data:`GCN_DENSE_MAX_NODES` padded nodes.
+      :data:`GCN_DENSE_MAX_NODES` padded nodes;
+    - ``"hybrid"``: :func:`gcn_hybrid_operator` bound to its weights, as
+      the JAX ``create_gcn_train_step(pallas=True)``; ``window`` and
+      ``tile`` decide which edges are summed from bf16 x.
     """
     if backend == "dense":
         if graph.num_nodes > GCN_DENSE_MAX_NODES:
@@ -145,9 +167,12 @@ def gcn_backend(graph: Graph, backend: str = "packed", hidden: int = 16,
     if backend == "packed":
         op, weights = gcn_spmm_operator(graph)
         return {"aggregate_fn": op.bind(weights)}, None
+    if backend == "hybrid":
+        op, weights = gcn_hybrid_operator(graph, window, tile)
+        return {"aggregate_fn": op.bind(weights)}, None
     if backend not in ("sorted", "fused"):
-        raise ValueError(f"backend must be 'packed', 'sorted', 'fused' or "
-                         f"'dense', got {backend!r}")
+        raise ValueError(f"backend must be 'packed', 'sorted', 'fused', "
+                         f"'dense' or 'hybrid', got {backend!r}")
     senders, receivers, weights = gcn_edge_set(graph)
     n = graph.num_nodes
     if backend == "sorted":
@@ -161,7 +186,8 @@ def gcn_backend(graph: Graph, backend: str = "packed", hidden: int = 16,
 
 
 def create_gcn_train_step(model: GCN, graph: Graph, weight_decay=5e-4,
-                          lr=0.01, backend: str = "packed"):
+                          lr=0.01, backend: str = "packed",
+                          window: int = 512, tile: int = 512):
     """Build ``(epoch_step, eval_fn)`` closures over a static graph, with
     every aggregation through :func:`gcn_backend` of ``backend``.
 
@@ -188,7 +214,8 @@ def create_gcn_train_step(model: GCN, graph: Graph, weight_decay=5e-4,
     share b1, b2 and eps (added outside the square root).
     """
     agg, fused = gcn_backend(graph, backend, model.conv1.out_channels,
-                             model.conv2.out_channels, model.dropout_rate)
+                             model.conv2.out_channels, model.dropout_rate,
+                             window, tile)
     opt = torch.optim.Adam(model.parameters(), lr=lr,
                            capturable=graph.device.type == "cuda")
     decayed = list(model.conv1.parameters())
@@ -227,7 +254,8 @@ def create_gcn_train_step(model: GCN, graph: Graph, weight_decay=5e-4,
 def train_gcn(graph: Graph, num_classes: int, hidden: int = 16,
               epochs: int = 200, seed: int = 0, lr: float = 0.01,
               device="cuda", backend: str = "packed",
-              capture: Optional[bool] = None) -> Tuple[GCN, Dict[str, Any]]:
+              capture: Optional[bool] = None, window: int = 512,
+              tile: int = 512) -> Tuple[GCN, Dict[str, Any]]:
     """Full training run on ``device`` through the aggregation of
     ``backend`` (:func:`gcn_backend`): ``epochs`` Adam steps, then one
     evaluation, through ``models/capture.py:run_epochs`` (``capture``:
@@ -244,7 +272,10 @@ def train_gcn(graph: Graph, num_classes: int, hidden: int = 16,
     evaluation, the sorted backend ``sorted_segment_sum`` likewise; the
     fused backend launches ``fused_gcn_fwd`` and ``fused_gcn_bwd`` once
     per epoch and ``spmm_csr`` 2 times for the evaluation; the dense
-    backend launches no kernel of the port."""
+    backend launches no kernel of the port; the hybrid backend launches
+    ``spmm_csr`` twice where the packed one launches it once (its dense
+    and its sparse part; once where a part is empty), ``window`` and
+    ``tile`` setting its split."""
     dev = resolve_device(device)
     capture = resolve_capture(capture, dev)
     graph = graph.to(dev)
@@ -253,7 +284,8 @@ def train_gcn(graph: Graph, num_classes: int, hidden: int = 16,
                 generator=init_gen).to(dev)
     drop_gen = torch.Generator(device=dev).manual_seed(seed)
     epoch_step, eval_fn = create_gcn_train_step(model, graph, lr=lr,
-                                                backend=backend)
+                                                backend=backend,
+                                                window=window, tile=tile)
     return model, run_epochs(epoch_step, eval_fn, epochs, drop_gen, dev,
                              capture)
 

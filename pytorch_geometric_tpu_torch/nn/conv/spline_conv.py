@@ -147,18 +147,20 @@ def spline_operators(graph: Graph, dim: int, kernel_size,
 
 def spline_operator(graph: Graph, dim: int, kernel_size,
                     is_open_spline: bool = True, degree: int = 1,
-                    pseudo=None, compute_dtype=torch.float32):
+                    pseudo=None, compute_dtype=torch.float32, device=None):
     """The accumulator of a ``SplineConv`` of this configuration on
     ``graph`` as one bound rectangular SpMM, ``x (N, F) -> (N·K, F)``, on
-    the graph's device: pass it as ``spline_op``. Built on the host in one
-    pass over the fused row id ``receiver·K + kernel index``; within a row
-    the entries keep their (edge, corner) order. Differentiable in x."""
+    ``device`` (default: the graph's): pass it as ``spline_op``. Built on
+    the host in one pass over the fused row id ``receiver·K + kernel
+    index``; within a row the entries keep their (edge, corner) order.
+    Differentiable in x."""
     s, r, idx, b, K = _spline_entries(graph, dim, kernel_size,
                                       is_open_spline, degree, pseudo)
     n = graph.num_nodes
     geom, consts = pack_bipartite_tables(
         s, r.astype(np.int64) * K + idx, n, n * K, b,
-        compute_dtype=compute_dtype, device=graph.device)
+        compute_dtype=compute_dtype,
+        device=graph.device if device is None else device)
     return functools.partial(spmm_bi_static, geom, consts)
 
 

@@ -106,13 +106,16 @@ def _routed(cluster, graph: Graph):
                        n - 1)
 
 
-def cluster_operator(cluster, graph: Graph) -> SortedSegmentSum:
+def cluster_operator(cluster, graph: Graph, device=None
+                     ) -> SortedSegmentSum:
     """The ``SortedSegmentSum`` of :func:`pool_graph_masked` over
     ``cluster`` (N ids of ``graph``'s nodes, the nodes outside its mask
-    routed to N - 1) into N rows, on the graph's device. Built on the
-    host."""
+    routed to N - 1) into N rows, on ``device`` (default: the graph's).
+    Built on the host."""
     ids = host_array(_routed(cluster, graph))
-    return SortedSegmentSum(ids, graph.num_nodes, device=graph.device)
+    return SortedSegmentSum(ids, graph.num_nodes,
+                            device=graph.device if device is None
+                            else device)
 
 
 def max_pool_x(cluster, x, batch, num_clusters: Optional[int] = None,

@@ -52,12 +52,19 @@ def _num_graphs(graph, b, num_graphs):
                           else int(b.max()) + 1)
 
 
-def pool_operator(graph: Graph) -> SortedSegmentSum:
+def pool_operator(graph: Graph, device=None) -> SortedSegmentSum:
     """The ``SortedSegmentSum`` of the readouts over ``graph``'s batch
     vector into its ``num_graphs`` rows (the padding graph's included),
-    on the graph's device. Built on the host."""
-    return SortedSegmentSum(_batch_of(graph, None), graph.num_graphs,
-                            device=graph.device)
+    the nodes outside ``node_mask`` routed to the padding graph as the
+    JAX mean and max route them (a collated batch's padding nodes are
+    there already; a pooled level's unoccupied rows are not), on
+    ``device`` (default: the graph's). Built on the host."""
+    b = _batch_of(graph, None)
+    if graph.node_mask is not None:
+        b = torch.where(graph.node_mask, b, graph.num_graphs - 1)
+    return SortedSegmentSum(b, graph.num_graphs,
+                            device=graph.device if device is None
+                            else device)
 
 
 def _segment_sum(x, b, g, segment_op, what):

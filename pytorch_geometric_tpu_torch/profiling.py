@@ -30,10 +30,11 @@ _FLAGS = {"print_to_logging": True, "print_device_usage": False}
 
 #: The H100's L2 cache; a flush writes twice this.
 L2_BYTES = 50 * 2 ** 20
-#: H100 SXM data-sheet peaks for a kernel's bound: device memory bytes/s
-#: and fp32 (non-tensor-core) flop/s.
+#: H100 SXM data-sheet peaks for a kernel's bound: device memory bytes/s,
+#: fp32 (non-tensor-core) flop/s and dense bf16 tensor-core flop/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 
 def set_logging(enabled: bool) -> None:

@@ -30,7 +30,8 @@ from pytorch_geometric_tpu_torch.transforms import TargetIndegree
 CLASSES = 4
 #: (trainer, backend or suite model) of every configuration the trainers
 #: take.
-CONFIGS = [("gcn", b) for b in ("packed", "sorted", "fused", "dense")] + [
+CONFIGS = [("gcn", b) for b in ("packed", "sorted", "fused", "dense",
+                                 "hybrid")] + [
     ("gat", b) for b in ("packed", "dense", "bsr")] + [("rgcn", None)] + [
     ("suite", m) for m in ("sgc", "agnn", "arma", "spline", "dna")]
 
@@ -205,6 +206,8 @@ EAGER_LAUNCHES = {
     ("gcn", "fused"): ({"fused_gcn_fwd": 1, "fused_gcn_bwd": 1},
                        {"spmm_csr": 2}),
     ("gcn", "dense"): ({}, {}),
+    # one window of 512 holds the 150 nodes: every edge dense, one part
+    ("gcn", "hybrid"): ({"spmm_csr": 4}, {"spmm_csr": 2}),
     ("gat", "packed"): ({"packed_gat_fwd": 2, "packed_gat_bwd": 4},
                         {"packed_gat_fwd": 2}),
     ("gat", "dense"): ({"flash_gat_fwd": 2, "flash_gat_bwd": 4},

@@ -40,7 +40,8 @@ from pytorch_geometric_tpu.utils.reorder import (
 from pytorch_geometric_tpu_torch.data import Data, InMemoryDataset, from_data
 from pytorch_geometric_tpu_torch.examples import (
     autoencoder, citation_suite, enzymes_diff_pool, enzymes_topk_pool, faust,
-    gat, gcn, infomax, mutag_gin, ppi, qm9_nn_conv, rgcn)
+    gat, gcn, infomax, mnist_graclus, mnist_nn_conv, mnist_voxel_grid,
+    mutag_gin, pointnet2, ppi, qm9_nn_conv, rgcn)
 from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
 from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
 
@@ -50,7 +51,9 @@ EXAMPLES = {"gcn": gcn, "gat": gat, "rgcn": rgcn,
             "mutag_gin": mutag_gin, "enzymes_topk_pool": enzymes_topk_pool,
             "enzymes_diff_pool": enzymes_diff_pool,
             "qm9_nn_conv": qm9_nn_conv, "autoencoder": autoencoder,
-            "infomax": infomax}
+            "infomax": infomax, "mnist_graclus": mnist_graclus,
+            "mnist_voxel_grid": mnist_voxel_grid,
+            "mnist_nn_conv": mnist_nn_conv, "pointnet2": pointnet2}
 
 
 def _tree(path):
@@ -452,3 +455,28 @@ def test_autoencoder_and_infomax_load_the_jax_scripts_graphs(tmp_path):
     _same_graph(infomax.load(root=tmp_path / "port", device="cpu"), ref,
                 ("x", "senders", "receivers", "y", "node_mask", "train_mask",
                  "test_mask"))
+
+
+@pytest.mark.parametrize("name", ["mnist_graclus", "mnist_voxel_grid",
+                                  "mnist_nn_conv", "pointnet2"])
+def test_point_and_superpixel_run_prints_the_jax_scripts_line(
+        name, capsys, tmp_path):
+    """Two epochs of each script at a tiny size (12 superpixel graphs in
+    batches of 4; ModelNet10 at 2 samples a class in batches of 8): the
+    JAX line per epoch, finite losses, and for the MNIST scripts one
+    operator set a train batch an epoch and the test batch's once."""
+    module = EXAMPLES[name]
+    if name == "pointnet2":
+        loaders = module.load(0, 8, 2, tmp_path, device="cpu")
+    elif name == "mnist_graclus":
+        loaders = module.load(0, 4, 12, tmp_path, device="cpu")
+    else:
+        loaders = mnist_voxel_grid.load(0, 4, 12, tmp_path, device="cpu")
+    out = module.run(2, loaders=loaders, device="cpu")
+    lines = _assert_lines(capsys, name, 2)
+    assert [ln.split(",")[0] for ln in lines] == ["Epoch 01", "Epoch 02"]
+    assert np.isfinite(out["step_losses"]).all()
+    assert 0.0 <= out["acc"] <= 1.0
+    if name != "pointnet2":
+        assert (len(loaders[0]), len(loaders[1])) == (3, 1)
+        assert out["operators"] == 2 * 3 + 1

@@ -372,7 +372,7 @@ def test_each_backend_matches_the_jax_gcn_forward(backend):
 
 def test_backends_refuse_unknown_names_and_dense_past_its_cap():
     g, _ = _graphs(4)
-    for name in ("hybrid", "bsr", "auto", ""):
+    for name in ("pallas", "bsr", "auto", ""):
         with pytest.raises(ValueError, match="backend must be"):
             tcit.gcn_backend(g, name)
         with pytest.raises(ValueError, match="backend must be"):

@@ -105,7 +105,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "nn.models.infomax", "examples.mutag_gin",
                  "examples.enzymes_topk_pool", "examples.enzymes_diff_pool",
                  "examples.qm9_nn_conv", "examples.autoencoder",
-                 "examples.infomax"):
+                 "examples.infomax", "ops.hybrid_spmm", "ops.block_spmm",
+                 "examples.mnist_graclus", "examples.mnist_voxel_grid",
+                 "examples.mnist_nn_conv", "examples.pointnet2"):
         assert f"pytorch_geometric_tpu_torch.{name}" in report["modules"]
     assert report["bad"] == []
 
@@ -163,9 +165,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         bsr_gat.BsrFlashGat(gat_dense_adj(graph))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bsr_gat.BsrFlashGat.from_edges(*gat_edge_set(graph), graph.num_nodes)
-    for backend in ("sorted", "fused", "dense"):
+    for backend in ("sorted", "fused", "dense", "hybrid"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             train_gcn(graph, num_classes=2, epochs=1, backend=backend)
+    from pytorch_geometric_tpu_torch.ops.block_spmm import (
+        BlockSpmm, BlockStructure)
+    from pytorch_geometric_tpu_torch.ops.hybrid_spmm import HybridSpmm
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        HybridSpmm(graph.senders, graph.receivers, graph.num_nodes)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BlockStructure(graph.senders, graph.receivers, graph.num_nodes)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BlockSpmm(graph.senders, graph.receivers, graph.num_nodes,
+                  np.ones(graph.num_edges, np.float32))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         sorted_spmm.SortedSpmm(graph.senders, graph.receivers,
                                graph.num_nodes)
@@ -190,8 +203,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         autoencoder, enzymes_diff_pool, enzymes_topk_pool, infomax,
         mutag_gin, qm9_nn_conv)
 
+    from pytorch_geometric_tpu_torch.examples import (
+        mnist_graclus, mnist_nn_conv, mnist_voxel_grid, pointnet2)
+
     for module in (mutag_gin, enzymes_topk_pool, enzymes_diff_pool,
-                   qm9_nn_conv, autoencoder, infomax):
+                   qm9_nn_conv, autoencoder, infomax, mnist_graclus,
+                   mnist_voxel_grid, mnist_nn_conv, pointnet2):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             module.run(epochs=1)
     rel = from_data(_tiny_relational_graph(), device="cpu")

@@ -12,7 +12,9 @@ against the CPU), the
 packed-GAT forward and backward, the packed-RGCN forward and backward,
 the dense-mask flash-GAT forward and backward, the block-sparse GAT
 forward, row pass and column pass, the sorted segment sum, the fused
-two-layer GCN forward and backward, and the probes' libraries
+two-layer GCN forward and backward, the scale operators (``HybridSpmm``,
+``BlockSpmm``) and examples/mnist_graclus.py's ``Net`` against the CPU,
+and the probes' libraries
 (``probes/packed_gat_ablate.cu``, ``probes/packed_rgcn_ablate.cu`` and
 the design probes) against the kernels they ablate or precede.
 """
@@ -1725,6 +1727,147 @@ def test_faust_net_on_card_matches_cpu(cuda_device):
     assert launch_counts()["spmm_csr"] - before == 11
     want = cpu_net(cpu_graph, spline_op=faust.faust_spline_op(cpu_graph))
     faust.nll_loss(want, cpu_graph).backward()
+    want = want.detach()
+    err = float((logits.detach().cpu() - want).abs().max()
+                / want.abs().max())
+    assert err <= 1e-4, err
+    cpu_params = dict(cpu_net.named_parameters())
+    for name, p in net.named_parameters():
+        b = cpu_params[name].grad
+        err = float((p.grad.cpu() - b).abs().max() / b.abs().max())
+        assert err <= 1e-4, (name, err)
+
+
+def _scale_problem(device, n=600, f=40, seed=21):
+    """A community-structured graph of ``n`` nodes (bench_scale.py's
+    ``gen_clustered`` shape: 90% of the edges inside one of 3 contiguous
+    communities), random weights, x."""
+    from pytorch_geometric_tpu_torch.datasets.graphs import gen_clustered
+
+    rng = np.random.default_rng(seed)
+    s, r, _ = gen_clustered(n, 12 * n, 3, seed=seed)
+    w = rng.normal(size=s.shape[0]).astype(np.float32)
+    x = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32))
+    return s, r, w, x.to(device), n
+
+
+@pytest.mark.cuda
+def test_hybrid_spmm_on_card_matches_cpu(cuda_device):
+    """``HybridSpmm`` on the card (two ``spmm_csr`` launches a direction:
+    the dense part from bf16 x, the rest fp32) against the same operator
+    on the CPU (1e-5: the same rounding points) and the fp32 plain sum
+    (2e-2); ``dx`` and ``dw`` too; two calls bitwise equal."""
+    from pytorch_geometric_tpu_torch.models.capture import launch_counts
+    from pytorch_geometric_tpu_torch.ops.hybrid_spmm import HybridSpmm
+    from pytorch_geometric_tpu_torch.ops.spmm import spmm
+
+    s, r, w, x, n = _scale_problem(cuda_device)
+    op = HybridSpmm(s, r, n, window=64, tile=128, device=cuda_device)
+    cpu = HybridSpmm(s, r, n, window=64, tile=128, device="cpu")
+    assert len(op.parts) == 2 and 0.5 < op.dense_frac < 1.0
+    wt = torch.from_numpy(w).to(cuda_device).requires_grad_()
+    xt = x.clone().requires_grad_()
+    before = launch_counts()["spmm_csr"]
+    out = op(wt, xt)
+    torch.cuda.synchronize()
+    assert launch_counts()["spmm_csr"] - before == 2
+    g = torch.randn_like(out)
+    dw, dx = torch.autograd.grad(out, (wt, xt), g)
+    assert launch_counts()["spmm_csr"] - before == 4
+    wc = torch.from_numpy(w).requires_grad_()
+    xc = x.cpu().requires_grad_()
+    want = cpu(wc, xc)
+    dwc, dxc = torch.autograd.grad(want, (wc, xc), g.cpu())
+    for a, b in ((out, want), (dx, dxc), (dw, dwc)):
+        err = float((a.detach().cpu() - b).abs().max() / b.abs().max())
+        assert err <= 1e-5, err
+    assert torch.equal(out, op(wt, xt))
+    plain = spmm(torch.from_numpy(s), torch.from_numpy(r), x.cpu(), n,
+                 weights=torch.from_numpy(w))
+    err = float((out.detach().cpu() - plain).abs().max() / plain.abs().max())
+    assert err <= 2e-2, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["fp32", "bf16"])
+def test_block_spmm_on_card_matches_cpu(cuda_device, compute):
+    """``BlockSpmm`` on the card (the table built by one segment-sum
+    launch, the dense part's window sums through the segment-sum kernel,
+    the remainder through ``spmm_csr``) against the same operator on the
+    CPU and the fp32 plain sum: fp32 1e-5; bf16 the table bitwise, the
+    output and ``dx`` 1e-2 of the CPU's (cuBLAS and the CPU sum the bf16
+    products in other orders) and 2e-2 of the plain sum. Two calls
+    bitwise equal."""
+    from pytorch_geometric_tpu_torch.models.capture import launch_counts
+    from pytorch_geometric_tpu_torch.ops.block_spmm import BlockSpmm
+    from pytorch_geometric_tpu_torch.ops.spmm import spmm
+
+    dt = torch.float32 if compute == "fp32" else torch.bfloat16
+    tol = 1e-5 if compute == "fp32" else 1e-2
+    s, r, w, x, n = _scale_problem(cuda_device)
+    before = launch_counts()
+    op = BlockSpmm(s, r, n, w, window=64, dense_threshold=200,
+                   compute_dtype=dt, device=cuda_device)
+    torch.cuda.synchronize()
+    assert launch_counts()["sorted_segment_sum"] \
+        - before["sorted_segment_sum"] == 1
+    cpu = BlockSpmm(s, r, n, w, window=64, dense_threshold=200,
+                    compute_dtype=dt, device="cpu")
+    assert op.num_dense_blocks > 0 and op.sparse_edges > 0
+    fn, consts = op.bind()
+    cfn, cconsts = cpu.bind()
+    assert torch.equal(consts["blocks"].cpu(), cconsts["blocks"])
+    xt = x.clone().requires_grad_()
+    before = launch_counts()
+    out = fn(consts, xt)
+    g = torch.randn_like(out)
+    dx, = torch.autograd.grad(out, xt, g)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in ("spmm_csr",
+                                              "sorted_segment_sum")} == \
+        {"spmm_csr": 2, "sorted_segment_sum": 2}
+    xc = x.cpu().requires_grad_()
+    want = cfn(cconsts, xc)
+    dxc, = torch.autograd.grad(want, xc, g.cpu())
+    for a, b in ((out, want), (dx, dxc)):
+        err = float((a.detach().cpu() - b).abs().max() / b.abs().max())
+        assert err <= tol, err
+    assert torch.equal(out, fn(consts, xt))
+    plain = spmm(torch.from_numpy(s), torch.from_numpy(r), x.cpu(), n,
+                 weights=torch.from_numpy(w))
+    err = float((out.detach().cpu() - plain).abs().max() / plain.abs().max())
+    assert err <= (1e-5 if compute == "fp32" else 2e-2), err
+
+
+@pytest.mark.cuda
+def test_mnist_graclus_net_on_card_matches_cpu(cuda_device):
+    """examples/mnist_graclus.py's ``Net`` over one batch of 64 graphs:
+    one forward and one backward through the batch's operators on the
+    card (``spmm_csr`` 2 forward + 1 ``dx``; the segment sum 3 forward:
+    both pools' means of pos and the readout) against the same model on
+    the CPU: logits and every parameter's gradient 1e-4."""
+    from pytorch_geometric_tpu_torch.examples import mnist_graclus as mg
+    from pytorch_geometric_tpu_torch.models.capture import launch_counts
+
+    train, _ = mg.load(train_samples=64, device=cuda_device)
+    graph = next(iter(train))
+    cpu_graph = graph.to("cpu")
+    net = mg.Net(generator=torch.Generator().manual_seed(0))
+    cpu_net = mg.Net()
+    cpu_net.load_state_dict(net.state_dict())
+    net.to(cuda_device)
+    ops = mg.mnist_operators(graph)
+    before = launch_counts()
+    logits = net(graph, ops=ops)
+    mg.loss_of(logits, graph).backward()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in ("spmm_csr",
+                                              "sorted_segment_sum")} == \
+        {"spmm_csr": 3, "sorted_segment_sum": 3}
+    want = cpu_net(cpu_graph, ops=mg.mnist_operators(cpu_graph))
+    mg.loss_of(want, cpu_graph).backward()
     want = want.detach()
     err = float((logits.detach().cpu() - want).abs().max()
                 / want.abs().max())

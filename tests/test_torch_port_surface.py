@@ -75,7 +75,8 @@ EXEMPT_PARAMS = {
     "rows": _TPU_KNOB, "f_tile": _TPU_KNOB,
     "closure": _CLOSURE, "closure_norms": _CLOSURE,
     "shard_ctx": "the edge-partition path: " + _QUEUE_A.format(11),
-    "pallas": "the hybrid SpMM trainer: " + _QUEUE_A.format(6),
+    "pallas": "the GCN trainer's backend= takes its place: backend="
+              "\"hybrid\" is the JAX pallas=True (HybridSpmm)",
     "dense": "the GCN trainer's backend= takes its place (ROADMAP.md "
              "Queue C, gaps)",
     "dense_dtype": "the GCN trainer's backend= takes its place (ROADMAP.md "
@@ -92,6 +93,15 @@ EXEMPT_PARAMS_AT = {
     "ops/spmm.py": {"SpmmGeom.make": {
         p: _TPU_PACKING + " (counts of source and destination windows)"
         for p in ("nsw_f", "ndw_f", "nsw_b", "ndw_b")}},
+    "ops/block_spmm.py": {
+        f"{cls}.__init__": {
+            "sparse_tile": "the sparse remainder's TPU tile (its padding "
+                           "per bucket); the remainder is a CSR "
+                           "(ops/csr.py:build_csr), which has none",
+            "sparse_window_src": "a wider source window of the TPU "
+                                 "remainder's packed tiles; a CSR has no "
+                                 "windows"}
+        for cls in ("BlockStructure", "BlockSpmm")},
     "nn/conv/rgcn_conv.py": {"rgcn_fused_op": {
         "backend": "one fused operator: kernels on a CUDA graph, their "
                    "plain versions on a CPU graph (no switch to plain "
