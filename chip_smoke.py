@@ -127,6 +127,16 @@ Phases, one JSON line each:
                calls bitwise equal, beside one fp32 spmm_csr over all
                edges, cuSPARSE, both bounds, and the batched product with
                bf16 or fp32 output and with fp32 inputs;
+   kernel_closure — the kernels at the closure and sampled paths'
+               shapes against their plain versions (fp32 1e-5, two
+               launches bitwise equal),
+               with cuSPARSE and the bound: the closure GCN's rectangular
+               operators on Cora (layer 0 at F = 16, layer 1 at 7, both
+               directions), the closure GAT's two layers ((8, 8) and
+               (1, 7), dropout 0.6), the closure RGCN's embedding-mode
+               and transform layers on MUTAG-RDF, and spmm_csr on one
+               sampled batch of the full-scale Reddit graph (512 seeds,
+               fan-out [10, 10]) at F = 602 and 128, both directions;
    probe     — the probes' libraries against the kernels that ship:
                every term-by-term ablation mode of the packed-GAT backward
                (RCM-PubMed, (8, 8), dropout 0.6) and of the packed-RGCN
@@ -203,6 +213,21 @@ Phases, one JSON line each:
                pallas=True: HybridSpmm, two spmm_csr launches an
                aggregation, 8 an epoch and 4 for the evaluation), logits
                against the CPU within 1e-2;
+   slice_closure_gcn, slice_closure_gat, slice_closure_rgcn — the JAX
+               bench's closure rows: the GCN and the GAT on Cora, the
+               RGCN on MUTAG-RDF, trained on the training nodes'
+               two-layer closure (closure=True; 200 epochs, RGCN 50),
+               captured and then eager, evaluated on the full graph:
+               launches as CLOSURE_LAUNCHES (the full graph's counts), the
+               full slices' gates, card logits against the CPU's (1e-4,
+               full graph and closure), the closure's logits at the seeds
+               against the full graph's within the JAX bench's bounds
+               (GCN 1e-3, GAT and RGCN 1e-2), each layer's rows and edges;
+   adam_compact — the captured MUTAG epoch with utils/optim.py's
+               adam_compact (bf16 moments) and with
+               torch.optim.Adam(capturable=True): seconds, the optimiser's
+               own step (device µs), the moments' bytes, both loss curves
+               (each finite and halved);
    slice_sgc, slice_agnn, slice_arma, slice_spline, slice_dna — the
                five models of examples/citation_suite.py on Cora (Spline
                with TargetIndegree), 200 epochs each, captured and then
@@ -272,13 +297,25 @@ Phases, one JSON line each:
                epochs each): launches asserted (POINT_EXAMPLES; pointnet2
                none), the loss falling, the logits after three steps card
                against the CPU (1e-4);
+   slice_reddit_sage — examples/reddit_sage.py's run on
+               Reddit(full_scale=True) (SAGE 602 -> 128 -> 41, fan-out
+               [10, 10], batches of 512, index-shipping batches over the
+               tables on the card, one epoch of 20 batches and 10
+               validation batches), eager, each batch's sums through one
+               EmbedSpmm over its real edges (each layer's input and its
+               degrees, a column of ones): launches asserted as 20 x 5 +
+               10 x 4,
+               the loss falling, validation accuracy beside chance, the
+               logits after three steps card against the CPU (1e-4), the
+               sampler's nodes a second, and the epoch device-only,
+               sampled inline and pipelined (prefetch 4);
    zoo       — every conv of the zoo (Part B's and the suite's) on Cora
                at 1433 -> 16, one forward and one backward through its
                operators on the card against its plain path on the CPU:
                output, input gradient and parameter gradients within
                1e-4, and a kernel launched by each conv that sums
                feature rows;
-7. capture_check — for each of the fourteen configurations, five epochs
+7. capture_check — for each of the seventeen configurations, five epochs
                captured and five eager from the same seeds: the logits
                and every parameter within 1e-6 of the largest magnitude;
 8. trace, trace_gat, trace_gat_dense, trace_gat_bsr, trace_rgcn,
@@ -298,6 +335,10 @@ Phases, one JSON line each:
                operator-set build time a batch;
    trace_mnist_graclus — the same over 20 eager training steps of the
                mnist_graclus example (6 port launches a step);
+   trace_reddit_sage — the same over 20 eager reddit_sage steps, the
+               batches sampled by the pipelined loader as a user runs it
+               (5 port launches a step); the closure configurations'
+               traces come with the others (trace_closure_*);
 9. trace_captured_* — the same over 20 replays of the epoch captured as
                the trainers capture it, one phase per configuration; the
                port's launches per epoch must equal the eager count.
@@ -1383,6 +1424,20 @@ def phase_kernel_faust(gen):
     return cases
 
 
+@functools.cache
+def reddit_full():
+    """``(Data, seconds)`` of ``Reddit(full_scale=True)`` (232,965 nodes,
+    602 features, 41 classes, ~11.6 M planted-partition edges), built
+    once per run: the Reddit kernel cases and reddit_sage's phases share
+    it."""
+    from pytorch_geometric_tpu_torch.datasets import Reddit
+    from pytorch_geometric_tpu_torch.datasets.graphs import PLANETOID_ROOT
+
+    t0 = time.perf_counter()
+    data = Reddit(str(PLANETOID_ROOT), full_scale=True)[0]
+    return data, time.perf_counter() - t0
+
+
 def phase_kernel_reddit(gen):
     """``spmm_csr`` on the full-scale synthetic Reddit graph
     (``Reddit(full_scale=True)``: 232,965 nodes, ~11.6 M directed edges,
@@ -1392,14 +1447,10 @@ def phase_kernel_reddit(gen):
     rows (1e-5), two launches bitwise equal, the whole call timed beside
     cuSPARSE and the bound, and the plain version and the kernel timed on
     the slice."""
-    from pytorch_geometric_tpu_torch.datasets import Reddit
-    from pytorch_geometric_tpu_torch.datasets.graphs import PLANETOID_ROOT
     from pytorch_geometric_tpu_torch.ops.csr import Csr, build_csr
     from pytorch_geometric_tpu_torch.ops.spmm import spmm_csr, spmm_csr_plain
 
-    t0 = time.perf_counter()
-    data = Reddit(str(PLANETOID_ROOT), full_scale=True)[0]
-    load_seconds = time.perf_counter() - t0
+    data, load_seconds = reddit_full()
     n = data.num_nodes
     t0 = time.perf_counter()
     csr = build_csr(data.edge_index[1], data.edge_index[0], n).to(DEVICE)
@@ -1824,7 +1875,17 @@ CONFIGS = {
     "arma": ("suite", "arma", "cora", EPOCHS, 8),
     "spline": ("suite", "spline", "cora_spline", EPOCHS, 6),
     "dna": ("suite", "dna", "cora", EPOCHS, 12),
+    "closure_gcn": ("gcn", "packed", "cora", EPOCHS, 4),
+    "closure_gat": ("gat", "packed", "cora", EPOCHS, 6),
+    "closure_rgcn": ("rgcn", None, "mutag", RGCN_EPOCHS, 10),
 }
+#: The configurations that train on the training nodes' closure
+#: (``closure=True``) and evaluate on the full graph.
+CLOSURE_CONFIGS = ("closure_gcn", "closure_gat", "closure_rgcn")
+#: The JAX bench's bounds on the closure-against-full logit gap,
+#: max |closure - full at the seeds| / (1 + max |full|)
+#: (``bench_common.py:213, 306, 756``).
+CLOSURE_GAP = {"gcn": 1e-3, "gat": 1e-2, "rgcn": 1e-2}
 
 #: The citation suite's kernel launches, worked out from its code
 #: (``examples/citation_suite.py:train_suite``): per epoch, for the
@@ -1880,13 +1941,15 @@ def train(config, epochs=None, capture=None, seed=SEED):
     if kind == "suite":
         return train_suite(backend, graph, ds.num_classes, epochs=epochs,
                            seed=seed, device=DEVICE, capture=capture)
+    closure = config in CLOSURE_CONFIGS
     if kind == "rgcn":
         return train_rgcn(graph, ds.num_relations, ds.num_classes,
                           epochs=epochs, seed=seed, device=DEVICE,
-                          capture=capture)
+                          capture=capture, closure=closure)
     fn = train_gcn if kind == "gcn" else train_gat
     return fn(graph, num_classes=ds.num_classes, epochs=epochs, seed=seed,
-              device=DEVICE, backend=backend, capture=capture)
+              device=DEVICE, backend=backend, capture=capture,
+              closure=closure)
 
 
 def logits_of(config, model, device=DEVICE, backend=None):
@@ -1929,6 +1992,7 @@ def epoch_step_of(config):
     ds, graph, _ = load(graph_name)
     init = torch.Generator().manual_seed(SEED)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    closure = config in CLOSURE_CONFIGS
     if kind == "suite":
         cls, hp = citation_suite.MODELS[backend]
         model = cls(graph.num_node_features, ds.num_classes,
@@ -1938,15 +2002,17 @@ def epoch_step_of(config):
     if kind == "rgcn":
         model = RGCN(graph.num_nodes, ds.num_relations, ds.num_classes,
                      generator=init).to(DEVICE)
-        return create_rgcn_train_step(model, graph, ds.num_relations)[0], \
-            None
+        return create_rgcn_train_step(model, graph, ds.num_relations,
+                                      closure=closure)[0], None
     if kind == "gat":
         model = GAT(graph.num_node_features, ds.num_classes,
                     generator=init).to(DEVICE)
-        return create_gat_train_step(model, graph, backend=backend)[0], gen
+        return create_gat_train_step(model, graph, backend=backend,
+                                     closure=closure)[0], gen
     model = GCN(graph.num_node_features, 16, ds.num_classes,
                 generator=init).to(DEVICE)
-    return create_gcn_train_step(model, graph, backend=backend)[0], gen
+    return create_gcn_train_step(model, graph, backend=backend,
+                                 closure=closure)[0], gen
 
 
 def _rel(got, want):
@@ -3701,6 +3767,440 @@ def phase_trace_mnist_graclus(steps=20):
     return result
 
 
+# ---------------------------------------------------------------------------
+# Training closures, neighbour sampling and the compact optimiser
+# ---------------------------------------------------------------------------
+
+#: Launches of the closure configurations (the full graph's counts: each
+#: closure layer runs the same operator kind over its own edges), per
+#: epoch and for the full-graph evaluation.
+CLOSURE_LAUNCHES = {
+    "gcn": ({"spmm_csr": 4}, {"spmm_csr": 2}),
+    "gat": ({"packed_gat_fwd": 2, "packed_gat_bwd": 4},
+            {"packed_gat_fwd": 2}),
+    "rgcn": ({"packed_rgcn_fwd": 4, "packed_rgcn_bwd": 6},
+             {"packed_rgcn_fwd": 4}),
+}
+#: examples/reddit_sage.py: batch size, batches an epoch, and the
+#: spmm_csr launches of a training step (conv1's and conv2's forward
+#: sums, each of its input and of a column of ones, the degrees; conv2's
+#: dx) and of an evaluation batch.
+REDDIT_BATCH = 512
+REDDIT_MAX_BATCHES = 20
+REDDIT_STEP_LAUNCHES = {"spmm_csr": 5}
+REDDIT_EVAL_LAUNCHES = {"spmm_csr": 4}
+REDDIT_PREFETCH = 4
+
+
+def closure_logits(config, model, device=DEVICE):
+    """``(logits at the seeds, seeds, layers)``: the trained model's
+    closure forward on ``device`` (dropout off) through the closure's
+    operators, built as its trainer builds them (on the CPU their plain
+    versions)."""
+    from pytorch_geometric_tpu_torch.models.citation import training_closure
+    from pytorch_geometric_tpu_torch.models.entities import (
+        rgcn_closure, rgcn_closure_ops)
+    from pytorch_geometric_tpu_torch.nn.conv import (
+        gat_closure_op, gcn_closure_norm, gcn_closure_operator)
+
+    kind, _, graph_name, _, _ = CONFIGS[config]
+    ds, graph, _ = load(graph_name)
+    g = graph.to(device)
+    m = model.to(device)
+    with torch.no_grad():
+        if kind == "rgcn":
+            seeds = g.extras["train_idx"][0].long()
+            layers = rgcn_closure(g, seeds)
+            out = m(None, closure=layers, fused_ops=rgcn_closure_ops(
+                layers, g.num_nodes, ds.num_relations))
+        else:
+            layers, ei, seeds_np = training_closure(g)
+            seeds = torch.from_numpy(seeds_np).to(device)
+            x0 = g.x[layers[0].in_global.long()]
+            if kind == "gcn":
+                norms = gcn_closure_norm(ei, g.num_nodes, layers)
+                ops = tuple(gcn_closure_operator(cl, w)
+                            for cl, (w, _) in zip(layers, norms))
+                out = m(None, x0, closure=layers, closure_norms=norms,
+                        aggregate_fn=ops)
+            else:
+                out = m(None, x0, closure=layers,
+                        flash_op=tuple(gat_closure_op(cl) for cl in layers))
+    return out[:seeds.shape[0]], seeds, layers
+
+
+def phase_slice_closure(config):
+    """The JAX bench's closure rows on the card (``bench_common.py:144-217,
+    221-310, 674-760``): the GCN and the GAT on Cora, the RGCN on MUTAG-RDF
+    at its published size, trained on the two-layer receptive field of
+    the training nodes (``closure=True``), captured and then eager, and
+    evaluated on the full graph. Launches per epoch and for the
+    evaluation as ``CLOSURE_LAUNCHES`` (the full-graph counts); the full
+    slices' accuracy gates; the full-graph logits and the closure's, card
+    against CPU (1e-4); and the closure's logits at the seeds against the
+    full graph's at the same parameters, within the JAX bench's bounds
+    (``CLOSURE_GAP``). Reports each layer's rows and edges."""
+    kind = CONFIGS[config][0]
+    per_epoch, evaluation = CLOSURE_LAUNCHES[kind]
+    ds, graph, _ = load(CONFIGS[config][2])
+    model, metrics, report, problems = run_main_path(config, per_epoch,
+                                                     evaluation)
+    card = logits_of(config, model)
+    ref = logits_of(config, model, "cpu")
+    card_cl, seeds, layers = closure_logits(config, model)
+    cpu_cl, _, _ = closure_logits(config, model, "cpu")
+    model.to(DEVICE)
+    parity, cl_parity = _rel(card.cpu(), ref), _rel(card_cl.cpu(), cpu_cl)
+    gap = float((card_cl - card[seeds]).abs().max()
+                / (1.0 + card.abs().max()))
+    if kind == "rgcn":
+        loss0, loss1 = report["first_loss"], report["final_loss"]
+        if not loss1 < 0.5 * loss0:
+            problems.append(f"loss did not halve: {loss0} -> {loss1}")
+        if not metrics["train_acc"] >= 0.9:
+            problems.append(f"training accuracy {metrics['train_acc']} "
+                            "(need >= 0.9)")
+    else:
+        _accuracy_gate(metrics, problems)
+    if not (torch.isfinite(card).all() and torch.isfinite(card_cl).all()
+            and parity <= 1e-4 and cl_parity <= 1e-4):
+        problems.append(f"logits card vs CPU: full graph {parity}, closure "
+                        f"{cl_parity} (need <= 1e-4)")
+    if not gap <= CLOSURE_GAP[kind]:
+        problems.append(f"closure vs full logit gap {gap} (need <= "
+                        f"{CLOSURE_GAP[kind]})")
+    layer_rows = [{"layer": i, "n_in": cl.n_in, "n_out": cl.n_out,
+                   "real_in": cl.num_real_in, "real_out": cl.num_real_out,
+                   "edges": cl.num_real_edges,
+                   "padded_edges": cl.senders.shape[0]}
+                  for i, cl in enumerate(layers)]
+    return _finish({"phase": f"slice_{config}", "dataset": ds.name,
+                    "synthetic": ds.is_synthetic, "nodes": graph.num_nodes,
+                    "edges": graph.num_edges,
+                    "real_edges": int(graph.real_edge_mask().sum()),
+                    "seeds": int(seeds.shape[0]), "closure": layer_rows,
+                    **report, "logits_shape": list(ref.shape),
+                    "logits_cuda_vs_cpu_rel_err": parity,
+                    "closure_logits_cuda_vs_cpu_rel_err": cl_parity,
+                    "closure_full_logit_gap": gap,
+                    "closure_full_gap_bound": CLOSURE_GAP[kind]}, problems)
+
+
+def phase_kernel_closure(gen):
+    """The kernels at this slice's shapes, each against its plain version
+    (fp32 1e-5, two launches bitwise equal), with cuSPARSE beside
+    ``spmm_csr`` and the bound: the closure GCN's rectangular operators on
+    Cora (layer 0 at F = 16, layer 1 at the class width, forward and
+    transposed), the closure GAT's layers (conv1 (8, 8) at dropout 0.6,
+    conv2 (1, 7)), the closure RGCN's embedding-mode layer (30, 16) and
+    transform layer (30, 2) on MUTAG-RDF, and ``spmm_csr`` on one sampled
+    Reddit batch (``Reddit(full_scale=True)``, 512 seeds, fan-out [10,
+    10]: 56,833 rows, its real edges) at F = 602 and 128, forward and
+    transposed."""
+    from pytorch_geometric_tpu_torch.examples import reddit_sage
+    from pytorch_geometric_tpu_torch.models.citation import training_closure
+    from pytorch_geometric_tpu_torch.models.entities import (
+        rgcn_closure, rgcn_closure_ops)
+    from pytorch_geometric_tpu_torch.nn.conv import (
+        gat_closure_op, gcn_closure_norm, gcn_closure_operator)
+
+    cases = []
+
+    def tagged(extra):
+        return {"phase": "kernel_closure", **extra}
+    ds, graph, _ = load("cora")
+    layers, ei, _ = training_closure(graph)
+    norms = gcn_closure_norm(ei, graph.num_nodes, layers)
+    for i, (cl, (w, _), f) in enumerate(zip(layers, norms,
+                                            (16, ds.num_classes))):
+        geom, consts = gcn_closure_operator(cl, w).args
+        for direction in ("fwd", "bwd"):
+            cases.append(check_case(
+                f"cora_closure{i}", getattr(geom, direction),
+                consts[direction], direction, f, "fp32", gen,
+                tagged({"n_in": cl.n_in, "n_out": cl.n_out})))
+    for i, (cl, (H, C)) in enumerate(zip(layers, ((8, 8), (1, 7)))):
+        for case in check_gat_case(f"cora_closure{i}", gat_closure_op(cl),
+                                   H, C, 0.6, gen):
+            case.update(tagged({"n_out": cl.n_out}))
+            cases.append(case)
+    mds, mgraph, _ = load("mutag")
+    mlayers = rgcn_closure(mgraph, mgraph.extras["train_idx"][0])
+    for name, op, (B, C) in zip(
+            ("mutag_closure_embed", "mutag_closure_transform"),
+            rgcn_closure_ops(mlayers, mgraph.num_nodes, mds.num_relations),
+            ((30, 16), (30, 2))):
+        for case in check_rgcn_case(name, op, B, C, gen):
+            case.update(tagged({}))
+            cases.append(case)
+    data, _ = reddit_full()
+    train, _, _, _ = reddit_sage.loaders(data, REDDIT_BATCH, SEED,
+                                         device=DEVICE)
+    batch = next(iter(train))
+    agg = reddit_sage.sage_aggregate(batch)
+    for f in (data.x.shape[1], 128):
+        for direction in ("fwd", "bwd"):
+            cases.append(check_case(
+                "reddit_batch", getattr(agg.geom, direction),
+                agg.consts[direction], direction, f, "fp32", gen,
+                tagged({"seeds": REDDIT_BATCH,
+                        "real_nodes": int(batch.node_mask.sum())})))
+    bad = [(c["kernel"], c["graph"], c.get("direction"), c.get("F"))
+           for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} closure / sampled case(s) "
+                             f"disagree with the plain version: {bad}")
+    return cases
+
+
+def phase_adam_compact():
+    """``utils/optim.py:adam_compact`` (both moments bf16) against
+    ``torch.optim.Adam(capturable=True)`` on the captured full-graph MUTAG
+    epoch (``bench_common.py:819-822``; 50 epochs, lr 0.01, the fused
+    operators): each run's seconds and ms per captured epoch, the
+    optimiser's own step captured alone (device µs, CUDA graphs of 50
+    steps), the moments' bytes and both loss curves. Gate: each loss
+    finite and halved."""
+    from pytorch_geometric_tpu_torch.models.capture import run_epochs
+    from pytorch_geometric_tpu_torch.models.citation import (
+        softmax_xent_int_labels)
+    from pytorch_geometric_tpu_torch.models.entities import (
+        RGCN, rgcn_fused_ops)
+    from pytorch_geometric_tpu_torch.utils.optim import adam_compact
+
+    ds, graph, _ = load("mutag")
+    ops = rgcn_fused_ops(graph, ds.num_relations)
+    train_idx = graph.extras["train_idx"][0].long()
+    y = graph.y[train_idx].long()
+    dev = torch.device(DEVICE)
+    rows, problems = {}, []
+    for name in ("adam", "adam_compact"):
+        model = RGCN(graph.num_nodes, ds.num_relations, ds.num_classes,
+                     generator=torch.Generator().manual_seed(SEED)).to(dev)
+        opt = (torch.optim.Adam(model.parameters(), lr=0.01,
+                                capturable=True) if name == "adam"
+               else adam_compact(model.parameters(), 0.01))
+
+        def epoch_step(generator=None, model=model, opt=opt):
+            opt.zero_grad(set_to_none=False)
+            logits = model(graph, fused_ops=ops)[train_idx]
+            loss = softmax_xent_int_labels(logits, y).mean()
+            loss.backward()
+            opt.step()
+            return {"loss": loss.detach(), "train_acc": (
+                logits.detach().argmax(-1) == y).float().mean()}
+
+        @torch.no_grad()
+        def eval_fn(model=model):
+            logits = model(graph, fused_ops=ops)[train_idx]
+            return {"train_acc": (logits.argmax(-1) == y).float().mean()}
+
+        metrics = run_epochs(epoch_step, eval_fn, RGCN_EPOCHS, None, dev,
+                             capture=True)
+        step_us = device_ms(opt.step) * 1e3
+        moments = sum(v.numel() * v.element_size()
+                      for st in opt.state.values() for k, v in st.items()
+                      if k in ("mu", "nu", "exp_avg", "exp_avg_sq"))
+        loss = metrics["curve"]["loss"]
+        params = sum(p.numel() for p in model.parameters())
+        rows[name] = {"seconds": metrics["seconds"],
+                      "ms_per_epoch": metrics["seconds"]
+                      / (RGCN_EPOCHS - 1) * 1e3,
+                      "optimizer_step_us": step_us,
+                      "moment_bytes": moments,
+                      "train_acc": metrics["train_acc"],
+                      "loss_curve": [float(v) for v in loss]}
+        if not (np.isfinite(loss).all() and loss[-1] < 0.5 * loss[0]):
+            problems.append(f"{name}: loss {loss[0]} -> {loss[-1]} (need "
+                            "finite and halved)")
+    a, c = rows["adam"]["loss_curve"], rows["adam_compact"]["loss_curve"]
+    return _finish({"phase": "adam_compact", "dataset": "mutag",
+                    "epochs": RGCN_EPOCHS, "params": params, **rows,
+                    "loss_curves_max_abs_diff": float(
+                        np.abs(np.asarray(a) - np.asarray(c)).max())},
+                   problems)
+
+
+def reddit_steps_logits(device, steps=3):
+    """``(logits, model)``: a fresh ``SAGE`` of examples/reddit_sage.py
+    (from ``SEED``) after ``steps`` Adam steps over the first ``steps``
+    batches of the seeded loader on the full-scale Reddit, then its
+    logits on the first of them, on ``device`` (the CPU runs the kernel's
+    plain version)."""
+    from pytorch_geometric_tpu_torch.examples import reddit_sage
+
+    data, _ = reddit_full()
+    train, _, x_dev, y_dev = reddit_sage.loaders(data, REDDIT_BATCH, SEED,
+                                                 device=device)
+    batches = list(itertools.islice(train, steps))
+    model = reddit_sage.SAGE(data.x.shape[1], 128, 41,
+                             generator=torch.Generator().manual_seed(
+                                 SEED)).to(device)
+    opt = torch.optim.Adam(model.parameters(), lr=3e-3)
+    for graph in batches:
+        reddit_sage.train_step(model, opt, graph, x_dev, y_dev)
+    graph = batches[0]
+    ids = graph.extras["local_to_global"].long()
+    with torch.no_grad():
+        out = model(graph, x_dev[ids], reddit_sage.sage_aggregate(graph))
+    return out[graph.node_mask].cpu(), model
+
+
+def reddit_epochs(data):
+    """The JAX bench's sampled-epoch measures (``bench_common.py:913-1041``)
+    over ``REDDIT_MAX_BATCHES`` training batches: the host sampler alone
+    (sampling and compaction, no copy: nodes a second, real and
+    budgeted); the device-only epoch (batches sampled and copied first,
+    the steps, each with its operator's build, timed); and the epoch with
+    sampling
+    inline (``prefetch=0``) and pipelined (``prefetch=REDDIT_PREFETCH``),
+    taken in turns twice, the best of each kept."""
+    from pytorch_geometric_tpu_torch.data.neighbor_loader import (
+        NeighborSampler)
+    from pytorch_geometric_tpu_torch.examples import reddit_sage
+
+    ei = np.asarray(data.edge_index)
+    train_nodes = np.flatnonzero(data.train_mask)
+    host = NeighborSampler(ei[0], ei[1], data.num_nodes, sizes=[10, 10],
+                           batch_size=REDDIT_BATCH, seed_nodes=train_nodes,
+                           seed=SEED, materialize_features=False,
+                           device="cpu")
+    t0 = time.perf_counter()
+    real = budget = 0
+    for graph in itertools.islice(host, REDDIT_MAX_BATCHES):
+        real += int(graph.node_mask.sum())
+        budget += graph.num_nodes
+    sampler_s = time.perf_counter() - t0
+    loaders = {p: reddit_sage.loaders(data, REDDIT_BATCH, SEED, p,
+                                      DEVICE) for p in (0, REDDIT_PREFETCH)}
+    _, _, x_dev, y_dev = loaders[0]
+    model = reddit_sage.SAGE(data.x.shape[1], 128, 41,
+                             generator=torch.Generator().manual_seed(
+                                 SEED)).to(DEVICE)
+    opt = torch.optim.Adam(model.parameters(), lr=3e-3)
+    pre = list(itertools.islice(loaders[0][0], REDDIT_MAX_BATCHES))
+    reddit_sage.train_step(model, opt, pre[0], x_dev, y_dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for graph in pre:
+        reddit_sage.train_step(model, opt, graph, x_dev, y_dev)
+    torch.cuda.synchronize()
+    device_s = time.perf_counter() - t0
+    del pre
+
+    def epoch(prefetch):
+        loader = loaders[prefetch][0]
+        t0 = time.perf_counter()
+        for graph in itertools.islice(loader, REDDIT_MAX_BATCHES):
+            reddit_sage.train_step(model, opt, graph, x_dev, y_dev)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    serial, piped = [], []
+    for _ in range(2):
+        serial.append(epoch(0))
+        piped.append(epoch(REDDIT_PREFETCH))
+    return {"batches": REDDIT_MAX_BATCHES,
+            "sampler_only_s": sampler_s,
+            "sampler_real_nodes_per_s": real / sampler_s,
+            "sampler_budget_nodes_per_s": budget / sampler_s,
+            "device_only_s": device_s, "serial_epoch_s": min(serial),
+            "pipelined_epoch_s": min(piped), "serial_epochs_s": serial,
+            "pipelined_epochs_s": piped, "prefetch": REDDIT_PREFETCH}
+
+
+def phase_slice_reddit_sage():
+    """examples/reddit_sage.py's run on the card at its full widths on
+    ``Reddit(full_scale=True)``: two SAGE layers (602 -> 128 -> 41),
+    fan-out [10, 10], batches of 512 seeds (56,833-node, 56,320-edge
+    budgets), index-shipping batches over the feature and label tables on
+    the card, Adam 3e-3, one epoch of 20 batches and 10 validation
+    batches, eager, each batch's sums through one ``EmbedSpmm`` over its
+    real edges (``spmm_csr``). Launches asserted as 20 x 5 + 10 x 4; the
+    loss falling (the last step
+    below the first); validation accuracy beside chance (1/41; not
+    gated); the logits after three steps on the first batch, card
+    against the plain path on the CPU (1e-4); the sampler's throughput
+    and the epoch device-only, inline and pipelined
+    (:func:`reddit_epochs`)."""
+    from pytorch_geometric_tpu_torch.examples import reddit_sage
+
+    data, load_seconds = reddit_full()
+    expected = {n: REDDIT_MAX_BATCHES * v
+                + REDDIT_MAX_BATCHES // 2 * REDDIT_EVAL_LAUNCHES.get(n, 0)
+                for n, v in REDDIT_STEP_LAUNCHES.items()}
+    statement = {n: f"{REDDIT_MAX_BATCHES} train batches x "
+                    f"{REDDIT_STEP_LAUNCHES[n]} + {REDDIT_MAX_BATCHES // 2} "
+                    f"val batches x {REDDIT_EVAL_LAUNCHES[n]} = {v}"
+                 for n, v in expected.items()}
+    out, report, problems = _example_run(
+        lambda: reddit_sage.run(1, REDDIT_BATCH, SEED, REDDIT_MAX_BATCHES,
+                                DEVICE, data=data), expected, statement)
+    losses = out["step_losses"][0]
+    _falling(losses, problems, "step")
+    parity, params_err, finite, shape = _parity(reddit_steps_logits)
+    if not (finite and parity <= 1e-4):
+        problems.append(f"logits after 3 steps: card vs CPU rel err "
+                        f"{parity}")
+    epochs = reddit_epochs(data)
+    ei = np.asarray(data.edge_index)
+    return _finish({"phase": "slice_reddit_sage", "dataset": "Reddit",
+                    "full_scale": True, "nodes": data.num_nodes,
+                    "edges": int(ei.shape[1]),
+                    "features": int(data.x.shape[1]),
+                    "load_seconds": load_seconds,
+                    "batch_size": REDDIT_BATCH,
+                    "node_budget": REDDIT_BATCH * (1 + 10 + 100) + 1,
+                    "edge_budget": REDDIT_BATCH * (10 + 100),
+                    "step_losses": [float(v) for v in losses],
+                    "first_loss": float(losses[0]),
+                    "final_loss": float(losses[-1]),
+                    "val_acc": out["acc"], "chance": out["chance"],
+                    "ms_per_step": out["seconds"]
+                    / (REDDIT_MAX_BATCHES + REDDIT_MAX_BATCHES // 2) * 1e3,
+                    **report, **epochs, "logits_shape": shape,
+                    "logits_cuda_vs_cpu_rel_err": parity,
+                    "params_cuda_vs_cpu_rel_err": params_err}, problems)
+
+
+def phase_trace_reddit_sage(steps=20):
+    """Where a reddit_sage training step's time goes: ``torch.profiler``
+    over ``steps`` eager steps of the example's ``train_step`` as a user
+    runs it, its batches sampled by the loader with
+    ``prefetch=REDDIT_PREFETCH`` (the host's sampling in the producer
+    thread, each batch's copy and operator build in the step); 5 port
+    launches a step."""
+    from pytorch_geometric_tpu_torch.examples import reddit_sage
+
+    data, _ = reddit_full()
+    train, _, x_dev, y_dev = reddit_sage.loaders(
+        data, REDDIT_BATCH, SEED, REDDIT_PREFETCH, DEVICE)
+    model = reddit_sage.SAGE(data.x.shape[1], 128, 41,
+                             generator=torch.Generator().manual_seed(
+                                 SEED)).to(DEVICE)
+    opt = torch.optim.Adam(model.parameters(), lr=3e-3)
+    batches = iter(train)
+
+    def run():
+        reddit_sage.train_step(model, opt, next(batches), x_dev, y_dev)
+
+    kernels, wall_us = profile_steps(run, steps)
+    batches.close()
+    summary, port_launches = trace_summary(kernels, wall_us, steps, "step")
+    want = sum(REDDIT_STEP_LAUNCHES.values())
+    result = {"phase": "trace_reddit_sage", "captured": False,
+              "steps": steps, "prefetch": REDDIT_PREFETCH, **summary,
+              "port_us_per_step":
+                  summary["us_per_step_by_group"]["port_kernels"],
+              "expected_port_launches_per_step": want}
+    emit(result)
+    if port_launches != want * steps:
+        raise AssertionError(f"reddit_sage: {port_launches / steps} port "
+                             f"kernel launches per step on the trace, "
+                             f"expected {want}")
+    return result
+
+
 #: Each kernel's source, the Pallas kernel it replaces, its main path's
 #: graph, and the case of the kernel phase that stands for that path: its
 #: largest call (GCN's F = 16 forward SpMM; GAT's conv1, 8 heads x 8, with
@@ -3765,6 +4265,13 @@ PROBE_KERNELS = {
     "packed_rgcn_pipe_fwd": ("probes/packed_rgcn_ablate.cu",
                              "tools/rgcn_pipe_probe.py:158"),
 }
+
+
+#: The keys of a ``kernel_closure`` case on the kernels line.
+CLOSURE_CASE_KEYS = ("graph", "direction", "F", "H", "C", "B", "rate",
+                     "rows", "src_rows", "edges", "longest_row", "kernel_ms",
+                     "plain_ms", "library_ms", "bound_ms", "bound_by",
+                     "max_abs_err")
 
 
 def kernels_line(results):
@@ -3844,6 +4351,12 @@ def kernels_line(results):
                                        "kernel_ms", "plain_ms", "library_ms",
                                        "bound_ms", "bound_by", "max_abs_err")
                      + keys} for c in rows]
+        closure = [c for c in results["kernel_closure"]
+                   if c["kernel"] == name]
+        if closure:   # the closure layers' and a sampled Reddit batch's
+            line[-1]["closure_and_sampled"] = [
+                {k: c[k] for k in CLOSURE_CASE_KEYS if k in c}
+                for c in closure]
     probe = results["probe"]
     for name, (source, replaces) in PROBE_KERNELS.items():
         case = probe["rows"][name]
@@ -3887,6 +4400,8 @@ def main(argv=None):
                   torch.Generator(device=DEVICE).manual_seed(SEED))),
               ("kernel_scale", lambda: phase_kernel_scale(
                   torch.Generator(device=DEVICE).manual_seed(SEED))),
+              ("kernel_closure", lambda: phase_kernel_closure(
+                  torch.Generator(device=DEVICE).manual_seed(SEED))),
               ("probe", phase_probe),
               ("slice", phase_slice), ("slice_gat", phase_slice_gat),
               ("slice_gat_dense",
@@ -3901,6 +4416,10 @@ def main(argv=None):
                lambda: phase_slice_gcn("dense", "slice_gcn_dense")),
               ("slice_gcn_hybrid",
                lambda: phase_slice_gcn("hybrid", "slice_gcn_hybrid"))]
+    for config in CLOSURE_CONFIGS:
+        phases.append((f"slice_{config}",
+                       functools.partial(phase_slice_closure, config)))
+    phases.append(("adam_compact", phase_adam_compact))
     for name in SUITE_LAUNCHES:
         phases.append((f"slice_{name}",
                        functools.partial(phase_slice_suite, name)))
@@ -3916,6 +4435,7 @@ def main(argv=None):
     for name in POINT_EXAMPLES:
         phases.append((f"slice_{name}",
                        functools.partial(phase_slice_point, name)))
+    phases.append(("slice_reddit_sage", phase_slice_reddit_sage))
     phases += [("zoo", phase_zoo), ("capture_check", phase_capture_check)]
     for config in CONFIGS:
         phases.append(("trace" if config == "gcn" else f"trace_{config}",
@@ -3924,6 +4444,7 @@ def main(argv=None):
     phases.append(("trace_faust", phase_trace_faust))
     phases.append(("trace_mutag_gin", phase_trace_mutag_gin))
     phases.append(("trace_mnist_graclus", phase_trace_mnist_graclus))
+    phases.append(("trace_reddit_sage", phase_trace_reddit_sage))
     for config in CONFIGS:
         phases.append((f"trace_captured_{config}",
                        functools.partial(phase_trace, config, True)))

@@ -30,6 +30,15 @@ PubMed too):
   is, on a CUDA graph, 1 forward launch and 2 backward launches per
   layer, so 2 + 4 per epoch.
 
+``closure=True`` (the JAX ``create_gcn_train_step(closure=True)`` and the
+closure GAT of ``bench_common.py:221-310``) trains on the two-layer
+receptive field of the training nodes (``data/closure.py``): each layer
+maps its input rows to its output rows through one operator built on the
+host before any epoch (GCN: ``gcn_closure_operator``, one rectangular
+``spmm_csr`` a direction; GAT: ``gat_closure_op``, a ``PackedFlashGat``),
+so the launches per epoch are the full graph's; the loss reads the seeds'
+rows; the evaluation runs on the full graph through ``backend``.
+
 The JAX package runs the epochs as one ``lax.scan`` program; on a CUDA
 device the port runs them as one captured CUDA graph, replayed once per
 epoch after an eager first epoch (``models/capture.py``, the trainers'
@@ -42,17 +51,21 @@ PyTorch.
 import functools
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
+from pytorch_geometric_tpu_torch.data.closure import (
+    layered_training_closure)
 from pytorch_geometric_tpu_torch.data.graph import Graph
 from pytorch_geometric_tpu_torch.device import resolve_device
 from pytorch_geometric_tpu_torch.models.capture import (
     resolve_capture, run_epochs)
 from pytorch_geometric_tpu_torch.nn.conv.gat_conv import (
-    GATConv, gat_dense_adj, gat_edge_set)
+    GATConv, gat_closure_op, gat_dense_adj, gat_edge_set)
 from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import (
-    GCNConv, gcn_edge_set, gcn_norm, gcn_norm_dense)
+    GCNConv, gcn_closure_norm, gcn_closure_operator, gcn_edge_set, gcn_norm,
+    gcn_norm_dense)
 from pytorch_geometric_tpu_torch.nn.layers import dropout
 from pytorch_geometric_tpu_torch.ops.bsr_gat import BsrFlashGat
 from pytorch_geometric_tpu_torch.ops.flash_gat import (
@@ -82,8 +95,24 @@ class GCN(nn.Module):
                              generator=generator)
 
     def forward(self, graph: Graph, x, norm=None, *, train: bool = False,
-                norm_dense=None, aggregate_fn=None,
+                norm_dense=None, aggregate_fn=None, closure=None,
+                closure_norms=None,
                 generator: Optional[torch.Generator] = None):
+        """With ``closure`` (two ``ClosureLayer``s) and ``closure_norms``
+        (their ``gcn_closure_norm``), ``x`` holds the first layer's input
+        rows and ``aggregate_fn`` is None (plain sums, CPU only) or the
+        pair of the layers' ``gcn_closure_operator``s; the rows returned
+        are the last layer's output nodes, the seeds first."""
+        if closure is not None:
+            agg1, agg2 = aggregate_fn if aggregate_fn is not None \
+                else (None, None)
+            x = dropout(x, self.dropout_rate, train, generator)
+            x = self.conv1(None, x, norm=closure_norms[0],
+                           aggregate_fn=agg1, closure=closure[0])
+            x = torch.relu(x)
+            x = dropout(x, self.dropout_rate, train, generator)
+            return self.conv2(None, x, norm=closure_norms[1],
+                              aggregate_fn=agg2, closure=closure[1])
         if norm is None and norm_dense is None and aggregate_fn is None:
             norm = gcn_norm(graph)
         x = dropout(x, self.dropout_rate, train, generator)
@@ -185,9 +214,22 @@ def gcn_backend(graph: Graph, backend: str = "packed", hidden: int = 16,
     return {"aggregate_fn": functools.partial(fn, consts)}, fused
 
 
+def training_closure(graph: Graph, num_layers: int = 2):
+    """The ``num_layers`` closure layers of the graph's training nodes
+    over its real edges, on its device (``data/closure.py``)."""
+    real = graph.real_edge_mask().cpu().numpy()
+    ei = np.stack([graph.senders.cpu().numpy()[real],
+                   graph.receivers.cpu().numpy()[real]])
+    seeds = np.flatnonzero(graph.train_mask.cpu().numpy())
+    return layered_training_closure(ei, seeds, num_layers,
+                                    num_nodes=graph.num_nodes,
+                                    device=graph.device), ei, seeds
+
+
 def create_gcn_train_step(model: GCN, graph: Graph, weight_decay=5e-4,
                           lr=0.01, backend: str = "packed",
-                          window: int = 512, tile: int = 512):
+                          window: int = 512, tile: int = 512,
+                          closure: bool = False):
     """Build ``(epoch_step, eval_fn)`` closures over a static graph, with
     every aggregation through :func:`gcn_backend` of ``backend``.
 
@@ -212,7 +254,21 @@ def create_gcn_train_step(model: GCN, graph: Graph, weight_decay=5e-4,
     ``torch.optim.Adam(weight_decay=...)``, which adds ``wd * p`` to the
     gradient of every parameter. ``torch.optim.Adam`` and ``optax.adam``
     share b1, b2 and eps (added outside the square root).
+
+    ``closure=True`` is the JAX ``_create_gcn_closure_train_step``: the
+    epoch runs on the training nodes' closure (:func:`training_closure`,
+    ``gcn_closure_norm`` from the full graph's degrees, one
+    ``gcn_closure_operator`` a layer, all built here), x0 the first
+    layer's input rows, the loss the mean over the seeds; the evaluation
+    runs on the full graph through ``backend`` (``"fused"`` excluded: its
+    operator trains, it does not evaluate alone).
     """
+    if closure:
+        if backend == "fused":
+            raise ValueError("closure=True evaluates through backend; "
+                             "'fused' has no evaluation of its own")
+        return _create_gcn_closure_train_step(model, graph, weight_decay,
+                                              lr, backend, window, tile)
     agg, fused = gcn_backend(graph, backend, model.conv1.out_channels,
                              model.conv2.out_channels, model.dropout_rate,
                              window, tile)
@@ -251,11 +307,52 @@ def create_gcn_train_step(model: GCN, graph: Graph, weight_decay=5e-4,
     return epoch_step, eval_fn
 
 
+def _create_gcn_closure_train_step(model: GCN, graph: Graph,
+                                   weight_decay=5e-4, lr=0.01,
+                                   backend: str = "packed",
+                                   window: int = 512, tile: int = 512):
+    layers, ei, seeds = training_closure(graph)
+    norms = gcn_closure_norm(ei, graph.num_nodes, layers)
+    ops = tuple(gcn_closure_operator(cl, w_edge)
+                for cl, (w_edge, _) in zip(layers, norms))
+    x0 = graph.x[layers[0].in_global.long()]
+    n_train = seeds.shape[0]
+    labels = graph.y[torch.from_numpy(seeds).to(graph.device)].long()
+    agg, _ = gcn_backend(graph, backend, model.conv1.out_channels,
+                         model.conv2.out_channels, model.dropout_rate,
+                         window, tile)
+    opt = torch.optim.Adam(model.parameters(), lr=lr,
+                           capturable=graph.device.type == "cuda")
+    decayed = list(model.conv1.parameters())
+
+    def epoch_step(generator: Optional[torch.Generator] = None):
+        model.train()
+        opt.zero_grad(set_to_none=False)
+        logits = model(None, x0, train=True, closure=layers,
+                       closure_norms=norms, aggregate_fn=ops,
+                       generator=generator)[:n_train]
+        loss = softmax_xent_int_labels(logits, labels).mean()
+        loss = loss + weight_decay * sum((p ** 2).sum() for p in decayed)
+        loss.backward()
+        opt.step()
+        return {"loss": loss.detach(),
+                "train_acc": (logits.detach().argmax(-1) == labels)
+                .float().mean()}
+
+    @torch.no_grad()
+    def eval_fn():
+        model.eval()
+        return _accuracies(model(graph, graph.x, **agg), graph)
+
+    return epoch_step, eval_fn
+
+
 def train_gcn(graph: Graph, num_classes: int, hidden: int = 16,
               epochs: int = 200, seed: int = 0, lr: float = 0.01,
               device="cuda", backend: str = "packed",
               capture: Optional[bool] = None, window: int = 512,
-              tile: int = 512) -> Tuple[GCN, Dict[str, Any]]:
+              tile: int = 512,
+              closure: bool = False) -> Tuple[GCN, Dict[str, Any]]:
     """Full training run on ``device`` through the aggregation of
     ``backend`` (:func:`gcn_backend`): ``epochs`` Adam steps, then one
     evaluation, through ``models/capture.py:run_epochs`` (``capture``:
@@ -275,7 +372,10 @@ def train_gcn(graph: Graph, num_classes: int, hidden: int = 16,
     backend launches no kernel of the port; the hybrid backend launches
     ``spmm_csr`` twice where the packed one launches it once (its dense
     and its sparse part; once where a part is empty), ``window`` and
-    ``tile`` setting its split."""
+    ``tile`` setting its split. ``closure=True`` trains on the closure
+    (:func:`create_gcn_train_step`): ``spmm_csr`` 4 times per epoch over
+    the closure's operators, 2 for the evaluation on the packed
+    backend."""
     dev = resolve_device(device)
     capture = resolve_capture(capture, dev)
     graph = graph.to(dev)
@@ -285,7 +385,8 @@ def train_gcn(graph: Graph, num_classes: int, hidden: int = 16,
     drop_gen = torch.Generator(device=dev).manual_seed(seed)
     epoch_step, eval_fn = create_gcn_train_step(model, graph, lr=lr,
                                                 backend=backend,
-                                                window=window, tile=tile)
+                                                window=window, tile=tile,
+                                                closure=closure)
     return model, run_epochs(epoch_step, eval_fn, epochs, drop_gen, dev,
                              capture)
 
@@ -311,15 +412,22 @@ class GAT(nn.Module):
                              generator=generator)
 
     def forward(self, graph: Graph, x, *, train: bool = False, adj=None,
-                flash_op=None,
+                flash_op=None, closure=None,
                 generator: Optional[torch.Generator] = None):
+        """With ``closure`` (two ``ClosureLayer``s), ``x`` holds the first
+        layer's input rows and ``flash_op`` is the pair of the layers'
+        ``gat_closure_op``s (None: built for the call, CPU only); the rows
+        returned are the last layer's output nodes, the seeds first."""
+        cl1, cl2 = closure if closure is not None else (None, None)
+        op1, op2 = flash_op if closure is not None and flash_op is not None \
+            else (flash_op, flash_op)
         x = dropout(x, self.dropout_rate, train, generator)
-        x = self.conv1(graph, x, train=train, adj=adj, flash_op=flash_op,
-                       generator=generator)
+        x = self.conv1(graph, x, train=train, adj=adj, flash_op=op1,
+                       closure=cl1, generator=generator)
         x = torch.nn.functional.elu(x)
         x = dropout(x, self.dropout_rate, train, generator)
-        return self.conv2(graph, x, train=train, adj=adj, flash_op=flash_op,
-                          generator=generator)
+        return self.conv2(graph, x, train=train, adj=adj, flash_op=op2,
+                          closure=cl2, generator=generator)
 
 
 def gat_flash_op(graph: Graph, backend: str = "packed"):
@@ -358,7 +466,7 @@ def gat_flash_op(graph: Graph, backend: str = "packed"):
 
 def create_gat_train_step(model: GAT, graph: Graph, lr: float = 5e-3,
                           weight_decay: float = 5e-4,
-                          backend: str = "packed"):
+                          backend: str = "packed", closure: bool = False):
     """Build ``(epoch_step, eval_fn)`` closures over a static graph, as
     ``create_gcn_train_step``. Every attention layer runs through
     :func:`gat_flash_op` of ``backend`` (its kernels on a CUDA graph).
@@ -371,23 +479,46 @@ def create_gat_train_step(model: GAT, graph: Graph, lr: float = 5e-3,
     As in :func:`create_gcn_train_step`, on a CUDA graph it is built with
     ``capturable=True`` and the gradients are zeroed in place; the
     attention seeds are drawn on the device from ``generator``.
+
+    ``closure=True`` is the closure GAT of ``bench_common.py:221-310``:
+    the epoch runs on the training nodes' closure (:func:`training_closure`,
+    one ``gat_closure_op`` a layer, built here), its input the first
+    layer's input rows, the loss the mean over the seeds, attention
+    dropout hashed from each closure edge's position (the JAX closure
+    draws ``jax.random.bernoulli``: equal up to the dropout draws); the
+    evaluation runs on the full graph through ``backend``.
     """
     flash_op = gat_flash_op(graph, backend)
     opt = torch.optim.AdamW(model.parameters(), lr=lr,
                             weight_decay=weight_decay,
                             capturable=graph.device.type == "cuda")
+    if closure:
+        layers, _, seeds = training_closure(graph)
+        ops = tuple(gat_closure_op(cl) for cl in layers)
+        x_in = graph.x[layers[0].in_global.long()]
+        y_seed = graph.y[torch.from_numpy(seeds).to(graph.device)]
+        seed_mask = torch.ones(seeds.shape[0], dtype=torch.bool,
+                               device=graph.device)
+
+        def train_logits(generator):
+            return model(None, x_in, train=True, flash_op=ops,
+                         closure=layers,
+                         generator=generator)[:seeds.shape[0]], y_seed, \
+                seed_mask
+    else:
+        def train_logits(generator):
+            return model(graph, graph.x, train=True, flash_op=flash_op,
+                         generator=generator), graph.y, graph.train_mask
 
     def epoch_step(generator: Optional[torch.Generator] = None):
         model.train()
         opt.zero_grad(set_to_none=False)
-        logits = model(graph, graph.x, train=True, flash_op=flash_op,
-                       generator=generator)
-        loss = masked_softmax_xent(logits, graph.y, graph.train_mask)
+        logits, y, mask = train_logits(generator)
+        loss = masked_softmax_xent(logits, y, mask)
         loss.backward()
         opt.step()
         return {"loss": loss.detach(),
-                "train_acc": masked_accuracy(logits.detach(), graph.y,
-                                             graph.train_mask)}
+                "train_acc": masked_accuracy(logits.detach(), y, mask)}
 
     @torch.no_grad()
     def eval_fn():
@@ -401,14 +532,17 @@ def train_gat(graph: Graph, num_classes: int, hidden: int = 8,
               heads: int = 8, epochs: int = 200, seed: int = 0,
               lr: float = 5e-3, weight_decay: float = 5e-4,
               device="cuda", backend: str = "packed",
-              capture: Optional[bool] = None) -> Tuple[GAT, Dict[str, Any]]:
+              capture: Optional[bool] = None,
+              closure: bool = False) -> Tuple[GAT, Dict[str, Any]]:
     """Full GAT training run on ``device`` through the fused operator of
     ``backend`` (:func:`gat_flash_op`), as examples/gat.py ``run``:
     ``epochs`` AdamW steps, then one evaluation, captured or not as
     ``capture`` says (:func:`train_gcn`). Returns the model and the
     metrics of :func:`train_gcn`. On a CUDA graph the operator's forward
     kernel launches 2 times per epoch and 2 for the evaluation, its
-    backward kernels 4 times per epoch."""
+    backward kernels 4 times per epoch (``closure=True``: the same counts,
+    the epochs over the closure's packed operators whatever
+    ``backend`` evaluates)."""
     dev = resolve_device(device)
     capture = resolve_capture(capture, dev)
     graph = graph.to(dev)
@@ -417,7 +551,8 @@ def train_gat(graph: Graph, num_classes: int, hidden: int = 8,
                 heads=heads, generator=init_gen).to(dev)
     drop_gen = torch.Generator(device=dev).manual_seed(seed)
     epoch_step, eval_fn = create_gat_train_step(
-        model, graph, lr=lr, weight_decay=weight_decay, backend=backend)
+        model, graph, lr=lr, weight_decay=weight_decay, backend=backend,
+        closure=closure)
     return model, run_epochs(epoch_step, eval_fn, epochs, drop_gen, dev,
                              capture)
 

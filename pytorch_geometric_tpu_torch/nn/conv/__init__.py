@@ -21,6 +21,7 @@ from pytorch_geometric_tpu_torch.nn.conv.dna_conv import (  # noqa: F401
 from pytorch_geometric_tpu_torch.nn.conv.edge_conv import EdgeConv  # noqa: F401
 from pytorch_geometric_tpu_torch.nn.conv.gat_conv import (  # noqa: F401
     GATConv,
+    gat_closure_op,
     gat_dense_adj,
     gat_edge_set,
     gat_sparse_edge_set,
@@ -28,6 +29,8 @@ from pytorch_geometric_tpu_torch.nn.conv.gat_conv import (  # noqa: F401
 from pytorch_geometric_tpu_torch.nn.conv.gcn_conv import (  # noqa: F401
     EdgeNorm,
     GCNConv,
+    gcn_closure_norm,
+    gcn_closure_operator,
     gcn_edge_set,
     gcn_norm,
     gcn_norm_dense,
@@ -38,6 +41,8 @@ from pytorch_geometric_tpu_torch.nn.conv.nn_conv import NNConv  # noqa: F401
 from pytorch_geometric_tpu_torch.nn.conv.point_conv import PointConv  # noqa: F401
 from pytorch_geometric_tpu_torch.nn.conv.rgcn_conv import (  # noqa: F401
     RGCNConv,
+    rgcn_closure_norm,
+    rgcn_closure_op,
     rgcn_fused_op,
     rgcn_norm,
 )
@@ -62,8 +67,9 @@ __all__ = ["AGNNConv", "ARMAConv", "ChebConv", "DNAConv", "DenseSAGEConv",
            "GraphConv", "NNConv", "PointConv", "RGCNConv", "SAGEConv",
            "SGConv", "SplineConv", "agnn_edge_set", "agnn_operators",
            "arma_edge_set", "arma_operator", "cheb_operator", "dna_operators",
-           "gat_dense_adj", "gat_edge_set", "gat_sparse_edge_set",
-           "gcn_edge_set", "gcn_norm",
-           "gcn_norm_dense", "rgcn_fused_op", "rgcn_norm", "sgc_precompute",
+           "gat_closure_op", "gat_dense_adj", "gat_edge_set",
+           "gat_sparse_edge_set", "gcn_closure_norm", "gcn_closure_operator",
+           "gcn_edge_set", "gcn_norm", "gcn_norm_dense", "rgcn_closure_norm",
+           "rgcn_closure_op", "rgcn_fused_op", "rgcn_norm", "sgc_precompute",
            "spline_basis", "spline_edge_sets", "spline_operator",
            "spline_operators"]

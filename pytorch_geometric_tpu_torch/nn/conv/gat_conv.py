@@ -24,9 +24,16 @@ Aggregation paths, as in the JAX module (``flash_op`` is taken before
   generator. ``raw_out=True`` returns the packed operator's undivided
   num‖den (the bias is still created, not added).
 
-The closure and shard paths of the JAX module are not ported yet.
-``weight`` is (in, H*C) and ``att_src`` / ``att_dst`` are (1, H, C), as
-in the JAX module.
+- the closure path (``closure=``, a ``data/closure.py:ClosureLayer``):
+  attention over the seeds' receptive field only, as the JAX
+  ``_closure_call``. The layer's output nodes are a prefix of its
+  ``n_in`` input nodes, so it runs as the fused path over a square graph
+  of ``n_in`` rows whose first ``n_out`` hold every edge
+  (:func:`gat_closure_op`), and returns those rows. Without ``flash_op``
+  the operator is built for the call, on a CPU tensor only.
+
+The shard path of the JAX module is not ported yet. ``weight`` is (in,
+H*C) and ``att_src`` / ``att_dst`` are (1, H, C), as in the JAX module.
 """
 
 from typing import Optional, Tuple
@@ -35,8 +42,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from pytorch_geometric_tpu_torch.data.closure import real_edges
 from pytorch_geometric_tpu_torch.data.graph import Graph
 from pytorch_geometric_tpu_torch.nn.inits import glorot, zeros
+from pytorch_geometric_tpu_torch.nn.message_passing import require_cpu
+from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
 from pytorch_geometric_tpu_torch.ops.segment import (
     segment_max, segment_softmax, segment_sum)
 
@@ -86,6 +96,27 @@ def gat_sparse_edge_set(graph: Graph) -> Tuple[np.ndarray, np.ndarray]:
     return s[order], r[order]
 
 
+def gat_closure_op(closure, device=None) -> PackedFlashGat:
+    """The fused attention operator of one closure layer, on ``device``
+    (the layer's by default): ``PackedFlashGat`` over a square graph of
+    the layer's ``n_in`` input nodes. Its edges are the layer's real
+    edges without the receivers' existing self edges (the JAX path masks
+    them to -1e9, which exp makes an exact 0), duplicates kept, and one
+    self loop ``(i, i)`` for every output row ``i < n_out`` (an output
+    node is input node ``i``), sorted stably by receiver. Rows ``n_out``
+    to ``n_in - 1`` hold no edge: their output is 0, and nothing reads
+    them. The position of an edge in this list is its dropout id."""
+    s, _, r, _ = real_edges(closure)
+    keep = s != r
+    loop = np.arange(closure.n_out, dtype=np.int64)
+    s = np.concatenate([s[keep], loop])
+    r = np.concatenate([r[keep], loop])
+    order = np.argsort(r, kind="stable")
+    return PackedFlashGat(senders=s[order], receivers=r[order],
+                          num_nodes=closure.n_in,
+                          device=device or closure.senders.device)
+
+
 def gat_dense_adj(graph: Graph, add_self_loops: bool = True) -> torch.Tensor:
     """Boolean (N, N) mask on the graph's device with ``adj[i, j]`` true
     iff there is an edge j -> i. Padding edges are left out; the self
@@ -125,19 +156,30 @@ class GATConv(nn.Module):
             if use_bias else None
 
     def forward(self, graph: Graph, x, *, train: bool = False, adj=None,
-                flash_op=None,
+                flash_op=None, closure=None,
                 generator: Optional[torch.Generator] = None):
         H, C = self.heads, self.out_channels
-        if self.raw_out and (adj is not None or flash_op is None):
+        if self.raw_out and (adj is not None or flash_op is None
+                             or closure is not None):
             # the raw num‖den only exists on the fused path; the others
             # return finalized output, which the caller would divide again
             raise ValueError("GATConv(raw_out=True) requires the fused "
-                             "flash_op path (no adj)")
-        N = graph.num_nodes
+                             "flash_op path (no adj, no closure)")
+        if closure is not None:
+            if adj is not None:
+                raise ValueError("GATConv takes closure= or adj=, not both")
+            if flash_op is None:
+                require_cpu(x, "GATConv(closure=)",
+                            "flash_op=gat_closure_op(closure)")
+                flash_op = gat_closure_op(closure, x.device)
+        N = x.shape[0] if closure is not None else graph.num_nodes
         h2 = x @ self.weight                                     # (N, HC)
         h = h2.reshape(N, H, C)
         alpha_src = (h * self.att_src).sum(-1)                   # (N, H)
         alpha_dst = (h * self.att_dst).sum(-1)
+        if closure is not None:
+            return self._flash_call(flash_op, h2, alpha_src, alpha_dst,
+                                    train, generator)[:closure.n_out]
         if flash_op is not None:
             return self._flash_call(flash_op, h2, alpha_src, alpha_dst,
                                     train, generator)

@@ -11,19 +11,30 @@ x' = D^-1/2 (A + fI) D^-1/2 x W + b with f = 2 if improved else 1.
   (``ops/spmm.py:spmm``), a dense normalised adjacency (``norm_dense``),
   an ``SpmmOperator`` called with the norm weights (``spmm_op``), or any
   ``aggregate_fn(h)`` such as ``SpmmOperator.bind(norm.weights)``.
+- The closure path (``closure=``, a ``data/closure.py:ClosureLayer``, with
+  ``norm`` the layer's ``(w_edge, w_self)`` of :func:`gcn_closure_norm`):
+  the message sum over the layer's edges into its ``n_out`` rows, then
+  the self term ``w_self * h[self_idx]``, as the JAX module. The sum runs
+  through ``aggregate_fn``, the layer's rectangular operator
+  (:func:`gcn_closure_operator`: one ``spmm_csr`` a direction); without
+  it, plain segment ops, on a CPU tensor only.
 - ``weight`` is (in, out) as in the JAX module, so ``h = x @ weight``.
 """
 
 import dataclasses
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from pytorch_geometric_tpu_torch.data.graph import Graph
 from pytorch_geometric_tpu_torch.nn.inits import glorot, zeros
+from pytorch_geometric_tpu_torch.nn.message_passing import require_cpu
 from pytorch_geometric_tpu_torch.ops.segment import segment_sum
-from pytorch_geometric_tpu_torch.ops.spmm import spmm
+from pytorch_geometric_tpu_torch.ops.spmm import (
+    pack_bipartite_tables, spmm, spmm_bi_static)
 from pytorch_geometric_tpu_torch.utils.loop import add_self_loops
 
 
@@ -79,6 +90,52 @@ def gcn_norm_dense(graph: Graph, edge_weight=None, improved: bool = False,
     return adj.to(dtype)
 
 
+def gcn_closure_norm(edge_index, num_nodes: int, layers,
+                     improved: bool = False):
+    """Per-layer ``(w_edge, w_self)`` of the closure path, fp32 tensors
+    on the layers' device: ``w_edge`` per closure edge (0 on padding
+    edges), ``w_self`` per output row (0 past the real ones).
+
+    Degrees come from the full graph's ``edge_index`` (host, its real
+    edges): a closure keeps all in-edges of the needed receivers only, so
+    the senders' degrees cannot be recovered from it. Host float64, then
+    fp32, as the JAX function; static."""
+    fill = 2.0 if improved else 1.0
+    ei = np.asarray(edge_index.cpu() if isinstance(edge_index, torch.Tensor)
+                    else edge_index)
+    deg = np.bincount(ei[1], minlength=num_nodes).astype(np.float64)
+    deg = deg + fill
+    dis = deg ** -0.5
+    norms = []
+    for cl in layers:
+        sg = cl.sender_global.cpu().numpy()
+        og = cl.out_global.cpu().numpy()
+        rg = og[cl.receivers.cpu().numpy()]
+        m = cl.edge_mask.cpu().numpy()
+        w_edge = np.where(m, dis[sg] * dis[rg], 0.0)
+        w_self = fill / deg[og]
+        w_self[cl.num_real_out:] = 0.0
+        dev = cl.senders.device
+        norms.append((torch.from_numpy(w_edge.astype(np.float32)).to(dev),
+                      torch.from_numpy(w_self.astype(np.float32)).to(dev)))
+    return norms
+
+
+def gcn_closure_operator(closure, w_edge):
+    """The message sum of one closure layer, ``h (n_in, F) -> (n_out,
+    F)``, weighted by ``w_edge``: an fp32 rectangular SpMM over the
+    layer's real edges (its padding edges weigh 0 and are left out, as
+    ``gcn_edge_set`` leaves out a graph's), one ``spmm_csr`` forward and
+    one over the transposed CSR for ``dh``. Built on the host once, on
+    the layer's device; pass it as ``GCNConv``'s ``aggregate_fn``."""
+    e = closure.num_real_edges
+    geom, consts = pack_bipartite_tables(
+        closure.senders[:e], closure.receivers[:e], closure.n_in,
+        closure.n_out, w_edge[:e], compute_dtype=torch.float32,
+        device=closure.senders.device)
+    return functools.partial(spmm_bi_static, geom, consts)
+
+
 class GCNConv(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -95,9 +152,21 @@ class GCNConv(nn.Module):
 
     def forward(self, graph: Graph, x, edge_weight=None,
                 norm: Optional[EdgeNorm] = None, spmm_op=None,
-                norm_dense=None, aggregate_fn=None):
+                norm_dense=None, aggregate_fn=None, closure=None):
         h = x @ self.weight
-        if aggregate_fn is not None:
+        if closure is not None:
+            # weights from full-graph degrees: the result is the full
+            # conv's at the closure's output nodes
+            w_edge, w_self = norm
+            if aggregate_fn is not None:
+                out = aggregate_fn(h)
+            else:
+                require_cpu(h, "GCNConv(closure=)", "aggregate_fn="
+                            "gcn_closure_operator(closure, w_edge)")
+                msgs = h[closure.senders.long()] * w_edge[:, None]
+                out = segment_sum(msgs, closure.receivers, closure.n_out)
+            out = out + w_self[:, None] * h[closure.self_idx.long()]
+        elif aggregate_fn is not None:
             # fully custom aggregation (e.g. a bound SpmmOperator with the
             # static normalised weights baked in)
             out = aggregate_fn(h)

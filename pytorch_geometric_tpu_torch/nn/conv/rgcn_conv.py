@@ -19,8 +19,19 @@ Full-graph aggregation paths, as in the JAX module:
 - aggregate-first otherwise: a relation-bucketed segment sum, then one
   contraction with W.
 
-The closure and ``shard_ctx`` paths of the JAX module are not ported
-yet. Parameters: ``basis`` (B, F_in, C) (B = R when ``num_bases=0``),
+The closure path (``closure=``, a ``data/closure.py:ClosureLayer``, with
+``norm`` its :func:`rgcn_closure_norm`) is the same function on the
+seeds' receptive field: the edges are the layer's, into its ``n_out``
+rows; in embedding mode the senders are the global ids
+``sender_global`` (the table is indexed by node id) and the root term
+gathers the rows of ``out_global``; with ``x`` (``n_in`` rows) the
+senders are local and the root term reads ``x[self_idx]``. Its fused
+operator is :func:`rgcn_closure_op`, a rectangular ``PackedRgcnSpmm``
+over the layer's real edges (``num_nodes = n_out``), where the JAX
+closure gathers rows of ``W = att @ basis``: the same sums, associated
+otherwise.
+
+The ``shard_ctx`` path of the JAX module is not ported yet. Parameters: ``basis`` (B, F_in, C) (B = R when ``num_bases=0``),
 ``att`` (R, B) (only with bases), ``root`` (F_in, C), ``bias`` (C,).
 """
 
@@ -30,8 +41,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from pytorch_geometric_tpu_torch.data.closure import real_edges
 from pytorch_geometric_tpu_torch.data.graph import Graph
 from pytorch_geometric_tpu_torch.nn.inits import glorot, zeros
+from pytorch_geometric_tpu_torch.nn.message_passing import require_cpu
 from pytorch_geometric_tpu_torch.ops.csr import host_array
 from pytorch_geometric_tpu_torch.ops.packed_rgcn import PackedRgcnSpmm
 from pytorch_geometric_tpu_torch.ops.segment import segment_sum
@@ -71,23 +84,39 @@ class RGCNConv(nn.Module):
         self.bias = nn.Parameter(zeros((C,))) if use_bias else None
 
     def forward(self, graph: Graph, x=None, edge_type=None, norm=None,
-                fused_op=None):
-        N, C, R = graph.num_nodes, self.out_channels, self.num_relations
-        et = (edge_type if edge_type is not None
-              else graph.edge_type).long()
+                fused_op=None, closure=None):
+        C, R = self.out_channels, self.num_relations
         basis, att = self.basis, self.att
         B, F_in = basis.shape[0], basis.shape[1]
         if x is not None and x.shape[-1] != F_in:
             raise ValueError(f"x has {x.shape[-1]} features, the layer "
                              f"{F_in}")
-        senders, receivers = graph.senders.long(), graph.receivers.long()
+        if closure is not None:
+            # bipartite: the layer's n_in input rows -> n_out output rows;
+            # embedding rows are the global sender ids
+            N = closure.n_out
+            senders = (closure.sender_global if x is None
+                       else closure.senders).long()
+            receivers = closure.receivers.long()
+            et = closure.edge_type.long()
+            if fused_op is None or att is None:
+                require_cpu(basis, "RGCNConv(closure=)",
+                            "fused_op=rgcn_closure_op(...)")
+                if norm is None:
+                    norm = rgcn_closure_norm(closure, R)
+        else:
+            N = graph.num_nodes
+            senders = graph.senders.long()
+            receivers = graph.receivers.long()
+            et = (edge_type if edge_type is not None
+                  else graph.edge_type).long()
 
         if fused_op is not None and att is not None:
             if x is None:
                 xB2d = basis.transpose(0, 1).reshape(F_in, B * C)
             else:
                 xB2d = torch.einsum("nf,bfc->nbc", x, basis).reshape(
-                    N, B * C)
+                    x.shape[0], B * C)
             out = fused_op(xB2d, att)
         else:
             # static per-(receiver, relation) mean normalisation; pass a
@@ -102,7 +131,7 @@ class RGCNConv(nn.Module):
                 out = segment_sum(msgs * w_edge[:, None], receivers, N)
             elif C < F_in:
                 H = torch.einsum("nf,rfc->nrc", x, W)
-                msgs = H.reshape(N * R, C)[senders * R + et]
+                msgs = H.reshape(-1, C)[senders * R + et]
                 out = segment_sum(msgs * w_edge[:, None], receivers, N)
             else:
                 x_j = x[senders] * w_edge[:, None]
@@ -112,8 +141,11 @@ class RGCNConv(nn.Module):
 
         if self.root is not None:
             if x is None:
-                idx = torch.arange(N, device=out.device).clamp(0, F_in - 1)
-                out = out + self.root[idx]
+                idx = (closure.out_global.long() if closure is not None
+                       else torch.arange(N, device=out.device))
+                out = out + self.root[idx.clamp(0, F_in - 1)]
+            elif closure is not None:
+                out = out + x[closure.self_idx.long()] @ self.root
             else:
                 out = out + x @ self.root
         if self.bias is not None:
@@ -155,3 +187,44 @@ def rgcn_fused_op(graph: Graph, edge_type, num_relations: int, mode: str,
     src_rows = int(in_channels) if mode == "embed" else N
     return PackedRgcnSpmm(s, r, et, R, N, weights=w, num_src_rows=src_rows,
                           device=graph.device)
+
+
+def rgcn_closure_norm(cl, num_relations: int):
+    """Per-edge 1/|N_r(i)| weights of a ClosureLayer, 0 on its padding
+    edges (static: compute once and pass as ``norm``). They equal the
+    full graph's ``rgcn_norm`` on the closure's receivers, because a
+    closure keeps all in-edges of every node it needs. Computed on the
+    host, in fp32 as the JAX function's segment sum, and returned on the
+    layer's device."""
+    R = num_relations
+    fused = cl.receivers.cpu().long() * R + cl.edge_type.cpu().long()
+    m = cl.edge_mask.cpu().to(torch.float32)
+    cnt = segment_sum(m, fused, cl.n_out * R)
+    inv = torch.where(cnt > 0, 1.0 / cnt.clamp_min(1.0), 0.0)
+    return (inv[fused] * m).to(cl.senders.device)
+
+
+def rgcn_closure_op(cl, num_relations: int, mode: str,
+                    in_channels: Optional[int] = None):
+    """The fused operator of one closure layer: a rectangular
+    ``PackedRgcnSpmm`` over the layer's real edges into its ``n_out``
+    rows, on the layer's device, the mean weights of
+    :func:`rgcn_closure_norm` baked in.
+
+    ``mode="embed"``: the ``x=None`` layer; the senders are the global ids
+    (clipped to the table, as the JAX path clips them) over the basis
+    table's ``in_channels`` rows. ``mode="transform"``: a dense-``x``
+    layer; the senders are local, over the layer's ``n_in`` rows."""
+    if mode not in ("embed", "transform"):
+        raise ValueError(f"mode must be 'embed' or 'transform', not {mode!r}")
+    if mode == "embed" and in_channels is None:
+        raise ValueError("mode='embed' needs in_channels, the basis "
+                         "table's row count")
+    w = rgcn_closure_norm(cl, num_relations)
+    e = cl.num_real_edges
+    s_local, s_global, r, et = real_edges(cl)
+    senders, src_rows = ((s_global, int(in_channels)) if mode == "embed"
+                         else (s_local, cl.n_in))
+    return PackedRgcnSpmm(senders, r, et, num_relations, cl.n_out,
+                          weights=host_array(w)[:e], num_src_rows=src_rows,
+                          device=cl.senders.device)

@@ -6,7 +6,11 @@ x' = W . mean_{j in N(i) and i} x_j (+ b), optional L2 normalisation.
 
 ``SAGEConv``'s neighbour sum is :func:`propagate`'s identity message over
 the real edges (pass the graph's operators, ``propagate_operators``, for
-the ``spmm_csr`` kernel); adding x_i and dividing by deg_i + 1 makes the
+the ``spmm_csr`` kernel), or ``aggregate_fn(x)``, any operator that sums
+the real edges' sender rows into their receivers (examples/reddit_sage.py:
+one ``spmm_csr`` over a sampled batch's real edges); the same operator
+over a column of ones then gives the masked in-degree, so no segment op
+runs beside it. Adding x_i and dividing by deg_i + 1 makes the
 self-inclusive mean. The sharded path (``shard_ctx``) is not ported yet.
 """
 
@@ -39,12 +43,17 @@ class SAGEConv(nn.Module):
         self.bias = nn.Parameter(zeros((out_channels,))) if use_bias \
             else None
 
-    def forward(self, graph: Graph, x, spmm_op=None, segment_op=None):
-        ew = graph.real_edge_mask().to(x.dtype)
-        s = propagate(graph, x, aggr="add", edge_weight=ew, spmm_op=spmm_op,
-                      segment_op=segment_op)
-        deg = degree(graph.receivers, graph.num_nodes, dtype=x.dtype,
-                     mask=graph.edge_mask)
+    def forward(self, graph: Graph, x, spmm_op=None, segment_op=None,
+                aggregate_fn=None):
+        if aggregate_fn is not None:
+            s = aggregate_fn(x)
+            deg = aggregate_fn(x.new_ones((x.shape[0], 1)))[:, 0]
+        else:
+            ew = graph.real_edge_mask().to(x.dtype)
+            s = propagate(graph, x, aggr="add", edge_weight=ew,
+                          spmm_op=spmm_op, segment_op=segment_op)
+            deg = degree(graph.receivers, graph.num_nodes, dtype=x.dtype,
+                         mask=graph.edge_mask)
         out = ((s + x) / (deg + 1.0)[:, None]) @ self.weight
         if self.bias is not None:
             out = out + self.bias

@@ -33,7 +33,16 @@ CLASSES = 4
 CONFIGS = [("gcn", b) for b in ("packed", "sorted", "fused", "dense",
                                  "hybrid")] + [
     ("gat", b) for b in ("packed", "dense", "bsr")] + [("rgcn", None)] + [
-    ("suite", m) for m in ("sgc", "agnn", "arma", "spline", "dna")]
+    ("suite", m) for m in ("sgc", "agnn", "arma", "spline", "dna")] + [
+    ("gcn_closure", "packed"), ("gat_closure", "packed"),
+    ("rgcn_closure", None)]
+
+
+def _base(kind):
+    """``(trainer, closure)`` of a configuration's kind: the ``_closure``
+    kinds train on the training nodes' closure (``closure=True``)."""
+    base, _, closure = kind.partition("_")
+    return base, closure == "closure"
 
 
 def _citation(seed=0, n=150, e=600, f=24):
@@ -47,7 +56,7 @@ def _citation(seed=0, n=150, e=600, f=24):
 
 
 def _graph(kind, device, tmp_path, backend=None):
-    if kind == "rgcn":
+    if _base(kind)[0] == "rgcn":
         return from_data(Entities(str(tmp_path), "MUTAG", scale=0.01)[0],
                          device=device)
     if backend == "spline":
@@ -56,19 +65,20 @@ def _graph(kind, device, tmp_path, backend=None):
 
 
 def _train(kind, backend, graph, epochs, device, capture=None, seed=3):
+    kind, closure = _base(kind)
     if kind == "suite":
         return suite.train_suite(backend, graph, CLASSES, epochs=epochs,
                                  seed=seed, device=device, capture=capture)
     if kind == "gcn":
         return tcit.train_gcn(graph, CLASSES, epochs=epochs, seed=seed,
                               device=device, backend=backend,
-                              capture=capture)
+                              capture=capture, closure=closure)
     if kind == "gat":
         return tcit.train_gat(graph, CLASSES, epochs=epochs, seed=seed,
                               device=device, backend=backend,
-                              capture=capture)
+                              capture=capture, closure=closure)
     return tent.train_rgcn(graph, 46, 2, epochs=epochs, seed=seed,
-                           device=device, capture=capture)
+                           device=device, capture=capture, closure=closure)
 
 
 def _loop_of_plain_steps(kind, backend, graph, epochs, seed=3):
@@ -78,16 +88,17 @@ def _loop_of_plain_steps(kind, backend, graph, epochs, seed=3):
     dev = graph.device
     init = torch.Generator().manual_seed(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    kind, closure = _base(kind)
     if kind == "gcn":
         model = tcit.GCN(graph.num_node_features, 16, CLASSES,
                          generator=init).to(dev)
-        step, eval_fn = tcit.create_gcn_train_step(model, graph,
-                                                   backend=backend)
+        step, eval_fn = tcit.create_gcn_train_step(
+            model, graph, backend=backend, closure=closure)
     elif kind == "gat":
         model = tcit.GAT(graph.num_node_features, CLASSES,
                          generator=init).to(dev)
-        step, eval_fn = tcit.create_gat_train_step(model, graph,
-                                                   backend=backend)
+        step, eval_fn = tcit.create_gat_train_step(
+            model, graph, backend=backend, closure=closure)
     elif kind == "suite":
         cls, hp = suite.MODELS[backend]
         model = cls(graph.num_node_features, CLASSES, generator=init).to(dev)
@@ -95,7 +106,8 @@ def _loop_of_plain_steps(kind, backend, graph, epochs, seed=3):
             model, graph, hp["lr"], hp["wd"], cls.operators(graph))
     else:
         model = tent.RGCN(graph.num_nodes, 46, 2, generator=init).to(dev)
-        step, eval_fn = tent.create_rgcn_train_step(model, graph, 46)
+        step, eval_fn = tent.create_rgcn_train_step(model, graph, 46,
+                                                    closure=closure)
         gen = None
     outs = [step(gen) for _ in range(epochs)]
     curve = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
@@ -105,7 +117,8 @@ def _loop_of_plain_steps(kind, backend, graph, epochs, seed=3):
 
 def _logits(kind, backend, model, graph):
     """The trained model's logits through the run's fused operators,
-    dropout off."""
+    dropout off (a closure run's on the full graph, as it evaluates)."""
+    kind = _base(kind)[0]
     with torch.no_grad():
         if kind == "suite":
             return model(graph, graph.x, **model.operators(graph))
@@ -222,6 +235,12 @@ EAGER_LAUNCHES = {
     ("suite", "arma"): ({"spmm_csr": 8}, {"spmm_csr": 4}),
     ("suite", "spline"): ({"spmm_csr": 6}, {"spmm_csr": 4}),
     ("suite", "dna"): ({"sorted_segment_sum": 12}, {"sorted_segment_sum": 4}),
+    # the closure runs: the full graph's counts, over the closure's layers
+    ("gcn_closure", "packed"): ({"spmm_csr": 4}, {"spmm_csr": 2}),
+    ("gat_closure", "packed"): ({"packed_gat_fwd": 2, "packed_gat_bwd": 4},
+                                {"packed_gat_fwd": 2}),
+    ("rgcn_closure", None): ({"packed_rgcn_fwd": 4, "packed_rgcn_bwd": 6},
+                             {"packed_rgcn_fwd": 4}),
 }
 #: Launches at set-up (a suite model's operators): SGC's propagation.
 SETUP_LAUNCHES = {("suite", "sgc"): {"spmm_csr": 2}}

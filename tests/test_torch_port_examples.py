@@ -13,7 +13,9 @@ scripts' in ``tests/test_torch_port_ppi.py`` and
 (mutag_gin, enzymes_topk_pool, enzymes_diff_pool, qm9_nn_conv,
 autoencoder, infomax: their models in
 ``tests/test_torch_port_graph_examples.py``), each run at a tiny size on
-the CPU, where no kernel is launched."""
+the CPU, where no kernel is launched; and reddit_sage.py's, whose ``SAGE``
+is held here to the JAX script's on one small sampled batch and two Adam
+steps (fp32 1e-5, the steps 1e-4)."""
 
 import ast
 import itertools
@@ -41,7 +43,7 @@ from pytorch_geometric_tpu_torch.data import Data, InMemoryDataset, from_data
 from pytorch_geometric_tpu_torch.examples import (
     autoencoder, citation_suite, enzymes_diff_pool, enzymes_topk_pool, faust,
     gat, gcn, infomax, mnist_graclus, mnist_nn_conv, mnist_voxel_grid,
-    mutag_gin, pointnet2, ppi, qm9_nn_conv, rgcn)
+    mutag_gin, pointnet2, ppi, qm9_nn_conv, reddit_sage, rgcn)
 from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
 from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
 
@@ -53,7 +55,8 @@ EXAMPLES = {"gcn": gcn, "gat": gat, "rgcn": rgcn,
             "qm9_nn_conv": qm9_nn_conv, "autoencoder": autoencoder,
             "infomax": infomax, "mnist_graclus": mnist_graclus,
             "mnist_voxel_grid": mnist_voxel_grid,
-            "mnist_nn_conv": mnist_nn_conv, "pointnet2": pointnet2}
+            "mnist_nn_conv": mnist_nn_conv, "pointnet2": pointnet2,
+            "reddit_sage": reddit_sage}
 
 
 def _tree(path):
@@ -480,3 +483,111 @@ def test_point_and_superpixel_run_prints_the_jax_scripts_line(
     if name != "pointnet2":
         assert (len(loaders[0]), len(loaders[1])) == (3, 1)
         assert out["operators"] == 2 * 3 + 1
+
+
+# ---------------------------------------------------------------------------
+# reddit_sage.py
+# ---------------------------------------------------------------------------
+
+def _close(got, want, tol):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(want, dtype=np.float32)
+    np.testing.assert_allclose(got, want, rtol=tol,
+                               atol=tol * float(np.abs(want).max()))
+
+
+def _sampled_corpus(seed=0, n=400, e=3200, f=24, c=5):
+    """A Reddit-shaped corpus in miniature: features, labels, and the
+    train / val split masks."""
+    rng = np.random.default_rng(seed)
+    split = rng.random(n)
+    return Data(x=rng.normal(size=(n, f)).astype(np.float32),
+                edge_index=np.stack([rng.integers(0, n, e),
+                                     rng.integers(0, n, e)]),
+                y=rng.integers(0, c, n), train_mask=split < 0.66,
+                val_mask=(split >= 0.66) & (split < 0.76))
+
+
+def test_reddit_sage_run_prints_the_jax_scripts_line(capsys):
+    out = reddit_sage.run(1, batch_size=16, seed=0, max_batches=2,
+                          device="cpu", data=_sampled_corpus())
+    lines = _assert_lines(capsys, "reddit_sage", 1)
+    assert lines[0].startswith("Epoch 01")
+    assert out["step_losses"].shape == (1, 2)
+    assert np.isfinite(out["step_losses"]).all()
+    assert 0.0 <= out["acc"] <= 1.0 and out["chance"] == 0.2
+
+
+def test_reddit_sage_model_matches_the_jax_script():
+    """examples/reddit_sage.py's ``SAGE`` and step against the port's on
+    the same sampled batches (batch size 16, the loaders seeded alike,
+    after the first batch each script draws to shape its model): the
+    logits and loss of the first batch, then two Adam (3e-3) steps."""
+    import sys
+
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    sys.path.insert(0, str(REPO))
+    from examples.reddit_sage import SAGE as JSAGE
+    from pytorch_geometric_tpu.data.neighbor_loader import (
+        NeighborSampler as JNeighborSampler)
+    from pytorch_geometric_tpu_torch.convert import params_from_jax
+
+    data = _sampled_corpus(1)
+    ei = data.edge_index
+    train, _, x_dev, y_dev = reddit_sage.loaders(data, batch_size=16,
+                                                 device="cpu")
+    jtrain = JNeighborSampler(ei[0], ei[1], data.num_nodes, sizes=[10, 10],
+                              batch_size=16,
+                              seed_nodes=np.flatnonzero(data.train_mask),
+                              seed=0, materialize_features=False)
+    jx, jy = jtrain.device_tables(data.x, data.y.astype(np.int32))
+    g0 = next(iter(jtrain))
+    next(iter(train))
+    jmodel = JSAGE(hidden=128, num_classes=5)
+    params = jmodel.init(jax.random.PRNGKey(0), g0,
+                         jnp.take(jx, g0.extras["local_to_global"], axis=0))
+    model = reddit_sage.SAGE(24, 128, 5)
+    model.load_state_dict(params_from_jax(params))
+    tx = optax.adam(3e-3)
+    opt = tx.init(params)
+    topt = torch.optim.Adam(model.parameters(), lr=3e-3)
+
+    @jax.jit
+    def jloss(p, graph):
+        ids = graph.extras["local_to_global"]
+        logits = jmodel.apply(p, graph, jnp.take(jx, ids, axis=0))
+        logp = jax.nn.log_softmax(logits)
+        oh = jnp.take(jy, ids)[:, None] == jnp.arange(5)[None, :]
+        nll = -jnp.sum(logp * oh.astype(logp.dtype), axis=1)
+        m = graph.extras["seed_mask"].astype(jnp.float32)
+        return jnp.sum(nll * m) / jnp.maximum(m.sum(), 1.0), logits
+
+    grad = jax.jit(jax.value_and_grad(jloss, has_aux=True))
+    batches = list(itertools.islice(zip(train, jtrain), 2))
+    graph, jgraph = batches[0]
+    (jl, jlogits), _ = grad(params, jgraph)
+    agg = reddit_sage.sage_aggregate(graph)
+    ids = graph.extras["local_to_global"].long()
+    with torch.no_grad():
+        logits = model(graph, x_dev[ids], agg)
+    _close(logits, jlogits, 1e-5)
+    _close(reddit_sage.seed_loss(logits, y_dev[ids],
+                                 graph.extras["seed_mask"]), jl, 1e-5)
+    # the aggregation over ones, SAGEConv's degree, is the masked
+    # in-degree of the JAX conv
+    np.testing.assert_array_equal(
+        agg(torch.ones(graph.num_nodes, 1))[:, 0].detach().numpy(),
+        np.bincount(np.asarray(jgraph.receivers)[np.asarray(
+            jgraph.edge_mask)], minlength=graph.num_nodes))
+    for graph, jgraph in batches:
+        (jl, _), grads = grad(params, jgraph)
+        updates, opt = tx.update(grads, opt, params)
+        params = optax.apply_updates(params, updates)
+        loss = reddit_sage.train_step(model, topt, graph, x_dev, y_dev)
+        _close(loss, jl, 1e-5)
+    want = params_from_jax(params)
+    for name, p in model.state_dict().items():
+        _close(p, want[name], 1e-4)

@@ -107,7 +107,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "examples.qm9_nn_conv", "examples.autoencoder",
                  "examples.infomax", "ops.hybrid_spmm", "ops.block_spmm",
                  "examples.mnist_graclus", "examples.mnist_voxel_grid",
-                 "examples.mnist_nn_conv", "examples.pointnet2"):
+                 "examples.mnist_nn_conv", "examples.pointnet2",
+                 "data.closure", "data.sampler", "data.neighbor_loader",
+                 "ops.embed_spmm", "utils.optim", "examples.reddit_sage"):
         assert f"pytorch_geometric_tpu_torch.{name}" in report["modules"]
     assert report["bad"] == []
 
@@ -218,6 +220,29 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         train_rgcn(rel, 3, 2, epochs=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         packed_rgcn.PackedRgcnSpmm(*edges)
+    # the closures, the sampler, the table SpMM and reddit_sage
+    from pytorch_geometric_tpu_torch.data.closure import (
+        layered_training_closure)
+    from pytorch_geometric_tpu_torch.data.neighbor_loader import (
+        NeighborSampler)
+    from pytorch_geometric_tpu_torch.examples import reddit_sage
+    from pytorch_geometric_tpu_torch.ops.embed_spmm import EmbedSpmm
+
+    ei = np.stack([graph.senders.numpy(), graph.receivers.numpy()])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        layered_training_closure(ei, [0, 1], 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_gcn(graph, num_classes=2, epochs=1, closure=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_gat(graph, num_classes=2, epochs=1, closure=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_rgcn(rel, 3, 2, epochs=1, closure=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        NeighborSampler(ei[0], ei[1], graph.num_nodes, sizes=[2])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EmbedSpmm([0, 1], [1, 0], 2, 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        reddit_sage.run(epochs=1)
 
 
 def test_cpu_wrapper_computes_plain_and_counts_no_launch():

@@ -52,8 +52,10 @@ EXEMPT = {
             "whose lengths need no common shape (its one caller, "
             "parallel/fast.py, is " + _QUEUE_A.format(11) + ")")},
     "data/dataset.py": {"files_exist": _NO_CACHE, "makedirs": _NO_CACHE},
-    "nn/conv/gcn_conv.py": {"gcn_closure_norm": _QUEUE_A.format(7)},
-    "nn/conv/rgcn_conv.py": {"rgcn_closure_norm": _QUEUE_A.format(7)},
+    "utils/optim.py": {"CompactAdamState": (
+        "optax's state tuple; the port's optimizer keeps its state as "
+        "torch optimizers do, the count in param_groups[i]['count'] and "
+        "the moments in state[p]['mu'] / ['nu']")},
 }
 
 #: {method: reason}: methods left out of every class that has them in
@@ -65,7 +67,6 @@ EXEMPT_METHODS = {"download": _NO_CACHE, "process": _NO_CACHE,
 
 _TPU_KNOB = ("a TPU tiling or kernel-variant knob; the CUDA kernels take "
              "no such choice")
-_CLOSURE = "the closure training path: " + _QUEUE_A.format(7)
 #: {parameter: reason}: the reference's parameter names the port leaves
 #: out wherever they occur.
 EXEMPT_PARAMS = {
@@ -73,7 +74,6 @@ EXEMPT_PARAMS = {
     "interpret": _TPU_KNOB, "onehot": _TPU_KNOB, "out_t": _TPU_KNOB,
     "light": _TPU_KNOB, "merge_dd": _TPU_KNOB, "mask_dtype": _TPU_KNOB,
     "rows": _TPU_KNOB, "f_tile": _TPU_KNOB,
-    "closure": _CLOSURE, "closure_norms": _CLOSURE,
     "shard_ctx": "the edge-partition path: " + _QUEUE_A.format(11),
     "pallas": "the GCN trainer's backend= takes its place: backend="
               "\"hybrid\" is the JAX pallas=True (HybridSpmm)",
@@ -324,4 +324,4 @@ def test_the_walk_sees_inherited_methods_and_flax_fields():
     assert "__init__" not in methods and {"heads", "concat"} <= set(fields)
     assert {"closure", "shard_ctx"} <= methods["__call__"]
     assert _missing_params("nn/conv/gat_conv.py") == {
-        "GATConv.__call__": {"closure", "shard_ctx"}}
+        "GATConv.__call__": {"shard_ctx"}}
