@@ -137,6 +137,11 @@ Phases, one JSON line each:
                and transform layers on MUTAG-RDF, and spmm_csr on one
                sampled batch of the full-scale Reddit graph (512 seeds,
                fan-out [10, 10]) at F = 602 and 128, both directions;
+   kernel_driver — spmm_csr at the research driver's GCN widths on Cora
+               (F = 1084 and 819, both directions) and the packed GAT at
+               its GAT's layers over the remove-then-add edge set ((8,
+               135) and (8, 102) at dropout 0.6, (1, 7) at 0), fp32
+               (1e-5), with cuSPARSE and the bound;
    probe     — the probes' libraries against the kernels that ship:
                every term-by-term ablation mode of the packed-GAT backward
                (RCM-PubMed, (8, 8), dropout 0.6) and of the packed-RGCN
@@ -309,6 +314,45 @@ Phases, one JSON line each:
                logits after three steps card against the CPU (1e-4), the
                sampler's nodes a second, and the epoch device-only,
                sampled inline and pipelined (prefetch 4);
+   slice_driver — research/driver.py's training_net on Cora at the
+               driver's defaults (PrunableGCN, 2 layers at the seeded
+               contraction widths, 100 + 100 epochs, AdamW with the
+               global-norm clip at 5, SVD pruning at ConCoeff 0.6, the
+               Fiedler weight correction at epochs 70 and 90 of phase 2,
+               checkpoints and curves in a temporary directory), eager,
+               every aggregation through one spmm_csr operator of the
+               graph: launches asserted as 200 epochs x 6 + 4
+               evaluations x 3; printed: the widths before and after
+               pruning, each phase's seconds and best validation accuracy,
+               the SVD pruning's seconds, each correction's seconds,
+               applied count and Fiedler backends (the torch power
+               iteration on the card from 192 nodes); both phases' losses
+               falling; the logits after three epochs (dropout 0), card
+               against the plain path on the CPU (1e-4);
+   slice_driver_gat — the same with --modelName GAT, 20 + 60 epochs (one
+               correction, at epoch 50), every attention layer through
+               one PackedFlashGat (its first designs: 8 heads of up to
+               135 channels): packed-GAT launches asserted as 80 epochs x
+               (3 forward + 6 backward) + 3 evaluations x 3 forward; its
+               logits after three epochs card against CPU within 1e-3;
+   slice_driver_inductive — training_net_ppi (PrunableGCN on PPI) and
+               training_net_graphcls (PrunableTopK on ENZYMES), 2 + 2
+               epochs each, one operator set a distinct batch: launches
+               asserted as DRIVER_INDUCTIVE_LAUNCHES per step and
+               evaluation batch;
+   zoo_prunable — each model of models/prunable.py (widths 64, 32; TopK
+               on an ENZYMES batch), one forward and one backward through
+               its operators on the card against its plain path on the
+               CPU (1e-4), each launching a kernel that sums feature rows;
+   fiedler   — the Fiedler pair of slice_driver's composed weight graph
+               (2,726 nodes, padded to 4096): the torch power iteration
+               on the card against the same code on the CPU (1e-4) and
+               against numpy eigh (λ2, and the vector inside eigh's
+               eigenspace), with the card's milliseconds;
+   mygcn     — examples/mygcn.py: 40 epochs with a checkpoint on the
+               best validation accuracy, then --resume to 60 in a
+               temporary directory: the restored epoch counter, the
+               spans after it, the extended loss history;
    zoo       — every conv of the zoo (Part B's and the suite's) on Cora
                at 1433 -> 16, one forward and one backward through its
                operators on the card against its plain path on the CPU:
@@ -1210,6 +1254,43 @@ def check_rgcn_case(graph_name, op, B, C, gen):
                 "bound_ms": bound_ms, "bound_by": bound_by}
         emit(case)
         cases.append(case)
+    return cases
+
+
+#: The driver's Cora shapes (slice_driver, slice_driver_gat): the GCN's
+#: widths 1084 and 819 on its SpMM (after pruning 1083 and 818, the same
+#: chunk map), and the GAT's three layers over its remove-then-add edge
+#: set, 8 heads of 135 and of 102 channels (the first designs) with
+#: attention dropout 0.6, and the output head (1, 7) without.
+DRIVER_SPMM_WIDTHS = (1084, 819)
+DRIVER_GAT_SHAPES = ((8, 135, 0.6), (8, 102, 0.6), (1, 7, 0.0))
+
+
+def phase_kernel_driver(gen):
+    """``spmm_csr`` and the packed-GAT kernels at the research driver's
+    shapes on Cora (``DRIVER_SPMM_WIDTHS`` both directions, fp32;
+    ``DRIVER_GAT_SHAPES`` over ``gat_sparse_edge_set``, the operator
+    ``PrunableGAT.operators`` builds) against their plain versions (fp32
+    1e-5, two launches bitwise equal), with cuSPARSE where it applies and
+    the bound."""
+    from pytorch_geometric_tpu_torch.nn.conv import gat_sparse_edge_set
+    from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
+
+    _, cora = cora_graph(DEVICE)
+    cases = []
+    for direction, (csr, val) in _csr_pairs(cora).items():
+        for f in DRIVER_SPMM_WIDTHS:
+            cases.append(check_case("cora_driver", csr, val, direction, f,
+                                    "fp32", gen))
+    senders, receivers = gat_sparse_edge_set(cora)
+    op = PackedFlashGat(senders=senders, receivers=receivers,
+                        num_nodes=cora.num_nodes, device=DEVICE)
+    for H, C, rate in DRIVER_GAT_SHAPES:
+        cases += check_gat_case("cora_driver", op, H, C, rate, gen)
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} driver-shape kernel cases failed: "
+                             f"{bad}")
     return cases
 
 
@@ -3060,6 +3141,430 @@ def phase_zoo():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The research layer (research/driver.py, models/prunable.py, mygcn)
+# ---------------------------------------------------------------------------
+
+#: research/driver.py's Cora pipeline at its defaults (epochs, fine-tune
+#: epochs; corrections every 20 epochs from 0.5 x fine-tune + 20), and
+#: the GAT's shorter run (one correction, at epoch 50).
+DRIVER_EPOCHS = {"GCN": (100, 100), "GAT": (20, 60)}
+#: Launches of one training epoch and of one evaluation: the GCN's three
+#: convs, each one spmm_csr forward and one over the transposed CSR for
+#: its ``dh`` (conv1's input takes no gradient, its ``h = x W`` does);
+#: the GAT's three attention layers, one packed-GAT forward and two
+#: backward walks each.
+DRIVER_STEP_LAUNCHES = {"GCN": {"spmm_csr": 6},
+                        "GAT": {"packed_gat_fwd": 3, "packed_gat_bwd": 6}}
+DRIVER_EVAL_LAUNCHES = {"GCN": {"spmm_csr": 3}, "GAT": {"packed_gat_fwd": 3}}
+#: The inductive pipelines' epochs a phase, and the launches of a step
+#: and of an evaluation batch: PPI's PrunableGCN as the Cora GCN;
+#: ENZYMES' PrunableTopK three GraphConv sums and two ``dx`` (the first
+#: level's input takes none), a mean readout a level (its backward is a
+#: gather), as examples/enzymes_topk_pool.py.
+DRIVER_INDUCTIVE_EPOCHS = 2
+DRIVER_INDUCTIVE_LAUNCHES = {
+    "ppi": ({"spmm_csr": 6}, {"spmm_csr": 3}),
+    "enzymes": ({"spmm_csr": 5, "sorted_segment_sum": 3},
+                {"spmm_csr": 3, "sorted_segment_sum": 3})}
+#: Card-against-CPU tolerance of the logits after three epochs: the
+#: GAT's is wider, because AdamW's first steps turn rounding-level
+#: gradient differences into lr-sized ones at its 1,080 channels (two
+#: runs of the same plain CPU code: 3.4e-6 and 1.2e-4 apart).
+DRIVER_PARITY_TOL = {"GCN": 1e-4, "GAT": 1e-3}
+#: The composed weight graph of slice_driver's last correction input
+#: (the phase-2 model's first two weights), for the fiedler phase.
+_DRIVER_GRAPH = {}
+
+
+def _driver_expected(model_name, epochs, fine_tune):
+    """``(expected launches, statement)`` of one ``training_net`` run:
+    every epoch's step launches, and one evaluation a span (phase 1 one
+    span; phase 2 cut at each correction epoch)."""
+    from pytorch_geometric_tpu_torch.research import driver
+
+    corrections = driver.correction_epochs_of(fine_tune, 0.5)
+    evals = len(driver._spans(epochs, [])) + len(
+        driver._spans(fine_tune, corrections))
+    step, ev = DRIVER_STEP_LAUNCHES[model_name], \
+        DRIVER_EVAL_LAUNCHES[model_name]
+    expected = {n: (epochs + fine_tune) * step.get(n, 0)
+                + evals * ev.get(n, 0) for n in set(step) | set(ev)}
+    statement = {n: f"({epochs} + {fine_tune}) epochs x {step.get(n, 0)} + "
+                    f"{evals} evaluations x {ev.get(n, 0)} = {expected[n]}"
+                 for n in expected}
+    return expected, statement, corrections
+
+
+def driver_steps_logits(model_name, device, widths, epochs=3):
+    """``(logits, model)``: a fresh zoo model at ``widths`` (from
+    ``SEED``, dropout 0: a generator on the card and one on the CPU draw
+    different masks) after ``train_part`` for ``epochs`` epochs on Cora,
+    then its logits; on the card through its operators, on the CPU
+    through its plain path (no operators)."""
+    from pytorch_geometric_tpu_torch.models.prunable import choose_model
+    from pytorch_geometric_tpu_torch.research import driver
+
+    ds, graph = driver.load_citation_dataset("Cora", device=device)
+    model = choose_model(model_name, widths, ds.num_classes,
+                         in_channels=graph.num_node_features, dropout=0.0,
+                         generator=torch.Generator().manual_seed(SEED)
+                         ).to(device)
+    ops = model.operators(graph) if device != "cpu" else {}
+    driver.train_part(model, graph, None, epochs, seed=SEED,
+                      apply_kwargs=ops)
+    model.eval()
+    with torch.no_grad():
+        return model(graph, graph.x, **ops).cpu(), model
+
+
+def phase_slice_driver(model_name="GCN", phase="slice_driver"):
+    """research/driver.py's ``training_net`` on Cora at the driver's
+    defaults, as ``python -m pytorch_geometric_tpu_torch.research.driver``
+    runs it (``--modelName GAT``: 20 + 60 epochs): widths from
+    ``contraction_layer_coefficients`` (seed 0), phase 1, SVD pruning
+    (``retain_network_size`` at ConCoeff 0.6), the smaller net, phase 2
+    with the Fiedler weight correction every 20 epochs past half the
+    fine-tune epochs, checkpoints and curves in a temporary directory.
+    Printed: the widths before and after pruning, each phase's seconds
+    and best validation accuracy, and each correction's epoch, seconds,
+    ``applied`` count and Fiedler backends. Launches asserted
+    (``DRIVER_STEP_LAUNCHES`` x epochs + ``DRIVER_EVAL_LAUNCHES`` x
+    evaluations); both phases' losses finite and falling (phase 1 from
+    its checkpoint's history, phase 2 from its saved curve); the logits
+    after three epochs (dropout 0) card against the plain path on the CPU
+    (``DRIVER_PARITY_TOL``: GCN 1e-4, GAT 1e-3)."""
+    import tempfile
+
+    from pytorch_geometric_tpu_torch.research import driver
+    from pytorch_geometric_tpu_torch.research.checkpoint import (
+        CheckpointManager)
+    from pytorch_geometric_tpu_torch.research.spectral import (
+        compose, layer_weight_items, weights_to_adjacency)
+
+    epochs, fine_tune = DRIVER_EPOCHS[model_name]
+    expected, statement, corrections = _driver_expected(model_name, epochs,
+                                                        fine_tune)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir, results_dir = f"{tmp}/checkpoint", f"{tmp}/Results"
+
+        def run():
+            t0 = time.perf_counter()
+            (res,) = driver.training_net(
+                "Cora", model_name, epochs=epochs,
+                fine_tune_epochs=fine_tune, results_dir=results_dir,
+                ckpt_dir=ckpt_dir, device=DEVICE)
+            torch.cuda.synchronize()
+            return {"result": res, "seconds": time.perf_counter() - t0}
+
+        out, report, problems = _example_run(run, expected, statement)
+        res = out["result"]
+        run_key = (f"Cora-{model_name}2-{'_'.join(map(str, res['widths']))}"
+                   f"-0.6-0")
+        ckpt = CheckpointManager(ckpt_dir)
+        phase1 = ckpt.load(run_key + "-phase1")
+        phase2 = ckpt.load(run_key + "-phase2")
+        tag = f"Cora-{model_name}2-param_" \
+              f"{'_'.join(map(str, res['widths']))}_0.6-monte_0.npy"
+        curve2 = np.load(f"{results_dir}/CoraConvergence/"
+                         f"TrainConvergence-{tag}")
+        # the composed graph of the phase-2 net's best weights, as the
+        # correction builds it (the fiedler phase takes the GCN's)
+        items = layer_weight_items(phase2["params"])
+        graphs, start = [], 0
+        for _, w in items:
+            if sum(w.shape) > 2000 or len(graphs) >= 2:
+                continue
+            graphs.append(weights_to_adjacency(w, start, 50_000)[0])
+            start += sum(w.shape)
+        composed = compose(*graphs) if len(graphs) == 2 else graphs[0]
+        if model_name == "GCN":
+            _DRIVER_GRAPH["G"] = composed
+    _falling(phase1["train_convergence"], problems, "phase-1 epoch")
+    _falling(curve2, problems, "phase-2 epoch")
+    if [c["epoch"] for c in res["corrections"]] != corrections:
+        problems.append(f"corrections at {res['corrections']}, expected "
+                        f"epochs {corrections}")
+    parity, params_err, finite, shape = _parity(
+        functools.partial(driver_steps_logits, model_name,
+                          widths=res["widths"]))
+    if not (finite and parity <= DRIVER_PARITY_TOL[model_name]):
+        problems.append(f"logits after 3 epochs: card vs CPU rel err "
+                        f"{parity}")
+    printed = {
+        "widths": res["widths"], "pruned_widths": res["new_widths"],
+        "phase1": {"seconds": res["seconds"]["phase1"],
+                   "best_val_acc": res["pretrain_best"]},
+        "svd_pruning_seconds": res["seconds"]["pruning"],
+        "phase2": {"seconds": res["seconds"]["phase2"],
+                   "best_val_acc": res["finetune_best"]},
+        "corrections": res["corrections"]}
+    print(json.dumps({"phase": phase, "pipeline": printed}), flush=True)
+    return _finish({"phase": phase, "dataset": "Cora", "model": model_name,
+                    "epochs": [epochs, fine_tune], **printed, **report,
+                    "phase1_losses": [phase1["train_convergence"][0],
+                                      phase1["train_convergence"][-1]],
+                    "phase2_losses": [float(curve2[0]), float(curve2[-1])],
+                    "composed_graph": {
+                        "layers": [list(w.shape) for _, w in items],
+                        "nodes": len(composed),
+                        "edges": composed.number_of_edges()},
+                    "logits_shape": shape,
+                    "logits_cuda_vs_cpu_rel_err": parity,
+                    "params_cuda_vs_cpu_rel_err": params_err}, problems)
+
+
+def phase_slice_driver_inductive():
+    """research/driver.py's inductive pipelines on the card for
+    ``DRIVER_INDUCTIVE_EPOCHS`` epochs a phase: ``training_net_ppi``
+    (PrunableGCN on PPI, batches of 2 graphs, one operator a distinct
+    batch, built once) and ``training_net_graphcls`` (PrunableTopK on
+    ENZYMES, batches of 64, one operator set a batch), each through the
+    prune / rebuild / fine-tune loop. Launches asserted as 2 phases x
+    epochs x (train batches x ``DRIVER_INDUCTIVE_LAUNCHES`` step + test
+    batches x evaluation); the widths, pruned widths and best metrics
+    printed."""
+    import tempfile
+
+    from pytorch_geometric_tpu_torch.data import DataLoader
+    from pytorch_geometric_tpu_torch.datasets import PPI, TUDataset
+    from pytorch_geometric_tpu_torch.datasets.graphs import PLANETOID_ROOT
+    from pytorch_geometric_tpu_torch.models.capture import launch_counts
+    from pytorch_geometric_tpu_torch.research import driver
+
+    e = DRIVER_INDUCTIVE_EPOCHS
+    root = str(PLANETOID_ROOT)
+    enz = TUDataset(root, "ENZYMES")
+    n_test = len(enz) // 10
+    batches = {
+        "ppi": (len(DataLoader(PPI(root, split="train"), 2, device=DEVICE)),
+                len(DataLoader(PPI(root, split="test"), 2, device=DEVICE))),
+        "enzymes": (-(-(len(enz) - n_test) // 64), -(-n_test // 64))}
+    runs = {"ppi": lambda tmp: driver.training_net_ppi(
+                epochs=e, fine_tune_epochs=e, results_dir=f"{tmp}/R",
+                ckpt_dir=f"{tmp}/c", device=DEVICE),
+            "enzymes": lambda tmp: driver.training_net_graphcls(
+                "ENZYMES", epochs=e, fine_tune_epochs=e,
+                results_dir=f"{tmp}/R", ckpt_dir=f"{tmp}/c",
+                device=DEVICE)}
+    launches, expected, statement, results, problems = {}, {}, {}, {}, []
+    for name, run in runs.items():
+        step, ev = DRIVER_INDUCTIVE_LAUNCHES[name]
+        n_train, n_eval = batches[name]
+        mine = {k: 2 * e * (n_train * step.get(k, 0) + n_eval * ev.get(k, 0))
+                for k in set(step) | set(ev)}
+        for k, v in mine.items():
+            expected[k] = expected.get(k, 0) + v
+            statement[f"{name}:{k}"] = (
+                f"2 phases x {e} epochs x ({n_train} train batches x "
+                f"{step.get(k, 0)} + {n_eval} test batches x "
+                f"{ev.get(k, 0)}) = {v}")
+        with tempfile.TemporaryDirectory() as tmp:
+            before = launch_counts()
+            t0 = time.perf_counter()
+            (res,) = run(tmp)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            ran = {k: v - before[k] for k, v in launch_counts().items()
+                   if v != before[k]}
+        for k, v in ran.items():
+            launches[k] = launches.get(k, 0) + v
+        if ran != mine:
+            problems.append(f"{name}: launches {ran}, expected {mine}")
+        results[name] = {**res, "seconds": seconds, "launches": ran}
+    return _finish({"phase": "slice_driver_inductive", "epochs": e,
+                    "batches": batches, "runs": results,
+                    "launches": launches, "expected_launches": expected,
+                    "launch_statement": statement}, problems)
+
+
+def _prunable_cases():
+    """``(name, widths, graph kind)`` of the zoo_prunable phase."""
+    return [(name, (64, 32), "enzymes" if name == "TopK" else "cora")
+            for name in ("GCN", "GAT", "Cheb", "AGNN", "Spline", "TopK")]
+
+
+def phase_zoo_prunable():
+    """Each model of ``models/prunable.py:MODEL_ZOO`` (widths 64, 32;
+    the five node models on Cora, TopK on an ENZYMES batch of 64 graphs),
+    dropout 0: one forward and one backward through its operators
+    (``model.operators(graph)``) on the card against its plain path on
+    the CPU from the same parameters: the output within 1e-4 of its
+    largest magnitude, the parameters' gradients within 1e-4 of the
+    largest gradient; each launches a kernel of the port that sums
+    feature rows."""
+    import copy
+
+    from pytorch_geometric_tpu_torch.data import DataLoader
+    from pytorch_geometric_tpu_torch.datasets import TUDataset
+    from pytorch_geometric_tpu_torch.datasets.graphs import PLANETOID_ROOT
+    from pytorch_geometric_tpu_torch.models.capture import launch_counts
+    from pytorch_geometric_tpu_torch.models.prunable import choose_model
+    from pytorch_geometric_tpu_torch.research import driver
+
+    gen = torch.Generator().manual_seed(SEED)
+    ds, cora = driver.load_citation_dataset("Cora", device=DEVICE)
+    enz = next(iter(DataLoader(TUDataset(str(PLANETOID_ROOT), "ENZYMES"),
+                               64, device=DEVICE)))
+    rows, problems = [], []
+    for name, widths, kind in _prunable_cases():
+        g = enz if kind == "enzymes" else cora
+        classes = 6 if kind == "enzymes" else ds.num_classes
+        kw = {} if name == "TopK" else {"dropout": 0.0}
+        model = choose_model(name, widths, classes,
+                             in_channels=g.num_node_features,
+                             generator=gen, **kw)
+        results, ct = [], None
+        for dev, m, with_ops in ((DEVICE, copy.deepcopy(model).to(DEVICE),
+                                  True), ("cpu", model, False)):
+            gg = g.to(dev)
+            ops = m.operators(gg) if with_ops else {}
+            before = launch_counts()
+            out = m(gg, **ops) if name == "TopK" else m(gg, gg.x, **ops)
+            if ct is None:
+                ct = torch.randn(out.shape, generator=gen)
+            (out * ct.to(dev)).sum().backward()
+            launched = {k: v - before[k] for k, v in launch_counts().items()
+                        if v != before[k]}
+            results.append((out.detach().cpu(),
+                            {n: p.grad.cpu() for n, p in
+                             m.named_parameters()}, launched))
+        (out, grads, launched), (ref, ref_grads, _) = results
+        scale = max(float(v.abs().max()) for v in ref_grads.values())
+        param_err = max(float((grads[n] - v).abs().max()) / max(scale, 1e-30)
+                        for n, v in ref_grads.items())
+        row = {"phase": "zoo_prunable", "model": name, "graph": kind,
+               "widths": list(widths), "out_shape": list(out.shape),
+               "launches": launched, "out_rel_err": _rel(out, ref),
+               "param_grad_rel_err": param_err, "tol": 1e-4}
+        row["ok"] = bool(torch.isfinite(out).all()) and max(
+            row["out_rel_err"], param_err) <= 1e-4 and bool(launched)
+        emit(row)
+        rows.append(row)
+        if not row["ok"]:
+            problems.append(f"{name}: {row}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return rows
+
+
+def phase_fiedler():
+    """The Fiedler pair of slice_driver's composed weight graph (the
+    phase-2 net's first two weights, 50,000 edges of the first kept)
+    three ways: ``research/spectral.py``'s torch power iteration on the
+    card (fp32, padded to the next power of two, 512 iterations), the
+    same code on the CPU, and numpy ``eigh`` of the normalised Laplacian
+    on the host. The card's λ2 and vector against the CPU's (sign
+    aligned, 1e-4 of the largest entry) and λ2 against eigh's (1e-4
+    absolute); since the composed graph's two layers are two components,
+    λ2 = 0 has a two-dimensional eigenspace, so the vector is held to
+    eigh's eigenspace of the eigenvalues up to λ2 + 1e-5 (the norm of its
+    part outside it, 1e-4). The card's milliseconds (CUDA events, the
+    host-to-card copy included) beside the CPU's and eigh's seconds."""
+    from pytorch_geometric_tpu_torch.research import spectral
+
+    if "G" not in _DRIVER_GRAPH:
+        raise RuntimeError("fiedler needs slice_driver's composed graph: "
+                           "run slice_driver first")
+    G = _DRIVER_GRAPH["G"]
+    A = np.abs(G.to_numpy_array())
+    n = A.shape[0]
+    n_pad = 1 << max(int(np.ceil(np.log2(max(n, 2)))), 1)
+    card_ms = _event_ms(lambda: spectral._fiedler_device(A, device=DEVICE),
+                        reps=3)
+    lam, vec = spectral._fiedler_device(A, device=DEVICE)
+    t0 = time.perf_counter()
+    lam_cpu, vec_cpu = spectral._fiedler_device(A, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d = A.sum(axis=1)
+    dis = np.where(d > 0, 1.0 / np.sqrt(np.maximum(d, 1e-30)), 0.0)
+    lap = np.eye(n) - (dis[:, None] * A) * dis[None, :]
+    lap = (lap + lap.T) / 2.0
+    w, V = np.linalg.eigh(lap)
+    eigh_s = time.perf_counter() - t0
+    sign = 1.0 if float(vec @ vec_cpu) >= 0 else -1.0
+    vec_err = float(np.abs(vec - sign * vec_cpu).max()
+                    / np.abs(vec_cpu).max())
+    space = V[:, w <= w[1] + 1e-5]
+    outside = float(np.linalg.norm(vec - space @ (space.T @ vec))
+                    / np.linalg.norm(vec))
+    problems = []
+    if not (np.isfinite(vec).all() and vec_err <= 1e-4):
+        problems.append(f"card vs CPU vector rel err {vec_err}")
+    if abs(lam - lam_cpu) > 1e-4 or abs(lam - float(w[1])) > 1e-4:
+        problems.append(f"lambda2 card {lam}, CPU {lam_cpu}, eigh {w[1]}")
+    if outside > 1e-4:
+        problems.append(f"vector outside eigh's eigenspace: {outside}")
+    return _finish({"phase": "fiedler", "nodes": n, "padded": n_pad,
+                    "edges": G.number_of_edges(), "iterations": 512,
+                    "lambda2": {"card": lam, "cpu": lam_cpu,
+                                "eigh": float(w[1])},
+                    "eigh_low": [float(v) for v in w[:4]],
+                    "eigenspace_dim": int(space.shape[1]),
+                    "vector_cuda_vs_cpu_rel_err": vec_err,
+                    "vector_outside_eigh_eigenspace": outside,
+                    "card_ms": card_ms, "cpu_seconds": cpu_s,
+                    "eigh_seconds": eigh_s}, problems)
+
+
+MYGCN_EPOCHS = (40, 60)
+
+
+def phase_mygcn():
+    """examples/mygcn.py on the card: 40 epochs (two spans of 20, a
+    checkpoint on each better validation accuracy) in a temporary
+    directory, then ``--resume`` to 60: the restored epoch counter is the
+    checkpoint's, the run trains on from it to 60 in spans of 20, the
+    loss history is the checkpoint's up to there, and the final
+    checkpoint is at least as good."""
+    import contextlib
+    import io
+    import tempfile
+
+    from pytorch_geometric_tpu_torch.examples import mygcn
+    from pytorch_geometric_tpu_torch.research.checkpoint import (
+        CheckpointManager)
+
+    problems = []
+    with tempfile.TemporaryDirectory() as tmp:
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            t0 = time.perf_counter()
+            mygcn.run(epochs=MYGCN_EPOCHS[0], ckpt_dir=tmp, device=DEVICE)
+            first_s = time.perf_counter() - t0
+            saved = CheckpointManager(tmp).load("mygcn-Cora")
+            t0 = time.perf_counter()
+            acc = mygcn.run(epochs=MYGCN_EPOCHS[1], resume=True,
+                            ckpt_dir=tmp, device=DEVICE)
+            resume_s = time.perf_counter() - t0
+        final = CheckpointManager(tmp).load("mygcn-Cora")
+    lines = printed.getvalue().splitlines()
+    resumed = [ln for ln in lines if ln.startswith("=> resumed")]
+    want = f"=> resumed from epoch {saved['epoch']} "
+    if len(resumed) != 1 or not resumed[0].startswith(want):
+        problems.append(f"resume line {resumed}, expected {want!r}")
+    spans = [ln[:9] for ln in lines[lines.index(resumed[0]) + 1:]] \
+        if resumed else []
+    expected_spans = [f"Epoch {e:03d}" for e in
+                      range(saved["epoch"] + 20, MYGCN_EPOCHS[1] + 1, 20)]
+    if spans != expected_spans:
+        problems.append(f"after resuming {spans}, expected {expected_spans}")
+    if final["train_convergence"][:saved["epoch"]] != \
+            saved["train_convergence"]:
+        problems.append("the resumed history does not extend the saved one")
+    if final["metric"] < saved["metric"]:
+        problems.append("the final checkpoint is worse than the resumed one")
+    return _finish({"phase": "mygcn", "epochs": list(MYGCN_EPOCHS),
+                    "printed": lines, "restored_epoch": saved["epoch"],
+                    "restored_val_acc": saved["metric"],
+                    "final_epoch": final["epoch"],
+                    "final_val_acc": final["metric"],
+                    "final_test_acc": float(acc["test_acc"]),
+                    "first_run_seconds": first_s,
+                    "resumed_run_seconds": resume_s}, problems)
+
+
 #: Epochs of the captured-against-eager check.
 CHECK_EPOCHS = 5
 
@@ -4351,6 +4856,16 @@ def kernels_line(results):
                                        "kernel_ms", "plain_ms", "library_ms",
                                        "bound_ms", "bound_by", "max_abs_err")
                      + keys} for c in rows]
+        driver = [c for c in results.get("kernel_driver", [])
+                  if c["kernel"] == name]
+        if driver:   # the research driver's widths on Cora
+            line[-1]["driver"] = [
+                {k: c.get(k) for k in ("direction", "F", "H", "C", "rate",
+                                       "rows", "edges", "kernel_ms",
+                                       "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by",
+                                       "max_abs_err") if k in c}
+                for c in driver]
         closure = [c for c in results["kernel_closure"]
                    if c["kernel"] == name]
         if closure:   # the closure layers' and a sampled Reddit batch's
@@ -4402,6 +4917,8 @@ def main(argv=None):
                   torch.Generator(device=DEVICE).manual_seed(SEED))),
               ("kernel_closure", lambda: phase_kernel_closure(
                   torch.Generator(device=DEVICE).manual_seed(SEED))),
+              ("kernel_driver", lambda: phase_kernel_driver(
+                  torch.Generator(device=DEVICE).manual_seed(SEED))),
               ("probe", phase_probe),
               ("slice", phase_slice), ("slice_gat", phase_slice_gat),
               ("slice_gat_dense",
@@ -4436,6 +4953,12 @@ def main(argv=None):
         phases.append((f"slice_{name}",
                        functools.partial(phase_slice_point, name)))
     phases.append(("slice_reddit_sage", phase_slice_reddit_sage))
+    phases += [("slice_driver", phase_slice_driver),
+               ("slice_driver_gat",
+                lambda: phase_slice_driver("GAT", "slice_driver_gat")),
+               ("slice_driver_inductive", phase_slice_driver_inductive),
+               ("zoo_prunable", phase_zoo_prunable),
+               ("fiedler", phase_fiedler), ("mygcn", phase_mygcn)]
     phases += [("zoo", phase_zoo), ("capture_check", phase_capture_check)]
     for config in CONFIGS:
         phases.append(("trace" if config == "gcn" else f"trace_{config}",

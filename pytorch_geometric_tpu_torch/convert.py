@@ -45,6 +45,12 @@ arrays ``conv1.weight``, in the same layouts:
   layers are flax's ``Dense_0`` .. ``Dense_5`` of the ``Net`` itself,
   the head ``Dense_6`` / ``Dense_7``, and the port's ``Net`` keeps those
   names.
+- the prunable zoo (``models/prunable.py``): the modules carry flax's
+  names, ``layers_{i}``, ``out``, ``prop_{i}`` (AGNN), ``pool_{i}`` /
+  ``proj_{i}`` / ``lin1`` (TopK), each conv with the parameters listed
+  above and each ``Dense`` with ``kernel`` (in, out), so the JAX model's
+  variables load unchanged whatever the widths, more than ten layers
+  included (``layers_10`` is a name like any other).
 
 Only numpy is needed: ``np.asarray`` reads a JAX array without importing
 JAX here.

@@ -238,7 +238,8 @@ def create_gcn_train_step(model: GCN, graph: Graph, weight_decay=5e-4,
     dropout masks (and, on ``"fused"``, the kernel's dropout seed after the
     input's mask). ``eval_fn()`` returns train/val/test accuracy. The step
     waits on nothing and copies nothing from the host, so a CUDA graph can
-    hold it (``models/capture.py``): on a CUDA graph Adam is built with
+    hold it (``models/capture.py``); its Adam is ``epoch_step.optimizer``
+    (to save and restore its state). On a CUDA graph Adam is built with
     ``capturable=True`` (its step count on the device) whether the run is
     captured or not, and the gradients are zeroed in place, never set to
     None, so they stay allocated across replays.
@@ -304,6 +305,7 @@ def create_gcn_train_step(model: GCN, graph: Graph, weight_decay=5e-4,
         model.eval()
         return _accuracies(model(graph, graph.x, **agg), graph)
 
+    epoch_step.optimizer = opt
     return epoch_step, eval_fn
 
 
@@ -344,6 +346,7 @@ def _create_gcn_closure_train_step(model: GCN, graph: Graph,
         model.eval()
         return _accuracies(model(graph, graph.x, **agg), graph)
 
+    epoch_step.optimizer = opt
     return epoch_step, eval_fn
 
 

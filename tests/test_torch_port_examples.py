@@ -15,7 +15,8 @@ autoencoder, infomax: their models in
 ``tests/test_torch_port_graph_examples.py``), each run at a tiny size on
 the CPU, where no kernel is launched; and reddit_sage.py's, whose ``SAGE``
 is held here to the JAX script's on one small sampled batch and two Adam
-steps (fp32 1e-5, the steps 1e-4)."""
+steps (fp32 1e-5, the steps 1e-4). mygcn.py's flags are checked here;
+its run and resume in ``tests/test_torch_port_mygcn.py``."""
 
 import ast
 import itertools
@@ -43,7 +44,7 @@ from pytorch_geometric_tpu_torch.data import Data, InMemoryDataset, from_data
 from pytorch_geometric_tpu_torch.examples import (
     autoencoder, citation_suite, enzymes_diff_pool, enzymes_topk_pool, faust,
     gat, gcn, infomax, mnist_graclus, mnist_nn_conv, mnist_voxel_grid,
-    mutag_gin, pointnet2, ppi, qm9_nn_conv, reddit_sage, rgcn)
+    mutag_gin, mygcn, pointnet2, ppi, qm9_nn_conv, reddit_sage, rgcn)
 from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
 from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
 
@@ -56,7 +57,7 @@ EXAMPLES = {"gcn": gcn, "gat": gat, "rgcn": rgcn,
             "infomax": infomax, "mnist_graclus": mnist_graclus,
             "mnist_voxel_grid": mnist_voxel_grid,
             "mnist_nn_conv": mnist_nn_conv, "pointnet2": pointnet2,
-            "reddit_sage": reddit_sage}
+            "reddit_sage": reddit_sage, "mygcn": mygcn}
 
 
 def _tree(path):

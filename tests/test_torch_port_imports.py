@@ -37,7 +37,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "optax", "pytorch_geometric_tpu",
-              "networkx", "sklearn"))
+              "networkx", "sklearn", "matplotlib"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -65,9 +65,12 @@ def _tiny_relational_graph():
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     """Every module of the port, imported in a fresh process, loads no
-    JAX, nothing of the JAX package, no networkx and no sklearn (which
-    the card's machine does not have: ``utils/networkx_convert.py``
-    imports networkx inside its functions; the graph autoencoders and the
+    JAX, nothing of the JAX package, no networkx, no sklearn and no
+    matplotlib (which the card's machine does not have:
+    ``utils/networkx_convert.py`` and the research layer's plots import
+    networkx and matplotlib inside their functions, its spectral
+    clustering sklearn; the weight correction keeps its graphs in
+    ``research/spectral.py:WeightGraph``; the graph autoencoders and the
     infomax probe score with the port's own numpy AUC, AP and logistic
     regression)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -109,7 +112,14 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "examples.mnist_graclus", "examples.mnist_voxel_grid",
                  "examples.mnist_nn_conv", "examples.pointnet2",
                  "data.closure", "data.sampler", "data.neighbor_loader",
-                 "ops.embed_spmm", "utils.optim", "examples.reddit_sage"):
+                 "ops.embed_spmm", "utils.optim", "examples.reddit_sage",
+                 "models.prunable", "research", "research.pruning",
+                 "research.spectral", "research.link_prediction",
+                 "research.checkpoint", "research.driver",
+                 "research.fiedler_sgd", "research.admm",
+                 "research.quantization", "research.spectral_cluster",
+                 "research.plotting", "research.visualization",
+                 "examples.mygcn"):
         assert f"pytorch_geometric_tpu_torch.{name}" in report["modules"]
     assert report["bad"] == []
 
@@ -243,6 +253,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         EmbedSpmm([0, 1], [1, 0], 2, 2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         reddit_sage.run(epochs=1)
+    # the research layer: its pipelines, mygcn and the Fiedler power
+    # iteration (the weight graph of one 2 x 2 layer)
+    from pytorch_geometric_tpu_torch.examples import mygcn
+    from pytorch_geometric_tpu_torch.research import driver, spectral
+
+    for run in (driver.training_net, driver.training_net_ppi,
+                lambda: driver.training_net_graphcls("ENZYMES"), mygcn.run):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run()
+    G, _ = spectral.weights_to_adjacency(np.eye(2, dtype=np.float32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        spectral.compute_fiedler_vector(G, use_device=True)
 
 
 def test_cpu_wrapper_computes_plain_and_counts_no_launch():

@@ -56,6 +56,16 @@ EXEMPT = {
         "optax's state tuple; the port's optimizer keeps its state as "
         "torch optimizers do, the count in param_groups[i]['count'] and "
         "the moments in state[p]['mu'] / ['nu']")},
+    "research/fiedler_sgd.py": {"FiedlerSGDState": (
+        "optax's state tuple; fiedler_sgd returns a torch optimizer, "
+        "whose momentum is state[p]['trace']")},
+    "research/driver.py": {
+        "train_part_graphcls_dp": (
+            "the data-parallel phase behind --gpus > 1, which raises: "
+            + _QUEUE_A.format(9)),
+        "training_net_partitioned": (
+            "the edge-partitioned trainer behind --partition, which "
+            "raises: " + _QUEUE_A.format(11))},
 }
 
 #: {method: reason}: methods left out of every class that has them in
