@@ -353,6 +353,35 @@ Phases, one JSON line each:
                best validation accuracy, then --resume to 60 in a
                temporary directory: the restored epoch counter, the
                spans after it, the extended loss history;
+   slice_dp  — data parallelism over a one-rank NCCL group (the calling
+               process): examples/data_parallel.py at its defaults
+               (MUTAG, GraphClassifier hidden 32, 4 graphs a rank, Adam
+               1e-2, 5 epochs), each shard through its operators and
+               DataParallelTrainer's rank-order average; its first three
+               steps bitwise equal to the same steps without the
+               trainer; launches asserted as 235 steps x (4 spmm_csr + 1
+               segment sum), an evaluation batch's 2 + 1; the loss
+               falling; examples/mnist_data_parallel.py at its defaults
+               (16 steps); the driver's data-parallel graph
+               classification (ENZYMES TopK, 2 + 2 epochs);
+   slice_partition — the edge-partitioned trainers over a one-rank NCCL
+               group: examples/distributed_gcn.py at its defaults (30
+               epochs, window 256, dense threshold 128) and the driver's
+               training_net_partitioned on Cora with GCN and GAT (100
+               epochs each): launches asserted from each partition's
+               structure (the dense tables at set-up, the dense window
+               sums, the sparse remainder and the remote edges a call;
+               GAT 2 + 4 a step), the loss falling, the logits against
+               the single-device model on the same weights (1e-2: bf16
+               halo rows and operands; GAT 1e-5), ms a step, peak memory;
+   partition_shards — P = 4 shards of synthetic Cora (dense blocks
+               asserted) and RCM-PubMed in one process: each shard's send
+               buffer, the exchange as the stacked buffers' transpose,
+               the partitioned SpMM's combine, halo_gat (8 x 8) and
+               halo_rgcn (Cora, 3 relations) on the card against one
+               whole-graph spmm_csr, packed GAT and relation-major
+               spmm_csr (2e-2 relative L2; 1e-5), each shard and the
+               whole graph timed in CUDA graphs of 50 calls;
    zoo       — every conv of the zoo (Part B's and the suite's) on Cora
                at 1433 -> 16, one forward and one backward through its
                operators on the card against its plain path on the CPU:
@@ -3566,6 +3595,494 @@ def phase_mygcn():
 
 
 #: Epochs of the captured-against-eager check.
+# --- data parallelism and the edge partition ------------------------------
+
+DP_EPOCHS = 5
+DP_STEP_LAUNCHES = {"spmm_csr": 4, "sorted_segment_sum": 1}
+DP_EVAL_LAUNCHES = {"spmm_csr": 2, "sorted_segment_sum": 1}
+DP_BITWISE_STEPS = 3
+DP_DRIVER_EPOCHS = 2
+#: The partitioned trainers of slice_partition: the window and dense
+#: threshold of each one's GraphPartition.
+PARTITION_RUNS = {"example_gcn": (256, 128), "driver_gcn": (1024, 1024),
+                  "driver_gat": (1024, 1024)}
+PARTITION_EPOCHS = {"example_gcn": 30, "driver_gcn": 100, "driver_gat": 100}
+#: Card-against-card tolerance of the partitioned logits against the
+#: single-device model on the same weights: bf16 halo rows and bf16
+#: operands of the partitioned SpMM (TOL["bf16"]); fp32 for the GAT.
+PARTITION_TOL = {"example_gcn": TOL["bf16"], "driver_gcn": TOL["bf16"],
+                 "driver_gat": TOL["fp32"]}
+SHARDS = 4
+
+
+def _launch_diff(before):
+    from pytorch_geometric_tpu_torch.models.capture import launch_counts
+
+    return {k: v - before[k] for k, v in launch_counts().items()
+            if v != before[k]}
+
+
+def _add(total, counts, times=1):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + times * v
+    return total
+
+
+def dp_bitwise_steps(steps=DP_BITWISE_STEPS):
+    """In a one-rank group on the card: ``steps`` steps of
+    examples/data_parallel.py through ``DataParallelTrainer`` and the same
+    steps as a plain Adam loop (the same model from ``SEED``, the same
+    shards), the losses and parameters of both bitwise equal; and the
+    launches of one trainer step and of one evaluation batch."""
+    from pytorch_geometric_tpu_torch.data import DataListLoader
+    from pytorch_geometric_tpu_torch.datasets import TUDataset
+    from pytorch_geometric_tpu_torch.datasets.graphs import PLANETOID_ROOT
+    from pytorch_geometric_tpu_torch.examples import data_parallel as dp
+    from pytorch_geometric_tpu_torch.models.capture import launch_counts
+    from pytorch_geometric_tpu_torch.models.graph_pred import GraphClassifier
+    from pytorch_geometric_tpu_torch.parallel import (
+        DataParallelTrainer, make_mesh, shard_data_list)
+    from pytorch_geometric_tpu_torch.parallel.data_parallel import (
+        unstack_graph)
+
+    ds = TUDataset(str(PLANETOID_ROOT), "MUTAG")
+    lists = list(itertools.islice(iter(DataListLoader(
+        ds, batch_size=dp.GRAPHS_PER_RANK, shuffle=True, seed=SEED)), steps))
+    max_n, max_e = dp.budgets(ds)
+
+    def model():
+        return GraphClassifier(
+            ds.num_node_features, 32, 2,
+            generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
+
+    a, b = model(), model()
+    trainer = DataParallelTrainer(
+        make_mesh(), dp.batch_loss, lambda ps: torch.optim.Adam(ps, lr=1e-2))
+    opt_a = trainer.init(a)
+    opt_b = torch.optim.Adam(b.parameters(), lr=1e-2)
+    la, lb, step_launches = [], [], None
+    for dl in lists:
+        stacked = shard_data_list(dl, 1, max_n, max_e, dp.GRAPHS_PER_RANK,
+                                  device=DEVICE)
+        before = launch_counts()
+        a, opt_a, loss = trainer.step(a, opt_a, stacked, None)
+        torch.cuda.synchronize()
+        step_launches = step_launches or _launch_diff(before)
+        la.append(loss)
+        graph = unstack_graph(stacked, 0)
+        opt_b.zero_grad(set_to_none=True)
+        loss_b = dp.batch_loss(b, graph)
+        loss_b.backward()
+        opt_b.step()
+        lb.append(loss_b.detach())
+    before = launch_counts()
+    with torch.no_grad():
+        b(graph, **dp.batch_operators(graph))
+    torch.cuda.synchronize()
+    eval_launches = _launch_diff(before)
+    bitwise = all(torch.equal(x, y) for x, y in zip(la, lb)) and all(
+        torch.equal(p, q) for p, q in zip(a.parameters(), b.parameters()))
+    return {"bitwise": bitwise, "losses": [float(x) for x in la],
+            "step_launches": step_launches, "eval_launches": eval_launches}
+
+
+def phase_slice_dp():
+    """Data parallelism on the card over a one-rank NCCL group
+    (``parallel/mesh.py:RankPool(1)``, the calling process):
+    examples/data_parallel.py at its defaults (MUTAG, GraphClassifier
+    hidden 32, 4 graphs a rank, Adam 1e-2, 5 epochs), each shard through
+    its operators (spmm_csr, the segment-sum kernel) and
+    DataParallelTrainer's fixed-order average over NCCL; its first three
+    steps bitwise equal to the same steps without the trainer; the step's
+    and an evaluation batch's launches against DP_STEP_LAUNCHES /
+    DP_EVAL_LAUNCHES; the loss falling. Then examples/
+    mnist_data_parallel.py at its defaults and the driver's
+    training_net_graphcls(data_parallel=True, num_devices=1) on ENZYMES
+    for 2 + 2 epochs, launches asserted (DRIVER_INDUCTIVE_LAUNCHES)."""
+    import tempfile
+
+    from pytorch_geometric_tpu_torch.datasets import (
+        MNISTSuperpixels, TUDataset)
+    from pytorch_geometric_tpu_torch.datasets.graphs import PLANETOID_ROOT
+    from pytorch_geometric_tpu_torch.examples import (
+        data_parallel, mnist_data_parallel)
+    from pytorch_geometric_tpu_torch.parallel.mesh import RankPool
+    from pytorch_geometric_tpu_torch.research import driver
+
+    root = str(PLANETOID_ROOT)
+    problems, launches, expected, statement, runs = [], {}, {}, {}, {}
+    mutag_steps = -(-len(TUDataset(root, "MUTAG"))
+                    // data_parallel.GRAPHS_PER_RANK)
+    mnist_steps = len(MNISTSuperpixels(root, train=True,
+                                       num_synthetic=512)) // 32
+    with RankPool(1, device=DEVICE) as pool:
+        check = pool.run(lambda rank: dp_bitwise_steps())[0]
+        if not check["bitwise"]:
+            problems.append("trainer steps differ from the plain steps")
+        if check["step_launches"] != DP_STEP_LAUNCHES:
+            problems.append(f"step launches {check['step_launches']}, "
+                            f"expected {DP_STEP_LAUNCHES}")
+        if check["eval_launches"] != DP_EVAL_LAUNCHES:
+            problems.append(f"evaluation launches {check['eval_launches']}"
+                            f", expected {DP_EVAL_LAUNCHES}")
+        for name, fn, steps in (
+                ("data_parallel", lambda: pool.run(
+                    data_parallel.train_rank, DP_EPOCHS, SEED, DEVICE,
+                    root)[0], DP_EPOCHS * mutag_steps),
+                ("mnist_data_parallel", lambda: dict(pool.run(
+                    mnist_data_parallel.train_rank, 1, 32, 512, SEED,
+                    DEVICE, root)[0], seconds=0.0), mnist_steps)):
+            mine = {k: steps * v for k, v in DP_STEP_LAUNCHES.items()}
+            t0 = time.perf_counter()
+            out, report, more = _example_run(fn, mine, {
+                k: f"{steps} steps x {DP_STEP_LAUNCHES[k]}" for k in mine})
+            report["seconds"] = time.perf_counter() - t0
+            problems += [f"{name}: {p}" for p in more]
+            _add(launches, report["launches"])
+            _add(expected, mine)
+            statement.update({f"{name}:{k}": v for k, v in
+                              report["launch_statement"].items()})
+            runs[name] = {**report, "steps": steps,
+                          "ms_per_step": report["seconds"] / steps * 1e3}
+            losses = out.get("epoch_losses") or out["step_losses"]
+            if name == "data_parallel":
+                _falling(losses, problems)
+                runs[name]["epoch_losses"] = losses
+            else:
+                runs[name]["mean_loss"] = out["mean_loss"]
+                if not np.isfinite(out["step_losses"]).all():
+                    problems.append("mnist_data_parallel: non-finite loss")
+    e = DP_DRIVER_EPOCHS
+    enz = TUDataset(root, "ENZYMES")
+    n_test = len(enz) // 10
+    n_train, n_eval = -(-(len(enz) - n_test) // 64), -(-n_test // 64)
+    step, ev = DRIVER_INDUCTIVE_LAUNCHES["enzymes"]
+    mine = {k: 2 * e * (n_train * step.get(k, 0) + n_eval * ev.get(k, 0))
+            for k in set(step) | set(ev)}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out, report, more = _example_run(
+            lambda: {"res": driver.training_net_graphcls(
+                "ENZYMES", epochs=e, fine_tune_epochs=e,
+                results_dir=f"{tmp}/R", ckpt_dir=f"{tmp}/c", device=DEVICE,
+                num_devices=1, data_parallel=True), "seconds": 0.0},
+            mine, {k: f"2 phases x {e} epochs x ({n_train} train shards x "
+                      f"{step.get(k, 0)} + {n_eval} test batches x "
+                      f"{ev.get(k, 0)}) = {v}" for k, v in mine.items()})
+    report["seconds"] = time.perf_counter() - t0
+    problems += [f"driver: {p}" for p in more]
+    _add(launches, report["launches"])
+    _add(expected, mine)
+    statement.update({f"driver:{k}": v for k, v in
+                      report["launch_statement"].items()})
+    runs["driver_graphcls_dp"] = {**report, **out["res"][0]}
+    return _finish({"phase": "slice_dp", "group": "nccl, 1 rank",
+                    "bitwise_check": check, "runs": runs,
+                    "launches": launches, "expected_launches": expected,
+                    "launch_statement": statement}, problems)
+
+
+def _partition_counts(part):
+    """(forward launches of one aggregation, set-up launches) of a
+    GraphPartition's rank-0 'gcn' operator: a launch for the sparse
+    remainder and one for the remote edges (spmm_csr), one window sum for
+    the dense blocks (sorted_segment_sum); the dense tables' segment sums
+    (one per weighting that has dense blocks) at construction."""
+    local = part.ops["gcn"].device_consts()[0]["local"]
+    fwd = {"spmm_csr": 1 + ("sparse" in local),
+           "sorted_segment_sum": int("blocks" in local)}
+    setup = sum("blocks" in op.device_consts()[0]["local"]
+                for op in part.ops.values())
+    return fwd, {"sorted_segment_sum": setup}
+
+
+def _single_device_logits(what, graph, state_dict, num_classes):
+    """The trained weights in the single-device model on the whole graph
+    (its operators), eval mode."""
+    from pytorch_geometric_tpu_torch.models.citation import (
+        GAT, GCN, gat_flash_op, gcn_spmm_operator)
+
+    F = graph.num_node_features
+    if what == "driver_gat":
+        model = GAT(F, num_classes).to(DEVICE)
+        kwargs = {"flash_op": gat_flash_op(graph, "packed")}
+    else:
+        model = GCN(F, 16, num_classes).to(DEVICE)
+        op, w = gcn_spmm_operator(graph)
+        kwargs = {"aggregate_fn": op.bind(w)}
+    model.load_state_dict(state_dict)
+    model.eval()
+    with torch.no_grad():
+        return model(graph, graph.x, **kwargs)
+
+
+def phase_slice_partition():
+    """The edge-partitioned trainers on the card over a one-rank NCCL
+    group: examples/distributed_gcn.py at its defaults (synthetic Cora,
+    GraphPartition window 256 / dense threshold 128, DistGCN hidden 16,
+    30 epochs), then research/driver.py's training_net_partitioned on
+    Cora with GCN (hidden 16) and GAT (8 heads x 8), 100 epochs each.
+    Launches asserted per step, evaluation and set-up from each
+    partition's structure (_partition_counts: its dense tables at
+    set-up, the GAT's too; GAT: 2 packed-GAT forward and 4 backward
+    launches a step); the loss falling; the trained
+    logits against the single-device model on the same weights (bf16
+    tolerance for the partitioned SpMM, fp32 for the GAT); seconds, ms a
+    step and peak memory."""
+    from pytorch_geometric_tpu_torch.examples import distributed_gcn
+    from pytorch_geometric_tpu_torch.parallel.api import GraphPartition
+    from pytorch_geometric_tpu_torch.research import driver
+
+    problems, launches, expected, statement, runs = [], {}, {}, {}, {}
+    graphs = {"example_gcn": distributed_gcn.load(SEED)}
+    ds, graphs["driver"] = driver.load_citation_dataset("Cora",
+                                                        device="cpu")
+    for what, (window, threshold) in PARTITION_RUNS.items():
+        graph = graphs["example_gcn" if what == "example_gcn" else "driver"]
+        e = PARTITION_EPOCHS[what]
+        s, r = distributed_gcn.partition_edges(graph)
+        part = GraphPartition(s, r, graph.num_nodes, 1, window=window,
+                              dense_threshold=threshold, device=DEVICE)
+        fwd, setup = _partition_counts(part)
+        if what == "driver_gat":
+            per_step = {"packed_gat_fwd": 2, "packed_gat_bwd": 4}
+            per_eval = {"packed_gat_fwd": 2}
+        else:
+            per_step = {k: 4 * v for k, v in fwd.items()}
+            per_eval = {k: 2 * v for k, v in fwd.items()}
+        mine = {k: e * per_step.get(k, 0) + per_eval.get(k, 0)
+                + setup.get(k, 0) for k in set(per_step) | set(setup)}
+        mine = {k: v for k, v in mine.items() if v}
+        if what == "example_gcn":
+            run = functools.partial(distributed_gcn.run, epochs=e,
+                                    world_size=1, device=DEVICE)
+        else:
+            run = functools.partial(
+                driver.training_net_partitioned, "Cora",
+                what.split("_")[1].upper(), 1, epochs=e, device=DEVICE)
+        out, report, more = _example_run(run, mine, {
+            k: f"{e} steps x {per_step.get(k, 0)} + evaluation "
+               f"{per_eval.get(k, 0)} + set-up {setup.get(k, 0)} = {v}"
+            for k, v in mine.items()})
+        problems += [f"{what}: {p}" for p in more]
+        losses = out["losses"] if what == "example_gcn" else \
+            [out["loss_first"], out["loss_last"]]
+        _falling(losses, problems, f"{what} step")
+        want = _single_device_logits(
+            what, graph.to(DEVICE), out["state_dict"],
+            int(graph.y.max()) + 1 if what == "example_gcn"
+            else ds.num_classes)
+        err = _rel(torch.from_numpy(out["logits"]).to(DEVICE), want)
+        if not err <= PARTITION_TOL[what]:
+            problems.append(f"{what}: logits vs single device rel err {err}")
+        _add(launches, report["launches"])
+        _add(expected, mine)
+        statement.update({f"{what}:{k}": v for k, v in
+                          report["launch_statement"].items()})
+        accs = {k: out[k] for k in ("train", "val", "test", "val_acc",
+                                    "test_acc") if k in out}
+        runs[what] = {**{k: v for k, v in report.items()
+                         if k != "launch_statement"},
+                      "epochs": e, "window": window,
+                      "dense_threshold": threshold,
+                      "ms_per_step": out["seconds"] / e * 1e3,
+                      "losses_first_last": [float(losses[0]),
+                                            float(losses[-1])],
+                      "logits_vs_single_device_rel_err": err,
+                      "tol": PARTITION_TOL[what], **accs}
+    return _finish({"phase": "slice_partition", "group": "nccl, 1 rank",
+                    "runs": runs, "launches": launches,
+                    "expected_launches": expected,
+                    "launch_statement": statement}, problems)
+
+
+def _nograd(fn):
+    def call():
+        with torch.no_grad():
+            return fn()
+    return call
+
+
+def _aug_edges(graph):
+    """The remove-then-add self-loop edge set of a GraphPartition on the
+    host, with its GCN weights and receiver order."""
+    from pytorch_geometric_tpu_torch.examples.distributed_gcn import (
+        partition_edges)
+
+    s, r = partition_edges(graph)
+    loop = np.arange(graph.num_nodes)
+    s, r = np.concatenate([s, loop]), np.concatenate([r, loop])
+    order = np.argsort(r, kind="stable")
+    s, r = s[order], r[order]
+    deg = np.bincount(r, minlength=graph.num_nodes).astype(np.float64)
+    return s, r, (deg[s] ** -0.5 * deg[r] ** -0.5).astype(np.float32)
+
+
+def _shard_exchange(sends):
+    """What the all-to-all delivers to every shard: the (P, P, H, F) stack
+    of the send buffers transposed on its first two axes."""
+    return list(torch.stack(sends).transpose(0, 1))
+
+
+def phase_partition_shards():
+    """A real multi-shard halo on one card, in one process: P = 4
+    GraphPartitions of synthetic Cora (window 256, dense threshold 128;
+    dense blocks asserted) and of RCM-reordered synthetic PubMed (the
+    defaults), every shard's operators on the card. Each shard's
+    send_rows (or halo_send), the exchange as the stacked send buffers'
+    transpose (what all_to_all delivers, tests/test_torch_port_partition.py
+    holds the two equal), then combine (the partitioned GCN SpMM),
+    halo_gat_combine (8 heads x 8) and, on Cora with 3 relations,
+    halo_rgcn_combine; the unsharded results against one whole-graph
+    spmm_csr, packed GAT and relation-major spmm_csr on the card
+    (relative L2 2e-2 for the bf16 SpMM, 1e-5 for the fp32 ones); each
+    shard's call and the whole-graph one timed in CUDA graphs of 50
+    calls (a record of what the partition costs on one card)."""
+    from pytorch_geometric_tpu_torch.datasets.synthetic import (
+        synthetic_citation_graph)
+    from pytorch_geometric_tpu_torch.data import from_data
+    from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
+    from pytorch_geometric_tpu_torch.ops.spmm import (
+        SpmmOperator, pack_bipartite_tables, spmm_bi_static)
+    from pytorch_geometric_tpu_torch.parallel.api import GraphPartition
+    from pytorch_geometric_tpu_torch.parallel.partition import (
+        halo_gat_combine, halo_rgcn_combine, halo_send)
+    from pytorch_geometric_tpu_torch.transforms import NormalizeFeatures
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    P, H, C, F, R = SHARDS, 8, 8, 16, 3
+    _, pubmed, _ = pubmed_graph(device="cpu")
+    cora = from_data(NormalizeFeatures()(synthetic_citation_graph(
+        "cora", seed=SEED)), device="cpu")
+    problems, cases = [], []
+    for name, graph, kw in (("cora", cora, dict(window=256,
+                                                 dense_threshold=128)),
+                            ("pubmed_rcm", pubmed, {})):
+        from pytorch_geometric_tpu_torch.examples.distributed_gcn import (
+            partition_edges)
+
+        N = graph.num_nodes
+        s, r = partition_edges(graph)
+        et = np.random.default_rng(SEED).integers(0, R, len(s)) \
+            if name == "cora" else None
+        t0 = time.perf_counter()
+        part = GraphPartition(s, r, N, P, device=DEVICE, edge_type=et,
+                              num_relations=R if et is not None else 0,
+                              **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        consts = part.stacked_consts()
+        op = part.ops["gcn"]
+        if name == "cora" and op.num_dense_blocks == 0:
+            problems.append("cora: no dense block at window 256 / 128")
+        sa, ra, wa = _aug_edges(graph)
+        base = {"graph": name, "shards": P, "nodes": N,
+                "nodes_per_shard": part.shards.nodes_per_shard,
+                "halo_size": part.shards.halo_size,
+                "dense_blocks": op.num_dense_blocks,
+                "build_seconds": build_s,
+                "comm": part.comm_stats(F)}
+
+        def record(kernel, what, got, want, tol, metric, shard_fns,
+                   whole_fn):
+            err = float(torch.linalg.vector_norm(got - want)
+                        / torch.linalg.vector_norm(want)) \
+                if metric == "rel_l2" else _rel(got, want)
+            shard_ms = [device_ms(_nograd(fn)) for fn in shard_fns]
+            case = {"phase": "partition_shards", "kernel": kernel,
+                    "operator": what, **base, "err": err, "metric": metric,
+                    "tol": tol, "shard_ms": shard_ms,
+                    "shards_ms_sum": float(sum(shard_ms)),
+                    "whole_graph_ms": device_ms(_nograd(whole_fn))}
+            emit(case)
+            cases.append(case)
+            if not err <= tol:
+                problems.append(f"{name} {what}: err {err} > {tol}")
+
+        # the partitioned GCN SpMM (bf16 halo rows)
+        x = torch.randn(N, F, generator=gen, device=DEVICE)
+        x_sh = part.shard_nodes(x)
+        with torch.no_grad():
+            sends = [op.send_rows(consts[p]["gcn"], x_sh[p])
+                     for p in range(P)]
+            recv = _shard_exchange(sends)
+            got = part.unshard_nodes(torch.stack([
+                op.combine(consts[p]["gcn"], x_sh[p], recv[p])
+                for p in range(P)]).cpu())
+        whole = SpmmOperator(sa, ra, N, device=DEVICE).bind(wa)
+        with torch.no_grad():
+            want = whole(x)
+        record("spmm_csr", "partitioned_spmm", torch.from_numpy(got),
+               want.cpu(), 2e-2, "rel_l2",
+               [functools.partial(op.combine, consts[p]["gcn"], x_sh[p],
+                                  recv[p]) for p in range(P)],
+               lambda: whole(x))
+
+        # halo_gat: [a_src | h] rows cross in fp32
+        h = torch.randn(N, H * C, generator=gen, device=DEVICE)
+        a_s = torch.randn(N, H, generator=gen, device=DEVICE)
+        a_d = torch.randn(N, H, generator=gen, device=DEVICE)
+        h_sh, as_sh, ad_sh = (part.shard_nodes(t) for t in (h, a_s, a_d))
+        m = a_s.amax(dim=0)
+        tables = [consts[p]["tables"] for p in range(P)]
+        HS = part.shards.halo_size
+        sends = [halo_send(torch.cat([as_sh[p], h_sh[p]], 1), tables[p], HS,
+                           P) for p in range(P)]
+        recv = _shard_exchange(sends)
+
+        def gat_shard(p):
+            return halo_gat_combine(h_sh[p], as_sh[p], ad_sh[p], recv[p], m,
+                                    consts[p]["gat_op"], H)
+
+        with torch.no_grad():
+            got = part.unshard_nodes(torch.stack(
+                [gat_shard(p) for p in range(P)]).cpu())
+        whole_gat = PackedFlashGat(senders=sa, receivers=ra, num_nodes=N,
+                                   device=DEVICE)
+        with torch.no_grad():
+            want = whole_gat(a_d, a_s, h, 0)
+        record("packed_gat_fwd", "halo_gat", torch.from_numpy(got),
+               want.cpu(), TOL["fp32"], "max_rel",
+               [functools.partial(gat_shard, p) for p in range(P)],
+               lambda: whole_gat(a_d, a_s, h, 0))
+
+        if et is None:
+            continue
+        # halo_rgcn: one relation-major spmm_csr a shard
+        basis = torch.randn(2, F, C, generator=gen, device=DEVICE)
+        comb = torch.randn(R, 2, generator=gen, device=DEVICE)
+        root = torch.randn(F, C, generator=gen, device=DEVICE)
+        sends = [halo_send(x_sh[p], tables[p], HS, P) for p in range(P)]
+        recv = _shard_exchange(sends)
+
+        def rgcn_shard(p):
+            return halo_rgcn_combine(x_sh[p], recv[p], basis, comb,
+                                     consts[p]["rgcn_op"], root)
+
+        with torch.no_grad():
+            got = part.unshard_nodes(torch.stack(
+                [rgcn_shard(p) for p in range(P)]).cpu())
+        fused = r * R + et
+        cnt = np.bincount(fused, minlength=N * R)
+        w_rel = (1.0 / cnt[fused]).astype(np.float32)
+        geom, wconsts = pack_bipartite_tables(
+            s, et * N + r, N, R * N, w_rel, compute_dtype=torch.float32,
+            directions=("fwd",), device=DEVICE)
+
+        def rgcn_whole():
+            aggs = spmm_bi_static(geom, wconsts, x).reshape(R, N, F)
+            W = torch.einsum("rb,bfc->rfc", comb, basis)
+            return torch.einsum("rnf,rfc->nc", aggs, W) + x @ root
+
+        with torch.no_grad():
+            want = rgcn_whole()
+        record("spmm_csr", "halo_rgcn", torch.from_numpy(got), want.cpu(),
+               TOL["fp32"], "max_rel",
+               [functools.partial(rgcn_shard, p) for p in range(P)],
+               rgcn_whole)
+    return _finish({"phase": "partition_shards", "cases": cases}, problems)
+
+
 CHECK_EPOCHS = 5
 
 
@@ -4866,6 +5383,15 @@ def kernels_line(results):
                                        "bound_ms", "bound_by",
                                        "max_abs_err") if k in c}
                 for c in driver]
+        shards = [c for c in results.get("partition_shards", {}).get(
+            "cases", []) if c["kernel"] == name]
+        if shards:   # P = 4 shards of a partition on one card
+            line[-1]["partition_shards"] = [
+                {k: c[k] for k in ("operator", "graph", "shards",
+                                   "nodes_per_shard", "halo_size",
+                                   "dense_blocks", "shard_ms",
+                                   "shards_ms_sum", "whole_graph_ms",
+                                   "err", "metric")} for c in shards]
         closure = [c for c in results["kernel_closure"]
                    if c["kernel"] == name]
         if closure:   # the closure layers' and a sampled Reddit batch's
@@ -4958,7 +5484,10 @@ def main(argv=None):
                 lambda: phase_slice_driver("GAT", "slice_driver_gat")),
                ("slice_driver_inductive", phase_slice_driver_inductive),
                ("zoo_prunable", phase_zoo_prunable),
-               ("fiedler", phase_fiedler), ("mygcn", phase_mygcn)]
+               ("fiedler", phase_fiedler), ("mygcn", phase_mygcn),
+               ("slice_dp", phase_slice_dp),
+               ("slice_partition", phase_slice_partition),
+               ("partition_shards", phase_partition_shards)]
     phases += [("zoo", phase_zoo), ("capture_check", phase_capture_check)]
     for config in CONFIGS:
         phases.append(("trace" if config == "gcn" else f"trace_{config}",

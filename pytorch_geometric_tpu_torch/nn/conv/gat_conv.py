@@ -32,8 +32,15 @@ Aggregation paths, as in the JAX module (``flash_op`` is taken before
   (:func:`gat_closure_op`), and returns those rows. Without ``flash_op``
   the operator is built for the call, on a CPU tensor only.
 
-The shard path of the JAX module is not ported yet. ``weight`` is (in,
-H*C) and ``att_src`` / ``att_dst`` are (1, H, C), as in the JAX module.
+- the shard path (``shard_ctx=``, parallel/api.py): x is this rank's
+  (S, F) shard, and the softmax crosses the partition through
+  ``parallel/partition.py:halo_gat`` (one max per head over the ranks,
+  one halo exchange, the packed GAT over the rank's edges and the
+  received rows). The partition appends the self loops. No attention
+  dropout on this path, as in the JAX module.
+
+``weight`` is (in, H*C) and ``att_src`` / ``att_dst`` are (1, H, C), as
+in the JAX module.
 """
 
 from typing import Optional, Tuple
@@ -157,8 +164,11 @@ class GATConv(nn.Module):
 
     def forward(self, graph: Graph, x, *, train: bool = False, adj=None,
                 flash_op=None, closure=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                shard_ctx=None):
         H, C = self.heads, self.out_channels
+        if shard_ctx is not None:
+            return self._shard_call(shard_ctx, x)
         if self.raw_out and (adj is not None or flash_op is None
                              or closure is not None):
             # the raw num‖den only exists on the fused path; the others
@@ -220,6 +230,19 @@ class GATConv(nn.Module):
             denom = summed[:, H * C:].clamp_min(1e-16)
             out = (summed[:, :H * C].reshape(N, H, C)
                    / denom[..., None]).reshape(N, H * C)
+        return self._finalize(out)
+
+    def _shard_call(self, ctx, x):
+        from pytorch_geometric_tpu_torch.parallel.partition import halo_gat
+
+        H, C = self.heads, self.out_channels
+        h2 = x @ self.weight
+        h = h2.reshape(-1, H, C)
+        alpha_src = (h * self.att_src).sum(-1)                   # (S, H)
+        alpha_dst = (h * self.att_dst).sum(-1)
+        out = halo_gat(h2, alpha_src, alpha_dst, ctx.consts["tables"],
+                       ctx.group, ctx.halo_size, ctx.num_peers, H,
+                       self.negative_slope, op=ctx.consts.get("gat_op"))
         return self._finalize(out)
 
     def _flash_call(self, flash_op, h2, alpha_src, alpha_dst, train,

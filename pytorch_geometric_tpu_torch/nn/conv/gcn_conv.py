@@ -152,9 +152,15 @@ class GCNConv(nn.Module):
 
     def forward(self, graph: Graph, x, edge_weight=None,
                 norm: Optional[EdgeNorm] = None, spmm_op=None,
-                norm_dense=None, aggregate_fn=None, closure=None):
+                norm_dense=None, aggregate_fn=None, closure=None,
+                shard_ctx=None):
         h = x @ self.weight
-        if closure is not None:
+        if shard_ctx is not None:
+            # the edge partition (parallel/api.py): x is this rank's (S, F)
+            # shard; the partition's GCN weighting holds the self loops
+            # and the symmetric normalisation of gcn_norm
+            out = shard_ctx.aggregate("gcn", h)
+        elif closure is not None:
             # weights from full-graph degrees: the result is the full
             # conv's at the closure's output nodes
             w_edge, w_self = norm

@@ -31,7 +31,11 @@ over the layer's real edges (``num_nodes = n_out``), where the JAX
 closure gathers rows of ``W = att @ basis``: the same sums, associated
 otherwise.
 
-The ``shard_ctx`` path of the JAX module is not ported yet. Parameters: ``basis`` (B, F_in, C) (B = R when ``num_bases=0``),
+On an edge partition (``shard_ctx``, parallel/api.py, built with
+``edge_type=`` / ``num_relations=``; dense ``x`` only) the layer is
+``parallel/partition.py:halo_rgcn``: one halo exchange of x, every
+relation's mean in one ``spmm_csr`` over the rank's relation-major CSR,
+the basis combine after. Parameters: ``basis`` (B, F_in, C) (B = R when ``num_bases=0``),
 ``att`` (R, B) (only with bases), ``root`` (F_in, C), ``bias`` (C,).
 """
 
@@ -83,8 +87,29 @@ class RGCNConv(nn.Module):
             if root_weight else None
         self.bias = nn.Parameter(zeros((C,))) if use_bias else None
 
+    def _shard_call(self, ctx, x):
+        """The edge-partition path (``parallel/partition.py:halo_rgcn``);
+        dense ``x`` only."""
+        if x is None:
+            raise ValueError("RGCNConv(shard_ctx=) takes dense x; the "
+                             "embedding mode stays single-device")
+        from pytorch_geometric_tpu_torch.parallel.partition import halo_rgcn
+
+        R = self.num_relations
+        att = self.att if self.att is not None else torch.eye(
+            R, dtype=x.dtype, device=x.device)
+        wl, wr = ctx.consts["rgcn_wl"], ctx.consts["rgcn_wr"]   # (R, E_*)
+        out = halo_rgcn(x, self.basis, att,
+                        [(wl[r], wr[r]) for r in range(R)],
+                        ctx.consts["tables"], ctx.group, ctx.halo_size,
+                        ctx.num_peers, root=self.root,
+                        op=ctx.consts.get("rgcn_op"))
+        return out + self.bias if self.bias is not None else out
+
     def forward(self, graph: Graph, x=None, edge_type=None, norm=None,
-                fused_op=None, closure=None):
+                fused_op=None, closure=None, shard_ctx=None):
+        if shard_ctx is not None:
+            return self._shard_call(shard_ctx, x)
         C, R = self.out_channels, self.num_relations
         basis, att = self.basis, self.att
         B, F_in = basis.shape[0], basis.shape[1]

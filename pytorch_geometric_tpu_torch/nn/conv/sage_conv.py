@@ -11,7 +11,9 @@ the real edges' sender rows into their receivers (examples/reddit_sage.py:
 one ``spmm_csr`` over a sampled batch's real edges); the same operator
 over a column of ones then gives the masked in-degree, so no segment op
 runs beside it. Adding x_i and dividing by deg_i + 1 makes the
-self-inclusive mean. The sharded path (``shard_ctx``) is not ported yet.
+self-inclusive mean. On an edge partition (``shard_ctx``, parallel/
+api.py) the partition's mean weighting carries 1 / (deg + 1) over the
+self-loop-augmented edges, so its one aggregation is that mean.
 """
 
 from typing import Optional
@@ -44,7 +46,12 @@ class SAGEConv(nn.Module):
             else None
 
     def forward(self, graph: Graph, x, spmm_op=None, segment_op=None,
-                aggregate_fn=None):
+                aggregate_fn=None, shard_ctx=None):
+        if shard_ctx is not None:
+            out = shard_ctx.aggregate("mean", x) @ self.weight
+            if self.bias is not None:
+                out = out + self.bias
+            return _l2_normalize(out) if self.normalize else out
         if aggregate_fn is not None:
             s = aggregate_fn(x)
             deg = aggregate_fn(x.new_ones((x.shape[0], 1)))[:, 0]

@@ -19,9 +19,13 @@ power iterations on the device, and edits the model's parameters in
 place, so AdamW keeps its moments across it as optax keeps
 ``opt_state``.
 
-Not ported yet: ``--gpus > 1`` (the data-parallel graph-classification
-phase, ROADMAP.md Queue A item 9) and ``--partition`` (the
-edge-partitioned trainer, item 11); both raise.
+``--gpus N`` runs the graph-classification pipeline data-parallel over
+N ranks (``parallel/mesh.py:spawn``: one process per card, NCCL, or
+gloo ranks with ``device="cpu"``): every rank runs the whole pipeline on
+its shard of each batch list, the gradients averaged in rank order
+(``train_part_graphcls_dp``), so every rank holds the same weights and
+rank 0 writes the files. ``--partition N`` trains a Dist model over an
+N-way edge partition (``training_net_partitioned``).
 """
 
 import argparse
@@ -33,7 +37,9 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from pytorch_geometric_tpu_torch.data import DataLoader, from_data
+from pytorch_geometric_tpu_torch.data import (
+    DataListLoader, DataLoader, from_data)
+from pytorch_geometric_tpu_torch.data.batch import bucket_size
 from pytorch_geometric_tpu_torch.datasets import (
     PPI, Amazon, CoraFull, MNISTSuperpixels, Planetoid, Reddit, TUDataset)
 from pytorch_geometric_tpu_torch.datasets.graphs import PLANETOID_ROOT
@@ -44,6 +50,9 @@ from pytorch_geometric_tpu_torch.models.citation import (
 from pytorch_geometric_tpu_torch.models.graph_pred import graph_xent_loss
 from pytorch_geometric_tpu_torch.models.prunable import choose_model
 from pytorch_geometric_tpu_torch.nn.message_passing import require_cpu
+from pytorch_geometric_tpu_torch.parallel import (
+    DataParallelTrainer, make_mesh, shard_data_list)
+from pytorch_geometric_tpu_torch.parallel.mesh import rank_device, spawn
 from pytorch_geometric_tpu_torch.research import spectral
 from pytorch_geometric_tpu_torch.research.checkpoint import CheckpointManager
 from pytorch_geometric_tpu_torch.research.pruning import (
@@ -54,9 +63,6 @@ from pytorch_geometric_tpu_torch.transforms import (
 
 GRAPH_CLS_DATASETS = ("enzymes", "mutag", "proteins", "dd", "collab",
                       "mnist")
-
-_NOT_YET = "not ported yet: ROADMAP.md Queue A item {}"
-
 
 def load_citation_dataset(name: str, root=PLANETOID_ROOT, device="cuda"):
     """``(dataset, graph on device)`` (reference :458-517, the
@@ -199,6 +205,19 @@ def train_part(model, graph, params, epochs: int, lr: float = 0.01,
                            test_conv, best, corrections)
 
 
+def _accuracy(model, test_loader, test_ops: OperatorCache) -> float:
+    """Accuracy of the argmax over the loader's real graphs (eval mode)."""
+    model.eval()
+    cor = tot = 0
+    with torch.no_grad():
+        for idx, graph in test_loader.indexed():
+            pred = model(graph, **test_ops(idx, graph)).argmax(dim=1)
+            m = graph.graph_mask
+            cor += int(((pred == graph.y.long()) & m).sum())
+            tot += int(m.sum())
+    return cor / max(tot, 1)
+
+
 def train_part_graphcls(model, train_loader, test_loader, params,
                         epochs: int, lr: float = 5e-4, seed: int = 0,
                         ckpt: Optional[CheckpointManager] = None,
@@ -231,21 +250,70 @@ def train_part_graphcls(model, train_loader, test_loader, params,
             opt.step()
             losses.append(loss.detach())
         train_conv.append(float(torch.stack(losses).mean()))
-        model.eval()
-        cor = tot = 0
-        with torch.no_grad():
-            for idx, graph in test_loader.indexed():
-                pred = model(graph, **test_ops(idx, graph)).argmax(dim=1)
-                m = graph.graph_mask
-                cor += int(((pred == graph.y.long()) & m).sum())
-                tot += int(m.sum())
-        acc = cor / max(tot, 1)
+        acc = _accuracy(model, test_loader, test_ops)
         test_conv.append(acc)
         best = max(best, acc)
         if ckpt is not None:
             ckpt.save_best(run_key, acc, model.state_dict(), opt.state_dict(),
                            train_conv, test_conv,
                            epoch=epoch)
+    return TrainPartResult(model.state_dict(), opt.state_dict(), train_conv,
+                           test_conv, best)
+
+
+def train_part_graphcls_dp(model, train_list_loader, test_loader, params,
+                           epochs: int, num_devices: int,
+                           num_nodes: int, num_edges: int,
+                           graphs_per_shard: int, lr: float = 5e-4,
+                           seed: int = 0,
+                           ckpt: Optional[CheckpointManager] = None,
+                           run_key: str = "run",
+                           device="cuda") -> TrainPartResult:
+    """The data-parallel graph-classification phase (the reference runs
+    the pipeline under ``DataParallel(net)``, ConvexPruning.py:530-531,
+    559-560), in one rank of a group of ``num_devices``: each list of the
+    list loader is split round-robin into padded shards
+    (``shard_data_list``, a tail shorter than the rank count skipped),
+    this rank's shard runs through its operators (``model.operators``),
+    and ``DataParallelTrainer`` averages the Adam step's gradients and
+    loss over the ranks in rank order. Dropout draws from a generator
+    seeded with ``seed`` on every rank (the JAX step hands every device
+    one key). Accuracy over the test loader after each epoch."""
+    if params is not None:
+        model.load_state_dict(params)
+    dev = rank_device(device)
+    mesh = make_mesh((num_devices,), ("dp",))
+
+    def loss_fn(m, graph, rng):
+        logits = m(graph, train=True, generator=rng, **m.operators(graph))
+        return graph_xent_loss(logits, graph.y, graph.graph_mask)
+
+    trainer = DataParallelTrainer(
+        mesh, loss_fn, lambda ps: torch.optim.Adam(ps, lr=lr))
+    opt = trainer.init(model)
+    test_ops = OperatorCache(model.operators)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    train_conv, test_conv = [], []
+    best = 0.0
+    for epoch in range(epochs):
+        model.train()
+        losses = []
+        for data_list in train_list_loader:
+            if len(data_list) < num_devices:   # tail smaller than the group
+                continue
+            stacked = shard_data_list(data_list, num_devices, num_nodes,
+                                      num_edges, graphs_per_shard,
+                                      device=dev)
+            model, opt, loss = trainer.step(model, opt, stacked, gen)
+            losses.append(loss)
+        train_conv.append(float(torch.stack(losses).mean()) if losses
+                          else 0.0)
+        acc = _accuracy(model, test_loader, test_ops)
+        test_conv.append(acc)
+        best = max(best, acc)
+        if ckpt is not None:
+            ckpt.save_best(run_key, acc, model.state_dict(), opt.state_dict(),
+                           train_conv, test_conv, epoch=epoch)
     return TrainPartResult(model.state_dict(), opt.state_dict(), train_conv,
                            test_conv, best)
 
@@ -272,24 +340,55 @@ def training_net_graphcls(dataset: str, model_name: str = "TopK",
                           results_dir: str = "Results",
                           ckpt_dir: str = "checkpoint",
                           num_devices: int = 1, device="cuda",
-                          root=PLANETOID_ROOT):
+                          root=PLANETOID_ROOT,
+                          data_parallel: Optional[bool] = None):
     """Graph-classification pipeline (reference TUDataset dispatch at
-    ConvexPruning.py:487 and its MNISTSuperpixels one at :515) on one
-    device. ``num_devices > 1`` raises: data parallel is Queue A item
-    9."""
-    if num_devices > 1:
-        raise NotImplementedError(
-            "training_net_graphcls(num_devices > 1), the driver's --gpus: "
-            + _NOT_YET.format(9))
-    dev = resolve_device(device)
+    ConvexPruning.py:487 and its MNISTSuperpixels one at :515).
+
+    ``num_devices > 1`` (or ``data_parallel=True``, also on one rank) runs
+    both phases data-parallel on ``num_devices`` ranks
+    (``train_part_graphcls_dp``): ``batch_size`` rounded down to a
+    multiple of the rank count, each shard's budget that of its largest
+    graphs. Every rank runs the pipeline; rank 0 saves the files, and its
+    results are returned."""
+    dp = num_devices > 1 if data_parallel is None else data_parallel
+    kwargs = dict(dataset=dataset, model_name=model_name,
+                  num_layers=num_layers, con_coeff=con_coeff, alpha=alpha,
+                  epochs=epochs, fine_tune_epochs=fine_tune_epochs,
+                  batch_size=batch_size, lr=lr, monte_size=monte_size,
+                  seed=seed, results_dir=results_dir, ckpt_dir=ckpt_dir,
+                  num_devices=num_devices, device=device, root=root)
+    if dp:
+        return spawn(_graphcls_rank, num_devices, kwargs, device=device)[0]
+    return _graphcls(None, **kwargs)
+
+
+def _graphcls_rank(rank, kwargs):
+    return _graphcls(rank, **kwargs)
+
+
+def _graphcls(rank, dataset, model_name, num_layers, con_coeff, alpha,
+              epochs, fine_tune_epochs, batch_size, lr, monte_size, seed,
+              results_dir, ckpt_dir, num_devices, device, root):
+    """The pipeline on one device (``rank`` None) or in one rank."""
+    dev = rank_device(device)
     if dataset.lower() == "mnist":
         ds = MNISTSuperpixels(str(root), train=True, transform=Cartesian())
     else:
         ds = TUDataset(str(root), dataset.upper())
     num_classes = ds.num_classes
-    ckpt = CheckpointManager(ckpt_dir)
+    writer = rank in (None, 0)
+    ckpt = CheckpointManager(ckpt_dir) if writer else None
     out_dir = osp.join(results_dir, f"{dataset.upper()}Convergence")
-    os.makedirs(out_dir, exist_ok=True)
+    if writer:
+        os.makedirs(out_dir, exist_ok=True)
+    if rank is not None:
+        batch_size = max(batch_size // num_devices, 1) * num_devices
+        gps = batch_size // num_devices           # graphs per shard
+        sizes_n = sorted((d.num_nodes for d in ds), reverse=True)
+        sizes_e = sorted((d.num_edges for d in ds), reverse=True)
+        shard_nodes = bucket_size(sum(sizes_n[:gps]) + 1)
+        shard_edges = bucket_size(max(sum(sizes_e[:gps]), 1))
     results = []
     for monte in range(monte_size):
         sh = ds.shuffle(seed=seed + monte)
@@ -310,9 +409,22 @@ def training_net_graphcls(dataset: str, model_name: str = "TopK",
         ops = OperatorCache(model.operators)
         run_key = (f"{dataset}-{model_name}{num_layers}-"
                    f"{'_'.join(map(str, widths))}-b{batch_size}-{monte}")
-        phase1 = train_part_graphcls(model, train_loader, test_loader, None,
-                                     epochs, lr=lr, seed=seed, ckpt=ckpt,
-                                     run_key=run_key + "-p1", operators=ops)
+        if rank is not None:
+            list_loader = DataListLoader(train_ds, batch_size=batch_size,
+                                         shuffle=True, seed=seed + monte)
+
+            def fit(mdl, n_epochs, sd, rk):
+                return train_part_graphcls_dp(
+                    mdl, list_loader, test_loader, None, n_epochs,
+                    num_devices, shard_nodes, shard_edges, gps, lr=lr,
+                    seed=sd, ckpt=ckpt, run_key=rk, device=dev)
+        else:
+            def fit(mdl, n_epochs, sd, rk):
+                return train_part_graphcls(
+                    mdl, train_loader, test_loader, None, n_epochs, lr=lr,
+                    seed=sd, ckpt=ckpt, run_key=rk, operators=ops)
+
+        phase1 = fit(model, epochs, seed, run_key + "-p1")
         new_widths = _pruned_widths(phase1.params, con_coeff, num_layers,
                                     widths, 2)
         pruned = choose_model(
@@ -320,13 +432,12 @@ def training_net_graphcls(dataset: str, model_name: str = "TopK",
             in_channels=g0.num_node_features,
             generator=torch.Generator().manual_seed(seed + monte + 1)
         ).to(dev)
-        phase2 = train_part_graphcls(pruned, train_loader, test_loader,
-                                     None, fine_tune_epochs, lr=lr,
-                                     seed=seed + 1, ckpt=ckpt,
-                                     run_key=run_key + "-p2", operators=ops)
+        phase2 = fit(pruned, fine_tune_epochs, seed + 1, run_key + "-p2")
         tag = f"param_{'_'.join(map(str, widths))}_{con_coeff}_b{batch_size}"
-        _save_curves(out_dir, f"{dataset.upper()}-{model_name}{num_layers}",
-                     tag, monte, phase2)
+        if writer:
+            _save_curves(out_dir,
+                         f"{dataset.upper()}-{model_name}{num_layers}", tag,
+                         monte, phase2)
         results.append({"monte": monte, "widths": widths,
                         "new_widths": new_widths,
                         "pretrain_best": phase1.best_acc,
@@ -525,6 +636,94 @@ def training_net(dataset: str = "Cora", model_name: str = "GCN",
     return results
 
 
+#: The models of --partition (:func:`_dist_model`).
+PARTITION_MODELS = ("GCN", "SAGE", "GAT")
+
+
+def _dist_model(model_name, in_channels, num_classes, generator):
+    from pytorch_geometric_tpu_torch.parallel.models import (
+        DistGAT, DistGCN, DistSAGE)
+
+    if model_name == "GCN":
+        return DistGCN(in_channels, 16, num_classes, generator=generator)
+    if model_name == "SAGE":
+        return DistSAGE(in_channels, 16, num_classes, generator=generator)
+    return DistGAT(in_channels, num_classes, generator=generator)
+
+
+def training_net_partitioned(dataset: str = "Cora",
+                             model_name: str = "GCN",
+                             num_devices: int = 1, epochs: int = 100,
+                             lr: float = 0.01, seed: int = 0,
+                             results_dir: str = "Results", device="cuda",
+                             root=PLANETOID_ROOT, state_dict=None):
+    """Edge-partitioned citation training through the distributed nn API
+    (``parallel/api.py:GraphPartition`` and ``parallel/models.py``), the
+    driver's ``--partition``: GCN (hidden 16, dropout 0.5), SAGE (hidden
+    16) or GAT (8 heads of 8), Adam ``lr``, over ``num_devices`` ranks.
+    The dataset is loaded here and handed to the ranks. Returns rank 0's
+    result: the JAX driver's keys, and ``seconds`` and ``ms_per_step`` of
+    the steps, ``logits`` (N, C) after training and the ``state_dict``.
+    ``state_dict`` (e.g. ``convert.params_from_jax`` of the JAX model's)
+    replaces the model's initial weights. ``results_dir`` is the JAX
+    signature's; nothing is written."""
+    if model_name not in PARTITION_MODELS:
+        raise ValueError(
+            f"--partition supports GCN/SAGE/GAT, got {model_name}")
+    resolve_device(device)
+    ds, graph = load_citation_dataset(dataset, root=root, device="cpu")
+    return spawn(_partitioned_rank, num_devices, graph, ds.num_classes,
+                 dataset, model_name, num_devices, epochs, lr, seed, device,
+                 state_dict, device=device)[0]
+
+
+def _partitioned_rank(rank, graph, num_classes, dataset, model_name,
+                      num_devices, epochs, lr, seed, device, state_dict):
+    from pytorch_geometric_tpu_torch.examples.distributed_gcn import (
+        nll_terms, partition_edges)
+    from pytorch_geometric_tpu_torch.parallel.api import GraphPartition
+
+    dev = rank_device(device)
+    s, r = partition_edges(graph)
+    part = GraphPartition(s, r, graph.num_nodes, num_devices, device=dev)
+    model = _dist_model(model_name, graph.num_node_features, num_classes,
+                        torch.Generator().manual_seed(seed))
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    model = part.init_model(model, None)
+    has_rng = model_name == "GCN"          # dropout layers
+    x_sh = part.shard_nodes(graph.x)
+    y_sh = part.shard_nodes(graph.y)
+    m_sh = part.shard_nodes(graph.train_mask.float())
+    opt = torch.optim.Adam(model.parameters(), lr=lr)
+    step = part.make_train_step(model, opt, nll_terms, has_rng=has_rng)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    losses = []
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        model, opt, loss = step(model, opt, x_sh, y_sh, m_sh, gen)
+        losses.append(loss)
+    losses = torch.stack(losses).cpu().tolist()
+    seconds = time.perf_counter() - t0
+    logits = part.unshard_nodes(part.apply_model(model, model, x_sh))
+    pred = np.argmax(logits, axis=1)
+    y = graph.y.numpy()
+
+    def acc(mask):
+        m = mask.numpy().astype(bool)
+        return float((pred[m] == y[m]).mean()) if m.any() else 0.0
+
+    return {"dataset": dataset, "model": model_name,
+            "num_devices": num_devices, "epochs": epochs,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "val_acc": acc(graph.val_mask), "test_acc": acc(graph.test_mask),
+            "seconds": seconds, "ms_per_step": 1e3 * seconds / epochs,
+            "logits": logits,
+            "state_dict": {k: v.cpu() for k, v in model.state_dict().items()}}
+
+
 def main(argv=None):
     """CLI mirroring the reference's flags (ConvexPruning.py:580-611)."""
     p = argparse.ArgumentParser(description="Convex pruning pipeline")
@@ -544,20 +743,22 @@ def main(argv=None):
     p.add_argument("--MonteSize", type=int, default=1)
     p.add_argument("--Batch_size", type=int, default=64)
     p.add_argument("--gpus", type=int, default=1, dest="num_devices",
-                   help="device count for data-parallel training (the "
-                        "reference's --gpus); more than 1 is not ported "
-                        "yet")
+                   help="ranks for data-parallel graph classification (the "
+                        "reference's --gpus): one per card")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--resume", "-r", action="store_true")
     p.add_argument("--savepath", default="Results")
     p.add_argument("--partition", type=int, default=0,
-                   help="edge-partitioned training over this many devices "
-                        "(not ported yet); 0 = off")
+                   help="edge-partitioned training over this many ranks "
+                        "(GraphPartition + DistGCN/DistSAGE/DistGAT); "
+                        "0 = off")
     args = p.parse_args(argv)
     if args.partition:
-        raise NotImplementedError("--partition (the edge-partitioned "
-                                  "trainer): " + _NOT_YET.format(11))
-    if args.dataset.lower() == "ppi":
+        res = [training_net_partitioned(
+            dataset=args.dataset, model_name=args.modelName,
+            num_devices=args.partition, epochs=args.epochs, lr=args.lr,
+            seed=args.seed, results_dir=args.savepath)]
+    elif args.dataset.lower() == "ppi":
         res = training_net_ppi(
             model_name=args.modelName, num_layers=args.num_layers,
             con_coeff=args.ConCoeff, alpha=args.alpha,
@@ -588,7 +789,8 @@ def main(argv=None):
             monte_size=args.MonteSize, seed=args.seed,
             results_dir=args.savepath, resume=args.resume)
     for r in res:
-        print(r)
+        print({k: v for k, v in r.items() if k not in ("logits",
+                                                        "state_dict")})
     return res
 
 

@@ -233,8 +233,16 @@ def test_cli_flags_are_the_jax_drivers():
     assert port == ref and sum(len(opts) for opts in port) == 20
 
 
-def test_the_flags_of_later_items_raise():
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        driver.main(["--partition", "2"])
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+def test_the_flags_of_later_items_raise(monkeypatch):
+    """``--partition`` and ``--gpus`` run now (on two gloo ranks in
+    tests/test_torch_port_dist_models.py and
+    tests/test_torch_port_data_parallel.py); they raise where the JAX
+    driver does, on a model --partition does not take, and where their
+    NCCL ranks have no card."""
+    with pytest.raises(ValueError, match="GCN/SAGE/GAT"):
+        driver.main(["--partition", "2", "--modelName", "RGCN"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         driver.main(["--dataset", "ENZYMES", "--gpus", "2"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        driver.main(["--partition", "2"])

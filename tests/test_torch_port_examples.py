@@ -42,8 +42,9 @@ from pytorch_geometric_tpu.utils.reorder import (
     reorder_graph as j_reorder_graph)
 from pytorch_geometric_tpu_torch.data import Data, InMemoryDataset, from_data
 from pytorch_geometric_tpu_torch.examples import (
-    autoencoder, citation_suite, enzymes_diff_pool, enzymes_topk_pool, faust,
-    gat, gcn, infomax, mnist_graclus, mnist_nn_conv, mnist_voxel_grid,
+    autoencoder, citation_suite, data_parallel, distributed_gcn,
+    enzymes_diff_pool, enzymes_topk_pool, faust, gat, gcn, infomax,
+    mnist_data_parallel, mnist_graclus, mnist_nn_conv, mnist_voxel_grid,
     mutag_gin, mygcn, pointnet2, ppi, qm9_nn_conv, reddit_sage, rgcn)
 from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
 from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
@@ -57,7 +58,13 @@ EXAMPLES = {"gcn": gcn, "gat": gat, "rgcn": rgcn,
             "infomax": infomax, "mnist_graclus": mnist_graclus,
             "mnist_voxel_grid": mnist_voxel_grid,
             "mnist_nn_conv": mnist_nn_conv, "pointnet2": pointnet2,
-            "reddit_sage": reddit_sage, "mygcn": mygcn}
+            "reddit_sage": reddit_sage, "mygcn": mygcn,
+            "data_parallel": data_parallel,
+            "mnist_data_parallel": mnist_data_parallel,
+            "distributed_gcn": distributed_gcn}
+#: Flags a port example has beyond the JAX script's: the JAX script runs
+#: one controller over every device; the port's starts its ranks.
+EXTRA_FLAGS = {"distributed_gcn": {"--world-size", "--device"}}
 
 
 def _tree(path):
@@ -122,6 +129,9 @@ def _same_graph(port, ref, names):
 @pytest.mark.parametrize("name", sorted(EXAMPLES))
 def test_example_flags_and_defaults_match_the_jax_script(name):
     port = _flags(Path(EXAMPLES[name].__file__))
+    extra = EXTRA_FLAGS.get(name, set())
+    assert extra <= set(port)
+    port = {k: v for k, v in port.items() if k not in extra}
     assert port == _flags(REPO / "examples" / f"{name}.py")
     assert port, name
 
@@ -592,3 +602,27 @@ def test_reddit_sage_model_matches_the_jax_script():
     want = params_from_jax(params)
     for name, p in model.state_dict().items():
         _close(p, want[name], 1e-4)
+
+
+@pytest.mark.parametrize("name", ["data_parallel", "mnist_data_parallel",
+                                  "distributed_gcn"])
+def test_parallel_example_run_prints_the_jax_scripts_lines(name, capsys):
+    """The DP and edge-partition examples on one gloo rank (the calling
+    process): the JAX script's lines, finite results."""
+    kwargs = {"data_parallel": dict(epochs=1),
+              "mnist_data_parallel": dict(epochs=1, num_samples=64),
+              "distributed_gcn": dict(epochs=2)}[name]
+    out = EXAMPLES[name].run(world_size=1, device="cpu", **kwargs)
+    lines = capsys.readouterr().out.splitlines()
+    patterns = _printed_lines(REPO / "examples" / f"{name}.py")
+    assert lines and patterns
+    for line in lines:
+        assert any(p.match(line) for p in patterns), line
+    for p in patterns:
+        assert any(p.match(line) for line in lines), p.pattern
+    if name == "mnist_data_parallel":
+        assert np.isfinite(out)
+    elif name == "data_parallel":
+        assert np.isfinite(out["step_losses"]).all()
+    else:
+        assert 0.0 <= out["test"] <= 1.0

@@ -119,7 +119,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "research.fiedler_sgd", "research.admm",
                  "research.quantization", "research.spectral_cluster",
                  "research.plotting", "research.visualization",
-                 "examples.mygcn"):
+                 "examples.mygcn", "parallel", "parallel.mesh",
+                 "parallel.data_parallel", "parallel.partition",
+                 "parallel.fast", "parallel.api", "parallel.models",
+                 "examples.data_parallel", "examples.mnist_data_parallel",
+                 "examples.distributed_gcn"):
         assert f"pytorch_geometric_tpu_torch.{name}" in report["modules"]
     assert report["bad"] == []
 
@@ -265,6 +269,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     G, _ = spectral.weights_to_adjacency(np.eye(2, dtype=np.float32))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         spectral.compute_fiedler_vector(G, use_device=True)
+    # data parallelism and the edge partition: NCCL ranks on the cards
+    from pytorch_geometric_tpu_torch.examples import (
+        data_parallel, distributed_gcn, mnist_data_parallel)
+    from pytorch_geometric_tpu_torch.parallel.mesh import RankPool
+
+    for run in (data_parallel.run, mnist_data_parallel.run,
+                distributed_gcn.run, lambda: RankPool(1),
+                lambda: driver.training_net_partitioned("Cora", "GCN", 2),
+                lambda: driver.training_net_graphcls("MUTAG",
+                                                     num_devices=2)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run()
 
 
 def test_cpu_wrapper_computes_plain_and_counts_no_launch():
