@@ -32,7 +32,8 @@ Phases, one JSON line each:
                  a receiver of 500 senders and a sender of 400 receivers
                  (F = 16), both CSR directions, fp32 x (1e-5) and bf16 x
                  (1e-2); two launches bitwise equal;
-               - the packed-GAT forward (raw num‖den) and backward
+               - the packed-GAT forward (raw num‖den and the shift's m,
+                 each receiver's largest sender s) and backward
                  (dd, ds, dh) at Cora with conv1's (H, C) = (8, 8) and
                  conv2's (1, 7), at PubMed's shapes with (8, 8), and at a
                  graph with a receiver of 500 senders and a sender of 400
@@ -44,7 +45,11 @@ Phases, one JSON line each:
                  edges of the sparse path's edge set, repeated edges
                  kept) and on the val batch of 2 graphs, attention
                  dropout 0 and 0.6, fp32 (1e-5); two launches bitwise
-                 equal;
+                 equal; and the shift's stress case, Cora (8, 8) and
+                 (1, 7) at dropout 0.6 with 5% of the nodes' s lifted by
+                 100-150, where the global shift of the JAX operator
+                 underflows most rows (counted and required) and no row
+                 with an edge may leave its den below 1;
                - the packed-RGCN forward (two launches: the messages,
                  then the receivers' segment sum) and backward (dxB,
                  datt) at the two operators of the MUTAG-RDF slice
@@ -382,6 +387,14 @@ Phases, one JSON line each:
                whole-graph spmm_csr, packed GAT and relation-major
                spmm_csr (2e-2 relative L2; 1e-5), each shard and the
                whole graph timed in CUDA graphs of 50 calls;
+   tool_gat_sweep, tool_rgcn_sweep, tool_profile_epoch, tool_reddit —
+               the tool scripts of pytorch_geometric_tpu_torch/tools/
+               (gat_sweep, rgcn_sweep --epoch, profile_epoch, probe_reddit)
+               in-process at their defaults, one point each (PubMed after
+               RCM, 8 x 8 heads; MUTAG-RDF, 30 bases; the captured RGCN
+               epoch under torch.profiler; 20 M community edges at
+               F = 128): their records (each checks its operator against
+               its plain version before timing) and their launches;
    zoo       — every conv of the zoo (Part B's and the suite's) on Cora
                at 1433 -> 16, one forward and one backward through its
                operators on the card against its plain path on the CPU:
@@ -417,7 +430,7 @@ Phases, one JSON line each:
                port's launches per epoch must equal the eager count.
 
 Then a "kernels" JSON line (each kernel's launches summed over the
-slice phases that ran it, and by phase), and as the last line
+slice and tool phases that ran it, and by phase), and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
 line; so does a machine without CUDA, or a directory without the port.
 ``--phases a,b`` runs card, build and the named phases only, with no
@@ -442,7 +455,8 @@ from pytorch_geometric_tpu_torch.bounds import (
 from pytorch_geometric_tpu_torch.datasets.graphs import (
     bsr_synthetic_masks, cora_graph, flash_synthetic_masks, gat_hub_edges,
     mutag_graph, pubmed_graph, rgcn_hub_operator, spmm_hub_operator)
-from pytorch_geometric_tpu_torch.profiling import device_ms
+from pytorch_geometric_tpu_torch.profiling import (
+    device_ms, profile_steps, trace_summary)
 
 DEVICE = "cuda"
 SEED = 0
@@ -731,20 +745,40 @@ def _max_rel_err(got, want):
     return abs_err, rel_err
 
 
-def check_gat_case(graph_name, op, H, C, rate, gen):
-    """The packed-GAT forward and backward kernels against their plain
-    versions on random node inputs at one (H, C) and dropout rate: one
-    line per kernel. A second launch must repeat the first bit for bit."""
+def gat_stress_s(n, H, gen, frac=0.05):
+    """``s`` (n, H) for the packed GAT's shift stress case: N(0, 1), and a
+    random ``frac`` of the nodes lifted by 100-150, so that every receiver
+    without a lifted sender has all its incoming logits 100-150 below the
+    global max of s, where the JAX operator's one shift a head underflows
+    (an output of 0) and the per-receiver shift must not."""
+    s = torch.randn(n, H, generator=gen, device=DEVICE)
+    lifted = torch.rand(n, generator=gen, device=DEVICE) < frac
+    lift = 100 + 50 * torch.rand(n, H, generator=gen, device=DEVICE)
+    return torch.where(lifted[:, None], s + lift, s)
+
+
+def check_gat_case(graph_name, op, H, C, rate, gen, s=None):
+    """The packed-GAT forward (num‖den and the shift's m) and backward
+    kernels against their plain versions on random node inputs (``s``
+    given for the stress case) at one (H, C) and dropout rate, the plain
+    versions at ``receiver_max``'s m: one line per kernel. A second launch
+    must repeat the first bit for bit. The forward's line also counts the
+    rows with edges whose den the kernel leaves below 1 (none may: each
+    has its largest logit at exp(0)) and those whose den the JAX
+    operator's global shift underflows (``rows_global_shift_underflow``,
+    the plain forward at m = max(s) in every row)."""
     from pytorch_geometric_tpu_torch.ops import packed_gat as pg
 
     n = op.n
-    d, s = (torch.randn(n, H, generator=gen, device=DEVICE)
-            for _ in range(2))
+    d = torch.randn(n, H, generator=gen, device=DEVICE)
+    if s is None:
+        s = torch.randn(n, H, generator=gen, device=DEVICE)
     h = torch.randn(n, H * C, generator=gen, device=DEVICE)
     g = torch.randn(n, H * C + H, generator=gen, device=DEVICE)
-    m = s.amax(0)
+    m = pg.receiver_max(op.fwd, s)
     seed = torch.tensor([GAT_SEED], dtype=torch.int32, device=DEVICE)
-    fwd_args = (op.fwd, d, s, h, m, seed, rate)
+    fwd_args = (op.fwd, d, s, h, seed, rate)
+    fwd_plain_args = (op.fwd, d, s, h, m, seed, rate)
     # the kernel also walks the sender-major CSR; the plain version needs
     # only the receiver-major one
     bwd_args = (op.fwd, op.bwd, op.bwd_eid, d, s, h, m, seed, g, rate)
@@ -753,14 +787,14 @@ def check_gat_case(graph_name, op, H, C, rate, gen):
     cases = []
     for name, kernel, plain, args, plain_args, backward in (
             ("packed_gat_fwd", pg.packed_gat_fwd, pg.packed_gat_fwd_plain,
-             fwd_args, fwd_args, False),
+             fwd_args, fwd_plain_args, False),
             ("packed_gat_bwd", pg.packed_gat_bwd, pg.packed_gat_bwd_plain,
              bwd_args, bwd_plain_args, True)):
         got, again = kernel(*args), kernel(*args)
         want = plain(*plain_args)
         torch.cuda.synchronize()
         if not backward:
-            got, again, want = (got,), (again,), (want,)
+            want = (want, m)
         abs_err, rel_err = _max_rel_err(got, want)
         repeats = all(torch.equal(a, b) for a, b in zip(got, again))
         bound_ms, bound_by = gat_bound(op, H, C, backward)
@@ -776,6 +810,16 @@ def check_gat_case(graph_name, op, H, C, rate, gen):
                 # no single PyTorch call computes a GAT layer
                 "library_ms": None,
                 "bound_ms": bound_ms, "bound_by": bound_by}
+        if not backward:
+            den = got[0][:, H * C:][rows > 0]
+            old = pg.packed_gat_fwd_plain(
+                op.fwd, d, s, h, s.amax(0).expand(n, H).contiguous(), seed,
+                rate)[:, H * C:][rows > 0]
+            case["rows_den_below_1"] = int(
+                (den < 1).any(dim=1).sum())
+            case["rows_global_shift_underflow"] = int(
+                (old < 1e-16).any(dim=1).sum())
+            case["ok"] = case["ok"] and case["rows_den_below_1"] == 0
         emit(case)
         cases.append(case)
     return cases
@@ -1356,6 +1400,15 @@ def phase_kernel():
         for H, C in heads:
             for rate in (0.0, 0.6):
                 cases += check_gat_case(graph_name, op, H, C, rate, gen)
+    # the shift's stress case: most receivers 100-150 below the global max
+    op = gat_flash_op(cora)
+    for H, C in ((8, 8), (1, 7)):
+        stress = check_gat_case("cora_stress", op, H, C, 0.6, gen,
+                                s=gat_stress_s(op.n, H, gen))
+        if stress[0]["rows_global_shift_underflow"] == 0:
+            raise AssertionError("the stress case underflows no row at "
+                                 "the global shift: it tests nothing")
+        cases += stress
     for graph_name, adj, heads, rates, calls in _flash_masks(cora):
         op = FlashGatOperator(adj, device=DEVICE)
         for H, C in heads:
@@ -1646,7 +1699,7 @@ def phase_probe():
     for name, graph in (("cora", cora_graph(DEVICE)[1]),
                         ("pubmed_rcm", pubmed_graph(DEVICE)[1])):
         op = gat_flash_op(graph)
-        gat_cases.append((name, op, ga.inputs(op.n, gen)))
+        gat_cases.append((name, op, ga.inputs(op, gen)))
     ds, mutag = mutag_graph(DEVICE)
     embed_op, transform_op = rgcn_fused_ops(mutag, ds.num_relations)
     rgcn_cases = [(name, op, ra.inputs(op, B, C, gen))
@@ -3334,6 +3387,7 @@ def phase_slice_driver(model_name="GCN", phase="slice_driver"):
                     "phase1_losses": [phase1["train_convergence"][0],
                                       phase1["train_convergence"][-1]],
                     "phase2_losses": [float(curve2[0]), float(curve2[-1])],
+                    "phase2_max_loss": float(np.max(curve2)),
                     "composed_graph": {
                         "layers": [list(w.shape) for _, w in items],
                         "nodes": len(composed),
@@ -4023,7 +4077,6 @@ def phase_partition_shards():
         a_s = torch.randn(N, H, generator=gen, device=DEVICE)
         a_d = torch.randn(N, H, generator=gen, device=DEVICE)
         h_sh, as_sh, ad_sh = (part.shard_nodes(t) for t in (h, a_s, a_d))
-        m = a_s.amax(dim=0)
         tables = [consts[p]["tables"] for p in range(P)]
         HS = part.shards.halo_size
         sends = [halo_send(torch.cat([as_sh[p], h_sh[p]], 1), tables[p], HS,
@@ -4031,7 +4084,7 @@ def phase_partition_shards():
         recv = _shard_exchange(sends)
 
         def gat_shard(p):
-            return halo_gat_combine(h_sh[p], as_sh[p], ad_sh[p], recv[p], m,
+            return halo_gat_combine(h_sh[p], as_sh[p], ad_sh[p], recv[p],
                                     consts[p]["gat_op"], H)
 
         with torch.no_grad():
@@ -4086,6 +4139,51 @@ def phase_partition_shards():
 CHECK_EPOCHS = 5
 
 
+#: The port's tool scripts (pytorch_geometric_tpu_torch/tools/), each run
+#: in-process at its defaults, one point: phase -> (module, argv, the
+#: kernels it must launch).
+TOOL_PHASES = {
+    "tool_gat_sweep": ("gat_sweep", [], ("packed_gat_fwd",
+                                         "packed_gat_bwd")),
+    "tool_rgcn_sweep": ("rgcn_sweep", ["--epoch"], ("packed_rgcn_fwd",
+                                                    "packed_rgcn_bwd")),
+    "tool_profile_epoch": ("profile_epoch", [], ("packed_rgcn_fwd",
+                                                 "packed_rgcn_bwd")),
+    "tool_reddit": ("probe_reddit", [], ("spmm_csr",)),
+}
+
+
+def phase_tool(phase):
+    """One tool script's ``main`` at its defaults (``TOOL_PHASES``): its
+    records (each checks its operator against the plain version before
+    it times anything, and raises on a mismatch), the wrappers' launches
+    over the run (a captured epoch's replays make none: the warm-up and
+    the capture count), which must include each kernel the tool runs."""
+    import contextlib
+    import importlib
+    import io
+
+    from pytorch_geometric_tpu_torch.models.capture import launch_counts
+
+    name, argv, kernels = TOOL_PHASES[phase]
+    tool = importlib.import_module(f"pytorch_geometric_tpu_torch.tools."
+                                   f"{name}")
+    torch.cuda.synchronize()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        records = tool.main(argv)
+    torch.cuda.synchronize()
+    result = {"phase": phase, "tool": name, "argv": argv,
+              "seconds": time.perf_counter() - t0, "records": records,
+              "launches": _launch_diff(before)}
+    emit(result)
+    missing = [k for k in kernels if not result["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"{phase}: no launch of {missing}")
+    return result
+
+
 def phase_capture_check():
     """For each configuration, five epochs captured and five eager from
     the same seeds: the trained logits and every parameter within 1e-6 of
@@ -4113,93 +4211,6 @@ def phase_capture_check():
     if problems:
         raise AssertionError("; ".join(problems))
     return rows
-
-
-#: Cycles of the spin kernel that opens a trace's active window: about
-#: 50 ms at the H100's 1.98 GHz boost clock.
-SPIN_CYCLES = 100_000_000
-#: Substrings of the port's kernel names on the profiler's device events.
-PORT_KERNEL_NAMES = ("spmm_csr", "gat_fwd_", "gat_bwd_", "rgcn_",
-                     "flash_fwd_", "flash_bwd_", "bsr_fwd_", "bsr_bwd_",
-                     "sorted_segment_sum", "segment_sum_chunks",
-                     "fused_gcn")
-
-
-def profile_steps(run, steps):
-    """``torch.profiler`` over ``steps`` calls of ``run`` after five
-    untraced and three traced warm-up calls: the device-side events
-    (kernels, memsets, copies) summed by name, as ``[(us, name, calls)]``
-    largest first, and the host's wall-clock µs of the active window."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    for _ in range(5):
-        run()
-    torch.cuda.synchronize()
-    # The profiler traces the card from its warm-up steps on and records
-    # only the active ones, each window closed by a synchronisation. It
-    # drops the device events that it places before the active window's
-    # start, and it has placed the first 10-90 events of the first epoch
-    # there (a few ms of them): a spin kernel of SPIN_CYCLES opens the
-    # window, and is left out of every count.
-    warm = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=warm, active=steps,
-                                   repeat=1)) as prof:
-        for i in range(warm + steps):
-            if i == warm:
-                torch.cuda._sleep(SPIN_CYCLES)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-            run()
-            if i in (warm - 1, warm + steps - 1):
-                torch.cuda.synchronize()
-            if i == warm + steps - 1:
-                wall_us = (time.perf_counter() - t0) * 1e6
-            prof.step()
-    # device-side events only, not the host ops or annotations that the
-    # profiler also credits with device time
-    per_name = {}
-    for e in prof.events():
-        if (e.device_type == DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)
-                and "spin_kernel" not in e.name):
-            us, n = per_name.get(e.name, (0.0, 0))
-            per_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-    kernels = sorted(((us, name, n) for name, (us, n) in per_name.items()),
-                     reverse=True)
-    return kernels, wall_us
-
-
-def trace_summary(kernels, wall_us, steps, unit="epoch"):
-    """Per ``unit`` of a :func:`profile_steps` window: wall and device busy
-    ms, the device's idle share, device ops, the port's kernel launches
-    (counted from the device events) and µs by group (the port's
-    kernels, the optimizer's multi-tensor kernels, the rest), and the
-    top 16 device ops."""
-    busy_us = sum(k[0] for k in kernels)
-    groups = {"port_kernels": 0.0, "optimizer_multi_tensor": 0.0,
-              "other": 0.0}
-    port_launches = 0
-    for us, name, n in kernels:
-        if any(k in name for k in PORT_KERNEL_NAMES):
-            groups["port_kernels"] += us
-            port_launches += n
-        elif "multi_tensor_apply" in name:
-            groups["optimizer_multi_tensor"] += us
-        else:
-            groups["other"] += us
-    return {f"wall_ms_per_{unit}": wall_us / steps / 1e3,
-            f"device_busy_ms_per_{unit}": busy_us / steps / 1e3,
-            "device_idle_share": (1 - busy_us / wall_us) if kernels
-            else None,
-            f"device_ops_per_{unit}": sum(k[2] for k in kernels) / steps,
-            f"port_launches_per_{unit}": port_launches / steps,
-            f"us_per_{unit}_by_group": {k: v / steps
-                                        for k, v in groups.items()},
-            "top": [{"name": n[:80], f"us_per_{unit}": us / steps,
-                     f"calls_per_{unit}": c / steps}
-                    for us, n, c in kernels[:16]]}, port_launches
 
 
 def phase_trace(config="gcn", capture=False, epochs=20):
@@ -5305,8 +5316,9 @@ def kernels_line(results):
     call exists)."""
     by_path = {}    # kernel -> {main path: its launches in that run}
     for phase, result in results.items():
-        if phase.startswith("slice"):
-            path = phase[len("slice_"):] or "gcn"
+        if phase.startswith(("slice", "tool_")):
+            path = (phase[len("slice_"):] or "gcn"
+                    if phase.startswith("slice") else phase)
             for k, v in result["launches"].items():
                 if v:
                     by_path.setdefault(k, {})[path] = v
@@ -5488,6 +5500,8 @@ def main(argv=None):
                ("slice_dp", phase_slice_dp),
                ("slice_partition", phase_slice_partition),
                ("partition_shards", phase_partition_shards)]
+    phases += [(name, functools.partial(phase_tool, name))
+               for name in TOOL_PHASES]
     phases += [("zoo", phase_zoo), ("capture_check", phase_capture_check)]
     for config in CONFIGS:
         phases.append(("trace" if config == "gcn" else f"trace_{config}",

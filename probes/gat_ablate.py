@@ -165,14 +165,19 @@ def ablate_bwd(lib, op, d, s, h, m, seed, g, rate, mode):
             + ablate_walk(lib, op, d, s, h, m, seed, g, rate, mode, 1))
 
 
-def inputs(n, gen):
-    """Random d, s, h, g at (H, C), m = max of s, and the dropout seed."""
+def inputs(op, gen):
+    """Random d, s, h, g at (H, C) over ``op``'s rows, the shift's m (each
+    receiver's max of s over its senders, as the forward gives it) and
+    the dropout seed."""
+    from pytorch_geometric_tpu_torch.ops.packed_gat import receiver_max
+
+    n = op.n
     d, s = (torch.randn(n, H, generator=gen, device="cuda")
             for _ in range(2))
     h = torch.randn(n, H * C, generator=gen, device="cuda")
     g = torch.randn(n, H * C + H, generator=gen, device="cuda")
     seed = torch.tensor([GAT_SEED], dtype=torch.int32, device="cuda")
-    return d, s, h, s.amax(0), seed, g
+    return d, s, h, receiver_max(op.fwd, s), seed, g
 
 
 def main(argv=None):
@@ -198,7 +203,7 @@ def main(argv=None):
     _, graph, _ = pubmed_graph("cuda")
     op = gat_flash_op(graph)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    d, s, h, m, seed, g = inputs(op.n, gen)
+    d, s, h, m, seed, g = inputs(op, gen)
     rate = args.rate
     got = ablate_bwd(lib, op, d, s, h, m, seed, g, rate, "full")
     want = pg.packed_gat_bwd(op.fwd, op.bwd, op.bwd_eid, d, s, h, m, seed, g,

@@ -104,20 +104,20 @@ def fwd_entry(lib, design):
 
 
 def fwd(fn, op, inputs, rate, out=None):
-    """The raw num‖den of the forward through the C entry point ``fn``
-    (see :func:`fwd_entry`) over the receiver-major CSR, into ``out``
-    (made from torch.empty if None)."""
+    """The raw num‖den and the shift's m of the forward through the C
+    entry point ``fn`` (see :func:`fwd_entry`) over the receiver-major
+    CSR, into ``out``, a pair (made from torch.empty if None)."""
     from pytorch_geometric_tpu_torch.ops.packed_gat import _launch_args
 
-    d, s, h, m, seed = inputs[:5]
+    d, s, h, _, seed = inputs[:5]
     n, H = d.shape
     C = h.shape[1] // H
     if out is None:
-        out = torch.empty((n, H * C + H), dtype=torch.float32,
-                          device=d.device)
+        out = (torch.empty((n, H * C + H), dtype=torch.float32,
+                           device=d.device), torch.empty_like(d))
     rc = fn(op.fwd.row_ptr.data_ptr(), op.fwd.col.data_ptr(), d.data_ptr(),
-            s.data_ptr(), h.data_ptr(), m.data_ptr(), seed.data_ptr(),
-            out.data_ptr(), n, H, C,
+            s.data_ptr(), h.data_ptr(), out[1].data_ptr(), seed.data_ptr(),
+            out[0].data_ptr(), n, H, C,
             *_launch_args(rate, op.slope,
                           torch.cuda.current_stream().cuda_stream))
     if rc != 0:
@@ -126,24 +126,24 @@ def fwd(fn, op, inputs, rate, out=None):
 
 
 def compare_fwd(lib, op, inputs, rate):
-    """Both forward designs against the plain version and the first
-    against the shipped one (relative to the largest reference
-    magnitude), and whether two launches of the shipped design are
-    bitwise equal: ``(errors, bitwise_repeat)``."""
+    """Both forward designs against the plain versions (num‖den and m)
+    and the first against the shipped one (relative to the largest
+    reference magnitude), and whether two launches of the shipped design
+    are bitwise equal: ``(errors, bitwise_repeat)``."""
     from pytorch_geometric_tpu_torch.ops import packed_gat as pg
 
     d, s, h, m, seed = inputs[:5]
-    plain = pg.packed_gat_fwd_plain(op.fwd, d, s, h, m, seed, rate,
-                                    op.slope)
+    plain = (pg.packed_gat_fwd_plain(op.fwd, d, s, h, m, seed, rate,
+                                     op.slope), m)
     got = {design: fwd(fwd_entry(lib, design), op, inputs, rate)
            for design in DESIGNS}
     again = fwd(fwd_entry(lib, "shipped"), op, inputs, rate)
     torch.cuda.synchronize()
-    errors = {f"fwd_{design}_vs_plain": _rel((out,), (plain,))
+    errors = {f"fwd_{design}_vs_plain": _rel(out, plain)
               for design, out in got.items()}
-    errors["fwd_first_vs_shipped"] = _rel((got["first"],),
-                                          (got["shipped"],))
-    return errors, torch.equal(again, got["shipped"])
+    errors["fwd_first_vs_shipped"] = _rel(got["first"], got["shipped"])
+    return errors, all(torch.equal(a, b)
+                       for a, b in zip(again, got["shipped"]))
 
 
 def bwd_walk(fn, op, inputs, rate, walk, outs=None):
@@ -181,15 +181,19 @@ def bwd(fn, op, inputs, rate, outs=None):
             + bwd_walk(fn, op, inputs, rate, 1, outs[1]))
 
 
-def inputs(n, H, C, gen):
-    """Random d, s, h, g at (H, C), m = max of s, and the dropout seed:
-    ``(d, s, h, m, seed, g)``."""
+def inputs(op, H, C, gen):
+    """Random d, s, h, g at (H, C) over ``op``'s rows, the shift's m (each
+    receiver's max of s over its senders, as the forward gives it) and
+    the dropout seed: ``(d, s, h, m, seed, g)``."""
+    from pytorch_geometric_tpu_torch.ops.packed_gat import receiver_max
+
+    n = op.n
     d, s = (torch.randn(n, H, generator=gen, device="cuda")
             for _ in range(2))
     h = torch.randn(n, H * C, generator=gen, device="cuda")
     g = torch.randn(n, H * C + H, generator=gen, device="cuda")
     seed = torch.tensor([GAT_SEED], dtype=torch.int32, device="cuda")
-    return d, s, h, s.amax(0), seed, g
+    return d, s, h, receiver_max(op.fwd, s), seed, g
 
 
 def _rel(got, want):
@@ -203,7 +207,7 @@ def compare(lib, op, H, C, rate, gen):
     largest reference magnitude."""
     from pytorch_geometric_tpu_torch.ops import packed_gat as pg
 
-    args = inputs(op.n, H, C, gen)
+    args = inputs(op, H, C, gen)
     d, s, h, m, seed, g = args
     plain = pg.packed_gat_bwd_plain(op.fwd, d, s, h, m, seed, g, rate,
                                     op.slope)

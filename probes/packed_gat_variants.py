@@ -146,7 +146,7 @@ def probe_variants(built, names, calls, smi):
             for key, fn in fwds.items():
                 out = pd.fwd(fn, op, data, rate)
                 torch.cuda.synchronize()
-                line["fwd_rel_err"][key] = pd._rel((out,), (plain_fwd,))
+                line["fwd_rel_err"][key] = pd._rel(out, (plain_fwd, m))
                 line["fwd_us"][key] = timings(
                     lambda: pd.fwd(fn, op, data, rate, out), calls,
                     runs=3)["warm_us"]
@@ -171,7 +171,7 @@ def probe_phases(lib, regs, smi):
     gen = torch.Generator(device="cuda").manual_seed(pd.SEED)
     for graph, op in pd.ops().items():
         H, C = 8, 8
-        data = pd.inputs(op.n, H, C, gen)
+        data = pd.inputs(op, H, C, gen)
         for walk in (0, 1):
             for _ in range(3):
                 pd.bwd_walk(lib.packed_gat_bwd, op, data, 0.6, walk)

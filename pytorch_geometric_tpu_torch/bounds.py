@@ -26,31 +26,33 @@ def spmm_bound(csr, f, x_bytes):
 
 def gat_bound(op, H, C, backward):
     """One packed-GAT call (both backward walks): the edge set once
-    (row_ptr and col of one CSR), the node inputs once (d, s, h, m, seed;
-    g for the backward), the outputs once (num‖den; dd, ds, dh), fp32.
-    Flops per (edge, head): forward 2C (weighted sum) + 8 (logit, leaky,
-    shift, exp, denominator, dropout scale), backward 4C (the dot <gnum,
-    h> and dh) + 12 (the same logit terms and dz)."""
+    (row_ptr and col of one CSR), the node inputs once (d, s, h, seed;
+    the shift's (N, H) m and g for the backward), the outputs once
+    (num‖den and m; dd, ds, dh), fp32. Flops per (edge, head): forward 2C
+    (weighted sum) + 9 (the max, logit, leaky, shift, exp, denominator,
+    dropout scale), backward 4C (the dot <gnum, h> and dh) + 12 (the same
+    logit terms and dz)."""
     n, E, HC = op.n, op.E, H * C
     nbytes = ((n + 1) * 4 + E * 4
-              + (2 * n * H + n * HC + H + 1) * 4
+              + (2 * n * H + n * HC + 1) * 4
+              + n * H * 4                           # m, out or in
               + n * (HC + H) * 4)                   # out, or g
     if backward:
         nbytes += (2 * n * H + n * HC) * 4          # dd, ds, dh
         flops = E * H * (4 * C + 12)
     else:
-        flops = E * H * (2 * C + 8)
+        flops = E * H * (2 * C + 9)
     return bound_ms(nbytes, flops)
 
 
 def gat_walk_bound(op, H, C, walk):
     """One walk of the packed-GAT backward: its CSR once (walk 1 with its
-    edge ids), d, s, h, m, the seed and g once, its outputs once (walk 0:
-    dd; walk 1: ds and dh), fp32. Flops per (edge, head): walk 0 2C (the
-    dot) + 12, walk 1 4C (the dot and dh) + 12."""
+    edge ids), d, s, h, the (N, H) m, the seed and g once, its outputs
+    once (walk 0: dd; walk 1: ds and dh), fp32. Flops per (edge, head):
+    walk 0 2C (the dot) + 12, walk 1 4C (the dot and dh) + 12."""
     n, E, HC = op.n, op.E, H * C
     nbytes = ((n + 1) * 4 + E * (8 if walk else 4)
-              + (2 * n * H + n * HC + H + 1) * 4 + n * (HC + H) * 4
+              + (3 * n * H + n * HC + 1) * 4 + n * (HC + H) * 4
               + (n * (H + HC) if walk else n * H) * 4)
     return bound_ms(nbytes, E * H * ((4 if walk else 2) * C + 12))
 

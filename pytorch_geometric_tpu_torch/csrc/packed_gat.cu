@@ -11,7 +11,8 @@
 //
 // Function (per head hd, edge e = (src -> dst) with edge id eid):
 //   zpre = s[src] + d[dst];  z = leaky(zpre)
-//   shift = leaky(m + d[dst])           m = max over all rows of s
+//   shift = leaky(m[dst] + d[dst])      m[dst] = max of s over dst's
+//                                       senders (0 for a row without edges)
 //   ex = exp(z - shift);  ks = keep(seed, eid, hd) ? scale : 0
 //   forward:  num[dst] += ex * ks * h[src];  den[dst] += ex
 //   backward (g = d loss / d num|den):
@@ -22,16 +23,26 @@
 // the forward and both backward passes regenerate the same dropout bits
 // from the original edge id, whatever the CSR order.
 //
+// The shift is the receiver's largest incoming logit (leaky is monotone),
+// so every row that has an edge has one exp of 1 and a den of at least 1:
+// no receiver underflows, however far its logits sit below another
+// row's. (The TPU kernel shifts by one max of s a head over all rows, and
+// a receiver whose best logit sits ~87 below it underflows to 0.) The
+// forward finds m in a walk of its own over the row's senders before the
+// walk that sums, and writes it out, (n_rows, H); the backward reads it:
+// walk 0 once a row, walk 1 gathered per edge beside d[dst].
+//
 // What bounds it: bytes, in principle. A call reads the CSR (4 B per edge
 // and row, and 4 B per edge of edge ids on the sender side), s and d
 // (4 B * H per node), h (4 B * H * C per node) and, backward, g (4 B *
-// (H*C + H) per node); it writes 4 B * (H*C + H) per node. It does about
-// 2 flops per edge and channel forward (4 backward), far below the card's
-// rate for so few bytes. At Cora's conv1 shapes (3072 rows, about 13.6k
-// edges, H = 8, C = 8) that is about 2 MB, under a microsecond at 3.35
-// TB/s. In practice a row is a chain of dependent loads (row_ptr -> col
-// -> the neighbour's row -> the store), each step an L2 round trip, and
-// the walk is bound by that chain and by the instructions of each edge.
+// (H*C + H) per node) and m (4 B * H); it writes 4 B * (H*C + H) per node
+// and, forward, m. It does about 2 flops per edge and channel forward (4
+// backward), far below the card's rate for so few bytes. At Cora's conv1
+// shapes (3072 rows, about 13.6k edges, H = 8, C = 8) that is about 2 MB,
+// under a microsecond at 3.35 TB/s. In practice a row is a chain of
+// dependent loads (row_ptr -> col -> the neighbour's row -> the store),
+// each step an L2 round trip, and the walk is bound by that chain and by
+// the instructions of each edge.
 //
 // The first design of the forward and of the backward (gat_fwd_kernel,
 // gat_bwd_heads_kernel): a group of G lanes (G = 4, 8, 16 or 32:
@@ -65,12 +76,15 @@
 //   whole; it forms the dot in its registers, without a shuffle, and the
 //   logit, exp and hash once. In walk 1 the one gathered gnum[dst] row
 //   serves both the dot and dh[src] += gnum ex ks. The row's own terms
-//   are loaded once, before the walk: walk 0 d, the shift, gnum and gden
-//   of the receiver; walk 1 s and h of the sender.
+//   are loaded once, before the walk: walk 0 d, m, gnum and gden of the
+//   receiver; walk 1 s and h of the sender (its edges gather d and m of
+//   their receivers).
 // - The forward's lane gathers the head's slice of h[src] whole, loads
 //   s[src], forms the logit, the expf and the keep hash (edge id = CSR
 //   position) once, and adds w h into its num registers and ex into den;
-//   the row's d and shift are loaded once, before the walk. The entry
+//   the row's d is loaded once, and its m found by the lanes' walk over
+//   the senders' s before the walk that sums (the entry groups' maxima
+//   meet in group 0 and go back to every lane of the head). The entry
 //   groups' num and den meet in the fixed tree below; the lanes of entry
 //   group 0 store the row's num (whole 16-byte stores where the out row
 //   of H C + H floats and the pointers allow) and den. Its lanes come
@@ -92,8 +106,8 @@
 //   a row meet in a fixed tree of shuffles, so two launches are bitwise
 //   equal; rows with no edges are written as 0, so outputs may come from
 //   torch.empty.
-// - m (the shift's per-head maximum) and the dropout seed are read from
-//   device memory, so the caller never waits on the card for them.
+// - The dropout seed is read from device memory, so the caller never
+//   waits on the card for it; m is the forward's own output.
 // - fp32 throughout; expf (not __expf) and no fast-math flags, so the
 //   kernel holds 1e-5 against the plain PyTorch version.
 //
@@ -125,6 +139,7 @@
 // the caller's stream and the function returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -145,7 +160,7 @@ constexpr int kEdgeLoads = 2;
 // kNoShuffle removes the shuffles that merge the entry groups' sums.
 namespace gat_ablate {
 constexpr unsigned kNoIndex = 1u << 0;    // other = r: no load of col[e]
-constexpr unsigned kNoGatherS = 1u << 1;  // the neighbour's s or d: own
+constexpr unsigned kNoGatherS = 1u << 1;  // neighbour's s, or d and m: own
 constexpr unsigned kNoGatherG = 1u << 2;  // gnum, gden: loaded once per row
 constexpr unsigned kNoGatherH = 1u << 3;  // h[send] of the dot: once per row
 constexpr unsigned kNoExp = 1u << 4;      // no expf
@@ -196,13 +211,23 @@ __device__ __forceinline__ float group_sum(float v, unsigned mask) {
   return v;
 }
 
+template <int G>
+__device__ __forceinline__ float group_max(float v, unsigned mask) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) {
+    v = fmaxf(v, __shfl_xor_sync(mask, v, o));
+  }
+  return v;
+}
+
 // Forward: rows of the receiver-major CSR; out is (n_rows, H*C + H),
-// num in the first H*C columns, den in the last H.
+// num in the first H*C columns, den in the last H; m (n_rows, H) the
+// shift's max of s, written here.
 template <int G>
 __global__ void __launch_bounds__(kThreads)
 gat_fwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
                const float* __restrict__ d, const float* __restrict__ s,
-               const float* __restrict__ h, const float* __restrict__ m,
+               const float* __restrict__ h, float* __restrict__ m,
                const int* __restrict__ seed_ptr, float* __restrict__ out,
                int n_rows, int H, int C, uint32_t thresh, float scale,
                float slope) {
@@ -215,9 +240,17 @@ gat_fwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
   const int HC = H * C;
   const uint32_t seed = static_cast<uint32_t>(__ldg(seed_ptr));
   const float dr = __ldg(d + static_cast<size_t>(r) * H + hd);
-  const float shift = leaky(__ldg(m + hd) + dr, slope);
   const int e0 = row_ptr[r];
   const int e1 = row_ptr[r + 1];
+  // the row's shift: the largest s of the head over its senders, the
+  // group's lanes taking the edges in turn; 0 for a row without edges
+  float mx = -INFINITY;
+  for (int e = e0 + lane; e < e1; e += G) {
+    mx = fmaxf(mx, __ldg(s + static_cast<size_t>(__ldg(col + e)) * H + hd));
+  }
+  mx = e1 > e0 ? group_max<G>(mx, group_mask<G>()) : 0.f;
+  if (lane == 0) m[static_cast<size_t>(r) * H + hd] = mx;
+  const float shift = leaky(mx + dr, slope);
   float* o = out + static_cast<size_t>(r) * (HC + H);
   for (int c0 = 0; c0 < C; c0 += G * kVec) {
     float acc[kVec];
@@ -254,7 +287,7 @@ struct FwdArgs {
   const float* d;
   const float* s;
   const float* h;
-  const float* m;
+  float* m;
   const int* seed;
   float* out;
   int n_rows, H, C;
@@ -286,11 +319,31 @@ gat_fwd_rows_kernel(FwdArgs f) {
   const int r0 = row.lane / H;
   const int R = L / H;
   const uint32_t seed = static_cast<uint32_t>(__ldg(f.seed));
-  // the row's own terms: d of the head and the shift
+  // the row's own term: d of the head
   const float dr = __ldg(f.d + rrow * H + hd);
-  const float shift = leaky(__ldg(f.m + hd) + dr, slope);
   const int e_begin = __ldg(f.row_ptr + r);
   const int e_end = __ldg(f.row_ptr + r + 1);
+  // the row's shift: the largest s of the head over its senders, in a walk
+  // of its own (NB senders a lane at once), the entry groups' maxima met
+  // and sent back to every lane of the head; 0 for a row without edges
+  float mx = -INFINITY;
+  for (int e = r0 < R ? e_begin + r0 : e_end; e < e_end; e += R * NB) {
+    int src[NB];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const int eb = e + b * R;
+      src[b] = eb < e_end ? __ldg(f.col + eb) : -1;
+    }
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      if (src[b] >= 0) {
+        mx = fmaxf(mx, __ldg(f.s + static_cast<size_t>(src[b]) * H + hd));
+      }
+    }
+  }
+  mx = e_end > e_begin ? row.max_groups(mx, r0, H, R) : 0.f;
+  if (r0 == 0) f.m[rrow * H + hd] = mx;
+  const float shift = leaky(mx + dr, slope);
   float acc[KC], den = 0.f;
 #pragma unroll
   for (int k = 0; k < KC; ++k) acc[k] = 0.f;
@@ -363,9 +416,10 @@ gat_bwd_heads_kernel(const int* __restrict__ row_ptr,
   const int HC = H * C;
   const size_t ldg = static_cast<size_t>(HC + H);
   const uint32_t seed = static_cast<uint32_t>(__ldg(seed_ptr));
-  const float mh = __ldg(m + hd);
-  // the row's own node term: d of a receiver, s of a sender
+  // the row's own node terms: d (and m) of a receiver, s of a sender
   const float own = __ldg((kSrc ? s : d) + static_cast<size_t>(r) * H + hd);
+  const float m_own =
+      kSrc ? 0.f : __ldg(m + static_cast<size_t>(r) * H + hd);
   const int e0 = row_ptr[r];
   const int e1 = row_ptr[r + 1];
   for (int c0 = 0; c0 < C; c0 += G * kVec) {
@@ -382,6 +436,8 @@ gat_bwd_heads_kernel(const int* __restrict__ row_ptr,
           kSrc ? __ldg(d + static_cast<size_t>(other) * H + hd) : own;
       const float sv =
           kSrc ? own : __ldg(s + static_cast<size_t>(other) * H + hd);
+      const float mh =
+          kSrc ? __ldg(m + static_cast<size_t>(other) * H + hd) : m_own;
       const float zpre = sv + dr;
       const float zl = leaky(zpre, slope) - leaky(mh + dr, slope);
       const float ex = expf(zl);
@@ -465,12 +521,11 @@ gat_bwd_kernel(BwdArgs a, int sink) {
   const int R = L / H;
   const size_t rh = rrow * H + hd;
   const uint32_t seed = static_cast<uint32_t>(__ldg(a.seed));
-  const float mh = __ldg(a.m + hd);
   const bool stores = !(kAblate & kNoStore) || sink != 0;
   // the row's own terms: d (walk 0) or s (walk 1) of the head, walk 0's
   // shift and gden, and the head's channels of gnum (walk 0) or h (1)
   const float own = __ldg((kSrc ? a.s : a.d) + rh);
-  const float shift = leaky(mh + own, slope);
+  const float shift = kSrc ? 0.f : leaky(__ldg(a.m + rh) + own, slope);
   const float gden_own = kSrc ? 0.f : __ldg(a.g + rrow * ldg + HC + hd);
   const float* g_row = a.g + rrow * ldg + hd * C;
   const float* h_row = a.h + rrow * HC + hd * C;
@@ -479,6 +534,7 @@ gat_bwd_kernel(BwdArgs a, int sink) {
   // stand-ins for removed gathers: the row's own values, loaded once
   load_head<KC, V>(kSrc ? g_row : h_row, kGatherRow ? 0 : C, x_own);
   const float t_own = kGatherS ? 0.f : __ldg((kSrc ? a.d : a.s) + rh);
+  const float m_nb_own = kSrc && !kGatherS ? __ldg(a.m + rh) : 0.f;
   const float gden_nb_own =
       kSrc && !kGatherG ? __ldg(a.g + rrow * ldg + HC + hd) : 0.f;
   const int e0 = __ldg(a.row_ptr + r);
@@ -496,7 +552,7 @@ gat_bwd_kernel(BwdArgs a, int sink) {
       nb[b] = ok && kIndex ? __ldg(a.col + eb) : r;
       id[b] = kSrc ? (ok ? __ldg(a.eid + eb) : 0) : eb;
     }
-    float x[NB][KC], tv[NB], gv[NB];
+    float x[NB][KC], tv[NB], mv[NB], gv[NB];
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
       const bool ok = e + b * R < e1;
@@ -512,6 +568,9 @@ gat_bwd_kernel(BwdArgs a, int sink) {
       tv[b] = ok ? (kGatherS ? __ldg((kSrc ? a.d : a.s) + nrow * H + hd)
                              : t_own)
                  : 0.f;
+      // walk 1: the receiver's shift term beside its d
+      mv[b] = kSrc && ok ? (kGatherS ? __ldg(a.m + nrow * H + hd) : m_nb_own)
+                         : 0.f;
       gv[b] = kSrc && ok ? (kGatherG ? __ldg(a.g + nrow * ldg + HC + hd)
                                      : gden_nb_own)
                          : 0.f;
@@ -527,7 +586,7 @@ gat_bwd_kernel(BwdArgs a, int sink) {
       const float dr = kSrc ? tv[b] : own;
       const float zpre = (kSrc ? own : tv[b]) + dr;
       const float zl =
-          leaky(zpre, slope) - (kSrc ? leaky(mh + dr, slope) : shift);
+          leaky(zpre, slope) - (kSrc ? leaky(mv[b] + dr, slope) : shift);
       const float ex = (kAblate & kNoExp) ? zl : expf(zl);
       const float ks = (kAblate & kNoDrop)
                            ? a.scale
@@ -718,7 +777,7 @@ FwdArgs fwd_args(void* row_ptr, void* col, void* d, void* s, void* h,
                  static_cast<const float*>(d),
                  static_cast<const float*>(s),
                  static_cast<const float*>(h),
-                 static_cast<const float*>(m),
+                 static_cast<float*>(m),
                  static_cast<const int*>(seed),
                  static_cast<float*>(out),
                  n_rows,
@@ -742,9 +801,10 @@ int launch_fwd_first(const FwdArgs& f, cudaStream_t stream) {
 
 }  // namespace
 
-// Forward: out (n_rows, H*C + H) = num | den over the receiver-major CSR.
-// gat_fwd_rows_kernel where its lane map takes (H, C), else the first
-// design.
+// Forward: out (n_rows, H*C + H) = num | den over the receiver-major CSR,
+// and m (n_rows, H), each row's max of s over its senders (0 for a row
+// without edges), which the backward takes. gat_fwd_rows_kernel where its
+// lane map takes (H, C), else the first design.
 extern "C" int packed_gat_fwd(void* row_ptr, void* col, void* d, void* s,
                               void* h, void* m, void* seed, void* out,
                               int n_rows, int H, int C, unsigned thresh,
@@ -765,11 +825,11 @@ extern "C" int packed_gat_fwd(void* row_ptr, void* col, void* d, void* s,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Backward over one CSR. src_side = 0: receiver-major CSR, eid unused
-// (may be null), writes dd (n_rows, H) into out_h, dh unused. src_side =
-// 1: sender-major CSR with its edge ids, writes ds (n_rows, H) into out_h
-// and dh (n_rows, H*C). gat_bwd_kernel where its lane map covers the row
-// in one pass, else the first design.
+// Backward over one CSR, m the forward's (n_rows, H). src_side = 0:
+// receiver-major CSR, eid unused (may be null), writes dd (n_rows, H) into
+// out_h, dh unused. src_side = 1: sender-major CSR with its edge ids,
+// writes ds (n_rows, H) into out_h and dh (n_rows, H*C). gat_bwd_kernel
+// where its lane map covers the row in one pass, else the first design.
 extern "C" int packed_gat_bwd(void* row_ptr, void* col, void* eid, void* d,
                               void* s, void* h, void* m, void* g, void* seed,
                               void* out_h, void* dh, int n_rows, int H, int C,

@@ -62,6 +62,17 @@ struct Row {
       if (adds) w += ow;
     }
   }
+  // v maxed over `groups` groups of `stride` lanes (as sum_groups: group
+  // g takes group g + s's value at s = 1, 2, 4, ...), then sent from
+  // group 0 back to every lane, each lane getting lane lane % stride's
+  __device__ __forceinline__ float max_groups(float v, int g, int stride,
+                                              int groups) const {
+    for (int s = 1; s < groups; s <<= 1) {
+      const float o = __shfl_down_sync(mask, v, s * stride, L);
+      if ((g & (2 * s - 1)) == 0 && g + s < groups) v = fmaxf(v, o);
+    }
+    return __shfl_sync(mask, v, lane % stride, L);
+  }
   __device__ __forceinline__ float max_from(float v, int from) const {
     for (int o = L / 2; o >= from; o >>= 1) {
       v = fmaxf(v, __shfl_xor_sync(mask, v, o));

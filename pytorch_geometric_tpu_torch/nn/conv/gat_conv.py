@@ -34,10 +34,10 @@ Aggregation paths, as in the JAX module (``flash_op`` is taken before
 
 - the shard path (``shard_ctx=``, parallel/api.py): x is this rank's
   (S, F) shard, and the softmax crosses the partition through
-  ``parallel/partition.py:halo_gat`` (one max per head over the ranks,
-  one halo exchange, the packed GAT over the rank's edges and the
-  received rows). The partition appends the self loops. No attention
-  dropout on this path, as in the JAX module.
+  ``parallel/partition.py:halo_gat`` (one halo exchange, the packed GAT
+  over the rank's edges and the received rows). The partition appends
+  the self loops. No attention dropout on this path, as in the JAX
+  module.
 
 ``weight`` is (in, H*C) and ``att_src`` / ``att_dst`` are (1, H, C), as
 in the JAX module.

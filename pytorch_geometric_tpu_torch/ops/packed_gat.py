@@ -4,8 +4,17 @@ Counterpart of ``pytorch_geometric_tpu/ops/packed_gat.py``
 (``PackedFlashGat``), with the same call contract and numerics:
 
 - per head, logits ``z = leaky(s[src] + d[dst])``; a per-receiver
-  softmax shift ``leaky(m + d[dst])`` with ``m = max(s)`` over all rows
-  (no segment-max pass; the shift carries no gradient);
+  softmax shift ``leaky(m[dst] + d[dst])``, ``m[dst]`` the largest ``s``
+  of ``dst``'s senders (0 for a row without edges), which is the
+  receiver's largest logit: the forward kernel finds it in a walk of its
+  own over the row and returns it, (N, H), for the backward; the shift
+  carries no gradient. The JAX operator shifts by one ``max(s)`` a head
+  over all rows, so a receiver whose best logit sits ~87 below it
+  underflows there to an output of 0; here no row with an edge does, and
+  the normalized output is the segment softmax's (``nn/conv/
+  gat_conv.py``'s path without an operator). ``raw_out=True`` rescales
+  num‖den to the JAX operator's shift (:func:`global_shift_scale`), so
+  the raw values are the JAX ones, underflow included;
 - attention dropout regenerated from :func:`edge_keep_bits`, a stateless
   hash of (seed, original edge id, head), so the forward and both
   backward passes agree whatever order they walk the edges in;
@@ -87,18 +96,46 @@ def _leaky(z, slope):
     return torch.where(z > 0, z, slope * z)
 
 
+def _csr_rows(csr: Csr, device):
+    """The row of each edge of ``csr``, int64."""
+    counts = (csr.row_ptr[1:] - csr.row_ptr[:-1]).long()
+    return torch.repeat_interleave(
+        torch.arange(csr.num_rows, device=device), counts,
+        output_size=csr.num_edges)    # known size: no device sync
+
+
+def receiver_max(csr: Csr, s):
+    """``m`` (N, H): per row of the receiver-major ``csr`` and head, the
+    largest ``s`` of its senders, 0 for a row without edges; no gradient.
+    Plain PyTorch (``scatter_reduce``): the forward's shift on the CPU and
+    the reference the kernel's ``m`` is held to on the card."""
+    s = s.detach()
+    rows = _csr_rows(csr, s.device)
+    return torch.zeros_like(s).scatter_reduce(
+        0, rows[:, None].expand(-1, s.shape[1]), s[csr.col.long()],
+        "amax", include_self=False)
+
+
+def global_shift_scale(d, s, m, slope: float = 0.2):
+    """(N, H) factors that take num‖den from the per-receiver shift to
+    the JAX operator's, ``leaky(max(s) + d)`` with one max a head over all
+    rows: ``exp(leaky(m + d) - leaky(max(s) + d))``, no gradient. The
+    exponent is at most 0 for a row with edges (its ``m`` is at most
+    ``max(s)``); a row without edges, whose sums are 0, is clamped there
+    too."""
+    d, s, m = d.detach(), s.detach(), m.detach()
+    shift = _leaky(s.amax(dim=0) + d, slope)
+    return torch.exp(torch.clamp(_leaky(m + d, slope) - shift, max=0.0))
+
+
 def _edge_terms(csr: Csr, d, s, m, seed, rate, slope):
     """Per-edge (E, H) terms of the receiver-major CSR (edge id = CSR
     position): receiver and sender ids, the pre-activation logit, the
-    shifted exp and keep * scale (a tensor, or the float scale where
-    nothing is dropped)."""
-    counts = (csr.row_ptr[1:] - csr.row_ptr[:-1]).long()
-    rows = torch.repeat_interleave(
-        torch.arange(csr.num_rows, device=d.device), counts,
-        output_size=csr.num_edges)    # known size: no device sync
-    recv, send = rows, csr.col.long()
+    exp shifted by the receiver's ``leaky(m + d)`` and keep * scale (a
+    tensor, or the float scale where nothing is dropped)."""
+    recv, send = _csr_rows(csr, d.device), csr.col.long()
     zpre = s[send] + d[recv]
-    ex = torch.exp(_leaky(zpre, slope) - _leaky(m + d[recv], slope))
+    ex = torch.exp(_leaky(zpre, slope) - _leaky(m[recv] + d[recv], slope))
     thresh, scale = dropout_threshold(rate), dropout_scale(rate)
     if thresh == 0:
         ks = scale
@@ -113,7 +150,8 @@ def _edge_terms(csr: Csr, d, s, m, seed, rate, slope):
 def packed_gat_fwd_plain(csr: Csr, d, s, h, m, seed, rate: float = 0.0,
                          slope: float = 0.2):
     """The raw ``(N, H*C + H)`` num‖den over the receiver-major ``csr``
-    (edge id = CSR position), in plain PyTorch: the kernel's reference."""
+    (edge id = CSR position) at the shift of ``m`` (N, H)
+    (:func:`receiver_max`), in plain PyTorch: the kernel's reference."""
     n, H = d.shape
     C = h.shape[1] // H
     recv, send, _, ex, ks = _edge_terms(csr, d, s, m, seed, rate, slope)
@@ -144,7 +182,7 @@ def packed_gat_bwd_plain(fwd: Csr, d, s, h, m, seed, g, rate: float = 0.0,
     return dd, ds, dh
 
 
-def _check(csrs, d, s, h, m, seed, g=None):
+def _check(csrs, d, s, h, seed, g=None, m=None):
     n, H = d.shape if d.ndim == 2 else (None, None)
     if n is None or s.shape != (n, H) or h.ndim != 2 or h.shape[0] != n \
             or h.shape[1] % H:
@@ -152,15 +190,16 @@ def _check(csrs, d, s, h, m, seed, g=None):
                          f"{tuple(d.shape)}, {tuple(s.shape)}, "
                          f"{tuple(h.shape)}")
     C = h.shape[1] // H
-    if m.shape != (H,):
-        raise ValueError(f"m must be ({H},), got {tuple(m.shape)}")
+    if m is not None and m.shape != (n, H):
+        raise ValueError(f"m must be ({n}, {H}), one shift a receiver and "
+                         f"head, got {tuple(m.shape)}")
     if seed.shape != (1,) or seed.dtype != torch.int32:
         raise TypeError(f"seed must be one int32, got {seed.dtype} "
                         f"{tuple(seed.shape)}")
     if g is not None and g.shape != (n, H * C + H):
         raise ValueError(f"g must be ({n}, {H * C + H}), got "
                          f"{tuple(g.shape)}")
-    floats = [d, s, h, m] + ([] if g is None else [g])
+    floats = [d, s, h] + [t for t in (m, g) if t is not None]
     for t in floats:
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise TypeError("d, s, h, m and g must be contiguous float32")
@@ -188,19 +227,23 @@ def _launch_args(rate, slope, stream):
             ctypes.c_void_p(stream))
 
 
-def packed_gat_fwd(csr: Csr, d, s, h, m, seed, rate: float = 0.0,
+def packed_gat_fwd(csr: Csr, d, s, h, seed, rate: float = 0.0,
                    slope: float = 0.2):
-    """Raw num‖den ``(N, H*C + H)``: the CUDA kernel on CUDA tensors, the
-    plain version on CPU tensors. ``csr`` is receiver-major and its
-    position is the edge id; ``m`` is ``(H,)``, ``seed`` one int32, both
-    read by the kernel from device memory."""
-    n, H, C, device = _check([csr], d, s, h, m, seed)
+    """``(out, m)``: the raw num‖den ``(N, H*C + H)`` and the shift's
+    ``m`` (N, H) (:func:`receiver_max`), the backward's input. The CUDA
+    kernel on CUDA tensors (it finds ``m`` in its own walk over each
+    row), the plain versions on CPU tensors. ``csr`` is receiver-major and
+    its position is the edge id; ``seed`` is one int32 that the kernel
+    reads from device memory."""
+    n, H, C, device = _check([csr], d, s, h, seed)
     if device.type == "cpu":
-        return packed_gat_fwd_plain(csr, d, s, h, m, seed, rate, slope)
+        m = receiver_max(csr, s)
+        return packed_gat_fwd_plain(csr, d, s, h, m, seed, rate, slope), m
     from pytorch_geometric_tpu_torch.kernels._build import load_library
 
     lib = load_library("packed_gat")
     out = torch.empty((n, H * C + H), dtype=torch.float32, device=device)
+    m = torch.empty((n, H), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.packed_gat_fwd(
@@ -211,7 +254,7 @@ def packed_gat_fwd(csr: Csr, d, s, h, m, seed, rate: float = 0.0,
         raise RuntimeError(f"packed_gat_fwd kernel launch failed: CUDA "
                            f"error {rc}")
     packed_gat_fwd.launches += 1
-    return out
+    return out, m
 
 
 def packed_gat_bwd(fwd: Csr, bwd: Csr, bwd_eid, d, s, h, m, seed, g,
@@ -219,8 +262,8 @@ def packed_gat_bwd(fwd: Csr, bwd: Csr, bwd_eid, d, s, h, m, seed, g,
     """``(dd, ds, dh)``: on CUDA tensors two launches of the backward
     kernel, over the receiver-major ``fwd`` (``dd``) and the sender-major
     ``bwd`` with its int32 edge ids ``bwd_eid`` (``ds``, ``dh``); on CPU
-    tensors the plain version."""
-    n, H, C, device = _check([fwd, bwd], d, s, h, m, seed, g)
+    tensors the plain version. ``m`` is the forward's (N, H)."""
+    n, H, C, device = _check([fwd, bwd], d, s, h, seed, g, m)
     if bwd_eid.dtype != torch.int32 or bwd_eid.shape != (bwd.num_edges,) \
             or not bwd_eid.is_contiguous() or bwd_eid.device != device:
         raise TypeError("bwd_eid must be contiguous int32, one per edge of "
@@ -311,36 +354,40 @@ class PackedFlashGat:
     def __call__(self, d, s, h2d, seed, rate: float = 0.0,
                  raw_out: bool = False):
         """``raw_out=True`` returns the undivided ``(N, H*C + H)``
-        num‖den, for callers that divide (and add a bias) themselves."""
-        acc = _PackedGatRaw.apply(
+        num‖den, for callers that divide (and add a bias) themselves, at
+        the JAX operator's shift (:func:`global_shift_scale`)."""
+        acc, m = _PackedGatRaw.apply(
             d, s, h2d, seed_tensor(self._seeds, seed, d.device), self,
             float(rate))
-        if raw_out:
-            return acc
         n, H = d.shape
         C = h2d.shape[1] // H
+        if raw_out:
+            scale = global_shift_scale(d, s, m, self.slope)
+            return torch.cat([(acc[:, :H * C].reshape(n, H, C)
+                               * scale[:, :, None]).reshape(n, H * C),
+                              acc[:, H * C:] * scale], dim=1)
         num, den = acc[:, :H * C], acc[:, H * C:]
-        # a node whose best incoming logit sits far below the shift has
-        # den (and num) underflowed: its output is ~0, and the gradient
-        # must flow through a finite branch
+        # a row without edges has den 0 (every other row at least 1): its
+        # output is 0, and the gradient must flow through a finite branch
         den = torch.where(den < 1e-16, 1.0, den)
         return (num.reshape(n, H, C) / den[:, :, None]).reshape(n, H * C)
 
 
 class _PackedGatRaw(torch.autograd.Function):
-    """(d, s, h) -> raw num‖den; the backward treats the shift as a
-    constant and gives the seed no gradient."""
+    """(d, s, h) -> (raw num‖den, the shift's ``m``); the backward takes
+    the forward's ``m`` as a constant and gives the seed no gradient."""
 
     @staticmethod
     def forward(ctx, d, s, h, seed, op, rate):
         d, s, h = (t.contiguous() for t in (d, s, h))
-        m = s.detach().amax(dim=0).contiguous()
+        acc, m = packed_gat_fwd(op.fwd, d, s, h, seed, rate, op.slope)
         ctx.save_for_backward(d, s, h, m, seed)
         ctx.op, ctx.rate = op, rate
-        return packed_gat_fwd(op.fwd, d, s, h, m, seed, rate, op.slope)
+        ctx.mark_non_differentiable(m)
+        return acc, m
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _):
         d, s, h, m, seed = ctx.saved_tensors
         op = ctx.op
         dd, ds, dh = packed_gat_bwd(op.fwd, op.bwd, op.bwd_eid, d, s, h, m,

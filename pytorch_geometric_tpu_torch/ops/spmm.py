@@ -188,6 +188,18 @@ class SpmmOperator:
     def _run(self, csr: Csr, val, x):
         return spmm_csr(csr, val, x.to(self.compute_dtype))
 
+    def to(self, device):
+        """This operator, its CSRs and edge lists moved to ``device``: an
+        operator built on the host (``device="cpu"``) uploaded once."""
+        from pytorch_geometric_tpu_torch.device import resolve_device
+
+        dev = resolve_device(device)
+        for name in ("fwd", "bwd", "senders", "receivers"):
+            value = getattr(self, name)
+            if value is not None:
+                setattr(self, name, value.to(dev))
+        return self
+
     def route_weights(self, weights):
         """Static per-edge ``weights`` (a tensor, array or sequence, in edge
         order) as fp32 values in the order of each CSR: ``(val_f, val_b)``

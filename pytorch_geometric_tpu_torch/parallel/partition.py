@@ -38,13 +38,12 @@ import numpy as np
 import torch
 
 from pytorch_geometric_tpu_torch.ops.csr import host_array
-from pytorch_geometric_tpu_torch.ops.packed_gat import (
-    PackedFlashGat, packed_gat_bwd, packed_gat_fwd)
+from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
 from pytorch_geometric_tpu_torch.ops.segment import segment_sum
 from pytorch_geometric_tpu_torch.ops.spmm import (
     pack_bipartite_tables, spmm_bi_static)
 from pytorch_geometric_tpu_torch.parallel.mesh import (
-    all_gather, all_max, all_to_all)
+    all_gather, all_to_all)
 
 
 def _cdiv(a, b):
@@ -463,27 +462,6 @@ def halo_gat_operator(tables, halo_size: int, num_peers: int,
                           device=tables["loc_dst"].device)
 
 
-class _HaloGatRaw(torch.autograd.Function):
-    """(d, s, h) -> the packed GAT's raw num‖den with the shift ``m``
-    given (the max of a_src over every rank); no dropout."""
-
-    @staticmethod
-    def forward(ctx, d, s, h, m, op):
-        d, s, h = (t.contiguous() for t in (d, s, h))
-        seed = torch.zeros(1, dtype=torch.int32, device=d.device)
-        ctx.save_for_backward(d, s, h, m, seed)
-        ctx.op = op
-        return packed_gat_fwd(op.fwd, d, s, h, m, seed, 0.0, op.slope)
-
-    @staticmethod
-    def backward(ctx, g):
-        d, s, h, m, seed = ctx.saved_tensors
-        op = ctx.op
-        dd, ds, dh = packed_gat_bwd(op.fwd, op.bwd, op.bwd_eid, d, s, h, m,
-                                    seed, g.contiguous(), 0.0, op.slope)
-        return dd, ds, dh, None, None
-
-
 def halo_gat(h_local, a_src_local, a_dst_local, tables, group,
              halo_size: int, num_peers: int, heads: int,
              negative_slope: float = 0.2, op=None):
@@ -491,42 +469,36 @@ def halo_gat(h_local, a_src_local, a_dst_local, tables, group,
     per-head features, ``a_src_local`` / ``a_dst_local`` (S, H) half
     logits; returns (S, H*C), the softmax applied.
 
-    The shift of receiver i is leaky(max_j a_src_j + a_dst_i), with the
-    max over every rank: one scalar max per head (``all_max``), no
-    gradient, and it bounds every incoming logit. a_src rides with h in
-    one fp32 exchange of the halo rows. The attention is then one packed
-    GAT over ``op`` (:func:`halo_gat_operator`, built here when None)
-    with dropout 0 (the JAX path applies none); a receiver whose sum
-    underflows returns 0."""
+    a_src rides with h in one fp32 exchange of the halo rows. The
+    attention is then one packed GAT over ``op`` (:func:`halo_gat_operator`,
+    built here when None) with dropout 0 (the JAX path applies none).
+    Every edge a receiver takes, local or remote, is in its rank's square
+    CSR, so the packed GAT's own shift, the largest of the receiver's
+    incoming logits, needs no exchange (the JAX path all-reduces one max
+    of a_src a head over the ranks)."""
     if op is None:
         op = halo_gat_operator(tables, halo_size, num_peers,
                                h_local.shape[0])
     if op.slope != float(negative_slope):
         raise ValueError(f"the operator's slope is {op.slope}, the call's "
                          f"{negative_slope}")
-    m = all_max(a_src_local.amax(dim=0), group)                   # (H,)
     payload = torch.cat([a_src_local, h_local], dim=1)
     recv = all_to_all(halo_send(payload, tables, halo_size, num_peers),
                       group)
-    return halo_gat_combine(h_local, a_src_local, a_dst_local, recv, m,
-                            op, heads)
+    return halo_gat_combine(h_local, a_src_local, a_dst_local, recv, op,
+                            heads)
 
 
-def halo_gat_combine(h_local, a_src_local, a_dst_local, recv, m, op,
+def halo_gat_combine(h_local, a_src_local, a_dst_local, recv, op,
                      heads: int):
     """:func:`halo_gat` after the exchange: ``recv`` (P, H_halo, heads +
-    H*C) the received [a_src | h] rows, ``m`` (heads,) the max of a_src
-    over every rank."""
+    H*C) the received [a_src | h] rows. The received rows receive no
+    edge, so their outputs (0) are dropped."""
     S = h_local.shape[0]
     H = heads
-    C = h_local.shape[1] // H
     flat = recv.reshape(-1, recv.shape[-1])
     s_all = torch.cat([a_src_local, flat[:, :H]])
     h_all = torch.cat([h_local, flat[:, H:]])
     d_all = torch.cat([a_dst_local, a_dst_local.new_zeros(
         (flat.shape[0], H))])
-    acc = _HaloGatRaw.apply(d_all, s_all, h_all,
-                            m.detach().float().contiguous(), op)[:S]
-    num, den = acc[:, :H * C], acc[:, H * C:]
-    den = torch.where(den < 1e-16, 1.0, den)
-    return (num.reshape(S, H, C) / den[:, :, None]).reshape(S, H * C)
+    return op(d_all, s_all, h_all, 0)[:S]

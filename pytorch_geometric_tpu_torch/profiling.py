@@ -14,6 +14,12 @@ K-scanned ``bench_common.time_program`` that the JAX package's probes
 time with: ``calls`` calls captured in one CUDA graph and timed with CUDA
 events, with the 50 MB L2 warm between calls or flushed before each.
 ``chip_smoke.py`` and the probes under ``probes/`` take it from here.
+
+:func:`profile_steps` and :func:`trace_summary` read a ``torch.profiler``
+window over a training step: the device's events by name against the
+host's clock, its busy and idle shares and the port's launches counted
+from the events (``chip_smoke.py``'s ``trace*`` phases and
+``tools/profile_epoch.py``).
 """
 
 import contextlib
@@ -230,3 +236,105 @@ def device_ms(fn, calls: int = 50, flush_l2: bool = False) -> float:
 
     total = _graph_ms(flushed, calls)
     return (total - _graph_ms(lambda: scrub.fill_(1), calls)) / calls
+
+
+#: Cycles of the spin kernel that opens a trace's active window: about
+#: 50 ms at the H100's 1.98 GHz boost clock.
+SPIN_CYCLES = 100_000_000
+#: Substrings of the port's kernel names on the profiler's device events.
+PORT_KERNEL_NAMES = ("spmm_csr", "gat_fwd_", "gat_bwd_", "rgcn_",
+                     "flash_fwd_", "flash_bwd_", "bsr_fwd_", "bsr_bwd_",
+                     "sorted_segment_sum", "segment_sum_chunks",
+                     "fused_gcn")
+
+
+def profile_steps(run, steps, device="cuda"):
+    """``torch.profiler`` over ``steps`` calls of ``run`` after five
+    untraced and three traced warm-up calls: the events summed by name,
+    as ``[(us, name, calls)]`` largest first, and the host's wall-clock
+    µs of the active window. On a card the events are the device's
+    (kernels, memsets, copies); on the CPU (``device="cpu"``) the host
+    operators' self times, so that nested operators count once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    for _ in range(5):
+        run()
+    sync()
+    # The profiler traces the card from its warm-up steps on and records
+    # only the active ones, each window closed by a synchronisation. It
+    # drops the device events that it places before the active window's
+    # start, and it has placed the first 10-90 events of the first epoch
+    # there (a few ms of them): a spin kernel of SPIN_CYCLES opens the
+    # window, and is left out of every count.
+    warm = 3
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities,
+                 schedule=schedule(wait=0, warmup=warm, active=steps,
+                                   repeat=1)) as prof:
+        for i in range(warm + steps):
+            if i == warm:
+                if cuda:
+                    torch.cuda._sleep(SPIN_CYCLES)
+                sync()
+                t0 = time.perf_counter()
+            run()
+            if i in (warm - 1, warm + steps - 1):
+                sync()
+            if i == warm + steps - 1:
+                wall_us = (time.perf_counter() - t0) * 1e6
+            prof.step()
+    per_name = {}
+    if cuda:
+        # device-side events only, not the host ops or annotations that
+        # the profiler also credits with device time
+        for e in prof.events():
+            if (e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)
+                    and "spin_kernel" not in e.name):
+                us, n = per_name.get(e.name, (0.0, 0))
+                per_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    else:
+        for e in prof.key_averages():
+            if e.self_cpu_time_total > 0 \
+                    and not e.key.startswith("ProfilerStep"):
+                per_name[e.key] = (e.self_cpu_time_total, e.count)
+    kernels = sorted(((us, name, n) for name, (us, n) in per_name.items()),
+                     reverse=True)
+    return kernels, wall_us
+
+
+def trace_summary(kernels, wall_us, steps, unit="epoch", top=16,
+                  where="device"):
+    """Per ``unit`` of a :func:`profile_steps` window: wall and busy ms,
+    the idle share, ops, the port's kernel launches (counted from the
+    device events) and µs by group (the port's kernels, the optimizer's
+    multi-tensor kernels, the rest), and the ``top`` ops. ``where``
+    names the busy side in the keys: ``"device"``, or ``"host"`` for a
+    CPU window."""
+    busy_us = sum(k[0] for k in kernels)
+    groups = {"port_kernels": 0.0, "optimizer_multi_tensor": 0.0,
+              "other": 0.0}
+    port_launches = 0
+    for us, name, n in kernels:
+        if any(k in name for k in PORT_KERNEL_NAMES):
+            groups["port_kernels"] += us
+            port_launches += n
+        elif "multi_tensor_apply" in name:
+            groups["optimizer_multi_tensor"] += us
+        else:
+            groups["other"] += us
+    return {f"wall_ms_per_{unit}": wall_us / steps / 1e3,
+            f"{where}_busy_ms_per_{unit}": busy_us / steps / 1e3,
+            f"{where}_idle_share": (1 - busy_us / wall_us) if kernels
+            else None,
+            f"{where}_ops_per_{unit}": sum(k[2] for k in kernels) / steps,
+            f"port_launches_per_{unit}": port_launches / steps,
+            f"us_per_{unit}_by_group": {k: v / steps
+                                        for k, v in groups.items()},
+            "top": [{"name": n[:80], f"us_per_{unit}": us / steps,
+                     f"calls_per_{unit}": c / steps}
+                    for us, n, c in kernels[:top]]}, port_launches

@@ -247,7 +247,8 @@ def test_plain_backward_is_the_vjp_of_the_plain_forward(rate):
                         _node_inputs(8, n, H, C)]
     seed = torch.tensor([77], dtype=torch.int32)
     ins = [t.clone().requires_grad_() for t in (d, s, h)]
-    acc = pg.packed_gat_fwd_plain(op.fwd, *ins, s.amax(0), seed, rate)
+    m = pg.receiver_max(op.fwd, s)
+    acc = pg.packed_gat_fwd_plain(op.fwd, *ins, m, seed, rate)
     num, den = acc[:, :H * C].reshape(n, H, C), acc[:, H * C:]
     want = (num / den[:, :, None]).reshape(n, H * C)
     (want * proj).sum().backward()
@@ -256,7 +257,7 @@ def test_plain_backward_is_the_vjp_of_the_plain_forward(rate):
     for a, t in zip(grads, ins):
         _close(a, t.grad.numpy(), 1e-5)
     if rate:   # about 60% of the (edge, head) pairs dropped
-        full = pg.packed_gat_fwd_plain(op.fwd, d, s, h, s.amax(0), seed, 0.0)
+        full = pg.packed_gat_fwd_plain(op.fwd, d, s, h, m, seed, 0.0)
         assert not torch.allclose(acc[:, :H * C], full[:, :H * C])
         _close(acc[:, H * C:], full[:, H * C:].numpy(), 1e-6)  # den undropped
 
@@ -281,8 +282,11 @@ def test_packed_gat_fwd_wrapper_matches_jax_at_the_design_widths(H, C, rate):
     dropout seed, at a width of each branch of the CUDA forward's
     dispatch: the row map with float4 heads (8, 8) and (4, 16), with one
     channel a lane (1, 7), and with heads that do not divide the lanes
-    (3, 5). The graph has a receiver of ~200 senders. 2e-2 of the largest
-    magnitude: the JAX op rounds its gathers to bf16."""
+    (3, 5). The graph has a receiver of ~200 senders. Its num‖den is at
+    each receiver's own shift, so it is taken to the JAX operator's global
+    one (``global_shift_scale``) before the comparison; its ``m`` is
+    ``receiver_max``'s. 2e-2 of the largest magnitude: the JAX op rounds
+    its gathers to bf16."""
     g, jg = _hub_graphs(11)
     seed = 5
     d, s, h, _, _ = _node_inputs(12, g.num_nodes, H, C)
@@ -293,11 +297,16 @@ def test_packed_gat_fwd_wrapper_matches_jax_at_the_design_widths(H, C, rate):
     assert int(rows.max()) >= 200
     ts = [torch.from_numpy(a) for a in (d, s, h)]
     before = pg.packed_gat_fwd.launches
-    got = pg.packed_gat_fwd(op.fwd, *ts, ts[1].amax(0),
-                            torch.tensor([seed], dtype=torch.int32), rate,
-                            op.slope)
+    got, m = pg.packed_gat_fwd(op.fwd, *ts,
+                               torch.tensor([seed], dtype=torch.int32), rate,
+                               op.slope)
     assert got.shape == (g.num_nodes, H * C + H)
     assert pg.packed_gat_fwd.launches == before
+    assert torch.equal(m, pg.receiver_max(op.fwd, ts[1]))
+    scale = pg.global_shift_scale(ts[0], ts[1], m, op.slope)
+    got = torch.cat([(got[:, :H * C].reshape(-1, H, C)
+                      * scale[:, :, None]).reshape(-1, H * C),
+                     got[:, H * C:] * scale], dim=1)
     _close(got, want, 2e-2)
 
 
@@ -306,9 +315,11 @@ def test_cpu_wrappers_compute_plain_and_count_no_launch():
     op = _port_op(g)
     d, s, h, _, gacc = [torch.from_numpy(a) for a in
                         _node_inputs(9, g.num_nodes, 2, 3)]
-    m, seed = s.amax(0), torch.tensor([3], dtype=torch.int32)
+    seed = torch.tensor([3], dtype=torch.int32)
     fwd0, bwd0 = pg.packed_gat_fwd.launches, pg.packed_gat_bwd.launches
-    assert torch.equal(pg.packed_gat_fwd(op.fwd, d, s, h, m, seed, 0.6),
+    out, m = pg.packed_gat_fwd(op.fwd, d, s, h, seed, 0.6)
+    assert torch.equal(m, pg.receiver_max(op.fwd, s))
+    assert torch.equal(out,
                        pg.packed_gat_fwd_plain(op.fwd, d, s, h, m, seed, 0.6))
     for a, b in zip(
             pg.packed_gat_bwd(op.fwd, op.bwd, op.bwd_eid, d, s, h, m, seed,
@@ -324,24 +335,29 @@ def test_wrappers_refuse_bad_inputs_and_other_devices():
     op = _port_op(g)
     n = g.num_nodes
     d, s, h = torch.zeros(n, 2), torch.zeros(n, 2), torch.zeros(n, 6)
-    m, seed = torch.zeros(2), torch.zeros(1, dtype=torch.int32)
+    m, seed = torch.zeros(n, 2), torch.zeros(1, dtype=torch.int32)
+    g8 = torch.zeros(n, 8)
     with pytest.raises(ValueError):
-        pg.packed_gat_fwd(op.fwd, d, s, torch.zeros(n, 5), m, seed)
-    with pytest.raises(ValueError):
-        pg.packed_gat_fwd(op.fwd, d, s, h, torch.zeros(3), seed)
+        pg.packed_gat_fwd(op.fwd, d, s, torch.zeros(n, 5), seed)
+    with pytest.raises(ValueError, match="one shift a receiver"):
+        pg.packed_gat_bwd(op.fwd, op.bwd, op.bwd_eid, d, s, h,
+                          torch.zeros(2), seed, g8)
     with pytest.raises(TypeError):
-        pg.packed_gat_fwd(op.fwd, d, s, h, m, seed.long())
+        pg.packed_gat_fwd(op.fwd, d, s, h, seed.long())
     with pytest.raises(TypeError):
-        pg.packed_gat_fwd(op.fwd, d.double(), s, h, m, seed)
+        pg.packed_gat_fwd(op.fwd, d.double(), s, h, seed)
     with pytest.raises(TypeError):
-        pg.packed_gat_fwd(op.fwd, d, s, h.t().contiguous().t(), m, seed)
+        pg.packed_gat_fwd(op.fwd, d, s, h.t().contiguous().t(), seed)
+    with pytest.raises(TypeError):
+        pg.packed_gat_bwd(op.fwd, op.bwd, op.bwd_eid, d, s, h, m.double(),
+                          seed, g8)
     with pytest.raises(ValueError):
         pg.packed_gat_bwd(op.fwd, op.bwd, op.bwd_eid, d, s, h, m, seed,
                           torch.zeros(n, 7))
     with pytest.raises(TypeError):
         pg.packed_gat_bwd(op.fwd, op.bwd, op.bwd_eid.long(), d, s, h, m,
                           seed, torch.zeros(n, 8))
-    meta = [t.to("meta") for t in (d, s, h, m, seed)]
+    meta = [t.to("meta") for t in (d, s, h, seed)]
     with pytest.raises(ValueError, match="cpu or cuda"):
         pg.packed_gat_fwd(op.fwd.to("meta"), *meta)
 

@@ -123,7 +123,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "parallel.data_parallel", "parallel.partition",
                  "parallel.fast", "parallel.api", "parallel.models",
                  "examples.data_parallel", "examples.mnist_data_parallel",
-                 "examples.distributed_gcn"):
+                 "examples.distributed_gcn", "tools", "tools.common",
+                 "tools.gat_sweep", "tools.rgcn_sweep",
+                 "tools.profile_epoch", "tools.probe_reddit",
+                 "tools.sparse_tail_probe", "tools.reddit_threshold_probe",
+                 "tools.adv_asym_probe", "tools.gen_api_docs"):
         assert f"pytorch_geometric_tpu_torch.{name}" in report["modules"]
     assert report["bad"] == []
 
@@ -500,3 +504,19 @@ def test_a_failed_graphcore_build_raises(tmp_path, monkeypatch):
         cluster.knn_graph(np.zeros((4, 3)), 2)
     assert list(tmp_path.glob("*.so")) == []
     assert list(tmp_path.glob("*.tmp")) == []
+
+
+@pytest.mark.parametrize("name", [
+    "gat_sweep", "rgcn_sweep", "profile_epoch", "probe_reddit",
+    "sparse_tail_probe", "reddit_threshold_probe", "adv_asym_probe"])
+def test_tools_default_to_cuda_and_raise_without_it(monkeypatch, name):
+    """Each tool script runs on the card unless ``--device cpu`` is
+    passed, and without a card raises before it builds or draws
+    anything."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tool = importlib.import_module(
+        f"pytorch_geometric_tpu_torch.tools.{name}")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tool.main([])

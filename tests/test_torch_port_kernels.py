@@ -140,10 +140,10 @@ def test_packed_gat_kernels_match_plain_on_card(cuda_device, H, C, rate):
             for _ in range(2))
     h = torch.randn(n, H * C, generator=gen, device=cuda_device)
     g = torch.randn(n, H * C + H, generator=gen, device=cuda_device)
-    m = s.amax(0)
     seed = torch.tensor([123457], dtype=torch.int32, device=cuda_device)
     fwd0, bwd0 = pg.packed_gat_fwd.launches, pg.packed_gat_bwd.launches
-    got = pg.packed_gat_fwd(op.fwd, d, s, h, m, seed, rate)
+    got, m = pg.packed_gat_fwd(op.fwd, d, s, h, seed, rate)
+    assert torch.equal(m, pg.receiver_max(op.fwd, s))
     want = pg.packed_gat_fwd_plain(op.fwd, d, s, h, m, seed, rate)
     bwd_args = (op.fwd, op.bwd, op.bwd_eid, d, s, h, m, seed, g, rate)
     got_b = pg.packed_gat_bwd(*bwd_args)
@@ -154,7 +154,8 @@ def test_packed_gat_kernels_match_plain_on_card(cuda_device, H, C, rate):
     assert _rel_err(got, want) <= 1e-5
     for a, b in zip(got_b, want_b):
         assert _rel_err(a, b) <= 1e-5
-    assert torch.equal(got, pg.packed_gat_fwd(op.fwd, d, s, h, m, seed, rate))
+    for a, b in zip((got, m), pg.packed_gat_fwd(op.fwd, d, s, h, seed, rate)):
+        assert torch.equal(a, b)
     for a, b in zip(got_b, pg.packed_gat_bwd(*bwd_args)):
         assert torch.equal(a, b)
 
@@ -194,21 +195,22 @@ def test_packed_gat_kernels_at_ppi_widths_on_card(cuda_device, H, C, rate):
             for _ in range(2))
     h = torch.randn(n, H * C, generator=gen, device=cuda_device)
     g = torch.randn(n, H * C + H, generator=gen, device=cuda_device)
-    m = s.amax(0)
     seed = torch.tensor([123457], dtype=torch.int32, device=cuda_device)
     fwd0, bwd0 = pg.packed_gat_fwd.launches, pg.packed_gat_bwd.launches
-    got = pg.packed_gat_fwd(op.fwd, d, s, h, m, seed, rate)
+    got, m = pg.packed_gat_fwd(op.fwd, d, s, h, seed, rate)
     bwd_args = (op.fwd, op.bwd, op.bwd_eid, d, s, h, m, seed, g, rate)
     got_b = pg.packed_gat_bwd(*bwd_args)
     torch.cuda.synchronize()
     assert (pg.packed_gat_fwd.launches - fwd0,
             pg.packed_gat_bwd.launches - bwd0) == (1, 2)
+    assert torch.equal(m, pg.receiver_max(op.fwd, s))
     assert _rel_err(got, pg.packed_gat_fwd_plain(op.fwd, d, s, h, m, seed,
                                                  rate)) <= 1e-5
     want_b = pg.packed_gat_bwd_plain(op.fwd, d, s, h, m, seed, g, rate)
     for a, b in zip(got_b, want_b):
         assert _rel_err(a, b) <= 1e-5
-    assert torch.equal(got, pg.packed_gat_fwd(op.fwd, d, s, h, m, seed, rate))
+    for a, b in zip((got, m), pg.packed_gat_fwd(op.fwd, d, s, h, seed, rate)):
+        assert torch.equal(a, b)
     for a, b in zip(got_b, pg.packed_gat_bwd(*bwd_args)):
         assert torch.equal(a, b)
 
@@ -339,7 +341,7 @@ def test_packed_gat_backward_matches_plain_on_card(cuda_device, graph, H, C,
     senders, receivers, n, (no_in, no_out) = _redesign_edges(graph)
     op = _packed_op((senders, receivers), n, cuda_device)
     d, s, h, g, seed = _redesign_inputs(n, H, C, cuda_device, H * C + H)
-    m = s.amax(0)
+    m = pg.receiver_max(op.fwd, s)
     want = pg.packed_gat_bwd_plain(op.fwd, d, s, h, m, seed, g, rate)
     before = pg.packed_gat_bwd.launches
     got, again = (pg.packed_gat_bwd(op.fwd, op.bwd, op.bwd_eid, d, s, h, m,
@@ -948,7 +950,7 @@ def test_gat_ablate_full_is_the_library_and_every_mode_runs(cuda_device, H,
             for _ in range(2))
     h = torch.randn(n, H * C, generator=gen, device=cuda_device)
     g = torch.randn(n, H * C + H, generator=gen, device=cuda_device)
-    m = s.amax(0)
+    m = pg.receiver_max(op.fwd, s)
     seed = torch.tensor([123457], dtype=torch.int32, device=cuda_device)
     lib = ga.load()
     before = ga.ablate_walk.launches
@@ -1063,9 +1065,10 @@ def test_occupancy_padding_holds_modes_at_full_and_changes_no_output(
             smem, target = occupancy_padding(blocks, list(ga.MODES))
             assert blocks("full", smem) == target
             assert all(blocks(md, smem) <= target for md in ga.MODES)
-            plain, padded = (ga.ablate_walk(lib, op, d, s, h, s.amax(0),
-                                            seed, g, 0.6, "full", walk,
-                                            smem=pad) for pad in (0, smem))
+            m = pg.receiver_max(op.fwd, s)
+            plain, padded = (ga.ablate_walk(lib, op, d, s, h, m, seed, g,
+                                            0.6, "full", walk, smem=pad)
+                             for pad in (0, smem))
             torch.cuda.synchronize()
             assert all(torch.equal(a, b) for a, b in zip(plain, padded))
         return
@@ -1541,7 +1544,7 @@ def test_packed_gat_forward_designs_agree_on_card(cuda_device, H, C, rate,
     h = _offset(torch.randn(n, H * C, generator=gen, device=cuda_device),
                 offset)
     seed = torch.tensor([123457], dtype=torch.int32, device=cuda_device)
-    inputs = (d, s, h, s.amax(0), seed)
+    inputs = (d, s, h, pg.receiver_max(op.fwd, s), seed)
     lib = pd.load()
     errors, repeat = pd.compare_fwd(lib, op, inputs, rate)
     assert repeat
@@ -1550,12 +1553,14 @@ def test_packed_gat_forward_designs_agree_on_card(cuda_device, H, C, rate,
         assert err <= ((0.0 if first_design else 1e-6)
                        if key == "fwd_first_vs_shipped" else 1e-5), key
     before = pg.packed_gat_fwd.launches
-    got = pg.packed_gat_fwd(op.fwd, *inputs, rate, op.slope)
+    got = pg.packed_gat_fwd(op.fwd, d, s, h, seed, rate, op.slope)
     torch.cuda.synchronize()
     assert pg.packed_gat_fwd.launches - before == 1
-    assert torch.equal(got, pd.fwd(pd.fwd_entry(lib, "shipped"), op, inputs,
-                                   rate))
-    assert (got[torch.from_numpy(empty)] == 0).all()
+    for a, b in zip(got, pd.fwd(pd.fwd_entry(lib, "shipped"), op, inputs,
+                                rate)):
+        assert torch.equal(a, b)
+    for a in got:
+        assert (a[torch.from_numpy(empty)] == 0).all()
 
 
 # ---------------------------------------------------------------------------
