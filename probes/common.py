@@ -79,7 +79,7 @@ def floor_line(probe: str, calls: int = 50, smi: str = "") -> dict:
     can remove from its time."""
     from probes import fused_gcn_designs
 
-    lib = fused_gcn_designs.build()
+    lib = fused_gcn_designs.load()
 
     def empty(blocks):
         rc = lib.probe_empty(0, 0, blocks, stream())

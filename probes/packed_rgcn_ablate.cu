@@ -24,12 +24,15 @@
 // none holds more blocks than full does (packed_rgcn_ablate_occupancy
 // gives the count).
 //
-// Forward: depth 1 is the source's first design of the forward,
-// rgcn_fwd_kernel (a warp per receiver row gathering each sender's xB
-// row per edge), which the library's two-launch forward replaced. Depths
-// 2 and 4 run rgcn_fwd_ahead_kernel below, which keeps that walk's lane
-// tiling and sum order and issues the loads of later edges first; they
-// must equal depth 1 bit for bit.
+// Forward: depth 1 is the library's forward itself (packed_rgcn_fwd: the
+// message walk rgcn_msg_kernel over the sender-major CSR, then the
+// segment sum). Depths 2 and 4 run rgcn_msg_ahead_kernel below, that walk
+// with the loads of later rows issued first: before a row's multiply-adds
+// it requests the xB slice and the first batch of (et, w, pos) of the
+// item (a row and a pass of channels) D - 1 ahead in the grid-stride
+// order, into a ring of D register sets.
+// The sums keep the library's order and expressions, and the segment sum
+// follows, so every depth gives the library's bits.
 
 #include "../pytorch_geometric_tpu_torch/csrc/packed_rgcn.cu"
 
@@ -75,169 +78,185 @@ BwdWalk bwd_walk(unsigned mode, int C) {
   return walk;
 }
 
-// The forward's walk over one row with its loads issued ahead: the col,
-// et and w of the next kDepth edges and the att and xB values of edge
-// e + 1 are requested before edge e's multiply-adds, which keep the
-// order of the first design's walk (edge after edge, bases in order), so
-// the sum is the same bit for bit. Lane (cl, bl) holds channel c and the
-// bases bl, bl + NB, ... in kSlots registers per array
-// (B <= kSlots * 32 / CP).
-template <int CP, int kDepth, int kSlots>
-__device__ __forceinline__ float rgcn_fwd_walk_ahead(
-    const int* __restrict__ col, const int* __restrict__ et,
-    const float* __restrict__ w, const float* __restrict__ xB,
-    const float* __restrict__ att, int e0, int e1, int bl, int c, int B,
-    int C) {
-  constexpr int NB = 32 / CP;
-  const size_t BC = static_cast<size_t>(B) * C;
-  float acc = 0.f;
-  if (e0 >= e1) return acc;
-  // ring[k]: col, et and w of edge e + 1 + k
-  int rc[kDepth], rt[kDepth];
-  float rw[kDepth];
-#pragma unroll
-  for (int k = 0; k < kDepth; ++k) {
-    const int e = e0 + 1 + k;
-    rc[k] = e < e1 ? __ldg(col + e) : 0;
-    rt[k] = e < e1 ? __ldg(et + e) : 0;
-    rw[k] = e < e1 ? __ldg(w + e) : 0.f;
-  }
-  // the current edge's weight, att and xB values
-  float cw = __ldg(w + e0);
-  float ca[kSlots], cx[kSlots];
-  {
-    const float* ar = att + static_cast<size_t>(__ldg(et + e0)) * B;
-    const float* xr = xB + static_cast<size_t>(__ldg(col + e0)) * BC + c;
-#pragma unroll
-    for (int j = 0; j < kSlots; ++j) {
-      const int b = bl + j * NB;
-      ca[j] = b < B ? __ldg(ar + b) : 0.f;
-      cx[j] = b < B ? __ldg(xr + static_cast<size_t>(b) * C) : 0.f;
-    }
-  }
-  for (int e = e0; e < e1; ++e) {
-    // edge e + 1's att and xB (its indices are ring[0])
-    const bool more = e + 1 < e1;
-    float na[kSlots], nx[kSlots];
-    const float* ar = att + static_cast<size_t>(rt[0]) * B;
-    const float* xr = xB + static_cast<size_t>(rc[0]) * BC + c;
-#pragma unroll
-    for (int j = 0; j < kSlots; ++j) {
-      const int b = bl + j * NB;
-      na[j] = more && b < B ? __ldg(ar + b) : 0.f;
-      nx[j] = more && b < B ? __ldg(xr + static_cast<size_t>(b) * C) : 0.f;
-    }
-    const float nw = rw[0];
-    // shift the ring; request edge e + 1 + kDepth's indices
-#pragma unroll
-    for (int k = 0; k + 1 < kDepth; ++k) {
-      rc[k] = rc[k + 1];
-      rt[k] = rt[k + 1];
-      rw[k] = rw[k + 1];
-    }
-    {
-      const int ef = e + 1 + kDepth;
-      rc[kDepth - 1] = ef < e1 ? __ldg(col + ef) : 0;
-      rt[kDepth - 1] = ef < e1 ? __ldg(et + ef) : 0;
-      rw[kDepth - 1] = ef < e1 ? __ldg(w + ef) : 0.f;
-    }
-    // edge e's multiply-adds, as the first design's walk does them
-#pragma unroll
-    for (int j = 0; j < kSlots; ++j) {
-      if (bl + j * NB < B) acc += (cw * ca[j]) * cx[j];
-    }
-    cw = nw;
-#pragma unroll
-    for (int j = 0; j < kSlots; ++j) {
-      ca[j] = na[j];
-      cx[j] = nx[j];
-    }
-  }
-  return acc;
-}
+// One item of the message walk (a row and a pass of CP channels), as
+// rgcn_msg_kernel holds it before its multiply-adds: the row's edge
+// range, this lane's KS bases of the row's xB slice, and the et, w and
+// pos of the first batch of edges, one edge a lane.
+template <int KS>
+struct MsgItem {
+  int row, c0, e0, e1;
+  float xs[KS];
+  int et, pos;
+  float w;
+};
 
-// The first design of the forward over the receiver-major CSR, at any
-// width: depth 1.
-int first_fwd(void* row_ptr, void* col, void* et, void* w, void* xB,
-              void* att, void* out, int n_rows, int B, int C,
-              cudaStream_t st) {
-  with_channel_width(C, [&](auto width) {
-    constexpr int CP = decltype(width)::value;
-    rgcn_fwd_kernel<CP><<<blocks_for(n_rows), kThreads, 0, st>>>(
-        static_cast<const int*>(row_ptr), static_cast<const int*>(col),
-        static_cast<const int*>(et), static_cast<const float*>(w),
-        static_cast<const float*>(xB), static_cast<const float*>(att),
-        static_cast<float*>(out), n_rows, B, C);
-  });
-  return static_cast<int>(cudaGetLastError());
-}
-
-// rgcn_fwd_kernel with its walk replaced by rgcn_fwd_walk_ahead.
-template <int CP, int kDepth, int kSlots>
-__global__ void __launch_bounds__(kThreads)
-rgcn_fwd_ahead_kernel(const int* __restrict__ row_ptr,
-                      const int* __restrict__ col, const int* __restrict__ et,
-                      const float* __restrict__ w,
-                      const float* __restrict__ xB,
-                      const float* __restrict__ att, float* __restrict__ out,
-                      int n_rows, int B, int C) {
-  const int row = blockIdx.x * kWarps + threadIdx.x / 32;
-  if (row >= n_rows) return;  // the whole warp leaves together
-  const int lane = threadIdx.x & 31;
+// Requests item `item` of this group's walk (row row0 + (item / passes)
+// stride, channel pass item % passes): its loads are issued here and used
+// when the item's turn comes. Past the last row it loads nothing.
+template <int CP, int LR, int KS>
+__device__ __forceinline__ void msg_request(
+    MsgItem<KS>& it, int item, int row0, int stride, int passes,
+    const int* __restrict__ row_ptr, const int* __restrict__ et,
+    const float* __restrict__ w, const int* __restrict__ pos,
+    const float* __restrict__ xB, int n_rows, int B, int C, int lane) {
+  constexpr int NB = LR / CP;
   const int cl = lane % CP;
   const int bl = lane / CP;
-  const int e0 = row_ptr[row];
-  const int e1 = row_ptr[row + 1];
-  for (int c0 = 0; c0 < C; c0 += CP) {
-    const int c = c0 + cl;
-    const bool cok = c < C;
-    float acc = 0.f;
-    if (cok) {
-      acc = rgcn_fwd_walk_ahead<CP, kDepth, kSlots>(col, et, w, xB, att, e0,
-                                                    e1, bl, c, B, C);
-    }
+  it.row = row0 + (item / passes) * stride;
+  it.c0 = (item % passes) * CP;
+  it.e0 = 0;
+  it.e1 = 0;
+  if (it.row < n_rows) {
+    it.e0 = __ldg(row_ptr + it.row);
+    it.e1 = __ldg(row_ptr + it.row + 1);
+  }
+  const bool live = it.e0 < it.e1;
+  const int c = it.c0 + cl;
+  const bool cok = c < C;
+  const float* xrow = xB + static_cast<size_t>(it.row) * B * C;
 #pragma unroll
-    for (int o = CP; o < 32; o <<= 1) acc += __shfl_xor_sync(kFull, acc, o);
-    if (cok && bl == 0) out[static_cast<size_t>(row) * C + c] = acc;
+  for (int j = 0; j < KS; ++j) {
+    const int b = bl + j * NB;
+    it.xs[j] = live && cok && b < B
+                   ? __ldg(xrow + static_cast<size_t>(b) * C + c)
+                   : 0.f;
+  }
+  const int me = it.e0 + lane;
+  it.et = 0;
+  it.pos = 0;
+  it.w = 0.f;
+  if (me < it.e1) {
+    it.et = __ldg(et + me);
+    it.w = __ldg(w + me);
+    it.pos = __ldg(pos + me);
   }
 }
 
-// The prefetching forward at channel width CP, holding kSlots bases per
-// lane: just enough for the main path's shapes (C = 2: B <= 32; C = 16:
-// B <= 32; C > 16: B <= 8).
-template <int CP, int kDepth, int kSlots>
-int pipe_fwd(void* row_ptr, void* col, void* et, void* w, void* xB,
-             void* att, void* out, int n_rows, int B, int C,
-             cudaStream_t st) {
-  if (B > kSlots * (32 / CP)) {
+// The multiply-adds and stores of one item, as rgcn_msg_kernel does them
+// (the same expressions in the same order); batches after the first load
+// their indices here.
+template <int CP, int LR, int KS>
+__device__ __forceinline__ void msg_walk(
+    const MsgItem<KS>& it, const Row<LR>& grp, const float* att_s,
+    const int* __restrict__ et, const float* __restrict__ w,
+    const int* __restrict__ pos, const float* __restrict__ xB,
+    float* __restrict__ msg, int B, int C) {
+  constexpr int NB = LR / CP;
+  const int lane = grp.lane;
+  const int cl = lane % CP;
+  const int bl = lane / CP;
+  const int c = it.c0 + cl;
+  const bool cok = c < C;
+  const float* xrow = xB + static_cast<size_t>(it.row) * B * C;
+  for (int eb = it.e0; eb < it.e1; eb += LR) {
+    int my_et = it.et, my_pos = it.pos;
+    float my_w = it.w;
+    if (eb != it.e0) {
+      const int me = eb + lane;
+      my_et = 0;
+      my_pos = 0;
+      my_w = 0.f;
+      if (me < it.e1) {
+        my_et = __ldg(et + me);
+        my_w = __ldg(w + me);
+        my_pos = __ldg(pos + me);
+      }
+    }
+    const int ne = min(LR, it.e1 - eb);
+#pragma unroll 2
+    for (int k = 0; k < ne; ++k) {
+      const int t = grp.bcast(my_et, k);
+      const float wk = __shfl_sync(grp.mask, my_w, k, LR);
+      const int pk = grp.bcast(my_pos, k);
+      const int ar = t * B;
+      float part = 0.f;
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        const int b = bl + j * NB;
+        if (b < B) part += att_s[ar + b] * it.xs[j];
+      }
+      for (int b = bl + KS * NB; b < B; b += NB) {   // past the slots
+        part += att_s[ar + b] * (cok ? __ldg(xrow + static_cast<size_t>(b)
+                                            * C + c)
+                                     : 0.f);
+      }
+      // add the lanes that hold the same channel (other bases)
+      part = grp.sum_from(part, CP);
+      if (cok && bl == 0) {
+        msg[static_cast<size_t>(pk) * C + c] = wk * part;
+      }
+    }
+  }
+}
+
+// rgcn_msg_kernel (att in shared memory) with its loads kDepth - 1 items
+// ahead: the ring holds kDepth items, and before an item's multiply-adds
+// the group requests the item kDepth - 1 after it into the slot the
+// previous item freed (the loop is unrolled kDepth times, so every slot
+// is a register set).
+template <int CP, int G, int kDepth>
+__global__ void __launch_bounds__(kThreads, kMsgMinBlocks)
+rgcn_msg_ahead_kernel(const int* __restrict__ row_ptr,
+                      const int* __restrict__ et, const float* __restrict__ w,
+                      const int* __restrict__ pos,
+                      const float* __restrict__ xB,
+                      const float* __restrict__ att, float* __restrict__ msg,
+                      int n_rows, int R, int B, int C) {
+  constexpr int LR = 32 / G;
+  constexpr int KS = kMsgSlots;
+  static_assert(LR / CP >= 1, "a row's lanes hold at least its CP channels");
+  extern __shared__ float att_s[];
+  for (int k = threadIdx.x; k < R * B; k += kThreads) {
+    att_s[k] = __ldg(att + k);
+  }
+  __syncthreads();
+  const Row<LR> grp;
+  const int row0 = blockIdx.x * (kThreads / LR) + threadIdx.x / LR;
+  const int stride = gridDim.x * (kThreads / LR);
+  const int passes = (C + CP - 1) / CP;
+  MsgItem<KS> ring[kDepth];
+#pragma unroll
+  for (int s = 0; s + 1 < kDepth; ++s) {
+    msg_request<CP, LR, KS>(ring[s], s, row0, stride, passes, row_ptr, et,
+                            w, pos, xB, n_rows, B, C, grp.lane);
+  }
+  for (int i = 0;; i += kDepth) {
+#pragma unroll
+    for (int s = 0; s < kDepth; ++s) {
+      msg_request<CP, LR, KS>(ring[(s + kDepth - 1) % kDepth],
+                              i + s + kDepth - 1, row0, stride, passes,
+                              row_ptr, et, w, pos, xB, n_rows, B, C,
+                              grp.lane);
+      if (ring[s].row >= n_rows) return;  // rows only grow along the walk
+      msg_walk<CP, LR, KS>(ring[s], grp, att_s, et, w, pos, xB, msg, B, C);
+    }
+  }
+}
+
+// Launch 1 of the forward at depth kDepth (2 or 4) with the library's
+// grid and shared memory: the widths of the main path's shapes only (C =
+// 2 at two lanes a channel, 9 to 16, and over 16 at one lane a channel)
+// and att in shared memory; anything else is cudaErrorInvalidValue.
+template <int kDepth>
+int msg_ahead(const int* send_ptr, const int* send_et, const float* send_w,
+              const int* fwd_pos, const float* xB, const float* att,
+              float* msg, int n_send, int R, int B, int C,
+              cudaStream_t st) {
+  if (R * B > kAttSmemFloats || !(C == 2 || C > 8)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  rgcn_fwd_ahead_kernel<CP, kDepth, kSlots>
-      <<<blocks_for(n_rows), kThreads, 0, st>>>(
-          static_cast<const int*>(row_ptr), static_cast<const int*>(col),
-          static_cast<const int*>(et), static_cast<const float*>(w),
-          static_cast<const float*>(xB), static_cast<const float*>(att),
-          static_cast<float*>(out), n_rows, B, C);
+  const size_t smem = sizeof(float) * R * B;
+  with_channel_width(C, [&](auto width) {
+    constexpr int CP = decltype(width)::value;
+    if constexpr (CP == 2 || CP >= 16) {
+      constexpr int G = msg_rows_per_warp(CP);
+      rgcn_msg_ahead_kernel<CP, G, kDepth>
+          <<<msg_blocks(n_send, G), kThreads, smem, st>>>(
+              send_ptr, send_et, send_w, fwd_pos, xB, att, msg, n_send, R,
+              B, C);
+    }
+  });
   return static_cast<int>(cudaGetLastError());
-}
-
-template <int kDepth>
-int pipe_fwd_at(void* row_ptr, void* col, void* et, void* w, void* xB,
-                void* att, void* out, int n_rows, int B, int C,
-                cudaStream_t st) {
-  if (C == 2) {
-    return pipe_fwd<2, kDepth, 2>(row_ptr, col, et, w, xB, att, out, n_rows,
-                                  B, C, st);
-  }
-  if (C > 8 && C <= 16) {
-    return pipe_fwd<16, kDepth, 16>(row_ptr, col, et, w, xB, att, out,
-                                    n_rows, B, C, st);
-  }
-  if (C > 16) {
-    return pipe_fwd<32, kDepth, 8>(row_ptr, col, et, w, xB, att, out,
-                                   n_rows, B, C, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -299,26 +318,37 @@ extern "C" int packed_rgcn_ablate_occupancy(unsigned mode, int C, int smem,
       blocks, walk, kThreads, smem));
 }
 
-// The receiver-major CSR (row_ptr, col = sender, et, w), xB, att, out,
-// n_rows, B, C, then the prefetch depth (1, 2 or 4), then the stream.
-extern "C" int packed_rgcn_pipe_fwd(void* row_ptr, void* col, void* et,
-                                    void* w, void* xB, void* att, void* out,
-                                    int n_rows, int B, int C, int depth,
-                                    void* stream) {
+// packed_rgcn_fwd's arguments, then the prefetch depth (1, 2 or 4), then
+// the stream. Depth 1 is packed_rgcn_fwd itself; depths 2 and 4 run the
+// message walk with its loads ahead, then the same segment sum.
+extern "C" int packed_rgcn_pipe_fwd(void* row_ptr, void* send_ptr,
+                                    void* send_et, void* send_w,
+                                    void* fwd_pos, void* xB, void* att,
+                                    void* msg, void* out, int n_rows,
+                                    int n_send, int R, int B, int C,
+                                    int depth, void* stream) {
+  if (depth == 1) {
+    return packed_rgcn_fwd(row_ptr, send_ptr, send_et, send_w, fwd_pos, xB,
+                           att, msg, out, n_rows, n_send, R, B, C, stream);
+  }
+  if (depth != 2 && depth != 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n_rows <= 0 || B <= 0 || C <= 0) {
     return static_cast<int>(cudaGetLastError());
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (depth == 1) {
-    return first_fwd(row_ptr, col, et, w, xB, att, out, n_rows, B, C, st);
+  if (n_send > 0) {
+    const auto ahead = depth == 2 ? msg_ahead<2> : msg_ahead<4>;
+    const int rc = ahead(
+        static_cast<const int*>(send_ptr), static_cast<const int*>(send_et),
+        static_cast<const float*>(send_w), static_cast<const int*>(fwd_pos),
+        static_cast<const float*>(xB), static_cast<const float*>(att),
+        static_cast<float*>(msg), n_send, R, B, C, st);
+    if (rc != 0) return rc;
   }
-  if (depth == 2) {
-    return pipe_fwd_at<2>(row_ptr, col, et, w, xB, att, out, n_rows, B, C,
-                          st);
-  }
-  if (depth == 4) {
-    return pipe_fwd_at<4>(row_ptr, col, et, w, xB, att, out, n_rows, B, C,
-                          st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  segment_sum::dispatch(static_cast<const int*>(row_ptr),
+                        static_cast<const float*>(msg),
+                        static_cast<float*>(out), n_rows, C, st);
+  return static_cast<int>(cudaGetLastError());
 }

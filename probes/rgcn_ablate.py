@@ -74,7 +74,7 @@ SIGNATURES = {
     "packed_rgcn_ablate_bwd": (_I, [_P] * 13 + [_I] * 5
                                + [_U, _I, _I, _P]),
     "packed_rgcn_ablate_occupancy": (_I, [_U, _I, _I, ctypes.POINTER(_I)]),
-    "packed_rgcn_pipe_fwd": (_I, [_P] * 7 + [_I] * 4 + [_P]),
+    "packed_rgcn_pipe_fwd": (_I, [_P] * 9 + [_I] * 6 + [_P]),
 }
 #: Mode -> bit of ``rgcn_ablate`` in ``csrc/packed_rgcn.cu`` (0: nothing
 #: removed).

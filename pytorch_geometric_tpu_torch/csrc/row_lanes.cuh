@@ -2,11 +2,12 @@
 // lanes owns one row of a sparse operator over all its heads: bsr_gat.cu
 // (the block-sparse GAT), flash_gat.cu (the dense-mask GAT), packed_gat.cu
 // (the packed GAT forward and backward), packed_rgcn.cu (the forward's
-// message walk, a row's lanes over its bases) and spmm_csr.cu (the CSR
-// SpMM, a row's lanes over its channels and edges). The lanes of a row, their
-// fixed-tree reductions, a lane's V channels as one load, a head's
-// channels as whole loads, the choice of the lanes and the load width,
-// and the threads the card holds at once.
+// message walk, a row's lanes over its bases), spmm_csr.cu (the CSR SpMM,
+// a row's lanes over its channels and edges) and fused_gcn.cu (both walks
+// of the fused two-layer GCN, on the CSR SpMM's row walk). The lanes of a
+// row, their fixed-tree reductions, the CSR row walk (sum_row), a lane's
+// V channels as one load, a head's channels as whole loads, the choice of
+// the lanes and the load width, and the threads the card holds at once.
 //
 // The port's build hashes this header with every source that includes it
 // (kernels/_build.py), so an edit here rebuilds each of those libraries.
@@ -101,6 +102,71 @@ struct Row {
     return (__ballot_sync(mask, p) & mask) >> ((threadIdx.x & 31) & ~(L - 1));
   }
 };
+
+// The columns and weights of the edges of a CSR row that one lane loads
+// at once: edges e, e + R, ..., e + (nb - 1) R below e1 (nb <= NB), 0 past
+// them.
+template <int NB>
+struct EdgeBatch {
+  int col[NB];
+  float val[NB];
+  __device__ __forceinline__ void load(const int* col_of,
+                                       const float* val_of, int e, int e1,
+                                       int R, int nb) {
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const int eb = e + b * R;
+      const bool ok = b < nb && eb < e1;
+      col[b] = ok ? __ldg(col_of + eb) : 0;
+      val[b] = ok ? __ldg(val_of + eb) : 0.f;
+    }
+  }
+};
+
+// acc = the sum over the edges [e0, e1) of a CSR row of val[e] times this
+// lane's V channels of row col[e] of x, which gather(j, xv) loads (not
+// called where `mine` is false: a lane past the channels adds zeros). The
+// row's L lanes stand as P (a power of two) across the channels and
+// R = L / P entry groups over the edges: lane t takes edges e0 + t / P,
+// + R, ..., nb (<= NB) of them a step, each step's columns and weights
+// and then all its gathers issued together. The entry groups' partial
+// sums meet in a fixed tree (Row::sum_from), so every lane of the row ends
+// with its channels' sums, and two calls are bitwise equal. A row without
+// edges sums to 0. Where `loaded`, bt is this lane's first step, loaded
+// earlier (EdgeBatch::load at e0 + t / P); each later step is loaded into
+// it in place.
+template <int L, int V, int NB, typename Gather>
+__device__ __forceinline__ void sum_row(
+    const Row<L>& row, const int* col, const float* val, int e0, int e1,
+    int P, int nb, bool mine, Gather&& gather, float (&acc)[V],
+    bool loaded = false, EdgeBatch<NB> bt = EdgeBatch<NB>{}) {
+  const int R = L / P;
+  const int start = e0 + row.lane / P;
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = 0.f;
+  for (int e = start; e < e1; e += R * nb) {
+    if (!loaded || e != start) bt.load(col, val, e, e1, R, nb);
+    float xv[NB][V];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      if (mine && b < nb && e + b * R < e1) {
+        gather(bt.col[b], xv[b]);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) xv[b][v] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      if (b < nb && e + b * R < e1) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[v] += bt.val[b] * xv[b][v];
+      }
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = row.sum_from(acc[v], P);
+}
 
 // A lane's V channels at p: one float, or one float4 (16-byte aligned).
 template <int V>

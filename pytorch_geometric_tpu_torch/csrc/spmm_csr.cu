@@ -47,8 +47,9 @@
 //   F = 16 and 3); never below P.
 // - It runs where F takes at most 32 slots of V, except bf16 x over 64
 //   channels (see dispatch).
-// - The entry groups' partial sums meet in a fixed tree of shuffles
-//   (row_lanes.cuh: Row<L>::sum_from), so the result is deterministic;
+// - The row walk is row_lanes.cuh's sum_row, which the fused GCN's walks
+//   (fused_gcn.cu) share: the entry groups' partial sums meet in a fixed
+//   tree of shuffles (Row<L>::sum_from), so the result is deterministic;
 //   the lanes of entry group 0 store the row.
 //
 // The chunk map (spmm_csr_chunks_kernel), past 32 slots of V:
@@ -211,42 +212,13 @@ spmm_csr_rows_kernel(const int* __restrict__ row_ptr,
   if (r >= n_rows) return;
   const int c = (row.lane % P) * V;  // this lane's first channel
   const bool mine = c < F;
-  const int e0 = __ldg(row_ptr + r);
-  const int e1 = __ldg(row_ptr + r + 1);
   float acc[V];
-#pragma unroll
-  for (int v = 0; v < V; ++v) acc[v] = 0.f;
-  for (int e = e0 + row.lane / P; e < e1; e += R * NB) {
-    // NB edges: their columns and weights, then every gather, together
-    int nb[NB];
-    float w[NB];
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      const int eb = e + b * R;
-      nb[b] = eb < e1 ? __ldg(col + eb) : 0;
-      w[b] = eb < e1 ? __ldg(val + eb) : 0.f;
-    }
-    float xv[NB][V];
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      if (mine && e + b * R < e1) {
-        load_x_vec<V>(x + static_cast<size_t>(nb[b]) * F + c, xv[b]);
-      } else {
-#pragma unroll
-        for (int v = 0; v < V; ++v) xv[b][v] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      if (e + b * R < e1) {
-#pragma unroll
-        for (int v = 0; v < V; ++v) acc[v] += w[b] * xv[b][v];
-      }
-    }
-  }
-  // the entry groups' sums meet in a fixed tree
-#pragma unroll
-  for (int v = 0; v < V; ++v) acc[v] = row.sum_from(acc[v], P);
+  sum_row<L, V, NB>(
+      row, col, val, __ldg(row_ptr + r), __ldg(row_ptr + r + 1), P, NB, mine,
+      [&](int j, float(&xv)[V]) {
+        load_x_vec<V>(x + static_cast<size_t>(j) * F + c, xv);
+      },
+      acc);
   if (row.lane < P && mine) {
     store_vec<V>(out + static_cast<size_t>(r) * F + c, acc);
   }

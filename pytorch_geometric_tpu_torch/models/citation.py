@@ -13,7 +13,7 @@ PubMed too):
   epoch on a CUDA graph); ``"sorted"``, ``SortedSpmm`` (messages gathered
   in receiver order, the segment-sum kernel, 4 launches per epoch);
   ``"fused"``, ``FusedGcn2`` (both aggregations and the elementwise work
-  between them, 1 forward and 1 backward launch per epoch, evaluation
+  between them, 2 forward and 2 backward launches per epoch, evaluation
   through ``SpmmOperator.bind_external``); ``"dense"``, the bf16 dense
   normalised adjacency, one matrix product per aggregation (N <= 8192);
   ``"hybrid"``, ``HybridSpmm`` (the JAX ``pallas=True`` path: the edges
@@ -370,8 +370,9 @@ def train_gcn(graph: Graph, num_classes: int, hidden: int = 16,
     ``capture_seconds``, and adds ``launches``). On a CUDA graph the
     packed backend launches ``spmm_csr`` 4 times per epoch and 2 for the
     evaluation, the sorted backend ``sorted_segment_sum`` likewise; the
-    fused backend launches ``fused_gcn_fwd`` and ``fused_gcn_bwd`` once
-    per epoch and ``spmm_csr`` 2 times for the evaluation; the dense
+    fused backend launches ``fused_gcn_fwd`` and ``fused_gcn_bwd`` twice
+    per epoch each (two kernels a call) and ``spmm_csr`` 2 times for the
+    evaluation; the dense
     backend launches no kernel of the port; the hybrid backend launches
     ``spmm_csr`` twice where the packed one launches it once (its dense
     and its sparse part; once where a part is empty), ``window`` and

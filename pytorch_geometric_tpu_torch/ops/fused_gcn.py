@@ -1,5 +1,5 @@
 """Fused two-layer GCN: both aggregations and the elementwise work between
-them in one launch per direction.
+them in two launches per direction.
 
 Counterpart of ``pytorch_geometric_tpu/ops/fused_gcn.py``:
 
@@ -11,11 +11,16 @@ with ``A`` the static normalised adjacency. The caller computes
 1. :func:`keep_mask` — the dropout mask, (N, H) bool: the stateless hash
    of (feature, node, seed) of the JAX ``_host_keep_mask``, bit for bit.
 2. :func:`fused_gcn_fwd` / :func:`fused_gcn_bwd` — wrappers of the
-   hand-written CUDA kernels of ``csrc/fused_gcn.cu`` (one cooperative
-   launch each), which replace the Pallas kernel
-   ``ops/fused_gcn.py:_fused_kernel``; beside them the plain versions
-   :func:`fused_gcn_fwd_plain` / :func:`fused_gcn_bwd_plain` and the
-   ``.launches`` counts.
+   hand-written CUDA kernels of ``csrc/fused_gcn.cu``, which replace the
+   Pallas kernel ``ops/fused_gcn.py:_fused_kernel``: both aggregations on
+   ``row_lanes.cuh``'s row map (4 lanes a row, its edges loaded
+   together), the per-node step (bias, relu, dropout and the W2 product)
+   in the first walk's rows, and the second walk as a second launch that
+   Hopper's programmatic dependent launch starts early; it reads a
+   scratch the wrapper allocates with rows padded to a multiple of 4
+   floats. Beside them the plain versions :func:`fused_gcn_fwd_plain` /
+   :func:`fused_gcn_bwd_plain` and the ``.launches`` counts (two a
+   call).
 3. :class:`FusedGcn2` — the operator with the JAX call contract,
    differentiable in (z1, W2, b1).
 
@@ -150,6 +155,12 @@ def _check(csr: Csr, val, x, W2, b1, seed, rate, h1_pre=None,
     return device
 
 
+def _padded(width: int) -> int:
+    """Floats a row of the kernels' scratch (z2, dh1): ``width`` rounded
+    up to a multiple of 4, so that each row is one or more float4s."""
+    return (width + 3) // 4 * 4
+
+
 def _launch(name, csr: Csr, val, x, W2, b1, seed, h1_pre, outputs, rate):
     from pytorch_geometric_tpu_torch.kernels._build import load_library
 
@@ -170,35 +181,36 @@ def _launch(name, csr: Csr, val, x, W2, b1, seed, h1_pre, outputs, rate):
 
 
 def fused_gcn_fwd(fwd: Csr, val, z1, W2, b1, seed, rate: float):
-    """``(h1_pre, out)`` of :func:`fused_gcn_fwd_plain`: one cooperative
-    launch of the CUDA kernel on CUDA tensors, the plain version on CPU
-    tensors. ``val`` is in CSR position order, ``seed`` a one-element
-    int32 tensor read on the device."""
+    """``(h1_pre, out)`` of :func:`fused_gcn_fwd_plain`: two launches of
+    the CUDA kernels on CUDA tensors, the plain version on CPU tensors.
+    ``val`` is in CSR position order, ``seed`` a one-element int32 tensor
+    read on the device."""
     device = _check(fwd, val, z1, W2, b1, seed, rate)
     if device.type == "cpu":
         return fused_gcn_fwd_plain(fwd, val, z1, W2, b1, seed, rate)
     n, (H, C) = fwd.num_rows, W2.shape
     h1_pre, z2, out = (torch.empty((n, w), dtype=torch.float32,
-                                   device=device) for w in (H, C, C))
+                                   device=device)
+                       for w in (H, _padded(C), C))
     _launch("fused_gcn_fwd", fwd, val, z1, W2, b1, seed, None,
             (h1_pre, z2, out), rate)
-    fused_gcn_fwd.launches += 1
+    fused_gcn_fwd.launches += 2
     return h1_pre, out
 
 
 def fused_gcn_bwd(bwd: Csr, val, g2, W2, b1, h1_pre, seed, rate: float):
-    """``(gA2, dz1)`` of :func:`fused_gcn_bwd_plain`: one cooperative
-    launch of the CUDA kernel on CUDA tensors, the plain version on CPU
-    tensors."""
+    """``(gA2, dz1)`` of :func:`fused_gcn_bwd_plain`: two launches of the
+    CUDA kernels on CUDA tensors, the plain version on CPU tensors."""
     device = _check(bwd, val, g2, W2, b1, seed, rate, h1_pre, backward=True)
     if device.type == "cpu":
         return fused_gcn_bwd_plain(bwd, val, g2, W2, b1, h1_pre, seed, rate)
     n, (H, C) = bwd.num_rows, W2.shape
     gA2, dh1, dz1 = (torch.empty((n, w), dtype=torch.float32,
-                                 device=device) for w in (C, H, H))
+                                 device=device)
+                     for w in (C, _padded(H), H))
     _launch("fused_gcn_bwd", bwd, val, g2, W2, b1, seed, h1_pre,
             (gA2, dh1, dz1), rate)
-    fused_gcn_bwd.launches += 1
+    fused_gcn_bwd.launches += 2
     return gA2, dz1
 
 
@@ -212,7 +224,7 @@ fused_gcn_bwd.launches = 0
 # ---------------------------------------------------------------------------
 
 class FusedGcn2:
-    """``out = A (drop(relu(A z1 + b1)) @ W2)`` in one launch per
+    """``out = A (drop(relu(A z1 + b1)) @ W2)`` in two launches per
     direction, differentiable in (z1, W2, b1); the caller adds ``b2``.
 
     ``A`` is the edge set ``senders -> receivers`` with static

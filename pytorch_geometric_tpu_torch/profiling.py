@@ -17,8 +17,10 @@ events, with the 50 MB L2 warm between calls or flushed before each.
 
 :func:`profile_steps` and :func:`trace_summary` read a ``torch.profiler``
 window over a training step: the device's events by name against the
-host's clock, its busy and idle shares and the port's launches counted
-from the events (``chip_smoke.py``'s ``trace*`` phases and
+host's clock (each event's time not overlapped by an earlier one, so that
+kernels that run at once, as a programmatic dependent launch waiting on
+its predecessor, count once), its busy and idle shares and the port's
+launches counted from the events (``chip_smoke.py``'s ``trace*`` phases and
 ``tools/profile_epoch.py``).
 """
 
@@ -248,13 +250,33 @@ PORT_KERNEL_NAMES = ("spmm_csr", "gat_fwd_", "gat_bwd_", "rgcn_",
                      "fused_gcn")
 
 
+def busy_by_name(events):
+    """``{name: (µs, events)}`` of device events ``(start_us, end_us,
+    name)``: each event is credited with the part of its interval that no
+    event starting before it covers, so that the sum over the names is the
+    union of the intervals, the time the device was busy. Two kernels that
+    overlap (a programmatic dependent launch starts before its predecessor
+    ends and waits for it) count their common time once, for the one that
+    started first."""
+    per_name = {}
+    covered = float("-inf")
+    for start, end, name in sorted(events):
+        us = max(0.0, end - max(start, covered))
+        covered = max(covered, end)
+        total, n = per_name.get(name, (0.0, 0))
+        per_name[name] = (total + us, n + 1)
+    return per_name
+
+
 def profile_steps(run, steps, device="cuda"):
     """``torch.profiler`` over ``steps`` calls of ``run`` after five
-    untraced and three traced warm-up calls: the events summed by name,
-    as ``[(us, name, calls)]`` largest first, and the host's wall-clock
-    µs of the active window. On a card the events are the device's
-    (kernels, memsets, copies); on the CPU (``device="cpu"``) the host
-    operators' self times, so that nested operators count once."""
+    untraced and three traced warm-up calls: the events' µs by name
+    (:func:`busy_by_name`: overlapping events count once, so the µs sum
+    to the busy time), as ``[(us, name, calls)]`` largest first, and the
+    host's wall-clock µs of the active window. On a card the events are
+    the device's (kernels, memsets, copies); on the CPU
+    (``device="cpu"``) the host operators' self times, so that nested
+    operators count once."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -291,12 +313,12 @@ def profile_steps(run, steps, device="cuda"):
     if cuda:
         # device-side events only, not the host ops or annotations that
         # the profiler also credits with device time
-        for e in prof.events():
-            if (e.device_type == DeviceType.CUDA
-                    and not getattr(e, "is_user_annotation", False)
-                    and "spin_kernel" not in e.name):
-                us, n = per_name.get(e.name, (0.0, 0))
-                per_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        per_name = busy_by_name(
+            (e.time_range.start, e.time_range.end, e.name)
+            for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and "spin_kernel" not in e.name)
     else:
         for e in prof.key_averages():
             if e.self_cpu_time_total > 0 \
@@ -309,8 +331,8 @@ def profile_steps(run, steps, device="cuda"):
 
 def trace_summary(kernels, wall_us, steps, unit="epoch", top=16,
                   where="device"):
-    """Per ``unit`` of a :func:`profile_steps` window: wall and busy ms,
-    the idle share, ops, the port's kernel launches (counted from the
+    """Per ``unit`` of a :func:`profile_steps` window: wall and busy ms
+    (the union of the events' intervals), the idle share, ops, the port's kernel launches (counted from the
     device events) and µs by group (the port's kernels, the optimizer's
     multi-tensor kernels, the rest), and the ``top`` ops. ``where``
     names the busy side in the keys: ``"device"``, or ``"host"`` for a

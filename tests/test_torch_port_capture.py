@@ -216,7 +216,7 @@ EAGER_LAUNCHES = {
     ("gcn", "packed"): ({"spmm_csr": 4}, {"spmm_csr": 2}),
     ("gcn", "sorted"): ({"sorted_segment_sum": 4},
                         {"sorted_segment_sum": 2}),
-    ("gcn", "fused"): ({"fused_gcn_fwd": 1, "fused_gcn_bwd": 1},
+    ("gcn", "fused"): ({"fused_gcn_fwd": 2, "fused_gcn_bwd": 2},
                        {"spmm_csr": 2}),
     ("gcn", "dense"): ({}, {}),
     # one window of 512 holds the 150 nodes: every edge dense, one part

@@ -12,6 +12,7 @@ JAX ``FlashGatOperator``, which rounds to bf16, within 5e-2 in relative L2
 fp32 ``RgcnBasisSpmm`` within 1e-4 (as ``tests/test_torch_port_rgcn.py``).
 """
 
+import ctypes
 import shutil
 from pathlib import Path
 
@@ -168,12 +169,16 @@ def test_packed_rgcn_designs_times_the_library_beside_its_first_design():
     designs = packed_rgcn_designs.all_designs()
     assert designs[:2] == ("first", "shipped")
     assert {"blocks1", "blocks3", "blocks4", "blocks5"} <= set(designs)
-    # the forward: the first design over the receiver-major CSR, with the
-    # prefetch probe's arguments less the depth
+    # the forward: the first design over the receiver-major CSR (its CSR,
+    # xB, att and out, then n_rows, B and C); the prefetch probe takes the
+    # library's forward's arguments and the depth
     assert "rgcn_fwd_kernel<CP><<<" in source
-    pipe = rgcn_ablate.SIGNATURES["packed_rgcn_pipe_fwd"]
     first = packed_rgcn_designs.SIGNATURES["first_packed_rgcn_fwd"]
-    assert first[1] == pipe[1][:-2] + pipe[1][-1:]
+    assert first[1] == [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    pipe = rgcn_ablate.SIGNATURES["packed_rgcn_pipe_fwd"]
+    fwd = _build.SIGNATURES["packed_rgcn"]["packed_rgcn_fwd"]
+    assert pipe[1] == fwd[1][:-1] + [ctypes.c_int] + fwd[1][-1:]
     op = pr.PackedRgcnSpmm(np.array([0, 1]), np.array([1, 0]),
                            np.array([0, 1]), 2, 2, np.ones(2, np.float32),
                            device="cpu")
@@ -184,7 +189,7 @@ def test_packed_rgcn_designs_times_the_library_beside_its_first_design():
 
 @pytest.mark.parametrize("header,libraries", [
     ("row_lanes.cuh", ["flash_gat", "bsr_gat", "packed_gat",
-                       "packed_rgcn", "spmm_csr"]),
+                       "packed_rgcn", "spmm_csr", "fused_gcn"]),
     ("gat_mask.cuh", ["flash_gat", "bsr_gat"])])
 def test_build_follows_shared_headers_into_every_library(tmp_path,
                                                           monkeypatch,

@@ -30,7 +30,8 @@ from pytorch_geometric_tpu_torch.datasets import Entities, Planetoid
 from pytorch_geometric_tpu_torch.datasets import graphs
 from pytorch_geometric_tpu_torch.kernels import _build
 from probes import (bsr_gat_designs, bsr_gat_variants, flash_gat_designs,
-                    gat_ablate, packed_gat_designs, packed_gat_variants,
+                    fused_gcn_designs, gat_ablate, packed_gat_designs,
+                    packed_gat_variants,
                     packed_rgcn_designs, rgcn_ablate, rgcn_pipe_probe,
                     chunk_map_variants, segment_sum_designs,
                     spmm_csr_designs)
@@ -150,27 +151,59 @@ def test_each_mode_is_a_bit_that_the_source_tests(probe, csrc, probe_cu,
 
 
 def test_the_prefetch_depth_defaults_to_one():
-    """Depth 1 is the default and the forward's first design,
-    ``rgcn_fwd_kernel``, which stays in the library's source for the
-    probes; the deeper walk lives in the probe source, and the library
-    launches the sender-major message walk forward and the unablated
-    backward only."""
+    """Depth 1 is the default and the library's forward,
+    ``packed_rgcn_fwd`` itself; the deeper walk lives in the probe
+    source, and the library launches the sender-major message walk
+    forward and the unablated backward only."""
     params = inspect.signature(rgcn_pipe_probe.pipe_fwd).parameters
     assert params["depth"].default == 1
     assert rgcn_pipe_probe.DEPTHS[0] == 1
     source = (_build.SOURCE_DIR / "packed_rgcn.cu").read_text()
     probe_source = (REPO / "probes" / "packed_rgcn_ablate.cu").read_text()
     assert "kDepth" not in source
-    assert "rgcn_fwd_ahead_kernel<CP, kDepth, kSlots>" in probe_source
-    assert re.search(r"if \(depth == 1\) \{\s*return first_fwd\(",
+    assert "rgcn_msg_ahead_kernel<CP, G, kDepth>" in probe_source
+    assert re.search(r"if \(depth == 1\) \{\s*return packed_rgcn_fwd\(",
                      probe_source)
-    assert "rgcn_fwd_kernel<CP><<<" in probe_source
     assert "rgcn_fwd_kernel<CP><<<" not in source
     assert "\nrgcn_fwd_kernel(" in source
     assert "rgcn_msg_kernel<CP, G, true>" in source
     assert "rgcn_bwd_kernel<CP><<<" in source
     with pytest.raises(ValueError, match="depth"):
         rgcn_pipe_probe.pipe_fwd(None, None, None, None, depth=3)
+
+
+def test_the_pipe_probe_prefetches_on_the_shipped_message_walk():
+    """The prefetch kernel is the library's message walk
+    (``rgcn_msg_kernel``) with its loads ahead: the probe source includes
+    ``csrc/packed_rgcn.cu``, its walk makes the library's multiply-adds
+    and stores with the library's expressions, over the sender-major CSR,
+    with the library's launch bounds and grid, and follows it with the
+    library's segment sum; no copy of the receiver-major first design's
+    walk is left."""
+    probe_source = (REPO / "probes" / "packed_rgcn_ablate.cu").read_text()
+    source = (_build.SOURCE_DIR / "packed_rgcn.cu").read_text()
+    assert '#include "../pytorch_geometric_tpu_torch/csrc/packed_rgcn.cu"' \
+        in probe_source
+    assert [p.name for p in _build._included(rgcn_ablate.SOURCE)] == [
+        "packed_rgcn_ablate.cu", "packed_rgcn.cu", "segment_sum.cuh",
+        "row_lanes.cuh"]
+    for line in ("part = grp.sum_from(part, CP);",
+                 "msg[static_cast<size_t>(pk) * C + c] = wk * part;",
+                 "const int t = grp.bcast(my_et, k);",
+                 "__launch_bounds__(kThreads, kMsgMinBlocks)"):
+        assert line in source and line in probe_source, line
+    walk = probe_source[probe_source.index("rgcn_msg_ahead_kernel("):]
+    assert "msg_request<CP, LR, KS>(ring[(s + kDepth - 1) % kDepth]" in walk
+    assert "<<<msg_blocks(n_send, G), kThreads, smem, st>>>" in probe_source
+    assert "segment_sum::dispatch(" in probe_source
+    assert "rgcn_fwd_kernel" not in probe_source
+    assert "rgcn_fwd_ahead_kernel" not in probe_source
+    sig = rgcn_ablate.SIGNATURES["packed_rgcn_pipe_fwd"]
+    lib = _build.SIGNATURES["packed_rgcn"]["packed_rgcn_fwd"]
+    assert sig[1] == lib[1][:-1] + [lib[1][-2]] + lib[1][-1:]
+    doc = rgcn_pipe_probe.__doc__
+    assert "depth 1 is the shipped forward" in doc
+    assert "--shapes" in doc and "--depths" in doc and "--order" in doc
 
 
 @pytest.mark.parametrize("natural,want", [
@@ -269,6 +302,78 @@ def test_fused_gcn_designs_builds_through_build_source():
     text = (REPO / "probes" / "fused_gcn_designs.py").read_text()
     assert "build_source(SOURCE, SIGNATURES)" in text
     assert "getpid" not in text
+
+
+def test_fused_gcn_designs_times_the_shipped_design_beside_the_new_one():
+    """The fused GCN's design probe includes the production source (so
+    the shipped walks are the library's own code, launched with the
+    library's arguments at other values of the constants the library
+    fixes: lanes a row and edges a lane loads at once, as the library's
+    two launches, two plain ones, or both walks in one cooperative launch
+    at 1-4 blocks an SM) and keeps the earlier design verbatim in its own
+    namespace with the library's arguments; its library name hashes
+    ``csrc/fused_gcn.cu`` and ``row_lanes.cuh``, and its cases cover both
+    graphs and rates of the main path's calls at every lane count and
+    grid. The library's walks are the CSR SpMM's row walk."""
+    source = fused_gcn_designs.SOURCE.read_text()
+    assert '#include "../pytorch_geometric_tpu_torch/csrc/fused_gcn.cu"' \
+        in source
+    assert "namespace earlier_design {" in source
+    earlier = source[source.index("namespace earlier_design {"):
+                     source.index("}  // namespace earlier_design")]
+    # the earlier design: the serial walk, the per-node pass, two barriers
+    assert "for (int e = e0; e < e1; ++e) {" in earlier
+    assert "transform_fwd(p);" in earlier and "transform_bwd(p);" in earlier
+    assert earlier.count("grid.sync();") == 2
+    # the shipped walks through the library's own set-up and launches
+    assert "return with_shape<kBwd, NB>(p, lanes," in source
+    assert "return launch_walks<kBwd, L, V, NB>(q, s);" in source
+    assert "return launch_plain<kBwd, L, V, NB>(q, s);" in source
+    assert "earlier_design::launch<true>(p, s)" in source
+    assert [p.name for p in _build._included(fused_gcn_designs.SOURCE)] == [
+        "fused_gcn_designs.cu", "fused_gcn.cu", "row_lanes.cuh"]
+    # the direction, then the library backward's arguments (the forward's
+    # have no h1_pre: the probe passes None); the design's knobs before
+    # the stream
+    import ctypes
+
+    lib = _build.SIGNATURES["fused_gcn"]["fused_gcn_bwd"]
+    earlier_sig = fused_gcn_designs.SIGNATURES["probe_earlier"]
+    design = fused_gcn_designs.SIGNATURES["probe_design"]
+    assert earlier_sig[1] == [ctypes.c_int] + lib[1]
+    assert design[1] == earlier_sig[1][:-1] + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    names = fused_gcn_designs.variants()
+    assert names["earlier"] is None
+    assert {f"coop_l{lanes}_b{bps}_e{nb}" for lanes in (4, 8, 16)
+            for bps in (1, 2, 4) for nb in (4, 8)} | {
+        f"{form}_l{lanes}_e{nb}" for form in ("two", "pdl")
+        for lanes in (4, 8, 16) for nb in (4, 8)} \
+        == set(names) - {"earlier"}
+    assert fused_gcn_designs.CASES == (("cora", 7), ("pubmed_rcm", 3))
+    assert fused_gcn_designs.RATES == (0.0, 0.5)
+    library = (_build.SOURCE_DIR / "fused_gcn.cu").read_text()
+    assert '#include "row_lanes.cuh"' in library
+    # lanes a row, edges a lane and the programmatic launch are constants
+    assert "with_shape<kBwd, kBatch>(\n      p, kLanes," in library
+    assert "cfg.numAttrs = 1;" in library
+    # both walks are the CSR SpMM's row walk
+    assert library.count("sum_row<L, V, NB>(") == 1
+    spmm = (_build.SOURCE_DIR / "spmm_csr.cu").read_text()
+    assert spmm.count("sum_row<L, V, NB>(") == 1
+    # the library's two launches, the second programmatic: it loads its
+    # CSR before it waits for the first's writes
+    assert "this_grid" not in library
+    second = library[library.index("fused_gcn_second_kernel(Params p"):]
+    assert second.index("second_start<L, NB>(p)") \
+        < second.index('asm volatile("griddepcontrol.wait;"')
+    assert "cudaLaunchAttributeProgrammaticStreamSerialization" in library
+    # the probe's cooperative form: one barrier between the walks
+    coop = source[source.index("fused_gcn_coop_kernel(Params p) {"):]
+    coop = coop[:coop.index("\n}\n")]
+    assert coop.count("cg::this_grid().sync();") == 1
+    assert coop.index("second_start<L, NB>(p)") \
+        < coop.index("first_walk<kBwd, L, V, NB>(p)")
 
 
 def test_bsr_gat_designs_times_the_library_beside_its_first_design():
@@ -627,7 +732,7 @@ def _ctypes_kind(t):
 @pytest.mark.parametrize("module", [
     "library", "gat_ablate", "rgcn_ablate", "bsr_gat_designs",
     "packed_gat_designs", "flash_gat_designs", "packed_rgcn_designs",
-    "spmm_csr_designs", "segment_sum_designs"])
+    "spmm_csr_designs", "segment_sum_designs", "fused_gcn_designs"])
 def test_every_loader_signature_is_its_sources_entry_point(module):
     """Each ctypes signature that a loader declares (the library's per
     source, each probe's) names an ``extern "C"`` function of the source

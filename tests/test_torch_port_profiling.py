@@ -167,6 +167,33 @@ def test_bound_ms_takes_the_larger_time():
     assert ms == pytest.approx(2.0) and by == "operations"
 
 
+@pytest.mark.parametrize("events,want", [
+    # apart: each its own time
+    ([(0.0, 2.0, "a"), (3.0, 4.0, "b")], {"a": (2.0, 1), "b": (1.0, 1)}),
+    # a programmatic dependent launch that starts before its predecessor
+    # ends: the common time counts once, for the first
+    ([(2.0, 15.0, "fused_gcn_second"), (0.0, 10.0, "fused_gcn_first")],
+     {"fused_gcn_first": (10.0, 1), "fused_gcn_second": (5.0, 1)}),
+    # one inside another: no time of its own, one event
+    ([(0.0, 10.0, "a"), (2.0, 5.0, "b"), (12.0, 13.0, "b")],
+     {"a": (10.0, 1), "b": (1.0, 2)}),
+])
+def test_busy_by_name_counts_overlapping_events_once(events, want):
+    """The device's busy time is the union of its events' intervals, so
+    a trace's idle share and each group's µs do not count the time in
+    which one kernel waits for another that still runs."""
+    got = profiling.busy_by_name(events)
+    assert got == want
+    kernels = sorted(((us, name, n) for name, (us, n) in got.items()),
+                     reverse=True)
+    union = sum(us for us, _ in want.values())
+    summary, port = profiling.trace_summary(kernels, 20.0, 1)
+    assert summary["device_busy_ms_per_epoch"] == pytest.approx(union / 1e3)
+    assert summary["device_idle_share"] == pytest.approx(1 - union / 20.0)
+    assert port == sum(n for name, (_, n) in want.items()
+                       if "fused_gcn" in name)
+
+
 @pytest.mark.parametrize("bad", ["sender_negative", "receiver_past_end"])
 def test_debug_flag_validates_gather_aggregate_edges_like_jax(bad):
     """Under the flag the port's gather-aggregate ``ops/spmm.py:spmm``
