@@ -101,9 +101,11 @@ Phases, one JSON line each:
                  equal;
                - the graph-level examples' shapes: spmm_csr on a MUTAG
                  batch's operator (examples/mutag_gin.py: 32 graphs
-                 padded to 1024 nodes and 4096 edges, the padding edges
-                 on the padding node's row) at F = 7 and 32, both
-                 directions; the readouts' segment sum over the batch
+                 padded to 1024 nodes and 4096 edges) at F = 7 and 32,
+                 both directions, over the real edges (mutag_operators)
+                 and, in the same call, over every edge slot (the
+                 padding edges on the padding node's row), the two
+                 bitwise equal; the readouts' segment sum over the batch
                  vector (``pool_operator``: a row a graph, the padding
                  graph's long) at MUTAG's F = 32, ENZYMES' 129 (the mean
                  pool's 128 channels and count) and QM9's Set2Set 64 and
@@ -250,16 +252,23 @@ Phases, one JSON line each:
    slice_ppi — examples/ppi.py's run (PPI: 20 synthetic train graphs
                of ~2300 nodes, 50 features, 121 labels; GAT 4 x 256,
                4 x 256 + skip, 6 x 121 mean + skip; Adam 5e-3) for 10
-               epochs, eager, every attention layer through the
-               PackedFlashGat of its batch, built once on the host and
-               reused: packed-GAT launches asserted as 10 epochs x (20
-               train batches x 3 forward + 1 val batch x 3) = 630 and
-               10 x 20 x 6 = 1200 backward; losses finite, the last
-               epoch's mean below the first's; val micro-F1 beside the
-               all-positive predictor's (not gated); wall and operator
-               build seconds, peak device memory; the logits after three
-               steps from the same parameters and batches, card against
-               the plain path on the CPU (1e-4);
+               epochs, captured (the default: the training step and the
+               prediction each a CUDA graph over static buffers of its
+               loader's budget), then eager on the same batches, every
+               attention layer through the PackedFlashGat of its batch,
+               built once on the host and kept on the card (captured:
+               copied into the static operator): packed-GAT launches
+               asserted in both runs as 10 epochs x (20 train batches x
+               3 forward + 1 val batch x 3) = 630 and 10 x 20 x 6 =
+               1200 backward (captured: step x replays + warm-up, by
+               stage); every step's loss and the final parameters,
+               captured against eager, within 1e-6; losses finite, the
+               last epoch's mean below the first's; val micro-F1 beside
+               the all-positive predictor's (not gated); each run's
+               seconds and ms a step, the captures' seconds, the host ms
+               a batch, operator build seconds, peak device memory; the
+               logits after three steps from the same parameters and
+               batches, card against the plain path on the CPU (1e-4);
    slice_faust — examples/faust.py's run (six SplineConv layers, dim 3,
                kernel size 5, 1 -> 32 -> 64 x 5, Dense 256, a class per
                vertex; Adam 1e-2) for 3 epochs at FAUST's published
@@ -276,14 +285,20 @@ Phases, one JSON line each:
    slice_mutag_gin — examples/mutag_gin.py's run (five GINConv over
                MLPs 7 -> 32 -> 32 with MaskedBatchNorm, a trained eps,
                global_add_pool, Dense 32 and 2; Adam 0.01, batches of 32,
-               30 epochs over the synthetic MUTAG of 188 graphs), eager,
-               one operator set a batch built on the host (the GIN sums'
-               SpmmOperator, the readout's SortedSegmentSum): launches
-               asserted as 30 x (6 train batches x (9 spmm_csr + 1
-               segment sum) + 1 test batch x (5 + 1)); the loss falling;
-               test accuracy beside the majority class's (not gated);
-               the logits after three steps (SGD), card against the
-               plain path on the CPU (1e-4);
+               30 epochs over the synthetic MUTAG of 188 graphs),
+               captured (the default, as slice_ppi), then eager on the
+               same batches, one operator set a batch built on the host
+               (the GIN sums' SpmmOperator over the batch's real edges,
+               the readout's SortedSegmentSum; captured: copied into the
+               static operators through pinned memory): launches
+               asserted in both runs as 30 x (6 train batches x (9
+               spmm_csr + 1 segment sum) + 1 test batch x (5 + 1));
+               captured against eager within 1e-6 (every step's loss,
+               the final parameters and running statistics); the loss
+               falling; test accuracy beside the majority class's (not
+               gated); each run's seconds and ms a step, the host ms a
+               batch; the logits after three steps (SGD), card against
+               the plain path on the CPU (1e-4);
    slice_topk, slice_diff_pool, slice_qm9, slice_autoencoder,
    slice_infomax — examples/enzymes_topk_pool.py (20 epochs),
                enzymes_diff_pool.py (8), qm9_nn_conv.py (5, 1000
@@ -413,12 +428,15 @@ Phases, one JSON line each:
                share, the port's kernel launches per epoch from the device
                events;
    trace_ppi — the same over 20 eager training steps of the PPI example
-               cycling over its train batches (9 port launches a step);
+               cycling over its train batches (9 port launches a step),
+               then over 20 replays of the step captured over its static
+               batch, each after a batch is copied in ("captured": true);
    trace_faust — the same over 20 eager training steps of the FAUST
                example (11 port launches a step);
    trace_mutag_gin — the same over 20 eager training steps of the MUTAG
                example (10 port launches a step), with the host's
-               operator-set build time a batch;
+               operator-set build time a batch, then over 20 captured
+               replays, as trace_ppi;
    trace_mnist_graclus — the same over 20 eager training steps of the
                mnist_graclus example (6 port launches a step);
    trace_reddit_sage — the same over 20 eager reddit_sage steps, the
@@ -1466,8 +1484,8 @@ def phase_kernel_ppi(gen):
 
 #: The kernel cases of the graph-level examples (the graphs of their
 #: ``kernels`` line rows).
-GRAPH_LEVEL_CASES = ("mutag_gin", "mutag_gin_pool", "enzymes_pool",
-                     "qm9_nnconv", "qm9_pool")
+GRAPH_LEVEL_CASES = ("mutag_gin", "mutag_gin_padded", "mutag_gin_pool",
+                     "enzymes_pool", "qm9_nnconv", "qm9_pool")
 
 
 def graph_example_batch(name):
@@ -1484,8 +1502,10 @@ def graph_example_batch(name):
 def phase_kernel_graph(gen):
     """The kernels at the graph-level examples' shapes, fp32: ``spmm_csr``
     on a MUTAG batch's operator (examples/mutag_gin.py: 32 graphs of ~18
-    nodes and the padding edges on the padding node's row) at conv1's
-    F = 7 and the hidden 32, both directions; the segment sum of the
+    nodes) at conv1's F = 7 and the hidden 32, both directions, over the
+    real entries (``mutag_operators``, "mutag_gin") and in the same call
+    over every edge slot ("mutag_gin_padded": the padding edges on the
+    padding node's row), the two outputs bitwise equal; the segment sum of the
     readouts, ``pool_operator`` over the batch vector (rows = graphs of
     ~18 nodes, and the padding graph's long row): MUTAG's add pool at
     F = 32, ENZYMES' mean pool (its 128 channels and the count, 64
@@ -1494,17 +1514,37 @@ def phase_kernel_graph(gen):
     F = 64."""
     from pytorch_geometric_tpu_torch.examples import mutag_gin, qm9_nn_conv
 
+    from pytorch_geometric_tpu_torch.ops.spmm import SpmmOperator, spmm_csr
+
     cases = []
     _, mutag = graph_example_batch("mutag_gin")
     ops = mutag_gin.mutag_operators(mutag)
-    val_f, val_b = ops["spmm_op"].route_weights(
-        mutag.real_edge_mask().float())
-    for direction, csr, val, widths in (
-            ("fwd", ops["spmm_op"].fwd, val_f, (7, 32)),
-            ("bwd", ops["spmm_op"].bwd, val_b, (32,))):
-        for f in widths:
-            cases.append(check_case("mutag_gin", csr, val, direction, f,
-                                    "fp32", gen))
+    padded = SpmmOperator(mutag.senders, mutag.receivers, mutag.num_nodes,
+                          device=DEVICE)
+    w = mutag.real_edge_mask().float()
+    pairs = {}
+    for name, op in (("mutag_gin", ops["spmm_op"]),
+                     ("mutag_gin_padded", padded)):
+        val_f, val_b = op.route_weights(w)
+        pairs[name] = {"fwd": (op.fwd, val_f), "bwd": (op.bwd, val_b)}
+        for direction, widths in (("fwd", (7, 32)), ("bwd", (32,))):
+            csr, val = pairs[name][direction]
+            for f in widths:
+                cases.append(check_case(name, csr, val, direction, f,
+                                        "fp32", gen))
+    # the operator over the real entries is the padded one, bitwise
+    for direction in ("fwd", "bwd"):
+        x = torch.randn(mutag.num_nodes, 32, generator=gen, device=DEVICE)
+        got, want = (spmm_csr(*pairs[name][direction], x)
+                     for name in ("mutag_gin", "mutag_gin_padded"))
+        same = bool(torch.equal(got, want))
+        emit({"phase": "kernel", "kernel": "spmm_csr",
+              "graph": "mutag_gin", "direction": direction, "F": 32,
+              "real_entries_bitwise_the_padded_operator": same})
+        if not same:
+            raise AssertionError(f"mutag_gin {direction}: the operator over "
+                                 "the real entries differs from the padded "
+                                 "one")
     cases.append(check_sorted_case("mutag_gin_pool", ops["pool_op"].csr,
                                    "fwd", 32, "fp32", gen))
     _, enzymes = graph_example_batch("enzymes_topk_pool")
@@ -2539,46 +2579,38 @@ def phase_slice_ppi():
     """examples/ppi.py's run on the card at its full widths: PPI (20
     synthetic train graphs of ~2300 nodes, 2 val graphs) -> DataLoader
     (batches of 1 shuffled from SEED; the val graphs in one batch) ->
-    ``run`` for 10 epochs, eager, every attention layer through one
-    ``PackedFlashGat`` of its batch, built once on the host and reused.
-    Launches asserted as epochs x (train batches x 3 forward + 6
-    backward, val batches x 3 forward); every loss finite and the last
-    epoch's mean below the first's; val micro-F1 beside the all-positive
-    predictor's (the synthetic labels come from a fresh projection per
-    graph, so F1 is printed, not gated); wall seconds, the operators'
-    host build seconds and the peak of device memory; and the logits
-    after three steps from the same parameters and batches on the card
-    against the plain path on the CPU (1e-4)."""
-    import contextlib
-    import io
-
+    ``run`` for 10 epochs as a user runs it, captured (the default: the
+    training step and the prediction each a CUDA graph over static
+    buffers of its loader's budget, every attention layer through the
+    static ``PackedFlashGat`` into which each batch's operator, built
+    once on the host and kept on the card, is copied), then eager
+    (``capture=False``) on fresh loaders of the same seed
+    (:func:`_capture_pair`: device launches as epochs x (train batches x
+    3 forward + 6 backward, val batches x 3 forward) in both runs, every
+    step's loss and the final parameters within 1e-6). Every loss
+    finite and the last epoch's mean below the first's; val micro-F1
+    beside the all-positive predictor's (the synthetic labels come from a
+    fresh projection per graph, so F1 is printed, not gated); each run's
+    seconds and ms a step, the capture's seconds, the host ms a batch,
+    the operators' host build seconds and the peak of device memory; and
+    the logits after three steps from the same parameters and batches on
+    the card against the plain path on the CPU (1e-4)."""
     from pytorch_geometric_tpu_torch.examples import ppi
-    from pytorch_geometric_tpu_torch.models.capture import launch_counts
 
     t0 = time.perf_counter()
     train, val = ppi.load(SEED, device=DEVICE)
     load_seconds = time.perf_counter() - t0
     batches = {"train": len(train), "val": len(val)}
-    expected = {n: PPI_EPOCHS * (batches["train"]
-                                 * PPI_STEP_LAUNCHES.get(n, 0)
-                                 + batches["val"]
-                                 * PPI_EVAL_LAUNCHES.get(n, 0))
-                for n in launch_counts()}
     statement = {
         n: f"{PPI_EPOCHS} epochs x ({batches['train']} train batches x "
            f"{PPI_STEP_LAUNCHES[n]} + {batches['val']} val batch x "
-           f"{PPI_EVAL_LAUNCHES.get(n, 0)}) = {expected[n]}"
-        for n in PPI_STEP_LAUNCHES}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start = torch.cuda.memory_allocated()
-    before = launch_counts()
-    printed = io.StringIO()
-    with contextlib.redirect_stdout(printed):
-        out = ppi.run(PPI_EPOCHS, SEED, DEVICE, loaders=(train, val))
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    launches = {n: v - before[n] for n, v in launch_counts().items()}
+           f"{PPI_EVAL_LAUNCHES.get(n, 0)})" for n in PPI_STEP_LAUNCHES}
+    out, _, report, problems = _capture_pair(
+        lambda capture: ppi.run(PPI_EPOCHS, SEED, DEVICE,
+                                loaders=ppi.load(SEED, device=DEVICE),
+                                capture=capture),
+        PPI_STEP_LAUNCHES, PPI_EVAL_LAUNCHES, PPI_EPOCHS * batches["train"],
+        PPI_EPOCHS * batches["val"], statement)
     ys, masks = [], []
     for graph in val:
         ys.append(graph.y.cpu().numpy())
@@ -2593,14 +2625,7 @@ def phase_slice_ppi():
     parity = _rel(card, cpu)
     losses = out["step_losses"]
     epochs = out["epoch_losses"]
-    problems = []
-    if launches != expected:
-        problems.append(f"launches {launches}, expected {expected}")
-    if not np.isfinite(losses).all():
-        problems.append("non-finite training loss")
-    if not epochs[-1] < epochs[0]:
-        problems.append(f"last epoch's mean loss {epochs[-1]} not below the "
-                        f"first's {epochs[0]}")
+    _falling(epochs, problems)
     if not (torch.isfinite(card).all() and parity <= 1e-4):
         problems.append(f"logits after 3 steps: card vs CPU rel err "
                         f"{parity}")
@@ -2609,7 +2634,7 @@ def phase_slice_ppi():
                     "epochs": PPI_EPOCHS, "batches": batches,
                     "train_budget": [train.num_nodes, train.num_edges],
                     "val_budget": [val.num_nodes, val.num_edges],
-                    "seconds": out["seconds"],
+                    **report,
                     "ms_per_epoch": out["seconds"] / PPI_EPOCHS * 1e3,
                     "load_seconds": load_seconds,
                     "operators": out["operators"],
@@ -2618,13 +2643,6 @@ def phase_slice_ppi():
                     "first_loss": float(losses[0, 0]),
                     "final_loss": float(losses[-1, -1]),
                     "val_f1": out["f1"], "all_positive_f1": all_positive_f1,
-                    "printed": printed.getvalue().splitlines(),
-                    "launches": {n: v for n, v in launches.items() if v},
-                    "expected_launches": {n: v for n, v in expected.items()
-                                          if v},
-                    "launch_statement": statement,
-                    "max_memory_allocated": peak,
-                    "run_peak_bytes": peak - start,
                     "logits_shape": list(cpu.shape),
                     "logits_cuda_vs_cpu_rel_err": parity,
                     "params_cuda_vs_cpu_rel_err": params_err}, problems)
@@ -2797,6 +2815,78 @@ def _example_run(run, expected, statement):
     return out, report, problems
 
 
+def _capture_pair(run, step, evaluation, steps, evals, statement):
+    """An inductive example's run as a user runs it (``run(None)``:
+    captured, the default on a card) and then eager (``run(False)``),
+    each on fresh loaders from the same seed, so both see the same
+    batches in the same order. ``step`` and ``evaluation`` are the
+    launches of one training step and one evaluation batch; ``steps`` and
+    ``evals`` their counts over the run. The captured run's device
+    launches (captured step x replays + warm-up, for the training step
+    and the evaluation, ``device_launches``) must equal the eager run's
+    count, ``steps x step + evals x evaluation``, its wrapper calls the
+    two warm-ups' and the two captures', and its launches by stage the
+    step's and the evaluation's; every step's loss and the final
+    parameters and buffers within 1e-6 of the eager run's largest
+    magnitude. ``(captured out, eager out, report, problems)``."""
+    names = set(step) | set(evaluation)
+    expected = {n: steps * step.get(n, 0) + evals * evaluation.get(n, 0)
+                for n in names}
+    calls = {n: 2 * (step.get(n, 0) + evaluation.get(n, 0)) for n in names}
+    statement = {n: f"{v} = {expected[n]}" for n, v in statement.items()}
+    out, report, problems = _example_run(lambda: run(None), calls,
+                                         statement)
+    report["wrapper_calls"] = report.pop("launches")
+    report["expected_wrapper_calls"] = report.pop("expected_launches")
+    ran = out["device_launches"]
+    report["launches"] = ran
+    report["expected_launches"] = expected
+    if ran != expected:
+        problems.append(f"captured run: device launches {ran}, expected "
+                        f"{expected}")
+    want_stages = {
+        "train": {"warm_up": step, "captured": step, "replays": steps - 1},
+        "evaluation": {"warm_up": evaluation, "captured": evaluation,
+                       "replays": evals - 1}}
+    if out["launches"] != want_stages:
+        problems.append(f"launches by stage {out['launches']}, expected "
+                        f"{want_stages}")
+    eager, eager_report, eager_problems = _example_run(
+        lambda: run(False), expected, statement)
+    problems += [f"eager run: {p}" for p in eager_problems]
+    losses, eager_losses = out["step_losses"], eager["step_losses"]
+    loss_err = float(np.abs(losses - eager_losses).max()
+                     / np.abs(eager_losses).max())
+    ref = dict(eager["model"].state_dict())
+    scale = max(float(v.abs().max()) for v in ref.values()
+                if v.is_floating_point())
+    state_err = max(float((v - ref[k]).abs().max())
+                    for k, v in out["model"].state_dict().items()
+                    if v.is_floating_point()) / scale
+    if not (loss_err <= 1e-6 and state_err <= 1e-6):
+        problems.append(f"captured vs eager: step losses {loss_err}, "
+                        f"parameters and buffers {state_err} (need <= 1e-6)")
+    report.update({
+        "ms_per_step": (out["seconds"] - out["capture_seconds"]) / steps
+        * 1e3,
+        "capture_seconds": out["capture_seconds"],
+        "host_ms_per_batch": out["host_seconds"] / out["host_batches"]
+        * 1e3,
+        "host_collate_ms_per_batch": out["host_collate_seconds"]
+        / out["host_batches"] * 1e3,
+        "host_operator_ms_per_batch": out["host_operator_seconds"]
+        / out["host_batches"] * 1e3,
+        "launch_stages": out["launches"],
+        "eager_seconds": eager["seconds"],
+        "eager_ms_per_step": eager["seconds"] / steps * 1e3,
+        "eager_launches": eager_report["launches"],
+        "eager_run_peak_bytes": eager_report["run_peak_bytes"],
+        "eager_printed": eager_report["printed"],
+        "captured_vs_eager_step_loss_rel_err": loss_err,
+        "captured_vs_eager_state_rel_err": state_err})
+    return out, eager, report, problems
+
+
 def _falling(losses, problems, what="epoch"):
     losses = np.asarray(losses)
     if not np.isfinite(losses).all():
@@ -2834,31 +2924,36 @@ def phase_slice_mutag_gin():
     defaults: five GINConv over MLPs 7 -> 32 -> 32 with MaskedBatchNorm
     and a trained eps, global_add_pool, Dense 32 and Dense 2; Adam 0.01,
     batches of 32, 30 epochs over the synthetic MUTAG (188 graphs of ~18
-    nodes, 7 labels, 2 classes; 169 train, 18 test), eager, one operator
-    set a batch built on the host (``mutag_operators``: the GIN sums'
-    ``SpmmOperator`` and the readout's ``SortedSegmentSum``). Launches
-    asserted as epochs x (train batches x 10 + test batches x 6); every
-    loss finite and the last epoch's mean below the first's; test
-    accuracy beside the majority class's (not gated); wall seconds, the
-    operator sets built and their host seconds; and the logits after
-    three steps, card against the plain path on the CPU (1e-4)."""
+    nodes, 7 labels, 2 classes; 169 train, 18 test), as a user runs it,
+    captured (the default: the training step and the evaluation each a
+    CUDA graph over static buffers of its loader's budget; each batch's
+    operator set, ``mutag_operators`` over its real edges, built on the
+    host and copied in through pinned memory), then eager
+    (``capture=False``) on fresh loaders of the same seed
+    (:func:`_capture_pair`: device launches as epochs x (train batches x
+    10 + test batches x 6) in both runs, every step's loss and the final
+    parameters and running statistics within 1e-6). Every loss finite and
+    the last epoch's mean below the first's; test accuracy beside the
+    majority class's (not gated); each run's seconds and ms a step, the
+    capture's seconds, the host ms a batch (collation, the operators'
+    build, the copies), the operator sets built and their host seconds;
+    and the logits after three steps, card against the plain path on the
+    CPU (1e-4)."""
     from pytorch_geometric_tpu_torch.examples import mutag_gin
 
     train, test = mutag_gin.load(SEED, device=DEVICE)
     batches = {"train": len(train), "test": len(test)}
-    names = set(MUTAG_STEP_LAUNCHES) | set(MUTAG_EVAL_LAUNCHES)
-    expected = {n: MUTAG_EPOCHS * (batches["train"]
-                                   * MUTAG_STEP_LAUNCHES.get(n, 0)
-                                   + batches["test"]
-                                   * MUTAG_EVAL_LAUNCHES.get(n, 0))
-                for n in names}
     statement = {
         n: f"{MUTAG_EPOCHS} epochs x ({batches['train']} train batches x "
            f"{MUTAG_STEP_LAUNCHES[n]} + {batches['test']} test batch x "
-           f"{MUTAG_EVAL_LAUNCHES[n]}) = {expected[n]}" for n in names}
-    out, report, problems = _example_run(
-        lambda: mutag_gin.run(MUTAG_EPOCHS, 32, SEED, DEVICE,
-                              loaders=(train, test)), expected, statement)
+           f"{MUTAG_EVAL_LAUNCHES[n]})" for n in MUTAG_STEP_LAUNCHES}
+    out, _, report, problems = _capture_pair(
+        lambda capture: mutag_gin.run(
+            MUTAG_EPOCHS, 32, SEED, DEVICE,
+            loaders=mutag_gin.load(SEED, device=DEVICE), capture=capture),
+        MUTAG_STEP_LAUNCHES, MUTAG_EVAL_LAUNCHES,
+        MUTAG_EPOCHS * batches["train"], MUTAG_EPOCHS * batches["test"],
+        statement)
     _falling(out["epoch_losses"], problems)
     ys = np.concatenate([g.y[g.graph_mask].cpu().numpy() for g in test])
     majority = float(max(np.mean(ys == 0), np.mean(ys == 1)))
@@ -2871,6 +2966,8 @@ def phase_slice_mutag_gin():
                     "epochs": MUTAG_EPOCHS, "batches": batches,
                     "budget": [train.num_nodes, train.num_edges,
                                train.num_graphs],
+                    "test_budget": [test.num_nodes, test.num_edges,
+                                    test.num_graphs],
                     **report,
                     "ms_per_epoch": out["seconds"] / MUTAG_EPOCHS * 1e3,
                     "ms_per_step_with_its_share_of_evaluation":
@@ -4278,7 +4375,9 @@ def phase_trace_ppi(steps=20):
     """Where a PPI training step's time goes: ``torch.profiler`` over
     ``steps`` eager steps of examples/ppi.py's ``train_step`` (a fresh
     ``Net``, Adam) cycling over the 20 train batches, collated and their
-    operators built before the window; 9 port launches a step."""
+    operators built before the window; then over ``steps`` replays of the
+    step captured over its static batch (:func:`trace_captured_step`);
+    9 port launches a step in both."""
     from pytorch_geometric_tpu_torch.examples import ppi
 
     train, _ = ppi.load(SEED, device=DEVICE)
@@ -4302,6 +4401,43 @@ def phase_trace_ppi(steps=20):
         raise AssertionError(f"ppi: {port_launches / steps} port kernel "
                              f"launches per step on the trace, expected "
                              f"{want}")
+    captured = trace_captured_step(
+        ppi, train, [(graph, {"flash_op": op}) for graph, op in batches],
+        ppi.Net(generator=torch.Generator().manual_seed(SEED)), 5e-3,
+        steps, want, "ppi")
+    return {"eager": result, "captured": captured}
+
+
+def trace_captured_step(module, loader, batches, model, lr, steps, want,
+                        name):
+    """Where a captured training step's time goes: ``torch.profiler`` over
+    ``steps`` calls of the example's captured training step
+    (``module.captured_steps``: a ``CapturedStep`` over its static batch
+    of ``loader``'s budget), each after the next of ``batches`` (collated
+    on the card, their operators built before the window) is copied into
+    the static buffers, device to device; ``model`` on the card, Adam
+    (capturable) at ``lr``. ``want`` port launches a step."""
+    dev = torch.device(DEVICE)
+    model = model.to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=lr, capturable=True)
+    # profile_steps calls the step 8 + steps times
+    static, _, step, _, _ = module.captured_steps(model, opt, loader, loader,
+                                                  8 + steps, dev)
+    cycle = itertools.cycle(batches)
+
+    def run():
+        static.load(*next(cycle))
+        step()
+
+    kernels, wall_us = profile_steps(run, steps)
+    summary, port_launches = trace_summary(kernels, wall_us, steps, "step")
+    result = {"phase": f"trace_{name}", "captured": True, "steps": steps,
+              **summary, "expected_port_launches_per_step": want}
+    emit(result)
+    if port_launches != want * steps:
+        raise AssertionError(f"{name}: {port_launches / steps} port kernel "
+                             f"launches per captured step on the trace, "
+                             f"expected {want}")
     return result
 
 
@@ -4345,8 +4481,9 @@ def phase_trace_mutag_gin(steps=20):
     """Where a MUTAG training step's time goes: ``torch.profiler`` over
     ``steps`` eager steps of examples/mutag_gin.py's ``train_step`` (a
     fresh ``Net``, Adam 0.01) cycling over one epoch's train batches,
-    collated and their operator sets built before the window; 10 port
-    launches a step."""
+    collated and their operator sets built before the window; then over
+    ``steps`` replays of the step captured over its static batch
+    (:func:`trace_captured_step`); 10 port launches a step in both."""
     from pytorch_geometric_tpu_torch.examples import mutag_gin
     from pytorch_geometric_tpu_torch.examples.ppi import OperatorCache
 
@@ -4374,7 +4511,11 @@ def phase_trace_mutag_gin(steps=20):
         raise AssertionError(f"mutag_gin: {port_launches / steps} port "
                              f"kernel launches per step on the trace, "
                              f"expected {want}")
-    return result
+    captured = trace_captured_step(
+        mutag_gin, train, batches,
+        mutag_gin.Net(generator=torch.Generator().manual_seed(SEED)), 0.01,
+        steps, want, "mutag_gin")
+    return {"eager": result, "captured": captured}
 
 
 # ---------------------------------------------------------------------------

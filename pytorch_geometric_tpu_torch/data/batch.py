@@ -132,7 +132,11 @@ def collate(
         graph_arrays[k] = arr
 
     if sort_edges:
-        order = np.argsort(receivers, kind="stable")
+        # one stable order whatever the algorithm; for keys below 2^16
+        # numpy's stable sort of uint16 is a radix sort, ~5x faster at
+        # PPI's 98,304 edge slots (the host's share of a captured step)
+        keys = receivers.astype(np.uint16) if N <= 1 << 16 else receivers
+        order = np.argsort(keys, kind="stable")
         senders, receivers = senders[order], receivers[order]
         edge_mask = edge_mask[order]
         edge_arrays = {k: v[order] for k, v in edge_arrays.items()}

@@ -83,9 +83,13 @@ class DataLoader(_Batches):
         self.num_edges = num_edges
         self.num_graphs = batch_size + 1
 
-    def indexed(self) -> Iterator[Tuple[np.ndarray, Graph]]:
+    def indexed(self, device=None) -> Iterator[Tuple[np.ndarray, Graph]]:
         """One epoch of ``(dataset indices, batch)`` pairs, for callers
-        that keep something per batch (a fused operator per graph)."""
+        that keep something per batch (a fused operator per graph);
+        ``device`` (default the loader's) is where the batches land: a
+        captured step collates on the host (``"cpu"``) and copies each
+        batch into its static buffers itself."""
+        device = self.device if device is None else resolve_device(device)
         for chunk in self._chunks():
             datas = [self.dataset[int(i)] for i in chunk]
             nn_, ne_ = self.num_nodes, self.num_edges
@@ -96,7 +100,7 @@ class DataLoader(_Batches):
                                           1)), ne_)
             yield chunk, collate(datas, num_nodes=nn_, num_edges=ne_,
                                  num_graphs=self.num_graphs,
-                                 device=self.device)
+                                 device=device)
 
     def __iter__(self) -> Iterator[Graph]:
         for _, graph in self.indexed():

@@ -14,11 +14,23 @@ graph, over ``gat_sparse_edge_set`` (the sparse path's softmax slots:
 repeated edges kept, existing self loops dropped, one loop a node), so
 it computes the sparse path's function. The operator is built on the
 host once per distinct batch, keyed by the batch's dataset indices, and
-reused in every epoch (:class:`OperatorCache`). The step runs eagerly:
-each batch has its own operator. Prints the JAX script's line per epoch.
+reused in every epoch (:class:`OperatorCache`).
+
+The JAX script jits its training step and its prediction once over the
+loaders' static budgets. Here, on a card, each is a CUDA graph captured
+once (``models/capture.py:CapturedStep``, ``capture=None`` or ``True``):
+the train batches (3,072 nodes) and the val batch (6,144) each have
+static buffers (:func:`static_batch`: the graph and a
+``StaticPackedFlashGat`` of the edge budget plus a loop a node). Each
+batch is collated on the host and copied in, its cached operator's CSRs
+device to device, then the graph replays; the losses stay on the card
+until the epoch ends. ``capture=False`` runs the same steps eagerly over
+each batch's own tensors (the CPU's only mode). Prints the JAX script's
+line per epoch.
 """
 
 import argparse
+import functools
 import time
 
 import numpy as np
@@ -31,9 +43,13 @@ from pytorch_geometric_tpu_torch.data.graph import Graph
 from pytorch_geometric_tpu_torch.datasets import PPI
 from pytorch_geometric_tpu_torch.datasets.graphs import PLANETOID_ROOT
 from pytorch_geometric_tpu_torch.device import resolve_device
+from pytorch_geometric_tpu_torch.models.capture import (
+    CapturedStep, DeviceCurve, StaticBatch, captured_metrics,
+    resolve_capture, static_batches)
 from pytorch_geometric_tpu_torch.nn.conv import GATConv, gat_sparse_edge_set
 from pytorch_geometric_tpu_torch.nn.layers import Dense
-from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
+from pytorch_geometric_tpu_torch.ops.packed_gat import (
+    PackedFlashGat, StaticPackedFlashGat)
 
 
 class Net(nn.Module):
@@ -69,11 +85,22 @@ def micro_f1(pred, y, mask):
     return 2 * tp / denom if denom else 0.0
 
 
-def ppi_flash_op(graph: Graph) -> PackedFlashGat:
-    """The batch's fused attention operator, on the graph's device."""
+def ppi_flash_op(graph: Graph, device=None) -> PackedFlashGat:
+    """The batch's fused attention operator, on ``device`` (default: the
+    graph's)."""
     senders, receivers = gat_sparse_edge_set(graph)
     return PackedFlashGat(senders=senders, receivers=receivers,
-                          num_nodes=graph.num_nodes, device=graph.device)
+                          num_nodes=graph.num_nodes,
+                          device=graph.device if device is None else device)
+
+
+def static_batch(loader: DataLoader, device) -> StaticBatch:
+    """The static buffers of ``loader``'s budget on ``device``: its graph
+    and a ``StaticPackedFlashGat`` (``flash_op``) of the edge budget plus
+    a self loop a node, which every batch's operator fits."""
+    return StaticBatch(loader, {"flash_op": StaticPackedFlashGat(
+        loader.num_nodes, loader.num_edges + loader.num_nodes,
+        device=device)}, device)
 
 
 class OperatorCache:
@@ -106,25 +133,51 @@ def bce_loss(logits, graph: Graph):
 
 
 def train_step(model: Net, opt, graph: Graph, op):
-    """One Adam step on one batch; the loss stays on the device."""
-    opt.zero_grad(set_to_none=True)
+    """One Adam step on one batch, the gradients zeroed in place (a
+    captured step keeps them); the loss stays on the device."""
+    opt.zero_grad(set_to_none=False)
     loss = bce_loss(model(graph, graph.x, flash_op=op), graph)
     loss.backward()
     opt.step()
     return loss.detach()
 
 
-def evaluate(model: Net, loader: DataLoader, ops: OperatorCache):
-    """Micro-F1 of ``logits > 0`` over the loader's real nodes."""
+def f1_of(pairs):
+    """Micro-F1 of ``logits > 0`` over the real nodes of ``(batch,
+    logits)`` pairs."""
     preds, ys, masks = [], [], []
-    with torch.no_grad():
-        for idx, graph in loader.indexed():
-            logits = model(graph, graph.x, flash_op=ops(idx, graph))
-            preds.append((logits > 0).float().cpu().numpy())
-            ys.append(graph.y.cpu().numpy())
-            masks.append(graph.node_mask.cpu().numpy())
+    for graph, logits in pairs:
+        preds.append((logits > 0).float().cpu().numpy())
+        ys.append(graph.y.cpu().numpy())
+        masks.append(graph.node_mask.cpu().numpy())
     return micro_f1(np.concatenate(preds), np.concatenate(ys),
                     np.concatenate(masks))
+
+
+def evaluate(model: Net, loader: DataLoader, ops: OperatorCache):
+    """Micro-F1 of ``logits > 0`` over the loader's real nodes."""
+    with torch.no_grad():
+        return f1_of((graph, model(graph, graph.x, flash_op=ops(idx, graph)))
+                     for idx, graph in loader.indexed())
+
+
+def captured_steps(model: Net, opt, train_loader: DataLoader,
+                   val_loader: DataLoader, steps: int, dev):
+    """``(train, val, step, predict, curve)``: the static batches of both
+    loaders, the training step over ``train`` (its loss into the next row
+    of ``curve``, a :class:`DeviceCurve` of ``steps`` rows) and the
+    prediction over ``val``, each a :class:`CapturedStep`."""
+    train, val = static_batch(train_loader, dev), static_batch(val_loader,
+                                                               dev)
+    curve = DeviceCurve(steps, 1, dev)
+    step = CapturedStep(lambda: curve.record(train_step(
+        model, opt, train.graph, train.ops["flash_op"])), dev)
+
+    def logits():
+        with torch.no_grad():
+            return model(val.graph, val.graph.x, flash_op=val.ops["flash_op"])
+
+    return train, val, step, CapturedStep(logits, dev), curve
 
 
 def load(seed: int = 0, root=PLANETOID_ROOT, device="cuda"):
@@ -138,36 +191,64 @@ def load(seed: int = 0, root=PLANETOID_ROOT, device="cuda"):
     return train_loader, val_loader
 
 
-def run(epochs: int = 10, seed: int = 0, device="cuda", loaders=None):
+def run(epochs: int = 10, seed: int = 0, device="cuda", loaders=None,
+        capture=None):
     """Train and print the JAX script's line per epoch. ``loaders``
-    (train, val) replaces :func:`load`'s. Returns the last val F1, the
-    mean loss of each epoch, every step's loss, the operators built, the
-    host seconds their build took and the run's seconds."""
+    (train, val) replaces :func:`load`'s. ``capture`` (see the module
+    docstring) None means captured on a card and eager on the CPU; True
+    elsewhere than a card raises. Returns the last val F1, the mean loss
+    of each epoch, every step's loss, the operators built, the host
+    seconds their build took, the run's seconds and the model; a captured
+    run adds what ``models/capture.py:captured_metrics`` gives."""
     dev = resolve_device(device)
+    capture = resolve_capture(capture, dev)
     train_loader, val_loader = loaders or load(seed, device=dev)
     # the JAX script takes its first batch to shape the model, which
     # draws one epoch's order from the loader's generator
     g0 = next(iter(train_loader))
     model = Net(g0.num_node_features, g0.y.shape[1],
                 generator=torch.Generator().manual_seed(seed)).to(dev)
-    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
-    train_ops, val_ops = OperatorCache(), OperatorCache()
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3,
+                           capturable=dev.type == "cuda")
+    if capture:
+        # one operator a distinct batch, kept on the card
+        build = functools.partial(ppi_flash_op, device=dev)
+        train_ops = OperatorCache(lambda g: {"flash_op": build(g)})
+        val_ops = OperatorCache(lambda g: {"flash_op": build(g)})
+        train, val, step, predict, curve = captured_steps(
+            model, opt, train_loader, val_loader,
+            epochs * len(train_loader), dev)
+        host = {}
+    else:
+        train_ops, val_ops = OperatorCache(), OperatorCache()
     epoch_losses, step_losses = [], []
     t0 = time.perf_counter()
     for epoch in range(1, epochs + 1):
-        losses = [train_step(model, opt, graph, train_ops(idx, graph))
-                  for idx, graph in train_loader.indexed()]
-        f1 = evaluate(model, val_loader, val_ops)
-        losses = torch.stack(losses).cpu().numpy()
+        if capture:
+            for _ in static_batches(train_loader, train_ops, train, host):
+                step()
+            f1 = f1_of((graph, predict()) for graph in static_batches(
+                val_loader, val_ops, val, host))
+            n = len(train_loader)
+            losses = curve.host((epoch - 1) * n, epoch * n)[:, 0]
+        else:
+            losses = [train_step(model, opt, graph, train_ops(idx, graph))
+                      for idx, graph in train_loader.indexed()]
+            f1 = evaluate(model, val_loader, val_ops)
+            losses = torch.stack(losses).cpu().numpy()
         step_losses.append(losses)
         epoch_losses.append(float(np.mean(losses)))
         print(f"Epoch {epoch:02d}, Loss: {epoch_losses[-1]:.4f}, "
               f"Val F1: {f1:.4f}")
-    return {"f1": f1, "epoch_losses": epoch_losses,
-            "step_losses": np.stack(step_losses),
-            "operators": len(train_ops.ops) + len(val_ops.ops),
-            "operator_seconds": train_ops.seconds + val_ops.seconds,
-            "seconds": time.perf_counter() - t0}
+    out = {"f1": f1, "epoch_losses": epoch_losses,
+           "step_losses": np.stack(step_losses),
+           "operators": len(train_ops.ops) + len(val_ops.ops),
+           "operator_seconds": train_ops.seconds + val_ops.seconds,
+           "seconds": time.perf_counter() - t0, "model": model}
+    if capture:
+        out.update(captured_metrics(
+            {"train": step, "evaluation": predict}, host))
+    return out
 
 
 if __name__ == "__main__":

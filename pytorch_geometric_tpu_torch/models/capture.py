@@ -37,16 +37,34 @@ none. A captured run therefore reports its launches by stage
 (``metrics["launches"]``: the warm-up epoch, the captured epoch, the
 number of replays, the evaluation), and :func:`device_launches` states
 the launches the card ran as captured × replays + warm-up + evaluation.
+
+The inductive examples (examples/ppi.py, examples/mutag_gin.py) run one
+step a batch, and the JAX scripts jit that step once over the loader's
+static budget. Their counterpart is :class:`CapturedStep` over a
+:class:`StaticBatch`: buffers of the budget's shapes (the batch's graph,
+:func:`static_graph`, and its operators' static forms, whose CSRs hold
+the real entries and leave the spare slots unread). Each batch is
+collated on the host and copied in on the current stream, with its
+operators' CSRs (:func:`static_batches`); the first call of the step is
+the warm-up, a real step on a side stream, then the capture; every later
+call replays. A training step writes its loss into a
+:class:`DeviceCurve`, which the host reads once an epoch; the
+evaluation is a step of its own, captured at the evaluation loader's
+budget. A loader with ``dynamic_buckets`` has no single shape, so
+:func:`static_graph` refuses it.
 """
 
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
 
+from pytorch_geometric_tpu_torch.data.batch import collate
+from pytorch_geometric_tpu_torch.data.graph import Graph
 from pytorch_geometric_tpu_torch.ops import (
     bsr_gat, flash_gat, fused_gcn, packed_gat, packed_rgcn, sorted_spmm,
     spmm)
+from pytorch_geometric_tpu_torch.ops.csr import copy_into
 
 #: Every kernel wrapper of the port that counts its launches.
 COUNTED_WRAPPERS = (spmm.spmm_csr, packed_gat.packed_gat_fwd,
@@ -83,11 +101,12 @@ def device_launches(launches: Dict[str, Any]) -> Dict[str, int]:
     """The launches the card ran over a captured run, per wrapper, from
     its ``metrics["launches"]``: captured epoch × replays + warm-up +
     evaluation."""
-    names = sorted(set(launches["warm_up"]) | set(launches["captured_epoch"])
-                   | set(launches["evaluation"]))
-    return {n: launches["captured_epoch"].get(n, 0) * launches["replays"]
-            + launches["warm_up"].get(n, 0)
-            + launches["evaluation"].get(n, 0) for n in names}
+    total = replayed_launches({"warm_up": launches["warm_up"],
+                               "captured": launches["captured_epoch"],
+                               "replays": launches["replays"]})
+    for name, v in launches["evaluation"].items():
+        total[name] = total.get(name, 0) + v
+    return dict(sorted(total.items()))
 
 
 def warm_up(body: Callable[[], Any], dev: torch.device):
@@ -144,14 +163,11 @@ def run_epochs(epoch_step, eval_fn, epochs: int,
     if capture and epochs < 1:
         raise ValueError(f"a captured run needs at least one epoch, got "
                          f"{epochs}")
-    curve = torch.zeros((epochs, 2), dtype=torch.float32, device=dev)
-    epoch = torch.zeros(1, dtype=torch.int64, device=dev)
+    curve = DeviceCurve(epochs, 2, dev)
 
     def body():
         out = epoch_step(generator)
-        row = torch.stack([out["loss"].float(), out["train_acc"].float()])
-        curve.index_copy_(0, epoch, row[None])
-        epoch.add_(1)
+        curve.record(out["loss"], out["train_acc"])
 
     metrics: Dict[str, Any] = {}
     _synchronize(dev)
@@ -185,7 +201,7 @@ def run_epochs(epoch_step, eval_fn, epochs: int,
         seconds = time.perf_counter() - t0
 
     metrics.update({k: float(v) for k, v in final.items()})
-    host = curve.cpu().numpy()
+    host = curve.host()
     metrics["curve"] = ({"loss": host[:, 0].copy(),
                          "train_acc": host[:, 1].copy()} if epochs else {})
     metrics["seconds"] = seconds
@@ -195,3 +211,193 @@ def run_epochs(epoch_step, eval_fn, epochs: int,
 def _synchronize(dev: torch.device):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+class DeviceCurve:
+    """A ``(rows, cols)`` fp32 buffer on ``dev`` and a device-side row
+    counter: :meth:`record` writes the next row with no host wait (inside
+    a captured graph too, where each replay writes the row after the last
+    one); :meth:`host` copies rows to the host."""
+
+    def __init__(self, rows: int, cols: int, dev: torch.device):
+        self.values = torch.zeros((rows, cols), dtype=torch.float32,
+                                  device=dev)
+        self.row = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def record(self, *values):
+        """Write ``values`` (device scalars, one a column) at the counter's
+        row and advance it."""
+        row = torch.stack([v.detach().float() for v in values])
+        self.values.index_copy_(0, self.row, row[None])
+        self.row.add_(1)
+
+    def host(self, start: int = 0, stop: Optional[int] = None):
+        """Rows ``start`` to ``stop`` as a numpy array (one wait for the
+        card)."""
+        return self.values[start:stop].cpu().numpy()
+
+
+def replayed_launches(launches: Dict[str, Any]) -> Dict[str, int]:
+    """The launches the card ran over a :class:`CapturedStep`'s calls,
+    per wrapper, from its ``launches``: captured × replays + warm-up."""
+    names = set(launches["warm_up"]) | set(launches["captured"])
+    return {n: launches["captured"].get(n, 0) * launches["replays"]
+            + launches["warm_up"].get(n, 0) for n in sorted(names)}
+
+
+def captured_metrics(steps: Dict[str, "CapturedStep"],
+                     host: Dict[str, float]) -> Dict[str, Any]:
+    """What a run of captured steps reports beside its seconds:
+    ``capture_seconds`` (every step's warm-up and capture),
+    ``host_seconds``, ``host_collate_seconds``,
+    ``host_operator_seconds`` and ``host_batches`` (:func:`static_batches`),
+    ``launches`` by step and stage, and ``device_launches``, the launches
+    the card ran, per wrapper, over all the steps."""
+    total: Dict[str, int] = {}
+    for step in steps.values():
+        for name, v in replayed_launches(step.launches).items():
+            total[name] = total.get(name, 0) + v
+    return {"capture_seconds": sum(s.capture_seconds
+                                   for s in steps.values()),
+            **{f"host_{k}": v for k, v in host.items()},
+            "launches": {k: s.launches for k, s in steps.items()},
+            "device_launches": total}
+
+
+class CapturedStep:
+    """``body()`` over static buffers, called once a batch. Captured
+    (``capture=True``, a CUDA device): the first call is the warm-up, one
+    real call on a side stream (:func:`warm_up`), after which ``body`` is
+    captured once (:func:`capture_epoch`); every later call replays the
+    graph. Each call returns ``body``'s output: the warm-up's, then the
+    captured output tensor, which each replay rewrites (read it before
+    the next call). Eager (``capture=False``): ``body()`` each call.
+
+    ``capture_seconds`` is the warm-up and the capture, up to a device
+    synchronisation; ``launches`` the counted wrappers' launches by stage
+    (``warm_up``, ``captured``, ``replays``; :func:`replayed_launches`).
+    A capture that fails raises; nothing runs the step eagerly in its
+    place."""
+
+    def __init__(self, body: Callable[[], Any], dev: torch.device,
+                 capture: bool = True):
+        if capture and dev.type != "cuda":
+            raise ValueError(f"a captured step needs a CUDA device, got "
+                             f"{dev}")
+        self.body, self.dev, self.capture = body, dev, capture
+        self.graph = None
+        self.out = None
+        self.capture_seconds = 0.0
+        self.launches = {"warm_up": {}, "captured": {}, "replays": 0}
+
+    def __call__(self):
+        if not self.capture:
+            return self.body()
+        if self.graph is not None:
+            self.graph.replay()
+            self.launches["replays"] += 1
+            return self.out
+        warm, captured = [], []
+        _synchronize(self.dev)
+        counts = [launch_counts()]
+        t0 = time.perf_counter()
+        warm_up(lambda: warm.append(self.body()), self.dev)
+        counts.append(launch_counts())
+        self.graph = capture_epoch(lambda: captured.append(self.body()),
+                                   None, self.dev)
+        counts.append(launch_counts())
+        _synchronize(self.dev)
+        self.capture_seconds = time.perf_counter() - t0
+        self.out = captured[0]
+        self.launches["warm_up"] = _launched(counts[1], counts[0])
+        self.launches["captured"] = _launched(counts[2], counts[1])
+        return warm[0]
+
+
+def static_graph(loader, device) -> Graph:
+    """A graph of ``loader``'s static budget (nodes, edges, graphs) whose
+    tensors are new buffers on ``device``: one record of its dataset
+    collated at the budget gives the shapes and dtypes, and no batch
+    order is drawn. A loader with ``dynamic_buckets`` pads each batch to
+    its own size, so no captured step has one shape for it: it raises."""
+    if getattr(loader, "dynamic_buckets", False):
+        raise ValueError("a loader with dynamic_buckets has no single "
+                         "static shape to capture a step over (pass "
+                         "capture=False, or a loader without it)")
+    return collate([loader.dataset[0]], num_nodes=loader.num_nodes,
+                   num_edges=loader.num_edges, num_graphs=loader.num_graphs,
+                   device="cpu").to(device)
+
+
+def _tensors(graph: Graph) -> Dict[str, torch.Tensor]:
+    fields = {name: getattr(graph, name) for name in (
+        "senders", "receivers", "x", "edge_attr", "pos", "y", "node_mask",
+        "edge_mask", "batch")}
+    fields.update({f"extras.{k}": v for k, v in graph.extras.items()})
+    return {k: v for k, v in fields.items() if isinstance(v, torch.Tensor)}
+
+
+def load_graph(static: Graph, graph: Graph) -> Graph:
+    """Copy ``graph``'s tensors into ``static``'s buffers in place, on the
+    current stream and without a host wait (a host batch through pinned
+    memory). The two must have the same fields, shapes and dtypes."""
+    dst, src = _tensors(static), _tensors(graph)
+    if set(dst) != set(src) or static.num_graphs != graph.num_graphs or \
+            any(dst[k].shape != v.shape or dst[k].dtype != v.dtype
+                for k, v in src.items()):
+        raise ValueError(
+            "the batch does not fit the static graph: "
+            f"{ {k: (tuple(v.shape), v.dtype) for k, v in src.items()} }, "
+            f"{graph.num_graphs} graphs against "
+            f"{ {k: (tuple(v.shape), v.dtype) for k, v in dst.items()} }, "
+            f"{static.num_graphs}")
+    for k, v in src.items():
+        copy_into(dst[k], v)
+    return static
+
+
+class StaticBatch:
+    """The static buffers of one loader's budget on ``device``: ``graph``
+    (:func:`static_graph`) and ``ops``, the batch's operators in their
+    static forms (each with ``load``). A captured step reads only these."""
+
+    def __init__(self, loader, ops: Dict[str, Any], device):
+        self.graph = static_graph(loader, device)
+        self.ops = ops
+
+    def load(self, graph: Graph, ops: Dict[str, Any]):
+        """Copy a batch and its operators in (same names as ``ops``)."""
+        if set(ops) != set(self.ops):
+            raise ValueError(f"operators {sorted(ops)}, the static batch "
+                             f"holds {sorted(self.ops)}")
+        load_graph(self.graph, graph)
+        for name, op in ops.items():
+            self.ops[name].load(op)
+
+
+def static_batches(loader, operators: Callable, static: StaticBatch,
+                   host: Dict[str, float]) -> Iterator[Graph]:
+    """One epoch of ``loader``, collated on the host: each batch's
+    operators (``operators(indices, graph)``, a dict of ``static``'s
+    names) and the batch itself copied into ``static``; yields the host
+    batch once the copies are enqueued. ``host["seconds"]`` adds each
+    batch's host time (collation, the operators' build or lookup, the
+    copies), ``host["collate_seconds"]`` and ``host["operator_seconds"]``
+    the collation's and the operators' shares, and ``host["batches"]``
+    counts them."""
+    batches = loader.indexed(device="cpu")
+    while True:
+        t0 = time.perf_counter()
+        try:
+            idx, graph = next(batches)
+        except StopIteration:
+            return
+        t1 = time.perf_counter()
+        ops = operators(idx, graph)
+        t2 = time.perf_counter()
+        static.load(graph, ops)
+        for key, dt in (("seconds", time.perf_counter() - t0),
+                        ("collate_seconds", t1 - t0),
+                        ("operator_seconds", t2 - t1), ("batches", 1)):
+            host[key] = host.get(key, 0) + dt
+        yield graph

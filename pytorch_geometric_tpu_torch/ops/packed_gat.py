@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from pytorch_geometric_tpu_torch.ops.csr import (
-    Csr, build_csr, host_array)
+    Csr, StaticCsr, build_csr, copy_into, host_array, real_entries)
 
 _MASK32 = 0xFFFFFFFF
 
@@ -97,11 +97,15 @@ def _leaky(z, slope):
 
 
 def _csr_rows(csr: Csr, device):
-    """The row of each edge of ``csr``, int64."""
+    """``(rows, cols)``, int64: the row and column of each of the
+    :func:`real_entries` of ``csr`` (a static CSR's spare slots are never
+    read)."""
+    nnz = real_entries(csr)
     counts = (csr.row_ptr[1:] - csr.row_ptr[:-1]).long()
-    return torch.repeat_interleave(
+    rows = torch.repeat_interleave(
         torch.arange(csr.num_rows, device=device), counts,
-        output_size=csr.num_edges)    # known size: no device sync
+        output_size=nnz)    # known size: no device sync
+    return rows, csr.col[:nnz].long()
 
 
 def receiver_max(csr: Csr, s):
@@ -110,9 +114,9 @@ def receiver_max(csr: Csr, s):
     Plain PyTorch (``scatter_reduce``): the forward's shift on the CPU and
     the reference the kernel's ``m`` is held to on the card."""
     s = s.detach()
-    rows = _csr_rows(csr, s.device)
+    rows, cols = _csr_rows(csr, s.device)
     return torch.zeros_like(s).scatter_reduce(
-        0, rows[:, None].expand(-1, s.shape[1]), s[csr.col.long()],
+        0, rows[:, None].expand(-1, s.shape[1]), s[cols],
         "amax", include_self=False)
 
 
@@ -133,7 +137,7 @@ def _edge_terms(csr: Csr, d, s, m, seed, rate, slope):
     position): receiver and sender ids, the pre-activation logit, the
     exp shifted by the receiver's ``leaky(m + d)`` and keep * scale (a
     tensor, or the float scale where nothing is dropped)."""
-    recv, send = _csr_rows(csr, d.device), csr.col.long()
+    recv, send = _csr_rows(csr, d.device)
     zpre = s[send] + d[recv]
     ex = torch.exp(_leaky(zpre, slope) - _leaky(m[recv] + d[recv], slope))
     thresh, scale = dropout_threshold(rate), dropout_scale(rate)
@@ -141,7 +145,7 @@ def _edge_terms(csr: Csr, d, s, m, seed, rate, slope):
         ks = scale
     else:
         heads = torch.arange(d.shape[1], device=d.device)
-        eid = torch.arange(csr.num_edges, device=d.device)
+        eid = torch.arange(recv.shape[0], device=d.device)
         bits = edge_keep_bits(seed.long(), eid[:, None], heads[None])
         ks = torch.where(bits >= thresh, scale, 0.0).float()
     return recv, send, zpre, ex, ks
@@ -371,6 +375,41 @@ class PackedFlashGat:
         # output is 0, and the gradient must flow through a finite branch
         den = torch.where(den < 1e-16, 1.0, den)
         return (num.reshape(n, H, C) / den[:, :, None]).reshape(n, H * C)
+
+
+class StaticPackedFlashGat(PackedFlashGat):
+    """A :class:`PackedFlashGat` of ``num_nodes`` nodes in static
+    buffers on ``device``: both CSRs with ``capacity`` entry slots and
+    the sender-major edge ids, loaded in place from the operator of each
+    batch (:meth:`load`), which a captured step reads. A batch's edge
+    list (``gat_sparse_edge_set``: its real edges and a loop a node) fits
+    a capacity of the loader's edge budget plus ``num_nodes``. The CSR
+    position stays the edge id that dropout hashes."""
+
+    def __init__(self, num_nodes: int, capacity: int, *,
+                 negative_slope: float = 0.2, device="cuda"):
+        from pytorch_geometric_tpu_torch.device import resolve_device
+
+        dev = resolve_device(device)
+        self.n, self.E = int(num_nodes), int(capacity)
+        self.slope = float(negative_slope)
+        self.device = dev
+        self.fwd, self.bwd = (StaticCsr.empty(self.n, self.n, self.E, dev)
+                              for _ in range(2))
+        self.bwd_eid = torch.zeros(self.E, dtype=torch.int32, device=dev)
+        self._seeds = {}
+
+    def load(self, op: PackedFlashGat) -> "StaticPackedFlashGat":
+        """Copy ``op`` (a batch's operator, on the host or the card) in on
+        the current stream, without a host wait."""
+        if op.n != self.n or op.slope != self.slope:
+            raise ValueError(f"an operator of {op.n} nodes (slope "
+                             f"{op.slope}) does not fit static buffers of "
+                             f"{self.n} (slope {self.slope})")
+        self.fwd.load(op.fwd)
+        self.bwd.load(op.bwd)
+        copy_into(self.bwd_eid, op.bwd_eid)
+        return self
 
 
 class _PackedGatRaw(torch.autograd.Function):

@@ -37,7 +37,8 @@ import ctypes
 import numpy as np
 import torch
 
-from pytorch_geometric_tpu_torch.ops.csr import Csr, build_csr, host_array
+from pytorch_geometric_tpu_torch.ops.csr import (
+    Csr, StaticCsr, build_csr, copy_into, host_array)
 
 
 # ---------------------------------------------------------------------------
@@ -46,15 +47,19 @@ from pytorch_geometric_tpu_torch.ops.csr import Csr, build_csr, host_array
 
 def sorted_segment_sum_plain(row_ptr, msgs):
     """``out[r] = sum_{p in row r} msgs[p]`` in fp32, in plain PyTorch
-    (``index_add_`` over the row ids): the kernel's reference."""
+    (``index_add_`` over the row ids): the kernel's reference. On the CPU
+    it sums the first ``row_ptr[-1]`` messages; on the card ``msgs`` must
+    hold exactly that many (reading it would wait for the card)."""
     num_rows = row_ptr.shape[0] - 1
+    nnz = int(row_ptr[-1]) if row_ptr.device.type == "cpu" \
+        else msgs.shape[0]
     counts = (row_ptr[1:] - row_ptr[:-1]).long()
     rows = torch.repeat_interleave(
         torch.arange(num_rows, device=msgs.device), counts,
-        output_size=msgs.shape[0])    # known size: no device sync
+        output_size=nnz)    # known size: no device sync
     out = torch.zeros((num_rows, msgs.shape[1]), dtype=torch.float32,
                       device=msgs.device)
-    return out.index_add_(0, rows, msgs.float())
+    return out.index_add_(0, rows, msgs[:nnz].float())
 
 
 def _check(row_ptr, msgs):
@@ -208,6 +213,42 @@ class SortedSegmentSum:
         out = sorted_segment_sum(self.csr.row_ptr,
                                  flat.to(self.compute_dtype))
         return out.reshape((self.num_nodes,) + tuple(msgs.shape[1:]))
+
+
+class StaticSegmentSum(SortedSegmentSum):
+    """A :class:`SortedSegmentSum` of ``num_entries`` messages into
+    ``num_rows`` rows in static buffers on ``device``, loaded in place
+    from an operator of each batch (:meth:`load`), which a captured step
+    reads. Every message has a row (a readout's batch vector: one entry
+    a node), so the entries fill the buffers exactly."""
+
+    def __init__(self, num_rows: int, num_entries: int, *,
+                 compute_dtype=torch.float32, device="cuda"):
+        from pytorch_geometric_tpu_torch.device import resolve_device
+
+        dev = resolve_device(device)
+        self.compute_dtype = _message_dtype(compute_dtype)
+        self.num_nodes = int(num_rows)
+        self.csr = StaticCsr.empty(self.num_nodes, self.num_nodes,
+                                   num_entries, dev)
+        self.receivers = torch.zeros(num_entries, dtype=torch.int64,
+                                     device=dev)
+
+    def load(self, op: SortedSegmentSum) -> "StaticSegmentSum":
+        """Copy ``op`` (a batch's operator of as many rows and entries, on
+        the host or the card) in on the current stream, without a host
+        wait."""
+        if (op.num_nodes, op.receivers.shape[0], op.compute_dtype) != (
+                self.num_nodes, self.receivers.shape[0],
+                self.compute_dtype):
+            raise ValueError(f"a segment sum of {op.receivers.shape[0]} "
+                             f"entries into {op.num_nodes} rows "
+                             f"({op.compute_dtype}) does not fit static "
+                             f"buffers of {self.receivers.shape[0]} into "
+                             f"{self.num_nodes} ({self.compute_dtype})")
+        self.csr.load(op.csr)
+        copy_into(self.receivers, op.receivers)
+        return self
 
 
 class _SegSumApply(torch.autograd.Function):

@@ -40,7 +40,7 @@ import torch
 
 from pytorch_geometric_tpu_torch.debug import is_debug_enabled
 from pytorch_geometric_tpu_torch.ops.csr import (
-    Csr, build_csr, host_array)
+    Csr, StaticCsr, build_csr, copy_into, host_array, real_entries)
 from pytorch_geometric_tpu_torch.ops.segment import scatter
 
 
@@ -84,12 +84,15 @@ def spmm(senders, receivers, x, num_nodes, weights=None, reduce="sum",
 
 def spmm_csr_plain(csr: Csr, val, x):
     """``out[r] = sum_{p in row r} val[p] * x[col[p]]`` in fp32, in plain
-    PyTorch: the kernel's reference."""
+    PyTorch: the kernel's reference. It sums the first
+    :func:`real_entries` positions (a static CSR's spare slots are never
+    read)."""
+    nnz = real_entries(csr)
     counts = (csr.row_ptr[1:] - csr.row_ptr[:-1]).long()
     rows = torch.repeat_interleave(
         torch.arange(csr.num_rows, device=x.device), counts,
-        output_size=csr.num_edges)    # known size: no device sync
-    msg = x[csr.col.long()].float() * val[:, None]
+        output_size=nnz)    # known size: no device sync
+    msg = x[csr.col[:nnz].long()].float() * val[:nnz, None]
     out = torch.zeros((csr.num_rows, x.shape[1]), dtype=torch.float32,
                       device=x.device)
     return out.index_add_(0, rows, msg)
@@ -162,6 +165,12 @@ class SpmmOperator:
     ``compute_dtype=torch.bfloat16`` hands x to the kernel in bf16
     (products and sums stay fp32); the output is always fp32.
 
+    ``edge_mask`` (E,) builds both CSRs over the edges it marks only: the
+    weights stay (E,) in edge order, and an edge left out must have
+    weight 0 (a collated batch's padding edges, ``graph.edge_mask``).
+    Every row's sum is then bitwise the full operator's, and the padding
+    node's row holds no entry for one group of lanes to walk.
+
     Usage::
 
         op = SpmmOperator(senders, receivers, num_nodes, device="cuda")
@@ -169,19 +178,20 @@ class SpmmOperator:
     """
 
     def __init__(self, senders, receivers, num_nodes, *,
-                 compute_dtype=torch.float32, device="cuda"):
+                 compute_dtype=torch.float32, edge_mask=None,
+                 device="cuda"):
         from pytorch_geometric_tpu_torch.device import resolve_device
 
         dev = resolve_device(device)
-        if compute_dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"compute_dtype must be float32 or bfloat16, "
-                            f"got {compute_dtype}")
+        _compute_name(compute_dtype)
         s = host_array(senders)
         r = host_array(receivers)
+        edges = None if edge_mask is None else \
+            np.flatnonzero(host_array(edge_mask))
         self.num_nodes = int(num_nodes)
         self.compute_dtype = compute_dtype
-        self.fwd = build_csr(r, s, self.num_nodes).to(dev)
-        self.bwd = build_csr(s, r, self.num_nodes).to(dev)
+        self.fwd = build_csr(r, s, self.num_nodes, edges=edges).to(dev)
+        self.bwd = build_csr(s, r, self.num_nodes, edges=edges).to(dev)
         self.senders = torch.from_numpy(s.astype(np.int64)).to(dev)
         self.receivers = torch.from_numpy(r.astype(np.int64)).to(dev)
 
@@ -239,6 +249,48 @@ class SpmmOperator:
 
     def __call__(self, weights, x):
         return _SpmmApply.apply(weights, x, self)
+
+
+class StaticSpmmOperator(SpmmOperator):
+    """A :class:`SpmmOperator` in static buffers: both CSRs with
+    ``num_edges`` entry slots (:class:`~.csr.StaticCsr`) and the (E,)
+    edge lists, on ``device``, loaded in place from an operator of each
+    batch (:meth:`load`). A captured step reads these buffers, so one
+    CUDA graph serves every batch of a loader's budget; the calls are
+    :class:`SpmmOperator`'s."""
+
+    def __init__(self, num_nodes: int, num_edges: int, *,
+                 compute_dtype=torch.float32, device="cuda"):
+        from pytorch_geometric_tpu_torch.device import resolve_device
+
+        dev = resolve_device(device)
+        _compute_name(compute_dtype)
+        self.num_nodes = int(num_nodes)
+        self.compute_dtype = compute_dtype
+        self.fwd, self.bwd = (StaticCsr.empty(self.num_nodes, self.num_nodes,
+                                              num_edges, dev)
+                              for _ in range(2))
+        self.senders, self.receivers = (
+            torch.zeros(num_edges, dtype=torch.int64, device=dev)
+            for _ in range(2))
+
+    def load(self, op: SpmmOperator) -> "StaticSpmmOperator":
+        """Copy ``op`` (a batch's operator, on the host or the card) in on
+        the current stream, without a host wait."""
+        if op.num_nodes != self.num_nodes or \
+                op.compute_dtype != self.compute_dtype or \
+                op.senders.shape != self.senders.shape:
+            raise ValueError(f"an operator of {op.num_nodes} nodes and "
+                             f"{op.senders.shape[0]} edges "
+                             f"({op.compute_dtype}) does not fit static "
+                             f"buffers of {self.num_nodes} and "
+                             f"{self.senders.shape[0]} "
+                             f"({self.compute_dtype})")
+        self.fwd.load(op.fwd)
+        self.bwd.load(op.bwd)
+        copy_into(self.senders, op.senders)
+        copy_into(self.receivers, op.receivers)
+        return self
 
 
 class _BoundSpmm(torch.autograd.Function):
