@@ -106,10 +106,14 @@ Phases, one JSON line each:
                  and, in the same call, over every edge slot (the
                  padding edges on the padding node's row), the two
                  bitwise equal; the readouts' segment sum over the batch
-                 vector (``pool_operator``: a row a graph, the padding
-                 graph's long) at MUTAG's F = 32, ENZYMES' 129 (the mean
-                 pool's 128 channels and count) and QM9's Set2Set 64 and
-                 1; QM9's NNConv messages by receiver at 64; fp32 (1e-5);
+                 vector's real nodes (``pool_operator``: a row a graph)
+                 at MUTAG's F = 32, ENZYMES' 129 (the mean pool's 128
+                 channels and count) and QM9's Set2Set 64 and 1; QM9's
+                 NNConv messages by receiver over the real edges at 64
+                 and its gather by sender's sum; MUTAG's readout and
+                 QM9's two sums at 64 also over every slot (the padding
+                 rows) in the same call, the two bitwise equal; fp32
+                 (1e-5);
    kernel_faust — spmm_csr on examples/faust.py's rectangular spline
                operator of a mesh at the published vertex count (8192
                padded nodes x K = 125 rows over 8192 columns) and its
@@ -123,8 +127,12 @@ Phases, one JSON line each:
                (64 graphs, N = 6144: conv1's at F = 1, conv2's at F = 32
                both directions) and the segment sum at its pools' means
                (F = 3), its readout (F = 65) and mnist_nn_conv's NNConv
-               sums by receiver (F = 32 and 64), padding rows included,
-               fp32 (1e-5), cuSPARSE or torch.segment_reduce beside them;
+               sums by receiver (F = 32 and 64) and gather by sender (32),
+               over the batch's real entries, and the pools', the
+               readout's and level 0's NNConv sum also over every slot
+               (the padding rows) in the same call, the two bitwise
+               equal; fp32 (1e-5), cuSPARSE or torch.segment_reduce
+               beside them;
    kernel_scale — HybridSpmm on Cora (windows of 512) beside one fp32
                spmm_csr over the same edges (1e-2 of the fp32 plain
                version); BlockSpmm on bench_scale.py's community graph at
@@ -261,8 +269,8 @@ Phases, one JSON line each:
                asserted in both runs as 10 epochs x (20 train batches x
                3 forward + 1 val batch x 3) = 630 and 10 x 20 x 6 =
                1200 backward (captured: step x replays + warm-up, by
-               stage); every step's loss and the final parameters,
-               captured against eager, within 1e-6; losses finite, the
+               stage); every step's loss, the final parameters and the
+               F1, captured against eager, bitwise; losses finite, the
                last epoch's mean below the first's; val micro-F1 beside
                the all-positive predictor's (not gated); each run's
                seconds and ms a step, the captures' seconds, the host ms
@@ -293,35 +301,49 @@ Phases, one JSON line each:
                static operators through pinned memory): launches
                asserted in both runs as 30 x (6 train batches x (9
                spmm_csr + 1 segment sum) + 1 test batch x (5 + 1));
-               captured against eager within 1e-6 (every step's loss,
-               the final parameters and running statistics); the loss
-               falling; test accuracy beside the majority class's (not
-               gated); each run's seconds and ms a step, the host ms a
-               batch; the logits after three steps (SGD), card against
-               the plain path on the CPU (1e-4);
+               captured against eager bitwise (every step's loss, the
+               final parameters and running statistics, the accuracy);
+               the loss falling; test accuracy beside the majority
+               class's (not gated); each run's seconds and ms a step, the
+               host ms a batch; the logits after three steps (SGD),
+               card against the plain path on the CPU (1e-4);
    slice_topk, slice_diff_pool, slice_qm9, slice_autoencoder,
    slice_infomax — examples/enzymes_topk_pool.py (20 epochs),
                enzymes_diff_pool.py (8), qm9_nn_conv.py (5, 1000
                molecules), autoencoder.py (100, GAE then --variational)
                and infomax.py (50, hidden 512, the port's logistic-
-               regression probe) at their defaults, eager: launches
-               asserted (GRAPH_EXAMPLES, AUTOENCODER_LAUNCHES,
-               INFOMAX_LAUNCHES; DiffPool none), the loss falling, the
-               output after three steps card against the CPU (1e-4);
+               regression probe) at their defaults, qm9_nn_conv captured
+               (its training step and MAE each a CUDA graph over static
+               buffers, its operators over the batch's real entries),
+               then eager, bitwise equal (every step's loss, the final
+               parameters, the MAE), with the host ms a batch split; the
+               others eager: launches asserted (GRAPH_EXAMPLES,
+               AUTOENCODER_LAUNCHES, INFOMAX_LAUNCHES; DiffPool none),
+               the loss falling, the output after three steps card
+               against the CPU (1e-4);
    slice_mnist_graclus — examples/mnist_graclus.py's run (SplineConv
                1 -> 32 -> 64, K = 25, two graclus max pools, mean
                readout; Adam 0.01, batches of 64, 3 epochs over 1500
-               synthetic superpixel graphs), eager, one operator set a
-               batch built on the host (both levels' spline operators,
-               the pools' cluster_operator, level 2's readout): launches
-               asserted as 3 x (24 x (3 spmm_csr + 3 segment sums) + 4 x
-               (2 + 3)); the loss falling; the logits after three steps
-               card against the CPU (1e-4);
+               synthetic superpixel graphs), captured (the training
+               step, dropout from its registered generator, and the
+               evaluation each a CUDA graph over static buffers of the
+               loaders' budgets), then eager, one operator set a batch
+               built on the host over its real entries (both levels'
+               spline operators, the pools' cluster_operator, level 2's
+               readout) and copied in: launches asserted as 3 x (24 x
+               (3 spmm_csr + 3 segment sums) + 4 x (2 + 3)) in both runs,
+               and by stage; captured and eager bitwise equal (every
+               step's loss, the final parameters, the accuracy); ms a
+               step in both, the host ms a batch split into collation,
+               level geometry, operator builds and copies; the loss
+               falling; the logits after three steps card against the
+               CPU (1e-4);
    slice_mnist_voxel_grid, slice_mnist_nn_conv, slice_pointnet2 — the
                other point and superpixel examples at their defaults (3
-               epochs each): launches asserted (POINT_EXAMPLES; pointnet2
-               none), the loss falling, the logits after three steps card
-               against the CPU (1e-4);
+               epochs each), the two MNIST ones captured and eager as
+               slice_mnist_graclus: launches asserted (POINT_EXAMPLES;
+               pointnet2 none), the loss falling, the logits after three
+               steps card against the CPU (1e-4);
    slice_reddit_sage — examples/reddit_sage.py's run on
                Reddit(full_scale=True) (SAGE 602 -> 128 -> 41, fan-out
                [10, 10], batches of 512, index-shipping batches over the
@@ -415,7 +437,10 @@ Phases, one JSON line each:
                operators on the card against its plain path on the CPU:
                output, input gradient and parameter gradients within
                1e-4, and a kernel launched by each conv that sums
-               feature rows;
+               feature rows; for the max aggregations (EdgeConv,
+               PointConv) the gradients against the CPU's backward
+               routed through the card's maxima, and the messages
+               within 1e-4;
 7. capture_check — for each of the seventeen configurations, five epochs
                captured and five eager from the same seeds: the logits
                and every parameter within 1e-6 of the largest magnitude;
@@ -437,8 +462,12 @@ Phases, one JSON line each:
                example (10 port launches a step), with the host's
                operator-set build time a batch, then over 20 captured
                replays, as trace_ppi;
+   trace_qm9 — the same over 20 eager training steps of the QM9
+               example (18 port launches a step), then over 20 captured
+               replays, as trace_ppi;
    trace_mnist_graclus — the same over 20 eager training steps of the
-               mnist_graclus example (6 port launches a step);
+               mnist_graclus example (6 port launches a step), then over
+               20 captured replays, as trace_ppi;
    trace_reddit_sage — the same over 20 eager reddit_sage steps, the
                batches sampled by the pipelined loader as a user runs it
                (5 port launches a step); the closure configurations'
@@ -518,7 +547,9 @@ MUTAG_EVAL_LAUNCHES = {"spmm_csr": 5, "sorted_segment_sum": 1}
 #: full-graph autoencoder and infomax, of an epoch and of their
 #: evaluations): enzymes_topk_pool 3 GraphConv sums and 2 ``dx``, a
 #: mean readout a level; qm9_nn_conv NNConv's three message sums and
-#: Set2Set's two sums a step forward, the two gathers' backward sums;
+#: Set2Set's two sums a step forward (9), then the backward sums of
+#: Set2Set's two gathers a step (6) and of NNConv's three gathers of its
+#: input by sender (3);
 #: the GAE's two GCN layers forward and back (the VGAE three), its test
 #: every 20 epochs; infomax's encoder twice forward and back an epoch,
 #: then once more for the embeddings; DiffPool none.
@@ -527,7 +558,7 @@ GRAPH_EXAMPLES = {
              {"spmm_csr": 5, "sorted_segment_sum": 3},
              {"spmm_csr": 3, "sorted_segment_sum": 3}),
     "diff_pool": ("enzymes_diff_pool", 8, {}, {}),
-    "qm9": ("qm9_nn_conv", 5, {"sorted_segment_sum": 15},
+    "qm9": ("qm9_nn_conv", 5, {"sorted_segment_sum": 18},
             {"sorted_segment_sum": 9}),
 }
 AUTOENCODER_EPOCHS = 100
@@ -1104,6 +1135,37 @@ def check_sorted_case(graph_name, csr, direction, f, dtype_name, gen):
     return case
 
 
+def check_real_vs_padded(graph_name, op, f, gen):
+    """The segment sum of ``op``, a batch's operator over its real
+    entries, and in the same call of the operator over every entry slot
+    of its receivers (``<graph_name>_padded``, the padding row's entries
+    included), each timed by :func:`check_sorted_case` at F = ``f``;
+    then both on the same messages in entry order, those of the entries
+    left out 0 (as the masked sums hand them): the two outputs must be
+    bitwise equal on every row."""
+    from pytorch_geometric_tpu_torch.ops.sorted_spmm import SortedSegmentSum
+
+    padded = SortedSegmentSum(op.receivers.cpu(), op.num_nodes,
+                              device=DEVICE)
+    cases = [check_sorted_case(graph_name, op.csr, "fwd", f, "fp32", gen),
+             check_sorted_case(f"{graph_name}_padded", padded.csr, "fwd", f,
+                               "fp32", gen)]
+    entries = op.receivers.shape[0]
+    kept = torch.zeros(entries, dtype=torch.bool, device=DEVICE)
+    kept[op.csr.perm] = True
+    msgs = torch.randn(entries, f, generator=gen, device=DEVICE)
+    msgs = torch.where(kept[:, None], msgs, 0.0)
+    same = bool(torch.equal(op._sum(msgs), padded._sum(msgs)))
+    emit({"phase": "kernel", "kernel": "sorted_segment_sum",
+          "graph": graph_name, "F": f, "entries": op.csr.num_edges,
+          "slots": padded.csr.num_edges,
+          "real_entries_bitwise_the_padded_operator": same})
+    if not same:
+        raise AssertionError(f"{graph_name}: the segment sum over the real "
+                             "entries differs from the padded one")
+    return cases
+
+
 def compare_sorted_with_spmm(graph_name, sop, weights, csr, direction, f,
                              gen):
     """The whole ``SortedSpmm`` call (gather and weight the messages in
@@ -1485,7 +1547,9 @@ def phase_kernel_ppi(gen):
 #: The kernel cases of the graph-level examples (the graphs of their
 #: ``kernels`` line rows).
 GRAPH_LEVEL_CASES = ("mutag_gin", "mutag_gin_padded", "mutag_gin_pool",
-                     "enzymes_pool", "qm9_nnconv", "qm9_pool")
+                     "mutag_gin_pool_padded", "enzymes_pool", "qm9_nnconv",
+                     "qm9_nnconv_padded", "qm9_senders", "qm9_pool",
+                     "qm9_pool_padded")
 
 
 def graph_example_batch(name):
@@ -1506,12 +1570,14 @@ def phase_kernel_graph(gen):
     real entries (``mutag_operators``, "mutag_gin") and in the same call
     over every edge slot ("mutag_gin_padded": the padding edges on the
     padding node's row), the two outputs bitwise equal; the segment sum of the
-    readouts, ``pool_operator`` over the batch vector (rows = graphs of
-    ~18 nodes, and the padding graph's long row): MUTAG's add pool at
-    F = 32, ENZYMES' mean pool (its 128 channels and the count, 64
-    graphs of ~33 nodes) and QM9's Set2Set at F = 64 and 1 (its softmax
-    sums); and QM9's NNConv messages by receiver (complete graphs) at
-    F = 64."""
+    readouts, ``pool_operator`` over the batch vector's real nodes (rows
+    = graphs of ~18 nodes): MUTAG's add pool at F = 32 (and, in the same
+    call, the padded operator with the padding graph's long row,
+    :func:`check_real_vs_padded`), ENZYMES' mean pool (its 128 channels
+    and the count, 64 graphs of ~33 nodes) and QM9's Set2Set at F = 64
+    (against padded) and 1 (its softmax sums); and QM9's NNConv messages
+    by receiver over the real edges (complete graphs) at F = 64, against
+    padded, and its gather by sender's backward sum."""
     from pytorch_geometric_tpu_torch.examples import mutag_gin, qm9_nn_conv
 
     from pytorch_geometric_tpu_torch.ops.spmm import SpmmOperator, spmm_csr
@@ -1545,19 +1611,19 @@ def phase_kernel_graph(gen):
             raise AssertionError(f"mutag_gin {direction}: the operator over "
                                  "the real entries differs from the padded "
                                  "one")
-    cases.append(check_sorted_case("mutag_gin_pool", ops["pool_op"].csr,
-                                   "fwd", 32, "fp32", gen))
+    cases += check_real_vs_padded("mutag_gin_pool", ops["pool_op"], 32, gen)
     _, enzymes = graph_example_batch("enzymes_topk_pool")
     cases.append(check_sorted_case(
         "enzymes_pool", mutag_gin.mutag_operators(enzymes)["pool_op"].csr,
         "fwd", 129, "fp32", gen))
     _, qm9 = graph_example_batch("qm9_nn_conv")
     ops = qm9_nn_conv.qm9_operators(qm9)
-    cases.append(check_sorted_case("qm9_nnconv", ops["segment_op"].csr,
+    cases += check_real_vs_padded("qm9_nnconv", ops["segment_op"], 64, gen)
+    cases.append(check_sorted_case("qm9_senders", ops["sender_op"].csr,
                                    "fwd", 64, "fp32", gen))
-    for f in (64, 1):
-        cases.append(check_sorted_case("qm9_pool", ops["pool_op"].csr,
-                                       "fwd", f, "fp32", gen))
+    cases += check_real_vs_padded("qm9_pool", ops["pool_op"], 64, gen)
+    cases.append(check_sorted_case("qm9_pool", ops["pool_op"].csr, "fwd", 1,
+                                   "fp32", gen))
     return cases
 
 
@@ -2587,7 +2653,7 @@ def phase_slice_ppi():
     (``capture=False``) on fresh loaders of the same seed
     (:func:`_capture_pair`: device launches as epochs x (train batches x
     3 forward + 6 backward, val batches x 3 forward) in both runs, every
-    step's loss and the final parameters within 1e-6). Every loss
+    step's loss, the final parameters and the F1 bitwise). Every loss
     finite and the last epoch's mean below the first's; val micro-F1
     beside the all-positive predictor's (the synthetic labels come from a
     fresh projection per graph, so F1 is printed, not gated); each run's
@@ -2610,7 +2676,7 @@ def phase_slice_ppi():
                                 loaders=ppi.load(SEED, device=DEVICE),
                                 capture=capture),
         PPI_STEP_LAUNCHES, PPI_EVAL_LAUNCHES, PPI_EPOCHS * batches["train"],
-        PPI_EPOCHS * batches["val"], statement)
+        PPI_EPOCHS * batches["val"], statement, "f1")
     ys, masks = [], []
     for graph in val:
         ys.append(graph.y.cpu().numpy())
@@ -2815,7 +2881,7 @@ def _example_run(run, expected, statement):
     return out, report, problems
 
 
-def _capture_pair(run, step, evaluation, steps, evals, statement):
+def _capture_pair(run, step, evaluation, steps, evals, statement, metric):
     """An inductive example's run as a user runs it (``run(None)``:
     captured, the default on a card) and then eager (``run(False)``),
     each on fresh loaders from the same seed, so both see the same
@@ -2826,9 +2892,12 @@ def _capture_pair(run, step, evaluation, steps, evals, statement):
     and the evaluation, ``device_launches``) must equal the eager run's
     count, ``steps x step + evals x evaluation``, its wrapper calls the
     two warm-ups' and the two captures', and its launches by stage the
-    step's and the evaluation's; every step's loss and the final
-    parameters and buffers within 1e-6 of the eager run's largest
-    magnitude. ``(captured out, eager out, report, problems)``."""
+    step's and the evaluation's; every step's loss, the final parameters
+    and buffers, and the test metric (the run's key ``metric``) bitwise
+    equal to the eager run's. The host's ms a batch are split into
+    the collation, the operators' build (and, where the run reports it,
+    its level geometry's share) and the copies. ``(captured out, eager
+    out, report, problems)``."""
     names = set(step) | set(evaluation)
     expected = {n: steps * step.get(n, 0) + evals * evaluation.get(n, 0)
                 for n in names}
@@ -2863,9 +2932,20 @@ def _capture_pair(run, step, evaluation, steps, evals, statement):
     state_err = max(float((v - ref[k]).abs().max())
                     for k, v in out["model"].state_dict().items()
                     if v.is_floating_point()) / scale
-    if not (loss_err <= 1e-6 and state_err <= 1e-6):
-        problems.append(f"captured vs eager: step losses {loss_err}, "
-                        f"parameters and buffers {state_err} (need <= 1e-6)")
+    report["captured_vs_eager_metric"] = [out[metric], eager[metric]]
+    if not (loss_err == 0.0 and state_err == 0.0
+            and out[metric] == eager[metric]):
+        problems.append(f"captured vs eager not bitwise: step losses "
+                        f"{loss_err}, parameters and buffers {state_err}, "
+                        f"{metric} {out[metric]} against {eager[metric]}")
+    batches = out["host_batches"]
+    report.update({f"host_{k}_ms_per_batch": out[f"host_{k}_seconds"]
+                   / batches * 1e3 for k in ("copy", "geometry")
+                   if f"host_{k}_seconds" in out})
+    if "host_geometry_seconds" in out:
+        report["host_operator_build_ms_per_batch"] = (
+            out["host_operator_seconds"] - out["host_geometry_seconds"]) \
+            / batches * 1e3
     report.update({
         "ms_per_step": (out["seconds"] - out["capture_seconds"]) / steps
         * 1e3,
@@ -2931,8 +3011,9 @@ def phase_slice_mutag_gin():
     host and copied in through pinned memory), then eager
     (``capture=False``) on fresh loaders of the same seed
     (:func:`_capture_pair`: device launches as epochs x (train batches x
-    10 + test batches x 6) in both runs, every step's loss and the final
-    parameters and running statistics within 1e-6). Every loss finite and
+    10 + test batches x 6) in both runs, every step's loss, the final
+    parameters and running statistics and the accuracy bitwise). Every
+    loss finite and
     the last epoch's mean below the first's; test accuracy beside the
     majority class's (not gated); each run's seconds and ms a step, the
     capture's seconds, the host ms a batch (collation, the operators'
@@ -2953,7 +3034,7 @@ def phase_slice_mutag_gin():
             loaders=mutag_gin.load(SEED, device=DEVICE), capture=capture),
         MUTAG_STEP_LAUNCHES, MUTAG_EVAL_LAUNCHES,
         MUTAG_EPOCHS * batches["train"], MUTAG_EPOCHS * batches["test"],
-        statement)
+        statement, "acc")
     _falling(out["epoch_losses"], problems)
     ys = np.concatenate([g.y[g.graph_mask].cpu().numpy() for g in test])
     majority = float(max(np.mean(ys == 0), np.mean(ys == 1)))
@@ -3032,10 +3113,12 @@ def phase_slice_graph(name):
     enzymes_diff_pool: DenseSAGEConv blocks and two dense_diff_pool
     levels over ToDense(126) batches, 8 epochs; qm9_nn_conv: NNConv mean
     + GRU x 3 + Set2Set(3), dim 64, 5 epochs over 1000 synthetic
-    molecules), eager, one operator set a batch built on the host: the
-    launches asserted (``GRAPH_EXAMPLES``), the loss falling, and the
-    output after three steps, card against the plain path on the CPU
-    (1e-4)."""
+    molecules), one operator set a batch built on the host (QM9's over
+    the batch's real edges and nodes): qm9_nn_conv captured, then eager,
+    bitwise equal (:func:`_capture_pair`: every step's loss, the final
+    parameters and the MAE), the others eager. The launches asserted
+    (``GRAPH_EXAMPLES``), the loss falling, and the output after three
+    steps, card against the plain path on the CPU (1e-4)."""
     import importlib
 
     module_name, epochs, step, evaluation = GRAPH_EXAMPLES[name]
@@ -3051,11 +3134,21 @@ def phase_slice_graph(name):
     statement = {
         n: f"{epochs} epochs x ({batches['train']} train batches x "
            f"{step.get(n, 0)} + {batches['test']} test batches x "
-           f"{evaluation.get(n, 0)}) = {expected[n]}" for n in names} or \
-        "no kernel of the port: dense batched products only"
-    out, report, problems = _example_run(
-        lambda: m.run(epochs, seed=SEED, device=DEVICE, loaders=loaders),
-        expected, statement)
+           f"{evaluation.get(n, 0)})" for n in names}
+    if name in CAPTURED_EXAMPLES:
+        out, _, report, problems = _capture_pair(
+            lambda capture: m.run(epochs, seed=SEED, device=DEVICE,
+                                  loaders=m.load(SEED, device=DEVICE),
+                                  capture=capture),
+            step, evaluation, epochs * batches["train"],
+            epochs * batches["test"], statement, CAPTURED_EXAMPLES[name])
+    else:
+        statement = {n: f"{v} = {expected[n]}" for n, v in
+                     statement.items()} or \
+            "no kernel of the port: dense batched products only"
+        out, report, problems = _example_run(
+            lambda: m.run(epochs, seed=SEED, device=DEVICE,
+                          loaders=loaders), expected, statement)
     _falling(out["epoch_losses"], problems)
     parity, params_err, finite, shape = _parity(
         lambda dev: graph_steps_output(name, dev))
@@ -3284,66 +3377,69 @@ def _zoo_call(conv, kind, g, x, ops):
     return conv(g, x, **ops)
 
 
+#: The zoo's convs that aggregate with a max (``ops/segment.py``'s
+#: ``scatter_reduce``, no kernel of the port).
+ZOO_MAX_CONVS = ("EdgeConv", "PointConv")
+
+
 def phase_zoo():
     """Each conv of the zoo on Cora at 1433 -> 16 (AGNN keeps its width;
     DNA on a two-layer history of 128 channels; PointConv on positions
     drawn from the seed, over Cora's real edges; NNConv and SplineConv
-    with ``TargetIndegree``'s pseudo-coordinates): one forward and one
-    backward on the card through its operators, against its plain path on
-    the CPU from the same parameters and inputs: the output, the input's
-    gradient and the parameters' within 1e-4 (relative to the largest
-    magnitude; the parameters' to the largest of their gradients). The
-    kernel launches of each case are counted."""
-    import copy
-
-    from pytorch_geometric_tpu_torch.models.capture import launch_counts
-
+    with ``TargetIndegree``'s pseudo-coordinates), through
+    :func:`zoo_row`."""
     gen = torch.Generator().manual_seed(SEED)
     _, cora, _ = load("cora")
-    f = cora.num_node_features
     rows, problems = [], []
-    for name, graph_name, conv, ops_of, kind in _zoo_cases(f, 16, gen):
-        g = load(graph_name)[1]
-        cpu_conv, cpu_g = copy.deepcopy(conv), g.to("cpu")
-        conv = conv.to(DEVICE)
-        x = (torch.randn(g.num_nodes, 2, 128, generator=gen)
-             if kind == "history" else cpu_g.x.clone())
-        results, ct = [], None
-        for dev, m, gg, ops_of_g in ((DEVICE, conv, g, ops_of),
-                                     ("cpu", cpu_conv, cpu_g, None)):
-            xi = x.to(dev, copy=True).requires_grad_(True)
-            ops = ops_of_g(gg) if ops_of_g is not None else {}
-            before = launch_counts()
-            out = _zoo_call(m, kind, gg, xi, ops)
-            if ct is None:
-                ct = torch.randn(out.shape, generator=gen)
-            (out * ct.to(dev)).sum().backward()
-            launched = {k: v - before[k] for k, v in launch_counts().items()
-                        if v != before[k]}
-            results.append((out.detach().cpu(), xi.grad.cpu(),
-                            {n: p.grad.cpu() for n, p in m.named_parameters()},
-                            launched))
-        (out, dx, grads, launched), (ref, ref_dx, ref_grads, _) = results
-        scale = max([float(v.abs().max()) for v in ref_grads.values()] + [0])
-        param_err = max([float((grads[n] - v).abs().max()) / max(scale, 1e-30)
-                         for n, v in ref_grads.items()] + [0.0])
-        row = {"phase": "zoo", "conv": name, "graph": graph_name,
-               "out_shape": list(out.shape), "launches": launched,
-               "out_rel_err": _rel(out, ref), "dx_rel_err": _rel(dx, ref_dx),
-               "param_grad_rel_err": param_err, "tol": 1e-4}
-        # the convs that sum feature rows ran a kernel of the port
-        sums = name not in ("DenseSAGEConv", "EdgeConv", "PointConv")
-        row["ok"] = bool(torch.isfinite(out).all()) and max(
-            row["out_rel_err"], row["dx_rel_err"], param_err) <= 1e-4 \
-            and bool(launched) == sums
+    for case in _zoo_cases(cora.num_node_features, 16, gen):
+        row = zoo_row(case, load(case[1])[1], gen)
         emit(row)
         rows.append(row)
         if not row["ok"]:
-            problems.append(f"{name}: {row}")
-        conv.to("cpu")
+            problems.append(f"{case[0]}: {row}")
     if problems:
         raise AssertionError("; ".join(problems))
     return rows
+
+
+def zoo_row(case, g, gen):
+    """One case of :func:`_zoo_cases` on graph ``g`` (on the card): one
+    forward and one backward on the card through its operators, against
+    its plain path on the CPU from the same parameters and inputs (drawn
+    from ``gen``; ``probes/zoo_max_routes.py:compare``): the output, the
+    input's gradient and the parameters' within 1e-4 (relative to the
+    largest magnitude; the parameters' to the largest of their
+    gradients). The kernel launches are counted.
+
+    A max aggregation's gradient jumps where a segment's two largest
+    messages trade places: two messages a rounding apart (the synthetic
+    Cora differs with ``PYTHONHASHSEED``, and some draws hold such a
+    pair) can be ordered one way on the card and the other on the CPU,
+    and the plain backward then sends that cotangent to another edge.
+    So for ``ZOO_MAX_CONVS`` the CPU runs a second time with each max's
+    backward routed through the card's maxima, and the gradients are
+    held to that run at 1e-4, and the messages of the two devices to
+    each other at 1e-4; the plain run's errors and the count of routes
+    that differ are printed beside them."""
+    from probes.zoo_max_routes import compare
+
+    name, graph_name, conv, ops_of, kind = case
+    graphs = {DEVICE: g, "cpu": g.to("cpu")}
+    x = (torch.randn(g.num_nodes, 2, 128, generator=gen)
+         if kind == "history" else graphs["cpu"].x.clone())
+    res = compare(
+        conv, lambda m, xi, dev, ops: _zoo_call(m, kind, graphs[dev], xi, ops),
+        lambda dev: ops_of(graphs[dev]) if dev == DEVICE and ops_of else {},
+        x, gen, DEVICE, max_aggr=name in ZOO_MAX_CONVS)
+    row = {"phase": "zoo", "conv": name, "graph": graph_name,
+           "out_shape": list(res["out"].shape),
+           **{k: v for k, v in res.items() if k not in ("out", "gate")},
+           "tol": 1e-4}
+    # the convs that sum feature rows ran a kernel of the port
+    sums = name not in ("DenseSAGEConv", "EdgeConv", "PointConv")
+    row["ok"] = bool(torch.isfinite(res["out"]).all()) and \
+        max(res["gate"]) <= 1e-4 and bool(res["launches"]) == sums
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -4409,20 +4505,21 @@ def phase_trace_ppi(steps=20):
 
 
 def trace_captured_step(module, loader, batches, model, lr, steps, want,
-                        name):
+                        name, **kw):
     """Where a captured training step's time goes: ``torch.profiler`` over
     ``steps`` calls of the example's captured training step
-    (``module.captured_steps``: a ``CapturedStep`` over its static batch
-    of ``loader``'s budget), each after the next of ``batches`` (collated
-    on the card, their operators built before the window) is copied into
-    the static buffers, device to device; ``model`` on the card, Adam
-    (capturable) at ``lr``. ``want`` port launches a step."""
+    (``module.captured_steps``, given ``kw``: a ``CapturedStep`` over its
+    static batch of ``loader``'s budget), each after the next of
+    ``batches`` (collated on the card, their operators built before the
+    window) is copied into the static buffers, device to device;
+    ``model`` on the card, Adam (capturable) at ``lr``. ``want`` port
+    launches a step."""
     dev = torch.device(DEVICE)
     model = model.to(dev)
     opt = torch.optim.Adam(model.parameters(), lr=lr, capturable=True)
     # profile_steps calls the step 8 + steps times
     static, _, step, _, _ = module.captured_steps(model, opt, loader, loader,
-                                                  8 + steps, dev)
+                                                  8 + steps, dev, **kw)
     cycle = itertools.cycle(batches)
 
     def run():
@@ -4518,6 +4615,48 @@ def phase_trace_mutag_gin(steps=20):
     return {"eager": result, "captured": captured}
 
 
+def phase_trace_qm9(steps=20):
+    """Where a QM9 training step's time goes: ``torch.profiler`` over
+    ``steps`` eager steps of examples/qm9_nn_conv.py's ``train_step`` (a
+    fresh ``Net``, dim 64, Adam 1e-3) cycling over one epoch's train
+    batches, collated and their operator sets (over the real entries)
+    built before the window; then over ``steps`` replays of the step
+    captured over its static batch (:func:`trace_captured_step`); 18 port
+    launches a step in both (``GRAPH_EXAMPLES``)."""
+    from pytorch_geometric_tpu_torch.examples import qm9_nn_conv
+    from pytorch_geometric_tpu_torch.examples.ppi import OperatorCache
+
+    train, _, mean, std = qm9_nn_conv.load(SEED, device=DEVICE)
+    ops = OperatorCache(qm9_nn_conv.qm9_operators)
+    batches = [(graph, ops(idx, graph)) for idx, graph in train.indexed()]
+    model = qm9_nn_conv.Net(generator=torch.Generator().manual_seed(
+        SEED)).to(DEVICE)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    cycle = itertools.cycle(batches)
+
+    def run():
+        graph, op = next(cycle)
+        qm9_nn_conv.train_step(model, opt, graph, op, mean, std)
+
+    kernels, wall_us = profile_steps(run, steps)
+    summary, port_launches = trace_summary(kernels, wall_us, steps, "step")
+    want = sum(GRAPH_EXAMPLES["qm9"][2].values())
+    result = {"phase": "trace_qm9", "captured": False, "steps": steps,
+              "operator_sets": len(ops.ops),
+              "operator_setup_ms_per_batch": ops.seconds / len(ops.ops) * 1e3,
+              **summary, "expected_port_launches_per_step": want}
+    emit(result)
+    if port_launches != want * steps:
+        raise AssertionError(f"qm9: {port_launches / steps} port kernel "
+                             f"launches per step on the trace, expected "
+                             f"{want}")
+    captured = trace_captured_step(
+        qm9_nn_conv, train, batches,
+        qm9_nn_conv.Net(generator=torch.Generator().manual_seed(SEED)),
+        1e-3, steps, want, "qm9", mean=mean, std=std)
+    return {"eager": result, "captured": captured}
+
+
 # ---------------------------------------------------------------------------
 # The point and superpixel examples and the scale SpMM operators
 # ---------------------------------------------------------------------------
@@ -4533,14 +4672,21 @@ MNIST_EVAL_LAUNCHES = {"spmm_csr": 2, "sorted_segment_sum": 3}
 #: the launches of a training step and of an evaluation batch:
 #: mnist_voxel_grid trains mnist_graclus's Net over voxel levels;
 #: mnist_nn_conv sums both levels' NNConv messages, both pools' means and
-#: the readout (5 segment sums forward, none backward); pointnet2's
-#: reductions are all maxima (torch's ``scatter_reduce``).
+#: the readout (5 segment sums forward), and conv2's gather of its input
+#: by sender sums its gradient (1 backward); pointnet2's reductions are
+#: all maxima (torch's ``scatter_reduce``).
 POINT_EXAMPLES = {
     "mnist_voxel_grid": (3, MNIST_STEP_LAUNCHES, MNIST_EVAL_LAUNCHES),
-    "mnist_nn_conv": (3, {"sorted_segment_sum": 5},
+    "mnist_nn_conv": (3, {"sorted_segment_sum": 6},
                       {"sorted_segment_sum": 5}),
     "pointnet2": (3, {}, {}),
 }
+#: The examples whose training step and evaluation a card captures
+#: (``run(capture=None)``); each slice runs them captured, then eagerly,
+#: and holds the two runs bitwise equal (the key of the run's test
+#: metric).
+CAPTURED_EXAMPLES = {"mnist_graclus": "acc", "mnist_voxel_grid": "acc",
+                     "mnist_nn_conv": "acc", "qm9": "mae"}
 MNIST_CASES = ("mnist_conv1", "mnist_conv2", "mnist_pool1", "mnist_pool2",
                "mnist_readout", "mnist_nnconv1", "mnist_nnconv2")
 #: The block SpMM's graph: bench_scale.py's community graph at Reddit's
@@ -4557,11 +4703,11 @@ SCALE_CHECK_ROWS = 2000
 HYBRID_WINDOW, HYBRID_TILE = 512, 512
 
 
-@functools.cache
-def point_loaders(name, device=DEVICE):
-    """The seeded default loaders of a point or superpixel example on
+def fresh_point_loaders(name, device=DEVICE):
+    """New seeded default loaders of a point or superpixel example on
     ``device`` (mnist_nn_conv's are mnist_voxel_grid's at its 1000
-    samples), built once per run and device."""
+    samples): a loader draws its batch order as it goes, so two runs that
+    must see the same batches each take their own."""
     import importlib
 
     if name == "mnist_nn_conv":
@@ -4571,6 +4717,12 @@ def point_loaders(name, device=DEVICE):
     m = importlib.import_module(
         f"pytorch_geometric_tpu_torch.examples.{name}")
     return m.load(SEED, device=device)
+
+
+@functools.cache
+def point_loaders(name, device=DEVICE):
+    """:func:`fresh_point_loaders`, built once per run and device."""
+    return fresh_point_loaders(name, device)
 
 
 def _example_module(name):
@@ -4586,11 +4738,15 @@ def phase_kernel_mnist(gen):
     6144, E = 49,152, 1,344 padding nodes): ``spmm_csr`` on conv1's
     spline operator (N·25 rows) at F = 1 and on conv2's (level 1) at
     F = 32 forward and ``dx``; the segment sum of pool 1's mean of pos
-    (F = 3: pos and the count; the padding nodes' row N - 1), pool 2's,
-    and the readout (F = 65: 64 channels and the count; level 2's
-    unoccupied rows on the padding graph's row); and on mnist_voxel_grid's
-    first batch, mnist_nn_conv's NNConv sums by receiver (F = 32 at level
-    0, 64 at level 1, the padding node's row of the padding edges)."""
+    (F = 3: pos and the count), pool 2's, and the readout (F = 65: 64
+    channels and the count), each over the batch's real entries and, in
+    the same call, over every slot (the padding nodes' row N - 1; level
+    2's unoccupied rows on the padding graph's row), the two bitwise
+    equal (:func:`check_real_vs_padded`); and on mnist_voxel_grid's
+    first batch, mnist_nn_conv's NNConv sums by receiver over the real
+    edges (F = 32 at level 0, against the padded operator's row of the
+    padding edges; 64 at level 1) and conv2's gather by sender (its
+    backward's sum, F = 32)."""
     from pytorch_geometric_tpu_torch.examples import mnist_graclus as mg
 
     cases = []
@@ -4607,12 +4763,12 @@ def phase_kernel_mnist(gen):
     for name, key, f in (("mnist_pool1", "pool1", 3),
                          ("mnist_pool2", "pool2", 3),
                          ("mnist_readout", "readout", 65)):
-        cases.append(check_sorted_case(name, ops[key].csr, "fwd", f,
-                                       "fp32", gen))
+        cases += check_real_vs_padded(name, ops[key], f, gen)
     graph = next(iter(point_loaders("mnist_nn_conv")[0]))
     ops = mg.mnist_operators(graph, segment_ops=True)
-    for name, key, f in (("mnist_nnconv1", "segment1", 32),
-                         ("mnist_nnconv2", "segment2", 64)):
+    cases += check_real_vs_padded("mnist_nnconv1", ops["segment1"], 32, gen)
+    for name, key, f in (("mnist_nnconv2", "segment2", 64),
+                         ("mnist_senders2", "senders2", 32)):
         cases.append(check_sorted_case(name, ops[key].csr, "fwd", f,
                                        "fp32", gen))
     return cases
@@ -4861,15 +5017,22 @@ def phase_slice_mnist_graclus():
     Cartesian pseudo-coordinates of the pooled positions, SplineConv(32
     -> 64), a second pool, global mean pool, Dense 128 (ELU, dropout
     0.5), Dense 10; Adam 0.01, batches of 64, 3 epochs over 1500
-    synthetic superpixel graphs (75 nodes, 8 neighbours; 250 test),
-    eager, one operator set a batch built on the host
-    (``mnist_operators``: both levels' spline operators, both pools'
-    ``cluster_operator`` and level 2's readout). Launches asserted as
-    epochs x (train batches x step + test batches x evaluation); every
-    loss finite and the last epoch's mean below the first's; test
-    accuracy beside chance (not gated); the operator sets built and
-    their host seconds; the logits after three steps, card against the
-    plain path on the CPU (1e-4)."""
+    synthetic superpixel graphs (75 nodes, 8 neighbours; 250 test), as a
+    user runs it, captured (the default: the training step, dropout
+    drawn from the run's generator, and the evaluation each a CUDA graph
+    over static buffers of its loader's budget; each batch's operator
+    set, ``mnist_operators`` over its real entries: both levels' spline
+    operators, both pools' ``cluster_operator`` and level 2's readout,
+    built on the host and copied in through pinned memory), then eager
+    (``capture=False``) on fresh loaders of the same seed
+    (:func:`_capture_pair`: device launches as epochs x (train batches x
+    step + test batches x evaluation) in both runs, every step's loss,
+    the final parameters and the accuracy bitwise equal). Every loss
+    finite and the last epoch's mean below the first's; test accuracy
+    beside chance (not gated); each run's ms a step, the host ms a batch
+    split into collation, level geometry, operator builds and copies;
+    the operator sets built and their host seconds; the logits after
+    three steps, card against the plain path on the CPU (1e-4)."""
     train, test = point_loaders("mnist_graclus")
     return _point_slice("mnist_graclus", MNIST_EPOCHS, MNIST_STEP_LAUNCHES,
                         MNIST_EVAL_LAUNCHES, (train, test))
@@ -4886,11 +5049,21 @@ def _point_slice(name, epochs, step, evaluation, loaders):
     statement = {
         k: f"{epochs} epochs x ({batches['train']} train batches x "
            f"{step.get(k, 0)} + {batches['test']} test batches x "
-           f"{evaluation.get(k, 0)}) = {expected[k]}" for k in names} or \
-        "no kernel of the port: maxima by torch's scatter_reduce only"
-    out, report, problems = _example_run(
-        lambda: m.run(epochs, seed=SEED, device=DEVICE, loaders=loaders),
-        expected, statement)
+           f"{evaluation.get(k, 0)})" for k in names}
+    if name in CAPTURED_EXAMPLES:
+        out, _, report, problems = _capture_pair(
+            lambda capture: m.run(epochs, seed=SEED, device=DEVICE,
+                                  loaders=fresh_point_loaders(name),
+                                  capture=capture),
+            step, evaluation, epochs * batches["train"],
+            epochs * batches["test"], statement, CAPTURED_EXAMPLES[name])
+    else:
+        statement = {k: f"{v} = {expected[k]}" for k, v in
+                     statement.items()} or \
+            "no kernel of the port: maxima by torch's scatter_reduce only"
+        out, report, problems = _example_run(
+            lambda: m.run(epochs, seed=SEED, device=DEVICE,
+                          loaders=loaders), expected, statement)
     _falling(out["epoch_losses"], problems)
     parity, params_err, finite, shape = _parity(
         lambda dev: point_steps_output(name, dev))
@@ -4923,7 +5096,9 @@ def phase_slice_point(name):
     levels of 5 and 10; mnist_nn_conv: NNConv mean over edge networks of
     the Cartesian pseudo-coordinates, 1000 samples; pointnet2: two
     PointConv set-abstraction levels over 128 sampled points of the
-    synthetic ModelNet10, 12 samples a class), eager: launches asserted
+    synthetic ModelNet10, 12 samples a class): the two MNIST examples
+    captured, then eager, bitwise equal, as
+    :func:`phase_slice_mnist_graclus`; pointnet2 eager. Launches asserted
     (``POINT_EXAMPLES``), the loss falling, and the logits after three
     steps, card against the plain path on the CPU (1e-4)."""
     epochs, step, evaluation = POINT_EXAMPLES[name]
@@ -4934,8 +5109,10 @@ def phase_trace_mnist_graclus(steps=20):
     """Where an mnist_graclus training step's time goes: ``torch.profiler``
     over ``steps`` eager steps of its ``train_step`` (a fresh ``Net``,
     Adam 0.01, dropout on) cycling over one epoch's train batches,
-    collated and their operator sets built before the window; 6 port
-    launches a step."""
+    collated and their operator sets (over the real entries) built before
+    the window; then over ``steps`` replays of the step captured over its
+    static batch, dropout from a registered generator
+    (:func:`trace_captured_step`); 6 port launches a step in both."""
     from pytorch_geometric_tpu_torch.examples import mnist_graclus as mg
     from pytorch_geometric_tpu_torch.examples.ppi import OperatorCache
 
@@ -4964,7 +5141,12 @@ def phase_trace_mnist_graclus(steps=20):
         raise AssertionError(f"mnist_graclus: {port_launches / steps} port "
                              f"kernel launches per step on the trace, "
                              f"expected {want}")
-    return result
+    captured = trace_captured_step(
+        mg, train, batches,
+        mg.Net(generator=torch.Generator().manual_seed(SEED)), 0.01, steps,
+        want, "mnist_graclus",
+        generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    return {"eager": result, "captured": captured}
 
 
 # ---------------------------------------------------------------------------
@@ -5676,6 +5858,7 @@ def main(argv=None):
     phases.append(("trace_ppi", phase_trace_ppi))
     phases.append(("trace_faust", phase_trace_faust))
     phases.append(("trace_mutag_gin", phase_trace_mutag_gin))
+    phases.append(("trace_qm9", phase_trace_qm9))
     phases.append(("trace_mnist_graclus", phase_trace_mnist_graclus))
     phases.append(("trace_reddit_sage", phase_trace_reddit_sage))
     for config in CONFIGS:

@@ -10,13 +10,19 @@ samples by default.
     python -m pytorch_geometric_tpu_torch.examples.mnist_nn_conv \\
         [--epochs 3]
 
-The step runs eagerly over mnist_graclus's operator set with each level's
-``SortedSegmentSum`` over its receivers (``mnist_operators(...,
-segment_ops=True)``): the NNConv messages of both levels sum through the
-segment-sum kernel (their backward is a gather), and so do the pools'
-means of ``pos`` and the readout: 5 segment-sum launches a step, none in
-its backward. The edge network and the pseudo-coordinates of level 1 run
-on the card.
+The step runs over mnist_graclus's operator set with each level's
+``SortedSegmentSum`` over its receivers and its real edges, and level
+1's over its senders (``mnist_operators(..., segment_ops=True)``): the
+NNConv messages of both levels sum through the segment-sum kernel
+(their backward is a gather), and so do the pools' means of ``pos`` and
+the readout; conv2 gathers its input through the sender operator, whose
+backward sums the input's gradient in the same kernel in a fixed order
+(torch's gather backward adds with atomics): 5 segment-sum launches a
+step forward and 1 in its backward, 5 an evaluation batch. The edge
+network and the pseudo-coordinates of level 1 run on the card. On a
+card the training step and the evaluation are each a CUDA graph over
+static buffers of the loaders' budgets (``capture=None`` or ``True``;
+``mnist_graclus.fit``); ``capture=False`` runs them eagerly.
 """
 
 import argparse
@@ -30,6 +36,7 @@ from pytorch_geometric_tpu_torch.data.graph import Graph
 from pytorch_geometric_tpu_torch.device import resolve_device
 from pytorch_geometric_tpu_torch.examples import mnist_graclus as mg
 from pytorch_geometric_tpu_torch.examples import mnist_voxel_grid as mv
+from pytorch_geometric_tpu_torch.models.capture import resolve_capture
 from pytorch_geometric_tpu_torch.nn.conv import NNConv
 from pytorch_geometric_tpu_torch.nn.layers import Dense
 from pytorch_geometric_tpu_torch.nn.pool import (
@@ -80,7 +87,8 @@ class Net(nn.Module):
         g = pool_graph_masked(graph.extras["cluster1"], graph.replace(x=x),
                               reduce="max", segment_op=ops.get("pool1"))
         g = mg.device_cartesian(g)
-        x = F.elu(self.conv2(g, g.x, segment_op=ops.get("segment2")))
+        x = F.elu(self.conv2(g, g.x, segment_op=ops.get("segment2"),
+                             sender_op=ops.get("senders2")))
         g = pool_graph_masked(graph.extras["cluster2"], g.replace(x=x),
                               reduce="max", segment_op=ops.get("pool2"))
         return mg.head(self, global_mean_pool(
@@ -92,17 +100,20 @@ nn_conv_operators = functools.partial(mg.mnist_operators, segment_ops=True)
 
 
 def run(epochs: int = 3, batch_size: int = 64, seed: int = 0,
-        train_samples: int = 1000, device="cuda", loaders=None):
+        train_samples: int = 1000, device="cuda", loaders=None,
+        capture=None):
     """Train and print the JAX script's line per epoch over the voxel
     levels; ``loaders`` (train, test) replaces
-    ``mnist_voxel_grid.load``'s. Returns mnist_graclus's ``fit``
-    record."""
+    ``mnist_voxel_grid.load``'s; ``capture`` as mnist_graclus's ``run``.
+    Returns mnist_graclus's ``fit`` record."""
     dev = resolve_device(device)
+    capture = resolve_capture(capture, dev)
     loaders = loaders or mv.load(seed, batch_size, train_samples,
                                  device=dev)
     next(iter(loaders[0]))
     model = Net(generator=torch.Generator().manual_seed(seed)).to(dev)
-    return mg.fit(model, loaders, epochs, seed, dev, nn_conv_operators)
+    return mg.fit(model, loaders, epochs, seed, dev, segment_ops=True,
+                  capture=capture)
 
 
 if __name__ == "__main__":

@@ -6,6 +6,10 @@ voxel grids of cell sizes 5 and 10, precomputed per sample at load time
 
     python -m pytorch_geometric_tpu_torch.examples.mnist_voxel_grid \\
         [--epochs 3]
+
+As mnist_graclus's, the training step and the evaluation are each a CUDA
+graph on a card (``capture=None`` or ``True``; ``mnist_graclus.fit``),
+over the batch's real entries; ``capture=False`` runs them eagerly.
 """
 
 import argparse
@@ -17,6 +21,7 @@ from pytorch_geometric_tpu_torch.cluster import voxel_grid
 from pytorch_geometric_tpu_torch.datasets.graphs import PLANETOID_ROOT
 from pytorch_geometric_tpu_torch.device import resolve_device
 from pytorch_geometric_tpu_torch.examples import mnist_graclus as mg
+from pytorch_geometric_tpu_torch.models.capture import resolve_capture
 from pytorch_geometric_tpu_torch.transforms import Cartesian, Compose
 
 #: The JAX script's dataset root, beside the graclus script's.
@@ -56,15 +61,18 @@ def load(seed: int = 0, batch_size: int = 64, train_samples: int = 1500,
 
 
 def run(epochs: int = 3, batch_size: int = 64, seed: int = 0,
-        train_samples: int = 1500, device="cuda", loaders=None):
+        train_samples: int = 1500, device="cuda", loaders=None,
+        capture=None):
     """Train mnist_graclus's ``Net`` over the voxel levels and print the
     JAX script's line per epoch; ``loaders`` (train, test) replaces
-    :func:`load`'s. Returns mnist_graclus's ``fit`` record."""
+    :func:`load`'s; ``capture`` as mnist_graclus's ``run``. Returns
+    mnist_graclus's ``fit`` record."""
     dev = resolve_device(device)
+    capture = resolve_capture(capture, dev)
     loaders = loaders or load(seed, batch_size, train_samples, device=dev)
     next(iter(loaders[0]))
     model = mg.Net(generator=torch.Generator().manual_seed(seed)).to(dev)
-    return mg.fit(model, loaders, epochs, seed, dev, mg.mnist_operators)
+    return mg.fit(model, loaders, epochs, seed, dev, capture=capture)
 
 
 if __name__ == "__main__":

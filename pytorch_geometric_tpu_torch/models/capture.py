@@ -38,20 +38,23 @@ none. A captured run therefore reports its launches by stage
 number of replays, the evaluation), and :func:`device_launches` states
 the launches the card ran as captured × replays + warm-up + evaluation.
 
-The inductive examples (examples/ppi.py, examples/mutag_gin.py) run one
-step a batch, and the JAX scripts jit that step once over the loader's
-static budget. Their counterpart is :class:`CapturedStep` over a
+The inductive examples (examples/ppi.py, mutag_gin.py, mnist_graclus.py,
+mnist_voxel_grid.py, mnist_nn_conv.py, qm9_nn_conv.py) run one step a
+batch, and the JAX scripts jit that step once over the loader's static
+budget. Their counterpart is :class:`CapturedStep` over a
 :class:`StaticBatch`: buffers of the budget's shapes (the batch's graph,
 :func:`static_graph`, and its operators' static forms, whose CSRs hold
 the real entries and leave the spare slots unread). Each batch is
 collated on the host and copied in on the current stream, with its
 operators' CSRs (:func:`static_batches`); the first call of the step is
 the warm-up, a real step on a side stream, then the capture; every later
-call replays. A training step writes its loss into a
-:class:`DeviceCurve`, which the host reads once an epoch; the
+call replays. A step that draws dropout registers its generator with the
+graph (``CapturedStep(generator=)``). A training step writes its loss
+into a :class:`DeviceCurve`, which the host reads once an epoch; the
 evaluation is a step of its own, captured at the evaluation loader's
-budget. A loader with ``dynamic_buckets`` has no single shape, so
-:func:`static_graph` refuses it.
+budget, and writes its batch's counts or sums into another. A loader
+with ``dynamic_buckets`` has no single shape, so :func:`static_graph`
+refuses it.
 """
 
 import time
@@ -250,7 +253,8 @@ def captured_metrics(steps: Dict[str, "CapturedStep"],
     """What a run of captured steps reports beside its seconds:
     ``capture_seconds`` (every step's warm-up and capture),
     ``host_seconds``, ``host_collate_seconds``,
-    ``host_operator_seconds`` and ``host_batches`` (:func:`static_batches`),
+    ``host_operator_seconds``, ``host_copy_seconds`` and ``host_batches``
+    (:func:`static_batches`; and whatever else ``host`` holds),
     ``launches`` by step and stage, and ``device_launches``, the launches
     the card ran, per wrapper, over all the steps."""
     total: Dict[str, int] = {}
@@ -273,6 +277,13 @@ class CapturedStep:
     captured output tensor, which each replay rewrites (read it before
     the next call). Eager (``capture=False``): ``body()`` each call.
 
+    ``generator``: the CUDA generator ``body`` draws from (dropout),
+    registered with the graph, so that each replay draws from where the
+    last draw stopped: the warm-up draws once, as the first eager call
+    does, and the replays then draw as the later calls would, so a
+    captured run equals the eager one bitwise. A PyTorch that cannot
+    register it raises (:func:`capture_epoch`).
+
     ``capture_seconds`` is the warm-up and the capture, up to a device
     synchronisation; ``launches`` the counted wrappers' launches by stage
     (``warm_up``, ``captured``, ``replays``; :func:`replayed_launches`).
@@ -280,11 +291,17 @@ class CapturedStep:
     place."""
 
     def __init__(self, body: Callable[[], Any], dev: torch.device,
-                 capture: bool = True):
+                 capture: bool = True,
+                 generator: Optional[torch.Generator] = None):
         if capture and dev.type != "cuda":
             raise ValueError(f"a captured step needs a CUDA device, got "
                              f"{dev}")
+        if capture and generator is not None and \
+                generator.device.type != "cuda":
+            raise ValueError(f"a captured step draws from a CUDA "
+                             f"generator, got one on {generator.device}")
         self.body, self.dev, self.capture = body, dev, capture
+        self.generator = generator
         self.graph = None
         self.out = None
         self.capture_seconds = 0.0
@@ -304,7 +321,7 @@ class CapturedStep:
         warm_up(lambda: warm.append(self.body()), self.dev)
         counts.append(launch_counts())
         self.graph = capture_epoch(lambda: captured.append(self.body()),
-                                   None, self.dev)
+                                   self.generator, self.dev)
         counts.append(launch_counts())
         _synchronize(self.dev)
         self.capture_seconds = time.perf_counter() - t0
@@ -382,9 +399,10 @@ def static_batches(loader, operators: Callable, static: StaticBatch,
     names) and the batch itself copied into ``static``; yields the host
     batch once the copies are enqueued. ``host["seconds"]`` adds each
     batch's host time (collation, the operators' build or lookup, the
-    copies), ``host["collate_seconds"]`` and ``host["operator_seconds"]``
-    the collation's and the operators' shares, and ``host["batches"]``
-    counts them."""
+    copies), ``host["collate_seconds"]``, ``host["operator_seconds"]``
+    and ``host["copy_seconds"]`` the collation's, the operators' and the
+    copies' shares (staging in pinned memory and enqueueing), and
+    ``host["batches"]`` counts them."""
     batches = loader.indexed(device="cpu")
     while True:
         t0 = time.perf_counter()
@@ -396,8 +414,9 @@ def static_batches(loader, operators: Callable, static: StaticBatch,
         ops = operators(idx, graph)
         t2 = time.perf_counter()
         static.load(graph, ops)
-        for key, dt in (("seconds", time.perf_counter() - t0),
-                        ("collate_seconds", t1 - t0),
-                        ("operator_seconds", t2 - t1), ("batches", 1)):
+        t3 = time.perf_counter()
+        for key, dt in (("seconds", t3 - t0), ("collate_seconds", t1 - t0),
+                        ("operator_seconds", t2 - t1),
+                        ("copy_seconds", t3 - t2), ("batches", 1)):
             host[key] = host.get(key, 0) + dt
         yield graph

@@ -60,6 +60,7 @@ from pytorch_geometric_tpu_torch.nn.conv.spline_conv import (  # noqa: F401
     spline_edge_sets,
     spline_operator,
     spline_operators,
+    static_spline_operator,
 )
 
 __all__ = ["AGNNConv", "ARMAConv", "ChebConv", "DNAConv", "DenseSAGEConv",
@@ -72,4 +73,4 @@ __all__ = ["AGNNConv", "ARMAConv", "ChebConv", "DNAConv", "DenseSAGEConv",
            "gcn_edge_set", "gcn_norm", "gcn_norm_dense", "rgcn_closure_norm",
            "rgcn_closure_op", "rgcn_fused_op", "rgcn_norm", "sgc_precompute",
            "spline_basis", "spline_edge_sets", "spline_operator",
-           "spline_operators"]
+           "spline_operators", "static_spline_operator"]

@@ -7,7 +7,9 @@ where ``edge_nn`` maps each edge's attributes to an (F_in, F_out) matrix.
 The messages are built per edge (an einsum over the edges) and summed by
 :func:`propagate`'s message path: pass ``segment_op`` (the graph's
 ``SortedSegmentSum``, ``propagate_operators``) for the
-``sorted_segment_sum`` kernel.
+``sorted_segment_sum`` kernel, and ``sender_op`` (one over the senders)
+to gather ``x_j`` through it, so that the gradient of ``x`` sums in the
+same kernel, in a fixed order, and two runs agree bit for bit.
 """
 
 from typing import Callable, Optional
@@ -36,7 +38,8 @@ class NNConv(nn.Module):
         self.bias = nn.Parameter(zeros((out_channels,))) if use_bias \
             else None
 
-    def forward(self, graph: Graph, x, edge_attr=None, segment_op=None):
+    def forward(self, graph: Graph, x, edge_attr=None, segment_op=None,
+                sender_op=None):
         ea = edge_attr if edge_attr is not None else graph.edge_attr
         theta = self.edge_nn(ea).reshape(-1, self.in_channels,
                                          self.out_channels)
@@ -47,7 +50,7 @@ class NNConv(nn.Module):
         out = propagate(graph, x, message_fn=message, aggr=self.aggr,
                         edge_weight=None if self.aggr != "add" else
                         graph.real_edge_mask().to(x.dtype),
-                        segment_op=segment_op)
+                        segment_op=segment_op, sender_op=sender_op)
         if self.root is not None:
             out = out + x @ self.root
         return out + self.bias if self.bias is not None else out

@@ -21,6 +21,10 @@ data, so the operator is built on the host once per graph and bound:
 - :func:`spline_operators`: the accumulator split by kernel index into K
   square operators, whose outputs are concatenated along the features:
   K launches a forward. Pass the list as ``spline_fns``.
+- :func:`static_spline_operator`: :func:`spline_operator`'s form in
+  buffers of a loader's budget (``ops/spmm.py:StaticBiSpmm``, (edge
+  budget x (degree + 1)^dim) slots a direction), loaded with each
+  batch's operator, for a captured step. Pass it as ``spline_op``.
 
 Without either, on the CPU only, the JAX module's fused segment sum.
 """
@@ -40,7 +44,7 @@ from pytorch_geometric_tpu_torch.nn.message_passing import require_cpu
 from pytorch_geometric_tpu_torch.ops.csr import host_array
 from pytorch_geometric_tpu_torch.ops.segment import segment_sum
 from pytorch_geometric_tpu_torch.ops.spmm import (
-    SpmmOperator, pack_bipartite_tables, spmm_bi_static)
+    SpmmOperator, StaticBiSpmm, pack_bipartite_tables, spmm_bi_static)
 from pytorch_geometric_tpu_torch.utils.repeat import repeat
 
 
@@ -162,6 +166,21 @@ def spline_operator(graph: Graph, dim: int, kernel_size,
         compute_dtype=compute_dtype,
         device=graph.device if device is None else device)
     return functools.partial(spmm_bi_static, geom, consts)
+
+
+def static_spline_operator(num_nodes: int, num_edges: int, dim: int,
+                           kernel_size, is_open_spline: bool = True,
+                           degree: int = 1, compute_dtype=torch.float32,
+                           device="cuda") -> StaticBiSpmm:
+    """Static buffers of :func:`spline_operator` for graphs of
+    ``num_nodes`` nodes and ``num_edges`` edge slots on ``device``: the
+    forward CSR of N·K rows over N, its transpose, each with a slot for
+    every (edge, corner) pair, and both value vectors. ``load`` copies a
+    batch's :func:`spline_operator` in; the call is the operator's."""
+    _, K, _ = _spline_shape(dim, kernel_size, is_open_spline)
+    return StaticBiSpmm(num_nodes, num_nodes * K,
+                        num_edges * (degree + 1) ** dim,
+                        compute_dtype=compute_dtype, device=device)
 
 
 class SplineConv(nn.Module):

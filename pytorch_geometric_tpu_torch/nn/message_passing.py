@@ -89,7 +89,8 @@ def _expand(v, ndim):
 def propagate(graph: Graph, x, message_fn: Optional[Callable] = None,
               aggr: str = "add", edge_weight=None, x_dst=None,
               spmm_op: Optional[SpmmOperator] = None,
-              segment_op: Optional[SortedSegmentSum] = None):
+              segment_op: Optional[SortedSegmentSum] = None,
+              sender_op: Optional[SortedSegmentSum] = None):
     """One message-passing round over ``graph``.
 
     ``x`` (N, ...) source features; ``message_fn(x_j, x_i, edge_attr)``
@@ -97,9 +98,13 @@ def propagate(graph: Graph, x, message_fn: Optional[Callable] = None,
     ``edge_weight`` (E,) multiplies the messages; ``x_dst`` gives ``x_i``
     for bipartite message functions; ``spmm_op`` / ``segment_op`` are the
     graph's operators (:func:`propagate_operators`), which the sums run
-    through (see the module docstring). Padding edges point at a padding
-    node, so sums need no mask; ``mean``, ``max`` and ``min`` leave them
-    out through ``graph.edge_mask``."""
+    through (see the module docstring). ``sender_op``, a
+    ``SortedSegmentSum`` over the senders, gathers ``x_j`` (its
+    ``gather``): the gradient of ``x`` then sums by sender in the
+    segment-sum kernel, in a fixed order, where torch's gather backward
+    adds with atomics in an order that varies from run to run. Padding
+    edges point at a padding node, so sums need no mask; ``mean``,
+    ``max`` and ``min`` leave them out through ``graph.edge_mask``."""
     if aggr not in AGGRS:
         raise ValueError(f"aggr must be one of {AGGRS}, got {aggr!r}")
     num_nodes = graph.num_nodes
@@ -119,7 +124,8 @@ def propagate(graph: Graph, x, message_fn: Optional[Callable] = None,
                 require_cpu(x, f"propagate(aggr={aggr!r})",
                             "spmm_op for the identity message, segment_op "
                             "for a message_fn (propagate_operators)")
-            msg = _messages(graph, x, message_fn, edge_weight, x_dst)
+            msg = _messages(graph, x, message_fn, edge_weight, x_dst,
+                            sender_op)
             if masked:
                 msg = torch.where(_expand(graph.edge_mask, msg.ndim), msg,
                                   0.0)
@@ -131,7 +137,7 @@ def propagate(graph: Graph, x, message_fn: Optional[Callable] = None,
                           graph.receivers, num_nodes).clamp_min(1.0)
         return out / _expand(cnt, out.ndim)
 
-    msg = _messages(graph, x, message_fn, edge_weight, x_dst)
+    msg = _messages(graph, x, message_fn, edge_weight, x_dst, sender_op)
     if not masked:
         return scatter(msg, graph.receivers, num_nodes, reduce=aggr)
     big = torch.finfo(msg.dtype).max
@@ -149,9 +155,11 @@ def _rows(op, *args):
     return out.reshape(out.shape[:1] + t.shape[1:])
 
 
-def _messages(graph: Graph, x, message_fn, edge_weight, x_dst):
+def _messages(graph: Graph, x, message_fn, edge_weight, x_dst,
+              sender_op=None):
     """The per-edge messages in edge order, weighted."""
-    x_j = x.index_select(0, graph.senders.long())
+    x_j = sender_op.gather(x) if sender_op is not None else \
+        x.index_select(0, graph.senders.long())
     if message_fn is not None:
         x_i = (x_dst if x_dst is not None else x).index_select(
             0, graph.receivers.long())

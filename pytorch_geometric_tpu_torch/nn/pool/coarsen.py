@@ -14,8 +14,9 @@ examples/mnist_voxel_grid.py:30-39). Two paths, as in the JAX package:
   validity mask. The maxima are torch's ``scatter_reduce``. The sums and
   means go through a ``SortedSegmentSum`` over the cluster ids
   (:func:`cluster_operator`, built on the host at loader time, where the
-  ids are known) and the segment-sum kernel on a card; without it, on the
-  CPU only, plain segment ops, and on a CUDA tensor they raise.
+  ids are known, over the real nodes only) and the segment-sum kernel on
+  a card; without it, on the CPU only, plain segment ops, and on a CUDA
+  tensor they raise.
 """
 
 from typing import Callable, Optional, Tuple
@@ -111,9 +112,19 @@ def cluster_operator(cluster, graph: Graph, device=None
     """The ``SortedSegmentSum`` of :func:`pool_graph_masked` over
     ``cluster`` (N ids of ``graph``'s nodes, the nodes outside its mask
     routed to N - 1) into N rows, on ``device`` (default: the graph's).
-    Built on the host."""
+    Built on the host.
+
+    Its CSR holds the real nodes only (``entry_mask``): the nodes outside
+    the mask hand 0 to every sum of the pool, and 1 to the count of the
+    means, whose row N - 1 then reads 0 / count = 0 either way. Where a
+    real cluster is N - 1 (a graph with no padding node), that row is
+    read, and the JAX mean counts the nodes routed there: every node
+    keeps its entry, as in the padded operator."""
     ids = host_array(_routed(cluster, graph))
-    return SortedSegmentSum(ids, graph.num_nodes,
+    real = host_array(graph.real_node_mask())
+    n = graph.num_nodes
+    keep = None if (ids[real] == n - 1).any() else real
+    return SortedSegmentSum(ids, n, entry_mask=keep,
                             device=graph.device if device is None
                             else device)
 

@@ -16,15 +16,15 @@ JAX function's:
 Where the sums run. A collated batch is sorted by graph id and its
 padding nodes sit on the last one, so the sums go through one
 ``SortedSegmentSum`` over ``batch`` (:func:`pool_operator`, built on the
-host once per batch beside ``propagate_operators``) and the segment-sum
-kernel on a card. After ``TopKPooling`` the mask is a device tensor and no
-longer matches the operator's rows, so the mean sums the masked rows and
-their count by ``batch`` in one call of the operator, then adds the
-dropped nodes' sum and count to the last row: the JAX routing, exactly,
-with one reduction more. Without the operator, on the CPU only, the JAX
-functions' plain segment ops; on a CUDA tensor a sum or mean without it
-raises. The max is torch's ``scatter_reduce`` (neither package has a
-segment-max kernel).
+host once per batch beside ``propagate_operators``, over the real nodes)
+and the segment-sum kernel on a card. After ``TopKPooling`` the mask is
+a device tensor and no longer matches the operator's rows, so the mean
+sums the masked rows and their count by ``batch`` in one call of the
+operator, then adds the dropped nodes' sum and count to the last row:
+the JAX routing, exactly, with one reduction more. Without the
+operator, on the CPU only, the JAX functions' plain segment ops; on a
+CUDA tensor a sum or mean without it raises. The max is torch's
+``scatter_reduce`` (neither package has a segment-max kernel).
 """
 
 from typing import Optional
@@ -33,6 +33,7 @@ import torch
 
 from pytorch_geometric_tpu_torch.data.graph import Graph
 from pytorch_geometric_tpu_torch.nn.message_passing import require_cpu
+from pytorch_geometric_tpu_torch.ops.csr import host_array
 from pytorch_geometric_tpu_torch.ops.segment import (
     segment_max, segment_mean, segment_sum)
 from pytorch_geometric_tpu_torch.ops.sorted_spmm import SortedSegmentSum
@@ -58,11 +59,23 @@ def pool_operator(graph: Graph, device=None) -> SortedSegmentSum:
     the nodes outside ``node_mask`` routed to the padding graph as the
     JAX mean and max route them (a collated batch's padding nodes are
     there already; a pooled level's unoccupied rows are not), on
-    ``device`` (default: the graph's). Built on the host."""
+    ``device`` (default: the graph's). Built on the host.
+
+    Its CSR holds the nodes of ``node_mask`` only (``entry_mask``): the
+    readouts hand the others 0 (add and mean mask them, Set2Set's softmax
+    weights them 0), so every row is bitwise the padded operator's and
+    the padding graph's row, whose thousands of entries one group of
+    lanes walked, holds none. Where a real graph is the last id (a graph
+    without a padding graph), every node keeps its entry."""
     b = _batch_of(graph, None)
+    keep = None
     if graph.node_mask is not None:
-        b = torch.where(graph.node_mask, b, graph.num_graphs - 1)
-    return SortedSegmentSum(b, graph.num_graphs,
+        last = graph.num_graphs - 1
+        b = torch.where(graph.node_mask, b, last)
+        real = host_array(graph.node_mask)
+        if not (host_array(b)[real] == last).any():
+            keep = real
+    return SortedSegmentSum(b, graph.num_graphs, entry_mask=keep,
                             device=graph.device if device is None
                             else device)
 

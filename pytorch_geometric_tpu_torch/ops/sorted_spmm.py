@@ -15,7 +15,8 @@ kernel sums each receiver's run of messages:
    edge order: ``msgs[perm]``, then the kernel; its VJP is
    ``g[receivers]``. Its transpose, ``op.gather(x)``, is ``x[receivers]``
    with the kernel as its VJP: a gather whose backward sums in a fixed
-   order.
+   order. ``entry_mask`` keeps a batch's real entries only in the CSR;
+   :class:`StaticSegmentSum` holds it in buffers of a loader's budget.
 3. :func:`sorted_segment_sum` — the wrapper of the hand-written CUDA
    kernel ``csrc/sorted_spmm.cu``, which replaces the Pallas kernel
    ``ops/sorted_spmm.py:_scatter_kernel``. Beside it:
@@ -184,17 +185,30 @@ class SortedSegmentSum:
     sum is the cotangent gathered at the receivers. For attention-style
     convs that build their messages on the device; ``receivers`` may be
     any segment ids (a conv's senders, for the backward of a gather by
-    senders: :meth:`gather`)."""
+    senders: :meth:`gather`).
+
+    ``entry_mask`` (E,) builds the CSR over the entries it marks only (a
+    batch's real edges or nodes); ``receivers`` keeps every entry, so
+    the messages, the VJP ``g[receivers]`` and :meth:`gather`'s output
+    stay (E, ...) in entry order. An entry left out must hand 0 to the
+    rows that are read (the masked sums zero their padding messages):
+    the kernel adds a row's messages in CSR order from 0, and adding +0.0
+    changes no sum, so every such row is bitwise the full operator's,
+    and the padding row holds no entry for one group of lanes to walk.
+    :meth:`gather`'s VJP then sums the kept entries' cotangents only."""
 
     def __init__(self, receivers, num_nodes, *, compute_dtype=torch.float32,
-                 device="cuda"):
+                 entry_mask=None, device="cuda"):
         from pytorch_geometric_tpu_torch.device import resolve_device
 
         dev = resolve_device(device)
         self.compute_dtype = _message_dtype(compute_dtype)
         r = host_array(receivers)
+        entries = None if entry_mask is None else \
+            np.flatnonzero(host_array(entry_mask))
         self.num_nodes = int(num_nodes)
-        self.csr = build_csr(r, np.zeros_like(r), self.num_nodes).to(dev)
+        self.csr = build_csr(r, np.zeros_like(r), self.num_nodes,
+                             edges=entries).to(dev)
         self.receivers = torch.from_numpy(r.astype(np.int64)).to(dev)
 
     def __call__(self, msgs):
@@ -209,7 +223,7 @@ class SortedSegmentSum:
         return _GatherApply.apply(x, self)
 
     def _sum(self, msgs):
-        flat = msgs[self.csr.perm].reshape(msgs.shape[0], -1)
+        flat = msgs[self.csr.perm].reshape(self.csr.num_edges, -1)
         out = sorted_segment_sum(self.csr.row_ptr,
                                  flat.to(self.compute_dtype))
         return out.reshape((self.num_nodes,) + tuple(msgs.shape[1:]))
@@ -219,8 +233,11 @@ class StaticSegmentSum(SortedSegmentSum):
     """A :class:`SortedSegmentSum` of ``num_entries`` messages into
     ``num_rows`` rows in static buffers on ``device``, loaded in place
     from an operator of each batch (:meth:`load`), which a captured step
-    reads. Every message has a row (a readout's batch vector: one entry
-    a node), so the entries fill the buffers exactly."""
+    reads. ``receivers`` holds every entry; the CSR holds the batch
+    operator's entries (its ``entry_mask``'s, or all of them), which end
+    at ``row_ptr[num_rows]``: the slots past them are never read
+    (``ops/csr.py:StaticCsr``), and their ``perm`` 0 gathers a message
+    that nothing sums."""
 
     def __init__(self, num_rows: int, num_entries: int, *,
                  compute_dtype=torch.float32, device="cuda"):
@@ -235,9 +252,9 @@ class StaticSegmentSum(SortedSegmentSum):
                                      device=dev)
 
     def load(self, op: SortedSegmentSum) -> "StaticSegmentSum":
-        """Copy ``op`` (a batch's operator of as many rows and entries, on
-        the host or the card) in on the current stream, without a host
-        wait."""
+        """Copy ``op`` (a batch's operator of as many rows and entries,
+        over all of them or its real ones, on the host or the card) in on
+        the current stream, without a host wait."""
         if (op.num_nodes, op.receivers.shape[0], op.compute_dtype) != (
                 self.num_nodes, self.receivers.shape[0],
                 self.compute_dtype):

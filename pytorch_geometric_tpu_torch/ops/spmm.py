@@ -18,6 +18,9 @@ Counterpart of ``pytorch_geometric_tpu/ops/spmm.py``:
    geometry holds the forward CSR (``n_dst`` x ``n_src``), its transpose
    and the sizes; the JAX package's windows and tiles have no
    counterpart. Both are differentiable in x only.
+   :class:`StaticBiSpmm` is the rectangular form in buffers of a
+   loader's budget, loaded batch after batch, which a captured step
+   reads.
 4. :func:`spmm_csr` — the wrapper of the hand-written CUDA kernel
    ``csrc/spmm_csr.cu``, which replaces the Pallas kernel
    ``ops/spmm.py:_spmm_kernel`` of the JAX package. What bounds it is
@@ -434,3 +437,48 @@ def pack_bipartite_tables(senders, receivers, n_src, n_dst, weights, *,
     geom = BiSpmmGeom.make(csrs["fwd"], csrs.get("bwd"), n_src, n_dst,
                            _compute_name(compute_dtype))
     return geom, consts
+
+
+class StaticBiSpmm:
+    """:func:`spmm_bi_static` over static buffers on ``device``: the
+    forward CSR (``n_dst`` x ``n_src``) and its transpose, each of
+    ``capacity`` entry slots (:class:`~.csr.StaticCsr`), and both CSRs'
+    values, loaded in place from each batch's operator (:meth:`load`).
+    A captured step reads these buffers, so one CUDA graph serves every
+    batch of a loader's budget. A batch's entries end at each CSR's
+    ``row_ptr`` end, where the kernel stops: the spare slots (and their
+    values) are never read. Differentiable in x, as
+    :func:`spmm_bi_static`."""
+
+    def __init__(self, n_src: int, n_dst: int, capacity: int, *,
+                 compute_dtype=torch.float32, device="cuda"):
+        from pytorch_geometric_tpu_torch.device import resolve_device
+
+        dev = resolve_device(device)
+        self.geom = BiSpmmGeom.make(
+            StaticCsr.empty(n_dst, n_src, capacity, dev),
+            StaticCsr.empty(n_src, n_dst, capacity, dev), n_src, n_dst,
+            _compute_name(compute_dtype))
+        self.consts = {d: torch.zeros(capacity, dtype=torch.float32,
+                                      device=dev) for d in ("fwd", "bwd")}
+
+    def load(self, op) -> "StaticBiSpmm":
+        """Copy a batch's operator in on the current stream, without a
+        host wait: ``(geom, consts)`` of :func:`pack_bipartite_tables`
+        (both directions), or a ``functools.partial`` of
+        :func:`spmm_bi_static` over them (what
+        ``nn/conv/spline_conv.py:spline_operator`` returns)."""
+        geom, consts = op.args if isinstance(op, functools.partial) else op
+        if geom.bwd is None or geom.compute != self.geom.compute:
+            raise ValueError(f"an operator of compute {geom.compute!r} "
+                             f"with{'out' if geom.bwd is None else ''} its "
+                             f"transpose does not fit static buffers of "
+                             f"{self.geom.compute!r} with it")
+        self.geom.fwd.load(geom.fwd)
+        self.geom.bwd.load(geom.bwd)
+        for d in ("fwd", "bwd"):
+            copy_into(self.consts[d], consts[d])
+        return self
+
+    def __call__(self, x):
+        return spmm_bi_static(self.geom, self.consts, x)
