@@ -40,7 +40,7 @@ Phases, one JSON line each:
                  receivers with (8, 8), (1, 7) and (3, 5) (the backward's
                  three dispatch branches: float4 and one-float lane maps,
                  and the first design), and at examples/ppi.py's widths
-                 (4, 256) and (6, 121), which run the first designs, on
+                 (4, 256) and (6, 121), which run the wide-head map, on
                  one synthetic PPI train graph (3072 padded nodes, ~70k
                  edges of the sparse path's edge set, repeated edges
                  kept) and on the val batch of 2 graphs, attention
@@ -174,9 +174,12 @@ Phases, one JSON line each:
                (the row pass's D bitwise), and both within 1e-5 of the
                plain versions; the same for
                the first design of the bsr row pass and of the packed-GAT
-               forward and backward (probes/packed_gat_designs.cu; Cora
-               (8, 8), dropout 0.6; two launches of the library's forward
-               bitwise equal), and of spmm_csr
+               forward and backward, with the wide-head map at every
+               width (probes/packed_gat_designs.cu; Cora (8, 8) and the
+               research driver's (8, 135), dropout 0.6; two launches of
+               the library's forward bitwise equal; the wide-head map's
+               num‖den, m and dh bitwise the first design's), and of
+               spmm_csr
                (probes/spmm_csr_designs.cu; Cora's GCN CSR, F = 16, fp32
                x and bf16 x: 1e-6 between the designs, 1e-5 and 1e-2 to
                the plain version; F = 1433, 300 and 33, fp32, and 1433
@@ -373,7 +376,7 @@ Phases, one JSON line each:
                against the plain path on the CPU (1e-4);
    slice_driver_gat — the same with --modelName GAT, 20 + 60 epochs (one
                correction, at epoch 50), every attention layer through
-               one PackedFlashGat (its first designs: 8 heads of up to
+               one PackedFlashGat (its wide-head map: 8 heads of up to
                135 channels): packed-GAT launches asserted as 80 epochs x
                (3 forward + 6 backward) + 3 evaluations x 3 forward; its
                logits after three epochs card against CPU within 1e-3;
@@ -1414,7 +1417,7 @@ def check_rgcn_case(graph_name, op, B, C, gen):
 #: The driver's Cora shapes (slice_driver, slice_driver_gat): the GCN's
 #: widths 1084 and 819 on its SpMM (after pruning 1083 and 818, the same
 #: chunk map), and the GAT's three layers over its remove-then-add edge
-#: set, 8 heads of 135 and of 102 channels (the first designs) with
+#: set, 8 heads of 135 and of 102 channels (the wide-head map) with
 #: attention dropout 0.6, and the output head (1, 7) without.
 DRIVER_SPMM_WIDTHS = (1084, 819)
 DRIVER_GAT_SHAPES = ((8, 135, 0.6), (8, 102, 0.6), (1, 7, 0.0))
@@ -1529,7 +1532,7 @@ def ppi_kernel_graphs():
 
 def phase_kernel_ppi(gen):
     """The packed-GAT kernels at examples/ppi.py's widths, which take the
-    first designs: conv1 and conv2's (H, C) = (4, 256) and conv3's
+    wide-head map: conv1 and conv2's (H, C) = (4, 256) and conv3's
     (6, 121), on the operator of the sparse path's edge set
     (``gat_sparse_edge_set``: repeated edges kept) of one train graph and
     of the val batch, attention dropout 0 and 0.6."""
@@ -1930,7 +1933,7 @@ def phase_probe():
             failed.append((case["kernel"], case["graph"]))
     emit({"phase": "probe", "launches": launches,
           "expected_launches": expected})
-    for design in (probe_bsr_designs(gen), probe_packed_designs(gen),
+    for design in (probe_bsr_designs(gen), *probe_packed_designs(gen),
                    probe_flash_designs(gen), probe_rgcn_designs(gen),
                    *probe_spmm_designs(gen), *probe_segment_designs(gen),
                    probe_fused_designs(gen)):
@@ -1968,30 +1971,47 @@ def probe_bsr_designs(gen, rate=0.6):
 
 
 def probe_packed_designs(gen, rate=0.6):
-    """The first design of the packed-GAT forward and backward
-    (``probes/packed_gat_designs.cu``) against the library's at Cora
-    (8, 8), the main path's call: within 1e-6 of each other (the two sum
-    a row's edges in other orders), 1e-5 of the plain version, and two
-    launches of the library's forward bitwise equal. The timing table is
-    the probe script's."""
+    """The first design of the packed-GAT forward and backward and the
+    wide-head map at every width (``probes/packed_gat_designs.cu``)
+    against the library's at Cora (8, 8), the main path's call, and at
+    the research driver's (8, 135), where the library runs the wide-head
+    map: each within 1e-6 of the first design (the row map sums a row's
+    edges in other orders), 1e-5 of the plain version, two launches of the
+    library's forward bitwise equal; the wide-head map's num‖den, m and dh
+    bitwise the first design's (and so the library's past 32 channels a
+    head). The timing table is the probe script's."""
     from pytorch_geometric_tpu_torch.models.citation import gat_flash_op
+    from pytorch_geometric_tpu_torch.nn.conv import gat_sparse_edge_set
+    from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
     from probes import packed_gat_designs as pd
 
-    op = gat_flash_op(cora_graph(DEVICE)[1])
+    cora = cora_graph(DEVICE)[1]
+    senders, receivers = gat_sparse_edge_set(cora)
+    driver_op = PackedFlashGat(senders=senders, receivers=receivers,
+                               num_nodes=cora.num_nodes, device=DEVICE)
     lib = pd.load()
-    inputs, errors = pd.compare(lib, op, 8, 8, rate, gen)
-    fwd_errors, fwd_repeat = pd.compare_fwd(lib, op, inputs, rate)
-    errors.update(fwd_errors)
-    case = {"phase": "probe", "kernel": "packed_gat_designs",
-            "graph": "cora", "H": 8, "C": 8, "rate": rate,
-            "errors": errors, "fwd_bitwise_repeat": fwd_repeat,
-            "tol_designs": 1e-6, "tol": TOL["fp32"],
-            "ok": fwd_repeat and all(
-                err <= (1e-6 if key.endswith("first_vs_shipped")
-                        else TOL["fp32"])
-                for key, err in errors.items())}
-    emit(case)
-    return case
+    cases = []
+    for graph, op, H, C in (("cora", gat_flash_op(cora), 8, 8),
+                            ("cora_driver", driver_op, 8, 135)):
+        inputs, errors = pd.compare(lib, op, H, C, rate, gen)
+        fwd_errors, fwd_repeat = pd.compare_fwd(lib, op, inputs, rate)
+        errors.update(fwd_errors)
+        bitwise = ["fwd_first_vs_wide", "dh_first_vs_wide"]
+        if C > 32:
+            bitwise += ["fwd_first_vs_shipped", "dh_first_vs_shipped"]
+        case = {"phase": "probe", "kernel": "packed_gat_designs",
+                "graph": graph, "H": H, "C": C, "rate": rate,
+                "errors": errors, "fwd_bitwise_repeat": fwd_repeat,
+                "bitwise": bitwise, "tol_designs": 1e-6,
+                "tol": TOL["fp32"],
+                "ok": fwd_repeat and all(errors[k] == 0 for k in bitwise)
+                and all(err <= (1e-6 if "_first_vs_" in key
+                                or key.startswith("first_vs_")
+                                else TOL["fp32"])
+                        for key, err in errors.items())}
+        emit(case)
+        cases.append(case)
+    return cases
 
 
 def probe_spmm_designs(gen):
@@ -3245,6 +3265,11 @@ def phase_slice_autoencoder():
                    problems)
 
 
+#: Card-against-CPU tolerance of the infomax embeddings after three Adam
+#: steps (``slice_infomax``).
+INFOMAX_PARITY_TOL = 1e-4
+
+
 def infomax_steps_z(device, steps=3):
     """``(z, model)``: examples/infomax.py's model (from ``SEED``, hidden
     512) after ``steps`` Adam steps, each corruption's permutation drawn
@@ -3294,7 +3319,7 @@ def phase_slice_infomax():
                      f"{want}"})
     _falling(out["losses"], problems)
     parity, params_err, finite, shape = _parity(infomax_steps_z)
-    if not (finite and parity <= 1e-4):
+    if not (finite and parity <= INFOMAX_PARITY_TOL):
         problems.append(f"embeddings after 3 steps: card vs CPU rel err "
                         f"{parity}")
     return _finish({"phase": "slice_infomax", "epochs": INFOMAX_EPOCHS,
@@ -5690,7 +5715,7 @@ def kernels_line(results):
             line[-1]["unfused_chain_ms"] = case["unfused_chain_ms"]
         ppi = [c for c in results["kernel"]
                if c["kernel"] == name and c["graph"].startswith("ppi_")]
-        if ppi:   # examples/ppi.py's widths, on the first designs
+        if ppi:   # examples/ppi.py's widths, on the wide-head map
             line[-1]["ppi"] = [
                 {k: c[k] for k in ("graph", "H", "C", "rate", "kernel_ms",
                                    "plain_ms", "bound_ms", "bound_by",

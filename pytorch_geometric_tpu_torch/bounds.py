@@ -57,6 +57,16 @@ def gat_walk_bound(op, H, C, walk):
     return bound_ms(nbytes, E * H * ((4 if walk else 2) * C + 12))
 
 
+def gat_gather_bytes(op, H, C):
+    """Bytes one gathering walk of the packed GAT moves through L2: every
+    edge of ``op`` gathers its neighbour's slice of one (N, H C) fp32 array
+    (h[src] in the forward and walk 0, gnum[dst] in walk 1), E H C 4. Not
+    a bound: the byte bound (:func:`gat_bound`) reads each node row once,
+    and this counts what a kernel that gathers a row per edge reads again
+    from L2 (the forward one walk, the backward two)."""
+    return op.E * H * C * 4
+
+
 def flash_gat_bound(n, valid, H, C, backward):
     """One dense-mask flash-GAT call on an (n, n) mask with ``valid`` true
     entries: the mask once at one bit per entry (the least any dense-mask

@@ -44,17 +44,22 @@
 // each step an L2 round trip, and the walk is bound by that chain and by
 // the instructions of each edge.
 //
-// The first design of the forward and of the backward (gat_fwd_kernel,
-// gat_bwd_heads_kernel): a group of G lanes (G = 4, 8, 16 or 32:
-// with_group_width) owns one (row, head) pair; lane l keeps the channels
-// l, l + G, ... of a chunk of G * kVec channels, and every lane of the
-// group computes the same per-edge scalars (logit, exp, keep bit) with the
-// same instructions, walking the row's edges one after another, so a row
-// of deg edges is deg steps of the chain deep and col[e] is loaded H
-// times. The backward's per-head dot <gnum, h> is a butterfly of shuffles
-// within the group. Both keep this design only at the widths the row map
-// below does not take (see there); probes/packed_gat_designs.py times it
-// beside the row map at every width.
+// Three lane maps, by width (packed_gat_fwd and packed_gat_bwd dispatch):
+// the row map for heads of at most 32 channels, the wide-head map past
+// them, and the backward's first design at the narrow widths the row map
+// leaves ((3, 5)).
+//
+// The first design (gat_bwd_heads_kernel; its forward, gat_fwd_kernel,
+// which the library launches at no width since the wide-head map, is kept
+// in probes/packed_gat_designs.cu): a group of G lanes (G = 4, 8, 16 or
+// 32: with_group_width) owns one (row, head) pair; lane l keeps the
+// channels l, l + G, ... of a chunk of G * kVec channels, and every lane of
+// the group computes the same per-edge scalars (logit, exp, keep bit) with
+// the same instructions, walking the row's edges one after another, so a
+// row of deg edges is deg steps of the chain deep, col[e] is loaded H
+// times, and a head of more than G kVec = 128 channels walks its row once
+// a chunk. The backward's per-head dot <gnum, h> is a butterfly of
+// shuffles within the group, an edge at a time.
 //
 // The row map of the backward (gat_bwd_kernel), after the block-sparse
 // GAT's row pass (bsr_gat.cu), and of the forward (gat_fwd_rows_kernel,
@@ -93,19 +98,74 @@
 //   launch fills less than one wave), since the extra lanes add threads
 //   and a level of the tree to every row.
 // - The backward's map runs where the heads divide the lanes and a head
-//   has at most 32 channels (registers for them: 8 or 32); the other
-//   widths ((3, 5), (2, 33), (4, 64), (1, 256)) keep the first design.
-//   The forward's runs wherever a row's lanes hold its heads and a head
-//   has at most 32 channels: where the heads do not divide the lanes
+//   has at most 32 channels (registers for them: 8 or 32); of the other
+//   widths, a head of more than 32 channels takes the wide-head map below
+//   and the rest ((3, 5)) the first design. The forward's runs wherever a
+//   row's lanes hold its heads and a head has at most 32 channels (else
+//   the wide-head map): where the heads do not divide the lanes
 //   ((3, 5): 5 entry groups of 3 lanes in 16), the lanes past the last
 //   whole group walk no edge, and the groups' sums meet in a tree of
 //   shuffles down by multiples of H (row_lanes.cuh: Row::sum_groups).
+//
+// The wide-head map (gat_fwd_wide_kernel, gat_bwd_wide_kernel), after the
+// CSR SpMM's chunk map (spmm_csr.cu), for heads of more than 32 channels
+// (PPI's (4, 256) and (6, 121), the research driver's (8, 135) and
+// (8, 102)):
+// - A warp owns one (row, head) pair, its lanes across the head's
+//   channels: lane t keeps channels (k 32 + t) V + v, k < K, so each
+//   gather of the warp reads 32 V consecutive channels of the neighbour's
+//   head (128 bytes at V = 1, where a head's slice is not 16-byte aligned:
+//   PPI's (6, 121) at 484 bytes a head, the driver's 540 and 408; 512 at
+//   V = 4, float4 loads where C is a multiple of 4 and the rows aligned:
+//   (4, 256)). K = ceil(C / 32 V), so every head up to 256 channels is one
+//   pass over its row (the first design walked (4, 256)'s and (8, 135)'s
+//   rows twice, the second pass of (8, 135) with 7 channels live); a
+//   wider head takes passes of 256.
+// - The row's edges go 32 at a time, one a lane: each lane loads its
+//   edge's col[e] (and eid[e] in walk 1) and forms that (edge, head)'s
+//   terms once (the forward: s[src], the logit, expf and the keep hash;
+//   walk 0: s[src]; walk 1: d, m and gden of the receiver), where every
+//   lane of the first design's group formed every edge's. The walk hands
+//   them round by shuffles and issues the gathers of NB edges together
+//   (NB V K = 8 channels a lane in flight, one edge where V K is 8 or
+//   more: probes/chunk_map_variants.py found 8 better than 16 or 32 on
+//   the chunk map). A PPI row (~22 edges) is then one step of the index
+//   chain, not ~22.
+// - The forward's shift walk loads each sender and its s once, a lane an
+//   edge, and keeps the first 32 for the walk that sums; m is the warp's
+//   max.
+// - The backward's per-edge dot enters dz linearly, so a row's sum of it
+//   is taken channel by channel before any reduction: each lane keeps
+//   t[c] = sum_e sf_e ex_e ks_e x_e[c] (sf_e = 1 or the slope, by the sign
+//   of the edge's pre-activation; x_e the gathered head, h[src] in walk 0
+//   and gnum[dst] in walk 1), and dd (ds) = sum_c own[c] t[c] +
+//   sum_e sf_e ex_e gden is one 5-level sum over the warp a row, where the
+//   first design reduced a butterfly an edge, in series with the walk. In
+//   walk 1 the one gathered gnum[dst] slice serves t and dh; walk 0 keeps
+//   the receiver's gnum slice in registers and gathers h[src].
+// - What bounds it: the gathers' L2 traffic. Each gathering walk moves
+//   E H C 4 bytes through L2 (bounds.py: gat_gather_bytes), the forward
+//   one walk and the backward two, where the byte bound counts each node
+//   row once: at a PPI train graph (68,474 edges) and (4, 256) 280 MB a
+//   walk against a byte bound of 7.7 us for the forward. The chunk map
+//   moved such gathers at ~4.9 TB/s (spmm_csr.cu, Cora F = 1433); this
+//   map moves PPI's at 4.3-6.6 TB/s (the times below), where the first
+//   design moved them at 1.5-4.9.
+// - Each output element is written by one lane. Every channel of num and
+//   dh, and den, is summed over the row's edges in CSR order from 0 in one
+//   fp32 accumulator, as the first design sums them, so num, den, m and dh
+//   are bitwise the first design's; dd and ds (whose dot and sums are
+//   taken in another tree) agree with it to rounding (within 1e-6 of the
+//   largest magnitude in the card tests).
+//
+// Every map:
 // - No atomics. Walk 0 walks the receiver-major CSR (edge id = CSR
 //   position) and writes dd; walk 1 walks the sender-major CSR (edge id
-//   from its permutation) and writes ds and dh. The entry groups' sums of
-//   a row meet in a fixed tree of shuffles, so two launches are bitwise
-//   equal; rows with no edges are written as 0, so outputs may come from
-//   torch.empty.
+//   from its permutation) and writes ds and dh. Every sum over lanes is a
+//   fixed tree of shuffles, so two launches are bitwise equal; rows with
+//   no edges are written as 0, so outputs may come from torch.empty. A
+//   launch depends on the shapes and the pointers' alignment only and
+//   allocates nothing, so it captures in a CUDA graph.
 // - The dropout seed is read from device memory, so the caller never
 //   waits on the card for it; m is the forward's own output.
 // - fp32 throughout; expf (not __expf) and no fast-math flags, so the
@@ -125,6 +185,22 @@
 // (bound 0.6), conv2 (1, 7) 5.9 -> 4.5; RCM-PubMed (8, 8) 29.0 -> 10.5,
 // (1, 3) 6.7 -> 5.6; the hub graph (8, 8) 152 -> 36, (1, 7) 87 -> 20,
 // (3, 5) 131 -> 31.
+// The wide-head map, first design -> wide-head map, warm, in one run of the
+// same probe (NVIDIA H100 80GB HBM3, 700.00 W; the L2 gather rate in
+// brackets): PPI's first train graph (3,072 rows, 68,474 edges, ~22 a
+// row) forward (4, 256) 65.0 -> 52.3 [5.4 TB/s], (6, 121) 49.3 -> 43.4
+// [4.6], backward 196.0 -> 93.0 [6.0] and 255.0 -> 93.1 [4.3]; its val
+// batch (6,144 rows, 141,416 edges) forward 119.3 -> 92.5 and 90.6 ->
+// 81.7, backward 343.0 -> 176.5 and 476.2 -> 182.7; the research driver's
+// Cora edge set (13,560 edges, ~4.4 a row) forward (8, 135) 29.9 -> 26.2,
+// (8, 102) 18.0 -> 18.3, backward 84.3 -> 45.9 and 77.6 -> 43.8: on rows
+// that short the row's chain of loads, not the gathers, sets the time.
+// The map is slower than the row map wherever that runs (Cora (8, 8)
+// backward 32.7 against 7.4) and at narrow heads on many short rows
+// (RCM-PubMed (1, 3) 33.3 against the first design's 18.4), so the
+// backward keeps its first design at the narrow widths the row map
+// leaves, though the map beat it on the hub graph at (3, 5) (117.4
+// against 416.2).
 //
 // Ablation hooks: the backward kernel takes a bit mask kAblate of terms
 // to remove (namespace gat_ablate) and a run-time flag `sink`. The
@@ -209,75 +285,6 @@ __device__ __forceinline__ float group_sum(float v, unsigned mask) {
 #pragma unroll
   for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(mask, v, o);
   return v;
-}
-
-template <int G>
-__device__ __forceinline__ float group_max(float v, unsigned mask) {
-#pragma unroll
-  for (int o = G / 2; o > 0; o >>= 1) {
-    v = fmaxf(v, __shfl_xor_sync(mask, v, o));
-  }
-  return v;
-}
-
-// Forward: rows of the receiver-major CSR; out is (n_rows, H*C + H),
-// num in the first H*C columns, den in the last H; m (n_rows, H) the
-// shift's max of s, written here.
-template <int G>
-__global__ void __launch_bounds__(kThreads)
-gat_fwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
-               const float* __restrict__ d, const float* __restrict__ s,
-               const float* __restrict__ h, float* __restrict__ m,
-               const int* __restrict__ seed_ptr, float* __restrict__ out,
-               int n_rows, int H, int C, uint32_t thresh, float scale,
-               float slope) {
-  const long long grp =
-      static_cast<long long>(blockIdx.x) * (kThreads / G) + threadIdx.x / G;
-  if (grp >= static_cast<long long>(n_rows) * H) return;
-  const int r = static_cast<int>(grp / H);
-  const int hd = static_cast<int>(grp % H);
-  const int lane = threadIdx.x % G;
-  const int HC = H * C;
-  const uint32_t seed = static_cast<uint32_t>(__ldg(seed_ptr));
-  const float dr = __ldg(d + static_cast<size_t>(r) * H + hd);
-  const int e0 = row_ptr[r];
-  const int e1 = row_ptr[r + 1];
-  // the row's shift: the largest s of the head over its senders, the
-  // group's lanes taking the edges in turn; 0 for a row without edges
-  float mx = -INFINITY;
-  for (int e = e0 + lane; e < e1; e += G) {
-    mx = fmaxf(mx, __ldg(s + static_cast<size_t>(__ldg(col + e)) * H + hd));
-  }
-  mx = e1 > e0 ? group_max<G>(mx, group_mask<G>()) : 0.f;
-  if (lane == 0) m[static_cast<size_t>(r) * H + hd] = mx;
-  const float shift = leaky(mx + dr, slope);
-  float* o = out + static_cast<size_t>(r) * (HC + H);
-  for (int c0 = 0; c0 < C; c0 += G * kVec) {
-    float acc[kVec];
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) acc[k] = 0.f;
-    float den = 0.f;
-    for (int e = e0; e < e1; ++e) {
-      const int src = __ldg(col + e);
-      const float z =
-          leaky(__ldg(s + static_cast<size_t>(src) * H + hd) + dr, slope);
-      const float ex = expf(z - shift);
-      den += ex;
-      const float w = ex * keep_scale(seed, e, hd, thresh, scale);
-      const float* hr =
-          h + static_cast<size_t>(src) * HC + hd * C + c0 + lane;
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) {
-        if (c0 + lane + k * G < C) acc[k] += w * __ldg(hr + k * G);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) {
-      const int c = c0 + lane + k * G;
-      if (c < C) o[hd * C + c] = acc[k];
-    }
-    if (c0 == 0 && lane == 0) o[HC + hd] = den;
-  }
 }
 
 // The forward's arguments beside the lane map.
@@ -616,6 +623,260 @@ gat_bwd_kernel(BwdArgs a, int sink) {
   }
 }
 
+// The wide-head map (gat_fwd_wide_kernel, gat_bwd_wide_kernel; see the
+// head of this file): warp w owns head w % H of row w / H; lane t keeps
+// the channels c0 + (k 32 + t) V + v (k < K, v < V) of each pass of
+// W = 32 V K channels from c0, so that each gather of the warp reads 32 V
+// consecutive channels of the neighbour's head. The row's edges go 32 at
+// a time, one a lane: the lane loads its edge's index (and, in walk 1,
+// its edge id) and forms the (edge, head) scalars once; the walk hands
+// them round by shuffles and issues the gathers of NB edges together.
+template <int V, int K>
+struct WideMap {
+  static constexpr int W = 32 * V * K;              // channels a pass
+  static constexpr int NB = V * K < 8 ? 8 / (V * K) : 1;
+};
+
+// This lane's K V channels of a pass from c0 of the head slice at p (0
+// past C).
+template <int V, int K>
+__device__ __forceinline__ void load_wide(const float* p, int c0, int C,
+                                          int lane, float (&x)[K][V]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int c = c0 + (k * 32 + lane) * V;
+    if (c < C) {
+      load_vec<V>(p + c, x[k]);
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) x[k][v] = 0.f;
+    }
+  }
+}
+
+template <int V, int K>
+__device__ __forceinline__ void store_wide(float* p, int c0, int C, int lane,
+                                           const float (&x)[K][V]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int c = c0 + (k * 32 + lane) * V;
+    if (c < C) store_vec<V>(p + c, x[k]);
+  }
+}
+
+// Forward, wide-head map: warp w over (row w / H, head w % H) of the
+// receiver-major CSR (edge id = CSR position). The shift's walk loads
+// each of the row's senders and its s once, a lane an edge, and keeps the
+// first 32 for the walk that sums. Each channel of num, and den, is summed
+// over the row's edges in CSR order from 0, as the first design sums them,
+// so num, den and m are bitwise the first design's.
+template <int V, int K>
+__global__ void __launch_bounds__(kThreads)
+gat_fwd_wide_kernel(FwdArgs f) {
+  using Map = WideMap<V, K>;
+  constexpr int NB = Map::NB;
+  const long long warp =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / 32;
+  const int H = f.H, C = f.C, HC = H * C;
+  if (warp >= static_cast<long long>(f.n_rows) * H) return;  // whole warp
+  const int r = static_cast<int>(warp / H);
+  const int hd = static_cast<int>(warp - static_cast<long long>(r) * H);
+  const Row<32> row;
+  const int lane = row.lane;
+  const size_t rh = static_cast<size_t>(r) * H + hd;
+  const float slope = f.slope;
+  const uint32_t seed = static_cast<uint32_t>(__ldg(f.seed));
+  const float dr = __ldg(f.d + rh);
+  const int row_begin = __ldg(f.row_ptr + r);
+  const int row_end = __ldg(f.row_ptr + r + 1);
+  // the first 32 senders and their s, a lane each
+  const bool first = row_begin + lane < row_end;
+  const int src_first = first ? __ldg(f.col + row_begin + lane) : 0;
+  const float s_first =
+      first ? __ldg(f.s + static_cast<size_t>(src_first) * H + hd)
+            : -INFINITY;
+  // the row's shift: the largest s of the head over its senders; 0 for a
+  // row without edges
+  float mx = s_first;
+  for (int e = row_begin + 32 + lane; e < row_end; e += 32) {
+    mx = fmaxf(mx, __ldg(f.s + static_cast<size_t>(__ldg(f.col + e)) * H + hd));
+  }
+  mx = row_end > row_begin ? row.max_from(mx, 1) : 0.f;
+  const float shift = leaky(mx + dr, slope);
+  const float* h_head = f.h + hd * C;
+  float* o = f.out + static_cast<size_t>(r) * (HC + H);
+  for (int c0 = 0; c0 < C; c0 += Map::W) {
+    float acc[K][V];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[k][v] = 0.f;
+    }
+    float den = 0.f;
+    for (int e = row_begin; e < row_end; e += 32) {
+      const int n = row_end - e < 32 ? row_end - e : 32;
+      int src = src_first;
+      float sv = s_first;
+      if (e != row_begin) {
+        src = lane < n ? __ldg(f.col + e + lane) : 0;
+        sv = lane < n ? __ldg(f.s + static_cast<size_t>(src) * H + hd) : 0.f;
+      }
+      // this lane's edge: its exp and weight, formed once
+      float ex = 0.f, w = 0.f;
+      if (lane < n) {
+        ex = expf(leaky(sv + dr, slope) - shift);
+        w = ex * keep_scale(seed, e + lane, hd, f.thresh, f.scale);
+      }
+      for (int b0 = 0; b0 < n; b0 += NB) {
+        // the gathers of NB edges, issued together
+        float exb[NB], wb[NB], x[NB][K][V];
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          const int j = (b0 + b) & 31;
+          const int sb = __shfl_sync(0xffffffffu, src, j);
+          exb[b] = __shfl_sync(0xffffffffu, ex, j);
+          wb[b] = __shfl_sync(0xffffffffu, w, j);
+          load_wide<V, K>(h_head + static_cast<size_t>(sb) * HC, c0,
+                          b0 + b < n ? C : 0, lane, x[b]);
+        }
+        // then the sums, in CSR order
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          if (b0 + b < n) {
+            den += exb[b];
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+#pragma unroll
+              for (int v = 0; v < V; ++v) acc[k][v] += wb[b] * x[b][k][v];
+            }
+          }
+        }
+      }
+    }
+    store_wide<V, K>(o + hd * C, c0, C, lane, acc);
+    if (c0 == 0 && lane == 0) {
+      o[HC + hd] = den;
+      f.m[rh] = mx;
+    }
+  }
+}
+
+// Backward over one CSR, wide-head map (kSrc as gat_bwd_heads_kernel):
+// warp w over (row w / H, head w % H). The per-edge dot <gnum[dst],
+// h[src]> enters dd and ds only through dz, linearly, so its sum over a
+// row's edges is taken channel by channel first: each lane keeps
+// t[c] = sum_e sf_e ex_e ks_e x_e[c] (sf_e = 1 or slope by the sign of
+// zpre, x_e the gathered neighbour's head: h[src] in walk 0, gnum[dst] in
+// walk 1) beside the row's own head (gnum[r] in walk 0, h[r] in walk 1),
+// and dd (or ds) = sum_c own[c] t[c] + sum_e sf_e ex_e gden[dst] is one
+// sum over the warp's lanes a row, not a reduction an edge. In walk 1 the
+// one gathered gnum[dst] row serves t and dh[src] += gnum ex ks, which
+// each lane sums channel by channel in CSR order from 0, as the first
+// design does, so dh is bitwise the first design's.
+template <int V, int K, bool kSrc>
+__global__ void __launch_bounds__(kThreads)
+gat_bwd_wide_kernel(BwdArgs a) {
+  using Map = WideMap<V, K>;
+  constexpr int NB = Map::NB;
+  const long long warp =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / 32;
+  const int H = a.H, C = a.C, HC = H * C;
+  if (warp >= static_cast<long long>(a.n_rows) * H) return;  // whole warp
+  const int r = static_cast<int>(warp / H);
+  const int hd = static_cast<int>(warp - static_cast<long long>(r) * H);
+  const Row<32> row;
+  const int lane = row.lane;
+  const size_t ldg = static_cast<size_t>(HC + H);
+  const size_t rrow = static_cast<size_t>(r);
+  const size_t rh = rrow * H + hd;
+  const float slope = a.slope;
+  const uint32_t seed = static_cast<uint32_t>(__ldg(a.seed));
+  // the row's own terms: d (walk 0) or s (walk 1) of the head, walk 0's
+  // shift and gden, and the head's channels of gnum (walk 0) or h (1)
+  const float own = __ldg((kSrc ? a.s : a.d) + rh);
+  const float shift = kSrc ? 0.f : leaky(__ldg(a.m + rh) + own, slope);
+  const float gden_own = kSrc ? 0.f : __ldg(a.g + rrow * ldg + HC + hd);
+  const float* own_head = kSrc ? a.h + rrow * HC + hd * C
+                               : a.g + rrow * ldg + hd * C;
+  // the gathered neighbour's head: gnum[dst] (walk 1) or h[src] (walk 0)
+  const float* nb_head = (kSrc ? a.g : a.h) + hd * C;
+  const size_t nb_stride = kSrc ? ldg : static_cast<size_t>(HC);
+  const int row_begin = __ldg(a.row_ptr + r);
+  const int row_end = __ldg(a.row_ptr + r + 1);
+  float part = 0.f;  // this lane's share of dd (walk 0) or ds (walk 1)
+  for (int c0 = 0; c0 < C; c0 += Map::W) {
+    float mine[K][V], t[K][V], dh[K][V];
+    load_wide<V, K>(own_head, c0, C, lane, mine);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) t[k][v] = dh[k][v] = 0.f;
+    }
+    for (int e = row_begin; e < row_end; e += 32) {
+      const int n = row_end - e < 32 ? row_end - e : 32;
+      // this lane's edge: its index and terms, loaded and formed once
+      const bool mine_edge = lane < n;
+      const int p = e + lane;
+      const int nb = mine_edge ? __ldg(a.col + p) : 0;
+      float w = 0.f, coef = 0.f;
+      if (mine_edge) {
+        int id = p;
+        if constexpr (kSrc) id = __ldg(a.eid + p);
+        const size_t nh = static_cast<size_t>(nb) * H + hd;
+        const float tv = __ldg((kSrc ? a.d : a.s) + nh);
+        const float dr = kSrc ? tv : own;
+        const float zpre = (kSrc ? own : tv) + dr;
+        const float zl = leaky(zpre, slope) -
+                         (kSrc ? leaky(__ldg(a.m + nh) + dr, slope) : shift);
+        const float ex = expf(zl);
+        w = ex * keep_scale(seed, id, hd, a.thresh, a.scale);
+        const float sf = zpre > 0.f ? 1.f : slope;
+        coef = sf * w;
+        if (c0 == 0) {
+          const float gden =
+              kSrc ? __ldg(a.g + static_cast<size_t>(nb) * ldg + HC + hd)
+                   : gden_own;
+          part += sf * (ex * gden);
+        }
+      }
+      for (int b0 = 0; b0 < n; b0 += NB) {
+        // the gathers of NB edges, issued together
+        float wb[NB], cb[NB], x[NB][K][V];
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          const int j = (b0 + b) & 31;
+          const int nbb = __shfl_sync(0xffffffffu, nb, j);
+          wb[b] = __shfl_sync(0xffffffffu, w, j);
+          cb[b] = __shfl_sync(0xffffffffu, coef, j);
+          load_wide<V, K>(nb_head + static_cast<size_t>(nbb) * nb_stride, c0,
+                          b0 + b < n ? C : 0, lane, x[b]);
+        }
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          if (b0 + b < n) {
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+#pragma unroll
+              for (int v = 0; v < V; ++v) {
+                t[k][v] += cb[b] * x[b][k][v];
+                if (kSrc) dh[k][v] += wb[b] * x[b][k][v];
+              }
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) part += mine[k][v] * t[k][v];
+    }
+    if (kSrc) store_wide<V, K>(a.dh + rrow * HC + hd * C, c0, C, lane, dh);
+  }
+  part = row.sum_from(part, 1);
+  if (lane == 0) a.out_h[rh] = part;
+}
+
 int blocks_for(int n_rows, int H, int G) {
   const long long groups = static_cast<long long>(n_rows) * H;
   const long long per_block = kThreads / G;
@@ -655,7 +916,8 @@ int packed_lanes(int H, int C, int V, int n_rows) {
 }
 
 // Lanes of a row of gat_bwd_kernel: packed_lanes's where the heads divide
-// them, else 0 (the first design).
+// them, else 0 (the wide-head map past 32 channels a head, else the first
+// design).
 int bwd_lanes(int H, int C, int V, int n_rows) {
   const int L = packed_lanes(H, C, V, n_rows);
   return L % H == 0 ? L : 0;
@@ -669,7 +931,7 @@ int bwd_lanes(int H, int C, int V, int n_rows) {
 // ~11 edges) in one or two steps, and twice the lanes would add threads
 // and a level of the tree of sums to every row (Cora (1, 7), RCM-PubMed
 // (1, 3): probes/packed_gat_variants.py, PERF.md). The heads need not
-// divide the lanes; 0 (the first design) where a row has fewer lanes
+// divide the lanes; 0 (the wide-head map) where a row has fewer lanes
 // than heads.
 int fwd_lanes(int H, int C, int V, int n_rows) {
   int L = fewest_lanes(H, C, V);
@@ -685,8 +947,8 @@ int fwd_lanes(int H, int C, int V, int n_rows) {
 // 0, and C <= 32), calls f(L, V, KC) as integral constants (V = 4 where C
 // is a multiple of 4 and `aligned`: every node array the lanes load or
 // store as float4 16-byte aligned, with its rows; KC = 8 or 32 registers
-// for a head's channels) and returns true; else false, and the first
-// design runs it.
+// for a head's channels) and returns true; else false, and the wide-head
+// map (or, for the backward's narrow widths, the first design) runs it.
 template <typename Fn>
 bool with_row_map(int H, int C, int n_rows, bool aligned,
                   int (*lanes_of)(int, int, int, int), Fn&& f) {
@@ -703,22 +965,29 @@ bool with_row_map(int H, int C, int n_rows, bool aligned,
   return true;
 }
 
-// The row map of the backward's walk of a: h, g, dh and the rows of g
-// 16-byte aligned for V = 4.
-template <typename Fn>
-bool with_bwd_lanes(const BwdArgs& a, Fn&& f) {
-  const bool aligned = aligned16(a.h) && aligned16(a.g) && aligned16(a.dh) &&
-                       (a.H * a.C + a.H) % 4 == 0;
-  return with_row_map(a.H, a.C, a.n_rows, aligned, bwd_lanes, f);
+// Whether a backward walk may load and store float4s: h, g, dh and the
+// rows of g 16-byte aligned.
+bool bwd_aligned(const BwdArgs& a) {
+  return aligned16(a.h) && aligned16(a.g) && aligned16(a.dh) &&
+         (a.H * a.C + a.H) % 4 == 0;
 }
 
-// The row map of the forward: h, out and the rows of out (H C + H
-// floats) 16-byte aligned for V = 4.
+// Whether the forward may: h, out and the rows of out (H C + H floats)
+// 16-byte aligned.
+bool fwd_aligned(const FwdArgs& f) {
+  return aligned16(f.h) && aligned16(f.out) && (f.H * f.C + f.H) % 4 == 0;
+}
+
+// The row map of the backward's walk of a.
+template <typename Fn>
+bool with_bwd_lanes(const BwdArgs& a, Fn&& f) {
+  return with_row_map(a.H, a.C, a.n_rows, bwd_aligned(a), bwd_lanes, f);
+}
+
+// The row map of the forward.
 template <typename Fn>
 bool with_fwd_lanes(const FwdArgs& f, Fn&& fn) {
-  const bool aligned = aligned16(f.h) && aligned16(f.out) &&
-                       (f.H * f.C + f.H) % 4 == 0;
-  return with_row_map(f.H, f.C, f.n_rows, aligned, fwd_lanes, fn);
+  return with_row_map(f.H, f.C, f.n_rows, fwd_aligned(f), fwd_lanes, fn);
 }
 
 // One launch of gat_bwd_kernel<L, V, KC, src_side, kAblate> with `smem`
@@ -788,13 +1057,56 @@ FwdArgs fwd_args(void* row_ptr, void* col, void* d, void* s, void* h,
                  slope};
 }
 
-// The first design's forward: packed_gat_fwd's arguments.
-int launch_fwd_first(const FwdArgs& f, cudaStream_t stream) {
-  with_group_width(f.C, [&](auto width) {
-    constexpr int G = decltype(width)::value;
-    gat_fwd_kernel<G><<<blocks_for(f.n_rows, f.H, G), kThreads, 0, stream>>>(
-        f.row_ptr, f.col, f.d, f.s, f.h, f.m, f.seed, f.out, f.n_rows, f.H,
-        f.C, f.thresh, f.scale, f.slope);
+// The wide-head map's launch: n_rows H warps, kThreads a block.
+int wide_blocks(int n_rows, int H) {
+  const long long threads = static_cast<long long>(n_rows) * H * 32;
+  return static_cast<int>((threads + kThreads - 1) / kThreads);
+}
+
+// Calls f(V, K) as integral constants for the wide-head map: the passes
+// of 32 V channels that hold a head of C channels, K = ceil(C / (32 V)),
+// at most 8 / V (a wider head takes passes of W = 256 channels).
+template <int V, int K = 1, typename Fn>
+void with_wide_k(int k, Fn&& f) {
+  if constexpr (V * K >= 8) {
+    f(std::integral_constant<int, V>{}, std::integral_constant<int, K>{});
+  } else if (k <= K) {
+    f(std::integral_constant<int, V>{}, std::integral_constant<int, K>{});
+  } else {
+    with_wide_k<V, K + 1>(k, f);
+  }
+}
+
+// Calls f(V, K) for a head of C channels: V = 4 where C is a multiple of
+// 4 and `aligned` (the arrays the lanes load or store as float4 16-byte
+// aligned, with their rows), else 1.
+template <typename Fn>
+void with_wide_map(int C, bool aligned, Fn&& f) {
+  const int V = channels_per_lane(C, aligned);
+  const int k = (C + 32 * V - 1) / (32 * V);
+  if (V == 4) {
+    with_wide_k<4>(k, f);
+  } else {
+    with_wide_k<1>(k, f);
+  }
+}
+
+// The forward's wide-head map: packed_gat_fwd's arguments.
+int launch_fwd_wide(const FwdArgs& f, cudaStream_t stream) {
+  with_wide_map(f.C, fwd_aligned(f), [&](auto v, auto k) {
+    gat_fwd_wide_kernel<decltype(v)::value, decltype(k)::value>
+        <<<wide_blocks(f.n_rows, f.H), kThreads, 0, stream>>>(f);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One walk of the backward's wide-head map: packed_gat_bwd's arguments.
+int launch_bwd_wide(const BwdArgs& a, int src_side, cudaStream_t stream) {
+  with_wide_map(a.C, bwd_aligned(a), [&](auto v, auto k) {
+    constexpr int kV = decltype(v)::value, kK = decltype(k)::value;
+    const auto kernel = src_side ? gat_bwd_wide_kernel<kV, kK, true>
+                                 : gat_bwd_wide_kernel<kV, kK, false>;
+    kernel<<<wide_blocks(a.n_rows, a.H), kThreads, 0, stream>>>(a);
   });
   return static_cast<int>(cudaGetLastError());
 }
@@ -804,7 +1116,7 @@ int launch_fwd_first(const FwdArgs& f, cudaStream_t stream) {
 // Forward: out (n_rows, H*C + H) = num | den over the receiver-major CSR,
 // and m (n_rows, H), each row's max of s over its senders (0 for a row
 // without edges), which the backward takes. gat_fwd_rows_kernel where its
-// lane map takes (H, C), else the first design.
+// lane map takes (H, C), else the wide-head map.
 extern "C" int packed_gat_fwd(void* row_ptr, void* col, void* d, void* s,
                               void* h, void* m, void* seed, void* out,
                               int n_rows, int H, int C, unsigned thresh,
@@ -820,7 +1132,7 @@ extern "C" int packed_gat_fwd(void* row_ptr, void* col, void* d, void* s,
           <<<(n_rows + rows - 1) / rows, kThreads, 0, st>>>(f);
     });
     return lanes ? static_cast<int>(cudaGetLastError())
-                 : launch_fwd_first(f, st);
+                 : launch_fwd_wide(f, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -829,7 +1141,8 @@ extern "C" int packed_gat_fwd(void* row_ptr, void* col, void* d, void* s,
 // receiver-major CSR, eid unused (may be null), writes dd (n_rows, H) into
 // out_h, dh unused. src_side = 1: sender-major CSR with its edge ids,
 // writes ds (n_rows, H) into out_h and dh (n_rows, H*C). gat_bwd_kernel
-// where its lane map covers the row in one pass, else the first design.
+// where its lane map covers the row in one pass, the wide-head map for a
+// head of more than 32 channels, else the first design.
 extern "C" int packed_gat_bwd(void* row_ptr, void* col, void* eid, void* d,
                               void* s, void* h, void* m, void* g, void* seed,
                               void* out_h, void* dh, int n_rows, int H, int C,
@@ -844,7 +1157,9 @@ extern "C" int packed_gat_bwd(void* row_ptr, void* col, void* eid, void* d,
       rc = launch_bwd<decltype(l)::value, decltype(v)::value,
                       decltype(kc)::value, 0>(a, src_side, 0, 0, st);
     });
-    return lanes ? rc : launch_bwd_heads(a, src_side, st);
+    if (lanes) return rc;
+    return a.C > 32 ? launch_bwd_wide(a, src_side, st)
+                    : launch_bwd_heads(a, src_side, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

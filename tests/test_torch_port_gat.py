@@ -274,7 +274,7 @@ def _hub_graphs(seed=0, n=200, hub=3):
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.6])
-@pytest.mark.parametrize("H,C", [(8, 8), (1, 7), (3, 5), (4, 16)])
+@pytest.mark.parametrize("H,C", [(8, 8), (1, 7), (3, 5), (4, 16), (2, 40)])
 def test_packed_gat_fwd_wrapper_matches_jax_at_the_design_widths(H, C, rate):
     """``packed_gat_fwd`` on the CPU (the plain version that the CUDA
     forward is held to on the card) against the JAX ``PackedFlashGat``'s
@@ -282,7 +282,8 @@ def test_packed_gat_fwd_wrapper_matches_jax_at_the_design_widths(H, C, rate):
     dropout seed, at a width of each branch of the CUDA forward's
     dispatch: the row map with float4 heads (8, 8) and (4, 16), with one
     channel a lane (1, 7), and with heads that do not divide the lanes
-    (3, 5). The graph has a receiver of ~200 senders. Its num‖den is at
+    (3, 5); the wide-head map past 32 channels a head (2, 40). The graph
+    has a receiver of ~200 senders. Its num‖den is at
     each receiver's own shift, so it is taken to the JAX operator's global
     one (``global_shift_scale``) before the comparison; its ``m`` is
     ``receiver_max``'s. 2e-2 of the largest magnitude: the JAX op rounds

@@ -175,15 +175,18 @@ def _ppi_like_edges(n=1500, seed=16):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,C", [(4, 256), (6, 121)])
+@pytest.mark.parametrize("H,C", [(4, 256), (6, 121), (8, 135), (8, 102)])
 @pytest.mark.parametrize("rate", [0.0, 0.6])
 def test_packed_gat_kernels_at_ppi_widths_on_card(cuda_device, H, C, rate):
     """examples/ppi.py's widths, conv1 and conv2's (4, 256) and conv3's
-    (6, 121), which run the first designs (a head wider than 32
-    channels): forward and backward against their plain versions within
-    1e-5 of the largest reference magnitude, on an edge set with
-    repeated pairs; one launch forward, two backward; two calls bitwise
-    equal."""
+    (6, 121), and the research driver's GAT's (8, 135) and (8, 102), which
+    run the wide-head map (a head wider than 32 channels): forward and
+    backward against their plain versions within 1e-5 of the largest
+    reference magnitude, on an edge set with repeated pairs; against the
+    first design (``probes/packed_gat_designs.cu``) num‖den, m and dh
+    bitwise, dd and ds within 1e-6; one launch forward, two backward; two
+    calls bitwise equal."""
+    from probes import packed_gat_designs as pd
     from pytorch_geometric_tpu_torch.ops import packed_gat as pg
 
     n = 1500
@@ -209,6 +212,14 @@ def test_packed_gat_kernels_at_ppi_widths_on_card(cuda_device, H, C, rate):
     want_b = pg.packed_gat_bwd_plain(op.fwd, d, s, h, m, seed, g, rate)
     for a, b in zip(got_b, want_b):
         assert _rel_err(a, b) <= 1e-5
+    lib = pd.load()
+    first = pd.fwd(pd.fwd_entry(lib, "first"), op, (d, s, h, m, seed), rate)
+    first_b = pd.bwd(pd.entry(lib, "first"), op, (d, s, h, m, seed, g), rate)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], got) and torch.equal(first[1], m)
+    assert torch.equal(first_b[2], got_b[2])
+    for a, b in zip(got_b[:2], first_b[:2]):
+        assert _rel_err(a, b) <= 1e-6
     for a, b in zip((got, m), pg.packed_gat_fwd(op.fwd, d, s, h, seed, rate)):
         assert torch.equal(a, b)
     for a, b in zip(got_b, pg.packed_gat_bwd(*bwd_args)):
@@ -248,7 +259,8 @@ def test_packed_flash_gat_on_card_matches_cpu(cuda_device):
 #: Widths at which the redesigned bsr row pass and packed-GAT backward
 #: are held: each branch of their dispatch (float4 and one-float loads
 #: with one and eight heads; an odd width and rows wider than a warp's
-#: loads, which take the first designs).
+#: loads, which take the bsr row pass's first design and the packed GAT's
+#: first design at (3, 5) and its wide-head map past 32 channels a head).
 REDESIGN_WIDTHS = [(8, 8), (1, 3), (1, 7), (3, 5), (2, 33), (4, 64),
                    (1, 256)]
 #: Graphs of those tests (:func:`_redesign_edges`).
@@ -357,22 +369,38 @@ def test_packed_gat_backward_matches_plain_on_card(cuda_device, graph, H, C,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,C", [(8, 8), (1, 7), (3, 5)])
+@pytest.mark.parametrize("H,C", [(8, 8), (1, 7), (3, 5), (2, 33), (4, 256),
+                                 (6, 121), (8, 135)])
 @pytest.mark.parametrize("rate", [0.0, 0.6])
 def test_packed_gat_designs_agree_on_card(cuda_device, H, C, rate):
-    """``probes/packed_gat_designs.py``: the first design of the backward
-    and the library's, on the hub graph, each within 1e-5 of the plain
-    version and within 1e-6 of each other; equal where the library runs
-    the first design itself (3, 5)."""
+    """``probes/packed_gat_designs.py``: the first design of the backward,
+    the library's and the wide-head map's, on the hub graph, each within
+    1e-5 of the plain version and within 1e-6 of the first; equal where
+    the library runs the first design itself (3, 5); dh bitwise the first
+    design's wherever the wide-head map runs (every width in the probe's
+    ``wide``, past 32 channels in the library). The library's call is two
+    launches, and two calls are bitwise equal."""
     from probes import packed_gat_designs as pd
     from pytorch_geometric_tpu_torch.ops import packed_gat as pg
 
     op = _packed_op(_gat_edges(), 512, cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(H * 1000 + C)
-    _, errors = pd.compare(pd.load(), op, H, C, rate, gen)
-    assert errors["first_vs_plain"] <= 1e-5
-    assert errors["shipped_vs_plain"] <= 1e-5
+    args, errors = pd.compare(pd.load(), op, H, C, rate, gen)
+    for design in pd.DESIGNS:
+        assert errors[f"{design}_vs_plain"] <= 1e-5, design
     assert errors["first_vs_shipped"] <= (0 if (H, C) == (3, 5) else 1e-6)
+    assert errors["first_vs_wide"] <= 1e-6
+    assert errors["dh_first_vs_wide"] == 0
+    if C > 32:
+        assert errors["dh_first_vs_shipped"] == 0
+    d, s, h, m, seed, g = args
+    bwd_args = (op.fwd, op.bwd, op.bwd_eid, d, s, h, m, seed, g, rate)
+    before = pg.packed_gat_bwd.launches
+    got, again = (pg.packed_gat_bwd(*bwd_args) for _ in range(2))
+    torch.cuda.synchronize()
+    assert pg.packed_gat_bwd.launches - before == 4
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -1514,7 +1542,8 @@ def test_sorted_segment_sum_chunk_map_is_the_first_design_on_card(
 @pytest.mark.parametrize("offset", [False, True])
 @pytest.mark.parametrize("H,C", [(8, 8), (4, 16), (4, 4), (16, 2), (1, 7),
                                  (2, 6), (1, 32), (3, 5), (6, 4), (12, 4),
-                                 (2, 33), (4, 64)])
+                                 (2, 33), (4, 64), (4, 256), (6, 121),
+                                 (8, 135), (1, 256)])
 @pytest.mark.parametrize("rate", [0.0, 0.6])
 def test_packed_gat_forward_designs_agree_on_card(cuda_device, H, C, rate,
                                                   offset):
@@ -1524,13 +1553,15 @@ def test_packed_gat_forward_designs_agree_on_card(cuda_device, H, C, rate,
     (1, 7), (2, 6) and (1, 32), and with h one float off its alignment;
     with heads that do not divide the lanes, idle lanes past the last
     entry group, (3, 5), (6, 4) and, with float4 heads, (12, 4); the
-    first design at (2, 33) and (4, 64)), on a graph with rows of
-    exactly one step and one step plus one of every lane map, a hub row
-    of 280 edges, empty rows and 301 rows: the first design and the
-    library each within 1e-5 of the plain version and within 1e-6 of each
-    other (bitwise where the library runs the first design), two
-    launches of the library bitwise equal, one launch counted a call,
-    empty rows 0."""
+    wide-head map past 32 channels a head, (2, 33), (4, 64), PPI's
+    (4, 256) and (6, 121), the research driver's (8, 135) and (1, 256),
+    with float4 loads where aligned), on a graph with rows of exactly one
+    step and one step plus one of every lane map, rows of 0-40 edges, a
+    hub row of 280 edges, empty rows and 301 rows: every design within
+    1e-5 of the plain version, the library within 1e-6 of the first design
+    and bitwise equal to it past 32 channels a head, the wide-head map
+    bitwise equal to it at every width (num‖den and m), two launches of
+    the library bitwise equal, one launch counted a call, empty rows 0."""
     from probes import packed_gat_designs as pd
     from pytorch_geometric_tpu_torch.ops import packed_gat as pg
 
@@ -1547,10 +1578,14 @@ def test_packed_gat_forward_designs_agree_on_card(cuda_device, H, C, rate,
     lib = pd.load()
     errors, repeat = pd.compare_fwd(lib, op, inputs, rate)
     assert repeat
-    first_design = C > 32
+    wide_map = C > 32
     for key, err in errors.items():
-        assert err <= ((0.0 if first_design else 1e-6)
-                       if key == "fwd_first_vs_shipped" else 1e-5), key
+        if key == "fwd_first_vs_wide":
+            assert err == 0, key
+        elif key == "fwd_first_vs_shipped":
+            assert err <= (0.0 if wide_map else 1e-6), key
+        else:
+            assert err <= 1e-5, key
     before = pg.packed_gat_fwd.launches
     got = pg.packed_gat_fwd(op.fwd, d, s, h, seed, rate, op.slope)
     torch.cuda.synchronize()

@@ -31,6 +31,7 @@ from pytorch_geometric_tpu_torch.datasets import graphs
 from pytorch_geometric_tpu_torch.kernels import _build
 from probes import (bsr_gat_designs, bsr_gat_variants, flash_gat_designs,
                     fused_gcn_designs, gat_ablate, packed_gat_designs,
+                    parity_tail,
                     packed_gat_variants,
                     packed_rgcn_designs, rgcn_ablate, rgcn_pipe_probe,
                     chunk_map_variants, segment_sum_designs,
@@ -42,7 +43,8 @@ SCRIPTS = ["gat_ablate.py", "rgcn_ablate.py", "rgcn_pipe_probe.py",
            "bsr_gat_variants.py", "packed_gat_designs.py",
            "packed_gat_variants.py", "flash_gat_designs.py",
            "packed_rgcn_designs.py", "spmm_csr_designs.py",
-           "segment_sum_designs.py", "chunk_map_variants.py"]
+           "segment_sum_designs.py", "chunk_map_variants.py",
+           "parity_tail.py"]
 
 
 def _jax_mutag_rcm(root, scale):
@@ -248,6 +250,7 @@ def test_each_probe_exits_nonzero_without_a_card(script):
     (rgcn_pipe_probe, ["--depths", "1,3"]),
     (bsr_gat_variants, ["--variants", "rows4,rows8"]),
     (packed_gat_variants, ["--variants", "edges2,edges3"]),
+    (packed_gat_designs, ["--graphs", "cora,ppi"]),
     (flash_gat_designs, ["--cases", "cora,pubmed"]),
     (packed_rgcn_designs, ["--cases", "conv1,conv3"]),
     (spmm_csr_designs, ["--cases", "cora,citeseer"]),
@@ -258,6 +261,60 @@ def test_probes_refuse_unknown_modes_orders_and_depths(probe, argv, capsys):
         probe.main(argv)
     assert exc.value.code == 2
     assert "unknown" in capsys.readouterr().err
+
+
+def test_parity_tail_runs_the_gates_of_the_tree_it_is_given():
+    """``probes/parity_tail.py`` runs, in a process a hash seed, the
+    tree's own card-against-CPU comparison of ``slice_driver_gat``
+    (``driver_steps_logits`` at the widths ``training_net`` draws, against
+    ``DRIVER_PARITY_TOL["GAT"]``, 1e-3) or of ``slice_infomax``
+    (``infomax_steps_z`` against ``INFOMAX_PARITY_TOL``, 1e-4), through
+    ``chip_smoke._parity``, as the phases do; no tolerance of its own."""
+    import chip_smoke
+
+    assert parity_tail.parse_seeds("0-9") == list(range(10))
+    assert parity_tail.parse_seeds("3,7") == [3, 7]
+    assert parity_tail.GATES == ("driver_gat", "infomax")
+    assert chip_smoke.DRIVER_PARITY_TOL["GAT"] == 1e-3
+    assert chip_smoke.INFOMAX_PARITY_TOL == 1e-4
+    child = parity_tail.CHILD
+    for name in ("driver_steps_logits", "infomax_steps_z",
+                 "DRIVER_PARITY_TOL", "INFOMAX_PARITY_TOL", "_parity"):
+        assert f"cs.{name}" in child and hasattr(chip_smoke, name)
+    assert "contraction_layer_coefficients(graph.num_node_features, 2, 0.5" \
+        in child
+    source = Path(chip_smoke.__file__).read_text()
+    assert "_parity(infomax_steps_z)" in source
+    assert "parity <= INFOMAX_PARITY_TOL" in source
+    assert "parity <= DRIVER_PARITY_TOL[model_name]" in source
+
+
+@pytest.mark.parametrize("gaps,passes,first", [
+    ({"3": 2e-4}, True, None),
+    ({"3": 7e-3, "1": 3e-6, "2": 4e-4}, False, 2),
+    ({"3": 7e-3, "1": 2e-5, "2": 4e-4}, False, 1)])
+def test_parity_tail_reads_a_seed(monkeypatch, gaps, passes, first):
+    """One seed's line: the three-step gap against the tree's tolerance,
+    and, where the gate fails, the first step whose gap passes 1e-5; the
+    child runs in the tree's root with the seed as its hash seed and the
+    gate as its argument."""
+    import json
+
+    seen = {}
+
+    def fake_run(cmd, cwd, env, capture_output, text):
+        seen.update(cwd=cwd, seed=env["PYTHONHASHSEED"], args=cmd[-2:])
+        out = json.dumps({"tol": 1e-3, "gaps": gaps})
+        return subprocess.CompletedProcess(cmd, 0, stdout=out + "\n",
+                                           stderr="")
+
+    monkeypatch.setattr(parity_tail.subprocess, "run", fake_run)
+    row = parity_tail.run_seed("/some/tree", "driver_gat", 4)
+    assert seen == {"cwd": "/some/tree", "seed": "4",
+                    "args": ["driver_gat", "3,1,2"]}
+    assert row["passes"] is passes
+    assert row["first_step_over_1e-5"] == first
+    assert row["gap_steps"][3] == gaps["3"]
 
 
 def test_build_source_follows_includes_into_csrc(tmp_path, monkeypatch):
@@ -413,39 +470,60 @@ def test_bsr_gat_designs_times_the_library_beside_its_first_design():
 
 def test_packed_gat_designs_times_the_library_beside_its_first_design():
     """The packed-GAT design probe builds through ``build_source`` from a
-    source that includes the production one (so both designs are the
-    library's own code), launches the first design of the forward and of
-    the backward with the library's signatures, and covers the main
-    path's graphs and widths, the hub graph (with (3, 5), where the
-    backward keeps its first design and the forward's row map leaves
-    lanes idle), and dropout 0 and 0.6."""
+    source that includes the production one (so the library's designs are
+    its own code), keeps the first design's forward, which the library no
+    longer launches, in a namespace of its own, launches the first design
+    and the wide-head map of the forward and of the backward with the
+    library's signatures, and covers the main path's graphs and widths,
+    the hub graph (with (3, 5), where the backward keeps its first design
+    and the forward's row map leaves lanes idle), PPI's train graph and
+    val batch at (4, 256) and (6, 121), the research driver's (8, 135) and
+    (8, 102), and dropout 0 and 0.6."""
     source = packed_gat_designs.SOURCE.read_text()
     text = Path(packed_gat_designs.__file__).read_text()
     assert "build_source(SOURCE, SIGNATURES)" in text
     assert '#include "../pytorch_geometric_tpu_torch/csrc/packed_gat.cu"' \
         in source
     assert "launch_bwd_heads(" in source
-    assert "return launch_fwd_first(" in source
+    assert "return first_design::launch_fwd_first(" in source
+    assert "namespace first_design {" in source
+    assert "gat_fwd_kernel<G><<<" in source
+    assert "return launch_fwd_wide(" in source
+    assert "return launch_bwd_wide(" in source
     library = (_build.SOURCE_DIR / "packed_gat.cu").read_text()
     assert "gat_bwd_heads_kernel<G, true>" in library
     assert "rc = launch_bwd<decltype(l)::value" in library
-    assert "gat_fwd_kernel<G><<<" in library
+    assert "gat_fwd_kernel" not in library.split("// Plain C interface")[1]
+    assert ": launch_fwd_wide(f, st);" in library
+    assert "? launch_bwd_wide(a, src_side, st)" in library
     assert "gat_fwd_rows_kernel<L, decltype(v)::value" in library
     assert [p.name for p in _build._included(packed_gat_designs.SOURCE)] \
         == ["packed_gat_designs.cu", "packed_gat.cu", "row_lanes.cuh"]
     for kernel in ("fwd", "bwd"):
-        assert packed_gat_designs.SIGNATURES[f"first_packed_gat_{kernel}"] \
-            == _build.SIGNATURES["packed_gat"][f"packed_gat_{kernel}"]
-    assert packed_gat_designs.DESIGNS == ("first", "shipped")
+        for design in ("first", "wide"):
+            assert packed_gat_designs.SIGNATURES[
+                f"{design}_packed_gat_{kernel}"] \
+                == _build.SIGNATURES["packed_gat"][f"packed_gat_{kernel}"]
+    assert packed_gat_designs.DESIGNS == ("first", "shipped", "wide")
     cases = packed_gat_designs.CASES
-    assert {c[0] for c in cases} == {"cora", "pubmed_rcm", "hub"}
+    assert {c[0] for c in cases} == set(packed_gat_designs.GRAPHS) == {
+        "cora", "pubmed_rcm", "hub", "ppi_train", "ppi_val", "cora_driver"}
     assert {c[3] for c in cases} == {0.0, 0.6}
     assert {("cora", 8, 8, 0.0), ("cora", 8, 8, 0.6), ("cora", 1, 7, 0.6),
             ("pubmed_rcm", 8, 8, 0.6), ("pubmed_rcm", 1, 3, 0.6),
             ("hub", 8, 8, 0.6), ("hub", 1, 7, 0.6),
             ("hub", 3, 5, 0.6)} <= set(cases)
-    with pytest.raises(ValueError, match="unknown forward design"):
-        packed_gat_designs.fwd_entry(None, "lanes8")
+    assert {(graph, H, C, rate)
+            for graph in ("ppi_train", "ppi_val")
+            for H, C in ((4, 256), (6, 121)) for rate in (0.0, 0.6)} \
+        <= set(cases)
+    assert {("cora_driver", H, C, rate) for H, C in ((8, 135), (8, 102))
+            for rate in (0.0, 0.6)} <= set(cases)
+    for design in ("lanes8", "row"):
+        with pytest.raises(ValueError, match="unknown forward design"):
+            packed_gat_designs.fwd_entry(None, design)
+        with pytest.raises(ValueError, match="unknown backward design"):
+            packed_gat_designs.entry(None, design)
 
 
 def test_spmm_csr_designs_times_the_library_beside_its_first_design():
