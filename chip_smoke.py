@@ -315,15 +315,20 @@ Phases, one JSON line each:
                enzymes_diff_pool.py (8), qm9_nn_conv.py (5, 1000
                molecules), autoencoder.py (100, GAE then --variational)
                and infomax.py (50, hidden 512, the port's logistic-
-               regression probe) at their defaults, qm9_nn_conv captured
-               (its training step and MAE each a CUDA graph over static
-               buffers, its operators over the batch's real entries),
-               then eager, bitwise equal (every step's loss, the final
-               parameters, the MAE), with the host ms a batch split; the
-               others eager: launches asserted (GRAPH_EXAMPLES,
+               regression probe) at their defaults, each captured, then
+               eager, bitwise equal (every step's or epoch's loss, the
+               final parameters, the accuracy, MAE, AUC and AP or the
+               probe's accuracy): the graph-level steps and evaluations
+               each a CUDA graph over static buffers (TopK and QM9 over
+               the batch's real entries, the host ms a batch split;
+               DiffPool one a batch size), the full-batch epochs one
+               graph replayed over spans (models/capture.py:EpochSpans);
+               launches asserted in both runs (GRAPH_EXAMPLES,
                AUTOENCODER_LAUNCHES, INFOMAX_LAUNCHES; DiffPool none),
                the loss falling, the output after three steps card
-               against the CPU (1e-4);
+               against the CPU (1e-4; TopK, the autoencoders and infomax
+               after SGD steps, with their first step's gradients,
+               _step_gate);
    slice_mnist_graclus — examples/mnist_graclus.py's run (SplineConv
                1 -> 32 -> 64, K = 25, two graclus max pools, mean
                readout; Adam 0.01, batches of 64, 3 epochs over 1500
@@ -364,22 +369,27 @@ Phases, one JSON line each:
                contraction widths, 100 + 100 epochs, AdamW with the
                global-norm clip at 5, SVD pruning at ConCoeff 0.6, the
                Fiedler weight correction at epochs 70 and 90 of phase 2,
-               checkpoints and curves in a temporary directory), eager,
-               every aggregation through one spmm_csr operator of the
-               graph: launches asserted as 200 epochs x 6 + 4
-               evaluations x 3; printed: the widths before and after
+               checkpoints and curves in a temporary directory), its
+               epoch captured and replayed over each span, then eager,
+               bitwise equal (both phases' losses, accuracies and
+               parameters), every aggregation through one spmm_csr
+               operator of the graph: launches asserted in both as 200
+               epochs x 6 + 4 evaluations x 3; printed: the widths before
+               and after
                pruning, each phase's seconds and best validation accuracy,
                the SVD pruning's seconds, each correction's seconds,
                applied count and Fiedler backends (the torch power
                iteration on the card from 192 nodes); both phases' losses
-               falling; the logits after three epochs (dropout 0), card
-               against the plain path on the CPU (1e-4);
+               falling; the logits after three SGD epochs (dropout 0)
+               and the first epoch's gradients, card against the plain
+               path on the CPU (1e-4, _step_gate);
    slice_driver_gat — the same with --modelName GAT, 20 + 60 epochs (one
                correction, at epoch 50), every attention layer through
                one PackedFlashGat (its wide-head map: 8 heads of up to
                135 channels): packed-GAT launches asserted as 80 epochs x
                (3 forward + 6 backward) + 3 evaluations x 3 forward; its
-               logits after three epochs card against CPU within 1e-3;
+               logits after three SGD epochs and its first epoch's
+               gradients card against CPU within 1e-3;
    slice_driver_inductive — training_net_ppi (PrunableGCN on PPI) and
                training_net_graphcls (PrunableTopK on ENZYMES), 2 + 2
                epochs each, one operator set a distinct batch: launches
@@ -395,9 +405,11 @@ Phases, one JSON line each:
                against numpy eigh (λ2, and the vector inside eigh's
                eigenspace), with the card's milliseconds;
    mygcn     — examples/mygcn.py: 40 epochs with a checkpoint on the
-               best validation accuracy, then --resume to 60 in a
-               temporary directory: the restored epoch counter, the
-               spans after it, the extended loss history;
+               best validation accuracy, captured (the epoch replayed 20
+               times a span) and eager, bitwise equal, launches 40 x 4 +
+               3 x 2 in both, then --resume to 60 in a temporary
+               directory: the restored epoch counter, the spans after
+               it, the extended loss history;
    slice_dp  — data parallelism over a one-rank NCCL group (the calling
                process): examples/data_parallel.py at its defaults
                (MUTAG, GraphClassifier hidden 32, 4 graphs a rank, Adam
@@ -468,6 +480,13 @@ Phases, one JSON line each:
    trace_qm9 — the same over 20 eager training steps of the QM9
                example (18 port launches a step), then over 20 captured
                replays, as trace_ppi;
+   trace_enzymes — the same over 10 steps for enzymes_topk_pool (8
+               port launches a step) and enzymes_diff_pool (its full
+               batches, captured through SizedStep; none);
+   trace_spans — the same over 10 epochs, eager and captured, of the
+               GAE, the VGAE, infomax, mygcn and the research driver's
+               GCN and GAT after a one-epoch run of each
+               (EpochSpans.again; SPAN_TRACES launches an epoch);
    trace_mnist_graclus — the same over 20 eager training steps of the
                mnist_graclus example (6 port launches a step), then over
                20 captured replays, as trace_ppi;
@@ -553,8 +572,10 @@ MUTAG_EVAL_LAUNCHES = {"spmm_csr": 5, "sorted_segment_sum": 1}
 #: Set2Set's two sums a step forward (9), then the backward sums of
 #: Set2Set's two gathers a step (6) and of NNConv's three gathers of its
 #: input by sender (3);
-#: the GAE's two GCN layers forward and back (the VGAE three), its test
-#: every 20 epochs; infomax's encoder twice forward and back an epoch,
+#: the GAE's two GCN layers forward and back (the VGAE three) and the
+#: backward sums of its decoder's four gathers (the train positives' and
+#: the negatives' two ends), its test every 20 epochs (the GCN layers
+#: forward); infomax's encoder twice forward and back an epoch,
 #: then once more for the embeddings; DiffPool none.
 GRAPH_EXAMPLES = {
     "topk": ("enzymes_topk_pool", 20,
@@ -564,8 +585,16 @@ GRAPH_EXAMPLES = {
     "qm9": ("qm9_nn_conv", 5, {"sorted_segment_sum": 18},
             {"sorted_segment_sum": 9}),
 }
+#: Card-against-CPU tolerance of a graph-level example's output after
+#: three steps (``slice_topk``, ``slice_diff_pool``, ``slice_qm9``).
+GRAPH_PARITY_TOL = 1e-4
 AUTOENCODER_EPOCHS = 100
-AUTOENCODER_LAUNCHES = {False: (4, 2), True: (6, 3)}   # epoch, test
+AUTOENCODER_LAUNCHES = {                               # epoch, test
+    False: ({"spmm_csr": 4, "sorted_segment_sum": 4}, {"spmm_csr": 2}),
+    True: ({"spmm_csr": 6, "sorted_segment_sum": 4}, {"spmm_csr": 3})}
+#: Card-against-CPU tolerance of the autoencoders' embeddings after three
+#: steps (``slice_autoencoder``).
+AUTOENCODER_PARITY_TOL = 1e-4
 INFOMAX_EPOCHS = 50
 INFOMAX_LAUNCHES = (4, 2)                              # epoch, embeddings
 
@@ -1552,7 +1581,7 @@ def phase_kernel_ppi(gen):
 GRAPH_LEVEL_CASES = ("mutag_gin", "mutag_gin_padded", "mutag_gin_pool",
                      "mutag_gin_pool_padded", "enzymes_pool", "qm9_nnconv",
                      "qm9_nnconv_padded", "qm9_senders", "qm9_pool",
-                     "qm9_pool_padded")
+                     "qm9_pool_padded", "gae_gather")
 
 
 def graph_example_batch(name):
@@ -1580,8 +1609,11 @@ def phase_kernel_graph(gen):
     and the count, 64 graphs of ~33 nodes) and QM9's Set2Set at F = 64
     (against padded) and 1 (its softmax sums); and QM9's NNConv messages
     by receiver over the real edges (complete graphs) at F = 64, against
-    padded, and its gather by sender's backward sum."""
-    from pytorch_geometric_tpu_torch.examples import mutag_gin, qm9_nn_conv
+    padded, and its gather by sender's backward sum; the GAE decoder's
+    gather at the train positives' senders (examples/autoencoder.py:
+    ``gathers``), its backward sum at the embeddings' F = 16."""
+    from pytorch_geometric_tpu_torch.examples import (
+        autoencoder, mutag_gin, qm9_nn_conv)
 
     from pytorch_geometric_tpu_torch.ops.spmm import SpmmOperator, spmm_csr
 
@@ -1626,6 +1658,11 @@ def phase_kernel_graph(gen):
                                    "fwd", 64, "fp32", gen))
     cases += check_real_vs_padded("qm9_pool", ops["pool_op"], 64, gen)
     cases.append(check_sorted_case("qm9_pool", ops["pool_op"].csr, "fwd", 1,
+                                   "fp32", gen))
+    data, cora = autoencoder.load(SEED, device=DEVICE)
+    gather, _ = autoencoder.gathers(*data.train_pos_edge_index,
+                                    cora.num_nodes, DEVICE)
+    cases.append(check_sorted_case("gae_gather", gather.csr, "fwd", 16,
                                    "fp32", gen))
     return cases
 
@@ -2852,15 +2889,18 @@ def phase_slice_faust():
                     "params_cuda_vs_cpu_rel_err": params_err}, problems)
 
 
-def _parity(steps_fn):
+def _parity(steps_fn, runs=None):
     """``steps_fn(device) -> (output, model)`` on the card and on the CPU
     (the kernels' plain versions): the output's error relative to the
     CPU's largest magnitude, and the parameters' largest error relative
     to the CPU model's largest parameter (a parameter whose gradient is
     rounding only, such as a bias before a batch norm, holds nothing but
-    that rounding, so its own magnitude is no scale for it)."""
+    that rounding, so its own magnitude is no scale for it). ``runs``, a
+    dict, keeps both runs (``card``, ``cpu``: output and model)."""
     card, card_model = steps_fn(DEVICE)
     cpu, cpu_model = steps_fn("cpu")
+    if runs is not None:
+        runs.update(card=(card, card_model), cpu=(cpu, cpu_model))
     cpu_params = dict(cpu_model.named_parameters())
     scale = max(float(p.detach().abs().max()) for p in cpu_params.values())
     params_err = max(float((p.detach().cpu() - cpu_params[n].detach())
@@ -2870,9 +2910,182 @@ def _parity(steps_fn):
         torch.isfinite(card).all()), list(cpu.shape)
 
 
+#: The card-against-CPU gates that hold a path after a few optimizer
+#: steps (``_step_gate``), and the learning rate of their SGD steps. The
+#: card and the CPU part in two ways that no kernel causes
+#: (``probes/parity_tail.py`` shows both):
+#: - the paths train with Adam (AdamW in the driver), whose first step
+#:   moves each weight by about ``lr * sign(g)``: a gradient element
+#:   within rounding of 0, whose sign the two set apart, moves by ``2 lr``
+#:   on one and not the other. So the gate takes SGD steps, whose moves
+#:   follow the gradients, at a rate that moves the parameters at least
+#:   as far as the Adam steps do (both largest moves printed and
+#:   checked);
+#: - a ReLU or PReLU whose input lies within rounding of 0 takes one
+#:   branch on the card and the other on the CPU, and that one element
+#:   moves the gradients by up to 7e-4 of the largest. So the CPU's run
+#:   takes the card's branch there (:class:`KinkRoutes`, over the
+#:   modules of ``GATE_KINKS``), as the zoo's gate routes the CPU's
+#:   maxima through the card's (``ZOO_MAX_CONVS``).
+#: The gate holds the SGD steps' output and the first step's gradients,
+#: which the kernels produce. The Adam runs stay covered on the card:
+#: captured against eager bitwise, the loss falling.
+GATE_SGD_LR = {"infomax": 0.03, "gae": 10.0, "vgae": 0.05, "topk": 0.03,
+               "driver_gcn": 4.0, "driver_gat": 8.0}
+#: The modules whose outputs enter a ReLU or PReLU on each gate's path
+#: (the GAT's ELU has a continuous slope; TopK's pools and maxima, and the
+#: dense layers after them, were never seen to part).
+GATE_KINKS = {"infomax": ("dgi.encoder.GCNConv_0",), "gae": ("conv1",),
+              "vgae": ("conv1",), "driver_gcn": ("layers_0", "layers_1")}
+
+
+class KinkRoutes:
+    """The branches the card takes at a gate's ReLU and PReLU kinks: the
+    first model it is attached to (the card's run) records the sign of
+    each output of the gate's ``GATE_KINKS`` modules, call by call; the
+    second (the CPU's) moves each output element that lies on the other
+    side of 0 to the card's side (0, or the least positive float) with
+    its gradient passed through unchanged, so that the CPU's forward and
+    backward take the card's branch there. ``routed`` counts the moved
+    elements."""
+
+    def __init__(self):
+        self.signs, self.calls, self.routed = None, 0, 0
+
+    def attach(self, model, gate):
+        names = GATE_KINKS.get(gate, ())
+        if not names:
+            return
+        record = self.signs is None
+        if record:
+            self.signs = []
+        modules = dict(model.named_modules())
+        for name in names:
+            modules[name].register_forward_hook(
+                self._record if record else self._route)
+
+    def _record(self, module, args, out):
+        self.signs.append((out.detach() > 0).cpu())
+
+    def _route(self, module, args, out):
+        card = self.signs[self.calls].to(out.device)
+        self.calls += 1
+        flip = card != (out.detach() > 0)
+        self.routed += int(flip.sum())
+        side = torch.where(card, torch.finfo(out.dtype).tiny, 0.0)
+        # the value exactly ``side`` (``out + (side - out)`` would round
+        # the least positive float away), the gradient ``out``'s
+        return torch.where(flip, side + (out - out.detach()), out)
+
+
+def gate_optimizer(kind, model, lr, gate, adam=torch.optim.Adam,
+                   routes=None):
+    """The optimizer of a gate's steps over ``model``'s parameters:
+    ``"adam"``, the path's own (``adam`` at ``lr``), or ``"sgd"`` at
+    ``GATE_SGD_LR[gate]``. The model keeps its parameters before the steps
+    (``gate_start``) and its gradients at the first step (``gate_grads``,
+    recorded by a hook before the optimizer's first step); ``routes``, a
+    :class:`KinkRoutes`, is attached to it."""
+    if kind not in ("adam", "sgd"):
+        raise ValueError(f"optimizer {kind!r}: adam or sgd")
+    if routes is not None:
+        routes.attach(model, gate)
+    model.gate_start = {n: p.detach().clone()
+                        for n, p in model.named_parameters()}
+    model.gate_grads = None
+    opt = adam(model.parameters(), lr=lr) if kind == "adam" else \
+        torch.optim.SGD(model.parameters(), lr=GATE_SGD_LR[gate])
+
+    def first(optimizer, args, kwargs):
+        if model.gate_grads is None:
+            model.gate_grads = {
+                n: (p.grad.detach().clone() if p.grad is not None
+                    else torch.zeros_like(p))
+                for n, p in model.named_parameters()}
+
+    opt.register_step_pre_hook(first)
+    return opt
+
+
+def largest_move(model):
+    """The largest change of a parameter over a gate's steps."""
+    return max(float((p.detach() - model.gate_start[n]).abs().max())
+               for n, p in model.named_parameters())
+
+
+def grads_gap(card_model, cpu_model):
+    """The first step's gradients, card against CPU: the largest error
+    relative to the largest CPU gradient."""
+    cpu = cpu_model.gate_grads
+    scale = max(float(g.abs().max()) for g in cpu.values())
+    return max(float((g.cpu() - cpu[n]).abs().max())
+               for n, g in card_model.gate_grads.items()) / max(scale, 1e-30)
+
+
+def step_gate(gate, widths=None):
+    """``(steps_fn(device, optimizer) -> (output, model), tolerance,
+    output name)`` of a gate over optimizer steps: ``infomax``
+    (``slice_infomax``), ``gae`` and ``vgae`` (``slice_autoencoder``),
+    ``topk`` (``slice_topk``), ``driver_gcn`` and ``driver_gat``
+    (``slice_driver``, ``slice_driver_gat``; at ``widths``, default those
+    ``training_net`` draws for Cora)."""
+    if gate == "infomax":
+        return infomax_steps_z, INFOMAX_PARITY_TOL, "z"
+    if gate in ("gae", "vgae"):
+        return (functools.partial(autoencoder_steps_z,
+                                  variational=gate == "vgae"),
+                AUTOENCODER_PARITY_TOL, "z")
+    if gate == "topk":
+        return (functools.partial(graph_steps_output, "topk"),
+                GRAPH_PARITY_TOL, "output")
+    if gate in ("driver_gcn", "driver_gat"):
+        from pytorch_geometric_tpu_torch.research.pruning import (
+            contraction_layer_coefficients)
+
+        name = gate.split("_")[1].upper()
+        if widths is None:
+            widths = contraction_layer_coefficients(1433, 2, 0.5, seed=0)
+        return (functools.partial(driver_steps_logits, name, widths=widths),
+                DRIVER_PARITY_TOL[name], "logits")
+    raise ValueError(f"unknown gate {gate!r}")
+
+
+def _step_gate(steps_fn, tol, what, problems):
+    """A card-against-CPU gate over optimizer steps
+    (``steps_fn(device, optimizer) -> (output, model)``, the model from
+    :func:`gate_optimizer`): the SGD steps' output (and parameters), card
+    against CPU, within ``tol`` of the CPU's largest magnitude; the first
+    step's gradients within ``tol`` of the largest CPU gradient; the CPU
+    taking the card's branch at the path's kinks (:class:`KinkRoutes`);
+    the SGD steps' largest move at least the Adam steps' on the card.
+    Returns the report's keys."""
+    runs, routes = {}, KinkRoutes()
+    err, params_err, finite, shape = _parity(
+        functools.partial(steps_fn, optimizer="sgd", routes=routes), runs)
+    grads_err = grads_gap(runs["card"][1], runs["cpu"][1])
+    sgd_move = largest_move(runs["card"][1])
+    adam_move = largest_move(steps_fn(DEVICE, optimizer="adam")[1])
+    if not (finite and err <= tol):
+        problems.append(f"{what} after the SGD steps: card vs CPU rel err "
+                        f"{err} (tolerance {tol})")
+    if not grads_err <= tol:
+        problems.append(f"first step's gradients: card vs CPU rel err "
+                        f"{grads_err} (tolerance {tol})")
+    if not sgd_move >= adam_move:
+        problems.append(f"the SGD steps move the parameters by at most "
+                        f"{sgd_move}, less than the Adam steps' {adam_move}")
+    return {f"{what}_shape": shape,
+            f"{what}_cuda_vs_cpu_rel_err": err,
+            "params_cuda_vs_cpu_rel_err": params_err,
+            "step1_grads_cuda_vs_cpu_rel_err": grads_err,
+            "kinks_routed": routes.routed, "gate_tolerance": tol,
+            "sgd_largest_move": sgd_move, "adam_largest_move": adam_move}
+
+
 def _example_run(run, expected, statement):
-    """``run()`` with its printed lines kept, the launches read over it,
-    the peak of device memory: ``(out, report, problems)``."""
+    """``run()`` with its printed lines kept, the launches read over it
+    against ``expected`` (or ``expected(out)``), the peak of device
+    memory: ``(out, report, problems)``."""
     import contextlib
     import io
 
@@ -2888,6 +3101,8 @@ def _example_run(run, expected, statement):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     launches = {n: v - before[n] for n, v in launch_counts().items()}
+    if callable(expected):
+        expected = expected(out)
     expected = {n: expected.get(n, 0) for n in launches}
     problems = []
     if launches != expected:
@@ -2911,8 +3126,11 @@ def _capture_pair(run, step, evaluation, steps, evals, statement, metric):
     launches (captured step x replays + warm-up, for the training step
     and the evaluation, ``device_launches``) must equal the eager run's
     count, ``steps x step + evals x evaluation``, its wrapper calls the
-    two warm-ups' and the two captures', and its launches by stage the
-    step's and the evaluation's; every step's loss, the final parameters
+    warm-ups' and the captures', and its launches by stage the step's
+    and the evaluation's, its calls (warm-up and replays) of the training
+    steps ``steps`` and of the evaluation steps ``evals`` (a run may hold
+    one of each a batch size, ``train_<size>``); every step's loss, the
+    final parameters
     and buffers, and the test metric (the run's key ``metric``) bitwise
     equal to the eager run's. The host's ms a batch are split into
     the collation, the operators' build (and, where the run reports it,
@@ -2921,7 +3139,11 @@ def _capture_pair(run, step, evaluation, steps, evals, statement, metric):
     names = set(step) | set(evaluation)
     expected = {n: steps * step.get(n, 0) + evals * evaluation.get(n, 0)
                 for n in names}
-    calls = {n: 2 * (step.get(n, 0) + evaluation.get(n, 0)) for n in names}
+
+    def calls(out):
+        return {n: sum(2 * (step if k.startswith("train") else evaluation)
+                       .get(n, 0) for k in out["launches"]) for n in names}
+
     statement = {n: f"{v} = {expected[n]}" for n, v in statement.items()}
     out, report, problems = _example_run(lambda: run(None), calls,
                                          statement)
@@ -2933,13 +3155,17 @@ def _capture_pair(run, step, evaluation, steps, evals, statement, metric):
     if ran != expected:
         problems.append(f"captured run: device launches {ran}, expected "
                         f"{expected}")
-    want_stages = {
-        "train": {"warm_up": step, "captured": step, "replays": steps - 1},
-        "evaluation": {"warm_up": evaluation, "captured": evaluation,
-                       "replays": evals - 1}}
-    if out["launches"] != want_stages:
-        problems.append(f"launches by stage {out['launches']}, expected "
-                        f"{want_stages}")
+    step_calls = {"train": 0, "evaluation": 0}
+    for name, stages in out["launches"].items():
+        kind = "train" if name.startswith("train") else "evaluation"
+        per = step if kind == "train" else evaluation
+        step_calls[kind] += stages["replays"] + 1
+        if stages["warm_up"] != per or stages["captured"] != per:
+            problems.append(f"launches by stage of {name} {stages}, "
+                            f"expected {per} in its warm-up and capture")
+    if step_calls != {"train": steps, "evaluation": evals}:
+        problems.append(f"calls of the captured steps {step_calls}, "
+                        f"expected {steps} training and {evals} evaluation")
     eager, eager_report, eager_problems = _example_run(
         lambda: run(False), expected, statement)
     problems += [f"eager run: {p}" for p in eager_problems]
@@ -2984,6 +3210,74 @@ def _capture_pair(run, step, evaluation, steps, evals, statement, metric):
         "eager_printed": eager_report["printed"],
         "captured_vs_eager_step_loss_rel_err": loss_err,
         "captured_vs_eager_state_rel_err": state_err})
+    return out, eager, report, problems
+
+
+def _stage_calls(launches):
+    """The wrapper calls a captured run of spans makes
+    (``EpochSpans.launches``): its warm-up's, its capture's and its host
+    work's."""
+    total = {}
+    for stage in ("warm_up", "captured_epoch", "evaluation"):
+        for name, v in launches[stage].items():
+            total[name] = total.get(name, 0) + v
+    return total
+
+
+def _bitwise(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_bitwise(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, (np.ndarray, list, tuple)):
+        return np.array_equal(np.asarray(a), np.asarray(b))
+    return a == b
+
+
+def _span_pair(run, expected, statement, epochs, outputs):
+    """A full-batch run as a user runs it (``run(None)``: its epochs
+    captured, the default on a card; ``models/capture.py:EpochSpans``)
+    and then eager (``run(False)``) from the same seed. ``expected`` is
+    the eager run's count of launches; the captured run's device launches
+    (captured epoch x replays + warm-up + the host work between the
+    spans, its ``device_launches``) must equal it, and its wrapper calls
+    its warm-up's, capture's and host work's (``launches`` by stage).
+    ``outputs(out)`` names what must be bitwise equal in the two runs:
+    every epoch's loss, the final parameters, the metrics. Each run's ms
+    an epoch: the replays' (captured) and the epochs' (eager), the host
+    work between spans left out. ``(captured out, eager out, report,
+    problems)``."""
+    statement = {n: f"{v} = {expected[n]}" for n, v in statement.items()}
+    out, report, problems = _example_run(
+        lambda: run(None), lambda o: _stage_calls(o["launches"]), statement)
+    report["wrapper_calls"] = report.pop("launches")
+    report["expected_wrapper_calls"] = report.pop("expected_launches")
+    ran = out["device_launches"]
+    report["launches"], report["expected_launches"] = ran, expected
+    if ran != expected:
+        problems.append(f"captured run: device launches {ran}, expected "
+                        f"{expected}")
+    eager, eager_report, eager_problems = _example_run(
+        lambda: run(False), expected, statement)
+    problems += [f"eager run: {p}" for p in eager_problems]
+    got, want = outputs(out), outputs(eager)
+    differ = [k for k in want if not _bitwise(got[k], want[k])]
+    if differ:
+        problems.append(f"captured vs eager not bitwise: {differ}")
+    replays = out["launches"]["replays"]
+    report.update({
+        "captured_vs_eager_bitwise": sorted(want) if not differ else [],
+        "ms_per_epoch": (out["seconds"] - out["capture_seconds"])
+        / max(replays, 1) * 1e3,
+        "capture_seconds": out["capture_seconds"],
+        "between_seconds": out["between_seconds"],
+        "launch_stages": out["launches"],
+        "eager_seconds": eager["seconds"],
+        "eager_ms_per_epoch": eager["seconds"] / epochs * 1e3,
+        "eager_between_seconds": eager["between_seconds"],
+        "eager_launches": eager_report["launches"],
+        "eager_run_peak_bytes": eager_report["run_peak_bytes"],
+        "eager_printed": eager_report["printed"]})
     return out, eager, report, problems
 
 
@@ -3084,12 +3378,14 @@ def phase_slice_mutag_gin():
                     "params_cuda_vs_cpu_rel_err": params_err}, problems)
 
 
-def graph_steps_output(name, device, steps=3):
+def graph_steps_output(name, device, steps=3, optimizer="sgd",
+                       routes=None):
     """``(output, model)`` of a graph-level example after ``steps`` of its
     training step from ``SEED`` over the first batches of its seeded
     loader (dropout off; DiffPool by SGD 0.1, whose L2-normalised convs'
-    biases, like mutag's, have gradients of rounding only), then its
-    output on the first batch."""
+    biases, like mutag's, have gradients of rounding only; TopK by
+    ``optimizer``, :func:`gate_optimizer`), then its output on the first
+    batch."""
     import importlib
 
     from pytorch_geometric_tpu_torch.examples.ppi import OperatorCache
@@ -3117,7 +3413,9 @@ def graph_steps_output(name, device, steps=3):
         model, ops = m.Net(generator=gen), OperatorCache(m.qm9_operators)
         lr, extra = 1e-3, {"mean": mean, "std": std}
     model = model.to(device)
-    opt = torch.optim.Adam(model.parameters(), lr=lr)
+    opt = gate_optimizer(optimizer, model, lr, "topk", routes=routes) \
+        if name == "topk" \
+        else torch.optim.Adam(model.parameters(), lr=lr)
     batches = list(itertools.islice(train.indexed(), steps))
     for idx, graph in batches:
         m.train_step(model, opt, graph, ops(idx, graph), **extra)
@@ -3134,11 +3432,14 @@ def phase_slice_graph(name):
     levels over ToDense(126) batches, 8 epochs; qm9_nn_conv: NNConv mean
     + GRU x 3 + Set2Set(3), dim 64, 5 epochs over 1000 synthetic
     molecules), one operator set a batch built on the host (QM9's over
-    the batch's real edges and nodes): qm9_nn_conv captured, then eager,
-    bitwise equal (:func:`_capture_pair`: every step's loss, the final
-    parameters and the MAE), the others eager. The launches asserted
-    (``GRAPH_EXAMPLES``), the loss falling, and the output after three
-    steps, card against the plain path on the CPU (1e-4)."""
+    the batch's real edges and nodes; DiffPool has none): captured, then
+    eager, bitwise equal (:func:`_capture_pair`: every step's loss, the
+    final parameters and the accuracy or MAE; DiffPool one captured step
+    a batch size). The launches asserted (``GRAPH_EXAMPLES``), the loss
+    falling, and the output after three steps, card against the plain
+    path on the CPU (``GRAPH_PARITY_TOL``; TopK's steps through
+    :func:`_step_gate`, which also holds the first step's
+    gradients)."""
     import importlib
 
     module_name, epochs, step, evaluation = GRAPH_EXAMPLES[name]
@@ -3147,34 +3448,30 @@ def phase_slice_graph(name):
     loaders = m.load(SEED, device=DEVICE)
     train, test = loaders[:2]
     batches = {"train": len(train), "test": len(test)}
-    names = set(step) | set(evaluation)
-    expected = {n: epochs * (batches["train"] * step.get(n, 0)
-                             + batches["test"] * evaluation.get(n, 0))
-                for n in names}
     statement = {
         n: f"{epochs} epochs x ({batches['train']} train batches x "
            f"{step.get(n, 0)} + {batches['test']} test batches x "
-           f"{evaluation.get(n, 0)})" for n in names}
-    if name in CAPTURED_EXAMPLES:
-        out, _, report, problems = _capture_pair(
-            lambda capture: m.run(epochs, seed=SEED, device=DEVICE,
-                                  loaders=m.load(SEED, device=DEVICE),
-                                  capture=capture),
-            step, evaluation, epochs * batches["train"],
-            epochs * batches["test"], statement, CAPTURED_EXAMPLES[name])
-    else:
-        statement = {n: f"{v} = {expected[n]}" for n, v in
-                     statement.items()} or \
+           f"{evaluation.get(n, 0)})" for n in set(step) | set(evaluation)}
+    out, _, report, problems = _capture_pair(
+        lambda capture: m.run(epochs, seed=SEED, device=DEVICE,
+                              loaders=m.load(SEED, device=DEVICE),
+                              capture=capture),
+        step, evaluation, epochs * batches["train"],
+        epochs * batches["test"], statement, CAPTURED_EXAMPLES[name])
+    if not statement:
+        report["launch_statement"] = \
             "no kernel of the port: dense batched products only"
-        out, report, problems = _example_run(
-            lambda: m.run(epochs, seed=SEED, device=DEVICE,
-                          loaders=loaders), expected, statement)
     _falling(out["epoch_losses"], problems)
-    parity, params_err, finite, shape = _parity(
-        lambda dev: graph_steps_output(name, dev))
-    if not (finite and parity <= 1e-4):
-        problems.append(f"output after 3 steps: card vs CPU rel err "
-                        f"{parity}")
+    if name == "topk":
+        gate = _step_gate(*step_gate("topk")[:2], "output", problems)
+    else:
+        parity, params_err, finite, shape = _parity(
+            lambda dev: graph_steps_output(name, dev))
+        if not (finite and parity <= GRAPH_PARITY_TOL):
+            problems.append(f"output after 3 steps: card vs CPU rel err "
+                            f"{parity}")
+        gate = {"output_shape": shape, "output_cuda_vs_cpu_rel_err": parity,
+                "params_cuda_vs_cpu_rel_err": params_err}
     metric = {k: out[k] for k in ("acc", "mae") if k in out}
     return _finish({"phase": f"slice_{name}", "example": module_name,
                     "epochs": epochs, "batches": batches, **report,
@@ -3183,14 +3480,14 @@ def phase_slice_graph(name):
                     "operator_setup_seconds": out.get("operator_seconds",
                                                       0.0),
                     "epoch_losses": out["epoch_losses"], **metric,
-                    "output_shape": shape,
-                    "output_cuda_vs_cpu_rel_err": parity,
-                    "params_cuda_vs_cpu_rel_err": params_err}, problems)
+                    **gate}, problems)
 
 
-def autoencoder_steps_z(device, variational, steps=3):
+def autoencoder_steps_z(device, variational, steps=3, optimizer="sgd",
+                        routes=None):
     """``(z, encoder)``: examples/autoencoder.py's encoder (from ``SEED``)
-    after ``steps`` Adam steps, the VGAE's noise drawn on the CPU and
+    after ``steps`` steps of ``optimizer`` (:func:`gate_optimizer`: the
+    script's Adam 0.01, or SGD), the VGAE's noise drawn on the CPU and
     handed in, then its embeddings (mu for the VGAE)."""
     from pytorch_geometric_tpu_torch.examples import autoencoder as ae_ex
     from pytorch_geometric_tpu_torch.models.citation import (
@@ -3205,11 +3502,13 @@ def autoencoder_steps_z(device, variational, steps=3):
                         generator=torch.Generator().manual_seed(SEED))
     enc = enc.to(device)
     ae = VGAE(enc) if variational else GAE(enc)
-    pos = ae_ex.edges(data.train_pos_edge_index, device)
-    neg = tuple(torch.from_numpy(a).to(device) for a in negative_sampling(
-        *data.train_pos_edge_index, data.num_nodes, pos[0].shape[0],
-        seed=SEED + 1))
-    opt = torch.optim.Adam(enc.parameters(), lr=0.01)
+    pos_s, pos_r = data.train_pos_edge_index
+    pos = ae_ex.gathers(pos_s, pos_r, graph.num_nodes, device)
+    neg = ae_ex.gathers(*negative_sampling(
+        pos_s, pos_r, data.num_nodes, len(pos_s), seed=SEED + 1),
+        graph.num_nodes, device)
+    opt = gate_optimizer(optimizer, enc, 0.01,
+                         "vgae" if variational else "gae", routes=routes)
     noise = torch.Generator().manual_seed(SEED)
     for _ in range(steps):
         eps = torch.randn((graph.num_nodes, 16), generator=noise)
@@ -3225,54 +3524,62 @@ def autoencoder_steps_z(device, variational, steps=3):
 def phase_slice_autoencoder():
     """examples/autoencoder.py's run on the card, GAE and then
     ``--variational`` (GCN 1433 -> 32 -> 16 over Cora's train positives,
-    Adam 0.01, 100 epochs, AUC and AP every 20): launches asserted as
-    epochs x (2 layers forward + 2 back; the VGAE 3 + 3) + 5 tests x 2
-    (3); the loss falling; AUC and AP printed; the embeddings after three
-    steps, card against the plain path on the CPU (1e-4)."""
+    Adam 0.01, 100 epochs, AUC and AP every 20), as a user runs it
+    (captured: one epoch replayed up to each test) and then eager
+    (:func:`_span_pair`: every epoch's loss, the encoder, AUC and AP
+    bitwise): launches asserted as epochs x (2 layers forward + 2 back;
+    the VGAE 3 + 3) + 5 tests x 2 (3) ``spmm_csr``, and epochs x 4
+    segment sums (the backward of the decoder's gathers, which sum in a
+    fixed order where torch's gather backward scatters with atomics);
+    the loss falling; the embeddings
+    after three SGD steps and the first step's gradients, card against
+    the plain path on the CPU (:func:`_step_gate`,
+    ``AUTOENCODER_PARITY_TOL``)."""
     from pytorch_geometric_tpu_torch.examples import autoencoder as ae_ex
 
     loaded = ae_ex.load(SEED, device=DEVICE)
     runs, problems = {}, []
     for variational in (False, True):
+        key = "vgae" if variational else "gae"
         per_epoch, per_test = AUTOENCODER_LAUNCHES[variational]
         tests = AUTOENCODER_EPOCHS // 20
-        want = AUTOENCODER_EPOCHS * per_epoch + tests * per_test
-        out, report, more = _example_run(
-            lambda: ae_ex.run(variational, AUTOENCODER_EPOCHS, SEED, DEVICE,
-                              loaded=loaded), {"spmm_csr": want},
-            {"spmm_csr": f"{AUTOENCODER_EPOCHS} epochs x {per_epoch} + "
-                         f"{tests} tests x {per_test} = {want}"})
+        want = {n: AUTOENCODER_EPOCHS * v + tests * per_test.get(n, 0)
+                for n, v in per_epoch.items()}
+        out, _, report, more = _span_pair(
+            lambda capture: ae_ex.run(variational, AUTOENCODER_EPOCHS, SEED,
+                                      DEVICE, loaded=loaded,
+                                      capture=capture),
+            want,
+            {n: f"{AUTOENCODER_EPOCHS} epochs x {v} + {tests} tests x "
+                f"{per_test.get(n, 0)}" for n, v in per_epoch.items()},
+            AUTOENCODER_EPOCHS,
+            lambda o: {"losses": o["losses"],
+                       "encoder": o["model"].state_dict(),
+                       "auc": o["auc"], "ap": o["ap"]})
         _falling(out["losses"], more)
-        parity, params_err, finite, shape = _parity(
-            lambda dev: autoencoder_steps_z(dev, variational))
-        if not (finite and parity <= 1e-4):
-            more.append(f"embeddings after 3 steps: card vs CPU rel err "
-                        f"{parity}")
-        problems += [f"{'vgae' if variational else 'gae'}: {p}"
-                     for p in more]
-        runs["vgae" if variational else "gae"] = {
+        gate = _step_gate(*step_gate(key)[:2], "z", more)
+        problems += [f"{key}: {p}" for p in more]
+        runs[key] = {
             **report, "auc": out["auc"], "ap": out["ap"],
             "first_loss": float(out["losses"][0]),
             "final_loss": float(out["losses"][-1]),
-            "ms_per_epoch": out["seconds"] / AUTOENCODER_EPOCHS * 1e3,
-            "operator_setup_seconds": out["operator_seconds"],
-            "z_cuda_vs_cpu_rel_err": parity,
-            "params_cuda_vs_cpu_rel_err": params_err}
-    launches = {"spmm_csr": sum(r["launches"].get("spmm_csr", 0)
-                                for r in runs.values())}
+            "operator_setup_seconds": out["operator_seconds"], **gate}
+    launches = {n: sum(r["launches"].get(n, 0) for r in runs.values())
+                for n in ("spmm_csr", "sorted_segment_sum")}
     return _finish({"phase": "slice_autoencoder", "epochs":
                     AUTOENCODER_EPOCHS, "launches": launches, **runs},
                    problems)
 
 
-#: Card-against-CPU tolerance of the infomax embeddings after three Adam
+#: Card-against-CPU tolerance of the infomax embeddings after three
 #: steps (``slice_infomax``).
 INFOMAX_PARITY_TOL = 1e-4
 
 
-def infomax_steps_z(device, steps=3):
+def infomax_steps_z(device, steps=3, optimizer="sgd", routes=None):
     """``(z, model)``: examples/infomax.py's model (from ``SEED``, hidden
-    512) after ``steps`` Adam steps, each corruption's permutation drawn
+    512) after ``steps`` steps of ``optimizer`` (:func:`gate_optimizer`:
+    the script's Adam 1e-3, or SGD), each corruption's permutation drawn
     on the CPU and handed in, then the embeddings."""
     from pytorch_geometric_tpu_torch.examples import infomax
     from pytorch_geometric_tpu_torch.models.citation import (
@@ -3290,7 +3597,7 @@ def infomax_steps_z(device, steps=3):
     model = infomax.Model(graph.num_node_features, 512, corruption,
                           generator=torch.Generator().manual_seed(SEED))
     model = model.to(device)
-    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    opt = gate_optimizer(optimizer, model, 1e-3, "infomax", routes=routes)
     for _ in range(steps):
         opt.zero_grad()
         model(graph, graph.x, None, fn)[0].backward()
@@ -3302,34 +3609,36 @@ def infomax_steps_z(device, steps=3):
 def phase_slice_infomax():
     """examples/infomax.py's run on the card at its full width (GCN 1433
     -> 512 with a PReLU, the bilinear discriminator, Adam 1e-3, 50
-    epochs on Cora) and the port's logistic-regression probe: launches
+    epochs on Cora) and the port's logistic-regression probe, as a user
+    runs it (captured: one epoch, the permutation drawn inside it,
+    replayed in spans of 10) and then eager (:func:`_span_pair`: every
+    epoch's loss, the model and the probe's accuracy bitwise): launches
     asserted as epochs x 4 (the encoder on the graph and on its
     corruption, forward and back) + 2 (the embeddings); the loss
     falling; the probe's accuracy printed; the embeddings after three
-    steps, card against the plain path on the CPU (1e-4)."""
+    SGD steps and the first step's gradients, card against the plain
+    path on the CPU (:func:`_step_gate`, ``INFOMAX_PARITY_TOL``)."""
     from pytorch_geometric_tpu_torch.examples import infomax
 
     graph = infomax.load(device=DEVICE)
     per_epoch, final = INFOMAX_LAUNCHES
     want = INFOMAX_EPOCHS * per_epoch + final
-    out, report, problems = _example_run(
-        lambda: infomax.run(INFOMAX_EPOCHS, SEED, 512, DEVICE, graph=graph),
+    out, _, report, problems = _span_pair(
+        lambda capture: infomax.run(INFOMAX_EPOCHS, SEED, 512, DEVICE,
+                                    graph=graph, capture=capture),
         {"spmm_csr": want},
-        {"spmm_csr": f"{INFOMAX_EPOCHS} epochs x {per_epoch} + {final} = "
-                     f"{want}"})
+        {"spmm_csr": f"{INFOMAX_EPOCHS} epochs x {per_epoch} + {final}"},
+        INFOMAX_EPOCHS,
+        lambda o: {"losses": o["losses"], "model": o["model"].state_dict(),
+                   "probe_acc": o["acc"]})
     _falling(out["losses"], problems)
-    parity, params_err, finite, shape = _parity(infomax_steps_z)
-    if not (finite and parity <= INFOMAX_PARITY_TOL):
-        problems.append(f"embeddings after 3 steps: card vs CPU rel err "
-                        f"{parity}")
+    gate = _step_gate(*step_gate("infomax")[:2], "z", problems)
     return _finish({"phase": "slice_infomax", "epochs": INFOMAX_EPOCHS,
                     **report, "probe_acc": out["acc"],
                     "first_loss": float(out["losses"][0]),
                     "final_loss": float(out["losses"][-1]),
-                    "ms_per_epoch": out["seconds"] / INFOMAX_EPOCHS * 1e3,
                     "operator_setup_seconds": out["operator_seconds"],
-                    "z_shape": shape, "z_cuda_vs_cpu_rel_err": parity,
-                    "params_cuda_vs_cpu_rel_err": params_err}, problems)
+                    **gate}, problems)
 
 
 def _zoo_cases(f, c, gen):
@@ -3496,7 +3805,8 @@ DRIVER_INDUCTIVE_LAUNCHES = {
 #: Card-against-CPU tolerance of the logits after three epochs: the
 #: GAT's is wider, because AdamW's first steps turn rounding-level
 #: gradient differences into lr-sized ones at its 1,080 channels (two
-#: runs of the same plain CPU code: 3.4e-6 and 1.2e-4 apart).
+#: runs of the same plain CPU code: 3.4e-6 and 1.2e-4 apart). The gates
+#: take SGD epochs (``GATE_SGD_LR``); the tolerances stand.
 DRIVER_PARITY_TOL = {"GCN": 1e-4, "GAT": 1e-3}
 #: The composed weight graph of slice_driver's last correction input
 #: (the phase-2 model's first two weights), for the fiedler phase.
@@ -3522,12 +3832,17 @@ def _driver_expected(model_name, epochs, fine_tune):
     return expected, statement, corrections
 
 
-def driver_steps_logits(model_name, device, widths, epochs=3):
+def driver_steps_logits(model_name, device, widths, epochs=3,
+                        optimizer="sgd", routes=None):
     """``(logits, model)``: a fresh zoo model at ``widths`` (from
     ``SEED``, dropout 0: a generator on the card and one on the CPU draw
-    different masks) after ``train_part`` for ``epochs`` epochs on Cora,
-    then its logits; on the card through its operators, on the CPU
-    through its plain path (no operators)."""
+    different masks) after ``train_part`` for ``epochs`` epochs on Cora
+    with ``optimizer`` (:func:`gate_optimizer`: the driver's AdamW 0.01,
+    or SGD), then its logits; on the card through its operators, on the
+    CPU through its plain path (no operators). The epochs run eagerly:
+    the kinks' hooks (``routes``) run in Python, which a replay skips
+    (``slice_driver`` holds the captured pipeline to the eager one,
+    bitwise)."""
     from pytorch_geometric_tpu_torch.models.prunable import choose_model
     from pytorch_geometric_tpu_torch.research import driver
 
@@ -3537,8 +3852,13 @@ def driver_steps_logits(model_name, device, widths, epochs=3):
                          generator=torch.Generator().manual_seed(SEED)
                          ).to(device)
     ops = model.operators(graph) if device != "cpu" else {}
+    adamw = functools.partial(torch.optim.AdamW, weight_decay=5e-4,
+                              capturable=device != "cpu")
     driver.train_part(model, graph, None, epochs, seed=SEED,
-                      apply_kwargs=ops)
+                      apply_kwargs=ops, capture=False,
+                      optimizer=lambda _: gate_optimizer(
+                          optimizer, model, 0.01,
+                          f"driver_{model_name.lower()}", adamw, routes))
     model.eval()
     with torch.no_grad():
         return model(graph, graph.x, **ops).cpu(), model
@@ -3554,12 +3874,17 @@ def phase_slice_driver(model_name="GCN", phase="slice_driver"):
     fine-tune epochs, checkpoints and curves in a temporary directory.
     Printed: the widths before and after pruning, each phase's seconds
     and best validation accuracy, and each correction's epoch, seconds,
-    ``applied`` count and Fiedler backends. Launches asserted
-    (``DRIVER_STEP_LAUNCHES`` x epochs + ``DRIVER_EVAL_LAUNCHES`` x
-    evaluations); both phases' losses finite and falling (phase 1 from
-    its checkpoint's history, phase 2 from its saved curve); the logits
-    after three epochs (dropout 0) card against the plain path on the CPU
-    (``DRIVER_PARITY_TOL``: GCN 1e-4, GAT 1e-3)."""
+    ``applied`` count and Fiedler backends. Run as a user runs it
+    (``train_part``'s epoch captured and replayed over each span, the
+    correction editing the weights in place between spans), then eager
+    (:func:`_span_pair`: both phases' losses, validation and test
+    accuracies, best accuracy and final parameters bitwise). Launches
+    asserted (``DRIVER_STEP_LAUNCHES`` x epochs + ``DRIVER_EVAL_LAUNCHES``
+    x evaluations, in both runs); both phases' losses finite and falling
+    (phase 1 from its checkpoint's history, phase 2 from its saved
+    curve); the logits after three SGD epochs (dropout 0) and the first
+    epoch's gradients, card against the plain path on the CPU
+    (:func:`_step_gate`, ``DRIVER_PARITY_TOL``: GCN 1e-4, GAT 1e-3)."""
     import tempfile
 
     from pytorch_geometric_tpu_torch.research import driver
@@ -3574,16 +3899,45 @@ def phase_slice_driver(model_name="GCN", phase="slice_driver"):
     with tempfile.TemporaryDirectory() as tmp:
         ckpt_dir, results_dir = f"{tmp}/checkpoint", f"{tmp}/Results"
 
-        def run():
+        def run(capture):
+            sub = tmp if capture is None else f"{tmp}/eager"
             t0 = time.perf_counter()
             (res,) = driver.training_net(
                 "Cora", model_name, epochs=epochs,
-                fine_tune_epochs=fine_tune, results_dir=results_dir,
-                ckpt_dir=ckpt_dir, device=DEVICE)
+                fine_tune_epochs=fine_tune, results_dir=f"{sub}/Results",
+                ckpt_dir=f"{sub}/checkpoint", device=DEVICE,
+                capture=capture)
             torch.cuda.synchronize()
-            return {"result": res, "seconds": time.perf_counter() - t0}
+            spans = [res["phases"][k].spans.metrics()
+                     for k in ("phase1", "phase2")]
+            out = {"result": res, "run_seconds": time.perf_counter() - t0}
+            for key in ("seconds", "between_seconds", "capture_seconds"):
+                if key in spans[0]:
+                    out[key] = sum(sp[key] for sp in spans)
+            if "launches" in spans[0]:
+                out["device_launches"] = {
+                    n: sum(sp["device_launches"].get(n, 0) for sp in spans)
+                    for n in expected}
+                out["launches"] = {
+                    "replays": sum(sp["launches"]["replays"]
+                                   for sp in spans),
+                    **{stage: {n: sum(sp["launches"][stage].get(n, 0)
+                                      for sp in spans) for n in expected}
+                       for stage in ("warm_up", "captured_epoch",
+                                     "evaluation")}}
+            return out
 
-        out, report, problems = _example_run(run, expected, statement)
+        def outputs(o):
+            ph = o["result"]["phases"]
+            return {f"{k}_{what}": getattr(ph[k], attr)
+                    for k in ph for what, attr in (
+                        ("losses", "train_convergence"),
+                        ("val_accs", "val_convergence"),
+                        ("test_accs", "test_convergence"),
+                        ("best_val_acc", "best_acc"), ("params", "params"))}
+
+        out, _, report, problems = _span_pair(
+            run, expected, statement, epochs + fine_tune, outputs)
         res = out["result"]
         run_key = (f"Cora-{model_name}2-{'_'.join(map(str, res['widths']))}"
                    f"-0.6-0")
@@ -3611,12 +3965,8 @@ def phase_slice_driver(model_name="GCN", phase="slice_driver"):
     if [c["epoch"] for c in res["corrections"]] != corrections:
         problems.append(f"corrections at {res['corrections']}, expected "
                         f"epochs {corrections}")
-    parity, params_err, finite, shape = _parity(
-        functools.partial(driver_steps_logits, model_name,
-                          widths=res["widths"]))
-    if not (finite and parity <= DRIVER_PARITY_TOL[model_name]):
-        problems.append(f"logits after 3 epochs: card vs CPU rel err "
-                        f"{parity}")
+    gate = _step_gate(*step_gate(f"driver_{model_name.lower()}",
+                                 res["widths"])[:2], "logits", problems)
     printed = {
         "widths": res["widths"], "pruned_widths": res["new_widths"],
         "phase1": {"seconds": res["seconds"]["phase1"],
@@ -3636,9 +3986,7 @@ def phase_slice_driver(model_name="GCN", phase="slice_driver"):
                         "layers": [list(w.shape) for _, w in items],
                         "nodes": len(composed),
                         "edges": composed.number_of_edges()},
-                    "logits_shape": shape,
-                    "logits_cuda_vs_cpu_rel_err": parity,
-                    "params_cuda_vs_cpu_rel_err": params_err}, problems)
+                    **gate}, problems)
 
 
 def phase_slice_driver_inductive():
@@ -3836,15 +4184,21 @@ def phase_fiedler():
 
 
 MYGCN_EPOCHS = (40, 60)
+#: Launches of a mygcn epoch (the packed GCN's two layers forward and
+#: back) and of an evaluation.
+MYGCN_LAUNCHES = (4, 2)
 
 
 def phase_mygcn():
     """examples/mygcn.py on the card: 40 epochs (two spans of 20, a
     checkpoint on each better validation accuracy) in a temporary
-    directory, then ``--resume`` to 60: the restored epoch counter is the
-    checkpoint's, the run trains on from it to 60 in spans of 20, the
-    loss history is the checkpoint's up to there, and the final
-    checkpoint is at least as good."""
+    directory, as a user runs it (the epoch captured and replayed 20
+    times a span) and then eager (:func:`_span_pair`: the loss history,
+    the model and the final accuracies bitwise; launches 40 x 4 + 3
+    evaluations x 2 in both), then ``--resume`` to 60: the restored epoch
+    counter is the checkpoint's, the run trains on from it to 60 in spans
+    of 20, the loss history is the checkpoint's up to there, and the
+    final checkpoint is at least as good."""
     import contextlib
     import io
     import tempfile
@@ -3853,20 +4207,32 @@ def phase_mygcn():
     from pytorch_geometric_tpu_torch.research.checkpoint import (
         CheckpointManager)
 
-    problems = []
+    per_epoch, per_eval = MYGCN_LAUNCHES
+    evals = MYGCN_EPOCHS[0] // 20 + 1
+    want = MYGCN_EPOCHS[0] * per_epoch + evals * per_eval
     with tempfile.TemporaryDirectory() as tmp:
+        out, _, report, problems = _span_pair(
+            lambda capture: mygcn.run(
+                epochs=MYGCN_EPOCHS[0], device=DEVICE, capture=capture,
+                ckpt_dir=tmp if capture is None else f"{tmp}/eager"),
+            {"spmm_csr": want},
+            {"spmm_csr": f"{MYGCN_EPOCHS[0]} epochs x {per_epoch} + {evals} "
+                         f"evaluations x {per_eval}"},
+            MYGCN_EPOCHS[0],
+            lambda o: {"history": o["history"],
+                       "model": o["model"].state_dict(),
+                       "val_acc": float(o["val_acc"]),
+                       "test_acc": float(o["test_acc"])})
+        first_s = out["seconds"] + out["between_seconds"]
+        saved = CheckpointManager(tmp).load("mygcn-Cora")
         printed = io.StringIO()
         with contextlib.redirect_stdout(printed):
-            t0 = time.perf_counter()
-            mygcn.run(epochs=MYGCN_EPOCHS[0], ckpt_dir=tmp, device=DEVICE)
-            first_s = time.perf_counter() - t0
-            saved = CheckpointManager(tmp).load("mygcn-Cora")
             t0 = time.perf_counter()
             acc = mygcn.run(epochs=MYGCN_EPOCHS[1], resume=True,
                             ckpt_dir=tmp, device=DEVICE)
             resume_s = time.perf_counter() - t0
         final = CheckpointManager(tmp).load("mygcn-Cora")
-    lines = printed.getvalue().splitlines()
+    lines = report["printed"] + printed.getvalue().splitlines()
     resumed = [ln for ln in lines if ln.startswith("=> resumed")]
     want = f"=> resumed from epoch {saved['epoch']} "
     if len(resumed) != 1 or not resumed[0].startswith(want):
@@ -3883,6 +4249,7 @@ def phase_mygcn():
     if final["metric"] < saved["metric"]:
         problems.append("the final checkpoint is worse than the resumed one")
     return _finish({"phase": "mygcn", "epochs": list(MYGCN_EPOCHS),
+                    **report,
                     "printed": lines, "restored_epoch": saved["epoch"],
                     "restored_val_acc": saved["metric"],
                     "final_epoch": final["epoch"],
@@ -4682,6 +5049,156 @@ def phase_trace_qm9(steps=20):
     return {"eager": result, "captured": captured}
 
 
+def phase_trace_enzymes(steps=10):
+    """Where an ENZYMES training step's time goes: ``torch.profiler`` over
+    ``steps`` (10) eager steps of examples/enzymes_topk_pool.py's
+    ``train_step`` (a fresh ``Net``, Adam 5e-4, dropout on) cycling over
+    one epoch's train batches, collated and their operator sets built
+    before the window, then over ``steps`` replays of the step captured
+    over its static batch (:func:`trace_captured_step`; 8 port launches a
+    step in both, ``GRAPH_EXAMPLES``); and the same for
+    examples/enzymes_diff_pool.py's dense step (Adam 1e-3) over its full
+    batches of 32, captured through ``SizedStep`` (no port kernel)."""
+    from pytorch_geometric_tpu_torch.examples import (
+        enzymes_diff_pool, enzymes_topk_pool)
+    from pytorch_geometric_tpu_torch.examples.ppi import OperatorCache
+
+    dev = torch.device(DEVICE)
+    out = {}
+    train, _ = enzymes_topk_pool.load(SEED, device=DEVICE)
+    ops = OperatorCache(enzymes_topk_pool.mutag_operators)
+    batches = [(graph, ops(idx, graph)) for idx, graph in train.indexed()]
+    want = sum(GRAPH_EXAMPLES["topk"][2].values())
+
+    def net():
+        return enzymes_topk_pool.Net(3, 6, generator=torch.Generator()
+                                     .manual_seed(SEED)).to(DEVICE)
+
+    model = net()
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4,
+                           capturable=dev.type == "cuda")
+    drop = torch.Generator(device=DEVICE).manual_seed(SEED)
+    cycle = itertools.cycle(batches)
+
+    def topk_step():
+        enzymes_topk_pool.train_step(model, opt, *next(cycle), drop)
+
+    kernels, wall_us = profile_steps(topk_step, steps)
+    summary, port_launches = trace_summary(kernels, wall_us, steps, "step")
+    out["topk"] = {"phase": "trace_enzymes", "example": "topk",
+                   "captured": False, "steps": steps, **summary,
+                   "expected_port_launches_per_step": want}
+    emit(out["topk"])
+    if port_launches != want * steps:
+        raise AssertionError(f"topk: {port_launches / steps} port kernel "
+                             f"launches per step on the trace, expected "
+                             f"{want}")
+    out["topk_captured"] = trace_captured_step(
+        enzymes_topk_pool, train, batches, net(), 5e-4, steps, want, "topk",
+        generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    train, _ = enzymes_diff_pool.load(SEED, device=DEVICE)
+    full = [b for b in train if b.num_graphs == train.batch_size]
+    for captured in (False, True):
+        model = enzymes_diff_pool.DiffPoolNet(
+            3, 6, generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3,
+                               capturable=dev.type == "cuda")
+        cycle = itertools.cycle(full)
+        if captured:
+            step = enzymes_diff_pool.SizedStep(
+                lambda b: enzymes_diff_pool.train_step(model, opt, b), dev,
+                {})
+        else:
+            def step(b):
+                enzymes_diff_pool.train_step(model, opt, b)
+        kernels, wall_us = profile_steps(lambda: step(next(cycle)), steps)
+        summary, port_launches = trace_summary(kernels, wall_us, steps,
+                                               "step")
+        key = "diff_pool_captured" if captured else "diff_pool"
+        out[key] = {"phase": "trace_enzymes", "example": "diff_pool",
+                    "captured": captured, "steps": steps, **summary,
+                    "expected_port_launches_per_step": 0}
+        emit(out[key])
+        if port_launches:
+            raise AssertionError(f"diff_pool: {port_launches} port kernel "
+                                 f"launches on the trace, expected none")
+    return out
+
+
+#: The full-batch paths of ``trace_spans``: their port launches an epoch.
+SPAN_TRACES = {
+    "gae": AUTOENCODER_LAUNCHES[False][0],
+    "vgae": AUTOENCODER_LAUNCHES[True][0],
+    "infomax": {"spmm_csr": INFOMAX_LAUNCHES[0]},
+    "mygcn": {"spmm_csr": MYGCN_LAUNCHES[0]},
+    "driver_gcn": DRIVER_STEP_LAUNCHES["GCN"],
+    "driver_gat": DRIVER_STEP_LAUNCHES["GAT"]}
+
+
+def _spans_of(name, capture, tmp):
+    """The ``EpochSpans`` of a one-epoch run of a full-batch path, as a
+    user runs it at its full width (``capture`` None: captured)."""
+    import contextlib
+    import io
+
+    from pytorch_geometric_tpu_torch.examples import (
+        autoencoder, infomax, mygcn)
+    from pytorch_geometric_tpu_torch.models.prunable import choose_model
+    from pytorch_geometric_tpu_torch.research import driver
+    from pytorch_geometric_tpu_torch.research.pruning import (
+        contraction_layer_coefficients)
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        if name in ("gae", "vgae"):
+            return autoencoder.run(name == "vgae", 1, SEED, DEVICE,
+                                   capture=capture)["spans"]
+        if name == "infomax":
+            return infomax.run(1, SEED, 512, DEVICE,
+                               capture=capture)["spans"]
+        if name == "mygcn":
+            return mygcn.run(epochs=1, ckpt_dir=tmp, device=DEVICE,
+                             capture=capture)["spans"]
+    ds, graph = driver.load_citation_dataset("Cora", device=DEVICE)
+    model = choose_model(
+        name.split("_")[1].upper(),
+        contraction_layer_coefficients(graph.num_node_features, 2, 0.5,
+                                       seed=SEED), ds.num_classes,
+        in_channels=graph.num_node_features,
+        generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
+    return driver.train_part(model, graph, None, 1, seed=SEED,
+                             apply_kwargs=model.operators(graph),
+                             capture=capture).spans
+
+
+def phase_trace_spans(steps=10):
+    """Where a full-batch epoch's time goes: for the GAE, the VGAE,
+    infomax (hidden 512), mygcn and the research driver's GCN and GAT at
+    their widths on Cora, a one-epoch run as a user runs it, then
+    ``torch.profiler`` over ``steps`` (10) more of its epochs
+    (``EpochSpans.again``), eager and captured; the port launches an
+    epoch asserted in both (``SPAN_TRACES``)."""
+    import tempfile
+
+    out = {}
+    for name, launches in SPAN_TRACES.items():
+        want = sum(launches.values())
+        for capture in (False, None):
+            with tempfile.TemporaryDirectory() as tmp:
+                spans = _spans_of(name, capture, tmp).again(8 + steps)
+                kernels, wall_us = profile_steps(spans.step, steps)
+            summary, port_launches = trace_summary(kernels, wall_us, steps)
+            key = name if capture is False else f"{name}_captured"
+            out[key] = {"phase": "trace_spans", "path": name,
+                        "captured": capture is None, "epochs": steps,
+                        **summary, "expected_port_launches_per_epoch": want}
+            emit(out[key])
+            if port_launches != want * steps:
+                raise AssertionError(
+                    f"{key}: {port_launches / steps} port kernel launches "
+                    f"an epoch on the trace, expected {want}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The point and superpixel examples and the scale SpMM operators
 # ---------------------------------------------------------------------------
@@ -4711,7 +5228,8 @@ POINT_EXAMPLES = {
 #: and holds the two runs bitwise equal (the key of the run's test
 #: metric).
 CAPTURED_EXAMPLES = {"mnist_graclus": "acc", "mnist_voxel_grid": "acc",
-                     "mnist_nn_conv": "acc", "qm9": "mae"}
+                     "mnist_nn_conv": "acc", "qm9": "mae", "topk": "acc",
+                     "diff_pool": "acc"}
 MNIST_CASES = ("mnist_conv1", "mnist_conv2", "mnist_pool1", "mnist_pool2",
                "mnist_readout", "mnist_nnconv1", "mnist_nnconv2")
 #: The block SpMM's graph: bench_scale.py's community graph at Reddit's
@@ -5884,6 +6402,8 @@ def main(argv=None):
     phases.append(("trace_faust", phase_trace_faust))
     phases.append(("trace_mutag_gin", phase_trace_mutag_gin))
     phases.append(("trace_qm9", phase_trace_qm9))
+    phases.append(("trace_enzymes", phase_trace_enzymes))
+    phases.append(("trace_spans", phase_trace_spans))
     phases.append(("trace_mnist_graclus", phase_trace_mnist_graclus))
     phases.append(("trace_reddit_sage", phase_trace_reddit_sage))
     for config in CONFIGS:

@@ -131,7 +131,11 @@ class DenseDataLoader(_Batches):
         super().__init__(dataset, batch_size, shuffle, drop_last, seed)
         self.device = resolve_device(device)
 
-    def __iter__(self) -> Iterator["DenseBatch"]:
+    def batches(self, device=None) -> Iterator["DenseBatch"]:
+        """One epoch of batches on ``device`` (default the loader's): a
+        captured step stacks them on the host (``"cpu"``) and copies each
+        batch into its static buffers itself."""
+        device = self.device if device is None else resolve_device(device)
         for chunk in self._chunks():
             datas = [self.dataset[int(i)] for i in chunk]
             batch = {}
@@ -141,8 +145,11 @@ class DenseDataLoader(_Batches):
                     arr = arr.astype(np.float32)
                 if arr.dtype == np.int64:
                     arr = arr.astype(np.int32)
-                batch[key] = torch.from_numpy(arr).to(self.device)
+                batch[key] = torch.from_numpy(arr).to(device)
             yield DenseBatch(batch)
+
+    def __iter__(self) -> Iterator["DenseBatch"]:
+        return self.batches()
 
 
 class DenseBatch(dict):

@@ -12,6 +12,15 @@ classes. Adam 1e-3, batches of 32 shuffled from ``seed``, 8 epochs.
 Every product is a dense batched matrix product (``torch.einsum``), as in
 the JAX script, which computes them outside any Pallas kernel: this path
 runs no kernel of the port. Prints the JAX script's line per epoch.
+
+The JAX script jits its training step and its evaluation, which trace
+once per batch shape: the loaders' last batches can be smaller, and the
+loss is a mean over the batch, so no batch is padded. Here, on a card,
+each step is a CUDA graph captured once for each distinct batch size
+(:class:`SizedStep`, ``capture=None`` or ``True``) over static buffers of
+that size's ``(x, adj, mask, y)``, each host batch copied in before the
+replay, and Adam keeps its step count on the device. ``capture=False``
+runs the same steps eagerly over each batch (the CPU's only mode).
 """
 
 import argparse
@@ -24,12 +33,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_geometric_tpu_torch.data import DenseDataLoader
+from pytorch_geometric_tpu_torch.data.loader import DenseBatch
 from pytorch_geometric_tpu_torch.datasets import TUDataset
 from pytorch_geometric_tpu_torch.datasets.graphs import PLANETOID_ROOT
 from pytorch_geometric_tpu_torch.device import resolve_device
+from pytorch_geometric_tpu_torch.models.capture import (
+    CapturedStep, DeviceCurve, captured_metrics, resolve_capture)
 from pytorch_geometric_tpu_torch.nn.conv import DenseSAGEConv
 from pytorch_geometric_tpu_torch.nn.layers import Dense
 from pytorch_geometric_tpu_torch.nn.pool import dense_diff_pool
+from pytorch_geometric_tpu_torch.ops.csr import copy_into
 from pytorch_geometric_tpu_torch.transforms import ToDense
 
 MAX_NODES = 126
@@ -92,12 +105,53 @@ def loss_of(model: DiffPoolNet, batch):
 
 
 def train_step(model: DiffPoolNet, opt, batch):
-    """One Adam step on one batch; the loss stays on the device."""
-    opt.zero_grad(set_to_none=True)
+    """One Adam step on one batch, the gradients zeroed in place (a
+    captured step keeps them); the loss stays on the device."""
+    opt.zero_grad(set_to_none=False)
     loss = loss_of(model, batch)
     loss.backward()
     opt.step()
     return loss.detach()
+
+
+def correct_of(model: DiffPoolNet, batch):
+    """The count of the batch's graphs whose argmax is their label (a
+    device scalar)."""
+    with torch.no_grad():
+        logits, _, _ = model(batch.x, batch.adj, batch.mask)
+    return (logits.argmax(1) == batch.y.long()).sum()
+
+
+class SizedStep:
+    """``body(batch)`` as one :class:`CapturedStep` for each distinct batch
+    size, over static buffers of that size's dense fields on ``dev``.
+    Each call copies a host batch into its size's buffers on the current
+    stream (through pinned memory, no host wait) and calls that size's
+    step: its warm-up, then the capture, then a replay. ``host`` adds
+    each call's seconds (``seconds`` and ``copy_seconds``) and counts
+    ``batches``."""
+
+    def __init__(self, body, dev, host):
+        self.body, self.dev, self.host = body, dev, host
+        self.buffers, self.steps = {}, {}
+
+    def __call__(self, batch: DenseBatch):
+        t0 = time.perf_counter()
+        size = batch.num_graphs
+        if size not in self.steps:
+            static = DenseBatch({k: torch.empty(v.shape, dtype=v.dtype,
+                                                device=self.dev)
+                                 for k, v in batch.items()})
+            self.buffers[size] = static
+            self.steps[size] = CapturedStep(lambda: self.body(static),
+                                            self.dev)
+        for k, v in batch.items():
+            copy_into(self.buffers[size][k], v)
+        dt = time.perf_counter() - t0
+        for key, v in (("seconds", dt), ("copy_seconds", dt),
+                       ("batches", 1)):
+            self.host[key] = self.host.get(key, 0) + v
+        return self.steps[size]()
 
 
 def load(seed: int = 0, batch_size: int = 32, root=DENSE_ROOT,
@@ -114,35 +168,76 @@ def load(seed: int = 0, batch_size: int = 32, root=DENSE_ROOT,
 
 
 def run(epochs: int = 8, batch_size: int = 32, seed: int = 0,
-        device="cuda", loaders=None):
-    """Train and print the JAX script's line per epoch. Returns the last
-    test accuracy, the mean loss of each epoch, every step's loss and the
-    run's seconds."""
+        device="cuda", loaders=None, capture=None):
+    """Train and print the JAX script's line per epoch. ``capture`` (see
+    the module docstring) None means captured on a card and eager on the
+    CPU; True elsewhere than a card raises. Returns the last test
+    accuracy, the mean loss of each epoch, every step's loss, the run's
+    seconds and the model; a captured run adds what
+    ``models/capture.py:captured_metrics`` gives, with one training and
+    one evaluation step a batch size (``train_<size>``,
+    ``evaluation_<size>``)."""
     dev = resolve_device(device)
+    capture = resolve_capture(capture, dev)
     train_loader, test_loader = loaders or load(seed, batch_size,
                                                 device=dev)
     b0 = next(iter(train_loader))
     model = DiffPoolNet(b0.x.shape[-1], 6,
                         generator=torch.Generator().manual_seed(seed)).to(dev)
-    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3,
+                           capturable=dev.type == "cuda")
+    if capture:
+        host = {}
+        curve = DeviceCurve(epochs * len(train_loader), 1, dev)
+        step = SizedStep(lambda b: curve.record(train_step(model, opt, b)),
+                         dev, host)
+        predict = SizedStep(lambda b: correct_of(model, b), dev, host)
     epoch_losses, step_losses = [], []
     t0 = time.perf_counter()
     for epoch in range(1, epochs + 1):
-        losses = [train_step(model, opt, b) for b in train_loader]
         cor = tot = 0
-        with torch.no_grad():
+        if capture:
+            for b in _timed(train_loader.batches("cpu"), host):
+                step(b)
+            for b in _timed(test_loader.batches("cpu"), host):
+                cor += int(predict(b))
+                tot += b.num_graphs
+            n = len(train_loader)
+            losses = curve.host((epoch - 1) * n, epoch * n)[:, 0]
+        else:
+            losses = [train_step(model, opt, b) for b in train_loader]
             for b in test_loader:
-                logits, _, _ = model(b.x, b.adj, b.mask)
-                cor += int((logits.argmax(1) == b.y.long()).sum())
-                tot += int(b.y.shape[0])
-        losses = torch.stack(losses).cpu().numpy()
+                cor += int(correct_of(model, b))
+                tot += b.num_graphs
+            losses = torch.stack(losses).cpu().numpy()
         step_losses.append(losses)
         epoch_losses.append(float(np.mean(losses)))
         print(f"Epoch {epoch:02d}, Loss: {epoch_losses[-1]:.4f}, "
               f"Test Acc: {cor / max(tot, 1):.4f}")
-    return {"acc": cor / max(tot, 1), "epoch_losses": epoch_losses,
-            "step_losses": np.stack(step_losses),
-            "seconds": time.perf_counter() - t0}
+    out = {"acc": cor / max(tot, 1), "epoch_losses": epoch_losses,
+           "step_losses": np.stack(step_losses),
+           "seconds": time.perf_counter() - t0, "model": model}
+    if capture:
+        out.update(captured_metrics(
+            {**{f"train_{k}": v for k, v in step.steps.items()},
+             **{f"evaluation_{k}": v for k, v in predict.steps.items()}},
+            {"operator_seconds": 0.0, **host}))
+    return out
+
+
+def _timed(batches, host):
+    """``batches``, each one's stacking on the host added to
+    ``host["seconds"]`` and ``host["collate_seconds"]``."""
+    while True:
+        t0 = time.perf_counter()
+        try:
+            b = next(batches)
+        except StopIteration:
+            return
+        dt = time.perf_counter() - t0
+        host["seconds"] = host.get("seconds", 0) + dt
+        host["collate_seconds"] = host.get("collate_seconds", 0) + dt
+        yield b
 
 
 if __name__ == "__main__":

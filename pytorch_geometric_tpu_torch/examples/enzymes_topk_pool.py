@@ -14,9 +14,23 @@ masks), so one operator set of the batch, built on the host
 three levels: the ``SpmmOperator`` of its edges, which every GraphConv
 sum runs through (``spmm_csr``), each level's ``edge_mask`` going in as
 the edge weight; and the readout's ``SortedSegmentSum`` over the batch
-vector, through which each level's mean runs (the segment-sum kernel).
-The max is torch's ``scatter_reduce``. Eager; prints the JAX script's
-line per epoch.
+vector, through which each level's mean runs (the segment-sum kernel),
+the nodes a pool dropped masked on the device. The max is torch's
+``scatter_reduce``. No level needs a host step of its own: the pool's
+ranks (two stable sorts and a ``searchsorted``) and masks stay on the
+device.
+
+The JAX script jits its training step and its evaluation once over the
+loaders' static budgets. Here, on a card, each is a CUDA graph captured
+once (``models/capture.py:CapturedStep``, ``capture=None`` or ``True``)
+over static buffers of its loader's budget
+(``examples/mutag_gin.py:static_batch``: the graph, a
+``StaticSpmmOperator`` and the readout's ``StaticSegmentSum``), each
+batch's operator set built on the host and copied in before the replay;
+the training step draws its dropout from the generator registered with
+the graph, and Adam keeps its step count on the device. ``capture=False``
+runs the same steps eagerly over each batch's own tensors (the CPU's
+only mode). Prints the JAX script's line per epoch.
 """
 
 import argparse
@@ -32,8 +46,11 @@ from pytorch_geometric_tpu_torch.datasets import TUDataset
 from pytorch_geometric_tpu_torch.datasets.graphs import PLANETOID_ROOT
 from pytorch_geometric_tpu_torch.device import resolve_device
 from pytorch_geometric_tpu_torch.examples.mutag_gin import (
-    loss_of, mutag_operators)
+    accuracy_of, loss_of, mutag_operators, static_batch)
 from pytorch_geometric_tpu_torch.examples.ppi import OperatorCache
+from pytorch_geometric_tpu_torch.models.capture import (
+    CapturedStep, DeviceCurve, captured_metrics, resolve_capture,
+    static_batches)
 from pytorch_geometric_tpu_torch.nn.conv import GraphConv
 from pytorch_geometric_tpu_torch.nn.layers import Dense, dropout
 from pytorch_geometric_tpu_torch.nn.pool import (
@@ -83,8 +100,9 @@ class Net(nn.Module):
 def train_step(model: Net, opt, graph: Graph, ops, generator=None,
                train: bool = True):
     """One Adam step on one batch, with dropout unless ``train`` is
-    False; the loss stays on the device."""
-    opt.zero_grad(set_to_none=True)
+    False, the gradients zeroed in place (a captured step keeps them);
+    the loss stays on the device."""
+    opt.zero_grad(set_to_none=False)
     loss = loss_of(model(graph, train=train, generator=generator, **ops),
                    graph)
     loss.backward()
@@ -94,14 +112,30 @@ def train_step(model: Net, opt, graph: Graph, ops, generator=None,
 
 def evaluate(model: Net, loader: DataLoader, ops: OperatorCache):
     """Accuracy of the argmax over the loader's real graphs."""
-    correct = total = 0
     with torch.no_grad():
-        for idx, graph in loader.indexed():
-            pred = model(graph, **ops(idx, graph)).argmax(dim=1)
-            m = graph.graph_mask
-            correct += int(((pred == graph.y.long()) & m).sum())
-            total += int(m.sum())
-    return correct / max(total, 1)
+        return accuracy_of((graph, model(graph, **ops(idx, graph)))
+                           for idx, graph in loader.indexed())
+
+
+def captured_steps(model: Net, opt, train_loader: DataLoader,
+                   test_loader: DataLoader, steps: int, dev, generator):
+    """``(train, test, step, predict, curve)``: the static batches of both
+    loaders, the training step over ``train`` (dropout from
+    ``generator``, its loss into the next row of ``curve``, a
+    :class:`DeviceCurve` of ``steps`` rows) and the evaluation's logits
+    over ``test``, each a :class:`CapturedStep`."""
+    train = static_batch(train_loader, dev)
+    test = static_batch(test_loader, dev)
+    curve = DeviceCurve(steps, 1, dev)
+    step = CapturedStep(lambda: curve.record(train_step(
+        model, opt, train.graph, train.ops, generator)), dev,
+        generator=generator)
+
+    def logits():
+        with torch.no_grad():
+            return model(test.graph, **test.ops)
+
+    return train, test, step, CapturedStep(logits, dev), curve
 
 
 def load(seed: int = 0, batch_size: int = 64, root=PLANETOID_ROOT,
@@ -117,35 +151,56 @@ def load(seed: int = 0, batch_size: int = 64, root=PLANETOID_ROOT,
 
 
 def run(epochs: int = 20, batch_size: int = 64, seed: int = 0,
-        device="cuda", loaders=None):
+        device="cuda", loaders=None, capture=None):
     """Train and print the JAX script's line per epoch; returns what
-    examples/mutag_gin.py's ``run`` returns."""
+    examples/mutag_gin.py's ``run`` returns (``capture`` as there)."""
     dev = resolve_device(device)
+    capture = resolve_capture(capture, dev)
     train_loader, test_loader = loaders or load(seed, batch_size,
                                                 device=dev)
     g0 = next(iter(train_loader))
     model = Net(g0.num_node_features, 6,
                 generator=torch.Generator().manual_seed(seed)).to(dev)
-    opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4,
+                           capturable=dev.type == "cuda")
     drop = torch.Generator(device=dev).manual_seed(seed)
+    if capture:
+        train, test, step, predict, curve = captured_steps(
+            model, opt, train_loader, test_loader,
+            epochs * len(train_loader), dev, drop)
+        host = {}
     train_ops = OperatorCache(mutag_operators)
     test_ops = OperatorCache(mutag_operators)
     epoch_losses, step_losses = [], []
     t0 = time.perf_counter()
     for epoch in range(1, epochs + 1):
-        losses = [train_step(model, opt, graph, train_ops(idx, graph), drop)
-                  for idx, graph in train_loader.indexed()]
-        acc = evaluate(model, test_loader, test_ops)
-        losses = torch.stack(losses).cpu().numpy()
+        if capture:
+            for _ in static_batches(train_loader, train_ops, train, host):
+                step()
+            acc = accuracy_of((graph, predict()) for graph in
+                              static_batches(test_loader, test_ops, test,
+                                             host))
+            n = len(train_loader)
+            losses = curve.host((epoch - 1) * n, epoch * n)[:, 0]
+        else:
+            losses = [train_step(model, opt, graph, train_ops(idx, graph),
+                                 drop)
+                      for idx, graph in train_loader.indexed()]
+            acc = evaluate(model, test_loader, test_ops)
+            losses = torch.stack(losses).cpu().numpy()
         step_losses.append(losses)
         epoch_losses.append(float(np.mean(losses)))
         print(f"Epoch {epoch:03d}, Loss: {epoch_losses[-1]:.4f}, "
               f"Test Acc: {acc:.4f}")
-    return {"acc": acc, "epoch_losses": epoch_losses,
-            "step_losses": np.stack(step_losses),
-            "operators": len(train_ops.ops) + len(test_ops.ops),
-            "operator_seconds": train_ops.seconds + test_ops.seconds,
-            "seconds": time.perf_counter() - t0}
+    out = {"acc": acc, "epoch_losses": epoch_losses,
+           "step_losses": np.stack(step_losses),
+           "operators": len(train_ops.ops) + len(test_ops.ops),
+           "operator_seconds": train_ops.seconds + test_ops.seconds,
+           "seconds": time.perf_counter() - t0, "model": model}
+    if capture:
+        out.update(captured_metrics(
+            {"train": step, "evaluation": predict}, host))
+    return out
 
 
 if __name__ == "__main__":

@@ -16,6 +16,15 @@ JAX script's probe is sklearn's ``LogisticRegression(max_iter=300)``; the
 card's machine has no sklearn, so :class:`LogisticRegression` is the
 port's own, with sklearn's defaults (L2, C = 1, lbfgs through scipy,
 300 iterations, the objective as sklearn scales it).
+
+The JAX script jits its epoch. Here, on a card, the epoch (the encoder on
+the graph and on its corruption, forward and back, and Adam) is a CUDA
+graph captured once and replayed (``models/capture.py:EpochSpans``,
+``capture=None`` or ``True``) in spans of 10 epochs, each span's last
+loss printed between them; the permutation is drawn inside the graph from
+the generator registered with it. The embeddings and the probe run
+eagerly after training. ``capture=False`` runs the same epochs from
+Python (the CPU's only mode).
 """
 
 import argparse
@@ -29,6 +38,8 @@ from pytorch_geometric_tpu_torch.data import from_data
 from pytorch_geometric_tpu_torch.datasets import Planetoid
 from pytorch_geometric_tpu_torch.datasets.graphs import PLANETOID_ROOT
 from pytorch_geometric_tpu_torch.device import resolve_device
+from pytorch_geometric_tpu_torch.models.capture import (
+    EpochSpans, resolve_capture)
 from pytorch_geometric_tpu_torch.models.citation import gcn_spmm_operator
 from pytorch_geometric_tpu_torch.nn.conv import GCNConv
 from pytorch_geometric_tpu_torch.nn.models import (
@@ -143,12 +154,16 @@ def load(root=PLANETOID_ROOT, device="cuda"):
 
 
 def run(epochs: int = 50, seed: int = 0, hidden: int = 512,
-        device="cuda", graph=None):
+        device="cuda", graph=None, capture=None):
     """Train, print the JAX script's lines, and probe the embeddings.
-    ``graph`` replaces :func:`load`'s. Returns the probe's accuracy,
-    every epoch's loss, the operator's host seconds and the run's
-    seconds (training and probe)."""
+    ``graph`` replaces :func:`load`'s; ``capture`` (see the module
+    docstring) None means captured on a card and eager on the CPU, True
+    elsewhere than a card raises. Returns the probe's accuracy, every
+    epoch's loss, the operator's host seconds, the run's seconds
+    (training and probe), the model, its ``EpochSpans`` (``spans``) and
+    what ``EpochSpans.metrics`` gives."""
     dev = resolve_device(device)
+    capture = resolve_capture(capture, dev)
     graph = graph if graph is not None else load(device=dev)
     t0 = time.perf_counter()
     op, weights = gcn_spmm_operator(graph)
@@ -156,21 +171,27 @@ def run(epochs: int = 50, seed: int = 0, hidden: int = 512,
     operator_seconds = time.perf_counter() - t0
     model = Model(graph.num_node_features, hidden,
                   generator=torch.Generator().manual_seed(seed)).to(dev)
-    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3,
+                           capturable=dev.type == "cuda")
     rng = torch.Generator(device=dev).manual_seed(seed)
-    losses = []
-    t0 = time.perf_counter()
-    for epoch in range(1, epochs + 1):
-        opt.zero_grad(set_to_none=True)
+
+    def epoch_step():
+        opt.zero_grad(set_to_none=False)
         loss, _ = model(graph, graph.x, rng, aggregate_fn)
         loss.backward()
         opt.step()
-        losses.append(loss.detach())
-        if epoch % 10 == 0:
-            print(f"Epoch {epoch:03d}, Loss: {float(losses[-1]):.4f}")
+        return loss.detach()
+
+    spans = EpochSpans(epoch_step, epochs, dev, capture, rng)
+    losses = []
+    t0 = time.perf_counter()
+    while spans.epochs < epochs:
+        losses.extend(spans.span(min(10, epochs - spans.epochs))[:, 0])
+        if spans.epochs % 10 == 0:
+            print(f"Epoch {spans.epochs:03d}, Loss: {losses[-1]:.4f}")
     with torch.no_grad():
-        _, z = model(graph, graph.x, rng, aggregate_fn)
-    z = host_array(z)
+        z = spans.between(lambda: host_array(
+            model(graph, graph.x, rng, aggregate_fn)[1]))
     nm = host_array(graph.node_mask)
     y = host_array(graph.y)
     tr = host_array(graph.train_mask) & nm
@@ -178,9 +199,10 @@ def run(epochs: int = 50, seed: int = 0, hidden: int = 512,
     clf = LogisticRegression(max_iter=300).fit(z[tr], y[tr])
     acc = clf.score(z[te], y[te])
     print(f"LogReg test accuracy: {acc:.4f}")
-    return {"acc": acc, "losses": torch.stack(losses).cpu().numpy(),
+    return {"acc": acc, "losses": np.asarray(losses),
             "operator_seconds": operator_seconds,
-            "seconds": time.perf_counter() - t0}
+            "run_seconds": time.perf_counter() - t0, "model": model,
+            "spans": spans, **spans.metrics()}
 
 
 if __name__ == "__main__":

@@ -54,7 +54,16 @@ into a :class:`DeviceCurve`, which the host reads once an epoch; the
 evaluation is a step of its own, captured at the evaluation loader's
 budget, and writes its batch's counts or sums into another. A loader
 with ``dynamic_buckets`` has no single shape, so :func:`static_graph`
-refuses it.
+refuses it. examples/enzymes_topk_pool.py's steps run on MUTAG's static
+batch; enzymes_diff_pool.py's dense batches keep one step a batch size.
+
+The full-batch loops that do host work between spans of epochs
+(examples/autoencoder.py's tests, infomax.py's prints, mygcn.py's
+evaluations and checkpoints, research/driver.py's ``train_part`` and its
+weight corrections) run on :class:`EpochSpans`: one epoch a
+:class:`CapturedStep`, its warm-up the first epoch of the first span,
+each later epoch a replay, the host work between spans eager, its
+launches counted as the evaluation stage of :func:`run_epochs`' form.
 """
 
 import time
@@ -329,6 +338,104 @@ class CapturedStep:
         self.launches["warm_up"] = _launched(counts[1], counts[0])
         self.launches["captured"] = _launched(counts[2], counts[1])
         return warm[0]
+
+
+class EpochSpans:
+    """A full-batch training run in spans of epochs, with host work
+    between the spans: the JAX scripts' ``jax.lax.scan`` of one epoch over
+    a span under ``jax.jit`` (examples/mygcn.py ``run_span``,
+    research/driver.py ``train_part``; the jitted epochs of
+    examples/autoencoder.py and infomax.py), the evaluation, printing,
+    checkpoints and weight corrections between two spans.
+
+    ``epoch_step()`` takes one optimizer step and returns the epoch's
+    device scalars (the loss, or a tuple of ``cols``); each epoch writes
+    them into the next row of ``curve``, a :class:`DeviceCurve` of
+    ``epochs`` rows. The epoch is a :class:`CapturedStep`: captured, the
+    first epoch of the first span is its warm-up, so a run takes exactly
+    the epochs its spans add up to, as the scans do, and every later
+    epoch replays the graph. ``generator`` is the one the step draws from
+    (dropout, noise, permutations), registered with the graph. Eager, the
+    same body runs from Python each epoch.
+
+    :meth:`span` runs a span and returns its rows on the host (one wait);
+    :meth:`between` runs the host work, its counted launches kept as the
+    ``evaluation`` stage; :attr:`launches` has :func:`run_epochs`'s form,
+    so :func:`device_launches` states the run's launches. ``seconds`` is
+    the spans' wall time (the warm-up and the capture included; their
+    share is ``capture_seconds``), ``between_seconds`` the host work's."""
+
+    def __init__(self, epoch_step: Callable[[], Any], epochs: int,
+                 dev: torch.device, capture: bool = False,
+                 generator: Optional[torch.Generator] = None,
+                 cols: int = 1):
+        self.curve = DeviceCurve(epochs, cols, dev)
+
+        def body():
+            out = epoch_step()
+            self.curve.record(*(out if isinstance(out, tuple) else (out,)))
+
+        self.step = CapturedStep(body, dev, capture, generator)
+        self.epoch_step, self.dev = epoch_step, dev
+        self.epochs = 0
+        self.seconds = self.between_seconds = 0.0
+        self.evaluation: Dict[str, int] = {}
+
+    def span(self, length: int):
+        """``length`` epochs; their rows of the curve as a numpy array."""
+        t0 = time.perf_counter()
+        for _ in range(length):
+            self.step()
+        rows = self.curve.host(self.epochs, self.epochs + length)
+        self.seconds += time.perf_counter() - t0
+        self.epochs += length
+        return rows
+
+    def between(self, fn: Callable[..., Any], *args, **kwargs):
+        """``fn(*args, **kwargs)``, the host work between two spans."""
+        before = launch_counts()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        _synchronize(self.dev)
+        self.between_seconds += time.perf_counter() - t0
+        for name, v in _launched(launch_counts(), before).items():
+            self.evaluation[name] = self.evaluation.get(name, 0) + v
+        return out
+
+    def again(self, epochs: int) -> "EpochSpans":
+        """The same epoch, generator and mode over ``epochs`` more epochs,
+        with a curve of its own (captured: a capture of its own), from the
+        model's state as it stands: a profiler's window of epochs."""
+        return EpochSpans(self.epoch_step, epochs, self.dev,
+                          self.step.capture, self.step.generator,
+                          self.curve.values.shape[1])
+
+    @property
+    def capture_seconds(self) -> float:
+        return self.step.capture_seconds
+
+    @property
+    def launches(self) -> Dict[str, Any]:
+        """The counted wrappers' launches by stage: ``warm_up``,
+        ``captured_epoch``, ``replays`` and ``evaluation`` (the host work
+        between spans)."""
+        stages = self.step.launches
+        return {"warm_up": stages["warm_up"],
+                "captured_epoch": stages["captured"],
+                "replays": stages["replays"],
+                "evaluation": dict(sorted(self.evaluation.items()))}
+
+    def metrics(self) -> Dict[str, Any]:
+        """What a run reports of its spans: ``seconds``,
+        ``between_seconds``, and, captured, ``capture_seconds``,
+        ``launches`` by stage and ``device_launches``."""
+        out = {"seconds": self.seconds,
+               "between_seconds": self.between_seconds}
+        if self.step.capture:
+            out.update(capture_seconds=self.capture_seconds,
+                       launches=self.launches,
+                       device_launches=device_launches(self.launches))
+        return out
 
 
 def static_graph(loader, device) -> Graph:

@@ -22,16 +22,28 @@ import torch
 
 from pytorch_geometric_tpu_torch.data.data import Data
 from pytorch_geometric_tpu_torch.ops.csr import host_array
+from pytorch_geometric_tpu_torch.ops.sorted_spmm import SortedSegmentSum
 
 EPS = 1e-15
 
 
+def _rows(z, index):
+    """``z``'s rows at ``index``: an index tensor, or a
+    ``SortedSegmentSum`` over the indices, whose gather sums its backward
+    in a fixed order through the segment-sum kernel (torch's gather
+    backward scatters with atomics, whose order varies from run to run
+    on a card)."""
+    if isinstance(index, SortedSegmentSum):
+        return index.gather(z)
+    return z.index_select(0, index.long())
+
+
 class InnerProductDecoder:
-    """sigma(z_i . z_j) edge probabilities."""
+    """sigma(z_i . z_j) edge probabilities. ``senders`` and ``receivers``
+    are index tensors or their ``SortedSegmentSum`` (:func:`_rows`)."""
 
     def __call__(self, z, senders, receivers, sigmoid: bool = True):
-        value = (z.index_select(0, senders.long())
-                 * z.index_select(0, receivers.long())).sum(-1)
+        value = (_rows(z, senders) * _rows(z, receivers)).sum(-1)
         return torch.sigmoid(value) if sigmoid else value
 
     def forward_all(self, z, sigmoid: bool = True):

@@ -10,14 +10,17 @@ epochs`` (:58-64) -> best-metric checkpoints (:78-88) -> one ``.npy``
 convergence curve per Monte-Carlo run under ``Results/<dataset>
 Convergence`` (:569-576) -> the CLI (:580-626).
 
-The epochs run eagerly on ``device`` (default ``"cuda"``) through each
-model's operators, built once per graph (``models/prunable.py``); one
-evaluation and one ``save_best`` follow each span between corrections,
-as in the JAX driver (its chunking of a span into compiled scans has no
-counterpart here). The correction runs on the host between spans, its
-power iterations on the device, and edits the model's parameters in
-place, so AdamW keeps its moments across it as optax keeps
-``opt_state``.
+The epochs run on ``device`` (default ``"cuda"``) through each model's
+operators, built once per graph (``models/prunable.py``). The JAX driver
+runs each span between corrections as compiled scans of the epoch; here,
+on a card, ``train_part``'s epoch is a CUDA graph captured once and
+replayed over every span (``models/capture.py:EpochSpans``;
+``capture=False`` runs the same epochs from Python, the CPU's only
+mode). One evaluation and one ``save_best`` follow each span, as in the
+JAX driver. The correction runs on the host between spans, its power
+iterations on the device, and edits the model's parameters in place, so
+the next replay reads the corrected weights and AdamW keeps its moments
+across it as optax keeps ``opt_state``.
 
 ``--gpus N`` runs the graph-classification pipeline data-parallel over
 N ranks (``parallel/mesh.py:spawn``: one process per card, NCCL, or
@@ -29,10 +32,11 @@ N-way edge partition (``training_net_partitioned``).
 """
 
 import argparse
+import functools
 import os
 import os.path as osp
 import time
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,6 +49,8 @@ from pytorch_geometric_tpu_torch.datasets import (
 from pytorch_geometric_tpu_torch.datasets.graphs import PLANETOID_ROOT
 from pytorch_geometric_tpu_torch.device import resolve_device
 from pytorch_geometric_tpu_torch.examples.ppi import OperatorCache, bce_loss
+from pytorch_geometric_tpu_torch.models.capture import (
+    EpochSpans, resolve_capture)
 from pytorch_geometric_tpu_torch.models.citation import (
     masked_accuracy, masked_softmax_xent)
 from pytorch_geometric_tpu_torch.models.graph_pred import graph_xent_loss
@@ -93,18 +99,22 @@ def load_citation_dataset(name: str, root=PLANETOID_ROOT, device="cuda"):
 class TrainPartResult:
     """One phase's outcome: the model's ``params`` (its state dict), the
     optimizer's ``opt_state`` (its state dict), the convergence lists,
-    the best validation metric, and ``corrections``: one dict a weight
+    the best validation metric, ``corrections``: one dict a weight
     correction (``epoch``, ``applied``, ``seconds``, and ``fiedler``, how
-    many Fiedler pairs each backend computed)."""
+    many Fiedler pairs each backend computed), ``val_convergence`` (the
+    validation accuracy after each span) and ``spans``, the phase's
+    ``EpochSpans`` (its ``metrics()``: seconds, launches by stage)."""
 
     def __init__(self, params, opt_state, train_conv, test_conv, best,
-                 corrections=None):
+                 corrections=None, val_conv=None, spans=None):
         self.params = params
         self.opt_state = opt_state
         self.train_convergence = train_conv
         self.test_convergence = test_conv
         self.best_acc = best
         self.corrections = corrections or []
+        self.val_convergence = val_conv or []
+        self.spans = spans
 
 
 def clip_by_global_norm(parameters, max_norm: float = 5.0):
@@ -139,7 +149,9 @@ def train_part(model, graph, params, epochs: int, lr: float = 0.01,
                correction_kwargs: Optional[dict] = None,
                ckpt: Optional[CheckpointManager] = None,
                run_key: str = "run", monte: int = 0,
-               apply_kwargs: Optional[dict] = None) -> TrainPartResult:
+               apply_kwargs: Optional[dict] = None,
+               capture: Optional[bool] = None,
+               optimizer: Optional[Callable] = None) -> TrainPartResult:
     """One training phase (reference TrainPart :47-95): ``epochs`` steps
     of the masked cross-entropy with global-norm clipping at 5 and AdamW
     (optax's ``chain(clip_by_global_norm(5.0), adamw(lr, weight_decay))``),
@@ -152,13 +164,33 @@ def train_part(model, graph, params, epochs: int, lr: float = 0.01,
     ``apply_kwargs`` go to every forward: the model's operators
     (``model.operators(graph)``); without them the plain path, on a CPU
     graph only. Dropout draws from a generator on the graph's device
-    seeded with ``seed + monte``."""
+    seeded with ``seed + monte``. ``capture`` None means the epoch
+    captured once and replayed over the spans on a card
+    (``EpochSpans``) and eager on the CPU; True elsewhere than a card
+    raises. On a card AdamW keeps its step count on the device
+    (``capturable=True``) in both modes, and the gradients are zeroed in
+    place. ``optimizer`` (a function of the parameters) replaces AdamW:
+    ``chip_smoke.py``'s card-against-CPU gate takes SGD steps, whose
+    moves follow the gradients' rounding, where AdamW's first steps turn
+    it into whole steps of ``lr``."""
     if params is not None:
         model.load_state_dict(params)
+    dev = graph.device
+    capture = resolve_capture(capture, dev)
     ak = apply_kwargs or {}
-    opt = torch.optim.AdamW(model.parameters(), lr=lr,
-                            weight_decay=weight_decay)
-    gen = torch.Generator(device=graph.device).manual_seed(seed + monte)
+    opt = (optimizer or functools.partial(
+        torch.optim.AdamW, lr=lr, weight_decay=weight_decay,
+        capturable=dev.type == "cuda"))(model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(seed + monte)
+
+    def epoch_step():
+        opt.zero_grad(set_to_none=False)
+        logits = model(graph, graph.x, train=True, generator=gen, **ak)
+        loss = masked_softmax_xent(logits, graph.y, graph.train_mask)
+        loss.backward()
+        clip_by_global_norm(model.parameters(), 5.0)
+        opt.step()
+        return loss.detach()
 
     def evaluate():
         model.eval()
@@ -168,41 +200,36 @@ def train_part(model, graph, params, epochs: int, lr: float = 0.01,
                 for m in (graph.train_mask, graph.val_mask,
                           graph.test_mask)]
 
+    spans = EpochSpans(epoch_step, epochs, dev, capture, gen)
     train_conv: List[float] = []
+    val_conv: List[float] = []
     test_conv: List[float] = []
     corrections = []
     best = 0.0
     for length, correct_after in _spans(epochs, correction_epochs):
         model.train()
-        losses = []
-        for _ in range(length):
-            opt.zero_grad(set_to_none=False)
-            logits = model(graph, graph.x, train=True, generator=gen, **ak)
-            loss = masked_softmax_xent(logits, graph.y, graph.train_mask)
-            loss.backward()
-            clip_by_global_norm(model.parameters(), 5.0)
-            opt.step()
-            losses.append(loss.detach())
-        train_conv.extend(torch.stack(losses).cpu().tolist())
-        tr, va, te = evaluate()
+        train_conv.extend(spans.span(length)[:, 0].tolist())
+        tr, va, te = spans.between(evaluate)
+        val_conv.append(va)
         test_conv.append(te)
         if ckpt is not None:
-            ckpt.save_best(run_key, va, model.state_dict(), opt.state_dict(),
-                           train_conv, test_conv,
-                           epoch=len(train_conv))
+            spans.between(ckpt.save_best, run_key, va, model.state_dict(),
+                          opt.state_dict(), train_conv, test_conv,
+                          epoch=len(train_conv))
         best = max(best, va)
         if correct_after:
             before = dict(spectral.FIEDLER_CALLS)
             t0 = time.perf_counter()
-            _, applied = spectral.weight_correction(
-                model, **(correction_kwargs or {"num_classes": 4}))
+            _, applied = spans.between(
+                spectral.weight_correction, model,
+                **(correction_kwargs or {"num_classes": 4}))
             corrections.append({
                 "epoch": len(train_conv), "applied": applied,
                 "seconds": time.perf_counter() - t0,
                 "fiedler": {k: spectral.FIEDLER_CALLS[k] - before[k]
                             for k in before}})
     return TrainPartResult(model.state_dict(), opt.state_dict(), train_conv,
-                           test_conv, best, corrections)
+                           test_conv, best, corrections, val_conv, spans)
 
 
 def _accuracy(model, test_loader, test_ops: OperatorCache) -> float:
@@ -556,12 +583,15 @@ def training_net(dataset: str = "Cora", model_name: str = "GCN",
                  monte_size: int = 1, seed: int = 0,
                  results_dir: str = "Results", resume: bool = False,
                  ckpt_dir: str = "checkpoint",
-                 fused_gat: Optional[bool] = None, device="cuda"):
+                 fused_gat: Optional[bool] = None, device="cuda",
+                 capture: Optional[bool] = None):
     """The full pipeline (reference TrainingNet :443-576 and its Monte
     loop :452) on ``device``. Saves the phase-2 Train/Test convergence
     ``.npy`` files keyed by hyperparameters (:569-576). Each result holds
     the JAX driver's keys and, beyond them, ``seconds`` (phase 1, the SVD
-    pruning, phase 2) and phase 2's ``corrections``.
+    pruning, phase 2), phase 2's ``corrections`` and ``phases``, both
+    phases' :class:`TrainPartResult`. ``capture`` goes to
+    :func:`train_part` (None: captured epochs on a card).
 
     Every model aggregates through its operators, built once for the
     graph and shared by both phases. ``fused_gat``: the GAT's fused
@@ -601,7 +631,8 @@ def training_net(dataset: str = "Cora", model_name: str = "GCN",
         t0 = time.perf_counter()
         phase1 = train_part(model, graph, None, epochs, lr=lr, seed=seed,
                             ckpt=ckpt, run_key=run_key + "-phase1",
-                            monte=monte, apply_kwargs=apply_kwargs)
+                            monte=monte, apply_kwargs=apply_kwargs,
+                            capture=capture)
         t1 = time.perf_counter()
         new_widths = _pruned_widths(phase1.params, con_coeff, num_layers,
                                     widths, 1)
@@ -620,7 +651,7 @@ def training_net(dataset: str = "Cora", model_name: str = "GCN",
                 num_classes=num_classes, method=link_prediction_method,
                 vector_pairs=vector_pairs,
                 correction_coeff=correction_coeff),
-            apply_kwargs=apply_kwargs)
+            apply_kwargs=apply_kwargs, capture=capture)
         t3 = time.perf_counter()
         params_tag = f"param_{'_'.join(map(str, widths))}_{con_coeff}"
         _save_curves(out_dir, f"{dataset}-{model_name}{num_layers}",
@@ -632,6 +663,7 @@ def training_net(dataset: str = "Cora", model_name: str = "GCN",
             "seconds": {"phase1": t1 - t0, "pruning": t2 - t1,
                         "phase2": t3 - t2},
             "corrections": phase2.corrections,
+            "phases": {"phase1": phase1, "phase2": phase2},
         })
     return results
 
@@ -790,7 +822,8 @@ def main(argv=None):
             results_dir=args.savepath, resume=args.resume)
     for r in res:
         print({k: v for k, v in r.items() if k not in ("logits",
-                                                        "state_dict")})
+                                                        "state_dict",
+                                                        "phases")})
     return res
 
 

@@ -7,6 +7,7 @@ defaults, their build through ``kernels/_build.py:build_source``, and
 their refusal to run without a card. The card tests of the probes are in
 ``tests/test_torch_port_kernels.py``."""
 
+import argparse
 import inspect
 import os
 import re
@@ -17,6 +18,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from pytorch_geometric_tpu.data import Data as JData
 from pytorch_geometric_tpu.data import from_data as j_from_data
@@ -265,56 +267,144 @@ def test_probes_refuse_unknown_modes_orders_and_depths(probe, argv, capsys):
 
 def test_parity_tail_runs_the_gates_of_the_tree_it_is_given():
     """``probes/parity_tail.py`` runs, in a process a hash seed, the
-    tree's own card-against-CPU comparison of ``slice_driver_gat``
-    (``driver_steps_logits`` at the widths ``training_net`` draws, against
-    ``DRIVER_PARITY_TOL["GAT"]``, 1e-3) or of ``slice_infomax``
-    (``infomax_steps_z`` against ``INFOMAX_PARITY_TOL``, 1e-4), through
-    ``chip_smoke._parity``, as the phases do; no tolerance of its own."""
+    tree's own card-against-CPU gates over optimizer steps
+    (``chip_smoke.step_gate``: infomax, the GAE and VGAE, TopK, the
+    driver's GCN and GAT at the widths ``training_net`` draws), each
+    through ``chip_smoke._parity`` with the path's Adam (the old gate) and
+    with the gate's SGD, against the gate's own tolerance; no tolerance
+    of its own. The phases hold the same gates."""
     import chip_smoke
 
     assert parity_tail.parse_seeds("0-9") == list(range(10))
     assert parity_tail.parse_seeds("3,7") == [3, 7]
-    assert parity_tail.GATES == ("driver_gat", "infomax")
-    assert chip_smoke.DRIVER_PARITY_TOL["GAT"] == 1e-3
+    assert parity_tail.GATES == ("infomax", "gae", "vgae", "topk",
+                                 "driver_gcn", "driver_gat")
+    assert parity_tail.parse_gates("all") == list(parity_tail.GATES)
+    assert parity_tail.parse_gates("topk,gae") == ["topk", "gae"]
+    with pytest.raises(argparse.ArgumentTypeError, match="unknown gates"):
+        parity_tail.parse_gates("infomax,zoo")
+    assert chip_smoke.DRIVER_PARITY_TOL == {"GCN": 1e-4, "GAT": 1e-3}
     assert chip_smoke.INFOMAX_PARITY_TOL == 1e-4
+    assert chip_smoke.AUTOENCODER_PARITY_TOL == 1e-4
+    assert chip_smoke.GRAPH_PARITY_TOL == 1e-4
+    assert set(chip_smoke.GATE_SGD_LR) == set(parity_tail.GATES)
+    for gate in parity_tail.GATES:
+        steps, tol, _ = chip_smoke.step_gate(gate, widths=(1084, 819))
+        assert tol == (1e-3 if gate == "driver_gat" else 1e-4)
+        assert getattr(steps, "func", steps).__name__ in (
+            "infomax_steps_z", "autoencoder_steps_z", "graph_steps_output",
+            "driver_steps_logits")
     child = parity_tail.CHILD
-    for name in ("driver_steps_logits", "infomax_steps_z",
-                 "DRIVER_PARITY_TOL", "INFOMAX_PARITY_TOL", "_parity"):
+    for name in ("step_gate", "_parity", "_step_gate", "grads_gap",
+                 "GATE_SGD_LR"):
         assert f"cs.{name}" in child and hasattr(chip_smoke, name)
-    assert "contraction_layer_coefficients(graph.num_node_features, 2, 0.5" \
-        in child
+    assert 'optimizer="adam"' in child
+    assert 'cs._step_gate(steps, tol, "out", [])' in child
     source = Path(chip_smoke.__file__).read_text()
-    assert "_parity(infomax_steps_z)" in source
-    assert "parity <= INFOMAX_PARITY_TOL" in source
-    assert "parity <= DRIVER_PARITY_TOL[model_name]" in source
+    for gate, what in (("infomax", "z"), ("topk", "output")):
+        assert f'_step_gate(*step_gate("{gate}")[:2], "{what}", ' in source
+    assert '_step_gate(*step_gate(key)[:2], "z", more)' in source
+    assert 'step_gate(f"driver_{model_name.lower()}"' in source
 
 
-@pytest.mark.parametrize("gaps,passes,first", [
-    ({"3": 2e-4}, True, None),
-    ({"3": 7e-3, "1": 3e-6, "2": 4e-4}, False, 2),
-    ({"3": 7e-3, "1": 2e-5, "2": 4e-4}, False, 1)])
-def test_parity_tail_reads_a_seed(monkeypatch, gaps, passes, first):
-    """One seed's line: the three-step gap against the tree's tolerance,
-    and, where the gate fails, the first step whose gap passes 1e-5; the
-    child runs in the tree's root with the seed as its hash seed and the
-    gate as its argument."""
+def test_parity_tail_child_runs_a_gate_on_the_cpu(monkeypatch):
+    """The child's diagnosis on the CPU (both sides plain, so no gap and
+    no flipped sign), on ENZYMES TopK: its keys, and the SGD steps moving
+    the parameters further than the Adam steps."""
+    import json
+    import sys
+
+    child = parity_tail.CHILD.replace(
+        "import chip_smoke as cs\n",
+        "import chip_smoke as cs\ncs.DEVICE = 'cpu'\n")
+    proc = subprocess.run([sys.executable, "-c", child, "topk", "2"],
+                          cwd=REPO, capture_output=True, text=True,
+                          env={**os.environ, "PYTHONHASHSEED": "0",
+                               "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    row = json.loads(proc.stdout.strip().splitlines()[-1])["topk"]
+    assert row["tol"] == 1e-4 and row["sgd_lr"] == 0.03
+    assert row["adam_gap"] == row["sgd_gap"] == row["grads_gap"] == 0.0
+    assert row["adam_step1"]["sign_flips"] == 0
+    assert row["kinks_routed"] == 0
+    assert row["sgd_move"] > row["adam_move"] > 0.0
+
+
+def test_kink_routes_take_the_cards_branch_and_keep_the_gradient():
+    """``chip_smoke.KinkRoutes``: the first model records the sign of its
+    kink module's output, call by call; the second's output elements on
+    the other side of 0 move to the recorded side (exactly 0, or the
+    least positive float, which ``x + (side - x)`` would round away) with
+    their gradient passed through, so that the ReLU after them takes the
+    first model's branch forward and backward; the others are left
+    alone."""
+    import chip_smoke
+    from torch import nn
+
+    class Net(nn.Module):
+        def __init__(self, bias):
+            super().__init__()
+            self.conv1 = nn.Linear(2, 4)
+            with torch.no_grad():
+                self.conv1.weight.copy_(torch.eye(4, 2))
+                self.conv1.bias.copy_(bias)
+
+        def forward(self, x):
+            return torch.relu(self.conv1(x)).sum()
+
+    routes = chip_smoke.KinkRoutes()
+    x = torch.zeros(1, 2)
+    card = Net(torch.tensor([1e-9, -1e-9, 3.0, -2.0]))
+    routes.attach(card, "gae")
+    card(x)
+    cpu = Net(torch.tensor([-1e-9, 1e-9, 3.0, -2.0]))
+    routes.attach(cpu, "gae")
+    outs = []
+    cpu.conv1.register_forward_hook(lambda m, a, out: outs.append(out))
+    cpu(x).backward()
+    assert routes.routed == 2
+    assert outs[0][0].tolist() == [torch.finfo(torch.float32).tiny, 0.0,
+                                   3.0, -2.0]
+    assert cpu.conv1.bias.grad.tolist() == [1.0, 0.0, 1.0, 0.0]
+    assert chip_smoke.GATE_KINKS["gae"] == ("conv1",)
+    routes.attach(cpu, "topk")          # no kink module: nothing hooked
+    assert routes.calls == 1
+
+
+@pytest.mark.parametrize("sgd_gap,grads_gap,adam_gap,passes,adam_passes", [
+    (2e-6, 3e-7, 2e-4, True, False),
+    (2e-4, 3e-7, 2e-6, False, True),
+    (2e-6, 3e-4, 2e-6, False, True)])
+def test_parity_tail_reads_a_seed(monkeypatch, sgd_gap, grads_gap, adam_gap,
+                                  passes, adam_passes):
+    """One seed's rows: the gate passes where its SGD output and its
+    step-1 gradients are within the tree's tolerance; the old Adam gate
+    is read beside it. The child runs in the tree's root with the seed as
+    its hash seed, the gates and its threads as its arguments."""
     import json
 
     seen = {}
+    res = {"tol": 1e-4, "adam_gap": adam_gap, "sgd_gap": sgd_gap,
+           "grads_gap": grads_gap, "sgd_lr": 0.03, "adam_move": 1e-3,
+           "sgd_move": 2e-3, "adam_step1": {"sign_flips": 3}}
 
     def fake_run(cmd, cwd, env, capture_output, text):
         seen.update(cwd=cwd, seed=env["PYTHONHASHSEED"], args=cmd[-2:])
-        out = json.dumps({"tol": 1e-3, "gaps": gaps})
+        out = json.dumps({"infomax": res, "gae": res})
         return subprocess.CompletedProcess(cmd, 0, stdout=out + "\n",
                                            stderr="")
 
     monkeypatch.setattr(parity_tail.subprocess, "run", fake_run)
-    row = parity_tail.run_seed("/some/tree", "driver_gat", 4)
+    rows = parity_tail.run_seed("/some/tree", ["infomax", "gae"], 4, 2)
     assert seen == {"cwd": "/some/tree", "seed": "4",
-                    "args": ["driver_gat", "3,1,2"]}
-    assert row["passes"] is passes
-    assert row["first_step_over_1e-5"] == first
-    assert row["gap_steps"][3] == gaps["3"]
+                    "args": ["infomax,gae", "2"]}
+    assert [r["gate"] for r in rows] == ["infomax", "gae"]
+    assert rows[0]["passes"] is passes
+    assert rows[0]["adam_passes"] is adam_passes
+    line = parity_tail.summary(rows)
+    assert line["failure_rate"] == (0.0 if passes else 1.0)
+    assert line["adam_failure_rate"] == (0.0 if adam_passes else 1.0)
+    assert line["smallest_sgd_over_adam_move"] == 2.0
 
 
 def test_build_source_follows_includes_into_csrc(tmp_path, monkeypatch):
