@@ -284,15 +284,23 @@ Phases, one JSON line each:
                kernel size 5, 1 -> 32 -> 64 x 5, Dense 256, a class per
                vertex; Adam 1e-2) for 3 epochs at FAUST's published
                template size (6,728 synthetic vertices, 80 train and 20
-               test meshes, batches of 1), eager, each layer's
-               accumulator through one rectangular spline operator of
-               its mesh, built once on the host: spmm_csr launches
-               asserted as 3 x (80 x 11 + 20 x 6) = 3000; losses finite,
-               the last epoch's mean below the first's; test accuracy
-               beside chance (not gated); wall and operator build
-               seconds, peak device memory; the logits after three steps
-               (dropout off), card against the plain path on the CPU at
-               684 vertices (1e-4);
+               test meshes, batches of 1), each layer's accumulator
+               through one rectangular spline operator of its mesh,
+               built once on the host and kept on the card: captured
+               (the default: the training step, dropout from the run's
+               generator, and the evaluation each a CUDA graph over the
+               static spline operator of the loader's budget, each
+               batch's operator copied in device to device), then eager
+               on fresh loaders of the same seed, bitwise equal (every
+               step's loss, the final parameters, the accuracy):
+               spmm_csr launches asserted as 3 x (80 x 11 + 20 x 6) =
+               3000 in both runs, and by stage; losses finite, the last
+               epoch's mean below the first's; test accuracy beside
+               chance (not gated); ms a step in both, the host ms a
+               batch, operator build seconds, both peaks of device
+               memory; the logits after three steps (dropout off), card
+               against the plain path on the CPU at 684 vertices
+               (1e-4);
    slice_mutag_gin — examples/mutag_gin.py's run (five GINConv over
                MLPs 7 -> 32 -> 32 with MaskedBatchNorm, a trained eps,
                global_add_pool, Dense 32 and 2; Adam 0.01, batches of 32,
@@ -348,22 +356,33 @@ Phases, one JSON line each:
                CPU (1e-4);
    slice_mnist_voxel_grid, slice_mnist_nn_conv, slice_pointnet2 — the
                other point and superpixel examples at their defaults (3
-               epochs each), the two MNIST ones captured and eager as
-               slice_mnist_graclus: launches asserted (POINT_EXAMPLES;
-               pointnet2 none), the loss falling, the logits after three
-               steps card against the CPU (1e-4);
+               epochs each), captured and eager as slice_mnist_graclus
+               (pointnet2 over the static graph of its loader's budget,
+               the last batch's missing clouds padding): launches
+               asserted (POINT_EXAMPLES; pointnet2 one segment sum a
+               step, its level-2 gather's gradient), the loss
+               falling, the logits after three steps card against the
+               CPU (1e-4);
    slice_reddit_sage — examples/reddit_sage.py's run on
                Reddit(full_scale=True) (SAGE 602 -> 128 -> 41, fan-out
                [10, 10], batches of 512, index-shipping batches over the
                tables on the card, one epoch of 20 batches and 10
-               validation batches), eager, each batch's sums through one
+               validation batches), each batch's sums through one
                EmbedSpmm over its real edges (each layer's input and its
-               degrees, a column of ones): launches asserted as 20 x 5 +
-               10 x 4,
-               the loss falling, validation accuracy beside chance, the
-               logits after three steps card against the CPU (1e-4), the
-               sampler's nodes a second, and the epoch device-only,
-               sampled inline and pipelined (prefetch 4);
+               degrees, a column of ones), built on the host by the
+               sampler: captured (the default: the training and the
+               evaluation step each a CUDA graph over the static packed
+               batch and neighbour-sum operator of the sampler's
+               budgets, each batch copied in through pinned memory),
+               then eager, bitwise equal (every step's loss, the final
+               parameters, the accuracy): launches asserted as 20 x 5 +
+               10 x 4 in both runs, and by stage; ms a step in both
+               beside the host ms a batch (the sampling, the operator's
+               build, the copies); the loss falling, validation accuracy
+               beside chance, the logits after three steps card against
+               the CPU (1e-4), the sampler's nodes a second, and the
+               epoch device-only, sampled inline and pipelined (prefetch
+               4);
    slice_driver — research/driver.py's training_net on Cora at the
                driver's defaults (PrunableGCN, 2 layers at the seeded
                contraction widths, 100 + 100 epochs, AdamW with the
@@ -392,9 +411,14 @@ Phases, one JSON line each:
                gradients card against CPU within 1e-3;
    slice_driver_inductive — training_net_ppi (PrunableGCN on PPI) and
                training_net_graphcls (PrunableTopK on ENZYMES), 2 + 2
-               epochs each, one operator set a distinct batch: launches
-               asserted as DRIVER_INDUCTIVE_LAUNCHES per step and
-               evaluation batch;
+               epochs each, one operator set a distinct batch, each as a
+               user runs it (the steps of both phases captured over one
+               static pair of buffers, a capture a phase), then eager,
+               bitwise equal (both phases' every step's loss, test
+               curves and final parameters): launches asserted in both
+               runs as DRIVER_INDUCTIVE_LAUNCHES per step and evaluation
+               batch, and by stage; ms a step in both, the host ms a
+               batch;
    zoo_prunable — each model of models/prunable.py (widths 64, 32; TopK
                on an ENZYMES batch), one forward and one backward through
                its operators on the card against its plain path on the
@@ -472,7 +496,11 @@ Phases, one JSON line each:
                then over 20 replays of the step captured over its static
                batch, each after a batch is copied in ("captured": true);
    trace_faust — the same over 20 eager training steps of the FAUST
-               example (11 port launches a step);
+               example (11 port launches a step), then over 20 replays of
+               the step captured over its static batch, each after a
+               batch is copied in ("captured": true);
+   trace_pointnet2 — the same, eager and captured, for pointnet2 (1
+               port launch a step);
    trace_mutag_gin — the same over 20 eager training steps of the MUTAG
                example (10 port launches a step), with the host's
                operator-set build time a batch, then over 20 captured
@@ -487,13 +515,19 @@ Phases, one JSON line each:
                GAE, the VGAE, infomax, mygcn and the research driver's
                GCN and GAT after a one-epoch run of each
                (EpochSpans.again; SPAN_TRACES launches an epoch);
+   trace_driver_inductive — the same over 10 steps, eager and captured,
+               of the research driver's ENZYMES TopK (8 port launches a
+               step) and PPI GCN (6) inductive steps;
    trace_mnist_graclus — the same over 20 eager training steps of the
                mnist_graclus example (6 port launches a step), then over
                20 captured replays, as trace_ppi;
    trace_reddit_sage — the same over 20 eager reddit_sage steps, the
                batches sampled by the pipelined loader as a user runs it
-               (5 port launches a step); the closure configurations'
-               traces come with the others (trace_closure_*);
+               (5 port launches a step), then over 20 replays of the step
+               captured over the sampler's static buffers, each batch
+               and its operator from the producer thread copied in; the
+               closure configurations' traces come with the others
+               (trace_closure_*);
 9. trace_captured_* — the same over 20 replays of the epoch captured as
                the trainers capture it, one phase per configuration; the
                port's launches per epoch must equal the eager count.
@@ -2799,74 +2833,53 @@ def phase_slice_faust():
     Dense 256, one class per vertex) at FAUST's published template size:
     the synthetic meshes of 6,728 vertices (80 train, 20 test) ->
     ``Compose([FaceToEdge(), Cartesian()])`` -> DataLoader (batches of 1,
-    shuffled from SEED) -> ``run`` for 3 epochs, eager, each layer's
-    (N·K, F) accumulator through one rectangular spline operator of its
-    mesh, built once on the host and reused. Launches asserted as epochs x
-    (train batches x 11 + test batches x 6): one ``spmm_csr`` a layer
-    forward and one ``dx`` a layer but conv1. Every loss finite and the
-    last epoch's mean below the first's; test accuracy beside chance
-    (1 / vertices), not gated; wall seconds, the operators' host build
-    seconds and the peak of device memory; and the logits after three
-    steps (dropout off) on the card against the plain path on the CPU at
-    the example's default 684 vertices (1e-4)."""
-    import contextlib
-    import io
-
+    shuffled from SEED) -> ``run`` for 3 epochs as a user runs it,
+    captured (the default: the training step, dropout from the run's
+    generator, and the evaluation each a CUDA graph over the static
+    spline operator of the loader's budget, 1,024,000 x 8,192, into which
+    each mesh's operator, built once on the host and kept on the card, is
+    copied), then eager (``capture=False``) on fresh loaders of the same
+    seed (:func:`_capture_pair`: device launches as epochs x (train
+    batches x 11 + test batches x 6), one ``spmm_csr`` a layer forward
+    and one ``dx`` a layer but conv1, in both runs; every step's loss,
+    the final parameters and the accuracy bitwise). Every loss finite and
+    the last epoch's mean below the first's; test accuracy beside chance
+    (1 / vertices), not gated; ms a step in both runs, the host ms a
+    batch, the operators' host build seconds and both peaks of device
+    memory; and the logits after three steps (dropout off) on the card
+    against the plain path on the CPU at the example's default 684
+    vertices (1e-4)."""
     from pytorch_geometric_tpu_torch.examples import faust
-    from pytorch_geometric_tpu_torch.models.capture import launch_counts
 
     train, test = faust_loaders()
     load_seconds = faust_datasets()[2]
     nv = train.dataset[0].num_nodes
     batches = {"train": len(train), "test": len(test)}
-    expected = {n: FAUST_EPOCHS * (batches["train"]
-                                   * FAUST_STEP_LAUNCHES.get(n, 0)
-                                   + batches["test"]
-                                   * FAUST_EVAL_LAUNCHES.get(n, 0))
-                for n in launch_counts()}
     statement = {
         n: f"{FAUST_EPOCHS} epochs x ({batches['train']} train batches x "
            f"{FAUST_STEP_LAUNCHES[n]} (6 layers forward + 5 dx; conv1's "
            f"input takes no gradient) + {batches['test']} test batches x "
-           f"{FAUST_EVAL_LAUNCHES[n]}) = {expected[n]}; one launch a layer "
-           "and direction, against 125 for the K square operators"
+           f"{FAUST_EVAL_LAUNCHES[n]}; one launch a layer and direction, "
+           "against 125 for the K square operators)"
         for n in FAUST_STEP_LAUNCHES}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start = torch.cuda.memory_allocated()
-    before = launch_counts()
-    printed = io.StringIO()
-    with contextlib.redirect_stdout(printed):
-        out = faust.run(FAUST_EPOCHS, SEED, FAUST_VERTICES, DEVICE,
-                        loaders=(train, test))
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    launches = {n: v - before[n] for n, v in launch_counts().items()}
-    card, card_model = faust_steps_logits(DEVICE)
-    cpu, cpu_model = faust_steps_logits("cpu")
-    cpu_params = dict(cpu_model.named_parameters())
-    params_err = max(_rel(p.detach().cpu(), cpu_params[n].detach())
-                     for n, p in card_model.named_parameters())
-    parity = _rel(card, cpu)
+    out, _, report, problems = _capture_pair(
+        lambda capture: faust.run(FAUST_EPOCHS, SEED, FAUST_VERTICES, DEVICE,
+                                  loaders=faust_loaders(), capture=capture),
+        FAUST_STEP_LAUNCHES, FAUST_EVAL_LAUNCHES,
+        FAUST_EPOCHS * batches["train"], FAUST_EPOCHS * batches["test"],
+        statement, "acc")
+    parity, params_err, finite, shape = _parity(faust_steps_logits)
     losses = out["step_losses"]
     epochs = out["epoch_losses"]
-    problems = []
-    if launches != expected:
-        problems.append(f"launches {launches}, expected {expected}")
-    if not np.isfinite(losses).all():
-        problems.append("non-finite training loss")
-    if not epochs[-1] < epochs[0]:
-        problems.append(f"last epoch's mean loss {epochs[-1]} not below the "
-                        f"first's {epochs[0]}")
-    if not (torch.isfinite(card).all() and parity <= 1e-4):
+    _falling(epochs, problems)
+    if not (finite and parity <= 1e-4):
         problems.append(f"logits after 3 steps: card vs CPU rel err "
                         f"{parity}")
     return _finish({"phase": "slice_faust", "dataset": "FAUST",
                     "synthetic": train.dataset.is_synthetic,
                     "vertices": nv, "padded_nodes": train.num_nodes,
                     "padded_edges": train.num_edges,
-                    "epochs": FAUST_EPOCHS, "batches": batches,
-                    "seconds": out["seconds"],
+                    "epochs": FAUST_EPOCHS, "batches": batches, **report,
                     "ms_per_epoch": out["seconds"] / FAUST_EPOCHS * 1e3,
                     "load_seconds": load_seconds,
                     "operators": out["operators"],
@@ -2877,14 +2890,7 @@ def phase_slice_faust():
                     "test_acc": out["acc"], "chance_acc": 1.0 / nv,
                     # the loss of the uniform prediction over nv classes
                     "uniform_loss": float(np.log(nv)),
-                    "printed": printed.getvalue().splitlines(),
-                    "launches": {n: v for n, v in launches.items() if v},
-                    "expected_launches": {n: v for n, v in expected.items()
-                                          if v},
-                    "launch_statement": statement,
-                    "max_memory_allocated": peak,
-                    "run_peak_bytes": peak - start,
-                    "logits_shape": list(cpu.shape),
+                    "logits_shape": shape,
                     "logits_cuda_vs_cpu_rel_err": parity,
                     "params_cuda_vs_cpu_rel_err": params_err}, problems)
 
@@ -3995,9 +4001,18 @@ def phase_slice_driver_inductive():
     (PrunableGCN on PPI, batches of 2 graphs, one operator a distinct
     batch, built once) and ``training_net_graphcls`` (PrunableTopK on
     ENZYMES, batches of 64, one operator set a batch), each through the
-    prune / rebuild / fine-tune loop. Launches asserted as 2 phases x
+    prune / rebuild / fine-tune loop, as a user runs it (``capture``
+    None: each phase's training step and evaluation captured over one
+    static pair of buffers, a capture a phase), then eager
+    (``capture=False``). Launches asserted in both runs as 2 phases x
     epochs x (train batches x ``DRIVER_INDUCTIVE_LAUNCHES`` step + test
-    batches x evaluation); the widths, pruned widths and best metrics
+    batches x evaluation): the captured run's device launches (each
+    step's captured launches x replays + warm-up) and its wrapper calls
+    (the warm-ups' and the captures'), each step's launches by stage and
+    its calls; both phases' every step's loss, test curves and final
+    parameters bitwise equal in the two runs; each run's ms a step, the
+    captured run's host ms a batch and capture seconds, both peaks of
+    device memory; the widths, pruned widths and best metrics
     printed."""
     import tempfile
 
@@ -4015,13 +4030,13 @@ def phase_slice_driver_inductive():
         "ppi": (len(DataLoader(PPI(root, split="train"), 2, device=DEVICE)),
                 len(DataLoader(PPI(root, split="test"), 2, device=DEVICE))),
         "enzymes": (-(-(len(enz) - n_test) // 64), -(-n_test // 64))}
-    runs = {"ppi": lambda tmp: driver.training_net_ppi(
+    runs = {"ppi": lambda tmp, capture: driver.training_net_ppi(
                 epochs=e, fine_tune_epochs=e, results_dir=f"{tmp}/R",
-                ckpt_dir=f"{tmp}/c", device=DEVICE),
-            "enzymes": lambda tmp: driver.training_net_graphcls(
+                ckpt_dir=f"{tmp}/c", device=DEVICE, capture=capture),
+            "enzymes": lambda tmp, capture: driver.training_net_graphcls(
                 "ENZYMES", epochs=e, fine_tune_epochs=e,
                 results_dir=f"{tmp}/R", ckpt_dir=f"{tmp}/c",
-                device=DEVICE)}
+                device=DEVICE, capture=capture)}
     launches, expected, statement, results, problems = {}, {}, {}, {}, []
     for name, run in runs.items():
         step, ev = DRIVER_INDUCTIVE_LAUNCHES[name]
@@ -4034,19 +4049,77 @@ def phase_slice_driver_inductive():
                 f"2 phases x {e} epochs x ({n_train} train batches x "
                 f"{step.get(k, 0)} + {n_eval} test batches x "
                 f"{ev.get(k, 0)}) = {v}")
-        with tempfile.TemporaryDirectory() as tmp:
-            before = launch_counts()
-            t0 = time.perf_counter()
-            (res,) = run(tmp)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            ran = {k: v - before[k] for k, v in launch_counts().items()
-                   if v != before[k]}
+        out = {}
+        for mode, capture in (("captured", None), ("eager", False)):
+            with tempfile.TemporaryDirectory() as tmp:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                start = torch.cuda.memory_allocated()
+                before = launch_counts()
+                t0 = time.perf_counter()
+                (res,) = run(tmp, capture)
+                torch.cuda.synchronize()
+                out[mode] = (res, time.perf_counter() - t0, {
+                    k: v - before[k] for k, v in launch_counts().items()
+                    if v != before[k]},
+                    torch.cuda.max_memory_allocated() - start)
+        (cap, cap_s, cap_calls, cap_peak), (eag, eag_s, eag_calls,
+                                            eag_peak) = out.values()
+        ran, calls, stages = {}, {}, {}
+        for p, phase in enumerate(cap["phases"]):
+            for k, v in phase.steps["device_launches"].items():
+                ran[k] = ran.get(k, 0) + v
+            for kind, st in phase.steps["launches"].items():
+                per, want = (step, n_train) if kind == "train" \
+                    else (ev, n_eval)
+                stages[f"phase{p + 1}_{kind}"] = st
+                if st["warm_up"] != per or st["captured"] != per or \
+                        st["replays"] + 1 != e * want:
+                    problems.append(f"{name} phase {p + 1} {kind}: launches "
+                                    f"by stage {st}, expected {per} in its "
+                                    f"warm-up and capture and {e * want} "
+                                    "calls")
+                for stage in ("warm_up", "captured"):
+                    for k, v in st[stage].items():
+                        calls[k] = calls.get(k, 0) + v
         for k, v in ran.items():
             launches[k] = launches.get(k, 0) + v
-        if ran != mine:
-            problems.append(f"{name}: launches {ran}, expected {mine}")
-        results[name] = {**res, "seconds": seconds, "launches": ran}
+        for what, got, want in (("captured run: device launches", ran, mine),
+                                ("captured run: wrapper calls", cap_calls,
+                                 calls),
+                                ("eager run: launches", eag_calls, mine)):
+            if got != want:
+                problems.append(f"{name} {what} {got}, expected {want}")
+        differ = [f"phase {p + 1} {k}" for p, (a, b) in enumerate(zip(
+            cap["phases"], eag["phases"])) for k, same in (
+                ("step_losses", np.array_equal(a.steps["step_losses"],
+                                               b.steps["step_losses"])),
+                ("test_convergence",
+                 a.test_convergence == b.test_convergence),
+                ("params", _bitwise(a.params, b.params))) if not same]
+        if differ or cap["new_widths"] != eag["new_widths"]:
+            problems.append(f"{name}: captured vs eager not bitwise: "
+                            f"{differ}, widths {cap['new_widths']} against "
+                            f"{eag['new_widths']}")
+        steps = 2 * e * n_train
+        host = [ph.steps for ph in cap["phases"]]
+        capture_s = sum(h["capture_seconds"] for h in host)
+        results[name] = {
+            **{k: v for k, v in cap.items() if k != "phases"},
+            "seconds": cap_s, "eager_seconds": eag_s,
+            "capture_seconds": capture_s,
+            "ms_per_step": sum(h["seconds"] for h in host) / steps * 1e3
+            - capture_s / steps * 1e3,
+            "eager_ms_per_step": sum(ph.steps["seconds"] for ph in
+                                     eag["phases"]) / steps * 1e3,
+            "host_ms_per_batch": sum(h["host_seconds"] for h in host)
+            / sum(h["host_batches"] for h in host) * 1e3,
+            "run_peak_bytes": cap_peak, "eager_run_peak_bytes": eag_peak,
+            "launches": ran, "wrapper_calls": cap_calls,
+            "eager_launches": eag_calls, "launch_stages": stages,
+            "captured_vs_eager_bitwise": not differ,
+            "step_losses": [ph.steps["step_losses"].tolist()
+                            for ph in cap["phases"]]}
     return _finish({"phase": "slice_driver_inductive", "epochs": e,
                     "batches": batches, "runs": results,
                     "launches": launches, "expected_launches": expected,
@@ -4440,7 +4513,9 @@ def phase_slice_dp():
     _add(expected, mine)
     statement.update({f"driver:{k}": v for k, v in
                       report["launch_statement"].items()})
-    runs["driver_graphcls_dp"] = {**report, **out["res"][0]}
+    runs["driver_graphcls_dp"] = {
+        **report, **{k: v for k, v in out["res"][0].items()
+                     if k != "phases"}}
     return _finish({"phase": "slice_dp", "group": "nccl, 1 rank",
                     "bitwise_check": check, "runs": runs,
                     "launches": launches, "expected_launches": expected,
@@ -4930,40 +5005,170 @@ def trace_captured_step(module, loader, batches, model, lr, steps, want,
     return result
 
 
+def trace_pair(name, make_step, batches, static, steps, want, **extra):
+    """Where a step's time goes, eager and captured: ``torch.profiler``
+    over ``steps`` calls of a training step cycling over ``batches``
+    (``(graph, ops)`` on the card, collated and built before the window),
+    then over ``steps`` replays of the same step, from a fresh model of
+    the same seed, captured over ``static`` (a ``StaticBatch`` of the
+    loader's budget; ``models/capture.py:CapturedStep``), each after the
+    next batch is copied in device to device. ``make_step()`` returns
+    ``(step(graph, ops), generator)``, the generator the step's dropout
+    draws from (registered with the graph) or None. ``want`` port
+    launches a step in both; a ``trace_<name>`` line each, ``"captured"``
+    false, then true."""
+    from pytorch_geometric_tpu_torch.models.capture import CapturedStep
+
+    out = {}
+    for captured in (False, True):
+        step, gen = make_step()
+        cycle = itertools.cycle(batches)
+        if captured:
+            replay = CapturedStep(lambda: step(static.graph, static.ops),
+                                  torch.device(DEVICE), generator=gen)
+
+            def run():
+                static.load(*next(cycle))
+                replay()
+        else:
+            def run():
+                step(*next(cycle))
+        kernels, wall_us = profile_steps(run, steps)
+        summary, port_launches = trace_summary(kernels, wall_us, steps,
+                                               "step")
+        result = {"phase": f"trace_{name}", "captured": captured,
+                  "steps": steps, **extra, **summary,
+                  "expected_port_launches_per_step": want}
+        emit(result)
+        if port_launches != want * steps:
+            raise AssertionError(f"{name}: {port_launches / steps} port "
+                                 f"kernel launches per step on the trace "
+                                 f"(captured {captured}), expected {want}")
+        out["captured" if captured else "eager"] = result
+    return out
+
+
+def _adam_step(model, loss_of, lr, generator=None):
+    """A training step of ``model`` (Adam ``lr``, capturable, gradients
+    zeroed in place): ``step(graph, ops)`` of ``loss_of(graph, ops)``."""
+    opt = torch.optim.Adam(model.parameters(), lr=lr, capturable=True)
+
+    def step(graph, ops):
+        opt.zero_grad(set_to_none=False)
+        loss_of(graph, ops).backward()
+        opt.step()
+
+    return step, generator
+
+
 def phase_trace_faust(steps=20):
-    """Where a FAUST training step's time goes: ``torch.profiler`` over
-    ``steps`` eager steps of examples/faust.py's ``train_step`` (a fresh
-    ``Net``, Adam 1e-2, dropout on) cycling over the first ``steps`` train
-    batches, collated and their operators built before the window; 11
-    port launches a step."""
+    """Where a FAUST training step's time goes (:func:`trace_pair`):
+    examples/faust.py's ``train_step`` (a fresh ``Net``, Adam 1e-2,
+    dropout on) cycling over the first ``steps`` train batches, collated
+    and their operators built before the window, eager and then captured
+    over the static batch of the loader's budget; 11 port launches a
+    step in both."""
     from pytorch_geometric_tpu_torch.examples import faust
     from pytorch_geometric_tpu_torch.examples.ppi import OperatorCache
 
     train, _ = faust_loaders()
     ops = OperatorCache(faust.faust_spline_op)
-    batches = [(graph, ops(idx, graph)) for idx, graph in
+    batches = [(graph, {"spline_op": ops(idx, graph)}) for idx, graph in
                itertools.islice(train.indexed(), steps)]
-    model = faust.Net(train.dataset[0].num_nodes,
-                      generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
-    opt = torch.optim.Adam(model.parameters(), lr=1e-2)
-    drop = torch.Generator(device=DEVICE).manual_seed(SEED)
-    cycle = itertools.cycle(batches)
 
-    def run():
-        graph, op = next(cycle)
-        faust.train_step(model, opt, graph, op, drop)
+    def make_step():
+        model = faust.Net(train.dataset[0].num_nodes, generator=torch
+                          .Generator().manual_seed(SEED)).to(DEVICE)
+        drop = torch.Generator(device=DEVICE).manual_seed(SEED)
+        return _adam_step(model, lambda graph, o: faust.nll_loss(model(
+            graph, train=True, spline_op=o["spline_op"], generator=drop),
+            graph), 1e-2, drop)
 
-    kernels, wall_us = profile_steps(run, steps)
-    summary, port_launches = trace_summary(kernels, wall_us, steps, "step")
-    want = sum(FAUST_STEP_LAUNCHES.values())
-    result = {"phase": "trace_faust", "captured": False, "steps": steps,
-              **summary, "expected_port_launches_per_step": want}
-    emit(result)
-    if port_launches != want * steps:
-        raise AssertionError(f"faust: {port_launches / steps} port kernel "
-                             f"launches per step on the trace, expected "
-                             f"{want}")
-    return result
+    return trace_pair("faust", make_step, batches,
+                      faust.static_batch(train, DEVICE), steps,
+                      sum(FAUST_STEP_LAUNCHES.values()))
+
+
+def phase_trace_pointnet2(steps=20):
+    """Where a pointnet2 training step's time goes (:func:`trace_pair`):
+    examples/pointnet2.py's step (a fresh ``Net``, Adam 1e-3) cycling
+    over one epoch's train batches with their level-2 gather operators,
+    eager and then captured over the static batch of the loader's
+    budget; 1 port launch a step (the gather's gradient)."""
+    from pytorch_geometric_tpu_torch.examples import pointnet2
+
+    train = point_loaders("pointnet2")[0]
+    batches = [(graph, pointnet2.pointnet2_operators(graph))
+               for graph in train]
+
+    def make_step():
+        model = pointnet2.Net(generator=torch.Generator().manual_seed(
+            SEED)).to(DEVICE)
+        return _adam_step(model, lambda graph, o: pointnet2.loss_of(
+            model(graph, **o), graph), 1e-3)
+
+    return trace_pair("pointnet2", make_step, batches,
+                      pointnet2.static_batch(train, DEVICE), steps,
+                      sum(POINT_EXAMPLES["pointnet2"][1].values()))
+
+
+def phase_trace_driver_inductive(steps=10):
+    """Where the research driver's inductive steps' time goes
+    (:func:`trace_pair`, 10 steps): PrunableTopK on ENZYMES (batches of
+    64, the driver's three layers at their widths, Adam 5e-4, dropout
+    on; 8 port launches a step) and PrunableGCN on PPI (batches of 2, two
+    layers, Adam 5e-3, dropout on; 6 port launches a step), each cycling
+    over one epoch's train batches
+    with their operators, eager and then captured over the model's static
+    operator forms (``research/driver.py:static_pair``)."""
+    from pytorch_geometric_tpu_torch.data import DataLoader
+    from pytorch_geometric_tpu_torch.datasets import PPI, TUDataset
+    from pytorch_geometric_tpu_torch.datasets.graphs import PLANETOID_ROOT
+    from pytorch_geometric_tpu_torch.examples.ppi import bce_loss
+    from pytorch_geometric_tpu_torch.models.graph_pred import graph_xent_loss
+    from pytorch_geometric_tpu_torch.models.prunable import choose_model
+    from pytorch_geometric_tpu_torch.research import driver
+    from pytorch_geometric_tpu_torch.research.pruning import (
+        contraction_layer_coefficients)
+
+    root = str(PLANETOID_ROOT)
+    enz = TUDataset(root, "ENZYMES").shuffle(seed=SEED)
+    cases = {
+        "topk": (DataLoader(enz[len(enz) // 10:], batch_size=64,
+                            shuffle=True, seed=SEED, device=DEVICE),
+                 ("TopK", 128, 3, 6, 3), 5e-4,
+                 lambda m, g, o, gen: graph_xent_loss(
+                     m(g, train=True, generator=gen, **o), g.y,
+                     g.graph_mask)),
+        "ppi_gcn": (DataLoader(PPI(root, split="train"), batch_size=2,
+                               shuffle=True, seed=SEED, device=DEVICE),
+                    ("GCN", 50, 2, 121, 50), 5e-3,
+                    lambda m, g, o, gen: bce_loss(
+                        m(g, g.x, train=True, generator=gen, **o), g))}
+    out = {}
+    for case, (loader, (name, width, layers, classes, f_in), lr,
+               loss_of) in cases.items():
+        widths = contraction_layer_coefficients(width, layers, 0.5,
+                                                seed=SEED)
+
+        def make_step():
+            model = choose_model(name, widths, classes, in_channels=f_in,
+                                 generator=torch.Generator().manual_seed(
+                                     SEED)).to(DEVICE)
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+            return _adam_step(model, lambda g, o: loss_of(model, g, o, gen),
+                              lr, gen)
+
+        # the operators are the graph's: any model of the class builds them
+        model = choose_model(name, widths, classes, in_channels=f_in)
+        batches = [(g, model.operators(g)) for g in loader]
+        static = driver.static_pair(model, (loader, loader),
+                                    torch.device(DEVICE))[0]
+        want = sum(DRIVER_INDUCTIVE_LAUNCHES[
+            "enzymes" if name == "TopK" else "ppi"][0].values())
+        out[case] = trace_pair("driver_inductive", make_step, batches,
+                               static, steps, want, path=case)
+    return out
 
 
 def phase_trace_mutag_gin(steps=20):
@@ -5216,12 +5421,13 @@ MNIST_EVAL_LAUNCHES = {"spmm_csr": 2, "sorted_segment_sum": 3}
 #: mnist_nn_conv sums both levels' NNConv messages, both pools' means and
 #: the readout (5 segment sums forward), and conv2's gather of its input
 #: by sender sums its gradient (1 backward); pointnet2's reductions are
-#: all maxima (torch's ``scatter_reduce``).
+#: all maxima (torch's ``scatter_reduce``), and its level-2 gather by
+#: sender sums its gradient (1 backward).
 POINT_EXAMPLES = {
     "mnist_voxel_grid": (3, MNIST_STEP_LAUNCHES, MNIST_EVAL_LAUNCHES),
     "mnist_nn_conv": (3, {"sorted_segment_sum": 6},
                       {"sorted_segment_sum": 5}),
-    "pointnet2": (3, {}, {}),
+    "pointnet2": (3, {"sorted_segment_sum": 1}, {}),
 }
 #: The examples whose training step and evaluation a card captures
 #: (``run(capture=None)``); each slice runs them captured, then eagerly,
@@ -5229,7 +5435,7 @@ POINT_EXAMPLES = {
 #: metric).
 CAPTURED_EXAMPLES = {"mnist_graclus": "acc", "mnist_voxel_grid": "acc",
                      "mnist_nn_conv": "acc", "qm9": "mae", "topk": "acc",
-                     "diff_pool": "acc"}
+                     "diff_pool": "acc", "pointnet2": "acc"}
 MNIST_CASES = ("mnist_conv1", "mnist_conv2", "mnist_pool1", "mnist_pool2",
                "mnist_readout", "mnist_nnconv1", "mnist_nnconv2")
 #: The block SpMM's graph: bench_scale.py's community graph at Reddit's
@@ -5289,7 +5495,9 @@ def phase_kernel_mnist(gen):
     first batch, mnist_nn_conv's NNConv sums by receiver over the real
     edges (F = 32 at level 0, against the padded operator's row of the
     padding edges; 64 at level 1) and conv2's gather by sender (its
-    backward's sum, F = 32)."""
+    backward's sum, F = 32); and pointnet2's level-2 gather by sender
+    over the first train batch's real entries (``pointnet2_operators``;
+    its backward's sum at sa1's F = 128)."""
     from pytorch_geometric_tpu_torch.examples import mnist_graclus as mg
 
     cases = []
@@ -5314,6 +5522,12 @@ def phase_kernel_mnist(gen):
                          ("mnist_senders2", "senders2", 32)):
         cases.append(check_sorted_case(name, ops[key].csr, "fwd", f,
                                        "fp32", gen))
+    from pytorch_geometric_tpu_torch.examples import pointnet2
+
+    graph = next(iter(point_loaders("pointnet2")[0]))
+    op = pointnet2.pointnet2_operators(graph)["sender_op"]
+    cases.append(check_sorted_case("pointnet2_senders", op.csr, "fwd",
+                                   pointnet2.SA1_MLP[-1][1], "fp32", gen))
     return cases
 
 
@@ -5524,7 +5738,9 @@ def phase_kernel_scale(gen):
 def point_steps_output(name, device, steps=3):
     """``(logits, model)`` of a point or superpixel example's ``Net``
     after ``steps`` Adam steps from ``SEED`` (dropout off) over the first
-    batches of its seeded default loader, then its logits on the first."""
+    batches of its seeded default loader, each with its operators as
+    ``run`` trains (pointnet2's level-2 gather through the segment sum),
+    then its logits on the first."""
     from pytorch_geometric_tpu_torch.examples import mnist_graclus as mg
     from pytorch_geometric_tpu_torch.examples.ppi import OperatorCache
 
@@ -5535,10 +5751,11 @@ def point_steps_output(name, device, steps=3):
         m = _example_module(name)
         model = m.Net(generator=gen).to(device)
         opt = torch.optim.Adam(model.parameters(), lr=1e-3)
-        for _, graph in batches:
-            m.train_step(model, opt, graph)
+        ops = [m.pointnet2_operators(graph) for _, graph in batches]
+        for (_, graph), o in zip(batches, ops):
+            m.train_step(model, opt, graph, o)
         with torch.no_grad():
-            return model(batches[0][1]), model
+            return model(batches[0][1], **ops[0]), model
     if name == "mnist_nn_conv":
         m = _example_module(name)
         model, build = m.Net(generator=gen), m.nn_conv_operators
@@ -5586,27 +5803,16 @@ def _point_slice(name, epochs, step, evaluation, loaders):
     train, test = loaders
     batches = {"train": len(train), "test": len(test)}
     names = set(step) | set(evaluation)
-    expected = {k: epochs * (batches["train"] * step.get(k, 0)
-                             + batches["test"] * evaluation.get(k, 0))
-                for k in names}
     statement = {
         k: f"{epochs} epochs x ({batches['train']} train batches x "
            f"{step.get(k, 0)} + {batches['test']} test batches x "
            f"{evaluation.get(k, 0)})" for k in names}
-    if name in CAPTURED_EXAMPLES:
-        out, _, report, problems = _capture_pair(
-            lambda capture: m.run(epochs, seed=SEED, device=DEVICE,
-                                  loaders=fresh_point_loaders(name),
-                                  capture=capture),
-            step, evaluation, epochs * batches["train"],
-            epochs * batches["test"], statement, CAPTURED_EXAMPLES[name])
-    else:
-        statement = {k: f"{v} = {expected[k]}" for k, v in
-                     statement.items()} or \
-            "no kernel of the port: maxima by torch's scatter_reduce only"
-        out, report, problems = _example_run(
-            lambda: m.run(epochs, seed=SEED, device=DEVICE,
-                          loaders=loaders), expected, statement)
+    out, _, report, problems = _capture_pair(
+        lambda capture: m.run(epochs, seed=SEED, device=DEVICE,
+                              loaders=fresh_point_loaders(name),
+                              capture=capture),
+        step, evaluation, epochs * batches["train"],
+        epochs * batches["test"], statement, CAPTURED_EXAMPLES[name])
     _falling(out["epoch_losses"], problems)
     parity, params_err, finite, shape = _parity(
         lambda dev: point_steps_output(name, dev))
@@ -5639,9 +5845,10 @@ def phase_slice_point(name):
     levels of 5 and 10; mnist_nn_conv: NNConv mean over edge networks of
     the Cartesian pseudo-coordinates, 1000 samples; pointnet2: two
     PointConv set-abstraction levels over 128 sampled points of the
-    synthetic ModelNet10, 12 samples a class): the two MNIST examples
-    captured, then eager, bitwise equal, as
-    :func:`phase_slice_mnist_graclus`; pointnet2 eager. Launches asserted
+    synthetic ModelNet10, 12 samples a class): each captured, then
+    eager, bitwise equal, as :func:`phase_slice_mnist_graclus` (pointnet2
+    over the static graph of its loader's budget, its index fields
+    included, the last batch padded to the budget). Launches asserted
     (``POINT_EXAMPLES``), the loss falling, and the logits after three
     steps, card against the plain path on the CPU (1e-4)."""
     epochs, step, evaluation = POINT_EXAMPLES[name]
@@ -5951,23 +6158,25 @@ def reddit_steps_logits(device, steps=3):
     (from ``SEED``) after ``steps`` Adam steps over the first ``steps``
     batches of the seeded loader on the full-scale Reddit, then its
     logits on the first of them, on ``device`` (the CPU runs the kernel's
-    plain version)."""
+    plain version); each batch and its operator sampled and built on the
+    host as ``run`` takes them (``Sampled``), then copied to ``device``."""
     from pytorch_geometric_tpu_torch.examples import reddit_sage
 
     data, _ = reddit_full()
     train, _, x_dev, y_dev = reddit_sage.loaders(data, REDDIT_BATCH, SEED,
                                                  device=device)
-    batches = list(itertools.islice(train, steps))
+    batches = [(graph.to(device), ops["aggregate"].to(device))
+               for graph, ops in reddit_sage.Sampled(train, steps, {})]
     model = reddit_sage.SAGE(data.x.shape[1], 128, 41,
                              generator=torch.Generator().manual_seed(
                                  SEED)).to(device)
     opt = torch.optim.Adam(model.parameters(), lr=3e-3)
-    for graph in batches:
-        reddit_sage.train_step(model, opt, graph, x_dev, y_dev)
-    graph = batches[0]
+    for graph, agg in batches:
+        reddit_sage.train_step(model, opt, graph, x_dev, y_dev, agg)
+    graph, agg = batches[0]
     ids = graph.extras["local_to_global"].long()
     with torch.no_grad():
-        out = model(graph, x_dev[ids], reddit_sage.sage_aggregate(graph))
+        out = model(graph, x_dev[ids], agg)
     return out[graph.node_mask].cpu(), model
 
 
@@ -5975,11 +6184,13 @@ def reddit_epochs(data):
     """The JAX bench's sampled-epoch measures (``bench_common.py:913-1041``)
     over ``REDDIT_MAX_BATCHES`` training batches: the host sampler alone
     (sampling and compaction, no copy: nodes a second, real and
-    budgeted); the device-only epoch (batches sampled and copied first,
-    the steps, each with its operator's build, timed); and the epoch with
-    sampling
-    inline (``prefetch=0``) and pipelined (``prefetch=REDDIT_PREFETCH``),
-    taken in turns twice, the best of each kept."""
+    budgeted); the device-only epoch (batches sampled, their operators
+    built and both copied first, the eager steps timed); and the eager
+    epoch with sampling and the operators' build inline (``prefetch=0``)
+    and pipelined (``prefetch=REDDIT_PREFETCH``, in the producer thread),
+    each batch and its operator copied to the card, as ``run(capture=
+    False)`` takes them (``Sampled``, capturable Adam), taken in turns
+    twice, the best of each kept."""
     from pytorch_geometric_tpu_torch.data.neighbor_loader import (
         NeighborSampler)
     from pytorch_geometric_tpu_torch.examples import reddit_sage
@@ -6002,22 +6213,28 @@ def reddit_epochs(data):
     model = reddit_sage.SAGE(data.x.shape[1], 128, 41,
                              generator=torch.Generator().manual_seed(
                                  SEED)).to(DEVICE)
-    opt = torch.optim.Adam(model.parameters(), lr=3e-3)
-    pre = list(itertools.islice(loaders[0][0], REDDIT_MAX_BATCHES))
-    reddit_sage.train_step(model, opt, pre[0], x_dev, y_dev)
+    opt = torch.optim.Adam(model.parameters(), lr=3e-3, capturable=True)
+
+    def batches(prefetch):
+        for graph, ops in reddit_sage.Sampled(loaders[prefetch][0],
+                                              REDDIT_MAX_BATCHES, {}):
+            yield graph.to(DEVICE), ops["aggregate"].to(DEVICE)
+
+    pre = list(batches(0))
+    graph, agg = pre[0]
+    reddit_sage.train_step(model, opt, graph, x_dev, y_dev, agg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for graph in pre:
-        reddit_sage.train_step(model, opt, graph, x_dev, y_dev)
+    for graph, agg in pre:
+        reddit_sage.train_step(model, opt, graph, x_dev, y_dev, agg)
     torch.cuda.synchronize()
     device_s = time.perf_counter() - t0
     del pre
 
     def epoch(prefetch):
-        loader = loaders[prefetch][0]
         t0 = time.perf_counter()
-        for graph in itertools.islice(loader, REDDIT_MAX_BATCHES):
-            reddit_sage.train_step(model, opt, graph, x_dev, y_dev)
+        for graph, agg in batches(prefetch):
+            reddit_sage.train_step(model, opt, graph, x_dev, y_dev, agg)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -6040,9 +6257,15 @@ def phase_slice_reddit_sage():
     fan-out [10, 10], batches of 512 seeds (56,833-node, 56,320-edge
     budgets), index-shipping batches over the feature and label tables on
     the card, Adam 3e-3, one epoch of 20 batches and 10 validation
-    batches, eager, each batch's sums through one ``EmbedSpmm`` over its
-    real edges (``spmm_csr``). Launches asserted as 20 x 5 + 10 x 4; the
-    loss falling (the last step
+    batches, each batch's sums through one ``EmbedSpmm`` over its real
+    edges (``spmm_csr``), built on the host by the sampler; as a user
+    runs it, captured (the default: the training step and the evaluation
+    each a CUDA graph over the static packed batch and neighbour-sum
+    operator of the sampler's budgets), then eager (``capture=False``)
+    (:func:`_capture_pair`: launches 20 x 5 + 10 x 4 in both runs and by
+    stage; every step's loss, the final parameters and the accuracy
+    bitwise; ms a step in both beside the host ms a batch: the sampling,
+    the operator's build, the copies). The loss falling (the last step
     below the first); validation accuracy beside chance (1/41; not
     gated); the logits after three steps on the first batch, card
     against the plain path on the CPU (1e-4); the sampler's throughput
@@ -6051,16 +6274,16 @@ def phase_slice_reddit_sage():
     from pytorch_geometric_tpu_torch.examples import reddit_sage
 
     data, load_seconds = reddit_full()
-    expected = {n: REDDIT_MAX_BATCHES * v
-                + REDDIT_MAX_BATCHES // 2 * REDDIT_EVAL_LAUNCHES.get(n, 0)
-                for n, v in REDDIT_STEP_LAUNCHES.items()}
     statement = {n: f"{REDDIT_MAX_BATCHES} train batches x "
                     f"{REDDIT_STEP_LAUNCHES[n]} + {REDDIT_MAX_BATCHES // 2} "
-                    f"val batches x {REDDIT_EVAL_LAUNCHES[n]} = {v}"
-                 for n, v in expected.items()}
-    out, report, problems = _example_run(
-        lambda: reddit_sage.run(1, REDDIT_BATCH, SEED, REDDIT_MAX_BATCHES,
-                                DEVICE, data=data), expected, statement)
+                    f"val batches x {REDDIT_EVAL_LAUNCHES[n]}"
+                 for n in REDDIT_STEP_LAUNCHES}
+    out, _, report, problems = _capture_pair(
+        lambda capture: reddit_sage.run(1, REDDIT_BATCH, SEED,
+                                        REDDIT_MAX_BATCHES, DEVICE,
+                                        data=data, capture=capture),
+        REDDIT_STEP_LAUNCHES, REDDIT_EVAL_LAUNCHES, REDDIT_MAX_BATCHES,
+        REDDIT_MAX_BATCHES // 2, statement, "acc")
     losses = out["step_losses"][0]
     _falling(losses, problems, "step")
     parity, params_err, finite, shape = _parity(reddit_steps_logits)
@@ -6081,8 +6304,6 @@ def phase_slice_reddit_sage():
                     "first_loss": float(losses[0]),
                     "final_loss": float(losses[-1]),
                     "val_acc": out["acc"], "chance": out["chance"],
-                    "ms_per_step": out["seconds"]
-                    / (REDDIT_MAX_BATCHES + REDDIT_MAX_BATCHES // 2) * 1e3,
                     **report, **epochs, "logits_shape": shape,
                     "logits_cuda_vs_cpu_rel_err": parity,
                     "params_cuda_vs_cpu_rel_err": params_err}, problems)
@@ -6090,40 +6311,62 @@ def phase_slice_reddit_sage():
 
 def phase_trace_reddit_sage(steps=20):
     """Where a reddit_sage training step's time goes: ``torch.profiler``
-    over ``steps`` eager steps of the example's ``train_step`` as a user
-    runs it, its batches sampled by the loader with
-    ``prefetch=REDDIT_PREFETCH`` (the host's sampling in the producer
-    thread, each batch's copy and operator build in the step); 5 port
-    launches a step."""
+    over ``steps`` training steps as ``run`` takes them, the batches
+    sampled with ``prefetch=REDDIT_PREFETCH`` (the sampling and each
+    batch's operator build in the producer thread), eager (each batch and
+    its operator copied to the card, then the step) and then captured
+    (each copied into the sampler's static buffers, then a replay); 5
+    port launches a step in both."""
     from pytorch_geometric_tpu_torch.examples import reddit_sage
+    from pytorch_geometric_tpu_torch.models.capture import CapturedStep
 
     data, _ = reddit_full()
-    train, _, x_dev, y_dev = reddit_sage.loaders(
-        data, REDDIT_BATCH, SEED, REDDIT_PREFETCH, DEVICE)
-    model = reddit_sage.SAGE(data.x.shape[1], 128, 41,
-                             generator=torch.Generator().manual_seed(
-                                 SEED)).to(DEVICE)
-    opt = torch.optim.Adam(model.parameters(), lr=3e-3)
-    batches = iter(train)
-
-    def run():
-        reddit_sage.train_step(model, opt, next(batches), x_dev, y_dev)
-
-    kernels, wall_us = profile_steps(run, steps)
-    batches.close()
-    summary, port_launches = trace_summary(kernels, wall_us, steps, "step")
+    dev = torch.device(DEVICE)
     want = sum(REDDIT_STEP_LAUNCHES.values())
-    result = {"phase": "trace_reddit_sage", "captured": False,
-              "steps": steps, "prefetch": REDDIT_PREFETCH, **summary,
-              "port_us_per_step":
-                  summary["us_per_step_by_group"]["port_kernels"],
-              "expected_port_launches_per_step": want}
-    emit(result)
-    if port_launches != want * steps:
-        raise AssertionError(f"reddit_sage: {port_launches / steps} port "
-                             f"kernel launches per step on the trace, "
-                             f"expected {want}")
-    return result
+    out = {}
+    for captured in (False, True):
+        train, _, x_dev, y_dev = reddit_sage.loaders(
+            data, REDDIT_BATCH, SEED, REDDIT_PREFETCH, DEVICE)
+        model = reddit_sage.SAGE(data.x.shape[1], 128, 41,
+                                 generator=torch.Generator().manual_seed(
+                                     SEED)).to(DEVICE)
+        opt = torch.optim.Adam(model.parameters(), lr=3e-3,
+                               capturable=True)
+        batches = train.iter_host(
+            lambda g: reddit_sage.sage_aggregate(g, "cpu"))
+        if captured:
+            static = reddit_sage.StaticSampled(train, dev)
+            step = CapturedStep(lambda: reddit_sage.train_step(
+                model, opt, static.graph, x_dev, y_dev,
+                static.ops["aggregate"]), dev)
+
+            def run():
+                graph, op = next(batches)
+                static.load(graph, {"aggregate": op})
+                step()
+        else:
+            def run():
+                graph, op = next(batches)
+                reddit_sage.train_step(model, opt, graph.to(dev), x_dev,
+                                       y_dev, op.to(dev))
+
+        kernels, wall_us = profile_steps(run, steps)
+        batches.close()
+        summary, port_launches = trace_summary(kernels, wall_us, steps,
+                                               "step")
+        result = {"phase": "trace_reddit_sage", "captured": captured,
+                  "steps": steps, "prefetch": REDDIT_PREFETCH, **summary,
+                  "port_us_per_step":
+                      summary["us_per_step_by_group"]["port_kernels"],
+                  "expected_port_launches_per_step": want}
+        emit(result)
+        if port_launches != want * steps:
+            raise AssertionError(f"reddit_sage: {port_launches / steps} "
+                                 f"port kernel launches per step on the "
+                                 f"trace (captured {captured}), expected "
+                                 f"{want}")
+        out["captured" if captured else "eager"] = result
+    return out
 
 
 #: Each kernel's source, the Pallas kernel it replaces, its main path's
@@ -6404,6 +6647,8 @@ def main(argv=None):
     phases.append(("trace_qm9", phase_trace_qm9))
     phases.append(("trace_enzymes", phase_trace_enzymes))
     phases.append(("trace_spans", phase_trace_spans))
+    phases.append(("trace_pointnet2", phase_trace_pointnet2))
+    phases.append(("trace_driver_inductive", phase_trace_driver_inductive))
     phases.append(("trace_mnist_graclus", phase_trace_mnist_graclus))
     phases.append(("trace_reddit_sage", phase_trace_reddit_sage))
     for config in CONFIGS:

@@ -20,7 +20,13 @@ PPI/Reddit" (examples/reddit_sage.py):
   order is the port's own: :data:`PACKED_LEAVES`);
 - ``prefetch > 0``: a producer thread samples ahead (numpy work only)
   into a bounded queue, and the consumer copies each batch to the card;
-  the producer stops when the consumer abandons the epoch.
+  the producer stops when the consumer abandons the epoch;
+- :meth:`iter_host`: host batches, each with what a ``build`` function
+  makes of it on the host beside it (examples/reddit_sage.py: the
+  batch's neighbour-sum operator), in the producer thread when
+  ``prefetch > 0``; the consumer copies both in (a captured step's
+  static buffers, on the current stream), and the producer never touches
+  the card.
 
 Everything up to the copy is host numpy, the JAX function's, so a seed
 gives both packages the same batches.
@@ -145,6 +151,18 @@ class NeighborSampler:
     def __iter__(self):
         for g in self._produce(self._batches(), self._sample):
             yield g.to(self.device)
+
+    def iter_host(self, build):
+        """``(batch, build(batch))`` a seed batch, both on the host: the
+        batch as ``__iter__``'s before its copy, and ``build``'s host work
+        on it done beside the sampling (in the producer thread when
+        ``prefetch > 0``). Nothing is copied to ``device``; honours
+        ``prefetch``."""
+        def make(b):
+            g = self._sample(b)
+            return g, build(g)
+
+        return self._produce(self._batches(), make)
 
     def _produce(self, batches, make):
         """``make(b)`` of every seed batch, in order: inline, or with

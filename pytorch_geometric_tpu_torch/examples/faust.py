@@ -15,8 +15,21 @@ batch's mesh (``nn/conv/spline_conv.py:spline_operator``): one
 ``spmm_csr`` launch a layer forward and one for its ``dx`` (none for
 conv1, whose input takes no gradient). The pseudo-coordinates, and so the
 operator, are the mesh's: it is built on the host once per distinct batch
-and reused in every epoch (``examples/ppi.py:OperatorCache``). The step
-runs eagerly. Prints the JAX script's line per epoch.
+and kept on the run's device (``examples/ppi.py:OperatorCache``).
+
+The JAX script jits its training step and its evaluation once over the
+loaders' static budget. Here, on a card, each is a CUDA graph captured
+once (``models/capture.py:CapturedStep``, ``capture=None`` or ``True``)
+over static buffers of its loader's budget (:func:`static_batch`: the
+graph and a ``static_spline_operator``, a slot for each of an edge's
+eight corners). Each batch is collated on the host and copied in, its
+cached operator device to device, then the graph replays; the dropout
+draws from the run's CUDA generator, which the training graph registers,
+and Adam keeps its step count on the card. Each step's loss and each test
+batch's correct and total counts stay in device buffers until the epoch
+ends (``models/capture.py:StepLoop``). ``capture=False`` runs the same
+steps eagerly over each batch's own tensors (the CPU's only mode).
+Prints the JAX script's line per epoch.
 """
 
 import argparse
@@ -33,7 +46,10 @@ from pytorch_geometric_tpu_torch.datasets import FAUST
 from pytorch_geometric_tpu_torch.datasets.graphs import PLANETOID_ROOT
 from pytorch_geometric_tpu_torch.device import resolve_device
 from pytorch_geometric_tpu_torch.examples.ppi import OperatorCache
-from pytorch_geometric_tpu_torch.nn.conv import SplineConv, spline_operator
+from pytorch_geometric_tpu_torch.models.capture import (
+    StaticBatch, StepLoop, resolve_capture)
+from pytorch_geometric_tpu_torch.nn.conv import (
+    SplineConv, spline_operator, static_spline_operator)
 from pytorch_geometric_tpu_torch.nn.layers import Dense, dropout
 from pytorch_geometric_tpu_torch.transforms import (
     Cartesian, Compose, FaceToEdge)
@@ -68,10 +84,23 @@ class Net(nn.Module):
         return self.Dense_1(x)
 
 
-def faust_spline_op(graph: Graph):
-    """The batch's rectangular spline operator (fp32), on the graph's
-    device: the (N·125, N) accumulator of every layer."""
-    return spline_operator(graph, DIM, KERNEL_SIZE)
+def faust_spline_op(graph: Graph, device=None):
+    """The batch's rectangular spline operator (fp32) on ``device``
+    (default: the graph's): the (N·K, N) accumulator of every layer,
+    built on the host from a CPU copy of the batch, so that a batch
+    collated on the card and the same batch collated on the host give the
+    same operator."""
+    dev = graph.device if device is None else device
+    return spline_operator(graph.to("cpu"), DIM, KERNEL_SIZE, device=dev)
+
+
+def static_batch(loader: DataLoader, device) -> StaticBatch:
+    """The static buffers of ``loader``'s budget on ``device``: its graph
+    and a ``static_spline_operator`` (``spline_op``) of its node and edge
+    budgets, which every batch's :func:`faust_spline_op` fits."""
+    return StaticBatch(loader, {"spline_op": static_spline_operator(
+        loader.num_nodes, loader.num_edges, DIM, KERNEL_SIZE,
+        device=device)}, device)
 
 
 def nll_loss(logits, graph: Graph):
@@ -86,8 +115,9 @@ def nll_loss(logits, graph: Graph):
 def train_step(model: Net, opt, graph: Graph, op, generator=None,
                train: bool = True):
     """One Adam step on one batch, with dropout unless ``train`` is
-    False; the loss stays on the device."""
-    opt.zero_grad(set_to_none=True)
+    False, the gradients zeroed in place (a captured step keeps them);
+    the loss stays on the device."""
+    opt.zero_grad(set_to_none=False)
     loss = nll_loss(model(graph, train=train, spline_op=op,
                           generator=generator), graph)
     loss.backward()
@@ -95,16 +125,33 @@ def train_step(model: Net, opt, graph: Graph, op, generator=None,
     return loss.detach()
 
 
-def evaluate(model: Net, loader: DataLoader, ops: OperatorCache):
-    """Accuracy of the argmax over the loader's real vertices."""
-    correct = total = 0
+def counts_of(model: Net, graph: Graph, op):
+    """``(correct, total)`` of the argmax over the batch's real vertices,
+    as device scalars (the JAX script's ``eval_step``)."""
     with torch.no_grad():
-        for idx, graph in loader.indexed():
-            pred = model(graph, spline_op=ops(idx, graph)).argmax(dim=1)
-            m = graph.node_mask
-            correct += int(((pred == graph.y.long()) & m).sum())
-            total += int(m.sum())
-    return correct / max(total, 1)
+        pred = model(graph, spline_op=op).argmax(dim=1)
+    m = graph.node_mask
+    return ((pred == graph.y.long()) & m).sum(), m.sum()
+
+
+def step_loop(model: Net, opt, loaders, epochs: int, dev, generator,
+              capture: bool = False) -> StepLoop:
+    """The run's :class:`StepLoop`: the training step (dropout from
+    ``generator``) and the evaluation over each batch's cached operator
+    (one ``OperatorCache`` a loader, built on the host and kept on
+    ``dev``), captured over :func:`static_batch` es of both loaders if
+    ``capture``."""
+    def build(graph):
+        return {"spline_op": faust_spline_op(graph, dev)}
+
+    statics = tuple(static_batch(loader, dev) for loader in loaders) \
+        if capture else None
+    return StepLoop(
+        loaders, (OperatorCache(build), OperatorCache(build)),
+        lambda graph, ops: train_step(model, opt, graph, ops["spline_op"],
+                                      generator),
+        lambda graph, ops: counts_of(model, graph, ops["spline_op"]),
+        epochs, dev, capture, statics, generator)
 
 
 def load(seed: int = 0, num_vertices: int = 684, root=PLANETOID_ROOT,
@@ -123,40 +170,43 @@ def load(seed: int = 0, num_vertices: int = 684, root=PLANETOID_ROOT,
 
 
 def run(epochs: int = 3, seed: int = 0, num_vertices: int = 684,
-        device="cuda", loaders=None):
+        device="cuda", loaders=None, capture=None):
     """Train and print the JAX script's line per epoch. ``loaders``
-    (train, test) replaces :func:`load`'s. Returns the last test
-    accuracy, the mean loss of each epoch, every step's loss, the
-    operators built, the host seconds their build took and the run's
-    seconds."""
+    (train, test) replaces :func:`load`'s. ``capture`` (see the module
+    docstring) None means captured on a card and eager on the CPU; True
+    elsewhere than a card raises. Returns the last test accuracy, the
+    mean loss of each epoch, every step's loss, the operators built, the
+    host seconds their build took, the run's seconds and the model; a
+    captured run adds what ``models/capture.py:captured_metrics``
+    gives."""
     dev = resolve_device(device)
-    train_loader, test_loader = loaders or load(seed, num_vertices,
-                                                device=dev)
-    nv = train_loader.dataset[0].num_nodes
+    capture = resolve_capture(capture, dev)
+    loaders = loaders or load(seed, num_vertices, device=dev)
+    nv = loaders[0].dataset[0].num_nodes
     # the JAX script takes its first batch to shape the model, which
     # draws one epoch's order from the loader's generator
-    next(iter(train_loader))
+    next(iter(loaders[0]))
     model = Net(nv, generator=torch.Generator().manual_seed(seed)).to(dev)
-    opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2,
+                           capturable=dev.type == "cuda")
     drop = torch.Generator(device=dev).manual_seed(seed)
-    train_ops = OperatorCache(faust_spline_op)
-    test_ops = OperatorCache(faust_spline_op)
+    loop = step_loop(model, opt, loaders, epochs, dev, drop, capture)
     epoch_losses, step_losses = [], []
     t0 = time.perf_counter()
     for epoch in range(1, epochs + 1):
-        losses = [train_step(model, opt, graph, train_ops(idx, graph), drop)
-                  for idx, graph in train_loader.indexed()]
-        acc = evaluate(model, test_loader, test_ops)
-        losses = torch.stack(losses).cpu().numpy()
+        losses, (correct, total) = loop.epoch()
+        acc = correct / max(total, 1.0)
         step_losses.append(losses)
         epoch_losses.append(float(np.mean(losses)))
         print(f"Epoch {epoch:02d}, Loss: {epoch_losses[-1]:.4f}, "
               f"Test Acc: {acc:.4f}")
+    train_ops, test_ops = loop.operators
     return {"acc": acc, "epoch_losses": epoch_losses,
             "step_losses": np.stack(step_losses),
             "operators": len(train_ops.ops) + len(test_ops.ops),
             "operator_seconds": train_ops.seconds + test_ops.seconds,
-            "seconds": time.perf_counter() - t0}
+            "seconds": time.perf_counter() - t0, "model": model,
+            **loop.metrics()}
 
 
 if __name__ == "__main__":

@@ -12,8 +12,28 @@ sample at load time into index fields of fixed budgets
 arrive stacked (graphs, budget) and offset by each graph's first node;
 the padding entries point at a graph's node 0 and are masked. Every
 reduction of this path is a maximum (``PointConv``'s and the readout's,
-torch's ``scatter_reduce``, as neither package has a segment-max kernel),
-so it launches no kernel of the port.
+torch's ``scatter_reduce``, as neither package has a segment-max kernel).
+The second level gathers its input by sender through a
+``SortedSegmentSum`` over the batch's real level-2 neighbourhood entries
+(:func:`pointnet2_operators`, built on the host): its gradient then sums
+in the segment-sum kernel in a fixed order (one launch a training step;
+torch's gather backward adds with atomics in an order that varies from
+run to run, so two runs of one step would differ), and the path launches
+no other kernel of the port.
+
+The JAX script jits its training step and its evaluation once over the
+loaders' static budget. Here, on a card, each is a CUDA graph captured
+once (``models/capture.py:CapturedStep``, ``capture=None`` or ``True``)
+over static buffers of its loader's budget (:func:`static_batch`: the
+graph, its index fields included, and the static form of the level-2
+gather's operator). Each batch,
+the last one too, is collated on the host at the loader's budget (its
+missing graphs are padding, masked by ``graph_mask``), copied in, and the
+graph replays; Adam keeps its step count on the card; each step's loss
+and each test batch's correct and total counts stay in device buffers
+until the epoch ends (``models/capture.py:StepLoop``). ``capture=False``
+runs the same steps eagerly over each batch's own tensors (the CPU's only
+mode).
 """
 
 import argparse
@@ -30,10 +50,14 @@ from pytorch_geometric_tpu_torch.data.graph import Graph
 from pytorch_geometric_tpu_torch.datasets import ModelNet
 from pytorch_geometric_tpu_torch.datasets.graphs import PLANETOID_ROOT
 from pytorch_geometric_tpu_torch.device import resolve_device
+from pytorch_geometric_tpu_torch.models.capture import (
+    StaticBatch, StepLoop, resolve_capture)
 from pytorch_geometric_tpu_torch.models.graph_pred import graph_xent_loss
 from pytorch_geometric_tpu_torch.nn.conv import PointConv
 from pytorch_geometric_tpu_torch.nn.layers import Dense
 from pytorch_geometric_tpu_torch.nn.pool import global_max_pool
+from pytorch_geometric_tpu_torch.ops.sorted_spmm import (
+    SortedSegmentSum, StaticSegmentSum)
 from pytorch_geometric_tpu_torch.transforms import (
     Compose, NormalizeScale, SamplePoints)
 
@@ -113,7 +137,9 @@ class Net(nn.Module):
             x = torch.relu(getattr(self, f"Dense_{i}")(x))
         return x
 
-    def forward(self, graph: Graph):
+    def forward(self, graph: Graph, sender_op=None):
+        """``sender_op``: :func:`pointnet2_operators`' level-2 gather
+        (None: torch's gather)."""
         N = graph.num_nodes
         pos = graph.pos
         # per-graph index fields arrive stacked (G, budget); flatten:
@@ -125,7 +151,7 @@ class Net(nn.Module):
                      edge_mask=ex["sa1_edge_mask"])
         # h is indexed by global node id (centers only are valid)
         h = self.sa2(h, pos, ex["cluster_sa2_src"], ex["cluster_sa2_dst"],
-                     N, edge_mask=ex["sa2_edge_mask"])
+                     N, edge_mask=ex["sa2_edge_mask"], sender_op=sender_op)
         # the level-2 centers: a scatter-max of their mask (.at[].max)
         center = torch.zeros(N, dtype=torch.int32, device=pos.device)
         center = center.scatter_reduce(
@@ -141,25 +167,67 @@ def loss_of(logits, graph: Graph):
     return graph_xent_loss(logits, graph.y, graph.graph_mask)
 
 
-def train_step(model: Net, opt, graph: Graph):
-    """One Adam step on one batch; the loss stays on the device."""
-    opt.zero_grad(set_to_none=True)
-    loss = loss_of(model(graph), graph)
+def pointnet2_operators(graph: Graph):
+    """``{"sender_op"}`` of a batch on its device, built on the host: the
+    ``SortedSegmentSum`` over the level-2 neighbourhoods' senders, its
+    real entries only (``sa2_edge_mask``: a masked entry's message is
+    replaced before the max, so its gradient is 0)."""
+    ex = graph.extras
+    return {"sender_op": SortedSegmentSum(
+        ex["cluster_sa2_src"].reshape(-1), graph.num_nodes,
+        entry_mask=ex["sa2_edge_mask"].reshape(-1), device=graph.device)}
+
+
+def train_step(model: Net, opt, graph: Graph, ops=None):
+    """One Adam step on one batch over its :func:`pointnet2_operators`
+    (None: torch's gather), the gradients zeroed in place (a captured
+    step keeps them); the loss stays on the device."""
+    opt.zero_grad(set_to_none=False)
+    loss = loss_of(model(graph, **(ops or {})), graph)
     loss.backward()
     opt.step()
     return loss.detach()
 
 
-def evaluate(model: Net, loader: DataLoader):
-    """Accuracy of the argmax over the loader's real graphs."""
-    correct = total = 0
+def counts_of(model: Net, graph: Graph, ops):
+    """``(correct, total)`` of the argmax over the batch's real graphs
+    over ``ops`` (``{}``: torch's gather), as device scalars (the JAX
+    script's ``eval_step``)."""
     with torch.no_grad():
-        for graph in loader:
-            pred = model(graph).argmax(dim=1)
-            m = graph.graph_mask
-            correct += int(((pred == graph.y.long()) & m).sum())
-            total += int(m.sum())
-    return correct / max(total, 1)
+        pred = model(graph, **ops).argmax(dim=1)
+    m = graph.graph_mask
+    return ((pred == graph.y.long()) & m).sum(), m.sum()
+
+
+def static_batch(loader: DataLoader, device, sender_op: bool = True
+                 ) -> StaticBatch:
+    """The static buffers of ``loader``'s budget on ``device``: its graph,
+    the set-abstraction index fields included, and, with ``sender_op``,
+    the static form of :func:`pointnet2_operators` (a slot for each
+    level-2 neighbourhood entry of the budget's graphs)."""
+    ops = {}
+    if sender_op:
+        entries = loader.num_graphs * len(loader.dataset[0].cluster_sa2_src)
+        ops["sender_op"] = StaticSegmentSum(loader.num_nodes, entries,
+                                            device=device)
+    return StaticBatch(loader, ops, device)
+
+
+def step_loop(model: Net, opt, loaders, epochs: int, dev,
+              capture: bool = False) -> StepLoop:
+    """The run's :class:`StepLoop`: the training step over each batch's
+    :func:`pointnet2_operators` (built anew each batch: a shuffled batch
+    seldom repeats) and the evaluation over torch's gather (it takes no
+    gradient, and its forward is the same gather), captured over
+    :func:`static_batch` es of both loaders if ``capture``."""
+    statics = (static_batch(loaders[0], dev),
+               static_batch(loaders[1], dev, sender_op=False)) \
+        if capture else None
+    return StepLoop(loaders, (lambda idx, graph: pointnet2_operators(graph),
+                              lambda idx, graph: {}),
+                    lambda graph, ops: train_step(model, opt, graph, ops),
+                    lambda graph, ops: counts_of(model, graph, ops),
+                    epochs, dev, capture, statics)
 
 
 def load(seed: int = 0, batch_size: int = 16, samples_per_class: int = 12,
@@ -180,31 +248,37 @@ def load(seed: int = 0, batch_size: int = 16, samples_per_class: int = 12,
 
 
 def run(epochs: int = 3, batch_size: int = 16, seed: int = 0,
-        samples_per_class: int = 12, device="cuda", loaders=None):
+        samples_per_class: int = 12, device="cuda", loaders=None,
+        capture=None):
     """Train and print the JAX script's line per epoch; ``loaders``
-    (train, test) replaces :func:`load`'s. Returns the last test
-    accuracy, the mean loss of each epoch, every step's loss and the
-    run's seconds."""
+    (train, test) replaces :func:`load`'s. ``capture`` (see the module
+    docstring) None means captured on a card and eager on the CPU; True
+    elsewhere than a card raises. Returns the last test accuracy, the
+    mean loss of each epoch, every step's loss, the run's seconds and the
+    model; a captured run adds what
+    ``models/capture.py:captured_metrics`` gives."""
     dev = resolve_device(device)
-    train_loader, test_loader = loaders or load(seed, batch_size,
-                                                samples_per_class,
-                                                device=dev)
-    next(iter(train_loader))
+    capture = resolve_capture(capture, dev)
+    loaders = loaders or load(seed, batch_size, samples_per_class,
+                              device=dev)
+    next(iter(loaders[0]))
     model = Net(generator=torch.Generator().manual_seed(seed)).to(dev)
-    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3,
+                           capturable=dev.type == "cuda")
+    loop = step_loop(model, opt, loaders, epochs, dev, capture)
     epoch_losses, step_losses = [], []
     t0 = time.perf_counter()
     for epoch in range(1, epochs + 1):
-        losses = [train_step(model, opt, graph) for graph in train_loader]
-        acc = evaluate(model, test_loader)
-        losses = torch.stack(losses).cpu().numpy()
+        losses, (correct, total) = loop.epoch()
+        acc = correct / max(total, 1.0)
         step_losses.append(losses)
         epoch_losses.append(float(np.mean(losses)))
         print(f"Epoch {epoch:02d}, Loss: {np.mean(losses):.4f}, "
               f"Test Acc: {acc:.4f}")
     return {"acc": acc, "epoch_losses": epoch_losses,
             "step_losses": np.stack(step_losses),
-            "seconds": time.perf_counter() - t0}
+            "seconds": time.perf_counter() - t0, "model": model,
+            **loop.metrics()}
 
 
 if __name__ == "__main__":

@@ -18,11 +18,30 @@ leaving them out changes no sum, and no padding row remains. Each
 ``SAGEConv`` sums its input and a column of ones (its degrees) through
 it, so a training step launches ``spmm_csr`` 5 times (each layer's two
 forward sums, and conv2's ``dx``: conv1's input, the gathered features,
-takes no gradient), an evaluation batch 4. The step runs eagerly: every
-batch has its own operator.
+takes no gradient), an evaluation batch 4. The operator is built on the
+host by the sampler, beside its sampling (``NeighborSampler.iter_host``;
+in its producer thread when it prefetches), never inside the step.
+
+The JAX script jits its training step and its evaluation once over the
+sampler's static budgets. Here, on a card, each is a CUDA graph captured
+once (``models/capture.py:CapturedStep``, ``capture=None`` or ``True``)
+over static buffers of the sampler's budgets (:class:`StaticSampled`:
+the packed index batch, ``NeighborSampler.pack_batch``'s one int32
+buffer, and a ``StaticBiSpmm`` of the neighbour sums, a slot an edge of
+the budget: the same call as the batch's ``EmbedSpmm``, so the captured
+run equals the eager one bitwise). Each batch and its operator are
+copied in on the current stream through pinned memory, then the graph
+replays; the step unpacks the buffer and gathers its feature and label
+rows inside the graph. Adam keeps its step count on the card; the losses
+and the evaluation's counts stay in device buffers until the epoch ends
+(``models/capture.py:StepLoop`` over :class:`Sampled` batches).
+``capture=False`` copies each batch and its operator to the device and
+runs the same steps eagerly (the CPU's only mode). The sampler bounds
+the run's wall time; ``host_*_seconds`` report its share.
 """
 
 import argparse
+import itertools
 import time
 
 import numpy as np
@@ -34,9 +53,12 @@ from pytorch_geometric_tpu_torch.data.neighbor_loader import NeighborSampler
 from pytorch_geometric_tpu_torch.datasets import Reddit
 from pytorch_geometric_tpu_torch.datasets.graphs import PLANETOID_ROOT
 from pytorch_geometric_tpu_torch.device import resolve_device
+from pytorch_geometric_tpu_torch.models.capture import (
+    StepLoop, resolve_capture)
 from pytorch_geometric_tpu_torch.nn.conv import SAGEConv
-from pytorch_geometric_tpu_torch.ops.csr import host_array
+from pytorch_geometric_tpu_torch.ops.csr import copy_into, host_array
 from pytorch_geometric_tpu_torch.ops.embed_spmm import EmbedSpmm
+from pytorch_geometric_tpu_torch.ops.spmm import StaticBiSpmm
 
 
 class SAGE(nn.Module):
@@ -56,15 +78,50 @@ class SAGE(nn.Module):
         return self.conv2(graph, x, aggregate_fn=aggregate)
 
 
-def sage_aggregate(graph: Graph) -> EmbedSpmm:
+def sage_aggregate(graph: Graph, device=None) -> EmbedSpmm:
     """``x -> sum_{real edges s -> r} x[s]`` into the batch's rows: an
     ``EmbedSpmm`` (weights 1, fp32) over the batch's real edges, built on
-    the host from the batch's indices, on the batch's device."""
+    the host from the batch's indices, on ``device`` (default: the
+    batch's)."""
     real = host_array(graph.real_edge_mask())
     n = graph.num_nodes
     return EmbedSpmm(host_array(graph.senders)[real],
                      host_array(graph.receivers)[real], n, n,
-                     device=graph.senders.device)
+                     device=graph.senders.device if device is None
+                     else device)
+
+
+class StaticSampled:
+    """The static buffers of ``sampler``'s budgets on ``device``: the
+    packed index batch (:meth:`NeighborSampler.pack_batch`'s int32
+    buffer) and ``ops["aggregate"]``, a ``StaticBiSpmm`` of the neighbour
+    sums (node budget rows over node budget columns, a slot an edge of
+    the edge budget), which a captured step reads. :meth:`load` copies a
+    host batch and its host :func:`sage_aggregate` in on the current
+    stream; :attr:`graph` unpacks the buffer, inside the step, so that
+    each replay reads the batch copied in before it."""
+
+    def __init__(self, sampler: NeighborSampler, device):
+        n, e = sampler.node_budget, sampler.edge_budget
+        self.sampler = sampler
+        self.packed = torch.zeros(3 * e + 3 * n, dtype=torch.int32,
+                                  device=device)
+        self.ops = {"aggregate": StaticBiSpmm(n, n, e, device=device)}
+
+    def load(self, graph: Graph, ops):
+        """Copy a host batch and its ``{"aggregate"}`` in."""
+        packed = torch.from_numpy(self.sampler.pack_batch(graph))
+        if packed.shape != self.packed.shape:
+            raise ValueError(f"a packed batch of {packed.shape[0]} values "
+                             f"does not fit static buffers of "
+                             f"{self.packed.shape[0]}")
+        copy_into(self.packed, packed)
+        aggregate = ops["aggregate"]
+        self.ops["aggregate"].load((aggregate.geom, aggregate.consts))
+
+    @property
+    def graph(self) -> Graph:
+        return self.sampler.unpack(self.packed)
 
 
 def seed_loss(logits, y, seed_mask):
@@ -76,13 +133,15 @@ def seed_loss(logits, y, seed_mask):
     return (nll * m).sum() / m.sum().clamp_min(1.0)
 
 
-def train_step(model: SAGE, opt, graph: Graph, x_dev, y_dev):
+def train_step(model: SAGE, opt, graph: Graph, x_dev, y_dev, aggregate):
     """One Adam step on one batch, its rows gathered from the tables on
-    the card; the loss stays on the device."""
+    the card, the gradients zeroed in place (a captured step keeps them);
+    ``aggregate`` the batch's :func:`sage_aggregate` on its device. The
+    loss stays on the device."""
     ids = graph.extras["local_to_global"].long()
     x, y = x_dev[ids], y_dev[ids]
-    opt.zero_grad(set_to_none=True)
-    loss = seed_loss(model(graph, x, sage_aggregate(graph)), y,
+    opt.zero_grad(set_to_none=False)
+    loss = seed_loss(model(graph, x, aggregate), y,
                      graph.extras["seed_mask"])
     loss.backward()
     opt.step()
@@ -90,10 +149,10 @@ def train_step(model: SAGE, opt, graph: Graph, x_dev, y_dev):
 
 
 @torch.no_grad()
-def eval_step(model: SAGE, graph: Graph, x_dev, y_dev):
+def eval_step(model: SAGE, graph: Graph, x_dev, y_dev, aggregate):
     """``(correct, seeds)`` of one batch, device scalars."""
     ids = graph.extras["local_to_global"].long()
-    pred = model(graph, x_dev[ids], sage_aggregate(graph)).argmax(dim=1)
+    pred = model(graph, x_dev[ids], aggregate).argmax(dim=1)
     m = graph.extras["seed_mask"]
     return ((pred == y_dev[ids].long()) & m).sum(), m.sum()
 
@@ -119,13 +178,49 @@ def loaders(data, batch_size: int = 512, seed: int = 0, prefetch: int = 0,
     return train, val, x_dev, y_dev
 
 
+class Sampled:
+    """A source of host batches for ``models/capture.py:StepLoop``: the
+    first ``limit`` batches an epoch of ``loader``, each ``(batch,
+    {"aggregate": operator})`` on the host (``iter_host`` of a host
+    :func:`sage_aggregate`; in the producer thread when the loader
+    prefetches). ``host["operator_seconds"]`` adds each build."""
+
+    def __init__(self, loader: NeighborSampler, limit: int, host):
+        self.loader, self.limit, self.host = loader, limit, host
+
+    def __len__(self):
+        return min(len(self.loader), self.limit)
+
+    def _build(self, graph):
+        t0 = time.perf_counter()
+        op = sage_aggregate(graph, "cpu")
+        self.host["operator_seconds"] = \
+            self.host.get("operator_seconds", 0.0) + time.perf_counter() - t0
+        return op
+
+    def __iter__(self):
+        batches = self.loader.iter_host(self._build)
+        try:
+            for graph, op in itertools.islice(batches, len(self)):
+                yield graph, {"aggregate": op}
+        finally:
+            batches.close()
+
+
 def run(epochs: int = 1, batch_size: int = 512, seed: int = 0,
-        max_batches: int = 20, device="cuda", data=None):
+        max_batches: int = 20, device="cuda", data=None, capture=None):
     """Train and print the JAX script's line per epoch. ``data`` replaces
-    ``Reddit(datasets_cache)[0]`` (N_FULL // 8 nodes). Returns the last
-    validation accuracy, each step's loss, the chance level and the run's
-    seconds."""
+    ``Reddit(datasets_cache)[0]`` (N_FULL // 8 nodes). ``capture`` (see
+    the module docstring) None means captured on a card and eager on the
+    CPU; True elsewhere than a card raises. Returns the last validation
+    accuracy, the mean loss of each epoch, each step's loss, the chance
+    level, the run's seconds, the host's (``host_seconds``: the waits for
+    the batches and their copies; ``host_collate_seconds``,
+    ``host_operator_seconds``, ``host_copy_seconds``, ``host_batches``)
+    and the model; a captured run adds what
+    ``models/capture.py:captured_metrics`` gives."""
     dev = resolve_device(device)
+    capture = resolve_capture(capture, dev)
     if data is None:
         data = Reddit(str(PLANETOID_ROOT))[0]
     train, val, x_dev, y_dev = loaders(data, batch_size, seed, device=dev)
@@ -135,28 +230,32 @@ def run(epochs: int = 1, batch_size: int = 512, seed: int = 0,
     next(iter(train))
     model = SAGE(x_dev.shape[1], 128, num_classes,
                  generator=torch.Generator().manual_seed(seed)).to(dev)
-    opt = torch.optim.Adam(model.parameters(), lr=3e-3)
-    step_losses = []
+    opt = torch.optim.Adam(model.parameters(), lr=3e-3,
+                           capturable=dev.type == "cuda")
+    host = {}
+    statics = (StaticSampled(train, dev), StaticSampled(val, dev)) \
+        if capture else None
+    loop = StepLoop(
+        (Sampled(train, max_batches, host),
+         Sampled(val, max_batches // 2, host)), None,
+        lambda graph, ops: train_step(model, opt, graph, x_dev, y_dev,
+                                      ops["aggregate"]),
+        lambda graph, ops: eval_step(model, graph, x_dev, y_dev,
+                                     ops["aggregate"]),
+        epochs, dev, capture, statics, host=host)
+    epoch_losses, step_losses = [], []
     t0 = time.perf_counter()
     for epoch in range(1, epochs + 1):
-        losses = []
-        for i, graph in enumerate(train):
-            if i >= max_batches:
-                break
-            losses.append(train_step(model, opt, graph, x_dev, y_dev))
-        cor = tot = 0
-        for i, graph in enumerate(val):
-            if i >= max_batches // 2:
-                break
-            c, t = eval_step(model, graph, x_dev, y_dev)
-            cor, tot = cor + int(c), tot + int(t)
-        losses = torch.stack(losses).cpu().numpy()
+        losses, (cor, tot) = loop.epoch()
+        acc = cor / max(tot, 1.0)
         step_losses.append(losses)
+        epoch_losses.append(float(np.mean(losses)))
         print(f"Epoch {epoch:02d}, Loss: {np.mean(losses):.4f}, "
-              f"Val Acc: {cor / max(tot, 1):.4f}")
-    return {"acc": cor / max(tot, 1), "step_losses": np.stack(step_losses),
-            "chance": 1.0 / num_classes,
-            "seconds": time.perf_counter() - t0}
+              f"Val Acc: {acc:.4f}")
+    return {"acc": acc, "epoch_losses": epoch_losses,
+            "step_losses": np.stack(step_losses), "chance": 1.0 / num_classes,
+            "seconds": time.perf_counter() - t0, "model": model,
+            **{f"host_{k}": v for k, v in host.items()}, **loop.metrics()}
 
 
 if __name__ == "__main__":

@@ -56,6 +56,12 @@ budget, and writes its batch's counts or sums into another. A loader
 with ``dynamic_buckets`` has no single shape, so :func:`static_graph`
 refuses it. examples/enzymes_topk_pool.py's steps run on MUTAG's static
 batch; enzymes_diff_pool.py's dense batches keep one step a batch size.
+examples/faust.py, pointnet2.py and research/driver.py's inductive
+phases run their epochs through :class:`StepLoop`, which holds both
+steps and both curves; examples/reddit_sage.py's sampled batches come
+with their operators built by the sampler
+(``data/neighbor_loader.py:NeighborSampler.iter_host``) and are copied
+into static buffers of the sampler's budgets.
 
 The full-batch loops that do host work between spans of epochs
 (examples/autoencoder.py's tests, infomax.py's prints, mygcn.py's
@@ -297,7 +303,7 @@ class CapturedStep:
     synchronisation; ``launches`` the counted wrappers' launches by stage
     (``warm_up``, ``captured``, ``replays``; :func:`replayed_launches`).
     A capture that fails raises; nothing runs the step eagerly in its
-    place."""
+    place. :meth:`release` drops the graph and its memory pool."""
 
     def __init__(self, body: Callable[[], Any], dev: torch.device,
                  capture: bool = True,
@@ -338,6 +344,18 @@ class CapturedStep:
         self.launches["warm_up"] = _launched(counts[1], counts[0])
         self.launches["captured"] = _launched(counts[2], counts[1])
         return warm[0]
+
+    def release(self):
+        """Drop the captured graph and its output, and so the graph's
+        private memory pool; a later call raises."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.out = None
+        self.body = _released
+
+
+def _released():
+    raise RuntimeError("this captured step was released")
 
 
 class EpochSpans:
@@ -527,3 +545,123 @@ def static_batches(loader, operators: Callable, static: StaticBatch,
                         ("copy_seconds", t3 - t2), ("batches", 1)):
             host[key] = host.get(key, 0) + dt
         yield graph
+
+
+class StepLoop:
+    """The epochs of an inductive run: one training step a batch of the
+    train loader, then one evaluation a batch of the test loader, the way
+    examples/faust.py, pointnet2.py, reddit_sage.py and
+    research/driver.py's inductive phases run them. ``step(graph, ops)``
+    takes one optimizer step and returns its loss, a device scalar, which
+    goes into the next row of a :class:`DeviceCurve`; ``count(graph,
+    ops)`` (run without gradients) returns the batch's ``cols`` device
+    scalars (correct and total, or true and false positives and false
+    negatives), which go into another. ``operators`` is ``(train,
+    test)``: each a function of a batch's dataset indices and its graph
+    that returns its operators (a dict; an ``examples/ppi.py:
+    OperatorCache``). ``operators`` None: each of ``loaders`` is a source
+    of host batches instead, an iterable (its ``len`` the batches an
+    epoch) of ``(graph, ops)`` collated on the host with their operators
+    (examples/reddit_sage.py's sampled batches).
+
+    Captured (``capture``, a CUDA device): ``statics`` is the ``(train,
+    test)`` pair of static buffers (:class:`StaticBatch` es, or any with
+    its ``graph``, ``ops`` and ``load(graph, ops)``), each step a
+    :class:`CapturedStep` over one of them (the training step draws from
+    ``generator``, registered with its graph), each batch collated on the
+    host and copied in with its operators (:func:`static_batches`), then a
+    replay. Eager: the same steps over each batch's own tensors (a host
+    source's copied to ``dev`` first). ``host`` is the dict the host
+    times go into (:func:`static_batches`' keys; default: a new one)."""
+
+    def __init__(self, loaders, operators, step: Callable, count: Callable,
+                 epochs: int, dev: torch.device, capture: bool = False,
+                 statics=None, generator: Optional[torch.Generator] = None,
+                 cols: int = 2, host: Optional[Dict[str, float]] = None):
+        self.loaders, self.operators, self.dev = loaders, operators, dev
+        self.sizes = (len(loaders[0]), len(loaders[1]))
+        self.curve = DeviceCurve(epochs * self.sizes[0], 1, dev)
+        self.tally = DeviceCurve(epochs * self.sizes[1], cols, dev)
+        self.step_fn, self.capture, self.statics = step, capture, statics
+        self.count_fn = count
+        self.host: Dict[str, float] = {} if host is None else host
+        self.epochs = 0
+        if capture:
+            train, test = statics
+            self.steps = {
+                "train": CapturedStep(lambda: self._train(train.graph,
+                                                          train.ops),
+                                      dev, generator=generator),
+                "evaluation": CapturedStep(lambda: self._count(
+                    test.graph, test.ops), dev)}
+
+    def _train(self, graph: Graph, ops):
+        self.curve.record(self.step_fn(graph, ops))
+
+    def _count(self, graph: Graph, ops):
+        with torch.no_grad():
+            self.tally.record(*self.count_fn(graph, ops))
+
+    def _batches(self, which: int):
+        """One epoch of the ``which`` loader: ``(graph, ops)`` on the
+        device, or, captured, once each batch is copied into its static
+        buffers."""
+        loader = self.loaders[which]
+        if self.operators is None:
+            yield from self._host_batches(which)
+        elif self.capture:
+            for graph in static_batches(loader, self.operators[which],
+                                        self.statics[which], self.host):
+                yield graph, None
+        else:
+            for idx, graph in loader.indexed():
+                yield graph, self.operators[which](idx, graph)
+
+    def _host_batches(self, which: int):
+        batches = iter(self.loaders[which])
+        while True:
+            t0 = time.perf_counter()
+            try:
+                graph, ops = next(batches)
+            except StopIteration:
+                return
+            t1 = time.perf_counter()
+            if self.capture:
+                self.statics[which].load(graph, ops)
+            else:
+                graph = graph.to(self.dev)
+                ops = {k: op.to(self.dev) for k, op in ops.items()}
+            t2 = time.perf_counter()
+            for key, dt in (("seconds", t2 - t0), ("collate_seconds", t1 - t0),
+                            ("copy_seconds", t2 - t1), ("batches", 1)):
+                self.host[key] = self.host.get(key, 0) + dt
+            yield graph, ops
+
+    def epoch(self):
+        """One epoch: ``(losses, counts)`` on the host, every training
+        step's loss and the evaluation's counts summed over the test
+        batches (float64; one wait for the card each)."""
+        for which, run in ((0, self._train), (1, self._count)):
+            step = self.steps["train" if which == 0 else "evaluation"] \
+                if self.capture else None
+            for graph, ops in self._batches(which):
+                if step is not None:
+                    step()
+                else:
+                    run(graph, ops)
+        e, (n, m) = self.epochs, self.sizes
+        self.epochs += 1
+        return (self.curve.host(e * n, (e + 1) * n)[:, 0],
+                self.tally.host(e * m, (e + 1) * m).astype("float64").sum(0))
+
+    def metrics(self) -> Dict[str, Any]:
+        """Captured, :func:`captured_metrics` of both steps; else empty."""
+        return captured_metrics(self.steps, self.host) if self.capture \
+            else {}
+
+    def release(self):
+        """Release both captured steps' graphs
+        (:meth:`CapturedStep.release`)."""
+        if self.capture:
+            for step in self.steps.values():
+                step.release()

@@ -26,14 +26,26 @@ forward as keywords:
 - Spline: ``spline_op`` (one ``spline_operator`` serves every layer) and
   its ``pseudo``, 0.5 on every edge when the graph has no ``edge_attr``,
   as the JAX model;
-- TopK: GraphConv's ``spmm_op`` over the batch's edges and the readout's
-  ``pool_op`` (``pool_operator``), as examples/enzymes_topk_pool.py.
+- TopK: GraphConv's ``spmm_op`` over the batch's real edges and the
+  readout's ``pool_op`` (``pool_operator``), as
+  examples/enzymes_topk_pool.py (``examples/mutag_gin.py:
+  mutag_operators``).
+
+GCN and TopK, the models of research/driver.py's captured inductive
+phases, also give their operators' static forms,
+``model.static_operators(num_nodes, num_edges, num_graphs, device)``:
+buffers of a loader's budget, into which each batch's operators load
+(``models/capture.py:StaticBatch``). GCN's bound SpMM is
+``ops/spmm.py:spmm_static`` over the operator's geometry, the call of
+``SpmmOperator.bind``, in the form a ``StaticBiSpmm`` loads. The other
+models have none, and their inductive phases run eagerly.
 
 Without its operators a model sums with plain segment ops on a CPU
 tensor only, and raises on any other (``require_cpu``). Dropout draws
 its masks from the caller's ``generator``.
 """
 
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -50,11 +62,21 @@ from pytorch_geometric_tpu_torch.nn.message_passing import require_cpu
 from pytorch_geometric_tpu_torch.nn.pool import (
     TopKPooling, global_max_pool, global_mean_pool, pool_operator)
 from pytorch_geometric_tpu_torch.ops.packed_gat import PackedFlashGat
-from pytorch_geometric_tpu_torch.ops.spmm import SpmmOperator
+from pytorch_geometric_tpu_torch.ops.sorted_spmm import StaticSegmentSum
+from pytorch_geometric_tpu_torch.ops.spmm import (
+    SpmmOperator, StaticBiSpmm, StaticSpmmOperator)
 
 
 def _layers(model: nn.Module, prefix: str, count: int):
     return [getattr(model, f"{prefix}_{i}") for i in range(count)]
+
+
+def _bound(op: SpmmOperator, weights):
+    """``op.bind(weights)``'s call as ``spmm_static`` over ``op``'s
+    geometry and routed weights: a ``functools.partial`` that a
+    ``StaticBiSpmm`` loads."""
+    fn, consts = op.bind_external(weights)
+    return functools.partial(fn, consts)
 
 
 class PrunableGCN(nn.Module):
@@ -77,8 +99,21 @@ class PrunableGCN(nn.Module):
         self.out = GCNConv(prev, num_classes, generator=generator)
 
     def operators(self, graph: Graph):
-        op, weights = gcn_spmm_operator(graph)
-        return {"aggregate_fn": op.bind(weights)}
+        """``aggregate_fn``: the GCN edge set's bound SpMM, its weights
+        computed on a CPU copy of the graph (so that a batch collated on
+        the card and the same batch collated on the host give the same
+        operator), on the graph's device."""
+        op, weights = gcn_spmm_operator(graph.to("cpu"))
+        return {"aggregate_fn": _bound(op.to(graph.device), weights)}
+
+    @staticmethod
+    def static_operators(num_nodes: int, num_edges: int, num_graphs: int,
+                         device):
+        """The static form of :meth:`operators`: the GCN edge set's real
+        edges and a self loop a node."""
+        return {"aggregate_fn": StaticBiSpmm(num_nodes, num_nodes,
+                                             num_edges + num_nodes,
+                                             device=device)}
 
     def forward(self, graph: Graph, x, *, train: bool = False,
                 aggregate_fn=None,
@@ -283,10 +318,23 @@ class PrunableTopK(nn.Module):
         self.out = Dense(self.widths[-1], num_classes, generator=generator)
 
     def operators(self, graph: Graph):
+        """The ``SpmmOperator`` of the batch's real edges (a padding edge
+        weighs 0 at every level, so each real row's sum is the padded
+        operator's) and the readout's ``pool_operator``."""
         return {"spmm_op": SpmmOperator(graph.senders, graph.receivers,
                                         graph.num_nodes,
+                                        edge_mask=graph.real_edge_mask(),
                                         device=graph.device),
                 "pool_op": pool_operator(graph)}
+
+    @staticmethod
+    def static_operators(num_nodes: int, num_edges: int, num_graphs: int,
+                         device):
+        """The static form of :meth:`operators`."""
+        return {"spmm_op": StaticSpmmOperator(num_nodes, num_edges,
+                                              device=device),
+                "pool_op": StaticSegmentSum(num_graphs, num_nodes,
+                                            device=device)}
 
     def forward(self, graph: Graph, *, train: bool = False, spmm_op=None,
                 pool_op=None, generator: Optional[torch.Generator] = None):

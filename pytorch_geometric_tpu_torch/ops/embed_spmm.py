@@ -26,7 +26,7 @@ import torch
 from pytorch_geometric_tpu_torch.ops.csr import host_array
 from pytorch_geometric_tpu_torch.ops.packed_rgcn import PackedRgcnSpmm
 from pytorch_geometric_tpu_torch.ops.spmm import (
-    pack_bipartite_tables, spmm_bi_static)
+    BiSpmmGeom, pack_bipartite_tables, spmm_bi_static)
 
 #: The JAX ``RgcnBasisSpmm``: same constructor (``senders``, ``receivers``,
 #: ``edge_type``, ``num_relations``, ``num_nodes``, ``weights``,
@@ -57,6 +57,18 @@ class EmbedSpmm:
         self.geom, self.consts = pack_bipartite_tables(
             ids, receivers, self.num_table_rows, self.num_out, w,
             compute_dtype=torch.float32, device=device)
+
+    def to(self, device) -> "EmbedSpmm":
+        """This operator, its CSRs and values moved to ``device``: an
+        operator built on the host (``device="cpu"``) uploaded once."""
+        from pytorch_geometric_tpu_torch.device import resolve_device
+
+        dev = resolve_device(device)
+        g = self.geom
+        self.geom = BiSpmmGeom.make(g.fwd.to(dev), g.bwd.to(dev), g.n_src,
+                                    g.n_dst, g.compute)
+        self.consts = {k: v.to(dev) for k, v in self.consts.items()}
+        return self
 
     def __call__(self, table):
         return spmm_bi_static(self.geom, self.consts, table)

@@ -22,6 +22,22 @@ iterations on the device, and edits the model's parameters in place, so
 the next replay reads the corrected weights and AdamW keeps its moments
 across it as optax keeps ``opt_state``.
 
+The inductive phases (``train_part_graphcls``: PrunableTopK on a TU
+dataset; ``training_net_ppi``: a zoo model on PPI) take one Adam step a
+batch, which the JAX driver jits once over the loader's budget. Here, on
+a card, the training step and the evaluation are each a CUDA graph
+captured once over static buffers of its loader's budget (the model's
+``static_operators``, into which each batch's operators load) and
+replayed every batch (``models/capture.py:StepLoop``); each phase
+captures anew over the same buffers, the last phase's graphs released
+first. The losses and the evaluation's counts stay on the card until the
+epoch ends; the accuracy or F1, the checkpoint and the curves are host
+work between epochs. A model without static forms (GAT, Cheb, AGNN,
+Spline: no card run holds them captured against eager) runs its steps
+eagerly under ``capture=None``, and ``capture=True`` raises for it;
+``capture=False`` runs every model's steps eagerly, the CPU's only
+mode.
+
 ``--gpus N`` runs the graph-classification pipeline data-parallel over
 N ranks (``parallel/mesh.py:spawn``: one process per card, NCCL, or
 gloo ranks with ``device="cpu"``): every rank runs the whole pipeline on
@@ -50,7 +66,7 @@ from pytorch_geometric_tpu_torch.datasets.graphs import PLANETOID_ROOT
 from pytorch_geometric_tpu_torch.device import resolve_device
 from pytorch_geometric_tpu_torch.examples.ppi import OperatorCache, bce_loss
 from pytorch_geometric_tpu_torch.models.capture import (
-    EpochSpans, resolve_capture)
+    EpochSpans, StaticBatch, StepLoop, resolve_capture)
 from pytorch_geometric_tpu_torch.models.citation import (
     masked_accuracy, masked_softmax_xent)
 from pytorch_geometric_tpu_torch.models.graph_pred import graph_xent_loss
@@ -103,10 +119,13 @@ class TrainPartResult:
     correction (``epoch``, ``applied``, ``seconds``, and ``fiedler``, how
     many Fiedler pairs each backend computed), ``val_convergence`` (the
     validation accuracy after each span) and ``spans``, the phase's
-    ``EpochSpans`` (its ``metrics()``: seconds, launches by stage)."""
+    ``EpochSpans`` (its ``metrics()``: seconds, launches by stage); an
+    inductive phase's ``steps``: every step's loss (``step_losses``,
+    epochs x batches), its ``seconds`` and, captured, its
+    ``StepLoop.metrics()``."""
 
     def __init__(self, params, opt_state, train_conv, test_conv, best,
-                 corrections=None, val_conv=None, spans=None):
+                 corrections=None, val_conv=None, spans=None, steps=None):
         self.params = params
         self.opt_state = opt_state
         self.train_convergence = train_conv
@@ -115,6 +134,7 @@ class TrainPartResult:
         self.corrections = corrections or []
         self.val_convergence = val_conv or []
         self.spans = spans
+        self.steps = steps
 
 
 def clip_by_global_norm(parameters, max_norm: float = 5.0):
@@ -245,47 +265,115 @@ def _accuracy(model, test_loader, test_ops: OperatorCache) -> float:
     return cor / max(tot, 1)
 
 
+def inductive_capture(model, capture: Optional[bool], dev) -> bool:
+    """Whether an inductive phase of ``model`` on ``dev`` captures its
+    steps: ``capture`` as ``models/capture.py:resolve_capture``; a model
+    without ``static_operators`` runs eagerly under None and raises under
+    True."""
+    static = hasattr(model, "static_operators")
+    if capture is None:
+        return dev.type == "cuda" and static
+    capture = resolve_capture(capture, dev)
+    if capture and not static:
+        raise ValueError(f"{type(model).__name__} has no static operator "
+                         "forms to capture its steps over (pass "
+                         "capture=None or False)")
+    return capture
+
+
+def static_pair(model, loaders, dev):
+    """``(train, test)`` :class:`StaticBatch` es of ``loaders``' budgets
+    on ``dev``, with ``model``'s static operator forms."""
+    return tuple(StaticBatch(loader, model.static_operators(
+        loader.num_nodes, loader.num_edges, loader.num_graphs, dev), dev)
+        for loader in loaders)
+
+
+def _fit_inductive(model, loaders, operators, epochs, loss_of, counts,
+                   cols, metric, lr, seed, dev, capture, statics, ckpt,
+                   run_key, first_epoch):
+    """An inductive phase over :class:`StepLoop`: one Adam step a batch
+    (``loss_of(graph, ops, generator)``, dropout from a ``dev`` generator
+    seeded with ``seed``; Adam keeps its step count on the card there),
+    the evaluation's ``counts(graph, ops)`` (``cols`` device scalars) a
+    test batch, and between epochs the mean loss, ``metric`` of the
+    summed counts and a ``save_best`` (its epoch numbered from
+    ``first_epoch``). ``statics``: the :func:`static_pair` a captured
+    phase runs over. The captured steps are released before it
+    returns."""
+    opt = torch.optim.Adam(model.parameters(), lr=lr,
+                           capturable=dev.type == "cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def step(graph, ops):
+        opt.zero_grad(set_to_none=False)
+        loss = loss_of(graph, ops, gen)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    loop = StepLoop(loaders, operators, step, counts, epochs, dev, capture,
+                    statics, gen, cols)
+    train_conv, test_conv, step_losses = [], [], []
+    best = 0.0
+    t0 = time.perf_counter()
+    for epoch in range(epochs):
+        losses, summed = loop.epoch()
+        step_losses.append(losses)
+        train_conv.append(float(np.mean(losses)))
+        value = metric(summed)
+        test_conv.append(value)
+        best = max(best, value)
+        if ckpt is not None:
+            ckpt.save_best(run_key, value, model.state_dict(),
+                           opt.state_dict(), train_conv, test_conv,
+                           epoch=epoch + first_epoch)
+    steps = {"step_losses": np.stack(step_losses) if step_losses
+             else np.zeros((0, len(loaders[0])), np.float32),
+             "seconds": time.perf_counter() - t0, **loop.metrics()}
+    loop.release()
+    return TrainPartResult(model.state_dict(), opt.state_dict(), train_conv,
+                           test_conv, best, steps=steps)
+
+
+def _graph_counts(model, graph, ops):
+    """``(correct, total)`` of the argmax over the batch's real graphs."""
+    pred = model(graph, **ops).argmax(dim=1)
+    m = graph.graph_mask
+    return ((pred == graph.y.long()) & m).sum(), m.sum()
+
+
 def train_part_graphcls(model, train_loader, test_loader, params,
                         epochs: int, lr: float = 5e-4, seed: int = 0,
                         ckpt: Optional[CheckpointManager] = None,
                         run_key: str = "run",
-                        operators: Optional[OperatorCache] = None
+                        operators: Optional[OperatorCache] = None,
+                        capture: Optional[bool] = None, statics=None
                         ) -> TrainPartResult:
     """Graph-classification phase (the reference's TopKNet / batch-size
     pipeline, ConvexPruningBatchSize.py): one Adam step a batch over the
     loader, accuracy over the test loader's real graphs each epoch.
     ``operators`` caches each training batch's operators by its dataset
     indices (default: a new cache of ``model.operators``); the test
-    batches get a cache of their own."""
+    batches get a cache of their own. ``capture`` (see the module
+    docstring, :func:`inductive_capture`) None means captured on a card
+    over ``statics`` (default: a new :func:`static_pair`)."""
     if params is not None:
         model.load_state_dict(params)
-    ops = operators or OperatorCache(model.operators)
-    test_ops = OperatorCache(model.operators)
-    opt = torch.optim.Adam(model.parameters(), lr=lr)
-    gen = torch.Generator(device=train_loader.device).manual_seed(seed)
-    train_conv, test_conv = [], []
-    best = 0.0
-    for epoch in range(epochs):
-        model.train()
-        losses = []
-        for idx, graph in train_loader.indexed():
-            opt.zero_grad(set_to_none=True)
-            logits = model(graph, train=True, generator=gen,
-                           **ops(idx, graph))
-            loss = graph_xent_loss(logits, graph.y, graph.graph_mask)
-            loss.backward()
-            opt.step()
-            losses.append(loss.detach())
-        train_conv.append(float(torch.stack(losses).mean()))
-        acc = _accuracy(model, test_loader, test_ops)
-        test_conv.append(acc)
-        best = max(best, acc)
-        if ckpt is not None:
-            ckpt.save_best(run_key, acc, model.state_dict(), opt.state_dict(),
-                           train_conv, test_conv,
-                           epoch=epoch)
-    return TrainPartResult(model.state_dict(), opt.state_dict(), train_conv,
-                           test_conv, best)
+    dev = train_loader.device
+    capture = inductive_capture(model, capture, dev)
+    if capture and statics is None:
+        statics = static_pair(model, (train_loader, test_loader), dev)
+    return _fit_inductive(
+        model, (train_loader, test_loader),
+        (operators or OperatorCache(model.operators),
+         OperatorCache(model.operators)), epochs,
+        lambda graph, ops, gen: graph_xent_loss(
+            model(graph, train=True, generator=gen, **ops), graph.y,
+            graph.graph_mask),
+        functools.partial(_graph_counts, model), 2,
+        lambda c: c[0] / max(c[1], 1.0), lr, seed, dev, capture, statics,
+        ckpt, run_key, 0)
 
 
 def train_part_graphcls_dp(model, train_list_loader, test_loader, params,
@@ -368,7 +456,8 @@ def training_net_graphcls(dataset: str, model_name: str = "TopK",
                           ckpt_dir: str = "checkpoint",
                           num_devices: int = 1, device="cuda",
                           root=PLANETOID_ROOT,
-                          data_parallel: Optional[bool] = None):
+                          data_parallel: Optional[bool] = None,
+                          capture: Optional[bool] = None):
     """Graph-classification pipeline (reference TUDataset dispatch at
     ConvexPruning.py:487 and its MNISTSuperpixels one at :515).
 
@@ -377,7 +466,10 @@ def training_net_graphcls(dataset: str, model_name: str = "TopK",
     (``train_part_graphcls_dp``): ``batch_size`` rounded down to a
     multiple of the rank count, each shard's budget that of its largest
     graphs. Every rank runs the pipeline; rank 0 saves the files, and its
-    results are returned."""
+    results are returned. ``capture`` goes to ``train_part_graphcls``
+    (None: the steps captured on a card); the data-parallel phases run
+    eagerly, and ``capture=True`` raises for them. Each result holds the
+    two phases' :class:`TrainPartResult` (``phases``)."""
     dp = num_devices > 1 if data_parallel is None else data_parallel
     kwargs = dict(dataset=dataset, model_name=model_name,
                   num_layers=num_layers, con_coeff=con_coeff, alpha=alpha,
@@ -386,8 +478,12 @@ def training_net_graphcls(dataset: str, model_name: str = "TopK",
                   seed=seed, results_dir=results_dir, ckpt_dir=ckpt_dir,
                   num_devices=num_devices, device=device, root=root)
     if dp:
+        if capture:
+            raise ValueError("the data-parallel phases run eagerly (a "
+                             "captured step would hold a collective): pass "
+                             "capture=None or False")
         return spawn(_graphcls_rank, num_devices, kwargs, device=device)[0]
-    return _graphcls(None, **kwargs)
+    return _graphcls(None, capture=capture, **kwargs)
 
 
 def _graphcls_rank(rank, kwargs):
@@ -396,7 +492,8 @@ def _graphcls_rank(rank, kwargs):
 
 def _graphcls(rank, dataset, model_name, num_layers, con_coeff, alpha,
               epochs, fine_tune_epochs, batch_size, lr, monte_size, seed,
-              results_dir, ckpt_dir, num_devices, device, root):
+              results_dir, ckpt_dir, num_devices, device, root,
+              capture=None):
     """The pipeline on one device (``rank`` None) or in one rank."""
     dev = rank_device(device)
     if dataset.lower() == "mnist":
@@ -446,10 +543,16 @@ def _graphcls(rank, dataset, model_name, num_layers, con_coeff, alpha,
                     num_devices, shard_nodes, shard_edges, gps, lr=lr,
                     seed=sd, ckpt=ckpt, run_key=rk, device=dev)
         else:
+            statics = {}
+
             def fit(mdl, n_epochs, sd, rk):
+                if inductive_capture(mdl, capture, dev) and not statics:
+                    statics["pair"] = static_pair(
+                        mdl, (train_loader, test_loader), dev)
                 return train_part_graphcls(
                     mdl, train_loader, test_loader, None, n_epochs, lr=lr,
-                    seed=sd, ckpt=ckpt, run_key=rk, operators=ops)
+                    seed=sd, ckpt=ckpt, run_key=rk, operators=ops,
+                    capture=capture, statics=statics.get("pair"))
 
         phase1 = fit(model, epochs, seed, run_key + "-p1")
         new_widths = _pruned_widths(phase1.params, con_coeff, num_layers,
@@ -468,8 +571,23 @@ def _graphcls(rank, dataset, model_name, num_layers, con_coeff, alpha,
         results.append({"monte": monte, "widths": widths,
                         "new_widths": new_widths,
                         "pretrain_best": phase1.best_acc,
-                        "finetune_best": phase2.best_acc})
+                        "finetune_best": phase2.best_acc,
+                        "phases": (phase1, phase2)})
     return results
+
+
+def _ppi_counts(model, graph, ops):
+    """``(tp, fp, fn)`` of ``logits > 0`` over the batch's real nodes."""
+    pred = model(graph, graph.x, **ops) > 0
+    y = graph.y > 0.5
+    m = graph.real_node_mask()[:, None]
+    return ((pred & y & m).sum(), (pred & ~y & m).sum(),
+            (~pred & y & m).sum())
+
+
+def _micro_f1(c):
+    tp, fp, fn = c
+    return 2 * tp / max(2 * tp + fp + fn, 1.0)
 
 
 def training_net_ppi(model_name: str = "GCN", num_layers: int = 2,
@@ -479,13 +597,17 @@ def training_net_ppi(model_name: str = "GCN", num_layers: int = 2,
                      monte_size: int = 1, seed: int = 0,
                      results_dir: str = "Results",
                      ckpt_dir: str = "checkpoint", device="cuda",
-                     root=PLANETOID_ROOT):
+                     root=PLANETOID_ROOT, capture: Optional[bool] = None):
     """PPI pipeline (reference dispatch ConvexPruning.py:492-501):
     inductive multi-label node classification over the 20/2/2 split,
     sigmoid cross-entropy over the real nodes, micro-F1 on the test
     graphs, through the two-phase prune / fine-tune loop. Each distinct
     batch's operators are built once, on its first sight, and serve both
-    phases (``examples/ppi.py:OperatorCache``)."""
+    phases (``examples/ppi.py:OperatorCache``). ``capture`` (see the
+    module docstring, :func:`inductive_capture`) None means each phase's
+    steps captured on a card over one :func:`static_pair` of buffers.
+    Each result holds the two phases' :class:`TrainPartResult`
+    (``phases``)."""
     dev = resolve_device(device)
     train_ds = PPI(str(root), split="train")
     test_ds = PPI(str(root), split="test")
@@ -493,45 +615,21 @@ def training_net_ppi(model_name: str = "GCN", num_layers: int = 2,
     ckpt = CheckpointManager(ckpt_dir)
     out_dir = osp.join(results_dir, "PPIConvergence")
     os.makedirs(out_dir, exist_ok=True)
+    statics = {}
 
     def fit(model, n_epochs, sd, rk, train_ops, test_ops):
-        opt = torch.optim.Adam(model.parameters(), lr=lr)
-        gen = torch.Generator(device=dev).manual_seed(sd)
-        train_loader = DataLoader(train_ds, batch_size=batch_size,
-                                  shuffle=True, seed=sd, device=dev)
-        test_loader = DataLoader(test_ds, batch_size=batch_size, device=dev)
-        train_conv, test_conv, best = [], [], 0.0
-        for _ in range(n_epochs):
-            model.train()
-            losses = []
-            for idx, graph in train_loader.indexed():
-                opt.zero_grad(set_to_none=True)
-                loss = bce_loss(model(graph, graph.x, train=True,
-                                      generator=gen,
-                                      **train_ops(idx, graph)), graph)
-                loss.backward()
-                opt.step()
-                losses.append(loss.detach())
-            train_conv.append(float(torch.stack(losses).mean()))
-            model.eval()
-            tp = fp = fn = 0
-            with torch.no_grad():
-                for idx, graph in test_loader.indexed():
-                    logits = model(graph, graph.x, **test_ops(idx, graph))
-                    pred = logits > 0
-                    y = graph.y > 0.5
-                    m = graph.real_node_mask()[:, None]
-                    tp += int((pred & y & m).sum())
-                    fp += int((pred & ~y & m).sum())
-                    fn += int((~pred & y & m).sum())
-            f1 = 2 * tp / max(2 * tp + fp + fn, 1)       # micro-F1
-            test_conv.append(f1)
-            best = max(best, f1)
-            ckpt.save_best(rk, f1, model.state_dict(), opt.state_dict(),
-                           train_conv, test_conv,
-                           epoch=len(train_conv))
-        return TrainPartResult(model.state_dict(), opt.state_dict(),
-                               train_conv, test_conv, best)
+        loaders = (DataLoader(train_ds, batch_size=batch_size, shuffle=True,
+                              seed=sd, device=dev),
+                   DataLoader(test_ds, batch_size=batch_size, device=dev))
+        captured = inductive_capture(model, capture, dev)
+        if captured and not statics:
+            statics["pair"] = static_pair(model, loaders, dev)
+        return _fit_inductive(
+            model, loaders, (train_ops, test_ops), n_epochs,
+            lambda graph, ops, gen: bce_loss(model(
+                graph, graph.x, train=True, generator=gen, **ops), graph),
+            functools.partial(_ppi_counts, model), 3, _micro_f1, lr, sd,
+            dev, captured, statics.get("pair"), ckpt, rk, 1)
 
     results = []
     for monte in range(monte_size):
@@ -562,7 +660,8 @@ def training_net_ppi(model_name: str = "GCN", num_layers: int = 2,
                         "new_widths": new_widths,
                         "pretrain_best": phase1.best_acc,
                         "finetune_best": phase2.best_acc,
-                        "operators": len(train_ops.ops) + len(test_ops.ops)})
+                        "operators": len(train_ops.ops) + len(test_ops.ops),
+                        "phases": (phase1, phase2)})
     return results
 
 

@@ -597,7 +597,8 @@ def test_reddit_sage_model_matches_the_jax_script():
         (jl, _), grads = grad(params, jgraph)
         updates, opt = tx.update(grads, opt, params)
         params = optax.apply_updates(params, updates)
-        loss = reddit_sage.train_step(model, topt, graph, x_dev, y_dev)
+        loss = reddit_sage.train_step(model, topt, graph, x_dev, y_dev,
+                                      reddit_sage.sage_aggregate(graph))
         _close(loss, jl, 1e-5)
     want = params_from_jax(params)
     for name, p in model.state_dict().items():
